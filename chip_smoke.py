@@ -45,8 +45,8 @@ TOL = {"complex64": 5e-6, "complex128": 1e-12}
 # The 3-D plan against torch.fft.fftn, as tests/test_pallas_backend.py.
 PATH_TOL = 2e-4
 ROUNDTRIP_TOL = 1e-4
-# Published peaks of one H100 SXM (on-chip-measurement guide): float32 on
-# the CUDA cores, and HBM bandwidth.
+# Published peaks of one H100 SXM: float32 on the CUDA cores, and HBM
+# bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_SOURCE = "src/repro_torch/csrc/fft_fourstep.cu"
