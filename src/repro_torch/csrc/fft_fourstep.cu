@@ -10,13 +10,15 @@
 //   step 3  F2[k1, k2] = sum_m2 G[k1, m2] * W2[k2, m2]
 //   step 4  out[k1 + N1*k2] = F2[k1, k2] (* tw[k1 + N1*k2]) (/ N if inverse)
 // W1, W2 and T are the DFT and twiddle matrices, built in float64 on the
-// host and cast (kernels/fft_matmul.py::_planes).  The forward/inverse sign
-// lives in them; the kernel only applies the 1/N scale.
+// host and cast (kernels/fft_matmul.py::_device_constants).  The
+// forward/inverse sign lives in them; the kernel only applies the 1/N scale.
 //
-// What bounds it on an H100: at N = 512 the two contractions do
-// 8*N*(N1+N2) flops per line against 16 bytes of complex64 moved per
-// element, about 48 flops per byte, so the fp32 CUDA-core rate (67 TFLOP/s)
-// bounds it before the 3.35 TB/s of HBM does.  TF32 tensor cores would
+// What bounds it on an H100: the function (a length-N DFT of each line)
+// needs about 5*N*log2(N) flops per line, against 16 bytes of complex64
+// moved per element, so HBM (3.35 TB/s) is its floor.  The dense four-step
+// chosen here does 8*N*(N1+N2) flops per line instead, about 390 per
+// element at N = 512 (48 flops per byte), which puts its own work above
+// that floor on the fp32 CUDA cores (67 TFLOP/s).  TF32 tensor cores would
 // keep only 10 mantissa bits and break the 5e-6 parity with torch.fft, so
 // every product is an fp32 (or fp64) FMA on the CUDA cores.
 //
@@ -68,18 +70,10 @@ __device__ __forceinline__ cpx<R> cmul(cpx<R> a, cpx<R> b) {
   return r;
 }
 
-// Shared memory, in complex elements: W1 (n1*n1), T (n1*n2), the output
-// twiddle (n, optional), W2 (n2*n2, optional), the staged lines
-// (lines*n) and G (lines*n1*(n2+1)).  kernels/fft_matmul.py::launch_config
-// computes the same sum.
-__host__ __device__ inline long long smem_elems(int n1, int n2, int has_tw,
-                                                int w2_smem, int lines) {
-  const long long n = (long long)n1 * n2;
-  return (long long)n1 * n1 + n + (has_tw ? n : 0) +
-         (w2_smem ? (long long)n2 * n2 : 0) + (long long)lines * n +
-         (long long)lines * n1 * (n2 + 1);
-}
-
+// Shared memory, in this order: W1 (n1*n1), T (n1*n2), the output twiddle
+// (n, optional), W2 (n2*n2, optional), the staged lines (lines*n) and G
+// (lines*n1*(n2+1)).  The wrapper sizes it (kernels/fft_matmul.py::
+// smem_bytes) and passes the byte count in.
 template <typename R>
 __global__ void __launch_bounds__(kThreads)
 fourstep_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
@@ -171,16 +165,15 @@ fourstep_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
 template <typename R>
 int launch(const void* x, void* out, const void* w1, const void* w2,
            const void* t, const void* tw, long long batch, int n1, int n2,
-           int inverse, int parts, int lines, int w2_smem, void* stream) {
+           int inverse, int parts, int lines, int w2_smem, int smem_bytes,
+           void* stream) {
   if (batch <= 0) return 0;
-  const size_t bytes =
-      (size_t)smem_elems(n1, n2, tw != nullptr, w2_smem, lines) * sizeof(cpx<R>);
   cudaError_t err = cudaFuncSetAttribute(
       fourstep_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (batch + lines - 1) / lines;
-  fourstep_kernel<R><<<(unsigned)blocks, kThreads, bytes,
+  fourstep_kernel<R><<<(unsigned)blocks, kThreads, (size_t)smem_bytes,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
       static_cast<const cpx<R>*>(w1), static_cast<const cpx<R>*>(w2),
@@ -195,25 +188,23 @@ extern "C" {
 
 // Returns the CUDA error code of the launch (0 on success).  `tw` may be
 // null (no output twiddle).  `out` holds (parts, batch, n1*n2/parts).
+// `smem_bytes` is the dynamic shared memory of one block.
 int repro_fft_fourstep_c64(const void* x, void* out, const void* w1,
                            const void* w2, const void* t, const void* tw,
                            long long batch, int n1, int n2, int inverse,
-                           int parts, int lines, int w2_smem, void* stream) {
+                           int parts, int lines, int w2_smem, int smem_bytes,
+                           void* stream) {
   return launch<float>(x, out, w1, w2, t, tw, batch, n1, n2, inverse, parts,
-                       lines, w2_smem, stream);
+                       lines, w2_smem, smem_bytes, stream);
 }
 
 int repro_fft_fourstep_c128(const void* x, void* out, const void* w1,
                             const void* w2, const void* t, const void* tw,
                             long long batch, int n1, int n2, int inverse,
-                            int parts, int lines, int w2_smem, void* stream) {
+                            int parts, int lines, int w2_smem, int smem_bytes,
+                            void* stream) {
   return launch<double>(x, out, w1, w2, t, tw, batch, n1, n2, inverse, parts,
-                        lines, w2_smem, stream);
-}
-
-long long repro_fft_fourstep_smem_bytes(int n1, int n2, int has_tw,
-                                        int w2_smem, int lines, int itemsize) {
-  return smem_elems(n1, n2, has_tw, w2_smem, lines) * itemsize;
+                        lines, w2_smem, smem_bytes, stream);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -1,7 +1,7 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's CUDA kernel at first use and load it with ctypes.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds).
+``csrc/fft_fourstep.cu`` compiles with ``nvcc`` into a shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds).
 Libraries land in ``build/repro_torch/`` at the root of the checkout (listed
 in ``.gitignore``), named by a hash of the source and the flags, so an
 edited source rebuilds and an unchanged one loads at once.  Several
@@ -22,12 +22,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fft_fourstep",)
+SOURCE = "fft_fourstep"
 
 
 @dataclasses.dataclass
@@ -71,53 +71,38 @@ def _target(name: str) -> Path:
     return build_dir() / f"lib{name}_{digest[:16]}.so"
 
 
-def _start(name: str, target: Path) -> subprocess.Popen:
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(csrc_dir() / f"{name}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-
-def build(names: Sequence[str] = SOURCES, *,
-          timer: Callable[[], float] = time.perf_counter
-          ) -> Dict[str, BuiltLibrary]:
-    """Build (all ``nvcc`` runs started together) and load ``names``.
-
-    Already loaded libraries are returned as they are.  Raises
-    ``RuntimeError`` with nvcc's output when a build fails.
+def build(name: str = SOURCE, *,
+          timer: Callable[[], float] = time.perf_counter) -> BuiltLibrary:
+    """Build ``csrc/<name>.cu`` unless an earlier build is on disk, and load
+    it.  A library already loaded is returned as it is.  Raises
+    ``RuntimeError`` with nvcc's output when the build fails.
     """
     with _LOCK:
-        todo = [n for n in names if n not in _LOADED]
-        build_dir().mkdir(parents=True, exist_ok=True)
-        procs = {}
-        t0 = timer()
-        for name in todo:
-            target = _target(name)
-            if not target.exists():
-                procs[name] = (target, _start(name, target))
-        logs = {}
-        for name, (target, proc) in procs.items():
-            out, _ = proc.communicate()
-            logs[name] = out
+        built = _LOADED.get(name)
+        if built is not None:
+            return built
+        target = _target(name)
+        log, seconds = "", 0.0
+        if not target.exists():
+            build_dir().mkdir(parents=True, exist_ok=True)
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            if proc.returncode != 0:
+            t0 = timer()
+            res = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(csrc_dir() / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            seconds, log = timer() - t0, res.stdout
+            if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed to build {name}.cu "
-                                   f"(exit {proc.returncode}):\n{out}")
+                                   f"(exit {res.returncode}):\n{log}")
             os.replace(tmp, target)
-        seconds = timer() - t0
-        for name in todo:
-            target = _target(name)
-            _LOADED[name] = BuiltLibrary(
-                name=name, path=target, lib=ctypes.CDLL(str(target)),
-                seconds=seconds if name in procs else 0.0,
-                log=logs.get(name, ""))
-        return {n: _LOADED[n] for n in names}
+        built = BuiltLibrary(name=name, path=target,
+                             lib=ctypes.CDLL(str(target)), seconds=seconds,
+                             log=log)
+        _LOADED[name] = built
+        return built
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str = SOURCE) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
-    built = _LOADED.get(name)
-    if built is None:
-        built = build((name,))[name]
-    return built.lib
+    return build(name).lib

@@ -37,10 +37,10 @@ import threading
 from collections import OrderedDict
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
-from ..core.transforms import factorize, fourstep_fft_planes, real_dtype
+from ..core.transforms import (_dft_planes, _twiddle_planes, factorize,
+                               fourstep_fft_planes, real_dtype)
 
 #: Dynamic shared memory one block may take on Hopper (227 KB).
 SMEM_MAX_BYTES = 232448
@@ -52,23 +52,6 @@ MAX_LINES_PER_BLOCK = 16
 DTYPES = (torch.complex64, torch.complex128)
 
 
-def _planes(n1: int, n2: int, inverse: bool,
-            dtype: str = "complex64") -> Tuple[np.ndarray, ...]:
-    """Constant operands W1 (n1, n1), W2 (n2, n2), T (n1, n2), complex.
-
-    Built in float64 and cast to ``dtype``, so complex64 runs see
-    well-rounded phases.  The sign carries the direction.
-    """
-    n = n1 * n2
-    sign = 1.0 if inverse else -1.0
-    j1 = np.arange(n1, dtype=np.float64)
-    j2 = np.arange(n2, dtype=np.float64)
-    w1 = np.exp(1j * (sign * 2 * np.pi / n1) * np.outer(j1, j1))
-    w2 = np.exp(1j * (sign * 2 * np.pi / n2) * np.outer(j2, j2))
-    t = np.exp(1j * (sign * 2 * np.pi / n) * np.outer(j1, j2))
-    return tuple(np.ascontiguousarray(a.astype(dtype)) for a in (w1, w2, t))
-
-
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
     lines: int          # lines per block
@@ -78,7 +61,9 @@ class LaunchConfig:
 
 def smem_bytes(n1: int, n2: int, itemsize: int, twiddle: bool,
                w2_in_smem: bool, lines: int) -> int:
-    """Shared memory of one block (mirrors ``smem_elems`` in the source)."""
+    """Dynamic shared memory of one block, in the order the kernel carves
+    it: W1, T, the output twiddle, W2, the staged lines, G (row pitch
+    n2 + 1).  The launch passes this count to the kernel."""
     n = n1 * n2
     elems = (n1 * n1 + n + (n if twiddle else 0)
              + (n2 * n2 if w2_in_smem else 0)
@@ -126,16 +111,25 @@ _CONST_LOCK = threading.Lock()
 
 def _device_constants(n1: int, n2: int, inverse: bool, dtype: torch.dtype,
                       device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """W1, W2, T on ``device``, cached per (n1, n2, inverse, dtype, device)."""
+    """W1, W2, T on ``device``, cached per (n1, n2, inverse, dtype, device).
+
+    Complex forms of the plain version's cos/sin planes
+    (``transforms._dft_planes``/``_twiddle_planes``): built in float64 and
+    cast, so complex64 runs see well-rounded phases.
+    """
     key = (n1, n2, bool(inverse), dtype, device)
     with _CONST_LOCK:
         hit = _CONST_CACHE.get(key)
         if hit is not None:
             _CONST_CACHE.move_to_end(key)
             return hit
-    name = str(dtype).removeprefix("torch.")
-    consts = tuple(torch.from_numpy(a).to(device)
-                   for a in _planes(n1, n2, inverse, name))
+    sign = 1.0 if inverse else -1.0
+    planes = (_dft_planes(n1, sign, "float64"),
+              _dft_planes(n2, sign, "float64"),
+              _twiddle_planes(n1, n2, sign, "float64"))
+    consts = tuple(torch.from_numpy(cos + 1j * sin).to(device=device,
+                                                       dtype=dtype)
+                   for cos, sin in planes)
     with _CONST_LOCK:
         _CONST_CACHE[key] = consts
         while len(_CONST_CACHE) > _CONST_CACHE_SIZE:
@@ -215,7 +209,7 @@ def _launch(x: torch.Tensor, inverse: bool, twiddle: Optional[torch.Tensor],
         err = fn(x.data_ptr(), buf.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                  t.data_ptr(), tw.data_ptr() if tw is not None else None,
                  b, n1, n2, int(inverse), parts, cfg.lines,
-                 int(cfg.w2_in_smem), stream)
+                 int(cfg.w2_in_smem), cfg.smem_bytes, stream)
     if err:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"fft_fourstep launch failed for B={b}, N={n}, "
@@ -233,10 +227,8 @@ def _declare(lib) -> None:
         return
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.repro_fft_fourstep_c64, lib.repro_fft_fourstep_c128):
-        fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
         fn.restype = i
-    lib.repro_fft_fourstep_smem_bytes.argtypes = [i, i, i, i, i, i]
-    lib.repro_fft_fourstep_smem_bytes.restype = ll
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     lib._repro_declared = True

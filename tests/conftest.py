@@ -35,8 +35,3 @@ def run_subprocess(code: str, devices: int = 8, timeout: int = 600) -> str:
                          text=True, timeout=timeout, env=env)
     assert res.returncode == 0, f"subprocess failed:\n{res.stdout}\n{res.stderr}"
     return res.stdout
-
-
-def pytest_configure(config):
-    config.addinivalue_line(
-        "markers", "cuda: needs an NVIDIA GPU; skipped when CUDA is absent")

@@ -77,19 +77,3 @@ def test_kernel_plan_on_the_card(cuda):
     assert_scaled_close(back.cpu().numpy(), x.cpu().numpy(), 1e-4)
     assert np.isfinite(y.cpu().numpy()).all()
 
-
-@pytest.mark.cuda
-def test_shared_memory_sizing_matches_the_source(cuda):
-    """The wrapper's launch sizing and the kernel's carve-up of shared
-    memory (``smem_elems`` in the source) agree."""
-    from repro_torch.core.transforms import factorize
-    from repro_torch.kernels import build
-    lib = build.load("fft_fourstep")
-    tfm._declare(lib)
-    for n, itemsize, tw in ((512, 8, False), (521, 8, False),
-                            (1024, 16, True), (33, 8, True)):
-        cfg = tfm.launch_config(n, itemsize, tw)
-        n1, n2 = factorize(n)
-        assert lib.repro_fft_fourstep_smem_bytes(
-            n1, n2, int(tw), int(cfg.w2_in_smem), cfg.lines,
-            itemsize) == cfg.smem_bytes

@@ -178,11 +178,13 @@ def test_packed_fft1d_is_the_send_buffer(axis, parts):
 
 
 def test_constant_planes_match_reference():
+    """The kernel's complex constants equal the Pallas kernel's planes."""
     for n1, n2, inv in ((16, 32, False), (1, 13, True), (4, 6, False)):
-        w1, w2, t = tfm._planes(n1, n2, inv, "complex128")
+        consts = tfm._device_constants(n1, n2, inv, torch.complex128,
+                                       torch.device("cpu"))
         j = jfm._planes(n1, n2, inv, "float64")
-        for got, (re, im) in zip((w1, w2, t), (j[0:2], j[2:4], j[4:6])):
-            np.testing.assert_allclose(got, re + 1j * im, atol=1e-12)
+        for got, (re, im) in zip(consts, (j[0:2], j[2:4], j[4:6])):
+            np.testing.assert_allclose(got.numpy(), re + 1j * im, atol=1e-12)
 
 
 def test_launch_config_fits_shared_memory():
