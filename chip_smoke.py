@@ -12,7 +12,8 @@ its result line):
    time and the card's ``nvidia-smi`` name and power limit;
 2. hold the four-step kernel against its plain PyTorch version on the card
    over the shapes of ``tests/test_kernels.py`` (both directions, prime N,
-   empty batch, ragged tiles, ``pack_parts``, the twiddle, complex128);
+   empty batch, ragged tiles, ``pack_parts``, the twiddle, complex128,
+   lazily conjugated operands and twiddles);
 3. the main path: ``plan_fft`` of a 512^3 complex64 grid on a (1, 1)
    ``("data", "model")`` mesh with ``backend="kernel"``, forward and
    inverse for 3 rounds, checked against ``torch.fft.fftn`` and the round
@@ -21,7 +22,18 @@ its result line):
 4. the ``pack_parts`` epilogue at the local shapes of a 2x2 mesh: stage 0
    of the 512^3 pencil packs for the first hop, matches the plain version,
    and the hop's send buffer is the kernel's output (same ``data_ptr``);
-5. a ``kernels`` JSON line, then the result line.
+5. the Poisson path: a ``PoissonSolver`` of the (periodic, periodic,
+   bounded) topology at 512^3 float32 on ``backend="kernel"``, 3 solves
+   with exactly 2 ``twiddle`` + 2 ``fourstep`` launches per forward and 4
+   ``fourstep`` per inverse; its forward against ``torch.fft`` on dims 0
+   and 1 and a mirrored length-2N DCT-II along dim 2, its solve against a
+   float64 ``cufft``-backend solve (whose Neumann residual is checked);
+   CUDA-event times of both backends' solves and of the DCT stages;
+6. the twiddle epilogue at the DCT-II stage's shape, timed;
+7. an R2C plan, ``kinds=("rfft", "fft", "fft")`` at 512^3 on the kernel
+   backend: 3 launches per direction, forward against
+   ``torch.fft.fftn(x)[:257]``, and the round trip;
+8. a ``kernels`` JSON line, then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -122,7 +134,9 @@ def phase_build() -> dict:
 
 
 def kernel_cases():
-    """(b, n, inverse, pack_parts, twiddle, dtype name) over test_kernels.py."""
+    """(b, n, inverse, pack_parts, twiddle, dtype name, conj) over
+    test_kernels.py; ``conj`` names the operand passed as a lazily
+    conjugated view ("x" or "twiddle"), or is empty."""
     c64, c128 = "complex64", "complex128"
     cases = []
     for b, n in [(1, 16), (4, 64), (8, 128), (3, 96), (130, 512), (2, 33),
@@ -147,6 +161,10 @@ def kernel_cases():
     cases.append((3, 4096, True, None, False, c64))
     cases.append((0, 16, False, None, False, c64))
     cases.append((0, 16, False, 4, False, c64))
+    cases = [c + ("",) for c in cases]
+    cases.append((130, 512, False, None, False, c64, "x"))
+    cases.append((130, 512, False, None, True, c64, "twiddle"))
+    cases.append((5, 48, True, None, True, c128, "x"))
     return cases
 
 
@@ -154,13 +172,17 @@ def phase_kernel_vs_plain(device) -> dict:
     import torch
     from repro_torch.kernels.fft_matmul import fft_fourstep, fft_fourstep_plain
     worst = {"complex64": 0.0, "complex128": 0.0}
-    for i, (b, n, inv, parts, tw, dt) in enumerate(kernel_cases()):
+    for i, (b, n, inv, parts, tw, dt, conj) in enumerate(kernel_cases()):
         dtype = getattr(torch, dt)
         x = randc((b, n), dtype, device, SEED + i)
         twiddle = None
         if tw:
             k = torch.arange(n, dtype=torch.float64, device=device)
             twiddle = torch.exp(-1j * math.pi * k / (2 * n)).to(dtype)
+        if conj == "x":
+            x = x.conj()
+        elif conj == "twiddle":
+            twiddle = twiddle.conj()
         got = fft_fourstep(x, inverse=inv, twiddle=twiddle, pack_parts=parts)
         ref = fft_fourstep_plain(x, inverse=inv, twiddle=twiddle,
                                  pack_parts=parts)
@@ -173,11 +195,18 @@ def phase_kernel_vs_plain(device) -> dict:
             buf = got.transpose(0, 1)
             check(buf.is_contiguous(), f"case {i}: pack buffer not "
                   f"destination-major")
+        if conj:
+            # the plain version honours the conjugate bit; so must the kernel
+            want = torch.fft.ifft(x) if inv else torch.fft.fft(x)
+            want = want * twiddle if twiddle is not None else want
+            check(scaled_err(got, want) <= TOL[dt], f"case {i}: conj "
+                  f"{conj} against torch.fft: scaled error "
+                  f"{scaled_err(got, want):.3e}")
         err = scaled_err(got, ref)
         worst[dt] = max(worst[dt], err)
         check(err <= TOL[dt], f"case {i} (B={b}, N={n}, inverse={inv}, "
-              f"pack={parts}, twiddle={tw}, {dt}): scaled error {err:.3e} "
-              f"> {TOL[dt]}")
+              f"pack={parts}, twiddle={tw}, {dt}, conj={conj!r}): scaled "
+              f"error {err:.3e} > {TOL[dt]}")
     n_cases = len(kernel_cases())
     print(f"[kernel] {n_cases} cases match the plain version: worst scaled "
           f"error {worst['complex64']:.3e} (complex64, bound "
@@ -333,9 +362,181 @@ def phase_pack(device, grid=GRID, mesh_shape=(2, 2), iters: int = 10):
     return out
 
 
+PPB = ("periodic", "periodic", "bounded")
+
+
+def dct2_mirrored(x, dim: int = -1):
+    """Unnormalized DCT-II along ``dim`` by the mirrored length-2N identity,
+    dct2(x)[k] = exp(-i*pi*k/(2N)) * fft(cat(x, flip(x)))[k] for k < N,
+    which is linear over the reals, so complex x transforms plane by
+    plane.  Shares no code with the port's even/odd reorder."""
+    import torch
+    xm = x.movedim(dim, -1)
+    n = xm.shape[-1]
+    k = torch.arange(n, dtype=torch.float64, device=x.device)
+    phase = torch.exp(-1j * math.pi * k / (2 * n)).to(torch.complex64)
+    full = torch.fft.fft(torch.cat([xm, xm.flip(-1)], dim=-1))
+    return (phase * full[..., :n]).movedim(-1, dim)
+
+
+def neumann_residual(phi, rhs) -> float:
+    """Max-scaled residual of the discrete Laplacian on a box of sides 2*pi
+    (periodic on dims 0 and 1, Neumann ghost cells on dim 2), as
+    tests/test_distributed_fft.py checks the PPB solve."""
+    import torch
+    dx2 = [(2 * math.pi / n) ** 2 for n in phi.shape]
+    pz = torch.cat([phi[:, :, :1], phi, phi[:, :, -1:]], dim=2)
+    lap = ((phi.roll(1, 0) + phi.roll(-1, 0) - 2 * phi) / dx2[0]
+           + (phi.roll(1, 1) + phi.roll(-1, 1) - 2 * phi) / dx2[1]
+           + (pz[:, :, 2:] + pz[:, :, :-2] - 2 * phi) / dx2[2])
+    return float((lap - rhs).abs().max() / rhs.abs().max())
+
+
+def phase_poisson(device, grid=GRID, solves: int = 3, iters: int = 5):
+    """The PPB pressure solve on the kernel backend: launches per solve,
+    the forward against an independent DCT reference, the solve against a
+    float64 solve on the cufft backend, and CUDA-event times."""
+    import torch
+    from repro_torch import PoissonSolver, make_mesh
+    from repro_torch.core.transforms import apply_1d
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                reset_launch_counts)
+    cuda = device.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if cuda else device)
+    solver = PoissonSolver(mesh, grid, topology=PPB, backend="kernel")
+    print(f"[poisson] {solver.describe().splitlines()[0]}; "
+          f"{solver.plan.describe().splitlines()[2].strip()}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    rhs = torch.randn(grid, dtype=torch.float32, device=device,
+                      generator=gen)
+    rhs -= rhs.mean()
+
+    reset_launch_counts()
+    for i in range(solves):
+        before = dict(fft_fourstep.variant_launches)
+        phi = solver(rhs)
+        if cuda:
+            torch.cuda.synchronize(device)
+        got = {k: fft_fourstep.variant_launches[k] - before[k]
+               for k in before}
+        if cuda:
+            check(got == {"fourstep": 6, "pack": 0, "twiddle": 2},
+                  f"solve {i}: launches {got}, expected 6 fourstep (2 "
+                  f"forward, 4 inverse) and 2 twiddle (forward)")
+    launches = dict(fft_fourstep.variant_launches)
+
+    before = dict(fft_fourstep.variant_launches)
+    yk = solver.plan.forward(rhs)
+    fwd = {k: fft_fourstep.variant_launches[k] - before[k] for k in before}
+    if cuda:
+        torch.cuda.synchronize(device)
+        check(fwd == {"fourstep": 2, "pack": 0, "twiddle": 2},
+              f"PPB forward: launches {fwd}, expected 2 fourstep and 2 "
+              f"twiddle")
+    check(tuple(yk.shape) == tuple(grid) and yk.dtype == torch.complex64,
+          f"PPB forward output {tuple(yk.shape)} {yk.dtype}")
+    check(bool(torch.isfinite(torch.view_as_real(yk)).all()),
+          "PPB forward output has non-finite values")
+    ref = dct2_mirrored(torch.fft.fft2(rhs, dim=(0, 1)), 2)
+    err_fwd = scaled_err(yk, ref)
+    del ref
+    check(err_fwd <= PATH_TOL, f"PPB forward vs fft2 + mirrored DCT-II: "
+          f"scaled error {err_fwd:.3e} > {PATH_TOL}")
+
+    check(tuple(phi.shape) == tuple(grid) and phi.dtype == torch.float32,
+          f"solve output {tuple(phi.shape)} {phi.dtype}")
+    solver64 = PoissonSolver(mesh, grid, topology=PPB, dtype=torch.float64,
+                             backend="cufft")
+    phi64 = solver64(rhs.double())
+    err_solve = scaled_err(phi.double(), phi64)
+    check(err_solve <= PATH_TOL, f"PPB solve vs the float64 solve: scaled "
+          f"error {err_solve:.3e} > {PATH_TOL}")
+    res64 = neumann_residual(phi64, rhs.double())
+    check(res64 <= 1e-3, f"float64 PPB solve: Neumann residual "
+          f"{res64:.3e} > 1e-3")
+    del phi64, solver64
+    print(f"[poisson] {solves} solves: launches {launches} (2 twiddle + 2 "
+          f"fourstep per forward, 4 fourstep per inverse); forward vs fft2 "
+          f"+ mirrored DCT-II scaled error {err_fwd:.3e} (bound {PATH_TOL}), "
+          f"solve vs float64 solve {err_solve:.3e} (bound {PATH_TOL}), "
+          f"float64 Neumann residual {res64:.3e} (bound 1e-3)")
+    out = {"grid": list(grid), "solves": solves, "launches": launches,
+           "forward_launches": fwd, "err_fwd": err_fwd,
+           "err_solve": err_solve, "float64_neumann_residual": res64}
+    if not cuda:
+        return out
+
+    csolver = PoissonSolver(mesh, grid, topology=PPB, backend="cufft")
+    y01 = torch.fft.fft2(rhs, dim=(0, 1))
+    times = {
+        "solve_kernel_ms": time_ms(lambda: solver(rhs), iters),
+        "solve_cufft_ms": time_ms(lambda: csolver(rhs), iters),
+        "fwd_kernel_ms": time_ms(lambda: solver.plan.forward(rhs), iters),
+        "inv_kernel_ms": time_ms(
+            lambda: solver.plan.inverse(yk, sharded_in=True), iters),
+        # The bounded dim alone: planes split, even/odd reorder, one
+        # launch per plane (twiddle forward, fourstep inverse), recombine.
+        "dct2_stage_ms": time_ms(
+            lambda: apply_1d(y01, 2, "dct2", backend="kernel"), iters),
+        "dct3_stage_ms": time_ms(
+            lambda: apply_1d(yk, 2, "dct3", backend="kernel"), iters),
+        "dct2_stage_cufft_ms": time_ms(
+            lambda: apply_1d(y01, 2, "dct2", backend="cufft"), iters),
+    }
+    out.update(times)
+    print("[poisson] times (ms, CUDA events): " + ", ".join(
+        f"{k}={v:.4f}" for k, v in times.items()))
+    return out
+
+
+def phase_r2c(device, grid=GRID):
+    """``kinds=("rfft", "fft", "fft")`` on the kernel backend: launches per
+    direction, forward against torch.fft.fftn, round trip."""
+    import torch
+    from repro_torch import make_mesh, plan_fft
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                reset_launch_counts)
+    cuda = device.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if cuda else device)
+    plan = plan_fft(mesh, grid, kinds=("rfft", "fft", "fft"),
+                    backend="kernel")
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    x = torch.randn(grid, dtype=torch.float32, device=device, generator=gen)
+    reset_launch_counts()
+    y = plan.forward(x)
+    per_fwd = fft_fourstep.launches
+    xr = plan.inverse(y, sharded_in=True)
+    per_inv = fft_fourstep.launches - per_fwd
+    if cuda:
+        torch.cuda.synchronize(device)
+        check(per_fwd == 3 and per_inv == 3, f"R2C: {per_fwd} forward and "
+              f"{per_inv} inverse launches, expected 3 each")
+    nfreq = grid[0] // 2 + 1
+    check(tuple(y.shape) == (nfreq,) + tuple(grid[1:])
+          and y.dtype == torch.complex64, f"R2C forward output "
+          f"{tuple(y.shape)} {y.dtype}")
+    check(xr.dtype == torch.float32, f"R2C inverse output {xr.dtype}")
+    err_fwd = scaled_err(y, torch.fft.fftn(x)[:nfreq])
+    err_rt = scaled_err(xr, x)
+    check(err_fwd <= PATH_TOL, f"R2C forward vs torch.fft.fftn: scaled "
+          f"error {err_fwd:.3e} > {PATH_TOL}")
+    check(err_rt <= ROUNDTRIP_TOL, f"R2C round trip: scaled error "
+          f"{err_rt:.3e} > {ROUNDTRIP_TOL}")
+    print(f"[r2c] {tuple(grid)} -> {tuple(y.shape)}: forward vs "
+          f"torch.fft.fftn[:{nfreq}] scaled error {err_fwd:.3e} (bound "
+          f"{PATH_TOL}), round trip {err_rt:.3e} (bound {ROUNDTRIP_TOL}); "
+          f"launches {per_fwd} forward, {per_inv} inverse")
+    return {"grid": list(grid), "launches_fwd": per_fwd,
+            "launches_inv": per_inv, "err_fwd": err_fwd,
+            "err_roundtrip": err_rt}
+
+
 def phase_twiddle_timing(device, b: int = 262144, n: int = 512,
                          iters: int = 10) -> dict:
-    """The twiddle epilogue (no transform of this slice calls it)."""
+    """The twiddle epilogue at the PPB solve's DCT-II stage shape: the
+    512^2 lines of length 512 of one plane."""
     import torch
     from repro_torch.kernels.fft_matmul import fft_fourstep, fft_fourstep_plain
     lines = randc((b, n), torch.complex64, device, SEED + 2)
@@ -374,7 +575,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["pack"] = pack = phase_pack(device)
     torch.cuda.empty_cache()
+    report["poisson"] = poisson = phase_poisson(device)
+    torch.cuda.empty_cache()
     report["twiddle"] = tw = phase_twiddle_timing(device)
+    torch.cuda.empty_cache()
+    report["r2c"] = phase_r2c(device)
     kernels = [
         {"name": "fft_fourstep", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "src/repro/kernels/fft_matmul.py:216",
@@ -394,13 +599,22 @@ def main() -> int:
          "ms": pack["ms"], "plain_ms": pack["plain_ms"],
          "bound_ms": pack["bound_ms"], "bound_by": pack["bound_by"],
          "library_ms": None},
+        {"name": "fft_fourstep_twiddle", "route": "cuda",
+         "source": KERNEL_SOURCE,
+         "replaces": "src/repro/kernels/fft_matmul.py:126",
+         "launches": poisson["launches"]["twiddle"],
+         "max_abs_err": tw["max_abs_err"], "scaled_err": tw["scaled_err"],
+         "ms": tw["ms"], "plain_ms": tw["plain_ms"],
+         "bound_ms": tw["bound_ms"], "bound_by": tw["bound_by"],
+         "library_ms": None},
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t0
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print("[twiddle] off-path variant at (262144, 512): " + json.dumps(tw))
+    print("[twiddle] the DCT-II stage's kernel at (262144, 512): "
+          + json.dumps(tw))
     print(f"[done] {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

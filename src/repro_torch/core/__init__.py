@@ -1,7 +1,9 @@
 # The distributed FFT framework on PyTorch: stage-specific decompositions,
-# bulk redistribution over torch.distributed, plan caching, and the plan API.
-from .api import (DistributedFFT, clear_plan_memo, fft2d, fft3d, fftnd,
-                  ifft2d, ifft3d, ifftnd, plan_cache_stats, plan_fft)
+# bulk redistribution over torch.distributed, plan caching, the plan API and
+# the spectral Poisson solver.
+from .api import (DistributedFFT, PoissonSolver, clear_plan_memo, fft2d,
+                  fft3d, fftnd, ifft2d, ifft3d, ifftnd, plan_cache_stats,
+                  plan_fft, poisson_eigenvalues, poisson_solve)
 from .decomp import (Decomposition, RedistHop, Redistribution, StageLayout,
                      default_dim_groups, hybrid_nd, local_shape,
                      make_decomposition, pencil, pencil_nd, slab, slab_nd,
@@ -17,6 +19,7 @@ from . import transforms
 __all__ = [
     "DistributedFFT", "plan_fft", "plan_cache_stats", "clear_plan_memo",
     "fft3d", "ifft3d", "fft2d", "ifft2d", "fftnd", "ifftnd",
+    "PoissonSolver", "poisson_solve", "poisson_eigenvalues",
     "Decomposition", "RedistHop", "Redistribution", "StageLayout",
     "default_dim_groups", "hybrid_nd", "local_shape",
     "make_decomposition", "pencil", "pencil_nd", "slab", "slab_nd",

@@ -8,6 +8,10 @@ The port's counterpart of the JAX package's ``core/api.py``:
     x2 = plan.inverse(yk)       # paired inverse, same schedule
     print(plan.describe())
 
+    solver = PoissonSolver(mesh, (512, 512, 512),
+                           topology=("periodic", "periodic", "bounded"))
+    phi = solver(rhs)           # lap(phi) = rhs, Neumann along the bounded dim
+
 ``forward(x)`` takes the full global tensor and each rank transforms its
 stage-0 block of it (``device_put`` in the reference);
 ``forward(x, sharded_in=True)`` takes this rank's block as it is.  Either
@@ -19,9 +23,9 @@ and no donation.
 Only ``tuning="off"`` is ported: the schedule comes from the explicit
 knobs, or from a :class:`~.plan.TunedPlan` record passed as ``tuned=``
 (which may come from the JAX package's wisdom JSON).  The legacy wrappers
-``fftnd``/``ifftnd``/``fft2d``/``ifft2d``/``fft3d``/``ifft3d`` memoize one
-plan per problem key in an LRU (``$REPRO_TORCH_PLAN_MEMO_SIZE``, default
-64).
+``fftnd``/``ifftnd``/``fft2d``/``ifft2d``/``fft3d``/``ifft3d`` and
+``poisson_solve`` memoize one plan (or solver) per problem key in an LRU
+(``$REPRO_TORCH_PLAN_MEMO_SIZE``, default 64).
 """
 from __future__ import annotations
 
@@ -29,9 +33,10 @@ import threading
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..compat import Mesh, local_block
+from ..compat import Mesh, local_block, shard_index
 from . import transforms
 from .decomp import describe_decomp, make_decomposition, validate_grid
 from .pipeline import (PipelineSpec, TensorStruct, build_pipeline,
@@ -65,9 +70,28 @@ def _default_fft_axes(mesh: Mesh, decomp: str, ndim: int) -> Tuple[str, ...]:
     return (names[-1],)
 
 
-def _forward_plan_dtype(x_dtype: torch.dtype) -> torch.dtype:
-    """C2C plans take complex input; a real operand's precision picks it."""
-    return x_dtype if x_dtype.is_complex else transforms.complex_dtype(x_dtype)
+def _real_input(kinds: Tuple[str, ...]) -> bool:
+    """R2C and R2R pipelines keep real input real."""
+    return kinds[0] == "rfft" or any(k in transforms.R2R_KINDS for k in kinds)
+
+
+def _forward_plan_dtype(x_dtype: torch.dtype,
+                        kinds: Tuple[str, ...]) -> torch.dtype:
+    """The plan input dtype implied by a forward operand's dtype: R2C and
+    R2R pipelines take it as it is; pure-C2C input is promoted to the
+    complex dtype of its precision."""
+    if _real_input(kinds) or x_dtype.is_complex:
+        return x_dtype
+    return transforms.complex_dtype(x_dtype)
+
+
+def _inverse_plan_dtype(y_dtype: torch.dtype,
+                        kinds: Tuple[str, ...]) -> torch.dtype:
+    """The *forward* plan dtype implied by a spectral operand's dtype:
+    real-input pipelines take the real dtype of its precision."""
+    if _real_input(kinds):
+        return transforms.real_dtype(y_dtype)
+    return transforms.complex_dtype(y_dtype)
 
 
 class DistributedFFT:
@@ -89,6 +113,8 @@ class DistributedFFT:
         self.batch_shape = tuple(batch_shape)
         self.tuned = tuned
         self.tuning = tuning
+        # Wrapper-memoized plans are held by every caller of the wrapper.
+        self.shared = False
         self._in_struct = input_struct(mesh, fwd_spec, self.batch_shape,
                                        dtype)
         self._out_struct = output_struct(mesh, fwd_spec, self.batch_shape,
@@ -278,8 +304,9 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
     """Build a :class:`DistributedFFT` plan for the trailing ``len(grid)``
     dims of ``batch_shape + grid``-shaped operands on ``mesh``.
 
-    ``dtype`` is the forward input dtype (default complex64; a real dtype
-    is promoted to the complex dtype of its precision).  ``backend`` is
+    ``dtype`` is the forward input dtype: default complex64 for C2C kinds
+    (a real dtype is promoted to the complex dtype of its precision) and
+    float32 for R2C/R2R pipelines, which take real input.  ``backend`` is
     one of ``transforms.LOCAL_BACKENDS`` (default ``"cufft"``).
     ``tuned=`` takes the schedule from a :class:`TunedPlan` record instead
     of the knobs.  ``tuning="heuristic"``/``"auto"`` are not ported yet and
@@ -301,11 +328,12 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
             f"tuning={tuning!r} is not ported yet; pass tuning='off' with "
             f"explicit knobs, or a TunedPlan record as tuned=")
     batch_shape = tuple(int(n) for n in batch_shape)
-    dtype = torch.complex64 if dtype is None else dtype
+    if dtype is None:
+        dtype = torch.float32 if _real_input(kinds) else torch.complex64
     if dtype not in DTYPES:
         raise ValueError(f"plan_fft: dtype must be one of {DTYPES}, "
                          f"got {dtype}")
-    dtype = _forward_plan_dtype(dtype)
+    dtype = _forward_plan_dtype(dtype, kinds)
 
     if tuned is not None:
         explicit = [name for name, val in (("decomp", decomp),
@@ -429,10 +457,14 @@ def _wrapper_plan(mesh: Mesh, grid, kinds, batch_shape, dtype, decomp,
            dtype, decomp, backend, n_chunks,
            tuple(mesh_axes) if mesh_axes is not None else None, tuning)
 
-    return _memoized(key, lambda: plan_fft(
-        mesh, grid, kinds=kinds, batch_shape=batch_shape, dtype=dtype,
-        decomp=decomp, backend=backend, n_chunks=n_chunks,
-        mesh_axes=mesh_axes, tuning=tuning))
+    def build() -> DistributedFFT:
+        plan = plan_fft(mesh, grid, kinds=kinds, batch_shape=batch_shape,
+                        dtype=dtype, decomp=decomp, backend=backend,
+                        n_chunks=n_chunks, mesh_axes=mesh_axes, tuning=tuning)
+        plan.shared = True
+        return plan
+
+    return _memoized(key, build)
 
 
 def fftnd(x: torch.Tensor, *, mesh: Mesh, ndim: Optional[int] = None,
@@ -458,8 +490,8 @@ def fftnd(x: torch.Tensor, *, mesh: Mesh, ndim: Optional[int] = None,
     n_batch = x.dim() - ndim
     plan = _wrapper_plan(mesh, tuple(x.shape[n_batch:]), kinds,
                          tuple(x.shape[:n_batch]),
-                         _forward_plan_dtype(x.dtype), decomp, backend,
-                         n_chunks, mesh_axes, tuning)
+                         _forward_plan_dtype(x.dtype, kinds), decomp,
+                         backend, n_chunks, mesh_axes, tuning)
     return plan.forward(x)
 
 
@@ -471,7 +503,9 @@ def ifftnd(x: torch.Tensor, *, mesh: Mesh, ndim: Optional[int] = None,
            mesh_axes: Optional[Sequence[str]] = None,
            tuning: str = "off") -> torch.Tensor:
     """Inverse of ``fftnd`` on the global spectral tensor ``x``; ``kinds``
-    are the FORWARD kinds.  Shares the plan ``fftnd`` memoized."""
+    are the FORWARD kinds.  Shares the plan ``fftnd`` memoized.  For R2C
+    pipelines pass ``grid``, the real-space grid (the frequency dim of
+    ``x`` is padded, so it cannot be inferred)."""
     ndim = (x.dim() if grid is None else len(grid)) if ndim is None else ndim
     if ndim < 2:
         raise ValueError("ifftnd needs >= 2 transform dims "
@@ -484,8 +518,8 @@ def ifftnd(x: torch.Tensor, *, mesh: Mesh, ndim: Optional[int] = None,
     n_batch = x.dim() - ndim
     logical = tuple(grid) if grid is not None else tuple(x.shape[n_batch:])
     plan = _wrapper_plan(mesh, logical, kinds, tuple(x.shape[:n_batch]),
-                         _forward_plan_dtype(x.dtype), decomp, backend,
-                         n_chunks, mesh_axes, tuning)
+                         _inverse_plan_dtype(x.dtype, kinds), decomp,
+                         backend, n_chunks, mesh_axes, tuning)
     return plan.inverse(x)
 
 
@@ -508,5 +542,147 @@ def fft3d(x: torch.Tensor, *, mesh: Mesh, kinds: Sequence[str] = _DEF_KINDS,
 def ifft3d(x: torch.Tensor, *, mesh: Mesh,
            grid: Optional[Tuple[int, int, int]] = None,
            kinds: Sequence[str] = _DEF_KINDS, **kw) -> torch.Tensor:
-    """Inverse of ``fft3d``.  ``kinds`` are the FORWARD kinds."""
+    """Inverse of ``fft3d``.  ``kinds`` are the FORWARD kinds; R2C
+    pipelines need ``grid``, the real-space grid."""
     return ifftnd(x, mesh=mesh, ndim=3, grid=grid, kinds=kinds, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Spectral Poisson solver (Oceananigans-style), on one paired plan.
+# ---------------------------------------------------------------------------
+
+def poisson_eigenvalues(n: int, length: float = 2 * np.pi,
+                        topology: str = "periodic") -> np.ndarray:
+    """Second-order finite-difference spectral eigenvalues
+    (Oceananigans-style)."""
+    dx = length / n
+    i = np.arange(n)
+    if topology == "periodic":
+        return (2.0 * (np.cos(2.0 * np.pi * i / n) - 1.0)) / dx**2
+    # bounded (staggered-grid DCT eigenvalues)
+    return (2.0 * (np.cos(np.pi * i / n) - 1.0)) / dx**2
+
+
+def _poisson_kinds(topology: Sequence[str]) -> Tuple[str, ...]:
+    return tuple("fft" if t == "periodic" else "dct2" for t in topology)
+
+
+class PoissonSolver:
+    """Spectral solver for lap(phi) = rhs on a (Periodic|Bounded)^3 box.
+
+    Periodic dims use C2C FFTs; Bounded dims use DCT-II (homogeneous
+    Neumann), matching the Oceananigans pressure-solver topologies in paper
+    Fig. 8.  One :class:`DistributedFFT` plan serves both directions, and
+    the eigenvalue array is built once per dtype and device, as this
+    rank's block of the forward output layout.  Only ``tuning="off"`` is
+    ported (``plan_fft`` raises for the other modes).  ``solve`` takes the
+    global rhs, or this rank's stage-0 block with ``sharded_in=True``, and
+    returns this rank's block of phi.
+    """
+
+    def __init__(self, mesh: Mesh, grid: Sequence[int], *,
+                 topology: Tuple[str, str, str] = ("periodic",) * 3,
+                 lengths: Tuple[float, ...] = (2 * np.pi,) * 3,
+                 batch_shape: Sequence[int] = (),
+                 dtype: torch.dtype = torch.float32,
+                 decomp: Optional[str] = None,
+                 backend: Optional[str] = None,
+                 n_chunks: Optional[int] = None,
+                 mesh_axes: Optional[Sequence[str]] = None,
+                 tuning: str = "off"):
+        grid = tuple(int(n) for n in grid)
+        if len(grid) != 3:
+            raise ValueError(f"PoissonSolver needs a 3-D grid, got {grid}")
+        self.topology = tuple(topology)
+        self.lengths = tuple(lengths)
+        kinds = _poisson_kinds(self.topology)
+        self.plan = plan_fft(mesh, grid, kinds=kinds,
+                             batch_shape=batch_shape,
+                             dtype=_forward_plan_dtype(dtype, kinds),
+                             decomp=decomp, backend=backend,
+                             n_chunks=n_chunks, mesh_axes=mesh_axes,
+                             tuning=tuning)
+        lams = [poisson_eigenvalues(n, l, t)
+                for n, l, t in zip(grid, self.lengths, self.topology)]
+        lam = (lams[0][:, None, None] + lams[1][None, :, None]
+               + lams[2][None, None, :])
+        lam[0, 0, 0] = 1.0  # pin the null mode (mean) to zero
+        self._lam = lam
+        self._lam_dev: Dict[Tuple[torch.dtype, torch.device],
+                            torch.Tensor] = {}
+        spec = self.plan.out_struct.spec[-3:]
+        # Only the rank holding global spectral index (0, 0, 0) zeroes it.
+        self._owns_null_mode = all(shard_index(e, mesh)[0] == 0
+                                   for e in spec)
+
+    def _lam_for(self, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+        key = (dtype, device)
+        lam = self._lam_dev.get(key)
+        if lam is None:
+            full = torch.from_numpy(self._lam).to(device=device, dtype=dtype)
+            lam = local_block(full, self.plan.out_struct.spec[-3:],
+                              self.plan.mesh).contiguous()
+            self._lam_dev[key] = lam
+        return lam
+
+    def describe(self) -> str:
+        topo = "x".join(t[0].upper() for t in self.topology)
+        return (f"PoissonSolver(topology={topo}, tuning={self.plan.tuning!r})"
+                f"\n{self.plan.describe()}")
+
+    def solve(self, rhs: torch.Tensor, *,
+              sharded_in: bool = False) -> torch.Tensor:
+        """One pressure solve; the null (mean) mode is zeroed per batch
+        element and real input comes back real."""
+        real_in = not rhs.is_complex()
+        xk = self.plan.forward(rhs, sharded_in=sharded_in)
+        scaled = xk / self._lam_for(transforms.real_dtype(xk.dtype),
+                                    xk.device)
+        if self._owns_null_mode:
+            # Index only the trailing 3 spectral dims, so every leading
+            # batch element is zeroed, not just batch index 0.
+            scaled[..., 0, 0, 0] = 0
+        phi = self.plan.inverse(scaled, sharded_in=True)
+        if real_in and phi.is_complex():
+            phi = phi.real
+        return phi
+
+    def __call__(self, rhs: torch.Tensor, **kw) -> torch.Tensor:
+        return self.solve(rhs, **kw)
+
+
+def poisson_solve(rhs: torch.Tensor, *, mesh: Mesh,
+                  topology: Tuple[str, str, str] = ("periodic",) * 3,
+                  lengths: Tuple[float, ...] = (2 * np.pi,) * 3,
+                  decomp: Optional[str] = None,
+                  backend: Optional[str] = None,
+                  n_chunks: Optional[int] = None,
+                  mesh_axes: Optional[Sequence[str]] = None,
+                  tuning: str = "off") -> torch.Tensor:
+    """Solve lap(phi) = rhs spectrally; thin wrapper over PoissonSolver.
+
+    Leading dims of the global ``rhs`` beyond the trailing 3 are batch
+    dims.  Builds (and memoizes, per topology/geometry) a
+    :class:`PoissonSolver`, so repeated solves share one paired plan and
+    one eigenvalue array; returns this rank's block of phi.
+    """
+    grid = tuple(rhs.shape[-3:])
+    batch_shape = tuple(rhs.shape[:-3])
+    dtype = _forward_plan_dtype(rhs.dtype, _poisson_kinds(topology))
+    if n_chunks is not None and not isinstance(n_chunks, int):
+        n_chunks = tuple(int(c) for c in n_chunks)  # hashable schedule
+    key = ("poisson", mesh, grid, tuple(topology), tuple(lengths),
+           batch_shape, dtype, decomp, backend, n_chunks,
+           tuple(mesh_axes) if mesh_axes is not None else None, tuning)
+
+    def build() -> PoissonSolver:
+        solver = PoissonSolver(
+            mesh, grid, topology=topology, lengths=lengths,
+            batch_shape=batch_shape, dtype=dtype, decomp=decomp,
+            backend=backend, n_chunks=n_chunks, mesh_axes=mesh_axes,
+            tuning=tuning)
+        solver.plan.shared = True
+        return solver
+
+    return _memoized(key, build).solve(rhs)

@@ -15,12 +15,17 @@ the next hop splits stores that line's output pre-split for the exchange
 (the kernel's ``pack_parts`` epilogue): the stage hands a
 :class:`~.redistribute.PackedBlock` to the hop, which sends it as it is.
 
-Only C2C kinds and bulk hops are ported; R2C/R2R kinds and ``n_chunks > 1``
-raise ``NotImplementedError``.
+R2C transforms pad the frequency dim up to the LCM of the mesh-axis sizes
+that shard it downstream, so every stage keeps integral local shapes; the
+inverse pipeline trims the pad before the final irfft.  Unnormalized R2R
+inverses (``dct3``/``dst3``) are scaled by ``1/(2N)``.
+
+Only bulk hops are ported; ``n_chunks > 1`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -33,6 +38,9 @@ from .redistribute import PackedBlock, redistribute
 INVERSE_KIND = {"fft": "ifft", "rfft": "irfft", "dct2": "dct3", "dst2": "dst3"}
 # Kinds whose stage line may fuse the pre-hop pack (kernel backend only).
 C2C_FUSED_KINDS = ("fft", "ifft")
+# Unnormalized R2R pairs satisfy inv(fwd(x)) = 2N x; complex pairs are
+# self-normalizing through torch.fft's conventions.
+R2R_INV_SCALE = ("dct3", "dst3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,32 +81,49 @@ class PipelineSpec:
         return tuple(self.batch_spec) + stages[-1].spec
 
 
+def _freq_pad_target(decomp: Decomposition, axis_sizes: dict,
+                     nfreq: int) -> int:
+    """Pad the R2C frequency dim (dim 0) so all later shardings divide it.
+
+    A stage may shard dim 0 over several mesh axes at once, so the
+    per-stage divisor is the product of the sharding axes' sizes.
+    """
+    divisor = 1
+    for stage in decomp.stages[1:]:
+        size = axis_product(stage.spec[0], axis_sizes)
+        if size > 1:
+            divisor = math.lcm(divisor, size)
+    return ((nfreq + divisor - 1) // divisor) * divisor
+
+
 def effective_grid(grid: Tuple[int, ...], decomp: Decomposition,
                    axis_sizes: dict,
                    kinds: Tuple[str, ...]) -> Tuple[int, ...]:
-    """The grid the pipeline actually moves.  C2C grids move unchanged;
-    the R2C frequency padding of the JAX package is not ported yet."""
+    """The grid the pipeline actually moves: R2C pads the frequency dim.
+
+    For an ``rfft`` first kind, dim 0 becomes ``n//2 + 1`` rounded up to the
+    LCM of every mesh-axis size that shards it downstream.
+    """
+    eff = list(grid)
     if kinds[0] == "rfft":
-        raise NotImplementedError("R2C frequency padding is not ported yet")
-    return tuple(grid)
+        eff[0] = _freq_pad_target(decomp, axis_sizes, grid[0] // 2 + 1)
+    return tuple(eff)
 
 
 def make_spec(mesh, grid: Tuple[int, ...], decomp: Decomposition,
               kinds: Tuple[str, ...], *, backend: str = "cufft",
               n_chunks=1, inverse: bool = False,
               batch_spec: Tuple[Optional[str], ...] = ()) -> PipelineSpec:
-    """Build a bulk :class:`PipelineSpec` for C2C kinds.
+    """Build a bulk :class:`PipelineSpec`; ``kinds`` are the forward kinds.
 
     ``n_chunks`` must be 1 (or a per-hop sequence of ones): the chunked
-    overlap is not ported yet and raises ``NotImplementedError``, as do
-    R2C/R2R kinds.
+    overlap is not ported yet and raises ``NotImplementedError``.
     """
     kinds = tuple(kinds)
-    bad = [k for k in kinds if k not in transforms.C2C_KINDS]
+    bad = [k for k in kinds if k not in transforms.ALL_KINDS]
     if bad:
-        raise NotImplementedError(
-            f"transform kinds {bad} are not ported yet; the port's pipeline "
-            f"runs C2C kinds {transforms.C2C_KINDS}")
+        raise ValueError(f"unknown transform kinds {bad}; supported: "
+                         f"{transforms.ALL_KINDS}")
     n_hops = len(decomp.redists)
     sched = ((int(n_chunks),) * n_hops if isinstance(n_chunks, int)
              else tuple(int(c) for c in n_chunks))
@@ -167,7 +192,22 @@ def _stage_transform(spec: PipelineSpec, stage: StageLayout,
                     send = ops.packed_fft1d(x, d + off, parts,
                                             inverse=kind == "ifft")
                     return PackedBlock(send=send, split_dim=d + off)
+            if kind == "irfft":
+                # trim the frequency pad, then invert to the real length
+                nfreq = spec.grid[0] // 2 + 1
+                x = transforms.apply_1d(x.narrow(d + off, 0, nfreq), d + off,
+                                        "irfft", backend=spec.backend,
+                                        irfft_n=spec.grid[0])
+                continue
             x = transforms.apply_1d(x, d + off, kind, backend=spec.backend)
+            if kind == "rfft":
+                pad = spec.eff_grid[0] - (spec.grid[0] // 2 + 1)
+                if pad:
+                    shape = list(x.shape)
+                    shape[d + off] = pad
+                    x = torch.cat([x, x.new_zeros(shape)], dim=d + off)
+            if kind in R2R_INV_SCALE:
+                x = x / (2.0 * spec.grid[d])
         return x
 
     return run
@@ -224,20 +264,44 @@ def _struct(mesh, shape, dtype, spec) -> TensorStruct:
 def input_struct(mesh, spec: PipelineSpec,
                  batch_shape: Tuple[int, ...] = (),
                  dtype=torch.complex64) -> TensorStruct:
-    """Shape/dtype/layout of the pipeline's input."""
+    """Shape/dtype/layout of the pipeline's input.  A forward R2C pipeline
+    takes real input of the precision of the dtype asked for."""
     in_grid = spec.eff_grid if spec.inverse else spec.grid
+    if not spec.inverse and spec.kinds[0] == "rfft":
+        dtype = transforms.real_dtype(dtype)
     return _struct(mesh, tuple(batch_shape) + tuple(in_grid), dtype,
                    spec.in_spec())
+
+
+def _output_dtype(spec: PipelineSpec, dtype: torch.dtype) -> torch.dtype:
+    """The dtype the stages turn ``dtype`` into, kind by kind in execution
+    order: C2C and rfft lines give the complex dtype of its precision,
+    irfft the real one, and R2R lines keep what they get (real stays real;
+    complex is transformed plane by plane)."""
+    stages, _ = spec.stage_order()
+    for stage in stages:
+        dims = stage.fft_dims if not spec.inverse else stage.fft_dims[::-1]
+        for d in dims:
+            kind = spec.kinds[d]
+            if spec.inverse:
+                kind = INVERSE_KIND[kind]
+            if kind in transforms.C2C_KINDS or kind == "rfft":
+                dtype = transforms.complex_dtype(dtype)
+            elif kind == "irfft":
+                dtype = transforms.real_dtype(dtype)
+    return dtype
 
 
 def output_struct(mesh, spec: PipelineSpec,
                   batch_shape: Tuple[int, ...] = (),
                   dtype=torch.complex64) -> TensorStruct:
-    """Shape/dtype/layout of the pipeline's output.  C2C stages keep the
-    grid and return the complex dtype of the input's precision."""
+    """Shape/dtype/layout of the pipeline's output: an rfft forward is
+    complex on ``eff_grid``, an irfft inverse real on ``grid``, an all-R2R
+    plan real for real input."""
     out_grid = spec.grid if spec.inverse else spec.eff_grid
+    in_dtype = input_struct(mesh, spec, batch_shape, dtype).dtype
     return _struct(mesh, tuple(batch_shape) + tuple(out_grid),
-                   transforms.complex_dtype(dtype), spec.out_spec())
+                   _output_dtype(spec, in_dtype), spec.out_spec())
 
 
 def stage_local_shapes(spec: PipelineSpec, mesh) -> Tuple[Tuple[int, ...], ...]:

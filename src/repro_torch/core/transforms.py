@@ -1,4 +1,5 @@
-"""Local (on-device) 1-D C2C transforms on torch tensors.
+"""Local (on-device) 1-D transforms on torch tensors: C2C, R2C and R2R
+(DCT/DST).
 
 Three interchangeable backends (``LOCAL_BACKENDS``), each the counterpart of
 one of the JAX package's (``REFERENCE_BACKEND`` records the mapping):
@@ -12,18 +13,21 @@ one of the JAX package's (``REFERENCE_BACKEND`` records the mapping):
   (``torch.backends.cuda.matmul.allow_tf32`` is False by default; TF32
   would keep only 10 mantissa bits).
 * ``"kernel"`` — the same four-step algorithm as a hand-written CUDA kernel
-  (``kernels/fft_matmul.py``, wrapped by ``kernels/ops.py``).  A CPU tensor
-  runs the kernel's plain PyTorch version instead.
+  (``kernels/fft_matmul.py``, wrapped by ``kernels/ops.py``), whose
+  ``twiddle`` epilogue applies the DCT-II phase in the same launch.  A CPU
+  tensor runs the kernel's plain PyTorch version instead.
 
-Only the C2C kinds (``fft``/``ifft``) are ported so far; R2C and R2R kinds
-raise ``NotImplementedError``.  The complex working dtype follows the input:
+R2C and R2R transforms are composed from the complex FFT with the standard
+even/odd reordering identities, so they inherit whichever backend is
+selected.  R2R kinds on complex input transform the real and imaginary
+planes separately.  The complex working dtype follows the input:
 float64/complex128 stay in double precision on every backend.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -181,9 +185,110 @@ def _c2c(x: torch.Tensor, axis: int, *, inverse: bool,
     return out.movedim(-1, axis)
 
 
+def _move_last(x: torch.Tensor, axis: int):
+    axis = axis % x.dim()
+    return x.movedim(axis, -1), axis
+
+
+def _rfft(x: torch.Tensor, axis: int, backend: str) -> torch.Tensor:
+    if backend == "cufft":
+        return torch.fft.rfft(x, dim=axis)
+    # Hermitian trim of the full C2C result (flop-wasteful but simple; the
+    # distributed pipeline pads the frequency dim anyway).
+    full = _c2c(x, axis, inverse=False, backend=backend)
+    return full.narrow(axis, 0, x.shape[axis] // 2 + 1)
+
+
+def _irfft(x: torch.Tensor, axis: int, n: int, backend: str) -> torch.Tensor:
+    if backend == "cufft":
+        return torch.fft.irfft(x, n=n, dim=axis)
+    # rebuild the Hermitian spectrum, then a full inverse C2C, real part
+    xm, ax = _move_last(x, axis)
+    body = torch.flip(torch.conj(xm[..., 1:n - n // 2]), (-1,))
+    full = torch.cat([xm, body], dim=-1)
+    out = _c2c(full, -1, inverse=True, backend=backend)
+    return out.real.movedim(-1, ax)
+
+
+# ---------------------------------------------------------------------------
+# R2R: DCT-II/III and DST-II/III via the even/odd FFT reordering identities.
+# Unnormalized ("scipy norm=None") conventions:
+#   dct2(x)[k] = 2 sum_n x[n] cos(pi k (2n+1) / (2N))
+#   dct3(x)[k] = x[0] + 2 sum_{n>=1} x[n] cos(pi n (2k+1) / (2N))
+#   dct3(dct2(x)) = 2N x
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _dct_phase(n: int, sign: float, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """exp(sign*i*pi*k/(2n)) for k < n, built in float64 and cast."""
+    k = np.arange(n, dtype=np.float64)
+    phase = np.exp(sign * 1j * np.pi * k / (2.0 * n))
+    return torch.from_numpy(phase).to(device=device, dtype=dtype)
+
+
+def _dct2(x: torch.Tensor, axis: int, backend: str) -> torch.Tensor:
+    xm, ax = _move_last(x, axis)
+    n = xm.shape[-1]
+    v = torch.cat([xm[..., 0::2], torch.flip(xm[..., 1::2], (-1,))], dim=-1)
+    cdt = complex_dtype(v.dtype)
+    phase = _dct_phase(n, -1.0, cdt, v.device)
+    if backend == "kernel":
+        # The kernel's twiddle epilogue applies the phase in the same launch
+        # instead of a separate elementwise pass over the FFT output.
+        from ..kernels import ops
+        pv = ops.fft1d(v, -1, twiddle=phase)
+    else:
+        pv = phase * _c2c(v.to(cdt), -1, inverse=False, backend=backend)
+    out = 2.0 * pv.real
+    return out.to(x.dtype).movedim(-1, ax)
+
+
+def _dct3(x: torch.Tensor, axis: int, backend: str) -> torch.Tensor:
+    """Unnormalized DCT-III (the unscaled inverse of _dct2)."""
+    xm, ax = _move_last(x, axis)
+    n = xm.shape[-1]
+    phase = _dct_phase(n, 1.0, complex_dtype(xm.dtype), xm.device)
+    # The complex spectrum whose IFFT reproduces the even/odd shuffle.
+    shifted = torch.cat([torch.zeros_like(xm[..., :1]),
+                         torch.flip(xm[..., 1:], (-1,))], dim=-1)
+    spec = (xm - 1j * shifted) * phase
+    v = (_c2c(spec, -1, inverse=True, backend=backend) * n).real
+    half = (n + 1) // 2
+    out = v.new_empty(v.shape)
+    out[..., 0::2] = v[..., :half]
+    out[..., 1::2] = torch.flip(v[..., half:], (-1,))
+    return out.to(x.dtype).movedim(-1, ax)
+
+
+def _alt_signs(x: torch.Tensor) -> torch.Tensor:
+    signs = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
+    signs[1::2] = -1.0
+    return x * signs
+
+
+def _dst2(x: torch.Tensor, axis: int, backend: str) -> torch.Tensor:
+    # DST-II(x)[k] = DCT-II(alt_signs(x))[N-1-k]
+    xm, ax = _move_last(x, axis)
+    out = torch.flip(_dct2(_alt_signs(xm), -1, backend), (-1,))
+    return out.movedim(-1, ax)
+
+
+def _dst3(x: torch.Tensor, axis: int, backend: str) -> torch.Tensor:
+    # Inverse pairing of _dst2: dst3(dst2(x)) = 2N x
+    xm, ax = _move_last(x, axis)
+    out = _alt_signs(_dct3(torch.flip(xm, (-1,)), -1, backend))
+    return out.movedim(-1, ax)
+
+
+_R2R = {"dct2": _dct2, "dct3": _dct3, "dst2": _dst2, "dst3": _dst3}
+
+
 def apply_1d(x: torch.Tensor, axis: int, kind: str, *,
-             backend: str = "cufft") -> torch.Tensor:
-    """Apply one transform along ``axis``.  ``kind`` is "fft" or "ifft"."""
+             backend: str = "cufft",
+             irfft_n: Optional[int] = None) -> torch.Tensor:
+    """Apply one transform along ``axis``.  ``kind`` in ALL_KINDS;
+    ``irfft`` needs ``irfft_n``, the original real length."""
     if backend not in LOCAL_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; supported local-FFT "
                          f"backends: {LOCAL_BACKENDS}")
@@ -191,8 +296,27 @@ def apply_1d(x: torch.Tensor, axis: int, kind: str, *,
         return _c2c(x, axis, inverse=False, backend=backend)
     if kind == "ifft":
         return _c2c(x, axis, inverse=True, backend=backend)
-    if kind in ALL_KINDS:
-        raise NotImplementedError(
-            f"transform kind {kind!r} is not ported yet; the port runs the "
-            f"C2C kinds {C2C_KINDS}")
+    if kind == "rfft":
+        return _rfft(x, axis, backend)
+    if kind == "irfft":
+        if irfft_n is None:
+            raise ValueError("irfft needs irfft_n (original real length)")
+        return _irfft(x, axis, irfft_n, backend)
+    if kind in R2R_KINDS:
+        fn = _R2R[kind]
+        if x.is_complex():
+            # R2R transforms are linear over R: apply to the planes
+            # separately (a C2C stage before a bounded-dim DCT stage, e.g.
+            # the (Periodic, Periodic, Bounded) Poisson topology).
+            return torch.complex(fn(x.real, axis, backend),
+                                 fn(x.imag, axis, backend))
+        return fn(x, axis, backend)
     raise ValueError(f"unknown transform kind {kind!r}")
+
+
+def apply_nd(x: torch.Tensor, axes: Tuple[int, ...], kind: str, *,
+             backend: str = "cufft") -> torch.Tensor:
+    """Apply the same 1-D transform along several axes (slab stages)."""
+    for ax in axes:
+        x = apply_1d(x, ax, kind, backend=backend)
+    return x

@@ -21,10 +21,15 @@ is two dense DFT-matrix contractions with a twiddle between them.
 Two epilogues ride on the same launch, as in the Pallas kernel:
 
 * ``twiddle`` — a complex ``(N,)`` phase multiplied into the output (the
-  DCT-II/DST-II phase; no transform of the port uses it yet);
+  DCT-II/DST-II phase: ``transforms._dct2`` on the kernel backend);
 * ``pack_parts=p`` — the output stored destination-major as ``(p, B, N/p)``,
   the send buffer of the next hop's ``all_to_all``.  The wrapper returns
   the logical ``(B, p, N/p)`` tensor as a strided view of that buffer.
+
+The kernel reads raw memory, so a lazily conjugated or negated view
+(``x.conj()``, the ``.imag`` of one) is materialized before its pointer is
+taken (:func:`_resolved`); the plain version reads ``.real``/``.imag``,
+which honour those bits anyway.
 
 Every launch adds one to ``fft_fourstep.launches`` and to its variant's
 entry of ``fft_fourstep.variant_launches`` ("fourstep", "pack",
@@ -187,7 +192,18 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
     return _packed(out, pack_parts)
 
 
-def _launch(x: torch.Tensor, inverse: bool, twiddle: Optional[torch.Tensor],
+def _resolved(x: torch.Tensor, twiddle: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The operands as the kernel reads them: conjugate and negative bits
+    materialized, the twiddle on ``x``'s device and dtype and contiguous."""
+    x = x.resolve_conj().resolve_neg()
+    if twiddle is not None:
+        twiddle = (twiddle.to(device=x.device, dtype=x.dtype)
+                   .resolve_conj().resolve_neg().contiguous())
+    return x, twiddle
+
+
+def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
             pack_parts: Optional[int]) -> torch.Tensor:
     from . import build
     lib = build.load("fft_fourstep")
@@ -197,10 +213,8 @@ def _launch(x: torch.Tensor, inverse: bool, twiddle: Optional[torch.Tensor],
     buf = torch.empty((parts, b, n // parts), dtype=x.dtype, device=x.device)
     if b == 0:
         return buf[0] if pack_parts is None else buf.transpose(0, 1)
-    cfg = launch_config(n, x.element_size(), twiddle is not None)
+    cfg = launch_config(n, x.element_size(), tw is not None)
     w1, w2, t = _device_constants(n1, n2, inverse, x.dtype, x.device)
-    tw = (twiddle.to(device=x.device, dtype=x.dtype).contiguous()
-          if twiddle is not None else None)
     _declare(lib)
     fn = (lib.repro_fft_fourstep_c64 if x.dtype == torch.complex64
           else lib.repro_fft_fourstep_c128)
@@ -216,7 +230,7 @@ def _launch(x: torch.Tensor, inverse: bool, twiddle: Optional[torch.Tensor],
                            f"{x.dtype}: CUDA error {err} ({msg})")
     fft_fourstep.launches += 1
     variant = ("pack" if pack_parts is not None
-               else "twiddle" if twiddle is not None else "fourstep")
+               else "twiddle" if tw is not None else "fourstep")
     fft_fourstep.variant_launches[variant] += 1
     return buf[0] if pack_parts is None else buf.transpose(0, 1)
 
@@ -246,7 +260,8 @@ def fft_fourstep(x: torch.Tensor, *, inverse: bool = False,
     """
     _check(x, twiddle, pack_parts)
     if x.device.type == "cuda":
-        return _launch(x, inverse, twiddle, pack_parts)
+        return _launch(*_resolved(x, twiddle), inverse=inverse,
+                       pack_parts=pack_parts)
     if x.device.type == "cpu":
         return fft_fourstep_plain(x, inverse=inverse, twiddle=twiddle,
                                   pack_parts=pack_parts)

@@ -3,8 +3,9 @@
 ``fft1d`` / ``ifft1d`` take complex (or real) tensors of any rank and
 transform along ``axis`` with :func:`~.fft_matmul.fft_fourstep`.  They are
 the routing target of ``backend="kernel"``: ``core/transforms.apply_1d``
-sends every C2C line of that backend here.  A CUDA tensor launches the
-kernel; a CPU tensor runs its plain version.
+sends every complex FFT of that backend here, the ones inside its R2C and
+R2R kinds included (the DCT-II with ``twiddle=``).  A CUDA tensor launches
+the kernel; a CPU tensor runs its plain version.
 
 ``_apply`` moves ``axis`` to the end and copies the lines contiguous (a
 full pass over the array when ``axis`` is not already last — the cost of a

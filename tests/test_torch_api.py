@@ -144,6 +144,81 @@ def test_plan_fft_rejects_what_is_not_ported(mesh):
         api.plan_fft(mesh, (8, 8, 8), n_chunks=2)
 
 
+KINDS_CASES = [("rfft", "fft", "fft"), ("fft", "fft", "dct2"),
+               ("dct2", "dct2", "dct2"), ("dst2", "fft", "dct2"),
+               ("fft", "fft", "fft")]
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).removeprefix("torch.")
+
+
+@pytest.mark.parametrize("kinds", KINDS_CASES)
+def test_plan_structs_match_reference(cpu_mesh, mesh, kinds):
+    """Default dtype, and the shapes and dtypes of the forward and inverse
+    operands, equal the reference plan's (R2C real in, complex out on the
+    padded grid; R2R real in stays real until a C2C line)."""
+    grid = (9, 8, 4)
+    tplan = api.plan_fft(mesh, grid, kinds=kinds)
+    jplan = j_plan_fft(cpu_mesh, grid, kinds=kinds)
+    for name in ("in_struct", "out_struct", "inv_in_struct",
+                 "inv_out_struct"):
+        t, j = getattr(tplan, name), getattr(jplan, name)
+        assert (tuple(t.shape), _dtype_name(t.dtype)) == \
+            (tuple(j.shape), j.dtype.name), name
+    x = np.random.default_rng(6).standard_normal(grid).astype(np.float32)
+    y = tplan.forward(torch.from_numpy(x))
+    assert_scaled_close(y.numpy(), np.asarray(jplan.forward(jnp.asarray(x))),
+                        2e-5)
+    assert tplan.inverse(y).dtype == tplan.inv_out_struct.dtype
+
+
+def test_plan_dtype_rules():
+    """Real-input pipelines (rfft first, or any R2R kind) keep real
+    operands; pure C2C promotes to the complex dtype of the precision; the
+    inverse wrapper maps a spectral dtype back to the forward one."""
+    r2c, r2r, c2c = ("rfft", "fft"), ("fft", "dct2"), ("fft", "fft")
+    f32, f64, c64, c128 = (torch.float32, torch.float64, torch.complex64,
+                           torch.complex128)
+    assert api._forward_plan_dtype(f32, r2c) == f32
+    assert api._forward_plan_dtype(f64, r2r) == f64
+    assert api._forward_plan_dtype(c64, r2r) == c64
+    assert api._forward_plan_dtype(f64, c2c) == c128
+    assert api._inverse_plan_dtype(c128, r2c) == f64
+    assert api._inverse_plan_dtype(c64, r2r) == f32
+    assert api._inverse_plan_dtype(f32, c2c) == c64
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    plan = api.plan_fft(mesh, (8, 8, 8), kinds=("rfft", "fft", "fft"),
+                        dtype=torch.complex128)
+    assert plan.dtype == f64 and plan.out_struct.dtype == c128
+    assert plan.inv_out_struct.dtype == f64
+
+
+@pytest.mark.parametrize("backend", ["kernel", "cufft"])
+def test_r2c_wrappers_match_reference(cpu_mesh, mesh, backend):
+    """``fft3d``/``ifft3d`` with R2C kinds: the inverse needs the real-space
+    grid, and both share one memoized plan."""
+    api.clear_plan_memo()
+    kinds = ("rfft", "fft", "fft")
+    xr = np.random.default_rng(7).standard_normal((16, 8, 8)).astype(
+        np.float32)
+    y = api.fft3d(torch.from_numpy(xr), mesh=mesh, kinds=kinds,
+                  backend=backend)
+    want = j_fft3d(jnp.asarray(xr), mesh=cpu_mesh, kinds=kinds,
+                   backend={"kernel": "pallas", "cufft": "xla"}[backend])
+    assert y.shape == (9, 8, 8)
+    assert_scaled_close(y.numpy(), np.asarray(want), 2e-5)
+    back = api.ifft3d(y, mesh=mesh, grid=(16, 8, 8), kinds=kinds,
+                      backend=backend)
+    assert back.dtype == torch.float32
+    assert float(np.max(np.abs(back.numpy() - xr))) < 1e-5
+    stats = api.plan_memo_stats()
+    assert stats["misses"] == 1 and stats["hits"] == 1
+    (plan,) = list(api._PLAN_MEMO.values())
+    assert plan.shared
+    api.clear_plan_memo()
+
+
 def test_plan_cache_lru_and_injected_timer():
     ticks = iter(range(100))
     cache = PlanCache(capacity=2, timer=lambda: float(next(ticks)))

@@ -224,3 +224,22 @@ def test_cpu_runs_the_plain_version_without_counting_launches():
     assert tfm.fft_fourstep.launches == 0
     assert set(tfm.fft_fourstep.variant_launches) == {"fourstep", "pack",
                                                       "twiddle"}
+
+
+def test_kernel_operands_are_resolved():
+    """The kernel reads raw memory: a lazily conjugated operand or twiddle
+    (and a negated view) is materialized before its pointer is taken."""
+    x = _t(cplx((3, 16), 50))
+    tw = _t(np.exp(-1j * np.pi * np.arange(16) / 32).astype(np.complex64))
+    assert x.conj().is_conj() and x.conj().imag.is_neg()
+    rx, rtw = tfm._resolved(x.conj(), tw.conj())
+    assert not rx.is_conj() and not rtw.is_conj()
+    assert torch.equal(rx, torch.conj_physical(x))
+    assert torch.equal(rtw, torch.conj_physical(tw)) and rtw.is_contiguous()
+    neg, _ = tfm._resolved(torch._neg_view(x), None)
+    assert not neg.is_neg() and torch.equal(neg, -x)
+    assert tfm._resolved(x, None)[0] is x       # nothing to do: no copy
+    # the wrapper's result honours the bits (the plain version on the CPU)
+    got = tfm.fft_fourstep(x.conj(), twiddle=tw.conj())
+    want = np.conj(tw.numpy()) * np.fft.fft(np.conj(x.numpy()), axis=-1)
+    assert_scaled_close(got.numpy(), want, 5e-6)

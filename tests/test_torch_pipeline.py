@@ -128,10 +128,36 @@ def test_unported_pipeline_features_raise():
     dec = make_decomposition("pencil", ("data", "model"), 3)
     with pytest.raises(NotImplementedError, match="n_chunks"):
         tp.make_spec(mesh, (8, 8, 8), dec, ("fft",) * 3, n_chunks=2)
-    with pytest.raises(NotImplementedError, match="rfft"):
-        tp.make_spec(mesh, (8, 8, 8), dec, ("rfft", "fft", "fft"))
     with pytest.raises(ValueError, match="3 entries"):
         tp.make_spec(mesh, (8, 8, 8), dec, ("fft",) * 3, n_chunks=(1, 1, 1))
+    with pytest.raises(ValueError, match="unknown transform kinds"):
+        tp.make_spec(mesh, (8, 8, 8), dec, ("fft", "fht", "fft"))
+
+
+@pytest.mark.parametrize("kind,axes,groups,mesh_shape", [
+    ("pencil", ("data", "model"), None, (2, 2)),
+    ("pencil", ("data", "model"), None, (2, 4)),
+    ("pencil", ("data", "model"), None, (3, 2)),
+    ("slab", ("model",), None, (2, 4)),
+    ("hybrid", ("data", "model"), ((0,), (1, 2)), (2, 3)),
+    ("hybrid", ("data", "model"), ((0, 1), (2,)), (2, 2)),
+])
+@pytest.mark.parametrize("n0", [16, 15, 8])
+def test_rfft_frequency_padding_matches_reference(kind, axes, groups,
+                                                  mesh_shape, n0):
+    """R2C pads the frequency dim n0//2 + 1 up to the LCM of the axis sizes
+    sharding it downstream, as the reference does; other kinds keep it."""
+    sizes = dict(zip(("data", "model"), mesh_shape))
+    tdec = make_decomposition(kind, axes, 3, dim_groups=groups)
+    jdec = j_make_decomposition(kind, axes, 3, dim_groups=groups)
+    grid = (n0, 12, 12)
+    for kinds in (("rfft", "fft", "fft"), ("fft", "fft", "dct2")):
+        got = tp.effective_grid(grid, tdec, sizes, kinds)
+        assert got == jp.effective_grid(grid, jdec, sizes, kinds)
+        if kinds[0] == "fft":
+            assert got == grid
+    assert tp._freq_pad_target(tdec, sizes, n0 // 2 + 1) == \
+        jp._freq_pad_target(jdec, sizes, n0 // 2 + 1)
 
 
 @pytest.mark.parametrize("kind,axes,groups", [

@@ -53,6 +53,16 @@ def test_hops_land_declared_blocks_on_4_ranks(hop_results, case):
     assert not bad, f"mismatched (rank, case, inverse, hop): {bad}"
 
 
+@pytest.mark.parametrize("case", range(len(HOP_CASES)))
+def test_hops_move_real_blocks_on_4_ranks(hop_results, case):
+    """All-R2R plans move real blocks: every hop of every decomposition
+    family lands a float32 block exactly, as it does a complex one."""
+    rows = [r for r in hop_results if r[1] == case]
+    assert rows, "no hop ran for this case"
+    bad = [r for r in rows if not r[5]]
+    assert not bad, f"mismatched float32 (rank, case, inverse, hop): {bad}"
+
+
 def test_send_buffer_layout_and_unpack_roundtrip():
     x = torch.from_numpy(cplx((4, 6, 8), 1))
     for split in range(3):

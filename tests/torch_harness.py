@@ -142,12 +142,72 @@ def pipeline_body(rank: int, out_dir: str, x_path: str, grid,
         json.dump(stats, f)
 
 
+def r2r_pipeline_body(rank: int, out_dir: str, x_path: str, grid, cases,
+                      backends, decomps) -> None:
+    """Forward and round trip of one plan per (named kinds case, decomp,
+    backend) on a real operand; rank 0 saves the gathered global results,
+    and every rank the dtype and shape of its forward output block."""
+    from repro_torch.compat import gather
+    from repro_torch.core.api import plan_fft
+    mesh = _cpu_mesh((2, 2))
+    x = torch.from_numpy(np.load(x_path))
+    stats = {}
+    for name, kinds in cases:
+        for decomp in decomps:
+            for be in backends:
+                tag = f"{name}_{decomp}_{be}"
+                plan = plan_fft(mesh, grid, kinds=kinds, backend=be,
+                                decomp=decomp)
+                y = plan.forward(x)
+                back = plan.inverse(y, sharded_in=True)
+                stats[tag] = {"out_dtype": str(y.dtype).removeprefix("torch."),
+                              "local_out": list(y.shape)}
+                fwd = gather(y, plan.out_struct.spec, mesh)
+                rt = gather(back, plan.inv_out_struct.spec, mesh)
+                if rank == 0:
+                    np.save(os.path.join(out_dir, f"fwd_{tag}.npy"),
+                            fwd.numpy())
+                    np.save(os.path.join(out_dir, f"rt_{tag}.npy"),
+                            rt.numpy())
+    with open(os.path.join(out_dir, f"stats{rank}.json"), "w") as f:
+        json.dump(stats, f)
+
+
+def poisson_body(rank: int, out_dir: str, rhs_path: str, batch_path: str,
+                 backends, topologies) -> None:
+    """Pressure solves on a 2x2 mesh: one ``PoissonSolver`` per (topology,
+    backend) on the 3-D rhs, and ``poisson_solve`` on the batched rhs and on
+    each of its slices; rank 0 saves the gathered global results."""
+    from repro_torch.compat import gather
+    from repro_torch.core.api import PoissonSolver, poisson_solve
+    mesh = _cpu_mesh((2, 2))
+    rhs = torch.from_numpy(np.load(rhs_path))
+    rhs_b = torch.from_numpy(np.load(batch_path))
+    out = {}
+    for be in backends:
+        for name, topo in topologies:
+            solver = PoissonSolver(mesh, rhs.shape, topology=topo,
+                                   backend=be)
+            spec = solver.plan.inv_out_struct.spec
+            out[f"phi_{name}_{be}"] = gather(solver(rhs), spec, mesh)
+            out[f"batched_{name}_{be}"] = gather(
+                poisson_solve(rhs_b, mesh=mesh, topology=topo, backend=be),
+                (None,) + spec, mesh)
+            for i in range(rhs_b.shape[0]):
+                out[f"slice{i}_{name}_{be}"] = gather(
+                    poisson_solve(rhs_b[i], mesh=mesh, topology=topo,
+                                  backend=be), spec, mesh)
+    if rank == 0:
+        for name, arr in out.items():
+            np.save(os.path.join(out_dir, f"{name}.npy"), arr.numpy())
+
+
 def redistribute_body(rank: int, out_dir: str, cases) -> None:
     """For each (decomp spec, grid, batch) case, replay every hop of the
     forward and inverse stage order on this rank's block and record whether
     each landed block equals the global array's block under the next
     stage's declared spec (also when the first move gets a packed send
-    buffer)."""
+    buffer), for a complex64 block and for a float32 one."""
     from repro_torch.compat import local_block
     from repro_torch.core.decomp import make_decomposition
     from repro_torch.core.redistribute import (PackedBlock, redistribute,
@@ -178,6 +238,11 @@ def redistribute_body(rank: int, out_dir: str, cases) -> None:
                     got2 = redistribute(packed, hop, mesh=mesh,
                                         spatial_offset=off)
                     ok = ok and bool(torch.equal(got2, want))
-                results.append([i, inverse, j, ok])
+                # the same hop on the real part: float32 blocks
+                got_r = redistribute(src.real.contiguous(), hop, mesh=mesh,
+                                     spatial_offset=off)
+                ok_real = (got_r.dtype == torch.float32
+                           and bool(torch.equal(got_r, want.real)))
+                results.append([i, inverse, j, ok, ok_real])
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
