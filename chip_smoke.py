@@ -9,31 +9,41 @@ Phases (any failure raises and the script exits non-zero without printing
 its result line):
 
 1. build the CUDA kernel from ``src/repro_torch/csrc`` and print the build
-   time and the card's ``nvidia-smi`` name and power limit;
+   time, ``ptxas``'s registers, spills and stack frame per kernel
+   instantiation (a radix instantiation that spills or keeps a stack frame
+   fails the run) and the card's ``nvidia-smi`` name and power limit;
 2. hold the four-step kernel against its plain PyTorch version on the card
    over the shapes of ``tests/test_kernels.py`` (both directions, prime N,
    empty batch, ragged tiles, ``pack_parts``, the twiddle, complex128,
-   lazily conjugated operands and twiddles);
+   lazily conjugated operands and twiddles), every radix-path length of
+   both dtypes, and strided ``(outer, N, inner)`` blocks through
+   ``fft_fourstep_strided`` (inner of one tile, 512, ragged 1000, 262144);
 3. the main path: ``plan_fft`` of a 512^3 complex64 grid on a (1, 1)
    ``("data", "model")`` mesh with ``backend="kernel"``, forward and
    inverse for 3 rounds, checked against ``torch.fft.fftn`` and the round
-   trip, with exactly 3 kernel launches per direction; then CUDA-event
-   times of the plan, of a ``cufft``-backend plan and of ``torch.fft``;
+   trip, with exactly 3 kernel launches per direction, all on the radix
+   path and 2 of them strided, no line copy (``ops.copies``) and a
+   contiguous result; then CUDA-event times of the plan, of a
+   ``cufft``-backend plan, of ``torch.fft``, of one stage's kernel on
+   contiguous lines and of the strided stages in place, and of the
+   movedim+contiguous copy the strided stages no longer pay;
 4. the ``pack_parts`` epilogue at the local shapes of a 2x2 mesh: stage 0
    of the 512^3 pencil packs for the first hop, matches the plain version,
    and the hop's send buffer is the kernel's output (same ``data_ptr``);
 5. the Poisson path: a ``PoissonSolver`` of the (periodic, periodic,
    bounded) topology at 512^3 float32 on ``backend="kernel"``, 3 solves
    with exactly 2 ``twiddle`` + 2 ``fourstep`` launches per forward and 4
-   ``fourstep`` per inverse; its forward against ``torch.fft`` on dims 0
-   and 1 and a mirrored length-2N DCT-II along dim 2, its solve against a
-   float64 ``cufft``-backend solve (whose Neumann residual is checked);
-   CUDA-event times of both backends' solves and of the DCT stages;
+   ``fourstep`` per inverse, all on the radix path; its forward against
+   ``torch.fft`` on dims 0 and 1 and a mirrored length-2N DCT-II along
+   dim 2, its solve against a float64 ``cufft``-backend solve (whose
+   Neumann residual is checked); CUDA-event times of both backends' solves
+   and of the DCT stages;
 6. the twiddle epilogue at the DCT-II stage's shape, timed;
 7. an R2C plan, ``kinds=("rfft", "fft", "fft")`` at 512^3 on the kernel
    backend: 3 launches per direction, forward against
    ``torch.fft.fftn(x)[:257]``, and the round trip;
-8. a ``kernels`` JSON line, then the result line.
+8. a ``kernels`` JSON line (one entry per kernel variant, with the path
+   it ran), then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -63,6 +73,7 @@ ROUNDTRIP_TOL = 1e-4
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_SOURCE = "src/repro_torch/csrc/fft_fourstep.cu"
+RADIX_SOURCE = "src/repro_torch/csrc/fft_radix.cuh"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -115,6 +126,39 @@ def randc(shape, dtype, device, seed):
     return torch.randn(shape, dtype=dtype, device=device, generator=gen)
 
 
+def ptxas_report(log: str) -> list:
+    """Per kernel instantiation: registers, spill stores/loads and stack
+    frame bytes, from ``nvcc -Xptxas -v``; radix instantiations named by
+    dtype and (N1, N2)."""
+    import re
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            r = re.search(r"radix_kernelI([fd])Li(\d+)ELi(\d+)E", name)
+            if r:
+                dt = "complex64" if r.group(1) == "f" else "complex128"
+                name = f"radix {dt} N1={r.group(2)} N2={r.group(3)}"
+            elif "fourstep_kernel" in name:
+                name = ("dense " + ("complex64" if "fourstep_kernelIfE" in name
+                                    else "complex128"))
+            cur = {"kernel": name}
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return entries
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -122,15 +166,25 @@ def phase_build() -> dict:
     seconds = time.perf_counter() - t0
     print(f"[build] {lib.name}.cu built and loaded in {seconds:.2f} s "
           f"(nvcc {lib.seconds:.2f} s)")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {lib.name}: {line.strip()}")
+    report = ptxas_report(lib.log)
+    for e in report:
+        print(f"[build] {e['kernel']}: {e.get('registers')} registers, "
+              f"{e.get('spill_stores')}/{e.get('spill_loads')} bytes spill "
+              f"stores/loads, {e.get('stack')} bytes stack frame")
+    radix_entries = [e for e in report if e["kernel"].startswith("radix")]
+    if lib.log:   # an earlier build reused from disk prints no report
+        check(len(radix_entries) == 21, f"{len(radix_entries)} radix "
+              f"instantiations in the ptxas report, expected 21")
+    for e in radix_entries:
+        check(e.get("spill_stores", 0) == 0 and e.get("stack", 0) == 0,
+              f"{e['kernel']} spills or keeps a stack frame: {e}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
-    return {"build_s": seconds, "card": card}
+    return {"build_s": seconds, "nvcc_s": lib.seconds, "card": card,
+            "ptxas": report}
 
 
 def kernel_cases():
@@ -165,7 +219,34 @@ def kernel_cases():
     cases.append((130, 512, False, None, False, c64, "x"))
     cases.append((130, 512, False, None, True, c64, "twiddle"))
     cases.append((5, 48, True, None, True, c128, "x"))
+    # the radix path: every power of two of complex64, both directions at
+    # the ends, and every complex128 instantiation (N = 2 runs dense)
+    for k in range(1, 13):
+        cases.append((67, 2 ** k, k % 2 == 1, None, k % 3 == 0, c64, ""))
+    for n in (2, 4096):
+        cases.append((3, n, False, None, False, c64, ""))
+    for k in range(1, 11):
+        cases.append((33, 2 ** k, k % 2 == 0, 2 if k > 1 else None,
+                      k % 3 == 1, c128, ""))
+    cases.append((33, 256, False, None, True, c128, "x"))
     return cases
+
+
+def strided_cases():
+    """(outer, n, inner, inverse, twiddle, dtype name, conj) of the strided
+    entry: inner of one tile, of the main path's middle stage, ragged, and
+    the main path's outer stage at a small outer."""
+    c64, c128 = "complex64", "complex128"
+    return [(8, 512, 16, False, False, c64, ""),
+            (8, 512, 512, True, False, c64, ""),
+            (3, 512, 1000, False, True, c64, ""),
+            (1, 64, 262144, True, False, c64, ""),
+            (5, 1024, 48, False, False, c64, ""),
+            (4, 2, 300, True, True, c64, ""),
+            (6, 128, 40, False, True, c64, "x"),
+            (6, 128, 40, False, True, c64, "twiddle"),
+            (3, 512, 1000, True, True, c128, ""),
+            (4, 32, 17, False, False, c128, "x")]
 
 
 def phase_kernel_vs_plain(device) -> dict:
@@ -207,7 +288,39 @@ def phase_kernel_vs_plain(device) -> dict:
         check(err <= TOL[dt], f"case {i} (B={b}, N={n}, inverse={inv}, "
               f"pack={parts}, twiddle={tw}, {dt}, conj={conj!r}): scaled "
               f"error {err:.3e} > {TOL[dt]}")
-    n_cases = len(kernel_cases())
+    from repro_torch.kernels.fft_matmul import (fft_fourstep_strided,
+                                                fft_fourstep_strided_plain)
+    for i, (outer, n, inner, inv, tw, dt, conj) in enumerate(strided_cases()):
+        dtype = getattr(torch, dt)
+        x = randc((outer, n, inner), dtype, device, SEED + 500 + i)
+        twiddle = None
+        if tw:
+            k = torch.arange(n, dtype=torch.float64, device=device)
+            twiddle = torch.exp(-1j * math.pi * k / (2 * n)).to(dtype)
+        if conj == "x":
+            x = x.conj()
+        elif conj == "twiddle":
+            twiddle = twiddle.conj()
+        got = fft_fourstep_strided(x, inverse=inv, twiddle=twiddle)
+        ref = fft_fourstep_strided_plain(x, inverse=inv, twiddle=twiddle)
+        if conj:
+            want = (torch.fft.ifft if inv else torch.fft.fft)(x, dim=1)
+            if twiddle is not None:
+                want = want * twiddle[:, None]
+            check(scaled_err(got, want) <= TOL[dt], f"strided case {i}: conj "
+                  f"{conj} against torch.fft: scaled error "
+                  f"{scaled_err(got, want):.3e}")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        check(got.shape == ref.shape and got.is_contiguous(),
+              f"strided case {i}: {tuple(got.shape)} vs {tuple(ref.shape)}")
+        err = scaled_err(got, ref)
+        worst[dt] = max(worst[dt], err)
+        check(err <= TOL[dt], f"strided case {i} ((outer, N, inner)="
+              f"{(outer, n, inner)}, inverse={inv}, twiddle={tw}, {dt}, "
+              f"conj={conj!r}): scaled error {err:.3e} > {TOL[dt]}")
+        del x, got, ref
+    n_cases = len(kernel_cases()) + len(strided_cases())
     print(f"[kernel] {n_cases} cases match the plain version: worst scaled "
           f"error {worst['complex64']:.3e} (complex64, bound "
           f"{TOL['complex64']}), {worst['complex128']:.3e} (complex128, "
@@ -228,21 +341,38 @@ def phase_main_path(device, grid=GRID, rounds: int = 3, iters: int = 10):
           f"{mesh.device}")
     x = randc(grid, torch.complex64, device, SEED)
 
+    from repro_torch.kernels import ops
+
+    def counts():
+        return (fft_fourstep.launches, fft_fourstep.path_launches["radix"],
+                fft_fourstep.layout_launches["strided"], ops.copies["lines"])
+
     reset_launch_counts()
     for r in range(rounds):
-        before = fft_fourstep.launches
-        y = plan.forward(x)
-        per_fwd = fft_fourstep.launches - before
-        before = fft_fourstep.launches
-        xr = plan.inverse(y, sharded_in=True)
-        per_inv = fft_fourstep.launches - before
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-            check(per_fwd == 3 and per_inv == 3,
-                  f"round {r}: {per_fwd} forward and {per_inv} inverse "
-                  f"kernel launches, expected 3 each")
+        for name in ("forward", "inverse"):
+            before = counts()
+            if name == "forward":
+                y = plan.forward(x)
+                out = y
+            else:
+                xr = plan.inverse(y, sharded_in=True)
+                out = xr
+            launches, radix_n, strided_n, copies = (
+                a - b for a, b in zip(counts(), before))
+            check(copies == 0, f"round {r} {name}: {copies} line copies "
+                  f"(movedim+contiguous) on the main path, expected 0")
+            check(out.is_contiguous(), f"round {r} {name}: the result is "
+                  f"not contiguous")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                check(launches == 3 and radix_n == 3 and strided_n == 2,
+                      f"round {r} {name}: {launches} kernel launches, "
+                      f"{radix_n} on the radix path, {strided_n} strided; "
+                      f"expected 3, 3 and 2")
     launches = fft_fourstep.launches
     variants = dict(fft_fourstep.variant_launches)
+    paths = dict(fft_fourstep.path_launches)
+    layouts = dict(fft_fourstep.layout_launches)
 
     check(tuple(y.shape) == tuple(grid) and y.dtype == torch.complex64,
           f"forward output {tuple(y.shape)} {y.dtype}")
@@ -259,9 +389,11 @@ def phase_main_path(device, grid=GRID, rounds: int = 3, iters: int = 10):
     print(f"[main] {rounds} rounds: forward vs torch.fft.fftn scaled error "
           f"{err_fwd:.3e} (bound {PATH_TOL}), round trip {err_rt:.3e} "
           f"(bound {ROUNDTRIP_TOL}); kernel launches {launches} "
-          f"(3 per direction per round)")
+          f"(3 per direction per round), paths {paths}, layouts {layouts}, "
+          f"no line copies, results contiguous")
     out = {"grid": list(grid), "rounds": rounds, "launches": launches,
-           "variant_launches": variants, "err_fwd": err_fwd,
+           "variant_launches": variants, "path_launches": paths,
+           "layout_launches": layouts, "err_fwd": err_fwd,
            "err_roundtrip": err_rt}
     del xr
     if device.type != "cuda":
@@ -293,6 +425,25 @@ def phase_main_path(device, grid=GRID, rounds: int = 3, iters: int = 10):
           f"{tuple(lines.shape)}: scaled error {stage_err:.3e} > "
           f"{TOL['complex64']}")
     times["stage_kernel_ms"] = time_ms(lambda: fft_fourstep(lines), iters)
+    # The strided stages in place: dim 1 ((512, 512, 512), inner 512) and
+    # dim 0 ((1, 512, 262144)), against torch.fft.fft along the same dim.
+    from repro_torch.kernels.fft_matmul import (fft_fourstep_strided,
+                                                fft_fourstep_strided_plain)
+    for key, blk, dim in (("strided_mid", x, 1),
+                          ("strided_outer", x.reshape(1, n, -1), 0)):
+        got = fft_fourstep_strided(blk)
+        ref = fft_fourstep_strided_plain(blk)
+        err = scaled_err(got, ref)
+        times[f"{key}_max_abs_err"] = float((got - ref).abs().max())
+        times[f"{key}_scaled_err"] = err
+        del got, ref
+        check(err <= TOL["complex64"], f"{key} stage kernel at "
+              f"{tuple(blk.shape)}: scaled error {err:.3e}")
+        times[f"{key}_ms"] = time_ms(lambda: fft_fourstep_strided(blk), iters)
+        times[f"{key}_library_ms"] = time_ms(
+            lambda: torch.fft.fft(x, dim=dim), iters)
+    times["strided_mid_plain_ms"] = time_ms(
+        lambda: fft_fourstep_strided_plain(x), 3, 1)
     times["stage_plain_ms"] = time_ms(lambda: fft_fourstep_plain(lines), 3, 1)
     times["stage_library_ms"] = time_ms(lambda: torch.fft.fft(lines), iters)
     bound, by = fft_bound_ms(lines.shape[0], n, lines.element_size())
@@ -424,6 +575,10 @@ def phase_poisson(device, grid=GRID, solves: int = 3, iters: int = 5):
             check(got == {"fourstep": 6, "pack": 0, "twiddle": 2},
                   f"solve {i}: launches {got}, expected 6 fourstep (2 "
                   f"forward, 4 inverse) and 2 twiddle (forward)")
+            check(fft_fourstep.path_launches == {"radix": 8 * (i + 1),
+                                                 "dense": 0},
+                  f"solve {i}: paths {fft_fourstep.path_launches}, expected "
+                  f"every launch on the radix path")
     launches = dict(fft_fourstep.variant_launches)
 
     before = dict(fft_fourstep.variant_launches)
@@ -581,7 +736,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["r2c"] = phase_r2c(device)
     kernels = [
-        {"name": "fft_fourstep", "route": "cuda", "source": KERNEL_SOURCE,
+        {"name": "fft_fourstep", "route": "cuda", "source": RADIX_SOURCE,
+         "path": "radix",
          "replaces": "src/repro/kernels/fft_matmul.py:216",
          "launches": main_run["launches"],
          "max_abs_err": main_run["stage_max_abs_err"],
@@ -591,8 +747,19 @@ def main() -> int:
          "bound_ms": main_run["stage_bound_ms"],
          "bound_by": main_run["stage_bound_by"],
          "library_ms": main_run["stage_library_ms"]},
+        {"name": "fft_fourstep_strided", "route": "cuda",
+         "source": RADIX_SOURCE, "path": "radix",
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": main_run["layout_launches"]["strided"],
+         "max_abs_err": main_run["strided_mid_max_abs_err"],
+         "scaled_err": main_run["strided_mid_scaled_err"],
+         "ms": main_run["strided_mid_ms"],
+         "plain_ms": main_run["strided_mid_plain_ms"],
+         "bound_ms": main_run["stage_bound_ms"],
+         "bound_by": main_run["stage_bound_by"],
+         "library_ms": main_run["strided_mid_library_ms"]},
         {"name": "fft_fourstep_pack", "route": "cuda",
-         "source": KERNEL_SOURCE,
+         "source": RADIX_SOURCE, "path": "radix",
          "replaces": "src/repro/kernels/fft_matmul.py:134",
          "launches": pack["launches"], "max_abs_err": pack["max_abs_err"],
          "scaled_err": pack["scaled_err"],
@@ -600,7 +767,7 @@ def main() -> int:
          "bound_ms": pack["bound_ms"], "bound_by": pack["bound_by"],
          "library_ms": None},
         {"name": "fft_fourstep_twiddle", "route": "cuda",
-         "source": KERNEL_SOURCE,
+         "source": RADIX_SOURCE, "path": "radix",
          "replaces": "src/repro/kernels/fft_matmul.py:126",
          "launches": poisson["launches"]["twiddle"],
          "max_abs_err": tw["max_abs_err"], "scaled_err": tw["scaled_err"],

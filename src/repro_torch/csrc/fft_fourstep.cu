@@ -1,10 +1,16 @@
 // Batched 1-D FFT of complex lines by the four-step method, for Hopper.
 //
+// Two paths, chosen by the wrapper from N and the dtype alone
+// (kernels/radix.py::kernel_path): power-of-two N takes the radix path
+// (fft_radix.cuh: in-register codelets, contiguous or strided lines); any
+// other N takes the general dense kernel below.
+//
 // Replaces the TPU kernel src/repro/kernels/fft_matmul.py::_fft_kernel (the
 // pl.pallas_call in fft1d_planes), with its two fused epilogues: the
 // elementwise output twiddle and the pack_parts store.
 //
-// What it computes, per line x of length N = N1*N2 (transforms.factorize):
+// The dense path, below.  What it computes, per line x of length
+// N = N1*N2 (transforms.factorize):
 //   step 1  F1[k1, m2] = sum_m1 x[m1*N2 + m2] * W1[k1, m1]
 //   step 2  G[k1, m2]  = F1[k1, m2] * T[k1, m2]
 //   step 3  F2[k1, k2] = sum_m2 G[k1, m2] * W2[k2, m2]
@@ -39,36 +45,19 @@
 //  * pack_parts = p stores the output destination-major, (p, B, N/p):
 //    the send buffer of the next all_to_all, contiguous per destination,
 //    so the exchange ships it without a copy.  p = 1 is the plain layout.
-//
-// A simple correct kernel: wgmma, TMA and split-TF32 are for later work.
 
 #include <cuda_runtime.h>
 
+#include "fft_common.cuh"
+#include "fft_radix.cuh"
+
 namespace {
 
+using repro_fft::cpx;
+using repro_fft::cfma;
+using repro_fft::cmul;
+
 constexpr int kThreads = 256;
-
-template <typename R>
-struct alignas(2 * sizeof(R)) cpx {
-  R re;
-  R im;
-};
-
-template <typename R>
-__device__ __forceinline__ void cfma(cpx<R> a, cpx<R> w, R& acc_re, R& acc_im) {
-  acc_re = fma(a.re, w.re, acc_re);
-  acc_re = fma(-a.im, w.im, acc_re);
-  acc_im = fma(a.re, w.im, acc_im);
-  acc_im = fma(a.im, w.re, acc_im);
-}
-
-template <typename R>
-__device__ __forceinline__ cpx<R> cmul(cpx<R> a, cpx<R> b) {
-  cpx<R> r;
-  r.re = a.re * b.re - a.im * b.im;
-  r.im = a.re * b.im + a.im * b.re;
-  return r;
-}
 
 // Shared memory, in this order: W1 (n1*n1), T (n1*n2), the output twiddle
 // (n, optional), W2 (n2*n2, optional), the staged lines (lines*n) and G
@@ -205,6 +194,30 @@ int repro_fft_fourstep_c128(const void* x, void* out, const void* w1,
                             void* stream) {
   return launch<double>(x, out, w1, w2, t, tw, batch, n1, n2, inverse, parts,
                         lines, w2_smem, smem_bytes, stream);
+}
+
+// The radix path (fft_radix.cuh) for power-of-two N.  `consts` holds T
+// (N1 x N2) then the codelet table (N2/2); `tw` may be null.  Contiguous
+// lines: outer = B, inner = 1, strided = 0, `out` (parts, B, N/parts) with
+// seg_log2 = log2(N/parts).  Strided lines: `x` and `out` are contiguous
+// (outer, N, inner), strided = 1, seg_log2 = log2(N).  Returns the CUDA
+// error code of the launch (0 on success).
+int repro_fft_radix_c64(const void* x, void* out, const void* consts,
+                        const void* tw, long long outer, long long inner,
+                        int n, int inverse, int seg_log2, int lines_log2,
+                        int strided, int smem_bytes, void* stream) {
+  return repro_fft::radix_dispatch<float>(
+      n, x, out, consts, tw, outer, inner, inverse, seg_log2, lines_log2,
+      strided, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_radix_c128(const void* x, void* out, const void* consts,
+                         const void* tw, long long outer, long long inner,
+                         int n, int inverse, int seg_log2, int lines_log2,
+                         int strided, int smem_bytes, void* stream) {
+  return repro_fft::radix_dispatch<double>(
+      n, x, out, consts, tw, outer, inner, inverse, seg_log2, lines_log2,
+      strided, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int code) {

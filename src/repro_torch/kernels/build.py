@@ -3,8 +3,10 @@
 ``csrc/fft_fourstep.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds).
 Libraries land in ``build/repro_torch/`` at the root of the checkout (listed
-in ``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once.  Several
+in ``.gitignore``), named by a hash of the flags, the source and every
+header under ``csrc/`` it includes (``#include "..."``, followed
+recursively), so an edited source or header rebuilds and an unchanged
+one loads at once.  Several
 processes may build at the same time: each writes a private file and
 renames it into place.
 
@@ -17,6 +19,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -65,10 +68,31 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every file under ``csrc/`` it includes with
+    ``#include "..."``, directly or through another header, in the order
+    first reached."""
+    found, todo = [], [csrc_dir() / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            cand = path.parent / inc.decode()
+            if cand.exists():
+                todo.append(cand)
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (csrc_dir() / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}_{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str = SOURCE, *,

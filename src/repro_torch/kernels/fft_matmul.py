@@ -31,9 +31,23 @@ The kernel reads raw memory, so a lazily conjugated or negated view
 taken (:func:`_resolved`); the plain version reads ``.real``/``.imag``,
 which honour those bits anyway.
 
-Every launch adds one to ``fft_fourstep.launches`` and to its variant's
-entry of ``fft_fourstep.variant_launches`` ("fourstep", "pack",
-"twiddle"); nothing else touches them.
+Two paths, chosen from N and the dtype alone (:func:`radix.kernel_path`):
+power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) takes
+the radix path — in-register radix-2 codelets, ``csrc/fft_radix.cuh``,
+planned in ``kernels/radix.py`` — and every other N the general dense
+kernel.  A failed build or launch raises; nothing falls back.
+
+:func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``
+block and transforms dim 1 on the radix path, writing the same layout:
+the line wrapper (``kernels/ops.py``) uses it for a strided axis instead
+of copying the lines contiguous.
+
+Every launch, from either entry, adds one to ``fft_fourstep.launches``,
+to its variant's entry of ``fft_fourstep.variant_launches`` ("fourstep",
+"pack", "twiddle"), to its path's entry of ``fft_fourstep.path_launches``
+("radix", "dense") and to its layout's entry of
+``fft_fourstep.layout_launches`` ("lines", "strided"); nothing else
+touches them.
 """
 from __future__ import annotations
 
@@ -42,15 +56,14 @@ import threading
 from collections import OrderedDict
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.transforms import (_dft_planes, _twiddle_planes, factorize,
                                fourstep_fft_planes, real_dtype)
+from . import radix
+from .radix import SMEM_MAX_BYTES, SMEM_TARGET_BYTES
 
-#: Dynamic shared memory one block may take on Hopper (227 KB).
-SMEM_MAX_BYTES = 232448
-#: Budget that lets two blocks share an SM.
-SMEM_TARGET_BYTES = SMEM_MAX_BYTES // 2 - 1024
 #: W2 larger than this streams from global memory (L2) instead.
 W2_SMEM_MAX_BYTES = 48 * 1024
 MAX_LINES_PER_BLOCK = 16
@@ -142,6 +155,30 @@ def _device_constants(n1: int, n2: int, inverse: bool, dtype: torch.dtype,
     return consts
 
 
+def _radix_constants(n: int, inverse: bool, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """The radix kernel's constants on ``device``: T (N1 x N2, row-major)
+    then the codelet table (``radix.codelet_table``), one buffer, cached
+    with the dense path's constants."""
+    key = ("radix", n, bool(inverse), dtype, device)
+    with _CONST_LOCK:
+        hit = _CONST_CACHE.get(key)
+        if hit is not None:
+            _CONST_CACHE.move_to_end(key)
+            return hit[0]
+    n1, n2 = factorize(n)
+    sign = 1.0 if inverse else -1.0
+    cos, sin = _twiddle_planes(n1, n2, sign, "float64")
+    host = np.concatenate([(cos + 1j * sin).reshape(-1),
+                           radix.codelet_table(n, inverse)])
+    consts = torch.from_numpy(host).to(device=device, dtype=dtype)
+    with _CONST_LOCK:
+        _CONST_CACHE[key] = (consts,)
+        while len(_CONST_CACHE) > _CONST_CACHE_SIZE:
+            _CONST_CACHE.popitem(last=False)
+    return consts
+
+
 def _check(x: torch.Tensor, twiddle: Optional[torch.Tensor],
            pack_parts: Optional[int]) -> None:
     if x.dim() != 2:
@@ -204,35 +241,62 @@ def _resolved(x: torch.Tensor, twiddle: Optional[torch.Tensor]
 
 
 def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
-            pack_parts: Optional[int]) -> torch.Tensor:
+            pack_parts: Optional[int] = None,
+            strided: bool = False) -> torch.Tensor:
+    """Launch the kernel on ``(B, N)`` lines, or with ``strided`` on a
+    contiguous ``(outer, N, inner)`` block, and count the launch."""
     from . import build
     lib = build.load("fft_fourstep")
-    b, n = x.shape
-    n1, n2 = factorize(n)
-    parts = pack_parts if pack_parts is not None else 1
-    buf = torch.empty((parts, b, n // parts), dtype=x.dtype, device=x.device)
-    if b == 0:
-        return buf[0] if pack_parts is None else buf.transpose(0, 1)
-    cfg = launch_config(n, x.element_size(), tw is not None)
-    w1, w2, t = _device_constants(n1, n2, inverse, x.dtype, x.device)
     _declare(lib)
-    fn = (lib.repro_fft_fourstep_c64 if x.dtype == torch.complex64
-          else lib.repro_fft_fourstep_c128)
+    n = x.shape[1]
+    parts = pack_parts if pack_parts is not None else 1
+    if strided:
+        buf = out = torch.empty_like(x)
+    else:
+        buf = torch.empty((parts, x.shape[0], n // parts), dtype=x.dtype,
+                          device=x.device)
+        out = buf[0] if pack_parts is None else buf.transpose(0, 1)
+    if x.numel() == 0:
+        return out
+    path = radix.kernel_path(n, x.dtype)
+    c64 = x.dtype == torch.complex64
+    twp = tw.data_ptr() if tw is not None else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), buf.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                 t.data_ptr(), tw.data_ptr() if tw is not None else None,
-                 b, n1, n2, int(inverse), parts, cfg.lines,
-                 int(cfg.w2_in_smem), cfg.smem_bytes, stream)
+        if path == "radix":
+            tile = radix.radix_tile(n, x.element_size(), tw is not None,
+                                    strided)
+            consts = _radix_constants(n, inverse, x.dtype, x.device)
+            outer, inner = (x.shape[0], x.shape[2]) if strided \
+                else (x.shape[0], 1)
+            fn = lib.repro_fft_radix_c64 if c64 else lib.repro_fft_radix_c128
+            err = fn(x.data_ptr(), buf.data_ptr(), consts.data_ptr(), twp,
+                     outer, inner, n, int(inverse),
+                     (n // parts).bit_length() - 1,
+                     tile.lines.bit_length() - 1, int(strided),
+                     tile.smem_bytes, stream)
+        else:
+            n1, n2 = factorize(n)
+            cfg = launch_config(n, x.element_size(), tw is not None)
+            w1, w2, t = _device_constants(n1, n2, inverse, x.dtype, x.device)
+            fn = (lib.repro_fft_fourstep_c64 if c64
+                  else lib.repro_fft_fourstep_c128)
+            err = fn(x.data_ptr(), buf.data_ptr(), w1.data_ptr(),
+                     w2.data_ptr(), t.data_ptr(), twp, x.shape[0], n1, n2,
+                     int(inverse), parts, cfg.lines, int(cfg.w2_in_smem),
+                     cfg.smem_bytes, stream)
     if err:
         msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"fft_fourstep launch failed for B={b}, N={n}, "
-                           f"{x.dtype}: CUDA error {err} ({msg})")
+        raise RuntimeError(f"fft_fourstep ({path} path) launch failed for "
+                           f"shape {tuple(x.shape)}, {x.dtype}: CUDA error "
+                           f"{err} ({msg})")
     fft_fourstep.launches += 1
     variant = ("pack" if pack_parts is not None
                else "twiddle" if tw is not None else "fourstep")
     fft_fourstep.variant_launches[variant] += 1
-    return buf[0] if pack_parts is None else buf.transpose(0, 1)
+    fft_fourstep.path_launches[path] += 1
+    fft_fourstep.layout_launches["strided" if strided else "lines"] += 1
+    return out
 
 
 def _declare(lib) -> None:
@@ -242,6 +306,9 @@ def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.repro_fft_fourstep_c64, lib.repro_fft_fourstep_c128):
         fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.repro_fft_radix_c64, lib.repro_fft_radix_c128):
+        fn.argtypes = [p, p, p, p, ll, ll, i, i, i, i, i, i, p]
         fn.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -255,8 +322,9 @@ def fft_fourstep(x: torch.Tensor, *, inverse: bool = False,
 
     Returns ``(B, N)``, or with ``pack_parts=p`` the ``(B, p, N/p)`` view of
     a destination-major ``(p, B, N/p)`` buffer.  A CUDA tensor launches the
-    kernel; a CPU tensor runs :func:`fft_fourstep_plain`; any other device
-    raises.  ``B == 0`` returns an empty result without a launch.
+    kernel on the path :func:`radix.kernel_path` names; a CPU tensor runs
+    :func:`fft_fourstep_plain`; any other device raises.  ``B == 0``
+    returns an empty result without a launch.
     """
     _check(x, twiddle, pack_parts)
     if x.device.type == "cuda":
@@ -269,11 +337,72 @@ def fft_fourstep(x: torch.Tensor, *, inverse: bool = False,
                      f"plain version), not {x.device}")
 
 
+def strided_supported(n: int, dtype: torch.dtype, twiddle: bool) -> bool:
+    """Whether :func:`fft_fourstep_strided` takes lines of length ``n``:
+    the radix path, with a strided tile inside one block's shared
+    memory."""
+    return (dtype in DTYPES and radix.kernel_path(n, dtype) == "radix"
+            and radix.radix_tile(n, dtype.itemsize, twiddle, True)
+            is not None)
+
+
+def _check_strided(x: torch.Tensor, twiddle: Optional[torch.Tensor]) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"fft_fourstep_strided takes an (outer, N, inner) "
+                         f"block, got shape {tuple(x.shape)}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"fft_fourstep_strided takes complex64 or "
+                         f"complex128, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fft_fourstep_strided takes a contiguous block")
+    n = x.shape[1]
+    if not strided_supported(n, x.dtype, twiddle is not None):
+        raise ValueError(f"fft_fourstep_strided: no strided radix tile for "
+                         f"N={n}, {x.dtype}")
+    if twiddle is not None and tuple(twiddle.shape) != (n,):
+        raise ValueError(f"twiddle must have shape ({n},), got "
+                         f"{tuple(twiddle.shape)}")
+
+
+def fft_fourstep_strided_plain(x: torch.Tensor, *, inverse: bool = False,
+                               twiddle: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The strided entry's plain version: the lines copied contiguous,
+    :func:`fft_fourstep_plain`, and the result in the ``(outer, N,
+    inner)`` layout again."""
+    _check_strided(x, twiddle)
+    outer, n, inner = x.shape
+    lines = x.transpose(1, 2).reshape(-1, n).contiguous()
+    out = fft_fourstep_plain(lines, inverse=inverse, twiddle=twiddle)
+    return out.reshape(outer, inner, n).transpose(1, 2).contiguous()
+
+
+def fft_fourstep_strided(x: torch.Tensor, *, inverse: bool = False,
+                         twiddle: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """FFT along dim 1 of a contiguous complex ``(outer, N, inner)`` block,
+    returned in the same layout, on the radix path (``strided_supported``
+    names the N it takes).  A CUDA tensor launches the kernel; a CPU
+    tensor runs :func:`fft_fourstep_strided_plain`; any other device
+    raises."""
+    _check_strided(x, twiddle)
+    if x.device.type == "cuda":
+        return _launch(*_resolved(x, twiddle), inverse=inverse, strided=True)
+    if x.device.type == "cpu":
+        return fft_fourstep_strided_plain(x, inverse=inverse, twiddle=twiddle)
+    raise ValueError(f"fft_fourstep_strided runs on cuda (the kernel) or cpu "
+                     f"(its plain version), not {x.device}")
+
+
 fft_fourstep.launches = 0
 fft_fourstep.variant_launches = {"fourstep": 0, "pack": 0, "twiddle": 0}
+fft_fourstep.path_launches = {"radix": 0, "dense": 0}
+fft_fourstep.layout_launches = {"lines": 0, "strided": 0}
 
 
 def reset_launch_counts() -> None:
     fft_fourstep.launches = 0
-    for k in fft_fourstep.variant_launches:
-        fft_fourstep.variant_launches[k] = 0
+    for counts in (fft_fourstep.variant_launches, fft_fourstep.path_launches,
+                   fft_fourstep.layout_launches):
+        for k in counts:
+            counts[k] = 0

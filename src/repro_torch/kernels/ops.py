@@ -7,10 +7,18 @@ sends every complex FFT of that backend here, the ones inside its R2C and
 R2R kinds included (the DCT-II with ``twiddle=``).  A CUDA tensor launches
 the kernel; a CPU tensor runs its plain version.
 
-``_apply`` moves ``axis`` to the end and copies the lines contiguous (a
-full pass over the array when ``axis`` is not already last — the cost of a
-strided axis), launches the kernel once, and moves the axis back as a
-view.  The output dtype follows the input: complex64 for single precision,
+``_apply`` works in ``x``'s physical order when ``x`` is dense (contiguous,
+or a permutation of a contiguous block, as a previous stage leaves it):
+with ``inner`` the elements physically inside the transformed axis, it
+launches the kernel once on the ``(outer, N, inner)`` block — as ``(B,
+N)`` lines when ``inner == 1``, else through the strided entry
+(:func:`~.fft_matmul.fft_fourstep_strided`) when that takes N and
+``inner`` holds at least a strided tile — and returns the result with
+``x``'s strides, with no copy.  Everything else (``pack_parts`` on a
+strided axis, a general-path N on a strided axis, ``inner`` narrower than
+a tile, a non-dense view) moves ``axis`` last and copies the lines
+contiguous first, and each such copy adds one to ``copies["lines"]``.
+The output dtype follows the input: complex64 for single precision,
 complex128 for float64/complex128.
 
 :func:`packed_fft1d` is the pipeline's form of the ``pack_parts`` epilogue:
@@ -19,12 +27,42 @@ next hop's send buffer (``core/redistribute.py``), with no copy.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
 from ..core.transforms import complex_dtype
-from .fft_matmul import fft_fourstep
+from . import radix
+from .fft_matmul import fft_fourstep, fft_fourstep_strided, strided_supported
+
+#: Line copies ``_apply`` made because the kernel could not read the axis
+#: where it lies (see the module docstring).
+copies = {"lines": 0}
+
+
+def dense_layout(x: torch.Tensor, axis: int
+                 ) -> Optional[Tuple[List[int], int, int]]:
+    """``(perm, outer, inner)`` when ``x`` is dense and non-overlapping:
+    ``x.permute(perm)`` is contiguous, and ``outer``/``inner`` count the
+    elements before/after ``axis`` in that order.  None otherwise."""
+    perm = sorted(range(x.dim()), key=lambda d: (-x.stride(d), d))
+    if not x.permute(perm).is_contiguous():
+        return None
+    p = perm.index(axis)
+    outer = math.prod(x.shape[d] for d in perm[:p])
+    inner = math.prod(x.shape[d] for d in perm[p + 1:])
+    return perm, outer, inner
+
+
+def _in_place_layout(x: torch.Tensor, axis: int, twiddle: bool):
+    """The layout the kernel reads ``x`` in without a copy, or None."""
+    layout = dense_layout(x, axis)
+    if layout is None or layout[2] == 1:
+        return layout
+    if not strided_supported(x.shape[axis], x.dtype, twiddle):
+        return None
+    return layout if layout[2] >= radix.STRIDED_LINES else None
 
 
 def _apply(x: torch.Tensor, axis: int, *, inverse: bool,
@@ -44,10 +82,27 @@ def _apply(x: torch.Tensor, axis: int, *, inverse: bool,
                                dtype=cdt, device=x.device)
         return torch.zeros(lead + (n,), dtype=cdt,
                            device=x.device).movedim(-1, axis)
-    flat = xm.to(cdt).reshape(-1, n).contiguous()
     tw = None
     if twiddle is not None:
         tw = torch.as_tensor(twiddle).reshape(-1)
+    xc = x.to(cdt)
+    layout = None if pack_parts is not None else \
+        _in_place_layout(xc, axis, tw is not None)
+    if layout is not None:
+        perm, outer, inner = layout
+        xp = xc.permute(perm)
+        if inner == 1:
+            out = fft_fourstep(xp.reshape(outer, n), inverse=inverse,
+                               twiddle=tw)
+        else:
+            out = fft_fourstep_strided(xp.reshape(outer, n, inner),
+                                       inverse=inverse, twiddle=tw)
+        inv = [perm.index(d) for d in range(x.dim())]
+        return out.reshape(xp.shape).permute(inv)
+    xm = xc.movedim(axis, -1)
+    if not xm.is_contiguous():
+        copies["lines"] += 1
+    flat = xm.reshape(-1, n).contiguous()
     out = fft_fourstep(flat, inverse=inverse, twiddle=tw,
                        pack_parts=pack_parts)
     if send_layout:

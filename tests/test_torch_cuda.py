@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import fft_matmul as tfm
+from repro_torch.kernels import ops, radix
 from torch_harness import assert_scaled_close, cplx
 
 
@@ -30,6 +31,10 @@ def cuda():
     ((7, 521), torch.complex64, None, False),      # W2 streamed from L2
     ((300, 64), torch.complex64, 8, False),         # ragged last tile
     ((5, 48), torch.complex128, 2, True),
+    ((67, 4096), torch.complex64, None, True),      # radix, N1 = N2 = 64
+    ((33, 2), torch.complex64, 2, False),           # radix, N1 = 1
+    ((130, 512), torch.complex128, 4, True),        # radix complex128
+    ((9, 2048), torch.complex128, None, False),     # dense: no c128 codelet
 ])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cuda_kernel_matches_plain_version(cuda, shape, dtype, parts,
@@ -44,10 +49,37 @@ def test_cuda_kernel_matches_plain_version(cuda, shape, dtype, parts,
                                   pack_parts=parts)
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.launches == 1
+    path = radix.kernel_path(n, dtype)
+    assert tfm.fft_fourstep.path_launches[path] == 1
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
     if parts is not None:
         assert got.transpose(0, 1).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,use_tw", [
+    ((8, 512, 512), torch.complex64, False),      # the main path's dim 1
+    ((1, 512, 4096), torch.complex64, True),
+    ((3, 512, 1000), torch.complex64, True),      # ragged last inner group
+    ((5, 1024, 16), torch.complex64, False),
+    ((4, 256, 40), torch.complex128, True),
+])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_strided_kernel_matches_plain_version(cuda, shape, dtype,
+                                                   use_tw, inverse):
+    x = torch.from_numpy(cplx(shape, 7)).to(cuda, dtype)
+    n = shape[1]
+    tw = (torch.exp(-1j * math.pi * torch.arange(n, device=cuda) / (2 * n))
+          .to(dtype) if use_tw else None)
+    tfm.reset_launch_counts()
+    got = tfm.fft_fourstep_strided(x, inverse=inverse, twiddle=tw)
+    want = tfm.fft_fourstep_strided_plain(x, inverse=inverse, twiddle=tw)
+    torch.cuda.synchronize()
+    assert tfm.fft_fourstep.layout_launches == {"lines": 0, "strided": 1}
+    assert tfm.fft_fourstep.path_launches == {"radix": 1, "dense": 0}
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
 
 
 @pytest.mark.cuda
@@ -86,10 +118,15 @@ def test_kernel_plan_on_the_card(cuda):
     plan = plan_fft(mesh, (32, 64, 48), backend="kernel")
     x = torch.from_numpy(cplx((32, 64, 48), 9)).to(cuda)
     tfm.reset_launch_counts()
+    ops.copies["lines"] = 0
     y = plan.forward(x)
     back = plan.inverse(y, sharded_in=True)
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.launches == 6
+    # 32 and 64 on the radix path (strided, in place), 48 on the dense one
+    assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 2}
+    assert tfm.fft_fourstep.layout_launches == {"lines": 2, "strided": 4}
+    assert ops.copies["lines"] == 0 and y.is_contiguous()
     assert_scaled_close(y.cpu().numpy(), torch.fft.fftn(x).cpu().numpy(),
                         2e-4)
     assert_scaled_close(back.cpu().numpy(), x.cpu().numpy(), 1e-4)
@@ -115,6 +152,9 @@ def test_poisson_ppb_on_the_card(cuda):
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.variant_launches == {"fourstep": 6, "pack": 0,
                                                  "twiddle": 2}
+    # the bounded dim (48) takes the dense path: its 2 twiddle launches and
+    # the 2 inverse ones; dims of 32 and 64 the radix path
+    assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 4}
     assert phi.dtype == torch.float32 and phi.device.type == "cuda"
     want = PoissonSolver(mesh, grid, topology=topo, backend="cufft")(rhs)
     assert_scaled_close(phi.cpu().numpy(), want.cpu().numpy(), 2e-4)

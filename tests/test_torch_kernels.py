@@ -16,7 +16,7 @@ except ImportError:  # hermetic container: fixed-seed shim
 from repro.kernels import fft_matmul as jfm
 from repro.kernels import ops as jops
 from repro_torch.kernels import fft_matmul as tfm
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, radix, ref
 from repro_torch.core.redistribute import send_buffer
 from torch_harness import assert_scaled_close, cplx
 
@@ -201,6 +201,29 @@ def test_launch_config_fits_shared_memory():
     tfm.launch_config(limit, 8, False)
     with pytest.raises(ValueError, match=f"N up to {limit}"):
         tfm.launch_config(limit + 1, 8, False)
+    # the radix path's tiles: a row per thread at N = 512, two blocks per
+    # SM for contiguous lines, one block's 227 KB for strided tiles
+    main = radix.radix_tile(512, 8, False, strided=False)
+    assert main.lines == 16 and main.smem_bytes == 8 * (
+        512 + 16 + 16 * 16 * 33)
+    assert main.lines * 16 == radix.THREADS
+    strided = radix.radix_tile(512, 8, True, strided=True)
+    assert strided.lines == radix.STRIDED_LINES
+    assert strided.smem_bytes == 8 * (512 + 16 + 512 + 16 * 512)
+    for dtype, sizes in radix.RADIX_SIZES.items():
+        item = dtype.itemsize
+        for n in sizes:
+            for tw in (False, True):
+                tile = radix.radix_tile(n, item, tw, strided=False)
+                assert tile.smem_bytes <= tfm.SMEM_TARGET_BYTES
+                assert tile.lines & (tile.lines - 1) == 0
+                st = radix.radix_tile(n, item, tw, strided=True)
+                assert (st is None) == (n * item > 8 * 1024)
+                if st is not None:
+                    assert st.smem_bytes <= tfm.SMEM_MAX_BYTES
+    assert not tfm.strided_supported(2048, torch.complex64, False)
+    assert not tfm.strided_supported(1024, torch.complex128, False)
+    assert not tfm.strided_supported(96, torch.complex64, False)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -224,6 +247,8 @@ def test_cpu_runs_the_plain_version_without_counting_launches():
     assert tfm.fft_fourstep.launches == 0
     assert set(tfm.fft_fourstep.variant_launches) == {"fourstep", "pack",
                                                       "twiddle"}
+    assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0}
+    assert tfm.fft_fourstep.layout_launches == {"lines": 0, "strided": 0}
 
 
 def test_kernel_operands_are_resolved():
@@ -243,3 +268,156 @@ def test_kernel_operands_are_resolved():
     got = tfm.fft_fourstep(x.conj(), twiddle=tw.conj())
     want = np.conj(tw.numpy()) * np.fft.fft(np.conj(x.numpy()), axis=-1)
     assert_scaled_close(got.numpy(), want, 5e-6)
+
+
+@pytest.mark.parametrize("n,dtype,path", [
+    (1, torch.complex64, "dense"), (2, torch.complex64, "radix"),
+    (512, torch.complex64, "radix"), (4096, torch.complex64, "radix"),
+    (8192, torch.complex64, "dense"), (24, torch.complex64, "dense"),
+    (33, torch.complex64, "dense"), (96, torch.complex64, "dense"),
+    (521, torch.complex64, "dense"), (1024, torch.complex128, "radix"),
+    (2, torch.complex128, "dense"), (4, torch.complex128, "radix"),
+    (2048, torch.complex128, "dense"), (4096, torch.complex128, "dense"),
+    (48, torch.complex128, "dense")])
+def test_kernel_path_selection(n, dtype, path):
+    """The path follows N and the dtype alone: power-of-two N with an
+    instantiation takes the radix kernel, every other N the dense one."""
+    assert radix.kernel_path(n, dtype) == path
+
+
+def test_radix_plan_factors_and_codelets():
+    for k in range(1, 13):
+        n = 2 ** k
+        plan = radix.radix_plan(n)
+        assert (plan.n1, plan.n2) == (2 ** (k // 2), 2 ** (k - k // 2))
+        assert len(plan.column) == k // 2 and len(plan.row) == k - k // 2
+        # every stage touches each register once; twiddle indices stay
+        # inside the shared N2/2-entry table
+        for stages, length in ((plan.column, plan.n1), (plan.row, plan.n2)):
+            for stage in stages:
+                touched = sorted(i for top, bot, _ in stage
+                                 for i in (top, bot))
+                assert touched == list(range(length))
+                assert all(w is None or 0 < w < plan.n2 // 2
+                           for _, _, w in stage)
+    assert [radix.bitrev(i, 3) for i in range(8)] == [0, 4, 2, 6, 1, 5, 3, 7]
+    for bad in (0, 1, 12, 96):
+        with pytest.raises(ValueError, match="power of two"):
+            radix.radix_plan(bad)
+
+
+@pytest.mark.parametrize("n", [2 ** k for k in range(1, 13)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_radix_plan_matches_numpy(n, inverse):
+    """The kernel's radix plan, tiles and index maps, run in torch
+    (``radix.emulate``), against np.fft: contiguous lines with a ragged
+    last tile, the twiddle and pack_parts epilogues, and strided blocks
+    with a ragged last group of inner indices."""
+    x = cplx((37, n), 300 + n, np.complex128)
+    base = np.fft.ifft if inverse else np.fft.fft
+    want = base(x, axis=-1)
+    got = radix.emulate(_t(x), inverse=inverse).numpy()
+    assert_scaled_close(got, want, 1e-12)
+    tw = np.exp(-1j * np.pi * np.arange(n) / (2 * n))
+    got = radix.emulate(_t(x), inverse=inverse, twiddle=_t(tw)).numpy()
+    assert_scaled_close(got, tw * want, 1e-12)
+    if n >= 4:
+        got = radix.emulate(_t(x), inverse=inverse, pack_parts=4).numpy()
+        assert_scaled_close(got, want.reshape(37, 4, n // 4)
+                            .transpose(1, 0, 2), 1e-12)
+    if tfm.strided_supported(n, torch.complex64, True):
+        xs = cplx((2, n, 20), 400 + n)
+        got = radix.emulate(_t(xs), inverse=inverse, twiddle=_t(tw),
+                            strided=True).numpy()
+        assert_scaled_close(got, tw[:, None] * base(xs, axis=1), 5e-6)
+
+
+def _grid_layouts(x):
+    """A contiguous grid and a permuted view of another contiguous block,
+    as a previous stage may leave it."""
+    return [x, x.permute(2, 0, 1).contiguous().permute(1, 2, 0)]
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("op", ["fft", "ifft", "twiddle"])
+def test_strided_routing_matches_pallas(axis, op):
+    """ops.fft1d/ifft1d (and the twiddle epilogue) on every axis of a
+    small 3-D grid, in place in x's layout: no line copy, the output keeps
+    x's strides, and the values match the JAX package's kernel."""
+    x = cplx((4, 64, 32), 60 + axis)
+    n = x.shape[axis]
+    tw = np.exp(-1j * np.pi * np.arange(n) / (2 * n)).astype(np.complex64)
+    kw, jkw = ({"twiddle": _t(tw)}, {"twiddle": jnp.asarray(tw)}) \
+        if op == "twiddle" else ({}, {})
+    fn, jfn = (ops.ifft1d, jops.ifft1d) if op == "ifft" else (ops.fft1d,
+                                                             jops.fft1d)
+    want = np.asarray(jfn(jnp.asarray(x), axis, **jkw))
+    for xt in _grid_layouts(_t(x)):
+        ops.copies["lines"] = 0
+        got = fn(xt, axis, **kw)
+        assert ops.copies["lines"] == 0
+        assert got.stride() == xt.stride()
+        assert_scaled_close(got.numpy(), want, 5e-6)
+
+
+def test_strided_routing_masks_ragged_inner_and_copies_narrow_ones():
+    # inner = 20: one full tile of 16 inner indices and a ragged one of 4
+    x = cplx((3, 32, 20), 70)
+    ops.copies["lines"] = 0
+    got = ops.fft1d(_t(x), 1)
+    assert ops.copies["lines"] == 0
+    assert_scaled_close(got.numpy(), np.fft.fft(x, axis=1), 5e-6)
+    # inner = 8 is narrower than a strided tile: the lines are copied
+    x = cplx((3, 32, 8), 71)
+    got = ops.fft1d(_t(x), 1)
+    assert ops.copies["lines"] == 1
+    assert_scaled_close(got.numpy(), np.fft.fft(x, axis=1), 5e-6)
+    # a general-path N on a strided axis and a pack on one are copied too
+    ops.fft1d(_t(cplx((3, 24, 16), 72)), 1)
+    ops.packed_fft1d(_t(cplx((3, 32, 16), 73)), 1, 2)
+    assert ops.copies["lines"] == 3
+
+
+def test_dense_layout():
+    x = torch.zeros((2, 3, 4, 5))
+    assert ops.dense_layout(x, 1) == ([0, 1, 2, 3], 2, 20)
+    y = x.permute(3, 1, 0, 2)
+    perm, outer, inner = ops.dense_layout(y, 1)
+    assert y.permute(perm).is_contiguous() and (outer, inner) == (2, 20)
+    assert ops.dense_layout(x[:, :, :2], 1) is None     # not dense
+    assert ops.dense_layout(torch.zeros(3, 1).expand(3, 4), 0) is None
+    assert ops.dense_layout(x[:1], 3) == ([0, 1, 2, 3], 12, 1)
+
+
+def test_strided_entry_and_its_plain_version():
+    x = cplx((3, 64, 17), 80)
+    tw = np.exp(-1j * np.pi * np.arange(64) / 128).astype(np.complex64)
+    got = tfm.fft_fourstep_strided(_t(x), inverse=True, twiddle=_t(tw))
+    assert got.shape == (3, 64, 17) and got.is_contiguous()
+    assert_scaled_close(got.numpy(), tw[:, None] * np.fft.ifft(x, axis=1),
+                        5e-6)
+    with pytest.raises(ValueError, match=r"\(outer, N, inner\)"):
+        tfm.fft_fourstep_strided(torch.zeros((4, 64), dtype=torch.complex64))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfm.fft_fourstep_strided(
+            torch.zeros((2, 16, 64), dtype=torch.complex64).transpose(1, 2))
+    with pytest.raises(ValueError, match="no strided radix tile"):
+        tfm.fft_fourstep_strided(torch.zeros((1, 96, 16),
+                                             dtype=torch.complex64))
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edited header under csrc/ gives a new library name, so a stale
+    build is never loaded; an unchanged tree keeps its name."""
+    from repro_torch.kernels import build
+    src = build.csrc_dir()
+    names = [p.name for p in build.sources("fft_fourstep")]
+    assert names == ["fft_fourstep.cu", "fft_common.cuh", "fft_radix.cuh"]
+    for name in names:
+        (tmp_path / name).write_bytes((src / name).read_bytes())
+    monkeypatch.setattr(build, "csrc_dir", lambda: tmp_path)
+    first = build._target("fft_fourstep")
+    assert build._target("fft_fourstep") == first
+    common = tmp_path / "fft_common.cuh"
+    common.write_bytes(common.read_bytes() + b"\n// edited\n")
+    assert build._target("fft_fourstep") != first

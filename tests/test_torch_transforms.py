@@ -54,6 +54,24 @@ def test_apply_1d_every_axis_matches_reference(backend, axis):
         assert_scaled_close(got, ref, 5e-6)
 
 
+@pytest.mark.parametrize("kind", ["fft", "ifft", "dct2", "dct3"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_kernel_backend_strided_axes_match_pallas(kind, axis):
+    """The kernel backend on every axis of a small 3-D grid whose lengths
+    take the radix path: the C2C lines run in the grid's own layout (the
+    strided entry for axes 0 and 1) with no line copy, and match the
+    Pallas kernel in interpret mode."""
+    from repro_torch.kernels import ops
+    x = cplx((4, 64, 32), 90 + axis) if kind in tt.C2C_KINDS else \
+        np.random.default_rng(90 + axis).standard_normal(
+            (4, 64, 32)).astype(np.float32)
+    ops.copies["lines"] = 0
+    got, ref = _pair(x, axis, kind, "kernel")
+    if kind in tt.C2C_KINDS:
+        assert ops.copies["lines"] == 0
+    assert_scaled_close(got, ref, 5e-6 if kind in tt.C2C_KINDS else 2e-5)
+
+
 def test_backend_mapping_is_one_to_one():
     assert tt.LOCAL_BACKENDS == ("cufft", "matmul", "kernel")
     assert tuple(tt.REFERENCE_BACKEND[b] for b in tt.LOCAL_BACKENDS) == \
