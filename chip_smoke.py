@@ -42,8 +42,24 @@ its result line):
 7. an R2C plan, ``kinds=("rfft", "fft", "fft")`` at 512^3 on the kernel
    backend: 3 launches per direction, forward against
    ``torch.fft.fftn(x)[:257]``, and the round trip;
-8. a ``kernels`` JSON line (one entry per kernel variant, with the path
-   it ran), then the result line.
+8. ``[chunked]``: the 512^3 C2C kernel plan with ``n_chunks=2`` and the
+   per-hop ``(4, 2)``: launches per direction (one per chunk of each hop's
+   next stage, all radix), the chunk dim per hop, ``ops.copies["lines"]``
+   per direction, forward and inverse against the bulk plan (5e-6 scaled,
+   and whether bitwise equal) and forward against ``torch.fft.fftn``
+   (2e-4), and CUDA-event ms per direction beside the bulk plan's;
+9. ``[calibrate]``: ``perfmodel.calibrate`` on the card (after the build,
+   so no build lands in a timing): ``backend_flops`` per backend,
+   ``mem_bw``, ``net_calibrated`` and the seconds it took;
+10. ``[tune]``: ``tuning="heuristic"`` for C2C 512^3 (winner, predicted
+    and measured ms); ``tuning="auto"`` with a wisdom file in a temporary
+    directory (winner no slower than the default candidate in the tuner's
+    own record, output against ``fftn``, a second plan reading the file
+    without a measurement); ``PoissonSolver(tuning="auto")`` for the PPB
+    512^3 solve (winner, ms per solve beside phase 5's, solve against the
+    float64 solve).  Kernel launches are counted over each tuning run;
+11. a ``kernels`` JSON line (one entry per kernel variant, with the path
+    it ran), then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -55,6 +71,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -713,6 +730,248 @@ def phase_twiddle_timing(device, b: int = 262144, n: int = 512,
     return out
 
 
+def chunk_dims(spec, mesh) -> list:
+    """The chunk dim each executed hop of ``spec`` uses (None: bulk)."""
+    from repro_torch.core.pipeline import chunk_sites
+    return [d if k > 1 else None for (d, _), k
+            in zip(chunk_sites(spec, mesh.axis_sizes), spec.chunk_schedule)]
+
+
+def phase_chunked(device, grid=GRID, iters: int = 5) -> dict:
+    """Chunked hops on the main path: the C2C kernel plan at ``n_chunks=2``
+    and ``(4, 2)`` against the bulk plan and torch.fft.fftn."""
+    import torch
+    from repro_torch import make_mesh, plan_fft
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                reset_launch_counts)
+    cuda = device.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if cuda else device)
+    bulk = plan_fft(mesh, grid, backend="kernel")
+    x = randc(grid, torch.complex64, device, SEED + 5)
+    yb = bulk.forward(x)
+    xb = bulk.inverse(yb, sharded_in=True)
+    ref = torch.fft.fftn(x)
+    out = {"grid": list(grid), "cases": {}}
+    if cuda:
+        out["bulk_fwd_ms"] = time_ms(lambda: bulk.forward(x), iters)
+        out["bulk_inv_ms"] = time_ms(lambda: bulk.inverse(yb,
+                                                          sharded_in=True),
+                                     iters)
+    for n_chunks in (2, (4, 2)):
+        plan = plan_fft(mesh, grid, backend="kernel", n_chunks=n_chunks)
+        fwd_spec = plan.pipeline_spec()
+        inv_spec = plan.pipeline_spec(inverse=True)
+        case = {"fwd_schedule": list(fwd_spec.chunk_schedule),
+                "inv_schedule": list(inv_spec.chunk_schedule),
+                "fwd_chunk_dims": chunk_dims(fwd_spec, mesh),
+                "inv_chunk_dims": chunk_dims(inv_spec, mesh)}
+        results = {}
+        for name in ("forward", "inverse"):
+            reset_launch_counts()
+            ops.copies["lines"] = 0
+            if name == "forward":
+                results[name] = plan.forward(x)
+            else:
+                results[name] = plan.inverse(yb, sharded_in=True)
+            if cuda:
+                torch.cuda.synchronize(device)
+            case[f"{name}_launches"] = fft_fourstep.launches
+            case[f"{name}_paths"] = dict(fft_fourstep.path_launches)
+            case[f"{name}_layouts"] = dict(fft_fourstep.layout_launches)
+            case[f"{name}_copies"] = ops.copies["lines"]
+        stages = [1 + sum(s.chunk_schedule) for s in (fwd_spec, inv_spec)]
+        if cuda:
+            for name, want in zip(("forward", "inverse"), stages):
+                check(case[f"{name}_launches"] == want
+                      and case[f"{name}_paths"]["radix"] == want,
+                      f"chunked {n_chunks} {name}: {case[f'{name}_launches']}"
+                      f" launches ({case[f'{name}_paths']}), expected {want} "
+                      f"on the radix path (one per chunk of each hop)")
+        y, xi = results["forward"], results["inverse"]
+        case["err_fwd_vs_bulk"] = scaled_err(y, yb)
+        case["err_inv_vs_bulk"] = scaled_err(xi, xb)
+        case["err_fwd_vs_fftn"] = scaled_err(y, ref)
+        case["bitwise_fwd"] = bool(torch.equal(y, yb))
+        case["bitwise_inv"] = bool(torch.equal(xi, xb))
+        check(bool(torch.isfinite(torch.view_as_real(y)).all()),
+              f"chunked {n_chunks}: non-finite forward output")
+        check(case["err_fwd_vs_bulk"] <= TOL["complex64"]
+              and case["err_inv_vs_bulk"] <= TOL["complex64"],
+              f"chunked {n_chunks} vs bulk: scaled errors "
+              f"{case['err_fwd_vs_bulk']:.3e} (forward), "
+              f"{case['err_inv_vs_bulk']:.3e} (inverse) > {TOL['complex64']}")
+        check(case["err_fwd_vs_fftn"] <= PATH_TOL,
+              f"chunked {n_chunks} vs torch.fft.fftn: scaled error "
+              f"{case['err_fwd_vs_fftn']:.3e} > {PATH_TOL}")
+        del results, y, xi
+        if cuda:
+            case["fwd_ms"] = time_ms(lambda: plan.forward(x), iters)
+            case["inv_ms"] = time_ms(lambda: plan.inverse(yb,
+                                                          sharded_in=True),
+                                     iters)
+        key = ",".join(map(str, n_chunks)) if isinstance(n_chunks, tuple) \
+            else str(n_chunks)
+        out["cases"][key] = case
+        print(f"[chunked] n_chunks={key}: schedule forward "
+              f"{case['fwd_schedule']} (chunk dims {case['fwd_chunk_dims']}),"
+              f" inverse {case['inv_schedule']} (chunk dims "
+              f"{case['inv_chunk_dims']}); launches {case['forward_launches']}"
+              f" forward / {case['inverse_launches']} inverse, paths "
+              f"{case['forward_paths']} / {case['inverse_paths']}; line "
+              f"copies {case['forward_copies']} / {case['inverse_copies']}; "
+              f"vs bulk {case['err_fwd_vs_bulk']:.3e} / "
+              f"{case['err_inv_vs_bulk']:.3e} (bound {TOL['complex64']}, "
+              f"bitwise {case['bitwise_fwd']} / {case['bitwise_inv']}), "
+              f"vs fftn {case['err_fwd_vs_fftn']:.3e} (bound {PATH_TOL})"
+              + (f"; ms {case['fwd_ms']:.4f} / {case['inv_ms']:.4f} beside "
+                 f"bulk {out['bulk_fwd_ms']:.4f} / {out['bulk_inv_ms']:.4f}"
+                 if cuda else ""))
+    return out
+
+
+def phase_calibrate(device, cache) -> dict:
+    """``perfmodel.calibrate`` on the card; the profile is stored in the
+    wisdom ``cache`` the tune phase uses."""
+    from repro_torch import make_mesh
+    from repro_torch.core.perfmodel import calibrate
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                reset_launch_counts)
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if device.type == "cuda" else device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    prof = calibrate(mesh)
+    seconds = time.perf_counter() - t0
+    launches = fft_fourstep.launches
+    check(prof.calibrated and not prof.net_calibrated,
+          f"calibration flags: calibrated={prof.calibrated}, "
+          f"net_calibrated={prof.net_calibrated} (one card: expected True, "
+          f"False)")
+    if device.type == "cuda":
+        check(launches > 0, "calibration launched no kernel")
+    cache.put_machine(prof.platform, prof.to_json())
+    flops = dict(prof.backend_flops)
+    print(f"[calibrate] {prof.platform}: backend_flops " + ", ".join(
+        f"{k}={v:.4e}" for k, v in flops.items())
+        + f" FLOP/s; mem_bw {prof.mem_bw:.4e} B/s; kind_scale "
+        f"{dict(prof.kind_scale)}; net_calibrated {prof.net_calibrated}; "
+        f"{seconds:.2f} s; {launches} kernel launches")
+    return {"profile": prof.to_json(), "seconds": seconds,
+            "launches": launches}
+
+
+def phase_tune(device, cache, poisson: dict, grid=GRID,
+               iters: int = 5) -> dict:
+    """The tuner on the card: heuristic and auto for C2C 512^3, then the
+    PPB solve tuned jointly, each run's kernel launches counted."""
+    import torch
+    from repro_torch import PoissonSolver, make_mesh, plan_fft
+    from repro_torch.core import tuner
+    from repro_torch.core.plan import TuningCache
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                reset_launch_counts)
+    cuda = device.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if cuda else device)
+    x = randc(grid, torch.complex64, device, SEED + 6)
+    measured = []
+    measure = tuner.measure_candidate
+
+    def recording(cand, *a, **kw):
+        measured.append(cand)
+        return measure(cand, *a, **kw)
+
+    tuner.measure_candidate = recording
+    out = {}
+    try:
+        reset_launch_counts()
+        heur = plan_fft(mesh, grid, tuning="heuristic", tune_cache=cache)
+        check(not measured, "heuristic tuning measured a candidate")
+        out["heuristic"] = {
+            "winner": heur.tuned.describe(),
+            "predicted_ms": heur.tuned.predicted_s * 1e3,
+            "measured_ms": time_ms(lambda: heur.forward(x), iters)
+            if cuda else None}
+        print(f"[tune] heuristic C2C {tuple(grid)}: {heur.tuned.describe()}; "
+              f"measured {out['heuristic']['measured_ms']} ms")
+
+        reset_launch_counts()
+        auto = plan_fft(mesh, grid, tuning="auto", tune_cache=cache)
+        rec = auto.tuned
+        launches = fft_fourstep.launches
+        n_measured = len(measured)
+        kernel_measured = any(c.backend == "kernel" for c in measured)
+        check(rec.source == "measured" and rec.measured_s <= rec.baseline_s,
+              f"auto winner {rec.describe()} is slower than the default")
+        if cuda:
+            check((launches > 0) == kernel_measured,
+                  f"auto tuning: {launches} kernel launches, kernel "
+                  f"candidates measured: {kernel_measured}")
+        err = scaled_err(auto.forward(x), torch.fft.fftn(x))
+        check(err <= PATH_TOL, f"auto plan vs torch.fft.fftn: scaled error "
+              f"{err:.3e} > {PATH_TOL}")
+        measured.clear()
+        again = plan_fft(mesh, grid, tuning="auto",
+                         tune_cache=TuningCache(cache.path))
+        check(not measured and again.tuned == rec,
+              f"second plan on the wisdom file measured {len(measured)} "
+              f"candidates")
+        out["auto"] = {"winner": rec.describe(), "to_json": rec.to_json(),
+                       "measured_candidates": n_measured,
+                       "kernel_measured": kernel_measured,
+                       "launches": launches, "err_vs_fftn": err,
+                       "second_plan_measurements": len(measured)}
+        print(f"[tune] auto C2C {tuple(grid)}: {rec.describe()}; "
+              f"{n_measured} candidates measured (kernel among them: "
+              f"{kernel_measured}), {launches} kernel launches; vs fftn "
+              f"{err:.3e} (bound {PATH_TOL}); a second plan read the wisdom "
+              f"file with {len(measured)} measurements")
+
+        measured.clear()
+        reset_launch_counts()
+        solver = PoissonSolver(mesh, grid, topology=PPB, tuning="auto",
+                               tune_cache=cache)
+        prec = solver.plan.tuned
+        launches = fft_fourstep.launches
+        kernel_measured = any(c.backend == "kernel" for c in measured)
+        if cuda:
+            check((launches > 0) == kernel_measured,
+                  f"PPB auto tuning: {launches} kernel launches, kernel "
+                  f"candidates measured: {kernel_measured}")
+        gen = torch.Generator(device=device).manual_seed(SEED + 3)
+        rhs = torch.randn(grid, dtype=torch.float32, device=device,
+                          generator=gen)
+        rhs -= rhs.mean()
+        phi = solver(rhs)
+        solver64 = PoissonSolver(mesh, grid, topology=PPB,
+                                 dtype=torch.float64, backend="cufft")
+        err = scaled_err(phi.double(), solver64(rhs.double()))
+        del solver64
+        check(err <= PATH_TOL, f"tuned PPB solve vs the float64 solve: "
+              f"scaled error {err:.3e} > {PATH_TOL}")
+        out["poisson_auto"] = {
+            "winner": prec.describe(), "to_json": prec.to_json(),
+            "measured_candidates": len(measured),
+            "kernel_measured": kernel_measured, "launches": launches,
+            "err_solve": err,
+            "solve_ms": time_ms(lambda: solver(rhs), iters) if cuda else None,
+            "phase5_solve_kernel_ms": poisson.get("solve_kernel_ms"),
+            "phase5_solve_cufft_ms": poisson.get("solve_cufft_ms")}
+        p = out["poisson_auto"]
+        print(f"[tune] PoissonSolver(tuning='auto') PPB {tuple(grid)}: "
+              f"{prec.describe()}; {p['measured_candidates']} candidates "
+              f"measured (kernel among them: {kernel_measured}), {launches} "
+              f"kernel launches; solve vs float64 {err:.3e} (bound "
+              f"{PATH_TOL}); {p['solve_ms']} ms per solve beside phase 5's "
+              f"kernel {p['phase5_solve_kernel_ms']} ms and cufft "
+              f"{p['phase5_solve_cufft_ms']} ms")
+    finally:
+        tuner.measure_candidate = measure
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -735,6 +994,15 @@ def main() -> int:
     report["twiddle"] = tw = phase_twiddle_timing(device)
     torch.cuda.empty_cache()
     report["r2c"] = phase_r2c(device)
+    torch.cuda.empty_cache()
+    report["chunked"] = phase_chunked(device)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        from repro_torch.core.plan import TuningCache
+        cache = TuningCache(os.path.join(tmp, "tuning.json"))
+        report["calibrate"] = phase_calibrate(device, cache)
+        report["tune"] = phase_tune(device, cache, poisson)
+    torch.cuda.empty_cache()
     kernels = [
         {"name": "fft_fourstep", "route": "cuda", "source": RADIX_SOURCE,
          "path": "radix",

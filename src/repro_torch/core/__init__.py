@@ -1,6 +1,7 @@
 # The distributed FFT framework on PyTorch: stage-specific decompositions,
-# bulk redistribution over torch.distributed, plan caching, the plan API and
-# the spectral Poisson solver.
+# chunk-pipelined redistribution over torch.distributed, plan caching, the
+# plan API and the spectral Poisson solver, plus the tuner that picks the
+# schedule (scheduler policy engine, calibrated perf model, wisdom cache).
 from .api import (DistributedFFT, PoissonSolver, clear_plan_memo, fft2d,
                   fft3d, fftnd, ifft2d, ifft3d, ifftnd, plan_cache_stats,
                   plan_fft, poisson_eigenvalues, poisson_solve)
@@ -8,12 +9,24 @@ from .decomp import (Decomposition, RedistHop, Redistribution, StageLayout,
                      default_dim_groups, hybrid_nd, local_shape,
                      make_decomposition, pencil, pencil_nd, slab, slab_nd,
                      validate_grid)
+from .perfmodel import (Machine, MachineProfile, calibrate, hop_cost_terms,
+                        predict_plan_time, profile_from_machine,
+                        stage_comp_times)
 from .pipeline import (PipelineSpec, TensorStruct, build_pipeline,
                        effective_grid, input_struct, make_spec,
                        output_struct)
-from .plan import GLOBAL_PLAN_CACHE, PlanCache, TunedPlan, plan_key
+from .plan import (GLOBAL_PLAN_CACHE, PlanCache, TunedPlan, TuningCache,
+                   global_tuning_cache, parse_tuning_key, plan_key,
+                   tuning_key)
 from .redistribute import (PackedBlock, free_chunk_dim, redistribute,
                            send_buffer, transpose_cost_bytes)
+from .scheduler import (CostModel, ScheduleSimulator, TaskSpec,
+                        WorkStealingPool, choose_chunk_schedule,
+                        hop_phase_time, place_tasks)
+from .tuner import (Candidate, enumerate_candidates,
+                    feasible_hop_chunk_counts, measure_candidate,
+                    propose_chunk_schedule, rank_candidates,
+                    resolve_profile, resolve_tuned_plan, synth_input, tune)
 from . import transforms
 
 __all__ = [
@@ -26,7 +39,15 @@ __all__ = [
     "validate_grid",
     "PipelineSpec", "TensorStruct", "build_pipeline", "effective_grid",
     "input_struct", "make_spec", "output_struct",
+    "CostModel", "ScheduleSimulator", "TaskSpec", "WorkStealingPool",
+    "place_tasks", "choose_chunk_schedule", "hop_phase_time",
     "GLOBAL_PLAN_CACHE", "PlanCache", "TunedPlan", "plan_key",
+    "TuningCache", "global_tuning_cache", "parse_tuning_key", "tuning_key",
+    "Machine", "MachineProfile", "calibrate", "hop_cost_terms",
+    "predict_plan_time", "profile_from_machine", "stage_comp_times",
+    "Candidate", "enumerate_candidates", "feasible_hop_chunk_counts",
+    "measure_candidate", "propose_chunk_schedule", "rank_candidates",
+    "resolve_profile", "resolve_tuned_plan", "synth_input", "tune",
     "PackedBlock", "free_chunk_dim", "redistribute", "send_buffer",
     "transpose_cost_bytes", "transforms",
 ]

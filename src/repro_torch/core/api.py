@@ -20,9 +20,22 @@ way the call returns this rank's block in the last stage's layout
 PyTorch runs eagerly, so there is no compile step, no "precompiled" flag
 and no donation.
 
-Only ``tuning="off"`` is ported: the schedule comes from the explicit
-knobs, or from a :class:`~.plan.TunedPlan` record passed as ``tuned=``
-(which may come from the JAX package's wisdom JSON).  The legacy wrappers
+The schedule comes from one of:
+
+* ``tuning="off"`` (default) — the explicit ``decomp``/``backend``/
+  ``n_chunks`` knobs, or a :class:`~.plan.TunedPlan` record passed as
+  ``tuned=`` (which may come from the JAX package's wisdom JSON);
+* ``tuning="heuristic"`` — the argmin of the calibrated LogP/roofline
+  model over every valid plan (``core/tuner.py``): no timing, no disk;
+* ``tuning="auto"`` — the model's top plans measured on the device, the
+  winner stored in the JSON wisdom file (``tune_cache=``, by default
+  ``~/.cache/repro-fft-torch/tuning.json`` or
+  ``$REPRO_TORCH_TUNING_CACHE``) for later processes.
+
+Explicit knobs together with ``tuning != "off"`` are deprecated (the tuner
+overrides them).  ``n_chunks`` is an int (every hop) or a per-hop sequence
+in forward hop order; infeasible counts clamp per hop, and ``describe()``
+reports the clamps and the tuner's evidence.  The legacy wrappers
 ``fftnd``/``ifftnd``/``fft2d``/``ifft2d``/``fft3d``/``ifft3d`` and
 ``poisson_solve`` memoize one plan (or solver) per problem key in an LRU
 (``$REPRO_TORCH_PLAN_MEMO_SIZE``, default 64).
@@ -30,6 +43,7 @@ knobs, or from a :class:`~.plan.TunedPlan` record passed as ``tuned=``
 from __future__ import annotations
 
 import threading
+import warnings
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -41,7 +55,8 @@ from . import transforms
 from .decomp import describe_decomp, make_decomposition, validate_grid
 from .pipeline import (PipelineSpec, TensorStruct, build_pipeline,
                        input_struct, make_spec, output_struct)
-from .plan import GLOBAL_PLAN_CACHE, TunedPlan, env_capacity, plan_key
+from .plan import (GLOBAL_PLAN_CACHE, TunedPlan, TuningCache, env_capacity,
+                   plan_key)
 
 _DEF_KINDS = ("fft", "fft", "fft")
 TUNING_MODES = ("off", "heuristic", "auto")
@@ -211,12 +226,33 @@ class DistributedFFT:
         decomp = describe_decomp(self.decomp,
                                  self._fwd_spec.decomp.dim_groups)
         name = str(self.dtype).removeprefix("torch.")
+        fwd = self._fwd_spec
+        if fwd.uniform_chunks:
+            chunks = str(self.n_chunks)
+            if fwd.chunk_clamped:
+                chunks += f" (clamped from {fwd.n_chunks_requested})"
+        else:
+            # Per-hop schedule: every hop's depth and any per-hop clamps.
+            chunks = f"per-hop {fwd.chunk_schedule}"
+            if fwd.chunk_clamped:
+                chunks += (f" (clamped from {fwd.chunk_schedule_requested}"
+                           f" at hop"
+                           f"{'s' if len(fwd.hop_clamps) > 1 else ''} "
+                           + ",".join(str(i) for i, _, _ in fwd.hop_clamps)
+                           + ")")
+        inv = self._inv_spec
+        if inv.chunk_schedule[::-1] != fwd.chunk_schedule:
+            # e.g. a chunked slab whose inverse has no legal chunk dim
+            if inv.uniform_chunks:
+                chunks += f", inverse={inv.n_chunks}"
+            else:
+                chunks += f", inverse per-hop {inv.chunk_schedule}"
         lines = [
             f"DistributedFFT(grid={self.grid}, kinds={self.kinds}, "
             f"batch={self.batch_shape}, dtype={name})",
             f"  mesh: {self.mesh.axis_sizes} on {self.device}",
             f"  schedule: {decomp} over {self.mesh_axes}, "
-            f"backend={self.backend}, n_chunks={self.n_chunks} "
+            f"backend={self.backend}, n_chunks={chunks} "
             f"(tuning={self.tuning!r})",
             f"  tuner: {tuned_line}",
             f"  in:  {self._in_struct.shape} {self._in_struct.spec} "
@@ -300,6 +336,8 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
              mesh_axes: Optional[Sequence[str]] = None,
              dim_groups: Optional[Sequence[Sequence[int]]] = None,
              tuning: str = "off",
+             tune_cache: Optional[TuningCache] = None,
+             tune_objective: str = "forward",
              tuned: Optional[TunedPlan] = None) -> DistributedFFT:
     """Build a :class:`DistributedFFT` plan for the trailing ``len(grid)``
     dims of ``batch_shape + grid``-shaped operands on ``mesh``.
@@ -308,9 +346,16 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
     (a real dtype is promoted to the complex dtype of its precision) and
     float32 for R2C/R2R pipelines, which take real input.  ``backend`` is
     one of ``transforms.LOCAL_BACKENDS`` (default ``"cufft"``).
-    ``tuned=`` takes the schedule from a :class:`TunedPlan` record instead
-    of the knobs.  ``tuning="heuristic"``/``"auto"`` are not ported yet and
-    raise ``NotImplementedError``.
+    ``n_chunks`` is an int (uniform overlap depth on every hop) or a
+    per-hop sequence in forward hop order, e.g. ``(4, 2)`` for a 3-stage
+    pencil; infeasible entries clamp per hop with a warning.
+
+    ``tuning="heuristic"``/``"auto"`` let the tuner pick the schedule
+    (``core/tuner.py``); ``tune_cache`` is the wisdom file for auto mode
+    (default: the process-global one) and ``tune_objective`` what auto mode
+    measures (``"forward"`` or the paired ``"fwd+scale+inv"``).  On a
+    multi-rank mesh every rank must call this together.  ``tuned=`` takes
+    the schedule from a :class:`TunedPlan` record instead of the knobs.
     """
     grid = tuple(int(n) for n in grid)
     ndim = len(grid)
@@ -323,10 +368,6 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
     if tuning not in TUNING_MODES:
         raise ValueError(f"tuning must be one of {TUNING_MODES}, "
                          f"got {tuning!r}")
-    if tuning != "off":
-        raise NotImplementedError(
-            f"tuning={tuning!r} is not ported yet; pass tuning='off' with "
-            f"explicit knobs, or a TunedPlan record as tuned=")
     batch_shape = tuple(int(n) for n in batch_shape)
     if dtype is None:
         dtype = torch.float32 if _real_input(kinds) else torch.complex64
@@ -335,16 +376,24 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
                          f"got {dtype}")
     dtype = _forward_plan_dtype(dtype, kinds)
 
+    explicit = [name for name, val in (("decomp", decomp),
+                                       ("backend", backend),
+                                       ("n_chunks", n_chunks),
+                                       ("mesh_axes", mesh_axes),
+                                       ("dim_groups", dim_groups))
+                if val is not None]
+    if tuned is not None and (explicit or tuning != "off"):
+        drop = explicit + ([f"tuning={tuning!r}"] if tuning != "off" else [])
+        raise ValueError(f"plan_fft: tuned= fixes the schedule; drop "
+                         f"{'/'.join(drop)}")
+    # mesh_axes stays out of the warning, as in the JAX package.
+    overridden = [name for name in explicit if name != "mesh_axes"]
+    if tuning != "off" and overridden:
+        warnings.warn(
+            f"explicit {'/'.join(overridden)} are overridden by "
+            f"tuning={tuning!r} (the tuner owns the schedule); pass "
+            "tuning='off' to force them", DeprecationWarning, stacklevel=3)
     if tuned is not None:
-        explicit = [name for name, val in (("decomp", decomp),
-                                           ("backend", backend),
-                                           ("n_chunks", n_chunks),
-                                           ("mesh_axes", mesh_axes),
-                                           ("dim_groups", dim_groups))
-                    if val is not None]
-        if explicit:
-            raise ValueError(f"plan_fft: tuned= fixes the schedule; drop "
-                             f"{'/'.join(explicit)}")
         decomp, backend = tuned.decomp, tuned.backend
         mesh_axes, dim_groups = tuned.mesh_axes, tuned.dim_groups
         n_chunks = (tuned.chunk_schedule if tuned.chunk_schedule is not None
@@ -360,31 +409,48 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
             f"plan_fft: unknown backend {backend!r}; supported backends: "
             f"{', '.join(transforms.LOCAL_BACKENDS)}")
     backend = backend if backend is not None else "cufft"
-    n_chunks = 1 if n_chunks is None else n_chunks
+    chunk_schedule = None
+    if n_chunks is None:
+        n_chunks = 1
+    elif not isinstance(n_chunks, int):
+        # A per-hop schedule (forward hop order); make_spec checks its
+        # length against the decomposition's hops.
+        chunk_schedule = tuple(int(c) for c in n_chunks)
+        n_chunks = max(chunk_schedule, default=1)
     if dim_groups is not None:
         dim_groups = tuple(tuple(int(d) for d in g) for g in dim_groups)
         if decomp != "hybrid":
             raise ValueError("dim_groups only applies to decomp='hybrid'")
         _validate_dim_groups(dim_groups, ndim)
-    axes = (tuple(mesh_axes) if mesh_axes
-            else _default_fft_axes(mesh, decomp, ndim))
-    if tuned is None:
-        sched = None if isinstance(n_chunks, int) else \
-            tuple(int(c) for c in n_chunks)
-        tuned = TunedPlan(decomp=decomp, mesh_axes=axes, backend=backend,
-                          n_chunks=(n_chunks if sched is None
-                                    else max(sched, default=1)),
-                          predicted_s=0.0, measured_s=0.0, source="default",
-                          dim_groups=dim_groups, chunk_schedule=sched)
 
-    dec = make_decomposition(decomp, axes, ndim, dim_groups=dim_groups)
+    if tuned is None:
+        from .tuner import Candidate, resolve_tuned_plan  # deferred import
+        default = None
+        if tuning == "off":
+            axes = (tuple(mesh_axes) if mesh_axes
+                    else _default_fft_axes(mesh, decomp, ndim))
+            default = Candidate(decomp=decomp, mesh_axes=axes,
+                                backend=backend, n_chunks=n_chunks,
+                                dim_groups=dim_groups,
+                                chunk_schedule=chunk_schedule)
+        tuned = resolve_tuned_plan(grid, mesh, kinds=kinds, dtype=dtype,
+                                   inverse=False, batch_shape=batch_shape,
+                                   mode=tuning, cache=tune_cache,
+                                   default=default, objective=tune_objective)
+
+    dec = make_decomposition(tuned.decomp, tuned.mesh_axes, ndim,
+                             dim_groups=tuned.dim_groups)
     batch_spec = (None,) * len(batch_shape)
-    fwd_spec = make_spec(mesh, grid, dec, kinds, backend=backend,
-                         n_chunks=n_chunks, inverse=False,
+    spec_chunks = (tuned.chunk_schedule if tuned.chunk_schedule is not None
+                   else tuned.n_chunks)
+    fwd_spec = make_spec(mesh, grid, dec, kinds, backend=tuned.backend,
+                         n_chunks=spec_chunks, inverse=False,
                          batch_spec=batch_spec)
     validate_grid(dec, fwd_spec.eff_grid, mesh.axis_sizes)
-    inv_spec = make_spec(mesh, grid, dec, kinds, backend=backend,
-                         n_chunks=n_chunks, inverse=True,
+    # The same forward-order schedule drives the inverse spec; make_spec
+    # reverses it to execution order and re-clamps per hop.
+    inv_spec = make_spec(mesh, grid, dec, kinds, backend=tuned.backend,
+                         n_chunks=spec_chunks, inverse=True,
                          batch_spec=batch_spec)
     return DistributedFFT(mesh, fwd_spec, inv_spec, batch_shape=batch_shape,
                           dtype=dtype, tuned=tuned, tuning=tuning)
@@ -450,17 +516,20 @@ def plan_cache_stats() -> Dict[str, Dict[str, Any]]:
 
 
 def _wrapper_plan(mesh: Mesh, grid, kinds, batch_shape, dtype, decomp,
-                  backend, n_chunks, mesh_axes, tuning) -> DistributedFFT:
+                  backend, n_chunks, mesh_axes, tuning,
+                  tune_cache) -> DistributedFFT:
     if n_chunks is not None and not isinstance(n_chunks, int):
         n_chunks = tuple(int(c) for c in n_chunks)  # hashable schedule
     key = ("fft", mesh, tuple(grid), tuple(kinds), tuple(batch_shape),
            dtype, decomp, backend, n_chunks,
-           tuple(mesh_axes) if mesh_axes is not None else None, tuning)
+           tuple(mesh_axes) if mesh_axes is not None else None, tuning,
+           tune_cache)
 
     def build() -> DistributedFFT:
         plan = plan_fft(mesh, grid, kinds=kinds, batch_shape=batch_shape,
                         dtype=dtype, decomp=decomp, backend=backend,
-                        n_chunks=n_chunks, mesh_axes=mesh_axes, tuning=tuning)
+                        n_chunks=n_chunks, mesh_axes=mesh_axes, tuning=tuning,
+                        tune_cache=tune_cache)
         plan.shared = True
         return plan
 
@@ -472,7 +541,8 @@ def fftnd(x: torch.Tensor, *, mesh: Mesh, ndim: Optional[int] = None,
           kinds: Optional[Sequence[str]] = None,
           backend: Optional[str] = None, n_chunks=None,
           mesh_axes: Optional[Sequence[str]] = None,
-          tuning: str = "off") -> torch.Tensor:
+          tuning: str = "off",
+          tune_cache: Optional[TuningCache] = None) -> torch.Tensor:
     """Distributed forward N-D transform of the trailing ``ndim`` dims of
     the global tensor ``x``; returns this rank's output block.
 
@@ -491,7 +561,7 @@ def fftnd(x: torch.Tensor, *, mesh: Mesh, ndim: Optional[int] = None,
     plan = _wrapper_plan(mesh, tuple(x.shape[n_batch:]), kinds,
                          tuple(x.shape[:n_batch]),
                          _forward_plan_dtype(x.dtype, kinds), decomp,
-                         backend, n_chunks, mesh_axes, tuning)
+                         backend, n_chunks, mesh_axes, tuning, tune_cache)
     return plan.forward(x)
 
 
@@ -501,7 +571,8 @@ def ifftnd(x: torch.Tensor, *, mesh: Mesh, ndim: Optional[int] = None,
            kinds: Optional[Sequence[str]] = None,
            backend: Optional[str] = None, n_chunks=None,
            mesh_axes: Optional[Sequence[str]] = None,
-           tuning: str = "off") -> torch.Tensor:
+           tuning: str = "off",
+           tune_cache: Optional[TuningCache] = None) -> torch.Tensor:
     """Inverse of ``fftnd`` on the global spectral tensor ``x``; ``kinds``
     are the FORWARD kinds.  Shares the plan ``fftnd`` memoized.  For R2C
     pipelines pass ``grid``, the real-space grid (the frequency dim of
@@ -519,7 +590,7 @@ def ifftnd(x: torch.Tensor, *, mesh: Mesh, ndim: Optional[int] = None,
     logical = tuple(grid) if grid is not None else tuple(x.shape[n_batch:])
     plan = _wrapper_plan(mesh, logical, kinds, tuple(x.shape[:n_batch]),
                          _inverse_plan_dtype(x.dtype, kinds), decomp,
-                         backend, n_chunks, mesh_axes, tuning)
+                         backend, n_chunks, mesh_axes, tuning, tune_cache)
     return plan.inverse(x)
 
 
@@ -574,10 +645,11 @@ class PoissonSolver:
     Neumann), matching the Oceananigans pressure-solver topologies in paper
     Fig. 8.  One :class:`DistributedFFT` plan serves both directions, and
     the eigenvalue array is built once per dtype and device, as this
-    rank's block of the forward output layout.  Only ``tuning="off"`` is
-    ported (``plan_fft`` raises for the other modes).  ``solve`` takes the
-    global rhs, or this rank's stage-0 block with ``sharded_in=True``, and
-    returns this rank's block of phi.
+    rank's block of the forward output layout.  Tuning is joint: the
+    solver tunes under the ``fwd+scale+inv`` objective, so auto mode
+    measures each candidate on the round trip it runs (under its own
+    wisdom key).  ``solve`` takes the global rhs, or this rank's stage-0
+    block with ``sharded_in=True``, and returns this rank's block of phi.
     """
 
     def __init__(self, mesh: Mesh, grid: Sequence[int], *,
@@ -587,9 +659,10 @@ class PoissonSolver:
                  dtype: torch.dtype = torch.float32,
                  decomp: Optional[str] = None,
                  backend: Optional[str] = None,
-                 n_chunks: Optional[int] = None,
+                 n_chunks=None,
                  mesh_axes: Optional[Sequence[str]] = None,
-                 tuning: str = "off"):
+                 tuning: str = "off",
+                 tune_cache: Optional[TuningCache] = None):
         grid = tuple(int(n) for n in grid)
         if len(grid) != 3:
             raise ValueError(f"PoissonSolver needs a 3-D grid, got {grid}")
@@ -601,7 +674,8 @@ class PoissonSolver:
                              dtype=_forward_plan_dtype(dtype, kinds),
                              decomp=decomp, backend=backend,
                              n_chunks=n_chunks, mesh_axes=mesh_axes,
-                             tuning=tuning)
+                             tuning=tuning, tune_cache=tune_cache,
+                             tune_objective="fwd+scale+inv")
         lams = [poisson_eigenvalues(n, l, t)
                 for n, l, t in zip(grid, self.lengths, self.topology)]
         lam = (lams[0][:, None, None] + lams[1][None, :, None]
@@ -657,9 +731,10 @@ def poisson_solve(rhs: torch.Tensor, *, mesh: Mesh,
                   lengths: Tuple[float, ...] = (2 * np.pi,) * 3,
                   decomp: Optional[str] = None,
                   backend: Optional[str] = None,
-                  n_chunks: Optional[int] = None,
+                  n_chunks=None,
                   mesh_axes: Optional[Sequence[str]] = None,
-                  tuning: str = "off") -> torch.Tensor:
+                  tuning: str = "off",
+                  tune_cache: Optional[TuningCache] = None) -> torch.Tensor:
     """Solve lap(phi) = rhs spectrally; thin wrapper over PoissonSolver.
 
     Leading dims of the global ``rhs`` beyond the trailing 3 are batch
@@ -674,14 +749,15 @@ def poisson_solve(rhs: torch.Tensor, *, mesh: Mesh,
         n_chunks = tuple(int(c) for c in n_chunks)  # hashable schedule
     key = ("poisson", mesh, grid, tuple(topology), tuple(lengths),
            batch_shape, dtype, decomp, backend, n_chunks,
-           tuple(mesh_axes) if mesh_axes is not None else None, tuning)
+           tuple(mesh_axes) if mesh_axes is not None else None, tuning,
+           tune_cache)
 
     def build() -> PoissonSolver:
         solver = PoissonSolver(
             mesh, grid, topology=topology, lengths=lengths,
             batch_shape=batch_shape, dtype=dtype, decomp=decomp,
             backend=backend, n_chunks=n_chunks, mesh_axes=mesh_axes,
-            tuning=tuning)
+            tuning=tuning, tune_cache=tune_cache)
         solver.plan.shared = True
         return solver
 

@@ -6,9 +6,13 @@
     stage-1 local FFTs  ->  redistribution  ->  stage-2  ->  ...  -> stage-k
 
 Every stage owns its own layout (``decomp.stages[i]``) and every
-redistribution is a bulk ``all_to_all`` hop (``core/redistribute.py``).
-Where the JAX package ``shard_map``s one function over the mesh, the port
-returns the per-rank function itself: each rank calls it on its own block.
+redistribution is an ``all_to_all`` hop (``core/redistribute.py``) that may
+be chunk-pipelined for compute/communication overlap.  The overlap depth is
+a per-hop ``chunk_schedule`` (one entry per ``RedistHop``): a uniform int
+``n_chunks`` is the special case, and ``make_spec`` clamps infeasible
+entries per hop and records the ask.  Where the JAX package ``shard_map``s
+one function over the mesh, the port returns the per-rank function itself:
+each rank calls it on its own block.
 
 With the ``kernel`` backend a stage whose last C2C line transforms the dim
 the next hop splits stores that line's output pre-split for the exchange
@@ -19,21 +23,21 @@ R2C transforms pad the frequency dim up to the LCM of the mesh-axis sizes
 that shard it downstream, so every stage keeps integral local shapes; the
 inverse pipeline trims the pad before the final irfft.  Unnormalized R2R
 inverses (``dct3``/``dst3``) are scaled by ``1/(2N)``.
-
-Only bulk hops are ported; ``n_chunks > 1`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Tuple
+import warnings
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from . import transforms
 from .decomp import (Decomposition, StageLayout, _as_hop, axis_product,
                      local_shape)
-from .redistribute import PackedBlock, redistribute
+from .redistribute import (PackedBlock, free_chunk_dim,
+                           largest_divisor_at_most, redistribute)
 
 INVERSE_KIND = {"fft": "ifft", "rfft": "irfft", "dct2": "dct3", "dst2": "dst3"}
 # Kinds whose stage line may fuse the pre-hop pack (kernel backend only).
@@ -50,10 +54,14 @@ class PipelineSpec:
     decomp: Decomposition
     kinds: Tuple[str, ...]              # one transform kind per spatial dim
     backend: str
-    # One chunk count per RedistHop, in execution order (all 1: bulk).
+    # One chunk count per RedistHop, in *execution* order (aligned with
+    # ``stage_order()``'s redists: reversed relative to ``decomp.redists``
+    # for inverse specs).  A uniform ``n_chunks=k`` is ``(k,) * n_hops``.
     chunk_schedule: Tuple[int, ...]
     inverse: bool
     batch_spec: Tuple[Optional[str], ...]  # shardings of leading batch dims
+    # Pre-clamp ask per hop, execution order (() = nothing was requested).
+    chunk_schedule_requested: Tuple[int, ...] = ()
 
     @property
     def spatial_offset(self) -> int:
@@ -61,7 +69,35 @@ class PipelineSpec:
 
     @property
     def n_chunks(self) -> int:
+        """Scalar view of the schedule: the deepest hop."""
         return max(self.chunk_schedule, default=1)
+
+    @property
+    def n_chunks_requested(self) -> int:
+        """Scalar view of the pre-clamp ask (0 = none)."""
+        return max(self.chunk_schedule_requested, default=0)
+
+    @property
+    def uniform_chunks(self) -> bool:
+        """True when both the ask and the schedule are hop-uniform."""
+        return (len(set(self.chunk_schedule)) <= 1
+                and len(set(self.chunk_schedule_requested)) <= 1)
+
+    @property
+    def chunk_clamped(self) -> bool:
+        """True when some requested chunk count was clamped at spec time."""
+        return (self.chunk_schedule_requested != ()
+                and self.chunk_schedule_requested != self.chunk_schedule)
+
+    @property
+    def hop_clamps(self) -> Tuple[Tuple[int, int, int], ...]:
+        """Per clamped hop: (hop index, requested, effective), exec order."""
+        if not self.chunk_schedule_requested:
+            return ()
+        return tuple((i, ask, got) for i, (ask, got)
+                     in enumerate(zip(self.chunk_schedule_requested,
+                                      self.chunk_schedule))
+                     if ask != got)
 
     def stage_order(self):
         stages = list(self.decomp.stages)
@@ -110,36 +146,123 @@ def effective_grid(grid: Tuple[int, ...], decomp: Decomposition,
     return tuple(eff)
 
 
+def chunk_sites(spec: PipelineSpec, axis_sizes: dict
+                ) -> List[Tuple[Optional[int], Optional[int]]]:
+    """Per executed hop: the (absolute chunk dim, its local size) chunking
+    would use.
+
+    ``(None, None)`` means the hop has no legal chunk dim (bulk only);
+    ``(d, None)`` means the chunk dim is a leading batch dim whose extent
+    the spec does not know.  Shared by the spec-time clamp and the tuner's
+    feasibility filter, so both agree with what ``redistribute`` does.
+    """
+    offset = spec.spatial_offset
+    ndim_total = offset + len(spec.eff_grid)
+    stages, redists = spec.stage_order()
+    sites: List[Tuple[Optional[int], Optional[int]]] = []
+    for i, hop in enumerate(redists):
+        avoid = tuple(d + offset for d in stages[i + 1].fft_dims)
+        d = free_chunk_dim(hop, ndim_total, offset, avoid_dims=avoid)
+        if d is None:
+            sites.append((None, None))
+        elif d < offset:
+            sites.append((d, None))
+        else:
+            block = local_shape(stages[i], spec.eff_grid, axis_sizes)
+            sites.append((d, block[d - offset]))
+    return sites
+
+
 def make_spec(mesh, grid: Tuple[int, ...], decomp: Decomposition,
               kinds: Tuple[str, ...], *, backend: str = "cufft",
               n_chunks=1, inverse: bool = False,
               batch_spec: Tuple[Optional[str], ...] = ()) -> PipelineSpec:
-    """Build a bulk :class:`PipelineSpec`; ``kinds`` are the forward kinds.
+    """Build a :class:`PipelineSpec`; ``kinds`` are the forward kinds.
 
-    ``n_chunks`` must be 1 (or a per-hop sequence of ones): the chunked
-    overlap is not ported yet and raises ``NotImplementedError``.
+    ``n_chunks`` is an int — a uniform schedule, clamped to the largest
+    count dividing every hop's chunk-dim size — or a per-hop sequence in
+    **forward hop order** (``decomp.redists`` order, whatever
+    ``inverse``), clamped hop by hop with the helpers ``redistribute``
+    uses.  Every clamp warns and is recorded
+    (``spec.chunk_schedule_requested`` keeps the ask).
     """
     kinds = tuple(kinds)
     bad = [k for k in kinds if k not in transforms.ALL_KINDS]
     if bad:
         raise ValueError(f"unknown transform kinds {bad}; supported: "
                          f"{transforms.ALL_KINDS}")
+    axis_sizes = mesh.axis_sizes
+    eff = effective_grid(tuple(grid), decomp, axis_sizes, kinds)
     n_hops = len(decomp.redists)
-    sched = ((int(n_chunks),) * n_hops if isinstance(n_chunks, int)
-             else tuple(int(c) for c in n_chunks))
-    if len(sched) != n_hops:
-        raise ValueError(
-            f"chunk schedule {sched} has {len(sched)} entries but "
-            f"{decomp.name} over grid {tuple(grid)} has {n_hops} "
-            f"redistribution hops")
-    if any(c != 1 for c in sched):
-        raise NotImplementedError(
-            f"chunked hops (n_chunks={n_chunks}) are not ported yet; the "
-            f"port runs bulk hops (n_chunks=1)")
-    eff = effective_grid(tuple(grid), decomp, mesh.axis_sizes, kinds)
-    return PipelineSpec(grid=tuple(grid), eff_grid=eff, decomp=decomp,
-                        kinds=kinds, backend=backend, chunk_schedule=sched,
-                        inverse=inverse, batch_spec=tuple(batch_spec))
+    if isinstance(n_chunks, int):
+        uniform = True
+        requested = (max(int(n_chunks), 1),) * n_hops
+    else:
+        uniform = False
+        sched = tuple(int(c) for c in n_chunks)
+        if len(sched) != n_hops:
+            raise ValueError(
+                f"chunk schedule {sched} has {len(sched)} entries but "
+                f"{decomp.name} over grid {tuple(grid)} has {n_hops} "
+                f"redistribution hops")
+        if any(c < 1 for c in sched):
+            raise ValueError(f"chunk schedule entries must be >= 1: {sched}")
+        # Given in forward hop order; an inverse pipeline executes the hops
+        # LIFO, so entry i pairs with executed hop n_hops-1-i.
+        requested = sched if not inverse else sched[::-1]
+    spec = PipelineSpec(grid=tuple(grid), eff_grid=eff, decomp=decomp,
+                        kinds=kinds, backend=backend,
+                        chunk_schedule=requested, inverse=inverse,
+                        batch_spec=tuple(batch_spec),
+                        chunk_schedule_requested=requested)
+    if all(c <= 1 for c in requested):
+        return spec
+    sites = chunk_sites(spec, axis_sizes)
+    if uniform:
+        ask = requested[0]
+        sizes = [s for _, s in sites if s is not None]
+        if sites and all(d is None for d, _ in sites):
+            # No hop can legally chunk (e.g. an inverse slab: the hop plus
+            # the next stage's fft_dims cover every dim).
+            warnings.warn(
+                f"no redistribution of grid {tuple(grid)} has a legal "
+                f"chunk dim ({'inverse' if inverse else 'forward'} "
+                f"{decomp.name}); running bulk instead of "
+                f"n_chunks={ask}", RuntimeWarning, stacklevel=2)
+            clamped = (1,) * n_hops
+        else:
+            # A uniform ask stays uniform: the largest count <= n_chunks
+            # dividing every hop's chunk-dim size.
+            eff_chunks = (largest_divisor_at_most(math.gcd(*sizes), ask)
+                          if sizes else ask)
+            if eff_chunks != ask:
+                warnings.warn(
+                    f"n_chunks={ask} does not evenly chunk every "
+                    f"redistribution of grid {tuple(grid)} on this mesh; "
+                    f"clamped to {eff_chunks}", RuntimeWarning, stacklevel=2)
+            clamped = (eff_chunks,) * n_hops
+    else:
+        # Per hop: a hop with no legal chunk dim runs bulk; an unknown
+        # batch-dim extent is left to redistribute's run-time clamp.
+        per_hop = []
+        for (d, size), ask in zip(sites, requested):
+            if ask <= 1:
+                per_hop.append(ask)
+            elif d is None:
+                per_hop.append(1)
+            elif size is None:
+                per_hop.append(ask)
+            else:
+                per_hop.append(largest_divisor_at_most(size, ask))
+        clamped = tuple(per_hop)
+        if clamped != requested:
+            show = (lambda s: tuple(s) if not inverse else tuple(s[::-1]))
+            warnings.warn(
+                f"chunk schedule {show(requested)} is not feasible on every "
+                f"redistribution of grid {tuple(grid)} on this mesh; "
+                f"clamped per hop to {show(clamped)}",
+                RuntimeWarning, stacklevel=2)
+    return dataclasses.replace(spec, chunk_schedule=clamped)
 
 
 def _pack_fusion_site(spec: PipelineSpec, stage: StageLayout,
@@ -227,12 +350,18 @@ def _local_pipeline(spec: PipelineSpec, mesh) -> Callable:
                          else None, axis_sizes=axis_sizes)
         for i in range(len(redists))]
 
+    # The chunk dim must dodge the next stage's transform dims, or the
+    # per-chunk transform would run over a split dim.
+    avoid = [tuple(d + off for d in stages[i + 1].fft_dims)
+             for i in range(len(redists))]
+
     def run(x: torch.Tensor) -> torch.Tensor:
         x = first(x)
         for i, hop in enumerate(redists):
             x = redistribute(x, hop, mesh=mesh,
                              n_chunks=spec.chunk_schedule[i],
-                             then=rest[i], spatial_offset=off, hop_index=i)
+                             then=rest[i], spatial_offset=off,
+                             avoid_dims=avoid[i], hop_index=i)
         return x.logical() if isinstance(x, PackedBlock) else x
 
     return run

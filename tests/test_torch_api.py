@@ -17,7 +17,7 @@ from repro.core.api import plan_fft as j_plan_fft
 from repro.core.plan import TunedPlan as JTunedPlan
 from repro_torch.compat import make_mesh
 from repro_torch.core import api
-from repro_torch.core.plan import PlanCache, TunedPlan, plan_key
+from repro_torch.core.plan import PlanCache, TunedPlan, TuningCache, plan_key
 from torch_harness import assert_scaled_close, cplx
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -127,8 +127,14 @@ def test_plan_introspection_and_operand_checks(mesh):
 
 
 def test_plan_fft_rejects_what_is_not_ported(mesh):
-    with pytest.raises(NotImplementedError, match="tuning='auto'"):
-        api.plan_fft(mesh, (8, 8), tuning="auto")
+    # tuning="auto" runs now (on an in-memory wisdom cache); a tuned=
+    # record together with a tuning mode is still refused
+    auto = api.plan_fft(mesh, (8, 8), tuning="auto",
+                        tune_cache=TuningCache())
+    assert auto.tuned.source == "measured" and auto.tuning == "auto"
+    with pytest.raises(ValueError, match="drop tuning='auto'"):
+        api.plan_fft(mesh, (8, 8), tuning="auto",
+                     tuned=TunedPlan.from_json(_reference_record()))
     with pytest.raises(ValueError, match="tuning must be one of"):
         api.plan_fft(mesh, (8, 8), tuning="fast")
     with pytest.raises(ValueError, match="unknown backend 'pallas'"):
@@ -140,8 +146,11 @@ def test_plan_fft_rejects_what_is_not_ported(mesh):
                      tuned=TunedPlan.from_json(_reference_record()))
     with pytest.raises(ValueError, match="repeat dim"):
         api.plan_fft(mesh, (8, 8, 8), dim_groups=((0, 1), (1, 2)))
-    with pytest.raises(NotImplementedError, match="n_chunks"):
-        api.plan_fft(mesh, (8, 8, 8), n_chunks=2)
+    # chunked hops run now; a schedule of the wrong length still raises
+    chunked = api.plan_fft(mesh, (8, 8, 8), n_chunks=2)
+    assert chunked.chunk_schedule == (2, 2)
+    with pytest.raises(ValueError, match="has 3 entries"):
+        api.plan_fft(mesh, (8, 8, 8), n_chunks=(2, 2, 2))
 
 
 KINDS_CASES = [("rfft", "fft", "fft"), ("fft", "fft", "dct2"),
@@ -283,3 +292,34 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("knob", [{"decomp": "slab"}, {"backend": "kernel"},
+                                  {"n_chunks": 2},
+                                  {"dim_groups": ((0,), (1, 2))}])
+def test_explicit_knobs_with_tuning_are_deprecated(mesh, knob):
+    with pytest.warns(DeprecationWarning, match="overridden by "
+                      "tuning='heuristic'"):
+        plan = api.plan_fft(mesh, (8, 8, 8), tuning="heuristic",
+                            tune_cache=TuningCache(), **knob)
+    assert plan.tuned.source == "heuristic"
+
+
+def test_wrappers_pass_tuning_through(mesh, cpu_mesh):
+    api.clear_plan_memo()
+    cache = TuningCache()
+    x = cplx((2, 8, 16), 12)
+    y = api.fftnd(torch.from_numpy(x), mesh=mesh, ndim=2,
+                  tuning="heuristic", tune_cache=cache)
+    (plan,) = list(api._PLAN_MEMO.values())
+    assert plan.tuning == "heuristic" and plan.tuned.source == "heuristic"
+    assert_scaled_close(y.numpy(), np.fft.fftn(x, axes=(1, 2)), 2e-5)
+    back = api.ifftnd(y, mesh=mesh, ndim=2, tuning="heuristic",
+                      tune_cache=cache)
+    assert_scaled_close(back.numpy(), x, 1e-5)
+    y3 = api.fft3d(torch.from_numpy(cplx((4, 8, 8), 13)), mesh=mesh,
+                   n_chunks=(2, 2))
+    ref = np.asarray(j_fft3d(jnp.asarray(cplx((4, 8, 8), 13)),
+                             mesh=cpu_mesh, n_chunks=(2, 2)))
+    assert_scaled_close(y3.numpy(), ref, 2e-4)
+    api.clear_plan_memo()

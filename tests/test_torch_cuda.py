@@ -1,11 +1,14 @@
 """Tests that need an NVIDIA GPU: the CUDA four-step kernel against its
-plain version, and the kernel-backend plan on the card.  They skip where
+plain version, the kernel-backend plan on the card (bulk and chunked), and
+the CUDA-event timer the tuner and calibration use.  They skip where
 CUDA is absent.  This file imports no JAX, so on a GPU machine without
 JAX it runs with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -13,7 +16,7 @@ import torch
 
 from repro_torch.kernels import fft_matmul as tfm
 from repro_torch.kernels import ops, radix
-from torch_harness import assert_scaled_close, cplx
+from torch_harness import assert_scaled_close, cplx, run_ranks
 
 
 @pytest.fixture
@@ -159,3 +162,99 @@ def test_poisson_ppb_on_the_card(cuda):
     want = PoissonSolver(mesh, grid, topology=topo, backend="cufft")(rhs)
     assert_scaled_close(phi.cpu().numpy(), want.cpu().numpy(), 2e-4)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chunks,fwd_launches,inv_launches",
+                         [(2, 5, 5), ((4, 2), 7, 7)])
+def test_chunked_kernel_plan_matches_bulk_on_the_card(cuda, n_chunks,
+                                                      fwd_launches,
+                                                      inv_launches):
+    """A chunked kernel plan runs one launch per chunk of each hop's next
+    stage and matches the bulk plan within 5e-6 (max-scaled)."""
+    from repro_torch import make_mesh, plan_fft
+    mesh = make_mesh((1, 1), ("data", "model"))
+    grid = (32, 64, 128)
+    bulk = plan_fft(mesh, grid, backend="kernel")
+    plan = plan_fft(mesh, grid, backend="kernel", n_chunks=n_chunks)
+    x = torch.from_numpy(cplx(grid, 10)).to(cuda)
+    tfm.reset_launch_counts()
+    y = plan.forward(x)
+    torch.cuda.synchronize()
+    assert tfm.fft_fourstep.launches == fwd_launches
+    back = plan.inverse(y, sharded_in=True)
+    torch.cuda.synchronize()
+    assert tfm.fft_fourstep.launches == fwd_launches + inv_launches
+    assert tfm.fft_fourstep.path_launches["dense"] == 0
+    yb = bulk.forward(x)
+    assert_scaled_close(y.cpu().numpy(), yb.cpu().numpy(), 5e-6)
+    assert_scaled_close(back.cpu().numpy(),
+                        bulk.inverse(yb, sharded_in=True).cpu().numpy(), 5e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_event_timer_and_tuner_on_the_card(cuda, tmp_path):
+    """``perfmodel._time_best`` times with CUDA events after a warm-up; a
+    GPU-bound call times longer than a tenth of it; calibration and a
+    tuned plan run on the card, keyed by the card's name."""
+    from repro_torch import make_mesh, plan_fft
+    from repro_torch.core import perfmodel
+    from repro_torch.core.plan import TuningCache
+    big = torch.randn((1 << 24,), device=cuda)
+    small = big[: 1 << 20]
+    t_big = perfmodel._time_best(lambda: big * 2.0, 3, cuda)
+    t_small = perfmodel._time_best(lambda: small * 2.0, 3, cuda)
+    assert 0 < t_small < t_big
+    mesh = make_mesh((1, 1), ("data", "model"))
+    prof = perfmodel.calibrate(mesh, n=64, batch=256, repeats=2)
+    assert prof.platform == torch.cuda.get_device_name(cuda)
+    assert not prof.net_calibrated and prof.base == perfmodel.H100_SXM
+    assert set(dict(prof.backend_flops)) == {"cufft", "matmul", "kernel"}
+    cache = TuningCache(str(tmp_path / "tuning.json"))
+    plan = plan_fft(mesh, (32, 64, 128), tuning="auto", tune_cache=cache)
+    assert plan.tuned.measured_s <= plan.tuned.baseline_s
+    x = torch.from_numpy(cplx((32, 64, 128), 11)).to(cuda)
+    assert_scaled_close(plan.forward(x).cpu().numpy(),
+                        torch.fft.fftn(x).cpu().numpy(), 2e-4)
+
+
+@pytest.mark.cuda
+def test_chunked_and_tuned_plans_on_four_cards(cuda, tmp_path):
+    """On a 2x2 mesh of cards over NCCL: bulk and chunked plans (chunk
+    k+1's exchange in flight under chunk k's stage) match torch.fft.fftn
+    at 2e-4 and their own bulk plan at 5e-6, round trips at 1e-4, and the
+    ranks of ``tuning="auto"`` agree on one plan and one profile."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    grid = (256, 256, 256)
+    x = cplx(grid, 14)
+    x_path = str(tmp_path / "x.npy")
+    np.save(x_path, x)
+    out_dir = run_ranks("nccl_body", 4, tmp_path, x_path, grid,
+                        str(tmp_path / "wisdom" / "tuning.json"), 10,
+                        backend="nccl")
+    recs = []
+    for rank in range(4):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    ref = np.fft.fftn(x)
+
+    def load(name):
+        return np.load(os.path.join(out_dir, f"{name}.npy"))
+
+    for name in recs[0]["cases"]:
+        assert_scaled_close(load(f"fwd_{name}"), ref, 2e-4)
+        assert_scaled_close(load(f"rt_{name}"), x, 1e-4)
+        backend = name.split("_")[0]
+        assert_scaled_close(load(f"fwd_{name}"), load(f"fwd_{backend}_1"),
+                            5e-6)
+    for rec in recs:
+        assert rec["tuned"] == recs[0]["tuned"]
+        assert rec["profile"] == recs[0]["profile"]
+    assert_scaled_close(load("fwd_tuned"), ref, 2e-4)
+    print(json.dumps({"card": recs[0]["card"],
+                      "fwd_ms": {n: [r["cases"][n]["fwd_ms"] for r in recs]
+                                 for n in recs[0]["cases"]},
+                      "tuned": recs[0]["tuned"],
+                      "net_alpha_s": recs[0]["profile"]["net_alpha_s"],
+                      "net_bw": recs[0]["profile"]["net_bw"]}))

@@ -126,8 +126,10 @@ def test_single_rank_plans_match_numpy(backend, grid, batch):
 def test_unported_pipeline_features_raise():
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     dec = make_decomposition("pencil", ("data", "model"), 3)
-    with pytest.raises(NotImplementedError, match="n_chunks"):
-        tp.make_spec(mesh, (8, 8, 8), dec, ("fft",) * 3, n_chunks=2)
+    # chunked hops are ported: the schedule is kept, in execution order
+    spec = tp.make_spec(mesh, (8, 8, 8), dec, ("fft",) * 3, n_chunks=(2, 4),
+                        inverse=True)
+    assert spec.chunk_schedule == (4, 2)
     with pytest.raises(ValueError, match="3 entries"):
         tp.make_spec(mesh, (8, 8, 8), dec, ("fft",) * 3, n_chunks=(1, 1, 1))
     with pytest.raises(ValueError, match="unknown transform kinds"):

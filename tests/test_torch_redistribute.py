@@ -101,8 +101,16 @@ def test_size_one_axis_is_identity_and_chunks_raise():
     seen = []
     tred.redistribute(x, dec.redists[1], mesh=mesh, then=seen.append)
     assert seen and seen[0] is x
-    with pytest.raises(NotImplementedError, match="n_chunks=2"):
-        tred.redistribute(x, dec.redists[0], mesh=mesh, n_chunks=2)
+    # chunked: the next stage runs once per chunk and the chunks join back;
+    # a hop whose every dim is busy or avoided runs bulk with a warning
+    seen = []
+    got = tred.redistribute(x, dec.redists[0], mesh=mesh, n_chunks=2,
+                            then=lambda t: seen.append(t.shape) or t,
+                            avoid_dims=(1,))
+    assert seen == [(4, 4, 2)] * 2 and torch.equal(got, x)
+    with pytest.warns(RuntimeWarning, match="no legal chunk dim"):
+        tred.redistribute(x, dec.redists[0], mesh=mesh, n_chunks=2,
+                          avoid_dims=(0, 1, 2))
 
 
 def test_local_block_and_gather_single_rank():

@@ -1,10 +1,11 @@
 """Helpers for the tests of the PyTorch port (``tests/test_torch_*.py``).
 
 * seeded numpy inputs and a max-scaled closeness assertion;
-* :func:`run_ranks` — spawn ``world`` gloo ranks (file rendezvous in a
-  temporary directory, never a fixed port, so parallel test workers do not
-  collide), each running one of the rank bodies below; bodies save their
-  results as ``.npy`` files for the test to read;
+* :func:`run_ranks` — spawn ``world`` gloo ranks (or NCCL ranks, one
+  card each; file rendezvous in a temporary directory, never a fixed port,
+  so parallel test workers do not collide), each running one of the rank
+  bodies below; bodies save their results as ``.npy`` files for the test
+  to read;
 * :func:`run_reference` — run a JAX snippet with N fake XLA devices in a
   fresh process (``conftest.run_subprocess``).
 
@@ -50,14 +51,16 @@ def run_reference(code: str, devices: int = 4) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Multi-rank runs over gloo
+# Multi-rank runs over gloo (CPU) or NCCL (one card per rank)
 # ---------------------------------------------------------------------------
 
 def _rank_main(rank: int, world: int, init_file: str, body: str,
-               out_dir: str, args: tuple) -> None:
+               out_dir: str, args: tuple, backend: str) -> None:
     import torch.distributed as dist
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
     try:
         globals()[body](rank, out_dir, *args)
@@ -66,8 +69,9 @@ def _rank_main(rank: int, world: int, init_file: str, body: str,
 
 
 def run_ranks(body: str, world: int, tmp_path, *args,
-              timer=time.monotonic) -> str:
-    """Run ``body(rank, out_dir, *args)`` on ``world`` spawned gloo ranks.
+              timer=time.monotonic, backend: str = "gloo") -> str:
+    """Run ``body(rank, out_dir, *args)`` on ``world`` spawned ranks of
+    the ``backend`` process group (``"nccl"``: rank r on card r).
 
     Returns the output directory.  Raises if any rank fails or the run
     outlives ``RANK_TIMEOUT_S``.
@@ -77,7 +81,8 @@ def run_ranks(body: str, world: int, tmp_path, *args,
     os.makedirs(out_dir, exist_ok=True)
     init_file = os.path.join(str(tmp_path), f"rendezvous_{body}")
     ctx = mp.start_processes(_rank_main,
-                             args=(world, init_file, body, out_dir, args),
+                             args=(world, init_file, body, out_dir, args,
+                                   backend),
                              nprocs=world, join=False, start_method="spawn")
     deadline = timer() + RANK_TIMEOUT_S
     try:
@@ -246,3 +251,177 @@ def redistribute_body(rank: int, out_dir: str, cases) -> None:
                 results.append([i, inverse, j, ok, ok_real])
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
+
+
+def chunked_body(rank: int, out_dir: str, x_path: str, xr_path: str, grid,
+                 cases) -> None:
+    """For each (name, kinds, decomp, backend, n_chunks) case on a 2x2
+    mesh: the chunked plan's forward and round trip and the bulk plan's
+    forward, with the kernel's packed stores counted per direction; rank 0
+    saves the gathered results.  Then a recorded run of one chunked hop:
+    every exchange issue and every ``then`` call, in order."""
+    import importlib
+    import warnings
+    from repro_torch.compat import gather, local_block
+    from repro_torch.core.api import plan_fft
+    from repro_torch.core.decomp import make_decomposition
+    from repro_torch.kernels import ops
+    tred = importlib.import_module("repro_torch.core.redistribute")
+    mesh = _cpu_mesh((2, 2))
+    xc = torch.from_numpy(np.load(x_path))
+    xr = torch.from_numpy(np.load(xr_path))
+    packs = {"n": 0}
+    packed_fft1d = ops.packed_fft1d
+
+    def counting(*a, **kw):
+        packs["n"] += 1
+        return packed_fft1d(*a, **kw)
+
+    ops.packed_fft1d = counting
+    stats = {}
+    try:
+        for name, kinds, decomp, backend, n_chunks in cases:
+            x = xc if kinds == ("fft",) * len(grid) else xr
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                plan = plan_fft(mesh, grid, kinds=kinds, decomp=decomp,
+                                backend=backend, n_chunks=n_chunks)
+                bulk = plan_fft(mesh, grid, kinds=kinds, decomp=decomp,
+                                backend=backend)
+                packs["n"] = 0
+                y = plan.forward(x)
+                fwd_packs = packs["n"]
+                packs["n"] = 0
+                back = plan.inverse(y, sharded_in=True)
+                inv_packs = packs["n"]
+                yb = bulk.forward(x)
+            stats[name] = {
+                "fwd_schedule": list(plan.pipeline_spec().chunk_schedule),
+                "inv_schedule": list(
+                    plan.pipeline_spec(inverse=True).chunk_schedule),
+                "fwd_packs": fwd_packs, "inv_packs": inv_packs,
+                "warnings": [str(w.message) for w in caught]}
+            out = {"fwd": gather(y, plan.out_struct.spec, mesh),
+                   "rt": gather(back, plan.inv_out_struct.spec, mesh),
+                   "bulk": gather(yb, bulk.out_struct.spec, mesh)}
+            if rank == 0:
+                for key, arr in out.items():
+                    np.save(os.path.join(out_dir, f"{key}_{name}.npy"),
+                            arr.numpy())
+    finally:
+        ops.packed_fft1d = packed_fft1d
+
+    # The overlap order: chunk k+1's exchange is issued before `then` runs
+    # on chunk k.
+    events = []
+    issue = tred._issue
+
+    def recording_issue(x, *a, **kw):
+        events.append("issue")
+        return issue(x, *a, **kw)
+
+    def then(t):
+        events.append("then")
+        return t * 2
+
+    dec = make_decomposition("pencil", ("data", "model"), 3)
+    full = torch.from_numpy(cplx(tuple(grid), 77))
+    block = local_block(full, dec.stages[0].spec, mesh)
+    tred._issue = recording_issue
+    try:
+        got = tred.redistribute(block, dec.redists[0], mesh=mesh, n_chunks=4,
+                                then=then, avoid_dims=dec.stages[1].fft_dims,
+                                hop_index=0)
+    finally:
+        tred._issue = issue
+    want = local_block(full, dec.stages[1].spec, mesh) * 2
+    stats["recorder"] = {"events": events,
+                         "equal": bool(torch.equal(got, want))}
+    with open(os.path.join(out_dir, f"stats{rank}.json"), "w") as f:
+        json.dump(stats, f)
+
+
+def tuner_body(rank: int, out_dir: str, x_path: str, grid,
+               cache_path: str) -> None:
+    """``tuning="auto"`` on a 2x2 mesh with one wisdom file: every rank
+    saves the tuned plan and the profile it planned with, rank 0 the
+    gathered forward; then a second plan on the same file, with the
+    measurements counted."""
+    from repro_torch.compat import gather
+    from repro_torch.core import tuner
+    from repro_torch.core.api import plan_fft
+    from repro_torch.core.perfmodel import platform_name
+    from repro_torch.core.plan import TuningCache
+    mesh = _cpu_mesh((2, 2))
+    x = torch.from_numpy(np.load(x_path))
+    cache = TuningCache(cache_path)
+    plan = plan_fft(mesh, grid, tuning="auto", tune_cache=cache)
+    y = gather(plan.forward(x), plan.out_struct.spec, mesh)
+    profile = tuner.resolve_profile(cache, mesh=mesh)
+    calls = {"n": 0}
+    measure = tuner.measure_candidate
+
+    def counting(*a, **kw):
+        calls["n"] += 1
+        return measure(*a, **kw)
+
+    tuner.measure_candidate = counting
+    try:
+        again = plan_fft(mesh, grid, tuning="auto",
+                         tune_cache=TuningCache(cache_path))
+    finally:
+        tuner.measure_candidate = measure
+    record = {"tuned": plan.tuned.to_json(), "again": again.tuned.to_json(),
+              "profile": profile.to_json(), "second_measurements": calls["n"],
+              "stored_profile": cache.get_machine(platform_name(mesh.device))
+              is not None}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    if rank == 0:
+        np.save(os.path.join(out_dir, "fwd.npy"), y.numpy())
+
+
+def nccl_body(rank: int, out_dir: str, x_path: str, grid, cache_path: str,
+              repeats: int, device=None) -> None:
+    """On a 2x2 mesh of cards (``device=None``; ``"cpu"`` rehearses it
+    over gloo): kernel and cufft plans, bulk and chunked (the exchanges of
+    chunk k+1 in flight under chunk k's stage), forward and round trip,
+    with the best-of-``repeats`` ms per forward (CUDA events on a card);
+    then ``tuning="auto"`` on one wisdom file.  Rank 0 saves the gathered
+    results."""
+    import torch.distributed as dist
+    from repro_torch.compat import gather, make_mesh
+    from repro_torch.core import tuner
+    from repro_torch.core.api import plan_fft
+    from repro_torch.core.perfmodel import _time_best, platform_name
+    from repro_torch.core.plan import TuningCache
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    x = torch.from_numpy(np.load(x_path)).to(mesh.device)
+    record = {"cases": {}, "card": platform_name(mesh.device)}
+    for backend in ("kernel", "cufft"):
+        for n_chunks in (1, 2, (2, 4)):
+            plan = plan_fft(mesh, grid, backend=backend, n_chunks=n_chunks)
+            y = plan.forward(x)
+            back = plan.inverse(y, sharded_in=True)
+            name = f"{backend}_{n_chunks}".replace(" ", "")
+            fwd = gather(y, plan.out_struct.spec, mesh)
+            rt = gather(back, plan.inv_out_struct.spec, mesh)
+            dist.barrier()
+            record["cases"][name] = {
+                "schedule": list(plan.pipeline_spec().chunk_schedule),
+                "fwd_ms": 1e3 * _time_best(lambda: plan.forward(x), repeats,
+                                           mesh.device)}
+            if rank == 0:
+                np.save(os.path.join(out_dir, f"fwd_{name}.npy"),
+                        fwd.cpu().numpy())
+                np.save(os.path.join(out_dir, f"rt_{name}.npy"),
+                        rt.cpu().numpy())
+    cache = TuningCache(cache_path)
+    tuned = plan_fft(mesh, grid, tuning="auto", tune_cache=cache)
+    y = gather(tuned.forward(x), tuned.out_struct.spec, mesh)
+    record["tuned"] = tuned.tuned.to_json()
+    record["profile"] = tuner.resolve_profile(cache, mesh=mesh).to_json()
+    if rank == 0:
+        np.save(os.path.join(out_dir, "fwd_tuned.npy"), y.cpu().numpy())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
