@@ -58,8 +58,30 @@ its result line):
     without a measurement); ``PoissonSolver(tuning="auto")`` for the PPB
     512^3 solve (winner, ms per solve beside phase 5's, solve against the
     float64 solve).  Kernel launches are counted over each tuning run;
-11. a ``kernels`` JSON line (one entry per kernel variant, with the path
-    it ran), then the result line.
+11. ``[segments]``: the 512^3 C2C kernel plan's chained stage segments,
+    forward and inverse, bitwise equal to ``plan.forward`` and
+    ``plan.inverse``, with the plan's launch counts (3 per direction, all
+    radix, 2 strided, no line copy);
+12. ``[executor]``: three batched (16, 1024, 1024) 2-D entries, a 512^3
+    forward and its inverse, all on the kernel backend, through the
+    plan-stream executor in the async, pool and timed modes, each output
+    bitwise equal to its solo run; the solo sum, the interleaved time and
+    the overlap beside ``report()["predicted"]``, the timed run's
+    per-segment ms, the peak memory beside two boundary buffers per
+    entry, and a donated operand read back as emptied;
+13. ``[serve]``: ``launch/serve_fft.py`` on the card (grids (1024, 1024)
+    and (1024, 2048), odd grids that pad into the first, 48 requests in
+    rounds of 16, the tuner pinned to the kernel, a wisdom file in a
+    temporary directory): every result within 1e-4 of ``torch.fft.fftn``,
+    hit rate >= 0.8, a warmed first drain that builds no plan and no
+    kernel, and the traffic drains' launches exactly 2 per routed batch
+    (one on lines, one strided, all radix, no line copy); three such
+    service lifetimes, each with its p50/p99 latency and requests per
+    second, the metrics JSON in ``chiprun_out/serve_fft_metrics_<w>.json``;
+14. a ``kernels`` JSON line (one entry per kernel variant, with the path
+    it ran and, for B1 and B4, the launches on the segments, executor and
+    serve paths; the serve counts are the first lifetime's traffic
+    drains), then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -972,6 +994,325 @@ def phase_tune(device, cache, poisson: dict, grid=GRID,
     return out
 
 
+def path_counts() -> dict:
+    """The launch counters a path is read by: B1 on lines, B4 strided,
+    both by path, and the line copies."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft_matmul import fft_fourstep
+    return {"launches": fft_fourstep.launches,
+            "lines": fft_fourstep.layout_launches["lines"],
+            "strided": fft_fourstep.layout_launches["strided"],
+            "radix": fft_fourstep.path_launches["radix"],
+            "dense": fft_fourstep.path_launches["dense"],
+            "copies": ops.copies["lines"]}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft_matmul import reset_launch_counts
+    reset_launch_counts()
+    ops.copies["lines"] = 0
+
+
+def profile_run(fn, device) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's kernel time
+    against the window (its busy share), kernels launched, and the
+    ``cudaMalloc`` calls the caching allocator made."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        window = time.perf_counter() - t0
+    avgs = prof.key_averages()
+
+    def device_us(a):
+        return getattr(a, "self_device_time_total",
+                       getattr(a, "self_cuda_time_total", 0.0))
+
+    busy = sum(device_us(a) for a in avgs) * 1e-3
+    return {"window_ms": window * 1e3, "kernel_ms": busy,
+            "busy_share": busy / (window * 1e3),
+            "kernels": sum(a.count for a in avgs if device_us(a) > 0),
+            "cudaMalloc": sum(a.count for a in avgs
+                              if a.key == "cudaMalloc")}
+
+
+def phase_segments(device, grid=GRID, iters: int = 5) -> dict:
+    """``[segments]``: the 512^3 C2C kernel plan's chained stage segments
+    against ``plan.forward``/``plan.inverse``, bitwise, with the plan's own
+    launch counts per direction."""
+    import torch
+    from repro_torch import make_mesh, plan_fft
+    cuda = device.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if cuda else device)
+    plan = plan_fft(mesh, grid, backend="kernel")
+    x = randc(grid, torch.complex64, device, SEED + 11)
+    y = plan.forward(x)
+    z = plan.inverse(y, sharded_in=True)
+
+    def chain(inverse: bool):
+        v = plan.prepare_input(y if inverse else x, inverse=inverse,
+                               sharded_in=inverse)
+        for seg in plan.segments(inverse=inverse):
+            v = seg(v)
+        return v
+
+    out = {"grid": list(grid), "n_segments": len(plan.segments())}
+    for name, inverse, fused in (("forward", False, y), ("inverse", True, z)):
+        reset_counts()
+        v = chain(inverse)
+        if cuda:
+            torch.cuda.synchronize(device)
+        counts = path_counts()
+        out[name] = {"bitwise": bool(torch.equal(v, fused)), **counts}
+        check(out[name]["bitwise"], f"[segments] chained {name} segments "
+              f"differ from the fused plan: max |d| "
+              f"{float((v - fused).abs().max()):.3e}")
+        check(counts["copies"] == 0, f"[segments] {name}: "
+              f"{counts['copies']} line copies, expected 0")
+        if cuda:
+            check(counts["launches"] == 3 and counts["radix"] == 3
+                  and counts["strided"] == 2,
+                  f"[segments] {name}: {counts}, expected 3 launches, all "
+                  f"radix, 2 strided (the plan's own counts)")
+        del v
+    if cuda:
+        out["chained_fwd_ms"] = time_ms(lambda: chain(False), iters)
+        out["fused_fwd_ms"] = time_ms(lambda: plan.forward(x), iters)
+    print(f"[segments] {out['n_segments']} segments per direction; chained "
+          f"forward and inverse bitwise equal to the fused plan; launches "
+          f"forward {out['forward']}, inverse {out['inverse']}"
+          + (f"; chained forward {out['chained_fwd_ms']:.4f} ms beside the "
+             f"fused {out['fused_fwd_ms']:.4f} ms" if cuda else ""))
+    return out
+
+
+def phase_executor(device, grid=GRID, batch2=(16, 1024, 1024),
+                   iters: int = 5) -> dict:
+    """``[executor]``: a mixed queue — three batched 2-D entries, one 3-D
+    forward and the inverse of that forward, all on ``backend="kernel"`` —
+    through the plan-stream executor in every dispatch mode, bitwise
+    against the solo runs; solo sum, interleaved time and overlap against
+    ``report()["predicted"]``, per-segment times, peak memory, donation."""
+    import torch
+    from repro_torch import make_mesh, plan_fft
+    from repro_torch.core.executor import PlanStreamExecutor, execute_many
+    from repro_torch.distributed.fault import StepWatchdog
+    cuda = device.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if cuda else device)
+    p2d = plan_fft(mesh, batch2[1:], batch_shape=batch2[:1],
+                   backend="kernel")
+    p3d = plan_fft(mesh, grid, backend="kernel")
+    xs = [randc(batch2, torch.complex64, device, SEED + 20 + i)
+          for i in range(3)]
+    x3 = randc(grid, torch.complex64, device, SEED + 23)
+    y3 = p3d.forward(x3)
+    entries = [(p2d, xs[0]), (p2d, xs[1]), (p2d, xs[2]), (p3d, x3),
+               (p3d, y3, {"inverse": True})]
+
+    def solo_call(i):
+        plan, v = entries[i][:2]
+        if len(entries[i]) == 3:
+            return plan.inverse(v)
+        return plan.forward(v)
+
+    solo = [solo_call(i) for i in range(len(entries))]
+    out = {"entries": [f"2d{tuple(batch2)}"] * 3 + ["3d fwd", "3d inv"],
+           "modes": {}}
+    # the counted run of the path
+    reset_counts()
+    outs = execute_many(entries)
+    if cuda:
+        torch.cuda.synchronize(device)
+    out["counts"] = counts = path_counts()
+    want = 3 * 2 + 2 * 3
+    check(counts["copies"] == 0, f"[executor] {counts['copies']} line "
+          f"copies, expected 0")
+    if cuda:
+        check(counts["launches"] == want and counts["radix"] == want
+              and counts["strided"] == 3 * 1 + 2 * 2,
+              f"[executor] launches {counts}, expected {want}, all radix, "
+              f"7 strided")
+    del outs
+    for mode in ("async", "pool", "timed"):
+        kw = {"watchdog": StepWatchdog()} if mode == "timed" else {}
+        ex = PlanStreamExecutor(mode=mode, **kw)
+        for e in entries:
+            ex.submit(e[0], e[1], **(e[2] if len(e) == 3 else {}))
+        got = ex.run()
+        if cuda:
+            torch.cuda.synchronize(device)
+        same = [bool(torch.equal(g, w)) for g, w in zip(got, solo)]
+        check(all(same), f"[executor] mode {mode}: outputs bitwise equal "
+              f"to solo {same}")
+        rec = {"bitwise": same,
+               "predicted_overlap": ex.report()["predicted"][
+                   "overlap_efficiency"],
+               "order": [s.tag for s in ex.last_schedule]}
+        if mode == "timed":
+            rec["segment_ms"] = {k: v * 1e3 for k, v in
+                                 ex.report()["segment_times"].items()}
+            rec["stragglers"] = ex.stragglers
+        out["modes"][mode] = rec
+        del got
+    # donation: a private plan's operand is emptied, the result unchanged
+    xd = xs[0].clone()
+    got = execute_many([(p2d, xd, {"donate": True})])[0]
+    out["donated_emptied"] = xd.numel() == 0
+    check(out["donated_emptied"] and bool(torch.equal(got, solo[0])),
+          "[executor] a donated operand was not emptied, or its result "
+          "changed")
+    del got
+    boundary = sum(2 * max(math.prod(s.local_shape) * s.dtype.itemsize
+                           for s in e[0].segment_boundary_structs(
+                               inverse=len(e) == 3))
+                   for e in entries)
+    out["two_boundary_buffers_bytes"] = boundary
+    if cuda:
+        ms = [time_ms(lambda i=i: solo_call(i), iters)
+              for i in range(len(entries))]
+        out["solo_ms"] = ms
+        out["solo_sum_ms"] = sum(ms)
+        for mode in ("async", "pool"):
+            out[f"interleaved_{mode}_ms"] = time_ms(
+                lambda m=mode: execute_many(entries, mode=m), iters)
+        out["measured_overlap"] = out["interleaved_async_ms"] / sum(ms)
+        # Host side of one interleaved run: pricing and placement alone,
+        # and the whole call without waiting for the card (enqueue time).
+        # An enqueue time near the interleaved time means the run is
+        # bound by the host, not by the card.
+        ex = PlanStreamExecutor()
+        for e in entries:
+            ex.submit(e[0], e[1], **(e[2] if len(e) == 3 else {}))
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ex._plan_schedule()
+        out["plan_host_ms"] = (time.perf_counter() - t0) / iters * 1e3
+        ex._queue.clear()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            execute_many(entries)
+        out["enqueue_host_ms"] = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize(device)
+        out["profile"] = profile_run(lambda: execute_many(entries), device)
+        out["profile_solo"] = profile_run(
+            lambda: [solo_call(i) for i in range(len(entries))], device)
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        outs = execute_many(entries)
+        torch.cuda.synchronize(device)
+        out["peak_extra_bytes"] = torch.cuda.max_memory_allocated(device) \
+            - base
+        del outs
+    print(f"[executor] {len(entries)} entries, modes async/pool/timed "
+          f"bitwise equal to solo; launches {counts}; predicted overlap "
+          f"{out['modes']['async']['predicted_overlap']:.4f}"
+          + (f"; solo sum {out['solo_sum_ms']:.4f} ms, interleaved async "
+             f"{out['interleaved_async_ms']:.4f} ms / pool "
+             f"{out['interleaved_pool_ms']:.4f} ms, measured overlap "
+             f"{out['measured_overlap']:.4f}; host per interleaved run: "
+             f"pricing and placement {out['plan_host_ms']:.4f} ms, enqueue "
+             f"{out['enqueue_host_ms']:.4f} ms; one run under "
+             f"torch.profiler: {out['profile']} (solo calls: "
+             f"{out['profile_solo']}); peak extra memory "
+             f"{out['peak_extra_bytes'] / 2**30:.3f} GiB against two "
+             f"boundary buffers per entry {boundary / 2**30:.3f} GiB"
+             if cuda else ""))
+    if cuda:
+        print("[executor] timed segment ms: " + ", ".join(
+            f"{k}={v:.4f}" for k, v in
+            out["modes"]["timed"]["segment_ms"].items()))
+    return out
+
+
+def phase_serve(device, requests: int = 48, round_size: int = 16,
+                primary=(1024, 1024), secondary=(1024, 2048),
+                odd=((1000, 1000), (960, 1024), (1024, 1000)),
+                edges=(256, 512, 1024, 2048), max_batch: int = 8,
+                windows: int = 3) -> dict:
+    """``[serve]``: ``launch/serve_fft.py`` on one card (no loss on a
+    1-rank mesh) at card-size grids, the tuner pinned to the kernel, a
+    wisdom file in a temporary directory; its own checks (every result
+    within 1e-4 of ``torch.fft.fftn``, hit rate >= 0.8, a warmed first
+    drain that builds no plan and no kernel) fail the run.  The service
+    lifetime runs ``windows`` times, each with a fresh wisdom file, so the
+    latencies and rates come with their spread.  The launch counts are
+    the traffic drains' own (``serve_fft``'s ``traffic_launches``, not
+    the tune and warm-up before them): every routed batch of a 2-D grid
+    is 2 launches of the plain four-step variant, one on lines and one
+    strided, all radix, no line copy."""
+    import torch
+    from repro_torch.launch.serve_fft import serve_fft
+    cuda = device.type == "cuda"
+    ndim = len(primary)
+    check(all(len(g) == ndim for g in (secondary, *odd)),
+          "[serve] the served grids differ in rank")
+    runs = []
+    for w in range(windows):
+        with tempfile.TemporaryDirectory() as tmp:
+            snap = serve_fft(
+                requests=requests, round_size=round_size, lose=0,
+                seed=SEED + w, device=None if cuda else device,
+                wisdom=os.path.join(tmp, "tuning.json"),
+                json_path=os.path.join(ROOT, "chiprun_out",
+                                       f"serve_fft_metrics_{w}.json"),
+                check=True, primary=primary, secondary=secondary, odd=odd,
+                bucket_edges=edges, max_batch=max_batch,
+                backends=("kernel",), verbose=False)
+        if cuda:
+            torch.cuda.synchronize(device)
+        drv = snap["driver"]
+        check(drv["max_rel_err"] <= 1e-4
+              and snap["plan_cache"]["hit_rate"] >= 0.8
+              and drv["first_drain"] == {"plan_builds": 0,
+                                         "kernel_loads": 0},
+              f"[serve] window {w}: {drv}")
+        got, nb = drv["traffic_launches"], drv["traffic_batches"]
+        if cuda:
+            want = {"launches": ndim * nb, "fourstep": ndim * nb,
+                    "pack": 0, "twiddle": 0, "radix": ndim * nb,
+                    "dense": 0, "lines": nb, "strided": (ndim - 1) * nb,
+                    "copies": 0}
+            check(nb > 0 and got == want,
+                  f"[serve] window {w}: traffic launches {got} for {nb} "
+                  f"routed batches, expected {want}")
+        lat = snap["latency"]
+        runs.append({"counts": got, "batches": nb,
+                     "p50_ms": lat["p50_s"] * 1e3,
+                     "p99_ms": lat["p99_s"] * 1e3,
+                     "drain_rps": drv["drain_rps"],
+                     "loop_rps": drv["loop_rps"], "rps": drv["rps"],
+                     "hit_rate": snap["plan_cache"]["hit_rate"],
+                     "first_drain": drv["first_drain"],
+                     "max_rel_err": drv["max_rel_err"],
+                     "families": drv["families"], "wall_s": drv["wall_s"],
+                     "seconds": drv["seconds"]})
+    out = {"windows": runs, "requests": requests, "round_size": round_size,
+           # the kernels line's serve counts: the first window's drains
+           "counts": runs[0]["counts"]}
+    for r in runs:
+        print(f"[serve] {requests} requests in rounds of {round_size}: "
+              f"{r['batches']} routed batches, traffic launches "
+              f"{r['counts']}; p50 {r['p50_ms']:.4f} ms, p99 "
+              f"{r['p99_ms']:.4f} ms (of {requests} samples: about the "
+              f"largest), {r['drain_rps']:.2f} requests/s over the drains, "
+              f"{r['loop_rps']:.2f} over submits and drains, "
+              f"{r['rps']:.2f} over the loop with its result checks "
+              f"(seconds {r['seconds']}); hit rate {r['hit_rate']:.2f}, "
+              f"warmed first drain built {r['first_drain']}, worst "
+              f"relative error {r['max_rel_err']:.3e}; families "
+              f"{r['families']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1003,6 +1344,17 @@ def main() -> int:
         report["calibrate"] = phase_calibrate(device, cache)
         report["tune"] = phase_tune(device, cache, poisson)
     torch.cuda.empty_cache()
+    report["segments"] = segs = phase_segments(device)
+    torch.cuda.empty_cache()
+    report["executor"] = execu = phase_executor(device)
+    torch.cuda.empty_cache()
+    report["serve"] = serve = phase_serve(device)
+    torch.cuda.empty_cache()
+
+    def by_path(layout):
+        return {"segments": segs["forward"][layout] + segs["inverse"][layout],
+                "executor": execu["counts"][layout],
+                "serve": serve["counts"][layout]}
     kernels = [
         {"name": "fft_fourstep", "route": "cuda", "source": RADIX_SOURCE,
          "path": "radix",
@@ -1014,7 +1366,8 @@ def main() -> int:
          "plain_ms": main_run["stage_plain_ms"],
          "bound_ms": main_run["stage_bound_ms"],
          "bound_by": main_run["stage_bound_by"],
-         "library_ms": main_run["stage_library_ms"]},
+         "library_ms": main_run["stage_library_ms"],
+         "launches_by_path": by_path("lines")},
         {"name": "fft_fourstep_strided", "route": "cuda",
          "source": RADIX_SOURCE, "path": "radix",
          "replaces": "src/repro/kernels/fft_matmul.py:216",
@@ -1025,7 +1378,8 @@ def main() -> int:
          "plain_ms": main_run["strided_mid_plain_ms"],
          "bound_ms": main_run["stage_bound_ms"],
          "bound_by": main_run["stage_bound_by"],
-         "library_ms": main_run["strided_mid_library_ms"]},
+         "library_ms": main_run["strided_mid_library_ms"],
+         "launches_by_path": by_path("strided")},
         {"name": "fft_fourstep_pack", "route": "cuda",
          "source": RADIX_SOURCE, "path": "radix",
          "replaces": "src/repro/kernels/fft_matmul.py:134",

@@ -12,7 +12,11 @@ roles are played here by:
 * :func:`local_block` — the block of a global tensor that a spec assigns to
   this rank (``device_put`` onto a ``NamedSharding``).
 * :func:`gather` — the inverse: every rank's block assembled into the
-  global tensor on every rank.
+  global tensor on every rank of the mesh.
+
+A mesh may span a subset of the world's ranks (``make_mesh(ranks=...)``):
+the degraded mesh of a service that lost devices.  Its collectives then
+run on process groups of its own ranks only.
 
 A spec is a plain tuple with one entry per dim: ``None`` (full), an axis
 name, or a tuple of axis names (major axis first), as in the JAX package's
@@ -64,7 +68,10 @@ class Mesh:
     ``coords[i]`` is this rank's index along ``axis_names[i]``; ranks are
     laid out row-major over ``shape``, like the device array of a JAX mesh.
     ``groups`` maps each axis name to the subgroup of the ranks that share
-    every other coordinate (None when the world has one rank).
+    every other coordinate (None when the world has one rank).  ``ranks``
+    are the global ranks of the mesh in that order (empty: ``0 .. size-1``)
+    and ``group`` the process group spanning them (None: the default
+    group).
     """
 
     axis_names: Tuple[str, ...]
@@ -72,6 +79,8 @@ class Mesh:
     coords: Tuple[int, ...]
     device: torch.device
     groups: Dict[str, Optional[object]]
+    ranks: Tuple[int, ...] = ()
+    group: Optional[object] = None
 
     @property
     def axis_sizes(self) -> Dict[str, int]:
@@ -80,6 +89,12 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape)
+
+    @property
+    def root(self) -> int:
+        """The global rank of the mesh's first rank (the one that decides
+        for the others, and the one that writes files)."""
+        return self.ranks[0] if self.ranks else 0
 
     def coord(self, axis: str) -> int:
         return self.coords[self.axis_names.index(axis)]
@@ -97,14 +112,30 @@ def _rank_coords(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
     return tuple(reversed(coords))
 
 
+def _rank_device(device, rank: int) -> torch.device:
+    """This rank's device: its own card under NCCL, else what was asked."""
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
-              device=None) -> Mesh:
+              device=None, ranks: Optional[Sequence[int]] = None
+              ) -> Optional[Mesh]:
     """Build this rank's view of a named mesh.
 
     With more than one rank the default process group must already be
     initialized with a world size equal to the product of ``axis_shapes``
     (gloo for ``device='cpu'``, NCCL for CUDA).  ``device=None`` picks the
     CUDA device of this rank and raises when there is none.
+
+    ``ranks`` (increasing global ranks, one per mesh position) builds a
+    mesh over a subset of the world instead.  Creating its process groups
+    is collective over the default group, so every rank calls this with
+    the same arguments; a rank outside ``ranks`` gets None.
     """
     shape = tuple(int(s) for s in axis_shapes)
     names = tuple(axis_names)
@@ -113,6 +144,9 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
                          f"in length")
     world = math.prod(shape)
     initialized = dist.is_available() and dist.is_initialized()
+    if ranks is not None:
+        return _subset_mesh(shape, names, tuple(int(r) for r in ranks),
+                            device, initialized)
     if world == 1:
         return Mesh(names, shape, (0,) * len(shape), resolve_device(device),
                     {n: None for n in names})
@@ -122,15 +156,54 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
             f"size {world} (got "
             f"{dist.get_world_size() if initialized else 'no process group'})")
     rank = dist.get_rank()
-    if device is None and torch.cuda.is_available():
-        device = torch.device("cuda", rank % torch.cuda.device_count())
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    dev = _rank_device(device, rank)
     from torch.distributed.device_mesh import init_device_mesh
     dmesh = init_device_mesh(dev.type, shape, mesh_dim_names=names)
     return Mesh(names, shape, _rank_coords(rank, shape), dev,
-                {n: dmesh.get_group(n) for n in names})
+                {n: dmesh.get_group(n) for n in names},
+                ranks=tuple(range(world)))
+
+
+def _subset_mesh(shape, names, ranks: Tuple[int, ...], device,
+                 initialized: bool) -> Optional[Mesh]:
+    world = math.prod(shape)
+    if len(ranks) != world or list(ranks) != sorted(set(ranks)):
+        raise ValueError(f"a {shape} mesh needs {world} increasing distinct "
+                         f"ranks, got {ranks}")
+    rank = dist.get_rank() if initialized else 0
+    if not initialized and ranks != (0,):
+        raise RuntimeError(f"a mesh over ranks {ranks} needs torch."
+                           f"distributed initialized")
+    # new_group is collective over the default group: every rank creates
+    # every group, in the same order, and keeps the ones it belongs to.
+    groups: Dict[str, Optional[object]] = {n: None for n in names}
+    for i, name in enumerate(names):
+        if shape[i] == 1:
+            continue
+        for pos in range(world):
+            coords = _rank_coords(pos, shape)
+            if coords[i]:
+                continue
+            line = []
+            for k in range(shape[i]):
+                c = list(coords)
+                c[i] = k
+                line.append(ranks[_flat_index(c, shape)])
+            g = dist.new_group(line)
+            if rank in line:
+                groups[name] = g
+    group = dist.new_group(list(ranks)) if world > 1 else None
+    if rank not in ranks:
+        return None
+    return Mesh(names, shape, _rank_coords(ranks.index(rank), shape),
+                _rank_device(device, rank), groups, ranks=ranks, group=group)
+
+
+def _flat_index(coords: Sequence[int], shape: Sequence[int]) -> int:
+    idx = 0
+    for c, s in zip(coords, shape):
+        idx = idx * s + c
+    return idx
 
 
 def shard_index(entry, mesh: Mesh) -> Tuple[int, int]:
@@ -165,18 +238,19 @@ def local_block(x: torch.Tensor, spec: Sequence, mesh: Mesh) -> torch.Tensor:
 
 
 def gather(local: torch.Tensor, spec: Sequence, mesh: Mesh) -> torch.Tensor:
-    """The global tensor, assembled on every rank from each rank's block."""
+    """The global tensor, assembled on every rank of the mesh from each
+    rank's block."""
     if mesh.size == 1:
         return local
     local = local.contiguous()
     parts = [torch.empty_like(local) for _ in range(mesh.size)]
     real = [torch.view_as_real(p) if p.is_complex() else p for p in parts]
     dist.all_gather(real, torch.view_as_real(local) if local.is_complex()
-                    else local)
+                    else local, group=mesh.group)
     counts = [shard_index(e, mesh)[1] for e in spec]
     out = local.new_empty(tuple(s * c for s, c in zip(local.shape, counts)))
     for rank, part in enumerate(parts):
-        view = Mesh(mesh.axis_names, mesh.shape,
-                    _rank_coords(rank, mesh.shape), mesh.device, mesh.groups)
+        view = dataclasses.replace(mesh,
+                                   coords=_rank_coords(rank, mesh.shape))
         local_block(out, spec, view).copy_(part)
     return out

@@ -1,10 +1,12 @@
 # The distributed FFT framework on PyTorch: stage-specific decompositions,
 # chunk-pipelined redistribution over torch.distributed, plan caching, the
-# plan API and the spectral Poisson solver, plus the tuner that picks the
-# schedule (scheduler policy engine, calibrated perf model, wisdom cache).
+# plan API and the spectral Poisson solver, the tuner that picks the
+# schedule (scheduler policy engine, calibrated perf model, wisdom cache),
+# and the plan-stream executor that interleaves plans' stage segments.
 from .api import (DistributedFFT, PoissonSolver, clear_plan_memo, fft2d,
                   fft3d, fftnd, ifft2d, ifft3d, ifftnd, plan_cache_stats,
                   plan_fft, poisson_eigenvalues, poisson_solve)
+from .executor import PlanStreamExecutor, SegmentTask, execute_many
 from .decomp import (Decomposition, RedistHop, Redistribution, StageLayout,
                      default_dim_groups, hybrid_nd, local_shape,
                      make_decomposition, pencil, pencil_nd, slab, slab_nd,
@@ -13,8 +15,9 @@ from .perfmodel import (Machine, MachineProfile, calibrate, hop_cost_terms,
                         predict_plan_time, profile_from_machine,
                         stage_comp_times)
 from .pipeline import (PipelineSpec, TensorStruct, build_pipeline,
-                       effective_grid, input_struct, make_spec,
-                       output_struct)
+                       build_segment, compile_segment, effective_grid,
+                       input_struct, make_spec, n_segments, output_struct,
+                       segment_in_spec, segment_out_spec, segment_structs)
 from .plan import (GLOBAL_PLAN_CACHE, PlanCache, TunedPlan, TuningCache,
                    global_tuning_cache, parse_tuning_key, plan_key,
                    tuning_key)
@@ -26,7 +29,8 @@ from .scheduler import (CostModel, ScheduleSimulator, TaskSpec,
 from .tuner import (Candidate, enumerate_candidates,
                     feasible_hop_chunk_counts, measure_candidate,
                     propose_chunk_schedule, rank_candidates,
-                    resolve_profile, resolve_tuned_plan, synth_input, tune)
+                    resolve_profile, resolve_tuned_plan, synth_input, tune,
+                    warm_candidates)
 from . import transforms
 
 __all__ = [
@@ -38,7 +42,10 @@ __all__ = [
     "make_decomposition", "pencil", "pencil_nd", "slab", "slab_nd",
     "validate_grid",
     "PipelineSpec", "TensorStruct", "build_pipeline", "effective_grid",
-    "input_struct", "make_spec", "output_struct",
+    "input_struct", "make_spec", "output_struct", "n_segments",
+    "segment_in_spec", "segment_out_spec", "segment_structs",
+    "build_segment", "compile_segment",
+    "PlanStreamExecutor", "SegmentTask", "execute_many",
     "CostModel", "ScheduleSimulator", "TaskSpec", "WorkStealingPool",
     "place_tasks", "choose_chunk_schedule", "hop_phase_time",
     "GLOBAL_PLAN_CACHE", "PlanCache", "TunedPlan", "plan_key",
@@ -48,6 +55,7 @@ __all__ = [
     "Candidate", "enumerate_candidates", "feasible_hop_chunk_counts",
     "measure_candidate", "propose_chunk_schedule", "rank_candidates",
     "resolve_profile", "resolve_tuned_plan", "synth_input", "tune",
+    "warm_candidates",
     "PackedBlock", "free_chunk_dim", "redistribute", "send_buffer",
     "transpose_cost_bytes", "transforms",
 ]

@@ -17,8 +17,13 @@ stage-0 block of it (``device_put`` in the reference);
 ``forward(x, sharded_in=True)`` takes this rank's block as it is.  Either
 way the call returns this rank's block in the last stage's layout
 (``plan.out_struct``); ``compat.gather`` assembles the global result.
-PyTorch runs eagerly, so there is no compile step, no "precompiled" flag
-and no donation.
+PyTorch runs eagerly, so there is no compile step and no "precompiled"
+flag.  ``plan.segments()`` splits a direction into its stage segments,
+the unit of work of the plan-stream executor (``core/executor.py``):
+``plan.submit(x, executor=ex)`` queues one execution, and
+``plan.execute_many(xs)`` runs a list of operands as one interleaved
+stream.  Only there can an operand be donated (``donate=True``), never
+on a ``shared`` (wrapper-memoized) plan.
 
 The schedule comes from one of:
 
@@ -54,7 +59,8 @@ from ..compat import Mesh, local_block, shard_index
 from . import transforms
 from .decomp import describe_decomp, make_decomposition, validate_grid
 from .pipeline import (PipelineSpec, TensorStruct, build_pipeline,
-                       input_struct, make_spec, output_struct)
+                       compile_segment, input_struct, make_spec,
+                       output_struct, segment_structs)
 from .plan import (GLOBAL_PLAN_CACHE, TunedPlan, TuningCache, env_capacity,
                    plan_key)
 
@@ -141,6 +147,9 @@ class DistributedFFT:
                                              self._out_struct.dtype)
         self._fns: Dict[bool, Callable] = {
             inv: self._pipeline(inv) for inv in (False, True)}
+        self._segs: Dict[Tuple[bool, bool, bool], list] = {}
+        self._seg_structs: Dict[bool, list] = {}
+        self._build_lock = threading.Lock()
 
     def _pipeline(self, inverse: bool) -> Callable:
         spec = self._inv_spec if inverse else self._fwd_spec
@@ -219,6 +228,82 @@ class DistributedFFT:
     def pipeline_spec(self, *, inverse: bool = False) -> PipelineSpec:
         return self._inv_spec if inverse else self._fwd_spec
 
+    # -- stage segments (the plan-stream executor's unit of work) -----------
+
+    def _direction_dtype(self, inverse: bool) -> torch.dtype:
+        return (self._inv_in_struct if inverse else self._in_struct).dtype
+
+    def segment_boundary_structs(self, *, inverse: bool = False) -> list:
+        """Shape/dtype/layout at every stage-segment boundary
+        (``n_segments + 1`` entries; cached per direction)."""
+        with self._build_lock:
+            structs = self._seg_structs.get(inverse)
+            if structs is None:
+                structs = segment_structs(
+                    self.mesh, self.pipeline_spec(inverse=inverse),
+                    self.batch_shape, self._direction_dtype(inverse))
+                self._seg_structs[inverse] = structs
+        return structs
+
+    def segments(self, *, inverse: bool = False, donate_input: bool = False,
+                 donate_intermediates: bool = True) -> list:
+        """Per-segment callables (LRU plan-cache backed), ready to run: on
+        the kernel backend the kernel is built (or loaded) here, as the
+        reference compiles its segments here.
+
+        Chaining them over this rank's stage-0 block is bitwise identical
+        to ``forward``/``inverse``.  Interior segments give up their input
+        by default (the executor's boundary buffers);
+        ``donate_input=True`` makes segment 0 give up the operand too —
+        refused for shared plans, whose callers still own their buffers.
+        """
+        if donate_input and self.shared:
+            raise ValueError(
+                "refusing donate_input=True for a shared (wrapper-memoized) "
+                "plan: other callers may still own the input buffer")
+        key = (inverse, donate_input, donate_intermediates)
+        with self._build_lock:
+            segs = self._segs.get(key)
+        if segs is None:
+            spec = self.pipeline_spec(inverse=inverse)
+            dtype = self._direction_dtype(inverse)
+            n = len(self.segment_boundary_structs(inverse=inverse)) - 1
+            segs = [compile_segment(self.mesh, spec, j, self.batch_shape,
+                                    dtype, donate=(donate_input if j == 0
+                                                   else donate_intermediates))
+                    for j in range(n)]
+            if spec.backend == "kernel" and self.device.type == "cuda":
+                from ..kernels import build
+                build.load()
+            with self._build_lock:
+                segs = self._segs.setdefault(key, segs)
+        return segs
+
+    def submit(self, x: torch.Tensor, *, executor, inverse: bool = False,
+               sharded_in: bool = False, donate: bool = False,
+               tag: Optional[str] = None) -> int:
+        """Enqueue this plan on a ``PlanStreamExecutor``; returns the queue
+        index (outputs come from ``executor.run()`` in submit order)."""
+        return executor.submit(self, x, inverse=inverse,
+                               sharded_in=sharded_in, donate=donate, tag=tag)
+
+    def execute_many(self, xs: Sequence[torch.Tensor], *,
+                     inverse: bool = False, sharded_in: bool = False,
+                     donate: bool = False, executor=None,
+                     **executor_kw) -> list:
+        """Run many operands through this plan as one interleaved segment
+        stream (``core.executor``); returns this rank's output blocks in
+        operand order, bitwise identical to calling the plan on each.
+        Pass an ``executor`` to mix with other plans' entries, else one is
+        built from ``executor_kw``."""
+        from .executor import PlanStreamExecutor  # deferred: avoid a cycle
+        ex = executor if executor is not None \
+            else PlanStreamExecutor(**executor_kw)
+        for x in xs:
+            ex.submit(self, x, inverse=inverse, sharded_in=sharded_in,
+                      donate=donate)
+        return ex.run()
+
     def describe(self) -> str:
         """Multi-line report: schedule, layouts, and where it came from."""
         tuned_line = (self.tuned.describe() if self.tuned is not None
@@ -271,6 +356,14 @@ class DistributedFFT:
 
     def _execute(self, x: torch.Tensor, *, inverse: bool,
                  sharded_in: bool) -> torch.Tensor:
+        return self._fns[inverse](self.prepare_input(
+            x, inverse=inverse, sharded_in=sharded_in))
+
+    def prepare_input(self, x: torch.Tensor, *, inverse: bool = False,
+                      sharded_in: bool = False) -> torch.Tensor:
+        """This rank's stage-0 block of an operand, on the plan's device
+        in its dtype: the global tensor's block, or with ``sharded_in``
+        the block as given (checked against the local shape)."""
         struct = self._inv_in_struct if inverse else self._in_struct
         want = struct.local_shape if sharded_in else struct.shape
         if tuple(x.shape) != tuple(want):
@@ -282,7 +375,7 @@ class DistributedFFT:
         x = x.to(device=self.mesh.device, dtype=struct.dtype)
         if not sharded_in:
             x = local_block(x, struct.spec, self.mesh)
-        return self._fns[inverse](x)
+        return x
 
     def forward(self, x: torch.Tensor, *,
                 sharded_in: bool = False) -> torch.Tensor:

@@ -23,6 +23,11 @@ R2C transforms pad the frequency dim up to the LCM of the mesh-axis sizes
 that shard it downstream, so every stage keeps integral local shapes; the
 inverse pipeline trims the pad before the final irfft.  Unnormalized R2R
 inverses (``dct3``/``dst3``) are scaled by ``1/(2N)``.
+
+Split at its hops, a pipeline is a chain of **stage segments**
+(``build_segment``/``compile_segment``, boundary shapes from
+``segment_structs``): the unit of work of the plan-stream executor
+(``core/executor.py``).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch
 from . import transforms
 from .decomp import (Decomposition, StageLayout, _as_hop, axis_product,
                      local_shape)
+from .plan import GLOBAL_PLAN_CACHE, plan_key
 from .redistribute import (PackedBlock, free_chunk_dim,
                            largest_divisor_at_most, redistribute)
 
@@ -274,19 +280,24 @@ def _pack_fusion_site(spec: PipelineSpec, stage: StageLayout,
     """
     if spec.backend != "kernel" or next_hop is None:
         return None, None
-    dims = stage.fft_dims if not spec.inverse else stage.fft_dims[::-1]
-    if not dims:
+    lines = list(_stage_kinds(spec, stage))
+    if not lines:
         return None, None
-    d_last = dims[-1]
-    kind = spec.kinds[d_last]
-    if spec.inverse:
-        kind = INVERSE_KIND[kind]
+    d_last, kind = lines[-1]
     if kind not in C2C_FUSED_KINDS:
         return None, None
     mv = _as_hop(next_hop).moves[0]
     if mv.split_dim != d_last:
         return None, None
     return d_last, mv.mesh_axis
+
+
+def _stage_kinds(spec: PipelineSpec, stage: StageLayout):
+    """``(spatial dim, kind)`` of one stage's lines, in execution order."""
+    dims = stage.fft_dims if not spec.inverse else stage.fft_dims[::-1]
+    for d in dims:
+        kind = spec.kinds[d]
+        yield d, INVERSE_KIND[kind] if spec.inverse else kind
 
 
 def _stage_transform(spec: PipelineSpec, stage: StageLayout,
@@ -303,11 +314,7 @@ def _stage_transform(spec: PipelineSpec, stage: StageLayout,
         _pack_fusion_site(spec, stage, next_hop)
 
     def run(x: torch.Tensor):
-        dims = stage.fft_dims if not spec.inverse else stage.fft_dims[::-1]
-        for d in dims:
-            kind = spec.kinds[d]
-            if spec.inverse:
-                kind = INVERSE_KIND[kind]
+        for d, kind in _stage_kinds(spec, stage):
             if d == fuse_dim:
                 parts = axis_sizes[fuse_axis]
                 if parts > 1 and x.shape[d + off] % parts == 0:
@@ -402,22 +409,32 @@ def input_struct(mesh, spec: PipelineSpec,
                    spec.in_spec())
 
 
+def _stage_step(spec: PipelineSpec, stage: StageLayout, shape: list,
+                dtype: torch.dtype) -> torch.dtype:
+    """What one stage does to the global ``shape`` (updated in place) and
+    to ``dtype``, kind by kind: C2C and rfft lines give the complex dtype
+    of its precision, rfft pads its dim to ``eff_grid``, irfft trims it to
+    ``grid`` and gives the real dtype, and R2R lines keep what they get
+    (real stays real; complex is transformed plane by plane)."""
+    off = spec.spatial_offset
+    for d, kind in _stage_kinds(spec, stage):
+        if kind in transforms.C2C_KINDS or kind == "rfft":
+            dtype = transforms.complex_dtype(dtype)
+        elif kind == "irfft":
+            dtype = transforms.real_dtype(dtype)
+        if kind == "rfft":
+            shape[d + off] = spec.eff_grid[d]
+        elif kind == "irfft":
+            shape[d + off] = spec.grid[d]
+    return dtype
+
+
 def _output_dtype(spec: PipelineSpec, dtype: torch.dtype) -> torch.dtype:
-    """The dtype the stages turn ``dtype`` into, kind by kind in execution
-    order: C2C and rfft lines give the complex dtype of its precision,
-    irfft the real one, and R2R lines keep what they get (real stays real;
-    complex is transformed plane by plane)."""
+    """The dtype the stages turn ``dtype`` into (:func:`_stage_step`)."""
     stages, _ = spec.stage_order()
+    shape = [0] * (spec.spatial_offset + len(spec.grid))
     for stage in stages:
-        dims = stage.fft_dims if not spec.inverse else stage.fft_dims[::-1]
-        for d in dims:
-            kind = spec.kinds[d]
-            if spec.inverse:
-                kind = INVERSE_KIND[kind]
-            if kind in transforms.C2C_KINDS or kind == "rfft":
-                dtype = transforms.complex_dtype(dtype)
-            elif kind == "irfft":
-                dtype = transforms.real_dtype(dtype)
+        dtype = _stage_step(spec, stage, shape, dtype)
     return dtype
 
 
@@ -438,3 +455,139 @@ def stage_local_shapes(spec: PipelineSpec, mesh) -> Tuple[Tuple[int, ...], ...]:
     stages, _ = spec.stage_order()
     return tuple(local_shape(s, spec.eff_grid, mesh.axis_sizes)
                  for s in stages)
+
+
+# ---------------------------------------------------------------------------
+# Stage segments: the pipeline split at its redistribution hops.
+# ---------------------------------------------------------------------------
+#
+# Segment 0 applies the stage-0 local transform; segment j (1-based) applies
+# hop j-1 — at that hop's own chunk_schedule entry — with stage j's
+# transform run per chunk, exactly like the loop body of _local_pipeline.
+# The one intended difference is the kernel's pack epilogue: a stage's
+# epilogue packs for the *next* hop, which lives in the next segment, so
+# segments build every stage with next_hop=None and hand a plain tensor
+# across each boundary.  The packed and the plain store hold the same
+# values, so chained segments match the fused pipeline bit for bit.
+
+
+def n_segments(spec: PipelineSpec) -> int:
+    """Number of stage segments (== number of stages)."""
+    return len(spec.decomp.stages)
+
+
+def segment_in_spec(spec: PipelineSpec, index: int) -> tuple:
+    """Layout of segment ``index``'s input: stage ``index-1``'s (segment 0
+    takes the pipeline input layout).  ``segment_out_spec(j) ==
+    segment_in_spec(j+1)`` by construction."""
+    stages, _ = spec.stage_order()
+    return tuple(spec.batch_spec) + stages[max(index - 1, 0)].spec
+
+
+def segment_out_spec(spec: PipelineSpec, index: int) -> tuple:
+    """Layout of segment ``index``'s output (stage ``index``'s)."""
+    stages, _ = spec.stage_order()
+    return tuple(spec.batch_spec) + stages[index].spec
+
+
+def build_segment(mesh, spec: PipelineSpec, index: int) -> Callable:
+    """The per-rank callable of segment ``index``: takes this rank's block
+    in ``segment_in_spec`` and returns it in ``segment_out_spec``."""
+    stages, redists = spec.stage_order()
+    if not 0 <= index < len(stages):
+        raise ValueError(f"segment index {index} out of range for "
+                         f"{len(stages)} stages")
+    stage_fn = _stage_transform(spec, stages[index], next_hop=None,
+                                axis_sizes=mesh.axis_sizes)
+    if index == 0:
+        return stage_fn
+    off = spec.spatial_offset
+    hop = redists[index - 1]
+    avoid = tuple(d + off for d in stages[index].fft_dims)
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        return redistribute(x, hop, mesh=mesh,
+                            n_chunks=spec.chunk_schedule[index - 1],
+                            then=stage_fn, spatial_offset=off,
+                            avoid_dims=avoid, hop_index=index - 1)
+
+    return run
+
+
+def segment_structs(mesh, spec: PipelineSpec,
+                    batch_shape: Tuple[int, ...] = (),
+                    dtype=torch.complex64) -> List[TensorStruct]:
+    """Shape/dtype/layout at every segment boundary.
+
+    ``n_segments + 1`` entries: entry ``j`` is segment ``j``'s input and
+    entry ``j+1`` its output (entry 0 == ``input_struct``, the last entry
+    == ``output_struct``).  Derived from the spec — the R2C pad and the
+    irfft trim at the stage that runs them, each kind's dtype rule — and
+    never by running the pipeline: the kernel backend reads raw pointers.
+    """
+    first = input_struct(mesh, spec, batch_shape, dtype)
+    structs = [first]
+    shape, dt = list(first.shape), first.dtype
+    stages, _ = spec.stage_order()
+    for j, stage in enumerate(stages):
+        dt = _stage_step(spec, stage, shape, dt)
+        structs.append(_struct(mesh, tuple(shape), dt,
+                               segment_out_spec(spec, j)))
+    return structs
+
+
+def _donating(fn: Callable) -> Callable:
+    """``fn`` that gives up its input once it has run: the input is
+    emptied in place (``set_()``), so its memory returns to the allocator
+    as soon as nothing else holds it.  On CUDA the input is first recorded
+    on the current stream, so the allocator reuses the memory only after
+    the work queued there has read it."""
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        out = fn(x)
+        release(x)
+        return out
+
+    return run
+
+
+def release(x: torch.Tensor) -> None:
+    """Empty ``x`` in place (see :func:`_donating`).  ``set_()``, not a
+    storage ``resize_(0)``: a tensor whose storage was resized away keeps
+    its sizes, and reading it later crashes the process instead of
+    raising."""
+    if x.is_cuda and x.numel():
+        x.record_stream(torch.cuda.current_stream(x.device))
+    x.set_()
+
+
+def compile_segment(mesh, spec: PipelineSpec, index: int,
+                    batch_shape: Tuple[int, ...] = (),
+                    dtype=torch.complex64, *,
+                    donate: bool = False) -> Callable:
+    """Build one stage segment's callable, cached in the LRU plan cache.
+
+    ``dtype`` is the **plan input** dtype (the boundary dtypes follow from
+    it).  ``donate=True`` builds a variant that gives up its input after
+    the call (:func:`release`): the executor builds interior segments
+    donating, so an entry holds at most two boundary buffers, and segment
+    0 donating only when the caller donated the operand.  The key carries
+    ``("segment", index)``, so segments never collide with the fused
+    pipeline's entries.
+    """
+    key = plan_key(kind=spec.kinds, grid=spec.grid,
+                   dtype=str(dtype).removeprefix("torch."),
+                   decomp=(spec.decomp.name,) + tuple(spec.decomp.mesh_axes)
+                   + (spec.decomp.dim_groups,),
+                   mesh_shape=mesh.shape, mesh_axes=mesh.axis_names,
+                   backend=spec.backend, n_chunks=spec.chunk_schedule,
+                   inverse=spec.inverse,
+                   # The callable closes over this mesh's process groups.
+                   extra=(tuple(batch_shape), mesh, bool(donate),
+                          "segment", int(index)))
+
+    def builder() -> Callable:
+        fn = build_segment(mesh, spec, index)
+        return _donating(fn) if donate else fn
+
+    return GLOBAL_PLAN_CACHE.get_or_create(key, builder).executable

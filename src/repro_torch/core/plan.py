@@ -210,7 +210,8 @@ class TunedPlan:
 def tuning_key(*, grid: Sequence[int], mesh_shape: Sequence[int],
                mesh_axes: Sequence[str], kinds: Sequence[str], dtype: str,
                inverse: bool, batch_shape: Sequence[int] = (),
-               platform: str = "", op: str = "fft") -> str:
+               platform: str = "", op: str = "fft",
+               backends: Sequence[str] = ()) -> str:
     """Stable string key for one tuning problem (usable as a JSON key).
 
     The same format as the JAX package's, so a key names one problem in
@@ -218,6 +219,10 @@ def tuning_key(*, grid: Sequence[int], mesh_shape: Sequence[int],
     ``platform`` the device's name (the card's, or ``"cpu"``), and ``op``
     the measured operation — the default ``"fft"`` is omitted, the
     PoissonSolver's joint ``"fwd+scale+inv"`` gets its own key space.
+    ``backends`` names a search restricted to those local backends (a
+    ``be=`` part, the port's own): its winner lives under a key of its
+    own and never answers an unrestricted lookup.  Empty (the default,
+    omitted from the key) means the search covered every backend.
     """
     parts = [
         "grid=" + ",".join(map(str, grid)),
@@ -231,12 +236,15 @@ def tuning_key(*, grid: Sequence[int], mesh_shape: Sequence[int],
     ]
     if op != "fft":
         parts.append("op=" + op)
+    if backends:
+        parts.append("be=" + ",".join(backends))
     return ";".join(parts)
 
 
 def parse_tuning_key(key: str) -> Optional[Dict[str, Any]]:
     """Invert :func:`tuning_key`; ``None`` for a key this version cannot
-    read (unknown format, missing parts) rather than raising."""
+    read (unknown format, missing parts) rather than raising.  A
+    restricted key's dict also has ``"backends"``."""
     fields: Dict[str, str] = {}
     for part in key.split(";"):
         name, sep, val = part.partition("=")
@@ -251,7 +259,7 @@ def parse_tuning_key(key: str) -> Optional[Dict[str, Any]]:
         return tuple(raw.split(",")) if raw else ()
 
     try:
-        return {
+        prob = {
             "grid": ints(fields["grid"]),
             "mesh_shape": ints(fields["mesh"]),
             "mesh_axes": strs(fields["axes"]),
@@ -264,6 +272,9 @@ def parse_tuning_key(key: str) -> Optional[Dict[str, Any]]:
         }
     except (KeyError, ValueError):
         return None
+    if "be" in fields:
+        prob["backends"] = strs(fields["be"])
+    return prob
 
 
 def default_tuning_path() -> str:

@@ -30,8 +30,10 @@ calibration and prunes with the model defaults.
 **Ranks agree.**  Every rank runs its own copy of this code, so every
 decision that could differ between ranks is made once: rank 0's cache hit
 and rank 0's profile are broadcast (``broadcast_object_list``), measured
-times are the ``MAX`` over the world group after a barrier, and only rank
-0 writes the wisdom file — the others reload it after a barrier.  Ranks
+times are the ``MAX`` over the mesh's ranks after a barrier, and only rank
+0 writes the wisdom file — the others reload it after a barrier.  (Rank 0
+is the mesh's first rank: a degraded mesh may span a subset of the world,
+and its collectives run on its own process group.)  Ranks
 that disagreed would issue different collectives and hang.
 """
 from __future__ import annotations
@@ -55,7 +57,7 @@ from .pipeline import (PipelineSpec, TensorStruct, build_pipeline,
                        chunk_sites, effective_grid, input_struct,
                        make_spec)
 from .plan import (TunedPlan, TuningCache, global_tuning_cache,
-                   tuning_key)
+                   parse_tuning_key, tuning_key)
 from .scheduler import choose_chunk_schedule
 from .transforms import LOCAL_BACKENDS
 
@@ -101,21 +103,23 @@ def _multi_rank(mesh: Optional[Mesh]) -> bool:
 
 
 def _is_rank0(mesh: Optional[Mesh]) -> bool:
-    return not _multi_rank(mesh) or dist.get_rank() == 0
+    """Whether this rank decides for the mesh (its first rank)."""
+    return not _multi_rank(mesh) or dist.get_rank() == mesh.root
 
 
 def _from_rank0(obj: Any, mesh: Optional[Mesh]) -> Any:
-    """Rank 0's ``obj`` on every rank (identity on one rank)."""
+    """The mesh's first rank's ``obj`` on every rank of the mesh (identity
+    on one rank)."""
     if not _multi_rank(mesh):
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0)
+    dist.broadcast_object_list(box, src=mesh.root, group=mesh.group)
     return box[0]
 
 
 def _barrier(mesh: Optional[Mesh]) -> None:
     if _multi_rank(mesh):
-        dist.barrier()
+        dist.barrier(group=mesh.group)
 
 
 # ---------------------------------------------------------------------------
@@ -465,7 +469,7 @@ def measure_candidate(cand: Candidate, grid: Tuple[int, ...], mesh: Mesh,
 
     On CUDA each call is timed with CUDA events.  On a multi-rank mesh the
     ranks barrier after the warm-up, time, and take the ``MAX`` over the
-    world group, so every rank ranks candidates on the same numbers.
+    mesh's ranks, so every rank ranks candidates on the same numbers.
     ``objective="fwd+scale+inv"`` times the paired round trip.
     """
     call = _objective_fn(cand, grid, mesh, kinds, dtype, inverse=inverse,
@@ -477,7 +481,7 @@ def measure_candidate(cand: Candidate, grid: Tuple[int, ...], mesh: Mesh,
     if _multi_rank(mesh):
         on = device if dist.get_backend() == "nccl" else torch.device("cpu")
         box = torch.tensor([t], dtype=torch.float64, device=on)
-        dist.all_reduce(box, op=dist.ReduceOp.MAX)
+        dist.all_reduce(box, op=dist.ReduceOp.MAX, group=mesh.group)
         t = float(box.item())
     return t
 
@@ -502,12 +506,13 @@ def resolve_tuned_plan(grid: Sequence[int], mesh: Mesh, *,
                        batch_shape: Sequence[int] = (), mode: str = "off",
                        cache: Optional[TuningCache] = None,
                        default: Optional[Candidate] = None,
-                       objective: str = "forward") -> TunedPlan:
+                       objective: str = "forward",
+                       backends: Sequence[str] = BACKENDS) -> TunedPlan:
     """One :class:`TunedPlan` per tuning policy — the plan API's entry.
 
     ``mode="off"`` wraps the caller's explicit ``default`` candidate in a
     ``source="default"`` plan (no search, no disk); ``"heuristic"`` and
-    ``"auto"`` delegate to :func:`tune`.
+    ``"auto"`` delegate to :func:`tune` (over ``backends``).
     """
     if mode == "off":
         if default is None:
@@ -521,7 +526,15 @@ def resolve_tuned_plan(grid: Sequence[int], mesh: Mesh, *,
                          chunk_schedule=default.chunk_schedule)
     return tune(grid, mesh, kinds=kinds, dtype=dtype, inverse=inverse,
                 batch_shape=batch_shape, mode=mode, cache=cache,
-                objective=objective)
+                objective=objective, backends=backends)
+
+
+def backend_restriction(backends: Sequence[str]) -> Tuple[str, ...]:
+    """The tuning key's name for a search over ``backends``: ``()`` when
+    they cover every local backend, else the covered ones in
+    ``BACKENDS`` order."""
+    chosen = tuple(b for b in BACKENDS if b in backends)
+    return () if len(chosen) == len(BACKENDS) else chosen
 
 
 def tune(grid: Sequence[int], mesh: Mesh, *,
@@ -539,9 +552,10 @@ def tune(grid: Sequence[int], mesh: Mesh, *,
 
     ``dtype`` is the plan's forward input dtype.  ``objective=
     "fwd+scale+inv"`` measures the paired round trip under its own wisdom
-    key.  Only searches over the unrestricted space (all ``backends``, no
-    ``max_chunks``) are persisted, so a restricted winner never shadows
-    the plan an unrestricted caller would get.
+    key.  A search over some of the ``backends`` reads and writes a key of
+    its own (``tuning_key``'s ``be=`` part), so a restricted winner never
+    shadows the plan an unrestricted caller would get; a search capped by
+    ``max_chunks`` is not persisted.
     """
     grid = tuple(grid)
     batch_shape = tuple(batch_shape)
@@ -551,14 +565,14 @@ def tune(grid: Sequence[int], mesh: Mesh, *,
     if objective not in OBJECTIVES:
         raise ValueError(f"tune objective must be one of {OBJECTIVES}, "
                          f"got {objective!r}")
-    unrestricted = set(BACKENDS).issubset(set(backends)) and max_chunks is None
     platform = platform_name(mesh.device)
 
     key = tuning_key(grid=grid, mesh_shape=mesh.shape,
                      mesh_axes=mesh.axis_names, kinds=kinds,
                      dtype=_dtype_name(dtype), inverse=inverse,
                      batch_shape=batch_shape, platform=platform,
-                     op="fft" if objective == "forward" else objective)
+                     op="fft" if objective == "forward" else objective,
+                     backends=backend_restriction(backends))
     if mode == "auto":
         if cache is None:
             cache = global_tuning_cache()
@@ -621,7 +635,7 @@ def tune(grid: Sequence[int], mesh: Mesh, *,
                      dim_groups=best_cand.dim_groups,
                      chunk_schedule=best_cand.chunk_schedule,
                      objective=objective)
-    if unrestricted:
+    if max_chunks is None:
         # Rank 0 writes the file; the others read it after the barrier.
         if _is_rank0(mesh):
             cache.put(key, plan)
@@ -632,3 +646,47 @@ def tune(grid: Sequence[int], mesh: Mesh, *,
             else:
                 cache.put(key, plan, save=False)
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Warm start (the serving layer)
+# ---------------------------------------------------------------------------
+
+def warm_candidates(cache: TuningCache, mesh: Mesh, *,
+                    platform: Optional[str] = None,
+                    ops: Sequence[str] = ("fft",),
+                    backends: Sequence[str] = BACKENDS
+                    ) -> List[Dict[str, object]]:
+    """Persisted tuning decisions this process could serve warm.
+
+    Enumerates the wisdom file's keys (``TuningCache.items`` +
+    ``parse_tuning_key``) and keeps those matching this ``platform``
+    (default: the mesh device's, ``perfmodel.platform_name``) and ``mesh``
+    geometry (shape *and* axis names — a plan tuned on a (2, 4) mesh is not
+    the plan for a (4, 2) one) whose measured ``op`` is in ``ops`` and
+    whose search covered the same ``backends`` (``tune``'s key).  Each
+    returned dict is the parsed problem plus its ``"tuned"``
+    :class:`TunedPlan` and its ``"key"``: everything ``plan_fft`` needs to
+    rebuild the winning plan without a measurement.  Unreadable keys
+    (other schema versions) are skipped: warm start must never be blocked
+    by foreign wisdom.
+    """
+    platform = platform if platform is not None \
+        else platform_name(mesh.device)
+    restriction = backend_restriction(backends)
+    out: List[Dict[str, object]] = []
+    for key, tuned in cache.items():
+        prob = parse_tuning_key(key)
+        if prob is None or prob["platform"] != platform:
+            continue
+        if prob["mesh_shape"] != tuple(mesh.shape) \
+                or prob["mesh_axes"] != tuple(mesh.axis_names):
+            continue
+        if prob["op"] not in ops or prob["inverse"]:
+            continue
+        if prob.get("backends", ()) != restriction:
+            continue
+        prob["tuned"] = tuned
+        prob["key"] = key
+        out.append(prob)
+    return out

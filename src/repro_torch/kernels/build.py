@@ -44,6 +44,10 @@ class BuiltLibrary:
 
 _LOADED: Dict[str, BuiltLibrary] = {}
 _LOCK = threading.Lock()
+#: What this process did: ``nvcc`` runs, and libraries loaded (built here or
+#: read from an earlier build on disk).  A warmed service's first drain
+#: adds to neither.
+counts = {"builds": 0, "loads": 0}
 
 
 def csrc_dir() -> Path:
@@ -120,6 +124,8 @@ def build(name: str = SOURCE, *,
                 raise RuntimeError(f"nvcc failed to build {name}.cu "
                                    f"(exit {res.returncode}):\n{log}")
             os.replace(tmp, target)
+            counts["builds"] += 1
+        counts["loads"] += 1
         built = BuiltLibrary(name=name, path=target,
                              lib=ctypes.CDLL(str(target)), seconds=seconds,
                              log=log)

@@ -54,7 +54,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -262,11 +262,15 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
     c64 = x.dtype == torch.complex64
     twp = tw.data_ptr() if tw is not None else None
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        current = torch.cuda.current_stream(x.device)
+        stream = current.cuda_stream
         if path == "radix":
             tile = radix.radix_tile(n, x.element_size(), tw is not None,
                                     strided)
             consts = _radix_constants(n, inverse, x.dtype, x.device)
+            # The cached constants outlive this call: the allocator must
+            # not reuse them (after an eviction) while this stream reads.
+            consts.record_stream(current)
             outer, inner = (x.shape[0], x.shape[2]) if strided \
                 else (x.shape[0], 1)
             fn = lib.repro_fft_radix_c64 if c64 else lib.repro_fft_radix_c128
@@ -279,6 +283,8 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
             n1, n2 = factorize(n)
             cfg = launch_config(n, x.element_size(), tw is not None)
             w1, w2, t = _device_constants(n1, n2, inverse, x.dtype, x.device)
+            for c in (w1, w2, t):
+                c.record_stream(current)
             fn = (lib.repro_fft_fourstep_c64 if c64
                   else lib.repro_fft_fourstep_c128)
             err = fn(x.data_ptr(), buf.data_ptr(), w1.data_ptr(),
@@ -290,12 +296,14 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
         raise RuntimeError(f"fft_fourstep ({path} path) launch failed for "
                            f"shape {tuple(x.shape)}, {x.dtype}: CUDA error "
                            f"{err} ({msg})")
-    fft_fourstep.launches += 1
     variant = ("pack" if pack_parts is not None
                else "twiddle" if tw is not None else "fourstep")
-    fft_fourstep.variant_launches[variant] += 1
-    fft_fourstep.path_launches[path] += 1
-    fft_fourstep.layout_launches["strided" if strided else "lines"] += 1
+    # The executor's pool mode launches from several threads.
+    with _COUNT_LOCK:
+        fft_fourstep.launches += 1
+        fft_fourstep.variant_launches[variant] += 1
+        fft_fourstep.path_launches[path] += 1
+        fft_fourstep.layout_launches["strided" if strided else "lines"] += 1
     return out
 
 
@@ -394,15 +402,28 @@ def fft_fourstep_strided(x: torch.Tensor, *, inverse: bool = False,
                      f"(its plain version), not {x.device}")
 
 
+_COUNT_LOCK = threading.Lock()
 fft_fourstep.launches = 0
 fft_fourstep.variant_launches = {"fourstep": 0, "pack": 0, "twiddle": 0}
 fft_fourstep.path_launches = {"radix": 0, "dense": 0}
 fft_fourstep.layout_launches = {"lines": 0, "strided": 0}
 
 
+def launch_counts() -> Dict[str, int]:
+    """One consistent snapshot of the launch counters, flat: ``launches``
+    and one entry per variant, path and layout."""
+    with _COUNT_LOCK:
+        return {"launches": fft_fourstep.launches,
+                **fft_fourstep.variant_launches,
+                **fft_fourstep.path_launches,
+                **fft_fourstep.layout_launches}
+
+
 def reset_launch_counts() -> None:
-    fft_fourstep.launches = 0
-    for counts in (fft_fourstep.variant_launches, fft_fourstep.path_launches,
-                   fft_fourstep.layout_launches):
-        for k in counts:
-            counts[k] = 0
+    with _COUNT_LOCK:
+        fft_fourstep.launches = 0
+        for counts in (fft_fourstep.variant_launches,
+                       fft_fourstep.path_launches,
+                       fft_fourstep.layout_launches):
+            for k in counts:
+                counts[k] = 0

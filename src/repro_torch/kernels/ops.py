@@ -28,6 +28,7 @@ next hop's send buffer (``core/redistribute.py``), with no copy.
 from __future__ import annotations
 
 import math
+import threading
 from typing import List, Optional, Tuple
 
 import torch
@@ -37,8 +38,10 @@ from . import radix
 from .fft_matmul import fft_fourstep, fft_fourstep_strided, strided_supported
 
 #: Line copies ``_apply`` made because the kernel could not read the axis
-#: where it lies (see the module docstring).
+#: where it lies (see the module docstring).  Updated under a lock: the
+#: executor's pool mode transforms from several threads.
 copies = {"lines": 0}
+_COPIES_LOCK = threading.Lock()
 
 
 def dense_layout(x: torch.Tensor, axis: int
@@ -101,7 +104,8 @@ def _apply(x: torch.Tensor, axis: int, *, inverse: bool,
         return out.reshape(xp.shape).permute(inv)
     xm = xc.movedim(axis, -1)
     if not xm.is_contiguous():
-        copies["lines"] += 1
+        with _COPIES_LOCK:
+            copies["lines"] += 1
     flat = xm.reshape(-1, n).contiguous()
     out = fft_fourstep(flat, inverse=inverse, twiddle=tw,
                        pack_parts=pack_parts)

@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU: the CUDA four-step kernel against its
-plain version, the kernel-backend plan on the card (bulk and chunked), and
-the CUDA-event timer the tuner and calibration use.  They skip where
-CUDA is absent.  This file imports no JAX, so on a GPU machine without
+plain version, the kernel-backend plan on the card (bulk and chunked), the
+CUDA-event timer the tuner and calibration use, and on 4 cards over NCCL
+the plans, the plan-stream executor's mixed queue and the service losing
+one card.  They skip where CUDA is absent.  This file imports no JAX, so on a GPU machine without
 JAX it runs with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -258,3 +259,68 @@ def test_chunked_and_tuned_plans_on_four_cards(cuda, tmp_path):
                       "tuned": recs[0]["tuned"],
                       "net_alpha_s": recs[0]["profile"]["net_alpha_s"],
                       "net_bw": recs[0]["profile"]["net_bw"]}))
+
+
+@pytest.mark.cuda
+def test_executor_mixed_queue_on_four_cards(cuda, tmp_path):
+    """On a 2x2 mesh of cards over NCCL: the mixed queue (two batched 2-D
+    entries, a chunked 256^3 kernel forward and its inverse) gives outputs
+    bitwise equal to the solo runs in the async, pool and timed modes,
+    with no hang (the dispatch order is the same on every rank), and
+    donation empties only the donated operand.  Prints the interleaved
+    time against the solo sum per rank."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    out_dir = run_ranks("executor_body", 4, tmp_path, None, (256, 256, 256),
+                        (16, 512, 512), (2, 2), 10, backend="nccl")
+    recs = []
+    for rank in range(4):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    for rec in recs:
+        for mode in ("async", "pool", "timed"):
+            assert rec[mode] == [True] * 4, (mode, rec[mode])
+        assert rec["donation"] == {"donated_emptied": True,
+                                   "neighbours_intact": True,
+                                   "outputs_bitwise": True}
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "solo_sum_ms": [sum(r["solo_ms"]) for r in recs],
+                      "solo_ms": [r["solo_ms"] for r in recs],
+                      "interleaved_async_ms": [r["interleaved_async_ms"]
+                                               for r in recs],
+                      "interleaved_pool_ms": [r["interleaved_pool_ms"]
+                                              for r in recs]}))
+
+
+@pytest.mark.cuda
+def test_service_loses_one_of_four_cards(cuda, tmp_path):
+    """``serve_fft`` on 4 cards over NCCL loses one mid-stream: every
+    result within 1e-4 of ``torch.fft.fftn``, the recovered service equal
+    to a fresh service on the survivors-only (2, 1) mesh bitwise, hit rate
+    >= 0.8, a warmed first drain that builds nothing; the ranks left
+    outside the degraded mesh refuse work."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    kwargs = dict(requests=24, round_size=8, lose=1, seed=0, check=True,
+                  primary=(256, 256), secondary=(256, 512),
+                  odd=((250, 250), (240, 256), (256, 250)),
+                  bucket_edges=(128, 256, 512), max_batch=4, verbose=False)
+    out_dir = run_ranks("serve_body", 4, tmp_path, kwargs, backend="nccl")
+    recs = []
+    for rank in range(4):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    for rec in recs[:2]:
+        drv = rec["driver"]
+        assert drv["fresh_mesh_bitwise_ok"] and drv["max_rel_err"] < 1e-4
+        assert drv["degraded_mesh"] == [2, 1]
+        assert rec["plan_cache"]["hit_rate"] >= 0.8
+        assert drv["first_drain"] == {"plan_builds": 0, "kernel_loads": 0}
+    assert [r["lose_check"]["lost"] for r in recs] == [False, False, True,
+                                                       True]
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "latency_ms": {k: recs[0]["latency"][k] * 1e3
+                                     for k in ("p50_s", "p99_s")},
+                      "rps": recs[0]["driver"]["rps"],
+                      "degraded_rps": recs[0]["degraded_throughput_rps"],
+                      "families": recs[0]["driver"]["families"]}))

@@ -209,11 +209,25 @@ def test_auto_tunes_persists_and_reuses(wisdom, monkeypatch):
 
 
 def test_restricted_tune_is_not_persisted():
+    """A restricted winner is never stored as the unrestricted problem's:
+    a ``max_chunks`` cap stores nothing, a backend restriction stores
+    under its own ``be=`` key, which an unrestricted lookup never reads."""
     mesh = make_mesh((1, 1), NAMES, device="cpu")
+    kw = dict(grid=(8, 8), mesh_shape=(1, 1), mesh_axes=NAMES,
+              kinds=("fft", "fft"), dtype="complex64", inverse=False,
+              platform="cpu")
     cache = tplan.TuningCache()
+    tt.tune((8, 8), mesh, mode="auto", cache=cache, machine=tpm.CPU_CORE,
+            max_chunks=1, repeats=1)
+    assert len(cache) == 0
     got = tt.tune((8, 8), mesh, mode="auto", cache=cache,
                   machine=tpm.CPU_CORE, backends=("cufft",), repeats=1)
-    assert got.backend == "cufft" and len(cache) == 0
+    assert got.backend == "cufft"
+    assert cache.get(tplan.tuning_key(**kw)) is None
+    assert [k for k, _ in cache.items()] == [
+        tplan.tuning_key(**kw, backends=("cufft",))]
+    assert tplan.parse_tuning_key(tplan.tuning_key(
+        **kw, backends=("cufft",)))["backends"] == ("cufft",)
 
 
 def test_tuning_cache_merges_and_keeps_machine_section(tmp_path):

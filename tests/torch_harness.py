@@ -425,3 +425,147 @@ def nccl_body(rank: int, out_dir: str, x_path: str, grid, cache_path: str,
         np.save(os.path.join(out_dir, "fwd_tuned.npy"), y.cpu().numpy())
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
+
+
+def _entry_operand(plan, seed: int, inverse: bool = False) -> torch.Tensor:
+    """A seeded global operand of a plan's forward (or inverse) input."""
+    struct = plan.inv_in_struct if inverse else plan.in_struct
+    if struct.dtype.is_complex:
+        return torch.from_numpy(cplx(struct.shape, seed))
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.standard_normal(struct.shape).astype(
+        np.float32 if struct.dtype == torch.float32 else np.float64))
+
+
+def segments_body(rank: int, out_dir: str, cases) -> None:
+    """For each (name, plan_fft kwargs) case on a 2x2 mesh: the fused
+    forward and inverse and the chained segments of each direction (with
+    and without donating interior buffers); every rank records whether its
+    blocks are bitwise equal, rank 0 saves the gathered fused results."""
+    import warnings
+    from repro_torch.compat import gather
+    from repro_torch.core.api import plan_fft
+    mesh = _cpu_mesh((2, 2))
+    record = {}
+    warnings.simplefilter("ignore", RuntimeWarning)  # inverse-slab bulk
+    for i, (name, kw) in enumerate(cases):
+        kw = dict(kw)
+        grid = kw.pop("grid")
+        plan = plan_fft(mesh, grid, **kw)
+        x = _entry_operand(plan, 300 + i)
+        y = plan.forward(x)
+        z = plan.inverse(y, sharded_in=True)
+        ok = {}
+        for donate in (False, True):
+            for inverse, fused, src in ((False, y, x), (True, z, y)):
+                v = (plan.prepare_input(src, inverse=inverse) if not inverse
+                     else src.clone())
+                for seg in plan.segments(inverse=inverse,
+                                         donate_intermediates=donate):
+                    v = seg(v)
+                key = f"{'inv' if inverse else 'fwd'}_donate{int(donate)}"
+                ok[key] = bool(torch.equal(v, fused))
+        record[name] = {"bitwise": ok, "local_out": list(y.shape),
+                        "n_segments": len(plan.segments())}
+        fwd = gather(y, plan.out_struct.spec, mesh)
+        inv = gather(z, plan.inv_out_struct.spec, mesh)
+        if rank == 0:
+            np.save(os.path.join(out_dir, f"x_{name}.npy"), x.numpy())
+            np.save(os.path.join(out_dir, f"fwd_{name}.npy"), fwd.numpy())
+            np.save(os.path.join(out_dir, f"inv_{name}.npy"), inv.numpy())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def executor_body(rank: int, out_dir: str, device=None, grid3=(8, 8, 16),
+                  batch2=(4, 8, 8), n_chunks=(4, 2), repeats: int = 0
+                  ) -> None:
+    """On a 2x2 mesh: a mixed queue (two batched 2-D entries, a chunked
+    3-D forward on the kernel backend and its inverse) run solo and through
+    the executor in every dispatch mode; then donation across three
+    entries of one plan.  Every rank records whether its blocks are
+    bitwise equal to the solo runs, and with ``repeats`` the best-of ms of
+    the solo sum and of the interleaved queue.  ``device=None`` runs on
+    the ranks' cards (NCCL), ``"cpu"`` over gloo."""
+    import torch.distributed as dist
+    from repro_torch.compat import gather, make_mesh
+    from repro_torch.core.api import plan_fft
+    from repro_torch.core.executor import PlanStreamExecutor, execute_many
+    from repro_torch.core.perfmodel import _time_best
+    from repro_torch.distributed.fault import StepWatchdog
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    dev = mesh.device
+    p2d = plan_fft(mesh, batch2[1:], batch_shape=batch2[:1])
+    p3d = plan_fft(mesh, grid3, n_chunks=n_chunks, backend="kernel")
+    xa = torch.from_numpy(cplx(batch2, 21)).to(dev)
+    xb = torch.from_numpy(cplx(batch2, 22)).to(dev)
+    y3 = torch.from_numpy(cplx(grid3, 23)).to(dev)
+    yk = gather(p3d.forward(y3), p3d.out_struct.spec, mesh)
+    entries = [(p2d, xa), (p2d, xb), (p3d, y3), (p3d, yk, {"inverse": True})]
+    solo_calls = [lambda: p2d.forward(xa), lambda: p2d.forward(xb),
+                  lambda: p3d.forward(y3), lambda: p3d.inverse(yk)]
+    solo = [call() for call in solo_calls]
+    record = {}
+    for mode, kw in (("async", {}), ("pool", {}),
+                     ("timed", {"watchdog": StepWatchdog()})):
+        outs = execute_many(entries, mode=mode, **kw)
+        record[mode] = [bool(torch.equal(g, w)) for g, w in zip(outs, solo)]
+    if repeats:
+        def barrier():
+            dist.barrier()
+
+        record["solo_ms"] = [1e3 * _time_best(call, repeats, dev,
+                                              before=barrier)
+                             for call in solo_calls]
+        for mode in ("async", "pool"):
+            record[f"interleaved_{mode}_ms"] = 1e3 * _time_best(
+                lambda m=mode: execute_many(entries, mode=m), repeats, dev,
+                before=barrier)
+    p = plan_fft(mesh, grid3)
+    xs = [p.prepare_input(torch.from_numpy(cplx(grid3, 30 + i)).to(dev))
+          .contiguous() for i in range(3)]
+    solo = [p.forward(x, sharded_in=True) for x in xs]
+    snap = [x.clone() for x in xs]
+    ex = PlanStreamExecutor()
+    ex.submit(p, xs[0], sharded_in=True)
+    ex.submit(p, xs[1], sharded_in=True, donate=True)
+    ex.submit(p, xs[2], sharded_in=True)
+    outs = ex.run()
+    record["donation"] = {
+        "donated_emptied": xs[1].numel() == 0
+        and xs[1].untyped_storage().size() == 0,
+        "neighbours_intact": bool(torch.equal(xs[0], snap[0])
+                                  and torch.equal(xs[2], snap[2])),
+        "outputs_bitwise": all(bool(torch.equal(g, w))
+                               for g, w in zip(outs, solo))}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def serve_body(rank: int, out_dir: str, kwargs: dict) -> None:
+    """``serve_fft(**kwargs)`` on this rank (its metrics JSON saved), then
+    a service on a fresh 2x2 mesh that loses one rank: whether the lost
+    rank's ``submit`` and ``drain`` raise."""
+    from repro_torch.compat import make_mesh
+    from repro_torch.launch.serve_fft import serve_fft
+    from repro_torch.serving import FFTService
+    snap = serve_fft(**kwargs)
+    mesh = make_mesh((2, 2), ("data", "model"), device=kwargs.get("device"))
+    svc = FFTService(mesh, bucket_edges=(8, 16))
+    svc.submit(torch.from_numpy(cplx((8, 8), 40)).to(mesh.device))
+    shape = svc.lose_devices(1)
+    raised = {}
+    if svc.lost:
+        for name, call in (("submit",
+                            lambda: svc.submit(torch.zeros(8, 8))),
+                           ("drain", svc.drain)):
+            try:
+                call()
+                raised[name] = False
+            except RuntimeError:
+                raised[name] = True
+    done = {} if svc.lost else svc.drain()
+    snap["lose_check"] = {"lost": svc.lost, "raised": raised,
+                          "shape": list(shape), "completed": len(done)}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(snap, f)
