@@ -69,7 +69,16 @@ its result line):
     the overlap beside ``report()["predicted"]``, the timed run's
     per-segment ms, the peak memory beside two boundary buffers per
     entry, and a donated operand read back as emptied;
-13. ``[serve]``: ``launch/serve_fft.py`` on the card (grids (1024, 1024)
+13. ``[analysis]``: the ``[executor]`` queue under the static verifier and
+    the sanitizer (``repro_torch.analysis``): every mode with
+    ``verify="strict", sanitize=True`` gives no verify error and 0 SAN001,
+    outputs bitwise equal to solo and the same 12 launches; pool mode
+    without turns is flagged SCHED001 and refused with no launch; a
+    donated operand is emptied as the donation table says;
+    ``plan.verify()`` is clean on the 512^3 plan; the host ms of
+    ``verify_schedule()``, of the check inside ``run()``, of
+    ``sanitize_json()`` and of a verified enqueue beside the plain one;
+14. ``[serve]``: ``launch/serve_fft.py`` on the card (grids (1024, 1024)
     and (1024, 2048), odd grids that pad into the first, 48 requests in
     rounds of 16, the tuner pinned to the kernel, a wisdom file in a
     temporary directory): every result within 1e-4 of ``torch.fft.fftn``,
@@ -77,11 +86,13 @@ its result line):
     kernel, and the traffic drains' launches exactly 2 per routed batch
     (one on lines, one strided, all radix, no line copy); three such
     service lifetimes, each with its p50/p99 latency and requests per
-    second, the metrics JSON in ``chiprun_out/serve_fft_metrics_<w>.json``;
-14. a ``kernels`` JSON line (one entry per kernel variant, with the path
-    it ran and, for B1 and B4, the launches on the segments, executor and
-    serve paths; the serve counts are the first lifetime's traffic
-    drains), then the result line.
+    second, and a fourth with ``verify="strict"`` whose
+    ``verify_warnings`` stay empty; the metrics JSON in
+    ``chiprun_out/serve_fft_metrics_<w>.json``;
+15. a ``kernels`` JSON line (one entry per kernel variant, with the path
+    it ran and, for B1 and B4, the launches on the segments, executor,
+    analysis and serve paths; the serve counts are the first lifetime's
+    traffic drains), then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -91,6 +102,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -198,11 +210,11 @@ def ptxas_report(log: str) -> list:
     return entries
 
 
-def phase_build() -> dict:
+def phase_build(timer=time.perf_counter) -> dict:
     from repro_torch.kernels import build
-    t0 = time.perf_counter()
+    t0 = timer()
     lib = build.build()
-    seconds = time.perf_counter() - t0
+    seconds = timer() - t0
     print(f"[build] {lib.name}.cu built and loaded in {seconds:.2f} s "
           f"(nvcc {lib.seconds:.2f} s)")
     report = ptxas_report(lib.log)
@@ -853,7 +865,7 @@ def phase_chunked(device, grid=GRID, iters: int = 5) -> dict:
     return out
 
 
-def phase_calibrate(device, cache) -> dict:
+def phase_calibrate(device, cache, timer=time.perf_counter) -> dict:
     """``perfmodel.calibrate`` on the card; the profile is stored in the
     wisdom ``cache`` the tune phase uses."""
     from repro_torch import make_mesh
@@ -863,9 +875,9 @@ def phase_calibrate(device, cache) -> dict:
     mesh = make_mesh((1, 1), ("data", "model"),
                      device=None if device.type == "cuda" else device)
     reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = timer()
     prof = calibrate(mesh)
-    seconds = time.perf_counter() - t0
+    seconds = timer() - t0
     launches = fft_fourstep.launches
     check(prof.calibrated and not prof.net_calibrated,
           f"calibration flags: calibrated={prof.calibrated}, "
@@ -1014,7 +1026,7 @@ def reset_counts() -> None:
     ops.copies["lines"] = 0
 
 
-def profile_run(fn, device) -> dict:
+def profile_run(fn, device, timer=time.perf_counter) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the card's kernel time
     against the window (its busy share), kernels launched, and the
     ``cudaMalloc`` calls the caching allocator made."""
@@ -1023,10 +1035,10 @@ def profile_run(fn, device) -> dict:
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0 = timer()
         fn()
         torch.cuda.synchronize(device)
-        window = time.perf_counter() - t0
+        window = timer() - t0
     avgs = prof.key_averages()
 
     def device_us(a):
@@ -1092,20 +1104,15 @@ def phase_segments(device, grid=GRID, iters: int = 5) -> dict:
     return out
 
 
-def phase_executor(device, grid=GRID, batch2=(16, 1024, 1024),
-                   iters: int = 5) -> dict:
-    """``[executor]``: a mixed queue — three batched 2-D entries, one 3-D
-    forward and the inverse of that forward, all on ``backend="kernel"`` —
-    through the plan-stream executor in every dispatch mode, bitwise
-    against the solo runs; solo sum, interleaved time and overlap against
-    ``report()["predicted"]``, per-segment times, peak memory, donation."""
+def executor_queue(device, grid=GRID, batch2=(16, 1024, 1024)):
+    """The mixed queue of ``[executor]`` and ``[analysis]``: three batched
+    2-D entries, one 3-D forward and the inverse of that forward, all on
+    ``backend="kernel"``.  Returns the plans, the 2-D operands, the
+    entries (``execute_many`` form) and a solo call per entry."""
     import torch
     from repro_torch import make_mesh, plan_fft
-    from repro_torch.core.executor import PlanStreamExecutor, execute_many
-    from repro_torch.distributed.fault import StepWatchdog
-    cuda = device.type == "cuda"
     mesh = make_mesh((1, 1), ("data", "model"),
-                     device=None if cuda else device)
+                     device=None if device.type == "cuda" else device)
     p2d = plan_fft(mesh, batch2[1:], batch_shape=batch2[:1],
                    backend="kernel")
     p3d = plan_fft(mesh, grid, backend="kernel")
@@ -1122,6 +1129,38 @@ def phase_executor(device, grid=GRID, batch2=(16, 1024, 1024),
             return plan.inverse(v)
         return plan.forward(v)
 
+    return p2d, p3d, xs, entries, solo_call
+
+
+def submit_queue(ex, entries) -> None:
+    for e in entries:
+        ex.submit(e[0], e[1], **(e[2] if len(e) == 3 else {}))
+
+
+def check_queue_counts(counts, phase: str, cuda: bool) -> None:
+    """The mixed queue's launches: 2 per 2-D entry and 3 per 512^3
+    direction, all radix, 7 strided, no line copy."""
+    want = 3 * 2 + 2 * 3
+    check(counts["copies"] == 0, f"[{phase}] {counts['copies']} line "
+          f"copies, expected 0")
+    if cuda:
+        check(counts["launches"] == want and counts["radix"] == want
+              and counts["strided"] == 3 * 1 + 2 * 2,
+              f"[{phase}] launches {counts}, expected {want}, all radix, "
+              f"7 strided")
+
+
+def phase_executor(device, grid=GRID, batch2=(16, 1024, 1024),
+                   iters: int = 5, timer=time.perf_counter) -> dict:
+    """``[executor]``: the mixed queue (:func:`executor_queue`) through
+    the plan-stream executor in every dispatch mode, bitwise against the
+    solo runs; solo sum, interleaved time and overlap against
+    ``report()["predicted"]``, per-segment times, peak memory, donation."""
+    import torch
+    from repro_torch.core.executor import PlanStreamExecutor, execute_many
+    from repro_torch.distributed.fault import StepWatchdog
+    cuda = device.type == "cuda"
+    p2d, _, xs, entries, solo_call = executor_queue(device, grid, batch2)
     solo = [solo_call(i) for i in range(len(entries))]
     out = {"entries": [f"2d{tuple(batch2)}"] * 3 + ["3d fwd", "3d inv"],
            "modes": {}}
@@ -1131,20 +1170,12 @@ def phase_executor(device, grid=GRID, batch2=(16, 1024, 1024),
     if cuda:
         torch.cuda.synchronize(device)
     out["counts"] = counts = path_counts()
-    want = 3 * 2 + 2 * 3
-    check(counts["copies"] == 0, f"[executor] {counts['copies']} line "
-          f"copies, expected 0")
-    if cuda:
-        check(counts["launches"] == want and counts["radix"] == want
-              and counts["strided"] == 3 * 1 + 2 * 2,
-              f"[executor] launches {counts}, expected {want}, all radix, "
-              f"7 strided")
+    check_queue_counts(counts, "executor", cuda)
     del outs
     for mode in ("async", "pool", "timed"):
         kw = {"watchdog": StepWatchdog()} if mode == "timed" else {}
         ex = PlanStreamExecutor(mode=mode, **kw)
-        for e in entries:
-            ex.submit(e[0], e[1], **(e[2] if len(e) == 3 else {}))
+        submit_queue(ex, entries)
         got = ex.run()
         if cuda:
             torch.cuda.synchronize(device)
@@ -1188,18 +1219,17 @@ def phase_executor(device, grid=GRID, batch2=(16, 1024, 1024),
         # An enqueue time near the interleaved time means the run is
         # bound by the host, not by the card.
         ex = PlanStreamExecutor()
-        for e in entries:
-            ex.submit(e[0], e[1], **(e[2] if len(e) == 3 else {}))
-        t0 = time.perf_counter()
+        submit_queue(ex, entries)
+        t0 = timer()
         for _ in range(iters):
             ex._plan_schedule()
-        out["plan_host_ms"] = (time.perf_counter() - t0) / iters * 1e3
+        out["plan_host_ms"] = (timer() - t0) / iters * 1e3
         ex._queue.clear()
         torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
+        t0 = timer()
         for _ in range(iters):
             execute_many(entries)
-        out["enqueue_host_ms"] = (time.perf_counter() - t0) / iters * 1e3
+        out["enqueue_host_ms"] = (timer() - t0) / iters * 1e3
         torch.cuda.synchronize(device)
         out["profile"] = profile_run(lambda: execute_many(entries), device)
         out["profile_solo"] = profile_run(
@@ -1233,6 +1263,208 @@ def phase_executor(device, grid=GRID, batch2=(16, 1024, 1024),
     return out
 
 
+def phase_analysis(device, grid=GRID, batch2=(16, 1024, 1024),
+                   iters: int = 5, timer=time.perf_counter) -> dict:
+    """``[analysis]``: the ``[executor]`` queue under the static verifier
+    and the sanitizer (``repro_torch.analysis``).
+
+    * every dispatch mode with ``verify="strict", sanitize=True``: no
+      verify error and 0 SAN001 (async and pool: no finding at all; the
+      timed mode's SCHED004 warnings are the verifier's prediction of the
+      watchdog's stragglers, printed beside what it flagged), outputs
+      bitwise equal to the solo runs, and the same 12 launches as
+      ``[executor]`` (a verifier that launched, or changed the launches,
+      shows here);
+    * pool mode with ``serialize_dispatch=False``: ``verify_schedule()``
+      reports SCHED001 and ``run()`` raises ``PlanVerificationError``
+      with no launch at all and the queue intact;
+    * a donated entry: its operand emptied, and the sanitizer's donation
+      table agrees;
+    * ``plan.verify()`` on the 512^3 kernel plan: clean, and
+      ``describe()`` says so;
+    * the host ms of ``verify_schedule()`` (pricing and placement plus
+      the check), of the check ``run()`` makes (``_check_schedule`` on a
+      planned order), of ``sanitize_json()``, and of the enqueue with
+      ``verify="strict"``, with ``sanitize=True`` and with both, beside
+      the plain enqueue, in turns;
+    * the peak memory of a sanitized run beside a plain one, both with
+      ``donate_intermediates=False`` (every boundary buffer is then
+      freed by its last reference): the trace holds no buffer, so the
+      peaks must agree.
+    """
+    import torch
+    from repro_torch.analysis import PlanVerificationError
+    from repro_torch.core.executor import PlanStreamExecutor, execute_many
+    from repro_torch.core.pipeline import released
+    from repro_torch.distributed.fault import StepWatchdog
+    cuda = device.type == "cuda"
+    p2d, p3d, xs, entries, solo_call = executor_queue(device, grid, batch2)
+    solo = [solo_call(i) for i in range(len(entries))]
+    out = {"modes": {}}
+    for mode in ("async", "pool", "timed"):
+        kw = {"watchdog": StepWatchdog()} if mode == "timed" else {}
+        sink = []
+        ex = PlanStreamExecutor(mode=mode, verify="strict", sanitize=True,
+                                verify_sink=sink.append, **kw)
+        submit_queue(ex, entries)
+        reset_counts()
+        got = ex.run()
+        if cuda:
+            torch.cuda.synchronize(device)
+        counts = path_counts()
+        same = [bool(torch.equal(g, w)) for g, w in zip(got, solo)]
+        del got
+        verify, san = ex.last_verify_report(), ex.last_sanitize_report()
+        trace = ex.last_trace()
+        rec = {"bitwise": same, "counts": counts,
+               "verify": sorted(d.code for d in verify),
+               "verify_errors": len(verify.errors), "san001": len(san),
+               "sink": [r.codes() for r in sink],
+               "turns_in_order": [e.turn for e in trace.events]
+               == list(range(len(trace.events))),
+               "order_is_plan": trace.launch_order()
+               == [(s.entry, s.index) for s in ex.last_schedule]}
+        check(all(same), f"[analysis] mode {mode}: outputs bitwise equal "
+              f"to solo {same}")
+        check_queue_counts(counts, f"analysis {mode}", cuda)
+        check(rec["verify_errors"] == 0 and rec["san001"] == 0
+              and ex.sanitize_json()["diff"]["san001"] == 0,
+              f"[analysis] mode {mode}: verify {verify.render()} sanitize "
+              f"{san.render()}")
+        check(rec["turns_in_order"] and rec["order_is_plan"],
+              f"[analysis] mode {mode}: the trace is not the planned order")
+        if mode == "timed":
+            check(set(rec["verify"]) <= {"SCHED003", "SCHED004"},
+                  f"[analysis] timed: {verify.render()}")
+            rec["predicted_stragglers"] = sorted(
+                d.plan_key for d in verify.by_code("SCHED004"))
+            rec["flagged_stragglers"] = sorted(t for t, _ in ex.stragglers)
+        else:
+            check(rec["verify"] == [] and sink == [],
+                  f"[analysis] mode {mode}: findings {verify.render()}")
+        out["modes"][mode] = rec
+    out["counts"] = out["modes"]["async"]["counts"]
+
+    # Pool dispatch without turns: flagged and refused before any launch.
+    ex = PlanStreamExecutor(mode="pool", serialize_dispatch=False,
+                            verify="strict")
+    submit_queue(ex, entries)
+    reset_counts()
+    static = ex.verify_schedule().codes()
+    try:
+        ex.run()
+        refused = []
+    except PlanVerificationError as err:
+        refused = err.report.codes()
+    if cuda:
+        torch.cuda.synchronize(device)
+    moved = {k: v for k, v in path_counts().items() if v}
+    out["unserialized"] = {"static": static, "refused": refused,
+                           "counters_moved": moved, "queued": len(ex)}
+    check("SCHED001" in static and "SCHED001" in refused and not moved
+          and len(ex) == len(entries),
+          f"[analysis] unserialized pool: {out['unserialized']}")
+    ex._queue.clear()
+
+    # A donated entry: emptied, and the donation table agrees.
+    xd = xs[0].clone()
+    ex = PlanStreamExecutor(verify="strict", sanitize=True)
+    ex.submit(p2d, xd, donate=True)
+    got = ex.run()[0]
+    fates = {b.tag: [b.expect_deleted, b.deleted]
+             for b in ex.last_trace().buffers}
+    out["donation"] = {"emptied": released(xd), "fates": fates,
+                       "san001": len(ex.last_sanitize_report()),
+                       "bitwise": bool(torch.equal(got, solo[0]))}
+    check(out["donation"]["emptied"] and fates["entry0/seg0"] == [True, True]
+          and out["donation"]["san001"] == 0 and out["donation"]["bitwise"],
+          f"[analysis] donation: {out['donation']}")
+    del got
+
+    # The main plan's contracts.
+    report = p3d.verify()
+    verified = p3d.describe().splitlines()[-1].strip()
+    out["plan_verify"] = {"findings": report.codes(), "describe": verified}
+    check(len(report) == 0 and verified == "verified: contracts clean",
+          f"[analysis] plan.verify(): {report.render()} / {verified}")
+
+    if cuda:
+        ex = PlanStreamExecutor(verify="strict", sanitize=True)
+        submit_queue(ex, entries)
+        t0 = timer()
+        for _ in range(iters):
+            ex.verify_schedule()
+        out["verify_schedule_host_ms"] = (timer() - t0) / iters * 1e3
+        order = ex._plan_schedule()
+        t0 = timer()
+        for _ in range(iters):
+            ex._check_schedule(order, ex._queue)
+        out["check_host_ms"] = (timer() - t0) / iters * 1e3
+        ex.run()
+        t0 = timer()
+        for _ in range(iters):
+            json.dumps(ex.sanitize_json())
+        out["sanitize_json_host_ms"] = (timer() - t0) / iters * 1e3
+        # The plain and the analysed enqueues in turns (each order, then
+        # its reverse, twice): host time drifts between rounds.
+        kinds = (("enqueue_host_ms", {}),
+                 ("enqueue_verify_host_ms", {"verify": "strict"}),
+                 ("enqueue_sanitize_host_ms", {"sanitize": True}),
+                 ("enqueue_verified_host_ms",
+                  {"verify": "strict", "sanitize": True}))
+        rounds = {name: [] for name, _ in kinds}
+        for name, kw in (kinds + kinds[::-1]) * 2:
+            torch.cuda.synchronize(device)
+            t0 = timer()
+            for _ in range(iters):
+                execute_many(entries, **kw)
+            rounds[name].append((timer() - t0) / iters * 1e3)
+        torch.cuda.synchronize(device)
+        for name, ms in rounds.items():
+            out[name] = statistics.median(ms)
+            out[f"{name}_rounds"] = ms
+        peaks = {}
+        for name, kw in (("plain", {}),
+                         ("sanitized", {"verify": "strict",
+                                        "sanitize": True})):
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            outs = execute_many(entries, donate_intermediates=False, **kw)
+            torch.cuda.synchronize(device)
+            peaks[name] = torch.cuda.max_memory_allocated(device) - base
+            del outs
+        out["peak_extra_bytes"] = peaks
+        check(peaks["sanitized"] <= peaks["plain"] + 2**21,
+              f"[analysis] a sanitized run's peak memory {peaks} exceeds "
+              f"the plain run's: the trace holds buffers")
+    print(f"[analysis] modes async/pool/timed under verify='strict' and "
+          f"sanitize=True: bitwise equal to solo, 0 verify errors, 0 "
+          f"SAN001, launches {out['counts']} (as [executor]); timed "
+          f"findings {out['modes']['timed']['verify']}, predicted "
+          f"stragglers {out['modes']['timed']['predicted_stragglers']}, "
+          f"flagged {out['modes']['timed']['flagged_stragglers']}; "
+          f"unserialized pool: {out['unserialized']}; donation "
+          f"{out['donation']}; plan.verify() {out['plan_verify']}")
+    if cuda:
+        print(f"[analysis] host ms: verify_schedule() (pricing and "
+              f"placement plus the check) "
+              f"{out['verify_schedule_host_ms']:.4f}, the check inside "
+              f"run() {out['check_host_ms']:.4f}, sanitize_json() "
+              f"{out['sanitize_json_host_ms']:.4f}; enqueue, median of 4 "
+              f"rounds in turns: plain {out['enqueue_host_ms']:.4f} "
+              f"{out['enqueue_host_ms_rounds']}, verify='strict' "
+              f"{out['enqueue_verify_host_ms']:.4f} "
+              f"{out['enqueue_verify_host_ms_rounds']}, sanitize=True "
+              f"{out['enqueue_sanitize_host_ms']:.4f} "
+              f"{out['enqueue_sanitize_host_ms_rounds']}, both "
+              f"{out['enqueue_verified_host_ms']:.4f} "
+              f"{out['enqueue_verified_host_ms_rounds']}")
+        print(f"[analysis] peak extra memory with donate_intermediates="
+              f"False: plain {peaks['plain'] / 2**30:.3f} GiB, sanitized "
+              f"{peaks['sanitized'] / 2**30:.3f} GiB")
+    return out
+
+
 def phase_serve(device, requests: int = 48, round_size: int = 16,
                 primary=(1024, 1024), secondary=(1024, 2048),
                 odd=((1000, 1000), (960, 1024), (1024, 1000)),
@@ -1248,7 +1480,9 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
     the traffic drains' own (``serve_fft``'s ``traffic_launches``, not
     the tune and warm-up before them): every routed batch of a 2-D grid
     is 2 launches of the plain four-step variant, one on lines and one
-    strided, all radix, no line copy."""
+    strided, all radix, no line copy.  One more lifetime runs the service
+    with ``verify="strict"``: its ``verify_warnings`` must stay empty and
+    its launch counts exact."""
     import torch
     from repro_torch.launch.serve_fft import serve_fft
     cuda = device.type == "cuda"
@@ -1256,7 +1490,8 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
     check(all(len(g) == ndim for g in (secondary, *odd)),
           "[serve] the served grids differ in rank")
     runs = []
-    for w in range(windows):
+    for w in range(windows + 1):
+        verify = "strict" if w == windows else "off"
         with tempfile.TemporaryDirectory() as tmp:
             snap = serve_fft(
                 requests=requests, round_size=round_size, lose=0,
@@ -1266,7 +1501,7 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
                                        f"serve_fft_metrics_{w}.json"),
                 check=True, primary=primary, secondary=secondary, odd=odd,
                 bucket_edges=edges, max_batch=max_batch,
-                backends=("kernel",), verbose=False)
+                backends=("kernel",), verify=verify, verbose=False)
         if cuda:
             torch.cuda.synchronize(device)
         drv = snap["driver"]
@@ -1284,8 +1519,13 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
             check(nb > 0 and got == want,
                   f"[serve] window {w}: traffic launches {got} for {nb} "
                   f"routed batches, expected {want}")
+        check(snap["verify_warnings"] == {},
+              f"[serve] window {w} (verify={verify!r}): verify_warnings "
+              f"{snap['verify_warnings']}")
         lat = snap["latency"]
-        runs.append({"counts": got, "batches": nb,
+        runs.append({"verify": verify,
+                     "verify_warnings": snap["verify_warnings"],
+                     "counts": got, "batches": nb,
                      "p50_ms": lat["p50_s"] * 1e3,
                      "p99_ms": lat["p99_s"] * 1e3,
                      "drain_rps": drv["drain_rps"],
@@ -1299,7 +1539,9 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
            # the kernels line's serve counts: the first window's drains
            "counts": runs[0]["counts"]}
     for r in runs:
-        print(f"[serve] {requests} requests in rounds of {round_size}: "
+        print(f"[serve] verify={r['verify']!r}: {requests} requests in "
+              f"rounds of {round_size}, verify_warnings "
+              f"{r['verify_warnings']}: "
               f"{r['batches']} routed batches, traffic launches "
               f"{r['counts']}; p50 {r['p50_ms']:.4f} ms, p99 "
               f"{r['p99_ms']:.4f} ms (of {requests} samples: about the "
@@ -1313,7 +1555,7 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
     return out
 
 
-def main() -> int:
+def main(timer=time.perf_counter) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -1323,7 +1565,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    t0 = time.perf_counter()
+    t0 = timer()
     report = {"build": phase_build()}
     report["kernel_vs_plain"] = phase_kernel_vs_plain(device)
     report["main"] = main_run = phase_main_path(device)
@@ -1348,12 +1590,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["executor"] = execu = phase_executor(device)
     torch.cuda.empty_cache()
+    report["analysis"] = analysis = phase_analysis(device)
+    torch.cuda.empty_cache()
     report["serve"] = serve = phase_serve(device)
     torch.cuda.empty_cache()
 
     def by_path(layout):
         return {"segments": segs["forward"][layout] + segs["inverse"][layout],
                 "executor": execu["counts"][layout],
+                "analysis": analysis["counts"][layout],
                 "serve": serve["counts"][layout]}
     kernels = [
         {"name": "fft_fourstep", "route": "cuda", "source": RADIX_SOURCE,
@@ -1398,7 +1643,7 @@ def main() -> int:
          "library_ms": None},
     ]
     report["kernels"] = kernels
-    report["seconds"] = time.perf_counter() - t0
+    report["seconds"] = timer() - t0
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

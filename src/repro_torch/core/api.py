@@ -60,12 +60,12 @@ from . import transforms
 from .decomp import describe_decomp, make_decomposition, validate_grid
 from .pipeline import (PipelineSpec, TensorStruct, build_pipeline,
                        compile_segment, input_struct, make_spec,
-                       output_struct, segment_structs)
-from .plan import (GLOBAL_PLAN_CACHE, TunedPlan, TuningCache, env_capacity,
-                   plan_key)
+                       output_struct, pipeline_key, segment_structs)
+from .plan import GLOBAL_PLAN_CACHE, TunedPlan, TuningCache, env_capacity
 
 _DEF_KINDS = ("fft", "fft", "fft")
 TUNING_MODES = ("off", "heuristic", "auto")
+VALIDATE_MODES = ("off", "warn", "strict")
 DTYPES = (torch.complex64, torch.complex128, torch.float32, torch.float64)
 
 
@@ -136,6 +136,9 @@ class DistributedFFT:
         self.tuning = tuning
         # Wrapper-memoized plans are held by every caller of the wrapper.
         self.shared = False
+        # Outcome of the last verify(): None (never run), True (clean) or
+        # False (errors found); describe() reports it.
+        self.verified: Optional[bool] = None
         self._in_struct = input_struct(mesh, fwd_spec, self.batch_shape,
                                        dtype)
         self._out_struct = output_struct(mesh, fwd_spec, self.batch_shape,
@@ -154,15 +157,7 @@ class DistributedFFT:
     def _pipeline(self, inverse: bool) -> Callable:
         spec = self._inv_spec if inverse else self._fwd_spec
         struct = self._inv_in_struct if inverse else self._in_struct
-        key = plan_key(kind=spec.kinds, grid=spec.grid, dtype=str(struct.dtype),
-                       decomp=(spec.decomp.name,) + tuple(spec.decomp.mesh_axes)
-                       + (spec.decomp.dim_groups,),
-                       mesh_shape=self.mesh.shape,
-                       mesh_axes=self.mesh.axis_names, backend=spec.backend,
-                       n_chunks=spec.chunk_schedule, inverse=spec.inverse,
-                       # The callable closes over this mesh's process groups
-                       # and device, so the mesh object is part of the key.
-                       extra=(self.batch_shape, self.mesh))
+        key = pipeline_key(spec, self.mesh, struct.dtype, self.batch_shape)
         return GLOBAL_PLAN_CACHE.get_or_create(
             key, lambda: build_pipeline(self.mesh, spec)).executable
 
@@ -227,6 +222,28 @@ class DistributedFFT:
 
     def pipeline_spec(self, *, inverse: bool = False) -> PipelineSpec:
         return self._inv_spec if inverse else self._fwd_spec
+
+    def verify(self, *, tune_cache: Optional[TuningCache] = None,
+               strict: bool = False):
+        """Statically check this plan's sharding contracts (runs
+        nothing): every segment-boundary layout re-derived by hop replay,
+        chunk-schedule and grid/mesh divisibility, the plan-key collision
+        audit (plus wisdom keys when ``tune_cache`` is given), and the
+        buffer-provenance audit (a ``shared`` plan holding donating
+        segment variants — possible when the flag was set after they were
+        built — is flagged DON002).  Returns the
+        :class:`~repro_torch.analysis.DiagnosticReport`; ``strict=True``
+        raises :class:`~repro_torch.analysis.PlanVerificationError` on
+        any error.  ``describe()`` reports the outcome."""
+        # deferred: the analysis package imports this module
+        from ..analysis import (PlanVerificationError, check_plan,
+                                check_plan_buffers)
+        report = check_plan(self, tune_cache=tune_cache)
+        report.extend(check_plan_buffers(self))
+        self.verified = not report.errors
+        if strict and report.errors:
+            raise PlanVerificationError(report, context=repr(self))
+        return report
 
     # -- stage segments (the plan-stream executor's unit of work) -----------
 
@@ -344,6 +361,10 @@ class DistributedFFT:
             f"local {self._in_struct.local_shape}",
             f"  out: {self._out_struct.shape} {self._out_struct.spec} "
             f"local {self._out_struct.local_shape}",
+            "  verified: " + ("not verified (run plan.verify())"
+                              if self.verified is None else
+                              "contracts clean" if self.verified else
+                              "FINDINGS (see plan.verify() report)"),
         ]
         return "\n".join(lines)
 
@@ -431,7 +452,8 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
              tuning: str = "off",
              tune_cache: Optional[TuningCache] = None,
              tune_objective: str = "forward",
-             tuned: Optional[TunedPlan] = None) -> DistributedFFT:
+             tuned: Optional[TunedPlan] = None,
+             validate: str = "off") -> DistributedFFT:
     """Build a :class:`DistributedFFT` plan for the trailing ``len(grid)``
     dims of ``batch_shape + grid``-shaped operands on ``mesh``.
 
@@ -449,6 +471,10 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
     measures (``"forward"`` or the paired ``"fwd+scale+inv"``).  On a
     multi-rank mesh every rank must call this together.  ``tuned=`` takes
     the schedule from a :class:`TunedPlan` record instead of the knobs.
+
+    ``validate="warn"``/``"strict"`` runs :meth:`DistributedFFT.verify`
+    on the new plan (static: nothing runs) and warns on errors, or raises
+    :class:`~repro_torch.analysis.PlanVerificationError`.
     """
     grid = tuple(int(n) for n in grid)
     ndim = len(grid)
@@ -461,6 +487,9 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
     if tuning not in TUNING_MODES:
         raise ValueError(f"tuning must be one of {TUNING_MODES}, "
                          f"got {tuning!r}")
+    if validate not in VALIDATE_MODES:
+        raise ValueError(f"validate must be one of {VALIDATE_MODES}, "
+                         f"got {validate!r}")
     batch_shape = tuple(int(n) for n in batch_shape)
     if dtype is None:
         dtype = torch.float32 if _real_input(kinds) else torch.complex64
@@ -545,8 +574,16 @@ def plan_fft(mesh: Mesh, grid: Sequence[int], *,
     inv_spec = make_spec(mesh, grid, dec, kinds, backend=tuned.backend,
                          n_chunks=spec_chunks, inverse=True,
                          batch_spec=batch_spec)
-    return DistributedFFT(mesh, fwd_spec, inv_spec, batch_shape=batch_shape,
+    plan = DistributedFFT(mesh, fwd_spec, inv_spec, batch_shape=batch_shape,
                           dtype=dtype, tuned=tuned, tuning=tuning)
+    if validate != "off":
+        report = plan.verify(tune_cache=tune_cache,
+                             strict=validate == "strict")
+        if report.errors:   # validate == "warn": report and hand back
+            warnings.warn(f"plan_fft(validate='warn'): static contract "
+                          f"findings\n{report.render()}", RuntimeWarning,
+                          stacklevel=2)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -584,6 +621,12 @@ def _memoized(key: Any, factory: Callable[[], Any]) -> Any:
             _PLAN_MEMO.popitem(last=False)
             _MEMO_COUNTERS["evictions"] += 1
         return won
+
+
+def _plan_memo_keys() -> list:
+    """Snapshot of the wrapper-memo keys (static key audits)."""
+    with _PLAN_MEMO_LOCK:
+        return list(_PLAN_MEMO)
 
 
 def clear_plan_memo() -> None:

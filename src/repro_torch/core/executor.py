@@ -62,11 +62,18 @@ segment 0 ran, it is emptied in place (``pipeline.release``) and its
 memory returns to the allocator; neighbouring entries' operands are
 untouched.
 
-The analysis hooks of the reference (``verify``, ``sanitize``,
-``serialize_dispatch=False``, ``verify_sink``, ``verify_schedule``,
-``last_verify_report``, ``last_sanitize_report``, ``last_trace``,
-``sanitize_json``) belong to the analysis slice (ROADMAP A.7): anything
-but their defaults raises ``NotImplementedError``.
+**Verification** (``repro_torch.analysis``).  ``verify="warn"`` or
+``"strict"`` model-checks every planned order before anything launches
+(``verify_schedule()`` does it without consuming the queue): the
+schedule and storage-provenance pass, and for the blocking modes the
+timed model.  ``sanitize=True`` records each launch under the dispatch
+lock with its turn, and the fate of every buffer fed to a segment, then
+diffs that trace against the planned order, and on a mesh of several
+ranks every rank's order against the others' (SAN001).
+``serialize_dispatch=False`` (pool workers without turns) is never
+launched: ``run()`` checks the queue and refuses it, because on NCCL or
+gloo the ranks could launch their collectives in different orders and
+hang.
 """
 from __future__ import annotations
 
@@ -75,20 +82,20 @@ import dataclasses
 import math
 import threading
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .perfmodel import (as_profile, default_machine, hop_cost_terms,
                         predict_plan_time, stage_comp_times)
-from .pipeline import release
+from .pipeline import release, released
 from .scheduler import (CostModel, ScheduleSimulator, TaskSpec,
                         WorkStealingPool, hop_phase_time, place_tasks)
 
 DISPATCH_MODES = ("async", "pool", "timed")
 VERIFY_MODES = ("off", "warn", "strict")
-_DEFERRED = ("belongs to the analysis slice (ROADMAP A.7), which is not "
-             "ported yet")
 
 # Lanes are process-wide: lane k on a device is the same CUDA stream for
 # every executor, so the caching allocator's per-stream pools stay warm
@@ -215,11 +222,42 @@ class PlanStreamExecutor:
     profile:
         Record measured per-segment times without a watchdog (forces timed
         dispatch).
+    verify:
+        ``"off"`` (default) | ``"warn"`` | ``"strict"`` — run the static
+        checkers on every planned order before anything launches
+        (``repro_torch.analysis.check_schedule`` and, for the blocking
+        modes, ``check_timed_schedule``).  ``"warn"`` reports findings
+        and proceeds; ``"strict"`` raises
+        :class:`~repro_torch.analysis.PlanVerificationError` on *errors*
+        with the queue intact (SCHED003/SCHED004 are warnings and never
+        refuse a queue).
+    verify_sink:
+        Optional callable receiving every non-empty
+        :class:`~repro_torch.analysis.DiagnosticReport` the verify and
+        sanitize paths produce, *instead of* a Python warning (strict
+        errors still raise).  The service points it at
+        ``ServingMetrics.record_verify_findings``.
+    sanitize:
+        Record an :class:`~repro_torch.analysis.ExecutionTrace` of every
+        run and diff it against the static model (and, on several ranks,
+        against the other ranks' orders); divergences are SAN001
+        diagnostics, reported through ``verify_sink`` or a warning and
+        kept on :meth:`last_sanitize_report`.  Each buffer's fate is
+        read just after the launch that consumed it, so the trace holds
+        no tensor and the run's peak memory is the plain run's.  On
+        several ranks the order check is one object all-gather after the
+        run: a rank that raised makes none, and its peers wait in it as
+        they would in the run's next collective.
+    serialize_dispatch:
+        Launch in turn order (default True: the collective-order
+        invariant).  False models pool workers launching without turns,
+        as the JAX package's pool may: ``verify_schedule()`` flags it
+        (SCHED001) whenever the queue makes a collective-order hang
+        reachable, and ``run()`` always refuses it before any launch,
+        with the report and the queue intact.
     timer:
-        Clock of the timed runs (injectable for hermetic tests).
-
-    ``verify``, ``serialize_dispatch``, ``sanitize`` and ``verify_sink``
-    take only their defaults until the analysis slice (ROADMAP A.7).
+        Clock of the timed runs and of the trace's dispatch stamps
+        (injectable for hermetic tests).
     """
 
     def __init__(self, *, n_streams: int = 2, machine=None,
@@ -235,15 +273,6 @@ class PlanStreamExecutor:
         if verify not in VERIFY_MODES:
             raise ValueError(f"verify must be one of {VERIFY_MODES}, "
                              f"got {verify!r}")
-        deferred = [name for name, off in (
-            (f"verify={verify!r}", verify == "off"),
-            ("serialize_dispatch=False", serialize_dispatch),
-            ("sanitize=True", not sanitize),
-            ("verify_sink", verify_sink is None)) if not off]
-        if deferred:
-            raise NotImplementedError(
-                f"PlanStreamExecutor({', '.join(deferred)}): the schedule "
-                f"checker and the sanitizer {_DEFERRED}")
         self.n_streams = max(int(n_streams), 1)
         self.machine = machine
         self.cost_model = cost_model if cost_model is not None else CostModel()
@@ -251,6 +280,10 @@ class PlanStreamExecutor:
         self.mode = mode
         self.donate_intermediates = bool(donate_intermediates)
         self.profile = bool(profile)
+        self.verify = verify
+        self.serialize_dispatch = bool(serialize_dispatch)
+        self.sanitize = bool(sanitize)
+        self.verify_sink = verify_sink
         self.timer = timer
         self._queue: List[_Entry] = []
         # Every launch happens under this lock, in the planned order (the
@@ -267,6 +300,14 @@ class PlanStreamExecutor:
         self._last_report: Dict[str, Any] = {}
         self._caller: Dict[torch.device, Any] = {}   # run()'s own streams
         self._thread_lanes: Dict[int, int] = {}
+        self._last_verify = None            # DiagnosticReport of last check
+        # Sanitizer state: the in-flight trace (appended under the
+        # dispatch lock), the model order the diff runs against, and the
+        # last run's trace and SAN001 report.
+        self._trace = None
+        self._planned_order: List[SegmentTask] = []
+        self._last_trace = None
+        self._last_sanitize = None
 
     # -- queue management ---------------------------------------------------
 
@@ -378,22 +419,60 @@ class PlanStreamExecutor:
                                        if serial > 0 else 1.0)
         return stats
 
-    # -- the analysis hooks (ROADMAP A.7) -----------------------------------
+    def _check_schedule(self, order: Sequence[SegmentTask],
+                        entries: List[_Entry]):
+        """Static checkers over one planned order (nothing launches): the
+        order + provenance pass, plus the blocking-semantics model for the
+        modes that block (timed/pool)."""
+        from ..analysis import (check_schedule,  # analysis imports core
+                                check_timed_schedule)
+        eff = self._effective_mode()
+        report = check_schedule(order, entries, mode=eff,
+                                serialized=self.serialize_dispatch)
+        report.extend(check_timed_schedule(
+            order, entries, mode=eff, cost_model=self.cost_model,
+            watchdog=self.watchdog))
+        return report
 
     def verify_schedule(self):
-        raise NotImplementedError(f"verify_schedule {_DEFERRED}")
+        """Plan the current queue and statically verify it — without
+        consuming the queue or launching a single segment.  Returns the
+        :class:`~repro_torch.analysis.DiagnosticReport`."""
+        return self._check_schedule(self._plan_schedule(self._queue),
+                                    self._queue)
 
     def last_verify_report(self):
-        raise NotImplementedError(f"last_verify_report {_DEFERRED}")
+        """The :class:`~repro_torch.analysis.DiagnosticReport` of the last
+        verify pass of ``run()`` (``None`` when ``verify="off"`` or
+        nothing ran)."""
+        return self._last_verify
 
     def last_sanitize_report(self):
-        raise NotImplementedError(f"last_sanitize_report {_DEFERRED}")
+        """The SAN001 diff of the last instrumented run (``None`` until a
+        ``sanitize=True`` run completes; empty means the executor matched
+        the static model exactly)."""
+        return self._last_sanitize
 
     def last_trace(self):
-        raise NotImplementedError(f"last_trace {_DEFERRED}")
+        """The :class:`~repro_torch.analysis.ExecutionTrace` of the last
+        instrumented run (``None`` until a ``sanitize=True`` run)."""
+        return self._last_trace
 
-    def sanitize_json(self):
-        raise NotImplementedError(f"sanitize_json {_DEFERRED}")
+    def sanitize_json(self) -> Dict[str, Any]:
+        """The trace-diff artifact (observed trace + SAN001 diff) of the
+        last instrumented run, JSON-serializable."""
+        from ..analysis import trace_json
+        return trace_json(self._last_trace, self._last_sanitize)
+
+    def _report(self, report, what: str) -> None:
+        """Hand a non-empty report to the sink, else warn."""
+        if not report:
+            return
+        if self.verify_sink is not None:
+            self.verify_sink(report)
+        else:
+            warnings.warn(f"PlanStreamExecutor {what}:\n" + report.render(),
+                          stacklevel=3)
 
     # -- execution ----------------------------------------------------------
 
@@ -416,16 +495,91 @@ class PlanStreamExecutor:
                         # later boundaries stay on this lane.
                         stream.wait_stream(self._caller[cur.device])
                         cur.record_stream(stream)
+                    rec = (self._record_launch(entry, seg, turn)
+                           if self._trace is not None else None)
                     out = fns[seg.index](cur)
+                    if rec is not None:
+                        # Every release happens inside its launch.
+                        rec.deleted = released(cur)
                     del cur
-                    if seg.index == 0 and entry.donate:
-                        release(entry.x)
                 bufs[seg.entry] = out
                 if seg.index == len(entry.segments) - 1:
                     entry.out = out
             finally:
                 self._turn += 1
                 self._turn_cv.notify_all()
+
+    def _segment_exes(self, entry: _Entry) -> List[Callable]:
+        """The callables of one entry's segments.  A donating entry's
+        segment 0 gives up the prepared operand (``donate_input``) and
+        then the caller's tensor too, which differs from it when
+        ``prepare_input`` copied or sliced it."""
+        fns = entry.plan.segments(
+            inverse=entry.inverse, donate_input=entry.donate,
+            donate_intermediates=self.donate_intermediates)
+        if not entry.donate:
+            return fns
+        first, x = fns[0], entry.x
+
+        def seg0(v: torch.Tensor) -> torch.Tensor:
+            out = first(v)
+            release(x)
+            return out
+
+        return [seg0, *fns[1:]]
+
+    def _record_launch(self, entry: _Entry, seg: SegmentTask, turn: int):
+        """Sanitizer hook, called under the dispatch lock just before a
+        launch: records the event (with its turn) and returns the record
+        of the buffer it consumes, whose fate ``_dispatch`` reads just
+        after the launch.
+
+        The donation expectation mirrors the segment flags exactly —
+        segment 0 gives up its input iff the entry donated, interior
+        segments iff the executor double-buffers — which is also what
+        :func:`repro_torch.analysis.expected_donations` derives, so the
+        diff tests the model, not this mirror.
+        """
+        from ..analysis.sanitize import BufferRecord, TraceEvent
+        rec = BufferRecord(
+            tag=seg.tag,
+            role="operand" if seg.index == 0 else "interior",
+            expect_deleted=(entry.donate if seg.index == 0
+                            else self.donate_intermediates))
+        self._trace.events.append(TraceEvent(
+            entry=seg.entry, index=seg.index, tag=seg.tag, turn=turn,
+            t_dispatch_s=self.timer()))
+        self._trace.buffers.append(rec)
+        return rec
+
+    def _finish_sanitize(self, entries: List[_Entry]) -> None:
+        """Close out one instrumented run: attach measured walls, diff
+        the trace against the planned order and, on a mesh of several
+        ranks, against every other rank's order (one object all-gather
+        over the mesh's group, which every rank makes), and report any
+        SAN001 divergence."""
+        from ..analysis import diff_ranks, diff_trace
+        trace, self._trace = self._trace, None
+        walls = {s.tag: s.measured_s for s in self._planned_order
+                 if s.measured_s > 0}
+        for ev in trace.events:
+            ev.wall_s = walls.get(ev.tag, 0.0)
+        report = diff_trace(trace, self._planned_order, entries)
+        meshes: List[Any] = []
+        for e in entries:
+            if all(e.plan.mesh is not m for m in meshes):
+                meshes.append(e.plan.mesh)
+        for mesh in meshes:
+            if mesh.size > 1 and dist.is_available() \
+                    and dist.is_initialized():
+                orders: List[Any] = [None] * mesh.size
+                dist.all_gather_object(orders, trace.launch_order(),
+                                       group=mesh.group)
+                report.extend(diff_ranks(
+                    orders, mesh.ranks.index(dist.get_rank())))
+        self._last_trace = trace
+        self._last_sanitize = report
+        self._report(report, "sanitizer divergence")
 
     def _worker_lane(self) -> int:
         """The lane of the calling pool thread (one per thread)."""
@@ -452,19 +606,42 @@ class PlanStreamExecutor:
                 "PlanStreamExecutor.run() is already in progress; "
                 "submit() more work and call run() after it returns")
         entries, self._queue = self._queue, []
+        order = self._plan_schedule(entries)
+        self._planned_order = list(order)    # the model the sanitizer diffs
+        # Without turns the ranks may launch their collectives in
+        # different orders and hang, so such a run is never launched.
+        refuse = not self.serialize_dispatch
+        if self.verify != "off" or refuse:
+            report = self._check_schedule(order, entries)
+            self._last_verify = report
+            if refuse or (report.errors and self.verify == "strict"):
+                from ..analysis import PlanVerificationError
+                self._queue = entries        # leave the queue resubmittable
+                raise PlanVerificationError(report, context=(
+                    "PlanStreamExecutor(serialize_dispatch=False) is never "
+                    "launched" if refuse else
+                    "PlanStreamExecutor.run(verify='strict')"))
+            self._report(report, "schedule check")
         self._running = True
+        if self.sanitize:
+            from ..analysis import ExecutionTrace
+            self._trace = ExecutionTrace(mode=self._effective_mode())
         try:
-            return self._run_order(self._plan_schedule(entries), entries)
+            outs = self._run_order(order, entries)
+        except BaseException:
+            self._trace = None
+            raise
         finally:
             self._running = False
+        if self._trace is not None:
+            self._finish_sanitize(entries)
+        return outs
 
     def _run_order(self, order: List[SegmentTask],
                    entries: List[_Entry]) -> List[torch.Tensor]:
         self._last_schedule = order
         self._last_report = {"predicted": self._simulate(order)}
-        fns = [e.plan.segments(inverse=e.inverse, donate_input=e.donate,
-                               donate_intermediates=self.donate_intermediates)
-               for e in entries]
+        fns = [self._segment_exes(e) for e in entries]
         devices = {e.plan.device for e in entries}
         self._caller = {d: torch.cuda.current_stream(d) for d in devices
                         if d.type == "cuda"}

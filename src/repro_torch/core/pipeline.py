@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -551,6 +551,11 @@ def _donating(fn: Callable) -> Callable:
     return run
 
 
+# Set on a tensor that :func:`release` emptied, so that :func:`released`
+# tells a donated operand from a tensor that was empty to begin with.
+_RELEASED = "_repro_released"
+
+
 def release(x: torch.Tensor) -> None:
     """Empty ``x`` in place (see :func:`_donating`).  ``set_()``, not a
     storage ``resize_(0)``: a tensor whose storage was resized away keeps
@@ -559,6 +564,31 @@ def release(x: torch.Tensor) -> None:
     if x.is_cuda and x.numel():
         x.record_stream(torch.cuda.current_stream(x.device))
     x.set_()
+    setattr(x, _RELEASED, True)
+
+
+def released(x: Any) -> bool:
+    """True iff ``x`` is a tensor that :func:`release` emptied and nothing
+    has refilled since (the counterpart of ``jax.Array.is_deleted``)."""
+    return (isinstance(x, torch.Tensor) and x.numel() == 0
+            and getattr(x, _RELEASED, False))
+
+
+def pipeline_key(spec: PipelineSpec, mesh, dtype, batch_shape=(),
+                 extra: tuple = ()) -> tuple:
+    """The ``GLOBAL_PLAN_CACHE`` key of a callable built from ``spec`` on
+    ``mesh`` for plan-input ``dtype``: the fused pipeline's with no
+    ``extra``, a segment's with its ``(donate, "segment", index)``.  The
+    callable closes over the mesh's process groups and device, so the
+    mesh object (compared by identity) is part of the key."""
+    return plan_key(kind=spec.kinds, grid=spec.grid,
+                    dtype=str(dtype).removeprefix("torch."),
+                    decomp=(spec.decomp.name,) + tuple(spec.decomp.mesh_axes)
+                    + (spec.decomp.dim_groups,),
+                    mesh_shape=mesh.shape, mesh_axes=mesh.axis_names,
+                    backend=spec.backend, n_chunks=spec.chunk_schedule,
+                    inverse=spec.inverse,
+                    extra=(tuple(batch_shape), mesh) + tuple(extra))
 
 
 def compile_segment(mesh, spec: PipelineSpec, index: int,
@@ -575,16 +605,8 @@ def compile_segment(mesh, spec: PipelineSpec, index: int,
     ``("segment", index)``, so segments never collide with the fused
     pipeline's entries.
     """
-    key = plan_key(kind=spec.kinds, grid=spec.grid,
-                   dtype=str(dtype).removeprefix("torch."),
-                   decomp=(spec.decomp.name,) + tuple(spec.decomp.mesh_axes)
-                   + (spec.decomp.dim_groups,),
-                   mesh_shape=mesh.shape, mesh_axes=mesh.axis_names,
-                   backend=spec.backend, n_chunks=spec.chunk_schedule,
-                   inverse=spec.inverse,
-                   # The callable closes over this mesh's process groups.
-                   extra=(tuple(batch_shape), mesh, bool(donate),
-                          "segment", int(index)))
+    key = pipeline_key(spec, mesh, dtype, batch_shape,
+                       (bool(donate), "segment", int(index)))
 
     def builder() -> Callable:
         fn = build_segment(mesh, spec, index)

@@ -10,6 +10,7 @@ From the root of a checkout, with ``PYTHONPATH=src``:
         --secondary 1024,2048 --odd 1000,1000 960,1024 1024,1000 \\
         --edges 256,512,1024,2048 --max-batch 8 --requests 48 \\
         --round-size 16 --json metrics.json                    # card size
+    python -m repro_torch.launch.serve_fft --smoke --check --verify strict
 
 It runs on CUDA unless ``--device cpu`` is given, and raises without a
 GPU.  ``--ranks N`` spawns N processes (NCCL, one card each, or gloo on
@@ -36,6 +37,11 @@ service lifetime:
 5. write the metrics JSON; ``--check`` exits non-zero unless the hit rate
    reaches ``--hit-rate-min``, the warmed first drain built nothing and
    the parity holds.
+
+``--verify warn|strict`` runs the services with the executor's static
+verifier on every drain (``FFTService(verify=)``); its findings are the
+JSON's ``verify_warnings`` counters, and strict refuses a drain whose
+planned order has errors.
 """
 from __future__ import annotations
 
@@ -125,7 +131,7 @@ def serve_fft(*, requests: int = 24, round_size: int = 8, lose: int = 1,
               secondary=SECONDARY_GRID, odd=ODD_GRIDS,
               bucket_edges=SMOKE_EDGES, max_batch: int = 4,
               backends: Sequence[str] = ("kernel",),
-              verbose: bool = True,
+              verify: str = "off", verbose: bool = True,
               timer: Callable[[], float] = time.perf_counter) -> dict:
     """One service lifetime (module docstring); returns the metrics JSON
     with a ``"driver"`` section.  Every rank of the world calls it.
@@ -145,7 +151,7 @@ def serve_fft(*, requests: int = 24, round_size: int = 8, lose: int = 1,
     # (a search over some backends under a wisdom key of its own).
     tune(primary, mesh, mode="auto", cache=cache, backends=backends)
     svc = FFTService(mesh, tune_cache=cache, bucket_edges=bucket_edges,
-                     max_batch=max_batch, backends=backends)
+                     max_batch=max_batch, backends=backends, verify=verify)
     rep = svc.warm(ensure=[(secondary, ("fft",) * len(secondary))])
     if say:
         print(f"[serve_fft] mesh={mesh.shape} on {mesh.device} "
@@ -228,7 +234,8 @@ def serve_fft(*, requests: int = 24, round_size: int = 8, lose: int = 1,
         if ref_mesh is not None and post_loss:
             ref = FFTService(ref_mesh, tune_cache=cache,
                              bucket_edges=bucket_edges,
-                             max_batch=max_batch, backends=backends)
+                             max_batch=max_batch, backends=backends,
+                             verify=verify)
             for fam in svc.router.families.values():
                 ref.router.resolve_family(fam.grid, fam.kinds, fam.dtype)
             id_map = {ref.submit(x): rid for rid, x in post_loss}
@@ -253,7 +260,7 @@ def serve_fft(*, requests: int = 24, round_size: int = 8, lose: int = 1,
     snap["driver"] = {
         "wall_s": wall, "requests": requests, "lost_devices": lose,
         "world": world, "rank": rank, "lost": svc.lost,
-        "device": str(dev), "backends": list(backends),
+        "device": str(dev), "backends": list(backends), "verify": verify,
         "max_rel_err": max(errors) if errors else 0.0,
         "fresh_mesh_bitwise_ok": bitwise_ok,
         "mesh": list(mesh.shape), "degraded_mesh": list(shape),
@@ -367,6 +374,10 @@ def main(argv=None) -> None:
                     help="gate on hit rate, zero builds in the warmed first "
                          "drain and bitwise parity; exit non-zero")
     ap.add_argument("--hit-rate-min", type=float, default=0.8)
+    ap.add_argument("--verify", choices=("off", "warn", "strict"),
+                    default="off",
+                    help="run the executor's static verifier on every "
+                         "drain (findings: the JSON's verify_warnings)")
     args = ap.parse_args(argv)
     kwargs = dict(requests=args.requests, round_size=args.round_size,
                   lose=args.lose, seed=args.seed, device=args.device,
@@ -374,7 +385,7 @@ def main(argv=None) -> None:
                   hit_rate_min=args.hit_rate_min, primary=args.primary,
                   secondary=args.secondary, odd=args.odd,
                   bucket_edges=args.edges, max_batch=args.max_batch,
-                  backends=args.backends)
+                  backends=args.backends, verify=args.verify)
     if args.ranks > 1:
         run_ranks(args.ranks, **kwargs)
     else:

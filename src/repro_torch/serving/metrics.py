@@ -50,9 +50,9 @@ class ServingMetrics:
         # Fault / degradation counters.
         self.device_loss_events = 0
         self.straggler_count = 0
-        # Static-verifier findings per rule code (ALIAS002, SCHED004, ...),
-        # fed by the executor's verify_sink once the analysis slice
-        # (ROADMAP A.7) ports it; kept so the JSON keys match.
+        # Static-verifier and sanitizer findings per rule code (ALIAS002,
+        # SCHED004, ...), fed by the executor's verify_sink when the
+        # service runs with verify="warn" or "strict".
         self.verify_findings: Dict[str, int] = {}
         # Samples.
         self._latencies: List[Tuple[float, bool]] = []  # (seconds, degraded)
@@ -125,7 +125,10 @@ class ServingMetrics:
     def record_verify_findings(self, report) -> None:
         """Count one verify/sanitize report's findings per rule code.
 
-        ``report`` is any iterable of objects with a ``code``.
+        ``report`` is a :class:`~repro_torch.analysis.DiagnosticReport`
+        (or any iterable of objects with a ``code``); wired as the
+        executor's ``verify_sink`` so ``verify="warn"`` drains land here
+        instead of in ``warnings.warn``.
         """
         with self._lock:
             for d in report:

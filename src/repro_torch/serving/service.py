@@ -58,8 +58,9 @@ class FFTService:
     Runs where ``mesh`` lives: a CUDA mesh (``compat.make_mesh``'s
     default, which raises without a GPU) or a CPU one.  ``backends``
     restricts the tuner's searches for the service's families.
-    ``verify`` takes only ``"off"`` until the analysis slice (ROADMAP
-    A.7).
+    ``verify="warn"``/``"strict"`` model-checks every drain's planned
+    order before it launches (the executor's ``verify``); findings land
+    in ``metrics`` per rule code, and strict refuses a queue with errors.
     """
 
     def __init__(self, mesh, *, tune_cache: Optional[TuningCache] = None,
@@ -70,11 +71,6 @@ class FFTService:
                  verify: str = "off",
                  backends: Sequence[str] = BACKENDS,
                  timer: Callable[[], float] = time.perf_counter):
-        if verify != "off":
-            raise NotImplementedError(
-                f"FFTService(verify={verify!r}): the schedule checker "
-                f"belongs to the analysis slice (ROADMAP A.7), which is not "
-                f"ported yet")
         self.tune_cache = tune_cache
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self.watchdog = (watchdog if watchdog is not None
@@ -82,8 +78,15 @@ class FFTService:
         self.timer = timer
         # ONE executor for the service lifetime (it is not mesh-bound);
         # watchdog= implies timed dispatch, so every segment is measured.
-        self.executor = PlanStreamExecutor(watchdog=self.watchdog,
-                                           timer=timer)
+        # verify= is forwarded: every drain's planned segment order passes
+        # the static schedule/provenance/timed checkers before anything
+        # launches, and findings land in ServingMetrics as per-code
+        # counters (the verify_sink) rather than Python warnings — the
+        # JSON dump's "verify_warnings" section is the production surface.
+        self.executor = PlanStreamExecutor(
+            watchdog=self.watchdog, verify=verify, timer=timer,
+            verify_sink=(self.metrics.record_verify_findings
+                         if verify != "off" else None))
         self._bucket_edges = tuple(bucket_edges)
         self._max_batch = max_batch
         self.backends = tuple(backends)

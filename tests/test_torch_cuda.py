@@ -1,8 +1,8 @@
 """Tests that need an NVIDIA GPU: the CUDA four-step kernel against its
 plain version, the kernel-backend plan on the card (bulk and chunked), the
 CUDA-event timer the tuner and calibration use, and on 4 cards over NCCL
-the plans, the plan-stream executor's mixed queue and the service losing
-one card.  They skip where CUDA is absent.  This file imports no JAX, so on a GPU machine without
+the plans, the plan-stream executor's mixed queue (plain, and under the
+static verifier and the sanitizer) and the service losing one card.  They skip where CUDA is absent.  This file imports no JAX, so on a GPU machine without
 JAX it runs with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -290,6 +290,41 @@ def test_executor_mixed_queue_on_four_cards(cuda, tmp_path):
                                                for r in recs],
                       "interleaved_pool_ms": [r["interleaved_pool_ms"]
                                               for r in recs]}))
+
+
+@pytest.mark.cuda
+def test_sanitized_executor_queue_on_four_cards(cuda, tmp_path):
+    """On a 2x2 mesh of cards over NCCL: the executor's mixed queue (two
+    batched 2-D entries, a chunked 256^3 kernel forward and its inverse)
+    plus a donated entry under ``verify="strict", sanitize=True`` in the
+    async, pool and timed modes: no verify error, 0 SAN001 (the ranks'
+    all-gathered launch orders included), every rank's trace order equal
+    to the others', outputs bitwise equal to the solo runs; a rank that
+    reports another order is caught on every rank; an unserialized pool
+    queue is refused before anything launches."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    out_dir = run_ranks("analysis_body", 4, tmp_path, None, (256, 256, 256),
+                        (16, 512, 512), (2, 2), backend="nccl")
+    recs = []
+    for rank in range(4):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    for rank, rec in enumerate(recs):
+        for mode in ("async", "pool", "timed"):
+            r = rec[mode]
+            assert r["bitwise"] == [True] * 5, (rank, mode, r["bitwise"])
+            assert r["sanitize"] == [] and r["san001"] == 0, (rank, mode)
+            assert r["verify_errors"] == [] and r["donated_emptied"]
+            assert r["order"] == recs[0][mode]["order"], (rank, mode)
+        skewed = [w for code, w in rec["skewed"] if code == "SAN001"]
+        assert any(w.startswith("ranks@") for w in skewed), rank
+        u = rec["unserialized"]
+        assert [c for c, _ in u["refused"]] == ["SCHED001"]
+        assert u["queued"] == 5 and all(u["outs"])
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "launches": len(recs[0]["async"]["order"]),
+                      "timed_findings": recs[0]["timed"]["verify_errors"]}))
 
 
 @pytest.mark.cuda

@@ -261,7 +261,8 @@ def test_kernel_operands_are_resolved():
     assert not rx.is_conj() and not rtw.is_conj()
     assert torch.equal(rx, torch.conj_physical(x))
     assert torch.equal(rtw, torch.conj_physical(tw)) and rtw.is_contiguous()
-    neg, _ = tfm._resolved(torch._neg_view(x), None)
+    negated = torch._neg_view(x)  # repro-lint: disable=REP001 no public API
+    neg, _ = tfm._resolved(negated, None)
     assert not neg.is_neg() and torch.equal(neg, -x)
     assert tfm._resolved(x, None)[0] is x       # nothing to do: no copy
     # the wrapper's result honours the bits (the plain version on the CPU)

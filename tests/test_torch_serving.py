@@ -314,8 +314,13 @@ def test_service_watchdog_steps_monotonic_across_drains():
 
 
 def test_service_refuses_what_is_not_ported_and_single_rank_loss():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        FFTService(_mesh(), verify="warn")
+    """``verify=`` is ported now (it wires the metrics sink); a one-rank
+    mesh still has no survivors to lose to."""
+    svc = FFTService(_mesh(), verify="warn")
+    assert svc.executor.verify == "warn"
+    assert svc.executor.verify_sink == svc.metrics.record_verify_findings
+    with pytest.raises(ValueError, match="verify must be one of"):
+        FFTService(_mesh(), verify="loud")
     svc = FFTService(_mesh())
     with pytest.raises(ValueError, match="no survivors"):
         svc.lose_devices(1)

@@ -569,3 +569,93 @@ def serve_body(rank: int, out_dir: str, kwargs: dict) -> None:
                           "shape": list(shape), "completed": len(done)}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(snap, f)
+
+
+def analysis_body(rank: int, out_dir: str, device=None, grid3=(8, 8, 16),
+                  batch2=(4, 8, 8), n_chunks=(4, 2)) -> None:
+    """On a 2x2 mesh: the executor's mixed queue (two batched 2-D
+    entries, a chunked 3-D kernel forward and its inverse) plus a donated
+    2-D entry, run with ``verify="strict", sanitize=True`` in every
+    dispatch mode; then an executor whose rank 1 records its launches in
+    another order (the ranks' order check must see it on every rank), and
+    an unserialized pool queue (flagged SCHED001, refused before any
+    launch).  Every rank records its findings, its launch order and
+    whether its blocks are bitwise equal to the solo runs."""
+    from repro_torch.analysis import PlanVerificationError
+    from repro_torch.compat import gather, make_mesh
+    from repro_torch.core.api import plan_fft
+    from repro_torch.core.executor import PlanStreamExecutor
+    from repro_torch.distributed.fault import StepWatchdog
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    dev = mesh.device
+    p2d = plan_fft(mesh, batch2[1:], batch_shape=batch2[:1])
+    p3d = plan_fft(mesh, grid3, n_chunks=n_chunks, backend="kernel")
+    xa = torch.from_numpy(cplx(batch2, 21)).to(dev)
+    xb = torch.from_numpy(cplx(batch2, 22)).to(dev)
+    y3 = torch.from_numpy(cplx(grid3, 23)).to(dev)
+    yk = gather(p3d.forward(y3), p3d.out_struct.spec, mesh)
+    xd = torch.from_numpy(cplx(batch2, 24)).to(dev)
+    solo = [p2d.forward(xa), p2d.forward(xb), p3d.forward(y3),
+            p3d.inverse(yk), p2d.forward(xd)]
+
+    def queue(ex):
+        ex.submit(p2d, xa)
+        ex.submit(p2d, xb)
+        ex.submit(p3d, y3)
+        ex.submit(p3d, yk, inverse=True)
+        operand = xd.clone()
+        ex.submit(p2d, operand, donate=True)
+        return operand
+
+    def where(report):
+        return sorted([d.code, d.where()] for d in report)
+
+    record = {}
+    for mode, kw in (("async", {}), ("pool", {}),
+                     ("timed", {"watchdog": StepWatchdog()})):
+        sink = []
+        ex = PlanStreamExecutor(mode=mode, verify="strict", sanitize=True,
+                                verify_sink=sink.append, **kw)
+        operand = queue(ex)
+        outs = ex.run()
+        trace = ex.last_trace()
+        record[mode] = {
+            "bitwise": [bool(torch.equal(g, w)) for g, w in zip(outs, solo)],
+            "verify_errors": where(ex.last_verify_report().errors),
+            "sanitize": where(ex.last_sanitize_report()),
+            "san001": ex.sanitize_json()["diff"]["san001"],
+            "order": trace.launch_order(),
+            "turns": [e.turn for e in trace.events],
+            "fates": [[b.tag, b.expect_deleted, b.deleted]
+                      for b in trace.buffers],
+            "donated_emptied": operand.numel() == 0}
+
+    class SkewedRecorder(PlanStreamExecutor):
+        """Rank 1 reports its launches in reverse order."""
+
+        def _finish_sanitize(self, entries):
+            if rank == 1:
+                self._trace.events.reverse()
+            super()._finish_sanitize(entries)
+
+    sink = []
+    ex = SkewedRecorder(sanitize=True, verify_sink=sink.append)
+    queue(ex)
+    ex.run()
+    record["skewed"] = where(ex.last_sanitize_report())
+    record["skewed_sink"] = [where(r) for r in sink]
+
+    ex = PlanStreamExecutor(mode="pool", serialize_dispatch=False,
+                            verify="strict")
+    queue(ex)
+    static = where(ex.verify_schedule())
+    try:
+        ex.run()
+        refused = []
+    except PlanVerificationError as err:
+        refused = where(err.report.errors)
+    record["unserialized"] = {
+        "static": static, "refused": refused, "queued": len(ex),
+        "outs": [e.out is None for e in ex._queue]}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
