@@ -89,10 +89,30 @@ its result line):
     second, and a fourth with ``verify="strict"`` whose
     ``verify_warnings`` stay empty; the metrics JSON in
     ``chiprun_out/serve_fft_metrics_<w>.json``;
-15. a ``kernels`` JSON line (one entry per kernel variant, with the path
+15. ``[lm]``: the LM substrate's ``launch/serve.py`` at qwen3-8b's full
+    width and depth (36 layers, float32 masters, bfloat16 activations; 8
+    requests in batches of 4, 32-token prompts, 16 new tokens), twice from
+    one seed: every request gets 16 tokens in ``[0, padded_vocab)``, the
+    same both times, and no kernel launch (this path has none).  Then
+    finite prefill logits, one decode step against a full forward (rel
+    < 0.15), the card against the CPU on the same weights cut to 2 layers
+    in float32 (1e-4), CUDA-event ms of prefill and per decode step,
+    tokens/s, peak memory, parameter bytes, the decode step's HBM bound,
+    and one decode and one prefill step under ``torch.profiler`` (busy
+    share, busiest kernels);
+16. ``[lm_archs]``: the 10 smoke configs through prefill and 3 decode
+    steps on the card against the CPU (float32 within 1e-4 with equal
+    greedy tokens, bfloat16 within 5e-2);
+17. ``[lm_fftconv]``: the FFT long-convolution mixer at jamba-v0.1-52b's
+    width (8192 channels), B=1: at S=2048 ``fft_backend="kernel"`` within
+    1e-4 of ``"cufft"`` in float32 with exactly 3 radix launches on lines
+    per call and no line copy; S=4096 (the dense path) recorded; the
+    mixer's and its 3 transforms' ms on both backends beside the
+    transforms' bound;
+18. a ``kernels`` JSON line (one entry per kernel variant, with the path
     it ran and, for B1 and B4, the launches on the segments, executor,
-    analysis and serve paths; the serve counts are the first lifetime's
-    traffic drains), then the result line.
+    analysis, serve, lm and lm_fftconv paths; the serve counts are the
+    first lifetime's traffic drains), then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -1026,10 +1046,12 @@ def reset_counts() -> None:
     ops.copies["lines"] = 0
 
 
-def profile_run(fn, device, timer=time.perf_counter) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: the card's kernel time
-    against the window (its busy share), kernels launched, and the
-    ``cudaMalloc`` calls the caching allocator made."""
+def profile_run(fn, device, timer=time.perf_counter, top: int = 0) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the host window, the
+    card's kernel time (kernel events only: an operator's device time
+    repeats its kernels') and busy share, the kernels launched, the
+    ``cudaMalloc`` calls the caching allocator made, and the ``top``
+    kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(device)
@@ -1038,19 +1060,24 @@ def profile_run(fn, device, timer=time.perf_counter) -> dict:
         t0 = timer()
         fn()
         torch.cuda.synchronize(device)
-        window = timer() - t0
+        window = (timer() - t0) * 1e3
     avgs = prof.key_averages()
 
     def device_us(a):
         return getattr(a, "self_device_time_total",
                        getattr(a, "self_cuda_time_total", 0.0))
 
-    busy = sum(device_us(a) for a in avgs) * 1e-3
-    return {"window_ms": window * 1e3, "kernel_ms": busy,
-            "busy_share": busy / (window * 1e3),
-            "kernels": sum(a.count for a in avgs if device_us(a) > 0),
-            "cudaMalloc": sum(a.count for a in avgs
-                              if a.key == "cudaMalloc")}
+    kernels = sorted((a for a in avgs if str(a.device_type).endswith("CUDA")
+                      and device_us(a) > 0), key=device_us, reverse=True)
+    busy = sum(device_us(a) for a in kernels) * 1e-3
+    out = {"window_ms": window, "kernel_ms": busy,
+           "busy_share": busy / window,
+           "kernels": sum(a.count for a in kernels),
+           "cudaMalloc": sum(a.count for a in avgs if a.key == "cudaMalloc")}
+    if top:
+        out["top"] = [{"name": a.key[:80], "count": a.count,
+                       "ms": device_us(a) * 1e-3} for a in kernels[:top]]
+    return out
 
 
 def phase_segments(device, grid=GRID, iters: int = 5) -> dict:
@@ -1555,6 +1582,372 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# The LM substrate's serving path (PR 17)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-8b"
+LM_DECODE_TOL = 0.15      # decode vs full forward, the reference's bound
+LM_F32_TOL = 1e-4         # card vs CPU, float32 logits
+LM_BF16_TOL = 5e-2        # card vs CPU, the configs' bfloat16 logits
+
+
+def lm_batch(cfg, b: int, s: int, seed: int, device) -> dict:
+    """The reference smoke tests' batch (tokens, and the modality stubs'
+    embeddings), made from a seed with numpy."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                                       device=device)}
+    n = {"audio": s, "vision": min(cfg.n_modality_tokens, s)}.get(
+        cfg.modality)
+    if n is not None:
+        batch["modality_embeds"] = torch.as_tensor(
+            rng.standard_normal((b, n, cfg.d_model)), dtype=torch.float32,
+            device=device)
+    elif cfg.n_enc_layers > 0:
+        batch["src_tokens"] = batch["tokens"]
+    return batch
+
+
+def lm_steps(cfg, model, batch: dict, device, steps: int, tokens=None):
+    """Prefill ``batch`` and decode ``steps`` greedy tokens: (the logits
+    of each step, the greedy tokens).  With ``tokens`` (another run's
+    greedy tokens) each step is fed those instead of its own."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import pad_caches
+    s = batch["tokens"].shape[1]
+    last, caches = make_prefill_step(cfg, device=device)(model, batch)
+    caches = pad_caches(caches, cfg, s + steps)
+    decode = make_decode_step(cfg, device=device)
+    logits, toks = [last], [last.argmax(-1).cpu()]
+    for i in range(steps):
+        cur = (tokens[i] if tokens is not None else toks[i]).to(device)
+        nxt, lg, caches = decode(model, caches, cur[:, None], s + i)
+        logits.append(lg)
+        toks.append(nxt.cpu())
+    return logits, toks
+
+
+def phase_lm(device, arch: str = LM_ARCH, smoke: bool = False,
+             requests: int = 8, batch: int = 4, prompt_len: int = 32,
+             max_new: int = 16, check_layers: int = 2,
+             timer=time.perf_counter) -> dict:
+    """``[lm]``: ``launch.serve.serve`` at qwen3-8b's full width and depth
+    (float32 masters, bfloat16 activations, the CLI's defaults), twice from
+    one seed: every request gets ``max_new`` tokens in ``[0,
+    padded_vocab)``, the same tokens both times (serve's wall time, and
+    the tokens/s read from it, include drawing the parameters).  Then, on
+    the step
+    builders: prefill logits finite; one decode step against the last
+    position of a full forward (rel < 0.15, the reference's check, the
+    cache padded as ``serve`` pads it); the same prompt on the card and on
+    the CPU with the same weights, cut to ``check_layers`` layers (depth
+    only) in float32, prefill logits within 1e-4; CUDA-event ms of prefill
+    and per decode step, tokens/s, the peak memory, the parameter bytes,
+    the decode step's HBM bound (the float32 parameter bytes over
+    ``perfmodel.H100_SXM.mem_bw``) and one profiled decode step's busiest
+    operations.  No hand-written kernel is on this path (the JAX package
+    computes attention with no Pallas kernel): its launches are counted,
+    and 0."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.perfmodel import H100_SXM
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import (build_params, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import costs, transformer as tfm
+    cuda = device.type == "cuda"
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "requests": requests, "batch": batch, "prompt_len": prompt_len,
+           "max_new": max_new}
+
+    runs = []
+    for _ in range(2):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = timer()
+        toks = serve(arch, smoke=smoke, requests=requests, batch=batch,
+                     prompt_len=prompt_len, max_new=max_new, seed=SEED,
+                     device=None if cuda else device, timer=timer)
+        runs.append({"seconds": timer() - t0, "tokens": toks,
+                     "counts": path_counts(),
+                     "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                                    if cuda else None)})
+        if cuda:
+            torch.cuda.empty_cache()
+    toks = runs[0]["tokens"]
+    check(len(toks) == requests
+          and all(len(r) == max_new for r in toks)
+          and all(0 <= t < cfg.padded_vocab for r in toks for t in r),
+          f"[lm] serve returned {[len(r) for r in toks]} tokens per request "
+          f"or a token outside [0, {cfg.padded_vocab})")
+    check(runs[1]["tokens"] == toks, "[lm] two serve runs from one seed "
+          "gave different tokens")
+    check(runs[0]["counts"]["launches"] == 0, f"[lm] kernel launches on the "
+          f"LM serve path: {runs[0]['counts']}")
+    out.update(serve_seconds=[r["seconds"] for r in runs],
+               serve_tokens_per_s_incl_setup=[
+                   requests * max_new / r["seconds"] for r in runs],
+               serve_peak_bytes=runs[0]["peak_bytes"],
+               counts=runs[0]["counts"], first_request=toks[0])
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    model = build_params(cfg, seed=SEED, device=device)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    counted = costs.param_counts(cfg)["total"]
+    check(abs(param_bytes / 4 - counted) / counted < 1e-3,
+          f"[lm] {param_bytes / 4} parameters built, {counted} counted")
+    prefill = make_prefill_step(cfg, device=device)
+    decode = make_decode_step(cfg, device=device)
+    data = lm_batch(cfg, batch, prompt_len, SEED, device)
+    last, caches = prefill(model, data)
+    check(bool(torch.isfinite(last.float()).all()), "[lm] non-finite "
+          "prefill logits")
+
+    # decode against a full forward, the cache padded as serve pads it
+    new_tok = torch.full((batch, 1), 3, dtype=torch.long, device=device)
+    _, lg, _ = decode(model, tfm.pad_caches(caches, cfg, prompt_len + 1),
+                      new_tok, prompt_len)
+    with torch.no_grad():
+        full, _, _ = tfm.forward(model, cfg, None, dict(
+            data, tokens=torch.cat([data["tokens"], new_tok], 1)))
+    rel = scaled_err(lg.float(), full[:, -1].float())
+    del full
+    check(bool(torch.isfinite(lg.float()).all()) and rel < LM_DECODE_TOL,
+          f"[lm] decode vs full forward {rel:.4f} (bound {LM_DECODE_TOL})")
+    out["decode_vs_forward_rel"] = rel
+
+    if cuda:
+        iters = max_new - 1
+        out["prefill_ms"] = time_ms(lambda: prefill(model, data), iters=3,
+                                    warmup=1)
+
+        def decode_run():
+            _, c = prefill(model, data)
+            c = tfm.pad_caches(c, cfg, prompt_len + max_new)
+            cur = new_tok
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(iters):
+                nxt, _, c = decode(model, c, cur, prompt_len + i)
+                cur = nxt[:, None]
+            stop.record()
+            stop.synchronize()
+            return start.elapsed_time(stop) / iters
+
+        decode_run()   # warm-up
+        step_ms = [decode_run() for _ in range(3)]
+        _, c = prefill(model, data)
+        c = tfm.pad_caches(c, cfg, prompt_len + max_new)
+        out["decode_profile"] = profile_run(
+            lambda: decode(model, c, new_tok, prompt_len), device,
+            timer=timer, top=8)
+        out["prefill_profile"] = profile_run(lambda: prefill(model, data),
+                                             device, timer=timer, top=8)
+        out.update(decode_step_ms=statistics.median(step_ms),
+                   decode_step_ms_runs=step_ms,
+                   tokens_per_s=batch * 1e3 / statistics.median(step_ms),
+                   peak_bytes=torch.cuda.max_memory_allocated(device))
+    bound = param_bytes / H100_SXM.mem_bw * 1e3
+    out.update(param_bytes=param_bytes, decode_bound_ms=bound,
+               decode_bound_by="bytes")
+    del model, caches
+    if cuda:
+        del c
+        torch.cuda.empty_cache()
+
+    # the card against the CPU, same weights, cut to check_layers layers
+    cut = dataclasses.replace(cfg, n_layers=check_layers, dtype="float32")
+    cpu = torch.device("cpu")
+    ref_model = build_params(cut, seed=SEED, device=device).to(cpu)
+    dev_model = build_params(cut, seed=SEED, device=device)
+    with torch.no_grad():
+        got, _, _ = tfm.forward(dev_model, cut, None, data, mode="prefill")
+        ref, _, _ = tfm.forward(ref_model, cut, None,
+                                {k: v.to(cpu) for k, v in data.items()},
+                                mode="prefill")
+    err = scaled_err(got.float().cpu(), ref)
+    check(err < LM_F32_TOL, f"[lm] {check_layers}-layer float32 prefill, "
+          f"card vs CPU: {err:.3e} (bound {LM_F32_TOL})")
+    out["card_vs_cpu_err"] = err
+    del ref_model, dev_model, got, ref
+    if cuda:
+        torch.cuda.empty_cache()
+
+    if cuda:
+        print(f"[lm] {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}): {requests} requests x {max_new} tokens "
+              f"served twice, same tokens; serve {out['serve_seconds']} s "
+              f"({out['serve_tokens_per_s_incl_setup']} tokens/s, drawing "
+              f"the parameters included); prefill "
+              f"{out['prefill_ms']:.4f} ms ({batch}x{prompt_len}); decode "
+              f"{out['decode_step_ms']:.4f} ms per step (runs {step_ms}), "
+              f"{out['tokens_per_s']:.2f} tokens/s, HBM bound "
+              f"{bound:.4f} ms ({param_bytes} float32 parameter bytes); "
+              f"peak {out['peak_bytes']} bytes; decode vs full forward "
+              f"{rel:.4f}; {check_layers}-layer card vs CPU {err:.3e}")
+        for name in ("decode", "prefill"):
+            print(f"[lm] one {name} step under torch.profiler: "
+                  + json.dumps(out[f"{name}_profile"]))
+    return out
+
+
+def phase_lm_archs(device, steps: int = 3, b: int = 2, s: int = 32) -> dict:
+    """``[lm_archs]``: each of the 10 smoke configs through prefill and
+    ``steps`` greedy decode steps on ``device``, held against the same port
+    code and weights on the CPU (fed the CPU's greedy tokens): float32
+    logits within 1e-4 with equal greedy tokens, the configs' bfloat16
+    within 5e-2."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.steps import build_params
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+            model = build_params(cfg, seed=SEED, device=cpu)
+            data = lm_batch(cfg, b, s, SEED, cpu)
+            ref_lg, ref_toks = lm_steps(cfg, model, data, cpu, steps)
+            lg, toks = lm_steps(cfg, model.to(device), {
+                k: v.to(device) for k, v in data.items()}, device, steps,
+                tokens=ref_toks)
+            err = max(scaled_err(g.float().cpu(), r.float())
+                      for g, r in zip(lg, ref_lg))
+            same = all(torch.equal(g, r) for g, r in zip(toks, ref_toks))
+            tol = LM_F32_TOL if dtype == "float32" else LM_BF16_TOL
+            check(err < tol and (same or dtype == "bfloat16"),
+                  f"[lm_archs] {arch} {dtype}: card vs CPU {err:.3e} "
+                  f"(bound {tol}), greedy tokens equal: {same}")
+            out[f"{arch}/{dtype}"] = {"err": err, "tokens_equal": same}
+    print(f"[lm_archs] {len(ARCHS)} smoke configs, prefill + {steps} "
+          f"decode steps, card vs CPU: " + json.dumps(out))
+    return out
+
+
+def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096),
+                     iters: int = 10) -> dict:
+    """``[lm_fftconv]``: ``ssm.fft_conv`` at jamba-v0.1-52b's width (d_model
+    4096, expand 2: 8192 channels, 16 basis functions), B=1, in float32 and
+    in the config's bfloat16, ``fft_backend="kernel"`` against ``"cufft"``.
+    At S=2048 (lines of 4096, the radix path) the float32 mixer output must
+    be within 1e-4 max-scaled, with exactly 3 launches per call (the
+    counts set to 0 just before the call and read just after), all radix,
+    on lines, and no line copy.  S=4096 (lines of 8192) takes the dense
+    path and is held to the same error and counts (3 dense launches); its
+    times are recorded, not gated.  The 3 transforms alone, kernel
+    against cufft, are held to the kernel's complex64 tolerance at both
+    lengths.  CUDA-event ms of the mixer on both
+    backends, of its 3 transforms alone on the kernel and on
+    ``torch.fft``, and the 3 transforms' bound."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import transforms as ctf
+    from repro_torch.distributed.sharding import ParamBuilder
+    from repro_torch.kernels import radix
+    from repro_torch.models import ssm
+    cuda = device.type == "cuda"
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              ssm_impl="fft_conv")
+    di = cfg.expand * cfg.d_model
+    params = ssm.init_fft_conv(ParamBuilder(SEED, device=device), "ssm",
+                               cfg)
+
+    def mixer(x, fft_backend):
+        return ssm.fft_conv(params, cfg, None, x, fft_backend=fft_backend)
+
+    out = {"d_model": cfg.d_model, "channels": di, "b": b, "runs": []}
+    for s in seqs:
+        n = 2 * s
+        path = radix.kernel_path(n, torch.complex64)
+        run = {"s": s, "n": n, "path": path}
+        x32 = randc((b, s, cfg.d_model), torch.float32, device, SEED + s)
+        for name, x in (("float32", x32), ("bfloat16", x32.bfloat16())):
+            ref, _ = mixer(x, fft_backend="cufft")
+            reset_counts()
+            got, _ = mixer(x, fft_backend="kernel")
+            if cuda:
+                torch.cuda.synchronize(device)
+            counts = path_counts()
+            run[name] = {"err": scaled_err(got.float(), ref.float()),
+                         "counts": counts}
+            if cuda:
+                run[name].update(
+                    kernel_ms=time_ms(lambda: mixer(x, fft_backend="kernel"),
+                                      iters=iters),
+                    cufft_ms=time_ms(lambda: mixer(x, fft_backend="cufft"),
+                                     iters=iters))
+        if cuda:
+            c = run["float32"]["counts"]
+            other = "dense" if path == "radix" else "radix"
+            check(c["launches"] == 3 and c[path] == 3 and c["lines"] == 3
+                  and c[other] == 0 and c["copies"] == 0,
+                  f"[lm_fftconv] S={s}: counts {c}, expected 3 {path} "
+                  f"launches on lines and no copy")
+        check(run["float32"]["err"] < LM_F32_TOL,
+              f"[lm_fftconv] S={s} float32 kernel vs cufft "
+              f"{run['float32']['err']:.3e} (bound {LM_F32_TOL})")
+        # the 3 transforms alone, at the mixer's shapes
+        xt = randc((b, di, n), torch.complex64, device, SEED + 1)
+        hp = randc((di, n), torch.complex64, device, SEED + 2)
+
+        def transforms(backend):
+            xf = ctf.apply_1d(xt, -1, "fft", backend=backend)
+            hf = ctf.apply_1d(hp, -1, "fft", backend=backend)
+            return ctf.apply_1d(xf * hf[None], -1, "ifft", backend=backend)
+
+        run["transforms_err"] = scaled_err(transforms("kernel"),
+                                           transforms("cufft"))
+        check(run["transforms_err"] <= TOL["complex64"],
+              f"[lm_fftconv] S={s}: the 3 transforms, kernel vs cufft "
+              f"{run['transforms_err']:.3e} (bound {TOL['complex64']})")
+        t_lines, by = fft_bound_ms(b * di, n, 8)
+        t_h, _ = fft_bound_ms(di, n, 8)
+        run.update(transforms_bound_ms=2 * t_lines + t_h,
+                   transforms_bound_by=by)
+        if cuda:
+            run["transforms_kernel_ms"] = time_ms(lambda: transforms("kernel"),
+                                                  iters=iters)
+            run["transforms_cufft_ms"] = time_ms(lambda: transforms("cufft"),
+                                                 iters=iters)
+        out["runs"].append(run)
+        del xt, hp, x32
+        if cuda:
+            torch.cuda.empty_cache()
+    main = out["runs"][0]
+    out.update(launches=main["float32"]["counts"]["launches"],
+               scaled_err=main["transforms_err"])
+    if cuda:
+        for r in out["runs"]:
+            print(f"[lm_fftconv] S={r['s']} (lines of {r['n']}, {r['path']} "
+                  f"path): mixer kernel vs cufft float32 "
+                  f"{r['float32']['err']:.3e}, bfloat16 "
+                  f"{r['bfloat16']['err']:.3e}; launches per call "
+                  f"{r['float32']['counts']}; mixer ms kernel / cufft: "
+                  f"float32 {r['float32']['kernel_ms']:.4f} / "
+                  f"{r['float32']['cufft_ms']:.4f}, bfloat16 "
+                  f"{r['bfloat16']['kernel_ms']:.4f} / "
+                  f"{r['bfloat16']['cufft_ms']:.4f}; the 3 transforms "
+                  f"{r['transforms_kernel_ms']:.4f} ms on the kernel, "
+                  f"{r['transforms_cufft_ms']:.4f} on torch.fft, bound "
+                  f"{r['transforms_bound_ms']:.4f} "
+                  f"({r['transforms_bound_by']})")
+    return out
+
 def main(timer=time.perf_counter) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1594,12 +1987,20 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["serve"] = serve = phase_serve(device)
     torch.cuda.empty_cache()
+    report["lm"] = lm = phase_lm(device, timer=timer)
+    torch.cuda.empty_cache()
+    report["lm_archs"] = phase_lm_archs(device)
+    torch.cuda.empty_cache()
+    report["lm_fftconv"] = fftconv = phase_lm_fftconv(device)
+    torch.cuda.empty_cache()
 
     def by_path(layout):
         return {"segments": segs["forward"][layout] + segs["inverse"][layout],
                 "executor": execu["counts"][layout],
                 "analysis": analysis["counts"][layout],
-                "serve": serve["counts"][layout]}
+                "serve": serve["counts"][layout],
+                "lm": lm["counts"][layout],
+                "lm_fftconv": fftconv["runs"][0]["float32"]["counts"][layout]}
     kernels = [
         {"name": "fft_fourstep", "route": "cuda", "source": RADIX_SOURCE,
          "path": "radix",

@@ -2,7 +2,9 @@
 plain version, the kernel-backend plan on the card (bulk and chunked), the
 CUDA-event timer the tuner and calibration use, and on 4 cards over NCCL
 the plans, the plan-stream executor's mixed queue (plain, and under the
-static verifier and the sanitizer) and the service losing one card.  They skip where CUDA is absent.  This file imports no JAX, so on a GPU machine without
+static verifier and the sanitizer) and the service losing one card; the LM
+smoke serving path on the card against the CPU, and the FFT
+long-convolution mixer on the kernel.  They skip where CUDA is absent.  This file imports no JAX, so on a GPU machine without
 JAX it runs with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -359,3 +361,77 @@ def test_service_loses_one_of_four_cards(cuda, tmp_path):
                       "rps": recs[0]["driver"]["rps"],
                       "degraded_rps": recs[0]["degraded_throughput_rps"],
                       "families": recs[0]["driver"]["families"]}))
+
+
+def _scaled(got, ref) -> float:
+    ref = ref.float().cpu()
+    return float((got.float().cpu() - ref).abs().max()) \
+        / max(float(ref.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_8b", "jamba_v0_1_52b",
+                                  "seamless_m4t_medium"])
+def test_lm_smoke_prefill_and_decode_on_the_card(cuda, arch):
+    """A smoke config's prefill and 3 greedy decode steps on the card
+    against the same port code and weights on the CPU, in float32: logits
+    within 1e-4 max-scaled and equal greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import (build_params, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models.transformer import pad_caches
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 32)))}
+    if cfg.modality == "audio":
+        batch["modality_embeds"] = torch.as_tensor(
+            rng.standard_normal((2, 32, cfg.d_model)), dtype=torch.float32)
+    runs = {}
+    for dev in (cpu, cuda):
+        model = build_params(cfg, device=cpu).to(dev)
+        last, caches = make_prefill_step(cfg, device=dev)(model, batch)
+        caches = pad_caches(caches, cfg, 36)
+        step = make_decode_step(cfg, device=dev)
+        logits, toks = [last], []
+        cur = (runs[cpu][1][0] if dev == cuda
+               else last.argmax(-1))[:, None]
+        for i in range(3):
+            nxt, lg, caches = step(model, caches, cur.to(dev), 32 + i)
+            logits.append(lg)
+            toks.append(nxt.cpu())
+            cur = (runs[cpu][1][i + 1] if dev == cuda else nxt)[:, None]
+        runs[dev] = (logits, [last.argmax(-1).cpu()] + toks)
+    for got, ref in zip(runs[cuda][0], runs[cpu][0]):
+        assert _scaled(got, ref) < 1e-4
+    for got, ref in zip(runs[cuda][1], runs[cpu][1]):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_fft_conv_kernel_on_the_card(cuda):
+    """``ssm.fft_conv`` with ``fft_backend="kernel"`` at a smoke width:
+    exactly 3 radix launches on lines, no line copy, and the output within
+    1e-4 of ``"cufft"``."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import ParamBuilder
+    from repro_torch.models.ssm import FFTConv
+
+    cfg = dataclasses.replace(smoke_config("jamba_v0_1_52b"),
+                              ssm_impl="fft_conv", dtype="float32")
+    mixer = FFTConv(ParamBuilder(0, device=cuda), "ssm", cfg)
+    x = torch.randn((2, 64, cfg.d_model), device=cuda)
+    ref, _ = mixer(x, fft_backend="cufft")
+    tfm.reset_launch_counts()
+    copies = ops.copies["lines"]
+    got, _ = mixer(x, fft_backend="kernel")
+    torch.cuda.synchronize()
+    counts = tfm.launch_counts()
+    assert counts["launches"] == counts["radix"] == counts["lines"] == 3
+    assert ops.copies["lines"] == copies
+    assert _scaled(got, ref) < 1e-4

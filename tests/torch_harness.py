@@ -659,3 +659,20 @@ def analysis_body(rank: int, out_dir: str, device=None, grid3=(8, 8, 16),
         "outs": [e.out is None for e in ex._queue]}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
+
+
+def lm_mesh_body(rank: int, out_dir: str) -> None:
+    """``launch.mesh.make_host_mesh`` under the process group, and whether
+    ``launch.serve.serve`` refuses the multi-rank mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve
+    mesh = make_host_mesh(device="cpu")
+    rec = {"shape": list(mesh.shape), "names": list(mesh.axis_names),
+           "coords": list(mesh.coords), "device": str(mesh.device)}
+    try:
+        serve("qwen3-8b", requests=1, mesh=mesh, device="cpu")
+        rec["refused"] = False
+    except NotImplementedError:
+        rec["refused"] = True
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
