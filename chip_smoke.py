@@ -109,10 +109,28 @@ its result line):
     per call and no line copy; S=4096 (the dense path) recorded; the
     mixer's and its 3 transforms' ms on both backends beside the
     transforms' bound;
-18. a ``kernels`` JSON line (one entry per kernel variant, with the path
+18. ``[train_fftconv]``: the same mixer's forward and backward at S=2048
+    in float32 on ``fft_backend="kernel"`` (the line transforms'
+    autograd Function) against ``"cufft"``: every gradient within 1e-4,
+    exactly 6 radix launches on lines and no line copy, CUDA-event ms on
+    both backends beside the 6 transforms' bound;
+19. ``[train]``: the LM train step at qwen3-8b's full width with the
+    depth cut to 8 of 36 layers (float32 masters and AdamW moments,
+    bfloat16 activations, remat, bfloat16 gradients), B=1, S=4096, 5
+    steps of ``SyntheticLM`` data, twice from one seed: losses finite and
+    falling, the two runs within 1e-3; the card against the CPU at 2
+    layers in float32 (loss and gradient leaves within 1e-4); ms per
+    step, tokens/s, the FLOP and byte bounds, peak memory and one
+    profiled step;
+20. ``[train_ckpt]``: ``launch/train.py``'s ``train`` at the smoke
+    config in a temporary directory, preempted at step 10 and resumed,
+    against 20 uninterrupted steps (losses within 1e-3), the checkpoint
+    restored onto the CPU equal to its restore onto the card;
+21. a ``kernels`` JSON line (one entry per kernel variant, with the path
     it ran and, for B1 and B4, the launches on the segments, executor,
-    analysis, serve, lm and lm_fftconv paths; the serve counts are the
-    first lifetime's traffic drains), then the result line.
+    analysis, serve, lm, lm_fftconv and train_fftconv paths; the serve
+    counts are the first lifetime's traffic drains), then the result
+    line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -1948,6 +1966,311 @@ def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096),
                   f"({r['transforms_bound_by']})")
     return out
 
+# ---------------------------------------------------------------------------
+# The LM substrate's training path (PR 18)
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12  # one H100 SXM, dense bf16 tensor cores
+TRAIN_LAYERS = 8          # qwen3-8b's depth cut from 36 (training state)
+TRAIN_STEPS = 5
+TRAIN_DET_TOL = 1e-3      # the same seed twice: embedding/gather atomics
+GRAD_TOL = 1e-4           # gradients, kernel vs cufft and card vs CPU
+
+
+def phase_train_fftconv(device, b: int = 1, s: int = 2048,
+                        iters: int = 5) -> dict:
+    """``[train_fftconv]``: ``ssm.fft_conv`` forward and backward at
+    jamba-v0.1-52b's mixer width (8192 channels, 16 basis functions),
+    B=1, S=2048, float32, on ``fft_backend="kernel"`` (the autograd
+    Function, ``kernels/ops.LineTransform``) against ``"cufft"``
+    (torch.fft's autograd): every gradient (w_in, basis_w, decay, w_out,
+    the input) within 1e-4 max-scaled; exactly 6 radix launches on lines
+    per forward and backward (3 + the 3 adjoints, the counts set to 0
+    just before and read just after) and no line copy; CUDA-event ms of
+    forward and backward on both backends beside the bound of its 6
+    transforms (bytes over HBM bandwidth, as ``[lm_fftconv]`` reckons
+    its 3)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ParamBuilder
+    from repro_torch.models import ssm
+    cuda = device.type == "cuda"
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              ssm_impl="fft_conv", dtype="float32")
+    di, n = cfg.expand * cfg.d_model, 2 * s
+    params = ssm.init_fft_conv(ParamBuilder(SEED, device=device), "ssm",
+                               cfg)
+    params.requires_grad_(True)
+    x = randc((b, s, cfg.d_model), torch.float32, device, SEED + 7)
+    r = randc((b, s, cfg.d_model), torch.float32, device, SEED + 8)
+
+    def fwd_bwd(backend):
+        for p in params.parameters():
+            p.grad = None
+        xx = x.detach().requires_grad_(True)
+        y, _ = ssm.fft_conv(params, cfg, None, xx, fft_backend=backend)
+        (y * r).sum().backward()
+        return {**{k: p.grad for k, p in params.named_parameters()},
+                "x": xx.grad}
+
+    ref = fwd_bwd("cufft")
+    reset_counts()
+    got = fwd_bwd("kernel")
+    if cuda:
+        torch.cuda.synchronize(device)
+    counts = path_counts()
+    errs = {k: scaled_err(got[k], ref[k]) for k in ref}
+    out = {"d_model": cfg.d_model, "channels": di, "b": b, "s": s, "n": n,
+           "counts": counts, "grad_errs": errs,
+           "launches": counts["launches"]}
+    check(all(e < GRAD_TOL for e in errs.values()),
+          f"[train_fftconv] kernel vs cufft gradients {errs} (bound "
+          f"{GRAD_TOL})")
+    check(all(bool(v.abs().max() > 0) for v in got.values()),
+          "[train_fftconv] a gradient is all zeros")
+    if cuda:
+        check(counts["launches"] == 6 and counts["radix"] == 6
+              and counts["lines"] == 6 and counts["copies"] == 0,
+              f"[train_fftconv] counts {counts}, expected 6 radix launches "
+              f"on lines and no copy")
+    t_lines, by = fft_bound_ms(b * di, n, 8)
+    t_h, _ = fft_bound_ms(di, n, 8)
+    out.update(bound_ms=4 * t_lines + 2 * t_h, bound_by=by)
+    if cuda:
+        out["kernel_ms"] = time_ms(lambda: fwd_bwd("kernel"), iters=iters)
+        out["cufft_ms"] = time_ms(lambda: fwd_bwd("cufft"), iters=iters)
+        print(f"[train_fftconv] S={s}, {di} channels: forward+backward "
+              f"kernel vs cufft gradients {json.dumps(errs)}; launches "
+              f"{counts}; ms kernel {out['kernel_ms']:.4f} / cufft "
+              f"{out['cufft_ms']:.4f}; the 6 transforms' bound "
+              f"{out['bound_ms']:.4f} ({by})")
+    del params, x, r, ref, got
+    return out
+
+
+def train_flops(cfg, tokens: int, seq: int) -> dict:
+    """The step's least work: ``6 * N * T`` for the N parameters that
+    multiply activations (every layer's projections and the LM head; the
+    embedding lookup is no matmul) over T tokens, plus causal attention
+    ``6 * L * S^2 * H * hd`` per sequence (QK^T and PV, forward and twice
+    that backward, half the S^2 pairs).  Recomputation is not counted:
+    it is the step's choice, not the function's work."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    h, k = cfg.n_heads, cfg.n_kv_heads
+    per_layer = d * h * hd * 2 + d * k * hd * 2 + 3 * d * cfg.d_ff
+    n_mm = cfg.n_layers * per_layer + d * cfg.padded_vocab
+    attn = 6 * cfg.n_layers * seq * seq * h * hd * (tokens // seq)
+    return {"matmul_params": n_mm, "flops": 6 * n_mm * tokens + attn}
+
+
+def phase_train(device, arch: str = LM_ARCH, layers: int = TRAIN_LAYERS,
+                seq: int = 4096, batch: int = 1, steps: int = TRAIN_STEPS,
+                check_layers: int = 2, check_seq: int = 256,
+                timer=time.perf_counter) -> dict:
+    """``[train]``: ``launch/train.py``'s step (``make_train_step``) at
+    qwen3-8b's full width (d_model 4096,
+    32 heads, kv 8, d_ff 12288, vocab 151936, qk-norm), depth cut to
+    ``layers`` of 36, bfloat16 activations, float32 masters and AdamW
+    moments, ``remat=True``, ``grad_compress=True``; ``train_4k``'s
+    sequence of 4096 with the batch cut from 256 to 1; ``steps`` steps of
+    ``SyntheticLM`` data from seed 0, twice from one seed.  The optimizer
+    is ``AdamWConfig()``, the reference's defaults (peak 3e-4, warm-up 100
+    of 10000 steps): these are the first steps of a run.  With
+    ``train()``'s schedule for a 5-step run (warm-up 2) the loss rises
+    after the first update at this width (PERF.md, PR 18).  Gates: every
+    loss finite, the last below the first, the two runs' losses within
+    1e-3 relative (embedding and gather backward accumulate with atomics
+    on the card); the same step on the card and on the CPU from the same
+    weights cut to ``check_layers`` layers in float32 on ``check_seq``
+    tokens, loss and gradient leaves within 1e-4.  Records ms per step
+    (CUDA events, the median of the steps after the first), tokens/s, the
+    FLOP and byte bounds, peak memory, and one step under
+    ``torch.profiler``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import (build_params, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.convert import param_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cuda = device.type == "cuda"
+    full = get_config(arch) if cuda else smoke_config(arch)
+    cfg = dataclasses.replace(full, n_layers=min(layers, full.n_layers))
+    shape = SHAPES["train_4k"]
+    opt_cfg = AdamWConfig()
+    data = SyntheticLM(cfg, shape, seed=SEED, batch_override=batch,
+                       seq_override=seq)
+    step_fn = make_train_step(cfg, None, opt_cfg, remat=True,
+                              grad_compress=True, device=device)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "layers_of": full.n_layers, "d_model": cfg.d_model,
+           "seq": seq, "batch": batch, "steps": steps,
+           "reduced": [f"depth {cfg.n_layers} of {full.n_layers} layers",
+                       f"batch {batch} of {shape.global_batch}"]}
+
+    def run(profile: bool = False):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        model = build_params(cfg, seed=SEED, device=device)
+        state = adamw_init(param_leaves(model), opt_cfg)
+        losses, events = [], []
+        for i in range(steps):
+            b_ = data.device_batch(i, device)
+            if cuda:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            _, _, metrics = step_fn(model, state, b_)
+            if cuda:
+                ev[1].record()
+                events.append(ev)
+            losses.append(metrics["loss"])
+        losses = [float(v) for v in losses]
+        rec = {"losses": losses}
+        if cuda:
+            torch.cuda.synchronize(device)
+            rec["step_ms"] = [a.elapsed_time(z) for a, z in events]
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+            if profile:
+                b_ = data.device_batch(steps, device)
+                rec["profile"] = profile_run(
+                    lambda: step_fn(model, state, b_), device, timer=timer,
+                    top=16)
+        rec["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in model.parameters())
+        del model, state
+        if cuda:
+            torch.cuda.empty_cache()
+        return rec
+
+    first = run(profile=True)
+    second = run()
+    l1, l2 = first["losses"], second["losses"]
+    rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(l1, l2))
+    check(all(math.isfinite(v) for v in l1 + l2),
+          f"[train] non-finite loss {l1} {l2}")
+    check(l1[-1] < l1[0], f"[train] the loss did not fall: {l1}")
+    check(rel <= TRAIN_DET_TOL, f"[train] two runs from one seed: "
+          f"{l1} vs {l2} (rel {rel:.3e}, bound {TRAIN_DET_TOL})")
+    out.update(losses=l1, losses_again=l2, same_seed_rel=rel,
+               same_seed_bitwise=l1 == l2, param_bytes=first["param_bytes"])
+    work = train_flops(cfg, batch * seq, seq)
+    t_ops = work["flops"] / PEAK_BF16_FLOPS * 1e3
+    # params, m and v read once and written once (float32 state)
+    state_bytes = 3 * first["param_bytes"]
+    t_bytes = 2 * state_bytes / PEAK_HBM_BYTES * 1e3
+    out.update(matmul_params=work["matmul_params"], flops=work["flops"],
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops_bound_ms=t_ops, bytes_bound_ms=t_bytes)
+    if cuda:
+        ms = statistics.median(first["step_ms"][1:])
+        out.update(step_ms=ms, step_ms_runs=[first["step_ms"],
+                                             second["step_ms"]],
+                   tokens_per_s=batch * seq * 1e3 / ms,
+                   peak_bytes=first["peak_bytes"],
+                   profile=first["profile"])
+
+    # the card against the CPU, same weights, cut to check_layers layers
+    cut = dataclasses.replace(cfg, n_layers=check_layers, dtype="float32")
+    cpu = torch.device("cpu")
+    host = SyntheticLM(cut, shape, seed=SEED, batch_override=1,
+                       seq_override=check_seq).batch_for_step(0)
+    res = {}
+    for dev in (device, cpu):
+        model = build_params(cut, seed=SEED, device=device).to(dev)
+        loss, _, grads = loss_and_grads(model, cut, None,
+                                        SyntheticLM.to_device(host, dev))
+        pick = [k for k in grads if k[0] in ("embed", "lm_head",
+                                             "decoder/layer0/attn/wq",
+                                             "decoder/layer0/mlp/w_down")]
+        res[dev.type] = (float(loss), {k: grads[k].cpu() for k in pick})
+        del model, grads
+        if cuda:
+            torch.cuda.empty_cache()
+    (lc, gc), (lr_, gr) = res[device.type], res["cpu"]
+    gerr = {"/".join(map(str, k)): scaled_err(gc[k], gr[k]) for k in gr}
+    lerr = abs(lc - lr_) / abs(lr_)
+    check(lerr < LM_F32_TOL and all(e < GRAD_TOL for e in gerr.values()),
+          f"[train] {check_layers}-layer float32 card vs CPU: loss "
+          f"{lerr:.3e}, gradients {gerr} (bound {GRAD_TOL})")
+    out.update(card_vs_cpu_loss_rel=lerr, card_vs_cpu_grad_errs=gerr)
+    if cuda:
+        print(f"[train] {cfg.name} at {cfg.n_layers} of {full.n_layers} "
+              f"layers, d_model {cfg.d_model}, B={batch} S={seq}, remat, "
+              f"bf16 grads: losses {l1} (again {l2}, rel {rel:.3e}); "
+              f"{out['step_ms']:.2f} ms per step (runs "
+              f"{out['step_ms_runs']}), {out['tokens_per_s']:.1f} tokens/s; "
+              f"bound {out['bound_ms']:.2f} ms ({out['bound_by']}: "
+              f"{work['flops']:.4e} FLOP, {work['matmul_params']} matmul "
+              f"parameters; bytes {t_bytes:.2f} ms); peak "
+              f"{out['peak_bytes']} bytes ({first['param_bytes']} parameter "
+              f"bytes); {check_layers}-layer card vs CPU loss {lerr:.3e}, "
+              f"gradients {json.dumps(gerr)}")
+        print("[train] one step under torch.profiler: "
+              + json.dumps(out["profile"]))
+    return out
+
+
+def phase_train_ckpt(device, arch: str = LM_ARCH, steps: int = 20,
+                     every: int = 10) -> dict:
+    """``[train_ckpt]``: ``launch/train.py``'s ``train`` at the smoke config
+    on ``device`` in a temporary directory (a full-width checkpoint would
+    write 33 GB): ``steps`` steps straight, against ``every`` steps, a
+    simulated preemption (``stop_after``) and a resume; the losses within
+    1e-3 relative (the reference's bound; the embedding's backward
+    accumulates with atomics on the card); the final checkpoint restored
+    onto the CPU equal to the same checkpoint restored onto the card."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import train
+    out = {"arch": arch, "steps": steps, "every": every,
+           "reduced": ["smoke width: a full-width checkpoint is 33 GB"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(steps=steps, smoke=True, ckpt_every=every,
+                  log_every=steps, seed=SEED, device=device)
+        full = train(arch, ckpt_dir=os.path.join(tmp, "a"), **kw)
+        part = train(arch, ckpt_dir=os.path.join(tmp, "b"),
+                     stop_after=every, **kw)
+        rest = train(arch, ckpt_dir=os.path.join(tmp, "b"), **kw)
+        mgr = CheckpointManager(os.path.join(tmp, "b"))
+        step_cpu, on_cpu = mgr.restore(device="cpu")
+        _, on_dev = mgr.restore(device=device)
+    joined = part["losses"] + rest["losses"]
+    rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(joined, full["losses"]))
+    check(len(part["losses"]) == every and len(joined) == steps
+          and rel <= TRAIN_DET_TOL,
+          f"[train_ckpt] resumed {joined} vs uninterrupted {full['losses']} "
+          f"(rel {rel:.3e}, bound {TRAIN_DET_TOL})")
+
+    def leaves(tree, pre=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{pre}{k}/")
+            else:
+                yield pre + k, v
+    cpu_leaves, dev_leaves = dict(leaves(on_cpu)), dict(leaves(on_dev))
+    check(step_cpu == steps and sorted(cpu_leaves) == sorted(dev_leaves)
+          and all(v.device.type == "cpu" for v in cpu_leaves.values())
+          and all(torch.equal(v, dev_leaves[k].cpu())
+                  for k, v in cpu_leaves.items())
+          and int(on_cpu["opt"]["count"]) == steps,
+          "[train_ckpt] the checkpoint restored onto the CPU differs from "
+          "the one restored onto the card")
+    out.update(losses=full["losses"], resumed=joined, rel=rel,
+               bitwise=joined == full["losses"], arrays=len(cpu_leaves))
+    print(f"[train_ckpt] {arch} smoke, {steps} steps: resumed at step "
+          f"{every} vs uninterrupted rel {rel:.3e} (bitwise "
+          f"{out['bitwise']}); {len(cpu_leaves)} arrays restored onto the "
+          f"CPU, equal to the card's")
+    return out
+
+
 def main(timer=time.perf_counter) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1993,6 +2316,12 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["lm_fftconv"] = fftconv = phase_lm_fftconv(device)
     torch.cuda.empty_cache()
+    report["train_fftconv"] = train_fftconv = phase_train_fftconv(device)
+    torch.cuda.empty_cache()
+    report["train"] = phase_train(device, timer=timer)
+    torch.cuda.empty_cache()
+    report["train_ckpt"] = phase_train_ckpt(device)
+    torch.cuda.empty_cache()
 
     def by_path(layout):
         return {"segments": segs["forward"][layout] + segs["inverse"][layout],
@@ -2000,7 +2329,8 @@ def main(timer=time.perf_counter) -> int:
                 "analysis": analysis["counts"][layout],
                 "serve": serve["counts"][layout],
                 "lm": lm["counts"][layout],
-                "lm_fftconv": fftconv["runs"][0]["float32"]["counts"][layout]}
+                "lm_fftconv": fftconv["runs"][0]["float32"]["counts"][layout],
+                "train_fftconv": train_fftconv["counts"][layout]}
     kernels = [
         {"name": "fft_fourstep", "route": "cuda", "source": RADIX_SOURCE,
          "path": "radix",

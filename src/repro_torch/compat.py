@@ -50,6 +50,10 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(NO_CUDA_MESSAGE)
+    if dev.type == "cuda" and dev.index is None:
+        # "cuda" names the current card: give it its index, so that it
+        # compares equal to the device of the tensors made on it
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -24,6 +24,15 @@ complex128 for float64/complex128.
 :func:`packed_fft1d` is the pipeline's form of the ``pack_parts`` epilogue:
 it returns the kernel's destination-major buffer itself, shaped as the
 next hop's send buffer (``core/redistribute.py``), with no copy.
+
+Gradients: :func:`fft1d` and :func:`ifft1d` without an epilogue go through
+:class:`LineTransform`, a ``torch.autograd.Function`` whose backward is the
+adjoint transform launched through the same kernel (on the CPU, through
+its plain version).  The kernel's output is a fresh buffer with no
+``grad_fn``, so without the Function autograd would cut the graph there
+and say nothing.  The ``twiddle`` and ``pack_parts`` epilogues have no
+backward: under grad mode, with an operand that requires grad, they raise
+``NotImplementedError`` instead of returning a result with no graph.
 """
 from __future__ import annotations
 
@@ -117,6 +126,42 @@ def _apply(x: torch.Tensor, axis: int, *, inverse: bool,
     return out.reshape(lead + (n,)).movedim(-1, axis)
 
 
+class LineTransform(torch.autograd.Function):
+    """A line transform (no epilogue) with its adjoint as the backward.
+
+    PyTorch's complex autograd hands back ``A^H g`` for ``y = A x``.  The
+    unnormalized forward DFT has ``A^H = N * IDFT``, so its backward is one
+    inverse launch times N; the inverse (``1/N`` times the conjugate DFT)
+    has ``A^H = DFT / N``, one forward launch over N.  ``torch.fft.fft``'s
+    own backward is the same definition, and the tests hold the two
+    against each other.  The backward runs on the stream autograd gives
+    it (``_launch`` reads ``torch.cuda.current_stream()``) and counts its
+    launches as any other.  A real operand gets the real part back.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, axis: int, inverse: bool):
+        ctx.axis, ctx.inverse = axis, inverse
+        ctx.real_input = not x.is_complex()
+        return _apply(x, axis, inverse=inverse)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        n = grad.shape[ctx.axis]
+        adj = LineTransform.apply(grad, ctx.axis, not ctx.inverse)
+        adj = adj / n if ctx.inverse else adj * n
+        return (adj.real if ctx.real_input else adj), None, None
+
+
+def _refuse_grad(name: str, *operands: Optional[torch.Tensor]) -> None:
+    """Raise when an epilogue would drop a gradient: it has no backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        raise NotImplementedError(
+            f"the {name} epilogue has no backward: it is not on a training "
+            f"path; transform without it, or under torch.no_grad()")
+
+
 def fft1d(x: torch.Tensor, axis: int = -1, *,
           twiddle: Optional[torch.Tensor] = None,
           pack_parts: Optional[int] = None) -> torch.Tensor:
@@ -127,17 +172,29 @@ def fft1d(x: torch.Tensor, axis: int = -1, *,
     ``pack_parts`` — the kernel stores the transformed axis pre-split into
     ``pack_parts`` destination-major blocks; the tensor returned here still
     has the logical shape (assembling it costs a copy; the pipeline uses
-    :func:`packed_fft1d` instead).
+    :func:`packed_fft1d` instead).  Without an epilogue the transform is
+    differentiable (:class:`LineTransform`).
     """
-    return _apply(x, axis, inverse=False, twiddle=twiddle,
-                  pack_parts=pack_parts)
+    return _transform(x, axis, inverse=False, twiddle=twiddle,
+                      pack_parts=pack_parts)
 
 
 def ifft1d(x: torch.Tensor, axis: int = -1, *,
            twiddle: Optional[torch.Tensor] = None,
            pack_parts: Optional[int] = None) -> torch.Tensor:
     """Inverse FFT along ``axis``; the same epilogues as :func:`fft1d`."""
-    return _apply(x, axis, inverse=True, twiddle=twiddle,
+    return _transform(x, axis, inverse=True, twiddle=twiddle,
+                      pack_parts=pack_parts)
+
+
+def _transform(x: torch.Tensor, axis: int, *, inverse: bool,
+               twiddle: Optional[torch.Tensor],
+               pack_parts: Optional[int]) -> torch.Tensor:
+    if twiddle is None and pack_parts is None:
+        return LineTransform.apply(x, axis, inverse)
+    _refuse_grad("twiddle" if twiddle is not None else "pack_parts", x,
+                 twiddle if isinstance(twiddle, torch.Tensor) else None)
+    return _apply(x, axis, inverse=inverse, twiddle=twiddle,
                   pack_parts=pack_parts)
 
 
@@ -150,5 +207,6 @@ def packed_fft1d(x: torch.Tensor, axis: int, parts: int, *,
     ``redistribute.send_buffer`` builds for a move splitting ``axis`` over
     ``parts`` ranks: block ``i`` is what rank ``i`` receives.
     """
+    _refuse_grad("pack_parts", x)
     return _apply(x, axis, inverse=inverse, pack_parts=parts,
                   send_layout=True)

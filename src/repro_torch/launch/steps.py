@@ -1,23 +1,34 @@
-"""Step builders, serving half: parameters, prefill and decode (the port's
+"""Step builders: parameters, train, prefill and decode (the port's
 counterpart of the JAX package's ``launch/steps.py``).
 
 ``build_params`` draws the model's float32 masters on a device; the step
 builders return plain functions over (model, batch, caches) that run
-eagerly under ``torch.no_grad``.  Both run on CUDA unless the caller passes
-``device="cpu"``, and raise when there is no card and none was asked for
-(``compat.resolve_device``).  The train step, the chunked loss and the
-dry-run cell assembly belong to the training slice.
+eagerly.  The serving steps run under ``torch.no_grad``; the train step
+turns gradients on for the model's parameters (serving builds them with
+``requires_grad=False``), runs forward and backward (with recomputation
+under ``remat``, ``models.transformer.apply_stack``) through
+:func:`chunked_lm_loss`, and applies AdamW in place.  Everything runs on
+CUDA unless the caller passes ``device="cpu"``, and raises when there is
+no card and none was asked for (``compat.resolve_device``).
+
+The reference's ``build_cell``, ``input_specs`` and ``cache_state``
+assemble XLA dry-run cells (``launch/dryrun.py``) and have no counterpart
+here.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..compat import resolve_device
+from ..data.pipeline import batch_specs
 from ..distributed.sharding import MeshRules, ParamBuilder
 from ..models import transformer as tfm
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, ShapeConfig
+from ..models.convert import param_leaves
+from ..optim.adamw import AdamWConfig, adamw_update
+from ..optim.compress import bf16_compress
 
 
 def build_params(cfg: ModelConfig, *, seed: int = 0,
@@ -41,6 +52,140 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     return torch.mean(lse - gold)
+
+
+def opt_pspecs(params_pspecs) -> Dict:
+    """AdamW state specs: the moments follow their parameters."""
+    return {"m": params_pspecs, "v": params_pspecs, "count": ()}
+
+
+def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig,
+                 rules: MeshRules) -> Dict[str, tuple]:
+    """One batch's specs; a batch of one is replicated."""
+    specs = batch_specs(cfg, shape, rules)
+    if shape.global_batch == 1:
+        specs = {k: (None,) * len(v) for k, v in specs.items()}
+    return specs
+
+
+def chunked_lm_loss(hidden: torch.Tensor, head_w: torch.Tensor,
+                    labels: torch.Tensor, vocab: int,
+                    chunk: int = 512) -> torch.Tensor:
+    """Fused head matmul + CE over sequence chunks, as the reference.
+
+    Never builds the full (B, S, V) logits: each chunk computes (B, chunk,
+    V) under ``torch.utils.checkpoint`` (recomputed in backward), reduces
+    it to a summed loss, and only that sum is kept.  ``S % chunk`` falls
+    back to one chunk of the whole sequence.  Returns the mean over B*S.
+    """
+    from torch.utils.checkpoint import checkpoint
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s  # fallback (tiny smoke shapes)
+    v_pad = head_w.shape[-1]
+    pad_mask = (torch.arange(v_pad, device=hidden.device) >= vocab) \
+        if v_pad > vocab else None
+
+    def one_chunk(h, lab, w):
+        logits = (h @ w.to(h.dtype)).float()
+        if pad_mask is not None:
+            logits = torch.where(pad_mask[None, None, :], -1e30, logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+        return torch.sum(lse - gold)
+
+    ckpt = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        h, lab = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        total = total + (checkpoint(one_chunk, h, lab, head_w,
+                                    use_reentrant=False)
+                         if ckpt else one_chunk(h, lab, head_w))
+    return total / (b * s)
+
+
+def loss_fn(model: tfm.Model, cfg: ModelConfig,
+            rules: Optional[MeshRules], batch: Dict, *, remat: bool = True
+            ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The reference's ``loss_fn``: ``(loss + router_aux_coef * aux,
+    (loss, aux))`` through the chunked loss."""
+    (hidden, head_w), _, aux = tfm.forward(
+        model, cfg, rules, batch, mode="train", remat=remat,
+        return_hidden=True)
+    loss = chunked_lm_loss(hidden, head_w, batch["labels"], cfg.vocab)
+    return loss + cfg.router_aux_coef * aux, (loss, aux)
+
+
+def loss_and_grads(model: tfm.Model, cfg: ModelConfig,
+                   rules: Optional[MeshRules], batch: Dict, *,
+                   remat: bool = True):
+    """``(loss, aux, grads)``: one forward and backward; ``grads`` keyed as
+    ``models.convert.param_leaves`` (zeros for a parameter the loss does
+    not reach, as ``jax.grad`` gives).  The parameters' ``.grad`` are
+    cleared again."""
+    leaves = param_leaves(model)
+    model.requires_grad_(True)
+    for p in leaves.values():
+        p.grad = None
+    try:
+        with torch.enable_grad():
+            total, (loss, aux) = loss_fn(model, cfg, rules, batch,
+                                         remat=remat)
+            total.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in leaves.items()}
+    finally:
+        for p in leaves.values():
+            p.grad = None
+        model.requires_grad_(False)
+    return loss.detach(), aux.detach(), grads
+
+
+def make_train_step(cfg: ModelConfig, rules: Optional[MeshRules] = None,
+                    opt_cfg: Optional[AdamWConfig] = None, *,
+                    remat: bool = True, grad_compress: bool = True,
+                    accum_steps: int = 1, device=None):
+    """``train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics)``, the parameters and the state updated in place.
+
+    ``accum_steps > 1`` runs sequential micro-batches (the batch's leading
+    dim split into ``accum_steps`` contiguous parts, as the reference's
+    reshape) and accumulates their gradients in bfloat16, then divides by
+    ``accum_steps``; loss and aux are the micro-batches' means.  With
+    ``grad_compress`` the gradients are cast to bfloat16 before the
+    update, as the reference; AdamW re-accumulates in float32.  ``metrics``
+    holds ``loss`` and ``aux_loss`` as 0-d tensors on the device."""
+    dev = resolve_device(device)
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def train_step(model: tfm.Model, opt_state: Dict, batch: Dict):
+        batch = _on(dev, model, batch)
+        if accum_steps == 1:
+            loss, aux, grads = loss_and_grads(model, cfg, rules, batch,
+                                              remat=remat)
+        else:
+            mb = batch["tokens"].shape[0] // accum_steps
+            grads, loss, aux = None, 0.0, 0.0
+            for i in range(accum_steps):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                l, a, g = loss_and_grads(model, cfg, rules, micro,
+                                         remat=remat)
+                if grads is None:
+                    grads = {k: t.to(torch.bfloat16) for k, t in g.items()}
+                else:
+                    for k, t in g.items():
+                        grads[k] = grads[k] + t.to(torch.bfloat16)
+                del g
+                loss, aux = loss + l, aux + a
+            grads = {k: t / accum_steps for k, t in grads.items()}
+            loss, aux = loss / accum_steps, aux / accum_steps
+        if grad_compress:
+            grads = bf16_compress(grads)
+        adamw_update(grads, opt_state, param_leaves(model), opt_cfg)
+        return model, opt_state, {"loss": loss, "aux_loss": aux}
+
+    return train_step
 
 
 def _on(device: torch.device, model: tfm.Model, batch: Dict) -> Dict:

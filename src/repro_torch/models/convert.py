@@ -11,13 +11,24 @@ per super-block and its ``pos`` counters become Python ints.
 
 Trees are nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``);
 bfloat16 leaves arrive as ml_dtypes arrays and keep their dtype in torch.
+
+The other direction serves training: :func:`param_leaves` keys the
+model's parameters by ``(reference path, super-block)`` (the super-block
+is None outside a stack), the keys the optimizer state uses, and
+:func:`leaves_to_tree` stacks such leaves back into the reference's tree
+(:func:`params_to_reference` for the parameters,
+:func:`opt_state_to_reference` for AdamW's ``m``, ``v`` and ``count``).
+:func:`tree_to_leaves` and :func:`opt_state_from_reference` read a
+reference tree (or a checkpoint's) back into leaves, and
+:func:`load_params` copies one into a model in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .config import ModelConfig
 from .transformer import Model, init_model
@@ -92,3 +103,117 @@ def caches_to_reference(caches: Dict) -> Dict:
                         .numpy()
             out[name][kind] = sub
     return out
+
+
+# ---------------------------------------------------------------------------
+# the port's parameters and optimizer state as the reference's trees
+# ---------------------------------------------------------------------------
+
+#: A parameter's key: its reference tree path and its super-block (None
+#: for a leaf outside a stack).
+LeafKey = Tuple[str, Optional[int]]
+
+_STACKS = ("decoder", "encoder")
+
+
+def reference_key(name: str) -> LeafKey:
+    """``decoder.layer0.3.attn.wq`` -> ``("decoder/layer0/attn/wq", 3)``;
+    ``final_norm.scale`` -> ``("final_norm/scale", None)``."""
+    parts = name.split(".")
+    if parts[0] in _STACKS:
+        return "/".join(parts[:2] + parts[3:]), int(parts[2])
+    return "/".join(parts), None
+
+
+def param_leaves(model: nn.Module) -> Dict[LeafKey, nn.Parameter]:
+    """The model's parameters by :data:`LeafKey`, in module order."""
+    return {reference_key(n): p for n, p in model.named_parameters()}
+
+
+def _set_path(tree: Dict, path: str, value) -> None:
+    keys = path.split("/")
+    node = tree
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+    node[keys[-1]] = value
+
+
+def _get_path(tree: Dict, path: str):
+    node = tree
+    for k in path.split("/"):
+        node = node[k]
+    return node
+
+
+def leaves_to_tree(leaves: Mapping[LeafKey, torch.Tensor], *,
+                   as_numpy: bool = False) -> Dict:
+    """Leaves -> the reference's nested tree: a stack's leaves stacked
+    along a new leading dim in super-block order.  ``as_numpy``: numpy on
+    the host (bfloat16 as float32, exactly)."""
+    grouped: Dict[str, Dict[Optional[int], torch.Tensor]] = {}
+    for (path, r), t in leaves.items():
+        grouped.setdefault(path, {})[r] = t.detach()
+    tree: Dict = {}
+    for path, reps in grouped.items():
+        t = reps[None] if None in reps else torch.stack(
+            [reps[r] for r in sorted(reps)])
+        if as_numpy:
+            t = t.float().cpu().numpy() if t.dtype == torch.bfloat16 \
+                else t.cpu().numpy()
+        _set_path(tree, path, t)
+    return tree
+
+
+def tree_to_leaves(tree: Dict, keys, device=None) -> Dict[LeafKey,
+                                                           torch.Tensor]:
+    """The reference tree's values for ``keys`` (each a super-block's
+    slice of its stacked leaf), as tensors on ``device`` (default: where
+    they are; numpy leaves on the CPU)."""
+    out = {}
+    for path, r in keys:
+        leaf = _get_path(tree, path)
+        if not isinstance(leaf, torch.Tensor):
+            leaf = _to_torch(leaf, device or "cpu")
+        t = leaf if r is None else leaf[r]
+        out[(path, r)] = t if device is None else t.to(device)
+    return out
+
+
+def params_to_reference(model: nn.Module) -> Dict:
+    """The model's parameters as the reference's nested numpy tree (their
+    gradients, keyed as ``param_leaves``: ``leaves_to_tree``)."""
+    return leaves_to_tree(param_leaves(model), as_numpy=True)
+
+
+@torch.no_grad()
+def load_params(model: nn.Module, tree: Dict) -> nn.Module:
+    """Copy a reference-layout tree (numpy or tensors) into the model's
+    parameters in place."""
+    leaves = param_leaves(model)
+    for k, v in tree_to_leaves(tree, leaves).items():
+        leaves[k].copy_(v)
+    return model
+
+
+def opt_state_to_reference(state: Dict, *, as_numpy: bool = True) -> Dict:
+    """AdamW state (``optim.adamw_init``'s leaves) -> the reference's
+    ``{"m": tree, "v": tree, "count": int32}``."""
+    count = state["count"]
+    return {"m": leaves_to_tree(state["m"], as_numpy=as_numpy),
+            "v": leaves_to_tree(state["v"], as_numpy=as_numpy),
+            "count": (np.asarray(int(count), np.int32) if as_numpy
+                      else count)}
+
+
+def opt_state_from_reference(tree: Dict, model: nn.Module,
+                             device=None) -> Dict:
+    """The reference's (or a checkpoint's) AdamW tree -> the port's state
+    for ``model``'s parameters, on ``device`` (default: the parameters')."""
+    keys = param_leaves(model)
+    dev = device or next(iter(keys.values())).device
+    count = tree["count"]
+    count = count.to(dev) if isinstance(count, torch.Tensor) else \
+        torch.as_tensor(np.asarray(count), dtype=torch.int32, device=dev)
+    return {"m": tree_to_leaves(tree["m"], keys, dev),
+            "v": tree_to_leaves(tree["v"], keys, dev),
+            "count": count.to(torch.int32).reshape(())}

@@ -14,6 +14,17 @@ block by super-block.  A block's parameters are views of the stacked
 Caches mirror the tree too: ``caches["layer{j}"][r]`` is that layer's
 cache dict (``{"attn": ..., "ssm": ..., "cross": ...}``), and ``pos`` in
 each is a Python int.
+
+Recomputation (``remat``, the reference's ``jax.checkpoint`` over each
+scanned super-block, nested per layer under ``cfg.layer_remat``): in
+train mode with grad enabled, ``apply_stack`` runs each layer (when
+``cfg.layer_remat``) or else each super-block under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so only the
+residual stream between them is kept and backward recomputes the rest.
+The reference's policy also saves each layer's ``mixer_out`` and
+``ffn_out`` to spare their recomputation; the port recomputes them
+(plain recomputation, no selective policy).  The values are the same
+either way; only memory and time differ.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..compat import resolve_device
 from ..distributed.sharding import MeshRules, StackedBuilder, shard
@@ -189,22 +201,46 @@ def init_stack(b, path: str, cfg: ModelConfig, pattern: BlockPattern,
 def apply_stack(p: Stack, cfg: ModelConfig, rules: Optional[MeshRules],
                 x: torch.Tensor, *, mode: str,
                 positions: Optional[torch.Tensor], caches: Optional[Dict],
-                enc_out: Optional[torch.Tensor], causal: bool = True
+                enc_out: Optional[torch.Tensor], causal: bool = True,
+                remat: bool = True
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """caches: ``{"layer{j}": [cache of super-block r, ...]}``."""
+    """caches: ``{"layer{j}": [cache of super-block r, ...]}``.
+
+    ``remat`` (train mode, grad enabled): each super-block, or each layer
+    under ``cfg.layer_remat``, is recomputed in backward (module
+    docstring)."""
     pattern = p.pattern
+    ckpt = remat and mode == "train" and torch.is_grad_enabled()
+    layer_ckpt = ckpt and cfg.layer_remat
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Dict[str, List] = {}
-    for r in range(pattern.n_repeat):
+
+    def layer(x, r: int, j: int):
+        name = f"layer{j}"
+        lc = None if caches is None else caches[name][r]
+        return apply_layer(p[name][r], cfg, rules, x, mode=mode,
+                           positions=positions, cache=lc, enc_out=enc_out,
+                           causal=causal)
+
+    def superblock(x, r: int):
+        aux_r = torch.zeros((), dtype=torch.float32, device=x.device)
         for j in range(pattern.size):
-            name = f"layer{j}"
-            lc = None if caches is None else caches[name][r]
-            x, nc, a = apply_layer(p[name][r], cfg, rules, x, mode=mode,
-                                   positions=positions, cache=lc,
-                                   enc_out=enc_out, causal=causal)
-            aux = aux + a
+            if layer_ckpt:
+                x, nc, a = checkpoint(layer, x, r, j, use_reentrant=False)
+            else:
+                x, nc, a = layer(x, r, j)
+            aux_r = aux_r + a
             if nc is not None:
-                new_caches.setdefault(name, [None] * pattern.n_repeat)[r] = nc
+                new_caches.setdefault(f"layer{j}",
+                                      [None] * pattern.n_repeat)[r] = nc
+        return x, aux_r
+
+    for r in range(pattern.n_repeat):
+        if ckpt and not layer_ckpt:
+            x, a = checkpoint(superblock, x, r, use_reentrant=False)
+        else:
+            x, a = superblock(x, r)
+        aux = aux + a
     return x, (new_caches or None), aux
 
 
@@ -264,13 +300,20 @@ def _modality_tokens(p: Model, batch: Dict, dtype) -> torch.Tensor:
 def forward(p: Model, cfg: ModelConfig, rules: Optional[MeshRules],
             batch: Dict, *, mode: str = "train",
             caches: Optional[Dict] = None,
-            positions: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None, remat: bool = True,
+            return_hidden: bool = False,
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (logits, new_caches, aux_loss).
 
     batch keys: "tokens" (B, S); encdec also "modality_embeds" (B, S_src, D)
     (audio frames) or "src_tokens" — vlm replaces the first
     n_modality_tokens embeddings with projected patch embeds.
+
+    ``remat`` recomputes the stacks in backward (train mode with grad
+    enabled only; see ``apply_stack``).  ``return_hidden`` returns
+    ``(normalized hidden, head weight)`` in place of the logits, for the
+    chunked loss (``launch.steps.chunked_lm_loss``) that never builds the
+    (B, S, V) logits.
     """
     dtype = compute_dtype(cfg)
     x = _embed(p, batch["tokens"], dtype)
@@ -282,7 +325,8 @@ def forward(p: Model, cfg: ModelConfig, rules: Optional[MeshRules],
             _embed(p, batch["src_tokens"], dtype)
         enc_out, _, _ = apply_stack(p.encoder, cfg, rules, enc_in,
                                     mode="train", positions=None,
-                                    caches=None, enc_out=None, causal=False)
+                                    caches=None, enc_out=None, causal=False,
+                                    remat=remat)
         enc_out = rms_norm(enc_out, p.enc_norm.scale, cfg.norm_eps)
     # decode: cross-attention runs from its prefilled cache (enc_out=None)
 
@@ -293,7 +337,11 @@ def forward(p: Model, cfg: ModelConfig, rules: Optional[MeshRules],
 
     x, new_caches, aux = apply_stack(p.decoder, cfg, rules, x, mode=mode,
                                      positions=positions, caches=caches,
-                                     enc_out=enc_out)
+                                     enc_out=enc_out, remat=remat)
+    if return_hidden:
+        xh = rms_norm(x, p.final_norm.scale, cfg.norm_eps)
+        w = p.embed.T if cfg.tie_embeddings else p.lm_head
+        return (xh, w), new_caches, aux
     return _head(p, cfg, rules, x), new_caches, aux
 
 

@@ -1,6 +1,7 @@
 """Shared helpers of the LM parity tests (``tests/test_torch_{layers,moe,
-ssm,lm}.py``): the same seeded numpy inputs through the JAX package and the
-port, the JAX parameters carried across by ``repro_torch.models.convert``.
+ssm,lm,lm_decode,data_ckpt,train,train_step}.py``): the same seeded numpy
+inputs through the JAX package and the port, the JAX parameters carried
+across by ``repro_torch.models.convert``.
 
 Imports JAX, so the card-only tests (``test_torch_cuda.py``) do not use it.
 """
@@ -96,3 +97,43 @@ def jax_batch(batch):
 def torch_batch(batch):
     return {k: torch.as_tensor(v).long() if v.dtype.kind == "i"
             else torch.as_tensor(v) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# the training slice (tests/test_torch_train.py)
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, b: int = B, s: int = S, seed: int = 0):
+    """One ``SyntheticLM`` batch (tokens, labels and the arch's extra
+    inputs), as the reference's ``batch_for_step`` draws it."""
+    from repro.data.pipeline import SyntheticLM as RefSyntheticLM
+    from repro.models.config import ShapeConfig
+    return RefSyntheticLM(cfg, ShapeConfig("t", "train", s, b),
+                          seed=seed).batch_for_step(0)
+
+
+def ref_loss_fn(cfg, rules, remat: bool = True):
+    """The reference train step's ``loss_fn`` (``launch/steps.py``'s
+    ``make_train_step``, a closure there): forward with ``return_hidden``,
+    ``chunked_lm_loss``, plus the router aux term."""
+    from repro.launch.steps import chunked_lm_loss
+    from repro.models import transformer as ref_tfm
+
+    def loss_fn(params, batch):
+        (hidden, head_w), _, aux = ref_tfm.forward(
+            params, cfg, rules, batch, mode="train", remat=remat,
+            return_hidden=True)
+        loss = chunked_lm_loss(hidden, head_w, batch["labels"], cfg.vocab)
+        return loss + cfg.router_aux_coef * aux, (loss, aux)
+    return loss_fn
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A nested dict as ``{"a/b/c": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out

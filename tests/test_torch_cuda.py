@@ -3,8 +3,9 @@ plain version, the kernel-backend plan on the card (bulk and chunked), the
 CUDA-event timer the tuner and calibration use, and on 4 cards over NCCL
 the plans, the plan-stream executor's mixed queue (plain, and under the
 static verifier and the sanitizer) and the service losing one card; the LM
-smoke serving path on the card against the CPU, and the FFT
-long-convolution mixer on the kernel.  They skip where CUDA is absent.  This file imports no JAX, so on a GPU machine without
+smoke serving path on the card against the CPU, the FFT long-convolution
+mixer on the kernel, its gradient through the kernel, and a smoke train
+step on the card against the CPU.  They skip where CUDA is absent.  This file imports no JAX, so on a GPU machine without
 JAX it runs with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -435,3 +436,107 @@ def test_fft_conv_kernel_on_the_card(cuda):
     assert counts["launches"] == counts["radix"] == counts["lines"] == 3
     assert ops.copies["lines"] == copies
     assert _scaled(got, ref) < 1e-4
+
+
+@pytest.mark.cuda
+def test_fft_conv_grad_kernel_on_the_card(cuda):
+    """``fft_conv``'s gradients on ``fft_backend="kernel"`` at a smoke width
+    against the ``"cufft"`` backend's (torch.fft autograd), within 1e-4
+    max-scaled, with exactly 6 radix launches on lines (3 forward, 3
+    backward) and no line copy."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import ParamBuilder
+    from repro_torch.models.ssm import FFTConv
+
+    cfg = dataclasses.replace(smoke_config("jamba_v0_1_52b"),
+                              ssm_impl="fft_conv", dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 64, cfg.d_model), device=cuda, generator=gen)
+    r = torch.randn((2, 64, cfg.d_model), device=cuda, generator=gen)
+    grads = {}
+    for backend in ("cufft", "kernel"):
+        mixer = FFTConv(ParamBuilder(0, device=cuda), "ssm", cfg)
+        mixer.requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        tfm.reset_launch_counts()
+        copies = ops.copies["lines"]
+        y, _ = mixer(xx, fft_backend=backend)
+        (y * r).sum().backward()
+        torch.cuda.synchronize()
+        counts = tfm.launch_counts()
+        grads[backend] = {n: p.grad for n, p in mixer.named_parameters()}
+        grads[backend]["x"] = xx.grad
+    assert counts["launches"] == counts["radix"] == counts["lines"] == 6
+    assert ops.copies["lines"] == copies
+    for name, ref in grads["cufft"].items():
+        assert _scaled(grads["kernel"][name], ref) < 1e-4, name
+
+
+@pytest.mark.cuda
+def test_fft_conv_grad_epilogues_raise_on_the_card(cuda):
+    """The twiddle and pack epilogues raise under grad on a CUDA tensor
+    (before any launch), and run under ``torch.no_grad``."""
+    x = torch.randn((4, 64), dtype=torch.complex64, device=cuda,
+                    requires_grad=True)
+    tw = torch.ones(64, dtype=torch.complex64, device=cuda)
+    tfm.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="twiddle"):
+        ops.fft1d(x, -1, twiddle=tw)
+    with pytest.raises(NotImplementedError, match="pack_parts"):
+        ops.fft1d(x, -1, pack_parts=2)
+    with pytest.raises(NotImplementedError, match="pack_parts"):
+        ops.packed_fft1d(x, -1, 2)
+    assert tfm.fft_fourstep.launches == 0
+    with torch.no_grad():
+        ops.fft1d(x, -1, twiddle=tw)
+    torch.cuda.synchronize()
+    assert tfm.fft_fourstep.variant_launches["twiddle"] == 1
+
+
+@pytest.mark.cuda
+def test_train_step_smoke_on_the_card(cuda):
+    """One 2-layer smoke train step (qwen3-8b's smoke config in float32) on
+    the card against the same step on the CPU, from the same weights and
+    batch: loss within 1e-4 relative, every gradient leaf within 1e-4
+    max-scaled, and the parameters after the AdamW update within ``lr *
+    (1e-5 + eps * dg / (|g| + eps)**2)``: the first step moves an entry
+    by ``lr * g / (|g| + eps)``, and ``dg``, the gradient tolerance (1e-4
+    of the leaf's largest entry), moves that by the second term where
+    ``|g|`` is near ``eps``."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import (build_params, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.convert import param_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(smoke_config("qwen3_8b"), dtype="float32",
+                              n_layers=2)
+    cpu = torch.device("cpu")
+    host = SyntheticLM(cfg, ShapeConfig("t", "train", 64, 2)) \
+        .batch_for_step(0)
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    runs = {}
+    for dev in (cpu, cuda):
+        model = build_params(cfg, device=cpu).to(dev)
+        batch = SyntheticLM.to_device(host, dev)
+        loss, _, grads = loss_and_grads(model, cfg, None, batch)
+        state = adamw_init(param_leaves(model), opt)
+        make_train_step(cfg, None, opt, grad_compress=False, device=dev)(
+            model, state, batch)
+        runs[dev] = (float(loss), grads,
+                     {k: p.detach().cpu()
+                      for k, p in param_leaves(model).items()})
+    assert runs[cuda][0] == pytest.approx(runs[cpu][0], rel=1e-4)
+    for k, g in runs[cpu][1].items():
+        assert _scaled(runs[cuda][1][k], g) < 1e-4, k
+    lr, eps = opt.lr_peak, opt.eps
+    for k, p in runs[cpu][2].items():
+        g = runs[cpu][1][k].abs()
+        bound = lr * (1e-5 + eps * 1e-4 * float(g.max()) / (g + eps) ** 2)
+        assert bool(((runs[cuda][2][k] - p).abs() <= bound).all()), k
