@@ -126,11 +126,19 @@ its result line):
     config in a temporary directory, preempted at step 10 and resumed,
     against 20 uninterrupted steps (losses within 1e-3), the checkpoint
     restored onto the CPU equal to its restore onto the card;
-21. a ``kernels`` JSON line (one entry per kernel variant, with the path
+21. ``[lm_sharded]``: the LM's mesh path on an NCCL group of one with an
+    explicit (1, 1) ``("data", "model")`` mesh: ``serve`` (2 requests of
+    8 new tokens) and two ``train`` steps (B=1, S=4096) at qwen3-8b's
+    full width cut to 2 layers, each bitwise equal to the same run with
+    ``mesh=None``; then ``fft_conv`` at 8192 channels, S=2048, float32,
+    forward and backward through the mesh path (``rules`` of that mesh)
+    on the kernel: exactly 6 radix launches on lines and no line copy,
+    every gradient within 1e-4 of ``cufft``'s;
+22. a ``kernels`` JSON line (one entry per kernel variant, with the path
     it ran and, for B1 and B4, the launches on the segments, executor,
-    analysis, serve, lm, lm_fftconv and train_fftconv paths; the serve
-    counts are the first lifetime's traffic drains), then the result
-    line.
+    analysis, serve, lm, lm_fftconv, train_fftconv and lm_sharded paths;
+    the serve counts are the first lifetime's traffic drains), then the
+    result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -2271,6 +2279,116 @@ def phase_train_ckpt(device, arch: str = LM_ARCH, steps: int = 20,
     return out
 
 
+def phase_lm_sharded(device, arch: str = LM_ARCH, layers: int = 2,
+                     seq: int = 4096, s_fft: int = 2048) -> dict:
+    """``[lm_sharded]``: the mesh path of the LM (``rules.mesh``, the
+    sharded parameters, ``sharded_batch``, the collectives) on one card:
+    an NCCL group of one (gloo on the CPU) with an explicit (1, 1) mesh.
+    ``serve`` and two ``train`` steps at ``arch``'s full width cut to
+    ``layers`` layers (the smoke config on the CPU), each bitwise equal
+    to the run with ``mesh=None`` (every collective is skipped on an axis
+    of one rank); then ``fft_conv`` at jamba-v0.1-52b's mixer width
+    forward and backward with the mesh's rules on the kernel against
+    ``cufft``: 6 radix launches on lines (the counts set to 0 just before
+    and read just after), no line copy, gradients within 1e-4.  The
+    drivers build the cut config through their ``get_config`` and
+    ``smoke_config``, set to it for the phase's runs."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    import repro_torch.launch.serve as serve_mod
+    import repro_torch.launch.train as train_mod
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed.sharding import MeshRules, ParamBuilder
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import ssm
+    cuda = device.type == "cuda"
+    full = get_config(arch) if cuda else smoke_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    out = {"arch": cfg.name, "n_layers": layers, "d_model": cfg.d_model,
+           "reduced": [f"depth {layers} of {full.n_layers} layers"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                init_method=f"file://{tmp}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_lm_mesh((1, 1), device=None if cuda else device)
+            drivers = [(m, n, getattr(m, n)) for m in (serve_mod, train_mod)
+                       for n in ("get_config", "smoke_config")]
+            for m, n, _ in drivers:
+                setattr(m, n, lambda name: cfg)
+            try:
+                kw = dict(requests=2, batch=2, max_new=8, seed=SEED)
+                toks = [serve_mod.serve(arch, mesh=mesh, **kw),
+                        serve_mod.serve(arch, device=device, **kw)]
+                kw = dict(steps=2, seq_len=seq if cuda else 64,
+                          global_batch=1, log_every=9, seed=SEED)
+                losses = [train_mod.train(arch, mesh=mesh, **kw)["losses"],
+                          train_mod.train(arch, device=device,
+                                          **kw)["losses"]]
+            finally:
+                for m, n, f in drivers:
+                    setattr(m, n, f)
+            if cuda:
+                torch.cuda.empty_cache()
+            check(toks[0] == toks[1], f"[lm_sharded] (1, 1) mesh tokens "
+                  f"{toks[0]} vs no mesh {toks[1]}")
+            check(losses[0] == losses[1] and all(
+                math.isfinite(v) for v in losses[0]),
+                f"[lm_sharded] (1, 1) mesh losses {losses[0]} vs no mesh "
+                f"{losses[1]}")
+            out.update(tokens=toks[0], losses=losses[0], bitwise=True)
+
+            # fft_conv through the mesh path
+            fcfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                       ssm_impl="fft_conv", dtype="float32")
+            rules = MeshRules.for_mesh(mesh)
+            params = ssm.init_fft_conv(
+                ParamBuilder(SEED, device=device, rules=rules), "ssm", fcfg)
+            params.requires_grad_(True)
+            x = randc((1, s_fft, fcfg.d_model), torch.float32, device,
+                      SEED + 7)
+            r = randc((1, s_fft, fcfg.d_model), torch.float32, device,
+                      SEED + 8)
+
+            def fwd_bwd(backend):
+                for p in params.parameters():
+                    p.grad = None
+                xx = x.detach().requires_grad_(True)
+                y, _ = params(xx, rules=rules, fft_backend=backend)
+                (y * r).sum().backward()
+                return {**{k: p.grad for k, p in params.named_parameters()},
+                        "x": xx.grad}
+
+            ref = fwd_bwd("cufft")
+            reset_counts()
+            got = fwd_bwd("kernel")
+            if cuda:
+                torch.cuda.synchronize(device)
+            counts = path_counts()
+        finally:
+            dist.destroy_process_group()
+    errs = {k: scaled_err(got[k], ref[k]) for k in ref}
+    out.update(fft_conv_channels=fcfg.expand * fcfg.d_model, s=s_fft,
+               counts=counts, grad_errs=errs, launches=counts["launches"])
+    check(all(e < GRAD_TOL for e in errs.values()),
+          f"[lm_sharded] fft_conv kernel vs cufft gradients {errs} (bound "
+          f"{GRAD_TOL})")
+    if cuda:
+        check(counts["launches"] == 6 and counts["radix"] == 6
+              and counts["lines"] == 6 and counts["copies"] == 0,
+              f"[lm_sharded] fft_conv counts {counts}, expected 6 radix "
+              f"launches on lines and no copy")
+        print(f"[lm_sharded] {cfg.name} at {layers} of {full.n_layers} "
+              f"layers on a (1, 1) NCCL mesh: serve tokens and 2 train "
+              f"losses {losses[0]} bitwise equal to no mesh; fft_conv "
+              f"forward+backward through the mesh path: launches {counts}, "
+              f"gradients {json.dumps(errs)}")
+    del params, x, r, ref, got
+    return out
+
+
 def main(timer=time.perf_counter) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2322,6 +2440,8 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["train_ckpt"] = phase_train_ckpt(device)
     torch.cuda.empty_cache()
+    report["lm_sharded"] = lm_sharded = phase_lm_sharded(device)
+    torch.cuda.empty_cache()
 
     def by_path(layout):
         return {"segments": segs["forward"][layout] + segs["inverse"][layout],
@@ -2330,7 +2450,8 @@ def main(timer=time.perf_counter) -> int:
                 "serve": serve["counts"][layout],
                 "lm": lm["counts"][layout],
                 "lm_fftconv": fftconv["runs"][0]["float32"]["counts"][layout],
-                "train_fftconv": train_fftconv["counts"][layout]}
+                "train_fftconv": train_fftconv["counts"][layout],
+                "lm_sharded": lm_sharded["counts"][layout]}
     kernels = [
         {"name": "fft_fourstep", "route": "cuda", "source": RADIX_SOURCE,
          "path": "radix",

@@ -21,8 +21,13 @@ Python numbers; array names are the ``/``-joined paths (the reference's
 tree paths: ``params/decoder/layer0/attn/wq``, ``opt/m/...``,
 ``opt/count``).  ``restore`` returns the tree with tensors on a device:
 CUDA unless the caller names one (``compat.resolve_device``), or the
-mesh's device.  The port trains on one process, so arrays are placed
-whole; the specs are recorded for the reference's elastic re-shard.
+mesh's device.
+
+On a mesh (``save(..., mesh=)``) each leaf is this rank's block under its
+spec in ``pspecs``: the blocks are gathered whole and only the mesh's root
+writes files, so the format is the same whatever the mesh.
+``restore(mesh=, pspecs=)`` keeps each rank's block of every array with a
+spec (the elastic re-shard: any mesh, whatever mesh saved it).
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..compat import resolve_device
+import torch.distributed as dist
+
+from ..compat import gather, local_block, resolve_device
 
 BF16 = "bfloat16"
 
@@ -92,20 +99,36 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state: Dict[str, Any],
-             pspecs: Optional[Dict[str, Any]] = None) -> str:
+             pspecs: Optional[Dict[str, Any]] = None, *, mesh=None) -> str:
+        """Write ``state`` as step ``step``; with ``mesh`` (every rank of
+        it calls this) the leaves are blocks under ``pspecs``."""
         tmp = os.path.join(self.dir, f"step_{step:010d}.tmp")
         final = os.path.join(self.dir, f"step_{step:010d}")
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
+        sharded = mesh is not None and mesh.size > 1
+        if sharded:
+            writer = dist.get_rank() == mesh.root
+            flat_specs = _flatten(pspecs) if pspecs is not None else {}
+        else:
+            writer = True
+        if writer:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
         manifest: Dict[str, Any] = {"step": step, "arrays": {}}
         for name, leaf in _flatten(state).items():
+            if sharded and name in flat_specs:
+                leaf = gather(leaf.contiguous(), flat_specs[name], mesh)
+            if not writer:
+                continue
             host, dtype = _to_host(leaf)
             fname = name.replace("/", "__") + ".npy"
             np.save(os.path.join(tmp, fname), host)
             manifest["arrays"][name] = {
                 "file": fname, "dtype": dtype, "shape": list(host.shape),
                 "crc32": zlib.crc32(host.tobytes())}
+        if not writer:
+            dist.barrier(group=mesh.group)   # the root's files are there
+            return final
         if pspecs is not None:
             manifest["pspecs"] = {k: _spec_json(v)
                                   for k, v in _flatten(pspecs).items()}
@@ -117,6 +140,8 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)
         self._gc()
+        if sharded:
+            dist.barrier(group=mesh.group)
         return final
 
     # -- restore ------------------------------------------------------------
@@ -147,9 +172,9 @@ class CheckpointManager:
                 mesh=None, pspecs: Optional[Dict[str, Any]] = None,
                 ) -> Tuple[int, Dict[str, Any]]:
         """Load a checkpoint (the newest valid one by default) as a tree of
-        tensors on ``device`` (CUDA unless asked), or on ``mesh``'s device.
-        ``pspecs`` is accepted for the reference's signature; one process
-        holds every array whole."""
+        tensors on ``device`` (CUDA unless asked), or on ``mesh``'s device:
+        there each array named in ``pspecs`` is this rank's block under
+        its spec (an elastic re-shard), the others whole."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -158,9 +183,14 @@ class CheckpointManager:
         path = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        flat = {name: _from_host(np.load(os.path.join(path, meta["file"])),
-                                 meta["dtype"], dev)
-                for name, meta in manifest["arrays"].items()}
+        flat_specs = _flatten(pspecs) if pspecs is not None else {}
+        flat = {}
+        for name, meta in manifest["arrays"].items():
+            host = _from_host(np.load(os.path.join(path, meta["file"])),
+                              meta["dtype"], "cpu")
+            if mesh is not None and mesh.size > 1 and name in flat_specs:
+                host = local_block(host, flat_specs[name], mesh)
+            flat[name] = host.to(dev)
         return step, _unflatten(flat)
 
     def _gc(self) -> None:

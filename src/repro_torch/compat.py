@@ -258,3 +258,37 @@ def gather(local: torch.Tensor, spec: Sequence, mesh: Mesh) -> torch.Tensor:
                                    coords=_rank_coords(rank, mesh.shape))
         local_block(out, spec, view).copy_(part)
     return out
+
+
+# ---------------------------------------------------------------------------
+# collectives along one tensor dim (the LM's tensor and data parallelism)
+# ---------------------------------------------------------------------------
+
+def _single_collective(new: str, old: str):
+    # torch 2.13 renamed the flat-tensor collectives (the old names warn)
+    return getattr(dist, new, None) or getattr(dist, old)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks of ``x`` of every rank of ``group``, concatenated along
+    ``dim`` in group-rank order."""
+    n = dist.get_world_size(group)
+    moved = x.movedim(dim, 0).contiguous()
+    out = moved.new_empty((n * moved.shape[0],) + tuple(moved.shape[1:]))
+    _single_collective("all_gather_single", "all_gather_into_tensor")(
+        out, moved, group=group)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, of which this rank keeps its block
+    along ``dim``."""
+    n = dist.get_world_size(group)
+    moved = x.movedim(dim, 0).contiguous()
+    if moved.shape[0] % n:
+        raise ValueError(f"dim {dim} ({moved.shape[0]}) does not split into "
+                         f"{n} shards")
+    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
+    _single_collective("reduce_scatter_single", "reduce_scatter_tensor")(
+        out, moved, group=group)
+    return out.movedim(0, dim)

@@ -9,14 +9,17 @@ run replays the same stream — the property the checkpoint layer relies on
 
 Batches follow each architecture's inputs: tokens and labels, plus
 ``src_tokens`` (text encoder) or ``modality_embeds`` (audio / vision
-stubs).  ``device_batch`` places one batch on a device (the reference's
-``sharded_batch``: the port trains on one process, so nothing is split);
+stubs).  ``device_batch`` places one batch on a device;
+``sharded_batch`` gives a rank of a mesh its rows of it (the reference's
+``sharded_batch``: the same step-addressed batch, split by
+``batch_specs``, so the tokens match bit for bit);
 ``prefetch`` overlaps host synthesis with device steps on a bounded
 producer thread, and copies each batch to the device on the consumer's
 stream.
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from typing import Dict, Iterator, Optional
@@ -24,7 +27,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ..compat import resolve_device
+from ..compat import local_block, resolve_device
 from ..distributed.sharding import MeshRules
 from ..models.config import ModelConfig, ShapeConfig
 
@@ -88,6 +91,21 @@ class SyntheticLM:
         """Step ``step``'s batch on ``device`` (CUDA unless asked)."""
         return self.to_device(self.batch_for_step(step),
                               resolve_device(device))
+
+    def sharded_batch(self, step: int, mesh, rules: MeshRules
+                      ) -> Dict[str, torch.Tensor]:
+        """This rank's block of step ``step``'s batch on the mesh's device
+        (the whole batch without a mesh), under ``launch.steps.
+        batch_pspecs`` (a batch of one is replicated)."""
+        from ..launch.steps import batch_pspecs
+        host = self.batch_for_step(step)
+        if mesh is None:
+            return self.to_device(host, resolve_device(None))
+        shape = dataclasses.replace(self.shape, global_batch=self.batch)
+        specs = batch_pspecs(self.cfg, shape, rules)
+        whole = self.to_device(host, torch.device("cpu"))
+        return {k: local_block(v, specs[k], mesh).to(mesh.device)
+                for k, v in whole.items()}
 
     def prefetch(self, start_step: int, device=None,
                  depth: int = 2) -> Iterator[Dict[str, torch.Tensor]]:

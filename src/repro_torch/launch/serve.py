@@ -14,9 +14,16 @@ steps (straggler mitigation hook); as in the reference, a step's time is
 its host time (the card runs asynchronously).
 
 ``serve`` runs on CUDA unless ``device="cpu"`` is passed, and raises when
-no card is present and none was asked for.  It serves on one process: a
-mesh of more than one rank raises (tensor-parallel LM serving is not
-ported yet).
+no card is present and none was asked for.  On a mesh of several ranks
+(``make_host_mesh()`` under a process group, or ``mesh=``) every rank
+calls it: the model is tensor-parallel over "model" with its fsdp dims
+over "data" (``launch.steps.build_params(mesh=)``), every rank draws the
+same prompts from the one seeded generator and serves its rows of each
+batch over "data" (all of them when the batch does not split), and the
+generated tokens are gathered so that every rank returns them all.
+
+  ... --device cpu --mesh 1x4                    # 4 gloo ranks, (1, 4)
+  ... --mesh 2x2                                 # 4 cards over NCCL
 """
 from __future__ import annotations
 
@@ -26,13 +33,14 @@ from typing import Callable, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..compat import resolve_device
+from ..compat import gather, local_block, resolve_device
 from ..configs import get_config, smoke_config
 from ..distributed.fault import StepWatchdog
 from ..distributed.sharding import MeshRules
 from ..models.transformer import pad_caches
-from .mesh import make_host_mesh
+from .mesh import make_host_mesh, make_lm_mesh, parse_mesh, spawn
 from .steps import build_params, make_decode_step, make_prefill_step
 
 
@@ -46,15 +54,13 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 8,
     throughput and of the watchdog."""
     cfg = smoke_config(arch) if smoke else get_config(arch)
     mesh = mesh or make_host_mesh(device)
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"LM serving runs on one process; got a mesh of {mesh.size} "
-            f"ranks (tensor-parallel LM serving is not ported yet)")
     dev = mesh.device if mesh is not None else resolve_device(device)
     rules = MeshRules.for_mesh(mesh)
     rng = np.random.default_rng(seed)
+    rows = (rules.batch_size if batch % rules.batch_size == 0 else 1)
+    row_spec = (rules.resolve("batch") if rows > 1 else None, None)
 
-    params = build_params(cfg, seed=seed, device=dev)
+    params = build_params(cfg, seed=seed, device=dev, mesh=mesh)
     prefill = make_prefill_step(cfg, rules, device=dev)
     decode = make_decode_step(cfg, rules, device=dev)
     wd = StepWatchdog(tolerance=4.0, timer=timer)
@@ -64,8 +70,11 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 8,
     results: List[List[int]] = []
     while done < requests:
         n = min(batch, requests - done)
-        prompts = rng.integers(0, cfg.vocab, (batch, prompt_len))
-        toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                               (batch, prompt_len)))
+        if rows > 1:   # this rank's rows of the batch
+            prompts = local_block(prompts, row_spec, mesh)
+        toks = prompts.to(device=dev, dtype=torch.int64)
         t0 = timer()
         logits, caches = prefill(params, {"tokens": toks})
         caches = pad_caches(caches, cfg, max_seq=prompt_len + max_new)
@@ -78,7 +87,10 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 8,
             cur = nxt[:, None]
             outs.append(cur)
             wd.stop()
-        gen = torch.cat(outs, dim=1)[:n].cpu()   # waits for the card
+        gen = torch.cat(outs, dim=1)
+        if rows > 1:
+            gen = gather(gen, row_spec, mesh)
+        gen = gen[:n].cpu()   # waits for the card
         dt = timer() - t0
         results.extend(gen.tolist())
         done += n
@@ -88,6 +100,12 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 8,
         print(f"[serve] straggler decode steps: {wd.flagged[:5]}",
               flush=True)
     return results
+
+
+def _serve_rank(shape, kwargs: dict) -> None:
+    out = serve(mesh=make_lm_mesh(shape, kwargs.get("device")), **kwargs)
+    if dist.get_rank() == 0:
+        print(f"[serve] completed {len(out)} requests")
 
 
 def main():
@@ -102,10 +120,18 @@ def main():
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", type=str, default=None,
                     help="default: the current CUDA device")
+    ap.add_argument("--mesh", type=parse_mesh, default=None,
+                    help="DATAxMODEL: spawn that many ranks (NCCL, or gloo "
+                    "with --device cpu) on that mesh")
     args = ap.parse_args()
-    out = serve(args.arch, smoke=args.smoke, requests=args.requests,
-                batch=args.batch, prompt_len=args.prompt_len,
-                max_new=args.max_new, device=args.device)
+    kwargs = dict(arch=args.arch, smoke=args.smoke, requests=args.requests,
+                  batch=args.batch, prompt_len=args.prompt_len,
+                  max_new=args.max_new, device=args.device)
+    if args.mesh is not None:
+        spawn(_serve_rank, args.mesh[0] * args.mesh[1], args.device,
+              args.mesh, kwargs)
+        return
+    out = serve(**kwargs)
     print(f"[serve] completed {len(out)} requests")
 
 

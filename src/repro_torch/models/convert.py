@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.sharding import MeshRules, place
 from .config import ModelConfig
 from .transformer import Model, init_model
 
@@ -46,11 +47,15 @@ def _to_torch(arr, device) -> torch.Tensor:
 class TreeBuilder:
     """A builder that reads every parameter from a nested dict of arrays
     by path (``"decoder/layer0/attn/wq"``): the port's modules built from
-    the reference's tree."""
+    the reference's tree, each this rank's block on ``mesh`` (recorded in
+    ``specs`` as ``ParamBuilder`` does)."""
 
-    def __init__(self, tree: Dict, *, device=torch.device("cpu")):
+    def __init__(self, tree: Dict, *, device=torch.device("cpu"),
+                 mesh=None):
         self.tree = tree
         self.device = torch.device(device)
+        self.rules = MeshRules.for_mesh(mesh)
+        self.specs: Dict[str, tuple] = {}
 
     def param(self, path: str, shape: Sequence[int],
               logical: Sequence[Optional[str]], init: str = "normal",
@@ -63,13 +68,17 @@ class TreeBuilder:
             raise ValueError(f"{path}: reference leaf of shape "
                              f"{tuple(out.shape)}, the port declares "
                              f"{tuple(shape)}")
-        return out
+        spec = self.specs[path] = self.rules.spec(*logical)
+        return place(out, spec, self.rules.mesh)
 
 
-def params_from_reference(tree: Dict, cfg: ModelConfig,
-                          device="cpu") -> Model:
-    """The port's model holding the reference parameter tree's values."""
-    return init_model(TreeBuilder(tree, device=device), cfg)
+def params_from_reference(tree: Dict, cfg: ModelConfig, device="cpu",
+                          mesh=None) -> Model:
+    """The port's model holding the reference parameter tree's values
+    (this rank's blocks on ``mesh``, on its device)."""
+    if mesh is not None:
+        device = mesh.device
+    return init_model(TreeBuilder(tree, device=device, mesh=mesh), cfg)
 
 
 def caches_from_reference(tree: Dict, device="cpu") -> Dict:

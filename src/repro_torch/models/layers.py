@@ -11,6 +11,16 @@ set:
              cache is a ring buffer of ``window`` slots;
   cross    — enc-dec cross attention (cache filled once from encoder output).
 
+On a mesh (``rules.mesh``) attention and the MLP are Megatron's tensor-
+parallel pairs: the q heads (and the K/V heads with them) and the MLP's
+hidden columns are split over "model", ``wo`` and ``w_down`` are row-
+parallel and their partial products summed over "model"
+(``sharding.tp_sum``, where the reference's ``shard(y, ..., None)`` makes
+the output whole).  With fewer K/V heads than "model" ranks each rank
+computes the one K/V head its q heads read (``wk``/``wv`` replicated over
+"model": a deviation from the reference's spec, which splits inside a
+head).  The fsdp dims are gathered for each use (``sharding.use``).
+
 Each block is an ``nn.Module`` whose parameter names are the reference's
 leaf names (``wq``, ``q_norm.scale``, ...), so the weight converter
 (``models/convert.py``) is a table.  Parameters are kept in their build
@@ -32,7 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import MeshRules, shard
+from ..distributed.sharding import (MeshRules, shard, tp_copy, tp_split,
+                                    tp_sum, use)
 from .config import ModelConfig
 
 NEG_INF = -2.0e38
@@ -40,8 +51,10 @@ NEG_INF = -2.0e38
 
 def as_param(t: torch.Tensor) -> nn.Parameter:
     """A serving parameter: no gradient is kept (the train step's slice
-    turns it on)."""
-    return nn.Parameter(t, requires_grad=False)
+    turns it on).  It keeps the builder's spec (``.spec``)."""
+    p = nn.Parameter(t, requires_grad=False)
+    p.spec = getattr(t, "spec", None)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -194,9 +207,10 @@ class Attention(nn.Module):
         d = cfg.d_model
         hd = cfg.resolved_head_dim()
         h, k = cfg.n_heads, cfg.n_kv_heads
+        kv = ("fsdp", "tp") if tp_split(b, k) else ("fsdp", None)
         self.wq = as_param(b.param(f"{path}/wq", (d, h * hd), ("fsdp", "tp")))
-        self.wk = as_param(b.param(f"{path}/wk", (d, k * hd), ("fsdp", "tp")))
-        self.wv = as_param(b.param(f"{path}/wv", (d, k * hd), ("fsdp", "tp")))
+        self.wk = as_param(b.param(f"{path}/wk", (d, k * hd), kv))
+        self.wv = as_param(b.param(f"{path}/wv", (d, k * hd), kv))
         self.wo = as_param(b.param(f"{path}/wo", (h * hd, d), ("tp", "fsdp"),
                                    scale=0.02 / math.sqrt(2 * cfg.n_layers)))
         if cfg.qk_norm:
@@ -213,19 +227,33 @@ class Attention(nn.Module):
         cfg = self.cfg
         b_, s, d = x.shape
         hd = cfg.resolved_head_dim()
-        h, nk = cfg.n_heads, cfg.n_kv_heads
+        tp = rules.tp_size if rules is not None else 1
+        # this rank's heads: h q heads in nk groups, split over "model"
+        h = cfg.n_heads // tp
+        if self.wk.spec[-1] is not None:
+            nk = cfg.n_kv_heads // tp
+            wk, wv = use(self.wk, rules), use(self.wv, rules)
+        else:   # K/V replicated: the one head this rank's q heads read
+            nk = 1
+            j = rules.tp_index * h // (cfg.n_heads // cfg.n_kv_heads)
+            wk = tp_copy(use(self.wk, rules), rules)[:, j * hd:(j + 1) * hd]
+            wv = tp_copy(use(self.wv, rules), rules)[:, j * hd:(j + 1) * hd]
         g = h // nk
         compute_dt = x.dtype
+        x = tp_copy(x, rules)
 
-        q = (x @ self.wq.to(compute_dt)).reshape(b_, s, nk, g, hd)
-        kv_in = x if kv_source is None else kv_source
-        k = (kv_in @ self.wk.to(compute_dt)).reshape(b_, kv_in.shape[1], nk,
-                                                     hd)
-        v = (kv_in @ self.wv.to(compute_dt)).reshape(b_, kv_in.shape[1], nk,
-                                                     hd)
+        q = (x @ use(self.wq, rules).to(compute_dt)).reshape(b_, s, nk, g,
+                                                              hd)
+        kv_in = x if kv_source is None else tp_copy(kv_source, rules)
+        k = (kv_in @ wk.to(compute_dt)).reshape(b_, kv_in.shape[1], nk, hd)
+        v = (kv_in @ wv.to(compute_dt)).reshape(b_, kv_in.shape[1], nk, hd)
         if cfg.qk_norm:
-            q = self.q_norm(q)
-            k = self.k_norm(k)
+            # each rank normalizes its own heads: the scales' gradients
+            # are partial over "model"
+            q = rms_norm(q, tp_copy(self.q_norm.scale, rules),
+                         self.q_norm.eps)
+            k = rms_norm(k, tp_copy(self.k_norm.scale, rules),
+                         self.k_norm.eps)
 
         is_cross = kv_source is not None
         if positions is None:
@@ -282,7 +310,7 @@ class Attention(nn.Module):
 
         out = out.reshape(b_, s, h * hd)
         out = shard(out, rules, "batch", None, "tp")
-        y = out @ self.wo.to(compute_dt)
+        y = tp_sum(out @ use(self.wo, rules).to(compute_dt), rules)
         return shard(y, rules, "batch", None, None), new_cache
 
 
@@ -316,9 +344,11 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor,
                 rules: Optional[MeshRules] = None) -> torch.Tensor:
         dt = x.dtype
-        hid = F.silu(x @ self.w_gate.to(dt)) * (x @ self.w_up.to(dt))
+        x = tp_copy(x, rules)
+        hid = F.silu(x @ use(self.w_gate, rules).to(dt)) \
+            * (x @ use(self.w_up, rules).to(dt))
         hid = shard(hid, rules, "batch", None, "tp")
-        out = hid @ self.w_down.to(dt)
+        out = tp_sum(hid @ use(self.w_down, rules).to(dt), rules)
         return shard(out, rules, "batch", None, None)
 
 

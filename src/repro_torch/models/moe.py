@@ -16,6 +16,14 @@ kept and the rest dropped; the top k are taken with ``lax.top_k``'s
 ordering of ties (lower expert first).
 :func:`dispatch` returns the sorted order and the keep mask, which the
 tests hold against the reference's.
+
+On a mesh the experts are split over "model" (``w_gate/w_up/w_down`` dim
+0).  Every rank routes every token of its batch rows (the router is
+replicated over "model"), so capacity and drops are the reference's; it
+runs its own experts on their capacity buffers, combines their outputs
+and the ranks' combinations are summed over "model" (``sharding.tp_sum``).
+No token moves between ranks.  The router balance loss reads the whole
+batch's statistics (``sharding.batch_mean`` over the batch axes).
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import MeshRules, shard
+from ..distributed.sharding import (MeshRules, batch_mean, shard,
+                                    tp_copy, tp_sum, use)
 from .config import ModelConfig
 from .layers import as_param
 
@@ -55,10 +64,11 @@ def init_moe(b, path: str, cfg: ModelConfig) -> MoE:
     return MoE(b, path, cfg)
 
 
-def _route(p: MoE, cfg: ModelConfig, xf: torch.Tensor):
+def _route(p: MoE, cfg: ModelConfig, xf: torch.Tensor,
+           rules: Optional[MeshRules] = None):
     """Router: returns (gate weights (..., k), expert ids (..., k), aux)."""
     e, k = cfg.n_experts, cfg.top_k
-    logits = (xf @ p.router.to(xf.dtype)).float()
+    logits = (xf @ use(p.router, rules).to(xf.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k puts the lower index first among equal values, and bfloat16
     # logits tie often; torch.topk leaves ties in no set order, so the
@@ -67,16 +77,30 @@ def _route(p: MoE, cfg: ModelConfig, xf: torch.Tensor):
     gate_w, gate_e = gate_w[..., :k], gate_e[..., :k]
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
     lead = tuple(range(gate_e.dim() - 1))
-    density = torch.mean(F.one_hot(gate_e[..., 0], e).float(), dim=lead)
-    aux = e * torch.sum(density * torch.mean(probs, dim=lead))
-    return gate_w, gate_e, aux
+    density = batch_mean(torch.mean(F.one_hot(gate_e[..., 0], e).float(),
+                                    dim=lead), rules)
+    aux = e * torch.sum(density * batch_mean(torch.mean(probs, dim=lead),
+                                             rules))
+    # the ranks of "model" combine different experts' outputs: the gate
+    # weights' gradients are partial there
+    return tp_copy(gate_w, rules), gate_e, aux
 
 
-def _expert_mlp(p: MoE, dt, buf: torch.Tensor) -> torch.Tensor:
-    """Batched per-expert SwiGLU.  buf: (..., E, C, D) -> same shape."""
-    hid = F.silu(torch.einsum("...ecd,edf->...ecf", buf, p.w_gate.to(dt))) \
-        * torch.einsum("...ecd,edf->...ecf", buf, p.w_up.to(dt))
-    return torch.einsum("...ecf,efd->...ecd", hid, p.w_down.to(dt))
+def _local_experts(cfg: ModelConfig, rules: Optional[MeshRules]):
+    """(first expert, count) of this rank's experts."""
+    n = cfg.n_experts // (rules.tp_size if rules is not None else 1)
+    return (rules.tp_index * n if rules is not None else 0), n
+
+
+def _expert_mlp(p: MoE, dt, buf: torch.Tensor,
+                rules: Optional[MeshRules] = None) -> torch.Tensor:
+    """Batched per-expert SwiGLU over this rank's experts.  buf: (..., E,
+    C, D) -> same shape."""
+    hid = F.silu(torch.einsum("...ecd,edf->...ecf", buf,
+                              use(p.w_gate, rules).to(dt))) \
+        * torch.einsum("...ecd,edf->...ecf", buf, use(p.w_up, rules).to(dt))
+    return torch.einsum("...ecf,efd->...ecd", hid,
+                        use(p.w_down, rules).to(dt))
 
 
 def dispatch(flat_e: torch.Tensor, n_experts: int, cap: int):
@@ -110,8 +134,9 @@ def moe_ffn_grouped(p: MoE, cfg: ModelConfig, rules: Optional[MeshRules],
     b_, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
-    gate_w, gate_e, aux = _route(p, cfg, x)
+    gate_w, gate_e, aux = _route(p, cfg, x, rules)
     cap = max(4, int(cfg.capacity_factor * s * k / e))
+    e0, ne = _local_experts(cfg, rules)
 
     flat_e = gate_e.reshape(b_, s * k)
     flat_t = torch.arange(s, device=x.device).repeat_interleave(k) \
@@ -121,18 +146,22 @@ def moe_ffn_grouped(p: MoE, cfg: ModelConfig, rules: Optional[MeshRules],
     st_ = torch.gather(flat_t, -1, order)
     sw = torch.gather(flat_w, -1, order)
 
-    xtok = torch.gather(x, 1, st_[..., None].expand(-1, -1, d)).to(dt)
+    xtok = torch.gather(tp_copy(x, rules), 1,
+                        st_[..., None].expand(-1, -1, d)).to(dt)
     xtok = shard(xtok, rules, "batch", None, "tp")
     buf = torch.zeros((b_, e * cap + 1, d), dtype=dt, device=x.device)
     buf.scatter_add_(1, slot[..., None].expand(-1, -1, d), xtok)
-    buf = buf[:, :-1].reshape(b_, e, cap, d)
+    buf = buf[:, :-1].reshape(b_, e, cap, d)[:, e0:e0 + ne]
     buf = shard(buf, rules, "batch", "tp", None, None)
 
-    out_e = _expert_mlp(p, dt, buf)
+    out_e = _expert_mlp(p, dt, buf, rules)
     out_e = shard(out_e, rules, "batch", "tp", None, None)
 
-    flat_out = out_e.reshape(b_, e * cap, d)
-    safe_slot = torch.clamp(slot, max=e * cap - 1)
+    # this rank's experts' slots (a kept entry elsewhere is dropped here)
+    flat_out = out_e.reshape(b_, ne * cap, d)
+    local = slot - e0 * cap
+    keep = keep & (local >= 0) & (local < ne * cap)
+    safe_slot = torch.clamp(local, min=0, max=ne * cap - 1)
     gathered = torch.gather(flat_out, 1, safe_slot[..., None].expand(-1, -1, d))
     gathered = shard(gathered, rules, "batch", None, "tp")
     gathered = torch.where(keep[..., None], gathered,
@@ -140,7 +169,7 @@ def moe_ffn_grouped(p: MoE, cfg: ModelConfig, rules: Optional[MeshRules],
     contrib = gathered * sw[..., None].to(dt)
     out = torch.zeros((b_, s, d), dtype=dt, device=x.device)
     out.scatter_add_(1, st_[..., None].expand(-1, -1, d), contrib)
-    out = shard(out, rules, "batch", None, "tp")
+    out = tp_sum(shard(out, rules, "batch", None, "tp"), rules)
     return shard(out, rules, "batch", None, None), aux
 
 
@@ -151,8 +180,13 @@ def moe_ffn_global(p: MoE, cfg: ModelConfig, rules: Optional[MeshRules],
     e, k = cfg.n_experts, cfg.top_k
     t = b_ * s
     dt = x.dtype
+    if rules is not None and rules.batch_size > 1:
+        raise NotImplementedError(
+            "moe_impl='global' sorts the whole batch's tokens: it runs with "
+            "the batch on one rank (a mesh whose batch axes have size 1)")
     xf = x.reshape(t, d)
-    gate_w, gate_e, aux = _route(p, cfg, xf)
+    gate_w, gate_e, aux = _route(p, cfg, xf, rules)
+    e0, ne = _local_experts(cfg, rules)
 
     cap = max(4, int(cfg.capacity_factor * t * k / e))
     flat_e = gate_e.reshape(-1)
@@ -162,18 +196,22 @@ def moe_ffn_global(p: MoE, cfg: ModelConfig, rules: Optional[MeshRules],
     st_, sw = flat_t[order], flat_w[order]
 
     buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
-    buf.index_add_(0, slot, xf[st_].to(dt))
-    buf = buf[:-1].reshape(e, cap, d)
+    buf.index_add_(0, slot, tp_copy(xf, rules)[st_].to(dt))
+    buf = buf[:-1].reshape(e, cap, d)[e0:e0 + ne]
     buf = shard(buf, rules, "tp", None, None)
 
-    out_e = _expert_mlp(p, dt, buf)
+    out_e = _expert_mlp(p, dt, buf, rules)
     out_e = shard(out_e, rules, "tp", None, None)
 
-    flat_out = out_e.reshape(e * cap, d)
+    flat_out = out_e.reshape(ne * cap, d)
+    local = slot - e0 * cap
+    keep = keep & (local >= 0) & (local < ne * cap)
     gathered = torch.where(keep[:, None],
-                           flat_out[torch.clamp(slot, max=e * cap - 1)],
+                           flat_out[torch.clamp(local, min=0,
+                                                max=ne * cap - 1)],
                            torch.zeros((), dtype=dt, device=x.device))
     contrib = gathered * sw[:, None].to(dt)
     out = torch.zeros((t, d), dtype=dt, device=x.device)
     out.index_add_(0, st_, contrib)
+    out = tp_sum(out, rules)
     return shard(out.reshape(b_, s, d), rules, "batch", None, None), aux

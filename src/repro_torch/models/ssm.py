@@ -17,6 +17,17 @@ Decode state trees (the SSM "KV cache"), ``pos`` a Python int:
 ``fft_backend="cufft"`` (the default, the reference's ``"xla"``) is
 torch.fft, and ``"kernel"`` runs the hand-written four-step kernel, three
 launches per call on contiguous lines of length 2S.
+
+On a mesh, Mamba and ``fft_conv`` are channel-parallel: each rank holds
+``d_inner / |model|`` channels (``w_in``'s x and z column blocks, taken
+from its gathered whole because the reference's split of ``2 * d_inner``
+columns does not follow the channels; ``conv_w``, ``basis_w`` and the rest
+by spec), Mamba sums its ``w_x`` projection over "model", and ``w_out`` is
+row-parallel (``sharding.tp_sum``).  ``fft_conv``'s kernel then transforms
+this rank's ``(B * d_inner / |model|, 2S)`` lines.  mLSTM and sLSTM
+compute replicated on every rank of "model" with their parameters gathered
+whole for the layer (``sharding.use(..., tp="slice")``): their heads are
+not split (a deviation from the reference's layout, not its specs).
 """
 from __future__ import annotations
 
@@ -27,13 +38,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import MeshRules, shard
+from ..distributed.sharding import MeshRules, shard, tp_copy, tp_sum, use
 from .config import ModelConfig
 from .layers import as_param
 
 
 def _out_scale(cfg: ModelConfig) -> float:
     return 0.02 / math.sqrt(2 * cfg.n_layers)
+
+
+def _channel_in(x: torch.Tensor, w_in: torch.Tensor, di: int,
+                rules: Optional[MeshRules]):
+    """``(x, z)`` of this rank's channels: ``x @ w_in`` on its columns
+    ``[c0, c0 + n)`` and ``[di + c0, di + c0 + n)`` of the whole ``w_in``
+    (the input's gradient is partial over "model")."""
+    tp = rules.tp_size if rules is not None else 1
+    w = use(w_in, rules, tp="sum").to(x.dtype)
+    if tp > 1:
+        n = di // tp
+        c0 = rules.tp_index * n
+        w = torch.cat([w[:, c0:c0 + n], w[:, di + c0:di + c0 + n]], dim=1)
+    return torch.chunk(tp_copy(x, rules) @ w, 2, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -134,12 +159,15 @@ class MLSTM(nn.Module):
         h = cfg.n_heads
         dh = di // h
 
-        xz = shard(x @ self.w_in.to(dt), rules, "batch", None, "tp")
+        def w(p):   # replicated over "model": the whole leaf
+            return use(p, rules, tp="slice").to(dt)
+
+        xz = shard(x @ w(self.w_in), rules, "batch", None, "tp")
         xi, z = torch.chunk(xz, 2, dim=-1)
-        q = (xi @ self.wq.to(dt)).reshape(b_, s, h, dh)
-        k = (xi @ self.wk.to(dt)).reshape(b_, s, h, dh) / math.sqrt(dh)
-        v = (xi @ self.wv.to(dt)).reshape(b_, s, h, dh)
-        gates = (xi @ self.w_if.to(dt)).float()
+        q = (xi @ w(self.wq)).reshape(b_, s, h, dh)
+        k = (xi @ w(self.wk)).reshape(b_, s, h, dh) / math.sqrt(dh)
+        v = (xi @ w(self.wv)).reshape(b_, s, h, dh)
+        gates = (xi @ w(self.w_if)).float()
         i_pre, f_pre = gates.reshape(b_, s, 2, h).unbind(dim=2)  # (B, S, H)
         logf = F.logsigmoid(f_pre)
 
@@ -176,7 +204,7 @@ class MLSTM(nn.Module):
         out = out.reshape(b_, s, di).to(dt)
         out = out + xi * self.skip_scale.to(dt)
         out = out * F.silu(z)
-        y = out @ self.w_out.to(dt)
+        y = out @ w(self.w_out)
         return shard(y, rules, "batch", None, None), new_cache
 
 
@@ -226,7 +254,9 @@ class SLSTM(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         b_, s, d = x.shape
         dt = x.dtype
-        gates_in = x @ self.w_gates.to(dt)                   # (B, S, 4D)
+        # replicated over "model": the whole leaves
+        w_out = use(self.w_out, rules, tp="slice").to(dt)
+        gates_in = x @ use(self.w_gates, rules, tp="slice").to(dt)
         if cache is not None:
             state = cache
         else:
@@ -239,7 +269,7 @@ class SLSTM(nn.Module):
         if mode == "decode":
             h_new, st = self.step(gates_in[:, 0], carry)
             st["pos"] = state["pos"] + 1
-            y = h_new[:, None].to(dt) @ self.w_out.to(dt)
+            y = h_new[:, None].to(dt) @ w_out
             return shard(y, rules, "batch", None, None), st
 
         hs = []
@@ -247,7 +277,7 @@ class SLSTM(nn.Module):
             h_new, carry = self.step(gates_in[:, t], carry)
             hs.append(h_new)
         hs = torch.stack(hs, dim=1).to(dt)                   # (B, S, D)
-        y = hs @ self.w_out.to(dt)
+        y = hs @ w_out
         new_cache = None
         if mode == "prefill":
             carry["pos"] = state["pos"] + s
@@ -286,11 +316,14 @@ class Mamba(nn.Module):
         self.w_out = as_param(b.param(f"{path}/w_out", (di, d),
                                       ("tp", "fsdp"), scale=_out_scale(cfg)))
 
-    def _inner(self, xc: torch.Tensor):
-        """Selective-scan coefficients.  xc: (B, L, di) float32."""
+    def _inner(self, xc: torch.Tensor, rules: Optional[MeshRules] = None):
+        """Selective-scan coefficients.  xc: (B, L, di) float32 (this
+        rank's channels)."""
         n = self.cfg.d_state
         dt_rank = self.w_dt.shape[0]
-        proj = xc @ self.w_x.to(xc.dtype)                    # (B, L, r+2N)
+        # (B, L, r+2N): summed over the channels of every rank, then read
+        # by this rank's channels
+        proj = tp_copy(tp_sum(xc @ self.w_x.to(xc.dtype), rules), rules)
         dt_raw, b_in, c_in = torch.split(proj, [dt_rank, n, n], dim=-1)
         delta = F.softplus(dt_raw @ self.w_dt.to(xc.dtype)
                            + self.dt_bias.to(xc.dtype))       # (B, L, di)
@@ -306,11 +339,11 @@ class Mamba(nn.Module):
         cfg = self.cfg
         b_, s, d = x.shape
         dt = x.dtype
-        di = cfg.expand * d
         kw = cfg.d_conv
 
-        xz = shard(x @ self.w_in.to(dt), rules, "batch", None, "tp")
-        xin, z = torch.chunk(xz, 2, dim=-1)
+        xin, z = _channel_in(x, self.w_in, cfg.expand * d, rules)
+        xin = shard(xin, rules, "batch", None, "tp")
+        di = xin.shape[-1]   # this rank's channels
 
         # causal depthwise conv
         if mode == "decode" and cache is not None:
@@ -329,7 +362,7 @@ class Mamba(nn.Module):
         if mode == "decode":
             if cache is None or s != 1:
                 raise ValueError("Mamba decode takes one token and a cache")
-            abar, bx, c_in = self._inner(xc)
+            abar, bx, c_in = self._inner(xc, rules)
             h = abar[:, 0] * cache["h"] + bx[:, 0]           # (B, di, N)
             y = torch.einsum("bdn,bn->bd", h, c_in[:, 0])[:, None]
             new_conv = torch.cat([conv_state_in[:, 1:], xin], dim=1)
@@ -346,7 +379,7 @@ class Mamba(nn.Module):
                             device=x.device)
             ys = []
             for ci in range(s // lc):
-                abar, bx, c_in = self._inner(xcs[:, ci].float())
+                abar, bx, c_in = self._inner(xcs[:, ci].float(), rules)
                 for t in range(lc):   # h_t = abar_t h_{t-1} + bx_t
                     h = abar[:, t] * h + bx[:, t]
                     ys.append(torch.einsum("bdn,bn->bd", h, c_in[:, t]))
@@ -358,7 +391,7 @@ class Mamba(nn.Module):
 
         y = y + xc * self.d_skip.float()
         y = y.to(dt) * F.silu(z)
-        out = y @ self.w_out.to(dt)
+        out = tp_sum(y @ use(self.w_out, rules).to(dt), rules)
         return shard(out, rules, "batch", None, None), new_cache
 
 
@@ -399,11 +432,12 @@ class FFTConv(nn.Module):
         b_, s, d = x.shape
         dt = x.dtype
 
-        xz = shard(x @ self.w_in.to(dt), rules, "batch", None, "tp")
-        xin, z = torch.chunk(xz, 2, dim=-1)
-        # implicit kernel h: (di, S)
+        xin, z = _channel_in(x, self.w_in, self.cfg.expand * d, rules)
+        xin = shard(xin, rules, "batch", None, "tp")
+        # implicit kernel h: (di, S) over this rank's channels
         t = torch.arange(s, dtype=torch.float32, device=x.device)
-        lam = F.softplus(self.decay.float())                 # (K,)
+        # every channel reads the decay: partial gradients over "model"
+        lam = F.softplus(tp_copy(self.decay, rules).float())  # (K,)
         basis = torch.exp(-lam[:, None] * t[None, :] / s)    # (K, S)
         h = self.basis_w.float() @ basis                     # (di, S)
 
@@ -420,7 +454,7 @@ class FFTConv(nn.Module):
                          backend=fft_backend).real[..., :s]
         y = y.transpose(1, 2).to(dt)
         y = y * F.silu(z)
-        out = y @ self.w_out.to(dt)
+        out = tp_sum(y @ use(self.w_out, rules).to(dt), rules)
         return shard(out, rules, "batch", None, None), None
 
 

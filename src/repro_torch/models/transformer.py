@@ -25,6 +25,13 @@ The reference's policy also saves each layer's ``mixer_out`` and
 ``ffn_out`` to spare their recomputation; the port recomputes them
 (plain recomputation, no selective policy).  The values are the same
 either way; only memory and time differ.
+
+On a mesh (``rules.mesh``) the embedding and the LM head are vocab-
+parallel: ``embed`` keeps its vocab rows over "model" (the lookup masks
+the tokens outside this rank's rows and sums over "model") and the head's
+columns are this rank's vocab slice (``forward`` gathers the logits whole;
+``return_hidden`` gives the chunked loss this rank's slice).  The layers
+below are tensor-parallel (``layers``, ``moe``, ``ssm``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..compat import resolve_device
-from ..distributed.sharding import MeshRules, StackedBuilder, shard
+from ..distributed.sharding import (MeshRules, StackedBuilder,
+                                    gather_dim, shard, tp_copy, tp_sum,
+                                    use)
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .config import ModelConfig
@@ -280,21 +289,40 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _embed(p: Model, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return F.embedding(tokens, p.embed).to(dtype)
+def _embed(p: Model, tokens: torch.Tensor, dtype,
+           rules: Optional[MeshRules] = None) -> torch.Tensor:
+    w = use(p.embed, rules)
+    if rules is None or rules.tp_size == 1:
+        return F.embedding(tokens, w).to(dtype)
+    # this rank's vocab rows; the one holding a token's row gives it
+    v0 = rules.tp_index * w.shape[0]
+    local = tokens - v0
+    mine = (local >= 0) & (local < w.shape[0])
+    emb = F.embedding(torch.where(mine, local, 0), w) * mine[..., None]
+    return tp_sum(emb, rules).to(dtype)
+
+
+def _head_weight(p: Model, cfg: ModelConfig,
+                 rules: Optional[MeshRules]) -> torch.Tensor:
+    """The head's (D, V) weight: this rank's vocab columns on a mesh."""
+    return use(p.embed, rules).T if cfg.tie_embeddings \
+        else use(p.lm_head, rules)
 
 
 def _head(p: Model, cfg: ModelConfig, rules: Optional[MeshRules],
           x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, p.final_norm.scale, cfg.norm_eps)
-    w = (p.embed.T if cfg.tie_embeddings else p.lm_head).to(x.dtype)
-    return shard(x @ w, rules, "batch", None, "tp")
+    x = tp_copy(rms_norm(x, p.final_norm.scale, cfg.norm_eps), rules)
+    w = _head_weight(p, cfg, rules).to(x.dtype)
+    logits = shard(x @ w, rules, "batch", None, "tp")
+    return gather_dim(logits, -1, None if rules is None
+                      else rules.group(rules.tp), "slice")
 
 
-def _modality_tokens(p: Model, batch: Dict, dtype) -> torch.Tensor:
+def _modality_tokens(p: Model, batch: Dict, dtype,
+                     rules: Optional[MeshRules] = None) -> torch.Tensor:
     """Stub frontend output -> backbone embeddings (precomputed upstream)."""
     feats = batch["modality_embeds"].to(dtype)            # (B, S_m, D)
-    return feats @ p.modality_proj.to(dtype)
+    return feats @ use(p.modality_proj, rules, tp="slice").to(dtype)
 
 
 def forward(p: Model, cfg: ModelConfig, rules: Optional[MeshRules],
@@ -316,13 +344,13 @@ def forward(p: Model, cfg: ModelConfig, rules: Optional[MeshRules],
     (B, S, V) logits.
     """
     dtype = compute_dtype(cfg)
-    x = _embed(p, batch["tokens"], dtype)
+    x = _embed(p, batch["tokens"], dtype, rules)
 
     enc_out = None
     if cfg.n_enc_layers > 0 and mode in ("train", "prefill"):
-        enc_in = _modality_tokens(p, batch, dtype) \
+        enc_in = _modality_tokens(p, batch, dtype, rules) \
             if cfg.modality == "audio" else \
-            _embed(p, batch["src_tokens"], dtype)
+            _embed(p, batch["src_tokens"], dtype, rules)
         enc_out, _, _ = apply_stack(p.encoder, cfg, rules, enc_in,
                                     mode="train", positions=None,
                                     caches=None, enc_out=None, causal=False,
@@ -331,7 +359,7 @@ def forward(p: Model, cfg: ModelConfig, rules: Optional[MeshRules],
     # decode: cross-attention runs from its prefilled cache (enc_out=None)
 
     if cfg.modality == "vision" and mode in ("train", "prefill"):
-        vis = _modality_tokens(p, batch, dtype)
+        vis = _modality_tokens(p, batch, dtype, rules)
         nm = vis.shape[1]
         x = torch.cat([vis, x[:, nm:]], dim=1)
 
@@ -339,9 +367,8 @@ def forward(p: Model, cfg: ModelConfig, rules: Optional[MeshRules],
                                      positions=positions, caches=caches,
                                      enc_out=enc_out, remat=remat)
     if return_hidden:
-        xh = rms_norm(x, p.final_norm.scale, cfg.norm_eps)
-        w = p.embed.T if cfg.tie_embeddings else p.lm_head
-        return (xh, w), new_caches, aux
+        xh = tp_copy(rms_norm(x, p.final_norm.scale, cfg.norm_eps), rules)
+        return (xh, _head_weight(p, cfg, rules)), new_caches, aux
     return _head(p, cfg, rules, x), new_caches, aux
 
 
@@ -418,3 +445,57 @@ def pad_caches(caches: Dict, cfg: ModelConfig, max_seq: int) -> Dict:
     return {name: [{kind: fix(sub) for kind, sub in c.items()}
                    for c in reps]
             for name, reps in caches.items()}
+
+
+def cache_pspec(cfg: ModelConfig, rules: MeshRules, batch_size: int,
+                axis_sizes: Dict[str, int]):
+    """The reference's spec policy for a cache built by ``init_caches``:
+    ``make(caches)`` gives the port's cache tree with a spec per leaf (a
+    super-block's leaf: the reference's stacked spec without its leading
+    stack entry; ``()`` for ``pos``).
+
+    Policy, as the reference: shard the batch dim over the batch axes when
+    divisible; shard attention-cache sequence dims over "model" (decode
+    SP), and over *all* axes when the batch does not divide; SSM state
+    tensors shard their feature dim over "model".  Serving on a mesh
+    holds its caches as its prefill computes them instead: split by K/V
+    heads with the projections (``layers.Attention``), the layout the
+    reference's jitted prefill hands its decode.
+    """
+    batch_axes = rules.batch if isinstance(rules.batch, tuple) \
+        else (rules.batch,)
+    batch_sz = 1
+    for a in batch_axes:
+        batch_sz *= axis_sizes[a]
+    batch_ok = batch_size % batch_sz == 0 and batch_size >= batch_sz
+    bspec = (batch_axes if len(batch_axes) > 1 else batch_axes[0]) \
+        if batch_ok else None
+    seq_axes = "model" if batch_ok else tuple(batch_axes) + ("model",)
+
+    def leaf_spec(name: str, leaf) -> tuple:
+        nd = leaf.dim() if isinstance(leaf, torch.Tensor) else 0
+        if nd == 0:                      # "pos" counters
+            return ()
+        if name in ("k", "v"):           # (B, S, K, hd)
+            return (bspec, seq_axes, None, None)
+        if name == "C":                  # mlstm (B, H, dk, dv)
+            return (bspec, None, None, "model")
+        if name == "n":
+            return (bspec, None, None) if nd == 3 else (bspec, "model")
+        if name == "m":                  # (B, H) or (B, D)
+            return (bspec, None)
+        if name == "conv":               # mamba (B, kw-1, di)
+            return (bspec, None, "model")
+        if name == "h":                  # mamba (B, di, N) | slstm (B, D)
+            return (bspec, "model", None) if nd == 3 else (bspec, "model")
+        if name == "c":                  # slstm (B, D)
+            return (bspec, "model")
+        return (None,) * nd
+
+    def make(caches: Dict) -> Dict:
+        return {name: [{kind: {leaf: leaf_spec(leaf, v)
+                               for leaf, v in sub.items()}
+                        for kind, sub in c.items()} for c in reps]
+                for name, reps in caches.items()}
+
+    return make

@@ -16,14 +16,22 @@ Unlike the reference, :func:`adamw_update` writes the new parameters and
 moments into the tensors it is given (the model's own parameters), so a
 step holds no second copy of the masters; it returns them all the same.
 A schedule read at a 0-d tensor step stays on its device (no host sync).
+
+On a mesh (``rules.mesh``) the leaves are this rank's blocks and every
+step is elementwise but the clip: :func:`global_norm` sums the squares of
+the leaves split over the same mesh axes, all-reduces each such sum over
+those axes and counts a replicated leaf once, so the clip is the
+one-process clip.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
+
+from ..compat import _spec_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,10 +65,30 @@ def cosine_schedule(cfg: AdamWConfig,
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: Mapping[object, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
-    return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(t.float())) for t in tree.values()]).sum())
+def global_norm(tree: Mapping[object, torch.Tensor],
+                specs: Optional[Mapping[object, tuple]] = None,
+                rules=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32.
+
+    With ``rules`` on a mesh, ``tree`` holds this rank's blocks and
+    ``specs`` their specs: the sums of the leaves split over one set of
+    axes are all-reduced over those axes (their ranks hold different
+    blocks), and the replicated ones are each rank's own."""
+    sq = [torch.sum(torch.square(t.float())) for t in tree.values()]
+    if rules is None or rules.mesh is None or rules.mesh.size == 1:
+        return torch.sqrt(torch.stack(sq).sum())
+    by_axes: Dict[tuple, list] = {}
+    for (k, t), s in zip(tree.items(), sq):
+        axes = tuple(sorted({a for e in specs[k] for a in _spec_axes(e)
+                             if rules.size(a) > 1}))
+        by_axes.setdefault(axes, []).append(s)
+    total = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+    for axes, parts in sorted(by_axes.items()):
+        part = torch.stack(parts).sum()
+        for ax in axes:   # the blocks along each splitting axis add up
+            torch.distributed.all_reduce(part, group=rules.group(ax))
+        total = total + part
+    return torch.sqrt(total)
 
 
 def adamw_init(params: Mapping[object, torch.Tensor],
@@ -78,12 +106,15 @@ def adamw_init(params: Mapping[object, torch.Tensor],
 def adamw_update(grads: Mapping[object, torch.Tensor],
                  state: Dict[str, object],
                  params: Mapping[object, torch.Tensor], cfg: AdamWConfig,
-                 ) -> Tuple[Mapping[object, torch.Tensor],
-                            Dict[str, object]]:
-    """One AdamW step, in place on ``params`` and the moments."""
+                 rules=None) -> Tuple[Mapping[object, torch.Tensor],
+                                      Dict[str, object]]:
+    """One AdamW step, in place on ``params`` and the moments (this rank's
+    blocks on ``rules.mesh``; each parameter's ``.spec`` names its
+    split)."""
     count = state["count"] + 1
     lr = cosine_schedule(cfg, state["count"])
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, {k: getattr(p, "spec", None)
+                                for k, p in params.items()}, rules)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2

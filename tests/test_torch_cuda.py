@@ -5,7 +5,12 @@ the plans, the plan-stream executor's mixed queue (plain, and under the
 static verifier and the sanitizer) and the service losing one card; the LM
 smoke serving path on the card against the CPU, the FFT long-convolution
 mixer on the kernel, its gradient through the kernel, and a smoke train
-step on the card against the CPU.  They skip where CUDA is absent.  This file imports no JAX, so on a GPU machine without
+step on the card against the CPU; ``[train]``'s 8 layers lowering the
+loss of the batches they trained on; the LM's mesh path on one card (a
+(1, 1) NCCL mesh against no mesh) and on 4 cards (qwen3-8b at 36 layers
+trained on (1, 4) and (2, 2) and served on (1, 4), a full-width step
+against one card, ``fft_conv`` split over the cards; each writes its
+record to ``chiprun_out/``).  They skip where CUDA is absent.  This file imports no JAX, so on a GPU machine without
 JAX it runs with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -540,3 +545,225 @@ def test_train_step_smoke_on_the_card(cuda):
         g = runs[cpu][1][k].abs()
         bound = lr * (1e-5 + eps * 1e-4 * float(g.max()) / (g + eps) ** 2)
         assert bool(((runs[cuda][2][k] - p).abs() <= bound).all()), k
+
+
+# ---------------------------------------------------------------------------
+# the LM sharded over a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+def _card_record(name: str, rec: dict) -> None:
+    """Keep an LM card test's record under ``chiprun_out/`` and print
+    it."""
+    root = os.path.join(os.path.dirname(__file__), "..", "chiprun_out")
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, f"{name}.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    print(json.dumps(rec))
+
+
+@pytest.mark.cuda
+def test_lm_one_card_mesh_matches_no_mesh(cuda, tmp_path):
+    """The mesh path on one card (an NCCL group of one, a (1, 1) mesh)
+    serves the same tokens and trains the same losses, bit for bit, as no
+    mesh: every collective is skipped on an axis of one rank."""
+    out = run_ranks("lm_mesh_one_card_body", 1, tmp_path, backend="nccl")
+    with open(os.path.join(out, "rank0.json")) as f:
+        rec = json.load(f)
+    assert rec["serve"][0] == rec["serve"][1]
+    assert rec["train"][0] == rec["train"][1]
+    assert all(math.isfinite(v) for v in rec["train"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,batch", [((1, 4), 1), ((2, 2), 2)],
+                         ids=["1x4", "2x2"])
+def test_qwen3_train_36_layers_on_four_cards(cuda, tmp_path, shape, batch):
+    """qwen3-8b at its published widths and all 36 layers (about 131 GB of
+    training state, a quarter on each card), ``train_4k``'s S=4096 with
+    the batch cut from 256 to ``batch``: 5 steps, remat, bf16 gradients,
+    ``AdamWConfig()``; losses finite and falling, the same seed twice
+    bitwise equal, every rank reporting the same losses.  The record
+    holds each training batch's loss before the first update and after
+    the last (``torch_harness.held_losses``): what the updates did, apart
+    from how the loss varies from batch to batch."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    out = run_ranks("lm_train_cards_body", 4, tmp_path, list(shape), batch,
+                    4096, 5, backend="nccl")
+    recs = []
+    for rank in range(4):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    first, again = recs[0]["runs"]
+    _card_record(f"train36_{shape[0]}x{shape[1]}", {
+        "card": recs[0]["card"], "shape": list(shape), "batch": batch,
+        "seq": 4096, "layers": recs[0]["layers"],
+        "losses": first["losses"], "losses_again": again["losses"],
+        "step_ms": [r["runs"][0]["step_ms"] for r in recs],
+        "step_ms_again": [r["runs"][1]["step_ms"] for r in recs],
+        "peak_bytes": [r["runs"][0]["peak_bytes"] for r in recs],
+        "param_bytes": [r["runs"][0]["param_bytes"] for r in recs],
+        "held": first["held"],
+        "profile": [r["runs"][0]["profile"] for r in recs]})
+    losses = first["losses"]
+    assert recs[0]["layers"] == 36
+    assert all(math.isfinite(v) for v in losses)
+    assert losses[-1] < losses[0], losses
+    assert again["losses"] == losses
+    assert all(r["runs"][0]["losses"] == losses for r in recs)
+
+
+@pytest.mark.cuda
+def test_qwen3_8_layers_updates_lower_held_losses_on_the_card(cuda):
+    """``[train]``'s setup on one card (qwen3-8b's widths at 8 of 36
+    layers, B=1, S=4096, remat, bf16 gradients, ``AdamWConfig()``, 5
+    steps): the 5 training batches' mean loss is lower after the updates
+    than before them.  The steps' own losses read a new batch each; the
+    record holds both, to tell the updates from the batches' spread."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from torch_harness import card_name, train_losses
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=8)
+    rec = train_losses(cfg, 5, device=cuda)
+    torch.cuda.empty_cache()
+    _card_record("held8_one_card", {"card": card_name(), **rec})
+    assert all(math.isfinite(v) for v in rec["losses"] + rec["held_after"])
+    # the first step's loss is the first batch's before any update
+    assert math.isclose(rec["held_before"][0], rec["losses"][0],
+                        rel_tol=1e-5)
+    assert sum(rec["held_after"]) < sum(rec["held_before"]), rec
+
+
+@pytest.mark.cuda
+def test_qwen3_full_width_on_four_cards_matches_one_card(cuda, tmp_path):
+    """qwen3-8b's published widths on ``make_host_mesh()``'s (1, 4)
+    against one card: one float32 step at 2 layers (S=256), the loss
+    within 1e-5 relative and the gradient leaves within 1e-4 max-scaled
+    (``[train]``'s card-vs-CPU gate); and ``[train]``'s 8-layer bf16 run
+    (B=1, S=4096, 5 steps) recorded on both, with each training batch's
+    loss before and after the updates."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.config import SHAPES
+    from torch_harness import (GRAD_LEAVES, card_name, full_width_grads,
+                               train_losses)
+    full = get_config("qwen3-8b")
+    cut = dataclasses.replace(full, n_layers=2, dtype="float32")
+    host = SyntheticLM(cut, SHAPES["train_4k"], seed=0, batch_override=1,
+                       seq_override=256).batch_for_step(0)
+    one = full_width_grads(cut, None, SyntheticLM.to_device(host, cuda),
+                           device=cuda)
+    torch.cuda.empty_cache()
+    one8 = train_losses(dataclasses.replace(full, n_layers=8), 5,
+                        device=cuda)
+    torch.cuda.empty_cache()
+    out = run_ranks("lm_check_cards_body", 4, tmp_path, 5, backend="nccl")
+    got = np.load(os.path.join(out, "grads.npz"))
+    with open(os.path.join(out, "rank0.json")) as f:
+        rec = json.load(f)
+    errs = {k: float(np.abs(got[k] - one[k]).max()
+                     / max(np.abs(one[k]).max(), 1e-30))
+            for k in one if k != "loss"}
+    loss_rel = abs(float(got["loss"]) - one["loss"]) / abs(one["loss"])
+    _card_record("check_1x4", {
+        "card": card_name(), "loss_rel": loss_rel, "grad_errs": errs,
+        "train8_one_card": one8, "train8_1x4": rec})
+    assert set(errs) == {f"{p}|{r}" for p, r in GRAD_LEAVES}
+    assert loss_rel < 1e-5
+    assert all(e < 1e-4 for e in errs.values()), errs
+    assert all(math.isfinite(v) for v in rec["losses"] + one8["losses"])
+
+
+@pytest.mark.cuda
+def test_qwen3_serve_36_layers_on_four_cards(cuda, tmp_path):
+    """qwen3-8b at full width and depth served on ``make_host_mesh()``'s
+    (1, 4) with the serve CLI's defaults against one card: the first
+    token of every request equal, the prefill logits within 1e-2
+    max-scaled, every rank the same tokens; the top-2 logit margins where
+    later tokens differ are recorded."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_params, make_prefill_step
+    from torch_harness import card_name, greedy_trace
+    cfg = get_config("qwen3-8b")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32))
+    np.save(tmp_path / "prompts.npy", prompts)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = build_params(cfg, seed=0, device=cuda)
+    one = greedy_trace(model, cfg, None, torch.as_tensor(prompts), 16, dev)
+    # float32 activations on the same masters: where the bf16 runs'
+    # rounding is measured from
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    truth = make_prefill_step(f32, None, device=dev)(
+        model, {"tokens": torch.as_tensor(prompts).to(dev)})[0]
+    truth = truth.float().cpu().numpy()
+    del model
+    torch.cuda.empty_cache()
+    out = run_ranks("lm_serve_cards_body", 4, tmp_path,
+                    str(tmp_path / "prompts.npy"), 16, backend="nccl")
+    recs = []
+    for rank in range(4):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    logits = np.load(os.path.join(out, "prefill_logits.npy"))
+    ref = one["prefill_logits"].numpy()
+    err = float(np.abs(logits - ref).max() / np.abs(ref).max())
+
+    def from_truth(x):
+        return float(np.abs(x - truth).max() / np.abs(truth).max())
+    toks, want = recs[0]["tokens"], one["tokens"]
+    differ = [(r, i, one["margins"][r][i], recs[0]["margins"][r][i])
+              for r in range(len(want)) for i in range(len(want[r]))
+              if toks[r][i] != want[r][i]]
+    _card_record("serve36_1x4", {
+        "card": recs[0]["card"], "card_one": card_name(),
+        "prefill_scaled_err": err,
+        "one_card_bf16_vs_f32": from_truth(ref),
+        "four_cards_bf16_vs_f32": from_truth(logits),
+        "tokens": toks, "one_card_tokens": want,
+        "first_differ": differ[:8], "n_differ": len(differ),
+        "decode_ms": recs[0]["decode_ms"],
+        "one_card_decode_ms": one["decode_ms"],
+        "peak_bytes": [r["peak_bytes"] for r in recs],
+        "param_bytes": [r["param_bytes"] for r in recs]})
+    assert all(r["tokens"] == toks and r["serve_tokens"] ==
+               recs[0]["serve_tokens"] for r in recs)
+    assert len(recs[0]["serve_tokens"]) == 8
+    assert recs[0]["serve_tokens"][:4] == toks
+    assert [t[0] for t in toks] == [t[0] for t in want]
+    assert err < 1e-2
+
+
+@pytest.mark.cuda
+def test_fft_conv_sharded_on_four_cards(cuda, tmp_path):
+    """``fft_conv`` at jamba-v0.1-52b's mixer width, 8192 channels split
+    2048 per card over ``make_host_mesh()``'s (1, 4), S=2048, float32,
+    forward and backward on the kernel: 6 radix launches on lines per rank
+    and no line copy, the gathered gradients within 1e-4 of one card's."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    out = run_ranks("fft_conv_cards_body", 4, tmp_path, 1, 2048,
+                    backend="nccl")
+    recs = []
+    for rank in range(4):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    _card_record("fft_conv_1x4", {
+        "card": recs[0]["card"], "counts": [r["counts"] for r in recs],
+        "grad_errs": [r["grad_errs"] for r in recs],
+        "sharded_ms": [r["sharded_ms"] for r in recs],
+        "one_card_ms": [r["one_card_ms"] for r in recs],
+        "channels_per_card": recs[0]["channels_per_card"]})
+    for r in recs:
+        assert r["channels_per_card"] == 2048
+        assert r["counts"] == {"launches": 6, "radix": 6, "lines": 6,
+                               "copies": 0}, r["counts"]
+        assert all(e < 1e-4 for e in r["grad_errs"].values()), r

@@ -173,22 +173,26 @@ def test_lm_loss_matches_reference():
                          6)) == pytest.approx(np.log(6), rel=1e-5)
 
 
-def test_host_mesh_one_process_and_two_ranks(tmp_path):
+def test_host_mesh_one_process_and_two_ranks(tmp_path, monkeypatch):
     """One process means no mesh; under a 2-rank gloo group the world is a
-    (1, 2) ("data", "model") mesh, which ``serve`` refuses (one-process
-    serving only)."""
+    (1, 2) ("data", "model") mesh, on which ``serve`` (tensor-parallel)
+    gives every rank the one-process tokens (float32 smoke config)."""
     import json
     import os
 
+    import repro_torch.launch.serve as serve_mod
     from repro_torch.launch.mesh import make_host_mesh
-    from torch_harness import run_ranks
+    from torch_harness import f32_smoke_config, run_ranks
     assert make_host_mesh() is None
     out = run_ranks("lm_mesh_body", 2, tmp_path)
     recs = [json.load(open(os.path.join(out, f"rank{r}.json")))
             for r in range(2)]
     assert [r["coords"] for r in recs] == [[0, 0], [0, 1]]
     assert all(r["shape"] == [1, 2] and r["names"] == ["data", "model"]
-               and r["device"] == "cpu" and r["refused"] for r in recs)
+               and r["device"] == "cpu" for r in recs)
+    monkeypatch.setattr(serve_mod, "smoke_config", f32_smoke_config)
+    want = serve_mod.serve("qwen3-8b", requests=1, device="cpu")
+    assert all(r["tokens"] == want for r in recs)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():

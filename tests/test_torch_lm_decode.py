@@ -157,8 +157,8 @@ def test_serve_matches_reference_tokens(monkeypatch, cpu_mesh):
     ref = ref_serve.serve(arch, mesh=cpu_mesh)
     monkeypatch.setattr(
         port_serve, "build_params",
-        lambda cfg, seed, device: params_from_reference(trees[0], cfg,
-                                                        device))
+        lambda cfg, seed, device, mesh=None: params_from_reference(
+            trees[0], cfg, device))
     clock = iter(range(10 ** 6))
     got = port_serve.serve(arch, device="cpu",
                            timer=lambda: float(next(clock)))

@@ -321,8 +321,8 @@ def test_train_losses_match_reference(monkeypatch, cpu_mesh, rules):
     tree = to_numpy(tree)
     monkeypatch.setattr(
         train_mod, "build_params",
-        lambda c, seed=0, device=None: params_from_reference(tree, c,
-                                                             device=device))
+        lambda c, seed=0, device=None, mesh=None: params_from_reference(
+            tree, c, device=device))
     kw = dict(steps=5, seq_len=16, global_batch=2, smoke=True, log_every=100)
     ref = ref_train_mod.train(arch, mesh=cpu_mesh, **kw)
     got = train_mod.train(arch, device="cpu", **kw)

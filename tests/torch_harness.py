@@ -661,18 +661,586 @@ def analysis_body(rank: int, out_dir: str, device=None, grid3=(8, 8, 16),
         json.dump(record, f)
 
 
+def f32_smoke_config(name: str):
+    """The port's smoke config with float32 activations (greedy tokens
+    compare exactly there; bfloat16 logits tie)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    return dataclasses.replace(smoke_config(name), dtype="float32")
+
+
 def lm_mesh_body(rank: int, out_dir: str) -> None:
-    """``launch.mesh.make_host_mesh`` under the process group, and whether
-    ``launch.serve.serve`` refuses the multi-rank mesh."""
+    """``launch.mesh.make_host_mesh`` under the process group, and the
+    tokens ``launch.serve.serve`` gives on the multi-rank mesh (the
+    float32 smoke config)."""
+    import repro_torch.launch.serve as serve_mod
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.serve import serve
+    serve_mod.smoke_config = f32_smoke_config
     mesh = make_host_mesh(device="cpu")
     rec = {"shape": list(mesh.shape), "names": list(mesh.axis_names),
            "coords": list(mesh.coords), "device": str(mesh.device)}
+    rec["tokens"] = serve_mod.serve("qwen3-8b", requests=1, mesh=mesh,
+                                    device="cpu")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+# ---------------------------------------------------------------------------
+# the LM sharded over a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+def load_tree(path: str) -> dict:
+    """A ``{"a/b": array}`` ``.npz`` as the nested tree it flattens."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return tree
+
+
+def lm_config(arch: str, extra: dict):
+    """The float32 smoke config of ``arch`` with ``extra`` fields."""
+    import dataclasses
+    return dataclasses.replace(f32_smoke_config(arch), **extra)
+
+
+def patch_lm_drivers(tree: dict, extra: dict, set_attr=setattr) -> None:
+    """``launch.serve``/``launch.train`` on the float32 config with the
+    reference's parameters ``tree`` (each rank its blocks), and every
+    ``fft_conv`` mixer on the kernel backend (the kernel's plain version
+    on the CPU) unless its caller names one; ``set_attr`` sets each
+    patched attribute."""
+    import functools
+
+    import repro_torch.launch.serve as serve_mod
+    import repro_torch.launch.train as train_mod
+    from repro_torch.models import ssm
+    from repro_torch.models.convert import params_from_reference
+
+    def build(cfg, *, seed=0, device=None, mesh=None):
+        return params_from_reference(tree, cfg, device=device or "cpu",
+                                     mesh=mesh)
+    for mod in (serve_mod, train_mod):
+        set_attr(mod, "smoke_config", lambda name: lm_config(name, extra))
+        set_attr(mod, "build_params", build)
+    forward = vars(ssm.FFTConv)["forward"]
+    if isinstance(forward, functools.partialmethod):
+        forward = forward.func
+    set_attr(ssm.FFTConv, "forward",
+             functools.partialmethod(forward, fft_backend="kernel"))
+
+
+def lm_sharded_body(rank: int, out_dir: str, cases, meshes, serve_kw,
+                    train_kw) -> None:
+    """For each ``(name, arch, extra, what, tree .npz)`` of ``cases`` and
+    each mesh shape, with the reference's parameters: ``serve`` (``"serve"
+    in what``), ``train`` and one step's gradients gathered whole (rank 0
+    saves them; ``"train" in what``)."""
+    import repro_torch.launch.serve as serve_mod
+    import repro_torch.launch.train as train_mod
+    from repro_torch.compat import gather, make_mesh
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.convert import param_leaves
+    rec = {}
+    for name, arch, extra, what, tree_path in cases:
+        tree = load_tree(tree_path)
+        patch_lm_drivers(tree, extra)
+        for shape in meshes:
+            mesh = make_mesh(tuple(shape), ("data", "model"), device="cpu")
+            tag = f"{name}-{shape[0]}x{shape[1]}"
+            rec[tag] = {}
+            if "serve" in what:
+                rec[tag]["tokens"] = serve_mod.serve(
+                    arch, mesh=mesh, device="cpu", **serve_kw)
+            if "train" not in what:
+                continue
+            rec[tag]["losses"] = train_mod.train(
+                arch, mesh=mesh, device="cpu", log_every=99,
+                **train_kw)["losses"]
+            cfg = lm_config(arch, extra)
+            model = train_mod.build_params(cfg, mesh=mesh)
+            rules = MeshRules.for_mesh(mesh)
+            data = SyntheticLM(cfg, ShapeConfig(
+                "t", "train", train_kw["seq_len"], train_kw["global_batch"]))
+            _, _, grads = loss_and_grads(model, cfg, rules,
+                                         data.sharded_batch(0, mesh, rules))
+            leaves = param_leaves(model)
+            whole = {f"{k[0]}|{k[1]}": gather(g, leaves[k].spec, mesh)
+                     .numpy() for k, g in grads.items()}
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"grads-{tag}.npz"), **whole)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+# ---------------------------------------------------------------------------
+# the LM on 4 cards over NCCL (tests/test_torch_cuda.py, ``four_cards``)
+# ---------------------------------------------------------------------------
+
+def lm_mesh_one_card_body(rank: int, out_dir: str) -> None:
+    """On an NCCL group of one with an explicit (1, 1) mesh, ``serve`` and
+    two ``train`` steps against the same runs with ``mesh=None``."""
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+    mesh = make_lm_mesh((1, 1))
+    kw = dict(requests=2, batch=2, max_new=4)
+    rec = {"serve": [serve("qwen3-8b", mesh=mesh, **kw),
+                     serve("qwen3-8b", device=mesh.device, **kw)]}
+    kw = dict(steps=2, seq_len=64, global_batch=2, log_every=9)
+    rec["train"] = [train("qwen3-8b", mesh=mesh, **kw)["losses"],
+                    train("qwen3-8b", device=mesh.device, **kw)["losses"]]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def card_name() -> str:
+    """The card's ``nvidia-smi`` name and power limit."""
+    import subprocess
     try:
-        serve("qwen3-8b", requests=1, mesh=mesh, device="cpu")
-        rec["refused"] = False
-    except NotImplementedError:
-        rec["refused"] = True
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", "-i", "0"], capture_output=True,
+            text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+
+
+def greedy_trace(model, cfg, rules, prompts: torch.Tensor, max_new: int,
+                 device) -> dict:
+    """Serve's prefill + greedy decode loop (``launch/serve.py``) on one
+    batch of ``prompts`` (this rank's rows): the tokens, each step's
+    top-2 logit margin, the prefill's last logits (float32, on the CPU)
+    and the decode steps' CUDA-event ms."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import pad_caches
+    prefill = make_prefill_step(cfg, rules, device=device)
+    decode = make_decode_step(cfg, rules, device=device)
+    plen = prompts.shape[1]
+    logits, caches = prefill(model, {"tokens": prompts.to(device)})
+    caches = pad_caches(caches, cfg, max_seq=plen + max_new)
+    first = logits.float().cpu()
+    toks, margins, ms = [], [], []
+    cur_logits = logits
+    for i in range(max_new):
+        top2 = torch.topk(cur_logits.float(), 2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).cpu())
+        cur = torch.argmax(cur_logits, dim=-1)[:, None]
+        toks.append(cur.cpu())
+        if i == max_new - 1:
+            break
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        _, cur_logits, caches = decode(model, caches, cur, plen + i)
+        ev[1].record()
+        ms.append(ev)
+    torch.cuda.synchronize(device)
+    return {"tokens": torch.cat(toks, 1).tolist(),
+            "margins": torch.stack(margins, 1).tolist(),
+            "prefill_logits": first,
+            "decode_ms": [a.elapsed_time(z) for a, z in ms]}
+
+
+def lm_serve_cards_body(rank: int, out_dir: str, prompts_path: str,
+                        max_new: int) -> None:
+    """qwen3-8b at full width and depth served on ``make_host_mesh()``'s
+    (1, 4): ``launch.serve.serve`` with the CLI's defaults, and the greedy
+    trace of the first batch (rank 0 saves the prefill logits)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import build_params
+    mesh = make_host_mesh()
+    cfg = get_config("qwen3-8b")
+    rules = MeshRules.for_mesh(mesh)
+    tokens = serve("qwen3-8b", smoke=False, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    model = build_params(cfg, seed=0, mesh=mesh)
+    trace = greedy_trace(model, cfg, rules,
+                         torch.as_tensor(np.load(prompts_path)), max_new,
+                         mesh.device)
+    rec = {"shape": list(mesh.shape), "serve_tokens": tokens,
+           "tokens": trace["tokens"], "margins": trace["margins"],
+           "decode_ms": trace["decode_ms"],
+           "peak_bytes": torch.cuda.max_memory_allocated(mesh.device),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "card": card_name()}
+    if rank == 0:
+        np.save(os.path.join(out_dir, "prefill_logits.npy"),
+                trace["prefill_logits"].numpy())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _collective_share(fn, device) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's kernel time
+    and the NCCL kernels' part of it (kernel events only)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    total = nccl = 0.0
+    kernels = 0
+    for a in prof.key_averages():
+        us = getattr(a, "self_device_time_total",
+                     getattr(a, "self_cuda_time_total", 0.0))
+        if not str(a.device_type).endswith("CUDA") or us <= 0:
+            continue
+        total += us
+        kernels += a.count
+        if "nccl" in a.key.lower():
+            nccl += us
+    return {"kernel_ms": total / 1e3, "nccl_ms": nccl / 1e3,
+            "kernels": kernels}
+
+
+#: the leaves ``(path, super-block)`` the full-width gradient check
+#: compares (a vocabulary block of the vocabulary-sized ones)
+GRAD_LEAVES = (("decoder/layer0/attn/wq", 0), ("decoder/layer0/attn/wk", 0),
+               ("decoder/layer0/attn/wo", 1),
+               ("decoder/layer0/attn/q_norm/scale", 0),
+               ("decoder/layer0/mlp/w_down", 1),
+               ("decoder/layer0/norm2/scale", 1), ("final_norm/scale", None),
+               ("embed", None), ("lm_head", None))
+
+
+def full_width_grads(cfg, rules, batch, mesh=None, device=None) -> dict:
+    """One float32 step's loss and the :data:`GRAD_LEAVES` gradients of
+    ``cfg`` (qwen3-8b's widths), gathered whole on a mesh; the
+    vocabulary-sized ones cut to their first 4096 vocabulary entries."""
+    from repro_torch.compat import gather
+    from repro_torch.launch.steps import build_params, loss_and_grads
+    from repro_torch.models.convert import param_leaves
+    model = build_params(cfg, seed=0, device=device, mesh=mesh)
+    loss, _, grads = loss_and_grads(model, cfg, rules, batch)
+    leaves = param_leaves(model)
+    out = {"loss": float(loss)}
+    for (path, r), g in grads.items():
+        if (path, r) not in GRAD_LEAVES:
+            continue
+        if mesh is not None:
+            g = gather(g.contiguous(), leaves[(path, r)].spec, mesh)
+        if path == "embed":
+            g = g[:4096]
+        elif path == "lm_head":
+            g = g[:, :4096]
+        out[f"{path}|{r}"] = g.float().cpu().numpy()
+    return out
+
+
+def lm_check_cards_body(rank: int, out_dir: str, steps: int,
+                        seq: int = 4096) -> None:
+    """qwen3-8b's widths on ``make_host_mesh()``'s (1, 4): one float32
+    step's loss and gradients at 2 layers (rank 0 saves them), and
+    ``steps`` bf16 training steps at 8 layers, B=1, S=4096 (``[train]``'s
+    setup)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import SHAPES
+    mesh = make_host_mesh()
+    rules = MeshRules.for_mesh(mesh)
+    full = get_config("qwen3-8b")
+    cut = dataclasses.replace(full, n_layers=2, dtype="float32")
+    host = SyntheticLM(cut, SHAPES["train_4k"], seed=0, batch_override=1,
+                       seq_override=256).batch_for_step(0)
+    batch = {k: v.to(mesh.device)
+             for k, v in SyntheticLM.to_device(host, "cpu").items()}
+    got = full_width_grads(cut, rules, batch, mesh=mesh)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "grads.npz"), **got)
+    torch.cuda.empty_cache()
+    rec = train_losses(dataclasses.replace(full, n_layers=8), steps,
+                       mesh=mesh, seq=seq)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def train_losses(cfg, steps: int, mesh=None, device=None,
+                 seq: int = 4096) -> dict:
+    """``steps`` train steps (``[train]``'s: B=1, S=4096, remat, bf16
+    gradients, ``AdamWConfig()``, ``SyntheticLM`` from seed 0): their
+    ``losses``, and each training batch's loss before the first update
+    and after the last (``held_before``, ``held_after``:
+    :func:`held_losses`)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch.steps import build_params, make_train_step
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.convert import param_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    rules = MeshRules.for_mesh(mesh)
+    opt = AdamWConfig()
+    data = SyntheticLM(cfg, SHAPES["train_4k"], seed=0, batch_override=1,
+                       seq_override=seq)
+    step_fn = make_train_step(cfg, rules, opt, remat=True,
+                              grad_compress=True, device=device)
+    model = build_params(cfg, seed=0, device=device, mesh=mesh)
+    state = adamw_init(param_leaves(model), opt)
+    held = [data.sharded_batch(i, mesh, rules) if mesh is not None
+            else data.device_batch(i, device) for i in range(steps)]
+    before = held_losses(model, cfg, rules, held)
+    losses = []
+    for b in held:
+        _, _, metrics = step_fn(model, state, b)
+        losses.append(float(metrics["loss"]))
+    return {"losses": losses, "held_before": before,
+            "held_after": held_losses(model, cfg, rules, held)}
+
+
+def held_losses(model, cfg, rules, batches) -> list:
+    """The whole batch's loss (the reference's ``loss_fn``, no router aux)
+    on each of ``batches`` (this rank's rows), forward only: the model
+    is not updated."""
+    from repro_torch.distributed.sharding import batch_mean
+    from repro_torch.launch.steps import loss_fn
+    out = []
+    with torch.no_grad():
+        for b in batches:
+            _, (loss, _) = loss_fn(model, cfg, rules, b, remat=False)
+            out.append(float(batch_mean(loss, rules)))
+    return out
+
+
+def lm_train_cards_body(rank: int, out_dir: str, shape, batch: int,
+                        seq: int, steps: int) -> None:
+    """qwen3-8b at full width and all 36 layers trained ``steps`` steps on a
+    ``shape`` mesh over NCCL (``(1, 4)`` is ``make_host_mesh()``'s): remat,
+    bf16 gradients, ``AdamWConfig()``, ``SyntheticLM`` from seed 0, twice
+    from one seed; per step CUDA-event ms, peak memory, one more step
+    under the profiler (the NCCL kernels' share); in the first run the
+    loss of each of the ``steps`` training batches before the first update
+    and after the last (:func:`held_losses`) and each step's learning
+    rate."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch.mesh import make_host_mesh, make_lm_mesh
+    from repro_torch.launch.steps import build_params, make_train_step
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.convert import param_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import cosine_schedule
+    shape = tuple(shape)
+    mesh = make_host_mesh() if shape == (1, 4) else make_lm_mesh(shape)
+    assert tuple(mesh.shape) == shape
+    cfg = get_config("qwen3-8b")
+    rules = MeshRules.for_mesh(mesh)
+    opt = AdamWConfig()
+    data = SyntheticLM(cfg, SHAPES["train_4k"], seed=0,
+                       batch_override=batch, seq_override=seq)
+    step_fn = make_train_step(cfg, rules, opt, remat=True,
+                              grad_compress=True)
+    dev = mesh.device
+    runs = []
+    for again in range(2):
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = build_params(cfg, seed=0, mesh=mesh)
+        state = adamw_init(param_leaves(model), opt)
+        held = [data.sharded_batch(i, mesh, rules) for i in range(steps)]
+        if again == 0:
+            before = held_losses(model, cfg, rules, held)
+        losses, events = [], []
+        for i in range(steps):
+            b = data.sharded_batch(i, mesh, rules)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, _, metrics = step_fn(model, state, b)
+            ev[1].record()
+            events.append(ev)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize(dev)
+        rec = {"losses": [float(v) for v in losses],
+               "step_ms": [a.elapsed_time(z) for a, z in events],
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               "param_bytes": sum(p.numel() * p.element_size()
+                                  for p in model.parameters())}
+        if again == 0:
+            rec["held"] = {"before": before,
+                           "after": held_losses(model, cfg, rules, held),
+                           "lr": [float(cosine_schedule(opt, i))
+                                  for i in range(steps)]}
+            b = data.sharded_batch(steps, mesh, rules)
+            rec["profile"] = _collective_share(
+                lambda: step_fn(model, state, b), dev)
+        del held
+        runs.append(rec)
+        del model, state
+        torch.cuda.empty_cache()
+    out = {"shape": list(shape), "batch": batch, "seq": seq,
+           "layers": cfg.n_layers, "runs": runs, "card": card_name()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def fft_conv_cards_body(rank: int, out_dir: str, b: int, s: int) -> None:
+    """``ssm.fft_conv`` at jamba-v0.1-52b's mixer width (8192 channels),
+    float32, forward and backward through the mesh path on
+    ``make_host_mesh()``'s (1, 4) (2048 channels per card) on the kernel
+    backend, against the same mixer whole on this card: B1's launches per
+    rank, the gathered gradients' max-scaled errors, CUDA-event ms."""
+    import dataclasses
+
+    from repro_torch.compat import gather
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import MeshRules, ParamBuilder
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                reset_launch_counts)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ssm
+    mesh = make_host_mesh()
+    dev = mesh.device
+    rules = MeshRules.for_mesh(mesh)
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              ssm_impl="fft_conv", dtype="float32")
+    whole = ssm.init_fft_conv(ParamBuilder(0, device=dev), "ssm", cfg)
+    local = ssm.init_fft_conv(ParamBuilder(0, device=dev, rules=rules),
+                              "ssm", cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    r = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+
+    def fwd_bwd(params, rules_, backend):
+        params.requires_grad_(True)
+        for p in params.parameters():
+            p.grad = None
+        xx = x.detach().requires_grad_(True)
+        y, _ = params(xx, rules=rules_, fft_backend=backend)
+        (y * r).sum().backward()
+        return y, {**{k: p.grad for k, p in params.named_parameters()},
+                   "x": xx.grad}
+
+    _, ref = fwd_bwd(whole, None, "kernel")
+    torch.cuda.synchronize(dev)
+    reset_launch_counts()
+    ops.copies["lines"] = 0
+    y, got = fwd_bwd(local, rules, "kernel")
+    torch.cuda.synchronize(dev)
+    counts = {"launches": fft_fourstep.launches,
+              "radix": fft_fourstep.path_launches["radix"],
+              "lines": fft_fourstep.layout_launches["lines"],
+              "copies": ops.copies["lines"]}
+    specs = dict(local.named_parameters())
+    errs = {}
+    for k, g in got.items():
+        g = g if k == "x" else gather(g.contiguous(), specs[k].spec, mesh)
+        errs[k] = float((g - ref[k]).abs().max()
+                        / ref[k].abs().max().clamp_min(1e-30))
+
+    def timed(fn, iters=5):
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(iters):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize(dev)
+        return ev[0].elapsed_time(ev[1]) / iters
+    rec = {"counts": counts, "grad_errs": errs,
+           "channels_per_card": local.basis_w.shape[0],
+           "sharded_ms": timed(lambda: fwd_bwd(local, rules, "kernel")),
+           "one_card_ms": timed(lambda: fwd_bwd(whole, None, "kernel")),
+           "card": card_name()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _whole_state(model, opt_state, mesh) -> dict:
+    """The model's and AdamW's state gathered whole, ``{"params/..",
+    "opt/m/..", ...}`` as numpy, from this rank's blocks."""
+    from repro_torch.compat import gather
+    from repro_torch.launch.train import state_pspecs, train_state
+    state, specs = train_state(model, opt_state), state_pspecs(model)
+
+    def walk(node, spec, pre, out):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, spec[k], f"{pre}{k}/", out)
+            else:
+                t = v if mesh is None else gather(v.contiguous(), spec[k],
+                                                  mesh)
+                out[pre + k] = t.detach().cpu().numpy()
+        return out
+    return walk(state, specs, "", {})
+
+
+def _restored(ckpt_dir: str, cfg, mesh) -> dict:
+    """A checkpoint restored onto ``mesh`` (None: one process) into a
+    fresh model and AdamW state, gathered whole."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.steps import build_params
+    from repro_torch.launch.train import state_pspecs
+    from repro_torch.models.convert import load_params, \
+        opt_state_from_reference
+    model = build_params(cfg, seed=1, device="cpu", mesh=mesh)
+    _, state = CheckpointManager(ckpt_dir).restore(
+        device="cpu", mesh=mesh, pspecs=state_pspecs(model))
+    load_params(model, state["params"])
+    opt = opt_state_from_reference(state["opt"], model)
+    return _whole_state(model, opt, mesh)
+
+
+def lm_ckpt_body(rank: int, out_dir: str, arch: str, ref_ckpt: str) -> None:
+    """Elastic checkpoints of ``train`` (float32 smoke ``arch``): saved on
+    (2, 2), restored on (1, 4) and on one process, resumed on (2, 2) and
+    (1, 4) beside an uninterrupted (2, 2) run; and the reference's
+    checkpoint ``ref_ckpt`` restored onto (1, 4)."""
+    import shutil
+
+    import torch.distributed as dist
+    import repro_torch.launch.train as train_mod
+    from repro_torch.compat import make_mesh
+    train_mod.smoke_config = f32_smoke_config
+    cfg = f32_smoke_config(arch)
+    m22 = make_mesh((2, 2), ("data", "model"), device="cpu")
+    m14 = make_mesh((1, 4), ("data", "model"), device="cpu")
+    kw = dict(steps=4, seq_len=16, global_batch=2, ckpt_every=2,
+              log_every=99)
+    d = {k: os.path.join(out_dir, k) for k in ("whole", "part", "copy")}
+    rec = {"whole": train_mod.train(arch, mesh=m22, ckpt_dir=d["whole"],
+                                    **kw)["losses"],
+           "part": train_mod.train(arch, mesh=m22, ckpt_dir=d["part"],
+                                   stop_after=2, **kw)["losses"]}
+    if rank == 0:   # the step-2 checkpoint, before the resume adds more
+        shutil.copytree(d["part"], d["copy"])
+    dist.barrier()
+    rec["resumed22"] = train_mod.train(arch, mesh=m22, ckpt_dir=d["part"],
+                                       **kw)["losses"]
+    saved = _restored(d["copy"], cfg, m22)
+    on14 = _restored(d["copy"], cfg, m14)
+    one = _restored(d["copy"], cfg, None)
+    rec["restore_bitwise"] = {
+        "1x4": sorted(saved) == sorted(on14) and all(
+            np.array_equal(saved[k], on14[k]) for k in saved),
+        "one": sorted(saved) == sorted(one) and all(
+            np.array_equal(saved[k], one[k]) for k in saved)}
+    copy14 = os.path.join(out_dir, "copy14")
+    if rank == 0:
+        shutil.copytree(d["copy"], copy14)
+    dist.barrier()
+    rec["resumed14"] = train_mod.train(arch, mesh=m14, ckpt_dir=copy14,
+                                       **kw)["losses"]
+    ref = _restored(ref_ckpt, cfg, m14)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "from_reference.npz"), **ref)
+        with open(os.path.join(d["copy"], "step_0000000002",
+                               "manifest.json")) as f:
+            rec["manifest_pspecs"] = json.load(f)["pspecs"]
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
