@@ -10,13 +10,15 @@ its result line):
 
 1. build the CUDA kernel from ``src/repro_torch/csrc`` and print the build
    time, ``ptxas``'s registers, spills and stack frame per kernel
-   instantiation (a radix instantiation that spills or keeps a stack frame
-   fails the run) and the card's ``nvidia-smi`` name and power limit;
+   instantiation (a radix or long-line instantiation that spills or keeps
+   a stack frame fails the run) and the card's ``nvidia-smi`` name and
+   power limit;
 2. hold the four-step kernel against its plain PyTorch version on the card
    over the shapes of ``tests/test_kernels.py`` (both directions, prime N,
    empty batch, ragged tiles, ``pack_parts``, the twiddle, complex128,
-   lazily conjugated operands and twiddles), every radix-path length of
-   both dtypes, and strided ``(outer, N, inner)`` blocks through
+   lazily conjugated operands and twiddles), every radix-path and
+   long-line length of both dtypes (the long ones with both epilogues),
+   and strided ``(outer, N, inner)`` blocks through
    ``fft_fourstep_strided`` (inner of one tile, 512, ragged 1000, 262144);
 3. the main path: ``plan_fft`` of a 512^3 complex64 grid on a (1, 1)
    ``("data", "model")`` mesh with ``backend="kernel"``, forward and
@@ -103,17 +105,23 @@ its result line):
 16. ``[lm_archs]``: the 10 smoke configs through prefill and 3 decode
     steps on the card against the CPU (float32 within 1e-4 with equal
     greedy tokens, bfloat16 within 5e-2);
-17. ``[lm_fftconv]``: the FFT long-convolution mixer at jamba-v0.1-52b's
-    width (8192 channels), B=1: at S=2048 ``fft_backend="kernel"`` within
-    1e-4 of ``"cufft"`` in float32 with exactly 3 radix launches on lines
-    per call and no line copy; S=4096 (the dense path) recorded; the
+17. ``[long]``: the long-line kernel at the mixer's (8192, 8192)
+    complex64 lines against its plain version and ``torch.fft``, timed
+    beside its bound; the other long lengths of both dtypes at 512 MB; the dense kernel at (262144,
+    384); each reached once through ``ops.fft1d`` (one launch on its
+    path); then ``[lm_fftconv]``: the FFT long-convolution mixer at
+    jamba-v0.1-52b's width (8192 channels), B=1, S=2048, 4096 and 8192:
+    ``fft_backend="kernel"`` within 1e-4 of ``"cufft"`` in float32 with
+    exactly 3 launches on lines per call on the path of lines of 2S
+    (radix, long, long), none on another path, and no line copy; the
     mixer's and its 3 transforms' ms on both backends beside the
     transforms' bound;
 18. ``[train_fftconv]``: the same mixer's forward and backward at S=2048
-    in float32 on ``fft_backend="kernel"`` (the line transforms'
-    autograd Function) against ``"cufft"``: every gradient within 1e-4,
-    exactly 6 radix launches on lines and no line copy, CUDA-event ms on
-    both backends beside the 6 transforms' bound;
+    and S=4096 in float32 on ``fft_backend="kernel"`` (the line
+    transforms' autograd Function) against ``"cufft"``: every gradient
+    within 1e-4, exactly 6 launches on lines on the path of lines of 2S
+    (radix, long) and no line copy, CUDA-event ms on both backends beside
+    the 6 transforms' bound;
 19. ``[train]``: the LM train step at qwen3-8b's full width with the
     depth cut to 8 of 36 layers (float32 masters and AdamW moments,
     bfloat16 activations, remat, bfloat16 gradients), B=1, S=4096, 5
@@ -137,8 +145,9 @@ its result line):
 22. a ``kernels`` JSON line (one entry per kernel variant, with the path
     it ran and, for B1 and B4, the launches on the segments, executor,
     analysis, serve, lm, lm_fftconv, train_fftconv and lm_sharded paths;
-    the serve counts are the first lifetime's traffic drains), then the
-    result line.
+    the serve counts are the first lifetime's traffic drains; the
+    long-line entry's launches are the mixer's at S=4096, the dense
+    entry's its ``[long]`` call), then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -171,6 +180,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_SOURCE = "src/repro_torch/csrc/fft_fourstep.cu"
 RADIX_SOURCE = "src/repro_torch/csrc/fft_radix.cuh"
+LONG_SOURCE = "src/repro_torch/csrc/fft_long.cuh"
+KERNEL_PATHS = ("radix", "dense", "long")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -226,7 +237,8 @@ def randc(shape, dtype, device, seed):
 def ptxas_report(log: str) -> list:
     """Per kernel instantiation: registers, spill stores/loads and stack
     frame bytes, from ``nvcc -Xptxas -v``; radix instantiations named by
-    dtype and (N1, N2)."""
+    dtype and (N1, N2), long-line ones by dtype, R1xR2xR3 and ring
+    depth."""
     import re
     entries, cur = [], None
     for line in log.splitlines():
@@ -234,9 +246,15 @@ def ptxas_report(log: str) -> list:
         if m:
             name = m.group(1)
             r = re.search(r"radix_kernelI([fd])Li(\d+)ELi(\d+)E", name)
+            lg = re.search(r"long_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E"
+                           r"Li(\d+)E", name)
             if r:
                 dt = "complex64" if r.group(1) == "f" else "complex128"
                 name = f"radix {dt} N1={r.group(2)} N2={r.group(3)}"
+            elif lg:
+                dt = "complex64" if lg.group(1) == "f" else "complex128"
+                name = (f"long {dt} {lg.group(2)}x{lg.group(3)}x"
+                        f"{lg.group(4)} ring {lg.group(5)}")
             elif "fourstep_kernel" in name:
                 name = ("dense " + ("complex64" if "fourstep_kernelIfE" in name
                                     else "complex128"))
@@ -269,10 +287,15 @@ def phase_build(timer=time.perf_counter) -> dict:
               f"{e.get('spill_stores')}/{e.get('spill_loads')} bytes spill "
               f"stores/loads, {e.get('stack')} bytes stack frame")
     radix_entries = [e for e in report if e["kernel"].startswith("radix")]
+    long_entries = [e for e in report if e["kernel"].startswith("long")]
     if lib.log:   # an earlier build reused from disk prints no report
         check(len(radix_entries) == 21, f"{len(radix_entries)} radix "
               f"instantiations in the ptxas report, expected 21")
-    for e in radix_entries:
+        from repro_torch.kernels import longline
+        want = sum(len(sizes) for sizes in longline.FACTORS.values())
+        check(len(long_entries) == want, f"{len(long_entries)} long-line "
+              f"instantiations in the ptxas report, expected {want}")
+    for e in radix_entries + long_entries:
         check(e.get("spill_stores", 0) == 0 and e.get("stack", 0) == 0,
               f"{e['kernel']} spills or keeps a stack frame: {e}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -326,6 +349,18 @@ def kernel_cases():
         cases.append((33, 2 ** k, k % 2 == 0, 2 if k > 1 else None,
                       k % 3 == 1, c128, ""))
     cases.append((33, 256, False, None, True, c128, "x"))
+    # the long-line path: every length of both dtypes, both directions,
+    # the twiddle and pack epilogues, batches ragged against the grid
+    from repro_torch.kernels import longline
+    for dtype, sizes in longline.FACTORS.items():
+        dt = str(dtype).removeprefix("torch.")
+        for n in sizes:
+            cases += [(5, n, False, None, False, dt, ""),
+                      (3, n, True, None, True, dt, ""),
+                      (7, n, False, 2, False, dt, ""),
+                      (301, n, True, 4, True, dt, "")]
+    cases.append((3, 8192, False, None, True, c64, "x"))
+    cases.append((3, 4096, True, None, True, c128, "x"))
     return cases
 
 
@@ -349,6 +384,7 @@ def strided_cases():
 def phase_kernel_vs_plain(device) -> dict:
     import torch
     from repro_torch.kernels.fft_matmul import fft_fourstep, fft_fourstep_plain
+    from repro_torch.kernels.radix import kernel_path
     worst = {"complex64": 0.0, "complex128": 0.0}
     for i, (b, n, inv, parts, tw, dt, conj) in enumerate(kernel_cases()):
         dtype = getattr(torch, dt)
@@ -373,12 +409,17 @@ def phase_kernel_vs_plain(device) -> dict:
             buf = got.transpose(0, 1)
             check(buf.is_contiguous(), f"case {i}: pack buffer not "
                   f"destination-major")
-        if conj:
-            # the plain version honours the conjugate bit; so must the kernel
+        if conj or (b and kernel_path(n, dtype) == "long"):
+            # the plain version honours the conjugate bit; so must the
+            # kernel.  On the long path the plain version mirrors the
+            # kernel's index maps: torch.fft, with the epilogue, is the
+            # independent yardstick.
             want = torch.fft.ifft(x) if inv else torch.fft.fft(x)
             want = want * twiddle if twiddle is not None else want
+            if parts is not None:
+                want = want.reshape(b, parts, n // parts)
             check(scaled_err(got, want) <= TOL[dt], f"case {i}: conj "
-                  f"{conj} against torch.fft: scaled error "
+                  f"{conj!r}, N={n} {dt} against torch.fft: scaled error "
                   f"{scaled_err(got, want):.3e}")
         err = scaled_err(got, ref)
         worst[dt] = max(worst[dt], err)
@@ -673,7 +714,7 @@ def phase_poisson(device, grid=GRID, solves: int = 3, iters: int = 5):
                   f"solve {i}: launches {got}, expected 6 fourstep (2 "
                   f"forward, 4 inverse) and 2 twiddle (forward)")
             check(fft_fourstep.path_launches == {"radix": 8 * (i + 1),
-                                                 "dense": 0},
+                                                 "dense": 0, "long": 0},
                   f"solve {i}: paths {fft_fourstep.path_launches}, expected "
                   f"every launch on the radix path")
     launches = dict(fft_fourstep.variant_launches)
@@ -1060,8 +1101,7 @@ def path_counts() -> dict:
     return {"launches": fft_fourstep.launches,
             "lines": fft_fourstep.layout_launches["lines"],
             "strided": fft_fourstep.layout_launches["strided"],
-            "radix": fft_fourstep.path_launches["radix"],
-            "dense": fft_fourstep.path_launches["dense"],
+            **{p: fft_fourstep.path_launches[p] for p in KERNEL_PATHS},
             "copies": ops.copies["lines"]}
 
 
@@ -1567,7 +1607,8 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
         if cuda:
             want = {"launches": ndim * nb, "fourstep": ndim * nb,
                     "pack": 0, "twiddle": 0, "radix": ndim * nb,
-                    "dense": 0, "lines": nb, "strided": (ndim - 1) * nb,
+                    "dense": 0, "long": 0, "lines": nb,
+                    "strided": (ndim - 1) * nb,
                     "copies": 0}
             check(nb > 0 and got == want,
                   f"[serve] window {w}: traffic launches {got} for {nb} "
@@ -1863,21 +1904,20 @@ def phase_lm_archs(device, steps: int = 3, b: int = 2, s: int = 32) -> dict:
     return out
 
 
-def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096),
+def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096, 8192),
                      iters: int = 10) -> dict:
     """``[lm_fftconv]``: ``ssm.fft_conv`` at jamba-v0.1-52b's width (d_model
     4096, expand 2: 8192 channels, 16 basis functions), B=1, in float32 and
     in the config's bfloat16, ``fft_backend="kernel"`` against ``"cufft"``.
-    At S=2048 (lines of 4096, the radix path) the float32 mixer output must
-    be within 1e-4 max-scaled, with exactly 3 launches per call (the
-    counts set to 0 just before the call and read just after), all radix,
-    on lines, and no line copy.  S=4096 (lines of 8192) takes the dense
-    path and is held to the same error and counts (3 dense launches); its
-    times are recorded, not gated.  The 3 transforms alone, kernel
-    against cufft, are held to the kernel's complex64 tolerance at both
-    lengths.  CUDA-event ms of the mixer on both
-    backends, of its 3 transforms alone on the kernel and on
-    ``torch.fft``, and the 3 transforms' bound."""
+    At every S the float32 mixer output must be within 1e-4 max-scaled,
+    with exactly 3 launches per call (the counts set to 0 just before the
+    call and read just after), all on the path ``radix.kernel_path`` names
+    for lines of 2S (radix at S=2048, long at S=4096 and 8192), on lines,
+    none on another path, and no line copy.  The 3 transforms alone,
+    kernel against cufft, are held to the kernel's complex64 tolerance.
+    CUDA-event ms of the mixer on both backends, of its 3 transforms
+    alone on the kernel and on ``torch.fft``, and the 3 transforms'
+    bound."""
     import dataclasses
 
     import torch
@@ -1919,9 +1959,9 @@ def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096),
                                      iters=iters))
         if cuda:
             c = run["float32"]["counts"]
-            other = "dense" if path == "radix" else "radix"
             check(c["launches"] == 3 and c[path] == 3 and c["lines"] == 3
-                  and c[other] == 0 and c["copies"] == 0,
+                  and c["copies"] == 0
+                  and all(c[p] == 0 for p in KERNEL_PATHS if p != path),
                   f"[lm_fftconv] S={s}: counts {c}, expected 3 {path} "
                   f"launches on lines and no copy")
         check(run["float32"]["err"] < LM_F32_TOL,
@@ -1974,6 +2014,83 @@ def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096),
                   f"({r['transforms_bound_by']})")
     return out
 
+
+def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
+               dense_shape=(262144, 384), iters: int = 10) -> dict:
+    """``[long]``: the long-line kernel at the mixer's shape at S=4096,
+    (8192, 8192) complex64, against its plain version (``longline.
+    emulate``) and ``torch.fft.fft``, timed beside the HBM bound; every
+    other long length of
+    both dtypes at 512 MB of lines against ``torch.fft``; and the dense
+    kernel at a mixed-radix shape, (262144, 384) complex64, with its
+    plain version, ``torch.fft`` and the bound.  Each kernel is reached
+    once through ``ops.fft1d`` with the counts set to 0 just before and
+    read just after (one launch on its path)."""
+    import torch
+    from repro_torch.kernels import longline, ops
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                fft_fourstep_plain)
+    cuda = device.type == "cuda"
+    out = {}
+
+    def entry(x, path, key):
+        """The user entry once, counted, then the kernel against its
+        plain version and torch.fft, and the times."""
+        reset_counts()
+        got = ops.fft1d(x)
+        if cuda:
+            torch.cuda.synchronize(device)
+        counts = path_counts()
+        if cuda:
+            check(counts["launches"] == 1 and counts[path] == 1
+                  and counts["copies"] == 0,
+                  f"[long] {key}: counts {counts}, expected one {path} "
+                  f"launch")
+        dt = str(x.dtype).removeprefix("torch.")
+        ref = fft_fourstep_plain(x)
+        lib = torch.fft.fft(x)
+        rec = {"shape": list(x.shape), "dtype": dt, "path": path,
+               "launches": counts[path],
+               "max_abs_err": float((got - ref).abs().max()),
+               "scaled_err": scaled_err(got, ref),
+               "library_err": scaled_err(got, lib)}
+        del got, ref, lib
+        check(rec["scaled_err"] <= TOL[dt] and rec["library_err"] <= TOL[dt],
+              f"[long] {key}: kernel vs plain {rec['scaled_err']:.3e}, vs "
+              f"torch.fft {rec['library_err']:.3e} (bound {TOL[dt]})")
+        rec["bound_ms"], rec["bound_by"] = fft_bound_ms(
+            x.shape[0], x.shape[1], x.element_size())
+        if cuda:
+            rec["ms"] = time_ms(lambda: fft_fourstep(x), iters)
+            rec["plain_ms"] = time_ms(lambda: fft_fourstep_plain(x), 3, 1)
+            rec["library_ms"] = time_ms(lambda: torch.fft.fft(x), iters)
+        return rec
+
+    x = randc(shape, torch.complex64, device, SEED + 20)
+    out["long"] = rec = entry(x, "long", str(shape))
+    del x
+    out["lengths"] = []
+    for dtype, sizes in longline.FACTORS.items():
+        for n in sizes:
+            if (dtype, n) == (torch.complex64, shape[1]):
+                continue
+            b = lengths_bytes // (n * dtype.itemsize)
+            x = randc((b, n), dtype, device, SEED + n)
+            out["lengths"].append(entry(x, "long", f"({b}, {n}) {dtype}"))
+            del x
+    x = randc(dense_shape, torch.complex64, device, SEED + 21)
+    out["dense"] = entry(x, "dense", str(dense_shape))
+    del x
+    if cuda:
+        torch.cuda.empty_cache()
+        for r in [out["long"], *out["lengths"], out["dense"]]:
+            print(f"[long] {r['path']} {tuple(r['shape'])} {r['dtype']}: "
+                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, torch.fft "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                  f"{r['bound_by']}); vs plain {r['scaled_err']:.3e}, vs "
+                  f"torch.fft {r['library_err']:.3e}")
+    return out
+
 # ---------------------------------------------------------------------------
 # The LM substrate's training path (PR 18)
 # ---------------------------------------------------------------------------
@@ -1989,25 +2106,28 @@ def phase_train_fftconv(device, b: int = 1, s: int = 2048,
                         iters: int = 5) -> dict:
     """``[train_fftconv]``: ``ssm.fft_conv`` forward and backward at
     jamba-v0.1-52b's mixer width (8192 channels, 16 basis functions),
-    B=1, S=2048, float32, on ``fft_backend="kernel"`` (the autograd
-    Function, ``kernels/ops.LineTransform``) against ``"cufft"``
+    B=1, S=2048 (or ``s``), float32, on ``fft_backend="kernel"`` (the
+    autograd Function, ``kernels/ops.LineTransform``) against ``"cufft"``
     (torch.fft's autograd): every gradient (w_in, basis_w, decay, w_out,
-    the input) within 1e-4 max-scaled; exactly 6 radix launches on lines
-    per forward and backward (3 + the 3 adjoints, the counts set to 0
-    just before and read just after) and no line copy; CUDA-event ms of
-    forward and backward on both backends beside the bound of its 6
-    transforms (bytes over HBM bandwidth, as ``[lm_fftconv]`` reckons
-    its 3)."""
+    the input) within 1e-4 max-scaled; exactly 6 launches on lines per
+    forward and backward (3 + the 3 adjoints, the counts set to 0 just
+    before and read just after), all on the path ``radix.kernel_path``
+    names for lines of 2S (radix at S=2048, long at S=4096), and no line
+    copy; CUDA-event ms of forward and backward on both backends beside
+    the bound of its 6 transforms (bytes over HBM bandwidth, as
+    ``[lm_fftconv]`` reckons its 3)."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import ParamBuilder
+    from repro_torch.kernels import radix
     from repro_torch.models import ssm
     cuda = device.type == "cuda"
     cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
                               ssm_impl="fft_conv", dtype="float32")
     di, n = cfg.expand * cfg.d_model, 2 * s
+    path = radix.kernel_path(n, torch.complex64)
     params = ssm.init_fft_conv(ParamBuilder(SEED, device=device), "ssm",
                                cfg)
     params.requires_grad_(True)
@@ -2031,7 +2151,7 @@ def phase_train_fftconv(device, b: int = 1, s: int = 2048,
     counts = path_counts()
     errs = {k: scaled_err(got[k], ref[k]) for k in ref}
     out = {"d_model": cfg.d_model, "channels": di, "b": b, "s": s, "n": n,
-           "counts": counts, "grad_errs": errs,
+           "path": path, "counts": counts, "grad_errs": errs,
            "launches": counts["launches"]}
     check(all(e < GRAD_TOL for e in errs.values()),
           f"[train_fftconv] kernel vs cufft gradients {errs} (bound "
@@ -2039,10 +2159,10 @@ def phase_train_fftconv(device, b: int = 1, s: int = 2048,
     check(all(bool(v.abs().max() > 0) for v in got.values()),
           "[train_fftconv] a gradient is all zeros")
     if cuda:
-        check(counts["launches"] == 6 and counts["radix"] == 6
+        check(counts["launches"] == 6 and counts[path] == 6
               and counts["lines"] == 6 and counts["copies"] == 0,
-              f"[train_fftconv] counts {counts}, expected 6 radix launches "
-              f"on lines and no copy")
+              f"[train_fftconv] S={s}: counts {counts}, expected 6 {path} "
+              f"launches on lines and no copy")
     t_lines, by = fft_bound_ms(b * di, n, 8)
     t_h, _ = fft_bound_ms(di, n, 8)
     out.update(bound_ms=4 * t_lines + 2 * t_h, bound_by=by)
@@ -2432,9 +2552,14 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["lm_archs"] = phase_lm_archs(device)
     torch.cuda.empty_cache()
+    report["long"] = long_ = phase_long(device)
+    torch.cuda.empty_cache()
     report["lm_fftconv"] = fftconv = phase_lm_fftconv(device)
     torch.cuda.empty_cache()
     report["train_fftconv"] = train_fftconv = phase_train_fftconv(device)
+    torch.cuda.empty_cache()
+    report["train_fftconv_4096"] = train_long = phase_train_fftconv(
+        device, s=4096)
     torch.cuda.empty_cache()
     report["train"] = phase_train(device, timer=timer)
     torch.cuda.empty_cache()
@@ -2442,6 +2567,8 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["lm_sharded"] = lm_sharded = phase_lm_sharded(device)
     torch.cuda.empty_cache()
+
+    mixer_runs = {r["s"]: r for r in fftconv["runs"]}
 
     def by_path(layout):
         return {"segments": segs["forward"][layout] + segs["inverse"][layout],
@@ -2493,6 +2620,30 @@ def main(timer=time.perf_counter) -> int:
          "ms": tw["ms"], "plain_ms": tw["plain_ms"],
          "bound_ms": tw["bound_ms"], "bound_by": tw["bound_by"],
          "library_ms": None},
+        # launches: the mixer at S=4096, its main path (3 per call)
+        {"name": "fft_fourstep_long", "route": "cuda", "source": LONG_SOURCE,
+         "path": "long", "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": mixer_runs[4096]["float32"]["counts"]["long"],
+         "max_abs_err": long_["long"]["max_abs_err"],
+         "scaled_err": long_["long"]["scaled_err"],
+         "ms": long_["long"]["ms"], "plain_ms": long_["long"]["plain_ms"],
+         "bound_ms": long_["long"]["bound_ms"],
+         "bound_by": long_["long"]["bound_by"],
+         "library_ms": long_["long"]["library_ms"],
+         "launches_by_path": {
+             "lm_fftconv_8192": mixer_runs[8192]["float32"]["counts"]["long"],
+             "train_fftconv_4096": train_long["counts"]["long"]}},
+        # launches: one ops.fft1d call at (262144, 384)
+        {"name": "fft_fourstep_dense", "route": "cuda",
+         "source": KERNEL_SOURCE, "path": "dense",
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": long_["dense"]["launches"],
+         "max_abs_err": long_["dense"]["max_abs_err"],
+         "scaled_err": long_["dense"]["scaled_err"],
+         "ms": long_["dense"]["ms"], "plain_ms": long_["dense"]["plain_ms"],
+         "bound_ms": long_["dense"]["bound_ms"],
+         "bound_by": long_["dense"]["bound_by"],
+         "library_ms": long_["dense"]["library_ms"]},
     ]
     report["kernels"] = kernels
     report["seconds"] = timer() - t0

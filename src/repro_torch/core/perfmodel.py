@@ -11,8 +11,8 @@ Backends price as in the reference under the name map
 (``transforms.REFERENCE_BACKEND``): ``cufft`` as ``xla`` (5 N log2 N per
 line), ``matmul`` as the dense four-step 8 N (N1 + N2).  The ``kernel``
 backend follows what the hand-written kernel runs for the line's length
-and dtype (``kernels/radix.kernel_path``): 5 N log2 N on its radix path,
-the dense four-step count on its general path.
+and dtype (``kernels/radix.kernel_path``): 5 N log2 N on its radix and
+long-line paths, the dense four-step count on its general path.
 
 Calibration times on the card with CUDA events, after a warm-up call that
 also takes the kernel's first-use build, and on the CPU with the host clock
@@ -195,13 +195,13 @@ def _line_flops(n: int, backend: str, dtype: torch.dtype = torch.complex64
     ``cufft``: 5 n log2 n butterflies.  ``matmul``: the four-step path's
     two complex matmuls plus twiddle, 8 real FLOPs per complex MAC over
     n*(n1+n2) MACs.  ``kernel``: what the kernel runs for this length and
-    complex ``dtype`` — 5 n log2 n on its radix path, the four-step count
-    on its dense path.
+    complex ``dtype`` — 5 n log2 n on its radix and long-line paths, the
+    four-step count on its dense path.
     """
     if backend == "kernel":
         # deferred: the kernels package imports core
         from ..kernels.radix import kernel_path
-        backend = "cufft" if kernel_path(n, dtype) == "radix" else "matmul"
+        backend = "matmul" if kernel_path(n, dtype) == "dense" else "cufft"
     if backend == "matmul":
         from .transforms import factorize
         n1, n2 = factorize(n)

@@ -1,9 +1,12 @@
 // Batched 1-D FFT of complex lines by the four-step method, for Hopper.
 //
-// Two paths, chosen by the wrapper from N and the dtype alone
-// (kernels/radix.py::kernel_path): power-of-two N takes the radix path
-// (fft_radix.cuh: in-register codelets, contiguous or strided lines); any
-// other N takes the general dense kernel below.
+// Three routes, chosen by the wrapper from N and the dtype alone
+// (kernels/radix.py::kernel_path): power-of-two N up to 4096 (complex64)
+// or 1024 (complex128) takes the radix route (fft_radix.cuh: two passes of
+// in-register codelets, contiguous or strided lines); the longer
+// power-of-two N whose line fits in one block's shared memory take the
+// long-line route (fft_long.cuh: three passes over a line loaded by TMA);
+// any other N takes the general dense kernel below.
 //
 // Replaces the TPU kernel src/repro/kernels/fft_matmul.py::_fft_kernel (the
 // pl.pallas_call in fft1d_planes), with its two fused epilogues: the
@@ -49,6 +52,7 @@
 #include <cuda_runtime.h>
 
 #include "fft_common.cuh"
+#include "fft_long.cuh"
 #include "fft_radix.cuh"
 
 namespace {
@@ -218,6 +222,29 @@ int repro_fft_radix_c128(const void* x, void* out, const void* consts,
   return repro_fft::radix_dispatch<double>(
       n, x, out, consts, tw, outer, inner, inverse, seg_log2, lines_log2,
       strided, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The long-line route (fft_long.cuh) for the power-of-two N that
+// kernels/longline.py::FACTORS lists.  `consts` holds TA, TB, TC and the
+// codelet table (longline.constants); `tw` may be null; `x` is contiguous
+// (B, N) lines, 16-byte aligned, and `out` (parts, B, N/parts) with
+// seg_log2 = log2(N/parts).  `smem_bytes` must equal the layout's size
+// (longline.smem_bytes at longline.long_tile's ring depth).
+// Returns the CUDA error code of the launch (0 on success).
+int repro_fft_long_c64(const void* x, void* out, const void* consts,
+                       const void* tw, long long batch, int n, int inverse,
+                       int seg_log2, int smem_bytes, void* stream) {
+  return repro_fft::long_dispatch<float>(
+      n, x, out, consts, tw, batch, inverse, seg_log2, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_long_c128(const void* x, void* out, const void* consts,
+                        const void* tw, long long batch, int n, int inverse,
+                        int seg_log2, int smem_bytes, void* stream) {
+  return repro_fft::long_dispatch<double>(
+      n, x, out, consts, tw, batch, inverse, seg_log2, smem_bytes,
+      static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int code) {

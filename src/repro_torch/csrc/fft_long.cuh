@@ -1,0 +1,366 @@
+// The long-line route of the four-step kernel: power-of-two lines that fit
+// whole in one block's shared memory but not in the radix route's two
+// in-register passes (complex64 N = 8192, 16384; complex128 N = 2048,
+// 4096, 8192), on Hopper.
+//
+// Replaces, for these N, the dense contractions of the TPU kernel
+// src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
+// pack_parts epilogues), which fft_fourstep.cu's dense kernel ran before:
+// 8*N*(N1+N2) flops per line, one line per block, W2 streamed from L2.
+//
+// What bounds it on an H100: a length-N DFT needs about 5*log2(N) flops
+// per element against 16 bytes of complex64 moved (about 4 flops per
+// byte at N = 8192), far below the 20 at which the fp32 CUDA cores and
+// HBM (3.35 TB/s) break even.  So HBM bytes bound it, and the design
+// reads every byte once and writes it once:
+//  * One line per block in shared memory, transformed in three passes
+//    over N = R1*R2*R3 (kernels/longline.py::FACTORS), each an in-register
+//    radix-2 codelet of at most 32 values (fft_radix.cuh's fft_stages and
+//    static_for), so ptxas keeps every value in registers.
+//  * The line arrives by one bulk asynchronous copy (cp.async.bulk, TMA)
+//    that a single thread issues, completing on an mbarrier; the other
+//    threads spend no registers on addresses.  A ring of DEPTH line
+//    buffers (2 where two fit, else 1: long_depth) and a persistent grid:
+//    as soon as the last pass has read a buffer, the copy of the block's
+//    line after next (DEPTH = 2) or next (DEPTH = 1) into it starts, so
+//    loads overlap the transforms.
+//  * Pass 1 reads the line in natural order and writes in place; pass 2
+//    writes the layout (m3, kA) with a row pitch of R1*R2 + 1, so every
+//    shared-memory access of a warp hits consecutive addresses or distinct
+//    banks; pass 3's items are consecutive output indices, so its stores
+//    (the epilogue: output twiddle, 1/N, pack_parts segment) cover whole
+//    sectors of HBM.
+//  * The inter-pass twiddles W_N^(k1*mb) come from a two-level table,
+//    TA[k1, m3] * TB[k1, m2] (mb = m2*R3 + m3), and W_(R2*R3)^(k2*m3) from
+//    TC: R1*R3 + R1*R2 + R2*R3 entries, not N, built in float64 on the host
+//    (kernels/fft_matmul.py::_long_constants) and kept in shared memory.
+//    Threads of a warp read consecutive entries of TA and TC and one of TB.
+// kernels/longline.py holds the same plan and index maps in Python
+// (longline.emulate is the kernel's plain version).
+#pragma once
+
+#include <cstdint>
+
+#include "fft_common.cuh"
+#include "fft_radix.cuh"
+
+namespace repro_fft {
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <int R1, int R2, int R3>
+struct LongShape {
+  static constexpr int N = R1 * R2 * R3;
+  static constexpr int RM = cmax(R1, cmax(R2, R3));
+  static constexpr int THREADS = N / RM;   // each holds RM values a pass
+  static constexpr int Q = R1 * R2;        // pass-3 items
+  static constexpr int PITCH = Q + 1;      // row pitch of pass 2's output
+  static constexpr int LINE = R3 * PITCH;  // elements of one line buffer
+  static constexpr int CONSTS = R1 * R3 + R1 * R2 + R2 * R3 + RM / 2;
+};
+
+// Shared memory of one block: the ring's line buffers, the constants, one
+// mbarrier per buffer (kernels/longline.py::smem_bytes).
+template <typename R, int R1, int R2, int R3, int DEPTH>
+__host__ __device__ constexpr size_t long_smem_bytes() {
+  using S = LongShape<R1, R2, R3>;
+  return (size_t)(DEPTH * S::LINE + S::CONSTS) * sizeof(cpx<R>) +
+         DEPTH * sizeof(uint64_t);
+}
+
+// The kernel's launch bound in blocks per SM, so that ptxas fits its
+// registers to them: for complex64 the blocks an SM holds by shared
+// memory (228 KB, 1 KB reserved per block), at least 1 and at most 2 (128
+// registers a thread for two blocks of 256); for complex128, whose values
+// and twiddles take twice the registers, 1.  Without a bound ptxas
+// spilled complex128 16x16x16 at 128 registers, and with two blocks too.
+template <typename R, int R1, int R2, int R3, int DEPTH>
+__host__ __device__ constexpr int long_min_blocks() {
+  constexpr size_t kSmemPerSm = 233472, kReserved = 1024;
+  constexpr size_t fit =
+      kSmemPerSm / (long_smem_bytes<R, R1, R2, R3, DEPTH>() + kReserved);
+  if (sizeof(R) != sizeof(float)) return 1;
+  return fit < 1 ? 1 : (fit > 2 ? 2 : (int)fit);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One thread: `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory by the TMA unit, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `out` is (parts, batch, N/parts) with seg_log2 = log2(N/parts); `gtw`
+// (the output twiddle, N values) may be null.  The grid is persistent:
+// block b takes lines b, b + gridDim.x, ...
+template <typename R, int R1, int R2, int R3, int DEPTH>
+__global__ void __launch_bounds__(
+    LongShape<R1, R2, R3>::THREADS,
+    (long_min_blocks<R, R1, R2, R3, DEPTH>()))
+long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+            const cpx<R>* __restrict__ consts,
+            const cpx<R>* __restrict__ gtw, long long batch, int inverse,
+            int seg_log2) {
+  using S = LongShape<R1, R2, R3>;
+  constexpr int N = S::N, RM = S::RM, T = S::THREADS, Q = S::Q;
+  constexpr int PITCH = S::PITCH, M1 = N / R1;
+  constexpr unsigned kLineBytes = N * sizeof(cpx<R>);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  cpx<R>* const bufs = reinterpret_cast<cpx<R>*>(smem_raw);
+  cpx<R>* const ta = bufs + DEPTH * S::LINE;
+  const cpx<R>* const tb = ta + R1 * R3;
+  const cpx<R>* const tc = tb + R1 * R2;
+  const cpx<R>* const w = tc + R2 * R3;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(ta + S::CONSTS);
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < S::CONSTS; i += T) ta[i] = consts[i];
+  if (tid == 0) {
+    for (int d = 0; d < DEPTH; ++d) mbar_init(&bars[d], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const long long stride = gridDim.x;
+  if (tid == 0) {
+    for (int d = 0; d < DEPTH; ++d) {
+      const long long line = blockIdx.x + d * stride;
+      if (line < batch)
+        bulk_load(bufs + d * S::LINE, x + line * N, kLineBytes, &bars[d]);
+    }
+  }
+  // 1/N folded at compile time: a run-time double division would call a
+  // subroutine that needs a stack frame.
+  constexpr R kInvN = R(1) / R(N);
+  const R scale = inverse ? kInvN : R(1);
+  const int seg = 1 << seg_log2;
+
+  int slot = 0;
+  unsigned parity = 0;
+  for (long long line = blockIdx.x; line < batch; line += stride) {
+    cpx<R>* const s = bufs + slot * S::LINE;
+    mbar_wait(&bars[slot], parity);
+
+    // Pass 1: item mb = m2*R3 + m3 reads x[m1*M1 + mb], writes in place.
+    auto pass1 = [&](auto it) {
+      const int mb = tid + decltype(it)::value * T;
+      const int m2 = mb / R3, m3 = mb % R3;
+      cpx<R> v[R1];
+      auto load = [&](auto i) {
+        constexpr int m1 = decltype(i)::value;
+        constexpr int at = bitrev(m1, ilog2(R1));
+        v[at] = s[m1 * M1 + mb];
+      };
+      static_for<0, R1>(load);
+      fft_stages<R1, RM, 2, R>(v, w);
+      auto store = [&](auto i) {
+        constexpr int k1 = decltype(i)::value;
+        cpx<R> y = v[k1];
+        if constexpr (k1 != 0)
+          y = cmul(y, cmul(ta[k1 * R3 + m3], tb[k1 * R2 + m2]));
+        s[k1 * M1 + mb] = y;
+      };
+      static_for<0, R1>(store);
+    };
+    static_for<0, RM / R1>(pass1);
+    __syncthreads();
+
+    // Pass 2: item (k1, m3); its values move to (m3, kA), so every value
+    // is loaded before any is stored.
+    {
+      constexpr int I2 = RM / R2;
+      cpx<R> v[I2][R2];
+      auto load_item = [&](auto it) {
+        constexpr int i = decltype(it)::value;
+        const int item = tid + i * T;
+        const int k1 = item / R3, m3 = item % R3;
+        auto load = [&](auto j) {
+          constexpr int m2 = decltype(j)::value;
+          constexpr int at = bitrev(m2, ilog2(R2));
+          v[i][at] = s[k1 * M1 + m2 * R3 + m3];
+        };
+        static_for<0, R2>(load);
+      };
+      static_for<0, I2>(load_item);
+      __syncthreads();
+      auto store_item = [&](auto it) {
+        constexpr int i = decltype(it)::value;
+        const int item = tid + i * T;
+        const int k1 = item / R3, m3 = item % R3;
+        fft_stages<R2, RM, 2, R>(v[i], w);
+        auto store = [&](auto j) {
+          constexpr int k2 = decltype(j)::value;
+          cpx<R> y = v[i][k2];
+          if constexpr (k2 != 0) y = cmul(y, tc[k2 * R3 + m3]);
+          s[m3 * PITCH + k1 + R1 * k2] = y;
+        };
+        static_for<0, R2>(store);
+      };
+      static_for<0, I2>(store_item);
+    }
+    __syncthreads();
+
+    // Pass 3: item kA = k1 + R1*k2 reads (m3, kA); once every thread has
+    // read the buffer, it takes the next line's copy.
+    constexpr int I3 = RM / R3;
+    cpx<R> v[I3][R3];
+    auto load_item = [&](auto it) {
+      constexpr int i = decltype(it)::value;
+      const int ka = tid + i * T;
+      auto load = [&](auto j) {
+        constexpr int m3 = decltype(j)::value;
+        constexpr int at = bitrev(m3, ilog2(R3));
+        v[i][at] = s[m3 * PITCH + ka];
+      };
+      static_for<0, R3>(load);
+    };
+    static_for<0, I3>(load_item);
+    // The buffer's generic-proxy reads and writes are ordered before the
+    // bulk copy (async proxy) that overwrites it.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {
+      const long long next = line + DEPTH * stride;
+      if (next < batch) bulk_load(s, x + next * N, kLineBytes, &bars[slot]);
+    }
+    auto store_item = [&](auto it) {
+      constexpr int i = decltype(it)::value;
+      const int ka = tid + i * T;
+      fft_stages<R3, RM, 2, R>(v[i], w);
+      auto store = [&](auto j) {
+        constexpr int k3 = decltype(j)::value;
+        const int o = ka + Q * k3;
+        cpx<R> y = v[i][k3];
+        if (gtw != nullptr) y = cmul(y, gtw[o]);
+        y.re *= scale;
+        y.im *= scale;
+        if (seg >= Q) {
+          // A segment holds whole runs of Q outputs: the run's address is
+          // the same for every thread, and ka indexes into it.  (With the
+          // general form alone ptxas spilled at 255 registers for
+          // complex128 16x16x32.)
+          constexpr int o0 = Q * k3;
+          const long long run =
+              (((long long)(o0 >> seg_log2) * batch + line) << seg_log2) +
+              (o0 & (seg - 1));
+          out[run + ka] = y;
+        } else {
+          out[(((long long)(o >> seg_log2) * batch + line) << seg_log2) +
+              (o & (seg - 1))] = y;
+        }
+      };
+      static_for<0, R3>(store);
+    };
+    static_for<0, I3>(store_item);
+    if (++slot == DEPTH) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+}
+
+template <typename R, int R1, int R2, int R3, int DEPTH>
+int long_launch(const void* x, void* out, const void* consts, const void* tw,
+                long long batch, int inverse, int seg_log2, int smem_bytes,
+                cudaStream_t stream) {
+  // The wrapper's layout (kernels/longline.py) must match the kernel's.
+  if ((size_t)smem_bytes != long_smem_bytes<R, R1, R2, R3, DEPTH>())
+    return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return 0;
+  auto kernel = long_kernel<R, R1, R2, R3, DEPTH>;
+  constexpr int threads = LongShape<R1, R2, R3>::THREADS;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      (size_t)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (grid > batch) grid = batch;
+  kernel<<<(unsigned)grid, threads, (size_t)smem_bytes, stream>>>(
+      static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
+      static_cast<const cpx<R>*>(consts), static_cast<const cpx<R>*>(tw),
+      batch, inverse, seg_log2);
+  return (int)cudaGetLastError();
+}
+
+// The ring holds two line buffers where they fit in a block's 227 KB
+// (complex64 8192, complex128 2048 and 4096), else one
+// (kernels/longline.py::long_tile works out the same depth).
+constexpr size_t kLongSmemMax = 232448;
+
+template <typename R, int R1, int R2, int R3>
+constexpr int long_depth() {
+  return long_smem_bytes<R, R1, R2, R3, 2>() <= kLongSmemMax ? 2 : 1;
+}
+
+template <typename R>
+int long_dispatch(int n, const void* x, void* out, const void* consts,
+                  const void* tw, long long batch, int inverse, int seg_log2,
+                  int smem_bytes, cudaStream_t stream) {
+#define REPRO_LONG_CASE(NN, A, B, C)                                       \
+  case NN:                                                                 \
+    return long_launch<R, A, B, C, long_depth<R, A, B, C>()>(              \
+        x, out, consts, tw, batch, inverse, seg_log2, smem_bytes, stream);
+  // kernels/longline.py::FACTORS lists the same factors.
+  if constexpr (sizeof(R) == sizeof(float)) {
+    switch (n) {
+      REPRO_LONG_CASE(8192, 16, 16, 32)
+      REPRO_LONG_CASE(16384, 16, 32, 32)
+      default:
+        break;
+    }
+  } else {
+    switch (n) {
+      REPRO_LONG_CASE(2048, 8, 16, 16)
+      REPRO_LONG_CASE(4096, 16, 16, 16)
+      REPRO_LONG_CASE(8192, 16, 16, 32)
+      default:
+        break;
+    }
+  }
+#undef REPRO_LONG_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace repro_fft

@@ -31,11 +31,16 @@ The kernel reads raw memory, so a lazily conjugated or negated view
 taken (:func:`_resolved`); the plain version reads ``.real``/``.imag``,
 which honour those bits anyway.
 
-Two paths, chosen from N and the dtype alone (:func:`radix.kernel_path`):
+Three paths, chosen from N and the dtype alone (:func:`radix.kernel_path`):
 power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) takes
-the radix path — in-register radix-2 codelets, ``csrc/fft_radix.cuh``,
-planned in ``kernels/radix.py`` — and every other N the general dense
-kernel.  A failed build or launch raises; nothing falls back.
+the radix path — two passes of in-register radix-2 codelets,
+``csrc/fft_radix.cuh``, planned in ``kernels/radix.py``; the longer
+power-of-two N whose line fits in one block's shared memory (8192 and
+16384 for complex64, 2048 to 8192 for complex128) take the long-line path
+— three such passes over a line loaded by TMA, ``csrc/fft_long.cuh``,
+planned in ``kernels/longline.py``, whose ``emulate`` is this path's plain
+version; every other N takes the general dense kernel.  A failed build or
+launch raises; nothing falls back.
 
 :func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``
 block and transforms dim 1 on the radix path, writing the same layout:
@@ -45,7 +50,7 @@ of copying the lines contiguous.
 Every launch, from either entry, adds one to ``fft_fourstep.launches``,
 to its variant's entry of ``fft_fourstep.variant_launches`` ("fourstep",
 "pack", "twiddle"), to its path's entry of ``fft_fourstep.path_launches``
-("radix", "dense") and to its layout's entry of
+("radix", "dense", "long") and to its layout's entry of
 ``fft_fourstep.layout_launches`` ("lines", "strided"); nothing else
 touches them.
 """
@@ -54,14 +59,14 @@ from __future__ import annotations
 import dataclasses
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.transforms import (_dft_planes, _twiddle_planes, factorize,
                                fourstep_fft_planes, real_dtype)
-from . import radix
+from . import longline, radix
 from .radix import SMEM_MAX_BYTES, SMEM_TARGET_BYTES
 
 #: W2 larger than this streams from global memory (L2) instead.
@@ -127,6 +132,22 @@ _CONST_CACHE_SIZE = 32
 _CONST_LOCK = threading.Lock()
 
 
+def _cached(key: tuple, build: Callable[[], object]):
+    """The constants cached under ``key``, built by ``build()`` on a miss;
+    the least recently used entry goes past ``_CONST_CACHE_SIZE``."""
+    with _CONST_LOCK:
+        hit = _CONST_CACHE.get(key)
+        if hit is not None:
+            _CONST_CACHE.move_to_end(key)
+            return hit
+    value = build()
+    with _CONST_LOCK:
+        _CONST_CACHE[key] = value
+        while len(_CONST_CACHE) > _CONST_CACHE_SIZE:
+            _CONST_CACHE.popitem(last=False)
+    return value
+
+
 def _device_constants(n1: int, n2: int, inverse: bool, dtype: torch.dtype,
                       device: torch.device) -> Tuple[torch.Tensor, ...]:
     """W1, W2, T on ``device``, cached per (n1, n2, inverse, dtype, device).
@@ -135,24 +156,15 @@ def _device_constants(n1: int, n2: int, inverse: bool, dtype: torch.dtype,
     (``transforms._dft_planes``/``_twiddle_planes``): built in float64 and
     cast, so complex64 runs see well-rounded phases.
     """
-    key = (n1, n2, bool(inverse), dtype, device)
-    with _CONST_LOCK:
-        hit = _CONST_CACHE.get(key)
-        if hit is not None:
-            _CONST_CACHE.move_to_end(key)
-            return hit
-    sign = 1.0 if inverse else -1.0
-    planes = (_dft_planes(n1, sign, "float64"),
-              _dft_planes(n2, sign, "float64"),
-              _twiddle_planes(n1, n2, sign, "float64"))
-    consts = tuple(torch.from_numpy(cos + 1j * sin).to(device=device,
-                                                       dtype=dtype)
-                   for cos, sin in planes)
-    with _CONST_LOCK:
-        _CONST_CACHE[key] = consts
-        while len(_CONST_CACHE) > _CONST_CACHE_SIZE:
-            _CONST_CACHE.popitem(last=False)
-    return consts
+    def build():
+        sign = 1.0 if inverse else -1.0
+        planes = (_dft_planes(n1, sign, "float64"),
+                  _dft_planes(n2, sign, "float64"),
+                  _twiddle_planes(n1, n2, sign, "float64"))
+        return tuple(torch.from_numpy(cos + 1j * sin).to(device=device,
+                                                         dtype=dtype)
+                     for cos, sin in planes)
+    return _cached((n1, n2, bool(inverse), dtype, device), build)
 
 
 def _radix_constants(n: int, inverse: bool, dtype: torch.dtype,
@@ -160,23 +172,24 @@ def _radix_constants(n: int, inverse: bool, dtype: torch.dtype,
     """The radix kernel's constants on ``device``: T (N1 x N2, row-major)
     then the codelet table (``radix.codelet_table``), one buffer, cached
     with the dense path's constants."""
-    key = ("radix", n, bool(inverse), dtype, device)
-    with _CONST_LOCK:
-        hit = _CONST_CACHE.get(key)
-        if hit is not None:
-            _CONST_CACHE.move_to_end(key)
-            return hit[0]
-    n1, n2 = factorize(n)
-    sign = 1.0 if inverse else -1.0
-    cos, sin = _twiddle_planes(n1, n2, sign, "float64")
-    host = np.concatenate([(cos + 1j * sin).reshape(-1),
-                           radix.codelet_table(n, inverse)])
-    consts = torch.from_numpy(host).to(device=device, dtype=dtype)
-    with _CONST_LOCK:
-        _CONST_CACHE[key] = (consts,)
-        while len(_CONST_CACHE) > _CONST_CACHE_SIZE:
-            _CONST_CACHE.popitem(last=False)
-    return consts
+    def build():
+        n1, n2 = factorize(n)
+        sign = 1.0 if inverse else -1.0
+        cos, sin = _twiddle_planes(n1, n2, sign, "float64")
+        host = np.concatenate([(cos + 1j * sin).reshape(-1),
+                               radix.codelet_table(n, inverse)])
+        return torch.from_numpy(host).to(device=device, dtype=dtype)
+    return _cached(("radix", n, bool(inverse), dtype, device), build)
+
+
+def _long_constants(n: int, inverse: bool, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """The long-line kernel's constants on ``device``: TA, TB, TC and the
+    codelet table (``longline.constants``, built in float64), one buffer,
+    cached with the other paths' constants."""
+    return _cached(("long", n, bool(inverse), dtype, device),
+                   lambda: torch.from_numpy(longline.constants(
+                       n, dtype, inverse)).to(device=device, dtype=dtype))
 
 
 def _check(x: torch.Tensor, twiddle: Optional[torch.Tensor],
@@ -212,7 +225,9 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
                        pack_parts: Optional[int] = None) -> torch.Tensor:
     """The kernel's plain PyTorch version: same inputs, same output layout.
 
-    The four steps run as ``torch.einsum`` contractions on real/imag planes
+    On the long-line path's N, that path's three passes
+    (``longline.emulate``); on every other N the four steps as
+    ``torch.einsum`` contractions on real/imag planes
     (``transforms.fourstep_fft_planes``).  Used for CPU tensors and, on the
     card, as the kernel's yardstick.
     """
@@ -220,6 +235,10 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
     b, n = x.shape
     if b == 0:
         return _packed(torch.zeros_like(x), pack_parts)
+    if radix.kernel_path(n, x.dtype) == "long":
+        buf = longline.emulate(x, inverse=inverse, twiddle=twiddle,
+                               pack_parts=pack_parts)
+        return buf if pack_parts is None else buf.transpose(0, 1)
     rdt = real_dtype(x.dtype)
     outr, outi = fourstep_fft_planes(x.real.to(rdt), x.imag.to(rdt),
                                      inverse=inverse)
@@ -279,6 +298,17 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
                      (n // parts).bit_length() - 1,
                      tile.lines.bit_length() - 1, int(strided),
                      tile.smem_bytes, stream)
+        elif path == "long":
+            tile = longline.long_tile(n, x.dtype)
+            consts = _long_constants(n, inverse, x.dtype, x.device)
+            consts.record_stream(current)
+            if x.data_ptr() % 16:
+                x = x.clone()      # the bulk copy reads 16-byte aligned lines
+            fn = lib.repro_fft_long_c64 if c64 else lib.repro_fft_long_c128
+            err = fn(x.data_ptr(), buf.data_ptr(), consts.data_ptr(), twp,
+                     x.shape[0], n, int(inverse),
+                     (n // parts).bit_length() - 1, tile.smem_bytes,
+                     stream)
         else:
             n1, n2 = factorize(n)
             cfg = launch_config(n, x.element_size(), tw is not None)
@@ -317,6 +347,9 @@ def _declare(lib) -> None:
         fn.restype = i
     for fn in (lib.repro_fft_radix_c64, lib.repro_fft_radix_c128):
         fn.argtypes = [p, p, p, p, ll, ll, i, i, i, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.repro_fft_long_c64, lib.repro_fft_long_c128):
+        fn.argtypes = [p, p, p, p, ll, i, i, i, i, p]
         fn.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -405,7 +438,7 @@ def fft_fourstep_strided(x: torch.Tensor, *, inverse: bool = False,
 _COUNT_LOCK = threading.Lock()
 fft_fourstep.launches = 0
 fft_fourstep.variant_launches = {"fourstep": 0, "pack": 0, "twiddle": 0}
-fft_fourstep.path_launches = {"radix": 0, "dense": 0}
+fft_fourstep.path_launches = {"radix": 0, "dense": 0, "long": 0}
 fft_fourstep.layout_launches = {"lines": 0, "strided": 0}
 
 

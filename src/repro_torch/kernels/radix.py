@@ -61,8 +61,9 @@ SMEM_TARGET_BYTES = SMEM_MAX_BYTES // 2 - 1024
 STRIDED_LINES = 16
 #: Lengths the kernel instantiates, per complex dtype.  complex128 stops at
 #: 1024: a codelet of 64 complex128 values would take 256 registers and
-#: spill, so 2048 and 4096 stay on the dense path; so does N = 2, whose
-#: complex128 kernel ptxas spills (4 bytes at 64 registers).
+#: spill, so 2048 and 4096 take the long-line route (three passes); N = 2,
+#: whose complex128 kernel ptxas spills (4 bytes at 64 registers), stays
+#: on the dense path.
 RADIX_SIZES = {
     torch.complex64: tuple(2 ** k for k in range(1, 13)),
     torch.complex128: tuple(2 ** k for k in range(2, 11)),
@@ -71,8 +72,13 @@ RADIX_SIZES = {
 
 def kernel_path(n: int, dtype: torch.dtype) -> str:
     """"radix" when the kernel has a codelet instantiation for ``n`` and
-    ``dtype``, else "dense" (the general four-step, any N)."""
-    return "radix" if n in RADIX_SIZES.get(dtype, ()) else "dense"
+    ``dtype``, "long" for the longer power-of-two lines the long-line
+    route takes (``longline.FACTORS``), else "dense" (the general
+    four-step, any N)."""
+    if n in RADIX_SIZES.get(dtype, ()):
+        return "radix"
+    from .longline import FACTORS   # deferred: longline imports this module
+    return "long" if n in FACTORS.get(dtype, {}) else "dense"
 
 
 def bitrev(i: int, bits: int) -> int:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..compat import resolve_device
 from ..distributed.sharding import MeshRules, place
 from .config import ModelConfig
 from .transformer import Model, init_model
@@ -72,18 +73,21 @@ class TreeBuilder:
         return place(out, spec, self.rules.mesh)
 
 
-def params_from_reference(tree: Dict, cfg: ModelConfig, device="cpu",
+def params_from_reference(tree: Dict, cfg: ModelConfig, device=None,
                           mesh=None) -> Model:
     """The port's model holding the reference parameter tree's values
-    (this rank's blocks on ``mesh``, on its device)."""
-    if mesh is not None:
-        device = mesh.device
+    (this rank's blocks on ``mesh``, on its device).  ``device=None`` is
+    the card, and raises without one (``compat.resolve_device``): pass
+    ``device="cpu"`` for the CPU."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     return init_model(TreeBuilder(tree, device=device, mesh=mesh), cfg)
 
 
-def caches_from_reference(tree: Dict, device="cpu") -> Dict:
+def caches_from_reference(tree: Dict, device=None) -> Dict:
     """The reference's stacked cache tree -> the port's per-super-block
-    cache dicts."""
+    cache dicts, on ``device`` (the card unless asked, as
+    :func:`params_from_reference`)."""
+    device = resolve_device(device)
     out = {}
     for name, layer in tree.items():
         reps = len(np.asarray(next(iter(layer.values()))["pos"]))

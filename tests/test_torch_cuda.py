@@ -46,7 +46,7 @@ def cuda():
     ((67, 4096), torch.complex64, None, True),      # radix, N1 = N2 = 64
     ((33, 2), torch.complex64, 2, False),           # radix, N1 = 1
     ((130, 512), torch.complex128, 4, True),        # radix complex128
-    ((9, 2048), torch.complex128, None, False),     # dense: no c128 codelet
+    ((9, 2048), torch.complex128, None, False),     # long: three passes
 ])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cuda_kernel_matches_plain_version(cuda, shape, dtype, parts,
@@ -65,6 +65,14 @@ def test_cuda_kernel_matches_plain_version(cuda, shape, dtype, parts,
     assert tfm.fft_fourstep.path_launches[path] == 1
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+    # torch.fft with the epilogue: a yardstick independent of the plain
+    # version, which on the long path mirrors the kernel's index maps
+    lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+    if tw is not None:
+        lib = lib * tw
+    if parts is not None:
+        lib = lib.reshape(shape[0], parts, n // parts)
+    assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
     if parts is not None:
         assert got.transpose(0, 1).is_contiguous()
 
@@ -89,7 +97,8 @@ def test_cuda_strided_kernel_matches_plain_version(cuda, shape, dtype,
     want = tfm.fft_fourstep_strided_plain(x, inverse=inverse, twiddle=tw)
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.layout_launches == {"lines": 0, "strided": 1}
-    assert tfm.fft_fourstep.path_launches == {"radix": 1, "dense": 0}
+    assert tfm.fft_fourstep.path_launches == {"radix": 1, "dense": 0,
+                                              "long": 0}
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
 
@@ -110,6 +119,58 @@ def test_cuda_kernel_reads_conjugate_views(cuda, conj_twiddle):
         want = want * tw
     torch.cuda.synchronize()
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), 5e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.complex64, 8192),
+                                     (torch.complex64, 16384),
+                                     (torch.complex128, 2048),
+                                     (torch.complex128, 4096),
+                                     (torch.complex128, 8192)])
+@pytest.mark.parametrize("b,inverse,parts,use_tw", [
+    (5, False, None, False), (3, True, None, True), (7, False, 2, False),
+    (301, True, 4, True)])
+def test_cuda_long_kernel_matches_plain_version_and_torch_fft(
+        cuda, dtype, n, b, inverse, parts, use_tw):
+    """The long-line kernel (one launch on the "long" path) against its
+    plain version (``longline.emulate``) and ``torch.fft``, at the
+    kernel's tolerances, with both epilogues."""
+    assert radix.kernel_path(n, dtype) == "long"
+    x = torch.from_numpy(cplx((b, n), 11)).to(cuda, dtype)
+    tw = (torch.exp(-1j * math.pi * torch.arange(n, device=cuda) / (2 * n))
+          .to(dtype) if use_tw else None)
+    want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=tw,
+                                  pack_parts=parts)
+    lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+    if tw is not None:
+        lib = lib * tw
+    if parts is not None:
+        lib = lib.reshape(b, parts, n // parts)
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    tfm.reset_launch_counts()
+    got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
+    torch.cuda.synchronize()
+    assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0,
+                                              "long": 1}
+    assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+    assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
+    if parts is not None:
+        assert got.transpose(0, 1).is_contiguous()
+
+
+@pytest.mark.cuda
+def test_cuda_long_kernel_reads_an_unaligned_view(cuda):
+    """The bulk copy reads 16-byte aligned lines: a contiguous view 8 bytes
+    into its storage is transformed all the same (one launch)."""
+    base = torch.from_numpy(cplx((3 * 8192 + 1,), 12)).to(cuda)
+    x = base[1:].view(3, 8192)
+    assert x.data_ptr() % 16 == 8
+    tfm.reset_launch_counts()
+    got = tfm.fft_fourstep(x)
+    torch.cuda.synchronize()
+    assert tfm.fft_fourstep.path_launches["long"] == 1
+    assert_scaled_close(got.cpu().numpy(), torch.fft.fft(x).cpu().numpy(),
+                        5e-6)
 
 
 @pytest.mark.cuda
@@ -136,7 +197,8 @@ def test_kernel_plan_on_the_card(cuda):
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.launches == 6
     # 32 and 64 on the radix path (strided, in place), 48 on the dense one
-    assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 2}
+    assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 2,
+                                              "long": 0}
     assert tfm.fft_fourstep.layout_launches == {"lines": 2, "strided": 4}
     assert ops.copies["lines"] == 0 and y.is_contiguous()
     assert_scaled_close(y.cpu().numpy(), torch.fft.fftn(x).cpu().numpy(),
@@ -166,7 +228,8 @@ def test_poisson_ppb_on_the_card(cuda):
                                                  "twiddle": 2}
     # the bounded dim (48) takes the dense path: its 2 twiddle launches and
     # the 2 inverse ones; dims of 32 and 64 the radix path
-    assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 4}
+    assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 4,
+                                              "long": 0}
     assert phi.dtype == torch.float32 and phi.device.type == "cuda"
     want = PoissonSolver(mesh, grid, topology=topo, backend="cufft")(rhs)
     assert_scaled_close(phi.cpu().numpy(), want.cpu().numpy(), 2e-4)

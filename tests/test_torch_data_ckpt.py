@@ -286,7 +286,7 @@ def test_training_state_tree_matches_reference_layout(tmp_path, cpu_mesh,
     ref_opt = jax.tree.map(np.asarray,
                            ref_adamw_init(ref_p, RefAdamWConfig()))
     cfg = configs.smoke_config(arch)
-    model = params_from_reference(tree, cfg)
+    model = params_from_reference(tree, cfg, device="cpu")
     state = adamw_init(param_leaves(model), AdamWConfig())
     state["count"] += 4
     back_tree = flat_tree(params_to_reference(model))

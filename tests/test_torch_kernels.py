@@ -247,7 +247,8 @@ def test_cpu_runs_the_plain_version_without_counting_launches():
     assert tfm.fft_fourstep.launches == 0
     assert set(tfm.fft_fourstep.variant_launches) == {"fourstep", "pack",
                                                       "twiddle"}
-    assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0}
+    assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0,
+                                              "long": 0}
     assert tfm.fft_fourstep.layout_launches == {"lines": 0, "strided": 0}
 
 
@@ -274,15 +275,19 @@ def test_kernel_operands_are_resolved():
 @pytest.mark.parametrize("n,dtype,path", [
     (1, torch.complex64, "dense"), (2, torch.complex64, "radix"),
     (512, torch.complex64, "radix"), (4096, torch.complex64, "radix"),
-    (8192, torch.complex64, "dense"), (24, torch.complex64, "dense"),
+    (8192, torch.complex64, "long"), (24, torch.complex64, "dense"),
     (33, torch.complex64, "dense"), (96, torch.complex64, "dense"),
     (521, torch.complex64, "dense"), (1024, torch.complex128, "radix"),
     (2, torch.complex128, "dense"), (4, torch.complex128, "radix"),
-    (2048, torch.complex128, "dense"), (4096, torch.complex128, "dense"),
-    (48, torch.complex128, "dense")])
+    (2048, torch.complex128, "long"), (4096, torch.complex128, "long"),
+    (48, torch.complex128, "dense"), (16384, torch.complex64, "long"),
+    (8192, torch.complex128, "long"), (32768, torch.complex64, "dense"),
+    (16384, torch.complex128, "dense")])
 def test_kernel_path_selection(n, dtype, path):
-    """The path follows N and the dtype alone: power-of-two N with an
-    instantiation takes the radix kernel, every other N the dense one."""
+    """The path follows N and the dtype alone: power-of-two N with a
+    radix instantiation takes the radix kernel, longer power-of-two N
+    whose line fits in a block's shared memory the long-line kernel, every
+    other N the dense one."""
     assert radix.kernel_path(n, dtype) == path
 
 
@@ -413,7 +418,8 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     from repro_torch.kernels import build
     src = build.csrc_dir()
     names = [p.name for p in build.sources("fft_fourstep")]
-    assert names == ["fft_fourstep.cu", "fft_common.cuh", "fft_radix.cuh"]
+    assert names == ["fft_fourstep.cu", "fft_common.cuh", "fft_long.cuh",
+                     "fft_radix.cuh"]
     for name in names:
         (tmp_path / name).write_bytes((src / name).read_bytes())
     monkeypatch.setattr(build, "csrc_dir", lambda: tmp_path)

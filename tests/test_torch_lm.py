@@ -84,7 +84,7 @@ def test_forward_matches_reference(arch, dtype, ref_params, cpu_mesh, rules):
         ref, _, ref_aux = ref_tfm.forward(jax.tree.map(np.asarray, tree),
                                           cfg, rules, jax_batch(batch),
                                           mode="train", remat=False)
-    model = params_from_reference(tree, cfg)
+    model = params_from_reference(tree, cfg, device="cpu")
     with torch.no_grad():
         logits, caches, aux = tfm.forward(model, cfg, None,
                                           torch_batch(batch), mode="train")
@@ -146,7 +146,7 @@ def test_init_and_pad_caches_match_reference(arch):
     ref = to_numpy(ref_tfm.init_caches(ref_configs.smoke_config(arch), B, 40))
     got = caches_to_reference(tfm.init_caches(cfg, B, 40, device="cpu"))
     assert jax.tree.map(np.shape, got) == jax.tree.map(np.shape, ref)
-    back = caches_to_reference(caches_from_reference(ref))
+    back = caches_to_reference(caches_from_reference(ref, device="cpu"))
     jax.tree.map(np.testing.assert_array_equal, back, jax.tree.map(
         lambda a: np.asarray(a, np.float32) if a.dtype.name == "bfloat16"
         else a, ref))
@@ -156,7 +156,7 @@ def test_init_and_pad_caches_match_reference(arch):
                                              ref_configs.smoke_config(arch),
                                              40))
     padded = caches_to_reference(tfm.pad_caches(
-        caches_from_reference(small_ref), cfg, 40))
+        caches_from_reference(small_ref, device="cpu"), cfg, 40))
     assert jax.tree.map(np.shape, padded) == jax.tree.map(np.shape,
                                                           padded_ref)
 
@@ -220,3 +220,28 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
                                                  again.parameters()))
     other = build_params(cfg, seed=1, device="cpu")
     assert not torch.equal(model.embed, other.embed)
+
+
+def test_weight_carrier_needs_a_card_unless_asked_for_the_cpu(
+        ref_params, monkeypatch):
+    """``params_from_reference`` and ``caches_from_reference`` follow the
+    entry points' rule: on a machine with no card their default raises,
+    naming ``device='cpu'``; asked for the CPU, they build there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arch = "qwen3_8b"
+    cfg = configs.smoke_config(arch)
+    tree = ref_params(arch)
+    caches = to_numpy(ref_tfm.init_caches(ref_configs.smoke_config(arch),
+                                          B, 8))
+    for fn in (lambda: params_from_reference(tree, cfg),
+               lambda: caches_from_reference(caches),
+               lambda: params_from_reference(tree, cfg, device="cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
+    model = params_from_reference(tree, cfg, device="cpu")
+    assert model.embed.device.type == "cpu"
+    got = caches_from_reference(caches, device="cpu")
+    leaves = [t for name in got for block in got[name]
+              for sub in block.values() for t in sub.values()
+              if isinstance(t, torch.Tensor)]
+    assert leaves and all(t.device.type == "cpu" for t in leaves)

@@ -52,7 +52,8 @@ def setup(arch, dtype, cpu_mesh, rules):
     cfg = f32(cfg) if dtype == "float32" else cfg
     with cpu_mesh:
         params, _ = ref_build_params(cfg, rules, abstract=False)
-    return cfg, params, params_from_reference(to_numpy(params), cfg)
+    return cfg, params, params_from_reference(to_numpy(params), cfg,
+                                              device="cpu")
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -248,7 +248,7 @@ def test_train_step_with_micro_batches_matches_reference(arch, ref_trees,
         ref_new, ref_opt, ref_m = ref_step(
             ref_p, ref_adamw_init(ref_p, RefAdamWConfig(**kw)),
             {k: jnp.asarray(v) for k, v in batch.items()})
-    model = params_from_reference(tree, cfg)
+    model = params_from_reference(tree, cfg, device="cpu")
     state = adamw_init(param_leaves(model), AdamWConfig(**kw))
     step = make_train_step(cfg, None, AdamWConfig(**kw), accum_steps=2,
                            device="cpu")

@@ -62,7 +62,7 @@ def test_train_step_gradients_match_reference(arch, ssm_impl, ref_trees,
             ref_loss_fn(cfg, rules), has_aux=True)(
             jax.tree.map(jnp.asarray, tree),
             {k: jnp.asarray(v) for k, v in batch.items()})
-    model = params_from_reference(tree, cfg)
+    model = params_from_reference(tree, cfg, device="cpu")
     tb = {k: torch.as_tensor(v).long() if v.dtype.kind == "i"
           else torch.as_tensor(v) for k, v in batch.items()}
     loss, aux, grads = loss_and_grads(model, cfg, None, tb, remat=True)
