@@ -10,16 +10,17 @@ its result line):
 
 1. build the CUDA kernel from ``src/repro_torch/csrc`` and print the build
    time, ``ptxas``'s registers, spills and stack frame per kernel
-   instantiation (a radix or long-line instantiation that spills or keeps
-   a stack frame fails the run) and the card's ``nvidia-smi`` name and
-   power limit;
+   instantiation (a radix or long-line instantiation, the split route's
+   passes included, that spills or keeps a stack frame fails the run)
+   and the card's ``nvidia-smi`` name and power limit;
 2. hold the four-step kernel against its plain PyTorch version on the card
    over the shapes of ``tests/test_kernels.py`` (both directions, prime N,
    empty batch, ragged tiles, ``pack_parts``, the twiddle, complex128,
-   lazily conjugated operands and twiddles), every radix-path and
-   long-line length of both dtypes (the long ones with both epilogues),
-   and strided ``(outer, N, inner)`` blocks through
-   ``fft_fourstep_strided`` (inner of one tile, 512, ragged 1000, 262144);
+   lazily conjugated operands and twiddles), every radix-path, long-line
+   and split length of both dtypes (the long and split ones with both
+   epilogues, also against ``torch.fft``), and strided ``(outer, N,
+   inner)`` blocks through ``fft_fourstep_strided`` (inner of one tile,
+   512, ragged 1000, 262144);
 3. the main path: ``plan_fft`` of a 512^3 complex64 grid on a (1, 1)
    ``("data", "model")`` mesh with ``backend="kernel"``, forward and
    inverse for 3 rounds, checked against ``torch.fft.fftn`` and the round
@@ -109,19 +110,29 @@ its result line):
     complex64 lines against its plain version and ``torch.fft``, timed
     beside its bound; the other long lengths of both dtypes at 512 MB; the dense kernel at (262144,
     384); each reached once through ``ops.fft1d`` (one launch on its
-    path); then ``[lm_fftconv]``: the FFT long-convolution mixer at
-    jamba-v0.1-52b's width (8192 channels), B=1, S=2048, 4096 and 8192:
-    ``fft_backend="kernel"`` within 1e-4 of ``"cufft"`` in float32 with
-    exactly 3 launches on lines per call on the path of lines of 2S
-    (radix, long, long), none on another path, and no line copy; the
-    mixer's and its 3 transforms' ms on both backends beside the
-    transforms' bound;
-18. ``[train_fftconv]``: the same mixer's forward and backward at S=2048
-    and S=4096 in float32 on ``fft_backend="kernel"`` (the line
+    path); then ``[split]``: the split route (lines beyond one block,
+    N = P*Q in two launches through HBM, three with rows on the
+    long-line route) at complex64 N = 2^15, 2^16, 2^20, 2^24 and
+    complex128 2^14, 2^16, 2^22, about 512 MB of lines each, through
+    ``ops.fft1d``/``ops.ifft1d`` (1 split call per call), against its
+    plain version and ``torch.fft``, both epilogues, timed beside
+    ``torch.fft`` and the bound;
+    ``[split_plan]``: a ``plan_fft`` C2C plan of (64, 64, 32768)
+    complex64 on the kernel against ``fftn``, launches per path and line
+    copies recorded; then ``[lm_fftconv]``: the FFT long-convolution
+    mixer at jamba-v0.1-52b's width (8192 channels), B=1, S=2048, 4096,
+    8192, 16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of
+    ``"cufft"`` in float32 with the launches of 3 transforms of lines of
+    2S per call on their path (radix, long, long, split, split: a split
+    transform is 2 launches, one strided), none on another path, and no
+    line copy; the mixer's and its 3 transforms' ms on both backends
+    beside the transforms' bound, the peak memory at S=32768;
+18. ``[train_fftconv]``: the same mixer's forward and backward at S=2048,
+    4096 and 16384 in float32 on ``fft_backend="kernel"`` (the line
     transforms' autograd Function) against ``"cufft"``: every gradient
-    within 1e-4, exactly 6 launches on lines on the path of lines of 2S
-    (radix, long) and no line copy, CUDA-event ms on both backends beside
-    the 6 transforms' bound;
+    within 1e-4, the launches of 6 transforms of lines of 2S on their
+    path (radix, long, split) and no line copy, CUDA-event ms on both
+    backends beside the 6 transforms' bound;
 19. ``[train]``: the LM train step at qwen3-8b's full width with the
     depth cut to 8 of 36 layers (float32 masters and AdamW moments,
     bfloat16 activations, remat, bfloat16 gradients), B=1, S=4096, 5
@@ -147,7 +158,9 @@ its result line):
     analysis, serve, lm, lm_fftconv, train_fftconv and lm_sharded paths;
     the serve counts are the first lifetime's traffic drains; the
     long-line entry's launches are the mixer's at S=4096, the dense
-    entry's its ``[long]`` call), then the result line.
+    entry's its ``[long]`` call, the split entry's the mixer's at
+    S=16384, with S=32768's and ``[train_fftconv]``'s at S=16384 beside
+    them), then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -181,7 +194,10 @@ PEAK_HBM_BYTES = 3.35e12
 KERNEL_SOURCE = "src/repro_torch/csrc/fft_fourstep.cu"
 RADIX_SOURCE = "src/repro_torch/csrc/fft_radix.cuh"
 LONG_SOURCE = "src/repro_torch/csrc/fft_long.cuh"
-KERNEL_PATHS = ("radix", "dense", "long")
+SPLIT_SOURCE = "src/repro_torch/kernels/split.py"
+#: The routes of B1, as ``radix.kernel_path`` names them and
+#: ``fft_fourstep.path_launches`` counts their launches.
+KERNEL_PATHS = ("radix", "dense", "long", "split")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -237,24 +253,33 @@ def randc(shape, dtype, device, seed):
 def ptxas_report(log: str) -> list:
     """Per kernel instantiation: registers, spill stores/loads and stack
     frame bytes, from ``nvcc -Xptxas -v``; radix instantiations named by
-    dtype and (N1, N2), long-line ones by dtype, R1xR2xR3 and ring
-    depth."""
+    dtype, (N1, N2) and mode (the split route's passes: "split A", "split
+    B"), long-line ones by dtype, R1xR2xR3 and ring depth, the split
+    route's pass C ("split transpose") by dtype."""
     import re
+    modes = {"0": "", "1": " split A", "2": " split B"}
     entries, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            r = re.search(r"radix_kernelI([fd])Li(\d+)ELi(\d+)E", name)
+            r = re.search(r"radix_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d)E",
+                          name)
             lg = re.search(r"long_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E"
                            r"Li(\d+)E", name)
+            tr = re.search(r"split_transpose_kernelI([fd])E", name)
             if r:
                 dt = "complex64" if r.group(1) == "f" else "complex128"
-                name = f"radix {dt} N1={r.group(2)} N2={r.group(3)}"
+                name = (f"radix {dt} N1={r.group(2)} N2={r.group(3)}"
+                        f"{modes[r.group(4)]}")
             elif lg:
                 dt = "complex64" if lg.group(1) == "f" else "complex128"
                 name = (f"long {dt} {lg.group(2)}x{lg.group(3)}x"
                         f"{lg.group(4)} ring {lg.group(5)}")
+            elif tr:
+                name = ("split transpose "
+                        + ("complex64" if tr.group(1) == "f"
+                           else "complex128"))
             elif "fourstep_kernel" in name:
                 name = ("dense " + ("complex64" if "fourstep_kernelIfE" in name
                                     else "complex128"))
@@ -288,14 +313,20 @@ def phase_build(timer=time.perf_counter) -> dict:
               f"stores/loads, {e.get('stack')} bytes stack frame")
     radix_entries = [e for e in report if e["kernel"].startswith("radix")]
     long_entries = [e for e in report if e["kernel"].startswith("long")]
+    split_entries = [e for e in report if e["kernel"].startswith("split")]
     if lib.log:   # an earlier build reused from disk prints no report
-        check(len(radix_entries) == 21, f"{len(radix_entries)} radix "
-              f"instantiations in the ptxas report, expected 21")
-        from repro_torch.kernels import longline
+        from repro_torch.kernels import longline, split
+        want = 21 + sum(len(split.COLUMN_SIZES[d]) + len(split.ROW_SIZES[d])
+                        for d in split.COLUMN_SIZES)    # 21 + 15
+        check(len(radix_entries) == want, f"{len(radix_entries)} radix "
+              f"instantiations in the ptxas report, expected {want} (21 "
+              f"plain, the split route's passes A and B)")
         want = sum(len(sizes) for sizes in longline.FACTORS.values())
         check(len(long_entries) == want, f"{len(long_entries)} long-line "
               f"instantiations in the ptxas report, expected {want}")
-    for e in radix_entries + long_entries:
+        check(len(split_entries) == 2, f"{len(split_entries)} split "
+              f"transpose instantiations in the ptxas report, expected 2")
+    for e in radix_entries + long_entries + split_entries:
         check(e.get("spill_stores", 0) == 0 and e.get("stack", 0) == 0,
               f"{e['kernel']} spills or keeps a stack frame: {e}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -361,6 +392,16 @@ def kernel_cases():
                       (301, n, True, 4, True, dt, "")]
     cases.append((3, 8192, False, None, True, c64, "x"))
     cases.append((3, 4096, True, None, True, c128, "x"))
+    # the split route: every length of both dtypes, both directions, each
+    # epilogue, a line or two
+    from repro_torch.kernels import split
+    for dtype, sizes in split.FACTORS.items():
+        dt = str(dtype).removeprefix("torch.")
+        for i, n in enumerate(sorted(sizes)):
+            b = 2 if n <= 1 << 20 else 1
+            cases += [(b, n, i % 2 == 1, None, True, dt, ""),
+                      (b, n, i % 2 == 0, 4, False, dt, "")]
+    cases.append((2, 1 << 15, False, None, True, c64, "x"))
     return cases
 
 
@@ -409,11 +450,11 @@ def phase_kernel_vs_plain(device) -> dict:
             buf = got.transpose(0, 1)
             check(buf.is_contiguous(), f"case {i}: pack buffer not "
                   f"destination-major")
-        if conj or (b and kernel_path(n, dtype) == "long"):
+        if conj or (b and kernel_path(n, dtype) in ("long", "split")):
             # the plain version honours the conjugate bit; so must the
-            # kernel.  On the long path the plain version mirrors the
-            # kernel's index maps: torch.fft, with the epilogue, is the
-            # independent yardstick.
+            # kernel.  On the long and split paths the plain version
+            # mirrors the kernel's index maps: torch.fft, with the
+            # epilogue, is the independent yardstick.
             want = torch.fft.ifft(x) if inv else torch.fft.fft(x)
             want = want * twiddle if twiddle is not None else want
             if parts is not None:
@@ -714,7 +755,8 @@ def phase_poisson(device, grid=GRID, solves: int = 3, iters: int = 5):
                   f"solve {i}: launches {got}, expected 6 fourstep (2 "
                   f"forward, 4 inverse) and 2 twiddle (forward)")
             check(fft_fourstep.path_launches == {"radix": 8 * (i + 1),
-                                                 "dense": 0, "long": 0},
+                                                 "dense": 0, "long": 0,
+                                                 "split": 0},
                   f"solve {i}: paths {fft_fourstep.path_launches}, expected "
                   f"every launch on the radix path")
     launches = dict(fft_fourstep.variant_launches)
@@ -1102,7 +1144,36 @@ def path_counts() -> dict:
             "lines": fft_fourstep.layout_launches["lines"],
             "strided": fft_fourstep.layout_launches["strided"],
             **{p: fft_fourstep.path_launches[p] for p in KERNEL_PATHS},
+            "split_calls": fft_fourstep.split_calls,
             "copies": ops.copies["lines"]}
+
+
+def expected_counts(n: int, calls: int, dtype=None) -> dict:
+    """``path_counts()`` after ``calls`` transforms of contiguous lines of
+    length ``n``: one launch each on the path ``radix.kernel_path``
+    names, or on the split route one split call of two launches on
+    "split" (pass A strided, pass B on lines) and a third on lines (pass
+    C, the transpose) where the rows run on the long-line route; nothing
+    on any other path, no line copy."""
+    import torch
+    from repro_torch.kernels import radix, split
+    dtype = dtype or torch.complex64
+    path = radix.kernel_path(n, dtype)
+    want = {p: 0 for p in KERNEL_PATHS}
+    want.update(copies=0, split_calls=0)
+    if path == "split":
+        long_rows = split.split_plan(n, dtype).row_path == "long"
+        want.update(launches=(2 + long_rows) * calls,
+                    lines=(1 + long_rows) * calls, strided=calls,
+                    split=(2 + long_rows) * calls, split_calls=calls)
+    else:
+        want.update(launches=calls, lines=calls, strided=0)
+        want[path] = calls
+    return want
+
+
+def counts_match(counts: dict, want: dict) -> bool:
+    return all(counts[k] == v for k, v in want.items())
 
 
 def reset_counts() -> None:
@@ -1607,8 +1678,8 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
         if cuda:
             want = {"launches": ndim * nb, "fourstep": ndim * nb,
                     "pack": 0, "twiddle": 0, "radix": ndim * nb,
-                    "dense": 0, "long": 0, "lines": nb,
-                    "strided": (ndim - 1) * nb,
+                    "dense": 0, "long": 0, "split": 0, "split_calls": 0,
+                    "lines": nb, "strided": (ndim - 1) * nb,
                     "copies": 0}
             check(nb > 0 and got == want,
                   f"[serve] window {w}: traffic launches {got} for {nb} "
@@ -1904,20 +1975,24 @@ def phase_lm_archs(device, steps: int = 3, b: int = 2, s: int = 32) -> dict:
     return out
 
 
-def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096, 8192),
+def phase_lm_fftconv(device, b: int = 1,
+                     seqs=(2048, 4096, 8192, 16384, 32768),
                      iters: int = 10) -> dict:
     """``[lm_fftconv]``: ``ssm.fft_conv`` at jamba-v0.1-52b's width (d_model
     4096, expand 2: 8192 channels, 16 basis functions), B=1, in float32 and
     in the config's bfloat16, ``fft_backend="kernel"`` against ``"cufft"``.
     At every S the float32 mixer output must be within 1e-4 max-scaled,
-    with exactly 3 launches per call (the counts set to 0 just before the
-    call and read just after), all on the path ``radix.kernel_path`` names
-    for lines of 2S (radix at S=2048, long at S=4096 and 8192), on lines,
-    none on another path, and no line copy.  The 3 transforms alone,
-    kernel against cufft, are held to the kernel's complex64 tolerance.
+    with the counts of 3 transforms of lines of 2S per call (the counts
+    set to 0 just before the call and read just after;
+    ``expected_counts``): 3 launches on the path ``radix.kernel_path``
+    names (radix at S=2048, long at S=4096 and 8192), on lines; at
+    S=16384 and 32768 (``prefill_32k``'s S) 3 split calls of 2 launches
+    each on the split path (pass A strided, pass B on lines); none on
+    another path, and no line copy.  The 3 transforms alone, kernel
+    against cufft, are held to the kernel's complex64 tolerance.
     CUDA-event ms of the mixer on both backends, of its 3 transforms
-    alone on the kernel and on ``torch.fft``, and the 3 transforms'
-    bound."""
+    alone on the kernel and on ``torch.fft``, the 3 transforms' bound, and
+    the peak memory of one float32 kernel call at the longest S."""
     import dataclasses
 
     import torch
@@ -1944,10 +2019,16 @@ def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096, 8192),
         x32 = randc((b, s, cfg.d_model), torch.float32, device, SEED + s)
         for name, x in (("float32", x32), ("bfloat16", x32.bfloat16())):
             ref, _ = mixer(x, fft_backend="cufft")
+            if cuda:
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
             reset_counts()
             got, _ = mixer(x, fft_backend="kernel")
             if cuda:
                 torch.cuda.synchronize(device)
+                if name == "float32":
+                    run["peak_bytes"] = torch.cuda.max_memory_allocated(
+                        device)
             counts = path_counts()
             run[name] = {"err": scaled_err(got.float(), ref.float()),
                          "counts": counts}
@@ -1958,12 +2039,10 @@ def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096, 8192),
                     cufft_ms=time_ms(lambda: mixer(x, fft_backend="cufft"),
                                      iters=iters))
         if cuda:
-            c = run["float32"]["counts"]
-            check(c["launches"] == 3 and c[path] == 3 and c["lines"] == 3
-                  and c["copies"] == 0
-                  and all(c[p] == 0 for p in KERNEL_PATHS if p != path),
-                  f"[lm_fftconv] S={s}: counts {c}, expected 3 {path} "
-                  f"launches on lines and no copy")
+            c, want = run["float32"]["counts"], expected_counts(n, 3)
+            check(counts_match(c, want), f"[lm_fftconv] S={s}: counts {c}, "
+                  f"expected {want} (3 transforms of lines of {n} on the "
+                  f"{path} path, no copy)")
         check(run["float32"]["err"] < LM_F32_TOL,
               f"[lm_fftconv] S={s} float32 kernel vs cufft "
               f"{run['float32']['err']:.3e} (bound {LM_F32_TOL})")
@@ -1998,6 +2077,9 @@ def phase_lm_fftconv(device, b: int = 1, seqs=(2048, 4096, 8192),
     out.update(launches=main["float32"]["counts"]["launches"],
                scaled_err=main["transforms_err"])
     if cuda:
+        out["peak_bytes_longest"] = out["runs"][-1]["peak_bytes"]
+        print(f"[lm_fftconv] peak memory of one float32 kernel call at "
+              f"S={out['runs'][-1]['s']}: {out['peak_bytes_longest']} bytes")
         for r in out["runs"]:
             print(f"[lm_fftconv] S={r['s']} (lines of {r['n']}, {r['path']} "
                   f"path): mixer kernel vs cufft float32 "
@@ -2091,6 +2173,166 @@ def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
                   f"torch.fft {r['library_err']:.3e}")
     return out
 
+#: (dtype name, N) of ``[split]``: the ends of the route in both dtypes,
+#: the mixer's lines at S = 16384 and 32768, and a length between.
+SPLIT_LENGTHS = (("complex64", 1 << 15), ("complex64", 1 << 16),
+                 ("complex64", 1 << 20), ("complex64", 1 << 24),
+                 ("complex128", 1 << 14), ("complex128", 1 << 16),
+                 ("complex128", 1 << 22))
+
+
+def phase_split(device, lengths=SPLIT_LENGTHS,
+                lengths_bytes: int = 512 << 20, iters: int = 10) -> dict:
+    """``[split]``: the split route (two launches through HBM for lines
+    longer than one block) at each of ``lengths``, about 512 MB of lines,
+    reached through ``ops.fft1d`` and ``ops.ifft1d`` with the counts set
+    to 0 just before and read just after (``expected_counts``: 1 split
+    call of 2 launches, 3 with rows on the long-line route); each
+    direction against its plain version
+    (``split.emulate``: bitwise or within ``TOL``) and ``torch.fft``;
+    the twiddle and ``pack_parts`` epilogues against ``torch.fft`` and
+    the plain version; CUDA-event ms beside ``torch.fft.fft``'s and the
+    bound (one read and one write of the lines; two HBM passes cannot beat
+    half of it)."""
+    import torch
+    from repro_torch.kernels import ops, split
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                fft_fourstep_plain)
+    cuda = device.type == "cuda"
+    out = {"lengths": []}
+    for i, (dt, n) in enumerate(lengths):
+        dtype = getattr(torch, dt)
+        b = max(1, lengths_bytes // (n * dtype.itemsize))
+        plan = split.split_plan(n, dtype)
+        x = randc((b, n), dtype, device, SEED + 40 + i)
+        rec = {"shape": [b, n], "dtype": dt, "path": "split",
+               "factors": [plan.p, plan.q], "row_path": plan.row_path}
+        for inverse in (False, True):
+            key = "inverse" if inverse else "forward"
+            reset_counts()
+            got = (ops.ifft1d if inverse else ops.fft1d)(x)
+            if cuda:
+                torch.cuda.synchronize(device)
+            counts = path_counts()
+            want = expected_counts(n, 1, dtype)
+            if cuda:
+                check(counts_match(counts, want), f"[split] {key} "
+                      f"({b}, {n}) {dt}: counts {counts}, expected {want}")
+            ref = fft_fourstep_plain(x, inverse=inverse)
+            lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+            rec[key] = {"counts": counts, "bitwise": bool(torch.equal(got,
+                                                                      ref)),
+                        "max_abs_err": float((got - ref).abs().max()),
+                        "scaled_err": scaled_err(got, ref),
+                        "library_err": scaled_err(got, lib)}
+            del got, ref, lib
+            r = rec[key]
+            check(r["scaled_err"] <= TOL[dt] and r["library_err"] <= TOL[dt],
+                  f"[split] {key} ({b}, {n}) {dt}: kernel vs plain "
+                  f"{r['scaled_err']:.3e}, vs torch.fft "
+                  f"{r['library_err']:.3e} (bound {TOL[dt]})")
+        # the epilogues, on the last store of pass B
+        k = torch.arange(n, dtype=torch.float64, device=device)
+        tw = torch.exp(-1j * math.pi * k / (2 * n)).to(dtype)
+        lib = torch.fft.fft(x)
+        got = ops.fft1d(x, twiddle=tw)
+        ref = fft_fourstep_plain(x, twiddle=tw)
+        rec["twiddle"] = {"scaled_err": scaled_err(got, ref),
+                          "library_err": scaled_err(got, lib * tw)}
+        del got, ref
+        # the send buffer itself, (4, B, N/4)
+        got = ops.packed_fft1d(x, 1, 4, inverse=True)
+        ref = fft_fourstep_plain(x, inverse=True, pack_parts=4)
+        want = torch.fft.ifft(x).reshape(b, 4, n // 4)
+        rec["pack"] = {"scaled_err": scaled_err(got, ref.transpose(0, 1)),
+                       "library_err": scaled_err(got, want.transpose(0, 1)),
+                       "destination_major": bool(got.is_contiguous())}
+        del got, ref, want, lib
+        for ep in ("twiddle", "pack"):
+            check(rec[ep]["scaled_err"] <= TOL[dt]
+                  and rec[ep]["library_err"] <= TOL[dt],
+                  f"[split] {ep} ({b}, {n}) {dt}: {rec[ep]}")
+        check(rec["pack"]["destination_major"],
+              f"[split] ({b}, {n}) {dt}: pack buffer not destination-major")
+        rec["bound_ms"], rec["bound_by"] = fft_bound_ms(b, n,
+                                                        dtype.itemsize)
+        if cuda:
+            rec["ms"] = time_ms(lambda: fft_fourstep(x), iters)
+            rec["library_ms"] = time_ms(lambda: torch.fft.fft(x), iters)
+            rec["plain_ms"] = time_ms(lambda: fft_fourstep_plain(x), 3, 1)
+        out["lengths"].append(rec)
+        del x
+        if cuda:
+            torch.cuda.empty_cache()
+    if cuda:
+        for r in out["lengths"]:
+            print(f"[split] {tuple(r['shape'])} {r['dtype']} as "
+                  f"{r['factors'][0]}x{r['factors'][1]} (rows on "
+                  f"{r['row_path']}): {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, torch.fft {r['library_ms']:.4f}, "
+                  f"bound {r['bound_ms']:.4f} {r['bound_by']}); launches "
+                  f"{r['forward']['counts']}; vs plain fwd "
+                  f"{r['forward']['scaled_err']:.3e} (bitwise "
+                  f"{r['forward']['bitwise']}) inv "
+                  f"{r['inverse']['scaled_err']:.3e} (bitwise "
+                  f"{r['inverse']['bitwise']}); vs torch.fft fwd "
+                  f"{r['forward']['library_err']:.3e} inv "
+                  f"{r['inverse']['library_err']:.3e}, twiddle "
+                  f"{r['twiddle']['library_err']:.3e}, pack "
+                  f"{r['pack']['library_err']:.3e}")
+    return out
+
+
+def phase_split_plan(device, grid=(64, 64, 32768), iters: int = 5) -> dict:
+    """A ``plan_fft`` C2C plan on one card (a (1, 1) mesh) with an axis of
+    32768, complex64 (1 GiB), on ``backend="kernel"``: forward against
+    ``torch.fft.fftn`` within ``PATH_TOL`` and the round trip within
+    ``ROUNDTRIP_TOL``, with the launches per path and the line copies of
+    each direction recorded; the long axis runs on the split route (at
+    least one split call, no dense launch); CUDA-event ms beside
+    ``fftn``'s."""
+    import torch
+    from repro_torch import make_mesh, plan_fft
+    cuda = device.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if cuda else device)
+    plan = plan_fft(mesh, grid, backend="kernel")
+    x = randc(grid, torch.complex64, device, SEED + 60)
+    reset_counts()
+    y = plan.forward(x)
+    if cuda:
+        torch.cuda.synchronize(device)
+    fwd = path_counts()
+    reset_counts()
+    xr = plan.inverse(y, sharded_in=True)
+    if cuda:
+        torch.cuda.synchronize(device)
+    inv = path_counts()
+    ref = torch.fft.fftn(x)
+    out = {"grid": list(grid), "forward_counts": fwd, "inverse_counts": inv,
+           "err_fwd": scaled_err(y, ref), "err_roundtrip": scaled_err(xr, x)}
+    del ref, xr
+    check(out["err_fwd"] <= PATH_TOL and out["err_roundtrip"]
+          <= ROUNDTRIP_TOL, f"[split_plan] forward vs fftn "
+          f"{out['err_fwd']:.3e} (bound {PATH_TOL}), round trip "
+          f"{out['err_roundtrip']:.3e} (bound {ROUNDTRIP_TOL})")
+    if cuda:
+        for key, c in (("forward", fwd), ("inverse", inv)):
+            check(c["split_calls"] >= 1 and c["dense"] == 0,
+                  f"[split_plan] {key}: counts {c}, expected the axis of "
+                  f"{grid[-1]} on the split route and no dense launch")
+        out["kernel_fwd_ms"] = time_ms(lambda: plan.forward(x), iters)
+        out["kernel_inv_ms"] = time_ms(
+            lambda: plan.inverse(y, sharded_in=True), iters)
+        out["fftn_ms"] = time_ms(lambda: torch.fft.fftn(x), iters)
+        print(f"[split_plan] grid {grid} complex64 on the kernel: forward vs "
+              f"fftn {out['err_fwd']:.3e}, round trip "
+              f"{out['err_roundtrip']:.3e}; launches forward {fwd}, inverse "
+              f"{inv}; ms forward {out['kernel_fwd_ms']:.4f}, inverse "
+              f"{out['kernel_inv_ms']:.4f}, fftn {out['fftn_ms']:.4f}")
+    del x, y
+    return out
+
 # ---------------------------------------------------------------------------
 # The LM substrate's training path (PR 18)
 # ---------------------------------------------------------------------------
@@ -2113,7 +2355,8 @@ def phase_train_fftconv(device, b: int = 1, s: int = 2048,
     forward and backward (3 + the 3 adjoints, the counts set to 0 just
     before and read just after), all on the path ``radix.kernel_path``
     names for lines of 2S (radix at S=2048, long at S=4096), and no line
-    copy; CUDA-event ms of forward and backward on both backends beside
+    copy (``expected_counts``: at S=16384 6 split calls of 2 launches
+    each); CUDA-event ms of forward and backward on both backends beside
     the bound of its 6 transforms (bytes over HBM bandwidth, as
     ``[lm_fftconv]`` reckons its 3)."""
     import dataclasses
@@ -2159,10 +2402,10 @@ def phase_train_fftconv(device, b: int = 1, s: int = 2048,
     check(all(bool(v.abs().max() > 0) for v in got.values()),
           "[train_fftconv] a gradient is all zeros")
     if cuda:
-        check(counts["launches"] == 6 and counts[path] == 6
-              and counts["lines"] == 6 and counts["copies"] == 0,
-              f"[train_fftconv] S={s}: counts {counts}, expected 6 {path} "
-              f"launches on lines and no copy")
+        want = expected_counts(n, 6)
+        check(counts_match(counts, want), f"[train_fftconv] S={s}: counts "
+              f"{counts}, expected {want} (6 transforms of lines of {n} on "
+              f"the {path} path, no copy)")
     t_lines, by = fft_bound_ms(b * di, n, 8)
     t_h, _ = fft_bound_ms(di, n, 8)
     out.update(bound_ms=4 * t_lines + 2 * t_h, bound_by=by)
@@ -2554,12 +2797,19 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["long"] = long_ = phase_long(device)
     torch.cuda.empty_cache()
+    report["split"] = split_ = phase_split(device)
+    torch.cuda.empty_cache()
+    report["split_plan"] = phase_split_plan(device)
+    torch.cuda.empty_cache()
     report["lm_fftconv"] = fftconv = phase_lm_fftconv(device)
     torch.cuda.empty_cache()
     report["train_fftconv"] = train_fftconv = phase_train_fftconv(device)
     torch.cuda.empty_cache()
     report["train_fftconv_4096"] = train_long = phase_train_fftconv(
         device, s=4096)
+    torch.cuda.empty_cache()
+    report["train_fftconv_16384"] = train_split = phase_train_fftconv(
+        device, s=16384, iters=3)
     torch.cuda.empty_cache()
     report["train"] = phase_train(device, timer=timer)
     torch.cuda.empty_cache()
@@ -2644,6 +2894,24 @@ def main(timer=time.perf_counter) -> int:
          "bound_ms": long_["dense"]["bound_ms"],
          "bound_by": long_["dense"]["bound_by"],
          "library_ms": long_["dense"]["library_ms"]},
+        # launches: the mixer at S=16384, its main path (3 split calls of
+        # 2 launches); timed at [split]'s (16384, 32768) complex64
+        {"name": "fft_fourstep_split", "route": "cuda",
+         "source": RADIX_SOURCE, "path": "split",
+         "sources": [RADIX_SOURCE, LONG_SOURCE, SPLIT_SOURCE],
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": mixer_runs[16384]["float32"]["counts"]["split"],
+         "max_abs_err": split_["lengths"][0]["forward"]["max_abs_err"],
+         "scaled_err": split_["lengths"][0]["forward"]["scaled_err"],
+         "ms": split_["lengths"][0]["ms"],
+         "plain_ms": split_["lengths"][0]["plain_ms"],
+         "bound_ms": split_["lengths"][0]["bound_ms"],
+         "bound_by": split_["lengths"][0]["bound_by"],
+         "library_ms": split_["lengths"][0]["library_ms"],
+         "launches_by_path": {
+             "lm_fftconv_16384": mixer_runs[16384]["float32"]["counts"],
+             "lm_fftconv_32768": mixer_runs[32768]["float32"]["counts"],
+             "train_fftconv_16384": train_split["counts"]}},
     ]
     report["kernels"] = kernels
     report["seconds"] = timer() - t0

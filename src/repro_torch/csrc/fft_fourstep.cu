@@ -1,12 +1,17 @@
 // Batched 1-D FFT of complex lines by the four-step method, for Hopper.
 //
-// Three routes, chosen by the wrapper from N and the dtype alone
+// Four routes, chosen by the wrapper from N and the dtype alone
 // (kernels/radix.py::kernel_path): power-of-two N up to 4096 (complex64)
 // or 1024 (complex128) takes the radix route (fft_radix.cuh: two passes of
 // in-register codelets, contiguous or strided lines); the longer
 // power-of-two N whose line fits in one block's shared memory take the
 // long-line route (fft_long.cuh: three passes over a line loaded by TMA);
-// any other N takes the general dense kernel below.
+// the power-of-two N beyond one block (complex64 to 2^24, complex128 to
+// 2^22) take the split route (kernels/split.py: N = P*Q, pass A a strided
+// radix launch on the P-long columns with the inter-step twiddle, pass B
+// a radix launch on the Q-long rows stored transposed, or a long-line
+// launch on them stored in place and a transpose); any other N takes the
+// general dense kernel below.
 //
 // Replaces the TPU kernel src/repro/kernels/fft_matmul.py::_fft_kernel (the
 // pl.pallas_call in fft1d_planes), with its two fused epilogues: the
@@ -210,18 +215,18 @@ int repro_fft_radix_c64(const void* x, void* out, const void* consts,
                         const void* tw, long long outer, long long inner,
                         int n, int inverse, int seg_log2, int lines_log2,
                         int strided, int smem_bytes, void* stream) {
-  return repro_fft::radix_dispatch<float>(
+  return repro_fft::radix_dispatch<float, repro_fft::kRadixPlain>(
       n, x, out, consts, tw, outer, inner, inverse, seg_log2, lines_log2,
-      strided, smem_bytes, static_cast<cudaStream_t>(stream));
+      strided, 0, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 int repro_fft_radix_c128(const void* x, void* out, const void* consts,
                          const void* tw, long long outer, long long inner,
                          int n, int inverse, int seg_log2, int lines_log2,
                          int strided, int smem_bytes, void* stream) {
-  return repro_fft::radix_dispatch<double>(
+  return repro_fft::radix_dispatch<double, repro_fft::kRadixPlain>(
       n, x, out, consts, tw, outer, inner, inverse, seg_log2, lines_log2,
-      strided, smem_bytes, static_cast<cudaStream_t>(stream));
+      strided, 0, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // The long-line route (fft_long.cuh) for the power-of-two N that
@@ -244,6 +249,74 @@ int repro_fft_long_c128(const void* x, void* out, const void* consts,
                         int seg_log2, int smem_bytes, void* stream) {
   return repro_fft::long_dispatch<double>(
       n, x, out, consts, tw, batch, inverse, seg_log2, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The split route (kernels/split.py), a line of N = P*Q as (P, Q).
+// Pass A: `x` and `y` are contiguous (B, P, Q) blocks; the P-long DFT of
+// every column, times the inter-step twiddle from `tables` (TA, P x QL,
+// then TB, P x QH; ql_log2 = log2(QL)); `consts` are the radix constants
+// of P.  lines_log2 and `smem_bytes`: radix.radix_tile(P, strided)
+// without a twiddle.
+int repro_fft_split_a_c64(const void* x, void* y, const void* consts,
+                          const void* tables, long long batch, int p, int q,
+                          int inverse, int lines_log2, int ql_log2,
+                          int smem_bytes, void* stream) {
+  return repro_fft::radix_dispatch<float, repro_fft::kRadixSplitA>(
+      p, x, y, consts, tables, batch, q, inverse, 0, lines_log2, 1, ql_log2,
+      smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_split_a_c128(const void* x, void* y, const void* consts,
+                           const void* tables, long long batch, int p, int q,
+                           int inverse, int lines_log2, int ql_log2,
+                           int smem_bytes, void* stream) {
+  return repro_fft::radix_dispatch<double, repro_fft::kRadixSplitA>(
+      p, x, y, consts, tables, batch, q, inverse, 0, lines_log2, 1, ql_log2,
+      smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// Pass B on the radix route: `y` holds rows = B*P contiguous rows of Q,
+// `out` (parts, B, P*Q/parts) with seg_log2 = log2(P*Q/parts), `tw` the
+// line's output twiddle (P*Q values) or null, p_log2 = log2(P);
+// lines_log2 and `smem_bytes` from radix.radix_tile(Q, lines) without a
+// twiddle.
+int repro_fft_split_b_radix_c64(const void* y, void* out, const void* consts,
+                                const void* tw, long long rows, int q,
+                                int inverse, int seg_log2, int lines_log2,
+                                int p_log2, int smem_bytes, void* stream) {
+  return repro_fft::radix_dispatch<float, repro_fft::kRadixSplitB>(
+      q, y, out, consts, tw, rows, 1, inverse, seg_log2, lines_log2, 0,
+      p_log2, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_split_b_radix_c128(const void* y, void* out, const void* consts,
+                                 const void* tw, long long rows, int q,
+                                 int inverse, int seg_log2, int lines_log2,
+                                 int p_log2, int smem_bytes, void* stream) {
+  return repro_fft::radix_dispatch<double, repro_fft::kRadixSplitB>(
+      q, y, out, consts, tw, rows, 1, inverse, seg_log2, lines_log2, 0,
+      p_log2, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// Pass C, after pass B on the long-line route (repro_fft_long_* with
+// inverse = 0 and no twiddle stores the rows in place): `z` holds B lines
+// of (P, Q) rows, `out` (parts, B, P*Q/parts) with seg_log2 =
+// log2(P*Q/parts), `tw` the line's output twiddle (P*Q values) or null;
+// `inverse` scales by 1/(P*Q).
+int repro_fft_split_c_c64(const void* z, void* out, const void* tw,
+                          long long lines, int p_log2, int q_log2,
+                          int seg_log2, int inverse, void* stream) {
+  return repro_fft::split_transpose<float>(
+      z, out, tw, lines, p_log2, q_log2, seg_log2, inverse,
+      static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_split_c_c128(const void* z, void* out, const void* tw,
+                           long long lines, int p_log2, int q_log2,
+                           int seg_log2, int inverse, void* stream) {
+  return repro_fft::split_transpose<double>(
+      z, out, tw, lines, p_log2, q_log2, seg_log2, inverse,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -37,6 +37,16 @@
 //    Threads of a warp read consecutive entries of TA and TC and one of TB.
 // kernels/longline.py holds the same plan and index maps in Python
 // (longline.emulate is the kernel's plain version).
+//
+// The split route (kernels/split.py) runs its rows of Q = 8192 or 16384
+// (complex64), 2048 to 8192 (complex128) through this kernel as they are
+// (pass B: stored in place, no epilogue, no scale), then split_transpose
+// below (pass C) moves each line's (P, Q) rows to its output order with
+// the line's epilogues.  A block holds one row here, so its stores cannot
+// be staged for a warp to write consecutive kp as the radix route's pass
+// B does: stored straight to kp + P*kq, 8 bytes P elements apart, they
+// made a split of 2^24 complex64 take 3.8 ms, the rows in place and the
+// transpose 1.5 (PERF.md).
 #pragma once
 
 #include <cstdint>
@@ -361,6 +371,63 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
   }
 #undef REPRO_LONG_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// The split route's pass C: z holds B lines of (P, Q) rows z[b, kp, kq]
+// (pass B's output, in place); out[b, kp + P*kq] = z[b, kp, kq], times the
+// output twiddle tw[kp + P*kq] (P*Q values, or null), times 1/(P*Q) when
+// `inverse`, stored as (parts, B, P*Q/parts) with seg_log2 =
+// log2(P*Q/parts).  A block moves one 32 x 32 tile through shared memory
+// (row pitch 33): it reads 32 consecutive kq of a row and writes 32
+// consecutive kp of the output.  Grid: (Q/32, P/32, up to 65535 lines).
+constexpr int kTransposeTile = 32;
+constexpr int kTransposeRows = 8;
+
+template <typename R>
+__global__ void __launch_bounds__(kTransposeTile * kTransposeRows)
+split_transpose_kernel(const cpx<R>* __restrict__ z,
+                       cpx<R>* __restrict__ out,
+                       const cpx<R>* __restrict__ gtw, long long lines,
+                       int p_log2, int q_log2, int seg_log2, int inverse) {
+  constexpr int T = kTransposeTile;
+  __shared__ cpx<R> tile[T][T + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int kq0 = blockIdx.x * T, kp0 = blockIdx.y * T;
+  const R scale = inverse ? pow2_neg<R>(p_log2 + q_log2) : R(1);
+  // segment part of line b lies at base + of + part * skip
+  const long long skip = (lines - 1) << seg_log2;
+  for (long long b = blockIdx.z; b < lines; b += gridDim.z) {
+    const cpx<R>* zb = z + (b << (p_log2 + q_log2));
+    for (int j = ty; j < T; j += kTransposeRows)
+      tile[j][tx] = zb[((long long)(kp0 + j) << q_log2) + kq0 + tx];
+    __syncthreads();
+    const long long base = b << seg_log2;
+    for (int j = ty; j < T; j += kTransposeRows) {
+      const int of = kp0 + tx + ((kq0 + j) << p_log2);
+      cpx<R> y = tile[tx][j];
+      if (gtw != nullptr) y = cmul(y, gtw[of]);
+      y.re *= scale;
+      y.im *= scale;
+      out[base + of + (long long)(of >> seg_log2) * skip] = y;
+    }
+    __syncthreads();  // the next line's loads overwrite the tile
+  }
+}
+
+template <typename R>
+int split_transpose(const void* z, void* out, const void* tw,
+                    long long lines, int p_log2, int q_log2, int seg_log2,
+                    int inverse, cudaStream_t stream) {
+  if (lines <= 0) return 0;
+  if (p_log2 < 5 || q_log2 < 5) return (int)cudaErrorInvalidValue;
+  const dim3 grid(1u << (q_log2 - 5), 1u << (p_log2 - 5),
+                  (unsigned)(lines < 65535 ? lines : 65535));
+  const dim3 block(kTransposeTile, kTransposeRows);
+  split_transpose_kernel<R><<<grid, block, 0, stream>>>(
+      static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
+      static_cast<const cpx<R>*>(tw), lines, p_log2, q_log2, seg_log2,
+      inverse);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace repro_fft

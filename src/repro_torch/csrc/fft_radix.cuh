@@ -40,8 +40,25 @@
 // A tile is one outer index, all N and `lines` consecutive inner indices;
 // the last group of inner indices is masked.
 //
+// The split route (kernels/split.py) runs two more modes of this kernel,
+// each its own instantiation (MODE), for lines longer than one block
+// holds, N = P*Q:
+//  * kRadixSplitA, pass A: the strided layout on the (B, P, Q) block,
+//    whose store multiplies by the inter-step twiddle W_N^(kp*q) =
+//    TA[kp, q % QL] * TB[kp, q / QL], two tables of P*QL and P*QH entries
+//    read through L2 (not the (N,) output twiddle staged in shared
+//    memory), and never scales;
+//  * kRadixSplitB, pass B: contiguous rows (b, kp) of Q in, the tile laid
+//    out (k1, l, m2) with a row pitch of N2 + 1, and the row pass's
+//    threads along l, so that a warp stores consecutive kp of the
+//    transposed output out[b, kp + P*kq]; the line's own epilogues on
+//    that store: the output twiddle of P*Q entries (read through L2), the
+//    inverse's 1/(P*Q) (an exact power of two) and the pack_parts
+//    segment, each by the line's output index.
+//
 // kernels/radix.py holds the same plan, tiles and index maps in Python
-// (radix.emulate runs them), and the CPU tests hold them against np.fft.
+// (radix.emulate runs them, all three modes), and the CPU tests hold them
+// against np.fft.
 #pragma once
 
 #include <climits>
@@ -51,6 +68,12 @@
 namespace repro_fft {
 
 constexpr int kRadixThreads = 256;
+
+// What a radix kernel instantiation runs: the plain transform (lines or
+// strided, chosen at run time) or one of the split route's passes.
+constexpr int kRadixPlain = 0;
+constexpr int kRadixSplitA = 1;
+constexpr int kRadixSplitB = 2;
 
 __host__ __device__ constexpr int ilog2(int n) {
   return n <= 1 ? 0 : 1 + ilog2(n / 2);
@@ -106,30 +129,54 @@ __device__ __forceinline__ void fft_stages(cpx<R> (&v)[L],
   }
 }
 
+// 2^-e as an R, exactly (0 <= e < 127): the split's 1/(P*Q) without a
+// run-time division.
+template <typename R>
+__device__ __forceinline__ R pow2_neg(int e) {
+  if constexpr (sizeof(R) == sizeof(float)) {
+    return __int_as_float((127 - e) << 23);
+  } else {
+    return __longlong_as_double((long long)(1023 - e) << 52);
+  }
+}
+
 // Shared memory, in this order: T (N), the codelet table (N2/2), the
-// output twiddle (N, when tw is given) and the tile; the wrapper sizes it
-// (kernels/radix.py::radix_tile).  `out` is (parts, outer, N/parts) for
-// contiguous lines with seg_log2 = log2(N/parts), or (outer, N, inner)
-// when `strided`.
-template <typename R, int N1, int N2>
+// output twiddle (N, when tw is given, kRadixPlain only) and the tile;
+// the wrapper sizes it (kernels/radix.py::radix_tile).  `out` is (parts,
+// outer, N/parts) for contiguous lines with seg_log2 = log2(N/parts), or
+// (outer, N, inner) when `strided`.  The split passes: kRadixSplitA takes
+// the (B, P, Q) block as (outer, N, inner) with `gtw` the TA|TB tables
+// and aux_log2 = log2(QL); kRadixSplitB takes outer = B*P rows of N = Q
+// with `gtw` the line's output twiddle (P*Q entries, or null), aux_log2 =
+// log2(P), and `out` (parts, B, P*Q/parts) with seg_log2 = log2(P*Q/parts).
+template <typename R, int N1, int N2, int MODE>
 __global__ void __launch_bounds__(kRadixThreads)
 radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
              const cpx<R>* __restrict__ consts,
              const cpx<R>* __restrict__ gtw, long long outer,
              long long inner, int inverse, int seg_log2, int lines_log2,
-             int strided) {
+             int strided_arg, int aux_log2) {
   constexpr int N = N1 * N2;
   constexpr int NW = N2 / 2;
   constexpr int B1 = ilog2(N1);
   constexpr int B2 = ilog2(N2);
+  constexpr bool kSplitA = MODE == kRadixSplitA;
+  constexpr bool kSplitB = MODE == kRadixSplitB;
+  constexpr bool kStageTw = MODE == kRadixPlain;
+  // The flags stay ints and the scale below one const expression, as the
+  // plain kernel had them: with a bool flag and a scale assigned under an
+  // `if`, ptxas spilled 8 bytes in the plain complex128 2x4 instantiation.
+  const int strided = kSplitA ? 1 : (kSplitB ? 0 : strided_arg);
+  // pass B's row pass runs its threads along the line, as strided does
+  const int line_fast = kSplitB ? 1 : strided;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cpx<R>* const st = reinterpret_cast<cpx<R>*>(smem_raw);
   cpx<R>* const sw = st + N;
   cpx<R>* const stw = sw + NW;
-  cpx<R>* const tile = stw + (gtw != nullptr ? N : 0);
+  cpx<R>* const tile = stw + (kStageTw && gtw != nullptr ? N : 0);
 
   for (int i = threadIdx.x; i < N + NW; i += kRadixThreads) st[i] = consts[i];
-  if (gtw != nullptr)
+  if (kStageTw && gtw != nullptr)
     for (int i = threadIdx.x; i < N; i += kRadixThreads) stw[i] = gtw[i];
   __syncthreads();
 
@@ -144,14 +191,20 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
                              : (int)((outer + L - 1) >> lines_log2);
   // Tile strides, in elements, of (line, k1, m2) and between the elements
   // of one line in global memory.
-  const int sl = strided ? 1 : N1 * (N2 + 1);
-  const int sr = strided ? N2 * L : N2 + 1;
+  // pass B's tile is (k1, l, m2), pitch N2 + 1: the column pass's stores
+  // (along m2) and the row pass's reads (along l, then k1) both hit
+  // distinct banks.
+  const int sl = strided ? 1 : (kSplitB ? N2 + 1 : N1 * (N2 + 1));
+  const int sr = strided ? N2 * L : (kSplitB ? L * (N2 + 1) : N2 + 1);
   const int sc = strided ? L : 1;
   const long long js = strided ? inner : 1;
   // 1/N folded at compile time: a run-time double division would call a
-  // subroutine that needs a stack frame.
+  // subroutine that needs a stack frame.  Pass A never scales; pass B
+  // scales by the whole line's 1/(P*Q), once.
   constexpr R kInvN = R(1) / R(N);
-  const R scale = inverse ? kInvN : R(1);
+  const R scale =
+      kSplitB ? (inverse ? pow2_neg<R>(B1 + B2 + aux_log2) : R(1))
+              : (kSplitA ? R(1) : (inverse ? kInvN : R(1)));
   const int seg = 1 << seg_log2;
 
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
@@ -194,7 +247,7 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
     // Row pass: item r -> (l, k1); output index o = k1 + N1*k2.
     for (int r = threadIdx.x; r < (N1 << lines_log2); r += kRadixThreads) {
       int l, k1;
-      if (strided) {
+      if (line_fast) {
         l = r & (L - 1);
         k1 = r >> lines_log2;
       } else {
@@ -212,45 +265,79 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
       };
       static_for<0, N2>(load);
       fft_stages<N2, N2, 2, R>(v, sw);
-      auto store = [&](auto i) {
-        constexpr int k2 = decltype(i)::value;
-        const int o = k1 + N1 * k2;
-        cpx<R> y = v[k2];
-        if (gtw != nullptr) y = cmul(y, stw[o]);
-        y.re *= scale;
-        y.im *= scale;
-        long long addr;
-        if (strided) {
-          addr = block_base + line + (long long)o * inner;
-        } else {
-          addr = (((long long)(o >> seg_log2) * outer + line) << seg_log2) +
-                 (o & (seg - 1));
-        }
-        out[addr] = y;
-      };
-      static_for<0, N2>(store);
+      if constexpr (kSplitA) {
+        // W_N^(o*q) for column q = line: TA[o, q % QL] * TB[o, q / QL]
+        const int q = (int)line;
+        const int ql = 1 << aux_log2;
+        const int qh = (int)(inner >> aux_log2);
+        const cpx<R>* const ta = gtw + (q & (ql - 1));
+        const cpx<R>* const tb = gtw + N * ql + (q >> aux_log2);
+        auto store = [&](auto i) {
+          constexpr int k2 = decltype(i)::value;
+          const int o = k1 + N1 * k2;
+          out[block_base + line + (long long)o * inner] =
+              cmul(v[k2], cmul(ta[o * ql], tb[o * qh]));
+        };
+        static_for<0, N2>(store);
+      } else if constexpr (kSplitB) {
+        // row (b, kp) of a line of P*Q: its output kq lands at the line's
+        // index kp + P*kq
+        const int kp = (int)(line & ((1 << aux_log2) - 1));
+        const long long base = (line >> aux_log2) << seg_log2;
+        const long long plane = (outer >> aux_log2) << seg_log2;
+        auto store = [&](auto i) {
+          constexpr int k2 = decltype(i)::value;
+          const int of = kp + ((k1 + N1 * k2) << aux_log2);
+          cpx<R> y = v[k2];
+          if (gtw != nullptr) y = cmul(y, gtw[of]);
+          y.re *= scale;
+          y.im *= scale;
+          out[base + (long long)(of >> seg_log2) * plane + (of & (seg - 1))] =
+              y;
+        };
+        static_for<0, N2>(store);
+      } else {
+        auto store = [&](auto i) {
+          constexpr int k2 = decltype(i)::value;
+          const int o = k1 + N1 * k2;
+          cpx<R> y = v[k2];
+          if (gtw != nullptr) y = cmul(y, stw[o]);
+          y.re *= scale;
+          y.im *= scale;
+          long long addr;
+          if (strided) {
+            addr = block_base + line + (long long)o * inner;
+          } else {
+            addr = (((long long)(o >> seg_log2) * outer + line) << seg_log2) +
+                   (o & (seg - 1));
+          }
+          out[addr] = y;
+        };
+        static_for<0, N2>(store);
+      }
     }
     __syncthreads();  // the next tile's column pass overwrites the tile
   }
 }
 
-template <typename R, int N1, int N2>
+template <typename R, int N1, int N2, int MODE>
 int radix_launch(const void* x, void* out, const void* consts,
                  const void* tw, long long outer, long long inner,
                  int inverse, int seg_log2, int lines_log2, int strided,
-                 int smem_bytes, cudaStream_t stream) {
+                 int aux_log2, int smem_bytes, cudaStream_t stream) {
   const long long lines = 1LL << lines_log2;
   const long long ntiles = strided ? outer * ((inner + lines - 1) / lines)
                                    : (outer + lines - 1) / lines;
   if (ntiles <= 0) return 0;
   if (ntiles > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      radix_kernel<R, N1, N2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      radix_kernel<R, N1, N2, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, radix_kernel<R, N1, N2>, kRadixThreads, (size_t)smem_bytes);
+      &per_sm, radix_kernel<R, N1, N2, MODE>, kRadixThreads,
+      (size_t)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
@@ -259,49 +346,94 @@ int radix_launch(const void* x, void* out, const void* consts,
   if (err != cudaSuccess) return (int)err;
   long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   if (grid > ntiles) grid = ntiles;
-  radix_kernel<R, N1, N2><<<(unsigned)grid, kRadixThreads,
-                            (size_t)smem_bytes, stream>>>(
+  radix_kernel<R, N1, N2, MODE><<<(unsigned)grid, kRadixThreads,
+                                  (size_t)smem_bytes, stream>>>(
       static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
       static_cast<const cpx<R>*>(consts), static_cast<const cpx<R>*>(tw),
-      outer, inner, inverse, seg_log2, lines_log2, strided);
+      outer, inner, inverse, seg_log2, lines_log2, strided, aux_log2);
   return (int)cudaGetLastError();
 }
 
 // N = N1*N2 as transforms.factorize splits a power of two: N1 =
 // 2^floor(k/2), N2 = 2^ceil(k/2).  Returns cudaErrorInvalidValue for an N
-// without an instantiation (kernels/radix.py::RADIX_SIZES lists them).
-template <typename R>
+// without an instantiation of MODE: kernels/radix.py::RADIX_SIZES lists
+// the plain ones, kernels/split.py::COLUMN_SIZES (pass A) and ROW_SIZES
+// (pass B) the split route's.
+template <typename R, int MODE>
 int radix_dispatch(int n, const void* x, void* out, const void* consts,
                    const void* tw, long long outer, long long inner,
                    int inverse, int seg_log2, int lines_log2, int strided,
-                   int smem_bytes, cudaStream_t stream) {
+                   int aux_log2, int smem_bytes, cudaStream_t stream) {
 #define REPRO_RADIX_CASE(NN, A, B)                                          \
   case NN:                                                                  \
-    return radix_launch<R, A, B>(x, out, consts, tw, outer, inner, inverse, \
-                                 seg_log2, lines_log2, strided, smem_bytes, \
-                                 stream);
-  switch (n) {
-    REPRO_RADIX_CASE(4, 2, 2)
-    REPRO_RADIX_CASE(8, 2, 4)
-    REPRO_RADIX_CASE(16, 4, 4)
-    REPRO_RADIX_CASE(32, 4, 8)
-    REPRO_RADIX_CASE(64, 8, 8)
-    REPRO_RADIX_CASE(128, 8, 16)
-    REPRO_RADIX_CASE(256, 16, 16)
-    REPRO_RADIX_CASE(512, 16, 32)
-    REPRO_RADIX_CASE(1024, 32, 32)
-    default:
-      break;
-  }
-  if constexpr (sizeof(R) == sizeof(float)) {
-    // complex64 only: a codelet of 64 complex128 values would need 256
-    // registers, and ptxas spills the complex128 kernel of N = 2.
+    return radix_launch<R, A, B, MODE>(x, out, consts, tw, outer, inner,    \
+                                       inverse, seg_log2, lines_log2,       \
+                                       strided, aux_log2, smem_bytes,       \
+                                       stream);
+  constexpr bool c64 = sizeof(R) == sizeof(float);
+  if constexpr (MODE == kRadixPlain) {
     switch (n) {
-      REPRO_RADIX_CASE(2, 1, 2)
-      REPRO_RADIX_CASE(2048, 32, 64)
-      REPRO_RADIX_CASE(4096, 64, 64)
+      REPRO_RADIX_CASE(4, 2, 2)
+      REPRO_RADIX_CASE(8, 2, 4)
+      REPRO_RADIX_CASE(16, 4, 4)
+      REPRO_RADIX_CASE(32, 4, 8)
+      REPRO_RADIX_CASE(64, 8, 8)
+      REPRO_RADIX_CASE(128, 8, 16)
+      REPRO_RADIX_CASE(256, 16, 16)
+      REPRO_RADIX_CASE(512, 16, 32)
+      REPRO_RADIX_CASE(1024, 32, 32)
       default:
         break;
+    }
+    if constexpr (c64) {
+      // complex64 only: a codelet of 64 complex128 values would need 256
+      // registers, and ptxas spills the complex128 kernel of N = 2.
+      switch (n) {
+        REPRO_RADIX_CASE(2, 1, 2)
+        REPRO_RADIX_CASE(2048, 32, 64)
+        REPRO_RADIX_CASE(4096, 64, 64)
+        default:
+          break;
+      }
+    }
+  } else if constexpr (MODE == kRadixSplitA) {
+    // Pass A: the P of kernels/split.py::FACTORS.
+    switch (n) {
+      REPRO_RADIX_CASE(256, 16, 16)
+      REPRO_RADIX_CASE(512, 16, 32)
+      default:
+        break;
+    }
+    if constexpr (c64) {
+      switch (n) {
+        REPRO_RADIX_CASE(1024, 32, 32)
+        default:
+          break;
+      }
+    } else {
+      switch (n) {
+        REPRO_RADIX_CASE(64, 8, 8)
+        REPRO_RADIX_CASE(128, 8, 16)
+        default:
+          break;
+      }
+    }
+  } else {
+    // Pass B: the Q of kernels/split.py::FACTORS on the radix route.
+    switch (n) {
+      REPRO_RADIX_CASE(256, 16, 16)
+      REPRO_RADIX_CASE(512, 16, 32)
+      REPRO_RADIX_CASE(1024, 32, 32)
+      default:
+        break;
+    }
+    if constexpr (c64) {
+      switch (n) {
+        REPRO_RADIX_CASE(128, 8, 16)
+        REPRO_RADIX_CASE(2048, 32, 64)
+        default:
+          break;
+      }
     }
   }
 #undef REPRO_RADIX_CASE

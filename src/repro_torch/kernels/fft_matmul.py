@@ -31,7 +31,7 @@ The kernel reads raw memory, so a lazily conjugated or negated view
 taken (:func:`_resolved`); the plain version reads ``.real``/``.imag``,
 which honour those bits anyway.
 
-Three paths, chosen from N and the dtype alone (:func:`radix.kernel_path`):
+Four routes, chosen from N and the dtype alone (:func:`radix.kernel_path`):
 power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) takes
 the radix path — two passes of in-register radix-2 codelets,
 ``csrc/fft_radix.cuh``, planned in ``kernels/radix.py``; the longer
@@ -39,8 +39,16 @@ power-of-two N whose line fits in one block's shared memory (8192 and
 16384 for complex64, 2048 to 8192 for complex128) take the long-line path
 — three such passes over a line loaded by TMA, ``csrc/fft_long.cuh``,
 planned in ``kernels/longline.py``, whose ``emulate`` is this path's plain
-version; every other N takes the general dense kernel.  A failed build or
-launch raises; nothing falls back.
+version; the power-of-two N beyond one block (32768 to 2^24 for
+complex64, 16384 to 2^22 for complex128) take the split route — N = P*Q
+through HBM, a strided radix launch on the P-long columns with the
+inter-step twiddle in its store, then the Q-long rows: on the radix
+route, stored transposed with the line's epilogues; on the long-line
+route, stored in place and moved by a transpose launch that carries the
+epilogues — planned in ``kernels/split.py``, whose ``emulate`` is that
+route's plain version; every other N takes the general dense kernel,
+which raises past one block's shared memory.  A failed build or launch
+raises; nothing falls back.
 
 :func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``
 block and transforms dim 1 on the radix path, writing the same layout:
@@ -49,10 +57,13 @@ of copying the lines contiguous.
 
 Every launch, from either entry, adds one to ``fft_fourstep.launches``,
 to its variant's entry of ``fft_fourstep.variant_launches`` ("fourstep",
-"pack", "twiddle"), to its path's entry of ``fft_fourstep.path_launches``
-("radix", "dense", "long") and to its layout's entry of
-``fft_fourstep.layout_launches`` ("lines", "strided"); nothing else
-touches them.
+"pack", "twiddle"), to its route's entry of ``fft_fourstep.path_launches``
+(the four names :func:`radix.kernel_path` gives) and to its layout's
+entry of ``fft_fourstep.layout_launches`` ("lines", "strided"); nothing
+else touches them.  A split call is two launches (three with rows on the
+long-line route), each counted on "split" and the layout it runs (pass
+A: "strided", "fourstep"; passes B and C: "lines"; the last carries the
+call's variant), and adds one to ``fft_fourstep.split_calls``.
 """
 from __future__ import annotations
 
@@ -66,7 +77,7 @@ import torch
 
 from ..core.transforms import (_dft_planes, _twiddle_planes, factorize,
                                fourstep_fft_planes, real_dtype)
-from . import longline, radix
+from . import longline, radix, split
 from .radix import SMEM_MAX_BYTES, SMEM_TARGET_BYTES
 
 #: W2 larger than this streams from global memory (L2) instead.
@@ -109,11 +120,14 @@ def launch_config(n: int, itemsize: int, twiddle: bool) -> LaunchConfig:
         lines //= 2
     need = smem_bytes(n1, n2, itemsize, twiddle, w2_smem, lines)
     if need > SMEM_MAX_BYTES:
+        dtype = torch.complex64 if itemsize == 8 else torch.complex128
         raise ValueError(
             f"fft_fourstep: N={n} needs {need} bytes of shared memory for "
-            f"one line (limit {SMEM_MAX_BYTES}); the kernel takes N up to "
-            f"{max_line_length(itemsize, twiddle)} for {itemsize}-byte "
-            f"complex elements")
+            f"one line on the dense route (limit {SMEM_MAX_BYTES}); it "
+            f"takes N up to {max_line_length(itemsize, twiddle)} for "
+            f"{itemsize}-byte complex elements, and the split route takes "
+            f"the powers of two beyond one block up to "
+            f"{max(split.FACTORS.get(dtype, {0: None}))}")
     return LaunchConfig(lines=lines, w2_in_smem=w2_smem, smem_bytes=need)
 
 
@@ -192,6 +206,17 @@ def _long_constants(n: int, inverse: bool, dtype: torch.dtype,
                        n, dtype, inverse)).to(device=device, dtype=dtype))
 
 
+def _split_constants(plan: split.SplitPlan, inverse: bool,
+                     dtype: torch.dtype, device: torch.device
+                     ) -> torch.Tensor:
+    """Pass A's twiddle tables on ``device``: TA then TB
+    (``split.constants``, built in float64), one buffer, cached with the
+    other paths' constants."""
+    return _cached(("split", plan.n, plan.p, bool(inverse), dtype, device),
+                   lambda: torch.from_numpy(split.constants(
+                       plan, inverse)).to(device=device, dtype=dtype))
+
+
 def _check(x: torch.Tensor, twiddle: Optional[torch.Tensor],
            pack_parts: Optional[int]) -> None:
     if x.dim() != 2:
@@ -226,7 +251,8 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
     """The kernel's plain PyTorch version: same inputs, same output layout.
 
     On the long-line path's N, that path's three passes
-    (``longline.emulate``); on every other N the four steps as
+    (``longline.emulate``); on the split route's N, its two passes
+    (``split.emulate``); on every other N the four steps as
     ``torch.einsum`` contractions on real/imag planes
     (``transforms.fourstep_fft_planes``).  Used for CPU tensors and, on the
     card, as the kernel's yardstick.
@@ -235,9 +261,11 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
     b, n = x.shape
     if b == 0:
         return _packed(torch.zeros_like(x), pack_parts)
-    if radix.kernel_path(n, x.dtype) == "long":
-        buf = longline.emulate(x, inverse=inverse, twiddle=twiddle,
-                               pack_parts=pack_parts)
+    path = radix.kernel_path(n, x.dtype)
+    if path in ("long", "split"):
+        route = longline if path == "long" else split
+        buf = route.emulate(x, inverse=inverse, twiddle=twiddle,
+                            pack_parts=pack_parts)
         return buf if pack_parts is None else buf.transpose(0, 1)
     rdt = real_dtype(x.dtype)
     outr, outi = fourstep_fft_planes(x.real.to(rdt), x.imag.to(rdt),
@@ -259,25 +287,61 @@ def _resolved(x: torch.Tensor, twiddle: Optional[torch.Tensor]
     return x, twiddle
 
 
+def _out_buffers(x: torch.Tensor, pack_parts: Optional[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(buffer the kernel writes, the tensor returned) for ``(B, N)``
+    lines: ``(p, B, N/p)`` and its ``(B, p, N/p)`` view."""
+    n = x.shape[1]
+    parts = pack_parts if pack_parts is not None else 1
+    buf = torch.empty((parts, x.shape[0], n // parts), dtype=x.dtype,
+                      device=x.device)
+    return buf, (buf[0] if pack_parts is None else buf.transpose(0, 1))
+
+
+def _raise_on(err: int, lib, path: str, x: torch.Tensor) -> None:
+    if err:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"fft_fourstep ({path} path) launch failed for "
+                           f"shape {tuple(x.shape)}, {x.dtype}: CUDA error "
+                           f"{err} ({msg})")
+
+
+def _count(path: str, layout: str, variant: str, split_call: bool = False
+           ) -> None:
+    # The executor's pool mode launches from several threads.
+    with _COUNT_LOCK:
+        fft_fourstep.launches += 1
+        fft_fourstep.variant_launches[variant] += 1
+        fft_fourstep.path_launches[path] += 1
+        fft_fourstep.layout_launches[layout] += 1
+        fft_fourstep.split_calls += int(split_call)
+
+
+def _variant(tw: Optional[torch.Tensor], pack_parts: Optional[int]) -> str:
+    return ("pack" if pack_parts is not None
+            else "twiddle" if tw is not None else "fourstep")
+
+
 def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
             pack_parts: Optional[int] = None,
             strided: bool = False) -> torch.Tensor:
     """Launch the kernel on ``(B, N)`` lines, or with ``strided`` on a
     contiguous ``(outer, N, inner)`` block, and count the launch."""
+    n = x.shape[1]
+    path = radix.kernel_path(n, x.dtype)
+    if path == "split":
+        return _launch_split(x, tw, inverse=inverse, pack_parts=pack_parts,
+                             plan=split.split_plan(n, x.dtype))
     from . import build
     lib = build.load("fft_fourstep")
     _declare(lib)
-    n = x.shape[1]
     parts = pack_parts if pack_parts is not None else 1
     if strided:
         buf = out = torch.empty_like(x)
     else:
-        buf = torch.empty((parts, x.shape[0], n // parts), dtype=x.dtype,
-                          device=x.device)
-        out = buf[0] if pack_parts is None else buf.transpose(0, 1)
+        buf, out = _out_buffers(x, pack_parts)
     if x.numel() == 0:
         return out
-    path = radix.kernel_path(n, x.dtype)
     c64 = x.dtype == torch.complex64
     twp = tw.data_ptr() if tw is not None else None
     with torch.cuda.device(x.device):
@@ -321,19 +385,83 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
                      w2.data_ptr(), t.data_ptr(), twp, x.shape[0], n1, n2,
                      int(inverse), parts, cfg.lines, int(cfg.w2_in_smem),
                      cfg.smem_bytes, stream)
-    if err:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"fft_fourstep ({path} path) launch failed for "
-                           f"shape {tuple(x.shape)}, {x.dtype}: CUDA error "
-                           f"{err} ({msg})")
-    variant = ("pack" if pack_parts is not None
-               else "twiddle" if tw is not None else "fourstep")
-    # The executor's pool mode launches from several threads.
-    with _COUNT_LOCK:
-        fft_fourstep.launches += 1
-        fft_fourstep.variant_launches[variant] += 1
-        fft_fourstep.path_launches[path] += 1
-        fft_fourstep.layout_launches["strided" if strided else "lines"] += 1
+    _raise_on(err, lib, path, x)
+    _count(path, "strided" if strided else "lines", _variant(tw, pack_parts))
+    return out
+
+
+def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
+                  inverse: bool, pack_parts: Optional[int],
+                  plan: split.SplitPlan) -> torch.Tensor:
+    """The split route on contiguous ``(B, N)`` lines, N = P*Q
+    (``kernels/split.py``): pass A, the strided radix launch on the
+    ``(B, P, Q)`` block with the inter-step twiddle, into a scratch block;
+    pass B, the Q-long rows: on the radix route stored transposed into the
+    output with the line's epilogues, on the long-line route stored in
+    place into a second scratch block that pass C transposes into the
+    output with the epilogues.  All on the current stream; each counted
+    on the "split" path and its layout."""
+    from . import build
+    lib = build.load("fft_fourstep")
+    _declare(lib)
+    b, n = x.shape
+    buf, out = _out_buffers(x, pack_parts)
+    if x.numel() == 0:
+        return out
+    c64 = x.dtype == torch.complex64
+    suffix = "c64" if c64 else "c128"
+    parts = pack_parts if pack_parts is not None else 1
+    dev, cdt = x.device, x.dtype
+    with torch.cuda.device(dev):
+        current = torch.cuda.current_stream(dev)
+        stream = current.cuda_stream
+        # pass A: (B, P, Q) -> (B, P, Q), the P-long columns
+        y = torch.empty((b, plan.p, plan.q), dtype=cdt, device=dev)
+        ctile = split.column_tile(plan, cdt)
+        pconsts = _radix_constants(plan.p, inverse, cdt, dev)
+        tables = _split_constants(plan, inverse, cdt, dev)
+        for c in (pconsts, tables):
+            c.record_stream(current)
+        err = getattr(lib, f"repro_fft_split_a_{suffix}")(
+            x.data_ptr(), y.data_ptr(), pconsts.data_ptr(),
+            tables.data_ptr(), b, plan.p, plan.q, int(inverse),
+            ctile.lines.bit_length() - 1, plan.ql_log2, ctile.smem_bytes,
+            stream)
+        _raise_on(err, lib, "split pass A", x)
+        _count("split", "strided", "fourstep")
+        # pass B: the Q-long rows, stored transposed at kp + P*kq (radix)
+        # or in place (long-line, then pass C)
+        rtile = split.row_tile(plan, cdt)
+        seg_log2 = (n // parts).bit_length() - 1
+        twp = tw.data_ptr() if tw is not None else None
+        variant = _variant(tw, pack_parts)
+        if plan.row_path == "radix":
+            qconsts = _radix_constants(plan.q, inverse, cdt, dev)
+            qconsts.record_stream(current)
+            err = getattr(lib, f"repro_fft_split_b_radix_{suffix}")(
+                y.data_ptr(), buf.data_ptr(), qconsts.data_ptr(), twp,
+                b * plan.p, plan.q, int(inverse), seg_log2,
+                rtile.lines.bit_length() - 1, plan.p_log2,
+                rtile.smem_bytes, stream)
+            _raise_on(err, lib, "split pass B", x)
+            _count("split", "lines", variant, split_call=True)
+            return out
+        qconsts = _long_constants(plan.q, inverse, cdt, dev)
+        qconsts.record_stream(current)
+        z = torch.empty_like(y)
+        # the inverse's sign is in the constants; its 1/N waits for pass C
+        err = getattr(lib, f"repro_fft_long_{suffix}")(
+            y.data_ptr(), z.data_ptr(), qconsts.data_ptr(), None,
+            b * plan.p, plan.q, 0, plan.q.bit_length() - 1,
+            rtile.smem_bytes, stream)
+        _raise_on(err, lib, "split pass B", x)
+        _count("split", "lines", "fourstep")
+        # pass C: (B, P, Q) rows to out[b, kp + P*kq], with the epilogues
+        err = getattr(lib, f"repro_fft_split_c_{suffix}")(
+            z.data_ptr(), buf.data_ptr(), twp, b, plan.p_log2,
+            plan.q.bit_length() - 1, seg_log2, int(inverse), stream)
+    _raise_on(err, lib, "split pass C", x)
+    _count("split", "lines", variant, split_call=True)
     return out
 
 
@@ -350,6 +478,16 @@ def _declare(lib) -> None:
         fn.restype = i
     for fn in (lib.repro_fft_long_c64, lib.repro_fft_long_c128):
         fn.argtypes = [p, p, p, p, ll, i, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.repro_fft_split_a_c64, lib.repro_fft_split_a_c128):
+        fn.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.repro_fft_split_b_radix_c64,
+               lib.repro_fft_split_b_radix_c128):
+        fn.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.repro_fft_split_c_c64, lib.repro_fft_split_c_c128):
+        fn.argtypes = [p, p, p, ll, i, i, i, i, p]
         fn.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -438,23 +576,28 @@ def fft_fourstep_strided(x: torch.Tensor, *, inverse: bool = False,
 _COUNT_LOCK = threading.Lock()
 fft_fourstep.launches = 0
 fft_fourstep.variant_launches = {"fourstep": 0, "pack": 0, "twiddle": 0}
-fft_fourstep.path_launches = {"radix": 0, "dense": 0, "long": 0}
+fft_fourstep.path_launches = {"radix": 0, "dense": 0, "long": 0,
+                              "split": 0}
 fft_fourstep.layout_launches = {"lines": 0, "strided": 0}
+fft_fourstep.split_calls = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """One consistent snapshot of the launch counters, flat: ``launches``
-    and one entry per variant, path and layout."""
+    and one entry per variant, path and layout, and ``split_calls`` (the
+    split route's calls, two or three launches each)."""
     with _COUNT_LOCK:
         return {"launches": fft_fourstep.launches,
                 **fft_fourstep.variant_launches,
                 **fft_fourstep.path_launches,
-                **fft_fourstep.layout_launches}
+                **fft_fourstep.layout_launches,
+                "split_calls": fft_fourstep.split_calls}
 
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         fft_fourstep.launches = 0
+        fft_fourstep.split_calls = 0
         for counts in (fft_fourstep.variant_launches,
                        fft_fourstep.path_launches,
                        fft_fourstep.layout_launches):

@@ -157,11 +157,13 @@ def _codelet(values: list, length: int, plan: LongPlan, w: torch.Tensor
 
 def emulate(x: torch.Tensor, *, inverse: bool = False,
             twiddle: Optional[torch.Tensor] = None,
-            pack_parts: Optional[int] = None) -> torch.Tensor:
+            pack_parts: Optional[int] = None,
+            scaled: bool = True) -> torch.Tensor:
     """Run the long kernel's three passes and index maps in torch, every
     line at once: ``x`` is contiguous ``(B, N)``.  Returns what the kernel
     writes: ``(B, N)``, or the ``(p, B, N/p)`` buffer with
-    ``pack_parts``."""
+    ``pack_parts``.  ``scaled=False`` leaves out the inverse's 1/N, as the
+    split route's pass B launches it (``kernels/split.py``)."""
     b, n = x.shape
     cdt, dev = x.dtype, x.device
     p = long_plan(n, cdt)
@@ -196,7 +198,7 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     v = _codelet([s[:, m3 * p.pitch + ka] for m3 in range(r3)], r3, p, w)
     parts = pack_parts or 1
     seg = n // parts
-    scale = 1.0 / n if inverse else 1.0
+    scale = 1.0 / n if inverse and scaled else 1.0
     tw = None if twiddle is None else twiddle.to(dev, cdt).reshape(-1)
     out = torch.empty(parts * b * seg, dtype=cdt, device=dev)
     line = torch.arange(b, device=dev)[:, None]

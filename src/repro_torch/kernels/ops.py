@@ -15,10 +15,12 @@ N)`` lines when ``inner == 1``, else through the strided entry
 (:func:`~.fft_matmul.fft_fourstep_strided`) when that takes N and
 ``inner`` holds at least a strided tile — and returns the result with
 ``x``'s strides, with no copy.  Everything else (``pack_parts`` on a
-strided axis, an N off the radix path (dense or long-line) on a strided
-axis, ``inner`` narrower than a tile, a non-dense view) moves ``axis``
-last and copies the lines contiguous first, and each such copy adds one
-to ``copies["lines"]``.
+strided axis, an N off the radix path (dense, long-line or split) on a
+strided axis, ``inner`` narrower than a tile, a non-dense view) moves
+``axis`` last and copies the lines contiguous first, and each such copy
+adds one to ``copies["lines"]``: a split length (lines longer than one
+block, two launches through HBM) on a strided axis is copied so, as a
+long-line length is.
 The output dtype follows the input: complex64 for single precision,
 complex128 for float64/complex128.
 

@@ -35,6 +35,14 @@ Two layouts of lines, one kernel:
   global memory and for the tile, stored (k1, m2, line).  The last group
   of ``inner`` is masked.
 
+The split route (``kernels/split.py``) runs two more modes of the
+kernel, for lines longer than one block holds: pass A, the strided layout
+whose store multiplies by the inter-step twiddle from two tables
+(``emulate``'s ``split_twiddle``); pass B, contiguous rows whose tile is
+laid out (k1, line, m2) with a row pitch of N2 + 1 and whose row pass
+runs its threads along the line, storing each row transposed into its
+line's output (``rows_per_line``).
+
 :func:`emulate` runs exactly these loops and index maps in torch, so the
 CPU tests hold the kernel's index math against ``np.fft``; the kernel
 mirrors them line for line.
@@ -73,12 +81,17 @@ RADIX_SIZES = {
 def kernel_path(n: int, dtype: torch.dtype) -> str:
     """"radix" when the kernel has a codelet instantiation for ``n`` and
     ``dtype``, "long" for the longer power-of-two lines the long-line
-    route takes (``longline.FACTORS``), else "dense" (the general
-    four-step, any N)."""
+    route takes (``longline.FACTORS``), "split" for the power-of-two lines
+    longer than one block holds (``split.FACTORS``: two passes through
+    HBM), else "dense" (the general four-step, any N)."""
     if n in RADIX_SIZES.get(dtype, ()):
         return "radix"
-    from .longline import FACTORS   # deferred: longline imports this module
-    return "long" if n in FACTORS.get(dtype, {}) else "dense"
+    # deferred: longline and split import this module
+    from .longline import FACTORS as LONG
+    from .split import FACTORS as SPLIT
+    if n in LONG.get(dtype, {}):
+        return "long"
+    return "split" if n in SPLIT.get(dtype, {}) else "dense"
 
 
 def bitrev(i: int, bits: int) -> int:
@@ -169,11 +182,16 @@ def radix_tile(n: int, itemsize: int, twiddle: bool,
                      (const + tile_elems(n, lines, False)) * itemsize)
 
 
-def smem_strides(n: int, lines: int, strided: bool) -> Tuple[int, int, int]:
-    """(line, k1, m2) strides of the tile in shared memory, in elements."""
+def smem_strides(n: int, lines: int, strided: bool,
+                 rows: bool = False) -> Tuple[int, int, int]:
+    """(line, k1, m2) strides of the tile in shared memory, in elements;
+    ``rows`` is the split route's pass B, whose tile is (k1, line, m2)
+    with a row pitch of N2 + 1."""
     n1, n2 = factorize(n)
     if strided:
         return 1, n2 * lines, lines
+    if rows:
+        return n2 + 1, lines * (n2 + 1), 1
     return n1 * (n2 + 1), n2 + 1, 1
 
 
@@ -185,7 +203,8 @@ def column_item(c, lines: int, n2: int, strided: bool):
 
 
 def row_item(r, lines: int, n1: int, strided: bool):
-    """(line, k1) of row item ``r``."""
+    """(line, k1) of row item ``r``: the split route's pass B runs its
+    threads along the line as the strided layout does."""
     if strided:
         return r % lines, r // lines
     return r // n1, r % n1
@@ -210,36 +229,50 @@ def _run_codelet(v: list, stages, w: torch.Tensor) -> list:
 def emulate(x: torch.Tensor, *, inverse: bool = False,
             twiddle: Optional[torch.Tensor] = None,
             pack_parts: Optional[int] = None,
-            strided: bool = False) -> torch.Tensor:
+            strided: bool = False,
+            split_twiddle: Optional[Tuple[torch.Tensor, int]] = None,
+            rows_per_line: Optional[int] = None) -> torch.Tensor:
     """Run the radix kernel's loops and index maps in torch, every tile at
     once: ``x`` is contiguous ``(B, N)`` lines, or with ``strided`` a
     contiguous ``(outer, N, inner)`` block transformed along dim 1.
     Returns what the kernel writes: ``(B, N)`` (or the ``(p, B, N/p)``
     buffer with ``pack_parts``), or ``(outer, N, inner)``.  For the tests:
-    the kernel mirrors these index maps."""
+    the kernel mirrors these index maps.
+
+    The split route's two modes (``kernels/split.py``):
+    ``split_twiddle=(tables, ql_log2)`` with ``strided`` is pass A: the
+    store multiplies by TA[o, q % QL] * TB[o, q // QL] (``tables`` holds
+    TA then TB; q is the inner index, o the output index) and never
+    scales.  ``rows_per_line=P`` is pass B: the ``(B*P, N)`` rows are
+    rows kp of ``B`` lines of P*N, stored transposed at out[b, kp + P*o]
+    with the line's epilogues (``twiddle`` of P*N entries, 1/(P*N),
+    ``pack_parts`` over P*N)."""
     cdt = x.dtype
     if strided:
         outer, n, inner = x.shape
     else:
         (outer, n), inner = x.shape, 1
+    rows = rows_per_line is not None
     plan = radix_plan(n)
     n1, n2 = plan.n1, plan.n2
-    tile = radix_tile(n, x.element_size(), twiddle is not None, strided)
+    tile = radix_tile(n, x.element_size(),
+                      twiddle is not None and not rows, strided)
     lines = tile.lines
-    sl, sr, sc = smem_strides(n, lines, strided)
+    sl, sr, sc = smem_strides(n, lines, strided, rows)
+    n_line = n * rows_per_line if rows else n
     parts = pack_parts or 1
-    seg = n // parts
+    seg = n_line // parts
 
     from .fft_matmul import _device_constants   # T as the dense path builds it
     t_tab = _device_constants(n1, n2, inverse, cdt, x.device)[2].reshape(-1)
-    w = torch.from_numpy(codelet_table(n, inverse)).to(cdt)
+    w = torch.from_numpy(codelet_table(n, inverse)).to(cdt).to(x.device)
     mem = x.reshape(-1)
     if strided:
         groups = -(-inner // lines)
         ntiles = outer * groups
     else:
         groups, ntiles = 1, -(-outer // lines)
-    tiles = torch.arange(ntiles).unsqueeze(1)           # (ntiles, 1)
+    tiles = torch.arange(ntiles, device=x.device).unsqueeze(1)
 
     def line_of(t, l):
         """(valid, input base, element stride) of line l of tile t."""
@@ -250,7 +283,7 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
         return line < outer, line * n, 1
 
     # column pass: item c -> (l, m2), loads x[m1*N2 + m2] for m1 < N1
-    c = torch.arange(lines * n2).unsqueeze(0)
+    c = torch.arange(lines * n2, device=x.device).unsqueeze(0)
     l, m2 = column_item(c, lines, n2, strided)
     valid, base, js = line_of(tiles, l)
     bits1 = int(math.log2(n1))
@@ -259,14 +292,15 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
         addr = torch.where(valid, base + (m1 * n2 + m2) * js, 0)
         v[bitrev(m1, bits1)] = torch.where(valid, mem[addr], 0)
     v = _run_codelet(v, plan.column, w)
-    smem = torch.zeros((ntiles, tile_elems(n, lines, strided)), dtype=cdt)
+    smem = torch.zeros((ntiles, tile_elems(n, lines, strided)), dtype=cdt,
+                       device=x.device)
     for k1 in range(n1):
         idx = (l * sl + k1 * sr + m2 * sc).expand(ntiles, -1)
         smem.scatter_(1, idx, v[k1] * t_tab[k1 * n2 + m2])
 
     # row pass: item r -> (l, k1), reads the tile row, writes k1 + N1*k2
-    r = torch.arange(lines * n1).unsqueeze(0)
-    l, k1 = row_item(r, lines, n1, strided)
+    r = torch.arange(lines * n1, device=x.device).unsqueeze(0)
+    l, k1 = row_item(r, lines, n1, strided or rows)
     valid, base, js = line_of(tiles, l)
     bits2 = int(math.log2(n2))
     v = [None] * n2
@@ -274,21 +308,38 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
         idx = (l * sl + k1 * sr + j * sc).expand(ntiles, -1)
         v[bitrev(j, bits2)] = smem.gather(1, idx)
     v = _run_codelet(v, plan.row, w)
-    out = torch.zeros(outer * n * inner, dtype=cdt)
-    scale = 1.0 / n if inverse else 1.0
-    tw = None if twiddle is None else twiddle.to(cdt).reshape(-1)
+    out = torch.zeros(outer * n * inner, dtype=cdt, device=x.device)
+    scale = 1.0 / n_line if inverse and split_twiddle is None else 1.0
+    tw = None if twiddle is None else twiddle.to(x.device, cdt).reshape(-1)
+    line = tiles * lines + l
+    if split_twiddle is not None:
+        tables, ql_log2 = split_twiddle
+        ql, qh = 1 << ql_log2, inner >> ql_log2
+        q = (tiles % groups) * lines + l
+        ta, tb = tables[:n * ql], tables[n * ql:]
+    if rows:
+        b_idx, kp = line // rows_per_line, line % rows_per_line
+        nb = outer // rows_per_line
     for k2 in range(n2):
         o = k1 + n1 * k2
-        y = v[k2] if tw is None else v[k2] * tw[o]
+        y = v[k2]
+        if split_twiddle is not None:
+            y = y * (ta[o * ql + q % ql] * tb[o * qh + q // ql])
+        if rows:
+            o = kp + rows_per_line * o
+        if tw is not None:
+            y = y * tw[o]
         y = y * scale
         if strided:
             addr = base + o * inner
+        elif rows:
+            addr = ((o // seg) * nb + b_idx) * seg + o % seg
         else:
-            line = tiles * lines + l
             addr = ((o // seg) * outer + line) * seg + o % seg
         out[addr[valid.expand_as(addr)]] = y[valid.expand_as(y)]
     if strided:
         return out.reshape(outer, n, inner)
+    nb = outer // rows_per_line if rows else outer
     if pack_parts is None:
-        return out.reshape(outer, n)
-    return out.reshape(parts, outer, seg)
+        return out.reshape(nb, n_line)
+    return out.reshape(parts, nb, seg)

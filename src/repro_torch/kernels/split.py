@@ -1,0 +1,210 @@
+"""The split route of the four-step kernel: power-of-two lines longer than
+one block holds, as a two-level four-step through HBM.
+
+A line of N = P*Q (complex64 N from 32768 to 2^24, complex128 from 16384
+to 2^22: :data:`FACTORS`) is viewed as (P, Q), x[p*Q + q], and
+transformed by the routes one block holds, in two launches (three with
+rows on the long-line route):
+
+* pass A — the P-long DFT down every column q (stride Q): the radix
+  route's strided entry on the ``(B, P, Q)`` block (outer = B, N = P,
+  inner = Q), whose store multiplies by the inter-step twiddle
+  W_N^(kp*q) (``fft_radix.cuh``, ``kRadixSplitA``) and writes the
+  same ``(B, P, Q)`` layout;
+* pass B — the Q-long DFT of every contiguous row (b, kp).  On the radix
+  route (Q up to 4096 complex64, 1024 complex128) it is stored transposed
+  at out[b, kp + P*kq], the line's output index, with the line's own
+  epilogues on that store: the output twiddle (N,), the inverse's 1/N
+  (once, for the whole line) and the ``pack_parts`` segment store.  A
+  tile holds L consecutive rows in the layout (k1, l, m2) with a row
+  pitch of Q2 + 1, and the row pass runs its threads along l, so a warp
+  stores L consecutive kp (``kRadixSplitB``).
+* On the long-line route (Q of 8192 and 16384 complex64, 2048 to 8192
+  complex128) a block holds one row, so its stores cannot be staged so:
+  pass B stores the rows in place (``fft_long.cuh`` as it is, without the
+  scale), and pass C (``split_transpose``) moves 32 x 32 tiles of each
+  line's (P, Q) rows through shared memory to out[b, kp + P*kq] with the
+  line's epilogues.  Storing pass B straight to kp + P*kq took 2.5 times
+  as long at 2^24 (3.8 ms against 1.5; PERF.md).
+
+The inter-step twiddle would be an N-entry table (128 MB at N = 2^24 in
+complex64); it is TA[kp, ql] * TB[kp, qh] with q = qh*QL + ql, two tables
+of P*QL and P*QH entries built in float64 (:func:`constants`, one rounding
+per entry) and read through L2.
+
+:func:`emulate` runs exactly these passes and index maps in torch, through
+``radix.emulate`` and ``longline.emulate`` with the same modes and
+:func:`transpose_emulate`; it is the route's plain version (``fft_matmul.fft_fourstep_plain`` takes it for
+these N), and the CPU tests hold it against ``np.fft`` and the JAX
+package's kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import longline, radix
+
+#: (P, Q) per length and complex dtype, picked by measurement on an H100
+#: among every (P, Q) the kernel could run, at 512 MB of lines (PERF.md
+#: has the readings).  P runs on the strided radix entry (to 1024
+#: complex64, 512 complex128: ``fft_matmul.strided_supported``), Q on the
+#: radix route (to 4096 / 1024) or the long-line route (8192 and 16384 /
+#: 2048 to 8192, with the transpose pass).  What the readings showed: P
+#: of 128 to 512 mostly; rows of 4096 on the radix route are slow (a tile
+#: holds 2 rows, so pass B stores 16-byte runs: about twice the time), so
+#: the longest lengths put their rows on the long-line route; the longest
+#: have one choice.
+FACTORS = {
+    torch.complex64: {
+        1 << 15: (256, 128), 1 << 16: (256, 256), 1 << 17: (256, 512),
+        1 << 18: (256, 1024), 1 << 19: (256, 2048), 1 << 20: (512, 2048),
+        1 << 21: (1024, 2048), 1 << 22: (512, 8192),
+        1 << 23: (512, 16384), 1 << 24: (1024, 16384)},
+    torch.complex128: {
+        1 << 14: (64, 256), 1 << 15: (128, 256), 1 << 16: (128, 512),
+        1 << 17: (256, 512), 1 << 18: (256, 1024), 1 << 19: (64, 8192),
+        1 << 20: (128, 8192), 1 << 21: (256, 8192),
+        1 << 22: (512, 8192)},
+}
+
+
+#: The pass lengths of the table above, each instantiated by the kernel
+#: (``fft_radix.cuh``'s ``radix_dispatch`` for ``kRadixSplitA`` and
+#: ``kRadixSplitB``): P, and Q on the radix route.  Q on the long-line
+#: route takes ``longline.FACTORS``'s lengths.
+COLUMN_SIZES = {torch.complex64: (256, 512, 1024),
+                torch.complex128: (64, 128, 256, 512)}
+ROW_SIZES = {torch.complex64: (128, 256, 512, 1024, 2048),
+             torch.complex128: (256, 512, 1024)}
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    n: int
+    p: int              # pass A's length (columns, strided radix entry)
+    q: int              # pass B's length (rows)
+    row_path: str       # "radix" or "long": pass B's route
+
+    @property
+    def p_log2(self) -> int:
+        return self.p.bit_length() - 1
+
+    @property
+    def ql_log2(self) -> int:
+        """log2 of QL, the low factor of q in the twiddle tables."""
+        k = self.q.bit_length() - 1
+        return (k + 1) // 2
+
+    @property
+    def ql(self) -> int:
+        return 1 << self.ql_log2
+
+    @property
+    def qh(self) -> int:
+        return self.q >> self.ql_log2
+
+    @property
+    def const_elems(self) -> int:
+        """TA (P x QL) then TB (P x QH)."""
+        return self.p * (self.ql + self.qh)
+
+
+def split_plan(n: int, dtype: torch.dtype) -> SplitPlan:
+    """The plan of a length the split route takes, with the table's
+    (P, Q)."""
+    factors = FACTORS.get(dtype, {}).get(n)
+    if factors is None:
+        raise ValueError(
+            f"the split route takes N in "
+            f"{sorted(FACTORS.get(dtype, {}))} for {dtype}, got {n}")
+    p, q = factors
+    row_path = "long" if q in longline.FACTORS[dtype] else "radix"
+    return SplitPlan(n, p, q, row_path)
+
+
+def column_tile(plan: SplitPlan, dtype: torch.dtype) -> radix.RadixTile:
+    """Pass A's tile: the strided radix tile of P (no staged twiddle)."""
+    return radix.radix_tile(plan.p, dtype.itemsize, False, True)
+
+
+def row_tile(plan: SplitPlan, dtype: torch.dtype):
+    """Pass B's tile: the radix route's tile of Q on lines (the output
+    twiddle is read from L2, not staged), or the long-line route's."""
+    if plan.row_path == "long":
+        return longline.long_tile(plan.q, dtype)
+    return radix.radix_tile(plan.q, dtype.itemsize, False, False)
+
+
+def row_lines(plan: SplitPlan, dtype: torch.dtype) -> int:
+    """Rows of one pass-B tile on the radix route: consecutive kp of one
+    line, so L divides P."""
+    return radix.radix_tile(plan.q, dtype.itemsize, False, False).lines
+
+
+def _w(n: int, e: np.ndarray, sign: float) -> np.ndarray:
+    return np.exp(sign * 2j * np.pi * e / n)
+
+
+def constants(plan: SplitPlan, inverse: bool) -> np.ndarray:
+    """TA[kp, ql] = W_N^(kp*ql) and TB[kp, qh] = W_N^(kp*qh*QL), row-major,
+    one complex128 array built in float64: TA*TB is the inter-step
+    twiddle W_N^(kp*q) of pass A."""
+    sign = 1.0 if inverse else -1.0
+    kp = np.arange(plan.p, dtype=np.float64)[:, None]
+    ql = np.arange(plan.ql, dtype=np.float64)[None, :]
+    qh = np.arange(plan.qh, dtype=np.float64)[None, :]
+    # kp*q stays below 2^53, so the exponents are exact in float64
+    ta = _w(plan.n, kp * ql, sign)
+    tb = _w(plan.n, kp * qh * plan.ql, sign)
+    return np.concatenate([ta.reshape(-1), tb.reshape(-1)])
+
+
+def emulate(x: torch.Tensor, *, inverse: bool = False,
+            twiddle: Optional[torch.Tensor] = None,
+            pack_parts: Optional[int] = None) -> torch.Tensor:
+    """Run the split route's two passes and index maps in torch: ``x`` is
+    contiguous ``(B, N)``.  Returns what the kernels write: ``(B, N)``, or
+    the ``(p, B, N/p)`` buffer with ``pack_parts``."""
+    b, n = x.shape
+    plan = split_plan(n, x.dtype)
+    tables = torch.from_numpy(constants(plan, inverse)).to(x.device, x.dtype)
+    y = radix.emulate(x.reshape(b, plan.p, plan.q), inverse=inverse,
+                      strided=True, split_twiddle=(tables, plan.ql_log2))
+    rows = y.reshape(b * plan.p, plan.q)
+    if plan.row_path == "radix":
+        return radix.emulate(rows, inverse=inverse, twiddle=twiddle,
+                             pack_parts=pack_parts, rows_per_line=plan.p)
+    z = longline.emulate(rows, inverse=inverse, scaled=False)
+    return transpose_emulate(z, plan, inverse=inverse, twiddle=twiddle,
+                             pack_parts=pack_parts)
+
+
+def transpose_emulate(z: torch.Tensor, plan: SplitPlan, *,
+                      inverse: bool = False,
+                      twiddle: Optional[torch.Tensor] = None,
+                      pack_parts: Optional[int] = None) -> torch.Tensor:
+    """Pass C in torch: ``z`` holds B lines of (P, Q) rows z[b, kp, kq];
+    out[b, kp + P*kq] = z[b, kp, kq] times ``twiddle[kp + P*kq]``, times
+    1/N when ``inverse``, stored as the kernel stores it: ``(B, N)`` or
+    the ``(p, B, N/p)`` buffer."""
+    n, dev, cdt = plan.n, z.device, z.dtype
+    b = z.numel() // n
+    kp = torch.arange(plan.p, device=dev)[:, None]
+    kq = torch.arange(plan.q, device=dev)[None, :]
+    of = kp + plan.p * kq                               # (P, Q)
+    y = z.reshape(b, plan.p, plan.q)
+    if twiddle is not None:
+        y = y * twiddle.to(dev, cdt).reshape(-1)[of]
+    y = y * (1.0 / n if inverse else 1.0)
+    parts = pack_parts or 1
+    seg = n // parts
+    line = torch.arange(b, device=dev)[:, None, None]
+    out = torch.empty(b * n, dtype=cdt, device=dev)
+    out[((of // seg) * b + line) * seg + of % seg] = y
+    if pack_parts is None:
+        return out.reshape(b, n)
+    return out.reshape(parts, b, seg)

@@ -3,10 +3,11 @@ plain version, the kernel-backend plan on the card (bulk and chunked), the
 CUDA-event timer the tuner and calibration use, and on 4 cards over NCCL
 the plans, the plan-stream executor's mixed queue (plain, and under the
 static verifier and the sanitizer) and the service losing one card; the LM
-smoke serving path on the card against the CPU, the FFT long-convolution
-mixer on the kernel, its gradient through the kernel, and a smoke train
-step on the card against the CPU; ``[train]``'s 8 layers lowering the
-loss of the batches they trained on; the LM's mesh path on one card (a
+smoke serving path on the card against the CPU, the split route (lines
+longer than one block) and the FFT long-convolution mixer on it at
+S=16384, the mixer on the kernel, its gradient through the kernel, and a
+smoke train step on the card against the CPU; ``[train]``'s 8 layers
+lowering the loss of the batches they trained on; the LM's mesh path on one card (a
 (1, 1) NCCL mesh against no mesh) and on 4 cards (qwen3-8b at 36 layers
 trained on (1, 4) and (2, 2) and served on (1, 4), a full-width step
 against one card, ``fft_conv`` split over the cards; each writes its
@@ -98,7 +99,7 @@ def test_cuda_strided_kernel_matches_plain_version(cuda, shape, dtype,
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.layout_launches == {"lines": 0, "strided": 1}
     assert tfm.fft_fourstep.path_launches == {"radix": 1, "dense": 0,
-                                              "long": 0}
+                                              "long": 0, "split": 0}
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
 
@@ -151,7 +152,7 @@ def test_cuda_long_kernel_matches_plain_version_and_torch_fft(
     got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0,
-                                              "long": 1}
+                                              "long": 1, "split": 0}
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
     assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
     if parts is not None:
@@ -171,6 +172,111 @@ def test_cuda_long_kernel_reads_an_unaligned_view(cuda):
     assert tfm.fft_fourstep.path_launches["long"] == 1
     assert_scaled_close(got.cpu().numpy(), torch.fft.fft(x).cpu().numpy(),
                         5e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.complex64, 1 << 16),
+                                     (torch.complex64, 1 << 23),
+                                     (torch.complex128, 1 << 14)])
+@pytest.mark.parametrize("b,inverse,parts,use_tw", [
+    (2, False, None, False), (1, True, None, True), (3, False, 2, False),
+    (2, True, 4, True)])
+def test_cuda_split_kernel_matches_plain_version_and_torch_fft(
+        cuda, dtype, n, b, inverse, parts, use_tw):
+    """The split route (one split call, every launch on the "split" path:
+    pass A strided, pass B on lines, and with rows on the long-line route
+    pass C, the transpose, on lines) against its plain version
+    (``split.emulate``)
+    and ``torch.fft``, at the kernel's tolerances, with both epilogues;
+    rows on the radix route (2^16, complex128 2^14) and on the long-line
+    route (2^23)."""
+    from repro_torch.kernels import split
+    assert radix.kernel_path(n, dtype) == "split"
+    plan = split.split_plan(n, dtype)
+    x = torch.from_numpy(cplx((b, n), 13)).to(cuda, dtype)
+    tw = (torch.exp(-1j * math.pi * torch.arange(n, device=cuda) / (2 * n))
+          .to(dtype) if use_tw else None)
+    want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=tw,
+                                  pack_parts=parts)
+    lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+    if tw is not None:
+        lib = lib * tw
+    if parts is not None:
+        lib = lib.reshape(b, parts, n // parts)
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    tfm.reset_launch_counts()
+    got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
+    torch.cuda.synchronize()
+    counts = tfm.launch_counts()
+    long_rows = plan.row_path == "long"
+    assert counts["split_calls"] == 1
+    assert counts["launches"] == 2 + long_rows
+    assert counts["strided"] == 1 and counts["lines"] == 1 + long_rows
+    assert tfm.fft_fourstep.path_launches == {
+        "radix": 0, "dense": 0, "long": 0, "split": 2 + long_rows}
+    assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+    assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
+    if parts is not None:
+        assert got.transpose(0, 1).is_contiguous()
+
+
+@pytest.mark.cuda
+def test_cuda_split_kernel_reads_an_unaligned_view(cuda):
+    """A contiguous view 8 bytes into its storage (pass A's loads are 8
+    bytes a value; pass B reads the scratch block): transformed all the
+    same, two launches."""
+    n = 1 << 15
+    base = torch.from_numpy(cplx((2 * n + 1,), 14)).to(cuda)
+    x = base[1:].view(2, n)
+    assert x.data_ptr() % 16 == 8
+    tfm.reset_launch_counts()
+    got = ops.fft1d(x)
+    torch.cuda.synchronize()
+    assert tfm.launch_counts()["split_calls"] == 1
+    assert tfm.fft_fourstep.launches == tfm.launch_counts()["split"] == 2
+    assert_scaled_close(got.cpu().numpy(), torch.fft.fft(x).cpu().numpy(),
+                        5e-6)
+
+
+@pytest.mark.cuda
+def test_fft_conv_at_16384_on_the_split_route(cuda):
+    """``fft_conv`` at S=16384 (lines of 32768) on the kernel, 64
+    channels, float32, forward and backward: 3 split calls forward and 3
+    more backward (2 launches each), no dense launch and no line copy;
+    the output and every gradient within 1e-4 of ``cufft``'s."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import ParamBuilder
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(smoke_config("jamba_v0_1_52b"),
+                              ssm_impl="fft_conv", dtype="float32")
+    params = ssm.init_fft_conv(ParamBuilder(0, device=cuda), "ssm", cfg)
+    params.requires_grad_(True)
+    s = 16384
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (1, s, cfg.d_model)).astype(np.float32)).to(cuda)
+
+    def fwd_bwd(backend):
+        for prm in params.parameters():
+            prm.grad = None
+        xx = x.detach().requires_grad_(True)
+        y, _ = ssm.fft_conv(params, cfg, None, xx, fft_backend=backend)
+        y.square().sum().backward()
+        return [y.detach()] + [prm.grad for prm in params.parameters()] \
+            + [xx.grad]
+
+    ref = fwd_bwd("cufft")
+    tfm.reset_launch_counts()
+    ops.copies["lines"] = 0
+    got = fwd_bwd("kernel")
+    torch.cuda.synchronize()
+    counts = tfm.launch_counts()
+    assert counts["split_calls"] == 6, counts
+    assert counts["launches"] == counts["split"] == 12, counts
+    assert counts["dense"] == 0 and ops.copies["lines"] == 0
+    for g, r in zip(got, ref):
+        assert_scaled_close(g.cpu().numpy(), r.cpu().numpy(), 1e-4)
 
 
 @pytest.mark.cuda
@@ -198,7 +304,7 @@ def test_kernel_plan_on_the_card(cuda):
     assert tfm.fft_fourstep.launches == 6
     # 32 and 64 on the radix path (strided, in place), 48 on the dense one
     assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 2,
-                                              "long": 0}
+                                              "long": 0, "split": 0}
     assert tfm.fft_fourstep.layout_launches == {"lines": 2, "strided": 4}
     assert ops.copies["lines"] == 0 and y.is_contiguous()
     assert_scaled_close(y.cpu().numpy(), torch.fft.fftn(x).cpu().numpy(),
@@ -229,7 +335,7 @@ def test_poisson_ppb_on_the_card(cuda):
     # the bounded dim (48) takes the dense path: its 2 twiddle launches and
     # the 2 inverse ones; dims of 32 and 64 the radix path
     assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 4,
-                                              "long": 0}
+                                              "long": 0, "split": 0}
     assert phi.dtype == torch.float32 and phi.device.type == "cuda"
     want = PoissonSolver(mesh, grid, topology=topo, backend="cufft")(rhs)
     assert_scaled_close(phi.cpu().numpy(), want.cpu().numpy(), 2e-4)
@@ -638,9 +744,11 @@ def test_lm_one_card_mesh_matches_no_mesh(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,batch", [((1, 4), 1), ((2, 2), 2)],
-                         ids=["1x4", "2x2"])
-def test_qwen3_train_36_layers_on_four_cards(cuda, tmp_path, shape, batch):
+@pytest.mark.parametrize("shape,batch,record", [
+    ((1, 4), 1, "train36_1x4"), ((2, 2), 2, "train36_2x2"),
+    ((1, 4), 2, "train36_1x4_b2")], ids=["1x4", "2x2", "1x4_b2"])
+def test_qwen3_train_36_layers_on_four_cards(cuda, tmp_path, shape, batch,
+                                             record):
     """qwen3-8b at its published widths and all 36 layers (about 131 GB of
     training state, a quarter on each card), ``train_4k``'s S=4096 with
     the batch cut from 256 to ``batch``: 5 steps, remat, bf16 gradients,
@@ -648,7 +756,9 @@ def test_qwen3_train_36_layers_on_four_cards(cuda, tmp_path, shape, batch):
     bitwise equal, every rank reporting the same losses.  The record
     holds each training batch's loss before the first update and after
     the last (``torch_harness.held_losses``): what the updates did, apart
-    from how the loss varies from batch to batch."""
+    from how the loss varies from batch to batch.  ``1x4_b2`` trains
+    (1, 4) on (2, 2)'s data (B=2: the same two rows per step), so that
+    the two meshes' losses can be compared directly."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 cards")
     out = run_ranks("lm_train_cards_body", 4, tmp_path, list(shape), batch,
@@ -658,7 +768,7 @@ def test_qwen3_train_36_layers_on_four_cards(cuda, tmp_path, shape, batch):
         with open(os.path.join(out, f"rank{rank}.json")) as f:
             recs.append(json.load(f))
     first, again = recs[0]["runs"]
-    _card_record(f"train36_{shape[0]}x{shape[1]}", {
+    _card_record(record, {
         "card": recs[0]["card"], "shape": list(shape), "batch": batch,
         "seq": 4096, "layers": recs[0]["layers"],
         "losses": first["losses"], "losses_again": again["losses"],

@@ -248,7 +248,7 @@ def test_cpu_runs_the_plain_version_without_counting_launches():
     assert set(tfm.fft_fourstep.variant_launches) == {"fourstep", "pack",
                                                       "twiddle"}
     assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0,
-                                              "long": 0}
+                                              "long": 0, "split": 0}
     assert tfm.fft_fourstep.layout_launches == {"lines": 0, "strided": 0}
 
 
@@ -281,13 +281,17 @@ def test_kernel_operands_are_resolved():
     (2, torch.complex128, "dense"), (4, torch.complex128, "radix"),
     (2048, torch.complex128, "long"), (4096, torch.complex128, "long"),
     (48, torch.complex128, "dense"), (16384, torch.complex64, "long"),
-    (8192, torch.complex128, "long"), (32768, torch.complex64, "dense"),
-    (16384, torch.complex128, "dense")])
+    (8192, torch.complex128, "long"), (32768, torch.complex64, "split"),
+    (16384, torch.complex128, "split"), (1 << 24, torch.complex64, "split"),
+    (1 << 22, torch.complex128, "split"), (1 << 25, torch.complex64, "dense"),
+    (1 << 23, torch.complex128, "dense"), (24576, torch.complex64, "dense")])
 def test_kernel_path_selection(n, dtype, path):
     """The path follows N and the dtype alone: power-of-two N with a
     radix instantiation takes the radix kernel, longer power-of-two N
-    whose line fits in a block's shared memory the long-line kernel, every
-    other N the dense one."""
+    whose line fits in a block's shared memory the long-line kernel, the
+    power-of-two N beyond one block up to 2^24 (complex64) / 2^22
+    (complex128) the split route, every other N the dense one (which the
+    card refuses past one block: 2^25 / 2^23, 24576)."""
     assert radix.kernel_path(n, dtype) == path
 
 

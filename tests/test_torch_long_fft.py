@@ -156,7 +156,7 @@ def test_wrapper_runs_the_emulation_on_cpu_tensors():
     assert torch.equal(packed.transpose(0, 1),
                        longline.emulate(x, pack_parts=4))
     assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0,
-                                              "long": 0}
+                                              "long": 0, "split": 0}
 
 
 @pytest.mark.parametrize("dtype,n", [(d, n) for d, s in

@@ -176,13 +176,19 @@ def test_policy_engine_matches_reference_with_batch_dims(case, batch_shape,
 
 
 @pytest.mark.parametrize("n", [2, 8, 12, 13, 64, 96, 512, 1024, 2048, 4096,
-                               8192])
+                               8192, 16384, 32768, 1 << 22, 1 << 24])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_kernel_line_flops_follow_kernel_path(n, dtype):
     got = tpm._line_flops(n, "kernel", dtype)
     if kernel_path(n, dtype) in ("radix", "long"):
         assert got == 5.0 * n * math.log2(n)
         assert got == tpm._line_flops(n, "cufft")
+    elif kernel_path(n, dtype) == "split":
+        # the butterflies plus the inter-step twiddle between the passes,
+        # not factorize's dense count
+        assert got == 5.0 * n * math.log2(n) + 6.0 * n
+        assert tpm._line_flops(n, "cufft") < got \
+            < tpm._line_flops(n, "matmul")
     else:
         n1, n2 = factorize(n)
         assert got == 8.0 * n * (n1 + n2)
