@@ -18,9 +18,13 @@ its result line):
    empty batch, ragged tiles, ``pack_parts``, the twiddle, complex128,
    lazily conjugated operands and twiddles), every radix-path, long-line
    and split length of both dtypes (the long and split ones with both
-   epilogues, also against ``torch.fft``), and strided ``(outer, N,
-   inner)`` blocks through ``fft_fourstep_strided`` (inner of one tile,
-   512, ragged 1000, 262144);
+   epilogues, also against ``torch.fft``), every mixed radix length of
+   both dtypes (r*2^k, r in {3, 5, 9, 15}: both directions, both
+   epilogues, a ``pack_parts`` segment that is not a power of two, also
+   against ``torch.fft``), chirp lengths of both inner routes, and
+   strided ``(outer, N, inner)`` blocks through ``fft_fourstep_strided``
+   (inner of one tile, 512, ragged 1000, 262144; every mixed length whose
+   strided tile fits one block, against ``torch.fft`` too);
 3. the main path: ``plan_fft`` of a 512^3 complex64 grid on a (1, 1)
    ``("data", "model")`` mesh with ``backend="kernel"``, forward and
    inverse for 3 rounds, checked against ``torch.fft.fftn`` and the round
@@ -109,8 +113,8 @@ its result line):
 17. ``[long]``: the long-line kernel at the mixer's (8192, 8192)
     complex64 lines against its plain version and ``torch.fft``, timed
     beside its bound; the other long lengths of both dtypes at 512 MB; the dense kernel at (262144,
-    384); each reached once through ``ops.fft1d`` (one launch on its
-    path); then ``[split]``: the split route (lines beyond one block,
+    448), a length no other route takes; each reached once through
+    ``ops.fft1d`` (one launch on its path); then ``[split]``: the split route (lines beyond one block,
     N = P*Q in two launches through HBM, three with rows on the
     long-line route) at complex64 N = 2^15, 2^16, 2^20, 2^24 and
     complex128 2^14, 2^16, 2^22, about 512 MB of lines each, through
@@ -119,19 +123,34 @@ its result line):
     ``torch.fft`` and the bound;
     ``[split_plan]``: a ``plan_fft`` C2C plan of (64, 64, 32768)
     complex64 on the kernel against ``fftn``, launches per path and line
-    copies recorded; then ``[lm_fftconv]``: the FFT long-convolution
-    mixer at jamba-v0.1-52b's width (8192 channels), B=1, S=2048, 4096,
-    8192, 16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of
+    copies recorded; ``[mixed]``: the radix route at mixed lengths,
+    (262144, 384) complex64 and one length per odd part and dtype at 512
+    MB, each once through ``ops.fft1d`` (one radix launch), against its
+    plain version and ``torch.fft``, timed beside ``torch.fft`` and the
+    bound; ``[mixed_plan]``: ``plan_fft`` C2C at 384^3 complex64 on the
+    kernel, 3 radix launches per direction (2 strided), 0 dense, 0 line
+    copies, against ``fftn`` and the round trip, ms per direction beside
+    ``fftn``, a ``cufft`` plan and the bound; the PPB solve at 384^3
+    against the ``cufft`` backend's, 8 radix launches; ``[chirp]``: the
+    chirp route (Bluestein over two transforms of M on the long-line or
+    split route) at complex64 6144, 24576, 49152, 10007 and complex128
+    3001, 12288, 256 MB each, once through ``ops.fft1d`` (one chirp call,
+    its launches on "chirp"), against its plain version and within 2e-4
+    of ``torch.fft``, timed beside ``torch.fft`` and the bound, the
+    glue's ms apart; then ``[lm_fftconv]``: the FFT long-convolution
+    mixer at jamba-v0.1-52b's width (8192 channels), B=1, S=2048, 3072,
+    4096, 8192, 16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of
     ``"cufft"`` in float32 with the launches of 3 transforms of lines of
-    2S per call on their path (radix, long, long, split, split: a split
-    transform is 2 launches, one strided), none on another path, and no
-    line copy; the mixer's and its 3 transforms' ms on both backends
-    beside the transforms' bound, the peak memory at S=32768;
+    2S per call on their path (radix, chirp, long, long, split, split: a
+    split transform is 2 launches, one strided; a chirp transform 2
+    long-line launches), none on another path, and no line copy; the
+    mixer's and its 3 transforms' ms on both backends beside the
+    transforms' bound, the peak memory at S=32768;
 18. ``[train_fftconv]``: the same mixer's forward and backward at S=2048,
-    4096 and 16384 in float32 on ``fft_backend="kernel"`` (the line
+    3072, 4096 and 16384 in float32 on ``fft_backend="kernel"`` (the line
     transforms' autograd Function) against ``"cufft"``: every gradient
     within 1e-4, the launches of 6 transforms of lines of 2S on their
-    path (radix, long, split) and no line copy, CUDA-event ms on both
+    path (radix, chirp, long, split) and no line copy, CUDA-event ms on both
     backends beside the 6 transforms' bound;
 19. ``[train]``: the LM train step at qwen3-8b's full width with the
     depth cut to 8 of 36 layers (float32 masters and AdamW moments,
@@ -160,7 +179,8 @@ its result line):
     long-line entry's launches are the mixer's at S=4096, the dense
     entry's its ``[long]`` call, the split entry's the mixer's at
     S=16384, with S=32768's and ``[train_fftconv]``'s at S=16384 beside
-    them), then the result line.
+    them, the mixed entry's the 384^3 plan's forward, the chirp entry's
+    the mixer's at S=3072), then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -195,9 +215,10 @@ KERNEL_SOURCE = "src/repro_torch/csrc/fft_fourstep.cu"
 RADIX_SOURCE = "src/repro_torch/csrc/fft_radix.cuh"
 LONG_SOURCE = "src/repro_torch/csrc/fft_long.cuh"
 SPLIT_SOURCE = "src/repro_torch/kernels/split.py"
+CHIRP_SOURCE = "src/repro_torch/kernels/chirp.py"
 #: The routes of B1, as ``radix.kernel_path`` names them and
 #: ``fft_fourstep.path_launches`` counts their launches.
-KERNEL_PATHS = ("radix", "dense", "long", "split")
+KERNEL_PATHS = ("radix", "dense", "long", "split", "chirp")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -315,12 +336,14 @@ def phase_build(timer=time.perf_counter) -> dict:
     long_entries = [e for e in report if e["kernel"].startswith("long")]
     split_entries = [e for e in report if e["kernel"].startswith("split")]
     if lib.log:   # an earlier build reused from disk prints no report
-        from repro_torch.kernels import longline, split
-        want = 21 + sum(len(split.COLUMN_SIZES[d]) + len(split.ROW_SIZES[d])
-                        for d in split.COLUMN_SIZES)    # 21 + 15
+        from repro_torch.kernels import longline, radix, split
+        plain = sum(len(sizes) for sizes in radix.RADIX_SIZES.values())
+        want = plain + sum(len(split.COLUMN_SIZES[d]) + len(split.ROW_SIZES[d])
+                           for d in split.COLUMN_SIZES)    # 83 + 15
         check(len(radix_entries) == want, f"{len(radix_entries)} radix "
-              f"instantiations in the ptxas report, expected {want} (21 "
-              f"plain, the split route's passes A and B)")
+              f"instantiations in the ptxas report, expected {want} "
+              f"({plain} plain: 21 powers of two and the mixed lengths; "
+              f"the split route's passes A and B)")
         want = sum(len(sizes) for sizes in longline.FACTORS.values())
         check(len(long_entries) == want, f"{len(long_entries)} long-line "
               f"instantiations in the ptxas report, expected {want}")
@@ -402,6 +425,27 @@ def kernel_cases():
             cases += [(b, n, i % 2 == 1, None, True, dt, ""),
                       (b, n, i % 2 == 0, 4, False, dt, "")]
     cases.append((2, 1 << 15, False, None, True, c64, "x"))
+    # the mixed radix lengths: every one of both dtypes, both directions,
+    # each epilogue (a pack_parts segment that is not a power of two where
+    # 3 divides N)
+    from repro_torch.kernels import radix
+    for dtype, sizes in radix.RADIX_SIZES.items():
+        dt = str(dtype).removeprefix("torch.")
+        for n in sizes:
+            if radix.is_pow2(n):
+                continue
+            cases += [(37, n, False, None, False, dt, ""),
+                      (5, n, True, 3 if n % 3 == 0 else 2, True, dt, "")]
+    cases.append((37, 384, True, None, True, c64, "x"))
+    # the chirp route: lengths of both inner routes, both dtypes,
+    # directions and epilogues
+    for b, n, inv, parts, tw, dt in ((2, 6144, False, None, True, c64),
+                                     (3, 6144, True, 2, False, c64),
+                                     (1, 10007, True, None, True, c64),
+                                     (1, 24576, False, 4, True, c64),
+                                     (2, 3001, False, None, True, c128),
+                                     (1, 12288, True, 3, False, c128)):
+        cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
 
 
@@ -419,11 +463,27 @@ def strided_cases():
             (6, 128, 40, False, True, c64, "x"),
             (6, 128, 40, False, True, c64, "twiddle"),
             (3, 512, 1000, True, True, c128, ""),
-            (4, 32, 17, False, False, c128, "x")]
+            (4, 32, 17, False, False, c128, "x")] + mixed_strided_cases()
+
+
+def mixed_strided_cases():
+    """The strided entry at every mixed radix length whose strided tile
+    fits one block: a ragged last group of inner indices, both
+    directions and the twiddle by turns."""
+    from repro_torch.kernels import fft_matmul, radix
+    out = []
+    for dtype, sizes in radix.RADIX_SIZES.items():
+        dt = str(dtype).removeprefix("torch.")
+        for i, n in enumerate(sizes):
+            if not radix.is_pow2(n) and fft_matmul.strided_supported(
+                    n, dtype, True):
+                out.append((3, n, 40, i % 2 == 1, i % 3 != 0, dt, ""))
+    return out
 
 
 def phase_kernel_vs_plain(device) -> dict:
     import torch
+    from repro_torch.kernels import radix
     from repro_torch.kernels.fft_matmul import fft_fourstep, fft_fourstep_plain
     from repro_torch.kernels.radix import kernel_path
     worst = {"complex64": 0.0, "complex128": 0.0}
@@ -450,11 +510,14 @@ def phase_kernel_vs_plain(device) -> dict:
             buf = got.transpose(0, 1)
             check(buf.is_contiguous(), f"case {i}: pack buffer not "
                   f"destination-major")
-        if conj or (b and kernel_path(n, dtype) in ("long", "split")):
+        if conj or (b and (kernel_path(n, dtype) in ("long", "split",
+                                                    "chirp")
+                           or not radix.is_pow2(n))):
             # the plain version honours the conjugate bit; so must the
-            # kernel.  On the long and split paths the plain version
-            # mirrors the kernel's index maps: torch.fft, with the
-            # epilogue, is the independent yardstick.
+            # kernel.  On the long, split and chirp paths the plain
+            # version mirrors the kernel's index maps, and the mixed
+            # radix lengths are new: torch.fft, with the epilogue, is the
+            # independent yardstick.
             want = torch.fft.ifft(x) if inv else torch.fft.fft(x)
             want = want * twiddle if twiddle is not None else want
             if parts is not None:
@@ -482,13 +545,13 @@ def phase_kernel_vs_plain(device) -> dict:
             twiddle = twiddle.conj()
         got = fft_fourstep_strided(x, inverse=inv, twiddle=twiddle)
         ref = fft_fourstep_strided_plain(x, inverse=inv, twiddle=twiddle)
-        if conj:
+        if conj or not radix.is_pow2(n):
             want = (torch.fft.ifft if inv else torch.fft.fft)(x, dim=1)
             if twiddle is not None:
                 want = want * twiddle[:, None]
-            check(scaled_err(got, want) <= TOL[dt], f"strided case {i}: conj "
-                  f"{conj} against torch.fft: scaled error "
-                  f"{scaled_err(got, want):.3e}")
+            check(scaled_err(got, want) <= TOL[dt], f"strided case {i} "
+                  f"(N={n}, {dt}): conj {conj!r} against torch.fft: scaled "
+                  f"error {scaled_err(got, want):.3e}")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         check(got.shape == ref.shape and got.is_contiguous(),
@@ -756,7 +819,7 @@ def phase_poisson(device, grid=GRID, solves: int = 3, iters: int = 5):
                   f"forward, 4 inverse) and 2 twiddle (forward)")
             check(fft_fourstep.path_launches == {"radix": 8 * (i + 1),
                                                  "dense": 0, "long": 0,
-                                                 "split": 0},
+                                                 "split": 0, "chirp": 0},
                   f"solve {i}: paths {fft_fourstep.path_launches}, expected "
                   f"every launch on the radix path")
     launches = dict(fft_fourstep.variant_launches)
@@ -1145,6 +1208,7 @@ def path_counts() -> dict:
             "strided": fft_fourstep.layout_launches["strided"],
             **{p: fft_fourstep.path_launches[p] for p in KERNEL_PATHS},
             "split_calls": fft_fourstep.split_calls,
+            "chirp_calls": fft_fourstep.chirp_calls,
             "copies": ops.copies["lines"]}
 
 
@@ -1153,15 +1217,23 @@ def expected_counts(n: int, calls: int, dtype=None) -> dict:
     length ``n``: one launch each on the path ``radix.kernel_path``
     names, or on the split route one split call of two launches on
     "split" (pass A strided, pass B on lines) and a third on lines (pass
-    C, the transpose) where the rows run on the long-line route; nothing
-    on any other path, no line copy."""
+    C, the transpose) where the rows run on the long-line route, or on
+    the chirp route one chirp call of two transforms of M (one launch each
+    on the long-line route, a split call's two or three on the split
+    route), all counted on "chirp"; nothing on any other path, no line
+    copy."""
     import torch
-    from repro_torch.kernels import radix, split
+    from repro_torch.kernels import chirp, radix, split
     dtype = dtype or torch.complex64
     path = radix.kernel_path(n, dtype)
     want = {p: 0 for p in KERNEL_PATHS}
-    want.update(copies=0, split_calls=0)
-    if path == "split":
+    want.update(copies=0, split_calls=0, chirp_calls=0)
+    if path == "chirp":
+        inner = expected_counts(chirp.chirp_length(n), 2 * calls, dtype)
+        want.update(launches=inner["launches"], lines=inner["lines"],
+                    strided=inner["strided"], chirp=inner["launches"],
+                    chirp_calls=calls)
+    elif path == "split":
         long_rows = split.split_plan(n, dtype).row_path == "long"
         want.update(launches=(2 + long_rows) * calls,
                     lines=(1 + long_rows) * calls, strided=calls,
@@ -1679,6 +1751,7 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
             want = {"launches": ndim * nb, "fourstep": ndim * nb,
                     "pack": 0, "twiddle": 0, "radix": ndim * nb,
                     "dense": 0, "long": 0, "split": 0, "split_calls": 0,
+                    "chirp": 0, "chirp_calls": 0,
                     "lines": nb, "strided": (ndim - 1) * nb,
                     "copies": 0}
             check(nb > 0 and got == want,
@@ -1976,7 +2049,7 @@ def phase_lm_archs(device, steps: int = 3, b: int = 2, s: int = 32) -> dict:
 
 
 def phase_lm_fftconv(device, b: int = 1,
-                     seqs=(2048, 4096, 8192, 16384, 32768),
+                     seqs=(2048, 3072, 4096, 8192, 16384, 32768),
                      iters: int = 10) -> dict:
     """``[lm_fftconv]``: ``ssm.fft_conv`` at jamba-v0.1-52b's width (d_model
     4096, expand 2: 8192 channels, 16 basis functions), B=1, in float32 and
@@ -1987,8 +2060,9 @@ def phase_lm_fftconv(device, b: int = 1,
     ``expected_counts``): 3 launches on the path ``radix.kernel_path``
     names (radix at S=2048, long at S=4096 and 8192), on lines; at
     S=16384 and 32768 (``prefill_32k``'s S) 3 split calls of 2 launches
-    each on the split path (pass A strided, pass B on lines); none on
-    another path, and no line copy.  The 3 transforms alone, kernel
+    each on the split path (pass A strided, pass B on lines); at S=3072
+    (lines of 6144) 3 chirp calls of 2 long-line launches each on the
+    chirp path; none on another path, and no line copy.  The 3 transforms alone, kernel
     against cufft, are held to the kernel's complex64 tolerance.
     CUDA-event ms of the mixer on both backends, of its 3 transforms
     alone on the kernel and on ``torch.fft``, the 3 transforms' bound, and
@@ -2097,81 +2171,261 @@ def phase_lm_fftconv(device, b: int = 1,
     return out
 
 
+def line_entry(x, phase: str, iters: int = 10, plain_iters: int = 3,
+               tol: float = None) -> dict:
+    """The user entry (``ops.fft1d``) once on ``(B, N)`` lines with the
+    counts set to 0 just before and read just after (``expected_counts``
+    for one call), held against the plain version (``TOL``) and
+    ``torch.fft`` (``tol``, or ``TOL``); then CUDA-event ms of the kernel
+    wrapper, its plain version and ``torch.fft.fft`` beside the bound."""
+    import torch
+    from repro_torch.kernels import ops, radix
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                fft_fourstep_plain)
+    cuda = x.device.type == "cuda"
+    b, n = x.shape
+    dt = str(x.dtype).removeprefix("torch.")
+    path = radix.kernel_path(n, x.dtype)
+    reset_counts()
+    got = ops.fft1d(x)
+    if cuda:
+        torch.cuda.synchronize(x.device)
+    counts = path_counts()
+    want = expected_counts(n, 1, x.dtype)
+    if cuda:
+        check(counts_match(counts, want), f"[{phase}] ({b}, {n}) {dt}: "
+              f"counts {counts}, expected {want}")
+    ref = fft_fourstep_plain(x)
+    lib = torch.fft.fft(x)
+    rec = {"shape": [b, n], "dtype": dt, "path": path, "counts": counts,
+           "launches": counts[path], "bitwise": bool(torch.equal(got, ref)),
+           "max_abs_err": float((got - ref).abs().max()),
+           "scaled_err": scaled_err(got, ref),
+           "library_err": scaled_err(got, lib)}
+    del got, ref, lib
+    check(rec["scaled_err"] <= TOL[dt]
+          and rec["library_err"] <= (tol or TOL[dt]),
+          f"[{phase}] ({b}, {n}) {dt}: kernel vs plain "
+          f"{rec['scaled_err']:.3e} (bound {TOL[dt]}), vs torch.fft "
+          f"{rec['library_err']:.3e} (bound {tol or TOL[dt]})")
+    rec["bound_ms"], rec["bound_by"] = fft_bound_ms(b, n, x.element_size())
+    if cuda:
+        rec["ms"] = time_ms(lambda: fft_fourstep(x), iters)
+        rec["plain_ms"] = time_ms(lambda: fft_fourstep_plain(x),
+                                  plain_iters, 1)
+        rec["library_ms"] = time_ms(lambda: torch.fft.fft(x), iters)
+    return rec
+
+
+def print_lines(phase: str, recs) -> None:
+    for r in recs:
+        print(f"[{phase}] {r['path']} {tuple(r['shape'])} {r['dtype']}: "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, torch.fft "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"{r['bound_by']}); vs plain {r['scaled_err']:.3e} (bitwise "
+              f"{r['bitwise']}), vs torch.fft {r['library_err']:.3e}; "
+              f"launches {r['counts']}"
+              + (f"; glue ms {r['glue_ms']}" if "glue_ms" in r else ""))
+
+
 def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
-               dense_shape=(262144, 384), iters: int = 10) -> dict:
+               dense_shape=(262144, 448), iters: int = 10) -> dict:
     """``[long]``: the long-line kernel at the mixer's shape at S=4096,
     (8192, 8192) complex64, against its plain version (``longline.
     emulate``) and ``torch.fft.fft``, timed beside the HBM bound; every
     other long length of
     both dtypes at 512 MB of lines against ``torch.fft``; and the dense
-    kernel at a mixed-radix shape, (262144, 384) complex64, with its
-    plain version, ``torch.fft`` and the bound.  Each kernel is reached
+    kernel at a length no other route takes, (262144, 448) complex64
+    (448 = 7*64: no radix-7 codelet), with its plain version,
+    ``torch.fft`` and the bound.  Each kernel is reached
     once through ``ops.fft1d`` with the counts set to 0 just before and
     read just after (one launch on its path)."""
     import torch
-    from repro_torch.kernels import longline, ops
-    from repro_torch.kernels.fft_matmul import (fft_fourstep,
-                                                fft_fourstep_plain)
-    cuda = device.type == "cuda"
-    out = {}
-
-    def entry(x, path, key):
-        """The user entry once, counted, then the kernel against its
-        plain version and torch.fft, and the times."""
-        reset_counts()
-        got = ops.fft1d(x)
-        if cuda:
-            torch.cuda.synchronize(device)
-        counts = path_counts()
-        if cuda:
-            check(counts["launches"] == 1 and counts[path] == 1
-                  and counts["copies"] == 0,
-                  f"[long] {key}: counts {counts}, expected one {path} "
-                  f"launch")
-        dt = str(x.dtype).removeprefix("torch.")
-        ref = fft_fourstep_plain(x)
-        lib = torch.fft.fft(x)
-        rec = {"shape": list(x.shape), "dtype": dt, "path": path,
-               "launches": counts[path],
-               "max_abs_err": float((got - ref).abs().max()),
-               "scaled_err": scaled_err(got, ref),
-               "library_err": scaled_err(got, lib)}
-        del got, ref, lib
-        check(rec["scaled_err"] <= TOL[dt] and rec["library_err"] <= TOL[dt],
-              f"[long] {key}: kernel vs plain {rec['scaled_err']:.3e}, vs "
-              f"torch.fft {rec['library_err']:.3e} (bound {TOL[dt]})")
-        rec["bound_ms"], rec["bound_by"] = fft_bound_ms(
-            x.shape[0], x.shape[1], x.element_size())
-        if cuda:
-            rec["ms"] = time_ms(lambda: fft_fourstep(x), iters)
-            rec["plain_ms"] = time_ms(lambda: fft_fourstep_plain(x), 3, 1)
-            rec["library_ms"] = time_ms(lambda: torch.fft.fft(x), iters)
-        return rec
-
-    x = randc(shape, torch.complex64, device, SEED + 20)
-    out["long"] = rec = entry(x, "long", str(shape))
-    del x
-    out["lengths"] = []
+    from repro_torch.kernels import longline
+    out = {"long": line_entry(randc(shape, torch.complex64, device,
+                                    SEED + 20), "long", iters),
+           "lengths": []}
     for dtype, sizes in longline.FACTORS.items():
         for n in sizes:
             if (dtype, n) == (torch.complex64, shape[1]):
                 continue
             b = lengths_bytes // (n * dtype.itemsize)
-            x = randc((b, n), dtype, device, SEED + n)
-            out["lengths"].append(entry(x, "long", f"({b}, {n}) {dtype}"))
-            del x
-    x = randc(dense_shape, torch.complex64, device, SEED + 21)
-    out["dense"] = entry(x, "dense", str(dense_shape))
-    del x
-    if cuda:
+            out["lengths"].append(line_entry(
+                randc((b, n), dtype, device, SEED + n), "long", iters))
+    out["dense"] = line_entry(randc(dense_shape, torch.complex64, device,
+                                    SEED + 21), "long", iters)
+    if device.type == "cuda":
         torch.cuda.empty_cache()
-        for r in [out["long"], *out["lengths"], out["dense"]]:
-            print(f"[long] {r['path']} {tuple(r['shape'])} {r['dtype']}: "
-                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, torch.fft "
-                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-                  f"{r['bound_by']}); vs plain {r['scaled_err']:.3e}, vs "
-                  f"torch.fft {r['library_err']:.3e}")
+        print_lines("long", [out["long"], *out["lengths"], out["dense"]])
     return out
+
+#: (dtype name, N) of ``[mixed]``'s timings beside (262144, 384)
+#: complex64: one length per odd part r = 3, 5, 9, 15 and per dtype.
+MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
+                 ("complex64", 2304), ("complex64", 3840),
+                 ("complex128", 768), ("complex128", 640),
+                 ("complex128", 576), ("complex128", 960))
+
+
+def phase_mixed(device, shape=(262144, 384), lengths=MIXED_LENGTHS,
+                lengths_bytes: int = 512 << 20, iters: int = 10) -> dict:
+    """``[mixed]``: the radix route at mixed lengths (N = r*2^k, chains
+    of radix-5, 3, 4 and 2 codelets): (262144, 384) complex64, where the
+    dense route took 3.4354 ms before, and one length per odd part and
+    dtype at about 512 MB of lines, each reached once through
+    ``ops.fft1d`` (one radix launch), against its plain version and
+    ``torch.fft``, timed beside ``torch.fft.fft`` and the bound."""
+    import torch
+    out = {"main": line_entry(randc(shape, torch.complex64, device,
+                                    SEED + 70), "mixed", iters),
+           "lengths": []}
+    for i, (dt, n) in enumerate(lengths):
+        dtype = getattr(torch, dt)
+        b = lengths_bytes // (n * dtype.itemsize)
+        out["lengths"].append(line_entry(
+            randc((b, n), dtype, device, SEED + 71 + i), "mixed", iters))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        print_lines("mixed", [out["main"], *out["lengths"]])
+    return out
+
+
+def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5) -> dict:
+    """``[mixed_plan]``: the main path at a mixed grid.  ``plan_fft`` C2C
+    of 384^3 complex64 (453 MB) on ``backend="kernel"``: forward against
+    ``fftn`` (``PATH_TOL``) and the round trip (``ROUNDTRIP_TOL``), with
+    exactly 3 radix launches per direction (2 on the strided entry), 0
+    dense, 0 line copies, a contiguous result; CUDA-event ms per
+    direction beside ``fftn``, a ``cufft``-backend plan and the bound
+    (three stages, each reading and writing the grid once).  Then the
+    PPB Poisson solve at 384^3 float32 on the kernel against the
+    ``cufft`` backend's (``PATH_TOL``), all its launches on the radix
+    route, timed on both."""
+    import torch
+    from repro_torch import PoissonSolver, make_mesh, plan_fft
+    cuda = device.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if cuda else device)
+    plan = plan_fft(mesh, grid, backend="kernel")
+    x = randc(grid, torch.complex64, device, SEED + 80)
+    reset_counts()
+    y = plan.forward(x)
+    if cuda:
+        torch.cuda.synchronize(device)
+    fwd = path_counts()
+    reset_counts()
+    xr = plan.inverse(y, sharded_in=True)
+    if cuda:
+        torch.cuda.synchronize(device)
+    inv = path_counts()
+    ref = torch.fft.fftn(x)
+    out = {"grid": list(grid), "forward_counts": fwd, "inverse_counts": inv,
+           "err_fwd": scaled_err(y, ref), "err_roundtrip": scaled_err(xr, x),
+           "contiguous": bool(y.is_contiguous()),
+           "launches": fwd["radix"]}
+    del ref, xr
+    check(out["err_fwd"] <= PATH_TOL and out["err_roundtrip"]
+          <= ROUNDTRIP_TOL, f"[mixed_plan] forward vs fftn "
+          f"{out['err_fwd']:.3e} (bound {PATH_TOL}), round trip "
+          f"{out['err_roundtrip']:.3e} (bound {ROUNDTRIP_TOL})")
+    if cuda:
+        for key, c in (("forward", fwd), ("inverse", inv)):
+            check(c["launches"] == 3 and c["radix"] == 3 and c["dense"] == 0
+                  and c["strided"] == 2 and c["copies"] == 0,
+                  f"[mixed_plan] {key}: counts {c}, expected 3 radix "
+                  f"launches (2 strided), no dense launch, no line copy")
+        check(out["contiguous"], "[mixed_plan] forward result not "
+              "contiguous")
+    stage, by = fft_bound_ms(x.numel() // grid[-1], grid[-1], 8)
+    out.update(bound_ms=3 * stage, bound_by=by)
+    topo = ("periodic", "periodic", "bounded")
+    solver = PoissonSolver(mesh, grid, topology=topo, backend="kernel")
+    csolver = PoissonSolver(mesh, grid, topology=topo, backend="cufft")
+    gen = torch.Generator(device=device).manual_seed(SEED + 81)
+    rhs = torch.randn(grid, dtype=torch.float32, device=device,
+                      generator=gen)
+    rhs -= rhs.mean()
+    reset_counts()
+    phi = solver(rhs)
+    if cuda:
+        torch.cuda.synchronize(device)
+    out["poisson_counts"] = pc = path_counts()
+    out["poisson_err"] = scaled_err(phi, csolver(rhs))
+    check(out["poisson_err"] <= PATH_TOL, f"[mixed_plan] PPB solve vs the "
+          f"cufft backend's {out['poisson_err']:.3e} (bound {PATH_TOL})")
+    if cuda:
+        check(pc["launches"] == pc["radix"] == 8 and pc["copies"] == 0,
+              f"[mixed_plan] PPB solve: counts {pc}, expected 8 radix "
+              f"launches and no line copy")
+        cplan = plan_fft(mesh, grid, backend="cufft")
+        out.update(
+            kernel_fwd_ms=time_ms(lambda: plan.forward(x), iters),
+            kernel_inv_ms=time_ms(lambda: plan.inverse(y, sharded_in=True),
+                                  iters),
+            cufft_fwd_ms=time_ms(lambda: cplan.forward(x), iters),
+            fftn_ms=time_ms(lambda: torch.fft.fftn(x), iters),
+            solve_kernel_ms=time_ms(lambda: solver(rhs), iters),
+            solve_cufft_ms=time_ms(lambda: csolver(rhs), iters))
+        print(f"[mixed_plan] grid {grid} complex64 on the kernel: forward vs "
+              f"fftn {out['err_fwd']:.3e}, round trip "
+              f"{out['err_roundtrip']:.3e}; launches forward {fwd}, inverse "
+              f"{inv}; ms forward {out['kernel_fwd_ms']:.4f}, inverse "
+              f"{out['kernel_inv_ms']:.4f}, cufft plan "
+              f"{out['cufft_fwd_ms']:.4f}, fftn {out['fftn_ms']:.4f}, bound "
+              f"{out['bound_ms']:.4f} ({by}); PPB solve vs cufft "
+              f"{out['poisson_err']:.3e}, launches {pc}, ms kernel "
+              f"{out['solve_kernel_ms']:.4f} / cufft "
+              f"{out['solve_cufft_ms']:.4f}")
+    del x, y, phi, rhs
+    return out
+
+
+#: (dtype name, N) of ``[chirp]``: the mixer's lines at S = 3072, lengths
+#: whose M takes the long-line and the split route, a prime past one
+#: block; complex128 likewise.
+CHIRP_LENGTHS = (("complex64", 6144), ("complex64", 24576),
+                 ("complex64", 49152), ("complex64", 10007),
+                 ("complex128", 3001), ("complex128", 12288))
+
+
+def phase_chirp(device, lengths=CHIRP_LENGTHS,
+                lengths_bytes: int = 256 << 20, iters: int = 10) -> dict:
+    """``[chirp]``: the chirp route (Bluestein over two transforms of M =
+    2^ceil(log2(2N - 1)) on the long-line or split route) at each of
+    ``lengths``, about 256 MB of lines, through ``ops.fft1d`` once (one
+    chirp call, its launches all on "chirp": ``expected_counts``), against
+    its plain version (``chirp.emulate``; ``TOL``) and within
+    ``PATH_TOL`` of ``torch.fft``; CUDA-event ms beside ``torch.fft.fft``
+    and the lines' bound, and the glue's ms apart (the premultiply and
+    pad, the trim)."""
+    import torch
+    from repro_torch.kernels import chirp
+    from repro_torch.kernels.fft_matmul import _chirp_constants
+    cuda = device.type == "cuda"
+    out = {"lengths": []}
+    for i, (dt, n) in enumerate(lengths):
+        dtype = getattr(torch, dt)
+        b = max(1, lengths_bytes // (n * dtype.itemsize))
+        x = randc((b, n), dtype, device, SEED + 90 + i)
+        rec = line_entry(x, "chirp", iters, plain_iters=2, tol=PATH_TOL)
+        m = chirp.chirp_length(n)
+        rec["m"] = m
+        if cuda:
+            pre, _, _ = _chirp_constants(n, False, dtype, device)
+            padded = chirp.premultiply(x, pre, m)
+            rec["glue_ms"] = {
+                "premultiply": time_ms(
+                    lambda: chirp.premultiply(x, pre, m), iters),
+                "trim": time_ms(lambda: chirp.trim(padded, n, None), iters)}
+            del padded
+        out["lengths"].append(rec)
+        del x
+        if cuda:
+            torch.cuda.empty_cache()
+    if cuda:
+        print_lines("chirp", out["lengths"])
+    return out
+
 
 #: (dtype name, N) of ``[split]``: the ends of the route in both dtypes,
 #: the mixer's lines at S = 16384 and 32768, and a length between.
@@ -2801,9 +3055,18 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["split_plan"] = phase_split_plan(device)
     torch.cuda.empty_cache()
+    report["mixed"] = mixed = phase_mixed(device)
+    torch.cuda.empty_cache()
+    report["mixed_plan"] = mixed_plan = phase_mixed_plan(device)
+    torch.cuda.empty_cache()
+    report["chirp"] = chirp_ = phase_chirp(device)
+    torch.cuda.empty_cache()
     report["lm_fftconv"] = fftconv = phase_lm_fftconv(device)
     torch.cuda.empty_cache()
     report["train_fftconv"] = train_fftconv = phase_train_fftconv(device)
+    torch.cuda.empty_cache()
+    report["train_fftconv_3072"] = train_chirp = phase_train_fftconv(
+        device, s=3072, iters=3)
     torch.cuda.empty_cache()
     report["train_fftconv_4096"] = train_long = phase_train_fftconv(
         device, s=4096)
@@ -2883,7 +3146,7 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "lm_fftconv_8192": mixer_runs[8192]["float32"]["counts"]["long"],
              "train_fftconv_4096": train_long["counts"]["long"]}},
-        # launches: one ops.fft1d call at (262144, 384)
+        # launches: one ops.fft1d call at (262144, 448)
         {"name": "fft_fourstep_dense", "route": "cuda",
          "source": KERNEL_SOURCE, "path": "dense",
          "replaces": "src/repro/kernels/fft_matmul.py:216",
@@ -2912,6 +3175,38 @@ def main(timer=time.perf_counter) -> int:
              "lm_fftconv_16384": mixer_runs[16384]["float32"]["counts"],
              "lm_fftconv_32768": mixer_runs[32768]["float32"]["counts"],
              "train_fftconv_16384": train_split["counts"]}},
+        # launches: the 384^3 plan's forward ([mixed_plan], 3 per
+        # direction); timed at (262144, 384) complex64
+        {"name": "fft_fourstep_mixed", "route": "cuda",
+         "source": RADIX_SOURCE, "path": "radix",
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": mixed_plan["launches"],
+         "max_abs_err": mixed["main"]["max_abs_err"],
+         "scaled_err": mixed["main"]["scaled_err"],
+         "ms": mixed["main"]["ms"], "plain_ms": mixed["main"]["plain_ms"],
+         "bound_ms": mixed["main"]["bound_ms"],
+         "bound_by": mixed["main"]["bound_by"],
+         "library_ms": mixed["main"]["library_ms"],
+         "launches_by_path": {
+             "mixed_plan_inverse": mixed_plan["inverse_counts"]["radix"],
+             "mixed_plan_poisson": mixed_plan["poisson_counts"]["radix"]}},
+        # launches: the mixer at S=3072, its main path (3 chirp calls of
+        # 2 long-line launches); timed at [chirp]'s lines of 6144
+        {"name": "fft_fourstep_chirp", "route": "cuda",
+         "source": CHIRP_SOURCE, "path": "chirp",
+         "sources": [CHIRP_SOURCE, LONG_SOURCE, RADIX_SOURCE],
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": mixer_runs[3072]["float32"]["counts"]["chirp"],
+         "max_abs_err": chirp_["lengths"][0]["max_abs_err"],
+         "scaled_err": chirp_["lengths"][0]["scaled_err"],
+         "ms": chirp_["lengths"][0]["ms"],
+         "plain_ms": chirp_["lengths"][0]["plain_ms"],
+         "bound_ms": chirp_["lengths"][0]["bound_ms"],
+         "bound_by": chirp_["lengths"][0]["bound_by"],
+         "library_ms": chirp_["lengths"][0]["library_ms"],
+         "launches_by_path": {
+             "lm_fftconv_3072": mixer_runs[3072]["float32"]["counts"],
+             "train_fftconv_3072": train_chirp["counts"]}},
     ]
     report["kernels"] = kernels
     report["seconds"] = timer() - t0

@@ -13,7 +13,8 @@ line), ``matmul`` as the dense four-step 8 N (N1 + N2).  The ``kernel``
 backend follows what the hand-written kernel runs for the line's length
 and dtype (``kernels/radix.kernel_path``): 5 N log2 N on its radix and
 long-line paths, that plus 6 N (the inter-step twiddle) on its split
-route, the dense four-step count on its general path.
+route, two transforms of the padded length and their twiddles on its
+chirp route, the dense four-step count on its general path.
 
 Calibration times on the card with CUDA events, after a warm-up call that
 also takes the kernel's first-use build, and on the CPU with the host clock
@@ -196,17 +197,24 @@ def _line_flops(n: int, backend: str, dtype: torch.dtype = torch.complex64
     ``cufft``: 5 n log2 n butterflies.  ``matmul``: the four-step path's
     two complex matmuls plus twiddle, 8 real FLOPs per complex MAC over
     n*(n1+n2) MACs.  ``kernel``: what the kernel runs for this length and
-    complex ``dtype`` — 5 n log2 n on its radix and long-line paths; on
-    its split route the same plus the inter-step twiddle between its two
-    passes, one complex multiply (6 FLOPs) per element; the four-step
-    count on its dense path.
+    complex ``dtype`` — 5 n log2 n on its radix (powers of two and mixed
+    lengths) and long-line paths; on its split route the same plus the
+    inter-step twiddle between its two passes, one complex multiply (6
+    FLOPs) per element; on its chirp route two transforms of M =
+    ``chirp.chirp_length(n)`` on their own route, their two twiddle
+    epilogues and the input's chirp (6 FLOPs per element each); the
+    four-step count on its dense path.
     """
     if backend == "kernel":
         # deferred: the kernels package imports core
+        from ..kernels.chirp import chirp_length
         from ..kernels.radix import kernel_path
         path = kernel_path(n, dtype)
         if path == "split":
             return 5.0 * n * math.log2(n) + 6.0 * n
+        if path == "chirp":
+            m = chirp_length(n)
+            return 2.0 * _line_flops(m, "kernel", dtype) + 6.0 * (2 * m + n)
         backend = "matmul" if path == "dense" else "cufft"
     if backend == "matmul":
         from .transforms import factorize

@@ -1,17 +1,21 @@
 // Batched 1-D FFT of complex lines by the four-step method, for Hopper.
 //
-// Four routes, chosen by the wrapper from N and the dtype alone
+// Five routes, chosen by the wrapper from N and the dtype alone
 // (kernels/radix.py::kernel_path): power-of-two N up to 4096 (complex64)
-// or 1024 (complex128) takes the radix route (fft_radix.cuh: two passes of
-// in-register codelets, contiguous or strided lines); the longer
+// or 1024 (complex128), and the mixed N = r*2^k, r in {3, 5, 9, 15}, whose
+// codelets stay in registers, take the radix route (fft_radix.cuh: two
+// passes of in-register codelets, contiguous or strided lines); the longer
 // power-of-two N whose line fits in one block's shared memory take the
 // long-line route (fft_long.cuh: three passes over a line loaded by TMA);
 // the power-of-two N beyond one block (complex64 to 2^24, complex128 to
 // 2^22) take the split route (kernels/split.py: N = P*Q, pass A a strided
 // radix launch on the P-long columns with the inter-step twiddle, pass B
 // a radix launch on the Q-long rows stored transposed, or a long-line
-// launch on them stored in place and a transpose); any other N takes the
-// general dense kernel below.
+// launch on them stored in place and a transpose); any other N beyond one
+// block takes the chirp route (kernels/chirp.py: Bluestein's convolution
+// as two of these launches on lines of M = 2^ceil(log2(2N - 1)), the
+// chirps in their twiddle epilogues); any other N takes the general dense
+// kernel below.
 //
 // Replaces the TPU kernel src/repro/kernels/fft_matmul.py::_fft_kernel (the
 // pl.pallas_call in fft1d_planes), with its two fused epilogues: the
@@ -205,27 +209,28 @@ int repro_fft_fourstep_c128(const void* x, void* out, const void* w1,
                         lines, w2_smem, smem_bytes, stream);
 }
 
-// The radix path (fft_radix.cuh) for power-of-two N.  `consts` holds T
-// (N1 x N2) then the codelet table (N2/2); `tw` may be null.  Contiguous
-// lines: outer = B, inner = 1, strided = 0, `out` (parts, B, N/parts) with
-// seg_log2 = log2(N/parts).  Strided lines: `x` and `out` are contiguous
-// (outer, N, inner), strided = 1, seg_log2 = log2(N).  Returns the CUDA
-// error code of the launch (0 on success).
+// The radix path (fft_radix.cuh) for the N of radix.RADIX_SIZES.
+// `consts` holds T (N1 x N2) then the codelet tables (radix.codelet_table);
+// `tw` may be null.  Contiguous lines: outer = B, inner = 1, strided = 0,
+// `out` (parts, B, N/parts) with seg_arg = log2(N/parts) for a power-of-two
+// N, N/parts for a mixed N.  Strided lines: `x` and `out` are contiguous
+// (outer, N, inner), strided = 1, seg_arg = log2(N) or N.  Returns the
+// CUDA error code of the launch (0 on success).
 int repro_fft_radix_c64(const void* x, void* out, const void* consts,
                         const void* tw, long long outer, long long inner,
-                        int n, int inverse, int seg_log2, int lines_log2,
+                        int n, int inverse, int seg_arg, int lines_log2,
                         int strided, int smem_bytes, void* stream) {
   return repro_fft::radix_dispatch<float, repro_fft::kRadixPlain>(
-      n, x, out, consts, tw, outer, inner, inverse, seg_log2, lines_log2,
+      n, x, out, consts, tw, outer, inner, inverse, seg_arg, lines_log2,
       strided, 0, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 int repro_fft_radix_c128(const void* x, void* out, const void* consts,
                          const void* tw, long long outer, long long inner,
-                         int n, int inverse, int seg_log2, int lines_log2,
+                         int n, int inverse, int seg_arg, int lines_log2,
                          int strided, int smem_bytes, void* stream) {
   return repro_fft::radix_dispatch<double, repro_fft::kRadixPlain>(
-      n, x, out, consts, tw, outer, inner, inverse, seg_log2, lines_log2,
+      n, x, out, consts, tw, outer, inner, inverse, seg_arg, lines_log2,
       strided, 0, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 

@@ -1,5 +1,6 @@
-// The radix path of the four-step kernel: power-of-two N = N1*N2 on
-// Hopper, with in-register sub-DFTs.
+// The radix path of the four-step kernel: N = N1*N2 on Hopper, with
+// in-register sub-DFTs, for the powers of two and the mixed lengths
+// r*2^k, r in {3, 5, 9, 15} (kernels/radix.py::RADIX_SIZES).
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -23,6 +24,18 @@
 //  * The codelets' twiddles come from one table of W_N2^k, k < N2/2, and
 //    T from an N-element table, both built in float64 on the host
 //    (kernels/fft_matmul.py::_radix_constants) and kept in shared memory.
+//  * Mixed lengths (384 = 16*24): a codelet whose length is not a power of
+//    two is a mixed-radix decimation in time over a compile-time chain of
+//    radix-5, 3, 4 and 2 butterflies (mixed_radix), loaded in
+//    digit-reversed order (load_slot); the radix-3, 4 and 5 DFTs are
+//    constant rotations with the direction's sign, and the inter-stage
+//    twiddles come from the codelet's own table of W_L^k, k < L (N1 need
+//    not divide N2, so each codelet has its table: N2 then N1 entries).
+//    The row index splits by a division by the constant N1 or N2 where a
+//    power of two is a shift, and the pack_parts segment (seg_arg, its
+//    length for a mixed N) by a division.  The power-of-two instantiations
+//    compile as before (the mixed code sits behind if constexpr).  The
+//    split route's passes stay powers of two.
 //    The codelets, loads and stores unroll at compile time (static_for),
 //    so every index into the register arrays and the codelet table is a
 //    constant expression.
@@ -106,6 +119,55 @@ __device__ __forceinline__ void static_for(F& f) {
   }
 }
 
+__host__ __device__ constexpr bool is_pow2(int n) {
+  return n > 0 && (n & (n - 1)) == 0;
+}
+
+// The exponent of the prime p in n.
+__host__ __device__ constexpr int exponent(int n, int p) {
+  int e = 0;
+  while (n > 1 && n % p == 0) {
+    n /= p;
+    ++e;
+  }
+  return e;
+}
+
+// The radix of stage t (the first is t = 0) of a mixed codelet of length
+// L = 2^a 3^b 5^c: the 5s, the 3s, then the 4s and a last 2
+// (kernels/radix.py::radices).
+__host__ __device__ constexpr int mixed_radix(int L, int t) {
+  const int c5 = exponent(L, 5), c3 = exponent(L, 3), a = exponent(L, 2);
+  return t < c5 ? 5 : t < c5 + c3 ? 3 : t < c5 + c3 + a / 2 ? 4 : 2;
+}
+
+__host__ __device__ constexpr int mixed_count(int L) {
+  const int a = exponent(L, 2);
+  return exponent(L, 5) + exponent(L, 3) + a / 2 + a % 2;
+}
+
+// The product of the radices of stages 0 .. t-1.
+__host__ __device__ constexpr int mixed_span(int L, int t) {
+  int m = 1;
+  for (int i = 0; i < t; ++i) m *= mixed_radix(L, i);
+  return m;
+}
+
+// The register a codelet of length L loads its input i into: bit reversal
+// for a power of two; else i's digits in the chain's mixed radix, the last
+// stage's least significant, each weighted by the span of the stages
+// before its own (kernels/radix.py::load_slot).
+__host__ __device__ constexpr int load_slot(int L, int i) {
+  if (is_pow2(L)) return bitrev(i, ilog2(L));
+  int p = 0;
+  for (int t = mixed_count(L) - 1; t >= 0; --t) {
+    const int r = mixed_radix(L, t);
+    p += (i % r) * mixed_span(L, t);
+    i /= r;
+  }
+  return p;
+}
+
 // Stages M, 2M, ..., L of an in-register radix-2 decimation-in-time FFT
 // of length L: v holds the input in bit-reversed order and ends in natural
 // order.  w[k] = exp(sign*2*pi*i*k/WL), k < WL/2, with L dividing WL.
@@ -129,6 +191,129 @@ __device__ __forceinline__ void fft_stages(cpx<R> (&v)[L],
   }
 }
 
+// i*s*a for the direction's sign s = +-1.
+template <typename R>
+__device__ __forceinline__ cpx<R> rot(cpx<R> a, R s) {
+  cpx<R> r;
+  r.re = -s * a.im;
+  r.im = s * a.re;
+  return r;
+}
+
+template <typename R>
+__device__ __forceinline__ cpx<R> cscale(cpx<R> a, R k) {
+  a.re *= k;
+  a.im *= k;
+  return a;
+}
+
+// a times w[E], or a as it is where E = 0.
+template <int E, typename R>
+__device__ __forceinline__ void twiddle_by(cpx<R>& a,
+                                           const cpx<R>* __restrict__ w) {
+  if constexpr (E != 0) a = cmul(a, w[E]);
+}
+
+// The 3-, 4- and 5-point DFTs with W_r = exp(s*2*pi*i/r), in place, as
+// kernels/radix.py::_dft_small computes them: constant rotations, no table.
+template <typename R>
+__device__ __forceinline__ void dft3(cpx<R>& a0, cpx<R>& a1, cpx<R>& a2,
+                                     R s) {
+  const R kS3 = R(0.86602540378443864676);  // sin(2*pi/3)
+  const cpx<R> t1 = cadd(a1, a2);
+  const cpx<R> d = rot(cscale(csub(a1, a2), kS3), s);
+  const cpx<R> t2 = csub(a0, cscale(t1, R(0.5)));
+  a0 = cadd(a0, t1);
+  a1 = cadd(t2, d);
+  a2 = csub(t2, d);
+}
+
+template <typename R>
+__device__ __forceinline__ void dft4(cpx<R>& a0, cpx<R>& a1, cpx<R>& a2,
+                                     cpx<R>& a3, R s) {
+  const cpx<R> t0 = cadd(a0, a2), t1 = csub(a0, a2);
+  const cpx<R> t2 = cadd(a1, a3), t3 = rot(csub(a1, a3), s);
+  a0 = cadd(t0, t2);
+  a1 = cadd(t1, t3);
+  a2 = csub(t0, t2);
+  a3 = csub(t1, t3);
+}
+
+template <typename R>
+__device__ __forceinline__ void dft5(cpx<R>& a0, cpx<R>& a1, cpx<R>& a2,
+                                     cpx<R>& a3, cpx<R>& a4, R s) {
+  const R kC1 = R(0.30901699437494742410);   // cos(2*pi/5)
+  const R kC2 = R(-0.80901699437494742410);  // cos(4*pi/5)
+  const R kS1 = R(0.95105651629515357212);   // sin(2*pi/5)
+  const R kS2 = R(0.58778525229247312917);   // sin(4*pi/5)
+  const cpx<R> b1 = cadd(a1, a4), b2 = cadd(a2, a3);
+  const cpx<R> d1 = csub(a1, a4), d2 = csub(a2, a3);
+  const cpx<R> e1 = cadd(a0, cadd(cscale(b1, kC1), cscale(b2, kC2)));
+  const cpx<R> e2 = cadd(a0, cadd(cscale(b1, kC2), cscale(b2, kC1)));
+  const cpx<R> f1 = rot(cadd(cscale(d1, kS1), cscale(d2, kS2)), s);
+  const cpx<R> f2 = rot(csub(cscale(d1, kS2), cscale(d2, kS1)), s);
+  a0 = cadd(a0, cadd(b1, b2));
+  a1 = cadd(e1, f1);
+  a4 = csub(e1, f1);
+  a2 = cadd(e2, f2);
+  a3 = csub(e2, f2);
+}
+
+// Stage T and the ones after it of a mixed codelet of length L
+// (kernels/radix.py::mixed_codelet): stage T of radix r after stages
+// spanning m does, for every block b of m*r and j < m, the r-point DFT of
+// v[b + j + q*m], q < r, input q first multiplied by W_(m*r)^(j*q) =
+// w[j*q*L/(m*r)] from the codelet's table of W_L^k, k < L.
+template <int L, int T, typename R>
+__device__ __forceinline__ void mixed_stages(cpx<R> (&v)[L],
+                                             const cpx<R>* __restrict__ w,
+                                             R s) {
+  if constexpr (T < mixed_count(L)) {
+    constexpr int r = mixed_radix(L, T);
+    constexpr int m = mixed_span(L, T);
+    constexpr int step = L / (m * r);
+    auto fly = [&](auto g) {
+      constexpr int j = decltype(g)::value % m;
+      constexpr int i0 = (decltype(g)::value / m) * (m * r) + j;
+      twiddle_by<j * step>(v[i0 + m], w);
+      if constexpr (r == 2) {
+        const cpx<R> u = v[i0];
+        v[i0] = cadd(u, v[i0 + m]);
+        v[i0 + m] = csub(u, v[i0 + m]);
+      } else if constexpr (r == 3) {
+        twiddle_by<2 * j * step>(v[i0 + 2 * m], w);
+        dft3(v[i0], v[i0 + m], v[i0 + 2 * m], s);
+      } else if constexpr (r == 4) {
+        twiddle_by<2 * j * step>(v[i0 + 2 * m], w);
+        twiddle_by<3 * j * step>(v[i0 + 3 * m], w);
+        dft4(v[i0], v[i0 + m], v[i0 + 2 * m], v[i0 + 3 * m], s);
+      } else {
+        twiddle_by<2 * j * step>(v[i0 + 2 * m], w);
+        twiddle_by<3 * j * step>(v[i0 + 3 * m], w);
+        twiddle_by<4 * j * step>(v[i0 + 4 * m], w);
+        dft5(v[i0], v[i0 + m], v[i0 + 2 * m], v[i0 + 3 * m], v[i0 + 4 * m],
+             s);
+      }
+    };
+    static_for<0, L / r>(fly);
+    mixed_stages<L, T + 1, R>(v, w, s);
+  }
+}
+
+// A codelet of length L on v, loaded in load_slot order; natural order out.
+// A power of two runs the radix-2 stages with w[k] = W_WL^k, k < WL/2;
+// any other length the mixed stages with w[k] = W_L^k, k < L, and the
+// direction's sign s.
+template <int L, int WL, typename R>
+__device__ __forceinline__ void codelet(cpx<R> (&v)[L],
+                                        const cpx<R>* __restrict__ w, R s) {
+  if constexpr (is_pow2(L)) {
+    fft_stages<L, WL, 2, R>(v, w);
+  } else {
+    mixed_stages<L, 0, R>(v, w, s);
+  }
+}
+
 // 2^-e as an R, exactly (0 <= e < 127): the split's 1/(P*Q) without a
 // run-time division.
 template <typename R>
@@ -140,11 +325,14 @@ __device__ __forceinline__ R pow2_neg(int e) {
   }
 }
 
-// Shared memory, in this order: T (N), the codelet table (N2/2), the
+// Shared memory, in this order: T (N), the codelet tables (N2/2 shared
+// for a power of two; else N2 for the rows, then N1 for the columns), the
 // output twiddle (N, when tw is given, kRadixPlain only) and the tile;
 // the wrapper sizes it (kernels/radix.py::radix_tile).  `out` is (parts,
-// outer, N/parts) for contiguous lines with seg_log2 = log2(N/parts), or
-// (outer, N, inner) when `strided`.  The split passes: kRadixSplitA takes
+// outer, N/parts) for contiguous lines, with seg_arg = log2(N/parts) for
+// a power-of-two N and seg_arg = N/parts for a mixed N (the one argument
+// keeps the power-of-two kernels' parameters as they were); or (outer, N,
+// inner) when `strided`.  The split passes: kRadixSplitA takes
 // the (B, P, Q) block as (outer, N, inner) with `gtw` the TA|TB tables
 // and aux_log2 = log2(QL); kRadixSplitB takes outer = B*P rows of N = Q
 // with `gtw` the line's output twiddle (P*Q entries, or null), aux_log2 =
@@ -154,10 +342,14 @@ __global__ void __launch_bounds__(kRadixThreads)
 radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
              const cpx<R>* __restrict__ consts,
              const cpx<R>* __restrict__ gtw, long long outer,
-             long long inner, int inverse, int seg_log2, int lines_log2,
+             long long inner, int inverse, int seg_arg, int lines_log2,
              int strided_arg, int aux_log2) {
   constexpr int N = N1 * N2;
-  constexpr int NW = N2 / 2;
+  constexpr bool kPow2 = is_pow2(N);
+  static_assert(kPow2 || MODE == kRadixPlain,
+                "the split route's passes take powers of two");
+  // the codelet tables: N2/2 shared, or the rows' N2 then the columns' N1
+  constexpr int NW = kPow2 ? N2 / 2 : N2 + N1;
   constexpr int B1 = ilog2(N1);
   constexpr int B2 = ilog2(N2);
   constexpr bool kSplitA = MODE == kRadixSplitA;
@@ -174,6 +366,8 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   cpx<R>* const sw = st + N;
   cpx<R>* const stw = sw + NW;
   cpx<R>* const tile = stw + (kStageTw && gtw != nullptr ? N : 0);
+  const cpx<R>* const sw1 = kPow2 ? sw : sw + N2;  // the column codelet's
+  const R sgn = inverse ? R(1) : R(-1);  // the mixed codelets' rotations
 
   for (int i = threadIdx.x; i < N + NW; i += kRadixThreads) st[i] = consts[i];
   if (kStageTw && gtw != nullptr)
@@ -205,7 +399,10 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   const R scale =
       kSplitB ? (inverse ? pow2_neg<R>(B1 + B2 + aux_log2) : R(1))
               : (kSplitA ? R(1) : (inverse ? kInvN : R(1)));
+  // the power-of-two kernels' segment by its log2; a mixed N's by length
+  const int seg_log2 = seg_arg;
   const int seg = 1 << seg_log2;
+  const float inv_seg = __fdividef(1.0f, (float)seg_arg);  // mixed N
 
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int o_idx = strided ? t / groups : 0;
@@ -220,8 +417,13 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
         l = c & (L - 1);
         m2 = c >> lines_log2;
       } else {
-        l = c >> B2;
-        m2 = c & (N2 - 1);
+        if constexpr (kPow2) {
+          l = c >> B2;
+          m2 = c & (N2 - 1);
+        } else {
+          l = c / N2;
+          m2 = c - l * N2;
+        }
       }
       const long long line = first + l;
       if (line >= nlines) continue;
@@ -230,11 +432,11 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
       cpx<R> v[N1];
       auto load = [&](auto i) {
         constexpr int m1 = decltype(i)::value;
-        constexpr int slot = bitrev(m1, B1);
+        constexpr int slot = load_slot(N1, m1);
         v[slot] = src[(long long)(m1 * N2) * js];
       };
       static_for<0, N1>(load);
-      fft_stages<N1, N2, 2, R>(v, sw);
+      codelet<N1, (kPow2 ? N2 : N1), R>(v, sw1, sgn);
       cpx<R>* dst = tile + l * sl + m2 * sc;
       auto store = [&](auto i) {
         constexpr int k1 = decltype(i)::value;
@@ -251,8 +453,13 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
         l = r & (L - 1);
         k1 = r >> lines_log2;
       } else {
-        l = r >> B1;
-        k1 = r & (N1 - 1);
+        if constexpr (kPow2) {
+          l = r >> B1;
+          k1 = r & (N1 - 1);
+        } else {
+          l = r / N1;
+          k1 = r - l * N1;
+        }
       }
       const long long line = first + l;
       if (line >= nlines) continue;
@@ -260,11 +467,11 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
       cpx<R> v[N2];
       auto load = [&](auto i) {
         constexpr int m2 = decltype(i)::value;
-        constexpr int slot = bitrev(m2, B2);
+        constexpr int slot = load_slot(N2, m2);
         v[slot] = srow[m2 * sc];
       };
       static_for<0, N2>(load);
-      fft_stages<N2, N2, 2, R>(v, sw);
+      codelet<N2, N2, R>(v, sw, sgn);
       if constexpr (kSplitA) {
         // W_N^(o*q) for column q = line: TA[o, q % QL] * TB[o, q / QL]
         const int q = (int)line;
@@ -308,8 +515,20 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
           if (strided) {
             addr = block_base + line + (long long)o * inner;
           } else {
-            addr = (((long long)(o >> seg_log2) * outer + line) << seg_log2) +
-                   (o & (seg - 1));
+            if constexpr (kPow2) {
+              addr = (((long long)(o >> seg_log2) * outer + line)
+                      << seg_log2) +
+                     (o & (seg - 1));
+            } else {
+              // part = o / seg_arg in fp32: exact, as o + 1/2 is at least
+              // 1/2 from a multiple of seg_arg and the quotient's rounding
+              // error stays under 2^-20 of it.  An integer division per
+              // store took 23% more time at (262144, 384); a branch for
+              // seg_arg == N made ptxas spill at 12x16 and 15x16.
+              const int part = __float2int_rz(((float)o + 0.5f) * inv_seg);
+              addr = ((long long)part * outer + line) * seg_arg +
+                     (o - part * seg_arg);
+            }
           }
           out[addr] = y;
         };
@@ -323,7 +542,7 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
 template <typename R, int N1, int N2, int MODE>
 int radix_launch(const void* x, void* out, const void* consts,
                  const void* tw, long long outer, long long inner,
-                 int inverse, int seg_log2, int lines_log2, int strided,
+                 int inverse, int seg_arg, int lines_log2, int strided,
                  int aux_log2, int smem_bytes, cudaStream_t stream) {
   const long long lines = 1LL << lines_log2;
   const long long ntiles = strided ? outer * ((inner + lines - 1) / lines)
@@ -350,11 +569,11 @@ int radix_launch(const void* x, void* out, const void* consts,
                                   (size_t)smem_bytes, stream>>>(
       static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
       static_cast<const cpx<R>*>(consts), static_cast<const cpx<R>*>(tw),
-      outer, inner, inverse, seg_log2, lines_log2, strided, aux_log2);
+      outer, inner, inverse, seg_arg, lines_log2, strided, aux_log2);
   return (int)cudaGetLastError();
 }
 
-// N = N1*N2 as transforms.factorize splits a power of two: N1 =
+// N = N1*N2 as transforms.factorize splits it: for a power of two N1 =
 // 2^floor(k/2), N2 = 2^ceil(k/2).  Returns cudaErrorInvalidValue for an N
 // without an instantiation of MODE: kernels/radix.py::RADIX_SIZES lists
 // the plain ones, kernels/split.py::COLUMN_SIZES (pass A) and ROW_SIZES
@@ -362,12 +581,12 @@ int radix_launch(const void* x, void* out, const void* consts,
 template <typename R, int MODE>
 int radix_dispatch(int n, const void* x, void* out, const void* consts,
                    const void* tw, long long outer, long long inner,
-                   int inverse, int seg_log2, int lines_log2, int strided,
+                   int inverse, int seg_arg, int lines_log2, int strided,
                    int aux_log2, int smem_bytes, cudaStream_t stream) {
 #define REPRO_RADIX_CASE(NN, A, B)                                          \
   case NN:                                                                  \
     return radix_launch<R, A, B, MODE>(x, out, consts, tw, outer, inner,    \
-                                       inverse, seg_log2, lines_log2,       \
+                                       inverse, seg_arg, lines_log2,        \
                                        strided, aux_log2, smem_bytes,       \
                                        stream);
   constexpr bool c64 = sizeof(R) == sizeof(float);
@@ -382,6 +601,34 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(256, 16, 16)
       REPRO_RADIX_CASE(512, 16, 32)
       REPRO_RADIX_CASE(1024, 32, 32)
+      // the mixed lengths whose codelets are at most 32 long
+      REPRO_RADIX_CASE(6, 2, 3)
+      REPRO_RADIX_CASE(10, 2, 5)
+      REPRO_RADIX_CASE(12, 3, 4)
+      REPRO_RADIX_CASE(18, 3, 6)
+      REPRO_RADIX_CASE(20, 4, 5)
+      REPRO_RADIX_CASE(24, 4, 6)
+      REPRO_RADIX_CASE(30, 5, 6)
+      REPRO_RADIX_CASE(36, 6, 6)
+      REPRO_RADIX_CASE(40, 5, 8)
+      REPRO_RADIX_CASE(48, 6, 8)
+      REPRO_RADIX_CASE(60, 6, 10)
+      REPRO_RADIX_CASE(72, 8, 9)
+      REPRO_RADIX_CASE(80, 8, 10)
+      REPRO_RADIX_CASE(96, 8, 12)
+      REPRO_RADIX_CASE(120, 10, 12)
+      REPRO_RADIX_CASE(144, 12, 12)
+      REPRO_RADIX_CASE(160, 10, 16)
+      REPRO_RADIX_CASE(192, 12, 16)
+      REPRO_RADIX_CASE(240, 15, 16)
+      REPRO_RADIX_CASE(288, 16, 18)
+      REPRO_RADIX_CASE(320, 16, 20)
+      REPRO_RADIX_CASE(384, 16, 24)
+      REPRO_RADIX_CASE(480, 20, 24)
+      REPRO_RADIX_CASE(576, 24, 24)
+      REPRO_RADIX_CASE(640, 20, 32)
+      REPRO_RADIX_CASE(768, 24, 32)
+      REPRO_RADIX_CASE(960, 30, 32)
       default:
         break;
     }
@@ -392,6 +639,14 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(2, 1, 2)
         REPRO_RADIX_CASE(2048, 32, 64)
         REPRO_RADIX_CASE(4096, 64, 64)
+        REPRO_RADIX_CASE(1152, 32, 36)
+        REPRO_RADIX_CASE(1280, 32, 40)
+        REPRO_RADIX_CASE(1536, 32, 48)
+        REPRO_RADIX_CASE(1920, 40, 48)
+        REPRO_RADIX_CASE(2304, 48, 48)
+        REPRO_RADIX_CASE(2560, 40, 64)
+        REPRO_RADIX_CASE(3072, 48, 64)
+        REPRO_RADIX_CASE(3840, 60, 64)
         default:
           break;
       }

@@ -31,10 +31,13 @@ The kernel reads raw memory, so a lazily conjugated or negated view
 taken (:func:`_resolved`); the plain version reads ``.real``/``.imag``,
 which honour those bits anyway.
 
-Four routes, chosen from N and the dtype alone (:func:`radix.kernel_path`):
-power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) takes
-the radix path — two passes of in-register radix-2 codelets,
-``csrc/fft_radix.cuh``, planned in ``kernels/radix.py``; the longer
+Five routes, chosen from N and the dtype alone (:func:`radix.kernel_path`):
+power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) and
+the mixed N = r*2^k, r in {3, 5, 9, 15}, whose codelets stay in registers
+(to 3840 for complex64, 960 for complex128: ``radix.RADIX_SIZES``) take
+the radix path — two passes of in-register codelets (radix 2, or a chain
+of radix 2, 3, 4 and 5), ``csrc/fft_radix.cuh``, planned in
+``kernels/radix.py``; the longer
 power-of-two N whose line fits in one block's shared memory (8192 and
 16384 for complex64, 2048 to 8192 for complex128) take the long-line path
 — three such passes over a line loaded by TMA, ``csrc/fft_long.cuh``,
@@ -46,9 +49,14 @@ inter-step twiddle in its store, then the Q-long rows: on the radix
 route, stored transposed with the line's epilogues; on the long-line
 route, stored in place and moved by a transpose launch that carries the
 epilogues — planned in ``kernels/split.py``, whose ``emulate`` is that
-route's plain version; every other N takes the general dense kernel,
-which raises past one block's shared memory.  A failed build or launch
-raises; nothing falls back.
+route's plain version; every other N beyond the dense kernel's one block
+takes the chirp route — Bluestein's convolution as two transforms of M =
+2^ceil(log2(2N - 1)) on the long-line or split route with the chirps in
+their ``twiddle`` epilogues, planned in ``kernels/chirp.py``, whose
+``emulate`` is that route's plain version (N up to 2^23 for complex64,
+2^21 for complex128); every other N takes the general dense kernel, which
+raises past one block's shared memory.  A failed build or launch raises;
+nothing falls back.
 
 :func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``
 block and transforms dim 1 on the radix path, writing the same layout:
@@ -58,12 +66,15 @@ of copying the lines contiguous.
 Every launch, from either entry, adds one to ``fft_fourstep.launches``,
 to its variant's entry of ``fft_fourstep.variant_launches`` ("fourstep",
 "pack", "twiddle"), to its route's entry of ``fft_fourstep.path_launches``
-(the four names :func:`radix.kernel_path` gives) and to its layout's
+(the five names :func:`radix.kernel_path` gives) and to its layout's
 entry of ``fft_fourstep.layout_launches`` ("lines", "strided"); nothing
 else touches them.  A split call is two launches (three with rows on the
 long-line route), each counted on "split" and the layout it runs (pass
 A: "strided", "fourstep"; passes B and C: "lines"; the last carries the
-call's variant), and adds one to ``fft_fourstep.split_calls``.
+call's variant), and adds one to ``fft_fourstep.split_calls``.  A chirp
+call is two inner transforms (one launch each on the long-line route, a
+split call's two or three on the split route), every launch counted on
+"chirp" and its layout, and adds one to ``fft_fourstep.chirp_calls``.
 """
 from __future__ import annotations
 
@@ -77,7 +88,7 @@ import torch
 
 from ..core.transforms import (_dft_planes, _twiddle_planes, factorize,
                                fourstep_fft_planes, real_dtype)
-from . import longline, radix, split
+from . import chirp, longline, radix, split
 from .radix import SMEM_MAX_BYTES, SMEM_TARGET_BYTES
 
 #: W2 larger than this streams from global memory (L2) instead.
@@ -125,9 +136,10 @@ def launch_config(n: int, itemsize: int, twiddle: bool) -> LaunchConfig:
             f"fft_fourstep: N={n} needs {need} bytes of shared memory for "
             f"one line on the dense route (limit {SMEM_MAX_BYTES}); it "
             f"takes N up to {max_line_length(itemsize, twiddle)} for "
-            f"{itemsize}-byte complex elements, and the split route takes "
+            f"{itemsize}-byte complex elements, the split route takes "
             f"the powers of two beyond one block up to "
-            f"{max(split.FACTORS.get(dtype, {0: None}))}")
+            f"{max(split.FACTORS.get(dtype, {0: None}))} and the chirp "
+            f"route every other N up to {chirp.max_length(dtype)}")
     return LaunchConfig(lines=lines, w2_in_smem=w2_smem, smem_bytes=need)
 
 
@@ -252,7 +264,9 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
 
     On the long-line path's N, that path's three passes
     (``longline.emulate``); on the split route's N, its two passes
-    (``split.emulate``); on every other N the four steps as
+    (``split.emulate``); on the chirp route's N, its four steps over the
+    inner routes' plain versions (``chirp.emulate``); on every other N
+    the four steps as
     ``torch.einsum`` contractions on real/imag planes
     (``transforms.fourstep_fft_planes``).  Used for CPU tensors and, on the
     card, as the kernel's yardstick.
@@ -262,8 +276,8 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
     if b == 0:
         return _packed(torch.zeros_like(x), pack_parts)
     path = radix.kernel_path(n, x.dtype)
-    if path in ("long", "split"):
-        route = longline if path == "long" else split
+    if path in ("long", "split", "chirp"):
+        route = {"long": longline, "split": split, "chirp": chirp}[path]
         buf = route.emulate(x, inverse=inverse, twiddle=twiddle,
                             pack_parts=pack_parts)
         return buf if pack_parts is None else buf.transpose(0, 1)
@@ -324,14 +338,19 @@ def _variant(tw: Optional[torch.Tensor], pack_parts: Optional[int]) -> str:
 
 def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
             pack_parts: Optional[int] = None,
-            strided: bool = False) -> torch.Tensor:
+            strided: bool = False,
+            count_as: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel on ``(B, N)`` lines, or with ``strided`` on a
-    contiguous ``(outer, N, inner)`` block, and count the launch."""
+    contiguous ``(outer, N, inner)`` block, and count the launch on its
+    path, or on ``count_as`` (the chirp route's inner transforms)."""
     n = x.shape[1]
     path = radix.kernel_path(n, x.dtype)
     if path == "split":
         return _launch_split(x, tw, inverse=inverse, pack_parts=pack_parts,
-                             plan=split.split_plan(n, x.dtype))
+                             plan=split.split_plan(n, x.dtype),
+                             count_as=count_as or "split")
+    if path == "chirp":
+        return _launch_chirp(x, tw, inverse=inverse, pack_parts=pack_parts)
     from . import build
     lib = build.load("fft_fourstep")
     _declare(lib)
@@ -357,9 +376,12 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
             outer, inner = (x.shape[0], x.shape[2]) if strided \
                 else (x.shape[0], 1)
             fn = lib.repro_fft_radix_c64 if c64 else lib.repro_fft_radix_c128
+            # the segment: its log2 for a power-of-two N (the kernel
+            # shifts), its length for a mixed N (the kernel divides)
+            seg = n // parts
+            seg_arg = seg.bit_length() - 1 if radix.is_pow2(n) else seg
             err = fn(x.data_ptr(), buf.data_ptr(), consts.data_ptr(), twp,
-                     outer, inner, n, int(inverse),
-                     (n // parts).bit_length() - 1,
+                     outer, inner, n, int(inverse), seg_arg,
                      tile.lines.bit_length() - 1, int(strided),
                      tile.smem_bytes, stream)
         elif path == "long":
@@ -386,13 +408,55 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
                      int(inverse), parts, cfg.lines, int(cfg.w2_in_smem),
                      cfg.smem_bytes, stream)
     _raise_on(err, lib, path, x)
-    _count(path, "strided" if strided else "lines", _variant(tw, pack_parts))
+    _count(count_as or path, "strided" if strided else "lines",
+           _variant(tw, pack_parts))
     return out
+
+
+def _chirp_constants(n: int, inverse: bool, dtype: torch.dtype,
+                     device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The chirp route's input chirp, transformed filter and output chirp
+    on ``device`` (``chirp.constants``, built in float64), cached with the
+    other paths' constants."""
+    def build():
+        return tuple(torch.from_numpy(t).to(device=device, dtype=dtype)
+                     for t in chirp.constants(n, inverse))
+    return _cached(("chirp", n, bool(inverse), dtype, device), build)
+
+
+def _launch_chirp(x: torch.Tensor, tw: Optional[torch.Tensor], *,
+                  inverse: bool, pack_parts: Optional[int]) -> torch.Tensor:
+    """The chirp route on contiguous ``(B, N)`` lines
+    (``kernels/chirp.py``): the premultiplied, padded ``(B, M)`` lines
+    through the kernel's forward transform with the transformed filter as
+    its twiddle, then its inverse with the output chirp (and ``tw``) as
+    its twiddle, then the first N of each line.  Both transforms launch on
+    the current stream and count every launch on the "chirp" path; the
+    call adds one to ``fft_fourstep.chirp_calls``."""
+    b, n = x.shape
+    if x.numel() == 0:
+        return _out_buffers(x, pack_parts)[1]
+    m = chirp.chirp_length(n)
+    pre, filt, post = _chirp_constants(n, inverse, x.dtype, x.device)
+    with torch.cuda.device(x.device):
+        current = torch.cuda.current_stream(x.device)
+        for c in (pre, filt, post):
+            # cached: the allocator must not reuse them while this reads
+            c.record_stream(current)
+        a = _launch(chirp.premultiply(x, pre, m), filt, inverse=False,
+                    count_as="chirp")
+        y = _launch(a, chirp.post_twiddle(post, tw), inverse=True,
+                    count_as="chirp")
+        out = chirp.trim(y, n, pack_parts)
+    with _COUNT_LOCK:
+        fft_fourstep.chirp_calls += 1
+    return out if pack_parts is None else out.transpose(0, 1)
 
 
 def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                   inverse: bool, pack_parts: Optional[int],
-                  plan: split.SplitPlan) -> torch.Tensor:
+                  plan: split.SplitPlan,
+                  count_as: str = "split") -> torch.Tensor:
     """The split route on contiguous ``(B, N)`` lines, N = P*Q
     (``kernels/split.py``): pass A, the strided radix launch on the
     ``(B, P, Q)`` block with the inter-step twiddle, into a scratch block;
@@ -400,7 +464,8 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
     output with the line's epilogues, on the long-line route stored in
     place into a second scratch block that pass C transposes into the
     output with the epilogues.  All on the current stream; each counted
-    on the "split" path and its layout."""
+    on ``count_as`` ("split", or "chirp" inside the chirp route) and its
+    layout."""
     from . import build
     lib = build.load("fft_fourstep")
     _declare(lib)
@@ -428,7 +493,7 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
             ctile.lines.bit_length() - 1, plan.ql_log2, ctile.smem_bytes,
             stream)
         _raise_on(err, lib, "split pass A", x)
-        _count("split", "strided", "fourstep")
+        _count(count_as, "strided", "fourstep")
         # pass B: the Q-long rows, stored transposed at kp + P*kq (radix)
         # or in place (long-line, then pass C)
         rtile = split.row_tile(plan, cdt)
@@ -444,7 +509,8 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                 rtile.lines.bit_length() - 1, plan.p_log2,
                 rtile.smem_bytes, stream)
             _raise_on(err, lib, "split pass B", x)
-            _count("split", "lines", variant, split_call=True)
+            _count(count_as, "lines", variant,
+                   split_call=count_as == "split")
             return out
         qconsts = _long_constants(plan.q, inverse, cdt, dev)
         qconsts.record_stream(current)
@@ -455,13 +521,13 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
             b * plan.p, plan.q, 0, plan.q.bit_length() - 1,
             rtile.smem_bytes, stream)
         _raise_on(err, lib, "split pass B", x)
-        _count("split", "lines", "fourstep")
+        _count(count_as, "lines", "fourstep")
         # pass C: (B, P, Q) rows to out[b, kp + P*kq], with the epilogues
         err = getattr(lib, f"repro_fft_split_c_{suffix}")(
             z.data_ptr(), buf.data_ptr(), twp, b, plan.p_log2,
             plan.q.bit_length() - 1, seg_log2, int(inverse), stream)
     _raise_on(err, lib, "split pass C", x)
-    _count("split", "lines", variant, split_call=True)
+    _count(count_as, "lines", variant, split_call=count_as == "split")
     return out
 
 
@@ -506,6 +572,11 @@ def fft_fourstep(x: torch.Tensor, *, inverse: bool = False,
     returns an empty result without a launch.
     """
     _check(x, twiddle, pack_parts)
+    if pack_parts is not None and \
+            radix.kernel_path(x.shape[1], x.dtype) == "chirp":
+        # the chirp route packs its trimmed lines with a copy
+        from . import ops               # it imports this module
+        ops.count_copy()
     if x.device.type == "cuda":
         return _launch(*_resolved(x, twiddle), inverse=inverse,
                        pack_parts=pack_parts)
@@ -577,27 +648,31 @@ _COUNT_LOCK = threading.Lock()
 fft_fourstep.launches = 0
 fft_fourstep.variant_launches = {"fourstep": 0, "pack": 0, "twiddle": 0}
 fft_fourstep.path_launches = {"radix": 0, "dense": 0, "long": 0,
-                              "split": 0}
+                              "split": 0, "chirp": 0}
 fft_fourstep.layout_launches = {"lines": 0, "strided": 0}
 fft_fourstep.split_calls = 0
+fft_fourstep.chirp_calls = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """One consistent snapshot of the launch counters, flat: ``launches``
-    and one entry per variant, path and layout, and ``split_calls`` (the
-    split route's calls, two or three launches each)."""
+    and one entry per variant, path and layout, ``split_calls`` (the
+    split route's calls, two or three launches each) and ``chirp_calls``
+    (the chirp route's, two inner transforms each)."""
     with _COUNT_LOCK:
         return {"launches": fft_fourstep.launches,
                 **fft_fourstep.variant_launches,
                 **fft_fourstep.path_launches,
                 **fft_fourstep.layout_launches,
-                "split_calls": fft_fourstep.split_calls}
+                "split_calls": fft_fourstep.split_calls,
+                "chirp_calls": fft_fourstep.chirp_calls}
 
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         fft_fourstep.launches = 0
         fft_fourstep.split_calls = 0
+        fft_fourstep.chirp_calls = 0
         for counts in (fft_fourstep.variant_launches,
                        fft_fourstep.path_launches,
                        fft_fourstep.layout_launches):

@@ -19,8 +19,10 @@ strided axis, an N off the radix path (dense, long-line or split) on a
 strided axis, ``inner`` narrower than a tile, a non-dense view) moves
 ``axis`` last and copies the lines contiguous first, and each such copy
 adds one to ``copies["lines"]``: a split length (lines longer than one
-block, two launches through HBM) on a strided axis is copied so, as a
-long-line length is.
+block, two launches through HBM) or a chirp length (two transforms of
+padded lines) on a strided axis is copied so, as a long-line length is.
+A chirp length with ``pack_parts`` adds one more: the route packs its
+trimmed lines with a copy (``fft_matmul.fft_fourstep``).
 The output dtype follows the input: complex64 for single precision,
 complex128 for float64/complex128.
 
@@ -54,6 +56,12 @@ from .fft_matmul import fft_fourstep, fft_fourstep_strided, strided_supported
 #: executor's pool mode transforms from several threads.
 copies = {"lines": 0}
 _COPIES_LOCK = threading.Lock()
+
+
+def count_copy() -> None:
+    """Add one line copy to ``copies``."""
+    with _COPIES_LOCK:
+        copies["lines"] += 1
 
 
 def dense_layout(x: torch.Tensor, axis: int
@@ -116,8 +124,7 @@ def _apply(x: torch.Tensor, axis: int, *, inverse: bool,
         return out.reshape(xp.shape).permute(inv)
     xm = xc.movedim(axis, -1)
     if not xm.is_contiguous():
-        with _COPIES_LOCK:
-            copies["lines"] += 1
+        count_copy()
     flat = xm.reshape(-1, n).contiguous()
     out = fft_fourstep(flat, inverse=inverse, twiddle=tw,
                        pack_parts=pack_parts)

@@ -1,7 +1,8 @@
 """The radix path of the four-step kernel: its plan, its tiles and their
 index maps, in Python.
 
-For a power-of-two N = N1*N2 (``transforms.factorize``) the kernel
+For N = N1*N2 (``transforms.factorize``) in :data:`RADIX_SIZES` (the
+powers of two and the mixed lengths r*2^k, r in {3, 5, 9, 15}) the kernel
 (``csrc/fft_radix.cuh``) computes the four steps with in-register
 codelets instead of dense DFT-matrix products:
 
@@ -14,13 +15,25 @@ codelets instead of dense DFT-matrix products:
   out[k1 + N1*k2] with the epilogue (the output twiddle, 1/N, the
   ``pack_parts`` segment store).
 
-A codelet of length L is the iterative radix-2 decimation in time: the
-input sits in bit-reversed order, and stage s (m = 2^s, h = m/2) does the
-butterflies (b+j, b+j+h) for b a multiple of m and j < h, the lower
-input multiplied by W_m^j = w[j * N2/m], where w[k] = W_N2^k for k < N2/2
-is the one table both codelets share (N1 divides N2).  The loops unroll
-fully in the kernel (N1 and N2 are template parameters), so every index
-is a constant and the values stay in registers.
+A codelet of a power-of-two length L is the iterative radix-2 decimation
+in time: the input sits in bit-reversed order, and stage s (m = 2^s, h =
+m/2) does the butterflies (b+j, b+j+h) for b a multiple of m and j < h,
+the lower input multiplied by W_m^j = w[j * N2/m], where w[k] = W_N2^k
+for k < N2/2 is the one table both codelets share (N1 divides N2).
+
+A codelet of any other length L = 2^a 3^b 5^c (N a mixed length) is the
+mixed-radix decimation in time over the chain :func:`radices` (the 5s,
+the 3s, then 4s and a last 2, first stage first): the input sits in
+digit-reversed order (:func:`digit_rev`), and a stage of radix r after
+stages spanning m does, for every block b of m*r and j < m, the r-point
+DFT of v[b + j + q*m], q < r, input q first multiplied by W_(m*r)^(j*q) =
+w[j*q * L/(m*r)] from the codelet's own table of W_L^k, k < L (N1 need
+not divide N2: 384 = 16*24).  The r-point DFTs are the constant
+rotations of :func:`_dft_small` (radix 3, 4 and 5 with the direction's
+sign; no table).  For a mixed N both codelets have their own table
+(W_N1^k and W_N2^k), a power-of-two factor's codelet too.  The loops
+unroll fully in the kernel (N1 and N2 are template parameters), so every
+index is a constant and the values stay in registers.
 
 Two layouts of lines, one kernel:
 
@@ -67,14 +80,28 @@ SMEM_TARGET_BYTES = SMEM_MAX_BYTES // 2 - 1024
 #: ``inner`` indices per strided tile: a row of the tile is 128 bytes of
 #: complex64 (256 of complex128), whole sectors.
 STRIDED_LINES = 16
-#: Lengths the kernel instantiates, per complex dtype.  complex128 stops at
-#: 1024: a codelet of 64 complex128 values would take 256 registers and
-#: spill, so 2048 and 4096 take the long-line route (three passes); N = 2,
-#: whose complex128 kernel ptxas spills (4 bytes at 64 registers), stays
-#: on the dense path.
+#: The mixed lengths' odd parts: N = r*2^k, k >= 1.
+MIXED_ODD = (3, 5, 9, 15)
+
+
+def _mixed(limit: int) -> Tuple[int, ...]:
+    """r*2^k for r in MIXED_ODD, k >= 1, whose factors (``factorize``) are
+    both at most ``limit``: the codelets stay in registers."""
+    return tuple(sorted(r << k for r in MIXED_ODD for k in range(1, 13)
+                        if max(factorize(r << k)) <= limit))
+
+
+#: Lengths the kernel instantiates, per complex dtype: the powers of two
+#: and the mixed lengths, codelets of at most 64 values (complex64) or 32
+#: (complex128).  complex128 stops at 1024: a codelet of 64 complex128
+#: values would take 256 registers and spill, so 2048 and 4096 take the
+#: long-line route (three passes); N = 2, whose complex128 kernel ptxas
+#: spills (4 bytes at 64 registers), stays on the dense path.
 RADIX_SIZES = {
-    torch.complex64: tuple(2 ** k for k in range(1, 13)),
-    torch.complex128: tuple(2 ** k for k in range(2, 11)),
+    torch.complex64: tuple(sorted(
+        [2 ** k for k in range(1, 13)] + list(_mixed(64)))),
+    torch.complex128: tuple(sorted(
+        [2 ** k for k in range(2, 11)] + list(_mixed(32)))),
 }
 
 
@@ -83,15 +110,21 @@ def kernel_path(n: int, dtype: torch.dtype) -> str:
     ``dtype``, "long" for the longer power-of-two lines the long-line
     route takes (``longline.FACTORS``), "split" for the power-of-two lines
     longer than one block holds (``split.FACTORS``: two passes through
-    HBM), else "dense" (the general four-step, any N)."""
+    HBM), "chirp" for every other length past the dense kernel's one
+    block up to the chirp route's limit (``chirp.takes``: Bluestein over
+    the power-of-two routes), else "dense" (the general four-step: within
+    one block it takes any N; past the chirp's limit it raises)."""
     if n in RADIX_SIZES.get(dtype, ()):
         return "radix"
-    # deferred: longline and split import this module
+    # deferred: longline, split and chirp import this module
+    from .chirp import takes
     from .longline import FACTORS as LONG
     from .split import FACTORS as SPLIT
     if n in LONG.get(dtype, {}):
         return "long"
-    return "split" if n in SPLIT.get(dtype, {}) else "dense"
+    if n in SPLIT.get(dtype, {}):
+        return "split"
+    return "chirp" if takes(n, dtype) else "dense"
 
 
 def bitrev(i: int, bits: int) -> int:
@@ -103,7 +136,53 @@ def bitrev(i: int, bits: int) -> int:
     return r
 
 
+def is_pow2(n: int) -> bool:
+    return n > 0 and not n & (n - 1)
+
+
+def radices(length: int) -> Tuple[int, ...]:
+    """The radix chain of a codelet of ``length``, first stage first: 2s
+    for a power of two (the radix-2 codelet); else the 5s, the 3s, then
+    the 4s and a last 2 (``fft_radix.cuh``'s ``mixed_radix``).  Raises
+    for a length below 2 or with a prime factor above 5."""
+    if length >= 2 and is_pow2(length):
+        return (2,) * (length.bit_length() - 1)
+    rest, exps = length, {}
+    for p in (5, 3, 2):
+        exps[p] = 0
+        while rest > 1 and rest % p == 0:
+            rest //= p
+            exps[p] += 1
+    if rest != 1 or length < 2:
+        raise ValueError(f"the radix path takes N >= 2 whose only prime "
+                         f"factors are 2, 3 and 5, got {length}")
+    a = exps[2]
+    return (5,) * exps[5] + (3,) * exps[3] + (4,) * (a // 2) + (2,) * (a % 2)
+
+
+def digit_rev(i: int, chain: Tuple[int, ...]) -> int:
+    """The register input ``i`` is loaded into: its digits in the mixed
+    radix of ``chain``, the last stage's radix least significant, each
+    digit weighted by the span of the stages before its own (bit reversal
+    for a chain of 2s)."""
+    p = 0
+    for t in range(len(chain) - 1, -1, -1):
+        p += (i % chain[t]) * math.prod(chain[:t])
+        i //= chain[t]
+    return p
+
+
+def load_slot(i: int, length: int) -> int:
+    """Where a codelet of ``length`` loads its input ``i``."""
+    if is_pow2(length):
+        return bitrev(i, length.bit_length() - 1)
+    return digit_rev(i, radices(length))
+
+
 Butterfly = Tuple[int, int, Optional[int]]   # (top, bottom, w index or None)
+#: One r-point DFT of a mixed codelet: its registers b + j + q*m, q < r,
+#: and per input the twiddle's table index (None where it is 1).
+MixedButterfly = Tuple[Tuple[int, ...], Tuple[Optional[int], ...]]
 
 
 def codelet(length: int, table: int) -> List[List[Butterfly]]:
@@ -120,22 +199,51 @@ def codelet(length: int, table: int) -> List[List[Butterfly]]:
     return stages
 
 
+def mixed_codelet(length: int) -> List[List[MixedButterfly]]:
+    """The stages of a mixed-radix codelet of ``length`` over
+    :func:`radices`, twiddles from its own table of W_length^k, k <
+    length."""
+    stages, m = [], 1
+    for r in radices(length):
+        mt = m * r
+        stages.append([
+            (tuple(b + j + q * m for q in range(r)),
+             tuple(j * q * (length // mt) or None for q in range(r)))
+            for b in range(0, length, mt) for j in range(m)])
+        m = mt
+    return stages
+
+
 @dataclasses.dataclass(frozen=True)
 class RadixPlan:
     n: int
     n1: int
     n2: int
-    column: List[List[Butterfly]]   # codelet of length n1
-    row: List[List[Butterfly]]      # codelet of length n2
+    column: list    # codelet of length n1
+    row: list       # codelet of length n2
+
+    @property
+    def mixed(self) -> bool:
+        """Not a power of two: each codelet has its own table, and one of
+        a length that is not a power of two runs :func:`mixed_codelet`'s
+        stages."""
+        return not is_pow2(self.n)
 
 
 def radix_plan(n: int) -> RadixPlan:
-    """The factorization and both codelets of a power-of-two ``n``."""
-    if n < 2 or n & (n - 1):
-        raise ValueError(f"the radix path takes a power of two N >= 2, "
-                         f"got {n}")
+    """The factorization and both codelets of ``n``: radix-2 codelets on
+    the shared table for a power of two; for a mixed ``n`` each factor's
+    codelet on its own table (radix-2 where that factor is a power of
+    two).  Raises for N < 2 or a prime factor above 5."""
+    radices(n)
     n1, n2 = factorize(n)
-    return RadixPlan(n, n1, n2, codelet(n1, n2), codelet(n2, n2))
+    if is_pow2(n):
+        return RadixPlan(n, n1, n2, codelet(n1, n2), codelet(n2, n2))
+
+    def own(length):
+        return (codelet(length, length) if is_pow2(length)
+                else mixed_codelet(length))
+    return RadixPlan(n, n1, n2, own(n1), own(n2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,11 +253,17 @@ class RadixTile:
     smem_bytes: int     # dynamic shared memory of one block
 
 
+def table_elems(n: int) -> int:
+    """The codelet tables' entries: N2/2 shared for a power of two, else
+    the row codelet's N2 and the column codelet's N1."""
+    n1, n2 = factorize(n)
+    return n2 // 2 if is_pow2(n) else n2 + n1
+
+
 def const_elems(n: int, twiddle: bool) -> int:
     """Constants the kernel keeps in shared memory: T (N), the codelet
-    table (N2/2) and the optional output twiddle (N)."""
-    _, n2 = factorize(n)
-    return n + n2 // 2 + (n if twiddle else 0)
+    tables (:func:`table_elems`) and the optional output twiddle (N)."""
+    return n + table_elems(n) + (n if twiddle else 0)
 
 
 def tile_elems(n: int, lines: int, strided: bool) -> int:
@@ -163,9 +277,9 @@ def radix_tile(n: int, itemsize: int, twiddle: bool,
     when the layout does not fit (strided tiles of N >= 2048 complex64,
     N >= 1024 complex128).
 
-    Lines: as many lines as give every thread a row (THREADS / N1), halved
-    until two blocks share an SM.  Strided: ``STRIDED_LINES`` inner
-    indices, within the 227 KB of one block."""
+    Lines: as many lines as give every thread a row (the power of two at
+    most THREADS / N1), halved until two blocks share an SM.  Strided:
+    ``STRIDED_LINES`` inner indices, within the 227 KB of one block."""
     n1, _ = factorize(n)
     const = const_elems(n, twiddle)
     if strided:
@@ -174,7 +288,7 @@ def radix_tile(n: int, itemsize: int, twiddle: bool,
         if need > SMEM_MAX_BYTES:
             return None
         return RadixTile(lines, True, need)
-    lines = max(1, THREADS // n1)
+    lines = 1 << ((THREADS // n1).bit_length() - 1)
     while lines > 1 and (const + tile_elems(n, lines, False)) * itemsize \
             > SMEM_TARGET_BYTES:
         lines //= 2
@@ -210,12 +324,21 @@ def row_item(r, lines: int, n1: int, strided: bool):
     return r // n1, r % n1
 
 
+def _w_table(length: int, count: int, sign: float) -> np.ndarray:
+    k = np.arange(count, dtype=np.float64)
+    return np.exp(sign * 2j * np.pi * k / length)
+
+
 def codelet_table(n: int, inverse: bool) -> np.ndarray:
-    """w[k] = exp(sign*2*pi*i*k/N2), k < N2/2, built in float64."""
-    _, n2 = factorize(n)
+    """The codelets' tables, built in float64: for a power of two w[k] =
+    exp(sign*2*pi*i*k/N2), k < N2/2, shared by both codelets; for a mixed
+    ``n`` the row codelet's W_N2^k, k < N2, then the column codelet's
+    W_N1^k, k < N1."""
+    n1, n2 = factorize(n)
     sign = 1.0 if inverse else -1.0
-    k = np.arange(n2 // 2, dtype=np.float64)
-    return np.exp(sign * 2j * np.pi * k / n2)
+    if is_pow2(n):
+        return _w_table(n2, n2 // 2, sign)
+    return np.concatenate([_w_table(n2, n2, sign), _w_table(n1, n1, sign)])
 
 
 def _run_codelet(v: list, stages, w: torch.Tensor) -> list:
@@ -224,6 +347,60 @@ def _run_codelet(v: list, stages, w: torch.Tensor) -> list:
             t = v[bot] if wi is None else v[bot] * w[wi]
             v[top], v[bot] = v[top] + t, v[top] - t
     return v
+
+
+#: The constant rotations of the radix-3 and radix-5 DFTs: sin(2*pi/3),
+#: cos and sin of 2*pi/5 and 4*pi/5 (``fft_radix.cuh`` spells the same
+#: digits).
+_S3 = 0.86602540378443864676
+_C51, _C52 = 0.30901699437494742410, -0.80901699437494742410
+_S51, _S52 = 0.95105651629515357212, 0.58778525229247312917
+
+
+def _rot(a, sign: float):
+    """i*sign*a."""
+    return a * complex(0.0, sign)
+
+
+def _dft_small(a: list, sign: float) -> list:
+    """The r-point DFT (r = 2, 3, 4, 5) of ``a`` with W_r = exp(sign*2*pi*
+    i/r), as the kernel's butterflies compute it."""
+    r = len(a)
+    if r == 2:
+        return [a[0] + a[1], a[0] - a[1]]
+    if r == 3:
+        t1, d = a[1] + a[2], _rot((a[1] - a[2]) * _S3, sign)
+        t2 = a[0] - t1 * 0.5
+        return [a[0] + t1, t2 + d, t2 - d]
+    if r == 4:
+        t0, t1 = a[0] + a[2], a[0] - a[2]
+        t2, t3 = a[1] + a[3], _rot(a[1] - a[3], sign)
+        return [t0 + t2, t1 + t3, t0 - t2, t1 - t3]
+    b1, b2, d1, d2 = a[1] + a[4], a[2] + a[3], a[1] - a[4], a[2] - a[3]
+    e1 = a[0] + b1 * _C51 + b2 * _C52
+    e2 = a[0] + b1 * _C52 + b2 * _C51
+    f1 = _rot(d1 * _S51 + d2 * _S52, sign)
+    f2 = _rot(d1 * _S52 - d2 * _S51, sign)
+    return [a[0] + b1 + b2, e1 + f1, e2 + f2, e2 - f2, e1 - f1]
+
+
+def _run_mixed(v: list, stages, w: torch.Tensor, sign: float) -> list:
+    for stage in stages:
+        for regs, tws in stage:
+            a = [v[i] if e is None else v[i] * w[e]
+                 for i, e in zip(regs, tws)]
+            for i, y in zip(regs, _dft_small(a, sign)):
+                v[i] = y
+    return v
+
+
+def run_codelet(v: list, length: int, stages, w: torch.Tensor,
+                sign: float) -> list:
+    """The codelet of ``length`` on ``v`` (loaded in :func:`load_slot`
+    order): natural order out."""
+    if is_pow2(length):
+        return _run_codelet(v, stages, w)
+    return _run_mixed(v, stages, w, sign)
 
 
 def emulate(x: torch.Tensor, *, inverse: bool = False,
@@ -266,6 +443,9 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     from .fft_matmul import _device_constants   # T as the dense path builds it
     t_tab = _device_constants(n1, n2, inverse, cdt, x.device)[2].reshape(-1)
     w = torch.from_numpy(codelet_table(n, inverse)).to(cdt).to(x.device)
+    # a mixed N: the row codelet's table, then the column codelet's
+    w_row, w_col = (w[:n2], w[n2:]) if plan.mixed else (w, w)
+    sign = 1.0 if inverse else -1.0
     mem = x.reshape(-1)
     if strided:
         groups = -(-inner // lines)
@@ -286,12 +466,11 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     c = torch.arange(lines * n2, device=x.device).unsqueeze(0)
     l, m2 = column_item(c, lines, n2, strided)
     valid, base, js = line_of(tiles, l)
-    bits1 = int(math.log2(n1))
     v = [None] * n1
     for m1 in range(n1):
         addr = torch.where(valid, base + (m1 * n2 + m2) * js, 0)
-        v[bitrev(m1, bits1)] = torch.where(valid, mem[addr], 0)
-    v = _run_codelet(v, plan.column, w)
+        v[load_slot(m1, n1)] = torch.where(valid, mem[addr], 0)
+    v = run_codelet(v, n1, plan.column, w_col, sign)
     smem = torch.zeros((ntiles, tile_elems(n, lines, strided)), dtype=cdt,
                        device=x.device)
     for k1 in range(n1):
@@ -302,12 +481,11 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     r = torch.arange(lines * n1, device=x.device).unsqueeze(0)
     l, k1 = row_item(r, lines, n1, strided or rows)
     valid, base, js = line_of(tiles, l)
-    bits2 = int(math.log2(n2))
     v = [None] * n2
     for j in range(n2):
         idx = (l * sl + k1 * sr + j * sc).expand(ntiles, -1)
-        v[bitrev(j, bits2)] = smem.gather(1, idx)
-    v = _run_codelet(v, plan.row, w)
+        v[load_slot(j, n2)] = smem.gather(1, idx)
+    v = run_codelet(v, n2, plan.row, w_row, sign)
     out = torch.zeros(outer * n * inner, dtype=cdt, device=x.device)
     scale = 1.0 / n_line if inverse and split_twiddle is None else 1.0
     tw = None if twiddle is None else twiddle.to(x.device, cdt).reshape(-1)

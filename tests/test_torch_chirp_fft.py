@@ -1,0 +1,266 @@
+"""The chirp route of the four-step kernel (``kernels/chirp.py``): every
+line length beyond one block that no other route takes, as Bluestein's
+convolution over two transforms of M = 2^ceil(log2(2N - 1)) on the
+long-line or split route, the chirps in their ``twiddle`` epilogues.  Its
+plain version, ``chirp.emulate`` (the wrapper runs it for CPU tensors),
+runs the same steps over the inner routes' plain versions; it is held
+against ``np.fft`` (complex64 N of 6144 and the prime 10007, complex128
+N of 3001 and 3072; both directions, the twiddle and ``pack_parts``
+epilogues) and against the JAX package's Pallas kernel in interpret mode
+on the same numpy inputs where the reference factors N (6144 and 3072),
+at the reference's tolerances (``tests/test_kernels.py:27``: 5e-6
+max-scaled in complex64, 1e-12 in complex128).  Then the chirp tables'
+phase at large N, the routing by length, the line copies, the gradient,
+and ``fft_conv`` at S = 3072 (lines of 6144) forward and backward
+against the reference's mixer.  The CUDA launches are tested in
+``test_torch_cuda.py`` and ``chip_smoke.py``."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import fft_matmul as jfm
+from repro_torch.kernels import chirp, ops, radix, split
+from repro_torch.kernels import fft_matmul as tfm
+from torch_harness import assert_scaled_close, pallas_lines_c128
+
+TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
+NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
+#: (batch, inverse, twiddle, pack_parts) per length: both directions,
+#: each epilogue (pack_parts where 2 divides N).
+VARIANTS = [(2, False, False, None), (1, True, True, None),
+            (2, False, True, 2), (1, True, False, 2)]
+LENGTHS = [(torch.complex64, 6144), (torch.complex64, 10007),
+           (torch.complex128, 3001), (torch.complex128, 3072)]
+CASES = [(dtype, n, b, inv, tw, parts if n % 2 == 0 else None)
+         for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
+#: Where the reference's four-step factors N: at a prime N it is one
+#: dense DFT matrix, 10007 x 10007 (too large to run here), and at 3001
+#: its sums of 3001 terms differ from np.fft by about 1e-12 in complex128
+#: themselves, so the prime lengths are held to np.fft alone.
+PALLAS = {6144, 3072}
+
+
+def _case_id(case):
+    dtype, n, b, inv, tw, parts = case
+    return (f"{str(dtype).removeprefix('torch.')}-{n}-b{b}-"
+            f"{'inv' if inv else 'fwd'}-tw{int(tw)}-p{parts}")
+
+
+def _inputs(case):
+    dtype, n, b, inv, tw, parts = case
+    r = np.random.default_rng(n + 10 * b + int(inv) + 100 * int(tw))
+    x = (r.standard_normal((b, n)) + 1j * r.standard_normal((b, n))
+         ).astype(NP[dtype])
+    t = np.exp(-1j * np.pi * np.arange(n) / (2 * n)).astype(NP[dtype]) \
+        if tw else None
+    return x, t
+
+
+def _numpy_ref(case, x, t):
+    dtype, n, b, inv, tw, parts = case
+    y = (np.fft.ifft if inv else np.fft.fft)(x.astype(np.complex128),
+                                             axis=-1)
+    if t is not None:
+        y = t * y
+    return y if parts is None else y.reshape(b, parts, n // parts)
+
+
+
+@pytest.fixture(scope="module")
+def pallas_c128(tmp_path_factory):
+    """The Pallas kernel's complex128 results (interpret mode under
+    ``jax_enable_x64``, one fresh process for every case)."""
+    cases = {}
+    for case in CASES:
+        if case[0] != torch.complex128 or case[1] not in PALLAS:
+            continue
+        x, t = _inputs(case)
+        cases[_case_id(case).replace("-", "_")] = (x, t, case[3], case[5])
+    return pallas_lines_c128(cases,
+                             str(tmp_path_factory.mktemp("chirp_x64")))
+
+
+def _pallas_c64(case, x, t):
+    dtype, n, b, inv, tw, parts = case
+    twp = None if t is None else (jnp.asarray(t.real), jnp.asarray(t.imag))
+    yr, yi = jfm.fft1d_planes(jnp.asarray(x.real), jnp.asarray(x.imag),
+                              inverse=inv, twiddle=twp, pack_parts=parts)
+    assert yr.dtype == jnp.float32
+    return np.asarray(yr) + 1j * np.asarray(yi)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_chirp_route_matches_numpy_and_pallas(case, request):
+    """The route's plain version, through the wrapper on CPU tensors,
+    against np.fft and (where it runs) the Pallas kernel on the same
+    inputs; no launch is counted on the CPU, a pack is one line copy."""
+    dtype, n, b, inv, tw, parts = case
+    assert radix.kernel_path(n, dtype) == "chirp"
+    x, t = _inputs(case)
+    tfm.reset_launch_counts()
+    ops.copies["lines"] = 0
+    got = tfm.fft_fourstep(torch.from_numpy(x), inverse=inv,
+                           twiddle=None if t is None else torch.from_numpy(t),
+                           pack_parts=parts)
+    counts = tfm.launch_counts()
+    assert counts["launches"] == 0 and counts["chirp_calls"] == 0
+    assert ops.copies["lines"] == (parts is not None)
+    assert got.dtype == dtype
+    want_shape = (b, n) if parts is None else (b, parts, n // parts)
+    assert tuple(got.shape) == want_shape
+    if parts is not None:       # destination-major (p, B, N/p) storage
+        assert got.transpose(0, 1).is_contiguous()
+    got = got.numpy()
+    assert_scaled_close(got, _numpy_ref(case, x, t), TOL[dtype])
+    if n not in PALLAS:
+        return
+    if dtype == torch.complex64:
+        pallas = _pallas_c64(case, x, t)
+    else:
+        pallas = request.getfixturevalue("pallas_c128")[
+            _case_id(case).replace("-", "_")]
+    assert pallas.dtype == NP[dtype]
+    assert_scaled_close(got, pallas, TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [2_097_143, 1_000_003, (1 << 20) + 7])
+def test_chirp_tables_keep_the_phase_at_large_n(n):
+    """The chirp's phase pi*k^2/N is reduced mod 2N in integers before it
+    meets a float: the float64 table matches the exact phase at every k,
+    and so does its complex64 cast, where a phase taken from k^2 in
+    float32 is off by whole radians.  The filter is even (b[m] =
+    b[M - m]) and the output chirp is zero past N."""
+    pre, filt, post = chirp.constants(n, inverse=False)
+    m = chirp.chirp_length(n)
+    assert m == 1 << (2 * n - 2).bit_length() and m >= 2 * n - 1
+    assert pre.shape == (n,) and filt.shape == (m,) and post.shape == (m,)
+    k = np.array([0, 1, 2, n // 3, n // 2, n - 2, n - 1], dtype=np.int64)
+    exact = np.array([complex(np.exp(-1j * np.pi * float(int(j) * int(j)
+                                                       % (2 * n)) / n))
+                      for j in k])
+    assert np.abs(pre[k] - exact).max() < 1e-12
+    assert np.abs(pre[k].astype(np.complex64) - exact).max() < 1e-6
+    naive = np.exp(-1j * np.pi * k.astype(np.float32) ** 2
+                   / np.float32(n)).astype(np.complex64)
+    assert np.abs(naive - exact).max() > 1e-2
+    assert np.allclose(np.abs(pre), 1.0, atol=1e-12)
+    assert np.all(post[n:] == 0) and np.allclose(post[:n], pre)
+    inv_pre, _, inv_post = chirp.constants(n, inverse=True)
+    assert np.allclose(inv_pre, np.conj(pre), atol=1e-12)
+    assert np.allclose(inv_post[:n], np.conj(pre) / n, atol=1e-12)
+
+
+def test_chirp_filter_is_the_transformed_conjugate_chirp():
+    n = 5000
+    pre, filt, _ = chirp.constants(n, inverse=True)
+    b = np.fft.ifft(filt)
+    m = chirp.chirp_length(n)
+    assert_scaled_close(b[:n], np.conj(pre), 1e-12)
+    assert_scaled_close(b[m - n + 1:], np.conj(pre[1:])[::-1], 1e-12)
+    assert np.abs(b[n:m - n + 1]).max() < 1e-12
+
+
+@pytest.mark.parametrize("n,dtype,path", [
+    (4835, torch.complex64, "dense"), (4836, torch.complex64, "chirp"),
+    (4608, torch.complex64, "dense"), (5000, torch.complex64, "chirp"),
+    (6144, torch.complex64, "chirp"), (10007, torch.complex64, "chirp"),
+    (24576, torch.complex64, "chirp"), ((1 << 23) - 1, torch.complex64,
+                                        "chirp"),
+    (1 << 23, torch.complex64, "split"),
+    ((1 << 23) + 1, torch.complex64, "dense"),
+    (2419, torch.complex128, "dense"), (2420, torch.complex128, "chirp"),
+    (3001, torch.complex128, "chirp"), (12288, torch.complex128, "chirp"),
+    (1 << 21, torch.complex128, "split"),
+    ((1 << 21) + 1, torch.complex128, "dense"),
+    (4096, torch.complex64, "radix"), (3840, torch.complex64, "radix")])
+def test_chirp_routing_by_length(n, dtype, path):
+    """The chirp route takes every length past the dense kernel's one
+    block (with its twiddle staged) that no power-of-two route takes, up
+    to half the split route's longest line; beyond, the dense kernel's
+    one-block limit raises with a message naming the chirp's limit."""
+    assert radix.kernel_path(n, dtype) == path
+    if path in ("chirp", "dense"):
+        assert chirp.takes(n, dtype) == (path == "chirp")
+    if path == "chirp":
+        assert chirp.chirp_length(n) <= max(split.FACTORS[dtype])
+        assert radix.kernel_path(chirp.chirp_length(n), dtype) in (
+            "long", "split")
+    if path == "dense" and n > 1 << 20:
+        with pytest.raises(ValueError, match=f"chirp route every other N "
+                           f"up to {chirp.max_length(dtype)}"):
+            tfm.launch_config(n, dtype.itemsize, False)
+
+
+def test_chirp_lines_along_any_axis_and_their_gradient():
+    """``ops.fft1d`` on a chirp N: contiguous lines in place, a strided
+    axis copied contiguous first (``ops.copies``); the transform's
+    gradient (``LineTransform``: the adjoint runs on the same route)
+    against ``torch.fft``'s, both directions."""
+    n = 6144
+    r = np.random.default_rng(5)
+    x = (r.standard_normal((2, n, 3)) + 1j * r.standard_normal(
+        (2, n, 3))).astype(np.complex64)
+    ops.copies["lines"] = 0
+    got = ops.fft1d(torch.from_numpy(x), 1)
+    assert ops.copies["lines"] == 1
+    assert_scaled_close(got.numpy(), np.fft.fft(x, axis=1), 5e-6)
+    lines = torch.from_numpy(np.ascontiguousarray(x[:, :, 0]))
+    got = ops.ifft1d(lines, -1)
+    assert ops.copies["lines"] == 1
+    assert_scaled_close(got.numpy(), np.fft.ifft(x[:, :, 0], axis=-1), 5e-6)
+    g = torch.from_numpy(r.standard_normal((2, n)).astype(np.complex64))
+    for fns in ((ops.fft1d, torch.fft.fft), (ops.ifft1d, torch.fft.ifft)):
+        grads = []
+        for fn in fns:
+            xx = lines.clone().requires_grad_(True)
+            (fn(xx) * g).real.sum().backward()
+            grads.append(xx.grad.numpy())
+        assert_scaled_close(grads[0], grads[1], 5e-6)
+
+
+def test_fft_conv_at_3072_takes_the_chirp_route_and_matches_reference():
+    """``fft_conv`` at S=3072 (lines of 6144, the chirp route) with 8
+    channels on the kernel backend's plain version against the
+    reference's mixer, float32: the output, and the gradients of w_in,
+    basis_w, decay, w_out and the input against ``jax.grad`` of the
+    reference's ``fft_backend="xla"``."""
+    from lm_parity import F32_TOL, f32, jax_init, port_module, randn, \
+        scaled_err, tt
+    from repro.configs import smoke_config as ref_smoke_config
+    from repro.distributed.sharding import MeshRules
+    from repro.models import ssm as ref_ssm
+    from repro_torch.models import ssm
+
+    cfg = f32(dataclasses.replace(ref_smoke_config("jamba_v0_1_52b"),
+                                  ssm_impl="fft_conv", d_model=4, expand=2))
+    tree, ref_p = jax_init(ref_ssm.init_fft_conv, cfg, "ssm", seed=3)
+    p = port_module(ssm.init_fft_conv, tree, "ssm", cfg)
+    assert p.basis_w.shape[0] == 8                  # 8 channels
+    s = 3072
+    assert radix.kernel_path(2 * s, torch.complex64) == "chirp"
+    x = randn((1, s, cfg.d_model), 11)
+    r = randn((1, s, cfg.d_model), 12)
+    y_ref, _ = ref_ssm.fft_conv(ref_p, cfg, MeshRules(), jnp.asarray(x))
+
+    def ref_loss(pp, xx):
+        y, _ = ref_ssm.fft_conv(pp, cfg, MeshRules(), xx, fft_backend="xla")
+        return jnp.sum(y * jnp.asarray(r))
+
+    ref_gp, ref_gx = jax.grad(ref_loss, argnums=(0, 1))(ref_p,
+                                                        jnp.asarray(x))
+    tfm.reset_launch_counts()
+    p.requires_grad_(True)
+    xt = tt(x).requires_grad_(True)
+    y, _ = ssm.fft_conv(p, cfg, None, xt, fft_backend="kernel")
+    assert scaled_err(y, y_ref) < F32_TOL
+    (y * tt(r)).sum().backward()
+    assert tfm.launch_counts()["chirp_calls"] == 0   # plain version on CPU
+    for name in ("w_in", "basis_w", "decay", "w_out"):
+        g = getattr(p, name).grad
+        assert g is not None and bool(g.abs().max() > 0), name
+        assert scaled_err(g, ref_gp[name]) < F32_TOL, name
+    assert scaled_err(xt.grad, ref_gx) < F32_TOL

@@ -5,7 +5,8 @@ the plans, the plan-stream executor's mixed queue (plain, and under the
 static verifier and the sanitizer) and the service losing one card; the LM
 smoke serving path on the card against the CPU, the split route (lines
 longer than one block) and the FFT long-convolution mixer on it at
-S=16384, the mixer on the kernel, its gradient through the kernel, and a
+S=16384, the radix route's mixed lengths (every one, strided axes, an
+unaligned view), the chirp route and the mixer on it at S=3072, the mixer on the kernel, its gradient through the kernel, and a
 smoke train step on the card against the CPU; ``[train]``'s 8 layers
 lowering the loss of the batches they trained on; the LM's mesh path on one card (a
 (1, 1) NCCL mesh against no mesh) and on 4 cards (qwen3-8b at 36 layers
@@ -99,7 +100,8 @@ def test_cuda_strided_kernel_matches_plain_version(cuda, shape, dtype,
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.layout_launches == {"lines": 0, "strided": 1}
     assert tfm.fft_fourstep.path_launches == {"radix": 1, "dense": 0,
-                                              "long": 0, "split": 0}
+                                              "long": 0, "split": 0,
+                                              "chirp": 0}
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
 
@@ -152,7 +154,8 @@ def test_cuda_long_kernel_matches_plain_version_and_torch_fft(
     got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0,
-                                              "long": 1, "split": 0}
+                                              "long": 1, "split": 0,
+                                              "chirp": 0}
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
     assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
     if parts is not None:
@@ -213,7 +216,8 @@ def test_cuda_split_kernel_matches_plain_version_and_torch_fft(
     assert counts["launches"] == 2 + long_rows
     assert counts["strided"] == 1 and counts["lines"] == 1 + long_rows
     assert tfm.fft_fourstep.path_launches == {
-        "radix": 0, "dense": 0, "long": 0, "split": 2 + long_rows}
+        "radix": 0, "dense": 0, "long": 0, "split": 2 + long_rows,
+        "chirp": 0}
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
     assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
     if parts is not None:
@@ -280,6 +284,167 @@ def test_fft_conv_at_16384_on_the_split_route(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_mixed_radix_lengths_match_plain_version_and_torch_fft(
+        cuda, dtype, inverse):
+    """Every mixed radix length (N = r*2^k, r in {3, 5, 9, 15}): one radix
+    launch each, against the plain version and ``torch.fft`` at the
+    kernel's tolerances, without an epilogue and with both (a pack_parts
+    segment that is not a power of two where 3 divides N)."""
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    mixed = [n for n in radix.RADIX_SIZES[dtype] if not radix.is_pow2(n)]
+    assert len(mixed) == (35 if dtype == torch.complex64 else 27)
+    for n in mixed:
+        x = torch.from_numpy(cplx((21, n), n)).to(cuda, dtype)
+        tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
+                       / (2 * n)).to(dtype)
+        parts = 3 if n % 3 == 0 else 2
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+        for t, p in ((None, None), (tw, parts)):
+            tfm.reset_launch_counts()
+            got = tfm.fft_fourstep(x, inverse=inverse, twiddle=t,
+                                   pack_parts=p)
+            torch.cuda.synchronize()
+            assert tfm.fft_fourstep.path_launches["radix"] == 1, n
+            assert tfm.fft_fourstep.launches == 1, n
+            want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=t,
+                                          pack_parts=p)
+            ref = lib if t is None else (lib * t).reshape(21, p, n // p)
+            assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+            assert_scaled_close(got.cpu().numpy(), ref.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((2, 384, 300), torch.complex64),
+                                         ((3, 1280, 40), torch.complex64),
+                                         ((4, 96, 17), torch.complex64),
+                                         ((2, 480, 33), torch.complex128)])
+def test_cuda_strided_mixed_axis(cuda, shape, dtype):
+    """A mixed length on a strided axis runs in place on the strided
+    entry (``ops``: no line copy), with a ragged last group of inner
+    indices, against ``torch.fft`` along that axis."""
+    x = torch.from_numpy(cplx(shape, 16)).to(cuda, dtype)
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    tfm.reset_launch_counts()
+    ops.copies["lines"] = 0
+    got = ops.ifft1d(x, 1)
+    torch.cuda.synchronize()
+    assert tfm.fft_fourstep.layout_launches == {"lines": 0, "strided": 1}
+    assert tfm.fft_fourstep.path_launches["radix"] == 1
+    assert ops.copies["lines"] == 0
+    assert_scaled_close(got.cpu().numpy(),
+                        torch.fft.ifft(x, dim=1).cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
+    (torch.complex64, 6144, 3, False, None, True),      # M on long-line
+    (torch.complex64, 6144, 2, True, 4, False),
+    (torch.complex64, 10007, 2, True, None, True),      # prime, M split
+    (torch.complex64, 24576, 1, False, 2, True),
+    (torch.complex128, 3001, 2, False, None, True),
+    (torch.complex128, 12288, 1, True, 3, False)])
+def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
+        cuda, dtype, n, b, inverse, parts, use_tw):
+    """The chirp route (one chirp call; its two inner transforms' launches
+    all on the "chirp" path) against its plain version (``chirp.emulate``)
+    at the kernel's tolerances and ``torch.fft`` within 2e-4, with both
+    epilogues."""
+    from repro_torch.kernels import chirp
+    assert radix.kernel_path(n, dtype) == "chirp"
+    m = chirp.chirp_length(n)
+    x = torch.from_numpy(cplx((b, n), 17)).to(cuda, dtype)
+    tw = (torch.exp(-1j * math.pi * torch.arange(n, device=cuda) / (2 * n))
+          .to(dtype) if use_tw else None)
+    want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=tw,
+                                  pack_parts=parts)
+    lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+    if tw is not None:
+        lib = lib * tw
+    if parts is not None:
+        lib = lib.reshape(b, parts, n // parts)
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    tfm.reset_launch_counts()
+    got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
+    torch.cuda.synchronize()
+    counts = tfm.launch_counts()
+    inner = 1 if radix.kernel_path(m, dtype) == "long" else \
+        2 + (split_rows_long(m, dtype))
+    assert counts["chirp_calls"] == 1 and counts["split_calls"] == 0
+    assert counts["launches"] == counts["chirp"] == 2 * inner, counts
+    assert tfm.fft_fourstep.path_launches["dense"] == 0
+    assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+    assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), 2e-4)
+    if parts is not None:
+        assert got.transpose(0, 1).is_contiguous()
+
+
+def split_rows_long(n, dtype) -> int:
+    from repro_torch.kernels import split
+    return int(split.split_plan(n, dtype).row_path == "long")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [384, 6144])
+def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
+    """A contiguous view 8 bytes into its storage, on the radix route at
+    a mixed length and on the chirp route: transformed all the same."""
+    base = torch.from_numpy(cplx((2 * n + 1,), 18)).to(cuda)
+    x = base[1:].view(2, n)
+    assert x.data_ptr() % 16 == 8
+    tfm.reset_launch_counts()
+    got = ops.fft1d(x)
+    torch.cuda.synchronize()
+    path = radix.kernel_path(n, torch.complex64)
+    assert tfm.fft_fourstep.path_launches[path] >= 1
+    assert_scaled_close(got.cpu().numpy(), torch.fft.fft(x).cpu().numpy(),
+                        2e-4 if path == "chirp" else 5e-6)
+
+
+@pytest.mark.cuda
+def test_fft_conv_at_3072_on_the_chirp_route(cuda):
+    """``fft_conv`` at S=3072 (lines of 6144) on the kernel, float32,
+    forward and backward: 3 chirp calls forward and 3 more backward (2
+    long-line launches each), no dense launch and no line copy; the
+    output and every gradient within 1e-4 of ``cufft``'s."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import ParamBuilder
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(smoke_config("jamba_v0_1_52b"),
+                              ssm_impl="fft_conv", dtype="float32")
+    params = ssm.init_fft_conv(ParamBuilder(0, device=cuda), "ssm", cfg)
+    params.requires_grad_(True)
+    s = 3072
+    x = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        (1, s, cfg.d_model)).astype(np.float32)).to(cuda)
+
+    def fwd_bwd(backend):
+        for prm in params.parameters():
+            prm.grad = None
+        xx = x.detach().requires_grad_(True)
+        y, _ = ssm.fft_conv(params, cfg, None, xx, fft_backend=backend)
+        y.square().sum().backward()
+        return [y.detach()] + [prm.grad for prm in params.parameters()] \
+            + [xx.grad]
+
+    ref = fwd_bwd("cufft")
+    tfm.reset_launch_counts()
+    ops.copies["lines"] = 0
+    got = fwd_bwd("kernel")
+    torch.cuda.synchronize()
+    counts = tfm.launch_counts()
+    assert counts["chirp_calls"] == 6, counts
+    assert counts["launches"] == counts["chirp"] == 12, counts
+    assert counts["dense"] == 0 and ops.copies["lines"] == 0
+    for g, r in zip(got, ref):
+        assert bool(r.abs().max() > 0)
+        assert_scaled_close(g.cpu().numpy(), r.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_empty_batch_launches_nothing(cuda):
     tfm.reset_launch_counts()
     out = tfm.fft_fourstep(torch.zeros((0, 16), dtype=torch.complex64,
@@ -302,9 +467,11 @@ def test_kernel_plan_on_the_card(cuda):
     back = plan.inverse(y, sharded_in=True)
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.launches == 6
-    # 32 and 64 on the radix path (strided, in place), 48 on the dense one
-    assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 2,
-                                              "long": 0, "split": 0}
+    # 32, 64 and the mixed 48 on the radix path (32 and 64 strided, in
+    # place)
+    assert tfm.fft_fourstep.path_launches == {"radix": 6, "dense": 0,
+                                              "long": 0, "split": 0,
+                                              "chirp": 0}
     assert tfm.fft_fourstep.layout_launches == {"lines": 2, "strided": 4}
     assert ops.copies["lines"] == 0 and y.is_contiguous()
     assert_scaled_close(y.cpu().numpy(), torch.fft.fftn(x).cpu().numpy(),
@@ -332,10 +499,11 @@ def test_poisson_ppb_on_the_card(cuda):
     torch.cuda.synchronize()
     assert tfm.fft_fourstep.variant_launches == {"fourstep": 6, "pack": 0,
                                                  "twiddle": 2}
-    # the bounded dim (48) takes the dense path: its 2 twiddle launches and
-    # the 2 inverse ones; dims of 32 and 64 the radix path
-    assert tfm.fft_fourstep.path_launches == {"radix": 4, "dense": 4,
-                                              "long": 0, "split": 0}
+    # the bounded dim (48, mixed: its 2 twiddle launches and the 2 inverse
+    # ones) and the dims of 32 and 64 all take the radix path
+    assert tfm.fft_fourstep.path_launches == {"radix": 8, "dense": 0,
+                                              "long": 0, "split": 0,
+                                              "chirp": 0}
     assert phi.dtype == torch.float32 and phi.device.type == "cuda"
     want = PoissonSolver(mesh, grid, topology=topo, backend="cufft")(rhs)
     assert_scaled_close(phi.cpu().numpy(), want.cpu().numpy(), 2e-4)

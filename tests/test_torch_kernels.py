@@ -218,12 +218,18 @@ def test_launch_config_fits_shared_memory():
                 assert tile.smem_bytes <= tfm.SMEM_TARGET_BYTES
                 assert tile.lines & (tile.lines - 1) == 0
                 st = radix.radix_tile(n, item, tw, strided=True)
-                assert (st is None) == (n * item > 8 * 1024)
+                need = item * (radix.const_elems(n, tw) + radix.tile_elems(
+                    n, radix.STRIDED_LINES, True))
+                assert (st is None) == (need > tfm.SMEM_MAX_BYTES)
+                if radix.is_pow2(n):
+                    assert (st is None) == (n * item > 8 * 1024)
                 if st is not None:
-                    assert st.smem_bytes <= tfm.SMEM_MAX_BYTES
+                    assert st.smem_bytes == need <= tfm.SMEM_MAX_BYTES
     assert not tfm.strided_supported(2048, torch.complex64, False)
     assert not tfm.strided_supported(1024, torch.complex128, False)
-    assert not tfm.strided_supported(96, torch.complex64, False)
+    assert not tfm.strided_supported(3840, torch.complex64, False)
+    assert tfm.strided_supported(96, torch.complex64, False)    # mixed
+    assert not tfm.strided_supported(33, torch.complex64, False)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -248,7 +254,8 @@ def test_cpu_runs_the_plain_version_without_counting_launches():
     assert set(tfm.fft_fourstep.variant_launches) == {"fourstep", "pack",
                                                       "twiddle"}
     assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0,
-                                              "long": 0, "split": 0}
+                                              "long": 0, "split": 0,
+                                              "chirp": 0}
     assert tfm.fft_fourstep.layout_launches == {"lines": 0, "strided": 0}
 
 
@@ -275,23 +282,25 @@ def test_kernel_operands_are_resolved():
 @pytest.mark.parametrize("n,dtype,path", [
     (1, torch.complex64, "dense"), (2, torch.complex64, "radix"),
     (512, torch.complex64, "radix"), (4096, torch.complex64, "radix"),
-    (8192, torch.complex64, "long"), (24, torch.complex64, "dense"),
-    (33, torch.complex64, "dense"), (96, torch.complex64, "dense"),
+    (8192, torch.complex64, "long"), (24, torch.complex64, "radix"),
+    (33, torch.complex64, "dense"), (96, torch.complex64, "radix"),
     (521, torch.complex64, "dense"), (1024, torch.complex128, "radix"),
     (2, torch.complex128, "dense"), (4, torch.complex128, "radix"),
     (2048, torch.complex128, "long"), (4096, torch.complex128, "long"),
-    (48, torch.complex128, "dense"), (16384, torch.complex64, "long"),
+    (48, torch.complex128, "radix"), (16384, torch.complex64, "long"),
     (8192, torch.complex128, "long"), (32768, torch.complex64, "split"),
     (16384, torch.complex128, "split"), (1 << 24, torch.complex64, "split"),
     (1 << 22, torch.complex128, "split"), (1 << 25, torch.complex64, "dense"),
-    (1 << 23, torch.complex128, "dense"), (24576, torch.complex64, "dense")])
+    (1 << 23, torch.complex128, "dense"), (24576, torch.complex64, "chirp")])
 def test_kernel_path_selection(n, dtype, path):
-    """The path follows N and the dtype alone: power-of-two N with a
-    radix instantiation takes the radix kernel, longer power-of-two N
-    whose line fits in a block's shared memory the long-line kernel, the
+    """The path follows N and the dtype alone: N with a radix
+    instantiation (powers of two, and mixed r*2^k such as 24, 96 and
+    complex128 48) takes the radix kernel, longer power-of-two N whose
+    line fits in a block's shared memory the long-line kernel, the
     power-of-two N beyond one block up to 2^24 (complex64) / 2^22
-    (complex128) the split route, every other N the dense one (which the
-    card refuses past one block: 2^25 / 2^23, 24576)."""
+    (complex128) the split route, every other N beyond one block up to
+    half those (24576) the chirp route, every other N the dense one
+    (which the card refuses past one block: 2^25 / 2^23)."""
     assert radix.kernel_path(n, dtype) == path
 
 
@@ -311,8 +320,8 @@ def test_radix_plan_factors_and_codelets():
                 assert all(w is None or 0 < w < plan.n2 // 2
                            for _, _, w in stage)
     assert [radix.bitrev(i, 3) for i in range(8)] == [0, 4, 2, 6, 1, 5, 3, 7]
-    for bad in (0, 1, 12, 96):
-        with pytest.raises(ValueError, match="power of two"):
+    for bad in (0, 1, 7, 14, 33):
+        with pytest.raises(ValueError, match="prime factors are 2, 3 and 5"):
             radix.radix_plan(bad)
 
 
@@ -383,7 +392,7 @@ def test_strided_routing_masks_ragged_inner_and_copies_narrow_ones():
     assert ops.copies["lines"] == 1
     assert_scaled_close(got.numpy(), np.fft.fft(x, axis=1), 5e-6)
     # a general-path N on a strided axis and a pack on one are copied too
-    ops.fft1d(_t(cplx((3, 24, 16), 72)), 1)
+    ops.fft1d(_t(cplx((3, 33, 16), 72)), 1)
     ops.packed_fft1d(_t(cplx((3, 32, 16), 73)), 1, 2)
     assert ops.copies["lines"] == 3
 
@@ -412,7 +421,7 @@ def test_strided_entry_and_its_plain_version():
         tfm.fft_fourstep_strided(
             torch.zeros((2, 16, 64), dtype=torch.complex64).transpose(1, 2))
     with pytest.raises(ValueError, match="no strided radix tile"):
-        tfm.fft_fourstep_strided(torch.zeros((1, 96, 16),
+        tfm.fft_fourstep_strided(torch.zeros((1, 33, 16),
                                              dtype=torch.complex64))
 
 

@@ -1,0 +1,258 @@
+"""The radix route's mixed lengths (``kernels/radix.py``,
+``csrc/fft_radix.cuh``): N = r*2^k, r in {3, 5, 9, 15}, whose codelets are
+chains of radix-5, 3, 4 and 2 butterflies on digit-reversed loads.  The
+kernel's plan and index maps, run in torch by ``radix.emulate``, are held
+against ``np.fft`` and against the JAX package's Pallas kernel in interpret
+mode on the same numpy inputs: both directions, the twiddle epilogue,
+``pack_parts`` with a segment that is not a power of two (384 with p = 2
+and p = 3), and the strided layout, at the reference's tolerances
+(``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
+complex128).  Then the chains and tables, the sizes the kernel
+instantiates, and a ``plan_fft`` C2C plan and a PPB Poisson solve at a
+mixed grid on the kernel backend's plain version against the reference's.
+The CUDA kernel is tested in ``test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import api as japi
+from repro.kernels import fft_matmul as jfm
+from repro_torch.compat import make_mesh
+from repro_torch.core import api
+from repro_torch.core.transforms import factorize
+from repro_torch.kernels import fft_matmul as tfm
+from repro_torch.kernels import radix, split
+from torch_harness import assert_scaled_close, pallas_lines_c128
+
+TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
+NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
+LENGTHS = [(torch.complex64, n) for n in (6, 12, 30, 36, 60, 96, 384, 1536,
+                                          3840)] + \
+          [(torch.complex128, n) for n in (6, 30, 96, 384, 960)]
+#: (batch, inverse, twiddle, pack_parts): ragged batches, both directions,
+#: each epilogue; pack_parts 3 where 3 divides N, else 2.
+VARIANTS = [(37, False, False, None), (5, True, True, None),
+            (3, False, False, "p"), (2, True, True, "p")]
+CASES = [(dtype, n, b, inv, tw, (3 if n % 3 == 0 else 2) if p else None)
+         for dtype, n in LENGTHS for b, inv, tw, p in VARIANTS]
+CASES += [(torch.complex64, 384, 3, False, True, 2),
+          (torch.complex64, 384, 3, True, False, 2)]
+
+
+def _case_id(case):
+    dtype, n, b, inv, tw, parts = case
+    return (f"{str(dtype).removeprefix('torch.')}-{n}-b{b}-"
+            f"{'inv' if inv else 'fwd'}-tw{int(tw)}-p{parts}")
+
+
+def _inputs(case):
+    dtype, n, b, inv, tw, parts = case
+    r = np.random.default_rng(n + 10 * b + int(inv))
+    x = (r.standard_normal((b, n)) + 1j * r.standard_normal((b, n))
+         ).astype(NP[dtype])
+    t = np.exp(-1j * np.pi * np.arange(n) / (2 * n)).astype(NP[dtype]) \
+        if tw else None
+    return x, t
+
+
+def _numpy_ref(case, x, t):
+    dtype, n, b, inv, tw, parts = case
+    y = (np.fft.ifft if inv else np.fft.fft)(x.astype(np.complex128),
+                                             axis=-1)
+    if t is not None:
+        y = t * y
+    return y if parts is None else y.reshape(b, parts, n // parts)
+
+
+
+@pytest.fixture(scope="module")
+def pallas_c128(tmp_path_factory):
+    """The Pallas kernel's complex128 results (interpret mode under
+    ``jax_enable_x64``, one fresh process for every case)."""
+    cases = {}
+    for case in CASES:
+        if case[0] != torch.complex128:
+            continue
+        x, t = _inputs(case)
+        cases[_case_id(case).replace("-", "_")] = (x, t, case[3], case[5])
+    return pallas_lines_c128(cases,
+                             str(tmp_path_factory.mktemp("mixed_x64")))
+
+
+def _pallas_c64(case, x, t):
+    dtype, n, b, inv, tw, parts = case
+    twp = None if t is None else (jnp.asarray(t.real), jnp.asarray(t.imag))
+    yr, yi = jfm.fft1d_planes(jnp.asarray(x.real), jnp.asarray(x.imag),
+                              inverse=inv, twiddle=twp, pack_parts=parts)
+    assert yr.dtype == jnp.float32
+    return np.asarray(yr) + 1j * np.asarray(yi)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_mixed_radix_plan_matches_numpy_and_pallas(case, request):
+    """``radix.emulate`` (the kernel's loops and index maps: the mixed
+    codelets, their own tables, the row split by a division, the
+    ``pack_parts`` segment of any length) against np.fft and the Pallas
+    kernel on the same inputs; the buffer it returns is what the kernel
+    writes, ``(p, B, N/p)`` with ``pack_parts``."""
+    dtype, n, b, inv, tw, parts = case
+    assert radix.kernel_path(n, dtype) == "radix"
+    x, t = _inputs(case)
+    got = radix.emulate(torch.from_numpy(x), inverse=inv,
+                        twiddle=None if t is None else torch.from_numpy(t),
+                        pack_parts=parts)
+    assert got.dtype == dtype
+    if parts is not None:
+        assert tuple(got.shape) == (parts, b, n // parts)
+        got = got.transpose(0, 1)
+    got = got.numpy()
+    assert_scaled_close(got, _numpy_ref(case, x, t), TOL[dtype])
+    if dtype == torch.complex64:
+        pallas = _pallas_c64(case, x, t)
+    else:
+        pallas = request.getfixturevalue("pallas_c128")[
+            _case_id(case).replace("-", "_")]
+    assert pallas.dtype == NP[dtype]
+    assert_scaled_close(got, pallas, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.complex64, 24),
+                                     (torch.complex64, 384),
+                                     (torch.complex64, 1280),
+                                     (torch.complex128, 240),
+                                     (torch.complex128, 480)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_mixed_strided_layout_matches_numpy(dtype, n, inverse):
+    """The strided ``(outer, N, inner)`` layout at mixed lengths, a
+    ragged last group of inner indices, with the twiddle, through
+    ``radix.emulate`` and through the strided entry's plain version."""
+    assert tfm.strided_supported(n, dtype, True)
+    r = np.random.default_rng(n + int(inverse))
+    x = (r.standard_normal((2, n, 21)) + 1j * r.standard_normal(
+        (2, n, 21))).astype(NP[dtype])
+    t = np.exp(-1j * np.pi * np.arange(n) / (2 * n)).astype(NP[dtype])
+    want = t[:, None] * (np.fft.ifft if inverse else np.fft.fft)(
+        x.astype(np.complex128), axis=1)
+    got = radix.emulate(torch.from_numpy(x), inverse=inverse,
+                        twiddle=torch.from_numpy(t), strided=True)
+    assert_scaled_close(got.numpy(), want, TOL[dtype])
+    got = tfm.fft_fourstep_strided(torch.from_numpy(x), inverse=inverse,
+                                   twiddle=torch.from_numpy(t))
+    assert_scaled_close(got.numpy(), want, TOL[dtype])
+
+
+@pytest.mark.parametrize("length,chain", [
+    (3, (3,)), (5, (5,)), (6, (3, 2)), (9, (3, 3)), (12, (3, 4)),
+    (15, (5, 3)), (24, (3, 4, 2)), (40, (5, 4, 2)), (48, (3, 4, 4)),
+    (60, (5, 3, 4)), (16, (2, 2, 2, 2))])
+def test_mixed_codelet_chain_and_loads(length, chain):
+    """The radix chain (the 5s, the 3s, then 4s and a last 2; 2s for a
+    power of two), the load order (a permutation; bit reversal for a
+    power of two), and every stage touching each register once with its
+    twiddle inside the codelet's own table of ``length`` entries."""
+    assert radix.radices(length) == chain
+    slots = [radix.load_slot(i, length) for i in range(length)]
+    assert sorted(slots) == list(range(length))
+    if radix.is_pow2(length):
+        bits = length.bit_length() - 1
+        assert slots == [radix.bitrev(i, bits) for i in range(length)]
+        return
+    stages = radix.mixed_codelet(length)
+    assert [len(s[0][0]) for s in stages] == list(chain)
+    for stage in stages:
+        touched = sorted(i for regs, _ in stage for i in regs)
+        assert touched == list(range(length))
+        assert all(e is None or 0 < e < length
+                   for _, tws in stage for e in tws)
+    # one codelet on a unit impulse at each input is that input's DFT row
+    for i in range(length):
+        v = [torch.zeros((), dtype=torch.complex128)] * length
+        v[slots[i]] = torch.ones((), dtype=torch.complex128)
+        w = torch.from_numpy(np.exp(-2j * np.pi * np.arange(length)
+                                    / length))
+        out = radix.run_codelet(v, length, stages, w, -1.0)
+        want = np.exp(-2j * np.pi * i * np.arange(length) / length)
+        assert_scaled_close(np.array([complex(o) for o in out]), want,
+                            1e-13)
+
+
+def test_mixed_sizes_tables_and_tiles():
+    """35 mixed complex64 lengths to 3840 and 27 complex128 to 960, every
+    codelet at most 64 (complex64) or 32 (complex128) long; each codelet
+    has its own table (N2 + N1 entries); the tile's lines are a power of
+    two; the split route's factors stay powers of two."""
+    for dtype, count, cap in ((torch.complex64, 35, 64),
+                              (torch.complex128, 27, 32)):
+        mixed = [n for n in radix.RADIX_SIZES[dtype]
+                 if not radix.is_pow2(n)]
+        assert len(mixed) == count
+        for n in mixed:
+            n1, n2 = factorize(n)
+            assert max(n1, n2) <= cap and n1 * n2 == n
+            odd = n
+            while odd % 2 == 0:
+                odd //= 2
+            assert odd in radix.MIXED_ODD
+            assert radix.table_elems(n) == n1 + n2
+            assert radix.codelet_table(n, False).shape == (n1 + n2,)
+            tile = radix.radix_tile(n, dtype.itemsize, True, False)
+            assert tile.lines & (tile.lines - 1) == 0
+            assert tile.lines * n1 <= radix.THREADS
+    for dtype, table in split.FACTORS.items():
+        for n, (p, q) in table.items():
+            assert radix.is_pow2(p) and radix.is_pow2(q)
+        for n in split.COLUMN_SIZES[dtype] + split.ROW_SIZES[dtype]:
+            assert radix.is_pow2(n)
+    # 384 = 16 * 24: N1 does not divide N2, so the tables are separate
+    w = radix.codelet_table(384, True)
+    assert_scaled_close(w[:24], np.exp(2j * np.pi * np.arange(24) / 24),
+                        1e-15)
+    assert_scaled_close(w[24:], np.exp(2j * np.pi * np.arange(16) / 16),
+                        1e-15)
+    assert radix.radix_tile(384, 8, False, False).lines == 16
+    assert radix.radix_tile(1536, 8, False, False).lines == 8
+
+
+@pytest.fixture
+def mesh():
+    return make_mesh((1, 1), ("data", "model"), device="cpu")
+
+
+@pytest.mark.parametrize("grid", [(24, 48, 96), (30, 12, 40)])
+def test_plan_at_a_mixed_grid_matches_reference(cpu_mesh, mesh, grid):
+    """``plan_fft`` C2C at a grid of mixed lengths on the kernel backend
+    (every axis on the radix route; here its plain version) against the
+    reference's plan on its Pallas backend, and the round trip."""
+    for n in grid:
+        assert radix.kernel_path(n, torch.complex64) == "radix"
+    r = np.random.default_rng(sum(grid))
+    x = (r.standard_normal(grid) + 1j * r.standard_normal(grid)
+         ).astype(np.complex64)
+    plan = api.plan_fft(mesh, grid, backend="kernel")
+    got = plan.forward(torch.from_numpy(x))
+    want = japi.plan_fft(cpu_mesh, grid, backend="pallas").forward(
+        jnp.asarray(x))
+    assert_scaled_close(got.numpy(), np.asarray(want), 2e-4)
+    assert_scaled_close(got.numpy(), np.fft.fftn(x), 2e-4)
+    back = plan.inverse(got, sharded_in=True)
+    assert_scaled_close(back.numpy(), x, 1e-4)
+
+
+@pytest.mark.parametrize("grid", [(24, 48, 96), (30, 12, 40)])
+def test_ppb_solve_at_a_mixed_grid_matches_reference(cpu_mesh, mesh, grid):
+    """The (periodic, periodic, bounded) Poisson solve at a mixed grid on
+    the kernel backend (its DCT lines of N on the radix route) against
+    the reference's solve on its Pallas backend."""
+    topo = ("periodic", "periodic", "bounded")
+    rhs = np.random.default_rng(len(grid) + grid[0]).standard_normal(
+        grid).astype(np.float32)
+    rhs -= rhs.mean()
+    got = api.poisson_solve(torch.from_numpy(rhs), mesh=mesh, topology=topo,
+                            backend="kernel")
+    ref = japi.poisson_solve(jnp.asarray(rhs), mesh=cpu_mesh, topology=topo,
+                             backend="pallas")
+    assert got.dtype == torch.float32
+    assert_scaled_close(got.numpy(), np.real(np.asarray(ref)), 2e-4)

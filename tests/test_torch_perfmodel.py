@@ -23,6 +23,7 @@ from repro_torch.core import perfmodel as tpm
 from repro_torch.core import pipeline as tp
 from repro_torch.core import tuner as tt
 from repro_torch.core.transforms import REFERENCE_BACKEND, factorize
+from repro_torch.kernels.chirp import chirp_length
 from repro_torch.kernels.radix import kernel_path
 
 REL = 1e-12
@@ -175,8 +176,9 @@ def test_policy_engine_matches_reference_with_batch_dims(case, batch_shape,
                 == jt.feasible_hop_chunk_counts(jspec, sizes, batch_shape)
 
 
-@pytest.mark.parametrize("n", [2, 8, 12, 13, 64, 96, 512, 1024, 2048, 4096,
-                               8192, 16384, 32768, 1 << 22, 1 << 24])
+@pytest.mark.parametrize("n", [2, 8, 12, 13, 64, 96, 384, 512, 1024, 2048,
+                               3001, 4096, 6144, 8192, 10007, 16384, 32768,
+                               1 << 22, 1 << 24])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_kernel_line_flops_follow_kernel_path(n, dtype):
     got = tpm._line_flops(n, "kernel", dtype)
@@ -187,6 +189,14 @@ def test_kernel_line_flops_follow_kernel_path(n, dtype):
         # the butterflies plus the inter-step twiddle between the passes,
         # not factorize's dense count
         assert got == 5.0 * n * math.log2(n) + 6.0 * n
+        assert tpm._line_flops(n, "cufft") < got \
+            < tpm._line_flops(n, "matmul")
+    elif kernel_path(n, dtype) == "chirp":
+        # two transforms of M on their route, their twiddles and the
+        # input's chirp
+        m = chirp_length(n)
+        assert got == 2.0 * tpm._line_flops(m, "kernel", dtype) \
+            + 6.0 * (2 * m + n)
         assert tpm._line_flops(n, "cufft") < got \
             < tpm._line_flops(n, "matmul")
     else:

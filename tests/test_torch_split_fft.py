@@ -16,7 +16,6 @@ mixer.  The CUDA kernels are tested in ``test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 import dataclasses
 import math
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +25,7 @@ import torch
 from repro.kernels import fft_matmul as jfm
 from repro_torch.kernels import fft_matmul as tfm
 from repro_torch.kernels import longline, ops, radix, split
-from torch_harness import assert_scaled_close, run_reference
+from torch_harness import assert_scaled_close, pallas_lines_c128
 
 TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
 NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
@@ -65,52 +64,19 @@ def _numpy_ref(case, x, t):
     return y if parts is None else y.reshape(b, parts, n // parts)
 
 
-X64_PALLAS = """
-import jax
-jax.config.update("jax_enable_x64", True)
-import numpy as np, jax.numpy as jnp
-from repro.kernels.fft_matmul import fft1d_planes
-data = np.load({path!r})
-out = {{}}
-for key in data.files:
-    if not key.startswith("x_"):
-        continue
-    name = key[2:]
-    x = data[key]
-    inv, parts = bool(data["inv_" + name]), int(data["parts_" + name])
-    tw = None
-    if "tw_" + name in data.files:
-        t = data["tw_" + name]
-        tw = (jnp.asarray(t.real), jnp.asarray(t.imag))
-    yr, yi = fft1d_planes(jnp.asarray(x.real), jnp.asarray(x.imag),
-                          inverse=inv, twiddle=tw,
-                          pack_parts=parts or None)
-    out[name] = np.asarray(yr) + 1j * np.asarray(yi)
-    print(name, yr.dtype)
-np.savez({out!r}, **out)
-"""
-
 
 @pytest.fixture(scope="module")
 def pallas_c128(tmp_path_factory):
     """The Pallas kernel's complex128 results (interpret mode under
     ``jax_enable_x64``, one fresh process for every case)."""
-    root = str(tmp_path_factory.mktemp("split_x64"))
-    arrays = {}
+    cases = {}
     for case in CASES:
         if case[0] != torch.complex128:
             continue
-        name = _case_id(case).replace("-", "_")
         x, t = _inputs(case)
-        arrays.update({"x_" + name: x, "inv_" + name: np.array(case[3]),
-                       "parts_" + name: np.array(case[5] or 0)})
-        if t is not None:
-            arrays["tw_" + name] = t
-    path, out = os.path.join(root, "in.npz"), os.path.join(root, "out.npz")
-    np.savez(path, **arrays)
-    log = run_reference(X64_PALLAS.format(path=path, out=out), devices=1)
-    assert "float64" in log and "float32" not in log
-    return dict(np.load(out))
+        cases[_case_id(case).replace("-", "_")] = (x, t, case[3], case[5])
+    return pallas_lines_c128(cases,
+                             str(tmp_path_factory.mktemp("split_x64")))
 
 
 def _pallas_c64(case, x, t):
@@ -197,7 +163,8 @@ def test_wrapper_runs_the_emulation_on_cpu_tensors():
     counts = tfm.launch_counts()
     assert counts["split_calls"] == 0 and counts["launches"] == 0
     assert tfm.fft_fourstep.path_launches == {"radix": 0, "dense": 0,
-                                              "long": 0, "split": 0}
+                                              "long": 0, "split": 0,
+                                              "chirp": 0}
 
 
 SPLIT_LENGTHS = [(d, n) for d, s in split.FACTORS.items() for n in s]

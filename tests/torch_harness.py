@@ -7,7 +7,10 @@
   bodies below; bodies save their results as ``.npy`` files for the test
   to read;
 * :func:`run_reference` — run a JAX snippet with N fake XLA devices in a
-  fresh process (``conftest.run_subprocess``).
+  fresh process (``conftest.run_subprocess``);
+* :func:`pallas_lines_c128` — the JAX package's Pallas FFT kernel on
+  complex128 lines, in interpret mode under ``jax_enable_x64`` in such a
+  process.
 
 This module imports no JAX: the spawned ranks import it.
 """
@@ -48,6 +51,50 @@ def run_reference(code: str, devices: int = 4) -> str:
     """Run a JAX snippet in a fresh process with ``devices`` CPU devices."""
     from conftest import run_subprocess
     return run_subprocess(code, devices=devices)
+
+
+X64_PALLAS = """
+import jax
+jax.config.update("jax_enable_x64", True)
+import numpy as np, jax.numpy as jnp
+from repro.kernels.fft_matmul import fft1d_planes
+data = np.load({path!r})
+out = {{}}
+for key in data.files:
+    if not key.startswith("x_"):
+        continue
+    name = key[2:]
+    x = data[key]
+    inv, parts = bool(data["inv_" + name]), int(data["parts_" + name])
+    tw = None
+    if "tw_" + name in data.files:
+        t = data["tw_" + name]
+        tw = (jnp.asarray(t.real), jnp.asarray(t.imag))
+    yr, yi = fft1d_planes(jnp.asarray(x.real), jnp.asarray(x.imag),
+                          inverse=inv, twiddle=tw,
+                          pack_parts=parts or None)
+    out[name] = np.asarray(yr) + 1j * np.asarray(yi)
+    print(name, yr.dtype)
+np.savez({out!r}, **out)
+"""
+
+
+def pallas_lines_c128(cases: dict, root: str) -> dict:
+    """The Pallas kernel's complex128 results, name -> output, for
+    ``cases``, name -> (x, twiddle or None, inverse, pack_parts or None):
+    ``fft1d_planes`` in interpret mode under ``jax_enable_x64``, all cases
+    in one fresh process, with ``root`` holding its input and output."""
+    arrays = {}
+    for name, (x, t, inv, parts) in cases.items():
+        arrays.update({"x_" + name: x, "inv_" + name: np.array(inv),
+                       "parts_" + name: np.array(parts or 0)})
+        if t is not None:
+            arrays["tw_" + name] = t
+    path, out = os.path.join(root, "in.npz"), os.path.join(root, "out.npz")
+    np.savez(path, **arrays)
+    log = run_reference(X64_PALLAS.format(path=path, out=out), devices=1)
+    assert "float64" in log and "float32" not in log
+    return dict(np.load(out))
 
 
 # ---------------------------------------------------------------------------
