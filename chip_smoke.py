@@ -17,8 +17,9 @@ its result line):
    over the shapes of ``tests/test_kernels.py`` (both directions, prime N,
    empty batch, ragged tiles, ``pack_parts``, the twiddle, complex128,
    lazily conjugated operands and twiddles), every radix-path, long-line
-   and split length of both dtypes (the long and split ones with both
-   epilogues, also against ``torch.fft``), every mixed radix length of
+   and split length of both dtypes (the long and split ones, powers of two
+   and mixed lengths, with both epilogues, also against ``torch.fft``),
+   every mixed radix length of
    both dtypes (r*2^k, r in {3, 5, 9, 15}: both directions, both
    epilogues, a ``pack_parts`` segment that is not a power of two, also
    against ``torch.fft``), chirp lengths of both inner routes, and
@@ -131,26 +132,37 @@ its result line):
     kernel, 3 radix launches per direction (2 strided), 0 dense, 0 line
     copies, against ``fftn`` and the round trip, ms per direction beside
     ``fftn``, a ``cufft`` plan and the bound; the PPB solve at 384^3
-    against the ``cufft`` backend's, 8 radix launches; ``[chirp]``: the
-    chirp route (Bluestein over two transforms of M on the long-line or
-    split route) at complex64 6144, 24576, 49152, 10007 and complex128
-    3001, 12288, 256 MB each, once through ``ops.fft1d`` (one chirp call,
-    its launches on "chirp"), against its plain version and within 2e-4
-    of ``torch.fft``, timed beside ``torch.fft`` and the bound, the
-    glue's ms apart; then ``[lm_fftconv]``: the FFT long-convolution
-    mixer at jamba-v0.1-52b's width (8192 channels), B=1, S=2048, 3072,
-    4096, 8192, 16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of
-    ``"cufft"`` in float32 with the launches of 3 transforms of lines of
-    2S per call on their path (radix, chirp, long, long, split, split: a
-    split transform is 2 launches, one strided; a chirp transform 2
-    long-line launches), none on another path, and no line copy; the
+    against the ``cufft`` backend's, 8 radix launches; ``[long_mixed]``:
+    the long-line route at every mixed length of both dtypes (complex64
+    4608-15360, complex128 1152-7680), 512 MB each, once through
+    ``ops.fft1d`` (one "long" launch), against its plain version and
+    ``torch.fft``, timed beside ``torch.fft`` and the bound;
+    ``[split_mixed]``: the split route at mixed lengths (complex64 24576,
+    49152, 98304, 3*2^21, 15*2^19; complex128 12288, 24576, 9*2^15), 512
+    MB each, likewise (one split call); ``[mixed_long_plan]``:
+    ``plan_fft`` C2C of (128, 128, 6144) complex64 on the kernel against
+    ``fftn`` and the round trip, the 6144 axis on the long-line route, no
+    dense or chirp launch, no copy, ms beside ``fftn`` and a ``cufft``
+    plan; ``[chirp]``: the chirp route (Bluestein over two transforms of
+    M on the long-line or split route) at lengths no other route takes,
+    complex64 7168, 10007, 14336, 11264 and complex128 3001, 3584, 256 MB
+    each, once through ``ops.fft1d`` (one chirp call, its launches on
+    "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
+    timed beside ``torch.fft`` and the bound, the glue's ms apart; then
+    ``[lm_fftconv]``: the FFT long-convolution mixer at jamba-v0.1-52b's
+    width (8192 channels), B=1, S=2048, 3072, 4096, 8192, 12288, 16384 and
+    32768: ``fft_backend="kernel"`` within 1e-4 of ``"cufft"`` in float32
+    with the launches of 3 transforms of lines of 2S per call on their
+    path (radix, long, long, long, split, split, split: a split transform
+    is 2 launches, one strided), none on another path (no chirp call), and
+    no line copy; the
     mixer's and its 3 transforms' ms on both backends beside the
     transforms' bound, the peak memory at S=32768;
 18. ``[train_fftconv]``: the same mixer's forward and backward at S=2048,
     3072, 4096 and 16384 in float32 on ``fft_backend="kernel"`` (the line
     transforms' autograd Function) against ``"cufft"``: every gradient
     within 1e-4, the launches of 6 transforms of lines of 2S on their
-    path (radix, chirp, long, split) and no line copy, CUDA-event ms on both
+    path (radix, long, long, split) and no line copy, CUDA-event ms on both
     backends beside the 6 transforms' bound;
 19. ``[train]``: the LM train step at qwen3-8b's full width with the
     depth cut to 8 of 36 layers (float32 masters and AdamW moments,
@@ -180,7 +192,9 @@ its result line):
     entry's its ``[long]`` call, the split entry's the mixer's at
     S=16384, with S=32768's and ``[train_fftconv]``'s at S=16384 beside
     them, the mixed entry's the 384^3 plan's forward, the chirp entry's
-    the mixer's at S=3072), then the result line.
+    ``[chirp]``'s calls, the long_mixed entry's the mixer's at S=3072 and
+    the split_mixed entry's the mixer's at S=12288), then the result
+    line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -275,8 +289,9 @@ def ptxas_report(log: str) -> list:
     """Per kernel instantiation: registers, spill stores/loads and stack
     frame bytes, from ``nvcc -Xptxas -v``; radix instantiations named by
     dtype, (N1, N2) and mode (the split route's passes: "split A", "split
-    B"), long-line ones by dtype, R1xR2xR3 and ring depth, the split
-    route's pass C ("split transpose") by dtype."""
+    B"), long-line ones by dtype, R1xR2xR3 and ring depth (a mixed
+    length's: "mixed"), the split route's pass C ("split transpose", and
+    "mixed" for a mixed Q) by dtype."""
     import re
     modes = {"0": "", "1": " split A", "2": " split B"}
     entries, cur = [], None
@@ -288,7 +303,9 @@ def ptxas_report(log: str) -> list:
                           name)
             lg = re.search(r"long_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E"
                            r"Li(\d+)E", name)
-            tr = re.search(r"split_transpose_kernelI([fd])E", name)
+            lm = re.search(r"long_mixed_kernelI([fd])Li(\d+)ELi(\d+)E"
+                           r"Li(\d+)E", name)
+            tr = re.search(r"split_transpose(_mixed)?_kernelI([fd])E", name)
             if r:
                 dt = "complex64" if r.group(1) == "f" else "complex128"
                 name = (f"radix {dt} N1={r.group(2)} N2={r.group(3)}"
@@ -297,10 +314,15 @@ def ptxas_report(log: str) -> list:
                 dt = "complex64" if lg.group(1) == "f" else "complex128"
                 name = (f"long {dt} {lg.group(2)}x{lg.group(3)}x"
                         f"{lg.group(4)} ring {lg.group(5)}")
+            elif lm:
+                dt = "complex64" if lm.group(1) == "f" else "complex128"
+                name = (f"long {dt} {lm.group(2)}x{lm.group(3)}x"
+                        f"{lm.group(4)} mixed")
             elif tr:
                 name = ("split transpose "
-                        + ("complex64" if tr.group(1) == "f"
-                           else "complex128"))
+                        + ("complex64" if tr.group(2) == "f"
+                           else "complex128")
+                        + (" mixed" if tr.group(1) else ""))
             elif "fourstep_kernel" in name:
                 name = ("dense " + ("complex64" if "fourstep_kernelIfE" in name
                                     else "complex128"))
@@ -339,16 +361,18 @@ def phase_build(timer=time.perf_counter) -> dict:
         from repro_torch.kernels import longline, radix, split
         plain = sum(len(sizes) for sizes in radix.RADIX_SIZES.values())
         want = plain + sum(len(split.COLUMN_SIZES[d]) + len(split.ROW_SIZES[d])
-                           for d in split.COLUMN_SIZES)    # 83 + 15
+                           for d in split.COLUMN_SIZES)    # 83 + 41
         check(len(radix_entries) == want, f"{len(radix_entries)} radix "
               f"instantiations in the ptxas report, expected {want} "
               f"({plain} plain: 21 powers of two and the mixed lengths; "
               f"the split route's passes A and B)")
         want = sum(len(sizes) for sizes in longline.FACTORS.values())
         check(len(long_entries) == want, f"{len(long_entries)} long-line "
-              f"instantiations in the ptxas report, expected {want}")
-        check(len(split_entries) == 2, f"{len(split_entries)} split "
-              f"transpose instantiations in the ptxas report, expected 2")
+              f"instantiations in the ptxas report, expected {want} (5 "
+              f"powers of two, 20 mixed lengths)")
+        check(len(split_entries) == 4, f"{len(split_entries)} split "
+              f"transpose instantiations in the ptxas report, expected 4 "
+              f"(a power-of-two and a mixed Q per dtype)")
     for e in radix_entries + long_entries + split_entries:
         check(e.get("spill_stores", 0) == 0 and e.get("stack", 0) == 0,
               f"{e['kernel']} spills or keeps a stack frame: {e}")
@@ -439,12 +463,12 @@ def kernel_cases():
     cases.append((37, 384, True, None, True, c64, "x"))
     # the chirp route: lengths of both inner routes, both dtypes,
     # directions and epilogues
-    for b, n, inv, parts, tw, dt in ((2, 6144, False, None, True, c64),
-                                     (3, 6144, True, 2, False, c64),
+    for b, n, inv, parts, tw, dt in ((2, 7168, False, None, True, c64),
+                                     (3, 7168, True, 2, False, c64),
                                      (1, 10007, True, None, True, c64),
-                                     (1, 24576, False, 4, True, c64),
+                                     (1, 14336, False, 4, True, c64),
                                      (2, 3001, False, None, True, c128),
-                                     (1, 12288, True, 3, False, c128)):
+                                     (1, 14336, True, 7, False, c128)):
         cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
 
@@ -2049,7 +2073,7 @@ def phase_lm_archs(device, steps: int = 3, b: int = 2, s: int = 32) -> dict:
 
 
 def phase_lm_fftconv(device, b: int = 1,
-                     seqs=(2048, 3072, 4096, 8192, 16384, 32768),
+                     seqs=(2048, 3072, 4096, 8192, 12288, 16384, 32768),
                      iters: int = 10) -> dict:
     """``[lm_fftconv]``: ``ssm.fft_conv`` at jamba-v0.1-52b's width (d_model
     4096, expand 2: 8192 channels, 16 basis functions), B=1, in float32 and
@@ -2058,11 +2082,11 @@ def phase_lm_fftconv(device, b: int = 1,
     with the counts of 3 transforms of lines of 2S per call (the counts
     set to 0 just before the call and read just after;
     ``expected_counts``): 3 launches on the path ``radix.kernel_path``
-    names (radix at S=2048, long at S=4096 and 8192), on lines; at
-    S=16384 and 32768 (``prefill_32k``'s S) 3 split calls of 2 launches
-    each on the split path (pass A strided, pass B on lines); at S=3072
-    (lines of 6144) 3 chirp calls of 2 long-line launches each on the
-    chirp path; none on another path, and no line copy.  The 3 transforms alone, kernel
+    names (radix at S=2048, long at S=3072 (lines of 6144, a mixed length),
+    4096 and 8192), on lines; at S=12288 (lines of 24576 = 256 x 96), 16384
+    and 32768 (``prefill_32k``'s S) 3 split calls of 2 launches each on
+    the split path (pass A strided, pass B on lines); none on another path
+    (no chirp call), and no line copy.  The 3 transforms alone, kernel
     against cufft, are held to the kernel's complex64 tolerance.
     CUDA-event ms of the mixer on both backends, of its 3 transforms
     alone on the kernel and on ``torch.fft``, the 3 transforms' bound, and
@@ -2233,8 +2257,9 @@ def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
     """``[long]``: the long-line kernel at the mixer's shape at S=4096,
     (8192, 8192) complex64, against its plain version (``longline.
     emulate``) and ``torch.fft.fft``, timed beside the HBM bound; every
-    other long length of
-    both dtypes at 512 MB of lines against ``torch.fft``; and the dense
+    other power-of-two long length of both dtypes at 512 MB of lines
+    against ``torch.fft`` (``[long_mixed]`` times the mixed ones); and the
+    dense
     kernel at a length no other route takes, (262144, 448) complex64
     (448 = 7*64: no radix-7 codelet), with its plain version,
     ``torch.fft`` and the bound.  Each kernel is reached
@@ -2247,7 +2272,8 @@ def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
            "lengths": []}
     for dtype, sizes in longline.FACTORS.items():
         for n in sizes:
-            if (dtype, n) == (torch.complex64, shape[1]):
+            if (dtype, n) == (torch.complex64, shape[1]) or \
+                    longline.long_plan(n, dtype).mixed:
                 continue
             b = lengths_bytes // (n * dtype.itemsize)
             out["lengths"].append(line_entry(
@@ -2258,6 +2284,68 @@ def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
         torch.cuda.empty_cache()
         print_lines("long", [out["long"], *out["lengths"], out["dense"]])
     return out
+
+def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
+                     iters: int = 10) -> dict:
+    """``[long_mixed]``: the long-line route at every mixed length of both
+    dtypes (N = r*2^k, one mixed factor R1 and N / lcm(R1, R2, R3)
+    threads), about 512 MB of lines each, reached once through
+    ``ops.fft1d`` (one launch on "long"), against its plain version and
+    ``torch.fft``, timed beside ``torch.fft.fft`` and the bound."""
+    import torch
+    from repro_torch.kernels import longline
+    out = {"lengths": []}
+    for dtype, sizes in longline.FACTORS.items():
+        for n in sorted(sizes):
+            if not longline.long_plan(n, dtype).mixed:
+                continue
+            b = lengths_bytes // (n * dtype.itemsize)
+            rec = line_entry(randc((b, n), dtype, device, SEED + 100 + n),
+                             "long_mixed", iters)
+            rec["factors"] = list(longline.FACTORS[dtype][n])
+            rec["threads"] = longline.long_plan(n, dtype).threads
+            out["lengths"].append(rec)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    if device.type == "cuda":
+        print_lines("long_mixed", out["lengths"])
+    return out
+
+
+#: (dtype name, N) of ``[split_mixed]``: the mixer's lines at S = 12288
+#: and the next two lengths of 3*2^k on radix rows, two 2^23-range lengths
+#: on long-line rows; complex128 on radix and on long-line rows.
+SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
+                       ("complex64", 98304), ("complex64", 3 << 21),
+                       ("complex64", 15 << 19), ("complex128", 12288),
+                       ("complex128", 24576), ("complex128", 9 << 15))
+
+
+def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
+                      lengths_bytes: int = 512 << 20,
+                      iters: int = 10) -> dict:
+    """``[split_mixed]``: the split route at mixed lengths (P a power of
+    two, the odd part in Q, on radix or long-line rows), about 512 MB of
+    lines each, reached once through ``ops.fft1d`` (one split call),
+    against its plain version and ``torch.fft``, timed beside
+    ``torch.fft.fft`` and the bound."""
+    import torch
+    from repro_torch.kernels import split
+    out = {"lengths": []}
+    for i, (dt, n) in enumerate(lengths):
+        dtype = getattr(torch, dt)
+        b = max(1, lengths_bytes // (n * dtype.itemsize))
+        rec = line_entry(randc((b, n), dtype, device, SEED + 110 + i),
+                         "split_mixed", iters)
+        plan = split.split_plan(n, dtype)
+        rec.update(factors=[plan.p, plan.q], row_path=plan.row_path)
+        out["lengths"].append(rec)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if device.type == "cuda":
+        print_lines("split_mixed", out["lengths"])
+    return out
+
 
 #: (dtype name, N) of ``[mixed]``'s timings beside (262144, 384)
 #: complex64: one length per odd part r = 3, 5, 9, 15 and per dtype.
@@ -2380,12 +2468,12 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5) -> dict:
     return out
 
 
-#: (dtype name, N) of ``[chirp]``: the mixer's lines at S = 3072, lengths
-#: whose M takes the long-line and the split route, a prime past one
-#: block; complex128 likewise.
-CHIRP_LENGTHS = (("complex64", 6144), ("complex64", 24576),
-                 ("complex64", 49152), ("complex64", 10007),
-                 ("complex128", 3001), ("complex128", 12288))
+#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 7*2^k
+#: and 11*2^k whose M takes the long-line and the split route, a prime
+#: past one block; complex128 likewise.
+CHIRP_LENGTHS = (("complex64", 7168), ("complex64", 10007),
+                 ("complex64", 14336), ("complex64", 11264),
+                 ("complex128", 3001), ("complex128", 3584))
 
 
 def phase_chirp(device, lengths=CHIRP_LENGTHS,
@@ -2584,6 +2672,64 @@ def phase_split_plan(device, grid=(64, 64, 32768), iters: int = 5) -> dict:
               f"{out['err_roundtrip']:.3e}; launches forward {fwd}, inverse "
               f"{inv}; ms forward {out['kernel_fwd_ms']:.4f}, inverse "
               f"{out['kernel_inv_ms']:.4f}, fftn {out['fftn_ms']:.4f}")
+    del x, y
+    return out
+
+def phase_mixed_long_plan(device, grid=(128, 128, 6144),
+                          iters: int = 5) -> dict:
+    """``[mixed_long_plan]``: a ``plan_fft`` C2C plan on one card (a (1, 1)
+    mesh) with a mixed axis on the long-line route, (128, 128, 6144)
+    complex64 (805 MB), on ``backend="kernel"``: forward against
+    ``torch.fft.fftn`` within ``PATH_TOL`` and the round trip within
+    ``ROUNDTRIP_TOL``; the 6144 axis runs on lines on the long-line route
+    (a launch on "long" per direction), no dense or chirp launch and no
+    line copy; CUDA-event ms beside ``fftn``'s and a ``cufft``-backend
+    plan's."""
+    import torch
+    from repro_torch import make_mesh, plan_fft
+    cuda = device.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if cuda else device)
+    plan = plan_fft(mesh, grid, backend="kernel")
+    x = randc(grid, torch.complex64, device, SEED + 120)
+    reset_counts()
+    y = plan.forward(x)
+    if cuda:
+        torch.cuda.synchronize(device)
+    fwd = path_counts()
+    reset_counts()
+    xr = plan.inverse(y, sharded_in=True)
+    if cuda:
+        torch.cuda.synchronize(device)
+    inv = path_counts()
+    ref = torch.fft.fftn(x)
+    out = {"grid": list(grid), "forward_counts": fwd, "inverse_counts": inv,
+           "err_fwd": scaled_err(y, ref), "err_roundtrip": scaled_err(xr, x),
+           "launches": fwd["long"]}
+    del ref, xr
+    check(out["err_fwd"] <= PATH_TOL and out["err_roundtrip"]
+          <= ROUNDTRIP_TOL, f"[mixed_long_plan] forward vs fftn "
+          f"{out['err_fwd']:.3e} (bound {PATH_TOL}), round trip "
+          f"{out['err_roundtrip']:.3e} (bound {ROUNDTRIP_TOL})")
+    if cuda:
+        for key, c in (("forward", fwd), ("inverse", inv)):
+            check(c["long"] >= 1 and c["dense"] == 0 and c["chirp"] == 0
+                  and c["copies"] == 0,
+                  f"[mixed_long_plan] {key}: counts {c}, expected the axis "
+                  f"of {grid[-1]} on the long-line route, no dense or chirp "
+                  f"launch, no line copy")
+        cplan = plan_fft(mesh, grid, backend="cufft")
+        out["kernel_fwd_ms"] = time_ms(lambda: plan.forward(x), iters)
+        out["kernel_inv_ms"] = time_ms(
+            lambda: plan.inverse(y, sharded_in=True), iters)
+        out["cufft_fwd_ms"] = time_ms(lambda: cplan.forward(x), iters)
+        out["fftn_ms"] = time_ms(lambda: torch.fft.fftn(x), iters)
+        print(f"[mixed_long_plan] grid {grid} complex64 on the kernel: "
+              f"forward vs fftn {out['err_fwd']:.3e}, round trip "
+              f"{out['err_roundtrip']:.3e}; launches forward {fwd}, inverse "
+              f"{inv}; ms forward {out['kernel_fwd_ms']:.4f}, inverse "
+              f"{out['kernel_inv_ms']:.4f}, cufft plan "
+              f"{out['cufft_fwd_ms']:.4f}, fftn {out['fftn_ms']:.4f}")
     del x, y
     return out
 
@@ -3059,13 +3205,19 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["mixed_plan"] = mixed_plan = phase_mixed_plan(device)
     torch.cuda.empty_cache()
+    report["long_mixed"] = long_mixed = phase_long_mixed(device)
+    torch.cuda.empty_cache()
+    report["split_mixed"] = split_mixed = phase_split_mixed(device)
+    torch.cuda.empty_cache()
+    report["mixed_long_plan"] = phase_mixed_long_plan(device)
+    torch.cuda.empty_cache()
     report["chirp"] = chirp_ = phase_chirp(device)
     torch.cuda.empty_cache()
     report["lm_fftconv"] = fftconv = phase_lm_fftconv(device)
     torch.cuda.empty_cache()
     report["train_fftconv"] = train_fftconv = phase_train_fftconv(device)
     torch.cuda.empty_cache()
-    report["train_fftconv_3072"] = train_chirp = phase_train_fftconv(
+    report["train_fftconv_3072"] = train_mixed = phase_train_fftconv(
         device, s=3072, iters=3)
     torch.cuda.empty_cache()
     report["train_fftconv_4096"] = train_long = phase_train_fftconv(
@@ -3082,6 +3234,14 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
 
     mixer_runs = {r["s"]: r for r in fftconv["runs"]}
+    long_mixed_6144 = next(r for r in long_mixed["lengths"]
+                           if r["shape"][1] == 6144
+                           and r["dtype"] == "complex64")
+
+    def _timing(rec):
+        return {k: rec[k] for k in ("max_abs_err", "scaled_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
 
     def by_path(layout):
         return {"segments": segs["forward"][layout] + segs["inverse"][layout],
@@ -3190,13 +3350,13 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "mixed_plan_inverse": mixed_plan["inverse_counts"]["radix"],
              "mixed_plan_poisson": mixed_plan["poisson_counts"]["radix"]}},
-        # launches: the mixer at S=3072, its main path (3 chirp calls of
-        # 2 long-line launches); timed at [chirp]'s lines of 6144
+        # launches: [chirp]'s calls, one ops.fft1d call per length (no
+        # LM path runs the chirp route now); timed at lines of 7168
         {"name": "fft_fourstep_chirp", "route": "cuda",
          "source": CHIRP_SOURCE, "path": "chirp",
          "sources": [CHIRP_SOURCE, LONG_SOURCE, RADIX_SOURCE],
          "replaces": "src/repro/kernels/fft_matmul.py:216",
-         "launches": mixer_runs[3072]["float32"]["counts"]["chirp"],
+         "launches": sum(r["counts"]["chirp"] for r in chirp_["lengths"]),
          "max_abs_err": chirp_["lengths"][0]["max_abs_err"],
          "scaled_err": chirp_["lengths"][0]["scaled_err"],
          "ms": chirp_["lengths"][0]["ms"],
@@ -3205,8 +3365,28 @@ def main(timer=time.perf_counter) -> int:
          "bound_by": chirp_["lengths"][0]["bound_by"],
          "library_ms": chirp_["lengths"][0]["library_ms"],
          "launches_by_path": {
+             "chirp_calls": sum(r["counts"]["chirp_calls"]
+                                for r in chirp_["lengths"])}},
+        # launches: the mixer at S=3072, its main path (3 long-line
+        # launches); timed at [long_mixed]'s 512 MB of lines of 6144
+        {"name": "fft_fourstep_long_mixed", "route": "cuda",
+         "source": LONG_SOURCE, "path": "long",
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": mixer_runs[3072]["float32"]["counts"]["long"],
+         **_timing(long_mixed_6144),
+         "launches_by_path": {
              "lm_fftconv_3072": mixer_runs[3072]["float32"]["counts"],
-             "train_fftconv_3072": train_chirp["counts"]}},
+             "train_fftconv_3072": train_mixed["counts"]}},
+        # launches: the mixer at S=12288, its main path (3 split calls of
+        # 2 launches); timed at [split_mixed]'s 512 MB of lines of 24576
+        {"name": "fft_fourstep_split_mixed", "route": "cuda",
+         "source": RADIX_SOURCE, "path": "split",
+         "sources": [RADIX_SOURCE, LONG_SOURCE, SPLIT_SOURCE],
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": mixer_runs[12288]["float32"]["counts"]["split"],
+         **_timing(split_mixed["lengths"][0]),
+         "launches_by_path": {
+             "lm_fftconv_12288": mixer_runs[12288]["float32"]["counts"]}},
     ]
     report["kernels"] = kernels
     report["seconds"] = timer() - t0

@@ -5,13 +5,14 @@
 // or 1024 (complex128), and the mixed N = r*2^k, r in {3, 5, 9, 15}, whose
 // codelets stay in registers, take the radix route (fft_radix.cuh: two
 // passes of in-register codelets, contiguous or strided lines); the longer
-// power-of-two N whose line fits in one block's shared memory take the
-// long-line route (fft_long.cuh: three passes over a line loaded by TMA);
-// the power-of-two N beyond one block (complex64 to 2^24, complex128 to
-// 2^22) take the split route (kernels/split.py: N = P*Q, pass A a strided
-// radix launch on the P-long columns with the inter-step twiddle, pass B
-// a radix launch on the Q-long rows stored transposed, or a long-line
-// launch on them stored in place and a transpose); any other N beyond one
+// powers of two and mixed N whose line fits in one block's shared memory
+// take the long-line route (fft_long.cuh: three passes over a line loaded
+// by TMA); the powers of two and mixed N beyond one block (complex64 to
+// 2^24, complex128 to 2^22) take the split route (kernels/split.py: N =
+// P*Q, P a power of two, pass A a strided radix launch on the P-long
+// columns with the inter-step twiddle, pass B a radix launch on the Q-long
+// rows stored transposed, or a long-line launch on them stored in place
+// and a transpose); any other N beyond one
 // block takes the chirp route (kernels/chirp.py: Bluestein's convolution
 // as two of these launches on lines of M = 2^ceil(log2(2N - 1)), the
 // chirps in their twiddle epilogues); any other N takes the general dense
@@ -234,26 +235,27 @@ int repro_fft_radix_c128(const void* x, void* out, const void* consts,
       strided, 0, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
-// The long-line route (fft_long.cuh) for the power-of-two N that
+// The long-line route (fft_long.cuh) for the N that
 // kernels/longline.py::FACTORS lists.  `consts` holds TA, TB, TC and the
-// codelet table (longline.constants); `tw` may be null; `x` is contiguous
+// codelet tables (longline.constants); `tw` may be null; `x` is contiguous
 // (B, N) lines, 16-byte aligned, and `out` (parts, B, N/parts) with
-// seg_log2 = log2(N/parts).  `smem_bytes` must equal the layout's size
+// seg_arg = log2(N/parts) for a power-of-two N, N/parts for a mixed N.
+// `smem_bytes` must equal the layout's size
 // (longline.smem_bytes at longline.long_tile's ring depth).
 // Returns the CUDA error code of the launch (0 on success).
 int repro_fft_long_c64(const void* x, void* out, const void* consts,
                        const void* tw, long long batch, int n, int inverse,
-                       int seg_log2, int smem_bytes, void* stream) {
+                       int seg_arg, int smem_bytes, void* stream) {
   return repro_fft::long_dispatch<float>(
-      n, x, out, consts, tw, batch, inverse, seg_log2, smem_bytes,
+      n, x, out, consts, tw, batch, inverse, seg_arg, smem_bytes,
       static_cast<cudaStream_t>(stream));
 }
 
 int repro_fft_long_c128(const void* x, void* out, const void* consts,
                         const void* tw, long long batch, int n, int inverse,
-                        int seg_log2, int smem_bytes, void* stream) {
+                        int seg_arg, int smem_bytes, void* stream) {
   return repro_fft::long_dispatch<double>(
-      n, x, out, consts, tw, batch, inverse, seg_log2, smem_bytes,
+      n, x, out, consts, tw, batch, inverse, seg_arg, smem_bytes,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -282,46 +284,48 @@ int repro_fft_split_a_c128(const void* x, void* y, const void* consts,
 }
 
 // Pass B on the radix route: `y` holds rows = B*P contiguous rows of Q,
-// `out` (parts, B, P*Q/parts) with seg_log2 = log2(P*Q/parts), `tw` the
+// `out` (parts, B, P*Q/parts) with seg_arg = log2(P*Q/parts) for a
+// power-of-two Q, P*Q/parts for a mixed Q, `tw` the
 // line's output twiddle (P*Q values) or null, p_log2 = log2(P);
 // lines_log2 and `smem_bytes` from radix.radix_tile(Q, lines) without a
 // twiddle.
 int repro_fft_split_b_radix_c64(const void* y, void* out, const void* consts,
                                 const void* tw, long long rows, int q,
-                                int inverse, int seg_log2, int lines_log2,
+                                int inverse, int seg_arg, int lines_log2,
                                 int p_log2, int smem_bytes, void* stream) {
   return repro_fft::radix_dispatch<float, repro_fft::kRadixSplitB>(
-      q, y, out, consts, tw, rows, 1, inverse, seg_log2, lines_log2, 0,
+      q, y, out, consts, tw, rows, 1, inverse, seg_arg, lines_log2, 0,
       p_log2, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 int repro_fft_split_b_radix_c128(const void* y, void* out, const void* consts,
                                  const void* tw, long long rows, int q,
-                                 int inverse, int seg_log2, int lines_log2,
+                                 int inverse, int seg_arg, int lines_log2,
                                  int p_log2, int smem_bytes, void* stream) {
   return repro_fft::radix_dispatch<double, repro_fft::kRadixSplitB>(
-      q, y, out, consts, tw, rows, 1, inverse, seg_log2, lines_log2, 0,
+      q, y, out, consts, tw, rows, 1, inverse, seg_arg, lines_log2, 0,
       p_log2, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // Pass C, after pass B on the long-line route (repro_fft_long_* with
 // inverse = 0 and no twiddle stores the rows in place): `z` holds B lines
-// of (P, Q) rows, `out` (parts, B, P*Q/parts) with seg_log2 =
-// log2(P*Q/parts), `tw` the line's output twiddle (P*Q values) or null;
-// `inverse` scales by 1/(P*Q).
+// of (P, Q) rows (Q a multiple of 32), `out` (parts, B, P*Q/parts) with
+// seg_arg = log2(P*Q/parts) for a power-of-two Q, P*Q/parts for a mixed Q,
+// `tw` the line's output twiddle (P*Q values) or null; `inverse` scales by
+// 1/(P*Q).
 int repro_fft_split_c_c64(const void* z, void* out, const void* tw,
-                          long long lines, int p_log2, int q_log2,
-                          int seg_log2, int inverse, void* stream) {
+                          long long lines, int p_log2, int q, int seg_arg,
+                          int inverse, void* stream) {
   return repro_fft::split_transpose<float>(
-      z, out, tw, lines, p_log2, q_log2, seg_log2, inverse,
+      z, out, tw, lines, p_log2, q, seg_arg, inverse,
       static_cast<cudaStream_t>(stream));
 }
 
 int repro_fft_split_c_c128(const void* z, void* out, const void* tw,
-                           long long lines, int p_log2, int q_log2,
-                           int seg_log2, int inverse, void* stream) {
+                           long long lines, int p_log2, int q, int seg_arg,
+                           int inverse, void* stream) {
   return repro_fft::split_transpose<double>(
-      z, out, tw, lines, p_log2, q_log2, seg_log2, inverse,
+      z, out, tw, lines, p_log2, q, seg_arg, inverse,
       static_cast<cudaStream_t>(stream));
 }
 

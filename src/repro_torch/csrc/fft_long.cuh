@@ -1,7 +1,8 @@
-// The long-line route of the four-step kernel: power-of-two lines that fit
-// whole in one block's shared memory but not in the radix route's two
-// in-register passes (complex64 N = 8192, 16384; complex128 N = 2048,
-// 4096, 8192), on Hopper.
+// The long-line route of the four-step kernel: lines that fit whole in one
+// block's shared memory but not in the radix route's two in-register passes
+// (complex64 N = 8192, 16384; complex128 N = 2048, 4096, 8192; and the
+// mixed N = r*2^k, r in {3, 5, 9, 15}, of complex64 4608 to 15360 and
+// complex128 1152 to 7680), on Hopper.
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -35,13 +36,23 @@
 //    TC: R1*R3 + R1*R2 + R2*R3 entries, not N, built in float64 on the host
 //    (kernels/fft_matmul.py::_long_constants) and kept in shared memory.
 //    Threads of a warp read consecutive entries of TA and TC and one of TB.
+// Mixed lengths (long_mixed_kernel, below): one factor, R1 = r*2^a, runs
+// the radix route's mixed chain (codelet, load_slot) on its own table of
+// R1 entries; R2 and R3 are powers of two.  Every pass's items split
+// evenly over N / lcm(R1, R2, R3) threads, as few as 16, so no pass may
+// hold all of a thread's values: the line is copied in R1 rows of N/R1 at
+// a pitch of N/R1 plus 16 bytes (R1 bulk copies on one mbarrier), and each
+// pass transforms one item at a time and stores it where it was read,
+// (k1, m2, m3) then (k1, k2, m3).  Pass 3's reads of consecutive kA then
+// fall R1 rows apart, on distinct banks (complex64 reads two values at
+// once, 16 bytes), and its stores cover consecutive outputs.
 // kernels/longline.py holds the same plan and index maps in Python
 // (longline.emulate is the kernel's plain version).
 //
-// The split route (kernels/split.py) runs its rows of Q = 8192 or 16384
-// (complex64), 2048 to 8192 (complex128) through this kernel as they are
-// (pass B: stored in place, no epilogue, no scale), then split_transpose
-// below (pass C) moves each line's (P, Q) rows to its output order with
+// The split route (kernels/split.py) runs its long rows (a Q of this
+// route) through these kernels as they are (pass B: stored in place, no
+// epilogue, no scale), then split_transpose below (pass C, any Q that is a
+// multiple of 32) moves each line's (P, Q) rows to its output order with
 // the line's epilogues.  A block holds one row here, so its stores cannot
 // be staged for a warp to write consecutive kp as the radix route's pass
 // B does: stored straight to kp + P*kq, 8 bytes P elements apart, they
@@ -303,16 +314,17 @@ long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   }
 }
 
-template <typename R, int R1, int R2, int R3, int DEPTH>
-int long_launch(const void* x, void* out, const void* consts, const void* tw,
-                long long batch, int inverse, int seg_log2, int smem_bytes,
+// Launches a long-line kernel (long_kernel or long_mixed_kernel, whose
+// parameters are the same) on a persistent grid: as many blocks as fit on
+// the SMs, at most one per line.  `layout_bytes` is the kernel's shared
+// memory, which the wrapper's layout (kernels/longline.py) must match.
+template <typename R, typename Kernel>
+int long_launch(Kernel kernel, int threads, size_t layout_bytes,
+                const void* x, void* out, const void* consts, const void* tw,
+                long long batch, int inverse, int seg_arg, int smem_bytes,
                 cudaStream_t stream) {
-  // The wrapper's layout (kernels/longline.py) must match the kernel's.
-  if ((size_t)smem_bytes != long_smem_bytes<R, R1, R2, R3, DEPTH>())
-    return (int)cudaErrorInvalidValue;
+  if ((size_t)smem_bytes != layout_bytes) return (int)cudaErrorInvalidValue;
   if (batch <= 0) return 0;
-  auto kernel = long_kernel<R, R1, R2, R3, DEPTH>;
-  constexpr int threads = LongShape<R1, R2, R3>::THREADS;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -330,8 +342,218 @@ int long_launch(const void* x, void* out, const void* consts, const void* tw,
   kernel<<<(unsigned)grid, threads, (size_t)smem_bytes, stream>>>(
       static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
       static_cast<const cpx<R>*>(consts), static_cast<const cpx<R>*>(tw),
-      batch, inverse, seg_log2);
+      batch, inverse, seg_arg);
   return (int)cudaGetLastError();
+}
+
+__host__ __device__ constexpr int cgcd(int a, int b) {
+  return b == 0 ? a : cgcd(b, a % b);
+}
+
+// A mixed length's plan (kernels/longline.py::LongPlan): R1 = r*2^a the
+// mixed factor, R2 and R3 powers of two.
+template <typename R, int R1, int R2, int R3>
+struct LongMixedShape {
+  static constexpr int N = R1 * R2 * R3;
+  static constexpr int M1 = R2 * R3;          // a row: pass-1 items
+  static constexpr int RP = cmax(R2, R3);     // the radix-2 codelets' table
+  static constexpr int LCM = R1 / cgcd(R1, RP) * RP;
+  static constexpr int THREADS = N / LCM;     // every pass splits evenly
+  static constexpr int I1 = M1 / THREADS;     // items per thread, pass 1
+  static constexpr int I2 = R1 * R3 / THREADS;
+  static constexpr int I3 = R1 * R2 / THREADS;
+  static constexpr int PITCH = M1 + 16 / (int)sizeof(cpx<R>);
+  static constexpr int LINE = R1 * PITCH;
+  static constexpr int CONSTS = R1 * R3 + R1 * R2 + R2 * R3 + RP / 2 + R1;
+  static_assert(is_pow2(R2) && is_pow2(R3) && !is_pow2(R1), "R1 is mixed");
+  static_assert(I1 * THREADS == M1 && I2 * THREADS == R1 * R3 &&
+                    I3 * THREADS == R1 * R2,
+                "every pass's items split evenly over the threads");
+};
+
+template <typename R, int R1, int R2, int R3>
+__host__ __device__ constexpr size_t long_mixed_smem_bytes() {
+  using S = LongMixedShape<R, R1, R2, R3>;
+  return (size_t)(S::LINE + S::CONSTS) * sizeof(cpx<R>) + sizeof(uint64_t);
+}
+
+// Blocks per SM for the launch bound: as many as shared memory holds, but
+// no fewer registers a thread than complex64 needs for a 32-value codelet
+// (128) or complex128 (255: the radix route's 30x32 takes 180).
+template <typename R, int R1, int R2, int R3>
+__host__ __device__ constexpr int long_mixed_min_blocks() {
+  constexpr size_t kSmemPerSm = 233472, kReserved = 1024;
+  constexpr int fit =
+      (int)(kSmemPerSm / (long_mixed_smem_bytes<R, R1, R2, R3>() + kReserved));
+  constexpr int regs = sizeof(R) == sizeof(float) ? 128 : 255;
+  constexpr int by_regs =
+      65536 / (LongMixedShape<R, R1, R2, R3>::THREADS * regs);
+  constexpr int m = fit < by_regs ? fit : by_regs;
+  return m < 1 ? 1 : m;
+}
+
+// a, b = p[0], p[1] in one 16-byte load (p 16-byte aligned).
+template <typename R>
+__device__ __forceinline__ void load_pair(const cpx<R>* p, cpx<R>& a,
+                                          cpx<R>& b) {
+  if constexpr (sizeof(R) == sizeof(float)) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    a.re = q.x;
+    a.im = q.y;
+    b.re = q.z;
+    b.im = q.w;
+  } else {
+    a = p[0];
+    b = p[1];
+  }
+}
+
+// One thread: a line's R1 rows of M1 elements from global memory into the
+// buffer at a row pitch of PITCH, by the TMA unit, completing on `bar`.
+template <typename R, int R1, int M1, int PITCH>
+__device__ __forceinline__ void bulk_load_rows(cpx<R>* dst,
+                                               const cpx<R>* src,
+                                               uint64_t* bar) {
+  constexpr unsigned kRowBytes = M1 * sizeof(cpx<R>);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(R1 * kRowBytes)
+               : "memory");
+  for (int m1 = 0; m1 < R1; ++m1) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst + m1 * PITCH)),
+        "l"(src + m1 * M1), "r"(kRowBytes), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// The mixed lengths' kernel: one line per block, one buffer (the blocks on
+// an SM overlap one another's copies), the grid persistent.  `out` is
+// (parts, batch, seg) with seg = N/parts; the sign of the mixed codelets'
+// rotations is read from their table (W_R1^1), so that the split route's
+// pass B, launched with inverse = 0 to leave out the 1/N, keeps it.
+template <typename R, int R1, int R2, int R3>
+__global__ void __launch_bounds__(
+    (LongMixedShape<R, R1, R2, R3>::THREADS),
+    (long_mixed_min_blocks<R, R1, R2, R3>()))
+long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+                  const cpx<R>* __restrict__ consts,
+                  const cpx<R>* __restrict__ gtw, long long batch,
+                  int inverse, int seg) {
+  using S = LongMixedShape<R, R1, R2, R3>;
+  constexpr int N = S::N, T = S::THREADS, M1 = S::M1, RP = S::RP;
+  constexpr int PITCH = S::PITCH, Q = R1 * R2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  cpx<R>* const s = reinterpret_cast<cpx<R>*>(smem_raw);
+  cpx<R>* const ta = s + S::LINE;
+  const cpx<R>* const tb = ta + R1 * R3;
+  const cpx<R>* const tc = tb + R1 * R2;
+  const cpx<R>* const w = tc + R2 * R3;   // W_RP^j, j < RP/2
+  const cpx<R>* const wm = w + RP / 2;    // W_R1^j, j < R1
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(ta + S::CONSTS);
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < S::CONSTS; i += T) ta[i] = consts[i];
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const long long stride = gridDim.x;
+  if (tid == 0 && blockIdx.x < batch)
+    bulk_load_rows<R, R1, M1, PITCH>(s, x + (long long)blockIdx.x * N, bar);
+  const R sgn = wm[1].im > R(0) ? R(1) : R(-1);
+  constexpr R kInvN = R(1) / R(N);
+  const R scale = inverse ? kInvN : R(1);
+  // o / seg in fp32, exact for o < N < 2^20 (fft_radix.cuh's plain store)
+  const float inv_seg = __fdividef(1.0f, (float)seg);
+
+  unsigned parity = 0;
+  for (long long line = blockIdx.x; line < batch; line += stride) {
+    mbar_wait(bar, parity);
+
+    // Pass 1: item mb = m2*R3 + m3 reads (m1, mb), writes (k1, mb).
+#pragma unroll 1
+    for (int i = 0; i < S::I1; ++i) {
+      const int mb = tid + i * T;
+      const int m2 = mb / R3, m3 = mb % R3;
+      cpx<R> v[R1];
+      auto load = [&](auto j) {
+        constexpr int m1 = decltype(j)::value;
+        v[load_slot(R1, m1)] = s[m1 * PITCH + mb];
+      };
+      static_for<0, R1>(load);
+      codelet<R1, R1, R>(v, wm, sgn);
+      auto store = [&](auto j) {
+        constexpr int k1 = decltype(j)::value;
+        cpx<R> y = v[k1];
+        if constexpr (k1 != 0)
+          y = cmul(y, cmul(ta[k1 * R3 + m3], tb[k1 * R2 + m2]));
+        s[k1 * PITCH + mb] = y;
+      };
+      static_for<0, R1>(store);
+    }
+    __syncthreads();
+
+    // Pass 2: item (k1, m3) reads (k1, m2, m3), writes (k1, k2, m3).
+#pragma unroll 1
+    for (int i = 0; i < S::I2; ++i) {
+      const int item = tid + i * T;
+      const int k1 = item / R3, m3 = item % R3;
+      cpx<R>* const col = s + k1 * PITCH + m3;
+      cpx<R> v[R2];
+      auto load = [&](auto j) {
+        constexpr int m2 = decltype(j)::value;
+        v[bitrev(m2, ilog2(R2))] = col[m2 * R3];
+      };
+      static_for<0, R2>(load);
+      fft_stages<R2, RP, 2, R>(v, w);
+      auto store = [&](auto j) {
+        constexpr int k2 = decltype(j)::value;
+        cpx<R> y = v[k2];
+        if constexpr (k2 != 0) y = cmul(y, tc[k2 * R3 + m3]);
+        col[k2 * R3] = y;
+      };
+      static_for<0, R2>(store);
+    }
+    __syncthreads();
+
+    // Pass 3: item kA = k1 + R1*k2 reads (k1, k2, m3) and stores
+    // out[kA + Q*k3] with the epilogue.
+#pragma unroll 1
+    for (int i = 0; i < S::I3; ++i) {
+      const int ka = tid + i * T;
+      const int k2 = ka / R1, k1 = ka - k2 * R1;
+      const cpx<R>* const run = s + k1 * PITCH + k2 * R3;
+      cpx<R> v[R3];
+      auto load = [&](auto j) {
+        constexpr int m3 = 2 * decltype(j)::value;
+        load_pair(run + m3, v[bitrev(m3, ilog2(R3))],
+                  v[bitrev(m3 + 1, ilog2(R3))]);
+      };
+      static_for<0, R3 / 2>(load);
+      fft_stages<R3, RP, 2, R>(v, w);
+      auto store = [&](auto j) {
+        constexpr int k3 = decltype(j)::value;
+        const int o = ka + Q * k3;
+        cpx<R> y = v[k3];
+        if (gtw != nullptr) y = cmul(y, gtw[o]);
+        y.re *= scale;
+        y.im *= scale;
+        const int part = __float2int_rz(((float)o + 0.5f) * inv_seg);
+        out[((long long)part * batch + line) * seg + (o - part * seg)] = y;
+      };
+      static_for<0, R3>(store);
+    }
+    // The buffer's generic-proxy reads and writes are ordered before the
+    // bulk copy (async proxy) that overwrites it.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0 && line + stride < batch)
+      bulk_load_rows<R, R1, M1, PITCH>(s, x + (line + stride) * N, bar);
+    parity ^= 1;
+  }
 }
 
 // The ring holds two line buffers where they fit in a block's 227 KB
@@ -346,17 +568,36 @@ constexpr int long_depth() {
 
 template <typename R>
 int long_dispatch(int n, const void* x, void* out, const void* consts,
-                  const void* tw, long long batch, int inverse, int seg_log2,
+                  const void* tw, long long batch, int inverse, int seg_arg,
                   int smem_bytes, cudaStream_t stream) {
 #define REPRO_LONG_CASE(NN, A, B, C)                                       \
   case NN:                                                                 \
-    return long_launch<R, A, B, C, long_depth<R, A, B, C>()>(              \
-        x, out, consts, tw, batch, inverse, seg_log2, smem_bytes, stream);
-  // kernels/longline.py::FACTORS lists the same factors.
+    return long_launch<R>(                                                 \
+        long_kernel<R, A, B, C, long_depth<R, A, B, C>()>,                 \
+        LongShape<A, B, C>::THREADS,                                       \
+        long_smem_bytes<R, A, B, C, long_depth<R, A, B, C>()>(), x, out,   \
+        consts, tw, batch, inverse, seg_arg, smem_bytes, stream);
+#define REPRO_LONG_MIXED_CASE(NN, A, B, C)                                 \
+  case NN:                                                                 \
+    return long_launch<R>(long_mixed_kernel<R, A, B, C>,                   \
+                          LongMixedShape<R, A, B, C>::THREADS,             \
+                          long_mixed_smem_bytes<R, A, B, C>(), x, out,     \
+                          consts, tw, batch, inverse, seg_arg, smem_bytes, \
+                          stream);
+  // kernels/longline.py::FACTORS lists the same factors.  seg_arg is the
+  // pack_parts segment's log2 for a power of two, its length for a mixed N.
   if constexpr (sizeof(R) == sizeof(float)) {
     switch (n) {
       REPRO_LONG_CASE(8192, 16, 16, 32)
       REPRO_LONG_CASE(16384, 16, 32, 32)
+      REPRO_LONG_MIXED_CASE(4608, 18, 16, 16)
+      REPRO_LONG_MIXED_CASE(5120, 20, 16, 16)
+      REPRO_LONG_MIXED_CASE(6144, 24, 16, 16)
+      REPRO_LONG_MIXED_CASE(7680, 30, 16, 16)
+      REPRO_LONG_MIXED_CASE(9216, 18, 16, 32)
+      REPRO_LONG_MIXED_CASE(10240, 20, 16, 32)
+      REPRO_LONG_MIXED_CASE(12288, 24, 16, 32)
+      REPRO_LONG_MIXED_CASE(15360, 30, 16, 32)
       default:
         break;
     }
@@ -365,21 +606,35 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_CASE(2048, 8, 16, 16)
       REPRO_LONG_CASE(4096, 16, 16, 16)
       REPRO_LONG_CASE(8192, 16, 16, 32)
+      REPRO_LONG_MIXED_CASE(1152, 18, 8, 8)
+      REPRO_LONG_MIXED_CASE(1280, 20, 8, 8)
+      REPRO_LONG_MIXED_CASE(1536, 24, 8, 8)
+      REPRO_LONG_MIXED_CASE(1920, 30, 8, 8)
+      REPRO_LONG_MIXED_CASE(2304, 18, 8, 16)
+      REPRO_LONG_MIXED_CASE(2560, 20, 8, 16)
+      REPRO_LONG_MIXED_CASE(3072, 24, 8, 16)
+      REPRO_LONG_MIXED_CASE(3840, 30, 8, 16)
+      REPRO_LONG_MIXED_CASE(4608, 18, 16, 16)
+      REPRO_LONG_MIXED_CASE(5120, 20, 16, 16)
+      REPRO_LONG_MIXED_CASE(6144, 24, 16, 16)
+      REPRO_LONG_MIXED_CASE(7680, 30, 16, 16)
       default:
         break;
     }
   }
 #undef REPRO_LONG_CASE
+#undef REPRO_LONG_MIXED_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// The split route's pass C: z holds B lines of (P, Q) rows z[b, kp, kq]
-// (pass B's output, in place); out[b, kp + P*kq] = z[b, kp, kq], times the
-// output twiddle tw[kp + P*kq] (P*Q values, or null), times 1/(P*Q) when
-// `inverse`, stored as (parts, B, P*Q/parts) with seg_log2 =
-// log2(P*Q/parts).  A block moves one 32 x 32 tile through shared memory
-// (row pitch 33): it reads 32 consecutive kq of a row and writes 32
-// consecutive kp of the output.  Grid: (Q/32, P/32, up to 65535 lines).
+// The split route's pass C for a power-of-two Q: z holds B lines of (P, Q)
+// rows z[b, kp, kq] (pass B's output, in place); out[b, kp + P*kq] =
+// z[b, kp, kq], times the output twiddle tw[kp + P*kq] (P*Q values, or
+// null), times 1/(P*Q) when `inverse`, stored as (parts, B, P*Q/parts)
+// with seg_log2 = log2(P*Q/parts).  A block moves one 32 x 32 tile through
+// shared memory (row pitch 33): it reads 32 consecutive kq of a row and
+// writes 32 consecutive kp of the output.  Grid: (Q/32, P/32, up to 65535
+// lines).
 constexpr int kTransposeTile = 32;
 constexpr int kTransposeRows = 8;
 
@@ -414,19 +669,64 @@ split_transpose_kernel(const cpx<R>* __restrict__ z,
   }
 }
 
+// Pass C for a mixed Q (long-line rows of longline.FACTORS' mixed lengths,
+// each a multiple of 32): as split_transpose_kernel, with Q's row stride
+// and the segment (seg = P*Q/parts, any length) by multiplication, and
+// the inverse's 1/(P*Q) as `scale`, which the launcher works out on the
+// host.
+template <typename R>
+__global__ void __launch_bounds__(kTransposeTile * kTransposeRows)
+split_transpose_mixed_kernel(const cpx<R>* __restrict__ z,
+                             cpx<R>* __restrict__ out,
+                             const cpx<R>* __restrict__ gtw, long long lines,
+                             int p_log2, int q, int seg, R scale) {
+  constexpr int T = kTransposeTile;
+  __shared__ cpx<R> tile[T][T + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int kq0 = blockIdx.x * T, kp0 = blockIdx.y * T;
+  const long long n = (long long)q << p_log2;
+  const float inv_seg = __fdividef(1.0f, (float)seg);
+  for (long long b = blockIdx.z; b < lines; b += gridDim.z) {
+    const cpx<R>* zb = z + b * n;
+    for (int j = ty; j < T; j += kTransposeRows)
+      tile[j][tx] = zb[(long long)(kp0 + j) * q + kq0 + tx];
+    __syncthreads();
+    for (int j = ty; j < T; j += kTransposeRows) {
+      const int of = kp0 + tx + ((kq0 + j) << p_log2);
+      cpx<R> y = tile[tx][j];
+      if (gtw != nullptr) y = cmul(y, gtw[of]);
+      y.re *= scale;
+      y.im *= scale;
+      const int part = div_small(of, seg, inv_seg);
+      out[((long long)part * lines + b) * seg + (of - part * seg)] = y;
+    }
+    __syncthreads();  // the next line's loads overwrite the tile
+  }
+}
+
+// seg_arg: log2(P*Q/parts) for a power-of-two Q, P*Q/parts for a mixed Q.
 template <typename R>
 int split_transpose(const void* z, void* out, const void* tw,
-                    long long lines, int p_log2, int q_log2, int seg_log2,
+                    long long lines, int p_log2, int q, int seg_arg,
                     int inverse, cudaStream_t stream) {
   if (lines <= 0) return 0;
-  if (p_log2 < 5 || q_log2 < 5) return (int)cudaErrorInvalidValue;
-  const dim3 grid(1u << (q_log2 - 5), 1u << (p_log2 - 5),
+  if (p_log2 < 5 || q < 32 || q % 32) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(q / 32), 1u << (p_log2 - 5),
                   (unsigned)(lines < 65535 ? lines : 65535));
   const dim3 block(kTransposeTile, kTransposeRows);
-  split_transpose_kernel<R><<<grid, block, 0, stream>>>(
-      static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
-      static_cast<const cpx<R>*>(tw), lines, p_log2, q_log2, seg_log2,
-      inverse);
+  if (is_pow2(q)) {
+    split_transpose_kernel<R><<<grid, block, 0, stream>>>(
+        static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
+        static_cast<const cpx<R>*>(tw), lines, p_log2, ilog2(q), seg_arg,
+        inverse);
+  } else {
+    // 1/(P*Q) rounded once, as the plain version's scale
+    const R scale = inverse ? (R)(1.0 / ((double)q * (double)(1LL << p_log2)))
+                            : R(1);
+    split_transpose_mixed_kernel<R><<<grid, block, 0, stream>>>(
+        static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
+        static_cast<const cpx<R>*>(tw), lines, p_log2, q, seg_arg, scale);
+  }
   return (int)cudaGetLastError();
 }
 

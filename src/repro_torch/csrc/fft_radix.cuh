@@ -35,7 +35,7 @@
 //    power of two is a shift, and the pack_parts segment (seg_arg, its
 //    length for a mixed N) by a division.  The power-of-two instantiations
 //    compile as before (the mixed code sits behind if constexpr).  The
-//    split route's passes stay powers of two.
+//    split route's pass A stays a power of two; its pass B takes mixed Q.
 //    The codelets, loads and stores unroll at compile time (static_for),
 //    so every index into the register arrays and the codelet table is a
 //    constant expression.
@@ -66,8 +66,11 @@
 //    threads along l, so that a warp stores consecutive kp of the
 //    transposed output out[b, kp + P*kq]; the line's own epilogues on
 //    that store: the output twiddle of P*Q entries (read through L2), the
-//    inverse's 1/(P*Q) (an exact power of two) and the pack_parts
-//    segment, each by the line's output index.
+//    inverse's 1/(P*Q) (an exact power of two; for a mixed Q the constant
+//    1/Q times one, split_b_scale) and the pack_parts segment, each by the
+//    line's output index (for a mixed Q a segment of any length, split by
+//    div_small: the index reaches 2^24, past the plain store's fp32
+//    division).
 //
 // kernels/radix.py holds the same plan, tiles and index maps in Python
 // (radix.emulate runs them, all three modes), and the CPU tests hold them
@@ -325,6 +328,27 @@ __device__ __forceinline__ R pow2_neg(int e) {
   }
 }
 
+// Pass B's scale, its line's 1/(P*Q) with P = 2^p_log2: an exact power of
+// two for a power-of-two Q, else the constant 1/Q times 2^-p_log2.
+template <typename R, int Q>
+__device__ __forceinline__ R split_b_scale(int p_log2) {
+  if constexpr (is_pow2(Q)) {
+    return pow2_neg<R>(ilog2(Q) + p_log2);
+  } else {
+    constexpr R kInvQ = R(1) / R(Q);
+    return kInvQ * pow2_neg<R>(p_log2);
+  }
+}
+
+// q / d for 0 <= q < 2^24 and a quotient below 2^20: an fp32 estimate of
+// q * (1/d), off by at most one, corrected in integers (no division).
+__device__ __forceinline__ int div_small(int q, int d, float inv_d) {
+  int r = __float2int_rz((float)q * inv_d);
+  const int rem = q - r * d;
+  r += (rem >= d) - (rem < 0);
+  return r;
+}
+
 // Shared memory, in this order: T (N), the codelet tables (N2/2 shared
 // for a power of two; else N2 for the rows, then N1 for the columns), the
 // output twiddle (N, when tw is given, kRadixPlain only) and the tile;
@@ -336,7 +360,8 @@ __device__ __forceinline__ R pow2_neg(int e) {
 // the (B, P, Q) block as (outer, N, inner) with `gtw` the TA|TB tables
 // and aux_log2 = log2(QL); kRadixSplitB takes outer = B*P rows of N = Q
 // with `gtw` the line's output twiddle (P*Q entries, or null), aux_log2 =
-// log2(P), and `out` (parts, B, P*Q/parts) with seg_log2 = log2(P*Q/parts).
+// log2(P), and `out` (parts, B, P*Q/parts) with seg_arg = log2(P*Q/parts)
+// for a power-of-two Q, P*Q/parts for a mixed Q.
 template <typename R, int N1, int N2, int MODE>
 __global__ void __launch_bounds__(kRadixThreads)
 radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
@@ -346,8 +371,8 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
              int strided_arg, int aux_log2) {
   constexpr int N = N1 * N2;
   constexpr bool kPow2 = is_pow2(N);
-  static_assert(kPow2 || MODE == kRadixPlain,
-                "the split route's passes take powers of two");
+  static_assert(kPow2 || MODE != kRadixSplitA,
+                "the split route's pass A takes powers of two");
   // the codelet tables: N2/2 shared, or the rows' N2 then the columns' N1
   constexpr int NW = kPow2 ? N2 / 2 : N2 + N1;
   constexpr int B1 = ilog2(N1);
@@ -397,9 +422,10 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   // scales by the whole line's 1/(P*Q), once.
   constexpr R kInvN = R(1) / R(N);
   const R scale =
-      kSplitB ? (inverse ? pow2_neg<R>(B1 + B2 + aux_log2) : R(1))
+      kSplitB ? (inverse ? split_b_scale<R, N>(aux_log2) : R(1))
               : (kSplitA ? R(1) : (inverse ? kInvN : R(1)));
-  // the power-of-two kernels' segment by its log2; a mixed N's by length
+  // the power-of-two kernels' segment by its log2; a mixed N's (pass B:
+  // its line's) by length
   const int seg_log2 = seg_arg;
   const int seg = 1 << seg_log2;
   const float inv_seg = __fdividef(1.0f, (float)seg_arg);  // mixed N
@@ -486,7 +512,7 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
               cmul(v[k2], cmul(ta[o * ql], tb[o * qh]));
         };
         static_for<0, N2>(store);
-      } else if constexpr (kSplitB) {
+      } else if constexpr (kSplitB && kPow2) {
         // row (b, kp) of a line of P*Q: its output kq lands at the line's
         // index kp + P*kq
         const int kp = (int)(line & ((1 << aux_log2) - 1));
@@ -501,6 +527,23 @@ radix_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
           y.im *= scale;
           out[base + (long long)(of >> seg_log2) * plane + (of & (seg - 1))] =
               y;
+        };
+        static_for<0, N2>(store);
+      } else if constexpr (kSplitB) {
+        // a mixed Q: the line's index kp + P*kq is below 2^24, and its
+        // segment (seg_arg, any length) splits it by div_small
+        const int kp = (int)(line & ((1 << aux_log2) - 1));
+        const long long b = line >> aux_log2;
+        const long long nb = outer >> aux_log2;
+        auto store = [&](auto i) {
+          constexpr int k2 = decltype(i)::value;
+          const int of = kp + ((k1 + N1 * k2) << aux_log2);
+          cpx<R> y = v[k2];
+          if (gtw != nullptr) y = cmul(y, gtw[of]);
+          y.re *= scale;
+          y.im *= scale;
+          const int part = div_small(of, seg_arg, inv_seg);
+          out[(part * nb + b) * seg_arg + (of - part * seg_arg)] = y;
         };
         static_for<0, N2>(store);
       } else {
@@ -679,6 +722,15 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(256, 16, 16)
       REPRO_RADIX_CASE(512, 16, 32)
       REPRO_RADIX_CASE(1024, 32, 32)
+      // the mixed lengths' rows
+      REPRO_RADIX_CASE(144, 12, 12)
+      REPRO_RADIX_CASE(160, 10, 16)
+      REPRO_RADIX_CASE(192, 12, 16)
+      REPRO_RADIX_CASE(240, 15, 16)
+      REPRO_RADIX_CASE(480, 20, 24)
+      REPRO_RADIX_CASE(576, 24, 24)
+      REPRO_RADIX_CASE(640, 20, 32)
+      REPRO_RADIX_CASE(960, 30, 32)
       default:
         break;
     }
@@ -686,6 +738,21 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
       switch (n) {
         REPRO_RADIX_CASE(128, 8, 16)
         REPRO_RADIX_CASE(2048, 32, 64)
+        REPRO_RADIX_CASE(72, 8, 9)
+        REPRO_RADIX_CASE(80, 8, 10)
+        REPRO_RADIX_CASE(96, 8, 12)
+        REPRO_RADIX_CASE(120, 10, 12)
+        REPRO_RADIX_CASE(384, 16, 24)
+        REPRO_RADIX_CASE(1152, 32, 36)
+        REPRO_RADIX_CASE(1280, 32, 40)
+        REPRO_RADIX_CASE(1536, 32, 48)
+        REPRO_RADIX_CASE(1920, 40, 48)
+        default:
+          break;
+      }
+    } else {
+      switch (n) {
+        REPRO_RADIX_CASE(768, 24, 32)
         default:
           break;
       }

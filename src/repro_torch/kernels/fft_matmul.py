@@ -37,18 +37,19 @@ the mixed N = r*2^k, r in {3, 5, 9, 15}, whose codelets stay in registers
 (to 3840 for complex64, 960 for complex128: ``radix.RADIX_SIZES``) take
 the radix path — two passes of in-register codelets (radix 2, or a chain
 of radix 2, 3, 4 and 5), ``csrc/fft_radix.cuh``, planned in
-``kernels/radix.py``; the longer
-power-of-two N whose line fits in one block's shared memory (8192 and
-16384 for complex64, 2048 to 8192 for complex128) take the long-line path
-— three such passes over a line loaded by TMA, ``csrc/fft_long.cuh``,
-planned in ``kernels/longline.py``, whose ``emulate`` is this path's plain
-version; the power-of-two N beyond one block (32768 to 2^24 for
-complex64, 16384 to 2^22 for complex128) take the split route — N = P*Q
-through HBM, a strided radix launch on the P-long columns with the
-inter-step twiddle in its store, then the Q-long rows: on the radix
-route, stored transposed with the line's epilogues; on the long-line
-route, stored in place and moved by a transpose launch that carries the
-epilogues — planned in ``kernels/split.py``, whose ``emulate`` is that
+``kernels/radix.py``; the longer N whose line fits in one block's shared
+memory (powers of two 8192 and 16384 for complex64, 2048 to 8192 for
+complex128; the mixed lengths 4608 to 15360 and 1152 to 7680) take the
+long-line path — three such passes over a line loaded by TMA,
+``csrc/fft_long.cuh``, planned in ``kernels/longline.py``, whose
+``emulate`` is this path's plain version; the powers of two and mixed
+lengths beyond one block (to 2^24 for complex64, 2^22 for complex128)
+take the split route — N = P*Q, P a power of two, through HBM, a strided
+radix launch on the P-long columns with the inter-step twiddle in its
+store, then the Q-long rows: on the radix route, stored transposed with
+the line's epilogues; on the long-line route, stored in place and moved
+by a transpose launch that carries the epilogues — planned in
+``kernels/split.py``, whose ``emulate`` is that
 route's plain version; every other N beyond the dense kernel's one block
 takes the chirp route — Bluestein's convolution as two transforms of M =
 2^ceil(log2(2N - 1)) on the long-line or split route with the chirps in
@@ -262,12 +263,11 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
                        pack_parts: Optional[int] = None) -> torch.Tensor:
     """The kernel's plain PyTorch version: same inputs, same output layout.
 
-    On the long-line path's N, that path's three passes
-    (``longline.emulate``); on the split route's N, its two passes
+    On the long-line path's N (powers of two and mixed), that path's three
+    passes (``longline.emulate``); on the split route's N, its two passes
     (``split.emulate``); on the chirp route's N, its four steps over the
-    inner routes' plain versions (``chirp.emulate``); on every other N
-    the four steps as
-    ``torch.einsum`` contractions on real/imag planes
+    inner routes' plain versions (``chirp.emulate``); on every other N the
+    four steps as ``torch.einsum`` contractions on real/imag planes
     (``transforms.fourstep_fft_planes``).  Used for CPU tensors and, on the
     card, as the kernel's yardstick.
     """
@@ -331,6 +331,14 @@ def _count(path: str, layout: str, variant: str, split_call: bool = False
         fft_fourstep.split_calls += int(split_call)
 
 
+def _seg_arg(n: int, parts: int) -> int:
+    """The kernels' ``pack_parts`` segment argument for lines of ``n``:
+    its log2 for a power-of-two N (the kernels shift), its length for a
+    mixed N (they divide)."""
+    seg = n // parts
+    return seg.bit_length() - 1 if radix.is_pow2(n) else seg
+
+
 def _variant(tw: Optional[torch.Tensor], pack_parts: Optional[int]) -> str:
     return ("pack" if pack_parts is not None
             else "twiddle" if tw is not None else "fourstep")
@@ -376,12 +384,8 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
             outer, inner = (x.shape[0], x.shape[2]) if strided \
                 else (x.shape[0], 1)
             fn = lib.repro_fft_radix_c64 if c64 else lib.repro_fft_radix_c128
-            # the segment: its log2 for a power-of-two N (the kernel
-            # shifts), its length for a mixed N (the kernel divides)
-            seg = n // parts
-            seg_arg = seg.bit_length() - 1 if radix.is_pow2(n) else seg
             err = fn(x.data_ptr(), buf.data_ptr(), consts.data_ptr(), twp,
-                     outer, inner, n, int(inverse), seg_arg,
+                     outer, inner, n, int(inverse), _seg_arg(n, parts),
                      tile.lines.bit_length() - 1, int(strided),
                      tile.smem_bytes, stream)
         elif path == "long":
@@ -392,9 +396,8 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
                 x = x.clone()      # the bulk copy reads 16-byte aligned lines
             fn = lib.repro_fft_long_c64 if c64 else lib.repro_fft_long_c128
             err = fn(x.data_ptr(), buf.data_ptr(), consts.data_ptr(), twp,
-                     x.shape[0], n, int(inverse),
-                     (n // parts).bit_length() - 1, tile.smem_bytes,
-                     stream)
+                     x.shape[0], n, int(inverse), _seg_arg(n, parts),
+                     tile.smem_bytes, stream)
         else:
             n1, n2 = factorize(n)
             cfg = launch_config(n, x.element_size(), tw is not None)
@@ -497,7 +500,7 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
         # pass B: the Q-long rows, stored transposed at kp + P*kq (radix)
         # or in place (long-line, then pass C)
         rtile = split.row_tile(plan, cdt)
-        seg_log2 = (n // parts).bit_length() - 1
+        seg_arg = _seg_arg(n, parts)
         twp = tw.data_ptr() if tw is not None else None
         variant = _variant(tw, pack_parts)
         if plan.row_path == "radix":
@@ -505,7 +508,7 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
             qconsts.record_stream(current)
             err = getattr(lib, f"repro_fft_split_b_radix_{suffix}")(
                 y.data_ptr(), buf.data_ptr(), qconsts.data_ptr(), twp,
-                b * plan.p, plan.q, int(inverse), seg_log2,
+                b * plan.p, plan.q, int(inverse), seg_arg,
                 rtile.lines.bit_length() - 1, plan.p_log2,
                 rtile.smem_bytes, stream)
             _raise_on(err, lib, "split pass B", x)
@@ -518,14 +521,14 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
         # the inverse's sign is in the constants; its 1/N waits for pass C
         err = getattr(lib, f"repro_fft_long_{suffix}")(
             y.data_ptr(), z.data_ptr(), qconsts.data_ptr(), None,
-            b * plan.p, plan.q, 0, plan.q.bit_length() - 1,
-            rtile.smem_bytes, stream)
+            b * plan.p, plan.q, 0, _seg_arg(plan.q, 1), rtile.smem_bytes,
+            stream)
         _raise_on(err, lib, "split pass B", x)
         _count(count_as, "lines", "fourstep")
         # pass C: (B, P, Q) rows to out[b, kp + P*kq], with the epilogues
         err = getattr(lib, f"repro_fft_split_c_{suffix}")(
-            z.data_ptr(), buf.data_ptr(), twp, b, plan.p_log2,
-            plan.q.bit_length() - 1, seg_log2, int(inverse), stream)
+            z.data_ptr(), buf.data_ptr(), twp, b, plan.p_log2, plan.q,
+            seg_arg, int(inverse), stream)
     _raise_on(err, lib, "split pass C", x)
     _count(count_as, "lines", variant, split_call=count_as == "split")
     return out

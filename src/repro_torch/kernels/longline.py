@@ -1,30 +1,50 @@
 """The long-line route of the four-step kernel: its plan, its shared-memory
 layouts and their index maps, in Python.
 
-Power-of-two lines too long for the radix route's two in-register passes
-(complex64 N of 8192 and 16384, complex128 N of 2048 to 8192) still fit
-whole in one block's shared memory.  The kernel (``csrc/fft_long.cuh``)
-holds one line there and transforms it in three passes over
-N = R1*R2*R3, each an in-register radix-2 codelet of length at most 32
-(:data:`FACTORS`).  With the input index m = m1*(R2*R3) + m2*R3 + m3 and
-the output index k = k1 + R1*k2 + R1*R2*k3 (decimation in frequency):
+Lines too long for the radix route's two in-register passes still fit
+whole in one block's shared memory: the powers of two (complex64 N of
+8192 and 16384, complex128 N of 2048 to 8192) and the mixed lengths
+r*2^k, r in ``radix.MIXED_ODD``, from past ``radix.RADIX_SIZES`` to the
+same 128 KB line (complex64 4608 to 15360, complex128 1152 to 7680).  The
+kernel (``csrc/fft_long.cuh``) holds one line there and transforms it in
+three passes over N = R1*R2*R3, each an in-register codelet of length at
+most 32 (:data:`FACTORS`).  With the input index m = m1*(R2*R3) + m2*R3 +
+m3 and the output index k = k1 + R1*k2 + R1*R2*k3 (decimation in
+frequency):
 
 * pass 1 — item mb = m2*R3 + m3: the R1 values x[m1*(N/R1) + mb], a
   codelet of length R1, times W_N^(k1*mb) = TA[k1, m3] * TB[k1, m2],
-  stored back where they were read (k1*(N/R1) + mb);
-* pass 2 — item (k1, m3): the R2 values at k1*(N/R1) + m2*R3 + m3, a
-  codelet of length R2, times TC[k2, m3] = W_(R2*R3)^(k2*m3), stored at
-  m3*PITCH + k1 + R1*k2 with PITCH = R1*R2 + 1, so that pass 3 reads
-  along consecutive addresses;
-* pass 3 — item kA = k1 + R1*k2: the R3 values at m3*PITCH + kA, a codelet
-  of length R3, and out[kA + R1*R2*k3] with the epilogue (the output
-  twiddle, 1/N, the ``pack_parts`` segment store).
+  stored back where they were read;
+* pass 2 — item (k1, m3): the R2 values of m2 at (k1, m2, m3), a codelet
+  of length R2, times TC[k2, m3] = W_(R2*R3)^(k2*m3);
+* pass 3 — item kA = k1 + R1*k2: the R3 values of m3 at (k1, k2, m3), a
+  codelet of length R3, and out[kA + R1*R2*k3] with the epilogue (the
+  output twiddle, 1/N, the ``pack_parts`` segment store).
 
 TA (R1 x R3), TB (R1 x R2) and TC (R2 x R3) are the two-level factors of
-the inter-pass twiddles, and W (RM/2 entries, RM the largest factor) the
-codelets' table; all are built in float64 (:func:`constants`).  A block
-of N/RM threads holds RM values each in every pass, so pass 2 loads all
-of them before it stores any.
+the inter-pass twiddles; all are built in float64 (:func:`constants`).
+
+A power of two runs radix-2 codelets on one table of RM/2 entries (RM the
+largest factor, which every factor divides).  A block of N/RM threads
+holds RM values each in every pass; pass 2 loads all of them before it
+stores any, into the layout (m3, kA) with a row pitch of R1*R2 + 1, so
+that pass 3 reads consecutive addresses, and pass 3 loads all of them
+before the buffer is released to the next line's copy.
+
+A mixed length has exactly one mixed factor, R1 = r*2^a (the radix
+route's chain of radix-5, 3, 4 and 2 codelets, ``radix.radices``, on its
+own table of R1 entries), and R2, R3 powers of two (radix-2 codelets on a
+table of max(R2, R3)/2 entries).  Its line is copied in R1 rows of N/R1
+with a pitch of N/R1 plus 16 bytes (:attr:`LongPlan.pitch`), and every
+pass runs one item at a time and stores it where it was read, (k1, m2,
+m3) then (k1, k2, m3), so no pass holds more than one codelet: pass 3's
+reads of consecutive kA then fall R1 rows apart, on distinct banks.
+
+The thread count, for both: every pass's items split evenly over the
+threads, so a block has N / lcm(R1, R2, R3) threads and every thread
+holds lcm(R1, R2, R3) values in every pass (:attr:`LongPlan.threads`;
+for 6144 = 24x16x16, 128 threads with 2 items of radix 24 and 3 of radix
+16).
 
 :func:`emulate` runs exactly these passes and index maps in torch; it is
 the kernel's plain version (``fft_matmul.fft_fourstep_plain`` takes it
@@ -43,17 +63,30 @@ import torch
 from . import radix
 
 #: The lengths the route takes and their (R1, R2, R3), per complex dtype:
-#: power-of-two lines past ``radix.RADIX_SIZES`` whose whole line fits in
-#: one block's shared memory (``radix.kernel_path`` reads this table).
+#: lines past ``radix.RADIX_SIZES`` whose whole line, 128 KB at most, fits
+#: in one block's shared memory (``radix.kernel_path`` reads this table).
 #: Codelets of at most 32 values: ptxas keeps 32 complex128 values in
-#: registers (the radix route's 32x32 instantiation does), not 64.
+#: registers (the radix route's 32x32 instantiation does), not 64.  A
+#: mixed length's mixed factor is R1, with as many 2s as 32 allows, so
+#: that the block's N / lcm(R1, R2, R3) threads are as many as they can be.
 FACTORS = {
-    torch.complex64: {8192: (16, 16, 32), 16384: (16, 32, 32)},
-    torch.complex128: {2048: (8, 16, 16), 4096: (16, 16, 16),
-                       8192: (16, 16, 32)},
+    torch.complex64: {
+        8192: (16, 16, 32), 16384: (16, 32, 32),
+        4608: (18, 16, 16), 5120: (20, 16, 16), 6144: (24, 16, 16),
+        7680: (30, 16, 16), 9216: (18, 16, 32), 10240: (20, 16, 32),
+        12288: (24, 16, 32), 15360: (30, 16, 32)},
+    torch.complex128: {
+        2048: (8, 16, 16), 4096: (16, 16, 16), 8192: (16, 16, 32),
+        1152: (18, 8, 8), 1280: (20, 8, 8), 1536: (24, 8, 8),
+        1920: (30, 8, 8), 2304: (18, 8, 16), 2560: (20, 8, 16),
+        3072: (24, 8, 16), 3840: (30, 8, 16), 4608: (18, 16, 16),
+        5120: (20, 16, 16), 6144: (24, 16, 16), 7680: (30, 16, 16)},
 }
 #: Bytes of one mbarrier.
 _BARRIER_BYTES = 8
+#: A mixed line's row padding: one 16-byte step, so that the bulk copies'
+#: rows stay 16-byte aligned.
+_ROW_PAD_BYTES = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,31 +95,49 @@ class LongPlan:
     r1: int
     r2: int
     r3: int
+    itemsize: int
+
+    @property
+    def mixed(self) -> bool:
+        """Not a power of two: R1 is the mixed factor."""
+        return not radix.is_pow2(self.n)
 
     @property
     def rmax(self) -> int:
         return max(self.r1, self.r2, self.r3)
 
     @property
+    def table(self) -> int:
+        """Length whose W^j, j < table/2, the radix-2 codelets read: the
+        largest factor, or the largest power-of-two factor of a mixed N."""
+        return max(self.r2, self.r3) if self.mixed else self.rmax
+
+    @property
     def threads(self) -> int:
-        """Threads of one block: each holds ``rmax`` values per pass."""
-        return self.n // self.rmax
+        """Threads of one block: N / lcm(R1, R2, R3), so that every pass's
+        items split evenly and each thread holds lcm(R1, R2, R3) values in
+        every pass."""
+        return self.n // math.lcm(self.r1, self.r2, self.r3)
 
     @property
     def pitch(self) -> int:
-        """Row pitch of pass 2's output layout (m3, kA)."""
+        """Row pitch of pass 2's output layout (m3, kA); for a mixed N of
+        the line's R1 rows of N/R1."""
+        if self.mixed:
+            return self.r2 * self.r3 + _ROW_PAD_BYTES // self.itemsize
         return self.r1 * self.r2 + 1
 
     @property
     def line_elems(self) -> int:
-        """Elements of one line buffer: N, plus pass 2's padding."""
-        return self.r3 * self.pitch
+        """Elements of one line buffer: N, plus the padding."""
+        return (self.r1 if self.mixed else self.r3) * self.pitch
 
     @property
     def const_elems(self) -> int:
-        """TA, TB, TC and the codelet table."""
+        """TA, TB, TC and the codelet tables."""
         r1, r2, r3 = self.r1, self.r2, self.r3
-        return r1 * r3 + r1 * r2 + r2 * r3 + self.rmax // 2
+        return (r1 * r3 + r1 * r2 + r2 * r3 + self.table // 2
+                + (r1 if self.mixed else 0))
 
 
 def long_plan(n: int, dtype: torch.dtype) -> LongPlan:
@@ -96,7 +147,7 @@ def long_plan(n: int, dtype: torch.dtype) -> LongPlan:
         raise ValueError(f"the long route takes N in "
                          f"{sorted(FACTORS.get(dtype, {}))} for {dtype}, "
                          f"got {n}")
-    return LongPlan(n, *factors)
+    return LongPlan(n, *factors, dtype.itemsize)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,12 +164,15 @@ def smem_bytes(plan: LongPlan, itemsize: int, depth: int) -> int:
 
 
 def long_tile(n: int, dtype: torch.dtype) -> LongTile:
-    """The ring depth and the shared memory of one block: two line buffers
-    where they fit (the next line loads while this one is transformed),
-    else one.  ``fft_long.cuh``'s ``long_depth`` works out the same."""
+    """The ring depth and the shared memory of one block.  A power of two
+    takes two line buffers where they fit (the next line loads while this
+    one is transformed), else one.  A mixed N takes one: its blocks are of
+    N / lcm(R1, R2, R3) threads, as few as 16, so a second block on the SM
+    overlaps one block's copy with its compute better than a second
+    buffer does.  ``fft_long.cuh``'s ``long_depth`` works out the same."""
     plan = long_plan(n, dtype)
-    depth = 2 if smem_bytes(plan, dtype.itemsize, 2) <= radix.SMEM_MAX_BYTES \
-        else 1
+    depth = 2 if not plan.mixed and smem_bytes(
+        plan, dtype.itemsize, 2) <= radix.SMEM_MAX_BYTES else 1
     return LongTile(depth, smem_bytes(plan, dtype.itemsize, depth))
 
 
@@ -127,9 +181,11 @@ def _w(n: int, e: np.ndarray, sign: float) -> np.ndarray:
 
 
 def constants(n: int, dtype: torch.dtype, inverse: bool) -> np.ndarray:
-    """TA, TB, TC and the codelet table, row-major, one complex128 array
+    """TA, TB, TC and the codelet tables, row-major, one complex128 array
     built in float64: TA[k1, m3] = W_N^(k1*m3), TB[k1, m2] =
-    W_N^(k1*m2*R3), TC[k2, m3] = W_(R2*R3)^(k2*m3), W[j] = W_RM^j."""
+    W_N^(k1*m2*R3), TC[k2, m3] = W_(R2*R3)^(k2*m3), W[j] = W_table^j
+    (j < table/2, :attr:`LongPlan.table`), then for a mixed N the mixed
+    codelet's own W_R1^j, j < R1."""
     p = long_plan(n, dtype)
     sign = 1.0 if inverse else -1.0
     k1 = np.arange(p.r1, dtype=np.float64)[:, None]
@@ -139,20 +195,48 @@ def constants(n: int, dtype: torch.dtype, inverse: bool) -> np.ndarray:
     ta = _w(n, k1 * m3, sign)
     tb = _w(n, k1 * m2 * p.r3, sign)
     tc = _w(p.r2 * p.r3, k2 * m3, sign)
-    w = _w(p.rmax, np.arange(p.rmax // 2, dtype=np.float64), sign)
-    return np.concatenate([ta.reshape(-1), tb.reshape(-1), tc.reshape(-1),
-                           w])
+    w = _w(p.table, np.arange(p.table // 2, dtype=np.float64), sign)
+    parts = [ta.reshape(-1), tb.reshape(-1), tc.reshape(-1), w]
+    if p.mixed:
+        parts.append(_w(p.r1, np.arange(p.r1, dtype=np.float64), sign))
+    return np.concatenate(parts)
 
 
-def _codelet(values: list, length: int, plan: LongPlan, w: torch.Tensor
-             ) -> list:
-    """Load order bit-reversed, then the radix-2 stages: natural order
-    out, as ``fft_radix.cuh``'s ``fft_stages`` with the RM-entry table."""
-    bits = int(math.log2(length))
+def _codelet(values: list, length: int, plan: LongPlan, w: torch.Tensor,
+             wm: Optional[torch.Tensor] = None, sign: float = -1.0) -> list:
+    """Load order bit- (or digit-) reversed (``radix.load_slot``), then the
+    radix-2 stages on the ``plan.table``-entry table ``w``, as
+    ``fft_radix.cuh``'s ``fft_stages``, or a mixed length's chain on its
+    own table ``wm`` (``mixed_stages``): natural order out."""
     v = [None] * length
     for i, val in enumerate(values):
-        v[radix.bitrev(i, bits)] = val
-    return radix._run_codelet(v, radix.codelet(length, plan.rmax), w)
+        v[radix.load_slot(i, length)] = val
+    if radix.is_pow2(length):
+        return radix._run_codelet(v, radix.codelet(length, plan.table), w)
+    return radix.run_codelet(v, length, radix.mixed_codelet(length), wm,
+                             sign)
+
+
+def _epilogue(v: list, plan: LongPlan, b: int, ka: torch.Tensor, *,
+              inverse: bool, twiddle: Optional[torch.Tensor],
+              pack_parts: Optional[int], scaled: bool) -> torch.Tensor:
+    """Pass 3's store: out[kA + R1*R2*k3] = v[k3] times the output twiddle
+    and 1/N, into the (parts, B, N/parts) buffer."""
+    n, q = plan.n, plan.r1 * plan.r2
+    cdt, dev = v[0].dtype, v[0].device
+    parts = pack_parts or 1
+    seg = n // parts
+    scale = 1.0 / n if inverse and scaled else 1.0
+    tw = None if twiddle is None else twiddle.to(dev, cdt).reshape(-1)
+    out = torch.empty(parts * b * seg, dtype=cdt, device=dev)
+    line = torch.arange(b, device=dev)[:, None]
+    for k3 in range(plan.r3):
+        o = ka + q * k3
+        y = v[k3] if tw is None else v[k3] * tw[o]
+        out[((o // seg) * b + line) * seg + o % seg] = y * scale
+    if pack_parts is None:
+        return out.reshape(b, n)
+    return out.reshape(parts, b, seg)
 
 
 def emulate(x: torch.Tensor, *, inverse: bool = False,
@@ -170,8 +254,14 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     r1, r2, r3 = p.r1, p.r2, p.r3
     m1_stride, q = n // r1, r1 * r2
     consts = torch.from_numpy(constants(n, cdt, inverse)).to(dev, cdt)
-    ta, tb, tc, w = torch.split(consts, [r1 * r3, r1 * r2, r2 * r3,
-                                         p.rmax // 2])
+    sizes = [r1 * r3, r1 * r2, r2 * r3, p.table // 2]
+    ta, tb, tc, w, *wm = torch.split(
+        consts, sizes + ([r1] if p.mixed else []))
+    epilogue = dict(inverse=inverse, twiddle=twiddle, pack_parts=pack_parts,
+                    scaled=scaled)
+    if p.mixed:
+        return _emulate_mixed(x, p, ta, tb, tc, w, wm[0],
+                              1.0 if inverse else -1.0, epilogue)
     # the line buffer, as the bulk copy leaves it: x in natural order
     s = torch.zeros((b, p.line_elems), dtype=cdt, device=dev)
     s[:, :n] = x
@@ -196,16 +286,43 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     # pass 3: item kA = k1 + R1*k2, the epilogue on the store
     ka = torch.arange(q, device=dev)
     v = _codelet([s[:, m3 * p.pitch + ka] for m3 in range(r3)], r3, p, w)
-    parts = pack_parts or 1
-    seg = n // parts
-    scale = 1.0 / n if inverse and scaled else 1.0
-    tw = None if twiddle is None else twiddle.to(dev, cdt).reshape(-1)
-    out = torch.empty(parts * b * seg, dtype=cdt, device=dev)
-    line = torch.arange(b, device=dev)[:, None]
-    for k3 in range(r3):
-        o = ka + q * k3
-        y = v[k3] if tw is None else v[k3] * tw[o]
-        out[((o // seg) * b + line) * seg + o % seg] = y * scale
-    if pack_parts is None:
-        return out.reshape(b, n)
-    return out.reshape(parts, b, seg)
+    return _epilogue(v, p, b, ka, **epilogue)
+
+
+def _emulate_mixed(x: torch.Tensor, p: LongPlan, ta, tb, tc, w, wm,
+                   sign: float, epilogue: dict) -> torch.Tensor:
+    """The mixed kernel's passes: the line in R1 rows of N/R1 at the
+    padded pitch, every pass in place, item by item."""
+    b, n = x.shape
+    r1, r2, r3, pitch = p.r1, p.r2, p.r3, p.pitch
+    m1n, dev = r2 * r3, x.device
+    # the line buffer, as the R1 row copies leave it
+    s = torch.zeros((b, p.line_elems), dtype=x.dtype, device=dev)
+    rows = torch.arange(r1, device=dev)[:, None] * pitch \
+        + torch.arange(m1n, device=dev)[None, :]
+    s[:, rows.reshape(-1)] = x
+
+    # pass 1: item mb = m2*R3 + m3 reads (m1, mb), writes (k1, mb)
+    mb = torch.arange(m1n, device=dev)
+    m2, m3 = mb // r3, mb % r3
+    v = _codelet([s[:, m1 * pitch + mb] for m1 in range(r1)], r1, p, w, wm,
+                 sign)
+    for k1 in range(r1):
+        y = v[k1] if k1 == 0 else v[k1] * (ta[k1 * r3 + m3] * tb[k1 * r2 + m2])
+        s[:, k1 * pitch + mb] = y
+
+    # pass 2: item (k1, m3) reads (k1, m2, m3), writes (k1, k2, m3)
+    item = torch.arange(r1 * r3, device=dev)
+    k1, m3 = item // r3, item % r3
+    v = _codelet([s[:, k1 * pitch + m2 * r3 + m3] for m2 in range(r2)], r2,
+                 p, w)
+    for k2 in range(r2):
+        y = v[k2] if k2 == 0 else v[k2] * tc[k2 * r3 + m3]
+        s[:, k1 * pitch + k2 * r3 + m3] = y
+
+    # pass 3: item kA = k1 + R1*k2 reads (k1, k2, m3)
+    ka = torch.arange(r1 * r2, device=dev)
+    k2, k1 = ka // r1, ka % r1
+    v = _codelet([s[:, k1 * pitch + k2 * r3 + m3] for m3 in range(r3)], r3,
+                 p, w)
+    return _epilogue(v, p, b, ka, **epilogue)

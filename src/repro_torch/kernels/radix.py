@@ -107,10 +107,10 @@ RADIX_SIZES = {
 
 def kernel_path(n: int, dtype: torch.dtype) -> str:
     """"radix" when the kernel has a codelet instantiation for ``n`` and
-    ``dtype``, "long" for the longer power-of-two lines the long-line
-    route takes (``longline.FACTORS``), "split" for the power-of-two lines
-    longer than one block holds (``split.FACTORS``: two passes through
-    HBM), "chirp" for every other length past the dense kernel's one
+    ``dtype``, "long" for the longer lines the long-line route takes
+    (``longline.FACTORS``: powers of two and mixed lengths), "split" for
+    the lines longer than one block holds (``split.FACTORS``: two passes
+    through HBM), "chirp" for every other length past the dense kernel's one
     block up to the chirp route's limit (``chirp.takes``: Bluestein over
     the power-of-two routes), else "dense" (the general four-step: within
     one block it takes any N; past the chirp's limit it raises)."""
@@ -493,7 +493,9 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     if split_twiddle is not None:
         tables, ql_log2 = split_twiddle
         ql, qh = 1 << ql_log2, inner >> ql_log2
-        q = (tiles % groups) * lines + l
+        # the column q of each lane; a ragged last group's lanes past Q
+        # are masked (the kernel skips them), so read column 0 there
+        q = torch.where(valid, (tiles % groups) * lines + l, 0)
         ta, tb = tables[:n * ql], tables[n * ql:]
     if rows:
         b_idx, kp = line // rows_per_line, line % rows_per_line

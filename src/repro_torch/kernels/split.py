@@ -1,8 +1,11 @@
-"""The split route of the four-step kernel: power-of-two lines longer than
-one block holds, as a two-level four-step through HBM.
+"""The split route of the four-step kernel: lines longer than one block
+holds, as a two-level four-step through HBM.
 
-A line of N = P*Q (complex64 N from 32768 to 2^24, complex128 from 16384
-to 2^22: :data:`FACTORS`) is viewed as (P, Q), x[p*Q + q], and
+A line of N = P*Q (:data:`FACTORS`: the powers of two, complex64 N from
+32768 to 2^24 and complex128 from 16384 to 2^22, and the mixed lengths
+r*2^k, r in ``radix.MIXED_ODD``, past the long-line route's up to the
+same limits; P a power of two, a mixed N's odd part in Q) is viewed as
+(P, Q), x[p*Q + q], and
 transformed by the routes one block holds, in two launches (three with
 rows on the long-line route):
 
@@ -12,15 +15,15 @@ rows on the long-line route):
   W_N^(kp*q) (``fft_radix.cuh``, ``kRadixSplitA``) and writes the
   same ``(B, P, Q)`` layout;
 * pass B — the Q-long DFT of every contiguous row (b, kp).  On the radix
-  route (Q up to 4096 complex64, 1024 complex128) it is stored transposed
+  route (Q up to 2048 complex64, 1024 complex128) it is stored transposed
   at out[b, kp + P*kq], the line's output index, with the line's own
   epilogues on that store: the output twiddle (N,), the inverse's 1/N
   (once, for the whole line) and the ``pack_parts`` segment store.  A
   tile holds L consecutive rows in the layout (k1, l, m2) with a row
   pitch of Q2 + 1, and the row pass runs its threads along l, so a warp
   stores L consecutive kp (``kRadixSplitB``).
-* On the long-line route (Q of 8192 and 16384 complex64, 2048 to 8192
-  complex128) a block holds one row, so its stores cannot be staged so:
+* On the long-line route (Q of ``longline.FACTORS``, a multiple of 32) a
+  block holds one row, so its stores cannot be staged so:
   pass B stores the rows in place (``fft_long.cuh`` as it is, without the
   scale), and pass C (``split_transpose``) moves 32 x 32 tiles of each
   line's (P, Q) rows through shared memory to out[b, kp + P*kq] with the
@@ -28,9 +31,10 @@ rows on the long-line route):
   as long at 2^24 (3.8 ms against 1.5; PERF.md).
 
 The inter-step twiddle would be an N-entry table (128 MB at N = 2^24 in
-complex64); it is TA[kp, ql] * TB[kp, qh] with q = qh*QL + ql, two tables
-of P*QL and P*QH entries built in float64 (:func:`constants`, one rounding
-per entry) and read through L2.
+complex64); it is TA[kp, ql] * TB[kp, qh] with q = qh*QL + ql, QL a power
+of two that divides Q (:attr:`SplitPlan.ql`), two tables of P*QL and P*QH
+entries built in float64 (:func:`constants`, one rounding per entry) and
+read through L2.
 
 :func:`emulate` runs exactly these passes and index maps in torch, through
 ``radix.emulate`` and ``longline.emulate`` with the same modes and
@@ -48,17 +52,17 @@ import torch
 
 from . import longline, radix
 
-#: (P, Q) per length and complex dtype, picked by measurement on an H100
-#: among every (P, Q) the kernel could run, at 512 MB of lines (PERF.md
-#: has the readings).  P runs on the strided radix entry (to 1024
-#: complex64, 512 complex128: ``fft_matmul.strided_supported``), Q on the
-#: radix route (to 4096 / 1024) or the long-line route (8192 and 16384 /
-#: 2048 to 8192, with the transpose pass).  What the readings showed: P
-#: of 128 to 512 mostly; rows of 4096 on the radix route are slow (a tile
-#: holds 2 rows, so pass B stores 16-byte runs: about twice the time), so
-#: the longest lengths put their rows on the long-line route; the longest
-#: have one choice.
-FACTORS = {
+#: The powers of two's (P, Q) per complex dtype, picked by measurement on
+#: an H100 among every (P, Q) the kernel could run, at 512 MB of lines
+#: (PERF.md has the readings).  P runs on the strided radix
+#: entry (to 1024 complex64, 512 complex128: ``fft_matmul.
+#: strided_supported``), Q on the radix route (to 2048 / 1024) or the
+#: long-line route (``longline.FACTORS``, with the transpose pass).  What
+#: the readings showed: P of 128 to 512 mostly; rows of 4096 on the radix
+#: route are slow (a tile holds 2 rows, so pass B stores 16-byte runs:
+#: about twice the time), so the longest lengths put their rows on the
+#: long-line route; the longest have one choice.
+_POW2 = {
     torch.complex64: {
         1 << 15: (256, 128), 1 << 16: (256, 256), 1 << 17: (256, 512),
         1 << 18: (256, 1024), 1 << 19: (256, 2048), 1 << 20: (512, 2048),
@@ -70,6 +74,35 @@ FACTORS = {
         1 << 20: (128, 8192), 1 << 21: (256, 8192),
         1 << 22: (512, 8192)},
 }
+#: The mixed lengths r*2^k, per odd part r, shortest first, picked once by
+#: measurement on an H100 among the (P, Q) the kernel instantiates, at 512
+#: MB of lines (PERF.md has the readings): P of 256 or 512 complex64 and
+#: 64 to 512 complex128 mostly, Q on the radix route up to 1920 complex64
+#: and 960 complex128, the longest with their rows on the long-line route.
+_MIXED = {
+    torch.complex64: (
+        (256, 96), (256, 192), (256, 384), (512, 384), (256, 1536),
+        (512, 1536), (1024, 1536), (512, 6144), (512, 12288), (1024, 12288),
+        (256, 80), (256, 160), (512, 160), (256, 640), (512, 640),
+        (512, 1280), (1024, 1280), (512, 5120), (512, 10240), (1024, 10240),
+        (256, 72), (256, 144), (512, 144), (256, 576), (512, 576),
+        (512, 1152), (1024, 1152), (512, 4608), (1024, 4608), (1024, 9216),
+        (256, 120), (256, 240), (256, 480), (256, 960), (512, 960),
+        (512, 1920), (1024, 1920), (512, 7680), (1024, 7680),
+        (1024, 15360)),
+    torch.complex128: (
+        (64, 192), (128, 192), (64, 768), (128, 768), (256, 768),
+        (512, 768), (128, 6144), (256, 6144), (512, 6144),
+        (64, 160), (128, 160), (64, 640), (128, 640), (256, 640),
+        (512, 640), (128, 5120), (256, 5120), (512, 5120),
+        (64, 144), (128, 144), (256, 144), (128, 576), (256, 576),
+        (512, 576), (256, 2304), (256, 4608), (512, 4608),
+        (64, 240), (128, 240), (128, 480), (256, 480), (256, 960),
+        (512, 960), (512, 1920), (512, 3840), (512, 7680)),
+}
+#: (P, Q) per length and complex dtype: both tables.
+FACTORS = {dtype: {**_POW2[dtype], **{p * q: (p, q) for p, q in pairs}}
+           for dtype, pairs in _MIXED.items()}
 
 
 #: The pass lengths of the table above, each instantiated by the kernel
@@ -78,8 +111,9 @@ FACTORS = {
 #: route takes ``longline.FACTORS``'s lengths.
 COLUMN_SIZES = {torch.complex64: (256, 512, 1024),
                 torch.complex128: (64, 128, 256, 512)}
-ROW_SIZES = {torch.complex64: (128, 256, 512, 1024, 2048),
-             torch.complex128: (256, 512, 1024)}
+ROW_SIZES = {dtype: tuple(sorted({q for _, q in table.values()
+                                  if q not in longline.FACTORS[dtype]}))
+             for dtype, table in FACTORS.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +129,11 @@ class SplitPlan:
 
     @property
     def ql_log2(self) -> int:
-        """log2 of QL, the low factor of q in the twiddle tables."""
-        k = self.q.bit_length() - 1
-        return (k + 1) // 2
+        """log2 of QL, the low factor of q in the twiddle tables: a power
+        of two that divides Q, about its square root (half of Q's bits,
+        rounded up, for a power of two)."""
+        twos = (self.q & -self.q).bit_length() - 1
+        return min(twos, self.q.bit_length() // 2)
 
     @property
     def ql(self) -> int:

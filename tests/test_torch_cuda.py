@@ -6,7 +6,12 @@ static verifier and the sanitizer) and the service losing one card; the LM
 smoke serving path on the card against the CPU, the split route (lines
 longer than one block) and the FFT long-convolution mixer on it at
 S=16384, the radix route's mixed lengths (every one, strided axes, an
-unaligned view), the chirp route and the mixer on it at S=3072, the mixer on the kernel, its gradient through the kernel, and a
+unaligned view), the long-line and split routes' mixed lengths (every
+one, against the plain version and ``torch.fft``) and the mixer on them
+at S=3072 (no chirp call) and S=12288, the power-of-two long-line and
+split lengths bitwise equal to their plain versions, the chirp route at
+the lengths it keeps, the mixer on the kernel, its gradient through the
+kernel, and a
 smoke train step on the card against the CPU; ``[train]``'s 8 layers
 lowering the loss of the batches they trained on; the LM's mesh path on one card (a
 (1, 1) NCCL mesh against no mesh) and on 4 cards (qwen3-8b at 36 layers
@@ -339,12 +344,12 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
-    (torch.complex64, 6144, 3, False, None, True),      # M on long-line
-    (torch.complex64, 6144, 2, True, 4, False),
+    (torch.complex64, 7168, 3, False, None, True),      # M on long-line
+    (torch.complex64, 7168, 2, True, 4, False),
     (torch.complex64, 10007, 2, True, None, True),      # prime, M split
-    (torch.complex64, 24576, 1, False, 2, True),
+    (torch.complex64, 14336, 1, False, 2, True),
     (torch.complex128, 3001, 2, False, None, True),
-    (torch.complex128, 12288, 1, True, 3, False)])
+    (torch.complex128, 7168, 1, True, 7, False)])
 def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
         cuda, dtype, n, b, inverse, parts, use_tw):
     """The chirp route (one chirp call; its two inner transforms' launches
@@ -386,10 +391,12 @@ def split_rows_long(n, dtype) -> int:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [384, 6144])
+@pytest.mark.parametrize("n", [384, 6144, 7168, 24576])
 def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
-    """A contiguous view 8 bytes into its storage, on the radix route at
-    a mixed length and on the chirp route: transformed all the same."""
+    """A contiguous view 8 bytes into its storage, at mixed lengths on the
+    radix, long-line (its row copies are 16-byte aligned: the wrapper
+    clones) and split routes and on the chirp route: transformed all the
+    same."""
     base = torch.from_numpy(cplx((2 * n + 1,), 18)).to(cuda)
     x = base[1:].view(2, n)
     assert x.data_ptr() % 16 == 8
@@ -403,11 +410,11 @@ def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
 
 
 @pytest.mark.cuda
-def test_fft_conv_at_3072_on_the_chirp_route(cuda):
-    """``fft_conv`` at S=3072 (lines of 6144) on the kernel, float32,
-    forward and backward: 3 chirp calls forward and 3 more backward (2
-    long-line launches each), no dense launch and no line copy; the
-    output and every gradient within 1e-4 of ``cufft``'s."""
+def test_fft_conv_at_3072_on_the_long_route(cuda):
+    """``fft_conv`` at S=3072 (lines of 6144, a mixed length) on the
+    kernel, float32, forward and backward: 3 long-line launches forward
+    and 3 more backward, no chirp call, no dense launch and no line copy;
+    the output and every gradient within 1e-4 of ``cufft``'s."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -436,12 +443,132 @@ def test_fft_conv_at_3072_on_the_chirp_route(cuda):
     got = fwd_bwd("kernel")
     torch.cuda.synchronize()
     counts = tfm.launch_counts()
-    assert counts["chirp_calls"] == 6, counts
-    assert counts["launches"] == counts["chirp"] == 12, counts
+    assert counts["chirp_calls"] == 0 and counts["chirp"] == 0, counts
+    assert counts["launches"] == counts["long"] == 6, counts
     assert counts["dense"] == 0 and ops.copies["lines"] == 0
     for g, r in zip(got, ref):
         assert bool(r.abs().max() > 0)
         assert_scaled_close(g.cpu().numpy(), r.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
+        cuda, dtype, inverse):
+    """Every mixed long-line length (complex64 4608-15360, complex128
+    1152-7680): one launch on "long" each, against the plain version
+    (``longline.emulate``) and ``torch.fft`` at the kernel's tolerances,
+    without an epilogue and with both (segments of N/3 or N/5)."""
+    from repro_torch.kernels import longline
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    mixed = [n for n in sorted(longline.FACTORS[dtype])
+             if not radix.is_pow2(n)]
+    assert len(mixed) == (8 if dtype == torch.complex64 else 12)
+    for n in mixed:
+        x = torch.from_numpy(cplx((37, n), n)).to(cuda, dtype)
+        tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
+                       / (2 * n)).to(dtype)
+        parts = 3 if n % 3 == 0 else 5
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+        for t, p in ((None, None), (tw, parts)):
+            tfm.reset_launch_counts()
+            got = tfm.fft_fourstep(x, inverse=inverse, twiddle=t,
+                                   pack_parts=p)
+            torch.cuda.synchronize()
+            assert tfm.fft_fourstep.path_launches["long"] == 1, n
+            assert tfm.fft_fourstep.launches == 1, n
+            want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=t,
+                                          pack_parts=p)
+            ref = lib if t is None else (lib * t).reshape(37, p, n // p)
+            assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+            assert_scaled_close(got.cpu().numpy(), ref.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_cuda_split_mixed_lengths_match_plain_version_and_torch_fft(
+        cuda, dtype):
+    """Every mixed split length (rows on the radix route at a mixed Q, or
+    on the mixed long-line kernel with the transpose at a mixed Q): one
+    split call each, two or three launches on "split", against the plain
+    version (``split.emulate``) and ``torch.fft`` at the kernel's
+    tolerances, both directions by turns, with the twiddle and a segment
+    of N/3 or N/5 by turns."""
+    from repro_torch.kernels import split
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    mixed = [n for n in sorted(split.FACTORS[dtype])
+             if not radix.is_pow2(n)]
+    for i, n in enumerate(mixed):
+        inverse, use_tw = i % 2 == 1, i % 3 == 0
+        parts = (3 if n % 3 == 0 else 5) if i % 2 else None
+        b = max(1, (1 << 24) // (n * dtype.itemsize))
+        x = torch.from_numpy(cplx((b, n), i)).to(cuda, dtype)
+        tw = (torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
+                        / (2 * n)).to(dtype) if use_tw else None)
+        tfm.reset_launch_counts()
+        got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw,
+                               pack_parts=parts)
+        torch.cuda.synchronize()
+        counts = tfm.launch_counts()
+        long_rows = split.split_plan(n, dtype).row_path == "long"
+        assert counts["split_calls"] == 1, n
+        assert counts["launches"] == counts["split"] == 2 + long_rows, n
+        want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=tw,
+                                      pack_parts=parts)
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+        if tw is not None:
+            lib = lib * tw
+        if parts is not None:
+            lib = lib.reshape(b, parts, n // parts)
+        assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+        assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
+        del x, got, want, lib
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [
+    (torch.complex64, 8192), (torch.complex64, 16384),
+    (torch.complex128, 2048), (torch.complex128, 8192),
+    (torch.complex64, 1 << 16), (torch.complex64, 1 << 22),
+    (torch.complex128, 1 << 14), (torch.complex128, 1 << 19)])
+def test_cuda_power_of_two_long_and_split_unchanged(cuda, dtype, n):
+    """The power-of-two long-line and split kernels, whose instantiations
+    the mixed lengths leave as they were, still equal their plain versions
+    bit for bit, both directions."""
+    x = torch.from_numpy(cplx((3, n), 20)).to(cuda, dtype)
+    for inverse in (False, True):
+        got = tfm.fft_fourstep(x, inverse=inverse)
+        want = tfm.fft_fourstep_plain(x, inverse=inverse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (n, inverse)
+
+
+@pytest.mark.cuda
+def test_fft_conv_at_12288_on_the_split_route(cuda):
+    """``fft_conv`` at S=12288 (lines of 24576 = 256 x 96, a mixed Q) on
+    the kernel, float32, forward: 3 split calls of 2 launches, no chirp
+    call and no line copy; the output within 1e-4 of ``cufft``'s."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import ParamBuilder
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(smoke_config("jamba_v0_1_52b"),
+                              ssm_impl="fft_conv", dtype="float32")
+    params = ssm.init_fft_conv(ParamBuilder(0, device=cuda), "ssm", cfg)
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (1, 12288, cfg.d_model)).astype(np.float32)).to(cuda)
+    ref, _ = ssm.fft_conv(params, cfg, None, x, fft_backend="cufft")
+    tfm.reset_launch_counts()
+    ops.copies["lines"] = 0
+    got, _ = ssm.fft_conv(params, cfg, None, x, fft_backend="kernel")
+    torch.cuda.synchronize()
+    counts = tfm.launch_counts()
+    assert counts["split_calls"] == 3 and counts["chirp_calls"] == 0, counts
+    assert counts["launches"] == counts["split"] == 6, counts
+    assert ops.copies["lines"] == 0
+    assert_scaled_close(got.cpu().numpy(), ref.cpu().numpy(), 1e-4)
 
 
 @pytest.mark.cuda

@@ -28,8 +28,10 @@ NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 #: to 3 lines, both directions, each epilogue.
 VARIANTS = [(3, False, False, None), (1, True, True, None),
             (2, False, False, 2), (3, True, True, 4)]
-CASES = [(dtype, n, *v) for dtype, sizes in longline.FACTORS.items()
-         for n in sizes for v in VARIANTS]
+#: The power-of-two lengths (the mixed ones: test_torch_long_mixed_fft.py).
+POW2 = [(dtype, n) for dtype, sizes in longline.FACTORS.items()
+        for n in sizes if radix.is_pow2(n)]
+CASES = [(dtype, n, *v) for dtype, n in POW2 for v in VARIANTS]
 
 
 def _case_id(case):
@@ -126,8 +128,7 @@ def test_wrapper_runs_the_emulation_on_cpu_tensors():
                                               "chirp": 0}
 
 
-@pytest.mark.parametrize("dtype,n", [(d, n) for d, s in
-                                     longline.FACTORS.items() for n in s])
+@pytest.mark.parametrize("dtype,n", POW2)
 def test_long_plan_sizes_fit_a_block(dtype, n):
     """Three factors of at most 32 whose product is N, one RM-value item
     per thread, and a block within the 227 KB of shared memory: two line
@@ -194,7 +195,7 @@ def test_long_constants_are_the_two_level_twiddles(inverse):
 def test_long_plan_rejects_other_lengths():
     for n, dtype in ((4096, torch.complex64), (32768, torch.complex64),
                      (1024, torch.complex128), (16384, torch.complex128),
-                     (12288, torch.complex64)):
+                     (14336, torch.complex64)):
         with pytest.raises(ValueError, match="long route takes N"):
             longline.long_plan(n, dtype)
 

@@ -1,0 +1,322 @@
+"""The long-line route at the mixed lengths r*2^k, r in {3, 5, 9, 15}
+(``kernels/longline.py``, ``csrc/fft_long.cuh``'s ``long_mixed_kernel``):
+complex64 N of 4608 to 15360 and complex128 N of 1152 to 7680, whose
+line fits one block.  Their plan (one mixed factor R1 on the radix
+route's mixed chain, R2 and R3 powers of two, N / lcm(R1, R2, R3)
+threads, every pass in place, item by item) runs in torch in
+``longline.emulate`` (the kernel's plain version, which the wrapper runs
+for CPU tensors); it is held against ``np.fft`` at every length (both
+directions, the twiddle and ``pack_parts`` epilogues) and against the JAX
+package's Pallas kernel in interpret mode on the same numpy inputs at one
+length per odd part and dtype, at the reference's tolerances
+(``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
+complex128).  Then the plan's threads, sizes and tables, the routing of
+every mixed length past the radix route, and ``fft_conv`` at S = 3072
+(lines of 6144) forward and backward against the reference's mixer.  The
+CUDA kernel is tested in ``test_torch_cuda.py`` and ``chip_smoke.py``."""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import fft_matmul as jfm
+from repro_torch.kernels import fft_matmul as tfm
+from repro_torch.kernels import longline, ops, radix
+from torch_harness import assert_scaled_close, pallas_lines_c128
+
+TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
+NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
+MIXED = [(dtype, n) for dtype, sizes in longline.FACTORS.items()
+         for n in sorted(sizes) if not radix.is_pow2(n)]
+#: (batch, inverse, twiddle, pack_parts) per length: both directions,
+#: each epilogue, segments of N/3 or N/5 (the odd part's factor) and N/4.
+VARIANTS = [(3, False, False, None), (1, True, True, None),
+            (2, False, False, "odd"), (2, True, True, 4)]
+CASES = [(dtype, n, b, inv, tw, (3 if n % 3 == 0 else 5)
+          if parts == "odd" else parts)
+         for dtype, n in MIXED for b, inv, tw, parts in VARIANTS]
+#: One length per odd part and dtype held against the Pallas kernel too.
+PALLAS = {torch.complex64: {4608, 5120, 6144, 7680},
+          torch.complex128: {1152, 1280, 3072, 7680}}
+
+
+def _case_id(case):
+    dtype, n, b, inv, tw, parts = case
+    return (f"{str(dtype).removeprefix('torch.')}-{n}-b{b}-"
+            f"{'inv' if inv else 'fwd'}-tw{int(tw)}-p{parts}")
+
+
+def _inputs(case):
+    """(x, twiddle or None) as numpy arrays of the case's dtype."""
+    dtype, n, b, inv, tw, parts = case
+    r = np.random.default_rng(n + 10 * b + int(inv))
+    x = (r.standard_normal((b, n)) + 1j * r.standard_normal((b, n))
+         ).astype(NP[dtype])
+    t = np.exp(-1j * np.pi * np.arange(n) / (2 * n)).astype(NP[dtype]) \
+        if tw else None
+    return x, t
+
+
+def _numpy_ref(case, x, t):
+    dtype, n, b, inv, tw, parts = case
+    y = (np.fft.ifft if inv else np.fft.fft)(x.astype(np.complex128),
+                                             axis=-1)
+    if t is not None:
+        y = t * y
+    return y if parts is None else y.reshape(b, parts, n // parts)
+
+
+@pytest.fixture(scope="module")
+def pallas_c128(tmp_path_factory):
+    """The Pallas kernel's complex128 results (interpret mode under
+    ``jax_enable_x64``, one fresh process for every case)."""
+    cases = {}
+    for case in CASES:
+        if case[0] != torch.complex128 or case[1] not in PALLAS[case[0]]:
+            continue
+        x, t = _inputs(case)
+        cases[_case_id(case).replace("-", "_")] = (x, t, case[3], case[5])
+    return pallas_lines_c128(cases,
+                             str(tmp_path_factory.mktemp("long_mixed_x64")))
+
+
+def _pallas_c64(case, x, t):
+    dtype, n, b, inv, tw, parts = case
+    twp = None if t is None else (jnp.asarray(t.real), jnp.asarray(t.imag))
+    yr, yi = jfm.fft1d_planes(jnp.asarray(x.real), jnp.asarray(x.imag),
+                              inverse=inv, twiddle=twp, pack_parts=parts)
+    assert yr.dtype == jnp.float32
+    return np.asarray(yr) + 1j * np.asarray(yi)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_long_mixed_plan_matches_numpy_and_pallas(case, request):
+    """The plan's plain version, through the wrapper on CPU tensors,
+    against np.fft and (one length per odd part) the Pallas kernel on the
+    same inputs; no launch is counted on the CPU."""
+    dtype, n, b, inv, tw, parts = case
+    assert radix.kernel_path(n, dtype) == "long"
+    x, t = _inputs(case)
+    tfm.reset_launch_counts()
+    got = tfm.fft_fourstep(torch.from_numpy(x), inverse=inv,
+                           twiddle=None if t is None else torch.from_numpy(t),
+                           pack_parts=parts)
+    assert tfm.launch_counts()["launches"] == 0
+    assert got.dtype == dtype
+    want_shape = (b, n) if parts is None else (b, parts, n // parts)
+    assert tuple(got.shape) == want_shape
+    if parts is not None:       # destination-major (p, B, N/p) storage
+        assert got.transpose(0, 1).is_contiguous()
+    got = got.numpy()
+    assert_scaled_close(got, _numpy_ref(case, x, t), TOL[dtype])
+    if n not in PALLAS[dtype]:
+        return
+    if dtype == torch.complex64:
+        pallas = _pallas_c64(case, x, t)
+    else:
+        pallas = request.getfixturevalue("pallas_c128")[
+            _case_id(case).replace("-", "_")]
+    assert pallas.dtype == NP[dtype]
+    assert_scaled_close(got, pallas, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,n", MIXED)
+def test_long_mixed_threads_split_every_pass_evenly(dtype, n):
+    """One mixed factor R1 = r*2^a of at most 32 values, R2 and R3 powers
+    of two of at most 32; N / lcm(R1, R2, R3) threads, so every pass's
+    items (N/R1, N/R2, N/R3 of them) split evenly and every thread holds
+    lcm(R1, R2, R3) values in every pass; one line buffer of R1 rows at a
+    16-byte padded pitch, within the 227 KB of one block."""
+    plan = longline.long_plan(n, dtype)
+    r1, r2, r3 = plan.r1, plan.r2, plan.r3
+    assert plan.mixed and r1 * r2 * r3 == n
+    assert not radix.is_pow2(r1) and r1 <= 32
+    odd = r1 // (r1 & -r1)
+    assert odd in radix.MIXED_ODD
+    assert radix.is_pow2(r2) and radix.is_pow2(r3) and max(r2, r3) <= 32
+    lcm = math.lcm(r1, r2, r3)
+    assert plan.threads == n // lcm and plan.threads >= 16
+    for r in (r1, r2, r3):
+        items = n // r
+        assert items % plan.threads == 0
+        assert items // plan.threads * r == lcm      # values per thread
+    item = dtype.itemsize
+    assert (plan.pitch - r2 * r3) * item == 16
+    assert plan.line_elems == r1 * plan.pitch
+    assert plan.pitch * item % 16 == 0 and r2 * r3 * item % 16 == 0
+    assert plan.table == max(r2, r3)
+    assert plan.const_elems == (r1 * r3 + r1 * r2 + r2 * r3
+                                + plan.table // 2 + r1)
+    tile = longline.long_tile(n, dtype)
+    assert tile.depth == 1
+    assert tile.smem_bytes == longline.smem_bytes(plan, item, 1)
+    assert tile.smem_bytes <= radix.SMEM_MAX_BYTES
+    assert n * item <= 128 << 10        # the power-of-two lines' limit
+
+
+def test_long_mixed_lengths_are_every_r_2k_that_fits():
+    """The table holds every mixed N = r*2^k past the radix route whose
+    line is at most 128 KB: complex64 4608 to 15360, complex128 1152 to
+    7680; 6144 is 24 x 16 x 16 on 128 threads (2 items of radix 24, 3 of
+    radix 16), complex128 1152 18 x 8 x 8."""
+    for dtype, first, last in ((torch.complex64, 4608, 15360),
+                               (torch.complex128, 1152, 7680)):
+        want = sorted(r << k for r in radix.MIXED_ODD for k in range(1, 14)
+                      if (r << k) not in radix.RADIX_SIZES[dtype]
+                      and (r << k) * dtype.itemsize <= 128 << 10)
+        got = sorted(n for n in longline.FACTORS[dtype]
+                     if not radix.is_pow2(n))
+        assert got == want and got[0] == first and got[-1] == last
+    plan = longline.long_plan(6144, torch.complex64)
+    assert (plan.r1, plan.r2, plan.r3, plan.threads) == (24, 16, 16, 128)
+    assert (6144 // 24 // 128, 6144 // 16 // 128) == (2, 3)
+    plan = longline.long_plan(1152, torch.complex128)
+    assert (plan.r1, plan.r2, plan.r3) == (18, 8, 8)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_long_mixed_constants_and_the_codelet_tables(inverse):
+    """TA[k1, m3] * TB[k1, m2] is W_N^(k1*mb), TC[k2, m3] W_(R2*R3)^(k2*m3),
+    W the radix-2 codelets' W_table^j (j < table/2) and the mixed codelet
+    its own W_R1^j (j < R1); the cached device copy is their cast."""
+    n, dtype = 6144, torch.complex64
+    p = longline.long_plan(n, dtype)
+    c = longline.constants(n, dtype, inverse)
+    assert c.dtype == np.complex128 and c.size == p.const_elems
+    ta, tb, tc, w, wm = np.split(c, np.cumsum(
+        [p.r1 * p.r3, p.r1 * p.r2, p.r2 * p.r3, p.table // 2]))
+    sign = 1.0 if inverse else -1.0
+    k1 = np.arange(p.r1)[:, None]
+    mb = np.arange(n // p.r1)
+    full = ta.reshape(p.r1, p.r3)[:, mb % p.r3] \
+        * tb.reshape(p.r1, p.r2)[:, mb // p.r3]
+    np.testing.assert_allclose(full, np.exp(sign * 2j * np.pi * k1 * mb / n),
+                               atol=1e-13)
+    k2 = np.arange(p.r2)[:, None]
+    m3 = np.arange(p.r3)[None, :]
+    np.testing.assert_allclose(
+        tc.reshape(p.r2, p.r3),
+        np.exp(sign * 2j * np.pi * k2 * m3 / (p.r2 * p.r3)), atol=1e-15)
+    np.testing.assert_allclose(
+        w, np.exp(sign * 2j * np.pi * np.arange(p.table // 2) / p.table),
+        atol=1e-15)
+    np.testing.assert_allclose(
+        wm, np.exp(sign * 2j * np.pi * np.arange(p.r1) / p.r1), atol=1e-15)
+    # the kernel reads the mixed codelets' sign from W_R1^1
+    assert (wm[1].imag > 0) == inverse
+    dev = tfm._long_constants(n, inverse, dtype, torch.device("cpu"))
+    assert torch.equal(dev, torch.from_numpy(c).to(dtype))
+
+
+def test_wrapper_runs_the_mixed_emulation_on_cpu_tensors():
+    """For a mixed long N the CPU wrapper's result is ``longline.emulate``'s,
+    bit for bit, and the unscaled inverse (the split route's pass B) is
+    the scaled one times N; the counters stay at 0."""
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 6144)).astype(np.complex64))
+    tfm.reset_launch_counts()
+    assert torch.equal(tfm.fft_fourstep(x, inverse=True),
+                       longline.emulate(x, inverse=True))
+    packed = tfm.fft_fourstep(x, pack_parts=3)
+    assert torch.equal(packed.transpose(0, 1),
+                       longline.emulate(x, pack_parts=3))
+    assert_scaled_close(longline.emulate(x, inverse=True, scaled=False)
+                        .numpy() / 6144,
+                        longline.emulate(x, inverse=True).numpy(), 1e-7)
+    assert tfm.launch_counts()["launches"] == 0
+
+
+def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
+    """``radix.kernel_path``: every complex64 r*2^k from 4608 to 16384 and
+    every complex128 one from 1152 to 8192 is "long", every longer one up
+    to the split route's limits (2^24, 2^22) "split"; none is "chirp" or
+    "dense"; a prime and 7*2^k past one block stay "chirp"."""
+    for dtype, (lo, hi, top) in {
+            torch.complex64: (4608, 16384, 1 << 24),
+            torch.complex128: (1152, 8192, 1 << 22)}.items():
+        for r in radix.MIXED_ODD:
+            for k in range(1, 25):
+                n = r << k
+                if n < lo or n > top:
+                    continue
+                want = "long" if n <= hi else "split"
+                assert radix.kernel_path(n, dtype) == want, (n, dtype)
+    for n, dtype in ((7168, torch.complex64), (10007, torch.complex64),
+                     (3584, torch.complex128), (3001, torch.complex128)):
+        assert radix.kernel_path(n, dtype) == "chirp"
+
+
+def test_mixed_long_lines_along_any_axis_and_their_gradient():
+    """``ops.fft1d`` on a mixed long N: contiguous lines in place, a
+    strided axis copied contiguous first (``ops.copies``); the
+    transform's gradient (``LineTransform``, the adjoint on the same
+    route) against ``torch.fft``'s, both directions."""
+    n = 6144
+    r = np.random.default_rng(6)
+    x = (r.standard_normal((2, n, 3)) + 1j * r.standard_normal(
+        (2, n, 3))).astype(np.complex64)
+    ops.copies["lines"] = 0
+    got = ops.fft1d(torch.from_numpy(x), 1)
+    assert ops.copies["lines"] == 1
+    assert_scaled_close(got.numpy(), np.fft.fft(x, axis=1), 5e-6)
+    lines = torch.from_numpy(np.ascontiguousarray(x[:, :, 0]))
+    got = ops.ifft1d(lines, -1)
+    assert ops.copies["lines"] == 1
+    assert_scaled_close(got.numpy(), np.fft.ifft(x[:, :, 0], axis=-1), 5e-6)
+    g = torch.from_numpy(r.standard_normal((2, n)).astype(np.complex64))
+    for fns in ((ops.fft1d, torch.fft.fft), (ops.ifft1d, torch.fft.ifft)):
+        grads = []
+        for fn in fns:
+            xx = lines.clone().requires_grad_(True)
+            (fn(xx) * g).real.sum().backward()
+            grads.append(xx.grad.numpy())
+        assert_scaled_close(grads[0], grads[1], 5e-6)
+
+
+def test_fft_conv_at_3072_takes_the_long_route_and_matches_reference():
+    """``fft_conv`` at S=3072 (lines of 6144, the long-line route) with 8
+    channels on the kernel backend's plain version against the
+    reference's mixer, float32: the output, and the gradients of w_in,
+    basis_w, decay, w_out and the input against ``jax.grad`` of the
+    reference's ``fft_backend="xla"``."""
+    from lm_parity import F32_TOL, f32, jax_init, port_module, randn, \
+        scaled_err, tt
+    from repro.configs import smoke_config as ref_smoke_config
+    from repro.distributed.sharding import MeshRules
+    from repro.models import ssm as ref_ssm
+    from repro_torch.models import ssm
+
+    cfg = f32(dataclasses.replace(ref_smoke_config("jamba_v0_1_52b"),
+                                  ssm_impl="fft_conv", d_model=4, expand=2))
+    tree, ref_p = jax_init(ref_ssm.init_fft_conv, cfg, "ssm", seed=3)
+    p = port_module(ssm.init_fft_conv, tree, "ssm", cfg)
+    assert p.basis_w.shape[0] == 8                  # 8 channels
+    s = 3072
+    assert radix.kernel_path(2 * s, torch.complex64) == "long"
+    x = randn((1, s, cfg.d_model), 11)
+    r = randn((1, s, cfg.d_model), 12)
+    y_ref, _ = ref_ssm.fft_conv(ref_p, cfg, MeshRules(), jnp.asarray(x))
+
+    def ref_loss(pp, xx):
+        y, _ = ref_ssm.fft_conv(pp, cfg, MeshRules(), xx, fft_backend="xla")
+        return jnp.sum(y * jnp.asarray(r))
+
+    ref_gp, ref_gx = jax.grad(ref_loss, argnums=(0, 1))(ref_p,
+                                                        jnp.asarray(x))
+    tfm.reset_launch_counts()
+    p.requires_grad_(True)
+    xt = tt(x).requires_grad_(True)
+    y, _ = ssm.fft_conv(p, cfg, None, xt, fft_backend="kernel")
+    assert scaled_err(y, y_ref) < F32_TOL
+    (y * tt(r)).sum().backward()
+    counts = tfm.launch_counts()                     # plain version on CPU
+    assert counts["launches"] == 0 and counts["chirp_calls"] == 0
+    for name in ("w_in", "basis_w", "decay", "w_out"):
+        g = getattr(p, name).grad
+        assert g is not None and bool(g.abs().max() > 0), name
+        assert scaled_err(g, ref_gp[name]) < F32_TOL, name
+    assert scaled_err(xt.grad, ref_gx) < F32_TOL

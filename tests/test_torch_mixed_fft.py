@@ -183,7 +183,9 @@ def test_mixed_sizes_tables_and_tiles():
     """35 mixed complex64 lengths to 3840 and 27 complex128 to 960, every
     codelet at most 64 (complex64) or 32 (complex128) long; each codelet
     has its own table (N2 + N1 entries); the tile's lines are a power of
-    two; the split route's factors stay powers of two."""
+    two; the split route's P stays a power of two (its pass A), and its Q
+    is a power of two or a mixed length of the radix or long-line route
+    (its pass B)."""
     for dtype, count, cap in ((torch.complex64, 35, 64),
                               (torch.complex128, 27, 32)):
         mixed = [n for n in radix.RADIX_SIZES[dtype]
@@ -203,9 +205,13 @@ def test_mixed_sizes_tables_and_tiles():
             assert tile.lines * n1 <= radix.THREADS
     for dtype, table in split.FACTORS.items():
         for n, (p, q) in table.items():
-            assert radix.is_pow2(p) and radix.is_pow2(q)
-        for n in split.COLUMN_SIZES[dtype] + split.ROW_SIZES[dtype]:
+            assert radix.is_pow2(p)
+            assert radix.is_pow2(q) == radix.is_pow2(n)
+            assert radix.kernel_path(q, dtype) in ("radix", "long")
+        for n in split.COLUMN_SIZES[dtype]:
             assert radix.is_pow2(n)
+        for n in split.ROW_SIZES[dtype]:
+            assert n in radix.RADIX_SIZES[dtype]
     # 384 = 16 * 24: N1 does not divide N2, so the tables are separate
     w = radix.codelet_table(384, True)
     assert_scaled_close(w[:24], np.exp(2j * np.pi * np.arange(24) / 24),
