@@ -20,7 +20,7 @@ its result line):
    and split length of both dtypes (the long and split ones, powers of two
    and mixed lengths, with both epilogues, also against ``torch.fft``),
    every mixed radix length of
-   both dtypes (r*2^k, r in {3, 5, 9, 15}: both directions, both
+   both dtypes (r*2^k, r in {3, 5, 7, 9, 11, 15}: both directions, both
    epilogues, a ``pack_parts`` segment that is not a power of two, also
    against ``torch.fft``), chirp lengths of both inner routes, and
    strided ``(outer, N, inner)`` blocks through ``fft_fourstep_strided``
@@ -114,7 +114,7 @@ its result line):
 17. ``[long]``: the long-line kernel at the mixer's (8192, 8192)
     complex64 lines against its plain version and ``torch.fft``, timed
     beside its bound; the other long lengths of both dtypes at 512 MB; the dense kernel at (262144,
-    448), a length no other route takes; each reached once through
+    416), a length no other route takes; each reached once through
     ``ops.fft1d`` (one launch on its path); then ``[split]``: the split route (lines beyond one block,
     N = P*Q in two launches through HBM, three with rows on the
     long-line route) at complex64 N = 2^15, 2^16, 2^20, 2^24 and
@@ -125,35 +125,40 @@ its result line):
     ``[split_plan]``: a ``plan_fft`` C2C plan of (64, 64, 32768)
     complex64 on the kernel against ``fftn``, launches per path and line
     copies recorded; ``[mixed]``: the radix route at mixed lengths,
-    (262144, 384) complex64 and one length per odd part and dtype at 512
-    MB, each once through ``ops.fft1d`` (one radix launch), against its
-    plain version and ``torch.fft``, timed beside ``torch.fft`` and the
-    bound; ``[mixed_plan]``: ``plan_fft`` C2C at 384^3 complex64 on the
-    kernel, 3 radix launches per direction (2 strided), 0 dense, 0 line
-    copies, against ``fftn`` and the round trip, ms per direction beside
-    ``fftn``, a ``cufft`` plan and the bound; the PPB solve at 384^3
-    against the ``cufft`` backend's, 8 radix launches; ``[long_mixed]``:
-    the long-line route at every mixed length of both dtypes (complex64
-    4608-15360, complex128 1152-7680), 512 MB each, once through
-    ``ops.fft1d`` (one "long" launch), against its plain version and
+    (262144, 384) and (262144, 448) complex64 and one length per odd part
+    (3, 5, 7, 9, 11, 15) and dtype at 512 MB, each once through
+    ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft`` and the bound;
+    ``[mixed_plan]``: ``plan_fft`` C2C at 384^3 and 448^3 complex64 on
+    the kernel, 3 radix launches per direction (2 strided), 0 dense, 0
+    chirp, 0 line copies, against ``fftn`` and the round trip, ms per
+    direction beside ``fftn``, a ``cufft`` plan and the bound; the PPB
+    solve at 384^3 against the ``cufft`` backend's, 8 radix launches;
+    ``[long_mixed]``: the long-line route at every mixed length of both
+    dtypes (complex64 4608-15360, complex128 1152-7680), 512 MB each,
+    once through ``ops.fft1d`` (one "long" launch), against its plain
+    version and ``torch.fft``, timed beside ``torch.fft`` and the bound,
+    then the four lengths the radix-7 and radix-11 codelets took off the
+    chirp route at 256 MB beside their chirp time;
     ``[split_mixed]``: the split route at mixed lengths (complex64 24576,
-    49152, 98304, 3*2^21, 15*2^19; complex128 12288, 24576, 9*2^15), 512
-    MB each, likewise (one split call); ``[mixed_long_plan]``:
+    49152, 98304, 3*2^21, 15*2^19 and the shortest and longest 7*2^k and
+    11*2^k; complex128 12288, 24576, 9*2^15 and likewise), 512 MB each,
+    likewise (one split call); ``[mixed_long_plan]``:
     ``plan_fft`` C2C of (128, 128, 6144) complex64 on the kernel against
     ``fftn`` and the round trip, the 6144 axis on the long-line route, no
     dense or chirp launch, no copy, ms beside ``fftn`` and a ``cufft``
     plan; ``[chirp]``: the chirp route (Bluestein over two transforms of
     M on the long-line or split route) at lengths no other route takes,
-    complex64 7168, 10007, 14336, 11264 and complex128 3001, 3584, 256 MB
+    complex64 6656, 10007, 13312 and complex128 3001, 3328, 6656, 256 MB
     each, once through ``ops.fft1d`` (one chirp call, its launches on
     "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
     timed beside ``torch.fft`` and the bound, the glue's ms apart; then
     ``[lm_fftconv]``: the FFT long-convolution mixer at jamba-v0.1-52b's
-    width (8192 channels), B=1, S=2048, 3072, 4096, 8192, 12288, 16384 and
-    32768: ``fft_backend="kernel"`` within 1e-4 of ``"cufft"`` in float32
-    with the launches of 3 transforms of lines of 2S per call on their
-    path (radix, long, long, long, split, split, split: a split transform
+    width (8192 channels), B=1, S=2048, 3072, 3584, 4096, 8192, 12288,
+    16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of ``"cufft"``
+    in float32 with the launches of 3 transforms of lines of 2S per call
+    on their path (radix, long, long, long, long, split, split, split: a
+    split transform
     is 2 launches, one strided), none on another path (no chirp call), and
     no line copy; the
     mixer's and its 3 transforms' ms on both backends beside the
@@ -361,7 +366,7 @@ def phase_build(timer=time.perf_counter) -> dict:
         from repro_torch.kernels import longline, radix, split
         plain = sum(len(sizes) for sizes in radix.RADIX_SIZES.values())
         want = plain + sum(len(split.COLUMN_SIZES[d]) + len(split.ROW_SIZES[d])
-                           for d in split.COLUMN_SIZES)    # 83 + 41
+                           for d in split.COLUMN_SIZES)
         check(len(radix_entries) == want, f"{len(radix_entries)} radix "
               f"instantiations in the ptxas report, expected {want} "
               f"({plain} plain: 21 powers of two and the mixed lengths; "
@@ -369,7 +374,7 @@ def phase_build(timer=time.perf_counter) -> dict:
         want = sum(len(sizes) for sizes in longline.FACTORS.values())
         check(len(long_entries) == want, f"{len(long_entries)} long-line "
               f"instantiations in the ptxas report, expected {want} (5 "
-              f"powers of two, 20 mixed lengths)")
+              f"powers of two, the rest mixed lengths)")
         check(len(split_entries) == 4, f"{len(split_entries)} split "
               f"transpose instantiations in the ptxas report, expected 4 "
               f"(a power-of-two and a mixed Q per dtype)")
@@ -451,7 +456,7 @@ def kernel_cases():
     cases.append((2, 1 << 15, False, None, True, c64, "x"))
     # the mixed radix lengths: every one of both dtypes, both directions,
     # each epilogue (a pack_parts segment that is not a power of two where
-    # 3 divides N)
+    # 3 divides N); r = 7 and 11 included
     from repro_torch.kernels import radix
     for dtype, sizes in radix.RADIX_SIZES.items():
         dt = str(dtype).removeprefix("torch.")
@@ -463,12 +468,12 @@ def kernel_cases():
     cases.append((37, 384, True, None, True, c64, "x"))
     # the chirp route: lengths of both inner routes, both dtypes,
     # directions and epilogues
-    for b, n, inv, parts, tw, dt in ((2, 7168, False, None, True, c64),
-                                     (3, 7168, True, 2, False, c64),
+    for b, n, inv, parts, tw, dt in ((2, 6656, False, None, True, c64),
+                                     (3, 6656, True, 2, False, c64),
                                      (1, 10007, True, None, True, c64),
-                                     (1, 14336, False, 4, True, c64),
+                                     (1, 13312, False, 4, True, c64),
                                      (2, 3001, False, None, True, c128),
-                                     (1, 14336, True, 7, False, c128)):
+                                     (1, 6656, True, 13, False, c128)):
         cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
 
@@ -2073,7 +2078,8 @@ def phase_lm_archs(device, steps: int = 3, b: int = 2, s: int = 32) -> dict:
 
 
 def phase_lm_fftconv(device, b: int = 1,
-                     seqs=(2048, 3072, 4096, 8192, 12288, 16384, 32768),
+                     seqs=(2048, 3072, 3584, 4096, 8192, 12288, 16384,
+                           32768),
                      iters: int = 10) -> dict:
     """``[lm_fftconv]``: ``ssm.fft_conv`` at jamba-v0.1-52b's width (d_model
     4096, expand 2: 8192 channels, 16 basis functions), B=1, in float32 and
@@ -2082,8 +2088,8 @@ def phase_lm_fftconv(device, b: int = 1,
     with the counts of 3 transforms of lines of 2S per call (the counts
     set to 0 just before the call and read just after;
     ``expected_counts``): 3 launches on the path ``radix.kernel_path``
-    names (radix at S=2048, long at S=3072 (lines of 6144, a mixed length),
-    4096 and 8192), on lines; at S=12288 (lines of 24576 = 256 x 96), 16384
+    names (radix at S=2048, long at S=3072 and 3584 (lines of 6144 and
+    7168, mixed lengths of r = 3 and 7), 4096 and 8192), on lines; at S=12288 (lines of 24576 = 256 x 96), 16384
     and 32768 (``prefill_32k``'s S) 3 split calls of 2 launches each on
     the split path (pass A strided, pass B on lines); none on another path
     (no chirp call), and no line copy.  The 3 transforms alone, kernel
@@ -2253,15 +2259,15 @@ def print_lines(phase: str, recs) -> None:
 
 
 def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
-               dense_shape=(262144, 448), iters: int = 10) -> dict:
+               dense_shape=(262144, 416), iters: int = 10) -> dict:
     """``[long]``: the long-line kernel at the mixer's shape at S=4096,
     (8192, 8192) complex64, against its plain version (``longline.
     emulate``) and ``torch.fft.fft``, timed beside the HBM bound; every
     other power-of-two long length of both dtypes at 512 MB of lines
     against ``torch.fft`` (``[long_mixed]`` times the mixed ones); and the
     dense
-    kernel at a length no other route takes, (262144, 448) complex64
-    (448 = 7*64: no radix-7 codelet), with its plain version,
+    kernel at a length no other route takes, (262144, 416) complex64
+    (416 = 13*32: no radix-13 codelet), with its plain version,
     ``torch.fft`` and the bound.  Each kernel is reached
     once through ``ops.fft1d`` with the counts set to 0 just before and
     read just after (one launch on its path)."""
@@ -2285,13 +2291,24 @@ def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
         print_lines("long", [out["long"], *out["lengths"], out["dense"]])
     return out
 
+#: (dtype name, N, ms) of the lengths the radix-7 and radix-11 codelets
+#: moved from the chirp route to the long-line route, with their chirp
+#: time at 256 MB of lines on an H100 80GB HBM3 at 700 W (``[chirp]`` of
+#: the parent tree's ``chip_smoke.py``).
+MOVED_FROM_CHIRP = (("complex64", 7168, 1.4799), ("complex64", 14336, 2.3514),
+                    ("complex64", 11264, 2.8983),
+                    ("complex128", 3584, 1.4807))
+
+
 def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
-                     iters: int = 10) -> dict:
+                     moved_bytes: int = 256 << 20, iters: int = 10) -> dict:
     """``[long_mixed]``: the long-line route at every mixed length of both
-    dtypes (N = r*2^k, one mixed factor R1 and N / lcm(R1, R2, R3)
-    threads), about 512 MB of lines each, reached once through
-    ``ops.fft1d`` (one launch on "long"), against its plain version and
-    ``torch.fft``, timed beside ``torch.fft.fft`` and the bound."""
+    dtypes (N = r*2^k, one mixed factor R1, blocks of 128 or 256 threads),
+    about 512 MB of lines each, reached once through ``ops.fft1d`` (one
+    launch on "long"), against its plain version and ``torch.fft``, timed
+    beside ``torch.fft.fft`` and the bound; then the lengths that left the
+    chirp route (``MOVED_FROM_CHIRP``) at the chirp phase's 256 MB, each
+    printed beside its chirp time."""
     import torch
     from repro_torch.kernels import longline
     out = {"lengths": []}
@@ -2307,18 +2324,39 @@ def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
             out["lengths"].append(rec)
             if device.type == "cuda":
                 torch.cuda.empty_cache()
+    out["moved"] = []
+    for dt, n, chirp_ms in MOVED_FROM_CHIRP:
+        dtype = getattr(torch, dt)
+        b = moved_bytes // (n * dtype.itemsize)
+        rec = line_entry(randc((b, n), dtype, device, SEED + 200 + n),
+                         "long_mixed", iters)
+        rec["chirp_ms_before"] = chirp_ms
+        out["moved"].append(rec)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     if device.type == "cuda":
-        print_lines("long_mixed", out["lengths"])
+        print_lines("long_mixed", out["lengths"] + out["moved"])
+        for r in out["moved"]:
+            print(f"[long_mixed] {tuple(r['shape'])} {r['dtype']} left the "
+                  f"chirp route: {r['ms']:.4f} ms on the {r['path']} route "
+                  f"against {r['chirp_ms_before']:.4f} on the chirp "
+                  f"(torch.fft {r['library_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f})")
     return out
 
 
 #: (dtype name, N) of ``[split_mixed]``: the mixer's lines at S = 12288
 #: and the next two lengths of 3*2^k on radix rows, two 2^23-range lengths
-#: on long-line rows; complex128 on radix and on long-line rows.
+#: on long-line rows; complex128 on radix and on long-line rows; then the
+#: shortest and the longest 7*2^k and 11*2^k of each dtype.
 SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
                        ("complex64", 98304), ("complex64", 3 << 21),
                        ("complex64", 15 << 19), ("complex128", 12288),
-                       ("complex128", 24576), ("complex128", 9 << 15))
+                       ("complex128", 24576), ("complex128", 9 << 15),
+                       ("complex64", 7 << 12), ("complex64", 7 << 21),
+                       ("complex64", 11 << 11), ("complex64", 11 << 20),
+                       ("complex128", 7 << 11), ("complex128", 7 << 19),
+                       ("complex128", 11 << 10), ("complex128", 11 << 18))
 
 
 def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
@@ -2348,24 +2386,31 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
 
 
 #: (dtype name, N) of ``[mixed]``'s timings beside (262144, 384)
-#: complex64: one length per odd part r = 3, 5, 9, 15 and per dtype.
+#: complex64: one length per odd part r = 3, 5, 7, 9, 11, 15 and per dtype
+#: (the longest 7*2^k and 11*2^k of each dtype).
 MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex64", 2304), ("complex64", 3840),
                  ("complex128", 768), ("complex128", 640),
-                 ("complex128", 576), ("complex128", 960))
+                 ("complex128", 576), ("complex128", 960),
+                 ("complex64", 3584), ("complex64", 2816),
+                 ("complex128", 896), ("complex128", 704))
 
 
-def phase_mixed(device, shape=(262144, 384), lengths=MIXED_LENGTHS,
-                lengths_bytes: int = 512 << 20, iters: int = 10) -> dict:
+def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
+                lengths=MIXED_LENGTHS, lengths_bytes: int = 512 << 20,
+                iters: int = 10) -> dict:
     """``[mixed]``: the radix route at mixed lengths (N = r*2^k, chains
-    of radix-5, 3, 4 and 2 codelets): (262144, 384) complex64, where the
-    dense route took 3.4354 ms before, and one length per odd part and
-    dtype at about 512 MB of lines, each reached once through
+    of radix-11, 7, 5, 3, 4 and 2 codelets): (262144, 384) complex64,
+    where the dense route took 3.4354 ms before, (262144, 448), where it
+    took 3.4432 before the radix-7 codelet, and one length per odd part
+    and dtype at about 512 MB of lines, each reached once through
     ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft.fft`` and the bound."""
     import torch
     out = {"main": line_entry(randc(shape, torch.complex64, device,
                                     SEED + 70), "mixed", iters),
+           "main7": line_entry(randc(shape7, torch.complex64, device,
+                                     SEED + 69), "mixed", iters),
            "lengths": []}
     for i, (dt, n) in enumerate(lengths):
         dtype = getattr(torch, dt)
@@ -2374,21 +2419,22 @@ def phase_mixed(device, shape=(262144, 384), lengths=MIXED_LENGTHS,
             randc((b, n), dtype, device, SEED + 71 + i), "mixed", iters))
     if device.type == "cuda":
         torch.cuda.empty_cache()
-        print_lines("mixed", [out["main"], *out["lengths"]])
+        print_lines("mixed", [out["main"], out["main7"], *out["lengths"]])
     return out
 
 
-def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5) -> dict:
+def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
+                     poisson: bool = True) -> dict:
     """``[mixed_plan]``: the main path at a mixed grid.  ``plan_fft`` C2C
-    of 384^3 complex64 (453 MB) on ``backend="kernel"``: forward against
-    ``fftn`` (``PATH_TOL``) and the round trip (``ROUNDTRIP_TOL``), with
-    exactly 3 radix launches per direction (2 on the strided entry), 0
-    dense, 0 line copies, a contiguous result; CUDA-event ms per
-    direction beside ``fftn``, a ``cufft``-backend plan and the bound
-    (three stages, each reading and writing the grid once).  Then the
-    PPB Poisson solve at 384^3 float32 on the kernel against the
-    ``cufft`` backend's (``PATH_TOL``), all its launches on the radix
-    route, timed on both."""
+    of 384^3 complex64 (453 MB; 448^3, 719 MB, for the radix-7 codelets)
+    on ``backend="kernel"``: forward against ``fftn`` (``PATH_TOL``) and
+    the round trip (``ROUNDTRIP_TOL``), with exactly 3 radix launches per
+    direction (2 on the strided entry), 0 dense, 0 chirp, 0 line copies, a
+    contiguous result; CUDA-event ms per direction beside ``fftn``, a
+    ``cufft``-backend plan and the bound (three stages, each reading and
+    writing the grid once).  Then, with ``poisson``, the PPB Poisson solve
+    at the grid in float32 on the kernel against the ``cufft`` backend's
+    (``PATH_TOL``), all its launches on the radix route, timed on both."""
     import torch
     from repro_torch import PoissonSolver, make_mesh, plan_fft
     cuda = device.type == "cuda"
@@ -2419,13 +2465,33 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5) -> dict:
     if cuda:
         for key, c in (("forward", fwd), ("inverse", inv)):
             check(c["launches"] == 3 and c["radix"] == 3 and c["dense"] == 0
-                  and c["strided"] == 2 and c["copies"] == 0,
-                  f"[mixed_plan] {key}: counts {c}, expected 3 radix "
-                  f"launches (2 strided), no dense launch, no line copy")
+                  and c["chirp"] == 0 and c["strided"] == 2
+                  and c["copies"] == 0,
+                  f"[mixed_plan] {grid} {key}: counts {c}, expected 3 "
+                  f"radix launches (2 strided), no dense or chirp launch, "
+                  f"no line copy")
         check(out["contiguous"], "[mixed_plan] forward result not "
               "contiguous")
     stage, by = fft_bound_ms(x.numel() // grid[-1], grid[-1], 8)
     out.update(bound_ms=3 * stage, bound_by=by)
+    if cuda:
+        cplan = plan_fft(mesh, grid, backend="cufft")
+        out.update(
+            kernel_fwd_ms=time_ms(lambda: plan.forward(x), iters),
+            kernel_inv_ms=time_ms(lambda: plan.inverse(y, sharded_in=True),
+                                  iters),
+            cufft_fwd_ms=time_ms(lambda: cplan.forward(x), iters),
+            fftn_ms=time_ms(lambda: torch.fft.fftn(x), iters))
+        print(f"[mixed_plan] grid {grid} complex64 on the kernel: forward vs "
+              f"fftn {out['err_fwd']:.3e}, round trip "
+              f"{out['err_roundtrip']:.3e}; launches forward {fwd}, inverse "
+              f"{inv}; ms forward {out['kernel_fwd_ms']:.4f}, inverse "
+              f"{out['kernel_inv_ms']:.4f}, cufft plan "
+              f"{out['cufft_fwd_ms']:.4f}, fftn {out['fftn_ms']:.4f}, bound "
+              f"{out['bound_ms']:.4f} ({by})")
+    del y
+    if not poisson:
+        return out
     topo = ("periodic", "periodic", "bounded")
     solver = PoissonSolver(mesh, grid, topology=topo, backend="kernel")
     csolver = PoissonSolver(mesh, grid, topology=topo, backend="cufft")
@@ -2445,35 +2511,22 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5) -> dict:
         check(pc["launches"] == pc["radix"] == 8 and pc["copies"] == 0,
               f"[mixed_plan] PPB solve: counts {pc}, expected 8 radix "
               f"launches and no line copy")
-        cplan = plan_fft(mesh, grid, backend="cufft")
-        out.update(
-            kernel_fwd_ms=time_ms(lambda: plan.forward(x), iters),
-            kernel_inv_ms=time_ms(lambda: plan.inverse(y, sharded_in=True),
-                                  iters),
-            cufft_fwd_ms=time_ms(lambda: cplan.forward(x), iters),
-            fftn_ms=time_ms(lambda: torch.fft.fftn(x), iters),
-            solve_kernel_ms=time_ms(lambda: solver(rhs), iters),
-            solve_cufft_ms=time_ms(lambda: csolver(rhs), iters))
-        print(f"[mixed_plan] grid {grid} complex64 on the kernel: forward vs "
-              f"fftn {out['err_fwd']:.3e}, round trip "
-              f"{out['err_roundtrip']:.3e}; launches forward {fwd}, inverse "
-              f"{inv}; ms forward {out['kernel_fwd_ms']:.4f}, inverse "
-              f"{out['kernel_inv_ms']:.4f}, cufft plan "
-              f"{out['cufft_fwd_ms']:.4f}, fftn {out['fftn_ms']:.4f}, bound "
-              f"{out['bound_ms']:.4f} ({by}); PPB solve vs cufft "
+        out.update(solve_kernel_ms=time_ms(lambda: solver(rhs), iters),
+                   solve_cufft_ms=time_ms(lambda: csolver(rhs), iters))
+        print(f"[mixed_plan] PPB solve at {grid} vs cufft "
               f"{out['poisson_err']:.3e}, launches {pc}, ms kernel "
               f"{out['solve_kernel_ms']:.4f} / cufft "
               f"{out['solve_cufft_ms']:.4f}")
-    del x, y, phi, rhs
+    del x, phi, rhs
     return out
 
 
-#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 7*2^k
-#: and 11*2^k whose M takes the long-line and the split route, a prime
-#: past one block; complex128 likewise.
-CHIRP_LENGTHS = (("complex64", 7168), ("complex64", 10007),
-                 ("complex64", 14336), ("complex64", 11264),
-                 ("complex128", 3001), ("complex128", 3584))
+#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 13*2^k
+#: whose M takes the long-line and the split route, a prime past one
+#: block; complex128 likewise.
+CHIRP_LENGTHS = (("complex64", 6656), ("complex64", 10007),
+                 ("complex64", 13312), ("complex128", 3001),
+                 ("complex128", 3328), ("complex128", 6656))
 
 
 def phase_chirp(device, lengths=CHIRP_LENGTHS,
@@ -3205,6 +3258,9 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["mixed_plan"] = mixed_plan = phase_mixed_plan(device)
     torch.cuda.empty_cache()
+    report["mixed_plan_448"] = mixed_plan7 = phase_mixed_plan(
+        device, grid=(448, 448, 448), poisson=False)
+    torch.cuda.empty_cache()
     report["long_mixed"] = long_mixed = phase_long_mixed(device)
     torch.cuda.empty_cache()
     report["split_mixed"] = split_mixed = phase_split_mixed(device)
@@ -3306,7 +3362,7 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "lm_fftconv_8192": mixer_runs[8192]["float32"]["counts"]["long"],
              "train_fftconv_4096": train_long["counts"]["long"]}},
-        # launches: one ops.fft1d call at (262144, 448)
+        # launches: one ops.fft1d call at (262144, 416)
         {"name": "fft_fourstep_dense", "route": "cuda",
          "source": KERNEL_SOURCE, "path": "dense",
          "replaces": "src/repro/kernels/fft_matmul.py:216",
@@ -3349,9 +3405,10 @@ def main(timer=time.perf_counter) -> int:
          "library_ms": mixed["main"]["library_ms"],
          "launches_by_path": {
              "mixed_plan_inverse": mixed_plan["inverse_counts"]["radix"],
-             "mixed_plan_poisson": mixed_plan["poisson_counts"]["radix"]}},
+             "mixed_plan_poisson": mixed_plan["poisson_counts"]["radix"],
+             "mixed_plan_448": mixed_plan7["forward_counts"]["radix"]}},
         # launches: [chirp]'s calls, one ops.fft1d call per length (no
-        # LM path runs the chirp route now); timed at lines of 7168
+        # LM path runs the chirp route now); timed at lines of 6656
         {"name": "fft_fourstep_chirp", "route": "cuda",
          "source": CHIRP_SOURCE, "path": "chirp",
          "sources": [CHIRP_SOURCE, LONG_SOURCE, RADIX_SOURCE],
@@ -3376,6 +3433,7 @@ def main(timer=time.perf_counter) -> int:
          **_timing(long_mixed_6144),
          "launches_by_path": {
              "lm_fftconv_3072": mixer_runs[3072]["float32"]["counts"],
+             "lm_fftconv_3584": mixer_runs[3584]["float32"]["counts"],
              "train_fftconv_3072": train_mixed["counts"]}},
         # launches: the mixer at S=12288, its main path (3 split calls of
         # 2 launches); timed at [split_mixed]'s 512 MB of lines of 24576

@@ -1,8 +1,8 @@
 // The long-line route of the four-step kernel: lines that fit whole in one
 // block's shared memory but not in the radix route's two in-register passes
 // (complex64 N = 8192, 16384; complex128 N = 2048, 4096, 8192; and the
-// mixed N = r*2^k, r in {3, 5, 9, 15}, of complex64 4608 to 15360 and
-// complex128 1152 to 7680), on Hopper.
+// mixed N = r*2^k, r in {3, 5, 7, 9, 11, 15}, of complex64 4608 to 15360
+// and complex128 1152 to 7680), on Hopper.
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -38,14 +38,17 @@
 //    Threads of a warp read consecutive entries of TA and TC and one of TB.
 // Mixed lengths (long_mixed_kernel, below): one factor, R1 = r*2^a, runs
 // the radix route's mixed chain (codelet, load_slot) on its own table of
-// R1 entries; R2 and R3 are powers of two.  Every pass's items split
-// evenly over N / lcm(R1, R2, R3) threads, as few as 16, so no pass may
-// hold all of a thread's values: the line is copied in R1 rows of N/R1 at
-// a pitch of N/R1 plus 16 bytes (R1 bulk copies on one mbarrier), and each
-// pass transforms one item at a time and stores it where it was read,
-// (k1, m2, m3) then (k1, k2, m3).  Pass 3's reads of consecutive kA then
-// fall R1 rows apart, on distinct banks (complex64 reads two values at
-// once, 16 bytes), and its stores cover consecutive outputs.
+// R1 entries; R2 and R3 are powers of two.  The line is copied in R1 rows
+// of N/R1 at a pitch of N/R1 plus 16 bytes (R1 bulk copies on one
+// mbarrier), and each pass transforms one item at a time and stores it
+// where it was read, (k1, m2, m3) then (k1, k2, m3), so no pass needs its
+// items to split evenly over the threads: the block has a fixed count
+// sized for occupancy (long_mixed_threads: 256 for complex64, 128 or 256
+// for complex128), each pass walks its items in rounds of the block and
+// the last round leaves some threads idle.  A ring of two line buffers
+// where two fit (long_mixed_depth), as long_kernel's.  Pass 3's reads of
+// consecutive kA fall R1 rows apart, on distinct banks (complex64 reads
+// two values at once, 16 bytes), and its stores cover consecutive outputs.
 // kernels/longline.py holds the same plan and index maps in Python
 // (longline.emulate is the kernel's plain version).
 //
@@ -68,6 +71,11 @@
 namespace repro_fft {
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// Dynamic shared memory one block may take (227 KB), and an SM's with
+// what the runtime reserves per block.
+constexpr size_t kLongSmemMax = 232448;
+constexpr size_t kSmemPerSm = 233472, kSmemReserved = 1024;
 
 template <int R1, int R2, int R3>
 struct LongShape {
@@ -97,9 +105,8 @@ __host__ __device__ constexpr size_t long_smem_bytes() {
 // spilled complex128 16x16x16 at 128 registers, and with two blocks too.
 template <typename R, int R1, int R2, int R3, int DEPTH>
 __host__ __device__ constexpr int long_min_blocks() {
-  constexpr size_t kSmemPerSm = 233472, kReserved = 1024;
   constexpr size_t fit =
-      kSmemPerSm / (long_smem_bytes<R, R1, R2, R3, DEPTH>() + kReserved);
+      kSmemPerSm / (long_smem_bytes<R, R1, R2, R3, DEPTH>() + kSmemReserved);
   if (sizeof(R) != sizeof(float)) return 1;
   return fit < 1 ? 1 : (fit > 2 ? 2 : (int)fit);
 }
@@ -346,10 +353,6 @@ int long_launch(Kernel kernel, int threads, size_t layout_bytes,
   return (int)cudaGetLastError();
 }
 
-__host__ __device__ constexpr int cgcd(int a, int b) {
-  return b == 0 ? a : cgcd(b, a % b);
-}
-
 // A mixed length's plan (kernels/longline.py::LongPlan): R1 = r*2^a the
 // mixed factor, R2 and R3 powers of two.
 template <typename R, int R1, int R2, int R3>
@@ -357,24 +360,47 @@ struct LongMixedShape {
   static constexpr int N = R1 * R2 * R3;
   static constexpr int M1 = R2 * R3;          // a row: pass-1 items
   static constexpr int RP = cmax(R2, R3);     // the radix-2 codelets' table
-  static constexpr int LCM = R1 / cgcd(R1, RP) * RP;
-  static constexpr int THREADS = N / LCM;     // every pass splits evenly
-  static constexpr int I1 = M1 / THREADS;     // items per thread, pass 1
-  static constexpr int I2 = R1 * R3 / THREADS;
-  static constexpr int I3 = R1 * R2 / THREADS;
   static constexpr int PITCH = M1 + 16 / (int)sizeof(cpx<R>);
   static constexpr int LINE = R1 * PITCH;
   static constexpr int CONSTS = R1 * R3 + R1 * R2 + R2 * R3 + RP / 2 + R1;
   static_assert(is_pow2(R2) && is_pow2(R3) && !is_pow2(R1), "R1 is mixed");
-  static_assert(I1 * THREADS == M1 && I2 * THREADS == R1 * R3 &&
-                    I3 * THREADS == R1 * R2,
-                "every pass's items split evenly over the threads");
 };
 
-template <typename R, int R1, int R2, int R3>
+// Shared memory of one block: the ring's line buffers, the constants, one
+// mbarrier per buffer (kernels/longline.py::smem_bytes).
+template <typename R, int R1, int R2, int R3, int DEPTH>
 __host__ __device__ constexpr size_t long_mixed_smem_bytes() {
   using S = LongMixedShape<R, R1, R2, R3>;
-  return (size_t)(S::LINE + S::CONSTS) * sizeof(cpx<R>) + sizeof(uint64_t);
+  return (size_t)(DEPTH * S::LINE + S::CONSTS) * sizeof(cpx<R>) +
+         DEPTH * sizeof(uint64_t);
+}
+
+// Two line buffers where they fit in a block's 227 KB, else one
+// (kernels/longline.py::LongPlan.depth).
+template <typename R, int R1, int R2, int R3>
+__host__ __device__ constexpr int long_mixed_depth() {
+  return long_mixed_smem_bytes<R, R1, R2, R3, 2>() <= kLongSmemMax ? 2 : 1;
+}
+
+// Blocks an SM holds by shared memory, at that depth.
+template <typename R, int R1, int R2, int R3>
+__host__ __device__ constexpr int long_mixed_fit() {
+  constexpr int fit = (int)(kSmemPerSm /
+                            (long_mixed_smem_bytes<R, R1, R2, R3,
+                                                   long_mixed_depth<R, R1, R2,
+                                                                    R3>()>() +
+                             kSmemReserved));
+  return fit < 1 ? 1 : fit;
+}
+
+// Threads of a block (kernels/longline.py::LongPlan.threads): 256 for
+// complex64; complex128's codelets take up to 255 registers a thread, so
+// one block of 256 fills an SM's registers: 128 where two blocks share the
+// SM by shared memory (one's copy overlaps the other's passes), else 256.
+template <typename R, int R1, int R2, int R3>
+__host__ __device__ constexpr int long_mixed_threads() {
+  if (sizeof(R) == sizeof(float)) return 256;
+  return long_mixed_fit<R, R1, R2, R3>() >= 2 ? 128 : 256;
 }
 
 // Blocks per SM for the launch bound: as many as shared memory holds, but
@@ -382,12 +408,9 @@ __host__ __device__ constexpr size_t long_mixed_smem_bytes() {
 // (128) or complex128 (255: the radix route's 30x32 takes 180).
 template <typename R, int R1, int R2, int R3>
 __host__ __device__ constexpr int long_mixed_min_blocks() {
-  constexpr size_t kSmemPerSm = 233472, kReserved = 1024;
-  constexpr int fit =
-      (int)(kSmemPerSm / (long_mixed_smem_bytes<R, R1, R2, R3>() + kReserved));
+  constexpr int fit = long_mixed_fit<R, R1, R2, R3>();
   constexpr int regs = sizeof(R) == sizeof(float) ? 128 : 255;
-  constexpr int by_regs =
-      65536 / (LongMixedShape<R, R1, R2, R3>::THREADS * regs);
+  constexpr int by_regs = 65536 / (long_mixed_threads<R, R1, R2, R3>() * regs);
   constexpr int m = fit < by_regs ? fit : by_regs;
   return m < 1 ? 1 : m;
 }
@@ -428,55 +451,64 @@ __device__ __forceinline__ void bulk_load_rows(cpx<R>* dst,
   }
 }
 
-// The mixed lengths' kernel: one line per block, one buffer (the blocks on
-// an SM overlap one another's copies), the grid persistent.  `out` is
+// The mixed lengths' kernel: one line per block at a time, a ring of
+// DEPTH line buffers (long_mixed_depth), the grid persistent.  `out` is
 // (parts, batch, seg) with seg = N/parts; the sign of the mixed codelets'
 // rotations is read from their table (W_R1^1), so that the split route's
 // pass B, launched with inverse = 0 to leave out the 1/N, keeps it.
 template <typename R, int R1, int R2, int R3>
 __global__ void __launch_bounds__(
-    (LongMixedShape<R, R1, R2, R3>::THREADS),
+    (long_mixed_threads<R, R1, R2, R3>()),
     (long_mixed_min_blocks<R, R1, R2, R3>()))
 long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
                   const cpx<R>* __restrict__ consts,
                   const cpx<R>* __restrict__ gtw, long long batch,
                   int inverse, int seg) {
   using S = LongMixedShape<R, R1, R2, R3>;
-  constexpr int N = S::N, T = S::THREADS, M1 = S::M1, RP = S::RP;
+  constexpr int N = S::N, M1 = S::M1, RP = S::RP;
+  constexpr int T = long_mixed_threads<R, R1, R2, R3>();
+  constexpr int DEPTH = long_mixed_depth<R, R1, R2, R3>();
   constexpr int PITCH = S::PITCH, Q = R1 * R2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  cpx<R>* const s = reinterpret_cast<cpx<R>*>(smem_raw);
-  cpx<R>* const ta = s + S::LINE;
+  cpx<R>* const bufs = reinterpret_cast<cpx<R>*>(smem_raw);
+  cpx<R>* const ta = bufs + DEPTH * S::LINE;
   const cpx<R>* const tb = ta + R1 * R3;
   const cpx<R>* const tc = tb + R1 * R2;
   const cpx<R>* const w = tc + R2 * R3;   // W_RP^j, j < RP/2
   const cpx<R>* const wm = w + RP / 2;    // W_R1^j, j < R1
-  uint64_t* const bar = reinterpret_cast<uint64_t*>(ta + S::CONSTS);
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(ta + S::CONSTS);
   const int tid = threadIdx.x;
 
   for (int i = tid; i < S::CONSTS; i += T) ta[i] = consts[i];
   if (tid == 0) {
-    mbar_init(bar, 1);
+    for (int d = 0; d < DEPTH; ++d) mbar_init(&bars[d], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   const long long stride = gridDim.x;
-  if (tid == 0 && blockIdx.x < batch)
-    bulk_load_rows<R, R1, M1, PITCH>(s, x + (long long)blockIdx.x * N, bar);
+  if (tid == 0) {
+    for (int d = 0; d < DEPTH; ++d) {
+      const long long line = blockIdx.x + d * stride;
+      if (line < batch)
+        bulk_load_rows<R, R1, M1, PITCH>(bufs + d * S::LINE, x + line * N,
+                                         &bars[d]);
+    }
+  }
   const R sgn = wm[1].im > R(0) ? R(1) : R(-1);
   constexpr R kInvN = R(1) / R(N);
   const R scale = inverse ? kInvN : R(1);
   // o / seg in fp32, exact for o < N < 2^20 (fft_radix.cuh's plain store)
   const float inv_seg = __fdividef(1.0f, (float)seg);
 
+  int slot = 0;
   unsigned parity = 0;
   for (long long line = blockIdx.x; line < batch; line += stride) {
-    mbar_wait(bar, parity);
+    cpx<R>* const s = bufs + slot * S::LINE;
+    mbar_wait(&bars[slot], parity);
 
     // Pass 1: item mb = m2*R3 + m3 reads (m1, mb), writes (k1, mb).
 #pragma unroll 1
-    for (int i = 0; i < S::I1; ++i) {
-      const int mb = tid + i * T;
+    for (int mb = tid; mb < M1; mb += T) {
       const int m2 = mb / R3, m3 = mb % R3;
       cpx<R> v[R1];
       auto load = [&](auto j) {
@@ -498,8 +530,7 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
 
     // Pass 2: item (k1, m3) reads (k1, m2, m3), writes (k1, k2, m3).
 #pragma unroll 1
-    for (int i = 0; i < S::I2; ++i) {
-      const int item = tid + i * T;
+    for (int item = tid; item < R1 * R3; item += T) {
       const int k1 = item / R3, m3 = item % R3;
       cpx<R>* const col = s + k1 * PITCH + m3;
       cpx<R> v[R2];
@@ -522,8 +553,7 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
     // Pass 3: item kA = k1 + R1*k2 reads (k1, k2, m3) and stores
     // out[kA + Q*k3] with the epilogue.
 #pragma unroll 1
-    for (int i = 0; i < S::I3; ++i) {
-      const int ka = tid + i * T;
+    for (int ka = tid; ka < Q; ka += T) {
       const int k2 = ka / R1, k1 = ka - k2 * R1;
       const cpx<R>* const run = s + k1 * PITCH + k2 * R3;
       cpx<R> v[R3];
@@ -547,20 +577,25 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
       static_for<0, R3>(store);
     }
     // The buffer's generic-proxy reads and writes are ordered before the
-    // bulk copy (async proxy) that overwrites it.
+    // bulk copy (async proxy) that overwrites it with the line DEPTH
+    // strides on.
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    if (tid == 0 && line + stride < batch)
-      bulk_load_rows<R, R1, M1, PITCH>(s, x + (line + stride) * N, bar);
-    parity ^= 1;
+    if (tid == 0) {
+      const long long next = line + DEPTH * stride;
+      if (next < batch)
+        bulk_load_rows<R, R1, M1, PITCH>(s, x + next * N, &bars[slot]);
+    }
+    if (++slot == DEPTH) {
+      slot = 0;
+      parity ^= 1;
+    }
   }
 }
 
 // The ring holds two line buffers where they fit in a block's 227 KB
 // (complex64 8192, complex128 2048 and 4096), else one
 // (kernels/longline.py::long_tile works out the same depth).
-constexpr size_t kLongSmemMax = 232448;
-
 template <typename R, int R1, int R2, int R3>
 constexpr int long_depth() {
   return long_smem_bytes<R, R1, R2, R3, 2>() <= kLongSmemMax ? 2 : 1;
@@ -579,11 +614,11 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
         consts, tw, batch, inverse, seg_arg, smem_bytes, stream);
 #define REPRO_LONG_MIXED_CASE(NN, A, B, C)                                 \
   case NN:                                                                 \
-    return long_launch<R>(long_mixed_kernel<R, A, B, C>,                   \
-                          LongMixedShape<R, A, B, C>::THREADS,             \
-                          long_mixed_smem_bytes<R, A, B, C>(), x, out,     \
-                          consts, tw, batch, inverse, seg_arg, smem_bytes, \
-                          stream);
+    return long_launch<R>(                                                 \
+        long_mixed_kernel<R, A, B, C>, long_mixed_threads<R, A, B, C>(),   \
+        long_mixed_smem_bytes<R, A, B, C,                                  \
+                              long_mixed_depth<R, A, B, C>()>(),           \
+        x, out, consts, tw, batch, inverse, seg_arg, smem_bytes, stream);
   // kernels/longline.py::FACTORS lists the same factors.  seg_arg is the
   // pack_parts segment's log2 for a power of two, its length for a mixed N.
   if constexpr (sizeof(R) == sizeof(float)) {
@@ -598,6 +633,10 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(10240, 20, 16, 32)
       REPRO_LONG_MIXED_CASE(12288, 24, 16, 32)
       REPRO_LONG_MIXED_CASE(15360, 30, 16, 32)
+      REPRO_LONG_MIXED_CASE(5632, 22, 16, 16)
+      REPRO_LONG_MIXED_CASE(7168, 28, 16, 16)
+      REPRO_LONG_MIXED_CASE(11264, 22, 16, 32)
+      REPRO_LONG_MIXED_CASE(14336, 28, 16, 32)
       default:
         break;
     }
@@ -618,6 +657,12 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(5120, 20, 16, 16)
       REPRO_LONG_MIXED_CASE(6144, 24, 16, 16)
       REPRO_LONG_MIXED_CASE(7680, 30, 16, 16)
+      REPRO_LONG_MIXED_CASE(1408, 22, 8, 8)
+      REPRO_LONG_MIXED_CASE(1792, 28, 8, 8)
+      REPRO_LONG_MIXED_CASE(2816, 22, 8, 16)
+      REPRO_LONG_MIXED_CASE(3584, 28, 8, 16)
+      REPRO_LONG_MIXED_CASE(5632, 22, 16, 16)
+      REPRO_LONG_MIXED_CASE(7168, 28, 16, 16)
       default:
         break;
     }

@@ -1,6 +1,6 @@
 // The radix path of the four-step kernel: N = N1*N2 on Hopper, with
 // in-register sub-DFTs, for the powers of two and the mixed lengths
-// r*2^k, r in {3, 5, 9, 15} (kernels/radix.py::RADIX_SIZES).
+// r*2^k, r in {3, 5, 7, 9, 11, 15} (kernels/radix.py::RADIX_SIZES).
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -26,9 +26,10 @@
 //    (kernels/fft_matmul.py::_radix_constants) and kept in shared memory.
 //  * Mixed lengths (384 = 16*24): a codelet whose length is not a power of
 //    two is a mixed-radix decimation in time over a compile-time chain of
-//    radix-5, 3, 4 and 2 butterflies (mixed_radix), loaded in
-//    digit-reversed order (load_slot); the radix-3, 4 and 5 DFTs are
-//    constant rotations with the direction's sign, and the inter-stage
+//    radix-11, 7, 5, 3, 4 and 2 butterflies (mixed_radix), loaded in
+//    digit-reversed order (load_slot); the radix-3, 4, 5, 7 and 11 DFTs
+//    are constant rotations with the direction's sign (7 and 11 in the
+//    symmetric-pair form, dft_odd), and the inter-stage
 //    twiddles come from the codelet's own table of W_L^k, k < L (N1 need
 //    not divide N2, so each codelet has its table: N2 then N1 entries).
 //    The row index splits by a division by the constant N1 or N2 where a
@@ -137,16 +138,23 @@ __host__ __device__ constexpr int exponent(int n, int p) {
 }
 
 // The radix of stage t (the first is t = 0) of a mixed codelet of length
-// L = 2^a 3^b 5^c: the 5s, the 3s, then the 4s and a last 2
-// (kernels/radix.py::radices).
+// L = 2^a 3^b 5^c 7^d 11^e: the 11s, the 7s, the 5s, the 3s, then the 4s
+// and a last 2 (kernels/radix.py::radices).
 __host__ __device__ constexpr int mixed_radix(int L, int t) {
+  const int c11 = exponent(L, 11), c7 = exponent(L, 7);
   const int c5 = exponent(L, 5), c3 = exponent(L, 3), a = exponent(L, 2);
-  return t < c5 ? 5 : t < c5 + c3 ? 3 : t < c5 + c3 + a / 2 ? 4 : 2;
+  return t < c11                        ? 11
+         : t < c11 + c7                 ? 7
+         : t < c11 + c7 + c5            ? 5
+         : t < c11 + c7 + c5 + c3       ? 3
+         : t < c11 + c7 + c5 + c3 + a / 2 ? 4
+                                          : 2;
 }
 
 __host__ __device__ constexpr int mixed_count(int L) {
   const int a = exponent(L, 2);
-  return exponent(L, 5) + exponent(L, 3) + a / 2 + a % 2;
+  return exponent(L, 11) + exponent(L, 7) + exponent(L, 5) + exponent(L, 3) +
+         a / 2 + a % 2;
 }
 
 // The product of the radices of stages 0 .. t-1.
@@ -262,6 +270,86 @@ __device__ __forceinline__ void dft5(cpx<R>& a0, cpx<R>& a1, cpx<R>& a2,
   a3 = csub(e2, f2);
 }
 
+// cos(2*pi*m/P) and sin(2*pi*m/P) for P = 7, 11 and any m, from the
+// literals of m = 1 .. (P-1)/2 by symmetry (kernels/radix.py::_ODD_COS and
+// _ODD_SIN spell the same digits).  Called with constants only, so they
+// fold at compile time.
+__host__ __device__ constexpr double odd_cos(int p, int m) {
+  m %= p;
+  if (m > p / 2) m = p - m;
+  if (p == 7) {
+    return m == 0 ? 1.0
+           : m == 1 ? 0.62348980185873353053
+           : m == 2 ? -0.22252093395631440429
+                    : -0.90096886790241912624;
+  }
+  return m == 0 ? 1.0
+         : m == 1 ? 0.84125353283118116886
+         : m == 2 ? 0.41541501300188642553
+         : m == 3 ? -0.14231483827328514044
+         : m == 4 ? -0.65486073394528506406
+                  : -0.95949297361449738989;
+}
+
+__host__ __device__ constexpr double odd_sin(int p, int m) {
+  m %= p;
+  const double sg = m > p / 2 ? -1.0 : 1.0;
+  if (m > p / 2) m = p - m;
+  if (p == 7) {
+    return sg * (m == 0 ? 0.0
+                 : m == 1 ? 0.78183148246802980871
+                 : m == 2 ? 0.97492791218182360702
+                          : 0.43388373911755812048);
+  }
+  return sg * (m == 0 ? 0.0
+               : m == 1 ? 0.54064081745559758211
+               : m == 2 ? 0.90963199535451837141
+               : m == 3 ? 0.98982144188093273238
+               : m == 4 ? 0.75574957435425828377
+                        : 0.28173255684142969771);
+}
+
+// The P-point DFT (P = 7, 11) of a with W_P = exp(s*2*pi*i/P), in place,
+// in the symmetric-pair form (kernels/radix.py::_dft_odd, the same order
+// of operations): b_j = a_j + a_(P-j), d_j = a_j - a_(P-j) for j < P/2;
+// out 0 = a_0 + sum b; outs k and P-k = e_k +- i*s*f_k with e_k = a_0 +
+// sum_j b_j cos(2*pi*j*k/P) and f_k = sum_j d_j sin(2*pi*j*k/P).
+template <int P, typename R>
+__device__ __forceinline__ void dft_odd(cpx<R> (&a)[P], R s) {
+  constexpr int H = (P - 1) / 2;
+  cpx<R> b[H], d[H];
+  auto pair = [&](auto jj) {
+    constexpr int j = decltype(jj)::value;
+    b[j] = cadd(a[j + 1], a[P - 1 - j]);
+    d[j] = csub(a[j + 1], a[P - 1 - j]);
+  };
+  static_for<0, H>(pair);
+  const cpx<R> a0 = a[0];
+  auto sum = [&](auto jj) { a[0] = cadd(a[0], b[decltype(jj)::value]); };
+  static_for<0, H>(sum);
+  auto out = [&](auto kk) {
+    constexpr int k = decltype(kk)::value + 1;
+    cpx<R> e = a0, f;
+    auto term = [&](auto jj) {
+      constexpr int j = decltype(jj)::value;
+      constexpr R kC = R(odd_cos(P, (j + 1) * k));
+      constexpr R kS = R(odd_sin(P, (j + 1) * k));
+      e = cadd(e, cscale(b[j], kC));
+      const cpx<R> t = cscale(d[j], kS);
+      if constexpr (j == 0) {
+        f = t;
+      } else {
+        f = cadd(f, t);
+      }
+    };
+    static_for<0, H>(term);
+    f = rot(f, s);
+    a[k] = cadd(e, f);
+    a[P - k] = csub(e, f);
+  };
+  static_for<0, H>(out);
+}
+
 // Stage T and the ones after it of a mixed codelet of length L
 // (kernels/radix.py::mixed_codelet): stage T of radix r after stages
 // spanning m does, for every block b of m*r and j < m, the r-point DFT of
@@ -290,12 +378,29 @@ __device__ __forceinline__ void mixed_stages(cpx<R> (&v)[L],
         twiddle_by<2 * j * step>(v[i0 + 2 * m], w);
         twiddle_by<3 * j * step>(v[i0 + 3 * m], w);
         dft4(v[i0], v[i0 + m], v[i0 + 2 * m], v[i0 + 3 * m], s);
-      } else {
+      } else if constexpr (r == 5) {
         twiddle_by<2 * j * step>(v[i0 + 2 * m], w);
         twiddle_by<3 * j * step>(v[i0 + 3 * m], w);
         twiddle_by<4 * j * step>(v[i0 + 4 * m], w);
         dft5(v[i0], v[i0 + m], v[i0 + 2 * m], v[i0 + 3 * m], v[i0 + 4 * m],
              s);
+      } else {
+        // radix 7 or 11: the inputs (input 1 twiddled above) gathered
+        // into an array of constant indices, which stays in registers
+        static_assert(r == 7 || r == 11, "the chain's radices");
+        cpx<R> a[r];
+        auto gather = [&](auto qq) {
+          constexpr int q = decltype(qq)::value;
+          a[q] = v[i0 + q * m];
+          if constexpr (q >= 2) twiddle_by<q * j * step>(a[q], w);
+        };
+        static_for<0, r>(gather);
+        dft_odd<r>(a, s);
+        auto scatter = [&](auto qq) {
+          constexpr int q = decltype(qq)::value;
+          v[i0 + q * m] = a[q];
+        };
+        static_for<0, r>(scatter);
       }
     };
     static_for<0, L / r>(fly);
@@ -672,14 +777,29 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(640, 20, 32)
       REPRO_RADIX_CASE(768, 24, 32)
       REPRO_RADIX_CASE(960, 30, 32)
+      // 7*2^k and 11*2^k
+      REPRO_RADIX_CASE(14, 2, 7)
+      REPRO_RADIX_CASE(28, 4, 7)
+      REPRO_RADIX_CASE(56, 7, 8)
+      REPRO_RADIX_CASE(112, 8, 14)
+      REPRO_RADIX_CASE(224, 14, 16)
+      REPRO_RADIX_CASE(448, 16, 28)
+      REPRO_RADIX_CASE(896, 28, 32)
+      REPRO_RADIX_CASE(44, 4, 11)
+      REPRO_RADIX_CASE(88, 8, 11)
+      REPRO_RADIX_CASE(176, 11, 16)
+      REPRO_RADIX_CASE(352, 16, 22)
+      REPRO_RADIX_CASE(704, 22, 32)
       default:
         break;
     }
     if constexpr (c64) {
       // complex64 only: a codelet of 64 complex128 values would need 256
-      // registers, and ptxas spills the complex128 kernel of N = 2.
+      // registers, and ptxas spills the complex128 kernels of N = 2 and
+      // N = 22 = 2x11 (4 bytes each).
       switch (n) {
         REPRO_RADIX_CASE(2, 1, 2)
+        REPRO_RADIX_CASE(22, 2, 11)
         REPRO_RADIX_CASE(2048, 32, 64)
         REPRO_RADIX_CASE(4096, 64, 64)
         REPRO_RADIX_CASE(1152, 32, 36)
@@ -690,6 +810,10 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(2560, 40, 64)
         REPRO_RADIX_CASE(3072, 48, 64)
         REPRO_RADIX_CASE(3840, 60, 64)
+        REPRO_RADIX_CASE(1408, 32, 44)
+        REPRO_RADIX_CASE(1792, 32, 56)
+        REPRO_RADIX_CASE(2816, 44, 64)
+        REPRO_RADIX_CASE(3584, 56, 64)
         default:
           break;
       }
@@ -731,6 +855,11 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(576, 24, 24)
       REPRO_RADIX_CASE(640, 20, 32)
       REPRO_RADIX_CASE(960, 30, 32)
+      REPRO_RADIX_CASE(176, 11, 16)
+      REPRO_RADIX_CASE(224, 14, 16)
+      REPRO_RADIX_CASE(448, 16, 28)
+      REPRO_RADIX_CASE(704, 22, 32)
+      REPRO_RADIX_CASE(896, 28, 32)
       default:
         break;
     }
@@ -747,6 +876,12 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(1280, 32, 40)
         REPRO_RADIX_CASE(1536, 32, 48)
         REPRO_RADIX_CASE(1920, 40, 48)
+        // 44, not 88: ptxas spills pass B of 8x11 (8 bytes at 48
+        // registers)
+        REPRO_RADIX_CASE(44, 4, 11)
+        REPRO_RADIX_CASE(112, 8, 14)
+        REPRO_RADIX_CASE(1408, 32, 44)
+        REPRO_RADIX_CASE(1792, 32, 56)
         default:
           break;
       }

@@ -4,8 +4,10 @@ layouts and their index maps, in Python.
 Lines too long for the radix route's two in-register passes still fit
 whole in one block's shared memory: the powers of two (complex64 N of
 8192 and 16384, complex128 N of 2048 to 8192) and the mixed lengths
-r*2^k, r in ``radix.MIXED_ODD``, from past ``radix.RADIX_SIZES`` to the
-same 128 KB line (complex64 4608 to 15360, complex128 1152 to 7680).  The
+r*2^k, r in ``radix.MIXED_ODD`` = {3, 5, 7, 9, 11, 15}, from past
+``radix.RADIX_SIZES`` to the same 128 KB line (complex64 4608 to 15360,
+complex128 1152 to 7680).  On the CPU the route runs :func:`emulate`; on
+the card one launch of ``fft_long.cuh``.  The
 kernel (``csrc/fft_long.cuh``) holds one line there and transforms it in
 three passes over N = R1*R2*R3, each an in-register codelet of length at
 most 32 (:data:`FACTORS`).  With the input index m = m1*(R2*R3) + m2*R3 +
@@ -32,19 +34,26 @@ that pass 3 reads consecutive addresses, and pass 3 loads all of them
 before the buffer is released to the next line's copy.
 
 A mixed length has exactly one mixed factor, R1 = r*2^a (the radix
-route's chain of radix-5, 3, 4 and 2 codelets, ``radix.radices``, on its
-own table of R1 entries), and R2, R3 powers of two (radix-2 codelets on a
-table of max(R2, R3)/2 entries).  Its line is copied in R1 rows of N/R1
-with a pitch of N/R1 plus 16 bytes (:attr:`LongPlan.pitch`), and every
-pass runs one item at a time and stores it where it was read, (k1, m2,
-m3) then (k1, k2, m3), so no pass holds more than one codelet: pass 3's
-reads of consecutive kA then fall R1 rows apart, on distinct banks.
+route's chain of radix-11, 7, 5, 3, 4 and 2 codelets, ``radix.radices``,
+on its own table of R1 entries), and R2, R3 powers of two (radix-2
+codelets on a table of max(R2, R3)/2 entries).  Its line is copied in R1
+rows of N/R1 with a pitch of N/R1 plus 16 bytes (:attr:`LongPlan.pitch`),
+and every pass runs one item at a time and stores it where it was read,
+(k1, m2, m3) then (k1, k2, m3), so no pass holds more than one codelet:
+pass 3's reads of consecutive kA then fall R1 rows apart, on distinct
+banks.
 
-The thread count, for both: every pass's items split evenly over the
-threads, so a block has N / lcm(R1, R2, R3) threads and every thread
-holds lcm(R1, R2, R3) values in every pass (:attr:`LongPlan.threads`;
-for 6144 = 24x16x16, 128 threads with 2 items of radix 24 and 3 of radix
-16).
+The thread count (:attr:`LongPlan.threads`).  A power of two: every pass's
+items split evenly, N / RM threads holding RM values each in every pass.
+A mixed length: a fixed count sized for occupancy, not by the factors --
+256 threads for complex64; for complex128, whose codelets take up to 255
+registers a thread, 128 where two blocks share an SM by shared memory and
+256 where one block has it alone.  Each pass walks its items in rounds of
+the block (``item = tid, tid + T, ...``), so the last round leaves some
+threads idle; as every item is stored where it was read, no pass needs an
+even split.  Both take a ring of two line buffers where two fit in one
+block's 227 KB (:attr:`LongPlan.depth`), so the next line's copy overlaps
+this one's passes.
 
 :func:`emulate` runs exactly these passes and index maps in torch; it is
 the kernel's plain version (``fft_matmul.fft_fourstep_plain`` takes it
@@ -54,7 +63,6 @@ package's kernel.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import numpy as np
@@ -67,26 +75,35 @@ from . import radix
 #: in one block's shared memory (``radix.kernel_path`` reads this table).
 #: Codelets of at most 32 values: ptxas keeps 32 complex128 values in
 #: registers (the radix route's 32x32 instantiation does), not 64.  A
-#: mixed length's mixed factor is R1, with as many 2s as 32 allows, so
-#: that the block's N / lcm(R1, R2, R3) threads are as many as they can be.
+#: mixed length's mixed factor is R1, with as many 2s as 32 allows (28 for
+#: 7*2^k, 22 for 11*2^k), so the power-of-two passes are as short as they
+#: can be.
 FACTORS = {
     torch.complex64: {
         8192: (16, 16, 32), 16384: (16, 32, 32),
         4608: (18, 16, 16), 5120: (20, 16, 16), 6144: (24, 16, 16),
         7680: (30, 16, 16), 9216: (18, 16, 32), 10240: (20, 16, 32),
-        12288: (24, 16, 32), 15360: (30, 16, 32)},
+        12288: (24, 16, 32), 15360: (30, 16, 32),
+        5632: (22, 16, 16), 7168: (28, 16, 16), 11264: (22, 16, 32),
+        14336: (28, 16, 32)},
     torch.complex128: {
         2048: (8, 16, 16), 4096: (16, 16, 16), 8192: (16, 16, 32),
         1152: (18, 8, 8), 1280: (20, 8, 8), 1536: (24, 8, 8),
         1920: (30, 8, 8), 2304: (18, 8, 16), 2560: (20, 8, 16),
         3072: (24, 8, 16), 3840: (30, 8, 16), 4608: (18, 16, 16),
-        5120: (20, 16, 16), 6144: (24, 16, 16), 7680: (30, 16, 16)},
+        5120: (20, 16, 16), 6144: (24, 16, 16), 7680: (30, 16, 16),
+        1408: (22, 8, 8), 1792: (28, 8, 8), 2816: (22, 8, 16),
+        3584: (28, 8, 16), 5632: (22, 16, 16), 7168: (28, 16, 16)},
 }
 #: Bytes of one mbarrier.
 _BARRIER_BYTES = 8
 #: A mixed line's row padding: one 16-byte step, so that the bulk copies'
 #: rows stay 16-byte aligned.
 _ROW_PAD_BYTES = 16
+#: Shared memory of one SM and what the runtime reserves per block
+#: (``fft_long.cuh``'s ``kSmemPerSm``, ``kReserved``).
+_SMEM_PER_SM = 233472
+_SMEM_RESERVED = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,11 +130,31 @@ class LongPlan:
         return max(self.r2, self.r3) if self.mixed else self.rmax
 
     @property
+    def depth(self) -> int:
+        """Line buffers in the block's ring: two where they fit in one
+        block's shared memory, else one (``fft_long.cuh``'s
+        ``long_depth`` and ``long_mixed_depth``)."""
+        return 2 if smem_bytes(self, self.itemsize, 2) \
+            <= radix.SMEM_MAX_BYTES else 1
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks an SM holds by shared memory, at :attr:`depth`."""
+        per_block = smem_bytes(self, self.itemsize, self.depth) \
+            + _SMEM_RESERVED
+        return max(1, _SMEM_PER_SM // per_block)
+
+    @property
     def threads(self) -> int:
-        """Threads of one block: N / lcm(R1, R2, R3), so that every pass's
-        items split evenly and each thread holds lcm(R1, R2, R3) values in
-        every pass."""
-        return self.n // math.lcm(self.r1, self.r2, self.r3)
+        """Threads of one block.  A power of two: N / RM, so every pass's
+        items split evenly and each thread holds RM values.  A mixed
+        length: 256, its passes' items walked in rounds of the block; 128
+        for complex128 where two blocks share an SM (one block of 256 at
+        up to 255 registers a thread fills an SM's registers alone)."""
+        if not self.mixed:
+            return self.n // self.rmax
+        return 128 if self.itemsize == 16 and self.blocks_per_sm >= 2 \
+            else 256
 
     @property
     def pitch(self) -> int:
@@ -164,16 +201,11 @@ def smem_bytes(plan: LongPlan, itemsize: int, depth: int) -> int:
 
 
 def long_tile(n: int, dtype: torch.dtype) -> LongTile:
-    """The ring depth and the shared memory of one block.  A power of two
-    takes two line buffers where they fit (the next line loads while this
-    one is transformed), else one.  A mixed N takes one: its blocks are of
-    N / lcm(R1, R2, R3) threads, as few as 16, so a second block on the SM
-    overlaps one block's copy with its compute better than a second
-    buffer does.  ``fft_long.cuh``'s ``long_depth`` works out the same."""
+    """The ring depth and the shared memory of one block: two line buffers
+    where they fit (the next line loads while this one is transformed),
+    else one (:attr:`LongPlan.depth`)."""
     plan = long_plan(n, dtype)
-    depth = 2 if not plan.mixed and smem_bytes(
-        plan, dtype.itemsize, 2) <= radix.SMEM_MAX_BYTES else 1
-    return LongTile(depth, smem_bytes(plan, dtype.itemsize, depth))
+    return LongTile(plan.depth, smem_bytes(plan, dtype.itemsize, plan.depth))
 
 
 def _w(n: int, e: np.ndarray, sign: float) -> np.ndarray:

@@ -3,9 +3,10 @@ holds, as a two-level four-step through HBM.
 
 A line of N = P*Q (:data:`FACTORS`: the powers of two, complex64 N from
 32768 to 2^24 and complex128 from 16384 to 2^22, and the mixed lengths
-r*2^k, r in ``radix.MIXED_ODD``, past the long-line route's up to the
-same limits; P a power of two, a mixed N's odd part in Q) is viewed as
-(P, Q), x[p*Q + q], and
+r*2^k, r in ``radix.MIXED_ODD`` = {3, 5, 7, 9, 11, 15}, past the
+long-line route's up to the same limits; P a power of two, a mixed N's
+odd part in Q, so the radix-7 and radix-11 codelets run in pass B) is
+viewed as (P, Q), x[p*Q + q], and
 transformed by the routes one block holds, in two launches (three with
 rows on the long-line route):
 
@@ -79,6 +80,7 @@ _POW2 = {
 #: MB of lines (PERF.md has the readings): P of 256 or 512 complex64 and
 #: 64 to 512 complex128 mostly, Q on the radix route up to 1920 complex64
 #: and 960 complex128, the longest with their rows on the long-line route.
+#: 11*2^11 complex64 is 512 x 44: pass B of 88 = 8x11 spills in ptxas.
 _MIXED = {
     torch.complex64: (
         (256, 96), (256, 192), (256, 384), (512, 384), (256, 1536),
@@ -89,7 +91,13 @@ _MIXED = {
         (512, 1152), (1024, 1152), (512, 4608), (1024, 4608), (1024, 9216),
         (256, 120), (256, 240), (256, 480), (256, 960), (512, 960),
         (512, 1920), (1024, 1920), (512, 7680), (1024, 7680),
-        (1024, 15360)),
+        (1024, 15360),
+        (256, 112), (256, 224), (256, 448), (512, 448), (512, 896),
+        (512, 1792), (1024, 1792), (512, 7168), (512, 14336),
+        (1024, 14336),
+        (512, 44), (256, 176), (512, 176), (256, 704), (512, 704),
+        (512, 1408), (1024, 1408), (512, 5632), (512, 11264),
+        (1024, 11264)),
     torch.complex128: (
         (64, 192), (128, 192), (64, 768), (128, 768), (256, 768),
         (512, 768), (128, 6144), (256, 6144), (512, 6144),
@@ -98,7 +106,11 @@ _MIXED = {
         (64, 144), (128, 144), (256, 144), (128, 576), (256, 576),
         (512, 576), (256, 2304), (256, 4608), (512, 4608),
         (64, 240), (128, 240), (128, 480), (256, 480), (256, 960),
-        (512, 960), (512, 1920), (512, 3840), (512, 7680)),
+        (512, 960), (512, 1920), (512, 3840), (512, 7680),
+        (64, 224), (128, 224), (128, 448), (256, 448), (256, 896),
+        (64, 7168), (256, 3584), (512, 3584), (512, 7168),
+        (64, 176), (128, 176), (64, 704), (128, 704), (256, 704),
+        (512, 704), (128, 5632), (256, 5632), (512, 5632)),
 }
 #: (P, Q) per length and complex dtype: both tables.
 FACTORS = {dtype: {**_POW2[dtype], **{p * q: (p, q) for p, q in pairs}}

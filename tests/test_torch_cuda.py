@@ -293,13 +293,13 @@ def test_fft_conv_at_16384_on_the_split_route(cuda):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cuda_mixed_radix_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
-    """Every mixed radix length (N = r*2^k, r in {3, 5, 9, 15}): one radix
+    """Every mixed radix length (N = r*2^k, r in {3, 5, 7, 9, 11, 15}): one radix
     launch each, against the plain version and ``torch.fft`` at the
     kernel's tolerances, without an epilogue and with both (a pack_parts
     segment that is not a power of two where 3 divides N)."""
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in radix.RADIX_SIZES[dtype] if not radix.is_pow2(n)]
-    assert len(mixed) == (35 if dtype == torch.complex64 else 27)
+    assert len(mixed) == (52 if dtype == torch.complex64 else 39)
     for n in mixed:
         x = torch.from_numpy(cplx((21, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
@@ -344,12 +344,12 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
-    (torch.complex64, 7168, 3, False, None, True),      # M on long-line
-    (torch.complex64, 7168, 2, True, 4, False),
+    (torch.complex64, 6656, 3, False, None, True),      # M on long-line
+    (torch.complex64, 6656, 2, True, 4, False),
     (torch.complex64, 10007, 2, True, None, True),      # prime, M split
-    (torch.complex64, 14336, 1, False, 2, True),
+    (torch.complex64, 13312, 1, False, 2, True),
     (torch.complex128, 3001, 2, False, None, True),
-    (torch.complex128, 7168, 1, True, 7, False)])
+    (torch.complex128, 6656, 1, True, 13, False)])
 def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
         cuda, dtype, n, b, inverse, parts, use_tw):
     """The chirp route (one chirp call; its two inner transforms' launches
@@ -391,7 +391,7 @@ def split_rows_long(n, dtype) -> int:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [384, 6144, 7168, 24576])
+@pytest.mark.parametrize("n", [384, 6144, 6656, 24576])
 def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
     """A contiguous view 8 bytes into its storage, at mixed lengths on the
     radix, long-line (its row copies are 16-byte aligned: the wrapper
@@ -415,6 +415,18 @@ def test_fft_conv_at_3072_on_the_long_route(cuda):
     kernel, float32, forward and backward: 3 long-line launches forward
     and 3 more backward, no chirp call, no dense launch and no line copy;
     the output and every gradient within 1e-4 of ``cufft``'s."""
+    _fft_conv_on_the_long_route(cuda, 3072)
+
+
+@pytest.mark.cuda
+def test_fft_conv_at_3584_on_the_long_route(cuda):
+    """``fft_conv`` at S=3584 (lines of 7168 = 28x16x16, the radix-7
+    codelet's length), as at S=3072: 6 long-line launches forward and
+    backward, no chirp call, every gradient within 1e-4 of ``cufft``'s."""
+    _fft_conv_on_the_long_route(cuda, 3584)
+
+
+def _fft_conv_on_the_long_route(cuda, s):
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -424,7 +436,7 @@ def test_fft_conv_at_3072_on_the_long_route(cuda):
                               ssm_impl="fft_conv", dtype="float32")
     params = ssm.init_fft_conv(ParamBuilder(0, device=cuda), "ssm", cfg)
     params.requires_grad_(True)
-    s = 3072
+    assert radix.kernel_path(2 * s, torch.complex64) == "long"
     x = torch.from_numpy(np.random.default_rng(19).standard_normal(
         (1, s, cfg.d_model)).astype(np.float32)).to(cuda)
 
@@ -457,19 +469,20 @@ def test_fft_conv_at_3072_on_the_long_route(cuda):
 def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
     """Every mixed long-line length (complex64 4608-15360, complex128
-    1152-7680): one launch on "long" each, against the plain version
-    (``longline.emulate``) and ``torch.fft`` at the kernel's tolerances,
-    without an epilogue and with both (segments of N/3 or N/5)."""
+    1152-7680, r in {3, 5, 7, 9, 11, 15}): one launch on "long" each,
+    against the plain version (``longline.emulate``) and ``torch.fft`` at
+    the kernel's tolerances, without an epilogue and with both (segments
+    of N/r, r the least odd prime of N)."""
     from repro_torch.kernels import longline
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in sorted(longline.FACTORS[dtype])
              if not radix.is_pow2(n)]
-    assert len(mixed) == (8 if dtype == torch.complex64 else 12)
+    assert len(mixed) == (12 if dtype == torch.complex64 else 18)
     for n in mixed:
         x = torch.from_numpy(cplx((37, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
                        / (2 * n)).to(dtype)
-        parts = 3 if n % 3 == 0 else 5
+        parts = next(r for r in (3, 5, 7, 11) if n % r == 0)
         lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
         for t, p in ((None, None), (tw, parts)):
             tfm.reset_launch_counts()
@@ -494,14 +507,15 @@ def test_cuda_split_mixed_lengths_match_plain_version_and_torch_fft(
     split call each, two or three launches on "split", against the plain
     version (``split.emulate``) and ``torch.fft`` at the kernel's
     tolerances, both directions by turns, with the twiddle and a segment
-    of N/3 or N/5 by turns."""
+    of N/r (r the least odd prime of N) by turns."""
     from repro_torch.kernels import split
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in sorted(split.FACTORS[dtype])
              if not radix.is_pow2(n)]
     for i, n in enumerate(mixed):
         inverse, use_tw = i % 2 == 1, i % 3 == 0
-        parts = (3 if n % 3 == 0 else 5) if i % 2 else None
+        parts = (next(r for r in (3, 5, 7, 11) if n % r == 0)
+                 if i % 2 else None)
         b = max(1, (1 << 24) // (n * dtype.itemsize))
         x = torch.from_numpy(cplx((b, n), i)).to(cuda, dtype)
         tw = (torch.exp(-1j * math.pi * torch.arange(n, device=cuda)

@@ -1,21 +1,23 @@
-"""The long-line route at the mixed lengths r*2^k, r in {3, 5, 9, 15}
-(``kernels/longline.py``, ``csrc/fft_long.cuh``'s ``long_mixed_kernel``):
-complex64 N of 4608 to 15360 and complex128 N of 1152 to 7680, whose
-line fits one block.  Their plan (one mixed factor R1 on the radix
-route's mixed chain, R2 and R3 powers of two, N / lcm(R1, R2, R3)
-threads, every pass in place, item by item) runs in torch in
+"""The long-line route at the mixed lengths r*2^k, r in {3, 5, 7, 9, 11,
+15} (``kernels/longline.py``, ``csrc/fft_long.cuh``'s
+``long_mixed_kernel``): complex64 N of 4608 to 15360 and complex128 N of
+1152 to 7680, whose line fits one block.  Their plan (one mixed factor R1
+on the radix route's mixed chain, R2 and R3 powers of two, a block of 128
+or 256 threads walking each pass's items in rounds, every pass in place,
+item by item) runs in torch in
 ``longline.emulate`` (the kernel's plain version, which the wrapper runs
 for CPU tensors); it is held against ``np.fft`` at every length (both
 directions, the twiddle and ``pack_parts`` epilogues) and against the JAX
 package's Pallas kernel in interpret mode on the same numpy inputs at one
-length per odd part and dtype, at the reference's tolerances
+length per odd part r = 3, 5, 9, 15 and every 7*2^k and 11*2^k, per
+dtype, at the reference's tolerances
 (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
 complex128).  Then the plan's threads, sizes and tables, the routing of
 every mixed length past the radix route, and ``fft_conv`` at S = 3072
-(lines of 6144) forward and backward against the reference's mixer.  The
+and 3584 (lines of 6144 and 7168) forward and backward against the
+reference's mixer.  The
 CUDA kernel is tested in ``test_torch_cuda.py`` and ``chip_smoke.py``."""
 import dataclasses
-import math
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +27,7 @@ import torch
 
 from repro.kernels import fft_matmul as jfm
 from repro_torch.kernels import fft_matmul as tfm
+from repro_torch.core.transforms import factorize
 from repro_torch.kernels import longline, ops, radix
 from torch_harness import assert_scaled_close, pallas_lines_c128
 
@@ -33,15 +36,19 @@ NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 MIXED = [(dtype, n) for dtype, sizes in longline.FACTORS.items()
          for n in sorted(sizes) if not radix.is_pow2(n)]
 #: (batch, inverse, twiddle, pack_parts) per length: both directions,
-#: each epilogue, segments of N/3 or N/5 (the odd part's factor) and N/4.
+#: each epilogue, segments of N/r (r the odd part's least prime factor)
+#: and N/4.
 VARIANTS = [(3, False, False, None), (1, True, True, None),
             (2, False, False, "odd"), (2, True, True, 4)]
-CASES = [(dtype, n, b, inv, tw, (3 if n % 3 == 0 else 5)
+CASES = [(dtype, n, b, inv, tw, next(r for r in (3, 5, 7, 11) if n % r == 0)
           if parts == "odd" else parts)
          for dtype, n in MIXED for b, inv, tw, parts in VARIANTS]
-#: One length per odd part and dtype held against the Pallas kernel too.
-PALLAS = {torch.complex64: {4608, 5120, 6144, 7680},
-          torch.complex128: {1152, 1280, 3072, 7680}}
+#: One length per odd part r = 3, 5, 9, 15 and every 7*2^k and 11*2^k,
+#: per dtype, held against the Pallas kernel too.
+PALLAS = {torch.complex64: {4608, 5120, 6144, 7680, 5632, 7168, 11264,
+                            14336},
+          torch.complex128: {1152, 1280, 3072, 7680, 1408, 1792, 2816,
+                             3584, 5632, 7168}}
 
 
 def _case_id(case):
@@ -127,10 +134,14 @@ def test_long_mixed_plan_matches_numpy_and_pallas(case, request):
 @pytest.mark.parametrize("dtype,n", MIXED)
 def test_long_mixed_threads_split_every_pass_evenly(dtype, n):
     """One mixed factor R1 = r*2^a of at most 32 values, R2 and R3 powers
-    of two of at most 32; N / lcm(R1, R2, R3) threads, so every pass's
-    items (N/R1, N/R2, N/R3 of them) split evenly and every thread holds
-    lcm(R1, R2, R3) values in every pass; one line buffer of R1 rows at a
-    16-byte padded pitch, within the 227 KB of one block."""
+    of two of at most 32.  The block is sized for occupancy, not by
+    lcm(R1, R2, R3): 256 threads for complex64; complex128 128 where two
+    blocks share an SM by shared memory, else 256; never fewer than 128.
+    Each pass's items (N/R1, N/R2, N/R3) are walked in rounds of the
+    block, item = tid + round*T, so every item falls to exactly one thread
+    over the rounds and only the last round leaves threads idle.  A ring
+    of two line buffers of R1 rows at a 16-byte padded pitch where two fit
+    in the 227 KB of one block, else one."""
     plan = longline.long_plan(n, dtype)
     r1, r2, r3 = plan.r1, plan.r2, plan.r3
     assert plan.mixed and r1 * r2 * r3 == n
@@ -138,12 +149,19 @@ def test_long_mixed_threads_split_every_pass_evenly(dtype, n):
     odd = r1 // (r1 & -r1)
     assert odd in radix.MIXED_ODD
     assert radix.is_pow2(r2) and radix.is_pow2(r3) and max(r2, r3) <= 32
-    lcm = math.lcm(r1, r2, r3)
-    assert plan.threads == n // lcm and plan.threads >= 16
+    t = plan.threads
+    assert t >= 128
+    if dtype == torch.complex64:
+        assert t == 256
+    else:
+        assert t == (128 if plan.blocks_per_sm >= 2 else 256)
     for r in (r1, r2, r3):
         items = n // r
-        assert items % plan.threads == 0
-        assert items // plan.threads * r == lcm      # values per thread
+        rounds = -(-items // t)
+        taken = [tid + k * t for k in range(rounds) for tid in range(t)
+                 if tid + k * t < items]
+        assert sorted(taken) == list(range(items))      # each item once
+        assert (rounds - 1) * t < items <= rounds * t   # idle: last round
     item = dtype.itemsize
     assert (plan.pitch - r2 * r3) * item == 16
     assert plan.line_elems == r1 * plan.pitch
@@ -152,30 +170,40 @@ def test_long_mixed_threads_split_every_pass_evenly(dtype, n):
     assert plan.const_elems == (r1 * r3 + r1 * r2 + r2 * r3
                                 + plan.table // 2 + r1)
     tile = longline.long_tile(n, dtype)
-    assert tile.depth == 1
-    assert tile.smem_bytes == longline.smem_bytes(plan, item, 1)
+    two = longline.smem_bytes(plan, item, 2)
+    assert tile.depth == plan.depth == (2 if two <= radix.SMEM_MAX_BYTES
+                                        else 1)
+    assert tile.smem_bytes == longline.smem_bytes(plan, item, tile.depth)
     assert tile.smem_bytes <= radix.SMEM_MAX_BYTES
+    assert plan.blocks_per_sm == max(1, 233472 // (tile.smem_bytes + 1024))
     assert n * item <= 128 << 10        # the power-of-two lines' limit
 
 
 def test_long_mixed_lengths_are_every_r_2k_that_fits():
-    """The table holds every mixed N = r*2^k past the radix route whose
+    """The table holds every mixed N = r*2^k past the radix route (a
+    factor of ``factorize`` past its codelets' 64 or 32 values) whose
     line is at most 128 KB: complex64 4608 to 15360, complex128 1152 to
-    7680; 6144 is 24 x 16 x 16 on 128 threads (2 items of radix 24, 3 of
-    radix 16), complex128 1152 18 x 8 x 8."""
-    for dtype, first, last in ((torch.complex64, 4608, 15360),
-                               (torch.complex128, 1152, 7680)):
+    7680; 6144 is 24 x 16 x 16 on 256 threads (1 round of radix 24, 2 of
+    radix 16), complex128 1152 18 x 8 x 8 on 128, 7168 28 x 16 x 16
+    (complex64 and complex128), 11264 22 x 16 x 32."""
+    for dtype, first, last, cap in ((torch.complex64, 4608, 15360, 64),
+                                    (torch.complex128, 1152, 7680, 32)):
         want = sorted(r << k for r in radix.MIXED_ODD for k in range(1, 14)
-                      if (r << k) not in radix.RADIX_SIZES[dtype]
+                      if max(factorize(r << k)) > cap
                       and (r << k) * dtype.itemsize <= 128 << 10)
         got = sorted(n for n in longline.FACTORS[dtype]
                      if not radix.is_pow2(n))
         assert got == want and got[0] == first and got[-1] == last
     plan = longline.long_plan(6144, torch.complex64)
-    assert (plan.r1, plan.r2, plan.r3, plan.threads) == (24, 16, 16, 128)
-    assert (6144 // 24 // 128, 6144 // 16 // 128) == (2, 3)
+    assert (plan.r1, plan.r2, plan.r3, plan.threads) == (24, 16, 16, 256)
+    assert (-(-6144 // 24 // 256), -(-6144 // 16 // 256)) == (1, 2)
     plan = longline.long_plan(1152, torch.complex128)
-    assert (plan.r1, plan.r2, plan.r3) == (18, 8, 8)
+    assert (plan.r1, plan.r2, plan.r3, plan.threads) == (18, 8, 8, 128)
+    for dtype in (torch.complex64, torch.complex128):
+        plan = longline.long_plan(7168, dtype)
+        assert (plan.r1, plan.r2, plan.r3) == (28, 16, 16)
+    plan = longline.long_plan(11264, torch.complex64)
+    assert (plan.r1, plan.r2, plan.r3) == (22, 16, 32)
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -234,7 +262,8 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
     """``radix.kernel_path``: every complex64 r*2^k from 4608 to 16384 and
     every complex128 one from 1152 to 8192 is "long", every longer one up
     to the split route's limits (2^24, 2^22) "split"; none is "chirp" or
-    "dense"; a prime and 7*2^k past one block stay "chirp"."""
+    "dense" (7*2^k and 11*2^k included); a prime and 13*2^k past one
+    block stay "chirp"."""
     for dtype, (lo, hi, top) in {
             torch.complex64: (4608, 16384, 1 << 24),
             torch.complex128: (1152, 8192, 1 << 22)}.items():
@@ -245,8 +274,8 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
                     continue
                 want = "long" if n <= hi else "split"
                 assert radix.kernel_path(n, dtype) == want, (n, dtype)
-    for n, dtype in ((7168, torch.complex64), (10007, torch.complex64),
-                     (3584, torch.complex128), (3001, torch.complex128)):
+    for n, dtype in ((6656, torch.complex64), (10007, torch.complex64),
+                     (3328, torch.complex128), (3001, torch.complex128)):
         assert radix.kernel_path(n, dtype) == "chirp"
 
 
@@ -283,6 +312,19 @@ def test_fft_conv_at_3072_takes_the_long_route_and_matches_reference():
     reference's mixer, float32: the output, and the gradients of w_in,
     basis_w, decay, w_out and the input against ``jax.grad`` of the
     reference's ``fft_backend="xla"``."""
+    _fft_conv_on_the_long_route_matches_reference(3072)
+
+
+def test_fft_conv_at_3584_takes_the_long_route_and_matches_reference():
+    """``fft_conv`` at S=3584 (lines of 7168 = 28 x 16 x 16: the radix-7
+    codelet took it off the chirp route), as at S=3072: the output and
+    every gradient against the reference's mixer; the 3 transforms' long
+    launches are counted on the card (``test_torch_cuda.py``,
+    ``chip_smoke.py``'s ``[lm_fftconv]``)."""
+    _fft_conv_on_the_long_route_matches_reference(3584)
+
+
+def _fft_conv_on_the_long_route_matches_reference(s):
     from lm_parity import F32_TOL, f32, jax_init, port_module, randn, \
         scaled_err, tt
     from repro.configs import smoke_config as ref_smoke_config
@@ -295,7 +337,6 @@ def test_fft_conv_at_3072_takes_the_long_route_and_matches_reference():
     tree, ref_p = jax_init(ref_ssm.init_fft_conv, cfg, "ssm", seed=3)
     p = port_module(ssm.init_fft_conv, tree, "ssm", cfg)
     assert p.basis_w.shape[0] == 8                  # 8 channels
-    s = 3072
     assert radix.kernel_path(2 * s, torch.complex64) == "long"
     x = randn((1, s, cfg.d_model), 11)
     r = randn((1, s, cfg.d_model), 12)

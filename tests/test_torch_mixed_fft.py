@@ -1,6 +1,7 @@
 """The radix route's mixed lengths (``kernels/radix.py``,
-``csrc/fft_radix.cuh``): N = r*2^k, r in {3, 5, 9, 15}, whose codelets are
-chains of radix-5, 3, 4 and 2 butterflies on digit-reversed loads.  The
+``csrc/fft_radix.cuh``): N = r*2^k, r in {3, 5, 7, 9, 11, 15}, whose
+codelets are chains of radix-11, 7, 5, 3, 4 and 2 butterflies on
+digit-reversed loads (radix 7 and 11 in the symmetric-pair form).  The
 kernel's plan and index maps, run in torch by ``radix.emulate``, are held
 against ``np.fft`` and against the JAX package's Pallas kernel in interpret
 mode on the same numpy inputs: both directions, the twiddle epilogue,
@@ -31,7 +32,10 @@ TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
 NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 LENGTHS = [(torch.complex64, n) for n in (6, 12, 30, 36, 60, 96, 384, 1536,
                                           3840)] + \
-          [(torch.complex128, n) for n in (6, 30, 96, 384, 960)]
+          [(torch.complex128, n) for n in (6, 30, 96, 384, 960)] + \
+          [(torch.complex64, n) for n in (14, 56, 448, 3584, 22, 352,
+                                          2816)] + \
+          [(torch.complex128, n) for n in (896, 704)]
 #: (batch, inverse, twiddle, pack_parts): ragged batches, both directions,
 #: each epilogue; pack_parts 3 where 3 divides N, else 2.
 VARIANTS = [(37, False, False, None), (5, True, True, None),
@@ -123,7 +127,12 @@ def test_mixed_radix_plan_matches_numpy_and_pallas(case, request):
                                      (torch.complex64, 384),
                                      (torch.complex64, 1280),
                                      (torch.complex128, 240),
-                                     (torch.complex128, 480)])
+                                     (torch.complex128, 480),
+                                     (torch.complex64, 56),
+                                     (torch.complex64, 448),
+                                     (torch.complex64, 1408),
+                                     (torch.complex128, 44),
+                                     (torch.complex128, 704)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_mixed_strided_layout_matches_numpy(dtype, n, inverse):
     """The strided ``(outer, N, inner)`` layout at mixed lengths, a
@@ -147,9 +156,12 @@ def test_mixed_strided_layout_matches_numpy(dtype, n, inverse):
 @pytest.mark.parametrize("length,chain", [
     (3, (3,)), (5, (5,)), (6, (3, 2)), (9, (3, 3)), (12, (3, 4)),
     (15, (5, 3)), (24, (3, 4, 2)), (40, (5, 4, 2)), (48, (3, 4, 4)),
-    (60, (5, 3, 4)), (16, (2, 2, 2, 2))])
+    (60, (5, 3, 4)), (16, (2, 2, 2, 2)), (7, (7,)), (11, (11,)),
+    (14, (7, 2)), (28, (7, 4)), (56, (7, 4, 2)), (22, (11, 2)),
+    (44, (11, 4)), (77, (11, 7))])
 def test_mixed_codelet_chain_and_loads(length, chain):
-    """The radix chain (the 5s, the 3s, then 4s and a last 2; 2s for a
+    """The radix chain (the 11s, the 7s, the 5s, the 3s, then 4s and a
+    last 2; 2s for a
     power of two), the load order (a permutation; bit reversal for a
     power of two), and every stage touching each register once with its
     twiddle inside the codelet's own table of ``length`` entries."""
@@ -180,14 +192,16 @@ def test_mixed_codelet_chain_and_loads(length, chain):
 
 
 def test_mixed_sizes_tables_and_tiles():
-    """35 mixed complex64 lengths to 3840 and 27 complex128 to 960, every
+    """52 mixed complex64 lengths to 3840 and 39 complex128 to 960 (17
+    and 12 of them 7*2^k and 11*2^k: complex128 22 spills and runs
+    dense), every
     codelet at most 64 (complex64) or 32 (complex128) long; each codelet
     has its own table (N2 + N1 entries); the tile's lines are a power of
     two; the split route's P stays a power of two (its pass A), and its Q
     is a power of two or a mixed length of the radix or long-line route
     (its pass B)."""
-    for dtype, count, cap in ((torch.complex64, 35, 64),
-                              (torch.complex128, 27, 32)):
+    for dtype, count, cap in ((torch.complex64, 52, 64),
+                              (torch.complex128, 39, 32)):
         mixed = [n for n in radix.RADIX_SIZES[dtype]
                  if not radix.is_pow2(n)]
         assert len(mixed) == count
