@@ -20,7 +20,7 @@ its result line):
    and split length of both dtypes (the long and split ones, powers of two
    and mixed lengths, with both epilogues, also against ``torch.fft``),
    every mixed radix length of
-   both dtypes (r*2^k, r in {3, 5, 7, 9, 11, 15}: both directions, both
+   both dtypes (r*2^k, r in {3, 5, 7, 9, 11, 13, 15}: both directions, both
    epilogues, a ``pack_parts`` segment that is not a power of two, also
    against ``torch.fft``), chirp lengths of both inner routes, and
    strided ``(outer, N, inner)`` blocks through ``fft_fourstep_strided``
@@ -114,7 +114,7 @@ its result line):
 17. ``[long]``: the long-line kernel at the mixer's (8192, 8192)
     complex64 lines against its plain version and ``torch.fft``, timed
     beside its bound; the other long lengths of both dtypes at 512 MB; the dense kernel at (262144,
-    416), a length no other route takes; each reached once through
+    672), a length no other route takes; each reached once through
     ``ops.fft1d`` (one launch on its path); then ``[split]``: the split route (lines beyond one block,
     N = P*Q in two launches through HBM, three with rows on the
     long-line route) at complex64 N = 2^15, 2^16, 2^20, 2^24 and
@@ -125,11 +125,12 @@ its result line):
     ``[split_plan]``: a ``plan_fft`` C2C plan of (64, 64, 32768)
     complex64 on the kernel against ``fftn``, launches per path and line
     copies recorded; ``[mixed]``: the radix route at mixed lengths,
-    (262144, 384) and (262144, 448) complex64 and one length per odd part
-    (3, 5, 7, 9, 11, 15) and dtype at 512 MB, each once through
+    (262144, 384), (262144, 448) and (262144, 416) complex64 and one
+    length per odd part (3, 5, 7, 9, 11, 13, 15) and dtype at 512 MB, each
+    once through
     ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft`` and the bound;
-    ``[mixed_plan]``: ``plan_fft`` C2C at 384^3 and 448^3 complex64 on
+    ``[mixed_plan]``: ``plan_fft`` C2C at 384^3, 448^3 and 416^3 complex64 on
     the kernel, 3 radix launches per direction (2 strided), 0 dense, 0
     chirp, 0 line copies, against ``fftn`` and the round trip, ms per
     direction beside ``fftn``, a ``cufft`` plan and the bound; the PPB
@@ -138,18 +139,19 @@ its result line):
     dtypes (complex64 4608-15360, complex128 1152-7680), 512 MB each,
     once through ``ops.fft1d`` (one "long" launch), against its plain
     version and ``torch.fft``, timed beside ``torch.fft`` and the bound,
-    then the four lengths the radix-7 and radix-11 codelets took off the
-    chirp route at 256 MB beside their chirp time;
+    then the four lengths the radix-13 codelet took off the chirp route
+    at 256 MB beside their chirp time;
     ``[split_mixed]``: the split route at mixed lengths (complex64 24576,
-    49152, 98304, 3*2^21, 15*2^19 and the shortest and longest 7*2^k and
-    11*2^k; complex128 12288, 24576, 9*2^15 and likewise), 512 MB each,
+    49152, 98304, 3*2^21, 15*2^19 and the shortest and longest 7*2^k,
+    11*2^k and 13*2^k; complex128 12288, 24576, 9*2^15 and likewise), 512
+    MB each,
     likewise (one split call); ``[mixed_long_plan]``:
     ``plan_fft`` C2C of (128, 128, 6144) complex64 on the kernel against
     ``fftn`` and the round trip, the 6144 axis on the long-line route, no
     dense or chirp launch, no copy, ms beside ``fftn`` and a ``cufft``
     plan; ``[chirp]``: the chirp route (Bluestein over two transforms of
     M on the long-line or split route) at lengths no other route takes,
-    complex64 6656, 10007, 13312 and complex128 3001, 3328, 6656, 256 MB
+    complex64 5376, 10007, 10752 and complex128 3001, 2688, 5376, 256 MB
     each, once through ``ops.fft1d`` (one chirp call, its launches on
     "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
     timed beside ``torch.fft`` and the bound, the glue's ms apart; then
@@ -456,7 +458,7 @@ def kernel_cases():
     cases.append((2, 1 << 15, False, None, True, c64, "x"))
     # the mixed radix lengths: every one of both dtypes, both directions,
     # each epilogue (a pack_parts segment that is not a power of two where
-    # 3 divides N); r = 7 and 11 included
+    # 3 divides N); r = 7, 11 and 13 included
     from repro_torch.kernels import radix
     for dtype, sizes in radix.RADIX_SIZES.items():
         dt = str(dtype).removeprefix("torch.")
@@ -466,14 +468,14 @@ def kernel_cases():
             cases += [(37, n, False, None, False, dt, ""),
                       (5, n, True, 3 if n % 3 == 0 else 2, True, dt, "")]
     cases.append((37, 384, True, None, True, c64, "x"))
-    # the chirp route: lengths of both inner routes, both dtypes,
-    # directions and epilogues
-    for b, n, inv, parts, tw, dt in ((2, 6656, False, None, True, c64),
-                                     (3, 6656, True, 2, False, c64),
+    # the chirp route: lengths of both inner routes (21*2^k and primes),
+    # both dtypes, directions and epilogues
+    for b, n, inv, parts, tw, dt in ((2, 5376, False, None, True, c64),
+                                     (3, 5376, True, 2, False, c64),
                                      (1, 10007, True, None, True, c64),
-                                     (1, 13312, False, 4, True, c64),
+                                     (1, 10752, False, 4, True, c64),
                                      (2, 3001, False, None, True, c128),
-                                     (1, 6656, True, 13, False, c128)):
+                                     (1, 5376, True, 7, False, c128)):
         cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
 
@@ -2201,9 +2203,10 @@ def phase_lm_fftconv(device, b: int = 1,
     return out
 
 
-def line_entry(x, phase: str, iters: int = 10, plain_iters: int = 3,
-               tol: float = None) -> dict:
-    """The user entry (``ops.fft1d``) once on ``(B, N)`` lines with the
+def line_entry(x, phase: str, route: str, iters: int = 10,
+               plain_iters: int = 3, tol: float = None) -> dict:
+    """The user entry (``ops.fft1d``) once on ``(B, N)`` lines, which must
+    take ``route`` (``radix.kernel_path``), with the
     counts set to 0 just before and read just after (``expected_counts``
     for one call), held against the plain version (``TOL``) and
     ``torch.fft`` (``tol``, or ``TOL``); then CUDA-event ms of the kernel
@@ -2216,6 +2219,8 @@ def line_entry(x, phase: str, iters: int = 10, plain_iters: int = 3,
     b, n = x.shape
     dt = str(x.dtype).removeprefix("torch.")
     path = radix.kernel_path(n, x.dtype)
+    check(path == route, f"[{phase}] ({b}, {n}) {dt} takes the {path} "
+          f"route, expected {route}")
     reset_counts()
     got = ops.fft1d(x)
     if cuda:
@@ -2259,22 +2264,22 @@ def print_lines(phase: str, recs) -> None:
 
 
 def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
-               dense_shape=(262144, 416), iters: int = 10) -> dict:
+               dense_shape=(262144, 672), iters: int = 10) -> dict:
     """``[long]``: the long-line kernel at the mixer's shape at S=4096,
     (8192, 8192) complex64, against its plain version (``longline.
     emulate``) and ``torch.fft.fft``, timed beside the HBM bound; every
     other power-of-two long length of both dtypes at 512 MB of lines
     against ``torch.fft`` (``[long_mixed]`` times the mixed ones); and the
     dense
-    kernel at a length no other route takes, (262144, 416) complex64
-    (416 = 13*32: no radix-13 codelet), with its plain version,
-    ``torch.fft`` and the bound.  Each kernel is reached
+    kernel at a length no other route takes, (262144, 672) complex64
+    (672 = 21*32: no codelet takes an odd part of 21), with its plain
+    version, ``torch.fft`` and the bound.  Each kernel is reached
     once through ``ops.fft1d`` with the counts set to 0 just before and
     read just after (one launch on its path)."""
     import torch
     from repro_torch.kernels import longline
     out = {"long": line_entry(randc(shape, torch.complex64, device,
-                                    SEED + 20), "long", iters),
+                                    SEED + 20), "long", "long", iters),
            "lengths": []}
     for dtype, sizes in longline.FACTORS.items():
         for n in sizes:
@@ -2283,21 +2288,22 @@ def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
                 continue
             b = lengths_bytes // (n * dtype.itemsize)
             out["lengths"].append(line_entry(
-                randc((b, n), dtype, device, SEED + n), "long", iters))
+                randc((b, n), dtype, device, SEED + n), "long", "long",
+                iters))
     out["dense"] = line_entry(randc(dense_shape, torch.complex64, device,
-                                    SEED + 21), "long", iters)
+                                    SEED + 21), "long", "dense", iters)
     if device.type == "cuda":
         torch.cuda.empty_cache()
         print_lines("long", [out["long"], *out["lengths"], out["dense"]])
     return out
 
-#: (dtype name, N, ms) of the lengths the radix-7 and radix-11 codelets
-#: moved from the chirp route to the long-line route, with their chirp
-#: time at 256 MB of lines on an H100 80GB HBM3 at 700 W (``[chirp]`` of
-#: the parent tree's ``chip_smoke.py``).
-MOVED_FROM_CHIRP = (("complex64", 7168, 1.4799), ("complex64", 14336, 2.3514),
-                    ("complex64", 11264, 2.8983),
-                    ("complex128", 3584, 1.4807))
+#: (dtype name, N, ms) of the lengths the radix-13 codelet moved from the
+#: chirp route to the long-line route, with their chirp time at 256 MB of
+#: lines on an H100 80GB HBM3 at 700 W (``[chirp]`` of the parent tree's
+#: ``chip_smoke.py``).
+MOVED_FROM_CHIRP = (("complex64", 6656, 1.5909), ("complex64", 13312, 2.5082),
+                    ("complex128", 3328, 1.5696),
+                    ("complex128", 6656, 2.5137))
 
 
 def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
@@ -2318,7 +2324,7 @@ def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
                 continue
             b = lengths_bytes // (n * dtype.itemsize)
             rec = line_entry(randc((b, n), dtype, device, SEED + 100 + n),
-                             "long_mixed", iters)
+                             "long_mixed", "long", iters)
             rec["factors"] = list(longline.FACTORS[dtype][n])
             rec["threads"] = longline.long_plan(n, dtype).threads
             out["lengths"].append(rec)
@@ -2329,7 +2335,7 @@ def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
         dtype = getattr(torch, dt)
         b = moved_bytes // (n * dtype.itemsize)
         rec = line_entry(randc((b, n), dtype, device, SEED + 200 + n),
-                         "long_mixed", iters)
+                         "long_mixed", "long", iters)
         rec["chirp_ms_before"] = chirp_ms
         out["moved"].append(rec)
         if device.type == "cuda":
@@ -2348,7 +2354,9 @@ def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
 #: (dtype name, N) of ``[split_mixed]``: the mixer's lines at S = 12288
 #: and the next two lengths of 3*2^k on radix rows, two 2^23-range lengths
 #: on long-line rows; complex128 on radix and on long-line rows; then the
-#: shortest and the longest 7*2^k and 11*2^k of each dtype.
+#: shortest and the longest 7*2^k, 11*2^k and 13*2^k of each dtype (c64
+#: 13*2^20 and c128 13*2^18 raised before the radix-13 codelet), and c64
+#: 13*2^12, whose pass B of 208 runs no radix-route length.
 SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
                        ("complex64", 98304), ("complex64", 3 << 21),
                        ("complex64", 15 << 19), ("complex128", 12288),
@@ -2356,7 +2364,10 @@ SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
                        ("complex64", 7 << 12), ("complex64", 7 << 21),
                        ("complex64", 11 << 11), ("complex64", 11 << 20),
                        ("complex128", 7 << 11), ("complex128", 7 << 19),
-                       ("complex128", 11 << 10), ("complex128", 11 << 18))
+                       ("complex128", 11 << 10), ("complex128", 11 << 18),
+                       ("complex64", 13 << 11), ("complex64", 13 << 20),
+                       ("complex128", 13 << 10), ("complex128", 13 << 18),
+                       ("complex64", 13 << 12))
 
 
 def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
@@ -2374,7 +2385,7 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
         dtype = getattr(torch, dt)
         b = max(1, lengths_bytes // (n * dtype.itemsize))
         rec = line_entry(randc((b, n), dtype, device, SEED + 110 + i),
-                         "split_mixed", iters)
+                         "split_mixed", "split", iters)
         plan = split.split_plan(n, dtype)
         rec.update(factors=[plan.p, plan.q], row_path=plan.row_path)
         out["lengths"].append(rec)
@@ -2386,47 +2397,54 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
 
 
 #: (dtype name, N) of ``[mixed]``'s timings beside (262144, 384)
-#: complex64: one length per odd part r = 3, 5, 7, 9, 11, 15 and per dtype
-#: (the longest 7*2^k and 11*2^k of each dtype).
+#: complex64: one length per odd part r = 3, 5, 7, 9, 11, 13, 15 and per
+#: dtype (the longest 7*2^k, 11*2^k and 13*2^k of each dtype).
 MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex64", 2304), ("complex64", 3840),
                  ("complex128", 768), ("complex128", 640),
                  ("complex128", 576), ("complex128", 960),
                  ("complex64", 3584), ("complex64", 2816),
-                 ("complex128", 896), ("complex128", 704))
+                 ("complex128", 896), ("complex128", 704),
+                 ("complex64", 3328), ("complex128", 832))
 
 
 def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
-                lengths=MIXED_LENGTHS, lengths_bytes: int = 512 << 20,
-                iters: int = 10) -> dict:
+                shape13=(262144, 416), lengths=MIXED_LENGTHS,
+                lengths_bytes: int = 512 << 20, iters: int = 10) -> dict:
     """``[mixed]``: the radix route at mixed lengths (N = r*2^k, chains
-    of radix-11, 7, 5, 3, 4 and 2 codelets): (262144, 384) complex64,
+    of radix-13, 11, 7, 5, 3, 4 and 2 codelets): (262144, 384) complex64,
     where the dense route took 3.4354 ms before, (262144, 448), where it
-    took 3.4432 before the radix-7 codelet, and one length per odd part
-    and dtype at about 512 MB of lines, each reached once through
+    took 3.4432 before the radix-7 codelet, (262144, 416), where it took
+    3.1830 before the radix-13 codelet, and one length per odd part and
+    dtype at about 512 MB of lines, each reached once through
     ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft.fft`` and the bound."""
     import torch
     out = {"main": line_entry(randc(shape, torch.complex64, device,
-                                    SEED + 70), "mixed", iters),
+                                    SEED + 70), "mixed", "radix", iters),
            "main7": line_entry(randc(shape7, torch.complex64, device,
-                                     SEED + 69), "mixed", iters),
+                                     SEED + 69), "mixed", "radix", iters),
+           "main13": line_entry(randc(shape13, torch.complex64, device,
+                                      SEED + 68), "mixed", "radix", iters),
            "lengths": []}
     for i, (dt, n) in enumerate(lengths):
         dtype = getattr(torch, dt)
         b = lengths_bytes // (n * dtype.itemsize)
         out["lengths"].append(line_entry(
-            randc((b, n), dtype, device, SEED + 71 + i), "mixed", iters))
+            randc((b, n), dtype, device, SEED + 71 + i), "mixed", "radix",
+            iters))
     if device.type == "cuda":
         torch.cuda.empty_cache()
-        print_lines("mixed", [out["main"], out["main7"], *out["lengths"]])
+        print_lines("mixed", [out["main"], out["main7"], out["main13"],
+                              *out["lengths"]])
     return out
 
 
 def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
                      poisson: bool = True) -> dict:
     """``[mixed_plan]``: the main path at a mixed grid.  ``plan_fft`` C2C
-    of 384^3 complex64 (453 MB; 448^3, 719 MB, for the radix-7 codelets)
+    of 384^3 complex64 (453 MB; 448^3, 719 MB, for the radix-7 codelets;
+    416^3, 576 MB, for the radix-13 ones)
     on ``backend="kernel"``: forward against ``fftn`` (``PATH_TOL``) and
     the round trip (``ROUNDTRIP_TOL``), with exactly 3 radix launches per
     direction (2 on the strided entry), 0 dense, 0 chirp, 0 line copies, a
@@ -2521,12 +2539,13 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
     return out
 
 
-#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 13*2^k
-#: whose M takes the long-line and the split route, a prime past one
-#: block; complex128 likewise.
-CHIRP_LENGTHS = (("complex64", 6656), ("complex64", 10007),
-                 ("complex64", 13312), ("complex128", 3001),
-                 ("complex128", 3328), ("complex128", 6656))
+#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 21*2^k
+#: (an odd part no codelet takes) whose M takes the long-line and the
+#: split route, a prime past one block; complex128 likewise.  The first is
+#: the ``fft_fourstep_chirp`` entry's timing.
+CHIRP_LENGTHS = (("complex64", 5376), ("complex64", 10007),
+                 ("complex64", 10752), ("complex128", 3001),
+                 ("complex128", 2688), ("complex128", 5376))
 
 
 def phase_chirp(device, lengths=CHIRP_LENGTHS,
@@ -2548,7 +2567,8 @@ def phase_chirp(device, lengths=CHIRP_LENGTHS,
         dtype = getattr(torch, dt)
         b = max(1, lengths_bytes // (n * dtype.itemsize))
         x = randc((b, n), dtype, device, SEED + 90 + i)
-        rec = line_entry(x, "chirp", iters, plain_iters=2, tol=PATH_TOL)
+        rec = line_entry(x, "chirp", "chirp", iters, plain_iters=2,
+                         tol=PATH_TOL)
         m = chirp.chirp_length(n)
         rec["m"] = m
         if cuda:
@@ -3261,6 +3281,9 @@ def main(timer=time.perf_counter) -> int:
     report["mixed_plan_448"] = mixed_plan7 = phase_mixed_plan(
         device, grid=(448, 448, 448), poisson=False)
     torch.cuda.empty_cache()
+    report["mixed_plan_416"] = mixed_plan13 = phase_mixed_plan(
+        device, grid=(416, 416, 416), poisson=False)
+    torch.cuda.empty_cache()
     report["long_mixed"] = long_mixed = phase_long_mixed(device)
     torch.cuda.empty_cache()
     report["split_mixed"] = split_mixed = phase_split_mixed(device)
@@ -3362,7 +3385,7 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "lm_fftconv_8192": mixer_runs[8192]["float32"]["counts"]["long"],
              "train_fftconv_4096": train_long["counts"]["long"]}},
-        # launches: one ops.fft1d call at (262144, 416)
+        # launches: one ops.fft1d call at (262144, 672)
         {"name": "fft_fourstep_dense", "route": "cuda",
          "source": KERNEL_SOURCE, "path": "dense",
          "replaces": "src/repro/kernels/fft_matmul.py:216",
@@ -3406,9 +3429,10 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "mixed_plan_inverse": mixed_plan["inverse_counts"]["radix"],
              "mixed_plan_poisson": mixed_plan["poisson_counts"]["radix"],
-             "mixed_plan_448": mixed_plan7["forward_counts"]["radix"]}},
+             "mixed_plan_448": mixed_plan7["forward_counts"]["radix"],
+             "mixed_plan_416": mixed_plan13["forward_counts"]["radix"]}},
         # launches: [chirp]'s calls, one ops.fft1d call per length (no
-        # LM path runs the chirp route now); timed at lines of 6656
+        # LM path runs the chirp route now); timed at lines of 5376
         {"name": "fft_fourstep_chirp", "route": "cuda",
          "source": CHIRP_SOURCE, "path": "chirp",
          "sources": [CHIRP_SOURCE, LONG_SOURCE, RADIX_SOURCE],

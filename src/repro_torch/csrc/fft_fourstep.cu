@@ -1,23 +1,21 @@
 // Batched 1-D FFT of complex lines by the four-step method, for Hopper.
 //
 // Five routes, chosen by the wrapper from N and the dtype alone
-// (kernels/radix.py::kernel_path): power-of-two N up to 4096 (complex64)
-// or 1024 (complex128), and the mixed N = r*2^k, r in {3, 5, 7, 9, 11, 15},
+// (kernels/radix.py::kernel_path): power-of-two N up to 4096 (complex64) or
+// 1024 (complex128), and the mixed N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15},
 // whose codelets stay in registers, take the radix route (fft_radix.cuh: two
 // passes of in-register codelets, contiguous or strided lines); the longer
-// powers of two and mixed N whose line fits in one block's shared memory
-// take the long-line route (fft_long.cuh: three passes over a line loaded
-// by TMA); the powers of two and mixed N beyond one block (complex64 to
-// 2^24, complex128 to 2^22) take the split route (kernels/split.py: N =
-// P*Q, P a power of two, pass A a strided radix launch on the P-long
-// columns with the inter-step twiddle, pass B a radix launch on the Q-long
-// rows stored transposed, or a long-line launch on them stored in place
-// and a transpose); any other N beyond one
-// block (a prime factor of 13 or more) takes the chirp route
-// (kernels/chirp.py: Bluestein's convolution
-// as two of these launches on lines of M = 2^ceil(log2(2N - 1)), the
-// chirps in their twiddle epilogues); any other N takes the general dense
-// kernel below.
+// powers of two and mixed N whose line fits in one block's shared memory take
+// the long-line route (fft_long.cuh: three passes over a line loaded by TMA);
+// the powers of two and mixed N beyond one block (complex64 to 2^24, complex128
+// to 2^22) take the split route (kernels/split.py: N = P*Q, P a power of two,
+// pass A a strided radix launch on the P-long columns with the inter-step
+// twiddle, pass B a radix launch on the Q-long rows stored transposed, or a
+// long-line launch on them stored in place and a transpose); any other N beyond
+// one block (its odd part not one of those: primes from 17, odd products such
+// as 21 = 3*7) takes the chirp route (kernels/chirp.py: Bluestein's convolution
+// as two of these launches on lines of M = 2^ceil(log2(2N - 1)), the chirps in
+// their twiddle epilogues); any other N takes the general dense kernel below.
 //
 // Replaces the TPU kernel src/repro/kernels/fft_matmul.py::_fft_kernel (the
 // pl.pallas_call in fft1d_planes), with its two fused epilogues: the

@@ -1,8 +1,8 @@
 // The long-line route of the four-step kernel: lines that fit whole in one
 // block's shared memory but not in the radix route's two in-register passes
 // (complex64 N = 8192, 16384; complex128 N = 2048, 4096, 8192; and the
-// mixed N = r*2^k, r in {3, 5, 7, 9, 11, 15}, of complex64 4608 to 15360
-// and complex128 1152 to 7680), on Hopper.
+// mixed N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15}, of complex64 4608 to
+// 15360 and complex128 1152 to 7680), on Hopper.
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -637,6 +637,8 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(7168, 28, 16, 16)
       REPRO_LONG_MIXED_CASE(11264, 22, 16, 32)
       REPRO_LONG_MIXED_CASE(14336, 28, 16, 32)
+      REPRO_LONG_MIXED_CASE(6656, 26, 16, 16)
+      REPRO_LONG_MIXED_CASE(13312, 26, 16, 32)
       default:
         break;
     }
@@ -663,6 +665,9 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(3584, 28, 8, 16)
       REPRO_LONG_MIXED_CASE(5632, 22, 16, 16)
       REPRO_LONG_MIXED_CASE(7168, 28, 16, 16)
+      REPRO_LONG_MIXED_CASE(1664, 26, 8, 8)
+      REPRO_LONG_MIXED_CASE(3328, 26, 8, 16)
+      REPRO_LONG_MIXED_CASE(6656, 26, 16, 16)
       default:
         break;
     }

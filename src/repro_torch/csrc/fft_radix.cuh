@@ -1,6 +1,6 @@
 // The radix path of the four-step kernel: N = N1*N2 on Hopper, with
 // in-register sub-DFTs, for the powers of two and the mixed lengths
-// r*2^k, r in {3, 5, 7, 9, 11, 15} (kernels/radix.py::RADIX_SIZES).
+// r*2^k, r in {3, 5, 7, 9, 11, 13, 15} (kernels/radix.py::RADIX_SIZES).
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -26,10 +26,10 @@
 //    (kernels/fft_matmul.py::_radix_constants) and kept in shared memory.
 //  * Mixed lengths (384 = 16*24): a codelet whose length is not a power of
 //    two is a mixed-radix decimation in time over a compile-time chain of
-//    radix-11, 7, 5, 3, 4 and 2 butterflies (mixed_radix), loaded in
-//    digit-reversed order (load_slot); the radix-3, 4, 5, 7 and 11 DFTs
-//    are constant rotations with the direction's sign (7 and 11 in the
-//    symmetric-pair form, dft_odd), and the inter-stage
+//    radix-13, 11, 7, 5, 3, 4 and 2 butterflies (mixed_radix), loaded in
+//    digit-reversed order (load_slot); the radix-3, 4, 5, 7, 11 and 13
+//    DFTs are constant rotations with the direction's sign (7, 11 and 13
+//    in the symmetric-pair form, dft_odd), and the inter-stage
 //    twiddles come from the codelet's own table of W_L^k, k < L (N1 need
 //    not divide N2, so each codelet has its table: N2 then N1 entries).
 //    The row index splits by a division by the constant N1 or N2 where a
@@ -138,23 +138,25 @@ __host__ __device__ constexpr int exponent(int n, int p) {
 }
 
 // The radix of stage t (the first is t = 0) of a mixed codelet of length
-// L = 2^a 3^b 5^c 7^d 11^e: the 11s, the 7s, the 5s, the 3s, then the 4s
-// and a last 2 (kernels/radix.py::radices).
+// L = 2^a 3^b 5^c 7^d 11^e 13^f: the 13s, the 11s, the 7s, the 5s, the
+// 3s, then the 4s and a last 2 (kernels/radix.py::radices).
 __host__ __device__ constexpr int mixed_radix(int L, int t) {
-  const int c11 = exponent(L, 11), c7 = exponent(L, 7);
-  const int c5 = exponent(L, 5), c3 = exponent(L, 3), a = exponent(L, 2);
-  return t < c11                        ? 11
-         : t < c11 + c7                 ? 7
-         : t < c11 + c7 + c5            ? 5
-         : t < c11 + c7 + c5 + c3       ? 3
-         : t < c11 + c7 + c5 + c3 + a / 2 ? 4
-                                          : 2;
+  const int c13 = exponent(L, 13), c11 = c13 + exponent(L, 11);
+  const int c7 = c11 + exponent(L, 7), c5 = c7 + exponent(L, 5);
+  const int c3 = c5 + exponent(L, 3), c4 = c3 + exponent(L, 2) / 2;
+  return t < c13  ? 13
+         : t < c11 ? 11
+         : t < c7  ? 7
+         : t < c5  ? 5
+         : t < c3  ? 3
+         : t < c4  ? 4
+                   : 2;
 }
 
 __host__ __device__ constexpr int mixed_count(int L) {
   const int a = exponent(L, 2);
-  return exponent(L, 11) + exponent(L, 7) + exponent(L, 5) + exponent(L, 3) +
-         a / 2 + a % 2;
+  return exponent(L, 13) + exponent(L, 11) + exponent(L, 7) +
+         exponent(L, 5) + exponent(L, 3) + a / 2 + a % 2;
 }
 
 // The product of the radices of stages 0 .. t-1.
@@ -270,7 +272,7 @@ __device__ __forceinline__ void dft5(cpx<R>& a0, cpx<R>& a1, cpx<R>& a2,
   a3 = csub(e2, f2);
 }
 
-// cos(2*pi*m/P) and sin(2*pi*m/P) for P = 7, 11 and any m, from the
+// cos(2*pi*m/P) and sin(2*pi*m/P) for P = 7, 11, 13 and any m, from the
 // literals of m = 1 .. (P-1)/2 by symmetry (kernels/radix.py::_ODD_COS and
 // _ODD_SIN spell the same digits).  Called with constants only, so they
 // fold at compile time.
@@ -282,6 +284,15 @@ __host__ __device__ constexpr double odd_cos(int p, int m) {
            : m == 1 ? 0.62348980185873353053
            : m == 2 ? -0.22252093395631440429
                     : -0.90096886790241912624;
+  }
+  if (p == 13) {
+    return m == 0 ? 1.0
+           : m == 1 ? 0.88545602565320989590
+           : m == 2 ? 0.56806474673115580251
+           : m == 3 ? 0.12053668025532305335
+           : m == 4 ? -0.35460488704253562597
+           : m == 5 ? -0.74851074817110109863
+                    : -0.97094181742605202716;
   }
   return m == 0 ? 1.0
          : m == 1 ? 0.84125353283118116886
@@ -301,6 +312,15 @@ __host__ __device__ constexpr double odd_sin(int p, int m) {
                  : m == 2 ? 0.97492791218182360702
                           : 0.43388373911755812048);
   }
+  if (p == 13) {
+    return sg * (m == 0 ? 0.0
+                 : m == 1 ? 0.46472317204376854566
+                 : m == 2 ? 0.82298386589365639458
+                 : m == 3 ? 0.99270887409805399280
+                 : m == 4 ? 0.93501624268541482344
+                 : m == 5 ? 0.66312265824079520238
+                          : 0.23931566428755776715);
+  }
   return sg * (m == 0 ? 0.0
                : m == 1 ? 0.54064081745559758211
                : m == 2 ? 0.90963199535451837141
@@ -309,7 +329,7 @@ __host__ __device__ constexpr double odd_sin(int p, int m) {
                         : 0.28173255684142969771);
 }
 
-// The P-point DFT (P = 7, 11) of a with W_P = exp(s*2*pi*i/P), in place,
+// The P-point DFT (P = 7, 11, 13) of a with W_P = exp(s*2*pi*i/P), in place,
 // in the symmetric-pair form (kernels/radix.py::_dft_odd, the same order
 // of operations): b_j = a_j + a_(P-j), d_j = a_j - a_(P-j) for j < P/2;
 // out 0 = a_0 + sum b; outs k and P-k = e_k +- i*s*f_k with e_k = a_0 +
@@ -385,9 +405,10 @@ __device__ __forceinline__ void mixed_stages(cpx<R> (&v)[L],
         dft5(v[i0], v[i0 + m], v[i0 + 2 * m], v[i0 + 3 * m], v[i0 + 4 * m],
              s);
       } else {
-        // radix 7 or 11: the inputs (input 1 twiddled above) gathered
-        // into an array of constant indices, which stays in registers
-        static_assert(r == 7 || r == 11, "the chain's radices");
+        // radix 7, 11 or 13: the inputs (input 1 twiddled above)
+        // gathered into an array of constant indices, which stays in
+        // registers
+        static_assert(r == 7 || r == 11 || r == 13, "the chain's radices");
         cpx<R> a[r];
         auto gather = [&](auto qq) {
           constexpr int q = decltype(qq)::value;
@@ -790,6 +811,12 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(176, 11, 16)
       REPRO_RADIX_CASE(352, 16, 22)
       REPRO_RADIX_CASE(704, 22, 32)
+      // 13*2^k
+      REPRO_RADIX_CASE(26, 2, 13)
+      REPRO_RADIX_CASE(52, 4, 13)
+      REPRO_RADIX_CASE(104, 8, 13)
+      REPRO_RADIX_CASE(416, 16, 26)
+      REPRO_RADIX_CASE(832, 26, 32)
       default:
         break;
     }
@@ -814,6 +841,16 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(1792, 32, 56)
         REPRO_RADIX_CASE(2816, 44, 64)
         REPRO_RADIX_CASE(3584, 56, 64)
+        REPRO_RADIX_CASE(1664, 32, 52)
+        REPRO_RADIX_CASE(3328, 52, 64)
+        default:
+          break;
+      }
+    } else {
+      // complex128 only: ptxas spills the complex64 kernel of N = 208 =
+      // 13x16 (4 bytes and an 8-byte stack frame at 64 registers).
+      switch (n) {
+        REPRO_RADIX_CASE(208, 13, 16)
         default:
           break;
       }
@@ -860,6 +897,11 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(448, 16, 28)
       REPRO_RADIX_CASE(704, 22, 32)
       REPRO_RADIX_CASE(896, 28, 32)
+      REPRO_RADIX_CASE(416, 16, 26)
+      REPRO_RADIX_CASE(832, 26, 32)
+      // complex64 too: its pass B of 13x16 is clean (80 registers) where
+      // its plain kernel spills
+      REPRO_RADIX_CASE(208, 13, 16)
       default:
         break;
     }
@@ -882,6 +924,8 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(112, 8, 14)
         REPRO_RADIX_CASE(1408, 32, 44)
         REPRO_RADIX_CASE(1792, 32, 56)
+        REPRO_RADIX_CASE(104, 8, 13)
+        REPRO_RADIX_CASE(1664, 32, 52)
         default:
           break;
       }

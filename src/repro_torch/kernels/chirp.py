@@ -3,8 +3,8 @@ block that no other route takes, as Bluestein's convolution over the
 power-of-two routes.
 
 The radix, long-line and split routes take every N = r*2^k, r in
-``radix.MIXED_ODD`` = {3, 5, 7, 9, 11, 15}, to their limits, so the
-lengths left here have a prime factor of 13 or more: primes, 13*2^k,
+``radix.MIXED_ODD`` = {3, 5, 7, 9, 11, 13, 15}, to their limits, so the
+lengths left here have an odd part no codelet takes: primes from 17,
 and the odd products such as 21*2^k.  On the CPU the route runs
 :func:`emulate`; on the card two counted launches of the long-line or
 split route with the PyTorch glue around them.

@@ -33,10 +33,10 @@ which honour those bits anyway.
 
 Five routes, chosen from N and the dtype alone (:func:`radix.kernel_path`):
 power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) and
-the mixed N = r*2^k, r in {3, 5, 7, 9, 11, 15}, whose codelets stay in
-registers (to 3840 for complex64, 960 for complex128:
+the mixed N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15}, whose codelets stay
+in registers (to 3840 for complex64, 960 for complex128:
 ``radix.RADIX_SIZES``) take the radix path — two passes of in-register
-codelets (radix 2, or a chain of radix 2, 3, 4, 5, 7 and 11),
+codelets (radix 2, or a chain of radix 2, 3, 4, 5, 7, 11 and 13),
 ``csrc/fft_radix.cuh``, planned in
 ``kernels/radix.py``; the longer N whose line fits in one block's shared
 memory (powers of two 8192 and 16384 for complex64, 2048 to 8192 for
@@ -52,7 +52,8 @@ the line's epilogues; on the long-line route, stored in place and moved
 by a transpose launch that carries the epilogues — planned in
 ``kernels/split.py``, whose ``emulate`` is that
 route's plain version; every other N beyond the dense kernel's one block
-(a prime factor of 13 or more) takes the chirp route — Bluestein's
+(an odd part no codelet takes: primes from 17, odd products such as 21)
+takes the chirp route — Bluestein's
 convolution as two transforms of M =
 2^ceil(log2(2N - 1)) on the long-line or split route with the chirps in
 their ``twiddle`` epilogues, planned in ``kernels/chirp.py``, whose

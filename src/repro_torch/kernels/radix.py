@@ -2,8 +2,8 @@
 index maps, in Python.
 
 For N = N1*N2 (``transforms.factorize``) in :data:`RADIX_SIZES` (the
-powers of two and the mixed lengths r*2^k, r in {3, 5, 7, 9, 11, 15})
-the kernel (``csrc/fft_radix.cuh``) computes the four steps with
+powers of two and the mixed lengths r*2^k, r in {3, 5, 7, 9, 11, 13,
+15}) the kernel (``csrc/fft_radix.cuh``) computes the four steps with
 in-register codelets instead of dense DFT-matrix products (on the CPU,
 :func:`emulate` runs the same index maps):
 
@@ -22,17 +22,19 @@ m/2) does the butterflies (b+j, b+j+h) for b a multiple of m and j < h,
 the lower input multiplied by W_m^j = w[j * N2/m], where w[k] = W_N2^k
 for k < N2/2 is the one table both codelets share (N1 divides N2).
 
-A codelet of any other length L = 2^a 3^b 5^c 7^d 11^e (N a mixed length)
-is the mixed-radix decimation in time over the chain :func:`radices` (the
-11s, the 7s, the 5s, the 3s, then 4s and a last 2, first stage first):
+A codelet of any other length L = 2^a 3^b 5^c 7^d 11^e 13^f (N a mixed
+length) is the mixed-radix decimation in time over the chain
+:func:`radices` (the 13s, the 11s, the 7s, the 5s, the 3s, then 4s and a
+last 2, first stage first):
 the input sits in
 digit-reversed order (:func:`digit_rev`), and a stage of radix r after
 stages spanning m does, for every block b of m*r and j < m, the r-point
 DFT of v[b + j + q*m], q < r, input q first multiplied by W_(m*r)^(j*q) =
 w[j*q * L/(m*r)] from the codelet's own table of W_L^k, k < L (N1 need
 not divide N2: 384 = 16*24).  The r-point DFTs are the constant
-rotations of :func:`_dft_small` (radix 3, 4, 5, 7 and 11 with the
-direction's sign; no table; 7 and 11 in the symmetric-pair form).  For a mixed N both codelets have their own table
+rotations of :func:`_dft_small` (radix 3, 4, 5, 7, 11 and 13 with the
+direction's sign; no table; 7, 11 and 13 in the symmetric-pair form).
+For a mixed N both codelets have their own table
 (W_N1^k and W_N2^k), a power-of-two factor's codelet too.  The loops
 unroll fully in the kernel (N1 and N2 are template parameters), so every
 index is a constant and the values stay in registers.
@@ -83,7 +85,7 @@ SMEM_TARGET_BYTES = SMEM_MAX_BYTES // 2 - 1024
 #: complex64 (256 of complex128), whole sectors.
 STRIDED_LINES = 16
 #: The mixed lengths' odd parts: N = r*2^k, k >= 1.
-MIXED_ODD = (3, 5, 7, 9, 11, 15)
+MIXED_ODD = (3, 5, 7, 9, 11, 13, 15)
 
 
 def _mixed(limit: int) -> Tuple[int, ...]:
@@ -94,19 +96,23 @@ def _mixed(limit: int) -> Tuple[int, ...]:
 
 
 #: Lengths the kernel instantiates, per complex dtype: the powers of two
-#: and the mixed lengths (7*2^k and 11*2^k too: complex64 14-3584 and
-#: 22-2816, complex128 14-896 and 44-704), codelets of at most 64 values
-#: (complex64) or 32 (complex128).  complex128 stops at 1024: a codelet of
-#: 64 complex128 values would take 256 registers and spill, so 2048 and
-#: 4096 take the long-line route (three passes).  Two complex128 lengths
-#: whose kernels ptxas spills (4 bytes each) stay on the dense path: N = 2
-#: (at 64 registers) and N = 22 = 2x11 (at 80).
+#: and the mixed lengths (7*2^k, 11*2^k and 13*2^k too: complex64
+#: 14-3584, 22-2816 and 26-3328, complex128 14-896, 44-704 and 26-832),
+#: codelets of at most 64 values (complex64) or 32 (complex128).
+#: complex128 stops at 1024: a codelet of 64 complex128 values would take
+#: 256 registers and spill, so 2048 and 4096 take the long-line route
+#: (three passes).  Three lengths whose kernels ptxas spills at a low
+#: register count stay on the dense path: complex128 N = 2 (4 bytes at 64
+#: registers) and N = 22 = 2x11 (4 bytes at 80), complex64 N = 208 = 13x16
+#: (4 bytes and an 8-byte stack frame at 64).
+_SPILLS = {torch.complex64: (208,), torch.complex128: (2, 22)}
 RADIX_SIZES = {
     torch.complex64: tuple(sorted(
-        [2 ** k for k in range(1, 13)] + list(_mixed(64)))),
+        n for n in [2 ** k for k in range(1, 13)] + list(_mixed(64))
+        if n not in _SPILLS[torch.complex64])),
     torch.complex128: tuple(sorted(
         n for n in [2 ** k for k in range(1, 11)] + list(_mixed(32))
-        if n not in (2, 22))),
+        if n not in _SPILLS[torch.complex128])),
 }
 
 
@@ -146,15 +152,15 @@ def is_pow2(n: int) -> bool:
 
 
 #: The odd radices of the mixed codelets, in chain order.
-ODD_RADICES = (11, 7, 5, 3)
+ODD_RADICES = (13, 11, 7, 5, 3)
 
 
 def radices(length: int) -> Tuple[int, ...]:
     """The radix chain of a codelet of ``length``, first stage first: 2s
-    for a power of two (the radix-2 codelet); else the 11s, the 7s, the
-    5s, the 3s, then the 4s and a last 2 (``fft_radix.cuh``'s
+    for a power of two (the radix-2 codelet); else the 13s, the 11s, the
+    7s, the 5s, the 3s, then the 4s and a last 2 (``fft_radix.cuh``'s
     ``mixed_radix``).  Raises for a length below 2 or with a prime factor
-    other than 2, 3, 5, 7 and 11."""
+    other than 2, 3, 5, 7, 11 and 13."""
     if length >= 2 and is_pow2(length):
         return (2,) * (length.bit_length() - 1)
     rest, exps = length, {}
@@ -165,7 +171,8 @@ def radices(length: int) -> Tuple[int, ...]:
             exps[p] += 1
     if rest != 1 or length < 2:
         raise ValueError(f"the radix path takes N >= 2 whose only prime "
-                         f"factors are 2, 3, 5, 7 and 11, got {length}")
+                         f"factors are 2, 3, 5, 7, 11 and 13, got "
+                         f"{length}")
     a = exps[2]
     return (sum(((p,) * exps[p] for p in ODD_RADICES), ())
             + (4,) * (a // 2) + (2,) * (a % 2))
@@ -245,8 +252,8 @@ def radix_plan(n: int) -> RadixPlan:
     """The factorization and both codelets of ``n``: radix-2 codelets on
     the shared table for a power of two; for a mixed ``n`` each factor's
     codelet on its own table (radix-2 where that factor is a power of
-    two).  Raises for N < 2 or a prime factor other than 2, 3, 5, 7 and
-    11."""
+    two).  Raises for N < 2 or a prime factor other than 2, 3, 5, 7, 11
+    and 13."""
     radices(n)
     n1, n2 = factorize(n)
     if is_pow2(n):
@@ -367,21 +374,27 @@ def _run_codelet(v: list, stages, w: torch.Tensor) -> list:
 _S3 = 0.86602540378443864676
 _C51, _C52 = 0.30901699437494742410, -0.80901699437494742410
 _S51, _S52 = 0.95105651629515357212, 0.58778525229247312917
-#: cos(2*pi*j/P) and sin(2*pi*j/P), j = 1 .. (P-1)/2, of the radix-7 and
-#: radix-11 DFTs (``fft_radix.cuh``'s ``odd_cos``/``odd_sin`` spell the
-#: same digits).
+#: cos(2*pi*j/P) and sin(2*pi*j/P), j = 1 .. (P-1)/2, of the radix-7,
+#: radix-11 and radix-13 DFTs (``fft_radix.cuh``'s ``odd_cos``/``odd_sin``
+#: spell the same digits).
 _ODD_COS = {
     7: (0.62348980185873353053, -0.22252093395631440429,
         -0.90096886790241912624),
     11: (0.84125353283118116886, 0.41541501300188642553,
          -0.14231483827328514044, -0.65486073394528506406,
-         -0.95949297361449738989)}
+         -0.95949297361449738989),
+    13: (0.88545602565320989590, 0.56806474673115580251,
+         0.12053668025532305335, -0.35460488704253562597,
+         -0.74851074817110109863, -0.97094181742605202716)}
 _ODD_SIN = {
     7: (0.78183148246802980871, 0.97492791218182360702,
         0.43388373911755812048),
     11: (0.54064081745559758211, 0.90963199535451837141,
          0.98982144188093273238, 0.75574957435425828377,
-         0.28173255684142969771)}
+         0.28173255684142969771),
+    13: (0.46472317204376854566, 0.82298386589365639458,
+         0.99270887409805399280, 0.93501624268541482344,
+         0.66312265824079520238, 0.23931566428755776715)}
 
 
 def _odd_cs(p: int, m: int) -> Tuple[float, float]:
@@ -394,7 +407,7 @@ def _odd_cs(p: int, m: int) -> Tuple[float, float]:
 
 
 def _dft_odd(a: list, sign: float) -> list:
-    """The P-point DFT (P = 7, 11) in the symmetric-pair form: b_j = a_j +
+    """The P-point DFT (P = 7, 11, 13) in the symmetric-pair form: b_j = a_j +
     a_(P-j), d_j = a_j - a_(P-j) for j < P/2; out 0 = a_0 + sum b; outs k
     and P-k = e_k +- i*s*f_k with e_k = a_0 + sum_j b_j cos(2*pi*j*k/P),
     f_k = sum_j d_j sin(2*pi*j*k/P), each sum in the order of j."""
@@ -424,7 +437,7 @@ def _rot(a, sign: float):
 
 
 def _dft_small(a: list, sign: float) -> list:
-    """The r-point DFT (r = 2, 3, 4, 5, 7, 11) of ``a`` with W_r =
+    """The r-point DFT (r = 2, 3, 4, 5, 7, 11, 13) of ``a`` with W_r =
     exp(sign*2*pi*i/r), as the kernel's butterflies compute it."""
     r = len(a)
     if r in _ODD_COS:

@@ -3,9 +3,9 @@ holds, as a two-level four-step through HBM.
 
 A line of N = P*Q (:data:`FACTORS`: the powers of two, complex64 N from
 32768 to 2^24 and complex128 from 16384 to 2^22, and the mixed lengths
-r*2^k, r in ``radix.MIXED_ODD`` = {3, 5, 7, 9, 11, 15}, past the
+r*2^k, r in ``radix.MIXED_ODD`` = {3, 5, 7, 9, 11, 13, 15}, past the
 long-line route's up to the same limits; P a power of two, a mixed N's
-odd part in Q, so the radix-7 and radix-11 codelets run in pass B) is
+odd part in Q, so the radix-7, 11 and 13 codelets run in pass B) is
 viewed as (P, Q), x[p*Q + q], and
 transformed by the routes one block holds, in two launches (three with
 rows on the long-line route):
@@ -81,6 +81,8 @@ _POW2 = {
 #: 64 to 512 complex128 mostly, Q on the radix route up to 1920 complex64
 #: and 960 complex128, the longest with their rows on the long-line route.
 #: 11*2^11 complex64 is 512 x 44: pass B of 88 = 8x11 spills in ptxas.
+#: Pass B of 208 = 13x16 complex64 is clean though its plain kernel
+#: spills (``radix.RADIX_SIZES``), so Q need not be a radix-route length.
 _MIXED = {
     torch.complex64: (
         (256, 96), (256, 192), (256, 384), (512, 384), (256, 1536),
@@ -97,7 +99,10 @@ _MIXED = {
         (1024, 14336),
         (512, 44), (256, 176), (512, 176), (256, 704), (512, 704),
         (512, 1408), (1024, 1408), (512, 5632), (512, 11264),
-        (1024, 11264)),
+        (1024, 11264),
+        (256, 104), (256, 208), (256, 416), (256, 832), (512, 832),
+        (512, 1664), (256, 6656), (512, 6656), (512, 13312),
+        (1024, 13312)),
     torch.complex128: (
         (64, 192), (128, 192), (64, 768), (128, 768), (256, 768),
         (512, 768), (128, 6144), (256, 6144), (512, 6144),
@@ -110,7 +115,9 @@ _MIXED = {
         (64, 224), (128, 224), (128, 448), (256, 448), (256, 896),
         (64, 7168), (256, 3584), (512, 3584), (512, 7168),
         (64, 176), (128, 176), (64, 704), (128, 704), (256, 704),
-        (512, 704), (128, 5632), (256, 5632), (512, 5632)),
+        (512, 704), (128, 5632), (256, 5632), (512, 5632),
+        (64, 208), (128, 208), (256, 208), (256, 416), (256, 832),
+        (64, 6656), (128, 6656), (256, 6656), (512, 6656)),
 }
 #: (P, Q) per length and complex dtype: both tables.
 FACTORS = {dtype: {**_POW2[dtype], **{p * q: (p, q) for p, q in pairs}}

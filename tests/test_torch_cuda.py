@@ -8,7 +8,8 @@ longer than one block) and the FFT long-convolution mixer on it at
 S=16384, the radix route's mixed lengths (every one, strided axes, an
 unaligned view), the long-line and split routes' mixed lengths (every
 one, against the plain version and ``torch.fft``) and the mixer on them
-at S=3072 (no chirp call) and S=12288, the power-of-two long-line and
+at S=3072, 3328 and 3584 (no chirp call) and S=12288, the power-of-two
+long-line and
 split lengths bitwise equal to their plain versions, the chirp route at
 the lengths it keeps, the mixer on the kernel, its gradient through the
 kernel, and a
@@ -293,13 +294,13 @@ def test_fft_conv_at_16384_on_the_split_route(cuda):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cuda_mixed_radix_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
-    """Every mixed radix length (N = r*2^k, r in {3, 5, 7, 9, 11, 15}): one radix
-    launch each, against the plain version and ``torch.fft`` at the
+    """Every mixed radix length (N = r*2^k, r in {3, 5, 7, 9, 11, 13,
+    15}): one radix launch each, against the plain version and ``torch.fft`` at the
     kernel's tolerances, without an epilogue and with both (a pack_parts
     segment that is not a power of two where 3 divides N)."""
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in radix.RADIX_SIZES[dtype] if not radix.is_pow2(n)]
-    assert len(mixed) == (52 if dtype == torch.complex64 else 39)
+    assert len(mixed) == (59 if dtype == torch.complex64 else 45)
     for n in mixed:
         x = torch.from_numpy(cplx((21, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
@@ -344,12 +345,12 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
-    (torch.complex64, 6656, 3, False, None, True),      # M on long-line
-    (torch.complex64, 6656, 2, True, 4, False),
+    (torch.complex64, 5376, 3, False, None, True),      # M on long-line
+    (torch.complex64, 5376, 2, True, 4, False),
     (torch.complex64, 10007, 2, True, None, True),      # prime, M split
-    (torch.complex64, 13312, 1, False, 2, True),
+    (torch.complex64, 10752, 1, False, 2, True),
     (torch.complex128, 3001, 2, False, None, True),
-    (torch.complex128, 6656, 1, True, 13, False)])
+    (torch.complex128, 5376, 1, True, 7, False)])
 def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
         cuda, dtype, n, b, inverse, parts, use_tw):
     """The chirp route (one chirp call; its two inner transforms' launches
@@ -391,7 +392,7 @@ def split_rows_long(n, dtype) -> int:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [384, 6144, 6656, 24576])
+@pytest.mark.parametrize("n", [384, 6144, 5376, 24576])
 def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
     """A contiguous view 8 bytes into its storage, at mixed lengths on the
     radix, long-line (its row copies are 16-byte aligned: the wrapper
@@ -416,6 +417,14 @@ def test_fft_conv_at_3072_on_the_long_route(cuda):
     and 3 more backward, no chirp call, no dense launch and no line copy;
     the output and every gradient within 1e-4 of ``cufft``'s."""
     _fft_conv_on_the_long_route(cuda, 3072)
+
+
+@pytest.mark.cuda
+def test_fft_conv_at_3328_on_the_long_route(cuda):
+    """``fft_conv`` at S=3328 (lines of 6656 = 26x16x16, the radix-13
+    codelet's length), as at S=3072: 6 long-line launches forward and
+    backward, no chirp call, every gradient within 1e-4 of ``cufft``'s."""
+    _fft_conv_on_the_long_route(cuda, 3328)
 
 
 @pytest.mark.cuda
@@ -469,7 +478,7 @@ def _fft_conv_on_the_long_route(cuda, s):
 def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
     """Every mixed long-line length (complex64 4608-15360, complex128
-    1152-7680, r in {3, 5, 7, 9, 11, 15}): one launch on "long" each,
+    1152-7680, r in {3, 5, 7, 9, 11, 13, 15}): one launch on "long" each,
     against the plain version (``longline.emulate``) and ``torch.fft`` at
     the kernel's tolerances, without an epilogue and with both (segments
     of N/r, r the least odd prime of N)."""
@@ -477,12 +486,12 @@ def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in sorted(longline.FACTORS[dtype])
              if not radix.is_pow2(n)]
-    assert len(mixed) == (12 if dtype == torch.complex64 else 18)
+    assert len(mixed) == (14 if dtype == torch.complex64 else 21)
     for n in mixed:
         x = torch.from_numpy(cplx((37, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
                        / (2 * n)).to(dtype)
-        parts = next(r for r in (3, 5, 7, 11) if n % r == 0)
+        parts = next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
         lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
         for t, p in ((None, None), (tw, parts)):
             tfm.reset_launch_counts()
@@ -514,7 +523,7 @@ def test_cuda_split_mixed_lengths_match_plain_version_and_torch_fft(
              if not radix.is_pow2(n)]
     for i, n in enumerate(mixed):
         inverse, use_tw = i % 2 == 1, i % 3 == 0
-        parts = (next(r for r in (3, 5, 7, 11) if n % r == 0)
+        parts = (next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
                  if i % 2 else None)
         b = max(1, (1 << 24) // (n * dtype.itemsize))
         x = torch.from_numpy(cplx((b, n), i)).to(cuda, dtype)

@@ -291,7 +291,9 @@ def test_kernel_operands_are_resolved():
     (8192, torch.complex128, "long"), (32768, torch.complex64, "split"),
     (16384, torch.complex128, "split"), (1 << 24, torch.complex64, "split"),
     (1 << 22, torch.complex128, "split"), (1 << 25, torch.complex64, "dense"),
-    (1 << 23, torch.complex128, "dense"), (13312, torch.complex64, "chirp")])
+    (1 << 23, torch.complex128, "dense"), (10752, torch.complex64, "chirp"),
+    (13312, torch.complex64, "long"), (208, torch.complex128, "radix"),
+    (208, torch.complex64, "dense")])
 def test_kernel_path_selection(n, dtype, path):
     """The path follows N and the dtype alone: N with a radix
     instantiation (powers of two, and mixed r*2^k such as 24, 96 and
@@ -299,10 +301,12 @@ def test_kernel_path_selection(n, dtype, path):
     line fits in a block's shared memory the long-line kernel, the
     power-of-two N beyond one block up to 2^24 (complex64) / 2^22
     (complex128) the split route, every other N beyond one block up to
-    half those (13312 = 13*1024) the chirp route, every other N the dense
-    one (which the card refuses past one block: 2^25 / 2^23).  The mixed
-    lengths past the radix route: test_torch_long_mixed_fft.py and
-    test_torch_split_mixed_fft.py."""
+    half those (10752 = 21*512: no codelet takes an odd part of 21) the
+    chirp route, every other N the dense one (which the card refuses past
+    one block: 2^25 / 2^23).  The mixed lengths past the radix route
+    (13312 = 13*1024 is a long line): test_torch_long_mixed_fft.py and
+    test_torch_split_mixed_fft.py.  complex64 208 = 13x16 is dense: ptxas
+    spills its radix kernel."""
     assert radix.kernel_path(n, dtype) == path
 
 
@@ -322,9 +326,9 @@ def test_radix_plan_factors_and_codelets():
                 assert all(w is None or 0 < w < plan.n2 // 2
                            for _, _, w in stage)
     assert [radix.bitrev(i, 3) for i in range(8)] == [0, 4, 2, 6, 1, 5, 3, 7]
-    for bad in (0, 1, 13, 26, 39):
+    for bad in (0, 1, 17, 34, 51):
         with pytest.raises(ValueError,
-                           match="prime factors are 2, 3, 5, 7 and 11"):
+                           match="prime factors are 2, 3, 5, 7, 11 and 13"):
             radix.radix_plan(bad)
 
 

@@ -1,7 +1,7 @@
 """The radix route's mixed lengths (``kernels/radix.py``,
-``csrc/fft_radix.cuh``): N = r*2^k, r in {3, 5, 7, 9, 11, 15}, whose
-codelets are chains of radix-11, 7, 5, 3, 4 and 2 butterflies on
-digit-reversed loads (radix 7 and 11 in the symmetric-pair form).  The
+``csrc/fft_radix.cuh``): N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15}, whose
+codelets are chains of radix-13, 11, 7, 5, 3, 4 and 2 butterflies on
+digit-reversed loads (radix 7, 11 and 13 in the symmetric-pair form).  The
 kernel's plan and index maps, run in torch by ``radix.emulate``, are held
 against ``np.fft`` and against the JAX package's Pallas kernel in interpret
 mode on the same numpy inputs: both directions, the twiddle epilogue,
@@ -35,7 +35,9 @@ LENGTHS = [(torch.complex64, n) for n in (6, 12, 30, 36, 60, 96, 384, 1536,
           [(torch.complex128, n) for n in (6, 30, 96, 384, 960)] + \
           [(torch.complex64, n) for n in (14, 56, 448, 3584, 22, 352,
                                           2816)] + \
-          [(torch.complex128, n) for n in (896, 704)]
+          [(torch.complex128, n) for n in (896, 704)] + \
+          [(torch.complex64, n) for n in (26, 416, 3328)] + \
+          [(torch.complex128, n) for n in (208, 832)]
 #: (batch, inverse, twiddle, pack_parts): ragged batches, both directions,
 #: each epilogue; pack_parts 3 where 3 divides N, else 2.
 VARIANTS = [(37, False, False, None), (5, True, True, None),
@@ -132,7 +134,9 @@ def test_mixed_radix_plan_matches_numpy_and_pallas(case, request):
                                      (torch.complex64, 448),
                                      (torch.complex64, 1408),
                                      (torch.complex128, 44),
-                                     (torch.complex128, 704)])
+                                     (torch.complex128, 704),
+                                     (torch.complex64, 416),
+                                     (torch.complex128, 208)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_mixed_strided_layout_matches_numpy(dtype, n, inverse):
     """The strided ``(outer, N, inner)`` layout at mixed lengths, a
@@ -158,10 +162,11 @@ def test_mixed_strided_layout_matches_numpy(dtype, n, inverse):
     (15, (5, 3)), (24, (3, 4, 2)), (40, (5, 4, 2)), (48, (3, 4, 4)),
     (60, (5, 3, 4)), (16, (2, 2, 2, 2)), (7, (7,)), (11, (11,)),
     (14, (7, 2)), (28, (7, 4)), (56, (7, 4, 2)), (22, (11, 2)),
-    (44, (11, 4)), (77, (11, 7))])
+    (44, (11, 4)), (77, (11, 7)), (13, (13,)), (26, (13, 2)),
+    (52, (13, 4)), (104, (13, 4, 2)), (143, (13, 11))])
 def test_mixed_codelet_chain_and_loads(length, chain):
-    """The radix chain (the 11s, the 7s, the 5s, the 3s, then 4s and a
-    last 2; 2s for a
+    """The radix chain (the 13s, the 11s, the 7s, the 5s, the 3s, then 4s
+    and a last 2; 2s for a
     power of two), the load order (a permutation; bit reversal for a
     power of two), and every stage touching each register once with its
     twiddle inside the codelet's own table of ``length`` entries."""
@@ -180,28 +185,53 @@ def test_mixed_codelet_chain_and_loads(length, chain):
         assert all(e is None or 0 < e < length
                    for _, tws in stage for e in tws)
     # one codelet on a unit impulse at each input is that input's DFT row
+    # (the row's phases reduced mod the length first: np.exp of 2*pi*i*k/L
+    # unreduced loses about L ulps of the phase)
     for i in range(length):
         v = [torch.zeros((), dtype=torch.complex128)] * length
         v[slots[i]] = torch.ones((), dtype=torch.complex128)
         w = torch.from_numpy(np.exp(-2j * np.pi * np.arange(length)
                                     / length))
         out = radix.run_codelet(v, length, stages, w, -1.0)
-        want = np.exp(-2j * np.pi * i * np.arange(length) / length)
+        want = np.exp(-2j * np.pi * (i * np.arange(length) % length)
+                      / length)
         assert_scaled_close(np.array([complex(o) for o in out]), want,
                             1e-13)
 
 
+@pytest.mark.parametrize("n,factors,chains", [
+    (416, (16, 26), ((2, 2, 2, 2), (13, 2))),
+    (3328, (52, 64), ((13, 4), (2,) * 6))])
+def test_mixed_13_codelets_of_416_and_3328(n, factors, chains):
+    """416 = 16 x 26 puts a radix-13 and a radix-2 stage in one codelet
+    beside a power-of-two codelet; 3328 = 52 x 64 a radix-13 and a
+    radix-4 stage beside the radix-2 codelet of 64: the plan's codelets
+    follow the chain, each on its own table (N2 then N1 entries), and
+    both codelets' loads are permutations."""
+    plan = radix.radix_plan(n)
+    assert (plan.n1, plan.n2) == factors == factorize(n)
+    assert tuple(radix.radices(f) for f in factors) == chains
+    assert radix.table_elems(n) == sum(factors)
+    for f in factors:
+        assert sorted(radix.load_slot(i, f) for i in range(f)) \
+            == list(range(f))
+    for dtype in (torch.complex64, torch.complex128):
+        want = "radix" if max(factors) <= (64 if dtype == torch.complex64
+                                           else 32) else "long"
+        assert radix.kernel_path(n, dtype) == want
+
+
 def test_mixed_sizes_tables_and_tiles():
-    """52 mixed complex64 lengths to 3840 and 39 complex128 to 960 (17
-    and 12 of them 7*2^k and 11*2^k: complex128 22 spills and runs
-    dense), every
+    """59 mixed complex64 lengths to 3840 and 45 complex128 to 960 (24
+    and 18 of them 7*2^k, 11*2^k and 13*2^k: complex128 22 and complex64
+    208 spill in ptxas and run dense), every
     codelet at most 64 (complex64) or 32 (complex128) long; each codelet
     has its own table (N2 + N1 entries); the tile's lines are a power of
     two; the split route's P stays a power of two (its pass A), and its Q
-    is a power of two or a mixed length of the radix or long-line route
-    (its pass B)."""
-    for dtype, count, cap in ((torch.complex64, 52, 64),
-                              (torch.complex128, 39, 32)):
+    is a power of two or a mixed length of the long-line route or of the
+    codelets (its pass B: complex64 208 runs there, clean in ptxas)."""
+    for dtype, count, cap in ((torch.complex64, 59, 64),
+                              (torch.complex128, 45, 32)):
         mixed = [n for n in radix.RADIX_SIZES[dtype]
                  if not radix.is_pow2(n)]
         assert len(mixed) == count
@@ -217,15 +247,21 @@ def test_mixed_sizes_tables_and_tiles():
             tile = radix.radix_tile(n, dtype.itemsize, True, False)
             assert tile.lines & (tile.lines - 1) == 0
             assert tile.lines * n1 <= radix.THREADS
+    caps = {torch.complex64: 64, torch.complex128: 32}
     for dtype, table in split.FACTORS.items():
         for n, (p, q) in table.items():
             assert radix.is_pow2(p)
             assert radix.is_pow2(q) == radix.is_pow2(n)
-            assert radix.kernel_path(q, dtype) in ("radix", "long")
+            assert (q in split.ROW_SIZES[dtype]) != (
+                radix.kernel_path(q, dtype) == "long")
         for n in split.COLUMN_SIZES[dtype]:
             assert radix.is_pow2(n)
         for n in split.ROW_SIZES[dtype]:
-            assert n in radix.RADIX_SIZES[dtype]
+            odd = n >> ((n & -n).bit_length() - 1)
+            assert odd == 1 or odd in radix.MIXED_ODD
+            assert max(factorize(n)) <= caps[dtype]
+            assert n in radix.RADIX_SIZES[dtype] or (dtype, n) == (
+                torch.complex64, 208)
     # 384 = 16 * 24: N1 does not divide N2, so the tables are separate
     w = radix.codelet_table(384, True)
     assert_scaled_close(w[:24], np.exp(2j * np.pi * np.arange(24) / 24),
