@@ -8,7 +8,8 @@ Run from the root of a checkout:
 Phases (any failure raises and the script exits non-zero without printing
 its result line):
 
-1. build the CUDA kernel from ``src/repro_torch/csrc`` and print the build
+1. build the CUDA kernel from ``src/repro_torch/csrc`` (its translation
+   units compiled at once, ``kernels/build.py``) and print the build
    time, ``ptxas``'s registers, spills and stack frame per kernel
    instantiation (a radix or long-line instantiation, the split route's
    passes included, that spills or keeps a stack frame fails the run)
@@ -20,7 +21,7 @@ its result line):
    and split length of both dtypes (the long and split ones, powers of two
    and mixed lengths, with both epilogues, also against ``torch.fft``),
    every mixed radix length of
-   both dtypes (r*2^k, r in {3, 5, 7, 9, 11, 13, 15}: both directions, both
+   both dtypes (r*2^k, r in ``radix.RADIX_ODD``: both directions, both
    epilogues, a ``pack_parts`` segment that is not a power of two, also
    against ``torch.fft``), chirp lengths of both inner routes, and
    strided ``(outer, N, inner)`` blocks through ``fft_fourstep_strided``
@@ -114,7 +115,7 @@ its result line):
 17. ``[long]``: the long-line kernel at the mixer's (8192, 8192)
     complex64 lines against its plain version and ``torch.fft``, timed
     beside its bound; the other long lengths of both dtypes at 512 MB; the dense kernel at (262144,
-    672), a length no other route takes; each reached once through
+    600 = 75*8), a length no other route takes; each reached once through
     ``ops.fft1d`` (one launch on its path); then ``[split]``: the split route (lines beyond one block,
     N = P*Q in two launches through HBM, three with rows on the
     long-line route) at complex64 N = 2^15, 2^16, 2^20, 2^24 and
@@ -125,36 +126,40 @@ its result line):
     ``[split_plan]``: a ``plan_fft`` C2C plan of (64, 64, 32768)
     complex64 on the kernel against ``fftn``, launches per path and line
     copies recorded; ``[mixed]``: the radix route at mixed lengths,
-    (262144, 384), (262144, 448) and (262144, 416) complex64 and one
-    length per odd part (3, 5, 7, 9, 11, 13, 15) and dtype at 512 MB, each
-    once through
+    (262144, 384), (262144, 448), (262144, 416), (262144, 672) and
+    (262144, 360) complex64 and one length per odd part (``radix.
+    RADIX_ODD``: 3 to 63) and dtype at 512 MB, each once through
     ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft`` and the bound;
-    ``[mixed_plan]``: ``plan_fft`` C2C at 384^3, 448^3 and 416^3 complex64 on
+    ``[mixed_plan]``: ``plan_fft`` C2C at 384^3, 448^3, 416^3 and 360^3
+    complex64 on
     the kernel, 3 radix launches per direction (2 strided), 0 dense, 0
     chirp, 0 line copies, against ``fftn`` and the round trip, ms per
     direction beside ``fftn``, a ``cufft`` plan and the bound; the PPB
     solve at 384^3 against the ``cufft`` backend's, 8 radix launches;
     ``[long_mixed]``: the long-line route at every mixed length of both
-    dtypes (complex64 4608-15360, complex128 1152-7680), 512 MB each,
-    once through ``ops.fft1d`` (one "long" launch), against its plain
-    version and ``torch.fft``, timed beside ``torch.fft`` and the bound,
-    then the four lengths the radix-13 codelet took off the chirp route
-    at 256 MB beside their chirp time;
+    dtypes (complex64 4608-15360, complex128 1152-7680; an odd R1 for
+    21*2^k, 25*2^k and 27*2^k), 512 MB each, once through ``ops.fft1d``
+    (one "long" launch), against its plain version and ``torch.fft``,
+    timed beside ``torch.fft`` and the bound, then the four 21*2^k
+    lengths that left the chirp route at 256 MB beside their chirp time;
     ``[split_mixed]``: the split route at mixed lengths (complex64 24576,
     49152, 98304, 3*2^21, 15*2^19 and the shortest and longest 7*2^k,
-    11*2^k and 13*2^k; complex128 12288, 24576, 9*2^15 and likewise), 512
-    MB each,
+    11*2^k, 13*2^k, 21*2^k, 25*2^k and 27*2^k; complex128 12288, 24576,
+    9*2^15 and likewise), 512 MB each,
     likewise (one split call); ``[mixed_long_plan]``:
     ``plan_fft`` C2C of (128, 128, 6144) complex64 on the kernel against
     ``fftn`` and the round trip, the 6144 axis on the long-line route, no
     dense or chirp launch, no copy, ms beside ``fftn`` and a ``cufft``
     plan; ``[chirp]``: the chirp route (Bluestein over two transforms of
     M on the long-line or split route) at lengths no other route takes,
-    complex64 5376, 10007, 10752 and complex128 3001, 2688, 5376, 256 MB
+    complex64 5760, 10007, 11520 and complex128 3001, 2880, 5760, 256 MB
     each, once through ``ops.fft1d`` (one chirp call, its launches on
     "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
-    timed beside ``torch.fft`` and the bound, the glue's ms apart; then
+    timed beside ``torch.fft`` and the bound, the glue's ms apart;
+    ``[gaps]``: likewise at the odd parts 33 to 63 and 75 past the radix
+    route, one length each per dtype on the chirp (and four on the dense
+    kernel), 256 MB each, to rank what no route but these takes; then
     ``[lm_fftconv]``: the FFT long-convolution mixer at jamba-v0.1-52b's
     width (8192 channels), B=1, S=2048, 3072, 3584, 4096, 8192, 12288,
     16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of ``"cufft"``
@@ -355,7 +360,7 @@ def phase_build(timer=time.perf_counter) -> dict:
     lib = build.build()
     seconds = timer() - t0
     print(f"[build] {lib.name}.cu built and loaded in {seconds:.2f} s "
-          f"(nvcc {lib.seconds:.2f} s)")
+          f"(nvcc {lib.seconds:.2f} s, {build.PARTS + 1} units at once)")
     report = ptxas_report(lib.log)
     for e in report:
         print(f"[build] {e['kernel']}: {e.get('registers')} registers, "
@@ -468,14 +473,14 @@ def kernel_cases():
             cases += [(37, n, False, None, False, dt, ""),
                       (5, n, True, 3 if n % 3 == 0 else 2, True, dt, "")]
     cases.append((37, 384, True, None, True, c64, "x"))
-    # the chirp route: lengths of both inner routes (21*2^k and primes),
+    # the chirp route: lengths of both inner routes (45*2^k and primes),
     # both dtypes, directions and epilogues
-    for b, n, inv, parts, tw, dt in ((2, 5376, False, None, True, c64),
-                                     (3, 5376, True, 2, False, c64),
+    for b, n, inv, parts, tw, dt in ((2, 5760, False, None, True, c64),
+                                     (3, 5760, True, 2, False, c64),
                                      (1, 10007, True, None, True, c64),
-                                     (1, 10752, False, 4, True, c64),
+                                     (1, 11520, False, 4, True, c64),
                                      (2, 3001, False, None, True, c128),
-                                     (1, 5376, True, 7, False, c128)):
+                                     (1, 5760, True, 5, False, c128)):
         cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
 
@@ -2264,15 +2269,15 @@ def print_lines(phase: str, recs) -> None:
 
 
 def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
-               dense_shape=(262144, 672), iters: int = 10) -> dict:
+               dense_shape=(262144, 600), iters: int = 10) -> dict:
     """``[long]``: the long-line kernel at the mixer's shape at S=4096,
     (8192, 8192) complex64, against its plain version (``longline.
     emulate``) and ``torch.fft.fft``, timed beside the HBM bound; every
     other power-of-two long length of both dtypes at 512 MB of lines
     against ``torch.fft`` (``[long_mixed]`` times the mixed ones); and the
     dense
-    kernel at a length no other route takes, (262144, 672) complex64
-    (672 = 21*32: no codelet takes an odd part of 21), with its plain
+    kernel at a length no other route takes, (262144, 600) complex64
+    (600 = 75*8: no codelet takes an odd part of 75), with its plain
     version, ``torch.fft`` and the bound.  Each kernel is reached
     once through ``ops.fft1d`` with the counts set to 0 just before and
     read just after (one launch on its path)."""
@@ -2297,13 +2302,14 @@ def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
         print_lines("long", [out["long"], *out["lengths"], out["dense"]])
     return out
 
-#: (dtype name, N, ms) of the lengths the radix-13 codelet moved from the
-#: chirp route to the long-line route, with their chirp time at 256 MB of
-#: lines on an H100 80GB HBM3 at 700 W (``[chirp]`` of the parent tree's
-#: ``chip_smoke.py``).
-MOVED_FROM_CHIRP = (("complex64", 6656, 1.5909), ("complex64", 13312, 2.5082),
-                    ("complex128", 3328, 1.5696),
-                    ("complex128", 6656, 2.5137))
+#: (dtype name, N, ms) of the 21*2^k lengths that the odd R1 = 21 moved
+#: from the chirp route to the long-line route, with their chirp time at
+#: 256 MB of lines on an H100 80GB HBM3 at 700 W (``[chirp]`` of the
+#: parent tree's ``chip_smoke.py``).
+MOVED_FROM_CHIRP = (("complex64", 5376, 1.8868),
+                    ("complex64", 10752, 3.0126),
+                    ("complex128", 2688, 1.8500),
+                    ("complex128", 5376, 3.0282))
 
 
 def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
@@ -2356,7 +2362,9 @@ def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
 #: on long-line rows; complex128 on radix and on long-line rows; then the
 #: shortest and the longest 7*2^k, 11*2^k and 13*2^k of each dtype (c64
 #: 13*2^20 and c128 13*2^18 raised before the radix-13 codelet), and c64
-#: 13*2^12, whose pass B of 208 runs no radix-route length.
+#: 13*2^12, whose pass B of 208 runs no radix-route length; then the
+#: shortest and the longest 21*2^k, 25*2^k and 27*2^k of each dtype
+#: (chirp before).
 SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
                        ("complex64", 98304), ("complex64", 3 << 21),
                        ("complex64", 15 << 19), ("complex128", 12288),
@@ -2367,7 +2375,13 @@ SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
                        ("complex128", 11 << 10), ("complex128", 11 << 18),
                        ("complex64", 13 << 11), ("complex64", 13 << 20),
                        ("complex128", 13 << 10), ("complex128", 13 << 18),
-                       ("complex64", 13 << 12))
+                       ("complex64", 13 << 12),
+                       ("complex64", 21 << 10), ("complex64", 21 << 19),
+                       ("complex64", 25 << 10), ("complex64", 25 << 19),
+                       ("complex64", 27 << 10), ("complex64", 27 << 19),
+                       ("complex128", 21 << 9), ("complex128", 21 << 17),
+                       ("complex128", 25 << 9), ("complex128", 25 << 17),
+                       ("complex128", 27 << 9), ("complex128", 27 << 17))
 
 
 def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
@@ -2398,25 +2412,40 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
 
 #: (dtype name, N) of ``[mixed]``'s timings beside (262144, 384)
 #: complex64: one length per odd part r = 3, 5, 7, 9, 11, 13, 15 and per
-#: dtype (the longest 7*2^k, 11*2^k and 13*2^k of each dtype).
+#: dtype (the longest 7*2^k, 11*2^k and 13*2^k of each dtype), then the
+#: longest r*2^k of each odd product r = 21 to 63 and dtype (complex128
+#: 504 for 63: complex64 504 spills and runs dense).
 MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex64", 2304), ("complex64", 3840),
                  ("complex128", 768), ("complex128", 640),
                  ("complex128", 576), ("complex128", 960),
                  ("complex64", 3584), ("complex64", 2816),
                  ("complex128", 896), ("complex128", 704),
-                 ("complex64", 3328), ("complex128", 832))
+                 ("complex64", 3328), ("complex128", 832),
+                 ("complex64", 2688), ("complex64", 3200),
+                 ("complex64", 3456), ("complex64", 2112),
+                 ("complex64", 2240), ("complex64", 2496),
+                 ("complex64", 2880), ("complex64", 3136),
+                 ("complex64", 3520), ("complex64", 4032),
+                 ("complex128", 672), ("complex128", 800),
+                 ("complex128", 864), ("complex128", 528),
+                 ("complex128", 560), ("complex128", 624),
+                 ("complex128", 720), ("complex128", 784),
+                 ("complex128", 440), ("complex128", 504))
 
 
 def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
-                shape13=(262144, 416), lengths=MIXED_LENGTHS,
+                shape13=(262144, 416), shape21=(262144, 672),
+                shape45=(262144, 360), lengths=MIXED_LENGTHS,
                 lengths_bytes: int = 512 << 20, iters: int = 10) -> dict:
     """``[mixed]``: the radix route at mixed lengths (N = r*2^k, chains
     of radix-13, 11, 7, 5, 3, 4 and 2 codelets): (262144, 384) complex64,
     where the dense route took 3.4354 ms before, (262144, 448), where it
     took 3.4432 before the radix-7 codelet, (262144, 416), where it took
-    3.1830 before the radix-13 codelet, and one length per odd part and
-    dtype at about 512 MB of lines, each reached once through
+    3.1830 before the radix-13 codelet, (262144, 672 = 21*32), where it
+    took 6.9234 before the odd products joined the radix route, (262144,
+    360 = 45*8), the one-degree grid's longitudes, and one length per odd
+    part and dtype at about 512 MB of lines, each reached once through
     ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft.fft`` and the bound."""
     import torch
@@ -2426,6 +2455,10 @@ def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
                                      SEED + 69), "mixed", "radix", iters),
            "main13": line_entry(randc(shape13, torch.complex64, device,
                                       SEED + 68), "mixed", "radix", iters),
+           "main21": line_entry(randc(shape21, torch.complex64, device,
+                                      SEED + 67), "mixed", "radix", iters),
+           "main45": line_entry(randc(shape45, torch.complex64, device,
+                                      SEED + 66), "mixed", "radix", iters),
            "lengths": []}
     for i, (dt, n) in enumerate(lengths):
         dtype = getattr(torch, dt)
@@ -2436,6 +2469,7 @@ def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
     if device.type == "cuda":
         torch.cuda.empty_cache()
         print_lines("mixed", [out["main"], out["main7"], out["main13"],
+                              out["main21"], out["main45"],
                               *out["lengths"]])
     return out
 
@@ -2444,7 +2478,8 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
                      poisson: bool = True) -> dict:
     """``[mixed_plan]``: the main path at a mixed grid.  ``plan_fft`` C2C
     of 384^3 complex64 (453 MB; 448^3, 719 MB, for the radix-7 codelets;
-    416^3, 576 MB, for the radix-13 ones)
+    416^3, 576 MB, for the radix-13 ones; 360^3, 373 MB, for the odd
+    products: 360 = 18 x 20, the 3s and the 5 of 45 over both codelets)
     on ``backend="kernel"``: forward against ``fftn`` (``PATH_TOL``) and
     the round trip (``ROUNDTRIP_TOL``), with exactly 3 radix launches per
     direction (2 on the strided entry), 0 dense, 0 chirp, 0 line copies, a
@@ -2539,13 +2574,26 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
     return out
 
 
-#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 21*2^k
-#: (an odd part no codelet takes) whose M takes the long-line and the
-#: split route, a prime past one block; complex128 likewise.  The first is
-#: the ``fft_fourstep_chirp`` entry's timing.
-CHIRP_LENGTHS = (("complex64", 5376), ("complex64", 10007),
-                 ("complex64", 10752), ("complex128", 3001),
-                 ("complex128", 2688), ("complex128", 5376))
+#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 45*2^k
+#: (an odd part only the radix route takes) whose M takes the long-line
+#: and the split route, a prime past one block; complex128 likewise.  The
+#: first is the ``fft_fourstep_chirp`` entry's timing.
+CHIRP_LENGTHS = (("complex64", 5760), ("complex64", 10007),
+                 ("complex64", 11520), ("complex128", 3001),
+                 ("complex128", 2880), ("complex128", 5760))
+#: (dtype name, N, route) of ``[gaps]``: the shortest r*2^k past the
+#: radix route and the dense kernel's one block for the odd parts 33 to
+#: 63 but 45 (``[chirp]``'s) and for 75, per dtype, on the chirp route;
+#: and 35*2^7 and 75*2^6 (complex64), 33*2^5 and 75*2^5 (complex128)
+#: within one block, on the dense kernel.
+GAP_LENGTHS = tuple(
+    [("complex64", n, "chirp") for n in (33 << 8, 35 << 8, 39 << 7,
+                                         49 << 7, 55 << 7, 63 << 7, 75 << 7)]
+    + [("complex128", n, "chirp") for n in (33 << 7, 35 << 7, 39 << 6,
+                                            49 << 6, 55 << 6, 63 << 6,
+                                            75 << 6)]
+    + [("complex64", 35 << 7, "dense"), ("complex64", 75 << 6, "dense"),
+       ("complex128", 33 << 5, "dense"), ("complex128", 75 << 5, "dense")])
 
 
 def phase_chirp(device, lengths=CHIRP_LENGTHS,
@@ -2585,6 +2633,30 @@ def phase_chirp(device, lengths=CHIRP_LENGTHS,
             torch.cuda.empty_cache()
     if cuda:
         print_lines("chirp", out["lengths"])
+    return out
+
+
+def phase_gaps(device, lengths=GAP_LENGTHS, lengths_bytes: int = 256 << 20,
+               iters: int = 10) -> dict:
+    """``[gaps]``: the odd parts that no route past one block takes but
+    the chirp (r = 33 to 63 past the radix route, and 75), each length
+    reached once through ``ops.fft1d`` on the route ``lengths`` names
+    (one chirp call, or one dense launch), about 256 MB of lines, against
+    its plain version and within ``PATH_TOL`` of ``torch.fft``, timed
+    beside ``torch.fft.fft`` and the bound: the readings that rank the
+    next routes to build."""
+    import torch
+    out = {"lengths": []}
+    for i, (dt, n, route) in enumerate(lengths):
+        dtype = getattr(torch, dt)
+        b = max(1, lengths_bytes // (n * dtype.itemsize))
+        out["lengths"].append(line_entry(
+            randc((b, n), dtype, device, SEED + 130 + i), "gaps", route,
+            iters, plain_iters=2, tol=PATH_TOL))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if device.type == "cuda":
+        print_lines("gaps", out["lengths"])
     return out
 
 
@@ -3284,6 +3356,9 @@ def main(timer=time.perf_counter) -> int:
     report["mixed_plan_416"] = mixed_plan13 = phase_mixed_plan(
         device, grid=(416, 416, 416), poisson=False)
     torch.cuda.empty_cache()
+    report["mixed_plan_360"] = mixed_plan45 = phase_mixed_plan(
+        device, grid=(360, 360, 360), poisson=False)
+    torch.cuda.empty_cache()
     report["long_mixed"] = long_mixed = phase_long_mixed(device)
     torch.cuda.empty_cache()
     report["split_mixed"] = split_mixed = phase_split_mixed(device)
@@ -3291,6 +3366,8 @@ def main(timer=time.perf_counter) -> int:
     report["mixed_long_plan"] = phase_mixed_long_plan(device)
     torch.cuda.empty_cache()
     report["chirp"] = chirp_ = phase_chirp(device)
+    torch.cuda.empty_cache()
+    report["gaps"] = phase_gaps(device)
     torch.cuda.empty_cache()
     report["lm_fftconv"] = fftconv = phase_lm_fftconv(device)
     torch.cuda.empty_cache()
@@ -3385,7 +3462,7 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "lm_fftconv_8192": mixer_runs[8192]["float32"]["counts"]["long"],
              "train_fftconv_4096": train_long["counts"]["long"]}},
-        # launches: one ops.fft1d call at (262144, 672)
+        # launches: one ops.fft1d call at (262144, 600)
         {"name": "fft_fourstep_dense", "route": "cuda",
          "source": KERNEL_SOURCE, "path": "dense",
          "replaces": "src/repro/kernels/fft_matmul.py:216",
@@ -3430,9 +3507,10 @@ def main(timer=time.perf_counter) -> int:
              "mixed_plan_inverse": mixed_plan["inverse_counts"]["radix"],
              "mixed_plan_poisson": mixed_plan["poisson_counts"]["radix"],
              "mixed_plan_448": mixed_plan7["forward_counts"]["radix"],
-             "mixed_plan_416": mixed_plan13["forward_counts"]["radix"]}},
+             "mixed_plan_416": mixed_plan13["forward_counts"]["radix"],
+             "mixed_plan_360": mixed_plan45["forward_counts"]["radix"]}},
         # launches: [chirp]'s calls, one ops.fft1d call per length (no
-        # LM path runs the chirp route now); timed at lines of 5376
+        # LM path runs the chirp route now); timed at lines of 5760
         {"name": "fft_fourstep_chirp", "route": "cuda",
          "source": CHIRP_SOURCE, "path": "chirp",
          "sources": [CHIRP_SOURCE, LONG_SOURCE, RADIX_SOURCE],

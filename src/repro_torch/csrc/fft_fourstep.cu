@@ -2,18 +2,21 @@
 //
 // Five routes, chosen by the wrapper from N and the dtype alone
 // (kernels/radix.py::kernel_path): power-of-two N up to 4096 (complex64) or
-// 1024 (complex128), and the mixed N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15},
-// whose codelets stay in registers, take the radix route (fft_radix.cuh: two
-// passes of in-register codelets, contiguous or strided lines); the longer
-// powers of two and mixed N whose line fits in one block's shared memory take
-// the long-line route (fft_long.cuh: three passes over a line loaded by TMA);
-// the powers of two and mixed N beyond one block (complex64 to 2^24, complex128
-// to 2^22) take the split route (kernels/split.py: N = P*Q, P a power of two,
+// 1024 (complex128), and the mixed N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15,
+// 21, 25, 27, 33, 35, 39, 45, 49, 55, 63} (radix.RADIX_ODD), whose codelets
+// stay in registers, take the radix route (fft_radix.cuh: two passes of
+// in-register codelets, contiguous or strided lines); the longer powers of two
+// and mixed N (odd part 3 to 15, 21, 25 or 27: radix.EVERY_ROUTE_ODD) whose
+// line fits in one block's shared memory take the long-line route
+// (fft_long.cuh: three passes over a line loaded by TMA); the powers of two
+// and those mixed N beyond one block (complex64 to 2^24, complex128 to
+// 2^22) take the split route (kernels/split.py: N = P*Q, P a power of two,
 // pass A a strided radix launch on the P-long columns with the inter-step
 // twiddle, pass B a radix launch on the Q-long rows stored transposed, or a
-// long-line launch on them stored in place and a transpose); any other N beyond
-// one block (its odd part not one of those: primes from 17, odd products such
-// as 21 = 3*7) takes the chirp route (kernels/chirp.py: Bluestein's convolution
+// long-line launch on them stored in place and a transpose); any other N
+// beyond one block (its odd
+// part not one of those: primes from 17, the odd parts 33 to 63 and from 65)
+// takes the chirp route (kernels/chirp.py: Bluestein's convolution
 // as two of these launches on lines of M = 2^ceil(log2(2N - 1)), the chirps in
 // their twiddle epilogues); any other N takes the general dense kernel below.
 //
@@ -57,12 +60,44 @@
 //  * pack_parts = p stores the output destination-major, (p, B, N/p):
 //    the send buffer of the next all_to_all, contiguous per destination,
 //    so the exchange ships it without a copy.  p = 1 is the plain layout.
+//
+// The build (kernels/build.py) compiles this file as REPRO_BUILD_PARTS + 1
+// translation units at once and links them into one library: with
+// REPRO_PART = k, only the radix and long-line kernels of build part k
+// (repro_fft::build_part: the hash that spreads the lengths over the
+// parts), explicitly instantiated below; with REPRO_PART = -1, the dense
+// kernel, the split route's transposes and the C entry points, which
+// route each length to its part's radix_part or long_part.  Compiled with
+// neither macro, it is the whole library in one unit.
 
 #include <cuda_runtime.h>
 
 #include "fft_common.cuh"
 #include "fft_long.cuh"
 #include "fft_radix.cuh"
+
+#if defined(REPRO_PART) && REPRO_PART >= 0
+
+#define REPRO_RADIX_PART(R, MODE)                                          \
+  template int repro_fft::radix_part<R, repro_fft::MODE, REPRO_PART>(      \
+      int, const void*, void*, const void*, const void*, long long,        \
+      long long, int, int, int, int, int, int, cudaStream_t);
+#define REPRO_LONG_PART(R)                                                 \
+  template int repro_fft::long_part<R, REPRO_PART>(                        \
+      int, const void*, void*, const void*, const void*, long long, int,   \
+      int, int, cudaStream_t);
+REPRO_RADIX_PART(float, kRadixPlain)
+REPRO_RADIX_PART(double, kRadixPlain)
+REPRO_RADIX_PART(float, kRadixSplitA)
+REPRO_RADIX_PART(double, kRadixSplitA)
+REPRO_RADIX_PART(float, kRadixSplitB)
+REPRO_RADIX_PART(double, kRadixSplitB)
+REPRO_LONG_PART(float)
+REPRO_LONG_PART(double)
+#undef REPRO_RADIX_PART
+#undef REPRO_LONG_PART
+
+#else
 
 namespace {
 
@@ -333,3 +368,5 @@ const char* repro_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif

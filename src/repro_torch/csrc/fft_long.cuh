@@ -1,8 +1,8 @@
 // The long-line route of the four-step kernel: lines that fit whole in one
 // block's shared memory but not in the radix route's two in-register passes
 // (complex64 N = 8192, 16384; complex128 N = 2048, 4096, 8192; and the
-// mixed N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15}, of complex64 4608 to
-// 15360 and complex128 1152 to 7680), on Hopper.
+// mixed N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}, of complex64
+// 4608 to 15360 and complex128 1152 to 7680), on Hopper.
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -36,9 +36,10 @@
 //    TC: R1*R3 + R1*R2 + R2*R3 entries, not N, built in float64 on the host
 //    (kernels/fft_matmul.py::_long_constants) and kept in shared memory.
 //    Threads of a warp read consecutive entries of TA and TC and one of TB.
-// Mixed lengths (long_mixed_kernel, below): one factor, R1 = r*2^a, runs
-// the radix route's mixed chain (codelet, load_slot) on its own table of
-// R1 entries; R2 and R3 are powers of two.  The line is copied in R1 rows
+// Mixed lengths (long_mixed_kernel, below): one factor, R1 = r*2^a (odd
+// for r = 21, 25, 27), runs the radix route's mixed chain (codelet,
+// load_slot) on its own table of R1 entries; R2 and R3 are powers of two.
+// The line is copied in R1 rows
 // of N/R1 at a pitch of N/R1 plus 16 bytes (R1 bulk copies on one
 // mbarrier), and each pass transforms one item at a time and stores it
 // where it was read, (k1, m2, m3) then (k1, k2, m3), so no pass needs its
@@ -601,27 +602,40 @@ constexpr int long_depth() {
   return long_smem_bytes<R, R1, R2, R3, 2>() <= kLongSmemMax ? 2 : 1;
 }
 
-template <typename R>
-int long_dispatch(int n, const void* x, void* out, const void* consts,
-                  const void* tw, long long batch, int inverse, int seg_arg,
-                  int smem_bytes, cudaStream_t stream) {
+// The lengths of build part PART (build_part, fft_radix.cuh) on the
+// long-line kernels; cudaErrorInvalidValue for any other N.
+template <typename R, int PART>
+int long_part(int n, const void* x, void* out, const void* consts,
+              const void* tw, long long batch, int inverse, int seg_arg,
+              int smem_bytes, cudaStream_t stream);
+
+#if !defined(REPRO_PART) || REPRO_PART >= 0
+template <typename R, int PART>
+int long_part(int n, const void* x, void* out, const void* consts,
+              const void* tw, long long batch, int inverse, int seg_arg,
+              int smem_bytes, cudaStream_t stream) {
+  constexpr bool c64 = sizeof(R) == sizeof(float);
 #define REPRO_LONG_CASE(NN, A, B, C)                                       \
   case NN:                                                                 \
-    return long_launch<R>(                                                 \
-        long_kernel<R, A, B, C, long_depth<R, A, B, C>()>,                 \
-        LongShape<A, B, C>::THREADS,                                       \
-        long_smem_bytes<R, A, B, C, long_depth<R, A, B, C>()>(), x, out,   \
-        consts, tw, batch, inverse, seg_arg, smem_bytes, stream);
+    if constexpr (build_part(NN, kLongMode, c64) == PART)                  \
+      return long_launch<R>(                                               \
+          long_kernel<R, A, B, C, long_depth<R, A, B, C>()>,               \
+          LongShape<A, B, C>::THREADS,                                     \
+          long_smem_bytes<R, A, B, C, long_depth<R, A, B, C>()>(), x, out, \
+          consts, tw, batch, inverse, seg_arg, smem_bytes, stream);        \
+    break;
 #define REPRO_LONG_MIXED_CASE(NN, A, B, C)                                 \
   case NN:                                                                 \
-    return long_launch<R>(                                                 \
-        long_mixed_kernel<R, A, B, C>, long_mixed_threads<R, A, B, C>(),   \
-        long_mixed_smem_bytes<R, A, B, C,                                  \
-                              long_mixed_depth<R, A, B, C>()>(),           \
-        x, out, consts, tw, batch, inverse, seg_arg, smem_bytes, stream);
+    if constexpr (build_part(NN, kLongMode, c64) == PART)                  \
+      return long_launch<R>(                                               \
+          long_mixed_kernel<R, A, B, C>, long_mixed_threads<R, A, B, C>(), \
+          long_mixed_smem_bytes<R, A, B, C,                                \
+                                long_mixed_depth<R, A, B, C>()>(),         \
+          x, out, consts, tw, batch, inverse, seg_arg, smem_bytes, stream); \
+    break;
   // kernels/longline.py::FACTORS lists the same factors.  seg_arg is the
   // pack_parts segment's log2 for a power of two, its length for a mixed N.
-  if constexpr (sizeof(R) == sizeof(float)) {
+  if constexpr (c64) {
     switch (n) {
       REPRO_LONG_CASE(8192, 16, 16, 32)
       REPRO_LONG_CASE(16384, 16, 32, 32)
@@ -639,6 +653,13 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(14336, 28, 16, 32)
       REPRO_LONG_MIXED_CASE(6656, 26, 16, 16)
       REPRO_LONG_MIXED_CASE(13312, 26, 16, 32)
+      // R1 odd: 21*2^k, 25*2^k and 27*2^k
+      REPRO_LONG_MIXED_CASE(5376, 21, 16, 16)
+      REPRO_LONG_MIXED_CASE(10752, 21, 16, 32)
+      REPRO_LONG_MIXED_CASE(6400, 25, 16, 16)
+      REPRO_LONG_MIXED_CASE(12800, 25, 16, 32)
+      REPRO_LONG_MIXED_CASE(6912, 27, 16, 16)
+      REPRO_LONG_MIXED_CASE(13824, 27, 16, 32)
       default:
         break;
     }
@@ -668,6 +689,15 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(1664, 26, 8, 8)
       REPRO_LONG_MIXED_CASE(3328, 26, 8, 16)
       REPRO_LONG_MIXED_CASE(6656, 26, 16, 16)
+      REPRO_LONG_MIXED_CASE(1344, 21, 8, 8)
+      REPRO_LONG_MIXED_CASE(2688, 21, 8, 16)
+      REPRO_LONG_MIXED_CASE(5376, 21, 16, 16)
+      REPRO_LONG_MIXED_CASE(1600, 25, 8, 8)
+      REPRO_LONG_MIXED_CASE(3200, 25, 8, 16)
+      REPRO_LONG_MIXED_CASE(6400, 25, 16, 16)
+      REPRO_LONG_MIXED_CASE(1728, 27, 8, 8)
+      REPRO_LONG_MIXED_CASE(3456, 27, 8, 16)
+      REPRO_LONG_MIXED_CASE(6912, 27, 16, 16)
       default:
         break;
     }
@@ -675,6 +705,21 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
 #undef REPRO_LONG_CASE
 #undef REPRO_LONG_MIXED_CASE
   return (int)cudaErrorInvalidValue;
+}
+#endif
+
+// Lines of n on the long-line kernels: long_part of n's build part.
+template <typename R, int P = 0>
+int long_dispatch(int n, const void* x, void* out, const void* consts,
+                  const void* tw, long long batch, int inverse, int seg_arg,
+                  int smem_bytes, cudaStream_t stream) {
+  if constexpr (P + 1 < kBuildParts) {
+    if (build_part(n, kLongMode, sizeof(R) == sizeof(float)) != P)
+      return long_dispatch<R, P + 1>(n, x, out, consts, tw, batch, inverse,
+                                     seg_arg, smem_bytes, stream);
+  }
+  return long_part<R, P>(n, x, out, consts, tw, batch, inverse, seg_arg,
+                         smem_bytes, stream);
 }
 
 // The split route's pass C for a power-of-two Q: z holds B lines of (P, Q)

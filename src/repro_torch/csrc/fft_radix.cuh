@@ -1,6 +1,7 @@
 // The radix path of the four-step kernel: N = N1*N2 on Hopper, with
 // in-register sub-DFTs, for the powers of two and the mixed lengths
-// r*2^k, r in {3, 5, 7, 9, 11, 13, 15} (kernels/radix.py::RADIX_SIZES).
+// r*2^k, r in {3, 5, 7, 9, 11, 13, 15, 21, 25, 27, 33, 35, 39, 45, 49, 55,
+// 63} (kernels/radix.py::RADIX_ODD, RADIX_SIZES).
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -91,6 +92,28 @@ constexpr int kRadixThreads = 256;
 constexpr int kRadixPlain = 0;
 constexpr int kRadixSplitA = 1;
 constexpr int kRadixSplitB = 2;
+// The long-line route's kernels, in build_part.
+constexpr int kLongMode = 3;
+
+// The build (kernels/build.py) compiles the instantiations in
+// REPRO_BUILD_PARTS translation units at once, one nvcc each: part
+// build_part(n, mode, c64) instantiates the kernel of lines of n for a
+// radix MODE (or kLongMode) and dtype, a hash that spreads the lengths
+// evenly.  REPRO_PART = k compiles the dispatch bodies (radix_part,
+// long_part) of part k; REPRO_PART = -1 leaves them out (the unit with
+// the entry points, which route each length to its part); undefined, one
+// unit holds everything.
+#ifndef REPRO_BUILD_PARTS
+#define REPRO_BUILD_PARTS 1
+#endif
+constexpr int kBuildParts = REPRO_BUILD_PARTS;
+
+__host__ __device__ constexpr int build_part(int n, int mode, bool c64) {
+  return (int)((((unsigned)n * 8u + (unsigned)mode * 2u + (c64 ? 1u : 0u)) *
+                2654435761u) >>
+               16) %
+         kBuildParts;
+}
 
 __host__ __device__ constexpr int ilog2(int n) {
   return n <= 1 ? 0 : 1 + ilog2(n / 2);
@@ -743,21 +766,31 @@ int radix_launch(const void* x, void* out, const void* consts,
 }
 
 // N = N1*N2 as transforms.factorize splits it: for a power of two N1 =
-// 2^floor(k/2), N2 = 2^ceil(k/2).  Returns cudaErrorInvalidValue for an N
-// without an instantiation of MODE: kernels/radix.py::RADIX_SIZES lists
+// 2^floor(k/2), N2 = 2^ceil(k/2).  Launches the lengths of build part PART
+// (build_part); returns cudaErrorInvalidValue for an N without an
+// instantiation of MODE in that part: kernels/radix.py::RADIX_SIZES lists
 // the plain ones, kernels/split.py::COLUMN_SIZES (pass A) and ROW_SIZES
 // (pass B) the split route's.
-template <typename R, int MODE>
-int radix_dispatch(int n, const void* x, void* out, const void* consts,
-                   const void* tw, long long outer, long long inner,
-                   int inverse, int seg_arg, int lines_log2, int strided,
-                   int aux_log2, int smem_bytes, cudaStream_t stream) {
+template <typename R, int MODE, int PART>
+int radix_part(int n, const void* x, void* out, const void* consts,
+               const void* tw, long long outer, long long inner, int inverse,
+               int seg_arg, int lines_log2, int strided, int aux_log2,
+               int smem_bytes, cudaStream_t stream);
+
+#if !defined(REPRO_PART) || REPRO_PART >= 0
+template <typename R, int MODE, int PART>
+int radix_part(int n, const void* x, void* out, const void* consts,
+               const void* tw, long long outer, long long inner, int inverse,
+               int seg_arg, int lines_log2, int strided, int aux_log2,
+               int smem_bytes, cudaStream_t stream) {
 #define REPRO_RADIX_CASE(NN, A, B)                                          \
   case NN:                                                                  \
-    return radix_launch<R, A, B, MODE>(x, out, consts, tw, outer, inner,    \
-                                       inverse, seg_arg, lines_log2,        \
-                                       strided, aux_log2, smem_bytes,       \
-                                       stream);
+    if constexpr (build_part(NN, MODE, c64) == PART)                        \
+      return radix_launch<R, A, B, MODE>(x, out, consts, tw, outer, inner,  \
+                                         inverse, seg_arg, lines_log2,      \
+                                         strided, aux_log2, smem_bytes,     \
+                                         stream);                           \
+    break;
   constexpr bool c64 = sizeof(R) == sizeof(float);
   if constexpr (MODE == kRadixPlain) {
     switch (n) {
@@ -817,6 +850,48 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(104, 8, 13)
       REPRO_RADIX_CASE(416, 16, 26)
       REPRO_RADIX_CASE(832, 26, 32)
+      // the odd products r*2^k, r = 21, 25, 27, 33, 35, 39, 45, 49, 55
+      // and 63: one codelet each (42 = 6x7, 864 = 27x32)
+      REPRO_RADIX_CASE(42, 6, 7)
+      REPRO_RADIX_CASE(50, 5, 10)
+      REPRO_RADIX_CASE(54, 6, 9)
+      REPRO_RADIX_CASE(66, 6, 11)
+      REPRO_RADIX_CASE(70, 7, 10)
+      REPRO_RADIX_CASE(78, 6, 13)
+      REPRO_RADIX_CASE(84, 7, 12)
+      REPRO_RADIX_CASE(90, 9, 10)
+      REPRO_RADIX_CASE(98, 7, 14)
+      REPRO_RADIX_CASE(100, 10, 10)
+      REPRO_RADIX_CASE(108, 9, 12)
+      REPRO_RADIX_CASE(110, 10, 11)
+      REPRO_RADIX_CASE(126, 9, 14)
+      REPRO_RADIX_CASE(132, 11, 12)
+      REPRO_RADIX_CASE(140, 10, 14)
+      REPRO_RADIX_CASE(156, 12, 13)
+      REPRO_RADIX_CASE(168, 12, 14)
+      REPRO_RADIX_CASE(180, 12, 15)
+      REPRO_RADIX_CASE(196, 14, 14)
+      REPRO_RADIX_CASE(200, 10, 20)
+      REPRO_RADIX_CASE(216, 12, 18)
+      REPRO_RADIX_CASE(220, 11, 20)
+      REPRO_RADIX_CASE(252, 14, 18)
+      REPRO_RADIX_CASE(264, 12, 22)
+      REPRO_RADIX_CASE(280, 14, 20)
+      REPRO_RADIX_CASE(312, 13, 24)
+      REPRO_RADIX_CASE(336, 16, 21)
+      REPRO_RADIX_CASE(360, 18, 20)
+      REPRO_RADIX_CASE(392, 14, 28)
+      REPRO_RADIX_CASE(400, 20, 20)
+      REPRO_RADIX_CASE(432, 18, 24)
+      REPRO_RADIX_CASE(440, 20, 22)
+      REPRO_RADIX_CASE(528, 22, 24)
+      REPRO_RADIX_CASE(560, 20, 28)
+      REPRO_RADIX_CASE(624, 24, 26)
+      REPRO_RADIX_CASE(672, 24, 28)
+      REPRO_RADIX_CASE(720, 24, 30)
+      REPRO_RADIX_CASE(784, 28, 28)
+      REPRO_RADIX_CASE(800, 25, 32)
+      REPRO_RADIX_CASE(864, 27, 32)
       default:
         break;
     }
@@ -843,14 +918,39 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(3584, 56, 64)
         REPRO_RADIX_CASE(1664, 32, 52)
         REPRO_RADIX_CASE(3328, 52, 64)
+        // the odd products (1056 = 32x33, 4032 = 63x64)
+        REPRO_RADIX_CASE(880, 22, 40)
+        REPRO_RADIX_CASE(1008, 28, 36)
+        REPRO_RADIX_CASE(1056, 32, 33)
+        REPRO_RADIX_CASE(1120, 32, 35)
+        REPRO_RADIX_CASE(1248, 32, 39)
+        REPRO_RADIX_CASE(1344, 32, 42)
+        REPRO_RADIX_CASE(1440, 36, 40)
+        REPRO_RADIX_CASE(1568, 32, 49)
+        REPRO_RADIX_CASE(1600, 40, 40)
+        REPRO_RADIX_CASE(1728, 36, 48)
+        REPRO_RADIX_CASE(1760, 40, 44)
+        REPRO_RADIX_CASE(2016, 42, 48)
+        REPRO_RADIX_CASE(2112, 44, 48)
+        REPRO_RADIX_CASE(2240, 40, 56)
+        REPRO_RADIX_CASE(2496, 48, 52)
+        REPRO_RADIX_CASE(2688, 48, 56)
+        REPRO_RADIX_CASE(2880, 48, 60)
+        REPRO_RADIX_CASE(3136, 56, 56)
+        REPRO_RADIX_CASE(3200, 50, 64)
+        REPRO_RADIX_CASE(3456, 54, 64)
+        REPRO_RADIX_CASE(3520, 55, 64)
+        REPRO_RADIX_CASE(4032, 63, 64)
         default:
           break;
       }
     } else {
-      // complex128 only: ptxas spills the complex64 kernel of N = 208 =
-      // 13x16 (4 bytes and an 8-byte stack frame at 64 registers).
+      // complex128 only: ptxas spills the complex64 kernels of N = 208 =
+      // 13x16 (4 bytes and an 8-byte stack frame at 64 registers) and N =
+      // 504 = 21x24 (4 bytes and an 8-byte stack frame at 80).
       switch (n) {
         REPRO_RADIX_CASE(208, 13, 16)
+        REPRO_RADIX_CASE(504, 21, 24)
         default:
           break;
       }
@@ -902,6 +1002,16 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
       // complex64 too: its pass B of 13x16 is clean (80 registers) where
       // its plain kernel spills
       REPRO_RADIX_CASE(208, 13, 16)
+      // 21*2^k, 25*2^k and 27*2^k
+      REPRO_RADIX_CASE(168, 12, 14)
+      REPRO_RADIX_CASE(336, 16, 21)
+      REPRO_RADIX_CASE(672, 24, 28)
+      REPRO_RADIX_CASE(200, 10, 20)
+      REPRO_RADIX_CASE(400, 20, 20)
+      REPRO_RADIX_CASE(800, 25, 32)
+      REPRO_RADIX_CASE(216, 12, 18)
+      REPRO_RADIX_CASE(432, 18, 24)
+      REPRO_RADIX_CASE(864, 27, 32)
       default:
         break;
     }
@@ -926,6 +1036,12 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(1792, 32, 56)
         REPRO_RADIX_CASE(104, 8, 13)
         REPRO_RADIX_CASE(1664, 32, 52)
+        REPRO_RADIX_CASE(84, 7, 12)
+        REPRO_RADIX_CASE(1344, 32, 42)
+        REPRO_RADIX_CASE(100, 10, 10)
+        REPRO_RADIX_CASE(1600, 40, 40)
+        REPRO_RADIX_CASE(108, 9, 12)
+        REPRO_RADIX_CASE(1728, 36, 48)
         default:
           break;
       }
@@ -939,6 +1055,24 @@ int radix_dispatch(int n, const void* x, void* out, const void* consts,
   }
 #undef REPRO_RADIX_CASE
   return (int)cudaErrorInvalidValue;
+}
+#endif
+
+// Lines of n on the radix kernel of MODE: radix_part of n's build part.
+template <typename R, int MODE, int P = 0>
+int radix_dispatch(int n, const void* x, void* out, const void* consts,
+                   const void* tw, long long outer, long long inner,
+                   int inverse, int seg_arg, int lines_log2, int strided,
+                   int aux_log2, int smem_bytes, cudaStream_t stream) {
+  if constexpr (P + 1 < kBuildParts) {
+    if (build_part(n, MODE, sizeof(R) == sizeof(float)) != P)
+      return radix_dispatch<R, MODE, P + 1>(
+          n, x, out, consts, tw, outer, inner, inverse, seg_arg, lines_log2,
+          strided, aux_log2, smem_bytes, stream);
+  }
+  return radix_part<R, MODE, P>(n, x, out, consts, tw, outer, inner,
+                                inverse, seg_arg, lines_log2, strided,
+                                aux_log2, smem_bytes, stream);
 }
 
 }  // namespace repro_fft

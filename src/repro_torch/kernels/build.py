@@ -1,7 +1,16 @@
 """Build the port's CUDA kernel at first use and load it with ctypes.
 
 ``csrc/fft_fourstep.cu`` compiles with ``nvcc`` into a shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds).
+a plain C interface (no PyTorch headers).  It instantiates every length
+the routes take, one kernel each (376: 315 radix, 55 long-line, 4
+transposes, 2 dense), which one ``nvcc`` run compiles in minutes (227-319
+s on an H100 machine, PERF.md).  So the build splits them over
+:data:`PARTS` translation units of the same source (``-DREPRO_PART=k``:
+the kernels of build part k, ``fft_radix.cuh``'s ``build_part``; ``-1``:
+the entry points), compiles all of them at once, one ``nvcc -c`` each,
+and links the objects into one library; the first use on a fresh machine
+waits for the slowest part.
+
 Libraries land in ``build/repro_torch/`` at the root of the checkout (listed
 in ``.gitignore``), named by a hash of the flags, the source and every
 header under ``csrc/`` it includes (``#include "..."``, followed
@@ -28,8 +37,11 @@ from pathlib import Path
 from typing import Callable, Dict
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v")
+#: Translation units that hold the kernels, compiled beside the one that
+#: holds the entry points.
+PARTS = 8
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v", f"-DREPRO_BUILD_PARTS={PARTS}")
 SOURCE = "fft_fourstep"
 
 
@@ -38,7 +50,8 @@ class BuiltLibrary:
     name: str
     path: Path
     lib: ctypes.CDLL
-    seconds: float      # nvcc wall time; 0.0 when an earlier build was reused
+    seconds: float      # the build's wall time (every unit and the link);
+                        # 0.0 when an earlier build was reused
     log: str            # nvcc's output (ptxas register/shared-memory report)
 
 
@@ -99,6 +112,41 @@ def _target(name: str) -> Path:
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def _compile(name: str, out: Path) -> str:
+    """``csrc/<name>.cu`` as its ``PARTS + 1`` translation units, one
+    ``nvcc -c`` each, all started at once, then linked into ``out``.
+    Returns nvcc's output, the units' in order (ptxas's report per
+    instantiation); raises ``RuntimeError`` with it when a step fails."""
+    src = str(csrc_dir() / f"{name}.cu")
+    objs = out.with_suffix(".parts")
+    objs.mkdir(exist_ok=True)
+    try:
+        units = [(part, objs / f"part{part + 1}.o")
+                 for part in range(-1, PARTS)]
+        procs = [subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, f"-DREPRO_PART={part}", "-c", "-o",
+             str(obj), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for part, obj in units]
+        log = "".join(proc.communicate()[0] for proc in procs)
+        failed = [part for (part, _), proc in zip(units, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed to compile {name}.cu "
+                               f"(REPRO_PART {failed}):\n{log}")
+        link = subprocess.run(
+            [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(out),
+             *(str(obj) for _, obj in units)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log += link.stdout
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link {name}.cu "
+                               f"(exit {link.returncode}):\n{log}")
+        return log
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
+
+
 def build(name: str = SOURCE, *,
           timer: Callable[[], float] = time.perf_counter) -> BuiltLibrary:
     """Build ``csrc/<name>.cu`` unless an earlier build is on disk, and load
@@ -115,14 +163,8 @@ def build(name: str = SOURCE, *,
             build_dir().mkdir(parents=True, exist_ok=True)
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             t0 = timer()
-            res = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(csrc_dir() / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            seconds, log = timer() - t0, res.stdout
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {name}.cu "
-                                   f"(exit {res.returncode}):\n{log}")
+            log = _compile(name, tmp)
+            seconds = timer() - t0
             os.replace(tmp, target)
             counts["builds"] += 1
         counts["loads"] += 1

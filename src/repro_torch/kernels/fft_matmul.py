@@ -33,14 +33,16 @@ which honour those bits anyway.
 
 Five routes, chosen from N and the dtype alone (:func:`radix.kernel_path`):
 power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) and
-the mixed N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15}, whose codelets stay
-in registers (to 3840 for complex64, 960 for complex128:
+the mixed N = r*2^k, r in ``radix.RADIX_ODD`` (3, 5, 7, 9, 11, 13, 15 and
+the odd products 21, 25, 27, 33, 35, 39, 45, 49, 55, 63), whose codelets
+stay in registers (to 4032 for complex64, 960 for complex128:
 ``radix.RADIX_SIZES``) take the radix path — two passes of in-register
 codelets (radix 2, or a chain of radix 2, 3, 4, 5, 7, 11 and 13),
 ``csrc/fft_radix.cuh``, planned in
 ``kernels/radix.py``; the longer N whose line fits in one block's shared
 memory (powers of two 8192 and 16384 for complex64, 2048 to 8192 for
-complex128; the mixed lengths 4608 to 15360 and 1152 to 7680) take the
+complex128; the mixed lengths 4608 to 15360 and 1152 to 7680 whose odd
+part is in ``radix.EVERY_ROUTE_ODD``) take the
 long-line path — three such passes over a line loaded by TMA,
 ``csrc/fft_long.cuh``, planned in ``kernels/longline.py``, whose
 ``emulate`` is this path's plain version; the powers of two and mixed
@@ -52,8 +54,8 @@ the line's epilogues; on the long-line route, stored in place and moved
 by a transpose launch that carries the epilogues — planned in
 ``kernels/split.py``, whose ``emulate`` is that
 route's plain version; every other N beyond the dense kernel's one block
-(an odd part no codelet takes: primes from 17, odd products such as 21)
-takes the chirp route — Bluestein's
+(an odd part no route past one block takes: primes from 17, the odd
+parts 33 to 63 and those from 65) takes the chirp route — Bluestein's
 convolution as two transforms of M =
 2^ceil(log2(2N - 1)) on the long-line or split route with the chirps in
 their ``twiddle`` epilogues, planned in ``kernels/chirp.py``, whose

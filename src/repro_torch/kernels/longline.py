@@ -4,10 +4,10 @@ layouts and their index maps, in Python.
 Lines too long for the radix route's two in-register passes still fit
 whole in one block's shared memory: the powers of two (complex64 N of
 8192 and 16384, complex128 N of 2048 to 8192) and the mixed lengths
-r*2^k, r in ``radix.MIXED_ODD`` = {3, 5, 7, 9, 11, 13, 15}, from past
-``radix.RADIX_SIZES`` to the same 128 KB line (complex64 4608 to 15360,
-complex128 1152 to 7680).  On the CPU the route runs :func:`emulate`; on
-the card one launch of ``fft_long.cuh``.  The
+r*2^k, r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25,
+27}, from past ``radix.RADIX_SIZES`` to the same 128 KB line (complex64
+4608 to 15360, complex128 1152 to 7680).  On the CPU the route runs
+:func:`emulate`; on the card one launch of ``fft_long.cuh``.  The
 kernel (``csrc/fft_long.cuh``) holds one line there and transforms it in
 three passes over N = R1*R2*R3, each an in-register codelet of length at
 most 32 (:data:`FACTORS`).  With the input index m = m1*(R2*R3) + m2*R3 +
@@ -33,8 +33,9 @@ stores any, into the layout (m3, kA) with a row pitch of R1*R2 + 1, so
 that pass 3 reads consecutive addresses, and pass 3 loads all of them
 before the buffer is released to the next line's copy.
 
-A mixed length has exactly one mixed factor, R1 = r*2^a (the radix
-route's chain of radix-13, 11, 7, 5, 3, 4 and 2 codelets,
+A mixed length has exactly one mixed factor, R1 = r*2^a (odd for r = 21,
+25 and 27; the radix route's chain of radix-13, 11, 7, 5, 3, 4 and 2
+codelets,
 ``radix.radices``, on its own table of R1 entries), and R2, R3 powers of
 two (radix-2 codelets on a table of max(R2, R3)/2 entries).  Its line is
 copied in R1 rows of N/R1 with a pitch of N/R1 plus 16 bytes
@@ -76,8 +77,9 @@ from . import radix
 #: Codelets of at most 32 values: ptxas keeps 32 complex128 values in
 #: registers (the radix route's 32x32 instantiation does), not 64.  A
 #: mixed length's mixed factor is R1, with as many 2s as 32 allows (28 for
-#: 7*2^k, 22 for 11*2^k, 26 for 13*2^k), so the power-of-two passes are as
-#: short as they can be.
+#: 7*2^k, 22 for 11*2^k, 26 for 13*2^k; none for 21*2^k, 25*2^k and
+#: 27*2^k, whose R1 is odd), so the power-of-two passes are as short as
+#: they can be.  An odd part above 32 (33 to 63) has no R1 here.
 FACTORS = {
     torch.complex64: {
         8192: (16, 16, 32), 16384: (16, 32, 32),
@@ -85,7 +87,9 @@ FACTORS = {
         7680: (30, 16, 16), 9216: (18, 16, 32), 10240: (20, 16, 32),
         12288: (24, 16, 32), 15360: (30, 16, 32),
         5632: (22, 16, 16), 7168: (28, 16, 16), 11264: (22, 16, 32),
-        14336: (28, 16, 32), 6656: (26, 16, 16), 13312: (26, 16, 32)},
+        14336: (28, 16, 32), 6656: (26, 16, 16), 13312: (26, 16, 32),
+        5376: (21, 16, 16), 10752: (21, 16, 32), 6400: (25, 16, 16),
+        12800: (25, 16, 32), 6912: (27, 16, 16), 13824: (27, 16, 32)},
     torch.complex128: {
         2048: (8, 16, 16), 4096: (16, 16, 16), 8192: (16, 16, 32),
         1152: (18, 8, 8), 1280: (20, 8, 8), 1536: (24, 8, 8),
@@ -94,7 +98,10 @@ FACTORS = {
         5120: (20, 16, 16), 6144: (24, 16, 16), 7680: (30, 16, 16),
         1408: (22, 8, 8), 1792: (28, 8, 8), 2816: (22, 8, 16),
         3584: (28, 8, 16), 5632: (22, 16, 16), 7168: (28, 16, 16),
-        1664: (26, 8, 8), 3328: (26, 8, 16), 6656: (26, 16, 16)},
+        1664: (26, 8, 8), 3328: (26, 8, 16), 6656: (26, 16, 16),
+        1344: (21, 8, 8), 2688: (21, 8, 16), 5376: (21, 16, 16),
+        1600: (25, 8, 8), 3200: (25, 8, 16), 6400: (25, 16, 16),
+        1728: (27, 8, 8), 3456: (27, 8, 16), 6912: (27, 16, 16)},
 }
 #: Bytes of one mbarrier.
 _BARRIER_BYTES = 8

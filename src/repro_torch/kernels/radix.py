@@ -2,9 +2,10 @@
 index maps, in Python.
 
 For N = N1*N2 (``transforms.factorize``) in :data:`RADIX_SIZES` (the
-powers of two and the mixed lengths r*2^k, r in {3, 5, 7, 9, 11, 13,
-15}) the kernel (``csrc/fft_radix.cuh``) computes the four steps with
-in-register codelets instead of dense DFT-matrix products (on the CPU,
+powers of two and the mixed lengths r*2^k, r in :data:`RADIX_ODD`: 3, 5,
+7, 9, 11, 13, 15, 21, 25, 27, 33, 35, 39, 45, 49, 55 and 63) the kernel
+(``csrc/fft_radix.cuh``) computes the four steps with in-register
+codelets instead of dense DFT-matrix products (on the CPU,
 :func:`emulate` runs the same index maps):
 
 * column pass — a thread holds one (line, m2) column x[m1*N2 + m2],
@@ -84,28 +85,37 @@ SMEM_TARGET_BYTES = SMEM_MAX_BYTES // 2 - 1024
 #: ``inner`` indices per strided tile: a row of the tile is 128 bytes of
 #: complex64 (256 of complex128), whole sectors.
 STRIDED_LINES = 16
-#: The mixed lengths' odd parts: N = r*2^k, k >= 1.
-MIXED_ODD = (3, 5, 7, 9, 11, 13, 15)
+#: The odd parts of the mixed lengths N = r*2^k, k >= 1, that every route
+#: of them takes: the radix route within one block, the long-line route
+#: (``longline.FACTORS``: r*2^a is its mixed factor R1 <= 32) and the
+#: split route past it (``split.FACTORS``).
+EVERY_ROUTE_ODD = (3, 5, 7, 9, 11, 13, 15, 21, 25, 27)
+#: The odd parts the radix route takes: those, and every other product of
+#: 3, 5, 7, 11 and 13 below 64, each one codelet (:func:`radices`).  Past
+#: the radix route r = 33 to 63 run the dense kernel within one block and
+#: the chirp route beyond it.
+RADIX_ODD = EVERY_ROUTE_ODD + (33, 35, 39, 45, 49, 55, 63)
 
 
 def _mixed(limit: int) -> Tuple[int, ...]:
-    """r*2^k for r in MIXED_ODD, k >= 1, whose factors (``factorize``) are
+    """r*2^k for r in RADIX_ODD, k >= 1, whose factors (``factorize``) are
     both at most ``limit``: the codelets stay in registers."""
-    return tuple(sorted(r << k for r in MIXED_ODD for k in range(1, 13)
+    return tuple(sorted(r << k for r in RADIX_ODD for k in range(1, 13)
                         if max(factorize(r << k)) <= limit))
 
 
 #: Lengths the kernel instantiates, per complex dtype: the powers of two
-#: and the mixed lengths (7*2^k, 11*2^k and 13*2^k too: complex64
-#: 14-3584, 22-2816 and 26-3328, complex128 14-896, 44-704 and 26-832),
-#: codelets of at most 64 values (complex64) or 32 (complex128).
+#: and the mixed lengths r*2^k, r in RADIX_ODD (complex64 6-4032, 121 of
+#: them; complex128 6-960, 86), codelets of at most 64 values (complex64)
+#: or 32 (complex128): 4032 = 63 x 64, 1568 = 32 x 49, 800 = 25 x 32.
 #: complex128 stops at 1024: a codelet of 64 complex128 values would take
 #: 256 registers and spill, so 2048 and 4096 take the long-line route
-#: (three passes).  Three lengths whose kernels ptxas spills at a low
+#: (three passes).  Four lengths whose kernels ptxas spills at a low
 #: register count stay on the dense path: complex128 N = 2 (4 bytes at 64
 #: registers) and N = 22 = 2x11 (4 bytes at 80), complex64 N = 208 = 13x16
-#: (4 bytes and an 8-byte stack frame at 64).
-_SPILLS = {torch.complex64: (208,), torch.complex128: (2, 22)}
+#: (4 bytes and an 8-byte stack frame at 64) and N = 504 = 21x24 (4 bytes
+#: and an 8-byte stack frame at 80).
+_SPILLS = {torch.complex64: (208, 504), torch.complex128: (2, 22)}
 RADIX_SIZES = {
     torch.complex64: tuple(sorted(
         n for n in [2 ** k for k in range(1, 13)] + list(_mixed(64))

@@ -3,9 +3,9 @@ holds, as a two-level four-step through HBM.
 
 A line of N = P*Q (:data:`FACTORS`: the powers of two, complex64 N from
 32768 to 2^24 and complex128 from 16384 to 2^22, and the mixed lengths
-r*2^k, r in ``radix.MIXED_ODD`` = {3, 5, 7, 9, 11, 13, 15}, past the
-long-line route's up to the same limits; P a power of two, a mixed N's
-odd part in Q, so the radix-7, 11 and 13 codelets run in pass B) is
+r*2^k, r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25,
+27}, past the long-line route's up to the same limits; P a power of two, a
+mixed N's odd part in Q, so the odd codelets run in pass B) is
 viewed as (P, Q), x[p*Q + q], and
 transformed by the routes one block holds, in two launches (three with
 rows on the long-line route):
@@ -83,6 +83,7 @@ _POW2 = {
 #: 11*2^11 complex64 is 512 x 44: pass B of 88 = 8x11 spills in ptxas.
 #: Pass B of 208 = 13x16 complex64 is clean though its plain kernel
 #: spills (``radix.RADIX_SIZES``), so Q need not be a radix-route length.
+#: 21*2^k, 25*2^k and 27*2^k follow the 7*2^k rows' P (not probed).
 _MIXED = {
     torch.complex64: (
         (256, 96), (256, 192), (256, 384), (512, 384), (256, 1536),
@@ -102,7 +103,16 @@ _MIXED = {
         (1024, 11264),
         (256, 104), (256, 208), (256, 416), (256, 832), (512, 832),
         (512, 1664), (256, 6656), (512, 6656), (512, 13312),
-        (1024, 13312)),
+        (1024, 13312),
+        (256, 84), (256, 168), (256, 336), (512, 336), (512, 672),
+        (512, 1344), (1024, 1344), (512, 5376), (512, 10752),
+        (1024, 10752),
+        (256, 100), (256, 200), (256, 400), (512, 400), (512, 800),
+        (512, 1600), (1024, 1600), (512, 6400), (512, 12800),
+        (1024, 12800),
+        (256, 108), (256, 216), (256, 432), (512, 432), (512, 864),
+        (512, 1728), (1024, 1728), (512, 6912), (512, 13824),
+        (1024, 13824)),
     torch.complex128: (
         (64, 192), (128, 192), (64, 768), (128, 768), (256, 768),
         (512, 768), (128, 6144), (256, 6144), (512, 6144),
@@ -117,7 +127,13 @@ _MIXED = {
         (64, 176), (128, 176), (64, 704), (128, 704), (256, 704),
         (512, 704), (128, 5632), (256, 5632), (512, 5632),
         (64, 208), (128, 208), (256, 208), (256, 416), (256, 832),
-        (64, 6656), (128, 6656), (256, 6656), (512, 6656)),
+        (64, 6656), (128, 6656), (256, 6656), (512, 6656),
+        (64, 168), (128, 168), (128, 336), (256, 336), (256, 672),
+        (64, 5376), (256, 2688), (512, 2688), (512, 5376),
+        (64, 200), (128, 200), (128, 400), (256, 400), (256, 800),
+        (64, 6400), (256, 3200), (512, 3200), (512, 6400),
+        (64, 216), (128, 216), (128, 432), (256, 432), (256, 864),
+        (64, 6912), (256, 3456), (512, 3456), (512, 6912)),
 }
 #: (P, Q) per length and complex dtype: both tables.
 FACTORS = {dtype: {**_POW2[dtype], **{p * q: (p, q) for p, q in pairs}}

@@ -4,19 +4,21 @@ convolution over two transforms of M = 2^ceil(log2(2N - 1)) on the
 long-line or split route, the chirps in their ``twiddle`` epilogues.  Its
 plain version, ``chirp.emulate`` (the wrapper runs it for CPU tensors),
 runs the same steps over the inner routes' plain versions; it is held
-against ``np.fft`` (complex64 N of 5376 = 21*256 and the prime 10007,
-complex128 N of 3001 and 2688 = 21*128; both directions, the twiddle and
+against ``np.fft`` (complex64 N of 5760 = 45*128 and the prime 10007,
+complex128 N of 3001 and 2880 = 45*64; both directions, the twiddle and
 ``pack_parts`` epilogues) and against the JAX package's Pallas kernel in
 interpret mode on the same numpy inputs where the reference factors N
-(5376 and 2688), at the reference's tolerances
+(5760 and 2880), at the reference's tolerances
 (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
 complex128).  Then the chirp tables' phase at large N, the routing by
-length, the line copies, the gradient, and ``fft_conv`` at S = 2688
-(lines of 5376) forward and backward against the reference's mixer.
-The mixed lengths r*2^k, r in {3, 5, 7, 9, 11, 13, 15}, take the
-long-line and split routes (``test_torch_long_mixed_fft.py``,
-``test_torch_split_mixed_fft.py``), so the chirp keeps the lengths whose
-odd part is none of those: primes from 17 and odd products such as 21.
+length, the line copies, the gradient, and ``fft_conv`` at S = 2880
+(lines of 5760) forward and backward against the reference's mixer.
+The mixed lengths r*2^k, r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9,
+11, 13, 15, 21, 25, 27}, take the long-line and split routes
+(``test_torch_long_mixed_fft.py``, ``test_torch_split_mixed_fft.py``),
+so the chirp keeps the lengths whose odd part is none of those past one
+block: primes from 17, the odd parts 33 to 63 that only the radix route
+takes (such as 45) and those from 65.
 The CUDA launches are tested in ``test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 import dataclasses
@@ -38,15 +40,15 @@ NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 #: each epilogue (pack_parts where 2 divides N).
 VARIANTS = [(2, False, False, None), (1, True, True, None),
             (2, False, True, 2), (1, True, False, 2)]
-LENGTHS = [(torch.complex64, 5376), (torch.complex64, 10007),
-           (torch.complex128, 3001), (torch.complex128, 2688)]
+LENGTHS = [(torch.complex64, 5760), (torch.complex64, 10007),
+           (torch.complex128, 3001), (torch.complex128, 2880)]
 CASES = [(dtype, n, b, inv, tw, parts if n % 2 == 0 else None)
          for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
 #: Where the reference's four-step factors N: at a prime N it is one
 #: dense DFT matrix, 10007 x 10007 (too large to run here), and at 3001
 #: its sums of 3001 terms differ from np.fft by about 1e-12 in complex128
 #: themselves, so the prime lengths are held to np.fft alone.
-PALLAS = {5376, 2688}
+PALLAS = {5760, 2880}
 
 
 def _case_id(case):
@@ -172,20 +174,21 @@ def test_chirp_filter_is_the_transformed_conjugate_chirp():
 @pytest.mark.parametrize("n,dtype,path", [
     (4835, torch.complex64, "dense"), (4836, torch.complex64, "chirp"),
     (4480, torch.complex64, "dense"), (5000, torch.complex64, "chirp"),
-    (5376, torch.complex64, "chirp"), (10007, torch.complex64, "chirp"),
-    (10752, torch.complex64, "chirp"), ((1 << 23) - 1, torch.complex64,
+    (5760, torch.complex64, "chirp"), (10007, torch.complex64, "chirp"),
+    (11520, torch.complex64, "chirp"), ((1 << 23) - 1, torch.complex64,
                                         "chirp"),
     (1 << 23, torch.complex64, "split"),
     ((1 << 23) + 1, torch.complex64, "dense"),
     (2419, torch.complex128, "dense"), (2420, torch.complex128, "chirp"),
-    (3001, torch.complex128, "chirp"), (5376, torch.complex128, "chirp"),
+    (3001, torch.complex128, "chirp"), (5760, torch.complex128, "chirp"),
     (1 << 21, torch.complex128, "split"),
     ((1 << 21) + 1, torch.complex128, "dense"),
     (4096, torch.complex64, "radix"), (3840, torch.complex64, "radix")])
 def test_chirp_routing_by_length(n, dtype, path):
     """The chirp route takes every length past the dense kernel's one
     block (with its twiddle staged) that no other route takes (an odd
-    part no codelet takes: primes from 17, 21*2^k), up to half the split
+    part no route past one block takes: primes from 17, 45*2^k), up to
+    half the split
     route's longest line; beyond, the dense kernel's one-block limit
     raises with a message naming the chirp's limit."""
     assert radix.kernel_path(n, dtype) == path
@@ -206,7 +209,7 @@ def test_chirp_lines_along_any_axis_and_their_gradient():
     axis copied contiguous first (``ops.copies``); the transform's
     gradient (``LineTransform``: the adjoint runs on the same route)
     against ``torch.fft``'s, both directions."""
-    n = 5376
+    n = 5760
     r = np.random.default_rng(5)
     x = (r.standard_normal((2, n, 3)) + 1j * r.standard_normal(
         (2, n, 3))).astype(np.complex64)
@@ -228,8 +231,8 @@ def test_chirp_lines_along_any_axis_and_their_gradient():
         assert_scaled_close(grads[0], grads[1], 5e-6)
 
 
-def test_fft_conv_at_2688_takes_the_chirp_route_and_matches_reference():
-    """``fft_conv`` at S=2688 (lines of 5376 = 21*256, the chirp route)
+def test_fft_conv_at_2880_takes_the_chirp_route_and_matches_reference():
+    """``fft_conv`` at S=2880 (lines of 5760 = 45*128, the chirp route)
     with 8 channels on the kernel backend's plain version against the
     reference's mixer, float32: the output, and the gradients of w_in,
     basis_w, decay, w_out and the input against ``jax.grad`` of the
@@ -246,7 +249,7 @@ def test_fft_conv_at_2688_takes_the_chirp_route_and_matches_reference():
     tree, ref_p = jax_init(ref_ssm.init_fft_conv, cfg, "ssm", seed=3)
     p = port_module(ssm.init_fft_conv, tree, "ssm", cfg)
     assert p.basis_w.shape[0] == 8                  # 8 channels
-    s = 2688
+    s = 2880
     assert radix.kernel_path(2 * s, torch.complex64) == "chirp"
     x = randn((1, s, cfg.d_model), 11)
     r = randn((1, s, cfg.d_model), 12)

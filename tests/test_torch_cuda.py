@@ -8,7 +8,7 @@ longer than one block) and the FFT long-convolution mixer on it at
 S=16384, the radix route's mixed lengths (every one, strided axes, an
 unaligned view), the long-line and split routes' mixed lengths (every
 one, against the plain version and ``torch.fft``) and the mixer on them
-at S=3072, 3328 and 3584 (no chirp call) and S=12288, the power-of-two
+at S=2688, 3072, 3328 and 3584 (no chirp call) and S=12288, the power-of-two
 long-line and
 split lengths bitwise equal to their plain versions, the chirp route at
 the lengths it keeps, the mixer on the kernel, its gradient through the
@@ -294,13 +294,14 @@ def test_fft_conv_at_16384_on_the_split_route(cuda):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cuda_mixed_radix_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
-    """Every mixed radix length (N = r*2^k, r in {3, 5, 7, 9, 11, 13,
-    15}): one radix launch each, against the plain version and ``torch.fft`` at the
+    """Every mixed radix length (N = r*2^k, r in ``radix.RADIX_ODD``: 3
+    to 15 and the odd products 21 to 63): one radix launch each, against
+    the plain version and ``torch.fft`` at the
     kernel's tolerances, without an epilogue and with both (a pack_parts
     segment that is not a power of two where 3 divides N)."""
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in radix.RADIX_SIZES[dtype] if not radix.is_pow2(n)]
-    assert len(mixed) == (59 if dtype == torch.complex64 else 45)
+    assert len(mixed) == (121 if dtype == torch.complex64 else 86)
     for n in mixed:
         x = torch.from_numpy(cplx((21, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
@@ -345,12 +346,12 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
-    (torch.complex64, 5376, 3, False, None, True),      # M on long-line
-    (torch.complex64, 5376, 2, True, 4, False),
+    (torch.complex64, 5760, 3, False, None, True),      # M on long-line
+    (torch.complex64, 5760, 2, True, 4, False),
     (torch.complex64, 10007, 2, True, None, True),      # prime, M split
-    (torch.complex64, 10752, 1, False, 2, True),
+    (torch.complex64, 11520, 1, False, 2, True),
     (torch.complex128, 3001, 2, False, None, True),
-    (torch.complex128, 5376, 1, True, 7, False)])
+    (torch.complex128, 5760, 1, True, 5, False)])
 def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
         cuda, dtype, n, b, inverse, parts, use_tw):
     """The chirp route (one chirp call; its two inner transforms' launches
@@ -392,12 +393,12 @@ def split_rows_long(n, dtype) -> int:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [384, 6144, 5376, 24576])
+@pytest.mark.parametrize("n", [384, 6144, 5760, 24576, 10752])
 def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
     """A contiguous view 8 bytes into its storage, at mixed lengths on the
     radix, long-line (its row copies are 16-byte aligned: the wrapper
-    clones) and split routes and on the chirp route: transformed all the
-    same."""
+    clones; 10752 = 21 x 16 x 32, an odd R1) and split routes and on the
+    chirp route: transformed all the same."""
     base = torch.from_numpy(cplx((2 * n + 1,), 18)).to(cuda)
     x = base[1:].view(2, n)
     assert x.data_ptr() % 16 == 8
@@ -408,6 +409,15 @@ def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
     assert tfm.fft_fourstep.path_launches[path] >= 1
     assert_scaled_close(got.cpu().numpy(), torch.fft.fft(x).cpu().numpy(),
                         2e-4 if path == "chirp" else 5e-6)
+
+
+@pytest.mark.cuda
+def test_fft_conv_at_2688_on_the_long_route(cuda):
+    """``fft_conv`` at S=2688 (lines of 5376 = 21x16x16, an odd R1: the
+    chirp route before the odd products), as at S=3072: 6 long-line
+    launches forward and backward, no chirp call, every gradient within
+    1e-4 of ``cufft``'s."""
+    _fft_conv_on_the_long_route(cuda, 2688)
 
 
 @pytest.mark.cuda
@@ -478,7 +488,8 @@ def _fft_conv_on_the_long_route(cuda, s):
 def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
     """Every mixed long-line length (complex64 4608-15360, complex128
-    1152-7680, r in {3, 5, 7, 9, 11, 13, 15}): one launch on "long" each,
+    1152-7680, r in ``radix.EVERY_ROUTE_ODD``: 3 to 15, 21, 25, 27): one
+    launch on "long" each,
     against the plain version (``longline.emulate``) and ``torch.fft`` at
     the kernel's tolerances, without an epilogue and with both (segments
     of N/r, r the least odd prime of N)."""
@@ -486,7 +497,7 @@ def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in sorted(longline.FACTORS[dtype])
              if not radix.is_pow2(n)]
-    assert len(mixed) == (14 if dtype == torch.complex64 else 21)
+    assert len(mixed) == (20 if dtype == torch.complex64 else 30)
     for n in mixed:
         x = torch.from_numpy(cplx((37, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)

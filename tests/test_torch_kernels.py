@@ -2,7 +2,10 @@
 of ``tests/test_kernels.py`` on the wrappers, which run the kernel's plain
 version for CPU tensors, held against the JAX package's Pallas kernel in
 interpret mode (or ``np.fft``, as the reference test does), and the launch
-sizing.  The CUDA kernel itself is tested in ``test_torch_cuda.py``."""
+sizing, and the build's parallel units (with a stand-in ``nvcc``).  The
+CUDA kernel itself is tested in ``test_torch_cuda.py``."""
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -291,9 +294,11 @@ def test_kernel_operands_are_resolved():
     (8192, torch.complex128, "long"), (32768, torch.complex64, "split"),
     (16384, torch.complex128, "split"), (1 << 24, torch.complex64, "split"),
     (1 << 22, torch.complex128, "split"), (1 << 25, torch.complex64, "dense"),
-    (1 << 23, torch.complex128, "dense"), (10752, torch.complex64, "chirp"),
+    (1 << 23, torch.complex128, "dense"), (11520, torch.complex64, "chirp"),
     (13312, torch.complex64, "long"), (208, torch.complex128, "radix"),
-    (208, torch.complex64, "dense")])
+    (208, torch.complex64, "dense"), (10752, torch.complex64, "long"),
+    (672, torch.complex64, "radix"), (4032, torch.complex64, "radix"),
+    (4480, torch.complex64, "dense"), (21 << 10, torch.complex64, "split")])
 def test_kernel_path_selection(n, dtype, path):
     """The path follows N and the dtype alone: N with a radix
     instantiation (powers of two, and mixed r*2^k such as 24, 96 and
@@ -301,12 +306,14 @@ def test_kernel_path_selection(n, dtype, path):
     line fits in a block's shared memory the long-line kernel, the
     power-of-two N beyond one block up to 2^24 (complex64) / 2^22
     (complex128) the split route, every other N beyond one block up to
-    half those (10752 = 21*512: no codelet takes an odd part of 21) the
-    chirp route, every other N the dense one (which the card refuses past
-    one block: 2^25 / 2^23).  The mixed lengths past the radix route
-    (13312 = 13*1024 is a long line): test_torch_long_mixed_fft.py and
-    test_torch_split_mixed_fft.py.  complex64 208 = 13x16 is dense: ptxas
-    spills its radix kernel."""
+    half those (11520 = 45*256: no route past one block takes an odd part
+    of 45) the chirp route, every other N the dense one (which the card
+    refuses past one block: 2^25 / 2^23; 4480 = 35*128 within it).  The
+    mixed lengths past the radix route (13312 = 13*1024 and 10752 =
+    21*512 are long lines, 21*1024 a split one):
+    test_torch_long_mixed_fft.py and test_torch_split_mixed_fft.py.
+    complex64 208 = 13x16 is dense: ptxas spills its radix kernel; 4032 =
+    63x64 takes the radix route."""
     assert radix.kernel_path(n, dtype) == path
 
 
@@ -430,6 +437,78 @@ def test_strided_entry_and_its_plain_version():
     with pytest.raises(ValueError, match="no strided radix tile"):
         tfm.fft_fourstep_strided(torch.zeros((1, 33, 16),
                                              dtype=torch.complex64))
+
+
+#: A stand-in ``nvcc``: a compile (``-c``) logs its start and end times and
+#: its ``-DREPRO_PART`` and writes that into its object; the link (``-shared``)
+#: writes the objects' contents into the library.
+_FAKE_NVCC = """#!{python}
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+with open({log!r}, "a") as log:
+    if "-c" in args:
+        part = next(a for a in args if a.startswith("-DREPRO_PART="))
+        log.write(f"start {{part}} {{time.time()}}\\n")
+        log.flush()
+        time.sleep(0.5)
+        open(out, "w").write(part + "\\n")
+        log.write(f"end {{part}} {{time.time()}}\\n")
+        print(f"ptxas info    : compiled {{part}}")
+        sys.exit(3 if part == {fail!r} else 0)
+    log.write("link " + " ".join(args) + "\\n")
+    objs = [a for a in args if a.endswith(".o")]
+    open(out, "w").write("".join(open(o).read() for o in objs))
+"""
+
+
+def _fake_nvcc(tmp_path, monkeypatch, fail=""):
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    log = tmp_path / "nvcc.log"
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, log=str(log),
+                                      fail=fail))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    return log
+
+
+def test_build_compiles_the_parts_at_once_and_links_them(tmp_path,
+                                                         monkeypatch):
+    """The build runs one ``nvcc -c`` per translation unit (the entry
+    points, REPRO_PART=-1, and each of the PARTS kernel parts), all
+    started before any ends, with the flags that name the part count, then
+    one link of every object into the library; the log holds each unit's
+    output in order, and the objects are removed."""
+    from repro_torch.kernels import build
+    log = _fake_nvcc(tmp_path, monkeypatch)
+    out = tmp_path / "lib.so"
+    text = build._compile("fft_fourstep", out)
+    parts = [f"-DREPRO_PART={k}" for k in range(-1, build.PARTS)]
+    assert out.read_text().split() == parts
+    assert [line.split()[-1] for line in text.splitlines()] == parts
+    events = [line.split() for line in log.read_text().splitlines()]
+    starts = [float(e[2]) for e in events if e[0] == "start"]
+    ends = [float(e[2]) for e in events if e[0] == "end"]
+    assert len(starts) == len(ends) == build.PARTS + 1
+    assert max(starts) < min(ends)
+    link = [e for e in events if e[0] == "link"]
+    assert len(link) == 1 and "-shared" in link[0]
+    assert f"-DREPRO_BUILD_PARTS={build.PARTS}" in build.NVCC_FLAGS
+    assert not any(p.suffix == ".parts" for p in tmp_path.iterdir())
+
+
+def test_build_raises_when_a_part_fails(tmp_path, monkeypatch):
+    """A unit that fails to compile fails the build, named, with nvcc's
+    output, and no library or object is left."""
+    from repro_torch.kernels import build
+    _fake_nvcc(tmp_path, monkeypatch, fail="-DREPRO_PART=3")
+    out = tmp_path / "lib.so"
+    with pytest.raises(RuntimeError, match=r"REPRO_PART \[3\]"):
+        build._compile("fft_fourstep", out)
+    assert not out.exists()
+    assert not any(p.suffix == ".parts" for p in tmp_path.iterdir())
 
 
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch):

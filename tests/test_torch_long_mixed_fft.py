@@ -1,5 +1,6 @@
-"""The long-line route at the mixed lengths r*2^k, r in {3, 5, 7, 9, 11,
-13, 15} (``kernels/longline.py``, ``csrc/fft_long.cuh``'s
+"""The long-line route at the mixed lengths r*2^k, r in
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}
+(``kernels/longline.py``, ``csrc/fft_long.cuh``'s
 ``long_mixed_kernel``): complex64 N of 4608 to 15360 and complex128 N of
 1152 to 7680, whose line fits one block.  Their plan (one mixed factor R1
 on the radix route's mixed chain, R2 and R3 powers of two, a block of 128
@@ -9,13 +10,13 @@ item by item) runs in torch in
 for CPU tensors); it is held against ``np.fft`` at every length (both
 directions, the twiddle and ``pack_parts`` epilogues) and against the JAX
 package's Pallas kernel in interpret mode on the same numpy inputs at one
-length per odd part r = 3, 5, 9, 15 and every 7*2^k, 11*2^k and
-13*2^k, per dtype, at the reference's tolerances
+length per odd part r = 3, 5, 9, 15, 21, 25, 27 (an odd R1) and every
+7*2^k, 11*2^k and 13*2^k, per dtype, at the reference's tolerances
 (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
 complex128).  Then the plan's threads, sizes and tables, the routing of
-every mixed length past the radix route, and ``fft_conv`` at S = 3072,
-3328 and 3584 (lines of 6144, 6656 and 7168) forward and backward
-against the reference's mixer.  The
+every mixed length past the radix route, and ``fft_conv`` at S = 2688,
+3072, 3328 and 3584 (lines of 5376, 6144, 6656 and 7168) forward and
+backward against the reference's mixer.  The
 CUDA kernel is tested in ``test_torch_cuda.py`` and ``chip_smoke.py``."""
 import dataclasses
 
@@ -44,12 +45,13 @@ CASES = [(dtype, n, b, inv, tw,
           next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
           if parts == "odd" else parts)
          for dtype, n in MIXED for b, inv, tw, parts in VARIANTS]
-#: One length per odd part r = 3, 5, 9, 15 and every 7*2^k, 11*2^k and
-#: 13*2^k, per dtype, held against the Pallas kernel too.
+#: One length per odd part r = 3, 5, 9, 15, 21, 25, 27 and every 7*2^k,
+#: 11*2^k and 13*2^k, per dtype, held against the Pallas kernel too.
 PALLAS = {torch.complex64: {4608, 5120, 6144, 7680, 5632, 7168, 11264,
-                            14336, 6656, 13312},
+                            14336, 6656, 13312, 5376, 6400, 13824},
           torch.complex128: {1152, 1280, 3072, 7680, 1408, 1792, 2816,
-                             3584, 5632, 7168, 1664, 3328, 6656}}
+                             3584, 5632, 7168, 1664, 3328, 6656, 1344,
+                             3200, 6912}}
 
 
 def _case_id(case):
@@ -148,7 +150,7 @@ def test_long_mixed_threads_split_every_pass_evenly(dtype, n):
     assert plan.mixed and r1 * r2 * r3 == n
     assert not radix.is_pow2(r1) and r1 <= 32
     odd = r1 // (r1 & -r1)
-    assert odd in radix.MIXED_ODD
+    assert odd in radix.EVERY_ROUTE_ODD
     assert radix.is_pow2(r2) and radix.is_pow2(r3) and max(r2, r3) <= 32
     t = plan.threads
     assert t >= 128
@@ -187,10 +189,13 @@ def test_long_mixed_lengths_are_every_r_2k_that_fits():
     7680; 6144 is 24 x 16 x 16 on 256 threads (1 round of radix 24, 2 of
     radix 16), complex128 1152 18 x 8 x 8 on 128, 7168 28 x 16 x 16
     (complex64 and complex128), 11264 22 x 16 x 32, 6656 26 x 16 x 16
-    (complex64 and complex128), complex128 1664 26 x 8 x 8."""
+    (complex64 and complex128), complex128 1664 26 x 8 x 8; the odd
+    products 21, 25 and 27 have an odd R1 (complex64 10752 21 x 16 x 32,
+    complex128 1344 21 x 8 x 8 and 6912 27 x 16 x 16)."""
     for dtype, first, last, cap in ((torch.complex64, 4608, 15360, 64),
                                     (torch.complex128, 1152, 7680, 32)):
-        want = sorted(r << k for r in radix.MIXED_ODD for k in range(1, 14)
+        want = sorted(r << k for r in radix.EVERY_ROUTE_ODD
+                      for k in range(1, 14)
                       if max(factorize(r << k)) > cap
                       and (r << k) * dtype.itemsize <= 128 << 10)
         got = sorted(n for n in longline.FACTORS[dtype]
@@ -211,6 +216,11 @@ def test_long_mixed_lengths_are_every_r_2k_that_fits():
         assert (plan.r1, plan.r2, plan.r3) == (26, 16, 16)
     plan = longline.long_plan(1664, torch.complex128)
     assert (plan.r1, plan.r2, plan.r3) == (26, 8, 8)
+    for n, dtype, factors in ((10752, torch.complex64, (21, 16, 32)),
+                              (1344, torch.complex128, (21, 8, 8)),
+                              (6912, torch.complex128, (27, 16, 16))):
+        plan = longline.long_plan(n, dtype)
+        assert (plan.r1, plan.r2, plan.r3) == factors
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -269,13 +279,13 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
     """``radix.kernel_path``: every complex64 r*2^k from 4608 to 16384 and
     every complex128 one from 1152 to 8192 is "long", every longer one up
     to the split route's limits (2^24, 2^22) "split"; none is "chirp" or
-    "dense" (7*2^k, 11*2^k and 13*2^k included: complex64 13*2^20 and
-    complex128 13*2^18, past the chirp's limits, run); a prime and 21*2^k
-    past one block stay "chirp"."""
+    "dense" (7*2^k, 11*2^k, 13*2^k, 21*2^k, 25*2^k and 27*2^k included:
+    complex64 13*2^20 and complex128 13*2^18, past the chirp's limits,
+    run); a prime and 45*2^k past one block stay "chirp"."""
     for dtype, (lo, hi, top) in {
             torch.complex64: (4608, 16384, 1 << 24),
             torch.complex128: (1152, 8192, 1 << 22)}.items():
-        for r in radix.MIXED_ODD:
+        for r in radix.EVERY_ROUTE_ODD:
             for k in range(1, 25):
                 n = r << k
                 if n < lo or n > top:
@@ -284,8 +294,8 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
                 assert radix.kernel_path(n, dtype) == want, (n, dtype)
     assert radix.kernel_path(13 << 20, torch.complex64) == "split"
     assert radix.kernel_path(13 << 18, torch.complex128) == "split"
-    for n, dtype in ((5376, torch.complex64), (10007, torch.complex64),
-                     (2688, torch.complex128), (3001, torch.complex128)):
+    for n, dtype in ((5760, torch.complex64), (10007, torch.complex64),
+                     (2880, torch.complex128), (3001, torch.complex128)):
         assert radix.kernel_path(n, dtype) == "chirp"
 
 
@@ -314,6 +324,14 @@ def test_mixed_long_lines_along_any_axis_and_their_gradient():
             (fn(xx) * g).real.sum().backward()
             grads.append(xx.grad.numpy())
         assert_scaled_close(grads[0], grads[1], 5e-6)
+
+
+def test_fft_conv_at_2688_takes_the_long_route_and_matches_reference():
+    """``fft_conv`` at S=2688 (lines of 5376 = 21 x 16 x 16: an odd R1,
+    off the chirp route since the odd products joined the long-line
+    route), as at S=3072: the output and every gradient against the
+    reference's mixer."""
+    _fft_conv_on_the_long_route_matches_reference(2688)
 
 
 def test_fft_conv_at_3072_takes_the_long_route_and_matches_reference():

@@ -1,7 +1,10 @@
 """The radix route's mixed lengths (``kernels/radix.py``,
-``csrc/fft_radix.cuh``): N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15}, whose
-codelets are chains of radix-13, 11, 7, 5, 3, 4 and 2 butterflies on
-digit-reversed loads (radix 7, 11 and 13 in the symmetric-pair form).  The
+``csrc/fft_radix.cuh``): N = r*2^k, r in ``radix.RADIX_ODD`` (3, 5, 7,
+9, 11, 13, 15 and the odd products 21, 25, 27, 33, 35, 39, 45, 49, 55,
+63), whose codelets are chains of radix-13, 11, 7, 5, 3, 4 and 2
+butterflies on digit-reversed loads (radix 7, 11 and 13 in the
+symmetric-pair form); one length per odd product and dtype, and c64 672,
+1440 and 4032.  The
 kernel's plan and index maps, run in torch by ``radix.emulate``, are held
 against ``np.fft`` and against the JAX package's Pallas kernel in interpret
 mode on the same numpy inputs: both directions, the twiddle epilogue,
@@ -9,10 +12,14 @@ mode on the same numpy inputs: both directions, the twiddle epilogue,
 and p = 3), and the strided layout, at the reference's tolerances
 (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
 complex128).  Then the chains and tables, the sizes the kernel
-instantiates, and a ``plan_fft`` C2C plan and a PPB Poisson solve at a
-mixed grid on the kernel backend's plain version against the reference's.
+instantiates (against the CUDA dispatch's cases), the routes of the odd
+products, and a ``plan_fft`` C2C plan and a PPB Poisson solve at a mixed
+grid on the kernel backend's plain version against the reference's.
 The CUDA kernel is tested in ``test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +32,7 @@ from repro_torch.compat import make_mesh
 from repro_torch.core import api
 from repro_torch.core.transforms import factorize
 from repro_torch.kernels import fft_matmul as tfm
-from repro_torch.kernels import radix, split
+from repro_torch.kernels import chirp, longline, radix, split
 from torch_harness import assert_scaled_close, pallas_lines_c128
 
 TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
@@ -37,7 +44,11 @@ LENGTHS = [(torch.complex64, n) for n in (6, 12, 30, 36, 60, 96, 384, 1536,
                                           2816)] + \
           [(torch.complex128, n) for n in (896, 704)] + \
           [(torch.complex64, n) for n in (26, 416, 3328)] + \
-          [(torch.complex128, n) for n in (208, 832)]
+          [(torch.complex128, n) for n in (208, 832)] + \
+          [(torch.complex64, n) for n in (672, 800, 864, 1056, 1120, 1248,
+                                          1440, 1568, 3520, 4032)] + \
+          [(torch.complex128, n) for n in (42, 800, 864, 528, 70, 624, 720,
+                                           784, 110, 504)]
 #: (batch, inverse, twiddle, pack_parts): ragged batches, both directions,
 #: each epilogue; pack_parts 3 where 3 divides N, else 2.
 VARIANTS = [(37, False, False, None), (5, True, True, None),
@@ -136,7 +147,10 @@ def test_mixed_radix_plan_matches_numpy_and_pallas(case, request):
                                      (torch.complex128, 44),
                                      (torch.complex128, 704),
                                      (torch.complex64, 416),
-                                     (torch.complex128, 208)])
+                                     (torch.complex128, 208),
+                                     (torch.complex64, 360),
+                                     (torch.complex64, 1440),
+                                     (torch.complex128, 360)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_mixed_strided_layout_matches_numpy(dtype, n, inverse):
     """The strided ``(outer, N, inner)`` layout at mixed lengths, a
@@ -163,7 +177,10 @@ def test_mixed_strided_layout_matches_numpy(dtype, n, inverse):
     (60, (5, 3, 4)), (16, (2, 2, 2, 2)), (7, (7,)), (11, (11,)),
     (14, (7, 2)), (28, (7, 4)), (56, (7, 4, 2)), (22, (11, 2)),
     (44, (11, 4)), (77, (11, 7)), (13, (13,)), (26, (13, 2)),
-    (52, (13, 4)), (104, (13, 4, 2)), (143, (13, 11))])
+    (52, (13, 4)), (104, (13, 4, 2)), (143, (13, 11)), (21, (7, 3)),
+    (25, (5, 5)), (27, (3, 3, 3)), (33, (11, 3)), (35, (7, 5)),
+    (39, (13, 3)), (45, (5, 3, 3)), (49, (7, 7)), (55, (11, 5)),
+    (63, (7, 3, 3)), (42, (7, 3, 2)), (54, (3, 3, 3, 2))])
 def test_mixed_codelet_chain_and_loads(length, chain):
     """The radix chain (the 13s, the 11s, the 7s, the 5s, the 3s, then 4s
     and a last 2; 2s for a
@@ -222,16 +239,16 @@ def test_mixed_13_codelets_of_416_and_3328(n, factors, chains):
 
 
 def test_mixed_sizes_tables_and_tiles():
-    """59 mixed complex64 lengths to 3840 and 45 complex128 to 960 (24
-    and 18 of them 7*2^k, 11*2^k and 13*2^k: complex128 22 and complex64
-    208 spill in ptxas and run dense), every
+    """121 mixed complex64 lengths to 4032 and 86 complex128 to 960 (62
+    and 41 of them the odd products r = 21 to 63; complex128 22 and
+    complex64 208 and 504 spill in ptxas and run dense), every
     codelet at most 64 (complex64) or 32 (complex128) long; each codelet
     has its own table (N2 + N1 entries); the tile's lines are a power of
     two; the split route's P stays a power of two (its pass A), and its Q
     is a power of two or a mixed length of the long-line route or of the
     codelets (its pass B: complex64 208 runs there, clean in ptxas)."""
-    for dtype, count, cap in ((torch.complex64, 59, 64),
-                              (torch.complex128, 45, 32)):
+    for dtype, count, cap in ((torch.complex64, 121, 64),
+                              (torch.complex128, 86, 32)):
         mixed = [n for n in radix.RADIX_SIZES[dtype]
                  if not radix.is_pow2(n)]
         assert len(mixed) == count
@@ -241,7 +258,7 @@ def test_mixed_sizes_tables_and_tiles():
             odd = n
             while odd % 2 == 0:
                 odd //= 2
-            assert odd in radix.MIXED_ODD
+            assert odd in radix.RADIX_ODD
             assert radix.table_elems(n) == n1 + n2
             assert radix.codelet_table(n, False).shape == (n1 + n2,)
             tile = radix.radix_tile(n, dtype.itemsize, True, False)
@@ -258,7 +275,7 @@ def test_mixed_sizes_tables_and_tiles():
             assert radix.is_pow2(n)
         for n in split.ROW_SIZES[dtype]:
             odd = n >> ((n & -n).bit_length() - 1)
-            assert odd == 1 or odd in radix.MIXED_ODD
+            assert odd == 1 or odd in radix.EVERY_ROUTE_ODD
             assert max(factorize(n)) <= caps[dtype]
             assert n in radix.RADIX_SIZES[dtype] or (dtype, n) == (
                 torch.complex64, 208)
@@ -270,6 +287,115 @@ def test_mixed_sizes_tables_and_tiles():
                         1e-15)
     assert radix.radix_tile(384, 8, False, False).lines == 16
     assert radix.radix_tile(1536, 8, False, False).lines == 8
+
+
+@pytest.mark.parametrize("n,factors,chains", [
+    (672, (24, 28), ((3, 4, 2), (7, 4))),
+    (1440, (36, 40), ((3, 3, 4), (5, 4, 2))),
+    (4032, (63, 64), ((7, 3, 3), (2,) * 6)),
+    (800, (25, 32), ((5, 5), (2,) * 5)),
+    (1568, (32, 49), ((2,) * 5, (7, 7)))])
+def test_odd_product_codelets(n, factors, chains):
+    """The odd products need no new butterfly: 672 = 24 x 28 and 1440 = 36
+    x 40 mix both codelets, 4032 = 63 x 64 and 800 = 25 x 32 put an odd
+    codelet (no 4s or 2s) beside a power of two's, 1568 = 32 x 49 the
+    other way round; each on its own table, on the radix route in
+    complex64, and in complex128 where both codelets are at most 32."""
+    plan = radix.radix_plan(n)
+    assert (plan.n1, plan.n2) == factors == factorize(n)
+    assert tuple(radix.radices(f) for f in factors) == chains
+    assert radix.table_elems(n) == sum(factors)
+    assert radix.kernel_path(n, torch.complex64) == "radix"
+    assert (radix.kernel_path(n, torch.complex128) == "radix") == (
+        max(factors) <= 32)
+
+
+def _dispatch_cases():
+    """The CUDA dispatch's instantiations: {(mode, dtype): {N: (N1, N2)}}
+    from ``radix_part``'s switch cases ("plain", "A", "B": the split
+    passes), and {dtype: {N: (R1, R2, R3)}} from ``long_part``'s."""
+    csrc = Path(radix.__file__).resolve().parent.parent / "csrc"
+    both = (torch.complex64, torch.complex128)
+    text = (csrc / "fft_radix.cuh").read_text()
+    body = text[text.index("int radix_part("):]
+    cases, mode, dts = {}, None, both
+    for line in body.splitlines():
+        if "MODE == kRadixPlain" in line:
+            mode, dts = "plain", both
+        elif "MODE == kRadixSplitA" in line:
+            mode, dts = "A", both
+        elif line.startswith("  } else {"):
+            mode, dts = "B", both
+        elif line.startswith("    if constexpr (c64)"):
+            dts = (torch.complex64,)
+        elif line.startswith("    } else {"):
+            dts = (torch.complex128,)
+        elif line.startswith("    }"):
+            dts = both
+        m = re.search(r"REPRO_RADIX_CASE\((\d+), (\d+), (\d+)\)", line)
+        if m:
+            n, n1, n2 = map(int, m.groups())
+            for dtype in dts:
+                table = cases.setdefault((mode, dtype), {})
+                assert n not in table, (mode, dtype, n)
+                table[n] = (n1, n2)
+    text = (csrc / "fft_long.cuh").read_text()
+    body = text[text.index("int long_part("):]
+    long_cases, dtype = {}, torch.complex64
+    for line in body.splitlines():
+        if line.startswith("  } else {"):
+            dtype = torch.complex128
+        m = re.search(r"REPRO_LONG(?:_MIXED)?_CASE\((\d+), (\d+), (\d+), "
+                      r"(\d+)\)", line)
+        if m:
+            n, *factors = map(int, m.groups())
+            long_cases.setdefault(dtype, {})[n] = tuple(factors)
+    return cases, long_cases
+
+
+def test_cuda_dispatch_instantiates_the_python_tables():
+    """The CUDA source instantiates exactly the lengths the Python tables
+    route there, with ``factorize``'s factors: ``radix.RADIX_SIZES`` on
+    the plain radix kernel, ``split.COLUMN_SIZES`` and ``ROW_SIZES`` on
+    its split passes, ``longline.FACTORS`` on the long-line kernels (the
+    odd R1 = 21, 25 and 27 too), per dtype; no length is left without an
+    instantiation or instantiated in vain."""
+    cases, long_cases = _dispatch_cases()
+    for dtype in (torch.complex64, torch.complex128):
+        for mode, sizes in (("plain", radix.RADIX_SIZES[dtype]),
+                            ("A", split.COLUMN_SIZES[dtype]),
+                            ("B", split.ROW_SIZES[dtype])):
+            table = cases[mode, dtype]
+            assert set(table) == set(sizes), (mode, dtype)
+            for n, (n1, n2) in table.items():
+                assert (n1, n2) == factorize(n) or (n, n1) == (2, 1)
+        assert long_cases[dtype] == longline.FACTORS[dtype]
+    assert cases["plain", torch.complex64][4032] == (63, 64)
+    assert long_cases[torch.complex64][10752] == (21, 16, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("r", [33, 35, 39, 45, 49, 55, 63, 75])
+def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
+    """r = 33 to 63 take the radix route within one codelet pair and no
+    long-line or split route past it (no R1 of at most 32 holds them), and
+    75 (past 64) no codelet at all: their r*2^k run the dense kernel
+    within its one block, the chirp route up to its limit, and past it
+    the dense kernel, which raises on the card."""
+    for k in range(1, 24):
+        n = r << k
+        path = radix.kernel_path(n, dtype)
+        if n in radix.RADIX_SIZES[dtype]:
+            assert r in radix.RADIX_ODD and path == "radix"
+            continue
+        assert n not in longline.FACTORS[dtype]
+        assert n not in split.FACTORS[dtype]
+        if n <= chirp.dense_limit(dtype) or n > chirp.max_length(dtype):
+            assert path == "dense", (n, path)
+        else:
+            assert path == "chirp", (n, path)
+    assert (r in radix.RADIX_ODD) == (r < 64)
+    assert r not in radix.EVERY_ROUTE_ODD
 
 
 @pytest.fixture

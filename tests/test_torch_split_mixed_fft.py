@@ -1,5 +1,5 @@
-"""The split route at the mixed lengths r*2^k, r in {3, 5, 7, 9, 11, 13,
-15}, past the
+"""The split route at the mixed lengths r*2^k, r in
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}, past the
 long-line route's (``kernels/split.py``): N = P*Q with P a power of two
 (pass A, the strided radix entry unchanged) and the odd part in Q (pass
 B: the radix route's ``kRadixSplitB`` at a mixed Q, or the mixed
@@ -8,8 +8,10 @@ not a power of two).  The route's plain version, ``split.emulate`` (the
 wrapper runs it for CPU tensors), is held against ``np.fft`` and against
 the JAX package's Pallas kernel in interpret mode on the same numpy
 inputs (complex64 18432, 24576, 30720, 22528 = 11*2^11, 28672 = 7*2^12,
-26624 = 13*2^11 and 53248 = 13*2^12 (pass B at Q = 208), complex128
-9216, 12288, 11264 = 11*2^10, 14336 = 7*2^11 and 13312 = 13*2^10;
+26624 = 13*2^11 and 53248 = 13*2^12 (pass B at Q = 208), and the odd
+products 21504 = 21*2^10, 25600 = 25*2^10 and 27648 = 27*2^10, complex128
+9216, 12288, 11264 = 11*2^10, 14336 = 7*2^11 and 13312 = 13*2^10, and
+10752 = 21*2^9, 12800 = 25*2^9 and 13824 = 27*2^9;
 both directions, the twiddle and ``pack_parts`` epilogues) at the
 reference's tolerances (``tests/test_kernels.py:27``: 5e-6 max-scaled in
 complex64, 1e-12 in complex128); then lengths whose rows take the
@@ -42,7 +44,10 @@ LENGTHS = [(torch.complex64, 9 << 11), (torch.complex64, 3 << 13),
            (torch.complex128, 3 << 12), (torch.complex64, 11 << 11),
            (torch.complex64, 7 << 12), (torch.complex128, 11 << 10),
            (torch.complex128, 7 << 11), (torch.complex64, 13 << 11),
-           (torch.complex64, 13 << 12), (torch.complex128, 13 << 10)]
+           (torch.complex64, 13 << 12), (torch.complex128, 13 << 10),
+           (torch.complex64, 21 << 10), (torch.complex64, 25 << 10),
+           (torch.complex64, 27 << 10), (torch.complex128, 21 << 9),
+           (torch.complex128, 25 << 9), (torch.complex128, 27 << 9)]
 CASES = [(dtype, n, b, inv, tw,
           next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
           if parts == "odd" else parts)
@@ -138,7 +143,9 @@ def test_split_mixed_plan_matches_numpy_and_pallas(case, request):
     (torch.complex128, 9 << 16),        # 256 x 2304
     (torch.complex128, 7 << 16),        # 64 x 7168
     (torch.complex128, 11 << 16),       # 128 x 5632
-    (torch.complex128, 13 << 16)])      # 128 x 6656
+    (torch.complex128, 13 << 16),       # 128 x 6656
+    (torch.complex128, 21 << 14),       # 64 x 5376, an odd R1
+    (torch.complex128, 27 << 15)])      # 256 x 3456
 @pytest.mark.parametrize("inverse,use_tw,parts", [(False, False, None),
                                                   (True, True, 3)])
 def test_split_mixed_long_rows_match_numpy(dtype, n, inverse, use_tw, parts):
@@ -206,7 +213,8 @@ def test_split_mixed_lengths_are_every_r_2k_past_the_long_route():
                        (torch.complex128, 1 << 22)):
         long_max = max(n for n in longline.FACTORS[dtype]
                        if not radix.is_pow2(n))
-        want = sorted(r << k for r in radix.MIXED_ODD for k in range(1, 25)
+        want = sorted(r << k for r in radix.EVERY_ROUTE_ODD
+                      for k in range(1, 25)
                       if long_max < (r << k) <= top
                       and (r << k) not in longline.FACTORS[dtype])
         assert sorted(n for n in split.FACTORS[dtype]
