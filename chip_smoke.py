@@ -21,7 +21,8 @@ its result line):
    and split length of both dtypes (the long and split ones, powers of two
    and mixed lengths, with both epilogues, also against ``torch.fft``),
    every mixed radix length of
-   both dtypes (r*2^k, r in ``radix.RADIX_ODD``: both directions, both
+   both dtypes (r*2^k, r in ``radix.RADIX_ODD``, 3 to 1701, where both
+   factors fit a codelet: both directions, both
    epilogues, a ``pack_parts`` segment that is not a power of two, also
    against ``torch.fft``), chirp lengths of both inner routes, and
    strided ``(outer, N, inner)`` blocks through ``fft_fourstep_strided``
@@ -115,7 +116,7 @@ its result line):
 17. ``[long]``: the long-line kernel at the mixer's (8192, 8192)
     complex64 lines against its plain version and ``torch.fft``, timed
     beside its bound; the other long lengths of both dtypes at 512 MB; the dense kernel at (262144,
-    600 = 75*8), a length no other route takes; each reached once through
+    544 = 17*32), a length no other route takes; each reached once through
     ``ops.fft1d`` (one launch on its path); then ``[split]``: the split route (lines beyond one block,
     N = P*Q in two launches through HBM, three with rows on the
     long-line route) at complex64 N = 2^15, 2^16, 2^20, 2^24 and
@@ -126,13 +127,14 @@ its result line):
     ``[split_plan]``: a ``plan_fft`` C2C plan of (64, 64, 32768)
     complex64 on the kernel against ``fftn``, launches per path and line
     copies recorded; ``[mixed]``: the radix route at mixed lengths,
-    (262144, 384), (262144, 448), (262144, 416), (262144, 672) and
-    (262144, 360) complex64 and one length per odd part (``radix.
-    RADIX_ODD``: 3 to 63) and dtype at 512 MB, each once through
+    (262144, 384), (262144, 448), (262144, 416), (262144, 672), (262144,
+    360) and (262144, 600) complex64, one length per odd part 3 to 63
+    and dtype and, for the odd parts from 65, complex64 1000, 1800, 2400
+    and 3600 and complex128 300 and 900, at 512 MB, each once through
     ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft`` and the bound;
-    ``[mixed_plan]``: ``plan_fft`` C2C at 384^3, 448^3, 416^3 and 360^3
-    complex64 on
+    ``[mixed_plan]``: ``plan_fft`` C2C at 384^3, 448^3, 416^3, 360^3 and
+    600^3 complex64 on
     the kernel, 3 radix launches per direction (2 strided), 0 dense, 0
     chirp, 0 line copies, against ``fftn`` and the round trip, ms per
     direction beside ``fftn``, a ``cufft`` plan and the bound; the PPB
@@ -201,7 +203,8 @@ its result line):
     analysis, serve, lm, lm_fftconv, train_fftconv and lm_sharded paths;
     the serve counts are the first lifetime's traffic drains; the
     long-line entry's launches are the mixer's at S=4096, the dense
-    entry's its ``[long]`` call, the split entry's the mixer's at
+    entry's its ``[long]`` call at (262144, 544), the split entry's the
+    mixer's at
     S=16384, with S=32768's and ``[train_fftconv]``'s at S=16384 beside
     them, the mixed entry's the 384^3 plan's forward, the chirp entry's
     ``[chirp]``'s calls, the long_mixed entry's the mixer's at S=3072 and
@@ -2269,15 +2272,15 @@ def print_lines(phase: str, recs) -> None:
 
 
 def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
-               dense_shape=(262144, 600), iters: int = 10) -> dict:
+               dense_shape=(262144, 544), iters: int = 10) -> dict:
     """``[long]``: the long-line kernel at the mixer's shape at S=4096,
     (8192, 8192) complex64, against its plain version (``longline.
     emulate``) and ``torch.fft.fft``, timed beside the HBM bound; every
     other power-of-two long length of both dtypes at 512 MB of lines
     against ``torch.fft`` (``[long_mixed]`` times the mixed ones); and the
     dense
-    kernel at a length no other route takes, (262144, 600) complex64
-    (600 = 75*8: no codelet takes an odd part of 75), with its plain
+    kernel at a length no other route takes, (262144, 544) complex64
+    (544 = 17*32: no codelet takes a factor of 17), with its plain
     version, ``torch.fft`` and the bound.  Each kernel is reached
     once through ``ops.fft1d`` with the counts set to 0 just before and
     read just after (one launch on its path)."""
@@ -2414,7 +2417,10 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
 #: complex64: one length per odd part r = 3, 5, 7, 9, 11, 13, 15 and per
 #: dtype (the longest 7*2^k, 11*2^k and 13*2^k of each dtype), then the
 #: longest r*2^k of each odd product r = 21 to 63 and dtype (complex128
-#: 504 for 63: complex64 504 spills and runs dense).
+#: 504 for 63: complex64 504 spills and runs dense); then lengths with an
+#: odd part from 65 (dense before): complex64 1000 = 25 x 40, 1800 = 40 x
+#: 45, 2400 = 48 x 50 and 3600 = 60 x 60, complex128 300 = 15 x 20 and
+#: 900 = 30 x 30.
 MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex64", 2304), ("complex64", 3840),
                  ("complex128", 768), ("complex128", 640),
@@ -2431,12 +2437,16 @@ MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex128", 864), ("complex128", 528),
                  ("complex128", 560), ("complex128", 624),
                  ("complex128", 720), ("complex128", 784),
-                 ("complex128", 440), ("complex128", 504))
+                 ("complex128", 440), ("complex128", 504),
+                 ("complex64", 1000), ("complex64", 1800),
+                 ("complex64", 2400), ("complex64", 3600),
+                 ("complex128", 300), ("complex128", 900))
 
 
 def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
                 shape13=(262144, 416), shape21=(262144, 672),
-                shape45=(262144, 360), lengths=MIXED_LENGTHS,
+                shape45=(262144, 360), shape75=(262144, 600),
+                lengths=MIXED_LENGTHS,
                 lengths_bytes: int = 512 << 20, iters: int = 10) -> dict:
     """``[mixed]``: the radix route at mixed lengths (N = r*2^k, chains
     of radix-13, 11, 7, 5, 3, 4 and 2 codelets): (262144, 384) complex64,
@@ -2444,8 +2454,10 @@ def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
     took 3.4432 before the radix-7 codelet, (262144, 416), where it took
     3.1830 before the radix-13 codelet, (262144, 672 = 21*32), where it
     took 6.9234 before the odd products joined the radix route, (262144,
-    360 = 45*8), the one-degree grid's longitudes, and one length per odd
-    part and dtype at about 512 MB of lines, each reached once through
+    360 = 45*8), the one-degree grid's longitudes, (262144, 600 = 75*8),
+    where the dense route took 6.6113 ms before the odd parts from 65
+    joined the radix route, and one length per odd part and dtype at
+    about 512 MB of lines, each reached once through
     ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft.fft`` and the bound."""
     import torch
@@ -2459,6 +2471,8 @@ def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
                                       SEED + 67), "mixed", "radix", iters),
            "main45": line_entry(randc(shape45, torch.complex64, device,
                                       SEED + 66), "mixed", "radix", iters),
+           "main75": line_entry(randc(shape75, torch.complex64, device,
+                                      SEED + 65), "mixed", "radix", iters),
            "lengths": []}
     for i, (dt, n) in enumerate(lengths):
         dtype = getattr(torch, dt)
@@ -2470,7 +2484,7 @@ def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
         torch.cuda.empty_cache()
         print_lines("mixed", [out["main"], out["main7"], out["main13"],
                               out["main21"], out["main45"],
-                              *out["lengths"]])
+                              out["main75"], *out["lengths"]])
     return out
 
 
@@ -2479,7 +2493,9 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
     """``[mixed_plan]``: the main path at a mixed grid.  ``plan_fft`` C2C
     of 384^3 complex64 (453 MB; 448^3, 719 MB, for the radix-7 codelets;
     416^3, 576 MB, for the radix-13 ones; 360^3, 373 MB, for the odd
-    products: 360 = 18 x 20, the 3s and the 5 of 45 over both codelets)
+    products: 360 = 18 x 20, the 3s and the 5 of 45 over both codelets;
+    600^3, 1.73 GB, for the odd parts from 65: 600 = 24 x 25, the 5s of
+    75 in one codelet, its 3 in the other)
     on ``backend="kernel"``: forward against ``fftn`` (``PATH_TOL``) and
     the round trip (``ROUNDTRIP_TOL``), with exactly 3 radix launches per
     direction (2 on the strided entry), 0 dense, 0 chirp, 0 line copies, a
@@ -3359,6 +3375,9 @@ def main(timer=time.perf_counter) -> int:
     report["mixed_plan_360"] = mixed_plan45 = phase_mixed_plan(
         device, grid=(360, 360, 360), poisson=False)
     torch.cuda.empty_cache()
+    report["mixed_plan_600"] = mixed_plan75 = phase_mixed_plan(
+        device, grid=(600, 600, 600), poisson=False)
+    torch.cuda.empty_cache()
     report["long_mixed"] = long_mixed = phase_long_mixed(device)
     torch.cuda.empty_cache()
     report["split_mixed"] = split_mixed = phase_split_mixed(device)
@@ -3462,7 +3481,7 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "lm_fftconv_8192": mixer_runs[8192]["float32"]["counts"]["long"],
              "train_fftconv_4096": train_long["counts"]["long"]}},
-        # launches: one ops.fft1d call at (262144, 600)
+        # launches: one ops.fft1d call at (262144, 544)
         {"name": "fft_fourstep_dense", "route": "cuda",
          "source": KERNEL_SOURCE, "path": "dense",
          "replaces": "src/repro/kernels/fft_matmul.py:216",
@@ -3508,7 +3527,8 @@ def main(timer=time.perf_counter) -> int:
              "mixed_plan_poisson": mixed_plan["poisson_counts"]["radix"],
              "mixed_plan_448": mixed_plan7["forward_counts"]["radix"],
              "mixed_plan_416": mixed_plan13["forward_counts"]["radix"],
-             "mixed_plan_360": mixed_plan45["forward_counts"]["radix"]}},
+             "mixed_plan_360": mixed_plan45["forward_counts"]["radix"],
+             "mixed_plan_600": mixed_plan75["forward_counts"]["radix"]}},
         # launches: [chirp]'s calls, one ops.fft1d call per length (no
         # LM path runs the chirp route now); timed at lines of 5760
         {"name": "fft_fourstep_chirp", "route": "cuda",

@@ -1,10 +1,12 @@
 // Batched 1-D FFT of complex lines by the four-step method, for Hopper.
 //
 // Five routes, chosen by the wrapper from N and the dtype alone
-// (kernels/radix.py::kernel_path): power-of-two N up to 4096 (complex64) or
-// 1024 (complex128), and the mixed N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15,
-// 21, 25, 27, 33, 35, 39, 45, 49, 55, 63} (radix.RADIX_ODD), whose codelets
-// stay in registers, take the radix route (fft_radix.cuh: two passes of
+// (kernels/radix.py::kernel_path): every even N whose only prime factors are
+// 2, 3, 5, 7, 11 and 13 and whose two factors both fit a codelet of 64
+// values (complex64) or 32 (complex128), so that the codelets stay in
+// registers -- the powers of two up to 4096 (complex64) or 1024
+// (complex128) and the mixed N = r*2^k, r from 3 to 1701 (radix.RADIX_ODD)
+// -- takes the radix route (fft_radix.cuh: two passes of
 // in-register codelets, contiguous or strided lines); the longer powers of two
 // and mixed N (odd part 3 to 15, 21, 25 or 27: radix.EVERY_ROUTE_ODD) whose
 // line fits in one block's shared memory take the long-line route
@@ -18,7 +20,9 @@
 // part not one of those: primes from 17, the odd parts 33 to 63 and from 65)
 // takes the chirp route (kernels/chirp.py: Bluestein's convolution
 // as two of these launches on lines of M = 2^ceil(log2(2N - 1)), the chirps in
-// their twiddle epilogues); any other N takes the general dense kernel below.
+// their twiddle epilogues); any other N takes the general dense kernel below
+// (within one block: odd N, N with a prime factor past 13, and the even
+// 13-smooth N whose factors do not both fit a codelet).
 //
 // Replaces the TPU kernel src/repro/kernels/fft_matmul.py::_fft_kernel (the
 // pl.pallas_call in fft1d_planes), with its two fused epilogues: the

@@ -1,7 +1,8 @@
 // The radix path of the four-step kernel: N = N1*N2 on Hopper, with
-// in-register sub-DFTs, for the powers of two and the mixed lengths
-// r*2^k, r in {3, 5, 7, 9, 11, 13, 15, 21, 25, 27, 33, 35, 39, 45, 49, 55,
-// 63} (kernels/radix.py::RADIX_ODD, RADIX_SIZES).
+// in-register sub-DFTs, for every even N whose only prime factors are 2, 3,
+// 5, 7, 11 and 13 and whose factors both fit a codelet of 64 values
+// (complex64) or 32 (complex128): the powers of two and the mixed lengths
+// r*2^k, r from 3 to 1701 (kernels/radix.py::RADIX_SIZES, RADIX_ODD).
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -892,6 +893,62 @@ int radix_part(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(784, 28, 28)
       REPRO_RADIX_CASE(800, 25, 32)
       REPRO_RADIX_CASE(864, 27, 32)
+      // the odd parts from 65: every other even 13-smooth N whose factors
+      // both fit a codelet of 32 (130 = 10x13, 600 = 24x25, 900 = 30x30)
+      REPRO_RADIX_CASE(130, 10, 13)
+      REPRO_RADIX_CASE(150, 10, 15)
+      REPRO_RADIX_CASE(154, 11, 14)
+      REPRO_RADIX_CASE(162, 9, 18)
+      REPRO_RADIX_CASE(182, 13, 14)
+      REPRO_RADIX_CASE(198, 11, 18)
+      REPRO_RADIX_CASE(210, 14, 15)
+      REPRO_RADIX_CASE(234, 13, 18)
+      REPRO_RADIX_CASE(242, 11, 22)
+      REPRO_RADIX_CASE(250, 10, 25)
+      REPRO_RADIX_CASE(260, 13, 20)
+      REPRO_RADIX_CASE(270, 15, 18)
+      REPRO_RADIX_CASE(286, 13, 22)
+      REPRO_RADIX_CASE(294, 14, 21)
+      REPRO_RADIX_CASE(300, 15, 20)
+      REPRO_RADIX_CASE(308, 14, 22)
+      REPRO_RADIX_CASE(324, 18, 18)
+      REPRO_RADIX_CASE(330, 15, 22)
+      REPRO_RADIX_CASE(338, 13, 26)
+      REPRO_RADIX_CASE(350, 14, 25)
+      REPRO_RADIX_CASE(364, 14, 26)
+      REPRO_RADIX_CASE(378, 18, 21)
+      REPRO_RADIX_CASE(390, 15, 26)
+      REPRO_RADIX_CASE(396, 18, 22)
+      REPRO_RADIX_CASE(420, 20, 21)
+      REPRO_RADIX_CASE(450, 18, 25)
+      REPRO_RADIX_CASE(462, 21, 22)
+      REPRO_RADIX_CASE(468, 18, 26)
+      REPRO_RADIX_CASE(484, 22, 22)
+      REPRO_RADIX_CASE(486, 18, 27)
+      REPRO_RADIX_CASE(500, 20, 25)
+      REPRO_RADIX_CASE(520, 20, 26)
+      REPRO_RADIX_CASE(540, 20, 27)
+      REPRO_RADIX_CASE(546, 21, 26)
+      REPRO_RADIX_CASE(550, 22, 25)
+      REPRO_RADIX_CASE(572, 22, 26)
+      REPRO_RADIX_CASE(588, 21, 28)
+      REPRO_RADIX_CASE(594, 22, 27)
+      REPRO_RADIX_CASE(600, 24, 25)
+      REPRO_RADIX_CASE(616, 22, 28)
+      REPRO_RADIX_CASE(630, 21, 30)
+      REPRO_RADIX_CASE(648, 24, 27)
+      REPRO_RADIX_CASE(650, 25, 26)
+      REPRO_RADIX_CASE(660, 22, 30)
+      REPRO_RADIX_CASE(676, 26, 26)
+      REPRO_RADIX_CASE(700, 25, 28)
+      REPRO_RADIX_CASE(702, 26, 27)
+      REPRO_RADIX_CASE(728, 26, 28)
+      REPRO_RADIX_CASE(750, 25, 30)
+      REPRO_RADIX_CASE(756, 27, 28)
+      REPRO_RADIX_CASE(780, 26, 30)
+      REPRO_RADIX_CASE(810, 27, 30)
+      REPRO_RADIX_CASE(840, 28, 30)
+      REPRO_RADIX_CASE(900, 30, 30)
       default:
         break;
     }
@@ -941,6 +998,132 @@ int radix_part(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(3456, 54, 64)
         REPRO_RADIX_CASE(3520, 55, 64)
         REPRO_RADIX_CASE(4032, 63, 64)
+        // the odd parts from 65 with a factor of 33 to 64 (490 = 14x35,
+        // 3600 = 60x60, 3780 = 60x63)
+        REPRO_RADIX_CASE(490, 14, 35)
+        REPRO_RADIX_CASE(686, 14, 49)
+        REPRO_RADIX_CASE(726, 22, 33)
+        REPRO_RADIX_CASE(770, 22, 35)
+        REPRO_RADIX_CASE(792, 24, 33)
+        REPRO_RADIX_CASE(858, 26, 33)
+        REPRO_RADIX_CASE(882, 21, 42)
+        REPRO_RADIX_CASE(910, 26, 35)
+        REPRO_RADIX_CASE(924, 28, 33)
+        REPRO_RADIX_CASE(936, 26, 36)
+        REPRO_RADIX_CASE(968, 22, 44)
+        REPRO_RADIX_CASE(972, 27, 36)
+        REPRO_RADIX_CASE(980, 28, 35)
+        REPRO_RADIX_CASE(990, 30, 33)
+        REPRO_RADIX_CASE(1000, 25, 40)
+        REPRO_RADIX_CASE(1014, 26, 39)
+        REPRO_RADIX_CASE(1040, 26, 40)
+        REPRO_RADIX_CASE(1050, 30, 35)
+        REPRO_RADIX_CASE(1078, 22, 49)
+        REPRO_RADIX_CASE(1080, 30, 36)
+        REPRO_RADIX_CASE(1092, 28, 39)
+        REPRO_RADIX_CASE(1100, 25, 44)
+        REPRO_RADIX_CASE(1134, 27, 42)
+        REPRO_RADIX_CASE(1144, 26, 44)
+        REPRO_RADIX_CASE(1170, 30, 39)
+        REPRO_RADIX_CASE(1176, 28, 42)
+        REPRO_RADIX_CASE(1188, 33, 36)
+        REPRO_RADIX_CASE(1200, 30, 40)
+        REPRO_RADIX_CASE(1210, 22, 55)
+        REPRO_RADIX_CASE(1232, 28, 44)
+        REPRO_RADIX_CASE(1250, 25, 50)
+        REPRO_RADIX_CASE(1260, 35, 36)
+        REPRO_RADIX_CASE(1274, 26, 49)
+        REPRO_RADIX_CASE(1296, 36, 36)
+        REPRO_RADIX_CASE(1300, 26, 50)
+        REPRO_RADIX_CASE(1320, 33, 40)
+        REPRO_RADIX_CASE(1350, 30, 45)
+        REPRO_RADIX_CASE(1352, 26, 52)
+        REPRO_RADIX_CASE(1372, 28, 49)
+        REPRO_RADIX_CASE(1386, 33, 42)
+        REPRO_RADIX_CASE(1400, 35, 40)
+        REPRO_RADIX_CASE(1404, 36, 39)
+        REPRO_RADIX_CASE(1430, 26, 55)
+        REPRO_RADIX_CASE(1452, 33, 44)
+        REPRO_RADIX_CASE(1456, 28, 52)
+        REPRO_RADIX_CASE(1458, 27, 54)
+        REPRO_RADIX_CASE(1470, 35, 42)
+        REPRO_RADIX_CASE(1500, 30, 50)
+        REPRO_RADIX_CASE(1512, 36, 42)
+        REPRO_RADIX_CASE(1540, 35, 44)
+        REPRO_RADIX_CASE(1560, 39, 40)
+        REPRO_RADIX_CASE(1584, 36, 44)
+        REPRO_RADIX_CASE(1620, 36, 45)
+        REPRO_RADIX_CASE(1638, 39, 42)
+        REPRO_RADIX_CASE(1650, 33, 50)
+        REPRO_RADIX_CASE(1680, 40, 42)
+        REPRO_RADIX_CASE(1716, 39, 44)
+        REPRO_RADIX_CASE(1750, 35, 50)
+        REPRO_RADIX_CASE(1764, 42, 42)
+        REPRO_RADIX_CASE(1782, 33, 54)
+        REPRO_RADIX_CASE(1800, 40, 45)
+        REPRO_RADIX_CASE(1820, 35, 52)
+        REPRO_RADIX_CASE(1848, 42, 44)
+        REPRO_RADIX_CASE(1872, 39, 48)
+        REPRO_RADIX_CASE(1890, 42, 45)
+        REPRO_RADIX_CASE(1936, 44, 44)
+        REPRO_RADIX_CASE(1944, 36, 54)
+        REPRO_RADIX_CASE(1950, 39, 50)
+        REPRO_RADIX_CASE(1960, 40, 49)
+        REPRO_RADIX_CASE(1980, 44, 45)
+        REPRO_RADIX_CASE(2000, 40, 50)
+        REPRO_RADIX_CASE(2028, 39, 52)
+        REPRO_RADIX_CASE(2058, 42, 49)
+        REPRO_RADIX_CASE(2080, 40, 52)
+        REPRO_RADIX_CASE(2100, 42, 50)
+        REPRO_RADIX_CASE(2106, 39, 54)
+        REPRO_RADIX_CASE(2156, 44, 49)
+        REPRO_RADIX_CASE(2160, 45, 48)
+        REPRO_RADIX_CASE(2184, 42, 52)
+        REPRO_RADIX_CASE(2200, 44, 50)
+        REPRO_RADIX_CASE(2250, 45, 50)
+        REPRO_RADIX_CASE(2268, 42, 54)
+        REPRO_RADIX_CASE(2288, 44, 52)
+        REPRO_RADIX_CASE(2310, 42, 55)
+        REPRO_RADIX_CASE(2340, 45, 52)
+        REPRO_RADIX_CASE(2352, 48, 49)
+        REPRO_RADIX_CASE(2376, 44, 54)
+        REPRO_RADIX_CASE(2400, 48, 50)
+        REPRO_RADIX_CASE(2420, 44, 55)
+        REPRO_RADIX_CASE(2430, 45, 54)
+        REPRO_RADIX_CASE(2450, 49, 50)
+        REPRO_RADIX_CASE(2464, 44, 56)
+        REPRO_RADIX_CASE(2500, 50, 50)
+        REPRO_RADIX_CASE(2520, 45, 56)
+        REPRO_RADIX_CASE(2548, 49, 52)
+        REPRO_RADIX_CASE(2592, 48, 54)
+        REPRO_RADIX_CASE(2600, 50, 52)
+        REPRO_RADIX_CASE(2640, 48, 55)
+        REPRO_RADIX_CASE(2646, 49, 54)
+        REPRO_RADIX_CASE(2700, 50, 54)
+        REPRO_RADIX_CASE(2704, 52, 52)
+        REPRO_RADIX_CASE(2744, 49, 56)
+        REPRO_RADIX_CASE(2750, 50, 55)
+        REPRO_RADIX_CASE(2772, 44, 63)
+        REPRO_RADIX_CASE(2800, 50, 56)
+        REPRO_RADIX_CASE(2808, 52, 54)
+        REPRO_RADIX_CASE(2860, 52, 55)
+        REPRO_RADIX_CASE(2912, 52, 56)
+        REPRO_RADIX_CASE(2916, 54, 54)
+        REPRO_RADIX_CASE(2940, 49, 60)
+        REPRO_RADIX_CASE(2970, 54, 55)
+        REPRO_RADIX_CASE(3000, 50, 60)
+        REPRO_RADIX_CASE(3024, 54, 56)
+        REPRO_RADIX_CASE(3080, 55, 56)
+        REPRO_RADIX_CASE(3120, 52, 60)
+        REPRO_RADIX_CASE(3150, 50, 63)
+        REPRO_RADIX_CASE(3240, 54, 60)
+        REPRO_RADIX_CASE(3276, 52, 63)
+        REPRO_RADIX_CASE(3300, 55, 60)
+        REPRO_RADIX_CASE(3360, 56, 60)
+        REPRO_RADIX_CASE(3402, 54, 63)
+        REPRO_RADIX_CASE(3528, 56, 63)
+        REPRO_RADIX_CASE(3600, 60, 60)
+        REPRO_RADIX_CASE(3780, 60, 63)
         default:
           break;
       }

@@ -2,9 +2,10 @@
 
 ``csrc/fft_fourstep.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers).  It instantiates every length
-the routes take, one kernel each (376: 315 radix, 55 long-line, 4
-transposes, 2 dense), which one ``nvcc`` run compiles in minutes (227-319
-s on an H100 machine, PERF.md).  So the build splits them over
+the routes take, one kernel each (608: 547 radix, 55 long-line, 4
+transposes, 2 dense), which one ``nvcc`` run would compile in many
+minutes (376 of them took 227-319 s on an H100 machine, PERF.md).  So
+the build splits them over
 :data:`PARTS` translation units of the same source (``-DREPRO_PART=k``:
 the kernels of build part k, ``fft_radix.cuh``'s ``build_part``; ``-1``:
 the entry points), compiles all of them at once, one ``nvcc -c`` each,

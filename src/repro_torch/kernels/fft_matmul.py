@@ -32,11 +32,12 @@ taken (:func:`_resolved`); the plain version reads ``.real``/``.imag``,
 which honour those bits anyway.
 
 Five routes, chosen from N and the dtype alone (:func:`radix.kernel_path`):
-power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) and
-the mixed N = r*2^k, r in ``radix.RADIX_ODD`` (3, 5, 7, 9, 11, 13, 15 and
-the odd products 21, 25, 27, 33, 35, 39, 45, 49, 55, 63), whose codelets
-stay in registers (to 4032 for complex64, 960 for complex128:
-``radix.RADIX_SIZES``) take the radix path — two passes of in-register
+every even N whose only prime factors are 2, 3, 5, 7, 11 and 13 and
+whose two factors both fit a codelet of ``radix.CODELET_MAX`` values,
+so that the codelets stay in registers — power-of-two N (2 to 4096 for
+complex64, 4 to 1024 for complex128) and the mixed N = r*2^k, r in
+``radix.RADIX_ODD`` (3 to 1701 for complex64, 3 to 405 for complex128:
+``radix.RADIX_SIZES``) — takes the radix path — two passes of in-register
 codelets (radix 2, or a chain of radix 2, 3, 4, 5, 7, 11 and 13),
 ``csrc/fft_radix.cuh``, planned in
 ``kernels/radix.py``; the longer N whose line fits in one block's shared
@@ -60,8 +61,10 @@ convolution as two transforms of M =
 2^ceil(log2(2N - 1)) on the long-line or split route with the chirps in
 their ``twiddle`` epilogues, planned in ``kernels/chirp.py``, whose
 ``emulate`` is that route's plain version (N up to 2^23 for complex64,
-2^21 for complex128); every other N takes the general dense kernel, which
-raises past one block's shared memory.  A failed build or launch raises;
+2^21 for complex128); every other N takes the general dense kernel
+(within one block: odd N, N with a prime factor past 13, the even
+13-smooth N whose factors do not both fit a codelet, such as complex64
+2730 = 42 x 65), which raises past one block's shared memory.  A failed build or launch raises;
 nothing falls back.
 
 :func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``

@@ -79,7 +79,8 @@ from . import radix
 #: mixed length's mixed factor is R1, with as many 2s as 32 allows (28 for
 #: 7*2^k, 22 for 11*2^k, 26 for 13*2^k; none for 21*2^k, 25*2^k and
 #: 27*2^k, whose R1 is odd), so the power-of-two passes are as short as
-#: they can be.  An odd part above 32 (33 to 63) has no R1 here.
+#: they can be.  An odd part above 32 (33 to 63, and those from 65 that
+#: the radix route takes within one block) has no R1 here.
 FACTORS = {
     torch.complex64: {
         8192: (16, 16, 32), 16384: (16, 32, 32),

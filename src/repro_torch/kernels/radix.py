@@ -1,11 +1,12 @@
 """The radix path of the four-step kernel: its plan, its tiles and their
 index maps, in Python.
 
-For N = N1*N2 (``transforms.factorize``) in :data:`RADIX_SIZES` (the
-powers of two and the mixed lengths r*2^k, r in :data:`RADIX_ODD`: 3, 5,
-7, 9, 11, 13, 15, 21, 25, 27, 33, 35, 39, 45, 49, 55 and 63) the kernel
-(``csrc/fft_radix.cuh``) computes the four steps with in-register
-codelets instead of dense DFT-matrix products (on the CPU,
+For N = N1*N2 (``transforms.factorize``) in :data:`RADIX_SIZES` (every
+even N whose only prime factors are 2, 3, 5, 7, 11 and 13 and whose two
+factors are both at most :data:`CODELET_MAX` long: the powers of two and
+the mixed lengths r*2^k, their odd parts r in :data:`RADIX_ODD`, 3 to
+1701) the kernel (``csrc/fft_radix.cuh``) computes the four steps with
+in-register codelets instead of dense DFT-matrix products (on the CPU,
 :func:`emulate` runs the same index maps):
 
 * column pass — a thread holds one (line, m2) column x[m1*N2 + m2],
@@ -90,40 +91,52 @@ STRIDED_LINES = 16
 #: (``longline.FACTORS``: r*2^a is its mixed factor R1 <= 32) and the
 #: split route past it (``split.FACTORS``).
 EVERY_ROUTE_ODD = (3, 5, 7, 9, 11, 13, 15, 21, 25, 27)
-#: The odd parts the radix route takes: those, and every other product of
-#: 3, 5, 7, 11 and 13 below 64, each one codelet (:func:`radices`).  Past
-#: the radix route r = 33 to 63 run the dense kernel within one block and
-#: the chirp route beyond it.
-RADIX_ODD = EVERY_ROUTE_ODD + (33, 35, 39, 45, 49, 55, 63)
+#: The longest codelet per complex dtype, in values: a codelet of 64
+#: complex128 values would take 256 registers and spill, so complex128
+#: stops at 32 (and its 2048 and 4096 take the long-line route).
+CODELET_MAX = {torch.complex64: 64, torch.complex128: 32}
 
 
-def _mixed(limit: int) -> Tuple[int, ...]:
-    """r*2^k for r in RADIX_ODD, k >= 1, whose factors (``factorize``) are
-    both at most ``limit``: the codelets stay in registers."""
-    return tuple(sorted(r << k for r in RADIX_ODD for k in range(1, 13)
-                        if max(factorize(r << k)) <= limit))
+def smooth(n: int) -> bool:
+    """Whether ``n`` >= 1 has no prime factor but 2, 3, 5, 7, 11 and 13,
+    the radices of the codelets."""
+    for p in (2, 3, 5, 7, 11, 13):
+        while n % p == 0:
+            n //= p
+    return n == 1
 
 
-#: Lengths the kernel instantiates, per complex dtype: the powers of two
-#: and the mixed lengths r*2^k, r in RADIX_ODD (complex64 6-4032, 121 of
-#: them; complex128 6-960, 86), codelets of at most 64 values (complex64)
-#: or 32 (complex128): 4032 = 63 x 64, 1568 = 32 x 49, 800 = 25 x 32.
-#: complex128 stops at 1024: a codelet of 64 complex128 values would take
-#: 256 registers and spill, so 2048 and 4096 take the long-line route
-#: (three passes).  Four lengths whose kernels ptxas spills at a low
-#: register count stay on the dense path: complex128 N = 2 (4 bytes at 64
-#: registers) and N = 22 = 2x11 (4 bytes at 80), complex64 N = 208 = 13x16
-#: (4 bytes and an 8-byte stack frame at 64) and N = 504 = 21x24 (4 bytes
-#: and an 8-byte stack frame at 80).
+def odd_part(n: int) -> int:
+    """``n`` without its factors of 2."""
+    return n >> ((n & -n).bit_length() - 1)
+
+
+#: Lengths the kernel instantiates, per complex dtype: every even N whose
+#: only prime factors are 2, 3, 5, 7, 11 and 13 and whose two factors
+#: (``factorize``) are both at most ``CODELET_MAX`` long, so both codelets
+#: stay in registers: complex64 2 to 4096 (12 powers of two and 299 mixed
+#: lengths, 4096 = 64 x 64, 3780 = 60 x 63, 600 = 24 x 25), complex128 4
+#: to 1024 (9 and 140; 900 = 30 x 30).  The even 13-smooth lengths whose
+#: factors do not both fit (complex64 1690 = 26 x 65 to 4056, such as
+#: 2730, 3888, 4000 and 4050; complex128 490 = 14 x 35 to 1014) and odd N
+#: run the dense kernel.  Four lengths whose kernels ptxas spills at a
+#: low register count stay on the dense path too: complex128 N = 2 (4
+#: bytes at 64 registers) and N = 22 = 2x11 (4 bytes at 80), complex64 N =
+#: 208 = 13x16 (4 bytes and an 8-byte stack frame at 64) and N = 504 =
+#: 21x24 (4 bytes and an 8-byte stack frame at 80).
 _SPILLS = {torch.complex64: (208, 504), torch.complex128: (2, 22)}
 RADIX_SIZES = {
-    torch.complex64: tuple(sorted(
-        n for n in [2 ** k for k in range(1, 13)] + list(_mixed(64))
-        if n not in _SPILLS[torch.complex64])),
-    torch.complex128: tuple(sorted(
-        n for n in [2 ** k for k in range(1, 11)] + list(_mixed(32))
-        if n not in _SPILLS[torch.complex128])),
-}
+    dtype: tuple(n for n in range(2, cap * cap + 1, 2)
+                 if smooth(n) and max(factorize(n)) <= cap
+                 and n not in _SPILLS[dtype])
+    for dtype, cap in CODELET_MAX.items()}
+#: The odd parts the radix route takes, per complex dtype: 13-smooth, in
+#: some even N whose two factors both fit one codelet (complex64 3 to
+#: 1701, complex128 3 to 405).  Which r*2^k of them run there is
+#: :data:`RADIX_SIZES`' rule: 75*2 = 150 = 10 x 15 does, 75*64 = 4800 =
+#: 60 x 80 does not.
+RADIX_ODD = {dtype: frozenset(odd_part(n) for n in sizes if odd_part(n) > 1)
+             for dtype, sizes in RADIX_SIZES.items()}
 
 
 def kernel_path(n: int, dtype: torch.dtype) -> str:

@@ -295,13 +295,15 @@ def test_fft_conv_at_16384_on_the_split_route(cuda):
 def test_cuda_mixed_radix_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
     """Every mixed radix length (N = r*2^k, r in ``radix.RADIX_ODD``: 3
-    to 15 and the odd products 21 to 63): one radix launch each, against
+    to 15, the odd products 21 to 63 and the odd parts from 65 whose N
+    has both factors within a codelet, 600 = 24 x 25 to 3780 = 60 x 63):
+    one radix launch each, against
     the plain version and ``torch.fft`` at the
     kernel's tolerances, without an epilogue and with both (a pack_parts
     segment that is not a power of two where 3 divides N)."""
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in radix.RADIX_SIZES[dtype] if not radix.is_pow2(n)]
-    assert len(mixed) == (121 if dtype == torch.complex64 else 86)
+    assert len(mixed) == (299 if dtype == torch.complex64 else 140)
     for n in mixed:
         x = torch.from_numpy(cplx((21, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
@@ -326,7 +328,10 @@ def test_cuda_mixed_radix_lengths_match_plain_version_and_torch_fft(
 @pytest.mark.parametrize("shape,dtype", [((2, 384, 300), torch.complex64),
                                          ((3, 1280, 40), torch.complex64),
                                          ((4, 96, 17), torch.complex64),
-                                         ((2, 480, 33), torch.complex128)])
+                                         ((2, 480, 33), torch.complex128),
+                                         ((2, 600, 40), torch.complex64),
+                                         ((3, 338, 17), torch.complex64),
+                                         ((2, 300, 33), torch.complex128)])
 def test_cuda_strided_mixed_axis(cuda, shape, dtype):
     """A mixed length on a strided axis runs in place on the strided
     entry (``ops``: no line copy), with a ragged last group of inner
@@ -639,6 +644,32 @@ def test_kernel_plan_on_the_card(cuda):
                         2e-4)
     assert_scaled_close(back.cpu().numpy(), x.cpu().numpy(), 1e-4)
     assert np.isfinite(y.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_kernel_plan_at_odd_parts_from_65_on_the_card(cuda):
+    """A 3-D kernel-backend plan at (130, 150, 162), odd parts 65, 75 and
+    81: every stage on the radix route (2 strided, in place), no dense
+    launch, forward within 2e-4 of ``torch.fft.fftn``, round trip within
+    1e-4."""
+    from repro_torch import make_mesh, plan_fft
+    mesh = make_mesh((1, 1), ("data", "model"))
+    grid = (130, 150, 162)
+    plan = plan_fft(mesh, grid, backend="kernel")
+    x = torch.from_numpy(cplx(grid, 10)).to(cuda)
+    tfm.reset_launch_counts()
+    ops.copies["lines"] = 0
+    y = plan.forward(x)
+    back = plan.inverse(y, sharded_in=True)
+    torch.cuda.synchronize()
+    assert tfm.fft_fourstep.path_launches == {"radix": 6, "dense": 0,
+                                              "long": 0, "split": 0,
+                                              "chirp": 0}
+    assert tfm.fft_fourstep.layout_launches == {"lines": 2, "strided": 4}
+    assert ops.copies["lines"] == 0 and y.is_contiguous()
+    assert_scaled_close(y.cpu().numpy(), torch.fft.fftn(x).cpu().numpy(),
+                        2e-4)
+    assert_scaled_close(back.cpu().numpy(), x.cpu().numpy(), 1e-4)
 
 
 @pytest.mark.cuda

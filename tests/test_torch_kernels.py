@@ -298,7 +298,12 @@ def test_kernel_operands_are_resolved():
     (13312, torch.complex64, "long"), (208, torch.complex128, "radix"),
     (208, torch.complex64, "dense"), (10752, torch.complex64, "long"),
     (672, torch.complex64, "radix"), (4032, torch.complex64, "radix"),
-    (4480, torch.complex64, "dense"), (21 << 10, torch.complex64, "split")])
+    (4480, torch.complex64, "dense"), (21 << 10, torch.complex64, "split"),
+    (600, torch.complex64, "radix"), (600, torch.complex128, "radix"),
+    (3600, torch.complex64, "radix"), (3780, torch.complex64, "radix"),
+    (900, torch.complex128, "radix"), (2730, torch.complex64, "dense"),
+    (1000, torch.complex128, "dense"), (544, torch.complex64, "dense"),
+    (75, torch.complex64, "dense"), (4800, torch.complex64, "dense")])
 def test_kernel_path_selection(n, dtype, path):
     """The path follows N and the dtype alone: N with a radix
     instantiation (powers of two, and mixed r*2^k such as 24, 96 and
@@ -313,7 +318,11 @@ def test_kernel_path_selection(n, dtype, path):
     21*512 are long lines, 21*1024 a split one):
     test_torch_long_mixed_fft.py and test_torch_split_mixed_fft.py.
     complex64 208 = 13x16 is dense: ptxas spills its radix kernel; 4032 =
-    63x64 takes the radix route."""
+    63x64 takes the radix route, and so do the even 13-smooth lengths
+    with an odd part from 65 whose factors both fit a codelet (600 = 24 x
+    25, 3600 = 60 x 60, 3780 = 60 x 63, complex128 900 = 30 x 30); those
+    whose factors do not (2730 = 42 x 65, complex128 1000 = 25 x 40),
+    odd N (75) and 544 = 17*32 run dense."""
     assert radix.kernel_path(n, dtype) == path
 
 

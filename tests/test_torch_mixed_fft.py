@@ -1,10 +1,14 @@
 """The radix route's mixed lengths (``kernels/radix.py``,
 ``csrc/fft_radix.cuh``): N = r*2^k, r in ``radix.RADIX_ODD`` (3, 5, 7,
-9, 11, 13, 15 and the odd products 21, 25, 27, 33, 35, 39, 45, 49, 55,
-63), whose codelets are chains of radix-13, 11, 7, 5, 3, 4 and 2
+9, 11, 13, 15, the odd products 21 to 63 and, where both factors fit a
+codelet, the odd parts from 65), whose codelets are chains of radix-13,
+11, 7, 5, 3, 4 and 2
 butterflies on digit-reversed loads (radix 7, 11 and 13 in the
 symmetric-pair form); one length per odd product and dtype, and c64 672,
-1440 and 4032.  The
+1440 and 4032; for the odd parts from 65 one length per family (75:
+c64 150 = 10 x 15 and 600 = 24 x 25, 125: 1000, 225: 1800, 3600 = 60 x
+60 and c128 900 = 30 x 30, 169: c64 338 = 13 x 26, 65: c128 130) and
+c128 300.  The
 kernel's plan and index maps, run in torch by ``radix.emulate``, are held
 against ``np.fft`` and against the JAX package's Pallas kernel in interpret
 mode on the same numpy inputs: both directions, the twiddle epilogue,
@@ -13,8 +17,9 @@ and p = 3), and the strided layout, at the reference's tolerances
 (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
 complex128).  Then the chains and tables, the sizes the kernel
 instantiates (against the CUDA dispatch's cases), the routes of the odd
-products, and a ``plan_fft`` C2C plan and a PPB Poisson solve at a mixed
-grid on the kernel backend's plain version against the reference's.
+products and the radix route's rule over every length to 4096 / 1024,
+and a ``plan_fft`` C2C plan and a PPB Poisson solve at a mixed grid on
+the kernel backend's plain version against the reference's.
 The CUDA kernel is tested in ``test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -48,7 +53,10 @@ LENGTHS = [(torch.complex64, n) for n in (6, 12, 30, 36, 60, 96, 384, 1536,
           [(torch.complex64, n) for n in (672, 800, 864, 1056, 1120, 1248,
                                           1440, 1568, 3520, 4032)] + \
           [(torch.complex128, n) for n in (42, 800, 864, 528, 70, 624, 720,
-                                           784, 110, 504)]
+                                           784, 110, 504)] + \
+          [(torch.complex64, n) for n in (150, 600, 1000, 1800, 3600,
+                                          338)] + \
+          [(torch.complex128, n) for n in (130, 300, 900)]
 #: (batch, inverse, twiddle, pack_parts): ragged batches, both directions,
 #: each epilogue; pack_parts 3 where 3 divides N, else 2.
 VARIANTS = [(37, False, False, None), (5, True, True, None),
@@ -150,7 +158,11 @@ def test_mixed_radix_plan_matches_numpy_and_pallas(case, request):
                                      (torch.complex128, 208),
                                      (torch.complex64, 360),
                                      (torch.complex64, 1440),
-                                     (torch.complex128, 360)])
+                                     (torch.complex128, 360),
+                                     (torch.complex64, 150),
+                                     (torch.complex64, 600),
+                                     (torch.complex64, 338),
+                                     (torch.complex128, 300)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_mixed_strided_layout_matches_numpy(dtype, n, inverse):
     """The strided ``(outer, N, inner)`` layout at mixed lengths, a
@@ -239,16 +251,17 @@ def test_mixed_13_codelets_of_416_and_3328(n, factors, chains):
 
 
 def test_mixed_sizes_tables_and_tiles():
-    """121 mixed complex64 lengths to 4032 and 86 complex128 to 960 (62
-    and 41 of them the odd products r = 21 to 63; complex128 22 and
-    complex64 208 and 504 spill in ptxas and run dense), every
-    codelet at most 64 (complex64) or 32 (complex128) long; each codelet
+    """299 mixed complex64 lengths to 3780 and 140 complex128 to 960 (178
+    and 54 of them with an odd part from 65; complex128 22 and complex64
+    208 and 504 spill in ptxas and run dense), every codelet at most 64
+    (complex64) or 32 (complex128) long, every odd part among the radix
+    route's (``radix.RADIX_ODD``); each codelet
     has its own table (N2 + N1 entries); the tile's lines are a power of
     two; the split route's P stays a power of two (its pass A), and its Q
     is a power of two or a mixed length of the long-line route or of the
     codelets (its pass B: complex64 208 runs there, clean in ptxas)."""
-    for dtype, count, cap in ((torch.complex64, 121, 64),
-                              (torch.complex128, 86, 32)):
+    for dtype, count, cap in ((torch.complex64, 299, 64),
+                              (torch.complex128, 140, 32)):
         mixed = [n for n in radix.RADIX_SIZES[dtype]
                  if not radix.is_pow2(n)]
         assert len(mixed) == count
@@ -258,7 +271,7 @@ def test_mixed_sizes_tables_and_tiles():
             odd = n
             while odd % 2 == 0:
                 odd //= 2
-            assert odd in radix.RADIX_ODD
+            assert odd in radix.RADIX_ODD[dtype]
             assert radix.table_elems(n) == n1 + n2
             assert radix.codelet_table(n, False).shape == (n1 + n2,)
             tile = radix.radix_tile(n, dtype.itemsize, True, False)
@@ -377,16 +390,20 @@ def test_cuda_dispatch_instantiates_the_python_tables():
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 @pytest.mark.parametrize("r", [33, 35, 39, 45, 49, 55, 63, 75])
 def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
-    """r = 33 to 63 take the radix route within one codelet pair and no
-    long-line or split route past it (no R1 of at most 32 holds them), and
-    75 (past 64) no codelet at all: their r*2^k run the dense kernel
-    within its one block, the chirp route up to its limit, and past it
-    the dense kernel, which raises on the card."""
+    """r = 33 to 63 and 75 take the radix route within one codelet pair
+    (75*2^k as 10 x 15 up to 2400 = 48 x 50 in complex64, 600 = 24 x 25 in
+    complex128) and no long-line or split route past it (no R1 of at most
+    32 holds them): their r*2^k whose factors do not both fit a codelet
+    run the dense kernel within its one block, the chirp route up to its
+    limit, and past it the dense kernel, which raises on the card."""
+    cap = radix.CODELET_MAX[dtype]
+    on_radix = []
     for k in range(1, 24):
         n = r << k
         path = radix.kernel_path(n, dtype)
         if n in radix.RADIX_SIZES[dtype]:
-            assert r in radix.RADIX_ODD and path == "radix"
+            assert r in radix.RADIX_ODD[dtype] and path == "radix"
+            on_radix.append(n)
             continue
         assert n not in longline.FACTORS[dtype]
         assert n not in split.FACTORS[dtype]
@@ -394,8 +411,52 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
             assert path == "dense", (n, path)
         else:
             assert path == "chirp", (n, path)
-    assert (r in radix.RADIX_ODD) == (r < 64)
+    assert on_radix == [r << k for k in range(1, 24)
+                        if max(factorize(r << k)) <= cap
+                        and (r << k) not in radix._SPILLS[dtype]]
+    if r == 75:
+        assert on_radix == ([150, 300, 600, 1200, 2400]
+                            if dtype == torch.complex64 else [150, 300, 600])
+    assert r in radix.RADIX_ODD[dtype]
     assert r not in radix.EVERY_ROUTE_ODD
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_even_smooth_lengths_take_the_radix_route_when_both_factors_fit(
+        dtype):
+    """Every even 13-smooth N to 4096 (complex64) / 1024 (complex128) is
+    on the radix route exactly when both factors fit a codelet and N is
+    not one of the spills, and on the dense kernel otherwise; the radix
+    lengths are those and nothing else, their odd parts ``RADIX_ODD``."""
+    cap = radix.CODELET_MAX[dtype]
+    want = []
+    for n in range(2, cap * cap + 1, 2):
+        if not radix.smooth(n):
+            continue
+        path = radix.kernel_path(n, dtype)
+        if max(factorize(n)) <= cap and n not in radix._SPILLS[dtype]:
+            assert path == "radix", (n, path)
+            want.append(n)
+        else:
+            assert path == "dense", (n, path)
+    assert tuple(want) == radix.RADIX_SIZES[dtype]
+    odd = {radix.odd_part(n) for n in want} - {1}
+    assert odd == radix.RADIX_ODD[dtype]
+    assert max(odd) == (1701 if dtype == torch.complex64 else 405)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_odd_and_rough_lengths_stay_dense(dtype):
+    """Odd N (75, 225, 1575, ...) and even N with a prime factor past 13
+    (544 = 17*32) stay on the dense kernel within the radix route's
+    range."""
+    cap = radix.CODELET_MAX[dtype]
+    for n in range(3, cap * cap + 1, 2):
+        assert radix.kernel_path(n, dtype) == "dense", n
+    for n in range(2, cap * cap + 1, 2):
+        if not radix.smooth(n):
+            assert radix.kernel_path(n, dtype) == "dense", n
+    assert radix.kernel_path(544, dtype) == "dense"
 
 
 @pytest.fixture
@@ -403,11 +464,13 @@ def mesh():
     return make_mesh((1, 1), ("data", "model"), device="cpu")
 
 
-@pytest.mark.parametrize("grid", [(24, 48, 96), (30, 12, 40)])
+@pytest.mark.parametrize("grid", [(24, 48, 96), (30, 12, 40),
+                                  (130, 150, 162)])
 def test_plan_at_a_mixed_grid_matches_reference(cpu_mesh, mesh, grid):
     """``plan_fft`` C2C at a grid of mixed lengths on the kernel backend
-    (every axis on the radix route; here its plain version) against the
-    reference's plan on its Pallas backend, and the round trip."""
+    (every axis on the radix route; here its plain version; odd parts 65,
+    75 and 81 in the last) against the reference's plan on its Pallas
+    backend, and the round trip."""
     for n in grid:
         assert radix.kernel_path(n, torch.complex64) == "radix"
     r = np.random.default_rng(sum(grid))
