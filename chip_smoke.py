@@ -19,7 +19,8 @@ its result line):
    empty batch, ragged tiles, ``pack_parts``, the twiddle, complex128,
    lazily conjugated operands and twiddles), every radix-path, long-line
    and split length of both dtypes (the long and split ones, powers of two
-   and mixed lengths, with both epilogues, also against ``torch.fft``),
+   and mixed lengths, a second mixed factor R2 included, with both
+   epilogues, also against ``torch.fft``),
    every mixed radix length of
    both dtypes (r*2^k, r in ``radix.RADIX_ODD``, 3 to 1701, where both
    factors fit a codelet: both directions, both
@@ -143,8 +144,10 @@ its result line):
     dtypes (complex64 4608-15360, complex128 1152-7680; an odd R1 for
     21*2^k, 25*2^k and 27*2^k), 512 MB each, once through ``ops.fft1d``
     (one "long" launch), against its plain version and ``torch.fft``,
-    timed beside ``torch.fft`` and the bound, then the four 21*2^k
-    lengths that left the chirp route at 256 MB beside their chirp time;
+    timed beside ``torch.fft`` and the bound, then 14 lengths with a
+    second mixed factor R2 (complex64 4480 to 11520, complex128 1056 to
+    5760) that left the dense kernel or the chirp route, at 256 MB beside
+    their time there;
     ``[split_mixed]``: the split route at mixed lengths (complex64 24576,
     49152, 98304, 3*2^21, 15*2^19 and the shortest and longest 7*2^k,
     11*2^k, 13*2^k, 21*2^k, 25*2^k and 27*2^k; complex128 12288, 24576,
@@ -153,15 +156,19 @@ its result line):
     ``plan_fft`` C2C of (128, 128, 6144) complex64 on the kernel against
     ``fftn`` and the round trip, the 6144 axis on the long-line route, no
     dense or chirp launch, no copy, ms beside ``fftn`` and a ``cufft``
-    plan; ``[chirp]``: the chirp route (Bluestein over two transforms of
-    M on the long-line or split route) at lengths no other route takes,
-    complex64 5760, 10007, 11520 and complex128 3001, 2880, 5760, 256 MB
+    plan; then likewise one face of the LLC4320 ocean grid, (4320, 4320)
+    complex64 (4320 = 30 x 9 x 16): 2 long launches per direction, no
+    dense or chirp launch, 2 line copies forward and 1 inverse;
+    ``[chirp]``: the chirp route (Bluestein over two transforms of M on
+    the long-line or split route) at lengths no other route takes,
+    complex64 4864, 10007, 23040 and complex128 3001, 2432, 256 MB
     each, once through ``ops.fft1d`` (one chirp call, its launches on
     "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
     timed beside ``torch.fft`` and the bound, the glue's ms apart;
-    ``[gaps]``: likewise at the odd parts 33 to 63 and 75 past the radix
-    route, one length each per dtype on the chirp (and four on the dense
-    kernel), 256 MB each, to rank what no route but these takes; then
+    ``[gaps]``: likewise at the lengths that still run dense (complex64
+    2730, 3430, 4050 and the odd 4725, complex128 990) or on the chirp
+    past the long-line route's line (complex64 16896, complex128 8448),
+    256 MB each, to rank what no route but these takes; then
     ``[lm_fftconv]``: the FFT long-convolution mixer at jamba-v0.1-52b's
     width (8192 channels), B=1, S=2048, 3072, 3584, 4096, 8192, 12288,
     16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of ``"cufft"``
@@ -444,6 +451,7 @@ def kernel_cases():
     cases.append((33, 256, False, None, True, c128, "x"))
     # the long-line path: every length of both dtypes, both directions,
     # the twiddle and pack epilogues, batches ragged against the grid
+    # (segments of N/2 where 4 does not divide N: complex128 882 = 2*441)
     from repro_torch.kernels import longline
     for dtype, sizes in longline.FACTORS.items():
         dt = str(dtype).removeprefix("torch.")
@@ -451,7 +459,7 @@ def kernel_cases():
             cases += [(5, n, False, None, False, dt, ""),
                       (3, n, True, None, True, dt, ""),
                       (7, n, False, 2, False, dt, ""),
-                      (301, n, True, 4, True, dt, "")]
+                      (301, n, True, 4 if n % 4 == 0 else 2, True, dt, "")]
     cases.append((3, 8192, False, None, True, c64, "x"))
     cases.append((3, 4096, True, None, True, c128, "x"))
     # the split route: every length of both dtypes, both directions, each
@@ -476,14 +484,15 @@ def kernel_cases():
             cases += [(37, n, False, None, False, dt, ""),
                       (5, n, True, 3 if n % 3 == 0 else 2, True, dt, "")]
     cases.append((37, 384, True, None, True, c64, "x"))
-    # the chirp route: lengths of both inner routes (45*2^k and primes),
-    # both dtypes, directions and epilogues
-    for b, n, inv, parts, tw, dt in ((2, 5760, False, None, True, c64),
-                                     (3, 5760, True, 2, False, c64),
+    # the chirp route: lengths of both inner routes (19*2^k, a prime and
+    # 45*2^k past the long-line route's line), both dtypes, directions and
+    # epilogues
+    for b, n, inv, parts, tw, dt in ((2, 4864, False, None, True, c64),
+                                     (3, 4864, True, 2, False, c64),
                                      (1, 10007, True, None, True, c64),
-                                     (1, 11520, False, 4, True, c64),
+                                     (1, 23040, False, 4, True, c64),
                                      (2, 3001, False, None, True, c128),
-                                     (1, 5760, True, 5, False, c128)):
+                                     (1, 2432, True, 19, False, c128)):
         cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
 
@@ -2305,31 +2314,44 @@ def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
         print_lines("long", [out["long"], *out["lengths"], out["dense"]])
     return out
 
-#: (dtype name, N, ms) of the 21*2^k lengths that the odd R1 = 21 moved
-#: from the chirp route to the long-line route, with their chirp time at
-#: 256 MB of lines on an H100 80GB HBM3 at 700 W (``[chirp]`` of the
-#: parent tree's ``chip_smoke.py``).
-MOVED_FROM_CHIRP = (("complex64", 5376, 1.8868),
-                    ("complex64", 10752, 3.0126),
-                    ("complex128", 2688, 1.8500),
-                    ("complex128", 5376, 3.0282))
+#: (dtype name, N, route, ms) of lengths that a second mixed factor R2
+#: moved from the dense kernel or the chirp route to the long-line route,
+#: with their time on that route at 256 MB of lines on an H100 80GB HBM3
+#: at 700.00 W (``scripts/route_times.py times`` on the tree before the
+#: second mixed factor, its first of two runs).
+MOVED = (("complex64", 4800, "dense", 5.6854),
+         ("complex64", 4480, "dense", 4.3681),
+         ("complex64", 8448, "chirp", 3.7352),
+         ("complex64", 8960, "chirp", 3.5741),
+         ("complex64", 9600, "chirp", 3.3519),
+         ("complex64", 11520, "chirp", 2.8511),
+         ("complex64", 4992, "chirp", 1.9885),
+         ("complex64", 5760, "chirp", 1.7685),
+         ("complex128", 4800, "chirp", 3.3321),
+         ("complex128", 4224, "chirp", 3.7597),
+         ("complex128", 5760, "chirp", 2.8346),
+         ("complex128", 2880, "chirp", 1.7584),
+         ("complex128", 2400, "dense", 2.5208),
+         ("complex128", 1056, "dense", 1.8211))
 
 
 def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
                      moved_bytes: int = 256 << 20, iters: int = 10) -> dict:
     """``[long_mixed]``: the long-line route at every mixed length of both
-    dtypes (N = r*2^k, one mixed factor R1, blocks of 128 or 256 threads),
-    about 512 MB of lines each, reached once through ``ops.fft1d`` (one
-    launch on "long"), against its plain version and ``torch.fft``, timed
-    beside ``torch.fft.fft`` and the bound; then the lengths that left the
-    chirp route (``MOVED_FROM_CHIRP``) at the chirp phase's 256 MB, each
-    printed beside its chirp time."""
+    dtypes with one mixed factor (N = r*2^k, r in
+    ``radix.EVERY_ROUTE_ODD``, blocks of 128 or 256 threads), about 512
+    MB of lines each, reached once through ``ops.fft1d`` (one launch on
+    "long"), against its plain version and ``torch.fft``, timed beside
+    ``torch.fft.fft`` and the bound; then lengths with a second mixed
+    factor that left the dense kernel or the chirp route (``MOVED``) at
+    256 MB, each printed beside its time on the route it left.  (``[kernel]``
+    checks every length of the route against its plain version.)"""
     import torch
-    from repro_torch.kernels import longline
+    from repro_torch.kernels import longline, radix
     out = {"lengths": []}
     for dtype, sizes in longline.FACTORS.items():
         for n in sorted(sizes):
-            if not longline.long_plan(n, dtype).mixed:
+            if radix.odd_part(n) not in radix.EVERY_ROUTE_ODD:
                 continue
             b = lengths_bytes // (n * dtype.itemsize)
             rec = line_entry(randc((b, n), dtype, device, SEED + 100 + n),
@@ -2340,23 +2362,25 @@ def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
             if device.type == "cuda":
                 torch.cuda.empty_cache()
     out["moved"] = []
-    for dt, n, chirp_ms in MOVED_FROM_CHIRP:
+    for dt, n, route, ms_before in MOVED:
         dtype = getattr(torch, dt)
         b = moved_bytes // (n * dtype.itemsize)
         rec = line_entry(randc((b, n), dtype, device, SEED + 200 + n),
                          "long_mixed", "long", iters)
-        rec["chirp_ms_before"] = chirp_ms
+        rec.update(factors=list(longline.FACTORS[dtype][n]),
+                   route_before=route, ms_before=ms_before)
         out["moved"].append(rec)
         if device.type == "cuda":
             torch.cuda.empty_cache()
     if device.type == "cuda":
         print_lines("long_mixed", out["lengths"] + out["moved"])
         for r in out["moved"]:
-            print(f"[long_mixed] {tuple(r['shape'])} {r['dtype']} left the "
-                  f"chirp route: {r['ms']:.4f} ms on the {r['path']} route "
-                  f"against {r['chirp_ms_before']:.4f} on the chirp "
-                  f"(torch.fft {r['library_ms']:.4f}, bound "
-                  f"{r['bound_ms']:.4f})")
+            print(f"[long_mixed] {tuple(r['shape'])} {r['dtype']} "
+                  f"{'x'.join(map(str, r['factors']))} left the "
+                  f"{r['route_before']} route: {r['ms']:.4f} ms on the "
+                  f"{r['path']} route against {r['ms_before']:.4f} on the "
+                  f"{r['route_before']} (torch.fft {r['library_ms']:.4f}, "
+                  f"bound {r['bound_ms']:.4f})")
     return out
 
 
@@ -2590,26 +2614,24 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
     return out
 
 
-#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 45*2^k
-#: (an odd part only the radix route takes) whose M takes the long-line
-#: and the split route, a prime past one block; complex128 likewise.  The
-#: first is the ``fft_fourstep_chirp`` entry's timing.
-CHIRP_LENGTHS = (("complex64", 5760), ("complex64", 10007),
-                 ("complex64", 11520), ("complex128", 3001),
-                 ("complex128", 2880), ("complex128", 5760))
-#: (dtype name, N, route) of ``[gaps]``: the shortest r*2^k past the
-#: radix route and the dense kernel's one block for the odd parts 33 to
-#: 63 but 45 (``[chirp]``'s) and for 75, per dtype, on the chirp route;
-#: and 35*2^7 and 75*2^6 (complex64), 33*2^5 and 75*2^5 (complex128)
-#: within one block, on the dense kernel.
-GAP_LENGTHS = tuple(
-    [("complex64", n, "chirp") for n in (33 << 8, 35 << 8, 39 << 7,
-                                         49 << 7, 55 << 7, 63 << 7, 75 << 7)]
-    + [("complex128", n, "chirp") for n in (33 << 7, 35 << 7, 39 << 6,
-                                            49 << 6, 55 << 6, 63 << 6,
-                                            75 << 6)]
-    + [("complex64", 35 << 7, "dense"), ("complex64", 75 << 6, "dense"),
-       ("complex128", 33 << 5, "dense"), ("complex128", 75 << 5, "dense")])
+#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 19*2^k
+#: (a prime factor no codelet takes) whose M takes the long-line route,
+#: a prime and 45*2^k past the long-line route's 128 KB line, whose M
+#: takes the split route; complex128 likewise.  The first is the
+#: ``fft_fourstep_chirp`` entry's timing.
+CHIRP_LENGTHS = (("complex64", 4864), ("complex64", 10007),
+                 ("complex64", 23040), ("complex128", 3001),
+                 ("complex128", 2432))
+#: (dtype name, N, route) of ``[gaps]``: the even 13-smooth lengths no
+#: route past the radix route takes within one block (complex64 2730 =
+#: 2*1365, 3430 = 2*1715 and 4050 = 2*2025, complex128 990 = 2*495: no
+#: three codelets of 32 hold them) and an odd N (complex64 4725), on the
+#: dense kernel; and 33*2^k just past the long-line route's 128 KB line
+#: (complex64 16896, complex128 8448), on the chirp route.
+GAP_LENGTHS = (("complex64", 2730, "dense"), ("complex64", 3430, "dense"),
+               ("complex64", 4050, "dense"), ("complex128", 990, "dense"),
+               ("complex64", 4725, "dense"), ("complex64", 16896, "chirp"),
+               ("complex128", 8448, "chirp"))
 
 
 def phase_chirp(device, lengths=CHIRP_LENGTHS,
@@ -2654,13 +2676,12 @@ def phase_chirp(device, lengths=CHIRP_LENGTHS,
 
 def phase_gaps(device, lengths=GAP_LENGTHS, lengths_bytes: int = 256 << 20,
                iters: int = 10) -> dict:
-    """``[gaps]``: the odd parts that no route past one block takes but
-    the chirp (r = 33 to 63 past the radix route, and 75), each length
-    reached once through ``ops.fft1d`` on the route ``lengths`` names
-    (one chirp call, or one dense launch), about 256 MB of lines, against
-    its plain version and within ``PATH_TOL`` of ``torch.fft``, timed
-    beside ``torch.fft.fft`` and the bound: the readings that rank the
-    next routes to build."""
+    """``[gaps]``: the lengths that still run dense or on the chirp route
+    (``GAP_LENGTHS``), each reached once through ``ops.fft1d`` on the
+    route ``lengths`` names (one chirp call, or one dense launch), about
+    256 MB of lines, against its plain version and within ``PATH_TOL`` of
+    ``torch.fft``, timed beside ``torch.fft.fft`` and the bound: the
+    readings that rank the next routes to build."""
     import torch
     out = {"lengths": []}
     for i, (dt, n, route) in enumerate(lengths):
@@ -2836,16 +2857,17 @@ def phase_split_plan(device, grid=(64, 64, 32768), iters: int = 5) -> dict:
     del x, y
     return out
 
-def phase_mixed_long_plan(device, grid=(128, 128, 6144),
-                          iters: int = 5) -> dict:
+def phase_mixed_long_plan(device, grid=(128, 128, 6144), iters: int = 5,
+                          long_launches: int = 1, copies=(0, 0)) -> dict:
     """``[mixed_long_plan]``: a ``plan_fft`` C2C plan on one card (a (1, 1)
-    mesh) with a mixed axis on the long-line route, (128, 128, 6144)
-    complex64 (805 MB), on ``backend="kernel"``: forward against
+    mesh) with a mixed axis on the long-line route, by default (128, 128,
+    6144) complex64 (805 MB), on ``backend="kernel"``: forward against
     ``torch.fft.fftn`` within ``PATH_TOL`` and the round trip within
-    ``ROUNDTRIP_TOL``; the 6144 axis runs on lines on the long-line route
-    (a launch on "long" per direction), no dense or chirp launch and no
-    line copy; CUDA-event ms beside ``fftn``'s and a ``cufft``-backend
-    plan's."""
+    ``ROUNDTRIP_TOL``; per direction ``long_launches`` launches on "long"
+    (the 6144 axis on lines), no dense or chirp launch and ``copies``
+    line copies, forward and inverse (a long axis that is strided is
+    copied contiguous, as every long length is); CUDA-event ms beside
+    ``fftn``'s and a ``cufft``-backend plan's."""
     import torch
     from repro_torch import make_mesh, plan_fft
     cuda = device.type == "cuda"
@@ -2868,24 +2890,26 @@ def phase_mixed_long_plan(device, grid=(128, 128, 6144),
            "err_fwd": scaled_err(y, ref), "err_roundtrip": scaled_err(xr, x),
            "launches": fwd["long"]}
     del ref, xr
+    tag = f"[mixed_long_plan {'x'.join(map(str, grid))}]"
     check(out["err_fwd"] <= PATH_TOL and out["err_roundtrip"]
-          <= ROUNDTRIP_TOL, f"[mixed_long_plan] forward vs fftn "
+          <= ROUNDTRIP_TOL, f"{tag} forward vs fftn "
           f"{out['err_fwd']:.3e} (bound {PATH_TOL}), round trip "
           f"{out['err_roundtrip']:.3e} (bound {ROUNDTRIP_TOL})")
     if cuda:
-        for key, c in (("forward", fwd), ("inverse", inv)):
-            check(c["long"] >= 1 and c["dense"] == 0 and c["chirp"] == 0
-                  and c["copies"] == 0,
-                  f"[mixed_long_plan] {key}: counts {c}, expected the axis "
-                  f"of {grid[-1]} on the long-line route, no dense or chirp "
-                  f"launch, no line copy")
+        for key, c, want in (("forward", fwd, copies[0]),
+                             ("inverse", inv, copies[1])):
+            check(c["long"] == long_launches and c["dense"] == 0
+                  and c["chirp"] == 0 and c["copies"] == want,
+                  f"{tag} {key}: counts {c}, expected {long_launches} "
+                  f"launches on the long-line route, no dense or chirp "
+                  f"launch, {want} line copies")
         cplan = plan_fft(mesh, grid, backend="cufft")
         out["kernel_fwd_ms"] = time_ms(lambda: plan.forward(x), iters)
         out["kernel_inv_ms"] = time_ms(
             lambda: plan.inverse(y, sharded_in=True), iters)
         out["cufft_fwd_ms"] = time_ms(lambda: cplan.forward(x), iters)
         out["fftn_ms"] = time_ms(lambda: torch.fft.fftn(x), iters)
-        print(f"[mixed_long_plan] grid {grid} complex64 on the kernel: "
+        print(f"{tag} grid {grid} complex64 on the kernel: "
               f"forward vs fftn {out['err_fwd']:.3e}, round trip "
               f"{out['err_roundtrip']:.3e}; launches forward {fwd}, inverse "
               f"{inv}; ms forward {out['kernel_fwd_ms']:.4f}, inverse "
@@ -3384,6 +3408,12 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["mixed_long_plan"] = phase_mixed_long_plan(device)
     torch.cuda.empty_cache()
+    # one face of the LLC4320 ocean grid: 4320 = 30 x 9 x 16 on both axes;
+    # the forward copies the strided axis's lines and then the last
+    # axis's, which the first stage left as a strided view
+    report["mixed_long_plan_4320"] = face = phase_mixed_long_plan(
+        device, grid=(4320, 4320), long_launches=2, copies=(2, 1))
+    torch.cuda.empty_cache()
     report["chirp"] = chirp_ = phase_chirp(device)
     torch.cuda.empty_cache()
     report["gaps"] = phase_gaps(device)
@@ -3556,7 +3586,8 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "lm_fftconv_3072": mixer_runs[3072]["float32"]["counts"],
              "lm_fftconv_3584": mixer_runs[3584]["float32"]["counts"],
-             "train_fftconv_3072": train_mixed["counts"]}},
+             "train_fftconv_3072": train_mixed["counts"],
+             "mixed_long_plan_4320": face["forward_counts"]["long"]}},
         # launches: the mixer at S=12288, its main path (3 split calls of
         # 2 launches); timed at [split_mixed]'s 512 MB of lines of 24576
         {"name": "fft_fourstep_split_mixed", "route": "cuda",

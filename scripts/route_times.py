@@ -38,16 +38,21 @@ import shutil
 import subprocess
 import sys
 
-#: (dtype name, lines, N): (262144, 600), where the dense kernel ran
-#: before the odd parts from 65 joined the radix route, (262144, 544),
-#: the dense kernel's timed shape since, and the radix route's new
-#: lengths that ``chip_smoke.py`` times at 512 MB, here at 256 MB.
-SHAPES = (("complex64", 262144, 600), ("complex64", 262144, 544)) + tuple(
+#: (dtype name, lines, N) at 256 MB of lines: (262144, 544), the dense
+#: kernel's timed shape, and the lengths that a second mixed factor R2 on
+#: the long-line route takes off the dense kernel (complex64 4800, 4480;
+#: complex128 2400, 1056) and the chirp route (the rest).
+SHAPES = (("complex64", 262144, 544),) + tuple(
     (dt, (256 << 20) // (n * (8 if dt == "complex64" else 16)), n)
-    for dt, n in (("complex64", 1000), ("complex64", 1800),
-                  ("complex64", 2400), ("complex64", 3600),
-                  ("complex128", 300), ("complex128", 900)))
-GRID = (600, 600, 600)
+    for dt, n in (("complex64", 4800), ("complex64", 4480),
+                  ("complex64", 8448), ("complex64", 8960),
+                  ("complex64", 9600), ("complex64", 11520),
+                  ("complex64", 4992), ("complex64", 5760),
+                  ("complex128", 4800), ("complex128", 4224),
+                  ("complex128", 5760), ("complex128", 2880),
+                  ("complex128", 2400), ("complex128", 1056)))
+#: One face of the LLC4320 ocean grid (MITgcm/ECCO), complex64.
+GRID = (4320, 4320)
 SWEEP_BYTES = 64 << 20
 #: Published peaks of one H100 SXM (as ``chip_smoke.py``).
 PEAK_FP32_FLOPS = 67e12
@@ -145,7 +150,8 @@ def times(root: str, tag: str) -> dict:
            "inv_ms": time_ms(lambda: plan.inverse(y, sharded_in=True), 5),
            "cufft_ms": time_ms(lambda: cplan.forward(x), 5),
            "fftn_ms": time_ms(lambda: torch.fft.fftn(x), 5),
-           "bound_ms": 3 * bound_ms(x.numel() // GRID[-1], GRID[-1], 8)}
+           "bound_ms": len(GRID) * bound_ms(x.numel() // GRID[-1],
+                                            GRID[-1], 8)}
     print(f"[{tag}] plan {GRID}: forward {rec['fwd_ms']:.4f} ms, inverse "
           f"{rec['inv_ms']:.4f}, cufft plan {rec['cufft_ms']:.4f}, fftn "
           f"{rec['fftn_ms']:.4f}, bound {rec['bound_ms']:.4f}; vs fftn "

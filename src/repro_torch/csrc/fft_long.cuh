@@ -355,16 +355,21 @@ int long_launch(Kernel kernel, int threads, size_t layout_bytes,
 }
 
 // A mixed length's plan (kernels/longline.py::LongPlan): R1 = r*2^a the
-// mixed factor, R2 and R3 powers of two.
+// mixed factor, R3 a power of two, R2 a power of two or (MIXED2) mixed
+// too, on the mixed chain with a table of its own after R1's.
 template <typename R, int R1, int R2, int R3>
 struct LongMixedShape {
   static constexpr int N = R1 * R2 * R3;
   static constexpr int M1 = R2 * R3;          // a row: pass-1 items
-  static constexpr int RP = cmax(R2, R3);     // the radix-2 codelets' table
+  static constexpr bool MIXED2 = !is_pow2(R2);
+  // the radix-2 codelets' table
+  static constexpr int RP = MIXED2 ? R3 : cmax(R2, R3);
   static constexpr int PITCH = M1 + 16 / (int)sizeof(cpx<R>);
   static constexpr int LINE = R1 * PITCH;
-  static constexpr int CONSTS = R1 * R3 + R1 * R2 + R2 * R3 + RP / 2 + R1;
-  static_assert(is_pow2(R2) && is_pow2(R3) && !is_pow2(R1), "R1 is mixed");
+  static constexpr int CONSTS =
+      R1 * R3 + R1 * R2 + R2 * R3 + RP / 2 + R1 + (MIXED2 ? R2 : 0);
+  static_assert(is_pow2(R3) && R3 >= 2 && !is_pow2(R1),
+                "R1 is mixed, R3 a power of two");
 };
 
 // Shared memory of one block: the ring's line buffers, the constants, one
@@ -456,7 +461,8 @@ __device__ __forceinline__ void bulk_load_rows(cpx<R>* dst,
 // DEPTH line buffers (long_mixed_depth), the grid persistent.  `out` is
 // (parts, batch, seg) with seg = N/parts; the sign of the mixed codelets'
 // rotations is read from their table (W_R1^1), so that the split route's
-// pass B, launched with inverse = 0 to leave out the 1/N, keeps it.
+// pass B, launched with inverse = 0 to leave out the 1/N, keeps it (a
+// mixed R2's table has the same sign).
 template <typename R, int R1, int R2, int R3>
 __global__ void __launch_bounds__(
     (long_mixed_threads<R, R1, R2, R3>()),
@@ -477,6 +483,7 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   const cpx<R>* const tc = tb + R1 * R2;
   const cpx<R>* const w = tc + R2 * R3;   // W_RP^j, j < RP/2
   const cpx<R>* const wm = w + RP / 2;    // W_R1^j, j < R1
+  const cpx<R>* const wm2 = wm + R1;      // W_R2^j, j < R2 (MIXED2)
   uint64_t* const bars = reinterpret_cast<uint64_t*>(ta + S::CONSTS);
   const int tid = threadIdx.x;
 
@@ -529,18 +536,28 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
     }
     __syncthreads();
 
-    // Pass 2: item (k1, m3) reads (k1, m2, m3), writes (k1, k2, m3).
+    // Pass 2: item (k1, m3) reads (k1, m2, m3), writes (k1, k2, m3); a
+    // mixed R2 runs its chain as pass 1 does R1's.
 #pragma unroll 1
     for (int item = tid; item < R1 * R3; item += T) {
       const int k1 = item / R3, m3 = item % R3;
       cpx<R>* const col = s + k1 * PITCH + m3;
       cpx<R> v[R2];
-      auto load = [&](auto j) {
-        constexpr int m2 = decltype(j)::value;
-        v[bitrev(m2, ilog2(R2))] = col[m2 * R3];
-      };
-      static_for<0, R2>(load);
-      fft_stages<R2, RP, 2, R>(v, w);
+      if constexpr (S::MIXED2) {
+        auto load = [&](auto j) {
+          constexpr int m2 = decltype(j)::value;
+          v[load_slot(R2, m2)] = col[m2 * R3];
+        };
+        static_for<0, R2>(load);
+        codelet<R2, R2, R>(v, wm2, sgn);
+      } else {
+        auto load = [&](auto j) {
+          constexpr int m2 = decltype(j)::value;
+          v[bitrev(m2, ilog2(R2))] = col[m2 * R3];
+        };
+        static_for<0, R2>(load);
+        fft_stages<R2, RP, 2, R>(v, w);
+      }
       auto store = [&](auto j) {
         constexpr int k2 = decltype(j)::value;
         cpx<R> y = v[k2];
@@ -660,6 +677,97 @@ int long_part(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(12800, 25, 16, 32)
       REPRO_LONG_MIXED_CASE(6912, 27, 16, 16)
       REPRO_LONG_MIXED_CASE(13824, 27, 16, 32)
+      // R2 mixed too: the rule's lengths (longline.rule_factors)
+      REPRO_LONG_MIXED_CASE(3168, 22, 9, 16)
+      REPRO_LONG_MIXED_CASE(3696, 21, 11, 16)
+      REPRO_LONG_MIXED_CASE(3744, 26, 9, 16)
+      REPRO_LONG_MIXED_CASE(3872, 22, 11, 16)
+      REPRO_LONG_MIXED_CASE(3888, 27, 9, 16)
+      REPRO_LONG_MIXED_CASE(4000, 25, 10, 16)
+      REPRO_LONG_MIXED_CASE(4160, 26, 10, 16)
+      REPRO_LONG_MIXED_CASE(4200, 25, 21, 8)
+      REPRO_LONG_MIXED_CASE(4224, 24, 11, 16)
+      REPRO_LONG_MIXED_CASE(4320, 30, 9, 16)
+      REPRO_LONG_MIXED_CASE(4368, 21, 13, 16)
+      REPRO_LONG_MIXED_CASE(4400, 25, 11, 16)
+      REPRO_LONG_MIXED_CASE(4480, 28, 10, 16)
+      REPRO_LONG_MIXED_CASE(4536, 27, 21, 8)
+      REPRO_LONG_MIXED_CASE(4576, 26, 11, 16)
+      REPRO_LONG_MIXED_CASE(4704, 21, 14, 16)
+      REPRO_LONG_MIXED_CASE(4752, 27, 11, 16)
+      REPRO_LONG_MIXED_CASE(4800, 30, 10, 16)
+      REPRO_LONG_MIXED_CASE(4928, 28, 11, 16)
+      REPRO_LONG_MIXED_CASE(4992, 26, 12, 16)
+      REPRO_LONG_MIXED_CASE(5000, 25, 25, 8)
+      REPRO_LONG_MIXED_CASE(5040, 21, 15, 16)
+      REPRO_LONG_MIXED_CASE(5184, 27, 12, 16)
+      REPRO_LONG_MIXED_CASE(5200, 25, 13, 16)
+      REPRO_LONG_MIXED_CASE(5280, 30, 11, 16)
+      REPRO_LONG_MIXED_CASE(5400, 27, 25, 8)
+      REPRO_LONG_MIXED_CASE(5408, 26, 13, 16)
+      REPRO_LONG_MIXED_CASE(5600, 25, 14, 16)
+      REPRO_LONG_MIXED_CASE(5616, 27, 13, 16)
+      REPRO_LONG_MIXED_CASE(5760, 30, 12, 16)
+      REPRO_LONG_MIXED_CASE(5824, 28, 13, 16)
+      REPRO_LONG_MIXED_CASE(5832, 27, 27, 8)
+      REPRO_LONG_MIXED_CASE(6000, 25, 15, 16)
+      REPRO_LONG_MIXED_CASE(6048, 27, 14, 16)
+      REPRO_LONG_MIXED_CASE(6240, 30, 13, 16)
+      REPRO_LONG_MIXED_CASE(6272, 28, 14, 16)
+      REPRO_LONG_MIXED_CASE(6336, 22, 18, 16)
+      REPRO_LONG_MIXED_CASE(6480, 27, 15, 16)
+      REPRO_LONG_MIXED_CASE(6720, 30, 7, 32)
+      REPRO_LONG_MIXED_CASE(7040, 22, 10, 32)
+      REPRO_LONG_MIXED_CASE(7056, 21, 21, 16)
+      REPRO_LONG_MIXED_CASE(7200, 25, 9, 32)
+      REPRO_LONG_MIXED_CASE(7392, 21, 11, 32)
+      REPRO_LONG_MIXED_CASE(7488, 26, 9, 32)
+      REPRO_LONG_MIXED_CASE(7744, 22, 11, 32)
+      REPRO_LONG_MIXED_CASE(7776, 27, 9, 32)
+      REPRO_LONG_MIXED_CASE(8000, 25, 10, 32)
+      REPRO_LONG_MIXED_CASE(8064, 28, 9, 32)
+      REPRO_LONG_MIXED_CASE(8320, 26, 10, 32)
+      REPRO_LONG_MIXED_CASE(8400, 25, 21, 16)
+      REPRO_LONG_MIXED_CASE(8448, 24, 11, 32)
+      REPRO_LONG_MIXED_CASE(8640, 30, 9, 32)
+      REPRO_LONG_MIXED_CASE(8736, 21, 13, 32)
+      REPRO_LONG_MIXED_CASE(8800, 25, 11, 32)
+      REPRO_LONG_MIXED_CASE(8960, 28, 10, 32)
+      REPRO_LONG_MIXED_CASE(9072, 27, 21, 16)
+      REPRO_LONG_MIXED_CASE(9152, 26, 11, 32)
+      REPRO_LONG_MIXED_CASE(9408, 21, 14, 32)
+      REPRO_LONG_MIXED_CASE(9504, 27, 11, 32)
+      REPRO_LONG_MIXED_CASE(9600, 30, 10, 32)
+      REPRO_LONG_MIXED_CASE(9856, 28, 11, 32)
+      REPRO_LONG_MIXED_CASE(9984, 26, 12, 32)
+      REPRO_LONG_MIXED_CASE(10000, 25, 25, 16)
+      REPRO_LONG_MIXED_CASE(10080, 21, 15, 32)
+      REPRO_LONG_MIXED_CASE(10368, 27, 12, 32)
+      REPRO_LONG_MIXED_CASE(10400, 25, 13, 32)
+      REPRO_LONG_MIXED_CASE(10560, 30, 11, 32)
+      REPRO_LONG_MIXED_CASE(10800, 27, 25, 16)
+      REPRO_LONG_MIXED_CASE(10816, 26, 13, 32)
+      REPRO_LONG_MIXED_CASE(11200, 25, 14, 32)
+      REPRO_LONG_MIXED_CASE(11232, 27, 13, 32)
+      REPRO_LONG_MIXED_CASE(11520, 30, 12, 32)
+      REPRO_LONG_MIXED_CASE(11648, 28, 13, 32)
+      REPRO_LONG_MIXED_CASE(11664, 27, 27, 16)
+      REPRO_LONG_MIXED_CASE(12000, 25, 15, 32)
+      REPRO_LONG_MIXED_CASE(12096, 27, 14, 32)
+      REPRO_LONG_MIXED_CASE(12480, 30, 13, 32)
+      REPRO_LONG_MIXED_CASE(12544, 28, 14, 32)
+      REPRO_LONG_MIXED_CASE(12672, 22, 18, 32)
+      REPRO_LONG_MIXED_CASE(12960, 27, 15, 32)
+      REPRO_LONG_MIXED_CASE(13440, 30, 14, 32)
+      REPRO_LONG_MIXED_CASE(14080, 22, 20, 32)
+      REPRO_LONG_MIXED_CASE(14112, 21, 21, 32)
+      REPRO_LONG_MIXED_CASE(14400, 30, 15, 32)
+      REPRO_LONG_MIXED_CASE(14784, 22, 21, 32)
+      REPRO_LONG_MIXED_CASE(14976, 26, 18, 32)
+      REPRO_LONG_MIXED_CASE(15488, 22, 22, 32)
+      REPRO_LONG_MIXED_CASE(15552, 27, 18, 32)
+      REPRO_LONG_MIXED_CASE(16000, 25, 20, 32)
+      REPRO_LONG_MIXED_CASE(16128, 28, 18, 32)
       default:
         break;
     }
@@ -698,6 +806,142 @@ int long_part(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(1728, 27, 8, 8)
       REPRO_LONG_MIXED_CASE(3456, 27, 8, 16)
       REPRO_LONG_MIXED_CASE(6912, 27, 16, 16)
+      // R2 mixed too: the rule's lengths (longline.rule_factors)
+      REPRO_LONG_MIXED_CASE(792, 11, 9, 8)
+      REPRO_LONG_MIXED_CASE(880, 11, 5, 16)
+      REPRO_LONG_MIXED_CASE(882, 21, 21, 2)
+      REPRO_LONG_MIXED_CASE(924, 21, 11, 4)
+      REPRO_LONG_MIXED_CASE(936, 13, 9, 8)
+      REPRO_LONG_MIXED_CASE(968, 11, 11, 8)
+      REPRO_LONG_MIXED_CASE(972, 27, 9, 4)
+      REPRO_LONG_MIXED_CASE(1000, 25, 5, 8)
+      REPRO_LONG_MIXED_CASE(1008, 21, 3, 16)
+      REPRO_LONG_MIXED_CASE(1040, 13, 5, 16)
+      REPRO_LONG_MIXED_CASE(1050, 25, 21, 2)
+      REPRO_LONG_MIXED_CASE(1056, 22, 3, 16)
+      REPRO_LONG_MIXED_CASE(1080, 27, 5, 8)
+      REPRO_LONG_MIXED_CASE(1092, 21, 13, 4)
+      REPRO_LONG_MIXED_CASE(1100, 25, 11, 4)
+      REPRO_LONG_MIXED_CASE(1120, 14, 5, 16)
+      REPRO_LONG_MIXED_CASE(1134, 27, 21, 2)
+      REPRO_LONG_MIXED_CASE(1144, 13, 11, 8)
+      REPRO_LONG_MIXED_CASE(1176, 21, 7, 8)
+      REPRO_LONG_MIXED_CASE(1188, 27, 11, 4)
+      REPRO_LONG_MIXED_CASE(1200, 25, 3, 16)
+      REPRO_LONG_MIXED_CASE(1232, 11, 7, 16)
+      REPRO_LONG_MIXED_CASE(1248, 26, 3, 16)
+      REPRO_LONG_MIXED_CASE(1250, 25, 25, 2)
+      REPRO_LONG_MIXED_CASE(1260, 21, 15, 4)
+      REPRO_LONG_MIXED_CASE(1296, 27, 3, 16)
+      REPRO_LONG_MIXED_CASE(1300, 25, 13, 4)
+      REPRO_LONG_MIXED_CASE(1320, 15, 11, 8)
+      REPRO_LONG_MIXED_CASE(1350, 27, 25, 2)
+      REPRO_LONG_MIXED_CASE(1352, 13, 13, 8)
+      REPRO_LONG_MIXED_CASE(1400, 25, 7, 8)
+      REPRO_LONG_MIXED_CASE(1404, 27, 13, 4)
+      REPRO_LONG_MIXED_CASE(1440, 30, 3, 16)
+      REPRO_LONG_MIXED_CASE(1456, 13, 7, 16)
+      REPRO_LONG_MIXED_CASE(1458, 27, 27, 2)
+      REPRO_LONG_MIXED_CASE(1500, 25, 15, 4)
+      REPRO_LONG_MIXED_CASE(1512, 27, 7, 8)
+      REPRO_LONG_MIXED_CASE(1560, 15, 13, 8)
+      REPRO_LONG_MIXED_CASE(1568, 14, 7, 16)
+      REPRO_LONG_MIXED_CASE(1584, 11, 9, 16)
+      REPRO_LONG_MIXED_CASE(1620, 27, 15, 4)
+      REPRO_LONG_MIXED_CASE(1680, 21, 5, 16)
+      REPRO_LONG_MIXED_CASE(1760, 22, 5, 16)
+      REPRO_LONG_MIXED_CASE(1764, 21, 21, 4)
+      REPRO_LONG_MIXED_CASE(1800, 25, 9, 8)
+      REPRO_LONG_MIXED_CASE(1848, 21, 11, 8)
+      REPRO_LONG_MIXED_CASE(1872, 13, 9, 16)
+      REPRO_LONG_MIXED_CASE(1936, 11, 11, 16)
+      REPRO_LONG_MIXED_CASE(1944, 27, 9, 8)
+      REPRO_LONG_MIXED_CASE(2000, 25, 5, 16)
+      REPRO_LONG_MIXED_CASE(2016, 21, 6, 16)
+      REPRO_LONG_MIXED_CASE(2080, 26, 5, 16)
+      REPRO_LONG_MIXED_CASE(2100, 25, 21, 4)
+      REPRO_LONG_MIXED_CASE(2112, 22, 6, 16)
+      REPRO_LONG_MIXED_CASE(2160, 27, 5, 16)
+      REPRO_LONG_MIXED_CASE(2184, 21, 13, 8)
+      REPRO_LONG_MIXED_CASE(2200, 25, 11, 8)
+      REPRO_LONG_MIXED_CASE(2240, 28, 5, 16)
+      REPRO_LONG_MIXED_CASE(2268, 27, 21, 4)
+      REPRO_LONG_MIXED_CASE(2288, 13, 11, 16)
+      REPRO_LONG_MIXED_CASE(2352, 21, 7, 16)
+      REPRO_LONG_MIXED_CASE(2376, 27, 11, 8)
+      REPRO_LONG_MIXED_CASE(2400, 30, 5, 16)
+      REPRO_LONG_MIXED_CASE(2464, 22, 7, 16)
+      REPRO_LONG_MIXED_CASE(2496, 26, 6, 16)
+      REPRO_LONG_MIXED_CASE(2500, 25, 25, 4)
+      REPRO_LONG_MIXED_CASE(2520, 21, 15, 8)
+      REPRO_LONG_MIXED_CASE(2592, 27, 6, 16)
+      REPRO_LONG_MIXED_CASE(2600, 25, 13, 8)
+      REPRO_LONG_MIXED_CASE(2640, 15, 11, 16)
+      REPRO_LONG_MIXED_CASE(2700, 27, 25, 4)
+      REPRO_LONG_MIXED_CASE(2704, 13, 13, 16)
+      REPRO_LONG_MIXED_CASE(2800, 25, 7, 16)
+      REPRO_LONG_MIXED_CASE(2808, 27, 13, 8)
+      REPRO_LONG_MIXED_CASE(2880, 30, 6, 16)
+      REPRO_LONG_MIXED_CASE(2912, 26, 7, 16)
+      REPRO_LONG_MIXED_CASE(2916, 27, 27, 4)
+      REPRO_LONG_MIXED_CASE(3000, 25, 15, 8)
+      REPRO_LONG_MIXED_CASE(3024, 27, 7, 16)
+      REPRO_LONG_MIXED_CASE(3120, 15, 13, 16)
+      REPRO_LONG_MIXED_CASE(3136, 28, 7, 16)
+      REPRO_LONG_MIXED_CASE(3168, 22, 9, 16)
+      REPRO_LONG_MIXED_CASE(3240, 27, 15, 8)
+      REPRO_LONG_MIXED_CASE(3360, 30, 7, 16)
+      REPRO_LONG_MIXED_CASE(3520, 22, 10, 16)
+      REPRO_LONG_MIXED_CASE(3528, 21, 21, 8)
+      REPRO_LONG_MIXED_CASE(3600, 25, 9, 16)
+      REPRO_LONG_MIXED_CASE(3696, 21, 11, 16)
+      REPRO_LONG_MIXED_CASE(3744, 26, 9, 16)
+      REPRO_LONG_MIXED_CASE(3872, 22, 11, 16)
+      REPRO_LONG_MIXED_CASE(3888, 27, 9, 16)
+      REPRO_LONG_MIXED_CASE(4000, 25, 10, 16)
+      REPRO_LONG_MIXED_CASE(4032, 28, 9, 16)
+      REPRO_LONG_MIXED_CASE(4160, 26, 10, 16)
+      REPRO_LONG_MIXED_CASE(4200, 25, 21, 8)
+      REPRO_LONG_MIXED_CASE(4224, 24, 11, 16)
+      REPRO_LONG_MIXED_CASE(4320, 30, 9, 16)
+      REPRO_LONG_MIXED_CASE(4368, 21, 13, 16)
+      REPRO_LONG_MIXED_CASE(4400, 25, 11, 16)
+      REPRO_LONG_MIXED_CASE(4480, 28, 10, 16)
+      REPRO_LONG_MIXED_CASE(4536, 27, 21, 8)
+      REPRO_LONG_MIXED_CASE(4576, 26, 11, 16)
+      REPRO_LONG_MIXED_CASE(4704, 21, 14, 16)
+      REPRO_LONG_MIXED_CASE(4752, 27, 11, 16)
+      REPRO_LONG_MIXED_CASE(4800, 30, 10, 16)
+      REPRO_LONG_MIXED_CASE(4928, 28, 11, 16)
+      REPRO_LONG_MIXED_CASE(4992, 26, 12, 16)
+      REPRO_LONG_MIXED_CASE(5000, 25, 25, 8)
+      REPRO_LONG_MIXED_CASE(5040, 21, 15, 16)
+      REPRO_LONG_MIXED_CASE(5184, 27, 12, 16)
+      REPRO_LONG_MIXED_CASE(5200, 25, 13, 16)
+      REPRO_LONG_MIXED_CASE(5280, 30, 11, 16)
+      REPRO_LONG_MIXED_CASE(5400, 27, 25, 8)
+      REPRO_LONG_MIXED_CASE(5408, 26, 13, 16)
+      REPRO_LONG_MIXED_CASE(5600, 25, 14, 16)
+      REPRO_LONG_MIXED_CASE(5616, 27, 13, 16)
+      REPRO_LONG_MIXED_CASE(5760, 30, 12, 16)
+      REPRO_LONG_MIXED_CASE(5824, 28, 13, 16)
+      REPRO_LONG_MIXED_CASE(5832, 27, 27, 8)
+      REPRO_LONG_MIXED_CASE(6000, 25, 15, 16)
+      REPRO_LONG_MIXED_CASE(6048, 27, 14, 16)
+      REPRO_LONG_MIXED_CASE(6240, 30, 13, 16)
+      REPRO_LONG_MIXED_CASE(6272, 28, 14, 16)
+      REPRO_LONG_MIXED_CASE(6336, 22, 18, 16)
+      REPRO_LONG_MIXED_CASE(6480, 27, 15, 16)
+      REPRO_LONG_MIXED_CASE(6720, 30, 14, 16)
+      REPRO_LONG_MIXED_CASE(7040, 22, 20, 16)
+      REPRO_LONG_MIXED_CASE(7056, 21, 21, 16)
+      REPRO_LONG_MIXED_CASE(7200, 30, 15, 16)
+      REPRO_LONG_MIXED_CASE(7392, 22, 21, 16)
+      REPRO_LONG_MIXED_CASE(7488, 26, 18, 16)
+      REPRO_LONG_MIXED_CASE(7744, 22, 22, 16)
+      REPRO_LONG_MIXED_CASE(7776, 27, 18, 16)
+      REPRO_LONG_MIXED_CASE(8000, 25, 20, 16)
+      REPRO_LONG_MIXED_CASE(8064, 28, 18, 16)
       default:
         break;
     }

@@ -4,11 +4,14 @@ power-of-two routes.
 
 The radix, long-line and split routes take every N = r*2^k, r in
 ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}, to
-their limits, and the radix route alone, within one block, the other
-13-smooth odd parts (``radix.RADIX_ODD``: 33 to 63, and from 65 where
-both factors of N fit a codelet), so the lengths left here past one
-block have an odd part no route past one block takes: primes from 17,
-33 to 63 (such as 45*2^k), and the odd parts from 65.  On the CPU the route runs
+their limits; the other 13-smooth odd parts (33 to 63, and from 65) run
+on the radix route where both factors of N fit a codelet
+(``radix.RADIX_ODD``) and on the long-line route up to its 128 KB line
+where three codelets of at most 32 take N (``longline.rule_factors``).
+So the lengths left here past one block have a prime factor from 17
+(such as 4864 = 19*256 and the prime 10007), or a 13-smooth odd part
+past the long-line route's line (23040 = 45*512 in complex64) or that no
+three such codelets hold (5460 = 4*1365).  On the CPU the route runs
 :func:`emulate`; on the card two counted launches of the long-line or
 split route with the PyTorch glue around them.
 

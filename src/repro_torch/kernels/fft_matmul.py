@@ -43,7 +43,9 @@ codelets (radix 2, or a chain of radix 2, 3, 4, 5, 7, 11 and 13),
 ``kernels/radix.py``; the longer N whose line fits in one block's shared
 memory (powers of two 8192 and 16384 for complex64, 2048 to 8192 for
 complex128; the mixed lengths 4608 to 15360 and 1152 to 7680 whose odd
-part is in ``radix.EVERY_ROUTE_ODD``) take the
+part is in ``radix.EVERY_ROUTE_ODD``, and the other even 13-smooth N
+past the radix route that three codelets of at most 32 values take,
+3168 to 16128 and 792 to 8064: ``longline.rule_factors``) take the
 long-line path — three such passes over a line loaded by TMA,
 ``csrc/fft_long.cuh``, planned in ``kernels/longline.py``, whose
 ``emulate`` is this path's plain version; the powers of two and mixed
@@ -55,16 +57,17 @@ the line's epilogues; on the long-line route, stored in place and moved
 by a transpose launch that carries the epilogues — planned in
 ``kernels/split.py``, whose ``emulate`` is that
 route's plain version; every other N beyond the dense kernel's one block
-(an odd part no route past one block takes: primes from 17, the odd
-parts 33 to 63 and those from 65) takes the chirp route — Bluestein's
+(a prime factor from 17, or a 13-smooth odd part from 33 past the
+long-line route's 128 KB line or beyond three codelets of 32) takes the
+chirp route — Bluestein's
 convolution as two transforms of M =
 2^ceil(log2(2N - 1)) on the long-line or split route with the chirps in
 their ``twiddle`` epilogues, planned in ``kernels/chirp.py``, whose
 ``emulate`` is that route's plain version (N up to 2^23 for complex64,
 2^21 for complex128); every other N takes the general dense kernel
 (within one block: odd N, N with a prime factor past 13, the even
-13-smooth N whose factors do not both fit a codelet, such as complex64
-2730 = 42 x 65), which raises past one block's shared memory.  A failed build or launch raises;
+13-smooth N that neither the radix nor the long-line route takes, such
+as complex64 2730 = 42 x 65), which raises past one block's shared memory.  A failed build or launch raises;
 nothing falls back.
 
 :func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``

@@ -3,10 +3,13 @@ layouts and their index maps, in Python.
 
 Lines too long for the radix route's two in-register passes still fit
 whole in one block's shared memory: the powers of two (complex64 N of
-8192 and 16384, complex128 N of 2048 to 8192) and the mixed lengths
-r*2^k, r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25,
-27}, from past ``radix.RADIX_SIZES`` to the same 128 KB line (complex64
-4608 to 15360, complex128 1152 to 7680).  On the CPU the route runs
+8192 and 16384, complex128 N of 2048 to 8192), the mixed lengths r*2^k,
+r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27},
+from past ``radix.RADIX_SIZES`` to the same 128 KB line (complex64 4608
+to 15360, complex128 1152 to 7680), and every other even 13-smooth N
+past the radix route up to that line that three codelets of at most 32
+values take (:func:`rule_factors`: odd parts 33 to 729, complex64 3168
+to 16128, complex128 792 to 8064).  On the CPU the route runs
 :func:`emulate`; on the card one launch of ``fft_long.cuh``.  The
 kernel (``csrc/fft_long.cuh``) holds one line there and transforms it in
 three passes over N = R1*R2*R3, each an in-register codelet of length at
@@ -33,16 +36,19 @@ stores any, into the layout (m3, kA) with a row pitch of R1*R2 + 1, so
 that pass 3 reads consecutive addresses, and pass 3 loads all of them
 before the buffer is released to the next line's copy.
 
-A mixed length has exactly one mixed factor, R1 = r*2^a (odd for r = 21,
-25 and 27; the radix route's chain of radix-13, 11, 7, 5, 3, 4 and 2
-codelets,
-``radix.radices``, on its own table of R1 entries), and R2, R3 powers of
-two (radix-2 codelets on a table of max(R2, R3)/2 entries).  Its line is
-copied in R1 rows of N/R1 with a pitch of N/R1 plus 16 bytes
-(:attr:`LongPlan.pitch`), and every pass runs one item at a time and
-stores it where it was read, (k1, m2, m3) then (k1, k2, m3), so no pass
-holds more than one codelet: pass 3's reads of consecutive kA then fall
-R1 rows apart, on distinct banks.
+A mixed length has a mixed factor R1 = r*2^a, on the radix route's chain
+of radix-13, 11, 7, 5, 3, 4 and 2 codelets (``radix.radices``) on its own
+table of R1 entries, and R3 a power of two (radix-2 codelets).  R2 is a
+power of two where the odd part fits R1 alone (r in
+``radix.EVERY_ROUTE_ODD``: the radix-2 codelets' table then has
+max(R2, R3)/2 entries); where it does not (odd parts 33 to 63 and the
+13-smooth ones from 65), R2 holds the rest of it and runs the mixed chain
+too, on a table of R2 entries of its own, and the radix-2 table has
+R3/2.  Its line is copied in R1 rows of N/R1 with a pitch of N/R1 plus
+16 bytes (:attr:`LongPlan.pitch`), and every pass runs one item at a
+time and stores it where it was read, (k1, m2, m3) then (k1, k2, m3), so
+no pass holds more than one codelet: pass 3's reads of consecutive kA
+then fall R1 rows apart, on distinct banks.
 
 The thread count (:attr:`LongPlan.threads`).  A power of two: every pass's
 items split evenly, N / RM threads holding RM values each in every pass.
@@ -71,17 +77,17 @@ import torch
 
 from . import radix
 
-#: The lengths the route takes and their (R1, R2, R3), per complex dtype:
-#: lines past ``radix.RADIX_SIZES`` whose whole line, 128 KB at most, fits
-#: in one block's shared memory (``radix.kernel_path`` reads this table).
-#: Codelets of at most 32 values: ptxas keeps 32 complex128 values in
-#: registers (the radix route's 32x32 instantiation does), not 64.  A
-#: mixed length's mixed factor is R1, with as many 2s as 32 allows (28 for
-#: 7*2^k, 22 for 11*2^k, 26 for 13*2^k; none for 21*2^k, 25*2^k and
-#: 27*2^k, whose R1 is odd), so the power-of-two passes are as short as
-#: they can be.  An odd part above 32 (33 to 63, and those from 65 that
-#: the radix route takes within one block) has no R1 here.
-FACTORS = {
+#: The powers of two and the lengths with one mixed factor (R2 and R3
+#: powers of two), with their (R1, R2, R3), per complex dtype: lines past
+#: ``radix.RADIX_SIZES`` whose whole line, 128 KB at most, fits in one
+#: block's shared memory.  Codelets of at most 32 values: ptxas keeps 32
+#: complex128 values in registers (the radix route's 32x32 instantiation
+#: does), not 64.  A mixed length's mixed factor is R1, with as many 2s
+#: as 32 allows (28 for 7*2^k, 22 for 11*2^k, 26 for 13*2^k; none for
+#: 21*2^k, 25*2^k and 27*2^k, whose R1 is odd), so the power-of-two
+#: passes are as short as they can be.  :func:`rule_factors` splits the
+#: rest.
+_TABLE = {
     torch.complex64: {
         8192: (16, 16, 32), 16384: (16, 32, 32),
         4608: (18, 16, 16), 5120: (20, 16, 16), 6144: (24, 16, 16),
@@ -104,6 +110,16 @@ FACTORS = {
         1600: (25, 8, 8), 3200: (25, 8, 16), 6400: (25, 16, 16),
         1728: (27, 8, 8), 3456: (27, 8, 16), 6912: (27, 16, 16)},
 }
+#: The longest codelet of a long-line pass, in values.
+PASS_MAX = 32
+#: The longest line the route holds in one block, in bytes.
+LINE_MAX_BYTES = 128 << 10
+
+
+def _codelet_length(r: int) -> bool:
+    return 2 <= r <= PASS_MAX and radix.smooth(r)
+
+
 #: Bytes of one mbarrier.
 _BARRIER_BYTES = 8
 #: A mixed line's row padding: one 16-byte step, so that the bulk copies'
@@ -129,6 +145,11 @@ class LongPlan:
         return not radix.is_pow2(self.n)
 
     @property
+    def mixed_r2(self) -> bool:
+        """R2 is mixed too: it runs the mixed chain on its own table."""
+        return self.mixed and not radix.is_pow2(self.r2)
+
+    @property
     def rmax(self) -> int:
         return max(self.r1, self.r2, self.r3)
 
@@ -136,6 +157,8 @@ class LongPlan:
     def table(self) -> int:
         """Length whose W^j, j < table/2, the radix-2 codelets read: the
         largest factor, or the largest power-of-two factor of a mixed N."""
+        if self.mixed_r2:
+            return self.r3
         return max(self.r2, self.r3) if self.mixed else self.rmax
 
     @property
@@ -183,7 +206,7 @@ class LongPlan:
         """TA, TB, TC and the codelet tables."""
         r1, r2, r3 = self.r1, self.r2, self.r3
         return (r1 * r3 + r1 * r2 + r2 * r3 + self.table // 2
-                + (r1 if self.mixed else 0))
+                + (r1 if self.mixed else 0) + (r2 if self.mixed_r2 else 0))
 
 
 def long_plan(n: int, dtype: torch.dtype) -> LongPlan:
@@ -217,6 +240,62 @@ def long_tile(n: int, dtype: torch.dtype) -> LongTile:
     return LongTile(plan.depth, smem_bytes(plan, dtype.itemsize, plan.depth))
 
 
+def _pass3_fits(plan: LongPlan) -> bool:
+    """Whether ptxas keeps a plan with a mixed R2 in registers: pass 3's
+    radix-2 codelet of 32 values spills there (H100 build, ``nvcc -Xptxas
+    -v``: every complex128 one at 255 registers a thread, and every
+    complex64 one at the 128 that the launch bound leaves where two
+    blocks share an SM; none of the complex64 ones whose block has an SM
+    alone, at up to 255); R3 of 16 and less spills nowhere."""
+    return plan.r3 < 32 or (plan.itemsize == 8 and plan.blocks_per_sm == 1)
+
+
+def rule_factors(n: int, dtype: torch.dtype) -> Optional[tuple]:
+    """(R1, R2, R3) with N = R1*R2*R3, R1 and R2 13-smooth codelet lengths
+    of at most :data:`PASS_MAX` and R3 a power of two from 2: the largest
+    R3 up to 32 for which such an R1 and R2 exist and whose largest such
+    R1 (so R1 >= R2) gives a plan that stays in registers
+    (:func:`_pass3_fits`); None where there is none."""
+    for r3 in (32, 16, 8, 4, 2):
+        if n % r3:
+            continue
+        rest = n // r3
+        for r1 in range(PASS_MAX, 1, -1):
+            r2 = rest // r1
+            if rest % r1 == 0 and r2 <= r1 and _codelet_length(r1) \
+                    and _codelet_length(r2):
+                if _pass3_fits(LongPlan(n, r1, r2, r3, dtype.itemsize)):
+                    return r1, r2, r3
+                break
+    return None
+
+
+def _rule(dtype: torch.dtype) -> dict:
+    """The rule's lengths: every even 13-smooth N past the radix route
+    (not in ``radix.RADIX_SIZES``, nor one of ``radix._SPILLS``, which
+    stay dense and, complex64 208, run as the split route's pass B on the
+    radix kernel) with a line of at most :data:`LINE_MAX_BYTES` that
+    :func:`rule_factors` splits, less the table's."""
+    out, taken = {}, set(radix.RADIX_SIZES[dtype])
+    for n in range(2, LINE_MAX_BYTES // dtype.itemsize + 1, 2):
+        if n in _TABLE[dtype] or n in taken \
+                or n in radix._SPILLS[dtype] or not radix.smooth(n):
+            continue
+        factors = rule_factors(n, dtype)
+        if factors is not None:
+            out[n] = factors
+    return out
+
+
+#: The lengths the route takes and their (R1, R2, R3), per complex dtype
+#: (``radix.kernel_path`` reads this table): :data:`_TABLE`, then the
+#: rule's (:func:`_rule`; 90 complex64 lengths from 3168 to 16128 and 135
+#: complex128 ones from 792 to 8064, odd parts 33 to 729), whose R2 is
+#: mixed too.
+FACTORS = {dtype: {**table, **_rule(dtype)}
+           for dtype, table in _TABLE.items()}
+
+
 def _w(n: int, e: np.ndarray, sign: float) -> np.ndarray:
     return np.exp(sign * 2j * np.pi * e / n)
 
@@ -226,7 +305,8 @@ def constants(n: int, dtype: torch.dtype, inverse: bool) -> np.ndarray:
     built in float64: TA[k1, m3] = W_N^(k1*m3), TB[k1, m2] =
     W_N^(k1*m2*R3), TC[k2, m3] = W_(R2*R3)^(k2*m3), W[j] = W_table^j
     (j < table/2, :attr:`LongPlan.table`), then for a mixed N the mixed
-    codelet's own W_R1^j, j < R1."""
+    codelet's own W_R1^j, j < R1, and where R2 is mixed too its own
+    W_R2^j, j < R2."""
     p = long_plan(n, dtype)
     sign = 1.0 if inverse else -1.0
     k1 = np.arange(p.r1, dtype=np.float64)[:, None]
@@ -240,6 +320,8 @@ def constants(n: int, dtype: torch.dtype, inverse: bool) -> np.ndarray:
     parts = [ta.reshape(-1), tb.reshape(-1), tc.reshape(-1), w]
     if p.mixed:
         parts.append(_w(p.r1, np.arange(p.r1, dtype=np.float64), sign))
+    if p.mixed_r2:
+        parts.append(_w(p.r2, np.arange(p.r2, dtype=np.float64), sign))
     return np.concatenate(parts)
 
 
@@ -297,11 +379,12 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     consts = torch.from_numpy(constants(n, cdt, inverse)).to(dev, cdt)
     sizes = [r1 * r3, r1 * r2, r2 * r3, p.table // 2]
     ta, tb, tc, w, *wm = torch.split(
-        consts, sizes + ([r1] if p.mixed else []))
+        consts, sizes + ([r1] if p.mixed else [])
+        + ([r2] if p.mixed_r2 else []))
     epilogue = dict(inverse=inverse, twiddle=twiddle, pack_parts=pack_parts,
                     scaled=scaled)
     if p.mixed:
-        return _emulate_mixed(x, p, ta, tb, tc, w, wm[0],
+        return _emulate_mixed(x, p, ta, tb, tc, w, wm,
                               1.0 if inverse else -1.0, epilogue)
     # the line buffer, as the bulk copy leaves it: x in natural order
     s = torch.zeros((b, p.line_elems), dtype=cdt, device=dev)
@@ -330,10 +413,11 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     return _epilogue(v, p, b, ka, **epilogue)
 
 
-def _emulate_mixed(x: torch.Tensor, p: LongPlan, ta, tb, tc, w, wm,
+def _emulate_mixed(x: torch.Tensor, p: LongPlan, ta, tb, tc, w, wm: list,
                    sign: float, epilogue: dict) -> torch.Tensor:
     """The mixed kernel's passes: the line in R1 rows of N/R1 at the
-    padded pitch, every pass in place, item by item."""
+    padded pitch, every pass in place, item by item.  ``wm`` holds the
+    mixed codelets' tables: W_R1, then W_R2 where R2 is mixed."""
     b, n = x.shape
     r1, r2, r3, pitch = p.r1, p.r2, p.r3, p.pitch
     m1n, dev = r2 * r3, x.device
@@ -346,17 +430,18 @@ def _emulate_mixed(x: torch.Tensor, p: LongPlan, ta, tb, tc, w, wm,
     # pass 1: item mb = m2*R3 + m3 reads (m1, mb), writes (k1, mb)
     mb = torch.arange(m1n, device=dev)
     m2, m3 = mb // r3, mb % r3
-    v = _codelet([s[:, m1 * pitch + mb] for m1 in range(r1)], r1, p, w, wm,
-                 sign)
+    v = _codelet([s[:, m1 * pitch + mb] for m1 in range(r1)], r1, p, w,
+                 wm[0], sign)
     for k1 in range(r1):
         y = v[k1] if k1 == 0 else v[k1] * (ta[k1 * r3 + m3] * tb[k1 * r2 + m2])
         s[:, k1 * pitch + mb] = y
 
-    # pass 2: item (k1, m3) reads (k1, m2, m3), writes (k1, k2, m3)
+    # pass 2: item (k1, m3) reads (k1, m2, m3), writes (k1, k2, m3); a
+    # mixed R2 loads digit-reversed and runs its chain on W_R2
     item = torch.arange(r1 * r3, device=dev)
     k1, m3 = item // r3, item % r3
     v = _codelet([s[:, k1 * pitch + m2 * r3 + m3] for m2 in range(r2)], r2,
-                 p, w)
+                 p, w, wm[-1], sign)
     for k2 in range(r2):
         y = v[k2] if k2 == 0 else v[k2] * tc[k2 * r3 + m3]
         s[:, k1 * pitch + k2 * r3 + m3] = y

@@ -88,8 +88,10 @@ SMEM_TARGET_BYTES = SMEM_MAX_BYTES // 2 - 1024
 STRIDED_LINES = 16
 #: The odd parts of the mixed lengths N = r*2^k, k >= 1, that every route
 #: of them takes: the radix route within one block, the long-line route
-#: (``longline.FACTORS``: r*2^a is its mixed factor R1 <= 32) and the
-#: split route past it (``split.FACTORS``).
+#: (``longline.FACTORS``: r*2^a is its mixed factor R1 <= 32, R2 and R3
+#: powers of two) and the split route past it (``split.FACTORS``).  The
+#: long-line route takes other 13-smooth odd parts too (33 to 729, R2
+#: mixed: ``longline.rule_factors``), the split route none.
 EVERY_ROUTE_ODD = (3, 5, 7, 9, 11, 13, 15, 21, 25, 27)
 #: The longest codelet per complex dtype, in values: a codelet of 64
 #: complex128 values would take 256 registers and spill, so complex128
@@ -116,10 +118,13 @@ def odd_part(n: int) -> int:
 #: (``factorize``) are both at most ``CODELET_MAX`` long, so both codelets
 #: stay in registers: complex64 2 to 4096 (12 powers of two and 299 mixed
 #: lengths, 4096 = 64 x 64, 3780 = 60 x 63, 600 = 24 x 25), complex128 4
-#: to 1024 (9 and 140; 900 = 30 x 30).  The even 13-smooth lengths whose
-#: factors do not both fit (complex64 1690 = 26 x 65 to 4056, such as
-#: 2730, 3888, 4000 and 4050; complex128 490 = 14 x 35 to 1014) and odd N
-#: run the dense kernel.  Four lengths whose kernels ptxas spills at a
+#: to 1024 (9 and 140; 900 = 30 x 30).  Of the even 13-smooth lengths
+#: whose factors do not both fit, those that three codelets of at most 32
+#: take run the long-line kernel (``longline.rule_factors``: complex64
+#: 3168 to 4096, such as 3888 = 27 x 9 x 16 and 4000; complex128 792 to
+#: 1024, such as 1000); the rest (complex64 1690 = 26 x 65 to 4056, such
+#: as 2730 and 4050; complex128 490 = 14 x 35 to 1014, such as 990) and
+#: odd N run the dense kernel.  Four lengths whose kernels ptxas spills at a
 #: low register count stay on the dense path too: complex128 N = 2 (4
 #: bytes at 64 registers) and N = 22 = 2x11 (4 bytes at 80), complex64 N =
 #: 208 = 13x16 (4 bytes and an 8-byte stack frame at 64) and N = 504 =
@@ -142,7 +147,8 @@ RADIX_ODD = {dtype: frozenset(odd_part(n) for n in sizes if odd_part(n) > 1)
 def kernel_path(n: int, dtype: torch.dtype) -> str:
     """"radix" when the kernel has a codelet instantiation for ``n`` and
     ``dtype``, "long" for the longer lines the long-line route takes
-    (``longline.FACTORS``: powers of two and mixed lengths), "split" for
+    (``longline.FACTORS``: powers of two and mixed lengths to a 128 KB
+    line, with one mixed factor or two), "split" for
     the lines longer than one block holds (``split.FACTORS``: two passes
     through HBM), "chirp" for every other length past the dense kernel's one
     block up to the chirp route's limit (``chirp.takes``: Bluestein over

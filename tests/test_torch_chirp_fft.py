@@ -4,21 +4,25 @@ convolution over two transforms of M = 2^ceil(log2(2N - 1)) on the
 long-line or split route, the chirps in their ``twiddle`` epilogues.  Its
 plain version, ``chirp.emulate`` (the wrapper runs it for CPU tensors),
 runs the same steps over the inner routes' plain versions; it is held
-against ``np.fft`` (complex64 N of 5760 = 45*128 and the prime 10007,
-complex128 N of 3001 and 2880 = 45*64; both directions, the twiddle and
+against ``np.fft`` (complex64 N of 4864 = 19*256, M on the long-line
+route, the prime 10007 and 23040 = 45*512, M on the split route;
+complex128 N of 3001 and 2432 = 19*128; both directions, the twiddle and
 ``pack_parts`` epilogues) and against the JAX package's Pallas kernel in
 interpret mode on the same numpy inputs where the reference factors N
-(5760 and 2880), at the reference's tolerances
+(4864 and 2432), at the reference's tolerances
 (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
 complex128).  Then the chirp tables' phase at large N, the routing by
-length, the line copies, the gradient, and ``fft_conv`` at S = 2880
-(lines of 5760) forward and backward against the reference's mixer.
-The mixed lengths r*2^k, r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9,
-11, 13, 15, 21, 25, 27}, take the long-line and split routes
-(``test_torch_long_mixed_fft.py``, ``test_torch_split_mixed_fft.py``),
-so the chirp keeps the lengths whose odd part is none of those past one
-block: primes from 17, the odd parts 33 to 63 that only the radix route
-takes (such as 45) and those from 65.
+length, the line copies, the gradient, and ``fft_conv`` at S = 2432
+(lines of 4864, the chirp) and S = 2880 (lines of 5760 = 30 x 12 x 16,
+the long-line route since R2 may be mixed) forward and backward against
+the reference's mixer.  The mixed lengths r*2^k, r in
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}, take
+the long-line and split routes (``test_torch_long_mixed_fft.py``,
+``test_torch_split_mixed_fft.py``), and the other 13-smooth odd parts
+the radix and long-line routes up to a 128 KB line, so the chirp keeps
+the lengths past one block with a prime factor from 17, or a 13-smooth
+odd part from 33 past that line (45*512) or beyond three codelets of
+32.
 The CUDA launches are tested in ``test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 import dataclasses
@@ -40,15 +44,16 @@ NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 #: each epilogue (pack_parts where 2 divides N).
 VARIANTS = [(2, False, False, None), (1, True, True, None),
             (2, False, True, 2), (1, True, False, 2)]
-LENGTHS = [(torch.complex64, 5760), (torch.complex64, 10007),
-           (torch.complex128, 3001), (torch.complex128, 2880)]
+LENGTHS = [(torch.complex64, 4864), (torch.complex64, 10007),
+           (torch.complex64, 23040), (torch.complex128, 3001),
+           (torch.complex128, 2432)]
 CASES = [(dtype, n, b, inv, tw, parts if n % 2 == 0 else None)
          for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
 #: Where the reference's four-step factors N: at a prime N it is one
 #: dense DFT matrix, 10007 x 10007 (too large to run here), and at 3001
 #: its sums of 3001 terms differ from np.fft by about 1e-12 in complex128
 #: themselves, so the prime lengths are held to np.fft alone.
-PALLAS = {5760, 2880}
+PALLAS = {4864, 2432}
 
 
 def _case_id(case):
@@ -173,24 +178,30 @@ def test_chirp_filter_is_the_transformed_conjugate_chirp():
 
 @pytest.mark.parametrize("n,dtype,path", [
     (4835, torch.complex64, "dense"), (4836, torch.complex64, "chirp"),
-    (4480, torch.complex64, "dense"), (5000, torch.complex64, "chirp"),
-    (5760, torch.complex64, "chirp"), (10007, torch.complex64, "chirp"),
-    (11520, torch.complex64, "chirp"), ((1 << 23) - 1, torch.complex64,
+    (4480, torch.complex64, "long"), (5000, torch.complex64, "long"),
+    (5760, torch.complex64, "long"), (10007, torch.complex64, "chirp"),
+    (11520, torch.complex64, "long"), ((1 << 23) - 1, torch.complex64,
                                         "chirp"),
     (1 << 23, torch.complex64, "split"),
     ((1 << 23) + 1, torch.complex64, "dense"),
     (2419, torch.complex128, "dense"), (2420, torch.complex128, "chirp"),
-    (3001, torch.complex128, "chirp"), (5760, torch.complex128, "chirp"),
+    (3001, torch.complex128, "chirp"), (5760, torch.complex128, "long"),
+    (4864, torch.complex64, "chirp"), (23040, torch.complex64, "chirp"),
+    (5460, torch.complex64, "chirp"), (2432, torch.complex128, "chirp"),
+    (8448, torch.complex128, "chirp"), (16896, torch.complex64, "chirp"),
     (1 << 21, torch.complex128, "split"),
     ((1 << 21) + 1, torch.complex128, "dense"),
     (4096, torch.complex64, "radix"), (3840, torch.complex64, "radix")])
 def test_chirp_routing_by_length(n, dtype, path):
     """The chirp route takes every length past the dense kernel's one
-    block (with its twiddle staged) that no other route takes (an odd
-    part no route past one block takes: primes from 17, 45*2^k), up to
-    half the split
-    route's longest line; beyond, the dense kernel's one-block limit
-    raises with a message naming the chirp's limit."""
+    block (with its twiddle staged) that no other route takes (a prime
+    factor from 17: 4864 = 19*256, 10007; a 13-smooth odd part from 33
+    past the long-line route's 128 KB line: 23040 = 45*512, 16896 =
+    33*512, complex128 8448; or one no three codelets of 32 hold: 5460 =
+    4*1365), up to half the split route's longest line; beyond, the dense
+    kernel's one-block limit raises with a message naming the chirp's
+    limit.  The long-line route takes 45*2^k (5760 = 30 x 12 x 16, 11520)
+    and 35*2^7 = 4480 up to its line, 5000 = 25 x 25 x 8 too."""
     assert radix.kernel_path(n, dtype) == path
     if path in ("chirp", "dense"):
         assert chirp.takes(n, dtype) == (path == "chirp")
@@ -209,7 +220,7 @@ def test_chirp_lines_along_any_axis_and_their_gradient():
     axis copied contiguous first (``ops.copies``); the transform's
     gradient (``LineTransform``: the adjoint runs on the same route)
     against ``torch.fft``'s, both directions."""
-    n = 5760
+    n = 4864
     r = np.random.default_rng(5)
     x = (r.standard_normal((2, n, 3)) + 1j * r.standard_normal(
         (2, n, 3))).astype(np.complex64)
@@ -231,12 +242,22 @@ def test_chirp_lines_along_any_axis_and_their_gradient():
         assert_scaled_close(grads[0], grads[1], 5e-6)
 
 
-def test_fft_conv_at_2880_takes_the_chirp_route_and_matches_reference():
-    """``fft_conv`` at S=2880 (lines of 5760 = 45*128, the chirp route)
+def test_fft_conv_at_2432_takes_the_chirp_route_and_matches_reference():
+    """``fft_conv`` at S=2432 (lines of 4864 = 19*256, the chirp route)
     with 8 channels on the kernel backend's plain version against the
     reference's mixer, float32: the output, and the gradients of w_in,
     basis_w, decay, w_out and the input against ``jax.grad`` of the
     reference's ``fft_backend="xla"``."""
+    _fft_conv_matches_reference(2432, "chirp")
+
+
+def test_fft_conv_at_2880_takes_the_long_route_and_matches_reference():
+    """``fft_conv`` at S=2880 (lines of 5760 = 30 x 12 x 16, the long-line
+    route with a mixed R2, off the chirp) as at S=2432."""
+    _fft_conv_matches_reference(2880, "long")
+
+
+def _fft_conv_matches_reference(s, route):
     from lm_parity import F32_TOL, f32, jax_init, port_module, randn, \
         scaled_err, tt
     from repro.configs import smoke_config as ref_smoke_config
@@ -249,8 +270,7 @@ def test_fft_conv_at_2880_takes_the_chirp_route_and_matches_reference():
     tree, ref_p = jax_init(ref_ssm.init_fft_conv, cfg, "ssm", seed=3)
     p = port_module(ssm.init_fft_conv, tree, "ssm", cfg)
     assert p.basis_w.shape[0] == 8                  # 8 channels
-    s = 2880
-    assert radix.kernel_path(2 * s, torch.complex64) == "chirp"
+    assert radix.kernel_path(2 * s, torch.complex64) == route
     x = randn((1, s, cfg.d_model), 11)
     r = randn((1, s, cfg.d_model), 12)
     y_ref, _ = ref_ssm.fft_conv(ref_p, cfg, MeshRules(), jnp.asarray(x))
@@ -267,7 +287,8 @@ def test_fft_conv_at_2880_takes_the_chirp_route_and_matches_reference():
     y, _ = ssm.fft_conv(p, cfg, None, xt, fft_backend="kernel")
     assert scaled_err(y, y_ref) < F32_TOL
     (y * tt(r)).sum().backward()
-    assert tfm.launch_counts()["chirp_calls"] == 0   # plain version on CPU
+    counts = tfm.launch_counts()                     # plain version on CPU
+    assert counts["launches"] == 0 and counts["chirp_calls"] == 0
     for name in ("w_in", "basis_w", "decay", "w_out"):
         g = getattr(p, name).grad
         assert g is not None and bool(g.abs().max() > 0), name

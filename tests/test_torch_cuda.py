@@ -351,12 +351,12 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
-    (torch.complex64, 5760, 3, False, None, True),      # M on long-line
-    (torch.complex64, 5760, 2, True, 4, False),
+    (torch.complex64, 4864, 3, False, None, True),      # M on long-line
+    (torch.complex64, 4864, 2, True, 4, False),
     (torch.complex64, 10007, 2, True, None, True),      # prime, M split
-    (torch.complex64, 11520, 1, False, 2, True),
+    (torch.complex64, 23040, 1, False, 2, True),        # past the line
     (torch.complex128, 3001, 2, False, None, True),
-    (torch.complex128, 5760, 1, True, 5, False)])
+    (torch.complex128, 2432, 1, True, 19, False)])
 def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
         cuda, dtype, n, b, inverse, parts, use_tw):
     """The chirp route (one chirp call; its two inner transforms' launches
@@ -398,12 +398,13 @@ def split_rows_long(n, dtype) -> int:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [384, 6144, 5760, 24576, 10752])
+@pytest.mark.parametrize("n", [384, 6144, 4864, 24576, 10752, 4800])
 def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
     """A contiguous view 8 bytes into its storage, at mixed lengths on the
     radix, long-line (its row copies are 16-byte aligned: the wrapper
-    clones; 10752 = 21 x 16 x 32, an odd R1) and split routes and on the
-    chirp route: transformed all the same."""
+    clones; 10752 = 21 x 16 x 32, an odd R1; 4800 = 30 x 10 x 16, a mixed
+    R2) and split routes and on the chirp route (4864 = 19*256):
+    transformed all the same."""
     base = torch.from_numpy(cplx((2 * n + 1,), 18)).to(cuda)
     x = base[1:].view(2, n)
     assert x.data_ptr() % 16 == 8
@@ -501,7 +502,7 @@ def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
     from repro_torch.kernels import longline
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in sorted(longline.FACTORS[dtype])
-             if not radix.is_pow2(n)]
+             if radix.odd_part(n) in radix.EVERY_ROUTE_ODD]
     assert len(mixed) == (20 if dtype == torch.complex64 else 30)
     for n in mixed:
         x = torch.from_numpy(cplx((37, n), n)).to(cuda, dtype)
@@ -510,6 +511,40 @@ def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
         parts = next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
         lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
         for t, p in ((None, None), (tw, parts)):
+            tfm.reset_launch_counts()
+            got = tfm.fft_fourstep(x, inverse=inverse, twiddle=t,
+                                   pack_parts=p)
+            torch.cuda.synchronize()
+            assert tfm.fft_fourstep.path_launches["long"] == 1, n
+            assert tfm.fft_fourstep.launches == 1, n
+            want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=t,
+                                          pack_parts=p)
+            ref = lib if t is None else (lib * t).reshape(37, p, n // p)
+            assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+            assert_scaled_close(got.cpu().numpy(), ref.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_long_rule_lengths_match_plain_version_and_torch_fft(
+        cuda, dtype, inverse):
+    """Every long-line length with a second mixed factor R2
+    (``longline.rule_factors``: complex64 3168-16128, complex128 792-8064,
+    odd parts 33 to 729): one launch on "long" each, against the plain
+    version and ``torch.fft`` at the kernel's tolerances, without an
+    epilogue and with both (segments of N/2)."""
+    from repro_torch.kernels import longline
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    rule = [n for n in sorted(longline.FACTORS[dtype])
+            if longline.long_plan(n, dtype).mixed_r2]
+    assert len(rule) == (90 if dtype == torch.complex64 else 135)
+    for n in rule:
+        x = torch.from_numpy(cplx((37, n), n)).to(cuda, dtype)
+        tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
+                       / (2 * n)).to(dtype)
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+        for t, p in ((None, None), (tw, 2)):
             tfm.reset_launch_counts()
             got = tfm.fft_fourstep(x, inverse=inverse, twiddle=t,
                                    pack_parts=p)

@@ -294,16 +294,19 @@ def test_kernel_operands_are_resolved():
     (8192, torch.complex128, "long"), (32768, torch.complex64, "split"),
     (16384, torch.complex128, "split"), (1 << 24, torch.complex64, "split"),
     (1 << 22, torch.complex128, "split"), (1 << 25, torch.complex64, "dense"),
-    (1 << 23, torch.complex128, "dense"), (11520, torch.complex64, "chirp"),
+    (1 << 23, torch.complex128, "dense"), (11520, torch.complex64, "long"),
     (13312, torch.complex64, "long"), (208, torch.complex128, "radix"),
     (208, torch.complex64, "dense"), (10752, torch.complex64, "long"),
     (672, torch.complex64, "radix"), (4032, torch.complex64, "radix"),
-    (4480, torch.complex64, "dense"), (21 << 10, torch.complex64, "split"),
+    (4480, torch.complex64, "long"), (21 << 10, torch.complex64, "split"),
     (600, torch.complex64, "radix"), (600, torch.complex128, "radix"),
     (3600, torch.complex64, "radix"), (3780, torch.complex64, "radix"),
     (900, torch.complex128, "radix"), (2730, torch.complex64, "dense"),
-    (1000, torch.complex128, "dense"), (544, torch.complex64, "dense"),
-    (75, torch.complex64, "dense"), (4800, torch.complex64, "dense")])
+    (1000, torch.complex128, "long"), (544, torch.complex64, "dense"),
+    (75, torch.complex64, "dense"), (4800, torch.complex64, "long"),
+    (4864, torch.complex64, "chirp"), (23040, torch.complex64, "chirp"),
+    (4050, torch.complex64, "dense"), (990, torch.complex128, "dense"),
+    (4725, torch.complex64, "dense")])
 def test_kernel_path_selection(n, dtype, path):
     """The path follows N and the dtype alone: N with a radix
     instantiation (powers of two, and mixed r*2^k such as 24, 96 and
@@ -311,18 +314,21 @@ def test_kernel_path_selection(n, dtype, path):
     line fits in a block's shared memory the long-line kernel, the
     power-of-two N beyond one block up to 2^24 (complex64) / 2^22
     (complex128) the split route, every other N beyond one block up to
-    half those (11520 = 45*256: no route past one block takes an odd part
-    of 45) the chirp route, every other N the dense one (which the card
-    refuses past one block: 2^25 / 2^23; 4480 = 35*128 within it).  The
-    mixed lengths past the radix route (13312 = 13*1024 and 10752 =
-    21*512 are long lines, 21*1024 a split one):
-    test_torch_long_mixed_fft.py and test_torch_split_mixed_fft.py.
+    half those (4864 = 19*256: no route past one block takes a factor of
+    19; 23040 = 45*512, past the long-line route's 128 KB line) the chirp
+    route, every other N the dense one (which the card refuses past one
+    block: 2^25 / 2^23).  The mixed lengths past the radix route (13312 =
+    13*1024 and 10752 = 21*512 are long lines, 21*1024 a split one):
+    test_torch_long_mixed_fft.py and test_torch_split_mixed_fft.py; so
+    are the other even 13-smooth lengths up to a 128 KB line that three
+    codelets of at most 32 take (11520 = 30 x 12 x 32, 4480 = 28 x 10 x
+    16, 4800 = 30 x 10 x 16, complex128 1000 = 25 x 5 x 8: a mixed R2).
     complex64 208 = 13x16 is dense: ptxas spills its radix kernel; 4032 =
     63x64 takes the radix route, and so do the even 13-smooth lengths
     with an odd part from 65 whose factors both fit a codelet (600 = 24 x
     25, 3600 = 60 x 60, 3780 = 60 x 63, complex128 900 = 30 x 30); those
-    whose factors do not (2730 = 42 x 65, complex128 1000 = 25 x 40),
-    odd N (75) and 544 = 17*32 run dense."""
+    that no route takes (2730 = 42 x 65, 4050 = 2 x 2025, complex128
+    990 = 2 x 495), odd N (75, 4725) and 544 = 17*32 run dense."""
     assert radix.kernel_path(n, dtype) == path
 
 

@@ -2,7 +2,12 @@
 ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}
 (``kernels/longline.py``, ``csrc/fft_long.cuh``'s
 ``long_mixed_kernel``): complex64 N of 4608 to 15360 and complex128 N of
-1152 to 7680, whose line fits one block.  Their plan (one mixed factor R1
+1152 to 7680, whose line fits one block; and the rule's lengths, whose
+odd part (33 to 729) needs a second mixed factor R2 (complex64 3168 to
+16128, complex128 792 to 8064: ``longline.rule_factors``), at one length
+per family and dtype (c64 4800 = 30 x 10 x 16, 8448 = 24 x 11 x 32,
+3888 = 27 x 9 x 16; c128 4224 = 24 x 11 x 16, 2400 = 30 x 5 x 16, 1056 =
+22 x 3 x 16) against ``np.fft`` and the Pallas kernel as the others.  Their plan (one mixed factor R1
 on the radix route's mixed chain, R2 and R3 powers of two, a block of 128
 or 256 threads walking each pass's items in rounds, every pass in place,
 item by item) runs in torch in
@@ -34,8 +39,20 @@ from torch_harness import assert_scaled_close, pallas_lines_c128
 
 TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
 NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
+#: The lengths with one mixed factor R1 (R2 and R3 powers of two).
 MIXED = [(dtype, n) for dtype, sizes in longline.FACTORS.items()
-         for n in sorted(sizes) if not radix.is_pow2(n)]
+         for n in sorted(sizes)
+         if radix.odd_part(n) in radix.EVERY_ROUTE_ODD]
+#: The rule's lengths (R2 mixed too), and one of each family per dtype
+#: held against np.fft and the Pallas kernel: an odd part 33 to 63 (8448
+#: = 33*256, 4224), from 65 (4800 = 75*64, 2400) and past 243 (3888 =
+#: 243*16, 1056 = 33*32 the shortest of complex128's dense lengths).
+TWO = [(dtype, n) for dtype, sizes in longline.FACTORS.items()
+       for n in sorted(sizes)
+       if radix.odd_part(n) not in radix.EVERY_ROUTE_ODD + (1,)]
+TWO_PARITY = [(torch.complex64, 4800), (torch.complex64, 8448),
+              (torch.complex64, 3888), (torch.complex128, 4224),
+              (torch.complex128, 2400), (torch.complex128, 1056)]
 #: (batch, inverse, twiddle, pack_parts) per length: both directions,
 #: each epilogue, segments of N/r (r the odd part's least prime factor)
 #: and N/4.
@@ -44,14 +61,17 @@ VARIANTS = [(3, False, False, None), (1, True, True, None),
 CASES = [(dtype, n, b, inv, tw,
           next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
           if parts == "odd" else parts)
-         for dtype, n in MIXED for b, inv, tw, parts in VARIANTS]
+         for dtype, n in MIXED + TWO_PARITY
+         for b, inv, tw, parts in VARIANTS]
 #: One length per odd part r = 3, 5, 9, 15, 21, 25, 27 and every 7*2^k,
-#: 11*2^k and 13*2^k, per dtype, held against the Pallas kernel too.
+#: 11*2^k and 13*2^k, per dtype, and the rule's parity lengths, held
+#: against the Pallas kernel too.
 PALLAS = {torch.complex64: {4608, 5120, 6144, 7680, 5632, 7168, 11264,
-                            14336, 6656, 13312, 5376, 6400, 13824},
+                            14336, 6656, 13312, 5376, 6400, 13824, 4800,
+                            8448, 3888},
           torch.complex128: {1152, 1280, 3072, 7680, 1408, 1792, 2816,
                              3584, 5632, 7168, 1664, 3328, 6656, 1344,
-                             3200, 6912}}
+                             3200, 6912, 4224, 2400, 1056}}
 
 
 def _case_id(case):
@@ -183,10 +203,10 @@ def test_long_mixed_threads_split_every_pass_evenly(dtype, n):
 
 
 def test_long_mixed_lengths_are_every_r_2k_that_fits():
-    """The table holds every mixed N = r*2^k past the radix route (a
-    factor of ``factorize`` past its codelets' 64 or 32 values) whose
-    line is at most 128 KB: complex64 4608 to 15360, complex128 1152 to
-    7680; 6144 is 24 x 16 x 16 on 256 threads (1 round of radix 24, 2 of
+    """The table holds every mixed N = r*2^k, r in
+    ``radix.EVERY_ROUTE_ODD``, past the radix route (a factor of
+    ``factorize`` past its codelets' 64 or 32 values) whose line is at
+    most 128 KB: complex64 4608 to 15360, complex128 1152 to 7680; 6144 is 24 x 16 x 16 on 256 threads (1 round of radix 24, 2 of
     radix 16), complex128 1152 18 x 8 x 8 on 128, 7168 28 x 16 x 16
     (complex64 and complex128), 11264 22 x 16 x 32, 6656 26 x 16 x 16
     (complex64 and complex128), complex128 1664 26 x 8 x 8; the odd
@@ -199,7 +219,7 @@ def test_long_mixed_lengths_are_every_r_2k_that_fits():
                       if max(factorize(r << k)) > cap
                       and (r << k) * dtype.itemsize <= 128 << 10)
         got = sorted(n for n in longline.FACTORS[dtype]
-                     if not radix.is_pow2(n))
+                     if radix.odd_part(n) in radix.EVERY_ROUTE_ODD)
         assert got == want and got[0] == first and got[-1] == last
     plan = longline.long_plan(6144, torch.complex64)
     assert (plan.r1, plan.r2, plan.r3, plan.threads) == (24, 16, 16, 256)
@@ -221,6 +241,150 @@ def test_long_mixed_lengths_are_every_r_2k_that_fits():
                               (6912, torch.complex128, (27, 16, 16))):
         plan = longline.long_plan(n, dtype)
         assert (plan.r1, plan.r2, plan.r3) == factors
+
+
+def _largest_r1(rest: int):
+    """The largest R1 <= 32 with R2 = rest/R1 <= R1, both 13-smooth
+    codelet lengths of 2 to 32, or None."""
+    return next((a for a in range(32, 1, -1)
+                 if rest % a == 0 and 2 <= rest // a <= a
+                 and radix.smooth(a) and radix.smooth(rest // a)), None)
+
+
+def _old_path(n: int, dtype: torch.dtype) -> str:
+    """``radix.kernel_path`` before the rule: the table's lengths alone on
+    the long-line route."""
+    from repro_torch.kernels import chirp, split
+    if n in radix.RADIX_SIZES[dtype]:
+        return "radix"
+    if n in longline._TABLE[dtype]:
+        return "long"
+    if n in split.FACTORS[dtype]:
+        return "split"
+    return "chirp" if chirp.takes(n, dtype) else "dense"
+
+
+@pytest.mark.parametrize("dtype,count,first,last", [
+    (torch.complex64, 90, 3168, 16128), (torch.complex128, 135, 792, 8064)])
+def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
+    """``longline.FACTORS`` is the table (the powers of two and the one
+    mixed factor lengths, 22 complex64 and 33 complex128, their factors
+    as before: R1 the odd part times as many 2s as 32 allows, R2 <= R3
+    powers of two at most a factor 2 apart) and the rule: every even
+    13-smooth N past the radix route (less ``radix._SPILLS``) up to a
+    128 KB line that is R1*R2*R3, R1 and R2 13-smooth of at most 32 and
+    R3 a power of two, split with the largest R3 up to 32 and then the
+    largest R1, R3 = 32 only for complex64 plans whose block has an SM
+    alone (the rest spilled in ptxas).  Every entry multiplies out; ``radix.kernel_path`` sends
+    exactly the rule's lengths to "long" that went elsewhere (18
+    complex64 and 63 complex128 from "dense", 72 each from "chirp"), and
+    every other length up to twice the line where it went before."""
+    table = longline._TABLE[dtype]
+    assert len(table) == (22 if dtype == torch.complex64 else 33)
+    for n, (r1, r2, r3) in longline.FACTORS[dtype].items():
+        assert r1 * r2 * r3 == n and max(r1, r2, r3) <= 32
+        assert radix.smooth(r1) and radix.smooth(r2) and radix.is_pow2(r3)
+        assert n * dtype.itemsize <= 128 << 10
+        if n in table and not radix.is_pow2(n):
+            odd = radix.odd_part(n)
+            assert odd in radix.EVERY_ROUTE_ODD
+            assert r1 == odd << ((32 // odd).bit_length() - 1)
+            assert radix.is_pow2(r2) and r3 in (r2, 2 * r2)
+    rule = {n: f for n, f in longline.FACTORS[dtype].items()
+            if n not in table}
+    assert len(rule) == count and min(rule) == first and max(rule) == last
+    moved = {"dense": 0, "chirp": 0}
+    taken = set(radix.RADIX_SIZES[dtype])
+    for n in range(1, 2 * (128 << 10) // dtype.itemsize + 1):
+        path, old = radix.kernel_path(n, dtype), _old_path(n, dtype)
+        if n in rule:
+            assert path == "long" and old in moved, (n, old)
+            moved[old] += 1
+            r1, r2, r3 = rule[n]
+            assert n % 2 == 0 and radix.smooth(n) and n not in taken
+            assert rule[n] == longline.rule_factors(n, dtype)
+            assert not radix.is_pow2(r1) and not radix.is_pow2(r2)
+            assert r1 >= r2 and r3 >= 2
+            plan = longline.long_plan(n, dtype)
+            assert r3 < 32 or (dtype == torch.complex64
+                               and plan.blocks_per_sm == 1)
+            # no larger R3 splits N in a plan that stays in registers, and
+            # no larger R1 splits N / R3
+            for c3 in (4, 8, 16, 32):
+                if c3 > r3 and n % c3 == 0:
+                    a = _largest_r1(n // c3)
+                    assert a is None or not longline._pass3_fits(
+                        longline.LongPlan(n, a, n // c3 // a, c3,
+                                          dtype.itemsize)), (n, c3)
+            assert _largest_r1(n // r3) == r1, n
+        else:
+            assert path == old, (n, path, old)
+    assert moved == ({"dense": 18, "chirp": 72} if dtype == torch.complex64
+                     else {"dense": 63, "chirp": 72})
+    odd = sorted({radix.odd_part(n) for n in rule})
+    assert len(odd) == 42 and odd[0] == 33 and odd[-1] == 729
+    c64, c128 = torch.complex64, torch.complex128
+    assert longline.rule_factors(8448, c64) == (24, 11, 32)
+    # 30 x 5 x 32 would spill at 128 registers (two blocks an SM)
+    assert longline.rule_factors(4800, c64) == (30, 10, 16)
+    assert longline.rule_factors(4800, c128) == (30, 10, 16)
+    assert longline.rule_factors(1056, c128) == (22, 3, 16)
+    assert longline.rule_factors(2730, c64) is None   # 1365 = 3*5*7*13
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_long_rule_plans_fit_a_block(dtype):
+    """At every rule length the plan's R2 is mixed: its own table of R2
+    entries after R1's, the radix-2 codelets' table R3/2 entries; the
+    block holds the line at a 16-byte padded pitch, one or two of them,
+    within the 227 KB of one block; 256 threads for complex64, 128 or 256
+    for complex128, as the other mixed lengths."""
+    item = dtype.itemsize
+    for n in [n for d, n in TWO if d == dtype]:
+        plan = longline.long_plan(n, dtype)
+        r1, r2, r3 = plan.r1, plan.r2, plan.r3
+        assert plan.mixed and plan.mixed_r2 and plan.table == r3
+        assert plan.const_elems == (r1 * r3 + r1 * r2 + r2 * r3 + r3 // 2
+                                    + r1 + r2)
+        assert (plan.pitch - r2 * r3) * item == 16
+        assert plan.pitch * item % 16 == 0 and r2 * r3 * item % 16 == 0
+        tile = longline.long_tile(n, dtype)
+        assert tile.depth == plan.depth
+        assert tile.smem_bytes == longline.smem_bytes(plan, item, tile.depth)
+        assert tile.smem_bytes <= radix.SMEM_MAX_BYTES
+        if dtype == torch.complex64:
+            assert plan.threads == 256
+        else:
+            assert plan.threads == (128 if plan.blocks_per_sm >= 2 else 256)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_long_mixed_r2_has_its_own_table(inverse):
+    """At 8448 = 24 x 11 x 32 the constants are TA, TB, TC, the radix-2
+    table of R3/2 = 16 entries, W_R1^j (j < 24), then W_R2^j (j < 11),
+    all in float64; both mixed tables carry the direction's sign, which
+    the kernel reads from W_R1^1."""
+    n, dtype = 8448, torch.complex64
+    p = longline.long_plan(n, dtype)
+    assert (p.r1, p.r2, p.r3) == (24, 11, 32)
+    c = longline.constants(n, dtype, inverse)
+    assert c.dtype == np.complex128 and c.size == p.const_elems
+    ta, tb, tc, w, wm, wm2 = np.split(c, np.cumsum(
+        [p.r1 * p.r3, p.r1 * p.r2, p.r2 * p.r3, p.table // 2, p.r1]))
+    sign = 1.0 if inverse else -1.0
+    k1 = np.arange(p.r1)[:, None]
+    mb = np.arange(n // p.r1)
+    full = ta.reshape(p.r1, p.r3)[:, mb % p.r3] \
+        * tb.reshape(p.r1, p.r2)[:, mb // p.r3]
+    np.testing.assert_allclose(full, np.exp(sign * 2j * np.pi * k1 * mb / n),
+                               atol=1e-13)
+    np.testing.assert_allclose(
+        w, np.exp(sign * 2j * np.pi * np.arange(16) / 32), atol=1e-15)
+    np.testing.assert_allclose(
+        wm, np.exp(sign * 2j * np.pi * np.arange(24) / 24), atol=1e-15)
+    np.testing.assert_allclose(
+        wm2, np.exp(sign * 2j * np.pi * np.arange(11) / 11), atol=1e-15)
+    assert (wm[1].imag > 0) == inverse and (wm2[1].imag > 0) == inverse
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -281,7 +445,8 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
     to the split route's limits (2^24, 2^22) "split"; none is "chirp" or
     "dense" (7*2^k, 11*2^k, 13*2^k, 21*2^k, 25*2^k and 27*2^k included:
     complex64 13*2^20 and complex128 13*2^18, past the chirp's limits,
-    run); a prime and 45*2^k past one block stay "chirp"."""
+    run); a prime and 19*2^k past one block stay "chirp", and so does
+    45*2^k past the 128 KB line."""
     for dtype, (lo, hi, top) in {
             torch.complex64: (4608, 16384, 1 << 24),
             torch.complex128: (1152, 8192, 1 << 22)}.items():
@@ -294,8 +459,9 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
                 assert radix.kernel_path(n, dtype) == want, (n, dtype)
     assert radix.kernel_path(13 << 20, torch.complex64) == "split"
     assert radix.kernel_path(13 << 18, torch.complex128) == "split"
-    for n, dtype in ((5760, torch.complex64), (10007, torch.complex64),
-                     (2880, torch.complex128), (3001, torch.complex128)):
+    for n, dtype in ((4864, torch.complex64), (10007, torch.complex64),
+                     (23040, torch.complex64), (2432, torch.complex128),
+                     (3001, torch.complex128)):
         assert radix.kernel_path(n, dtype) == "chirp"
 
 

@@ -392,10 +392,11 @@ def test_cuda_dispatch_instantiates_the_python_tables():
 def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
     """r = 33 to 63 and 75 take the radix route within one codelet pair
     (75*2^k as 10 x 15 up to 2400 = 48 x 50 in complex64, 600 = 24 x 25 in
-    complex128) and no long-line or split route past it (no R1 of at most
-    32 holds them): their r*2^k whose factors do not both fit a codelet
-    run the dense kernel within its one block, the chirp route up to its
-    limit, and past it the dense kernel, which raises on the card."""
+    complex128), the long-line route past it up to a 128 KB line (R1 and
+    R2 both mixed: ``longline.rule_factors``), and no split route (no
+    R1 of at most 32 holds them): their longer r*2^k run the chirp route
+    up to its limit, and past it the dense kernel, which raises on the
+    card."""
     cap = radix.CODELET_MAX[dtype]
     on_radix = []
     for k in range(1, 24):
@@ -405,8 +406,16 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
             assert r in radix.RADIX_ODD[dtype] and path == "radix"
             on_radix.append(n)
             continue
-        assert n not in longline.FACTORS[dtype]
         assert n not in split.FACTORS[dtype]
+        if n in radix._SPILLS[dtype]:               # complex64 504: dense
+            assert path == "dense" and n not in longline.FACTORS[dtype]
+            continue
+        if n * dtype.itemsize <= 128 << 10:
+            assert path == "long", (n, path)
+            assert longline.FACTORS[dtype][n] == longline.rule_factors(
+                n, dtype)
+            continue
+        assert n not in longline.FACTORS[dtype]
         if n <= chirp.dense_limit(dtype) or n > chirp.max_length(dtype):
             assert path == "dense", (n, path)
         else:
@@ -426,8 +435,11 @@ def test_even_smooth_lengths_take_the_radix_route_when_both_factors_fit(
         dtype):
     """Every even 13-smooth N to 4096 (complex64) / 1024 (complex128) is
     on the radix route exactly when both factors fit a codelet and N is
-    not one of the spills, and on the dense kernel otherwise; the radix
-    lengths are those and nothing else, their odd parts ``RADIX_ODD``."""
+    not one of the spills; otherwise on the long-line route where three
+    codelets of at most 32 take it (``longline.rule_factors``: complex64
+    3168 to 4096, complex128 792 to 1024) and N is not a spill, and on
+    the dense kernel else; the radix lengths are those and nothing else,
+    their odd parts ``RADIX_ODD``."""
     cap = radix.CODELET_MAX[dtype]
     want = []
     for n in range(2, cap * cap + 1, 2):
@@ -437,6 +449,10 @@ def test_even_smooth_lengths_take_the_radix_route_when_both_factors_fit(
         if max(factorize(n)) <= cap and n not in radix._SPILLS[dtype]:
             assert path == "radix", (n, path)
             want.append(n)
+        elif longline.rule_factors(n, dtype) is not None \
+                and n not in radix._SPILLS[dtype]:
+            assert path == "long", (n, path)
+            assert n >= (3168 if dtype == torch.complex64 else 792)
         else:
             assert path == "dense", (n, path)
     assert tuple(want) == radix.RADIX_SIZES[dtype]

@@ -226,6 +226,40 @@ def test_split_mixed_lengths_are_every_r_2k_past_the_long_route():
     assert split.split_plan(12288, torch.complex128).q == 192
 
 
+#: The split route's pass-B lengths on the radix kernel, per dtype, as
+#: the long-line route's second mixed factor found them.
+ROW_SIZES = {
+    torch.complex64: (44, 72, 80, 84, 96, 100, 104, 108, 112, 120, 128, 144,
+                      160, 168, 176, 192, 200, 208, 216, 224, 240, 256, 336,
+                      384, 400, 416, 432, 448, 480, 512, 576, 640, 672, 704,
+                      800, 832, 864, 896, 960, 1024, 1152, 1280, 1344, 1408,
+                      1536, 1600, 1664, 1728, 1792, 1920, 2048),
+    torch.complex128: (144, 160, 168, 176, 192, 200, 208, 216, 224, 240, 256,
+                       336, 400, 416, 432, 448, 480, 512, 576, 640, 672, 704,
+                       768, 800, 832, 864, 896, 960, 1024)}
+
+
+@pytest.mark.parametrize("dtype,long_rows,lengths", [
+    (torch.complex64, 34, 110), (torch.complex128, 39, 99)])
+def test_split_plans_keep_their_row_routes(dtype, long_rows, lengths):
+    """The long-line route's rule lengths (R2 mixed) are no split Q: every
+    plan of ``split.FACTORS`` keeps its pass-B route, "long" exactly where
+    Q is one of the long-line table's lengths (a power of two or one
+    mixed factor: 34 of complex64's 110 lengths, 39 of complex128's 99),
+    and ``ROW_SIZES``, which the dispatch test holds to the CUDA switch,
+    keeps its lengths (complex64 208 among them: a spill, so no rule
+    length)."""
+    rule = set(longline.FACTORS[dtype]) - set(longline._TABLE[dtype])
+    plans = [split.split_plan(n, dtype) for n in split.FACTORS[dtype]]
+    assert len(plans) == lengths
+    for plan in plans:
+        assert plan.q not in rule
+        assert plan.row_path == ("long" if plan.q in longline._TABLE[dtype]
+                                 else "radix"), plan
+    assert sum(plan.row_path == "long" for plan in plans) == long_rows
+    assert split.ROW_SIZES[dtype] == ROW_SIZES[dtype]
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 def test_split_mixed_constants_are_the_inter_step_twiddle(inverse):
     """At a mixed Q (96 = 8 * 12: QL = 8, QH = 12) TA[kp, q % QL] *
