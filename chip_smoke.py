@@ -11,8 +11,9 @@ its result line):
 1. build the CUDA kernel from ``src/repro_torch/csrc`` (its translation
    units compiled at once, ``kernels/build.py``) and print the build
    time, ``ptxas``'s registers, spills and stack frame per kernel
-   instantiation (a radix or long-line instantiation, the split route's
-   passes included, that spills or keeps a stack frame fails the run)
+   instantiation (a radix, long-line or dense instantiation, the split
+   route's passes included, that spills or keeps a stack frame fails the
+   run)
    and the card's ``nvidia-smi`` name and power limit;
 2. hold the four-step kernel against its plain PyTorch version on the card
    over the shapes of ``tests/test_kernels.py`` (both directions, prime N,
@@ -25,7 +26,12 @@ its result line):
    both dtypes (r*2^k, r in ``radix.RADIX_ODD``, 3 to 1701, where both
    factors fit a codelet: both directions, both
    epilogues, a ``pack_parts`` segment that is not a power of two, also
-   against ``torch.fft``), chirp lengths of both inner routes, and
+   against ``torch.fft``), the dense route's families (odd 13-smooth
+   N, the even ones no codelets hold, the spill lengths, N with a prime
+   factor past 13 and a prime, the 13-smooth lengths past the old
+   one-block limit; both dtypes, directions and epilogues, ragged
+   batches, also against ``torch.fft``), chirp lengths of both inner
+   routes, and
    strided ``(outer, N, inner)`` blocks through ``fft_fourstep_strided``
    (inner of one tile, 512, ragged 1000, 262144; every mixed length whose
    strided tile fits one block, against ``torch.fft`` too);
@@ -116,8 +122,9 @@ its result line):
     greedy tokens, bfloat16 within 5e-2);
 17. ``[long]``: the long-line kernel at the mixer's (8192, 8192)
     complex64 lines against its plain version and ``torch.fft``, timed
-    beside its bound; the other long lengths of both dtypes at 512 MB; the dense kernel at (262144,
-    544 = 17*32), a length no other route takes; each reached once through
+    beside its bound; the other long lengths of both dtypes at 512 MB; the
+    dense route at (262144, 544 = 17*32), a length no other route takes
+    (a generic 17-stage); each reached once through
     ``ops.fft1d`` (one launch on its path); then ``[split]``: the split route (lines beyond one block,
     N = P*Q in two launches through HBM, three with rows on the
     long-line route) at complex64 N = 2^15, 2^16, 2^20, 2^24 and
@@ -161,14 +168,15 @@ its result line):
     dense or chirp launch, 2 line copies forward and 1 inverse;
     ``[chirp]``: the chirp route (Bluestein over two transforms of M on
     the long-line or split route) at lengths no other route takes,
-    complex64 4864, 10007, 23040 and complex128 3001, 2432, 256 MB
+    complex64 4864, 10007, 33792 and complex128 3001, 2432, 256 MB
     each, once through ``ops.fft1d`` (one chirp call, its launches on
     "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
     timed beside ``torch.fft`` and the bound, the glue's ms apart;
-    ``[gaps]``: likewise at the lengths that still run dense (complex64
-    2730, 3430, 4050 and the odd 4725, complex128 990) or on the chirp
-    past the long-line route's line (complex64 16896, complex128 8448),
-    256 MB each, to rank what no route but these takes; then
+    ``[gaps]``: likewise on the dense route at the lengths it had with
+    the widest gaps (complex64 2730, 3430, 4050 and the odd 4725,
+    complex128 990), the 13-smooth lengths it took from the chirp
+    (complex64 16896, 23040, complex128 8448) and its generic stage
+    (the prime complex64 4831), 256 MB each, one dense launch each; then
     ``[lm_fftconv]``: the FFT long-convolution mixer at jamba-v0.1-52b's
     width (8192 channels), B=1, S=2048, 3072, 3584, 4096, 8192, 12288,
     16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of ``"cufft"``
@@ -248,6 +256,7 @@ ROUNDTRIP_TOL = 1e-4
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_SOURCE = "src/repro_torch/csrc/fft_fourstep.cu"
+DENSE_SOURCE = "src/repro_torch/csrc/fft_dense.cuh"
 RADIX_SOURCE = "src/repro_torch/csrc/fft_radix.cuh"
 LONG_SOURCE = "src/repro_torch/csrc/fft_long.cuh"
 SPLIT_SOURCE = "src/repro_torch/kernels/split.py"
@@ -290,9 +299,9 @@ def fft_bound_ms(b: int, n: int, itemsize: int,
     """Least time for a batched length-n DFT of b lines on the card: the
     bytes (each line read once, written once) over HBM bandwidth, and the
     function's 5*n*log2(n) flops per line, plus ``epilogue_flops`` per
-    element, over the fp32 peak.  The dense four-step does 8*n*(n1+n2)
-    flops per line instead; that is a cost of the algorithm, not of the
-    function, so it stays out of the bound."""
+    element, over the fp32 peak.  A generic stage of the dense route
+    does 8*n*p flops per line instead; that is a cost of the algorithm,
+    not of the function, so it stays out of the bound."""
     nbytes = 2 * b * n * itemsize
     flops = b * n * (5 * math.log2(n) + epilogue_flops) if n > 1 else 0
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
@@ -313,7 +322,7 @@ def ptxas_report(log: str) -> list:
     dtype, (N1, N2) and mode (the split route's passes: "split A", "split
     B"), long-line ones by dtype, R1xR2xR3 and ring depth (a mixed
     length's: "mixed"), the split route's pass C ("split transpose", and
-    "mixed" for a mixed Q) by dtype."""
+    "mixed" for a mixed Q) by dtype, the dense route's by dtype."""
     import re
     modes = {"0": "", "1": " split A", "2": " split B"}
     entries, cur = [], None
@@ -345,8 +354,8 @@ def ptxas_report(log: str) -> list:
                         + ("complex64" if tr.group(2) == "f"
                            else "complex128")
                         + (" mixed" if tr.group(1) else ""))
-            elif "fourstep_kernel" in name:
-                name = ("dense " + ("complex64" if "fourstep_kernelIfE" in name
+            elif "dense_kernel" in name:
+                name = ("dense " + ("complex64" if "dense_kernelIfE" in name
                                     else "complex128"))
             cur = {"kernel": name}
             entries.append(cur)
@@ -379,6 +388,7 @@ def phase_build(timer=time.perf_counter) -> dict:
     radix_entries = [e for e in report if e["kernel"].startswith("radix")]
     long_entries = [e for e in report if e["kernel"].startswith("long")]
     split_entries = [e for e in report if e["kernel"].startswith("split")]
+    dense_entries = [e for e in report if e["kernel"].startswith("dense")]
     if lib.log:   # an earlier build reused from disk prints no report
         from repro_torch.kernels import longline, radix, split
         plain = sum(len(sizes) for sizes in radix.RADIX_SIZES.values())
@@ -395,7 +405,10 @@ def phase_build(timer=time.perf_counter) -> dict:
         check(len(split_entries) == 4, f"{len(split_entries)} split "
               f"transpose instantiations in the ptxas report, expected 4 "
               f"(a power-of-two and a mixed Q per dtype)")
-    for e in radix_entries + long_entries + split_entries:
+        check(len(dense_entries) == 2, f"{len(dense_entries)} dense "
+              f"instantiations in the ptxas report, expected 2 (one per "
+              f"dtype, for every length)")
+    for e in radix_entries + long_entries + split_entries + dense_entries:
         check(e.get("spill_stores", 0) == 0 and e.get("stack", 0) == 0,
               f"{e['kernel']} spills or keeps a stack frame: {e}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -430,7 +443,7 @@ def kernel_cases():
         cases.append((6, 24, inv, None, True, c64))
         cases.append((5, 48, inv, None, False, c128))
     cases.append((130, 512, False, 4, True, c128))
-    # W2 streamed from global memory (prime N) and a large balanced N.
+    # a prime N (one generic stage) and a large balanced N.
     cases.append((7, 521, False, None, False, c64))
     cases.append((3, 4096, True, None, False, c64))
     cases.append((0, 16, False, None, False, c64))
@@ -484,17 +497,58 @@ def kernel_cases():
             cases += [(37, n, False, None, False, dt, ""),
                       (5, n, True, 3 if n % 3 == 0 else 2, True, dt, "")]
     cases.append((37, 384, True, None, True, c64, "x"))
+    # the dense route: a length per family of both dtypes, both
+    # directions, each epilogue, batches ragged against its tile
+    cases += dense_cases()
     # the chirp route: lengths of both inner routes (19*2^k, a prime and
     # 45*2^k past the long-line route's line), both dtypes, directions and
     # epilogues
     for b, n, inv, parts, tw, dt in ((2, 4864, False, None, True, c64),
                                      (3, 4864, True, 2, False, c64),
                                      (1, 10007, True, None, True, c64),
-                                     (1, 23040, False, 4, True, c64),
+                                     (1, 33792, False, 4, True, c64),
                                      (2, 3001, False, None, True, c128),
                                      (1, 2432, True, 19, False, c128)):
         cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
+
+
+#: (dtype name, N) per family of the dense route: odd 13-smooth N, the
+#: even ones no codelets of the radix or long-line route hold, the spill
+#: lengths, N with a prime factor past 13 (one and two generic stages)
+#: and primes, and the 13-smooth lengths past the old one-block limit
+#: that left the chirp route (to the longest line of each dtype).
+DENSE_FAMILIES = (("complex64", 9), ("complex64", 75), ("complex64", 4725),
+                  ("complex128", 225), ("complex128", 1575),
+                  ("complex64", 2730), ("complex64", 3430),
+                  ("complex64", 4050), ("complex128", 990),
+                  ("complex128", 1014), ("complex64", 208),
+                  ("complex64", 504), ("complex128", 2),
+                  ("complex128", 22), ("complex64", 544),
+                  ("complex128", 544), ("complex64", 323),
+                  ("complex64", 4831), ("complex128", 2417),
+                  ("complex64", 1), ("complex64", 5460),
+                  ("complex64", 16896), ("complex64", 23040),
+                  ("complex64", 28431), ("complex128", 2420),
+                  ("complex128", 8448), ("complex128", 14196))
+
+
+def dense_cases():
+    """The dense route's cases: per ``DENSE_FAMILIES`` length both
+    directions, the twiddle and ``pack_parts`` (a segment that is not a
+    power of two where 3 divides N), and a batch ragged against the
+    block's tile of lines."""
+    import torch
+    from repro_torch.kernels import dense
+    cases = []
+    for dt, n in DENSE_FAMILIES:
+        lines = dense.dense_plan(n, getattr(torch, dt)).lines
+        parts = 3 if n % 3 == 0 else 2 if n % 2 == 0 else None
+        cases += [(2 * lines + 1, n, False, None, True, dt, ""),
+                  (3, n, True, parts, False, dt, ""),
+                  (1, n, False, parts, True, dt, ""),
+                  (lines + 3, n, True, None, True, dt, "")]
+    return [c for c in cases if c[0] * c[1] <= 1 << 22]
 
 
 def strided_cases():
@@ -2615,23 +2669,26 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
 
 
 #: (dtype name, N) of ``[chirp]``: lengths no other route takes, 19*2^k
-#: (a prime factor no codelet takes) whose M takes the long-line route,
-#: a prime and 45*2^k past the long-line route's 128 KB line, whose M
-#: takes the split route; complex128 likewise.  The first is the
+#: (a prime factor past 13) whose M takes the long-line route, a prime
+#: and 33*2^10 (13-smooth, a line past one block), whose M takes the
+#: split route; complex128 likewise.  The first is the
 #: ``fft_fourstep_chirp`` entry's timing.
 CHIRP_LENGTHS = (("complex64", 4864), ("complex64", 10007),
-                 ("complex64", 23040), ("complex128", 3001),
+                 ("complex64", 33792), ("complex128", 3001),
                  ("complex128", 2432))
-#: (dtype name, N, route) of ``[gaps]``: the even 13-smooth lengths no
-#: route past the radix route takes within one block (complex64 2730 =
-#: 2*1365, 3430 = 2*1715 and 4050 = 2*2025, complex128 990 = 2*495: no
-#: three codelets of 32 hold them) and an odd N (complex64 4725), on the
-#: dense kernel; and 33*2^k just past the long-line route's 128 KB line
-#: (complex64 16896, complex128 8448), on the chirp route.
+#: (dtype name, N, route) of ``[gaps]``, all on the dense route: the
+#: lengths it had with the widest gaps to ``torch.fft`` (the even
+#: 13-smooth complex64 2730 = 2*1365, 3430 = 2*1715 and 4050 = 2*2025,
+#: complex128 990 = 2*495, which no codelets of the radix or long-line
+#: route hold, and the odd complex64 4725), the 13-smooth lengths past
+#: its old one-block limit that it took from the chirp route (complex64
+#: 16896 = 33*2^9, 23040 = 45*2^9, complex128 8448 = 33*2^8), and a
+#: prime, its generic stage alone (complex64 4831).
 GAP_LENGTHS = (("complex64", 2730, "dense"), ("complex64", 3430, "dense"),
                ("complex64", 4050, "dense"), ("complex128", 990, "dense"),
-               ("complex64", 4725, "dense"), ("complex64", 16896, "chirp"),
-               ("complex128", 8448, "chirp"))
+               ("complex64", 4725, "dense"), ("complex64", 16896, "dense"),
+               ("complex64", 23040, "dense"), ("complex128", 8448, "dense"),
+               ("complex64", 4831, "dense"))
 
 
 def phase_chirp(device, lengths=CHIRP_LENGTHS,
@@ -2676,12 +2733,12 @@ def phase_chirp(device, lengths=CHIRP_LENGTHS,
 
 def phase_gaps(device, lengths=GAP_LENGTHS, lengths_bytes: int = 256 << 20,
                iters: int = 10) -> dict:
-    """``[gaps]``: the lengths that still run dense or on the chirp route
-    (``GAP_LENGTHS``), each reached once through ``ops.fft1d`` on the
-    route ``lengths`` names (one chirp call, or one dense launch), about
-    256 MB of lines, against its plain version and within ``PATH_TOL`` of
-    ``torch.fft``, timed beside ``torch.fft.fft`` and the bound: the
-    readings that rank the next routes to build."""
+    """``[gaps]``: the dense route's widest gaps, the lengths it took from
+    the chirp route and its generic stage (``GAP_LENGTHS``), each reached
+    once through ``ops.fft1d`` on the route ``lengths`` names (one dense
+    launch), about 256 MB of lines, against its plain version and within
+    ``PATH_TOL`` of ``torch.fft``, timed beside ``torch.fft.fft`` and the
+    bound: the readings that rank the next routes to build."""
     import torch
     out = {"lengths": []}
     for i, (dt, n, route) in enumerate(lengths):
@@ -3416,7 +3473,7 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["chirp"] = chirp_ = phase_chirp(device)
     torch.cuda.empty_cache()
-    report["gaps"] = phase_gaps(device)
+    report["gaps"] = gaps = phase_gaps(device)
     torch.cuda.empty_cache()
     report["lm_fftconv"] = fftconv = phase_lm_fftconv(device)
     torch.cuda.empty_cache()
@@ -3511,9 +3568,12 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "lm_fftconv_8192": mixer_runs[8192]["float32"]["counts"]["long"],
              "train_fftconv_4096": train_long["counts"]["long"]}},
-        # launches: one ops.fft1d call at (262144, 544)
+        # launches: one ops.fft1d call at (262144, 544); [gaps]'s one
+        # call per length beside it
         {"name": "fft_fourstep_dense", "route": "cuda",
-         "source": KERNEL_SOURCE, "path": "dense",
+         "source": DENSE_SOURCE, "path": "dense",
+         "sources": [DENSE_SOURCE, KERNEL_SOURCE,
+                     "src/repro_torch/kernels/dense.py"],
          "replaces": "src/repro/kernels/fft_matmul.py:216",
          "launches": long_["dense"]["launches"],
          "max_abs_err": long_["dense"]["max_abs_err"],
@@ -3521,7 +3581,10 @@ def main(timer=time.perf_counter) -> int:
          "ms": long_["dense"]["ms"], "plain_ms": long_["dense"]["plain_ms"],
          "bound_ms": long_["dense"]["bound_ms"],
          "bound_by": long_["dense"]["bound_by"],
-         "library_ms": long_["dense"]["library_ms"]},
+         "library_ms": long_["dense"]["library_ms"],
+         "launches_by_path": {
+             f"gaps_{r['dtype']}_{r['shape'][1]}": r["launches"]
+             for r in gaps["lengths"]}},
         # launches: the mixer at S=16384, its main path (3 split calls of
         # 2 launches); timed at [split]'s (16384, 32768) complex64
         {"name": "fft_fourstep_split", "route": "cuda",

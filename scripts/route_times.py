@@ -21,8 +21,10 @@ forced: ``radix.kernel_path`` answers "dense" for the timing), and
 ``torch.fft.fft``.
 
 ``sass`` compares ``cuobjdump -sass`` of two builds function by
-function, each line's address comment dropped and its whitespace
-collapsed (cuobjdump pads its columns to each module's widest line).
+function: only instruction and encoding lines (a module's header would
+otherwise count as its last function's), each line's address comment
+dropped and its whitespace collapsed (cuobjdump pads its columns to each
+module's widest line).
 
 CUDA events, 10 calls after 2 of warm-up; every result goes to OUT.json
 and a line per measurement to the standard output.  Needs a CUDA card
@@ -38,19 +40,23 @@ import shutil
 import subprocess
 import sys
 
-#: (dtype name, lines, N) at 256 MB of lines: (262144, 544), the dense
-#: kernel's timed shape, and the lengths that a second mixed factor R2 on
-#: the long-line route takes off the dense kernel (complex64 4800, 4480;
-#: complex128 2400, 1056) and the chirp route (the rest).
+#: (dtype name, lines, N): (262144, 544 = 17*32) at 512 MB, the dense
+#: route's timed shape (a generic 17-stage); at 256 MB of lines the dense
+#: route's lengths with the widest gaps to ``torch.fft`` (complex64 4725,
+#: 4050, 3430, 2730, complex128 990), its spill lengths (complex64 208,
+#: 504, complex128 22), the prime complex64 4831, and the 13-smooth
+#: lengths past its old one-block limit that leave the chirp route for it
+#: (complex64 16896, 23040, 5460, 28028, complex128 8448, 2420).
 SHAPES = (("complex64", 262144, 544),) + tuple(
     (dt, (256 << 20) // (n * (8 if dt == "complex64" else 16)), n)
-    for dt, n in (("complex64", 4800), ("complex64", 4480),
-                  ("complex64", 8448), ("complex64", 8960),
-                  ("complex64", 9600), ("complex64", 11520),
-                  ("complex64", 4992), ("complex64", 5760),
-                  ("complex128", 4800), ("complex128", 4224),
-                  ("complex128", 5760), ("complex128", 2880),
-                  ("complex128", 2400), ("complex128", 1056)))
+    for dt, n in (("complex64", 4725), ("complex64", 4050),
+                  ("complex64", 3430), ("complex64", 2730),
+                  ("complex128", 990), ("complex64", 208),
+                  ("complex64", 504), ("complex128", 22),
+                  ("complex64", 4831), ("complex64", 16896),
+                  ("complex64", 23040), ("complex64", 5460),
+                  ("complex64", 28028), ("complex128", 8448),
+                  ("complex128", 2420)))
 #: One face of the LLC4320 ocean grid (MITgcm/ECCO), complex64.
 GRID = (4320, 4320)
 SWEEP_BYTES = 64 << 20
@@ -223,7 +229,9 @@ def _sass(path: str) -> dict:
         if m:
             cur = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "ANON", m.group(1))
             funcs[cur] = []
-        elif cur is not None and line.strip():
+        elif cur is not None and "/* 0x" in line:
+            # an instruction or its encoding; the module headers between
+            # functions (cuobjdump prints no end of a function) are not
             line = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)
             funcs[cur].append(" ".join(line.split()))
     return funcs

@@ -202,8 +202,10 @@ def _line_flops(n: int, backend: str, dtype: torch.dtype = torch.complex64
     inter-step twiddle between its two passes, one complex multiply (6
     FLOPs) per element; on its chirp route two transforms of M =
     ``chirp.chirp_length(n)`` on their own route, their two twiddle
-    epilogues and the input's chirp (6 FLOPs per element each); the
-    four-step count on its dense path.
+    epilogues and the input's chirp (6 FLOPs per element each); on its
+    dense route (a mixed-radix chain, ``kernels.dense.chain``) 5 n log2 m
+    over the chain's 13-smooth part m, plus 8 n p for each generic stage
+    of a prime p past 13 (a p-term sum per element).
     """
     if backend == "kernel":
         # deferred: the kernels package imports core
@@ -215,7 +217,13 @@ def _line_flops(n: int, backend: str, dtype: torch.dtype = torch.complex64
         if path == "chirp":
             m = chirp_length(n)
             return 2.0 * _line_flops(m, "kernel", dtype) + 6.0 * (2 * m + n)
-        backend = "matmul" if path == "dense" else "cufft"
+        if path == "dense":
+            from ..kernels.dense import chain
+            rs = chain(n)
+            smooth = math.prod(r for r in rs if r <= 13)
+            return 5.0 * n * math.log2(smooth) + sum(
+                8.0 * n * p for p in rs if p > 13)
+        backend = "cufft"
     if backend == "matmul":
         from .transforms import factorize
         n1, n2 = factorize(n)

@@ -1,5 +1,5 @@
-// Complex values and their products, shared by the dense and the radix
-// paths of the four-step kernel (fft_fourstep.cu, fft_radix.cuh).
+// Complex values and their products, shared by the routes of the
+// four-step kernel (fft_dense.cuh, fft_radix.cuh, fft_long.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,0 +1,394 @@
+// B1's dense route: a batched 1-D FFT of lines of any length the radix,
+// long-line and split routes do not take, as a mixed-radix FFT over a
+// chain chosen at run time, whole lines in shared memory.  "dense" is the
+// route's name (kernels/radix.py::kernel_path), kept from the dense
+// DFT-matrix kernel it replaced; the method is not dense.
+//
+// Replaces, for these N, the TPU kernel
+// src/repro/kernels/fft_matmul.py::_fft_kernel (the pl.pallas_call in
+// fft1d_planes), with its output twiddle and pack_parts epilogues.
+//
+// The route (kernels/dense.py::takes): every N up to the old kernel's
+// one-block limit (complex64 4835, complex128 2419) that no other route
+// takes -- odd N, N with a prime factor past 13, the even 13-smooth N no
+// codelets of the radix or long-line route hold, the spill lengths -- and
+// the 13-smooth N past it whose line and tables fit one block (complex64
+// to 28431, complex128 to 14196).
+//
+// What it computes (kernels/dense.py, whose emulate is its plain
+// version): a block holds `lines` lines in shared memory and transforms
+// them in place by decimation in frequency over the chain r_0, r_1, ...
+// (dense_plan: the primes past 13, then 13s, 11s, 7s, 5s, 3s, 4s and a
+// last 2).  Stage t, span s = r_(t+1)*r_(t+2)*..., M = r_0*...*r_(t-1):
+// for every block g of r*s values and j < s, the r-point DFT of
+// v[g*r*s + j + q*s], q < r, output k times W_N^(j*k*M), stored where
+// input k was read.  Output X[k_0 + r_0*(k_1 + r_1*(...))] ends at
+// sum_t k_t*s_t, which the store reads through two tables of ints:
+// X[k] = v[PL[k mod L] + PH[k div L]].
+//
+// What bounds it on an H100: the function needs about 5*N*log2(N) flops
+// per line against 16 bytes of complex64 moved per element, so HBM
+// (3.35 TB/s) is its floor for 13-smooth N; a generic stage (a prime p
+// past 13) does 8*p flops per element, which passes that floor on the
+// fp32 cores (67 TFLOP/s) from p of about 20.  The dense kernel it
+// replaces did 8*(N1+N2) flops per element, each with two shared-memory
+// loads, and kept N1 x N1 and N2 x N2 matrices beside the tile (190 KB at
+// complex64 4725, one block an SM; N x N at a prime N, streamed from L2).
+//
+// What the design does about it:
+//  * One kernel per dtype: the chain and its tables are run-time data (a
+//    switch per stage dispatches to a templated stage per radix), so no
+//    length has an instantiation of its own and nvcc's time does not grow
+//    with the lengths.
+//  * Only the lines and small tables in shared memory: TA (2^t_log2 >=
+//    sqrt(N) entries) and TB (N / 2^t_log2), W_N^e = TA[e mod T] *
+//    TB[e div T], built in float64 on the host; the stage table, PL and
+//    PH as ints.  About 4 KB at complex64 28028, whose line is 219 KB.
+//    Short lines share a block (up to 4096 elements) and blocks share an
+//    SM, so one block's loads overlap another's stages.
+//  * The tile is loaded with cp.async, 8 bytes a copy for complex64 (a
+//    line of odd N does not start on 16 bytes; a bulk copy needs it), 16
+//    for complex128: consecutive threads copy consecutive elements, and
+//    every copy of the tile is in flight before the first wait.
+//  * Codelet stages (radix 2, 3, 4, 5, 7, 11, 13): each butterfly's values
+//    in registers, the radix route's constant rotations (dft3, dft4, dft5;
+//    dft_odd's operations for 7, 11 and 13, each output twiddled and
+//    stored as soon as it is known, which keeps complex128 at about 160
+//    registers without a spill).  Consecutive threads take consecutive j,
+//    so a stage of span s >= 32 reads and writes consecutive addresses.
+//  * A tile with the SM to itself (a line past half the shared memory)
+//    runs on twice the threads, 512 for complex64 and 256 for complex128,
+//    so that its stages have warps to hide their latency; the narrow
+//    count lets three blocks share an SM and overlap one's loads with
+//    another's stages.
+//  * A generic stage: each output a p-term sum from a W_p table of p
+//    entries in shared memory (O(N*p), where the dense kernel read an N x
+//    N matrix for a prime N), in chunks of kGenericChunk terms for
+//    accuracy at large p, into a second buffer.
+//  * The store walks each line's outputs in natural order: coalesced
+//    writes of the pack_parts segment (a division by its length, as on the
+//    mixed routes), the output twiddle read from global memory (coalesced),
+//    1/N for the inverse.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "fft_common.cuh"
+#include "fft_radix.cuh"
+
+namespace repro_fft {
+
+// Threads of one block (kernels/dense.py::DensePlan.threads): a tile that
+// shares its SM with other blocks runs on kDenseNarrow* threads, one that
+// has the SM alone (its shared memory past half of it) on kDenseWide*, so
+// that its stages keep more warps in flight.  One kernel per dtype, bound
+// for the wide block; ptxas for sm_90a gives complex64 79 registers (three
+// narrow blocks an SM) and complex128 158 (three narrow blocks of 128;
+// capped at 128 registers, two blocks of 256, its radix-13 butterflies
+// spill).
+constexpr int kDenseNarrow64 = 256;
+constexpr int kDenseWide64 = 512;
+constexpr int kDenseNarrow128 = 128;
+constexpr int kDenseWide128 = 256;
+// kernels/dense.py::GENERIC_CHUNK
+constexpr int kGenericChunk = 16;
+
+// One copy of a complex value from global to shared memory, in flight
+// until dense_copy_wait.
+template <typename R>
+__device__ __forceinline__ void dense_copy(cpx<R>* dst, const cpx<R>* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(cpx<R>) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void dense_copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// W_N^e = TA[e mod T] * TB[e div T], T = 2^t_log2, for 0 <= e < N.
+template <typename R>
+__device__ __forceinline__ cpx<R> dense_w(const cpx<R>* __restrict__ ta,
+                                          const cpx<R>* __restrict__ tb,
+                                          int t_log2, int e) {
+  return cmul(ta[e & ((1 << t_log2) - 1)], tb[e >> t_log2]);
+}
+
+// Where a butterfly's outputs go: output k times W_N^(jm*k) (none where
+// jm = 0, and none for k = 0), stored at v[k*s].
+template <typename R>
+struct DenseOut {
+  cpx<R>* v;
+  int s, jm, t_log2;
+  const cpx<R>* ta;
+  const cpx<R>* tb;
+
+  __device__ __forceinline__ void put(int k, cpx<R> y) const {
+    if (jm != 0 && k != 0) y = cmul(y, dense_w(ta, tb, t_log2, jm * k));
+    v[k * s] = y;
+  }
+};
+
+// The P-point DFT of a with W_P = exp(s*2*pi*i/P), natural order in and
+// out (kernels/radix.py::_dft_small), each output handed to `out` as soon
+// as it is known.  P = 7, 11, 13 in the symmetric-pair form of dft_odd,
+// the same operations in the same order, but each pair of outputs stored
+// at once instead of kept in registers: the stage then holds the b_j and
+// d_j and two outputs, not all P.
+template <int P, typename R>
+__device__ __forceinline__ void dense_dft(cpx<R> (&a)[P], R s,
+                                          const DenseOut<R>& out) {
+  if constexpr (P <= 5) {
+    if constexpr (P == 2) {
+      const cpx<R> u = a[0];
+      a[0] = cadd(u, a[1]);
+      a[1] = csub(u, a[1]);
+    } else if constexpr (P == 3) {
+      dft3(a[0], a[1], a[2], s);
+    } else if constexpr (P == 4) {
+      dft4(a[0], a[1], a[2], a[3], s);
+    } else {
+      dft5(a[0], a[1], a[2], a[3], a[4], s);
+    }
+#pragma unroll
+    for (int k = 0; k < P; ++k) out.put(k, a[k]);
+  } else {
+    constexpr int H = (P - 1) / 2;
+    cpx<R> b[H], d[H];
+    auto pair = [&](auto jj) {
+      constexpr int j = decltype(jj)::value;
+      b[j] = cadd(a[j + 1], a[P - 1 - j]);
+      d[j] = csub(a[j + 1], a[P - 1 - j]);
+    };
+    static_for<0, H>(pair);
+    cpx<R> y = a[0];
+    auto sum = [&](auto jj) { y = cadd(y, b[decltype(jj)::value]); };
+    static_for<0, H>(sum);
+    out.put(0, y);
+    auto pairs_out = [&](auto kk) {
+      constexpr int k = decltype(kk)::value + 1;
+      cpx<R> e = a[0], f;
+      auto term = [&](auto jj) {
+        constexpr int j = decltype(jj)::value;
+        constexpr R kC = R(odd_cos(P, (j + 1) * k));
+        constexpr R kS = R(odd_sin(P, (j + 1) * k));
+        e = cadd(e, cscale(b[j], kC));
+        const cpx<R> t = cscale(d[j], kS);
+        if constexpr (j == 0) {
+          f = t;
+        } else {
+          f = cadd(f, t);
+        }
+      };
+      static_for<0, H>(term);
+      f = rot(f, s);
+      out.put(k, cadd(e, f));
+      out.put(P - k, csub(e, f));
+    };
+    static_for<0, H>(pairs_out);
+  }
+}
+
+// A codelet stage of radix P and span s on `nl` lines of n in place:
+// butterfly i of line l is (g, j), g = its block of P*s values, j < s.
+template <int P, typename R>
+__device__ __forceinline__ void dense_stage(cpx<R>* __restrict__ buf, int n,
+                                            int nl, int s, int mul,
+                                            const cpx<R>* __restrict__ ta,
+                                            const cpx<R>* __restrict__ tb,
+                                            int t_log2, R sgn) {
+  const int nb = n / P;
+  const int total = nl * nb;
+  const float inv_nb = 1.0f / static_cast<float>(nb);
+  const float inv_s = 1.0f / static_cast<float>(s);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int l = div_small(i, nb, inv_nb);
+    const int b = i - l * nb;
+    const int g = div_small(b, s, inv_s);
+    const int j = b - g * s;
+    cpx<R>* v = buf + l * n + g * (P * s) + j;
+    cpx<R> a[P];
+#pragma unroll
+    for (int q = 0; q < P; ++q) a[q] = v[q * s];
+    const DenseOut<R> out{v, s, j * mul, t_log2, ta, tb};
+    dense_dft<P>(a, sgn, out);
+  }
+}
+
+// A generic stage of a prime p past 13 and span s, from src into dst:
+// output (g, k, j) = sum_q src[g*p*s + j + q*s] * W_p^((q*k) mod p), times
+// W_N^(j*k*mul), stored at g*p*s + k*s + j.
+template <typename R>
+__device__ __forceinline__ void dense_generic(
+    const cpx<R>* __restrict__ src, cpx<R>* __restrict__ dst, int n, int nl,
+    int p, int s, int mul, const cpx<R>* __restrict__ wp,
+    const cpx<R>* __restrict__ ta, const cpx<R>* __restrict__ tb,
+    int t_log2) {
+  const int ps = p * s;
+  const int total = nl * n;
+  const float inv_n = 1.0f / static_cast<float>(n);
+  const float inv_ps = 1.0f / static_cast<float>(ps);
+  const float inv_s = 1.0f / static_cast<float>(s);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int l = div_small(i, n, inv_n);
+    const int o = i - l * n;
+    const int g = div_small(o, ps, inv_ps);
+    const int rem = o - g * ps;
+    const int k = div_small(rem, s, inv_s);
+    const int j = rem - k * s;
+    const cpx<R>* v = src + l * n + g * ps + j;
+    R are = R(0), aim = R(0);
+    int m = 0;
+    for (int q0 = 0; q0 < p; q0 += kGenericChunk) {
+      const int q1 = q0 + kGenericChunk < p ? q0 + kGenericChunk : p;
+      R pre = R(0), pim = R(0);
+      for (int q = q0; q < q1; ++q) {
+        cfma(v[q * s], wp[m], pre, pim);
+        m += k;
+        if (m >= p) m -= p;
+      }
+      are += pre;
+      aim += pim;
+    }
+    cpx<R> y;
+    y.re = are;
+    y.im = aim;
+    if (j != 0 && k != 0) y = cmul(y, dense_w(ta, tb, t_log2, j * k * mul));
+    dst[l * n + o] = y;
+  }
+}
+
+// Shared memory (kernels/dense.py::DensePlan), in this order: the
+// complex tables (TA, TB, the generic stages' W_p tables: n_consts
+// values), the ints (per stage radix, span, M and W_p offset; then PL of
+// `lo` entries and PH), each part padded to 16 bytes; from byte buf_off
+// the tile of `lines` lines of n, and a second one where a generic stage
+// writes.  `out` is (parts, batch, n/parts) with seg = n/parts.  One
+// kernel per dtype, bound for its wide block (kDenseWide*).
+template <typename R>
+__global__ void __launch_bounds__(sizeof(R) == 4 ? kDenseWide64
+                                                 : kDenseWide128, 1)
+dense_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+             const cpx<R>* __restrict__ gconsts,
+             const int* __restrict__ gints, const cpx<R>* __restrict__ tw,
+             long long batch, int n, int stages, int lines, int t_log2,
+             int lo, int n_consts, int n_ints, int buf_off, int inverse,
+             int seg) {
+  extern __shared__ __align__(16) unsigned char dense_smem[];
+  cpx<R>* consts = reinterpret_cast<cpx<R>*>(dense_smem);
+  int* ints = reinterpret_cast<int*>(
+      dense_smem +
+      ((n_consts * static_cast<int>(sizeof(cpx<R>)) + 15) & ~15));
+  cpx<R>* cur = reinterpret_cast<cpx<R>*>(dense_smem + buf_off);
+  cpx<R>* other = cur + lines * n;
+
+  const long long line0 = static_cast<long long>(blockIdx.x) * lines;
+  const long long left = batch - line0;
+  const int nl = left < lines ? static_cast<int>(left) : lines;
+  const int work = nl * n;
+
+  // The tile, contiguous in global and in shared memory.
+  const cpx<R>* xb = x + line0 * n;
+  for (int i = threadIdx.x; i < work; i += blockDim.x)
+    dense_copy(cur + i, xb + i);
+  for (int i = threadIdx.x; i < n_consts; i += blockDim.x)
+    consts[i] = gconsts[i];
+  for (int i = threadIdx.x; i < n_ints; i += blockDim.x) ints[i] = gints[i];
+  dense_copy_wait();
+  __syncthreads();
+
+  const R sgn = inverse ? R(1) : R(-1);
+  const cpx<R>* ta = consts;
+  const cpx<R>* tb = consts + (1 << t_log2);
+  for (int t = 0; t < stages; ++t) {
+    const int r = ints[4 * t], s = ints[4 * t + 1], mul = ints[4 * t + 2];
+    switch (r) {
+      case 2:
+        dense_stage<2>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 3:
+        dense_stage<3>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 4:
+        dense_stage<4>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 5:
+        dense_stage<5>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 7:
+        dense_stage<7>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 11:
+        dense_stage<11>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 13:
+        dense_stage<13>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      default: {
+        dense_generic(cur, other, n, nl, r, s, mul, consts + ints[4 * t + 3],
+                      ta, tb, t_log2);
+        cpx<R>* done = other;
+        other = cur;
+        cur = done;
+      }
+    }
+    __syncthreads();
+  }
+
+  // The store: output k of line l from PL[k mod lo] + PH[k div lo].
+  const int* pl = ints + 4 * stages;
+  const int* ph = pl + lo;
+  const R scale = inverse ? R(1) / R(n) : R(1);
+  const float inv_n = 1.0f / static_cast<float>(n);
+  const float inv_lo = 1.0f / static_cast<float>(lo);
+  const float inv_seg = 1.0f / static_cast<float>(seg);
+  for (int i = threadIdx.x; i < work; i += blockDim.x) {
+    const int l = div_small(i, n, inv_n);
+    const int k = i - l * n;
+    const int kh = div_small(k, lo, inv_lo);
+    cpx<R> v = cur[l * n + pl[k - kh * lo] + ph[kh]];
+    if (tw != nullptr) v = cmul(v, tw[k]);
+    v.re *= scale;
+    v.im *= scale;
+    const int part = div_small(k, seg, inv_seg);
+    out[(static_cast<long long>(part) * batch + line0 + l) * seg + k -
+        part * seg] = v;
+  }
+}
+
+// Launches the dtype's kernel with `threads` (kDenseNarrow* or
+// kDenseWide*) on `stream`; returns the CUDA error code (0 on success).
+// The layout's numbers come from kernels/dense.py::DensePlan.
+template <typename R>
+int dense_launch(const void* x, void* out, const void* consts,
+                 const void* ints, const void* tw, long long batch, int n,
+                 int stages, int lines, int t_log2, int lo, int n_consts,
+                 int n_ints, int buf_off, int inverse, int seg, int threads,
+                 int smem_bytes, cudaStream_t stream) {
+  if (batch <= 0) return 0;
+  constexpr int kNarrow = sizeof(R) == 4 ? kDenseNarrow64 : kDenseNarrow128;
+  constexpr int kWide = sizeof(R) == 4 ? kDenseWide64 : kDenseWide128;
+  if (threads != kNarrow && threads != kWide)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (batch + lines - 1) / lines;
+  dense_kernel<R><<<static_cast<unsigned>(blocks), threads,
+                    static_cast<size_t>(smem_bytes), stream>>>(
+      static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
+      static_cast<const cpx<R>*>(consts), static_cast<const int*>(ints),
+      static_cast<const cpx<R>*>(tw), batch, n, stages, lines, t_log2, lo,
+      n_consts, n_ints, buf_off, inverse, seg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace repro_fft

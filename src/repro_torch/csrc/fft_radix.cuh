@@ -6,7 +6,8 @@
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
-// pack_parts epilogues), as fft_fourstep.cu's dense kernel does for any N.
+// pack_parts epilogues), as fft_dense.cuh does for the N no codelet route
+// takes.
 //
 // What bounds it on an H100: a length-N DFT needs about 5*log2(N) flops
 // per element against 16 bytes of complex64 moved, about 3 flops per byte

@@ -1,22 +1,23 @@
-"""The chirp-z route of the four-step kernel: every line length beyond one
-block that no other route takes, as Bluestein's convolution over the
-power-of-two routes.
+"""The chirp-z route of the four-step kernel: every line length that no
+other route takes, as Bluestein's convolution over the power-of-two
+routes.
 
 The radix, long-line and split routes take every N = r*2^k, r in
 ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}, to
 their limits; the other 13-smooth odd parts (33 to 63, and from 65) run
 on the radix route where both factors of N fit a codelet
 (``radix.RADIX_ODD``) and on the long-line route up to its 128 KB line
-where three codelets of at most 32 take N (``longline.rule_factors``).
-So the lengths left here past one block have a prime factor from 17
-(such as 4864 = 19*256 and the prime 10007), or a 13-smooth odd part
-past the long-line route's line (23040 = 45*512 in complex64) or that no
-three such codelets hold (5460 = 4*1365).  On the CPU the route runs
-:func:`emulate`; on the card two counted launches of the long-line or
-split route with the PyTorch glue around them.
+where three codelets of at most 32 take N (``longline.rule_factors``);
+the dense route takes every other N up to ``dense.DENSE_LIMIT``
+(complex64 4835, complex128 2419) and every other 13-smooth N whose
+line fits one block (complex64 23040 = 45*512 and 16896 = 33*512).  So
+the lengths left here have a prime factor past 13 and lie past that
+limit (such as 4864 = 19*256 and the prime 10007), or are 13-smooth
+with a line past one block (complex64 33792 = 33*2^10).  On the CPU the
+route runs :func:`emulate`; on the card two counted launches of the
+long-line or split route with the PyTorch glue around them.
 
-For a length N that is neither a radix, long-line nor split length and
-whose dense line does not fit one block (``takes``), the DFT with sign s
+For a length N that no other route takes (``takes``), the DFT with sign s
 (-1 forward, +1 inverse) is, with 2nk = n^2 + k^2 - (k - n)^2 and the
 chirp c[n] = exp(s*i*pi*n^2/N),
 
@@ -50,7 +51,6 @@ counts each on the "chirp" path); only steps 1 and 4 are PyTorch.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -68,21 +68,16 @@ def max_length(dtype: torch.dtype) -> int:
     return max(FACTORS[dtype]) // 2 if dtype in FACTORS else 0
 
 
-@functools.lru_cache(maxsize=None)
-def dense_limit(dtype: torch.dtype) -> int:
-    """The longest N every length up to which the dense kernel holds in
-    one block with its twiddle staged (``fft_matmul.max_line_length``)."""
-    from .fft_matmul import max_line_length
-    return max_line_length(dtype.itemsize, True)
-
-
 def takes(n: int, dtype: torch.dtype) -> bool:
     """Whether the chirp route takes lines of ``n`` (``radix.kernel_path``
-    asks after the radix, long-line and split routes): past the dense
-    kernel's one block, up to :func:`max_length`."""
-    if dtype not in (torch.complex64, torch.complex128):
+    asks after the radix, long-line and split routes): every N the dense
+    route does not take (``dense.takes``: past ``dense.DENSE_LIMIT``, a
+    prime factor past 13 or a 13-smooth line past one block), up to
+    :func:`max_length`."""
+    from .dense import DENSE_LIMIT, takes as dense_takes
+    if dtype not in DENSE_LIMIT:
         return False
-    return dense_limit(dtype) < n <= max_length(dtype)
+    return n <= max_length(dtype) and not dense_takes(n, dtype)
 
 
 def constants(n: int, inverse: bool) -> Tuple[np.ndarray, ...]:

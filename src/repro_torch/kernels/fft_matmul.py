@@ -8,15 +8,15 @@ The port's counterpart of the JAX package's Pallas kernel
     X[k1 + N1*k2] = sum_{m2} W_N2^{m2 k2} * W_N^{m2 k1}
                         * sum_{m1} x[m1*N2 + m2] * W_N1^{m1 k1}
 
-is two dense DFT-matrix contractions with a twiddle between them.
+is two dense DFT-matrix contractions with a twiddle between them there;
+the port's routes compute the same transform with codelets instead.
 :func:`fft_fourstep` takes a contiguous ``(B, N)`` complex tensor:
 
-* on a CUDA tensor it launches the hand-written kernel
+* on a CUDA tensor it launches the hand-written kernels of
   ``csrc/fft_fourstep.cu`` (built at first use by ``kernels/build.py``),
-  which reads and writes interleaved complex directly and keeps the
-  constant matrices in shared memory — or raises;
-* on a CPU tensor it runs :func:`fft_fourstep_plain`, the same four steps
-  in ``torch.einsum`` on real/imag planes (``transforms.fourstep_fft_planes``).
+  which read and write interleaved complex directly — or raises;
+* on a CPU tensor it runs :func:`fft_fourstep_plain`, the route's plain
+  version.
 
 Two epilogues ride on the same launch, as in the Pallas kernel:
 
@@ -56,18 +56,22 @@ store, then the Q-long rows: on the radix route, stored transposed with
 the line's epilogues; on the long-line route, stored in place and moved
 by a transpose launch that carries the epilogues — planned in
 ``kernels/split.py``, whose ``emulate`` is that
-route's plain version; every other N beyond the dense kernel's one block
-(a prime factor from 17, or a 13-smooth odd part from 33 past the
-long-line route's 128 KB line or beyond three codelets of 32) takes the
-chirp route — Bluestein's
-convolution as two transforms of M =
-2^ceil(log2(2N - 1)) on the long-line or split route with the chirps in
-their ``twiddle`` epilogues, planned in ``kernels/chirp.py``, whose
-``emulate`` is that route's plain version (N up to 2^23 for complex64,
-2^21 for complex128); every other N takes the general dense kernel
-(within one block: odd N, N with a prime factor past 13, the even
-13-smooth N that neither the radix nor the long-line route takes, such
-as complex64 2730 = 42 x 65), which raises past one block's shared memory.  A failed build or launch raises;
+route's plain version; every other N up to ``dense.DENSE_LIMIT``
+(complex64 4835, complex128 2419: odd N, N with a prime factor past 13,
+the even 13-smooth N that neither the radix nor the long-line route
+takes, such as complex64 2730 = 42 x 65) and every other 13-smooth N
+whose line fits one block (complex64 to 28028, complex128 to 14014)
+takes the dense route — named for the dense DFT-matrix kernel it
+replaced, now a mixed-radix FFT over a chain chosen at run time, the
+lines in shared memory, ``csrc/fft_dense.cuh``, planned in
+``kernels/dense.py``, whose ``emulate`` is that route's plain version;
+every other N (a prime factor past 13 past that limit, or a 13-smooth
+line past one block) takes the chirp route — Bluestein's convolution
+as two transforms of M = 2^ceil(log2(2N - 1)) on the long-line or split
+route with the chirps in their ``twiddle`` epilogues, planned in
+``kernels/chirp.py``, whose ``emulate`` is that route's plain version
+(N up to 2^23 for complex64, 2^21 for complex128); past that, N raises
+on the card (``launch_config``).  A failed build or launch raises;
 nothing falls back.
 
 :func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``
@@ -100,69 +104,42 @@ import torch
 
 from ..core.transforms import (_dft_planes, _twiddle_planes, factorize,
                                fourstep_fft_planes, real_dtype)
-from . import chirp, longline, radix, split
-from .radix import SMEM_MAX_BYTES, SMEM_TARGET_BYTES
+from . import chirp, dense, longline, radix, split
+from .radix import SMEM_MAX_BYTES
 
-#: W2 larger than this streams from global memory (L2) instead.
-W2_SMEM_MAX_BYTES = 48 * 1024
-MAX_LINES_PER_BLOCK = 16
 DTYPES = (torch.complex64, torch.complex128)
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
     lines: int          # lines per block
-    w2_in_smem: bool
+    buffers: int        # tile buffers: 2 where a generic stage runs
     smem_bytes: int
 
 
-def smem_bytes(n1: int, n2: int, itemsize: int, twiddle: bool,
-               w2_in_smem: bool, lines: int) -> int:
-    """Dynamic shared memory of one block, in the order the kernel carves
-    it: W1, T, the output twiddle, W2, the staged lines, G (row pitch
-    n2 + 1).  The launch passes this count to the kernel."""
-    n = n1 * n2
-    elems = (n1 * n1 + n + (n if twiddle else 0)
-             + (n2 * n2 if w2_in_smem else 0)
-             + lines * n + lines * n1 * (n2 + 1))
-    return elems * itemsize
+def launch_config(n: int, itemsize: int) -> LaunchConfig:
+    """The dense route's layout for lines of length ``n``
+    (``dense.dense_plan``): lines per block, tile buffers and the
+    dynamic shared memory of one block.
 
-
-def launch_config(n: int, itemsize: int, twiddle: bool) -> LaunchConfig:
-    """Lines per block and where W2 lives, for lines of length ``n``.
-
-    ``itemsize`` is the complex element size (8 or 16).  The most lines
-    (a power of two up to 16) that keep two blocks on an SM; else one line
-    in up to 227 KB; else ``ValueError`` naming the largest N taken.
+    ``itemsize`` is the complex element size (8 or 16); the output
+    twiddle is read from global memory, so it does not change the layout.
+    Past the route's domain (``dense.takes``) a ``ValueError`` names what
+    each route takes.
     """
-    n1, n2 = factorize(n)
-    w2_smem = n2 * n2 * itemsize <= W2_SMEM_MAX_BYTES
-    lines = MAX_LINES_PER_BLOCK
-    while lines > 1 and smem_bytes(n1, n2, itemsize, twiddle, w2_smem,
-                                   lines) > SMEM_TARGET_BYTES:
-        lines //= 2
-    need = smem_bytes(n1, n2, itemsize, twiddle, w2_smem, lines)
-    if need > SMEM_MAX_BYTES:
-        dtype = torch.complex64 if itemsize == 8 else torch.complex128
+    dtype = torch.complex64 if itemsize == 8 else torch.complex128
+    if not dense.takes(n, dtype):
         raise ValueError(
-            f"fft_fourstep: N={n} needs {need} bytes of shared memory for "
-            f"one line on the dense route (limit {SMEM_MAX_BYTES}); it "
-            f"takes N up to {max_line_length(itemsize, twiddle)} for "
-            f"{itemsize}-byte complex elements, the split route takes "
-            f"the powers of two beyond one block up to "
+            f"fft_fourstep: N={n} is past the dense route, which takes N "
+            f"up to {dense.DENSE_LIMIT[dtype]} and the 13-smooth N whose "
+            f"line fits one block's {SMEM_MAX_BYTES} bytes of shared "
+            f"memory for {itemsize}-byte complex elements; the split route "
+            f"takes the powers of two beyond one block up to "
             f"{max(split.FACTORS.get(dtype, {0: None}))} and the chirp "
             f"route every other N up to {chirp.max_length(dtype)}")
-    return LaunchConfig(lines=lines, w2_in_smem=w2_smem, smem_bytes=need)
-
-
-def max_line_length(itemsize: int, twiddle: bool) -> int:
-    """The largest N such that one line of every length up to N fits."""
-    for n in range(1, SMEM_MAX_BYTES // itemsize):
-        n1, n2 = factorize(n)
-        w2 = n2 * n2 * itemsize <= W2_SMEM_MAX_BYTES
-        if smem_bytes(n1, n2, itemsize, twiddle, w2, 1) > SMEM_MAX_BYTES:
-            return n - 1
-    return SMEM_MAX_BYTES // itemsize
+    plan = dense.dense_plan(n, dtype)
+    return LaunchConfig(lines=plan.lines, buffers=plan.buffers,
+                        smem_bytes=plan.smem_bytes)
 
 
 _CONST_CACHE: "OrderedDict[tuple, Tuple[torch.Tensor, ...]]" = OrderedDict()
@@ -209,7 +186,7 @@ def _radix_constants(n: int, inverse: bool, dtype: torch.dtype,
                      device: torch.device) -> torch.Tensor:
     """The radix kernel's constants on ``device``: T (N1 x N2, row-major)
     then the codelet table (``radix.codelet_table``), one buffer, cached
-    with the dense path's constants."""
+    with the other paths' constants."""
     def build():
         n1, n2 = factorize(n)
         sign = 1.0 if inverse else -1.0
@@ -218,6 +195,18 @@ def _radix_constants(n: int, inverse: bool, dtype: torch.dtype,
                                radix.codelet_table(n, inverse)])
         return torch.from_numpy(host).to(device=device, dtype=dtype)
     return _cached(("radix", n, bool(inverse), dtype, device), build)
+
+
+def _dense_constants(n: int, inverse: bool, dtype: torch.dtype,
+                     device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The dense kernel's tables on ``device``: the complex ones and the
+    int32 ones (``dense.constants``, built in float64), cached with the
+    other paths' constants."""
+    def build():
+        cplx, ints = dense.constants(dense.dense_plan(n, dtype), inverse)
+        return (torch.from_numpy(cplx).to(device=device, dtype=dtype),
+                torch.from_numpy(ints).to(device=device))
+    return _cached(("dense", n, bool(inverse), dtype, device), build)
 
 
 def _long_constants(n: int, inverse: bool, dtype: torch.dtype,
@@ -277,8 +266,9 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
     On the long-line path's N (powers of two and mixed), that path's three
     passes (``longline.emulate``); on the split route's N, its two passes
     (``split.emulate``); on the chirp route's N, its four steps over the
-    inner routes' plain versions (``chirp.emulate``); on every other N the
-    four steps as ``torch.einsum`` contractions on real/imag planes
+    inner routes' plain versions (``chirp.emulate``); on the dense route's
+    N, its mixed-radix stages (``dense.emulate``); on the radix route's N
+    the four steps as ``torch.einsum`` contractions on real/imag planes
     (``transforms.fourstep_fft_planes``).  Used for CPU tensors and, on the
     card, as the kernel's yardstick.
     """
@@ -287,8 +277,9 @@ def fft_fourstep_plain(x: torch.Tensor, *, inverse: bool = False,
     if b == 0:
         return _packed(torch.zeros_like(x), pack_parts)
     path = radix.kernel_path(n, x.dtype)
-    if path in ("long", "split", "chirp"):
-        route = {"long": longline, "split": split, "chirp": chirp}[path]
+    route = {"long": longline, "split": split, "chirp": chirp,
+             "dense": dense}.get(path)
+    if route is not None:
         buf = route.emulate(x, inverse=inverse, twiddle=twiddle,
                             pack_parts=pack_parts)
         return buf if pack_parts is None else buf.transpose(0, 1)
@@ -410,17 +401,19 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
                      x.shape[0], n, int(inverse), _seg_arg(n, parts),
                      tile.smem_bytes, stream)
         else:
-            n1, n2 = factorize(n)
-            cfg = launch_config(n, x.element_size(), tw is not None)
-            w1, w2, t = _device_constants(n1, n2, inverse, x.dtype, x.device)
-            for c in (w1, w2, t):
+            launch_config(n, x.element_size())    # raises past the domain
+            plan = dense.dense_plan(n, x.dtype)
+            consts, ints = _dense_constants(n, inverse, x.dtype, x.device)
+            for c in (consts, ints):
                 c.record_stream(current)
-            fn = (lib.repro_fft_fourstep_c64 if c64
-                  else lib.repro_fft_fourstep_c128)
-            err = fn(x.data_ptr(), buf.data_ptr(), w1.data_ptr(),
-                     w2.data_ptr(), t.data_ptr(), twp, x.shape[0], n1, n2,
-                     int(inverse), parts, cfg.lines, int(cfg.w2_in_smem),
-                     cfg.smem_bytes, stream)
+            if x.data_ptr() % x.element_size():
+                x = x.clone()      # the copies read whole aligned elements
+            fn = lib.repro_fft_dense_c64 if c64 else lib.repro_fft_dense_c128
+            err = fn(x.data_ptr(), buf.data_ptr(), consts.data_ptr(),
+                     ints.data_ptr(), twp, x.shape[0], n, len(plan.radices),
+                     plan.lines, plan.t_log2, plan.lo, plan.n_consts,
+                     plan.n_ints, plan.buf_offset, int(inverse), n // parts,
+                     plan.threads, plan.smem_bytes, stream)
     _raise_on(err, lib, path, x)
     _count(count_as or path, "strided" if strided else "lines",
            _variant(tw, pack_parts))
@@ -550,8 +543,8 @@ def _declare(lib) -> None:
     if getattr(lib, "_repro_declared", False):
         return
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.repro_fft_fourstep_c64, lib.repro_fft_fourstep_c128):
-        fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
+    for fn in (lib.repro_fft_dense_c64, lib.repro_fft_dense_c128):
+        fn.argtypes = [p, p, p, p, p, ll] + [i] * 12 + [p]
         fn.restype = i
     for fn in (lib.repro_fft_radix_c64, lib.repro_fft_radix_c128):
         fn.argtypes = [p, p, p, p, ll, ll, i, i, i, i, i, i, p]

@@ -1,11 +1,11 @@
 """The chirp route of the four-step kernel (``kernels/chirp.py``): every
-line length beyond one block that no other route takes, as Bluestein's
+line length that no other route takes, as Bluestein's
 convolution over two transforms of M = 2^ceil(log2(2N - 1)) on the
 long-line or split route, the chirps in their ``twiddle`` epilogues.  Its
 plain version, ``chirp.emulate`` (the wrapper runs it for CPU tensors),
 runs the same steps over the inner routes' plain versions; it is held
 against ``np.fft`` (complex64 N of 4864 = 19*256, M on the long-line
-route, the prime 10007 and 23040 = 45*512, M on the split route;
+route, the prime 10007 and 33792 = 33*2^10, M on the split route;
 complex128 N of 3001 and 2432 = 19*128; both directions, the twiddle and
 ``pack_parts`` epilogues) and against the JAX package's Pallas kernel in
 interpret mode on the same numpy inputs where the reference factors N
@@ -19,10 +19,10 @@ the reference's mixer.  The mixed lengths r*2^k, r in
 ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}, take
 the long-line and split routes (``test_torch_long_mixed_fft.py``,
 ``test_torch_split_mixed_fft.py``), and the other 13-smooth odd parts
-the radix and long-line routes up to a 128 KB line, so the chirp keeps
-the lengths past one block with a prime factor from 17, or a 13-smooth
-odd part from 33 past that line (45*512) or beyond three codelets of
-32.
+the radix and long-line routes up to a 128 KB line and the dense route
+to one block, so the chirp keeps the lengths with a prime factor from
+17 past the dense route's old limit, and the 13-smooth lengths whose
+line does not fit one block (33*2^10).
 The CUDA launches are tested in ``test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 import dataclasses
@@ -45,7 +45,7 @@ NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 VARIANTS = [(2, False, False, None), (1, True, True, None),
             (2, False, True, 2), (1, True, False, 2)]
 LENGTHS = [(torch.complex64, 4864), (torch.complex64, 10007),
-           (torch.complex64, 23040), (torch.complex128, 3001),
+           (torch.complex64, 33792), (torch.complex128, 3001),
            (torch.complex128, 2432)]
 CASES = [(dtype, n, b, inv, tw, parts if n % 2 == 0 else None)
          for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
@@ -184,24 +184,28 @@ def test_chirp_filter_is_the_transformed_conjugate_chirp():
                                         "chirp"),
     (1 << 23, torch.complex64, "split"),
     ((1 << 23) + 1, torch.complex64, "dense"),
-    (2419, torch.complex128, "dense"), (2420, torch.complex128, "chirp"),
+    (2419, torch.complex128, "dense"), (2420, torch.complex128, "dense"),
     (3001, torch.complex128, "chirp"), (5760, torch.complex128, "long"),
-    (4864, torch.complex64, "chirp"), (23040, torch.complex64, "chirp"),
-    (5460, torch.complex64, "chirp"), (2432, torch.complex128, "chirp"),
-    (8448, torch.complex128, "chirp"), (16896, torch.complex64, "chirp"),
+    (4864, torch.complex64, "chirp"), (23040, torch.complex64, "dense"),
+    (5460, torch.complex64, "dense"), (2432, torch.complex128, "chirp"),
+    (8448, torch.complex128, "dense"), (16896, torch.complex64, "dense"),
+    (33792, torch.complex64, "chirp"), (2421, torch.complex128, "chirp"),
     (1 << 21, torch.complex128, "split"),
     ((1 << 21) + 1, torch.complex128, "dense"),
     (4096, torch.complex64, "radix"), (3840, torch.complex64, "radix")])
 def test_chirp_routing_by_length(n, dtype, path):
-    """The chirp route takes every length past the dense kernel's one
-    block (with its twiddle staged) that no other route takes (a prime
-    factor from 17: 4864 = 19*256, 10007; a 13-smooth odd part from 33
-    past the long-line route's 128 KB line: 23040 = 45*512, 16896 =
-    33*512, complex128 8448; or one no three codelets of 32 hold: 5460 =
-    4*1365), up to half the split route's longest line; beyond, the dense
-    kernel's one-block limit raises with a message naming the chirp's
-    limit.  The long-line route takes 45*2^k (5760 = 30 x 12 x 16, 11520)
-    and 35*2^7 = 4480 up to its line, 5000 = 25 x 25 x 8 too."""
+    """The chirp route takes every length that no other route takes, up
+    to half the split route's longest line: past the dense route's old
+    limit (complex64 4835, complex128 2419) a prime factor from 17 (4836
+    = 4*3*13*31, 4864 = 19*256, 10007, complex128 2421 = 9*269) or a
+    13-smooth line past one block (33792 = 33*2^10).  The dense route
+    keeps every length to that limit and takes the 13-smooth lengths past
+    it whose line fits one block (complex128 2420 = 4*5*11^2 and 8448,
+    complex64 5460 = 4*1365, 16896 = 33*512 and 23040 = 45*512, past the
+    long-line route's 128 KB line); beyond the chirp's limit the dense
+    route raises with a message naming it.  The long-line route takes
+    45*2^k (5760 = 30 x 12 x 16, 11520) and 35*2^7 = 4480 up to its line,
+    5000 = 25 x 25 x 8 too."""
     assert radix.kernel_path(n, dtype) == path
     if path in ("chirp", "dense"):
         assert chirp.takes(n, dtype) == (path == "chirp")
@@ -212,7 +216,7 @@ def test_chirp_routing_by_length(n, dtype, path):
     if path == "dense" and n > 1 << 20:
         with pytest.raises(ValueError, match=f"chirp route every other N "
                            f"up to {chirp.max_length(dtype)}"):
-            tfm.launch_config(n, dtype.itemsize, False)
+            tfm.launch_config(n, dtype.itemsize)
 
 
 def test_chirp_lines_along_any_axis_and_their_gradient():

@@ -11,7 +11,8 @@ one, against the plain version and ``torch.fft``) and the mixer on them
 at S=2688, 3072, 3328 and 3584 (no chirp call) and S=12288, the power-of-two
 long-line and
 split lengths bitwise equal to their plain versions, the chirp route at
-the lengths it keeps, the mixer on the kernel, its gradient through the
+the lengths it keeps, the dense route's mixed-radix kernel at a length
+per family, the mixer on the kernel, its gradient through the
 kernel, and a
 smoke train step on the card against the CPU; ``[train]``'s 8 layers
 lowering the loss of the batches they trained on; the LM's mesh path on one card (a
@@ -48,7 +49,7 @@ def cuda():
 @pytest.mark.parametrize("shape,dtype,parts,use_tw", [
     ((130, 512), torch.complex64, None, False),
     ((5, 1024), torch.complex64, 4, True),
-    ((7, 521), torch.complex64, None, False),      # W2 streamed from L2
+    ((7, 521), torch.complex64, None, False),      # dense: a prime
     ((300, 64), torch.complex64, 8, False),         # ragged last tile
     ((5, 48), torch.complex128, 2, True),
     ((67, 4096), torch.complex64, None, True),      # radix, N1 = N2 = 64
@@ -354,7 +355,7 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
     (torch.complex64, 4864, 3, False, None, True),      # M on long-line
     (torch.complex64, 4864, 2, True, 4, False),
     (torch.complex64, 10007, 2, True, None, True),      # prime, M split
-    (torch.complex64, 23040, 1, False, 2, True),        # past the line
+    (torch.complex64, 33792, 1, False, 2, True),        # past one block
     (torch.complex128, 3001, 2, False, None, True),
     (torch.complex128, 2432, 1, True, 19, False)])
 def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
@@ -398,12 +399,53 @@ def split_rows_long(n, dtype) -> int:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [384, 6144, 4864, 24576, 10752, 4800])
+@pytest.mark.parametrize("dtype,n,b", [
+    (torch.complex64, 75, 67), (torch.complex64, 4725, 3),     # odd
+    (torch.complex64, 2730, 5), (torch.complex128, 990, 9),    # no codelets
+    (torch.complex64, 504, 17), (torch.complex128, 22, 300),   # spills
+    (torch.complex64, 544, 37), (torch.complex128, 323, 11),   # generic
+    (torch.complex64, 4831, 2),                                # prime
+    (torch.complex64, 23040, 3), (torch.complex128, 8448, 2),  # off chirp
+    (torch.complex64, 28431, 2)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_dense_route_matches_plain_version_and_torch_fft(
+        cuda, dtype, n, b, inverse):
+    """The dense route's mixed-radix kernel, one launch on "dense", at a
+    length per family (batches ragged against its tile of lines), both
+    directions, with the twiddle and with ``pack_parts`` by turns, against
+    its plain version (``dense.emulate``) at the kernel's tolerances and
+    ``torch.fft``."""
+    assert radix.kernel_path(n, dtype) == "dense"
+    x = torch.from_numpy(cplx((b, n), 21)).to(cuda, dtype)
+    parts = (3 if n % 3 == 0 else 2 if n % 2 == 0 else None) \
+        if inverse else None
+    tw = None if inverse else torch.exp(
+        -1j * math.pi * torch.arange(n, device=cuda) / (2 * n)).to(dtype)
+    want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=tw,
+                                  pack_parts=parts)
+    lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+    if tw is not None:
+        lib = lib * tw
+    if parts is not None:
+        lib = lib.reshape(b, parts, n // parts)
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    tfm.reset_launch_counts()
+    got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
+    torch.cuda.synchronize()
+    assert tfm.fft_fourstep.launches == tfm.fft_fourstep.path_launches[
+        "dense"] == 1
+    assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+    assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [384, 6144, 4864, 24576, 10752, 4800, 4725])
 def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
     """A contiguous view 8 bytes into its storage, at mixed lengths on the
     radix, long-line (its row copies are 16-byte aligned: the wrapper
     clones; 10752 = 21 x 16 x 32, an odd R1; 4800 = 30 x 10 x 16, a mixed
-    R2) and split routes and on the chirp route (4864 = 19*256):
+    R2) and split routes, on the chirp route (4864 = 19*256) and on the
+    dense route (4725, odd: its copies take 8 bytes at a time):
     transformed all the same."""
     base = torch.from_numpy(cplx((2 * n + 1,), 18)).to(cuda)
     x = base[1:].view(2, n)

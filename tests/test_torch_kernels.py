@@ -191,19 +191,41 @@ def test_constant_planes_match_reference():
 
 
 def test_launch_config_fits_shared_memory():
-    cfg = tfm.launch_config(512, 8, False)
-    assert cfg.lines == 8 and cfg.w2_in_smem
-    assert cfg.smem_bytes == tfm.smem_bytes(16, 32, 8, False, True, 8)
-    assert cfg.smem_bytes <= tfm.SMEM_TARGET_BYTES
-    prime = tfm.launch_config(521, 8, False)
-    assert not prime.w2_in_smem          # 521x521 W2 streams from L2
-    assert prime.smem_bytes <= tfm.SMEM_MAX_BYTES
-    c128 = tfm.launch_config(1024, 16, True)
-    assert c128.w2_in_smem and c128.smem_bytes <= tfm.SMEM_TARGET_BYTES
-    limit = tfm.max_line_length(8, False)
-    tfm.launch_config(limit, 8, False)
-    with pytest.raises(ValueError, match=f"N up to {limit}"):
-        tfm.launch_config(limit + 1, 8, False)
+    """The dense route's layout (``dense.dense_plan``): the most lines (a
+    power of two) within 4096 elements, two blocks an SM where they fit
+    (a 13-smooth N in one buffer, in place; a generic stage writes a
+    second), one line of every length up to the route's limit within 227
+    KB, and a ``ValueError`` past the route's domain naming the chirp's
+    limit."""
+    from repro_torch.kernels import dense
+    cfg = tfm.launch_config(75, 8)
+    plan = dense.dense_plan(75, torch.complex64)
+    assert (cfg.lines, cfg.buffers) == (32, 1) == (plan.lines, plan.buffers)
+    assert cfg.smem_bytes == plan.smem_bytes == plan.buf_offset + \
+        32 * 75 * 8 <= tfm.SMEM_MAX_BYTES // 2
+    prime = tfm.launch_config(521, 8)
+    assert prime.buffers == 2 and prime.lines == 4   # one generic stage
+    assert prime.smem_bytes <= radix.SMEM_TARGET_BYTES
+    c128 = tfm.launch_config(990, 16)
+    assert (c128.lines, c128.buffers) == (4, 1)
+    assert c128.smem_bytes <= radix.SMEM_TARGET_BYTES
+    for dtype, limit in dense.DENSE_LIMIT.items():
+        item = dtype.itemsize
+        for n in (limit, limit - 4, 4831, 2417, 4725):
+            if n > limit:
+                continue
+            one = tfm.launch_config(n, item)
+            assert one.smem_bytes <= tfm.SMEM_MAX_BYTES
+            assert one.lines >= 1 and one.lines & (one.lines - 1) == 0
+        big = tfm.launch_config(28431 if item == 8 else 14196, item)
+        assert big.lines == 1 and big.buffers == 1
+        assert big.smem_bytes <= tfm.SMEM_MAX_BYTES
+        # past the limit, a prime factor past 13 (complex64 4836 =
+        # 4*3*13*31, complex128 2421 = 9*269) is the chirp's
+        rough = next(m for m in range(limit + 1, 2 * limit)
+                     if not radix.smooth(m))
+        with pytest.raises(ValueError, match=f"N up to {limit}"):
+            tfm.launch_config(rough, item)
     # the radix path's tiles: a row per thread at N = 512, two blocks per
     # SM for contiguous lines, one block's 227 KB for strided tiles
     main = radix.radix_tile(512, 8, False, strided=False)
@@ -218,7 +240,7 @@ def test_launch_config_fits_shared_memory():
         for n in sizes:
             for tw in (False, True):
                 tile = radix.radix_tile(n, item, tw, strided=False)
-                assert tile.smem_bytes <= tfm.SMEM_TARGET_BYTES
+                assert tile.smem_bytes <= radix.SMEM_TARGET_BYTES
                 assert tile.lines & (tile.lines - 1) == 0
                 st = radix.radix_tile(n, item, tw, strided=True)
                 need = item * (radix.const_elems(n, tw) + radix.tile_elems(
@@ -304,9 +326,10 @@ def test_kernel_operands_are_resolved():
     (900, torch.complex128, "radix"), (2730, torch.complex64, "dense"),
     (1000, torch.complex128, "long"), (544, torch.complex64, "dense"),
     (75, torch.complex64, "dense"), (4800, torch.complex64, "long"),
-    (4864, torch.complex64, "chirp"), (23040, torch.complex64, "chirp"),
+    (4864, torch.complex64, "chirp"), (23040, torch.complex64, "dense"),
     (4050, torch.complex64, "dense"), (990, torch.complex128, "dense"),
-    (4725, torch.complex64, "dense")])
+    (4725, torch.complex64, "dense"), (33792, torch.complex64, "chirp"),
+    (16896, torch.complex64, "dense"), (8448, torch.complex128, "dense")])
 def test_kernel_path_selection(n, dtype, path):
     """The path follows N and the dtype alone: N with a radix
     instantiation (powers of two, and mixed r*2^k such as 24, 96 and
@@ -314,10 +337,16 @@ def test_kernel_path_selection(n, dtype, path):
     line fits in a block's shared memory the long-line kernel, the
     power-of-two N beyond one block up to 2^24 (complex64) / 2^22
     (complex128) the split route, every other N beyond one block up to
-    half those (4864 = 19*256: no route past one block takes a factor of
-    19; 23040 = 45*512, past the long-line route's 128 KB line) the chirp
-    route, every other N the dense one (which the card refuses past one
-    block: 2^25 / 2^23).  The mixed lengths past the radix route (13312 =
+    half those that the dense route does not take (4864 = 19*256: no
+    route past the old dense kernel's one block takes a factor of 19;
+    33792 = 33*2^10, 13-smooth but a line past one block) the chirp
+    route, every other N the dense one: every N up to the old dense
+    kernel's limit (complex64 4835, complex128 2419), and past it the
+    13-smooth N whose line fits one block (23040 = 45*512 and 16896 =
+    33*512, past the long-line route's 128 KB line; complex128 8448),
+    the mixed-radix kernel in shared memory since it replaced the dense
+    matrices, which needed one block for W1, W2 and the line (the card
+    refuses the route past its domain: 2^25 / 2^23).  The mixed lengths past the radix route (13312 =
     13*1024 and 10752 = 21*512 are long lines, 21*1024 a split one):
     test_torch_long_mixed_fft.py and test_torch_split_mixed_fft.py; so
     are the other even 13-smooth lengths up to a 128 KB line that three
@@ -533,7 +562,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     src = build.csrc_dir()
     names = [p.name for p in build.sources("fft_fourstep")]
     assert names == ["fft_fourstep.cu", "fft_common.cuh", "fft_long.cuh",
-                     "fft_radix.cuh"]
+                     "fft_radix.cuh", "fft_dense.cuh"]
     for name in names:
         (tmp_path / name).write_bytes((src / name).read_bytes())
     monkeypatch.setattr(build, "csrc_dir", lambda: tmp_path)

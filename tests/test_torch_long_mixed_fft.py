@@ -34,7 +34,7 @@ import torch
 from repro.kernels import fft_matmul as jfm
 from repro_torch.kernels import fft_matmul as tfm
 from repro_torch.core.transforms import factorize
-from repro_torch.kernels import longline, ops, radix
+from repro_torch.kernels import dense, longline, ops, radix
 from torch_harness import assert_scaled_close, pallas_lines_c128
 
 TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
@@ -253,7 +253,8 @@ def _largest_r1(rest: int):
 
 def _old_path(n: int, dtype: torch.dtype) -> str:
     """``radix.kernel_path`` before the rule: the table's lengths alone on
-    the long-line route."""
+    the long-line route, and the chirp route past the dense route's old
+    limit (``dense.DENSE_LIMIT``), as it then was."""
     from repro_torch.kernels import chirp, split
     if n in radix.RADIX_SIZES[dtype]:
         return "radix"
@@ -261,7 +262,8 @@ def _old_path(n: int, dtype: torch.dtype) -> str:
         return "long"
     if n in split.FACTORS[dtype]:
         return "split"
-    return "chirp" if chirp.takes(n, dtype) else "dense"
+    return ("chirp" if dense.DENSE_LIMIT[dtype] < n <= chirp.max_length(
+        dtype) else "dense")
 
 
 @pytest.mark.parametrize("dtype,count,first,last", [
@@ -278,7 +280,9 @@ def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
     alone (the rest spilled in ptxas).  Every entry multiplies out; ``radix.kernel_path`` sends
     exactly the rule's lengths to "long" that went elsewhere (18
     complex64 and 63 complex128 from "dense", 72 each from "chirp"), and
-    every other length up to twice the line where it went before."""
+    every other length up to twice the line where it went before (or,
+    13-smooth past the old dense limit, on the dense route since it
+    takes the lines that fit one block)."""
     table = longline._TABLE[dtype]
     assert len(table) == (22 if dtype == torch.complex64 else 33)
     for n, (r1, r2, r3) in longline.FACTORS[dtype].items():
@@ -317,8 +321,11 @@ def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
                         longline.LongPlan(n, a, n // c3 // a, c3,
                                           dtype.itemsize)), (n, c3)
             assert _largest_r1(n // r3) == r1, n
-        else:
-            assert path == old, (n, path, old)
+        elif path != old:
+            # since the dense route took the 13-smooth lines that fit one
+            # block from the chirp
+            assert (old, path) == ("chirp", "dense") and radix.smooth(n) \
+                and dense.fits(n, dtype), (n, path, old)
     assert moved == ({"dense": 18, "chirp": 72} if dtype == torch.complex64
                      else {"dense": 63, "chirp": 72})
     odd = sorted({radix.odd_part(n) for n in rule})
@@ -445,8 +452,9 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
     to the split route's limits (2^24, 2^22) "split"; none is "chirp" or
     "dense" (7*2^k, 11*2^k, 13*2^k, 21*2^k, 25*2^k and 27*2^k included:
     complex64 13*2^20 and complex128 13*2^18, past the chirp's limits,
-    run); a prime and 19*2^k past one block stay "chirp", and so does
-    45*2^k past the 128 KB line."""
+    run); a prime and 19*2^k past the dense route's old limit stay
+    "chirp", and so does 45*2^k past one block (45*2^10; 45*2^9, past
+    the 128 KB line but within one block, is "dense")."""
     for dtype, (lo, hi, top) in {
             torch.complex64: (4608, 16384, 1 << 24),
             torch.complex128: (1152, 8192, 1 << 22)}.items():
@@ -460,9 +468,10 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
     assert radix.kernel_path(13 << 20, torch.complex64) == "split"
     assert radix.kernel_path(13 << 18, torch.complex128) == "split"
     for n, dtype in ((4864, torch.complex64), (10007, torch.complex64),
-                     (23040, torch.complex64), (2432, torch.complex128),
+                     (46080, torch.complex64), (2432, torch.complex128),
                      (3001, torch.complex128)):
         assert radix.kernel_path(n, dtype) == "chirp"
+    assert radix.kernel_path(23040, torch.complex64) == "dense"
 
 
 def test_mixed_long_lines_along_any_axis_and_their_gradient():

@@ -37,7 +37,7 @@ from repro_torch.compat import make_mesh
 from repro_torch.core import api
 from repro_torch.core.transforms import factorize
 from repro_torch.kernels import fft_matmul as tfm
-from repro_torch.kernels import chirp, longline, radix, split
+from repro_torch.kernels import chirp, dense, longline, radix, split
 from torch_harness import assert_scaled_close, pallas_lines_c128
 
 TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
@@ -394,9 +394,10 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
     (75*2^k as 10 x 15 up to 2400 = 48 x 50 in complex64, 600 = 24 x 25 in
     complex128), the long-line route past it up to a 128 KB line (R1 and
     R2 both mixed: ``longline.rule_factors``), and no split route (no
-    R1 of at most 32 holds them): their longer r*2^k run the chirp route
-    up to its limit, and past it the dense kernel, which raises on the
-    card."""
+    R1 of at most 32 holds them): their longer r*2^k run the dense route
+    while the line fits one block (``dense.fits``: 33*2^9 = 16896 in
+    complex64), then the chirp route up to its limit, and past it the
+    dense route again, which raises on the card."""
     cap = radix.CODELET_MAX[dtype]
     on_radix = []
     for k in range(1, 24):
@@ -416,7 +417,8 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
                 n, dtype)
             continue
         assert n not in longline.FACTORS[dtype]
-        if n <= chirp.dense_limit(dtype) or n > chirp.max_length(dtype):
+        if n <= dense.DENSE_LIMIT[dtype] or dense.fits(n, dtype) \
+                or n > chirp.max_length(dtype):
             assert path == "dense", (n, path)
         else:
             assert path == "chirp", (n, path)

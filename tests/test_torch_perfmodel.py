@@ -22,7 +22,8 @@ from repro_torch.core import decomp as td
 from repro_torch.core import perfmodel as tpm
 from repro_torch.core import pipeline as tp
 from repro_torch.core import tuner as tt
-from repro_torch.core.transforms import REFERENCE_BACKEND, factorize
+from repro_torch.core.transforms import REFERENCE_BACKEND
+from repro_torch.kernels import dense
 from repro_torch.kernels.chirp import chirp_length
 from repro_torch.kernels.radix import kernel_path
 
@@ -178,7 +179,7 @@ def test_policy_engine_matches_reference_with_batch_dims(case, batch_shape,
 
 @pytest.mark.parametrize("n", [2, 8, 12, 13, 64, 96, 384, 512, 1024, 2048,
                                3001, 4096, 6144, 8192, 10007, 16384, 32768,
-                               1 << 22, 1 << 24])
+                               1 << 22, 1 << 24, 544, 4725])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_kernel_line_flops_follow_kernel_path(n, dtype):
     got = tpm._line_flops(n, "kernel", dtype)
@@ -200,9 +201,14 @@ def test_kernel_line_flops_follow_kernel_path(n, dtype):
         assert tpm._line_flops(n, "cufft") < got \
             < tpm._line_flops(n, "matmul")
     else:
-        n1, n2 = factorize(n)
-        assert got == 8.0 * n * (n1 + n2)
-        assert got == tpm._line_flops(n, "matmul")
+        # the dense route's mixed-radix chain: 5 n log2 over its 13-smooth
+        # part, 8 n p per generic stage (544 = 17*32: one), not
+        # factorize's dense count
+        rs = dense.chain(n)
+        assert got == 5.0 * n * math.log2(math.prod(
+            r for r in rs if r <= 13)) + sum(8.0 * n * p for p in rs
+                                             if p > 13)
+        assert got < tpm._line_flops(n, "matmul")
     # a kind's flops pick the path at the length the kernel runs
     real = torch.float64 if dtype == torch.complex128 else torch.float32
     grid = (n, 4)
