@@ -23,15 +23,16 @@ its result line):
    and mixed lengths, a second mixed factor R2 included, with both
    epilogues, also against ``torch.fft``),
    every mixed radix length of
-   both dtypes (r*2^k, r in ``radix.RADIX_ODD``, 3 to 1701, where both
-   factors fit a codelet: both directions, both
+   both dtypes (r*2^k, r in ``radix.RADIX_ODD``, 3 to 1701, 17 and 19
+   included, where both factors fit a codelet: both directions, both
    epilogues, a ``pack_parts`` segment that is not a power of two, also
    against ``torch.fft``), the dense route's families (odd 13-smooth
    N, the even ones no codelets hold, the spill lengths, N with a prime
-   factor past 13 and a prime, the 13-smooth lengths past the old
-   one-block limit; both dtypes, directions and epilogues, ragged
-   batches, also against ``torch.fft``), chirp lengths of both inner
-   routes, and
+   factor past 13 that ``dense.GENERIC_COST`` keeps and such primes, the
+   13-smooth lengths past the old one-block limit; both dtypes,
+   directions and epilogues, ragged batches, also against ``torch.fft``),
+   chirp lengths of its three inner routes (M on the radix route for the
+   primes that left the dense route), and
    strided ``(outer, N, inner)`` blocks through ``fft_fourstep_strided``
    (inner of one tile, 512, ragged 1000, 262144; every mixed length whose
    strided tile fits one block, against ``torch.fft`` too);
@@ -123,8 +124,10 @@ its result line):
 17. ``[long]``: the long-line kernel at the mixer's (8192, 8192)
     complex64 lines against its plain version and ``torch.fft``, timed
     beside its bound; the other long lengths of both dtypes at 512 MB; the
-    dense route at (262144, 544 = 17*32), a length no other route takes
-    (a generic 17-stage); each reached once through
+    radix route at (262144, 544 = 17*32), the dense route's generic
+    17-stage before the radix-17 codelet; the dense route at (262144, 816
+    = 3*17*16), a length no other route takes (a generic 17-stage); each
+    reached once through
     ``ops.fft1d`` (one launch on its path); then ``[split]``: the split route (lines beyond one block,
     N = P*Q in two launches through HBM, three with rows on the
     long-line route) at complex64 N = 2^15, 2^16, 2^20, 2^24 and
@@ -138,7 +141,8 @@ its result line):
     (262144, 384), (262144, 448), (262144, 416), (262144, 672), (262144,
     360) and (262144, 600) complex64, one length per odd part 3 to 63
     and dtype and, for the odd parts from 65, complex64 1000, 1800, 2400
-    and 3600 and complex128 300 and 900, at 512 MB, each once through
+    and 3600 and complex128 300 and 900, and the longest 17*2^k and
+    19*2^k of each dtype, at 512 MB, each once through
     ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft`` and the bound;
     ``[mixed_plan]``: ``plan_fft`` C2C at 384^3, 448^3, 416^3, 360^3 and
@@ -148,8 +152,9 @@ its result line):
     direction beside ``fftn``, a ``cufft`` plan and the bound; the PPB
     solve at 384^3 against the ``cufft`` backend's, 8 radix launches;
     ``[long_mixed]``: the long-line route at every mixed length of both
-    dtypes (complex64 4608-15360, complex128 1152-7680; an odd R1 for
-    21*2^k, 25*2^k and 27*2^k), 512 MB each, once through ``ops.fft1d``
+    dtypes (complex64 4352-15360, complex128 1088-7680; an odd R1 for
+    17*2^k, 19*2^k, 21*2^k, 25*2^k and 27*2^k), 512 MB each, once through
+    ``ops.fft1d``
     (one "long" launch), against its plain version and ``torch.fft``,
     timed beside ``torch.fft`` and the bound, then 14 lengths with a
     second mixed factor R2 (complex64 4480 to 11520, complex128 1056 to
@@ -157,7 +162,8 @@ its result line):
     their time there;
     ``[split_mixed]``: the split route at mixed lengths (complex64 24576,
     49152, 98304, 3*2^21, 15*2^19 and the shortest and longest 7*2^k,
-    11*2^k, 13*2^k, 21*2^k, 25*2^k and 27*2^k; complex128 12288, 24576,
+    11*2^k, 13*2^k, 17*2^k, 19*2^k, 21*2^k, 25*2^k and 27*2^k; complex128
+    12288, 24576,
     9*2^15 and likewise), 512 MB each,
     likewise (one split call); ``[mixed_long_plan]``:
     ``plan_fft`` C2C of (128, 128, 6144) complex64 on the kernel against
@@ -167,8 +173,9 @@ its result line):
     complex64 (4320 = 30 x 9 x 16): 2 long launches per direction, no
     dense or chirp launch, 2 line copies forward and 1 inverse;
     ``[chirp]``: the chirp route (Bluestein over two transforms of M on
-    the long-line or split route) at lengths no other route takes,
-    complex64 4864, 10007, 33792 and complex128 3001, 2432, 256 MB
+    the radix, long-line or split route) at lengths no other route takes,
+    complex64 5888, 10007, 33792, the prime 4831 and complex128 3001,
+    2944, 256 MB
     each, once through ``ops.fft1d`` (one chirp call, its launches on
     "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
     timed beside ``torch.fft`` and the bound, the glue's ms apart;
@@ -176,7 +183,8 @@ its result line):
     the widest gaps (complex64 2730, 3430, 4050 and the odd 4725,
     complex128 990), the 13-smooth lengths it took from the chirp
     (complex64 16896, 23040, complex128 8448) and its generic stage
-    (the prime complex64 4831), 256 MB each, one dense launch each; then
+    (complex64 3264 = 3*17*64, 1616 = 101*16, complex128 1824 = 3*19*32),
+    256 MB each, one dense launch each; then
     ``[lm_fftconv]``: the FFT long-convolution mixer at jamba-v0.1-52b's
     width (8192 channels), B=1, S=2048, 3072, 3584, 4096, 8192, 12288,
     16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of ``"cufft"``
@@ -218,7 +226,7 @@ its result line):
     analysis, serve, lm, lm_fftconv, train_fftconv and lm_sharded paths;
     the serve counts are the first lifetime's traffic drains; the
     long-line entry's launches are the mixer's at S=4096, the dense
-    entry's its ``[long]`` call at (262144, 544), the split entry's the
+    entry's its ``[long]`` call at (262144, 816), the split entry's the
     mixer's at
     S=16384, with S=32768's and ``[train_fftconv]``'s at S=16384 beside
     them, the mixed entry's the 384^3 plan's forward, the chirp entry's
@@ -443,7 +451,8 @@ def kernel_cases():
         cases.append((6, 24, inv, None, True, c64))
         cases.append((5, 48, inv, None, False, c128))
     cases.append((130, 512, False, 4, True, c128))
-    # a prime N (one generic stage) and a large balanced N.
+    # a prime N (the chirp route, M = 2048 on the radix route) and a
+    # large balanced N.
     cases.append((7, 521, False, None, False, c64))
     cases.append((3, 4096, True, None, False, c64))
     cases.append((0, 16, False, None, False, c64))
@@ -500,33 +509,40 @@ def kernel_cases():
     # the dense route: a length per family of both dtypes, both
     # directions, each epilogue, batches ragged against its tile
     cases += dense_cases()
-    # the chirp route: lengths of both inner routes (19*2^k, a prime and
-    # 45*2^k past the long-line route's line), both dtypes, directions and
-    # epilogues
-    for b, n, inv, parts, tw, dt in ((2, 4864, False, None, True, c64),
-                                     (3, 4864, True, 2, False, c64),
+    # the chirp route: lengths of its three inner routes (23*2^k and the
+    # prime 4831 on the long-line route, a prime and 33*2^10 past the
+    # long-line route's line on the split route, the primes 101 and 1021
+    # that left the dense route for M on the radix and long-line routes),
+    # both dtypes, directions and epilogues
+    for b, n, inv, parts, tw, dt in ((2, 5888, False, None, True, c64),
+                                     (3, 5888, True, 2, False, c64),
+                                     (2, 4831, True, None, True, c64),
+                                     (5, 101, False, None, True, c64),
                                      (1, 10007, True, None, True, c64),
                                      (1, 33792, False, 4, True, c64),
                                      (2, 3001, False, None, True, c128),
-                                     (1, 2432, True, 19, False, c128)):
+                                     (1, 2944, True, 23, False, c128),
+                                     (3, 1021, False, None, True, c128)):
         cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
 
 
 #: (dtype name, N) per family of the dense route: odd 13-smooth N, the
 #: even ones no codelets of the radix or long-line route hold, the spill
-#: lengths, N with a prime factor past 13 (one and two generic stages)
-#: and primes, and the 13-smooth lengths past the old one-block limit
-#: that left the chirp route (to the longest line of each dtype).
+#: lengths, N with a prime factor past 13 that ``dense.GENERIC_COST``
+#: keeps (one and two generic stages) and such primes, and the 13-smooth
+#: lengths past the old one-block limit that left the chirp route (to the
+#: longest line of each dtype).
 DENSE_FAMILIES = (("complex64", 9), ("complex64", 75), ("complex64", 4725),
                   ("complex128", 225), ("complex128", 1575),
                   ("complex64", 2730), ("complex64", 3430),
                   ("complex64", 4050), ("complex128", 990),
                   ("complex128", 1014), ("complex64", 208),
                   ("complex64", 504), ("complex128", 2),
-                  ("complex128", 22), ("complex64", 544),
-                  ("complex128", 544), ("complex64", 323),
-                  ("complex64", 4831), ("complex128", 2417),
+                  ("complex128", 22), ("complex64", 816),
+                  ("complex128", 578), ("complex64", 323),
+                  ("complex64", 4199), ("complex64", 17),
+                  ("complex128", 19), ("complex64", 1616),
                   ("complex64", 1), ("complex64", 5460),
                   ("complex64", 16896), ("complex64", 23040),
                   ("complex64", 28431), ("complex128", 2420),
@@ -2335,16 +2351,18 @@ def print_lines(phase: str, recs) -> None:
 
 
 def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
-               dense_shape=(262144, 544), iters: int = 10) -> dict:
+               radix_shape=(262144, 544), dense_shape=(262144, 816),
+               iters: int = 10) -> dict:
     """``[long]``: the long-line kernel at the mixer's shape at S=4096,
     (8192, 8192) complex64, against its plain version (``longline.
     emulate``) and ``torch.fft.fft``, timed beside the HBM bound; every
     other power-of-two long length of both dtypes at 512 MB of lines
-    against ``torch.fft`` (``[long_mixed]`` times the mixed ones); and the
-    dense
-    kernel at a length no other route takes, (262144, 544) complex64
-    (544 = 17*32: no codelet takes a factor of 17), with its plain
-    version, ``torch.fft`` and the bound.  Each kernel is reached
+    against ``torch.fft`` (``[long_mixed]`` times the mixed ones); the
+    radix route at (262144, 544 = 17*32) complex64, whose generic
+    17-stage the dense kernel ran before the radix-17 codelet; and the
+    dense kernel at a length no other route takes, (262144, 816 = 3*17*16)
+    complex64 (no codelet takes 3*17), its generic 17-stage, with its
+    plain version, ``torch.fft`` and the bound.  Each kernel is reached
     once through ``ops.fft1d`` with the counts set to 0 just before and
     read just after (one launch on its path)."""
     import torch
@@ -2361,11 +2379,14 @@ def phase_long(device, shape=(8192, 8192), lengths_bytes: int = 512 << 20,
             out["lengths"].append(line_entry(
                 randc((b, n), dtype, device, SEED + n), "long", "long",
                 iters))
+    out["radix"] = line_entry(randc(radix_shape, torch.complex64, device,
+                                    SEED + 22), "long", "radix", iters)
     out["dense"] = line_entry(randc(dense_shape, torch.complex64, device,
                                     SEED + 21), "long", "dense", iters)
     if device.type == "cuda":
         torch.cuda.empty_cache()
-        print_lines("long", [out["long"], *out["lengths"], out["dense"]])
+        print_lines("long", [out["long"], *out["lengths"], out["radix"],
+                             out["dense"]])
     return out
 
 #: (dtype name, N, route, ms) of lengths that a second mixed factor R2
@@ -2445,7 +2466,9 @@ def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
 #: 13*2^20 and c128 13*2^18 raised before the radix-13 codelet), and c64
 #: 13*2^12, whose pass B of 208 runs no radix-route length; then the
 #: shortest and the longest 21*2^k, 25*2^k and 27*2^k of each dtype
-#: (chirp before).
+#: (chirp before); then the shortest and the longest 17*2^k and 19*2^k
+#: of each dtype (chirp before; the longest raised, past the chirp's
+#: limit).
 SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
                        ("complex64", 98304), ("complex64", 3 << 21),
                        ("complex64", 15 << 19), ("complex128", 12288),
@@ -2462,7 +2485,11 @@ SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
                        ("complex64", 27 << 10), ("complex64", 27 << 19),
                        ("complex128", 21 << 9), ("complex128", 21 << 17),
                        ("complex128", 25 << 9), ("complex128", 25 << 17),
-                       ("complex128", 27 << 9), ("complex128", 27 << 17))
+                       ("complex128", 27 << 9), ("complex128", 27 << 17),
+                       ("complex64", 17 << 10), ("complex64", 17 << 19),
+                       ("complex64", 19 << 10), ("complex64", 19 << 19),
+                       ("complex128", 17 << 9), ("complex128", 17 << 17),
+                       ("complex128", 19 << 9), ("complex128", 19 << 17))
 
 
 def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
@@ -2498,7 +2525,9 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
 #: 504 for 63: complex64 504 spills and runs dense); then lengths with an
 #: odd part from 65 (dense before): complex64 1000 = 25 x 40, 1800 = 40 x
 #: 45, 2400 = 48 x 50 and 3600 = 60 x 60, complex128 300 = 15 x 20 and
-#: 900 = 30 x 30.
+#: 900 = 30 x 30; then the longest 17*2^k and 19*2^k of each dtype
+#: (chirp or dense before): complex64 2176 = 34 x 64, 2432 = 38 x 64,
+#: complex128 544 = 17 x 32, 608 = 19 x 32.
 MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex64", 2304), ("complex64", 3840),
                  ("complex128", 768), ("complex128", 640),
@@ -2518,7 +2547,9 @@ MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex128", 440), ("complex128", 504),
                  ("complex64", 1000), ("complex64", 1800),
                  ("complex64", 2400), ("complex64", 3600),
-                 ("complex128", 300), ("complex128", 900))
+                 ("complex128", 300), ("complex128", 900),
+                 ("complex64", 2176), ("complex64", 2432),
+                 ("complex128", 544), ("complex128", 608))
 
 
 def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
@@ -2526,17 +2557,16 @@ def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
                 shape45=(262144, 360), shape75=(262144, 600),
                 lengths=MIXED_LENGTHS,
                 lengths_bytes: int = 512 << 20, iters: int = 10) -> dict:
-    """``[mixed]``: the radix route at mixed lengths (N = r*2^k, chains
-    of radix-13, 11, 7, 5, 3, 4 and 2 codelets): (262144, 384) complex64,
-    where the dense route took 3.4354 ms before, (262144, 448), where it
-    took 3.4432 before the radix-7 codelet, (262144, 416), where it took
-    3.1830 before the radix-13 codelet, (262144, 672 = 21*32), where it
-    took 6.9234 before the odd products joined the radix route, (262144,
-    360 = 45*8), the one-degree grid's longitudes, (262144, 600 = 75*8),
-    where the dense route took 6.6113 ms before the odd parts from 65
-    joined the radix route, and one length per odd part and dtype at
-    about 512 MB of lines, each reached once through
-    ``ops.fft1d`` (one radix launch), against its plain version and
+    """``[mixed]``: the radix route at mixed lengths (N = r*2^k, chains of
+    radix-19, 17, 13, 11, 7, 5, 3, 4 and 2 codelets): (262144, 384) complex64,
+    where the dense route took 3.4354 ms before, (262144, 448), where it took
+    3.4432 before the radix-7 codelet, (262144, 416), where it took 3.1830
+    before the radix-13 codelet, (262144, 672 = 21*32), where it took 6.9234
+    before the odd products joined the radix route, (262144, 360 = 45*8), the
+    one-degree grid's longitudes, (262144, 600 = 75*8), where the dense route
+    took 6.6113 ms before the odd parts from 65 joined the radix route, and one
+    length per odd part and dtype at about 512 MB of lines, each reached once
+    through ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft.fft`` and the bound."""
     import torch
     out = {"main": line_entry(randc(shape, torch.complex64, device,
@@ -2668,14 +2698,15 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
     return out
 
 
-#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 19*2^k
-#: (a prime factor past 13) whose M takes the long-line route, a prime
-#: and 33*2^10 (13-smooth, a line past one block), whose M takes the
-#: split route; complex128 likewise.  The first is the
-#: ``fft_fourstep_chirp`` entry's timing.
-CHIRP_LENGTHS = (("complex64", 4864), ("complex64", 10007),
+#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 23*2^k
+#: (a prime factor past 13 past the dense route's limit) whose M takes the
+#: long-line route, a prime and 33*2^10 (13-smooth, a line past one
+#: block), whose M takes the split route; complex128 likewise; and the
+#: prime complex64 4831, which left the dense route's generic stage.  The
+#: first is the ``fft_fourstep_chirp`` entry's timing.
+CHIRP_LENGTHS = (("complex64", 5888), ("complex64", 10007),
                  ("complex64", 33792), ("complex128", 3001),
-                 ("complex128", 2432))
+                 ("complex128", 2944), ("complex64", 4831))
 #: (dtype name, N, route) of ``[gaps]``, all on the dense route: the
 #: lengths it had with the widest gaps to ``torch.fft`` (the even
 #: 13-smooth complex64 2730 = 2*1365, 3430 = 2*1715 and 4050 = 2*2025,
@@ -2683,18 +2714,21 @@ CHIRP_LENGTHS = (("complex64", 4864), ("complex64", 10007),
 #: route hold, and the odd complex64 4725), the 13-smooth lengths past
 #: its old one-block limit that it took from the chirp route (complex64
 #: 16896 = 33*2^9, 23040 = 45*2^9, complex128 8448 = 33*2^8), and a
-#: prime, its generic stage alone (complex64 4831).
+#: length with a generic stage (complex64 3264 = 3*17*64, 1616 = 101*16,
+#: whose chirp would run M = 4096 on the radix route, the dearest M of
+#: ``dense.GENERIC_COST``, complex128 1824 = 3*19*32).
 GAP_LENGTHS = (("complex64", 2730, "dense"), ("complex64", 3430, "dense"),
                ("complex64", 4050, "dense"), ("complex128", 990, "dense"),
                ("complex64", 4725, "dense"), ("complex64", 16896, "dense"),
                ("complex64", 23040, "dense"), ("complex128", 8448, "dense"),
-               ("complex64", 4831, "dense"))
+               ("complex64", 3264, "dense"), ("complex64", 1616, "dense"),
+               ("complex128", 1824, "dense"))
 
 
 def phase_chirp(device, lengths=CHIRP_LENGTHS,
                 lengths_bytes: int = 256 << 20, iters: int = 10) -> dict:
     """``[chirp]``: the chirp route (Bluestein over two transforms of M =
-    2^ceil(log2(2N - 1)) on the long-line or split route) at each of
+    2^ceil(log2(2N - 1)) on the radix, long-line or split route) at each of
     ``lengths``, about 256 MB of lines, through ``ops.fft1d`` once (one
     chirp call, its launches all on "chirp": ``expected_counts``), against
     its plain version (``chirp.emulate``; ``TOL``) and within
@@ -3568,7 +3602,7 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "lm_fftconv_8192": mixer_runs[8192]["float32"]["counts"]["long"],
              "train_fftconv_4096": train_long["counts"]["long"]}},
-        # launches: one ops.fft1d call at (262144, 544); [gaps]'s one
+        # launches: one ops.fft1d call at (262144, 816); [gaps]'s one
         # call per length beside it
         {"name": "fft_fourstep_dense", "route": "cuda",
          "source": DENSE_SOURCE, "path": "dense",
@@ -3623,7 +3657,7 @@ def main(timer=time.perf_counter) -> int:
              "mixed_plan_360": mixed_plan45["forward_counts"]["radix"],
              "mixed_plan_600": mixed_plan75["forward_counts"]["radix"]}},
         # launches: [chirp]'s calls, one ops.fft1d call per length (no
-        # LM path runs the chirp route now); timed at lines of 5760
+        # LM path runs the chirp route now); timed at lines of 5888
         {"name": "fft_fourstep_chirp", "route": "cuda",
          "source": CHIRP_SOURCE, "path": "chirp",
          "sources": [CHIRP_SOURCE, LONG_SOURCE, RADIX_SOURCE],

@@ -4,6 +4,9 @@ lengths take which route, for the tree whose root is given.
 
     python3 scripts/route_times.py times ROOT TAG OUT.json
     python3 scripts/route_times.py sweep ROOT OUT.json
+    python3 scripts/route_times.py generic ROOT OUT.json
+    python3 scripts/route_times.py check ROOT OUT.json
+    python3 scripts/route_times.py fit RUN.json [RUN.json ...] OUT.json
     python3 scripts/route_times.py sass OLD.so NEW.so OUT.json
 
 ``times`` runs the port of the tree at ROOT (its ``src`` first on the
@@ -20,6 +23,18 @@ the dense kernel of the same library on the same lines (the route
 forced: ``radix.kernel_path`` answers "dense" for the timing), and
 ``torch.fft.fft``.
 
+``generic`` times the dense route against the chirp route on the same
+lines, both in the library of the tree at ROOT, at :data:`GENERIC_LENGTHS`
+(lengths with a prime factor past 13) at 256 MB of lines, each route
+forced for N alone (``radix.kernel_path`` answers it, ``dense.takes``
+admits N), and ``torch.fft.fft``; ``check`` does the same at
+:data:`GENERIC_CHECK`, lengths the fit did not see.  ``fit`` (no card
+needed) fits both routes' times over one or more ``generic`` runs: the
+constants of ``dense.takes``' rule (:func:`fit`), and the lengths that
+this checkout routes to the slower of the two.  Every swept length ran
+on the dense route before the rule; ``dense.MOVE_MARGIN`` keeps it there
+unless the fit puts the chirp clearly faster.
+
 ``sass`` compares ``cuobjdump -sass`` of two builds function by
 function: only instruction and encoding lines (a module's header would
 otherwise count as its last function's), each line's address comment
@@ -28,7 +43,8 @@ module's widest line).
 
 CUDA events, 10 calls after 2 of warm-up; every result goes to OUT.json
 and a line per measurement to the standard output.  Needs a CUDA card
-(``times``, ``sweep``) or ``cuobjdump`` (``sass``).
+(``times``, ``sweep``, ``generic``, ``check``) or ``cuobjdump``
+(``sass``); ``fit`` reads OUT.json files of ``generic`` or ``check``.
 """
 from __future__ import annotations
 
@@ -40,23 +56,59 @@ import shutil
 import subprocess
 import sys
 
-#: (dtype name, lines, N): (262144, 544 = 17*32) at 512 MB, the dense
-#: route's timed shape (a generic 17-stage); at 256 MB of lines the dense
-#: route's lengths with the widest gaps to ``torch.fft`` (complex64 4725,
-#: 4050, 3430, 2730, complex128 990), its spill lengths (complex64 208,
-#: 504, complex128 22), the prime complex64 4831, and the 13-smooth
-#: lengths past its old one-block limit that leave the chirp route for it
-#: (complex64 16896, 23040, 5460, 28028, complex128 8448, 2420).
-SHAPES = (("complex64", 262144, 544),) + tuple(
+#: (dtype name, lines, N): at 512 MB (262144, 544 = 17*32), which left
+#: the dense route's generic 17-stage for the radix route, and (262144,
+#: 816 = 3*17*16), which keeps one; at 256 MB of lines the 19*2^k lengths
+#: that left the chirp for the long-line route (complex64 4864, complex128
+#: 2432), the primes that left the dense route for the chirp (complex64
+#: 4831, complex128 2417), the dense route's lengths with the widest gaps
+#: to ``torch.fft`` (complex64 4725, 4050, 3430, 2730, complex128 990),
+#: its spill lengths (complex64 208, 504, complex128 22), and the
+#: 13-smooth lengths past its old one-block limit (complex64 16896, 23040,
+#: 5460, 28028, complex128 8448, 2420).
+SHAPES = (("complex64", 262144, 544), ("complex64", 262144, 816)) + tuple(
     (dt, (256 << 20) // (n * (8 if dt == "complex64" else 16)), n)
-    for dt, n in (("complex64", 4725), ("complex64", 4050),
+    for dt, n in (("complex64", 4864), ("complex128", 2432),
+                  ("complex64", 4831), ("complex128", 2417),
+                  ("complex64", 4725), ("complex64", 4050),
                   ("complex64", 3430), ("complex64", 2730),
                   ("complex128", 990), ("complex64", 208),
                   ("complex64", 504), ("complex128", 22),
-                  ("complex64", 4831), ("complex64", 16896),
-                  ("complex64", 23040), ("complex64", 5460),
-                  ("complex64", 28028), ("complex128", 8448),
-                  ("complex128", 2420)))
+                  ("complex64", 16896), ("complex64", 23040),
+                  ("complex64", 5460), ("complex64", 28028),
+                  ("complex128", 8448), ("complex128", 2420)))
+#: (dtype name, N) of ``generic``: lengths with a prime factor past 13,
+#: by the route the chirp's M takes (complex64: M up to 4096 on the radix
+#: route, 8192 and 16384 on the long-line route; complex128: up to 1024
+#: radix, 2048 to 8192 long-line), each band at M/N near 2 (the chirp's
+#: least padding) and near 4, the sum of the generic primes from 17 to
+#: 4831, and two primes (2279 = 43*53, 1591 = 37*43, 323 = 17*19,
+#: complex128 1961 = 37*53); then (from 53 on) lengths where a first fit
+#: to the others put the two routes within 12% of each other, M from 128
+#: to 16384.
+GENERIC_LENGTHS = tuple(("complex64", n) for n in (
+    3264, 3648, 2944, 3712, 3968, 4736, 3392, 3232, 4112, 4084, 4831,
+    3776, 4288, 2144, 2528, 4081, 2279, 4558, 2121, 3948,
+    1632, 1824, 1472, 1856, 1984, 1184, 1696, 1616, 1028, 2042,
+    2032, 1812, 1991, 1899, 2043, 1111, 1143, 1057, 1086, 1591,
+    848, 808, 1016, 771, 424, 508, 244, 536, 296, 257, 499, 323,
+    53, 71, 106, 73, 177, 235, 183, 430, 267, 410, 854, 946, 731, 1957,
+    1703, 1695, 2485, 2212, 2222, 4715, 4686, 4672, 101, 123, 246)) + tuple(
+    ("complex128", n) for n in (
+        1632, 1824, 1472, 1856, 1984, 1184, 1696, 1616, 1028, 2042, 2417,
+        1888, 1072, 1264, 1111, 1961, 2032, 2124, 848, 808, 536, 1016,
+        424, 404, 508, 257, 268, 296, 499, 244, 323,
+        53, 73, 122, 79, 183, 236, 235, 291, 436, 474, 654, 830, 606, 1587,
+        1505, 1130, 2260, 2133, 2225, 101, 123, 194))
+#: (dtype name, N) of ``check``: lengths that ``GENERIC_LENGTHS`` leaves
+#: out, drawn at random (seeded), 12 per dtype where
+#: ``dense.GENERIC_COST`` (fit to ``GENERIC_LENGTHS``) puts the two
+#: routes within 10% of each other and 4 where it puts them 10-50% apart.
+GENERIC_CHECK = tuple(("complex64", n) for n in (
+    335, 423, 639, 1038, 1145, 1467, 1651, 2158, 2829, 3180, 3237, 3245,
+    3384, 4240, 4272, 4371)) + tuple(("complex128", n) for n in (
+        59, 178, 314, 356, 581, 793, 1363, 1369, 1504, 1580, 1740, 2086,
+        2117, 2241, 2286, 2379))
 #: One face of the LLC4320 ocean grid (MITgcm/ECCO), complex64.
 GRID = (4320, 4320)
 SWEEP_BYTES = 64 << 20
@@ -213,6 +265,129 @@ def sweep(root: str) -> dict:
     return out
 
 
+def generic(root: str, lengths=GENERIC_LENGTHS) -> dict:
+    torch = _port(root)
+    from repro_torch.kernels import chirp, dense, radix
+    from repro_torch.kernels import fft_matmul as tfm
+    routed, kept = radix.kernel_path, dense.takes
+    out = {"root": os.path.abspath(root), "bytes": 256 << 20,
+           "lengths": []}
+    for dt, n in lengths:
+        dtype = getattr(torch, dt)
+        b = (256 << 20) // (n * dtype.itemsize)
+        x = _lines(torch, dtype, b, n)
+        lib = torch.fft.fft(x)
+        m = chirp.chirp_length(n)
+        chain = dense.chain(n)
+        rec = {"dtype": dt, "shape": [b, n], "chain": list(chain),
+               "s": sum(p for p in chain if p > 13), "m": m,
+               "m_path": routed(m, dtype), "path": routed(n, dtype)}
+        try:
+            for path in ("dense", "chirp"):
+                # the route forced for N alone
+                radix.kernel_path = (lambda k, d, path=path:
+                                     path if k == n else routed(k, d))
+                dense.takes = lambda k, d: k == n or kept(k, d)
+                tfm.reset_launch_counts()
+                rec[f"{path}_err"] = scaled_err(tfm.fft_fourstep(x), lib)
+                rec[f"{path}_launches"] = \
+                    tfm.fft_fourstep.path_launches[path]
+                rec[f"{path}_ms"] = time_ms(lambda: tfm.fft_fourstep(x))
+        finally:
+            radix.kernel_path, dense.takes = routed, kept
+        rec["torch_fft_ms"] = time_ms(lambda: torch.fft.fft(x))
+        rec["bound_ms"] = bound_ms(b, n, dtype.itemsize)
+        del x, lib
+        torch.cuda.empty_cache()
+        print(f"[generic] ({b}, {n}) {dt} {rec['chain']} s={rec['s']} "
+              f"M={m} on {rec['m_path']} (routed {rec['path']}): dense "
+              f"{rec['dense_ms']:.4f} ms, chirp {rec['chirp_ms']:.4f}, "
+              f"torch.fft {rec['torch_fft_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}; vs torch.fft {rec['dense_err']:.2e}"
+              f" / {rec['chirp_err']:.2e}", flush=True)
+        out["lengths"].append(rec)
+    return out
+
+
+def _line(recs: list):
+    """Least squares of the dense route's ms = a + b*s over ``recs``."""
+    k = len(recs)
+    sx = sum(r["s"] for r in recs)
+    sy = sum(r["dense_ms"] for r in recs)
+    sxx = sum(r["s"] ** 2 for r in recs)
+    sxy = sum(r["s"] * r["dense_ms"] for r in recs)
+    b = (k * sxy - sx * sy) / (k * sxx - sx * sx)
+    return (sy - b * sx) / k, b
+
+
+def fit(paths) -> dict:
+    """The constants of ``dense.takes``' rule from ``generic`` runs (their
+    OUT.json files): per dtype and length the mean of the runs and their
+    spread; per dtype, least squares of the dense route's ms = a + b*s
+    over the even N whose generic primes sum to at most 300 and apart
+    over the odd N, and per M the chirp's ms = c*M/N; in units of the
+    even N's b, ``dense.GENERIC_COST``'s (base, weight) per parity and
+    chirp cost per M.  Then the lengths that this checkout's
+    ``radix.kernel_path`` sends to the slower of the two: to the chirp
+    (every length swept left the dense route for it) or kept dense."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), os.pardir, "src"))
+    import torch
+    from repro_torch.kernels import radix
+    rows = {}
+    for path in paths:
+        with open(path) as f:
+            for r in json.load(f)["lengths"]:
+                e = rows.setdefault((r["dtype"], r["shape"][1]), dict(
+                    s=r["s"], m=r["m"], dense=[], chirp=[]))
+                e["dense"].append(r["dense_ms"])
+                e["chirp"].append(r["chirp_ms"])
+    out = {"runs": list(paths), "lengths": [], "constants": {},
+           "moved_slower": [], "kept_slower": []}
+    for (dt, n), e in rows.items():
+        for key in ("dense", "chirp"):
+            v = e[key]
+            e[f"{key}_ms"] = sum(v) / len(v)
+            e[f"{key}_spread"] = (max(v) - min(v)) / e[f"{key}_ms"]
+        e["path"] = radix.kernel_path(n, getattr(torch, dt))
+        out["lengths"].append(dict(e, dtype=dt, n=n))
+    for dt in sorted({dt for dt, _ in rows}):
+        mine = [r for r in out["lengths"] if r["dtype"] == dt]
+        even = [r for r in mine if r["n"] % 2 == 0 and r["s"] <= 300]
+        a, b = _line(even)
+        odd = [r for r in mine if r["n"] % 2 and r["s"] <= 300]
+        a_odd, b_odd = _line(odd)
+        cost = {}
+        for m in sorted({r["m"] for r in mine}):
+            xy = [(m / r["n"], r["chirp_ms"]) for r in mine if r["m"] == m]
+            cost[m] = sum(x * y for x, y in xy) / sum(x * x for x, _ in xy)
+        out["constants"][dt] = {
+            "a_ms": a, "b_ms": b, "a_odd_ms": a_odd, "b_odd_ms": b_odd,
+            "even": [a / b, 1.0], "odd": [a_odd / b, b_odd / b],
+            "chirp": {m: c / b for m, c in cost.items()}}
+        print(f"[fit] {dt}: dense ms = {a:.4f} + {b:.5f}*s (even N), "
+              f"{a_odd:.4f} + {b_odd:.5f}*s (odd N); in units of "
+              f"{b:.5f} ms: even base {a / b:.2f}, odd base "
+              f"{a_odd / b:.2f} and weight {b_odd / b:.3f}; chirp cost "
+              f"per M " + ", ".join(f"{m} {c / b:.2f}"
+                                   for m, c in cost.items()))
+    for r in sorted(out["lengths"], key=lambda r: (r["dtype"], r["n"])):
+        best = min(r["dense_ms"], r["chirp_ms"])
+        print(f"[fit] {r['dtype']} {r['n']} s={r['s']} M={r['m']}: dense "
+              f"{r['dense_ms']:.4f} ms (spread {r['dense_spread']:.3f}), "
+              f"chirp {r['chirp_ms']:.4f} ({r['chirp_spread']:.3f}); "
+              f"routed {r['path']}")
+        if r["path"] in ("dense", "chirp") and r[f"{r['path']}_ms"] > best:
+            key = "moved_slower" if r["path"] == "chirp" else "kept_slower"
+            out[key].append([r["dtype"], r["n"],
+                             r[f"{r['path']}_ms"] / best - 1])
+    print(f"[fit] moved to the chirp and slower there (by how much): "
+          f"{out['moved_slower']}")
+    print(f"[fit] kept on the dense route though the chirp was faster: "
+          f"{out['kept_slower']}")
+    return out
+
+
 def _cuobjdump() -> str:
     cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
@@ -257,6 +432,12 @@ def main(argv) -> int:
         result = times(argv[2], argv[3])
     elif len(argv) == 4 and argv[1] == "sweep":
         result = sweep(argv[2])
+    elif len(argv) == 4 and argv[1] == "generic":
+        result = generic(argv[2])
+    elif len(argv) == 4 and argv[1] == "check":
+        result = generic(argv[2], GENERIC_CHECK)
+    elif len(argv) >= 4 and argv[1] == "fit":
+        result = fit(argv[2:-1])
     elif len(argv) == 5 and argv[1] == "sass":
         result = sass(argv[2], argv[3])
     else:

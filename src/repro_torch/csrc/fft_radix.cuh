@@ -1,8 +1,9 @@
 // The radix path of the four-step kernel: N = N1*N2 on Hopper, with
 // in-register sub-DFTs, for every even N whose only prime factors are 2, 3,
-// 5, 7, 11 and 13 and whose factors both fit a codelet of 64 values
-// (complex64) or 32 (complex128): the powers of two and the mixed lengths
-// r*2^k, r from 3 to 1701 (kernels/radix.py::RADIX_SIZES, RADIX_ODD).
+// 5, 7, 11 and 13, and every 17*2^k and 19*2^k, whose factors both fit a
+// codelet of 64 values (complex64) or 32 (complex128): the powers of two
+// and the mixed lengths r*2^k, r from 3 to 1701
+// (kernels/radix.py::RADIX_SIZES, RADIX_ODD).
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
 // src/repro/kernels/fft_matmul.py::_fft_kernel (and its twiddle and
@@ -29,10 +30,10 @@
 //    (kernels/fft_matmul.py::_radix_constants) and kept in shared memory.
 //  * Mixed lengths (384 = 16*24): a codelet whose length is not a power of
 //    two is a mixed-radix decimation in time over a compile-time chain of
-//    radix-13, 11, 7, 5, 3, 4 and 2 butterflies (mixed_radix), loaded in
-//    digit-reversed order (load_slot); the radix-3, 4, 5, 7, 11 and 13
-//    DFTs are constant rotations with the direction's sign (7, 11 and 13
-//    in the symmetric-pair form, dft_odd), and the inter-stage
+//    radix-19, 17, 13, 11, 7, 5, 3, 4 and 2 butterflies (mixed_radix),
+//    loaded in digit-reversed order (load_slot); the radix-3, 4, 5, 7, 11,
+//    13, 17 and 19 DFTs are constant rotations with the direction's sign
+//    (7 to 19 in the symmetric-pair form, dft_odd), and the inter-stage
 //    twiddles come from the codelet's own table of W_L^k, k < L (N1 need
 //    not divide N2, so each codelet has its table: N2 then N1 entries).
 //    The row index splits by a division by the constant N1 or N2 where a
@@ -163,13 +164,17 @@ __host__ __device__ constexpr int exponent(int n, int p) {
 }
 
 // The radix of stage t (the first is t = 0) of a mixed codelet of length
-// L = 2^a 3^b 5^c 7^d 11^e 13^f: the 13s, the 11s, the 7s, the 5s, the
-// 3s, then the 4s and a last 2 (kernels/radix.py::radices).
+// L = 2^a 3^b 5^c 7^d 11^e 13^f 17^g 19^h: the 19s, the 17s, the 13s, the
+// 11s, the 7s, the 5s, the 3s, then the 4s and a last 2
+// (kernels/radix.py::radices).
 __host__ __device__ constexpr int mixed_radix(int L, int t) {
-  const int c13 = exponent(L, 13), c11 = c13 + exponent(L, 11);
+  const int c19 = exponent(L, 19), c17 = c19 + exponent(L, 17);
+  const int c13 = c17 + exponent(L, 13), c11 = c13 + exponent(L, 11);
   const int c7 = c11 + exponent(L, 7), c5 = c7 + exponent(L, 5);
   const int c3 = c5 + exponent(L, 3), c4 = c3 + exponent(L, 2) / 2;
-  return t < c13  ? 13
+  return t < c19   ? 19
+         : t < c17 ? 17
+         : t < c13 ? 13
          : t < c11 ? 11
          : t < c7  ? 7
          : t < c5  ? 5
@@ -180,8 +185,9 @@ __host__ __device__ constexpr int mixed_radix(int L, int t) {
 
 __host__ __device__ constexpr int mixed_count(int L) {
   const int a = exponent(L, 2);
-  return exponent(L, 13) + exponent(L, 11) + exponent(L, 7) +
-         exponent(L, 5) + exponent(L, 3) + a / 2 + a % 2;
+  return exponent(L, 19) + exponent(L, 17) + exponent(L, 13) +
+         exponent(L, 11) + exponent(L, 7) + exponent(L, 5) + exponent(L, 3) +
+         a / 2 + a % 2;
 }
 
 // The product of the radices of stages 0 .. t-1.
@@ -297,10 +303,10 @@ __device__ __forceinline__ void dft5(cpx<R>& a0, cpx<R>& a1, cpx<R>& a2,
   a3 = csub(e2, f2);
 }
 
-// cos(2*pi*m/P) and sin(2*pi*m/P) for P = 7, 11, 13 and any m, from the
-// literals of m = 1 .. (P-1)/2 by symmetry (kernels/radix.py::_ODD_COS and
-// _ODD_SIN spell the same digits).  Called with constants only, so they
-// fold at compile time.
+// cos(2*pi*m/P) and sin(2*pi*m/P) for P = 7, 11, 13, 17, 19 and any m,
+// from the literals of m = 1 .. (P-1)/2 by symmetry (kernels/radix.py::
+// _ODD_COS and _ODD_SIN spell the same digits).  Called with constants
+// only, so they fold at compile time.
 __host__ __device__ constexpr double odd_cos(int p, int m) {
   m %= p;
   if (m > p / 2) m = p - m;
@@ -318,6 +324,29 @@ __host__ __device__ constexpr double odd_cos(int p, int m) {
            : m == 4 ? -0.35460488704253562597
            : m == 5 ? -0.74851074817110109863
                     : -0.97094181742605202716;
+  }
+  if (p == 17) {
+    return m == 0 ? 1.0
+           : m == 1 ? 0.93247222940435580457
+           : m == 2 ? 0.73900891722065911592
+           : m == 3 ? 0.44573835577653826740
+           : m == 4 ? 0.09226835946330199524
+           : m == 5 ? -0.27366299007208286354
+           : m == 6 ? -0.60263463637925638918
+           : m == 7 ? -0.85021713572961415213
+                    : -0.98297309968390177828;
+  }
+  if (p == 19) {
+    return m == 0 ? 1.0
+           : m == 1 ? 0.94581724170063467902
+           : m == 2 ? 0.78914050939639359922
+           : m == 3 ? 0.54694815812242687471
+           : m == 4 ? 0.24548548714079914892
+           : m == 5 ? -0.08257934547233232460
+           : m == 6 ? -0.40169542465296945752
+           : m == 7 ? -0.67728157162574107476
+           : m == 8 ? -0.87947375120648907139
+                    : -0.98636130340272237360;
   }
   return m == 0 ? 1.0
          : m == 1 ? 0.84125353283118116886
@@ -346,6 +375,29 @@ __host__ __device__ constexpr double odd_sin(int p, int m) {
                  : m == 5 ? 0.66312265824079520238
                           : 0.23931566428755776715);
   }
+  if (p == 17) {
+    return sg * (m == 0 ? 0.0
+                 : m == 1 ? 0.36124166618715294874
+                 : m == 2 ? 0.67369564364655721171
+                 : m == 3 ? 0.89516329135506232207
+                 : m == 4 ? 0.99573417629503452187
+                 : m == 5 ? 0.96182564317281907041
+                 : m == 6 ? 0.79801722728023950333
+                 : m == 7 ? 0.52643216287735580024
+                          : 0.18374951781657033157);
+  }
+  if (p == 19) {
+    return sg * (m == 0 ? 0.0
+                 : m == 1 ? 0.32469946920468348741
+                 : m == 2 ? 0.61421271268966781744
+                 : m == 3 ? 0.83716647826252857481
+                 : m == 4 ? 0.96940026593933041674
+                 : m == 5 ? 0.99658449300666984982
+                 : m == 6 ? 0.91577332665505743992
+                 : m == 7 ? 0.73572391067313162477
+                 : m == 8 ? 0.47594739303707354443
+                          : 0.16459459028073389414);
+  }
   return sg * (m == 0 ? 0.0
                : m == 1 ? 0.54064081745559758211
                : m == 2 ? 0.90963199535451837141
@@ -354,11 +406,11 @@ __host__ __device__ constexpr double odd_sin(int p, int m) {
                         : 0.28173255684142969771);
 }
 
-// The P-point DFT (P = 7, 11, 13) of a with W_P = exp(s*2*pi*i/P), in place,
-// in the symmetric-pair form (kernels/radix.py::_dft_odd, the same order
-// of operations): b_j = a_j + a_(P-j), d_j = a_j - a_(P-j) for j < P/2;
-// out 0 = a_0 + sum b; outs k and P-k = e_k +- i*s*f_k with e_k = a_0 +
-// sum_j b_j cos(2*pi*j*k/P) and f_k = sum_j d_j sin(2*pi*j*k/P).
+// The P-point DFT (P = 7, 11, 13, 17, 19) of a with W_P = exp(s*2*pi*i/P),
+// in place, in the symmetric-pair form (kernels/radix.py::_dft_odd, the
+// same order of operations): b_j = a_j + a_(P-j), d_j = a_j - a_(P-j) for
+// j < P/2; out 0 = a_0 + sum b; outs k and P-k = e_k +- i*s*f_k with e_k =
+// a_0 + sum_j b_j cos(2*pi*j*k/P) and f_k = sum_j d_j sin(2*pi*j*k/P).
 template <int P, typename R>
 __device__ __forceinline__ void dft_odd(cpx<R> (&a)[P], R s) {
   constexpr int H = (P - 1) / 2;
@@ -430,10 +482,11 @@ __device__ __forceinline__ void mixed_stages(cpx<R> (&v)[L],
         dft5(v[i0], v[i0 + m], v[i0 + 2 * m], v[i0 + 3 * m], v[i0 + 4 * m],
              s);
       } else {
-        // radix 7, 11 or 13: the inputs (input 1 twiddled above)
+        // radix 7, 11, 13, 17 or 19: the inputs (input 1 twiddled above)
         // gathered into an array of constant indices, which stays in
         // registers
-        static_assert(r == 7 || r == 11 || r == 13, "the chain's radices");
+        static_assert(r == 7 || r == 11 || r == 13 || r == 17 || r == 19,
+                      "the chain's radices");
         cpx<R> a[r];
         auto gather = [&](auto qq) {
           constexpr int q = decltype(qq)::value;
@@ -950,6 +1003,17 @@ int radix_part(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(810, 27, 30)
       REPRO_RADIX_CASE(840, 28, 30)
       REPRO_RADIX_CASE(900, 30, 30)
+      // 17*2^k and 19*2^k
+      REPRO_RADIX_CASE(34, 2, 17)
+      REPRO_RADIX_CASE(68, 4, 17)
+      REPRO_RADIX_CASE(136, 8, 17)
+      REPRO_RADIX_CASE(272, 16, 17)
+      REPRO_RADIX_CASE(544, 17, 32)
+      REPRO_RADIX_CASE(38, 2, 19)
+      REPRO_RADIX_CASE(76, 4, 19)
+      REPRO_RADIX_CASE(152, 8, 19)
+      REPRO_RADIX_CASE(304, 16, 19)
+      REPRO_RADIX_CASE(608, 19, 32)
       default:
         break;
     }
@@ -1125,6 +1189,11 @@ int radix_part(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(3528, 56, 63)
         REPRO_RADIX_CASE(3600, 60, 60)
         REPRO_RADIX_CASE(3780, 60, 63)
+        // 17*2^k and 19*2^k past codelets of 32
+        REPRO_RADIX_CASE(1088, 32, 34)
+        REPRO_RADIX_CASE(2176, 34, 64)
+        REPRO_RADIX_CASE(1216, 32, 38)
+        REPRO_RADIX_CASE(2432, 38, 64)
         default:
           break;
       }
@@ -1196,6 +1265,13 @@ int radix_part(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(216, 12, 18)
       REPRO_RADIX_CASE(432, 18, 24)
       REPRO_RADIX_CASE(864, 27, 32)
+      // 17*2^k and 19*2^k
+      REPRO_RADIX_CASE(136, 8, 17)
+      REPRO_RADIX_CASE(272, 16, 17)
+      REPRO_RADIX_CASE(544, 17, 32)
+      REPRO_RADIX_CASE(152, 8, 19)
+      REPRO_RADIX_CASE(304, 16, 19)
+      REPRO_RADIX_CASE(608, 19, 32)
       default:
         break;
     }
@@ -1226,6 +1302,10 @@ int radix_part(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(1600, 40, 40)
         REPRO_RADIX_CASE(108, 9, 12)
         REPRO_RADIX_CASE(1728, 36, 48)
+        REPRO_RADIX_CASE(68, 4, 17)
+        REPRO_RADIX_CASE(1088, 32, 34)
+        REPRO_RADIX_CASE(76, 4, 19)
+        REPRO_RADIX_CASE(1216, 32, 38)
         default:
           break;
       }

@@ -3,19 +3,22 @@ other route takes, as Bluestein's convolution over the power-of-two
 routes.
 
 The radix, long-line and split routes take every N = r*2^k, r in
-``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}, to
-their limits; the other 13-smooth odd parts (33 to 63, and from 65) run
-on the radix route where both factors of N fit a codelet
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25,
+27}, to their limits; the other 13-smooth odd parts (33 to 63, and from
+65) run on the radix route where both factors of N fit a codelet
 (``radix.RADIX_ODD``) and on the long-line route up to its 128 KB line
 where three codelets of at most 32 take N (``longline.rule_factors``);
 the dense route takes every other N up to ``dense.DENSE_LIMIT``
-(complex64 4835, complex128 2419) and every other 13-smooth N whose
-line fits one block (complex64 23040 = 45*512 and 16896 = 33*512).  So
-the lengths left here have a prime factor past 13 and lie past that
-limit (such as 4864 = 19*256 and the prime 10007), or are 13-smooth
-with a line past one block (complex64 33792 = 33*2^10).  On the CPU the
-route runs :func:`emulate`; on the card two counted launches of the
-long-line or split route with the PyTorch glue around them.
+(complex64 4835, complex128 2419) whose generic stages, one per prime
+factor past 13, cost no more than this route would
+(``dense.GENERIC_COST``: their sum against M/N and M), and every other
+13-smooth N whose line fits one block (complex64 23040 = 45*512 and
+16896 = 33*512).  So the lengths left here have dearer prime factors
+(such as the primes 4831 and 10007, 3232 = 101*32, and 5888 = 23*256),
+or are 13-smooth with a line past one block
+(complex64 33792 = 33*2^10).  On the CPU the route runs :func:`emulate`;
+on the card two counted launches of the radix, long-line or split route
+with the PyTorch glue around them.
 
 For a length N that no other route takes (``takes``), the DFT with sign s
 (-1 forward, +1 inverse) is, with 2nk = n^2 + k^2 - (k - n)^2 and the
@@ -38,10 +41,11 @@ in four steps:
 4. the first N of each line (:func:`trim`, glue), stored destination-major
    with ``pack_parts``.
 
-M takes the long-line or the split route, so the route reaches N up to
-half the split route's longest length: 2^23 for complex64, 2^21 for
-complex128 (:func:`max_length`).  The chirp's phase pi*n^2/N is taken
-with n^2 mod 2N in integers and the tables built in float64
+M takes the radix route (a short N with a large prime factor, such as
+complex64 101: M = 256), the long-line or the split route, so the route
+reaches N up to half the split route's longest length: 2^23 for complex64,
+2^21 for complex128 (:func:`max_length`).  The chirp's phase pi*n^2/N is
+taken with n^2 mod 2N in integers and the tables built in float64
 (:func:`constants`), so complex64 keeps it at large N.
 
 Both transforms are launches of the port's kernel (``fft_matmul._launch``
@@ -71,9 +75,9 @@ def max_length(dtype: torch.dtype) -> int:
 def takes(n: int, dtype: torch.dtype) -> bool:
     """Whether the chirp route takes lines of ``n`` (``radix.kernel_path``
     asks after the radix, long-line and split routes): every N the dense
-    route does not take (``dense.takes``: past ``dense.DENSE_LIMIT``, a
-    prime factor past 13 or a 13-smooth line past one block), up to
-    :func:`max_length`."""
+    route does not take (``dense.takes``: generic stages dearer than this
+    route, past ``dense.DENSE_LIMIT`` a prime factor past 13 or a
+    13-smooth line past one block), up to :func:`max_length`."""
     from .dense import DENSE_LIMIT, takes as dense_takes
     if dtype not in DENSE_LIMIT:
         return False

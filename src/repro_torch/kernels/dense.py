@@ -4,12 +4,14 @@ layout and its plain version, in Python.
 "dense" is the route's name (``radix.kernel_path``,
 ``fft_fourstep.path_launches``), kept from the dense DFT-matrix kernel it
 replaced; the method is a mixed-radix FFT.  The route takes every N up to
-:data:`DENSE_LIMIT` that the radix, long-line and split routes do not
-(odd N, N with a prime factor past 13, the even 13-smooth N that no
-codelets of those routes hold, and ``radix._SPILLS``), and every other
-13-smooth N whose line and tables fit one block's shared memory
-(:func:`takes`: complex64 to 28431, complex128 to 14196).  On the CPU it
-runs :func:`emulate`; on the card one launch of ``csrc/fft_dense.cuh``.
+:data:`DENSE_LIMIT` that the radix, long-line and split routes do not and
+whose generic stages cost no more than the chirp route would (odd N, N
+with small prime factors past 13, the even 13-smooth N that no codelets
+of those routes hold, and ``radix._SPILLS``), and every other 13-smooth
+N whose line and tables fit one block's shared memory (:func:`takes`:
+complex64 to 28431, complex128 to 14196).  The chirp route takes the N
+with dearer prime factors.  On the CPU it runs :func:`emulate`; on the
+card one launch of ``csrc/fft_dense.cuh``.
 
 A block holds ``lines`` whole lines in shared memory and transforms them
 in place, by decimation in frequency, over the chain of
@@ -55,6 +57,7 @@ import numpy as np
 import torch
 
 from . import radix
+from .chirp import chirp_length
 
 #: Threads of one block, per complex element size: (narrow, wide), the
 #: wide count for a tile whose shared memory leaves no room for a second
@@ -71,11 +74,36 @@ TILE_ELEMS = 4096
 GENERIC_CHUNK = 16
 #: The longest N of every length the route takes, per complex dtype: the
 #: one-block limit of the dense DFT-matrix kernel this route replaced
-#: (its W1, T, output twiddle, W2 and one line of G in 227 KB).  Every
-#: length up to it keeps the route it had, whatever its prime factors;
-#: past it the route takes only 13-smooth N (:func:`takes`), and the
-#: chirp route the rest up to its limit.
+#: (its W1, T, output twiddle, W2 and one line of G in 227 KB).  Up to it
+#: the route takes every N whose generic stages cost no more than the
+#: chirp route (:data:`GENERIC_COST`); past it only 13-smooth N
+#: (:func:`takes`).  The chirp route takes the rest up to its limit.
 DENSE_LIMIT = {torch.complex64: 4835, torch.complex128: 2419}
+#: The costs that :func:`takes` compares, per complex dtype, in units of
+#: the time that one unit of :func:`generic_sum` adds per element of an
+#: even N (a generic stage of p sums p terms for each output): the dense
+#: route's (base, weight) per parity of N, its time per element being
+#: base + weight * generic_sum (complex128's generic stages ran slower in
+#: odd N), and the chirp route's time per element of its M-long
+#: lines, per M ("chirp"; M below the least entry costs as that entry).
+#: Fit on an H100 to both routes forced on the same lines
+#: (``scripts/route_times.py generic``, then ``fit``; PERF.md has the
+#: readings).
+GENERIC_COST = {
+    torch.complex64: {"even": (19, 1), "odd": (14, 1), "chirp": {
+        128: 31, 256: 28, 512: 28, 1024: 26, 2048: 32, 4096: 62, 8192: 29,
+        16384: 27}},
+    torch.complex128: {"even": (31, 1), "odd": (1.5, 1.75), "chirp": {
+        128: 47, 256: 43, 512: 45, 1024: 54, 2048: 42, 4096: 42,
+        8192: 44}},
+}
+#: The chirp route takes an N up to :data:`DENSE_LIMIT` only where
+#: :data:`GENERIC_COST` puts it this factor cheaper than the dense route:
+#: the fit's worst error over the swept lengths (``route_times.py fit``)
+#: was a dense route 20% cheaper than predicted against the chirp
+#: (complex128 122), so within it no length leaves the dense route for a
+#: slower one.
+MOVE_MARGIN = 1.25
 
 
 def chain(n: int) -> Tuple[int, ...]:
@@ -193,15 +221,32 @@ def fits(n: int, dtype: torch.dtype) -> bool:
     return _layout(n, dtype.itemsize, 1).smem_bytes <= radix.SMEM_MAX_BYTES
 
 
+def generic_sum(n: int) -> int:
+    """s: the sum of the primes past 13 in N's chain, each a generic stage
+    that costs O(N*p); 0 for a 13-smooth N."""
+    return sum(p for p in chain(n) if p > 13)
+
+
 def takes(n: int, dtype: torch.dtype) -> bool:
     """Whether the route takes lines of ``n`` (``radix.kernel_path`` asks
     after the radix, long-line and split routes): every N up to
-    :data:`DENSE_LIMIT`, and past it the 13-smooth N whose line fits one
-    block."""
+    :data:`DENSE_LIMIT` whose generic stages cost no more than the chirp
+    route would, and past it the 13-smooth N whose line fits one block.
+
+    The costs per line, in :data:`GENERIC_COST`'s units: N times the
+    dense route's base plus its weight times :func:`generic_sum`, against
+    :data:`MOVE_MARGIN` times M times the chirp route's cost per element
+    of M (M = ``chirp.chirp_length(n)``)."""
     if dtype not in DENSE_LIMIT:
         return False
     if 1 <= n <= DENSE_LIMIT[dtype]:
-        return True
+        s = generic_sum(n)
+        if s == 0:
+            return True
+        cost, m = GENERIC_COST[dtype], chirp_length(n)
+        base, weight = cost["odd" if n % 2 else "even"]
+        return (base + weight * s) * n <= MOVE_MARGIN * cost["chirp"][
+            max(m, min(cost["chirp"]))] * m
     return radix.smooth(n) and fits(n, dtype)
 
 
@@ -213,8 +258,10 @@ def dense_plan(n: int, dtype: torch.dtype) -> DensePlan:
     ``ValueError`` past the route's domain (:func:`takes`)."""
     if not takes(n, dtype):
         raise ValueError(f"the dense route takes N up to "
-                         f"{DENSE_LIMIT.get(dtype)} and the 13-smooth N "
-                         f"whose line fits one block, not N={n} ({dtype})")
+                         f"{DENSE_LIMIT.get(dtype)} whose generic stages "
+                         f"cost no more than the chirp route and the "
+                         f"13-smooth N whose line fits one block, not "
+                         f"N={n} ({dtype})")
     lines = 1 << (max(1, TILE_ELEMS // n).bit_length() - 1)
     plan = _layout(n, dtype.itemsize, lines)
     while plan.lines > 1 and plan.smem_bytes > radix.SMEM_TARGET_BYTES:

@@ -32,47 +32,49 @@ taken (:func:`_resolved`); the plain version reads ``.real``/``.imag``,
 which honour those bits anyway.
 
 Five routes, chosen from N and the dtype alone (:func:`radix.kernel_path`):
-every even N whose only prime factors are 2, 3, 5, 7, 11 and 13 and
-whose two factors both fit a codelet of ``radix.CODELET_MAX`` values,
-so that the codelets stay in registers — power-of-two N (2 to 4096 for
-complex64, 4 to 1024 for complex128) and the mixed N = r*2^k, r in
-``radix.RADIX_ODD`` (3 to 1701 for complex64, 3 to 405 for complex128:
-``radix.RADIX_SIZES``) — takes the radix path — two passes of in-register
-codelets (radix 2, or a chain of radix 2, 3, 4, 5, 7, 11 and 13),
-``csrc/fft_radix.cuh``, planned in
+every even N whose only prime factors are 2, 3, 5, 7, 11 and 13, and
+every 17*2^k and 19*2^k, whose two factors both fit a codelet of
+``radix.CODELET_MAX`` values, so that the codelets stay in registers —
+power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) and
+the mixed N = r*2^k, r in ``radix.RADIX_ODD`` (3 to 1701 for complex64, 3
+to 405 for complex128: ``radix.RADIX_SIZES``) — takes the radix path —
+two passes of in-register codelets (radix 2, or a chain of radix 2, 3,
+4, 5, 7, 11, 13, 17 and 19), ``csrc/fft_radix.cuh``, planned in
 ``kernels/radix.py``; the longer N whose line fits in one block's shared
 memory (powers of two 8192 and 16384 for complex64, 2048 to 8192 for
-complex128; the mixed lengths 4608 to 15360 and 1152 to 7680 whose odd
+complex128; the mixed lengths 4352 to 15360 and 1088 to 7680 whose odd
 part is in ``radix.EVERY_ROUTE_ODD``, and the other even 13-smooth N
 past the radix route that three codelets of at most 32 values take,
 3168 to 16128 and 792 to 8064: ``longline.rule_factors``) take the
 long-line path — three such passes over a line loaded by TMA,
 ``csrc/fft_long.cuh``, planned in ``kernels/longline.py``, whose
-``emulate`` is this path's plain version; the powers of two and mixed
-lengths beyond one block (to 2^24 for complex64, 2^22 for complex128)
-take the split route — N = P*Q, P a power of two, through HBM, a strided
-radix launch on the P-long columns with the inter-step twiddle in its
-store, then the Q-long rows: on the radix route, stored transposed with
-the line's epilogues; on the long-line route, stored in place and moved
-by a transpose launch that carries the epilogues — planned in
-``kernels/split.py``, whose ``emulate`` is that
-route's plain version; every other N up to ``dense.DENSE_LIMIT``
-(complex64 4835, complex128 2419: odd N, N with a prime factor past 13,
-the even 13-smooth N that neither the radix nor the long-line route
-takes, such as complex64 2730 = 42 x 65) and every other 13-smooth N
-whose line fits one block (complex64 to 28028, complex128 to 14014)
-takes the dense route — named for the dense DFT-matrix kernel it
-replaced, now a mixed-radix FFT over a chain chosen at run time, the
-lines in shared memory, ``csrc/fft_dense.cuh``, planned in
-``kernels/dense.py``, whose ``emulate`` is that route's plain version;
-every other N (a prime factor past 13 past that limit, or a 13-smooth
-line past one block) takes the chirp route — Bluestein's convolution
-as two transforms of M = 2^ceil(log2(2N - 1)) on the long-line or split
-route with the chirps in their ``twiddle`` epilogues, planned in
-``kernels/chirp.py``, whose ``emulate`` is that route's plain version
-(N up to 2^23 for complex64, 2^21 for complex128); past that, N raises
-on the card (``launch_config``).  A failed build or launch raises;
-nothing falls back.
+``emulate`` is this path's plain version; the powers of two and those
+mixed lengths beyond one block (to 2^24 for complex64, 2^22 for
+complex128) take the split route — N = P*Q, P a power of two, through
+HBM, a strided radix launch on the P-long columns with the inter-step
+twiddle in its store, then the Q-long rows: on the radix route, stored
+transposed with the line's epilogues; on the long-line route, stored in
+place and moved by a transpose launch that carries the epilogues —
+planned in ``kernels/split.py``, whose ``emulate`` is that route's plain
+version; every other N up to ``dense.DENSE_LIMIT`` (complex64 4835,
+complex128 2419) whose generic stages (one per prime factor past 13)
+cost no more than the chirp route's (``dense.GENERIC_COST``; odd N, the
+even 13-smooth N that neither the radix nor the long-line route takes,
+such as complex64 2730 = 42 x 65)
+and every other 13-smooth N whose line fits one block (complex64 to
+28431, complex128 to 14196) takes the dense route — named for the dense
+DFT-matrix kernel it replaced, now a mixed-radix FFT over a chain chosen
+at run time, the lines in shared memory, ``csrc/fft_dense.cuh``, planned
+in ``kernels/dense.py``, whose ``emulate`` is that route's plain
+version; every other N (dearer prime factors, a prime factor past 13
+past that limit, or a 13-smooth line past one block) takes the chirp
+route — Bluestein's convolution as two transforms of M =
+2^ceil(log2(2N - 1)) on the radix, long-line or split route with the
+chirps in their ``twiddle`` epilogues, planned in ``kernels/chirp.py``,
+whose ``emulate`` is that route's plain version (N up to 2^23 for
+complex64, 2^21 for complex128); past that, N raises on the card
+(``launch_config``).  A failed build or launch raises; nothing falls
+back.
 
 :func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``
 block and transforms dim 1 on the radix path, writing the same layout:
@@ -131,10 +133,12 @@ def launch_config(n: int, itemsize: int) -> LaunchConfig:
     if not dense.takes(n, dtype):
         raise ValueError(
             f"fft_fourstep: N={n} is past the dense route, which takes N "
-            f"up to {dense.DENSE_LIMIT[dtype]} and the 13-smooth N whose "
+            f"up to {dense.DENSE_LIMIT[dtype]} whose generic stages cost "
+            f"no more than the chirp route and the 13-smooth N whose "
             f"line fits one block's {SMEM_MAX_BYTES} bytes of shared "
             f"memory for {itemsize}-byte complex elements; the split route "
-            f"takes the powers of two beyond one block up to "
+            f"takes the powers of two and the mixed lengths r*2^k, r in "
+            f"{radix.EVERY_ROUTE_ODD}, beyond one block up to "
             f"{max(split.FACTORS.get(dtype, {0: None}))} and the chirp "
             f"route every other N up to {chirp.max_length(dtype)}")
     plan = dense.dense_plan(n, dtype)

@@ -1,21 +1,20 @@
 """The long-line route of the four-step kernel: its plan, its shared-memory
 layouts and their index maps, in Python.
 
-Lines too long for the radix route's two in-register passes still fit
-whole in one block's shared memory: the powers of two (complex64 N of
-8192 and 16384, complex128 N of 2048 to 8192), the mixed lengths r*2^k,
-r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27},
-from past ``radix.RADIX_SIZES`` to the same 128 KB line (complex64 4608
-to 15360, complex128 1152 to 7680), and every other even 13-smooth N
-past the radix route up to that line that three codelets of at most 32
-values take (:func:`rule_factors`: odd parts 33 to 729, complex64 3168
-to 16128, complex128 792 to 8064).  On the CPU the route runs
-:func:`emulate`; on the card one launch of ``fft_long.cuh``.  The
-kernel (``csrc/fft_long.cuh``) holds one line there and transforms it in
-three passes over N = R1*R2*R3, each an in-register codelet of length at
-most 32 (:data:`FACTORS`).  With the input index m = m1*(R2*R3) + m2*R3 +
-m3 and the output index k = k1 + R1*k2 + R1*R2*k3 (decimation in
-frequency):
+Lines too long for the radix route's two in-register passes still fit whole
+in one block's shared memory: the powers of two (complex64 N of 8192 and
+16384, complex128 N of 2048 to 8192), the mixed lengths r*2^k, r in
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25, 27},
+from past ``radix.RADIX_SIZES`` to the same 128 KB line (complex64 4352 to
+15360, complex128 1088 to 7680), and every other even 13-smooth N past the
+radix route up to that line that three codelets of at most 32 values take
+(:func:`rule_factors`: odd parts 33 to 729, complex64 3168 to 16128,
+complex128 792 to 8064).  On the CPU the route runs :func:`emulate`; on the
+card one launch of ``fft_long.cuh``.  The kernel (``csrc/fft_long.cuh``)
+holds one line there and transforms it in three passes over N = R1*R2*R3,
+each an in-register codelet of length at most 32 (:data:`FACTORS`).  With
+the input index m = m1*(R2*R3) + m2*R3 + m3 and the output index k = k1 +
+R1*k2 + R1*R2*k3 (decimation in frequency):
 
 * pass 1 — item mb = m2*R3 + m3: the R1 values x[m1*(N/R1) + mb], a
   codelet of length R1, times W_N^(k1*mb) = TA[k1, m3] * TB[k1, m2],
@@ -37,8 +36,9 @@ that pass 3 reads consecutive addresses, and pass 3 loads all of them
 before the buffer is released to the next line's copy.
 
 A mixed length has a mixed factor R1 = r*2^a, on the radix route's chain
-of radix-13, 11, 7, 5, 3, 4 and 2 codelets (``radix.radices``) on its own
-table of R1 entries, and R3 a power of two (radix-2 codelets).  R2 is a
+of radix-19, 17, 13, 11, 7, 5, 3, 4 and 2 codelets (``radix.radices``;
+R1 = 17 and 19 one butterfly each) on its own table of R1 entries, and
+R3 a power of two (radix-2 codelets).  R2 is a
 power of two where the odd part fits R1 alone (r in
 ``radix.EVERY_ROUTE_ODD``: the radix-2 codelets' table then has
 max(R2, R3)/2 entries); where it does not (odd parts 33 to 63 and the
@@ -77,14 +77,14 @@ import torch
 
 from . import radix
 
-#: The powers of two and the lengths with one mixed factor (R2 and R3
-#: powers of two), with their (R1, R2, R3), per complex dtype: lines past
+#: The powers of two and the lengths with one mixed factor (R2 and R3 powers
+#: of two), with their (R1, R2, R3), per complex dtype: lines past
 #: ``radix.RADIX_SIZES`` whose whole line, 128 KB at most, fits in one
 #: block's shared memory.  Codelets of at most 32 values: ptxas keeps 32
 #: complex128 values in registers (the radix route's 32x32 instantiation
-#: does), not 64.  A mixed length's mixed factor is R1, with as many 2s
-#: as 32 allows (28 for 7*2^k, 22 for 11*2^k, 26 for 13*2^k; none for
-#: 21*2^k, 25*2^k and 27*2^k, whose R1 is odd), so the power-of-two
+#: does), not 64.  A mixed length's mixed factor is R1, with as many 2s as
+#: 32 allows (28 for 7*2^k, 22 for 11*2^k, 26 for 13*2^k; none for 17*2^k,
+#: 19*2^k, 21*2^k, 25*2^k and 27*2^k, whose R1 is odd), so the power-of-two
 #: passes are as short as they can be.  :func:`rule_factors` splits the
 #: rest.
 _TABLE = {
@@ -96,7 +96,9 @@ _TABLE = {
         5632: (22, 16, 16), 7168: (28, 16, 16), 11264: (22, 16, 32),
         14336: (28, 16, 32), 6656: (26, 16, 16), 13312: (26, 16, 32),
         5376: (21, 16, 16), 10752: (21, 16, 32), 6400: (25, 16, 16),
-        12800: (25, 16, 32), 6912: (27, 16, 16), 13824: (27, 16, 32)},
+        12800: (25, 16, 32), 6912: (27, 16, 16), 13824: (27, 16, 32),
+        4352: (17, 16, 16), 8704: (17, 16, 32), 4864: (19, 16, 16),
+        9728: (19, 16, 32)},
     torch.complex128: {
         2048: (8, 16, 16), 4096: (16, 16, 16), 8192: (16, 16, 32),
         1152: (18, 8, 8), 1280: (20, 8, 8), 1536: (24, 8, 8),
@@ -108,7 +110,9 @@ _TABLE = {
         1664: (26, 8, 8), 3328: (26, 8, 16), 6656: (26, 16, 16),
         1344: (21, 8, 8), 2688: (21, 8, 16), 5376: (21, 16, 16),
         1600: (25, 8, 8), 3200: (25, 8, 16), 6400: (25, 16, 16),
-        1728: (27, 8, 8), 3456: (27, 8, 16), 6912: (27, 16, 16)},
+        1728: (27, 8, 8), 3456: (27, 8, 16), 6912: (27, 16, 16),
+        1088: (17, 8, 8), 2176: (17, 8, 16), 4352: (17, 16, 16),
+        1216: (19, 8, 8), 2432: (19, 8, 16), 4864: (19, 16, 16)},
 }
 #: The longest codelet of a long-line pass, in values.
 PASS_MAX = 32

@@ -3,12 +3,11 @@ holds, as a two-level four-step through HBM.
 
 A line of N = P*Q (:data:`FACTORS`: the powers of two, complex64 N from
 32768 to 2^24 and complex128 from 16384 to 2^22, and the mixed lengths
-r*2^k, r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25,
-27}, past the long-line route's up to the same limits; P a power of two, a
-mixed N's odd part in Q, so the odd codelets run in pass B) is
-viewed as (P, Q), x[p*Q + q], and
-transformed by the routes one block holds, in two launches (three with
-rows on the long-line route):
+r*2^k, r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19,
+21, 25, 27}, past the long-line route's up to the same limits; P a power
+of two, a mixed N's odd part in Q, so the odd codelets run in pass B) is
+viewed as (P, Q), x[p*Q + q], and transformed by the routes one block
+holds, in two launches (three with rows on the long-line route):
 
 * pass A — the P-long DFT down every column q (stride Q): the radix
   route's strided entry on the ``(B, P, Q)`` block (outer = B, N = P,
@@ -83,7 +82,8 @@ _POW2 = {
 #: 11*2^11 complex64 is 512 x 44: pass B of 88 = 8x11 spills in ptxas.
 #: Pass B of 208 = 13x16 complex64 is clean though its plain kernel
 #: spills (``radix.RADIX_SIZES``), so Q need not be a radix-route length.
-#: 21*2^k, 25*2^k and 27*2^k follow the 7*2^k rows' P (not probed).
+#: 21*2^k, 25*2^k and 27*2^k follow the 7*2^k rows' P (not probed);
+#: 17*2^k and 19*2^k the 13*2^k rows' P and route of Q (not probed).
 _MIXED = {
     torch.complex64: (
         (256, 96), (256, 192), (256, 384), (512, 384), (256, 1536),
@@ -112,7 +112,12 @@ _MIXED = {
         (1024, 12800),
         (256, 108), (256, 216), (256, 432), (512, 432), (512, 864),
         (512, 1728), (1024, 1728), (512, 6912), (512, 13824),
-        (1024, 13824)),
+        (1024, 13824),
+        (256, 68), (256, 136), (256, 272), (256, 544), (512, 544),
+        (512, 1088), (1024, 1088), (512, 4352), (512, 8704), (1024, 8704),
+        (256, 76), (256, 152), (256, 304), (256, 608), (512, 608),
+        (512, 1216), (1024, 1216), (512, 4864), (512, 9728),
+        (1024, 9728)),
     torch.complex128: (
         (64, 192), (128, 192), (64, 768), (128, 768), (256, 768),
         (512, 768), (128, 6144), (256, 6144), (512, 6144),
@@ -133,7 +138,11 @@ _MIXED = {
         (64, 200), (128, 200), (128, 400), (256, 400), (256, 800),
         (64, 6400), (256, 3200), (512, 3200), (512, 6400),
         (64, 216), (128, 216), (128, 432), (256, 432), (256, 864),
-        (64, 6912), (256, 3456), (512, 3456), (512, 6912)),
+        (64, 6912), (256, 3456), (512, 3456), (512, 6912),
+        (64, 136), (128, 136), (256, 136), (256, 272), (256, 544),
+        (64, 4352), (128, 4352), (256, 4352), (512, 4352),
+        (64, 152), (128, 152), (256, 152), (256, 304), (256, 608),
+        (64, 4864), (128, 4864), (256, 4864), (512, 4864)),
 }
 #: (P, Q) per length and complex dtype: both tables.
 FACTORS = {dtype: {**_POW2[dtype], **{p * q: (p, q) for p, q in pairs}}

@@ -1,27 +1,32 @@
 """The chirp route of the four-step kernel (``kernels/chirp.py``): every
 line length that no other route takes, as Bluestein's
 convolution over two transforms of M = 2^ceil(log2(2N - 1)) on the
-long-line or split route, the chirps in their ``twiddle`` epilogues.  Its
-plain version, ``chirp.emulate`` (the wrapper runs it for CPU tensors),
-runs the same steps over the inner routes' plain versions; it is held
-against ``np.fft`` (complex64 N of 4864 = 19*256, M on the long-line
-route, the prime 10007 and 33792 = 33*2^10, M on the split route;
-complex128 N of 3001 and 2432 = 19*128; both directions, the twiddle and
-``pack_parts`` epilogues) and against the JAX package's Pallas kernel in
-interpret mode on the same numpy inputs where the reference factors N
-(4864 and 2432), at the reference's tolerances
+radix, long-line or split route, the chirps in their ``twiddle``
+epilogues.  Its plain version, ``chirp.emulate`` (the wrapper runs it for
+CPU tensors), runs the same steps over the inner routes' plain versions;
+it is held against ``np.fft`` (complex64 N of 5888 = 23*256, M on the
+long-line route, the prime 10007 and 33792 = 33*2^10, M on the split
+route; complex128 N of 3001 and 2944 = 23*128; both directions, the
+twiddle and ``pack_parts`` epilogues) and against the JAX package's
+Pallas kernel in interpret mode on the same numpy inputs where the
+reference factors N (5888 and 2944), at the reference's tolerances
 (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
-complex128).  Then the chirp tables' phase at large N, the routing by
-length, the line copies, the gradient, and ``fft_conv`` at S = 2432
-(lines of 4864, the chirp) and S = 2880 (lines of 5760 = 30 x 12 x 16,
-the long-line route since R2 may be mixed) forward and backward against
-the reference's mixer.  The mixed lengths r*2^k, r in
-``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}, take
-the long-line and split routes (``test_torch_long_mixed_fft.py``,
-``test_torch_split_mixed_fft.py``), and the other 13-smooth odd parts
-the radix and long-line routes up to a 128 KB line and the dense route
-to one block, so the chirp keeps the lengths with a prime factor from
-17 past the dense route's old limit, and the 13-smooth lengths whose
+complex128); so are 4864 = 19*256 and complex128 2432 = 19*128, which
+the chirp held until the radix-19 codelet, on the long-line route now.
+Then the chirp tables' phase at large N, the routing by length, the line
+copies, the gradient, and ``fft_conv`` at S = 2432 (lines of 4864, the
+long-line route now, the chirp before) and S = 2880 (lines of 5760 = 30
+x 12 x 16, the long-line route since R2 may be mixed) forward and
+backward against the reference's mixer.  The mixed lengths r*2^k, r in
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25,
+27}, take the radix, long-line and split routes
+(``test_torch_long_mixed_fft.py``, ``test_torch_split_mixed_fft.py``,
+``test_torch_wide_fft.py``), and the other 13-smooth odd parts the radix
+and long-line routes up to a 128 KB line and the dense route to one
+block, so the chirp keeps the lengths whose generic stages cost the
+dense route more (``dense.GENERIC_COST``) and, past the dense route's
+old limit, any prime
+factor from 17 that no codelet takes, and the 13-smooth lengths whose
 line does not fit one block (33*2^10).
 The CUDA launches are tested in ``test_torch_cuda.py`` and
 ``chip_smoke.py``."""
@@ -46,14 +51,19 @@ VARIANTS = [(2, False, False, None), (1, True, True, None),
             (2, False, True, 2), (1, True, False, 2)]
 LENGTHS = [(torch.complex64, 4864), (torch.complex64, 10007),
            (torch.complex64, 33792), (torch.complex128, 3001),
-           (torch.complex128, 2432)]
+           (torch.complex128, 2432), (torch.complex64, 5888),
+           (torch.complex128, 2944)]
+#: The lengths above that the chirp held until the radix-19 codelet moved
+#: them to the long-line route (19 x 16 x 16 and 19 x 8 x 16), where the
+#: wrapper's plain version is ``longline.emulate``; the rest stay here.
+ROUTE = {4864: "long", 2432: "long"}
 CASES = [(dtype, n, b, inv, tw, parts if n % 2 == 0 else None)
          for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
 #: Where the reference's four-step factors N: at a prime N it is one
 #: dense DFT matrix, 10007 x 10007 (too large to run here), and at 3001
 #: its sums of 3001 terms differ from np.fft by about 1e-12 in complex128
 #: themselves, so the prime lengths are held to np.fft alone.
-PALLAS = {4864, 2432}
+PALLAS = {4864, 2432, 5888, 2944}
 
 
 def _case_id(case):
@@ -109,9 +119,11 @@ def _pallas_c64(case, x, t):
 def test_chirp_route_matches_numpy_and_pallas(case, request):
     """The route's plain version, through the wrapper on CPU tensors,
     against np.fft and (where it runs) the Pallas kernel on the same
-    inputs; no launch is counted on the CPU, a pack is one line copy."""
+    inputs; no launch is counted on the CPU, a pack is one line copy (on
+    the chirp route; none on the long-line route that 19*2^k took)."""
     dtype, n, b, inv, tw, parts = case
-    assert radix.kernel_path(n, dtype) == "chirp"
+    route = ROUTE.get(n, "chirp")
+    assert radix.kernel_path(n, dtype) == route
     x, t = _inputs(case)
     tfm.reset_launch_counts()
     ops.copies["lines"] = 0
@@ -120,7 +132,7 @@ def test_chirp_route_matches_numpy_and_pallas(case, request):
                            pack_parts=parts)
     counts = tfm.launch_counts()
     assert counts["launches"] == 0 and counts["chirp_calls"] == 0
-    assert ops.copies["lines"] == (parts is not None)
+    assert ops.copies["lines"] == (parts is not None and route == "chirp")
     assert got.dtype == dtype
     want_shape = (b, n) if parts is None else (b, parts, n // parts)
     assert tuple(got.shape) == want_shape
@@ -177,7 +189,7 @@ def test_chirp_filter_is_the_transformed_conjugate_chirp():
 
 
 @pytest.mark.parametrize("n,dtype,path", [
-    (4835, torch.complex64, "dense"), (4836, torch.complex64, "chirp"),
+    (4835, torch.complex64, "chirp"), (4836, torch.complex64, "chirp"),
     (4480, torch.complex64, "long"), (5000, torch.complex64, "long"),
     (5760, torch.complex64, "long"), (10007, torch.complex64, "chirp"),
     (11520, torch.complex64, "long"), ((1 << 23) - 1, torch.complex64,
@@ -186,33 +198,42 @@ def test_chirp_filter_is_the_transformed_conjugate_chirp():
     ((1 << 23) + 1, torch.complex64, "dense"),
     (2419, torch.complex128, "dense"), (2420, torch.complex128, "dense"),
     (3001, torch.complex128, "chirp"), (5760, torch.complex128, "long"),
-    (4864, torch.complex64, "chirp"), (23040, torch.complex64, "dense"),
-    (5460, torch.complex64, "dense"), (2432, torch.complex128, "chirp"),
+    (4864, torch.complex64, "long"), (23040, torch.complex64, "dense"),
+    (5460, torch.complex64, "dense"), (2432, torch.complex128, "long"),
     (8448, torch.complex128, "dense"), (16896, torch.complex64, "dense"),
     (33792, torch.complex64, "chirp"), (2421, torch.complex128, "chirp"),
     (1 << 21, torch.complex128, "split"),
     ((1 << 21) + 1, torch.complex128, "dense"),
-    (4096, torch.complex64, "radix"), (3840, torch.complex64, "radix")])
+    (4096, torch.complex64, "radix"), (3840, torch.complex64, "radix"),
+    (4831, torch.complex64, "chirp"), (5888, torch.complex64, "chirp"),
+    (2944, torch.complex128, "chirp"), (521, torch.complex64, "chirp"),
+    (816, torch.complex64, "dense"), (19 << 19, torch.complex64, "split")])
 def test_chirp_routing_by_length(n, dtype, path):
     """The chirp route takes every length that no other route takes, up
-    to half the split route's longest line: past the dense route's old
-    limit (complex64 4835, complex128 2419) a prime factor from 17 (4836
-    = 4*3*13*31, 4864 = 19*256, 10007, complex128 2421 = 9*269) or a
-    13-smooth line past one block (33792 = 33*2^10).  The dense route
-    keeps every length to that limit and takes the 13-smooth lengths past
-    it whose line fits one block (complex128 2420 = 4*5*11^2 and 8448,
-    complex64 5460 = 4*1365, 16896 = 33*512 and 23040 = 45*512, past the
-    long-line route's 128 KB line); beyond the chirp's limit the dense
-    route raises with a message naming it.  The long-line route takes
-    45*2^k (5760 = 30 x 12 x 16, 11520) and 35*2^7 = 4480 up to its line,
-    5000 = 25 x 25 x 8 too."""
+    to half the split route's longest line: up to the dense route's old
+    limit (complex64 4835, complex128 2419) generic stages that cost the
+    dense route more (``dense.GENERIC_COST``: 4835 = 5*967, the primes
+    521 and 4831); past it a prime factor from 17 that no codelet takes
+    (4836 = 4*3*13*31, 5888 = 23*256, 10007, complex128 2421 =
+    9*269, 2944 = 23*128) or a 13-smooth line past one block (33792 =
+    33*2^10).  The dense route keeps the lengths to that limit whose
+    generic stages cost it less (816 = 17*48, complex128 2419 = 41*59)
+    and takes the
+    13-smooth lengths past it whose line fits one block (complex128 2420
+    = 4*5*11^2 and 8448, complex64 5460 = 4*1365, 16896 = 33*512 and
+    23040 = 45*512, past the long-line route's 128 KB line); beyond the
+    chirp's limit the dense route raises with a message naming it.  The
+    long-line route takes 45*2^k (5760 = 30 x 12 x 16, 11520) and 35*2^7
+    = 4480 up to its line, 5000 = 25 x 25 x 8 too, and 19*2^k since the
+    radix-19 codelet (4864 = 19 x 16 x 16, complex128 2432 = 19 x 8 x
+    16); the split route 19*2^19, past the chirp's old limit."""
     assert radix.kernel_path(n, dtype) == path
     if path in ("chirp", "dense"):
         assert chirp.takes(n, dtype) == (path == "chirp")
     if path == "chirp":
         assert chirp.chirp_length(n) <= max(split.FACTORS[dtype])
         assert radix.kernel_path(chirp.chirp_length(n), dtype) in (
-            "long", "split")
+            "radix", "long", "split")
     if path == "dense" and n > 1 << 20:
         with pytest.raises(ValueError, match=f"chirp route every other N "
                            f"up to {chirp.max_length(dtype)}"):
@@ -246,13 +267,14 @@ def test_chirp_lines_along_any_axis_and_their_gradient():
         assert_scaled_close(grads[0], grads[1], 5e-6)
 
 
-def test_fft_conv_at_2432_takes_the_chirp_route_and_matches_reference():
-    """``fft_conv`` at S=2432 (lines of 4864 = 19*256, the chirp route)
-    with 8 channels on the kernel backend's plain version against the
+def test_fft_conv_at_2432_takes_the_long_route_and_matches_reference():
+    """``fft_conv`` at S=2432 (lines of 4864 = 19 x 16 x 16, the
+    long-line route since the radix-19 codelet; the chirp before) with 8
+    channels on the kernel backend's plain version against the
     reference's mixer, float32: the output, and the gradients of w_in,
     basis_w, decay, w_out and the input against ``jax.grad`` of the
     reference's ``fft_backend="xla"``."""
-    _fft_conv_matches_reference(2432, "chirp")
+    _fft_conv_matches_reference(2432, "long")
 
 
 def test_fft_conv_at_2880_takes_the_long_route_and_matches_reference():

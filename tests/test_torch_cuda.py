@@ -49,7 +49,7 @@ def cuda():
 @pytest.mark.parametrize("shape,dtype,parts,use_tw", [
     ((130, 512), torch.complex64, None, False),
     ((5, 1024), torch.complex64, 4, True),
-    ((7, 521), torch.complex64, None, False),      # dense: a prime
+    ((7, 53), torch.complex64, None, False),       # dense: a prime
     ((300, 64), torch.complex64, 8, False),         # ragged last tile
     ((5, 48), torch.complex128, 2, True),
     ((67, 4096), torch.complex64, None, True),      # radix, N1 = N2 = 64
@@ -296,15 +296,16 @@ def test_fft_conv_at_16384_on_the_split_route(cuda):
 def test_cuda_mixed_radix_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
     """Every mixed radix length (N = r*2^k, r in ``radix.RADIX_ODD``: 3
-    to 15, the odd products 21 to 63 and the odd parts from 65 whose N
-    has both factors within a codelet, 600 = 24 x 25 to 3780 = 60 x 63):
+    to 19, the odd products 21 to 63 and the odd parts from 65 whose N
+    has both factors within a codelet, 600 = 24 x 25 to 3780 = 60 x 63;
+    17*2^k and 19*2^k to 2176 = 34 x 64 and 2432 = 38 x 64):
     one radix launch each, against
     the plain version and ``torch.fft`` at the
     kernel's tolerances, without an epilogue and with both (a pack_parts
     segment that is not a power of two where 3 divides N)."""
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in radix.RADIX_SIZES[dtype] if not radix.is_pow2(n)]
-    assert len(mixed) == (299 if dtype == torch.complex64 else 140)
+    assert len(mixed) == (313 if dtype == torch.complex64 else 150)
     for n in mixed:
         x = torch.from_numpy(cplx((21, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
@@ -352,18 +353,24 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
-    (torch.complex64, 4864, 3, False, None, True),      # M on long-line
-    (torch.complex64, 4864, 2, True, 4, False),
+    (torch.complex64, 5888, 3, False, None, True),      # M on long-line
+    (torch.complex64, 5888, 2, True, 4, False),
     (torch.complex64, 10007, 2, True, None, True),      # prime, M split
     (torch.complex64, 33792, 1, False, 2, True),        # past one block
     (torch.complex128, 3001, 2, False, None, True),
-    (torch.complex128, 2432, 1, True, 19, False)])
+    (torch.complex128, 2944, 1, True, 23, False),
+    (torch.complex64, 521, 5, False, None, True),       # M on radix
+    (torch.complex64, 4831, 2, True, None, False),      # left the dense
+    (torch.complex128, 101, 3, True, None, True)])
 def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
         cuda, dtype, n, b, inverse, parts, use_tw):
     """The chirp route (one chirp call; its two inner transforms' launches
-    all on the "chirp" path) against its plain version (``chirp.emulate``)
-    at the kernel's tolerances and ``torch.fft`` within 2e-4, with both
-    epilogues."""
+    all on the "chirp" path, M on the radix, long-line or split route)
+    against its plain version (``chirp.emulate``) at the kernel's
+    tolerances and ``torch.fft`` within 2e-4, with both epilogues; the
+    primes whose generic stage costs the dense route more
+    (``dense.GENERIC_COST``: 521, 4831, complex128 101), which left it
+    too."""
     from repro_torch.kernels import chirp
     assert radix.kernel_path(n, dtype) == "chirp"
     m = chirp.chirp_length(n)
@@ -382,7 +389,7 @@ def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
     got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
     torch.cuda.synchronize()
     counts = tfm.launch_counts()
-    inner = 1 if radix.kernel_path(m, dtype) == "long" else \
+    inner = 1 if radix.kernel_path(m, dtype) in ("radix", "long") else \
         2 + (split_rows_long(m, dtype))
     assert counts["chirp_calls"] == 1 and counts["split_calls"] == 0
     assert counts["launches"] == counts["chirp"] == 2 * inner, counts
@@ -399,12 +406,61 @@ def split_rows_long(n, dtype) -> int:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,route", [
+    (torch.complex64, 2432, "radix"), (torch.complex64, 544, "radix"),
+    (torch.complex128, 608, "radix"), (torch.complex128, 544, "radix"),
+    (torch.complex64, 4864, "long"), (torch.complex64, 9728, "long"),
+    (torch.complex128, 2432, "long"), (torch.complex128, 4864, "long"),
+    (torch.complex64, 17 << 10, "split"), (torch.complex64, 19 << 19,
+                                           "split"),
+    (torch.complex128, 19 << 9, "split"), (torch.complex128, 17 << 17,
+                                           "split")])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_wide_lengths_on_their_routes(cuda, dtype, n, route, inverse):
+    """17*2^k and 19*2^k on the route ``kernel_path`` names (the radix-17
+    and radix-19 codelets: radix, long-line with an odd R1, split with
+    the odd part in Q; the longest split ones lay past the chirp's
+    limit), one call's launches all on it, with the twiddle and a
+    ``pack_parts`` of N/17 or N/19, against the plain version at the
+    kernel's tolerances and ``torch.fft``."""
+    assert radix.kernel_path(n, dtype) == route
+    b = max(1, (1 << 24) // (n * dtype.itemsize))
+    x = torch.from_numpy(cplx((b, n), 23)).to(cuda, dtype)
+    tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
+                   / (2 * n)).to(dtype)
+    parts = radix.odd_part(n)
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    tfm.reset_launch_counts()
+    got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
+    torch.cuda.synchronize()
+    counts = tfm.launch_counts()
+    assert counts["launches"] == counts[route] >= 1, counts
+    assert counts["chirp_calls"] == 0
+    want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=tw,
+                                  pack_parts=parts)
+    lib = ((torch.fft.ifft if inverse else torch.fft.fft)(x) * tw).reshape(
+        b, parts, n // parts)
+    assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+    assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
+    if tfm.strided_supported(n, dtype, False):      # the strided entry
+        y = torch.from_numpy(cplx((3, n, 40), 24)).to(cuda, dtype)
+        tfm.reset_launch_counts()
+        got = tfm.fft_fourstep_strided(y, inverse=inverse)
+        torch.cuda.synchronize()
+        assert tfm.fft_fourstep.layout_launches["strided"] == 1
+        assert_scaled_close(
+            got.cpu().numpy(),
+            (torch.fft.ifft if inverse else torch.fft.fft)(
+                y, dim=1).cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,b", [
     (torch.complex64, 75, 67), (torch.complex64, 4725, 3),     # odd
     (torch.complex64, 2730, 5), (torch.complex128, 990, 9),    # no codelets
     (torch.complex64, 504, 17), (torch.complex128, 22, 300),   # spills
-    (torch.complex64, 544, 37), (torch.complex128, 323, 11),   # generic
-    (torch.complex64, 4831, 2),                                # prime
+    (torch.complex64, 816, 37), (torch.complex128, 323, 11),   # generic
+    (torch.complex64, 53, 301),                                # prime
     (torch.complex64, 23040, 3), (torch.complex128, 8448, 2),  # off chirp
     (torch.complex64, 28431, 2)])
 @pytest.mark.parametrize("inverse", [False, True])
@@ -439,12 +495,12 @@ def test_cuda_dense_route_matches_plain_version_and_torch_fft(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [384, 6144, 4864, 24576, 10752, 4800, 4725])
+@pytest.mark.parametrize("n", [384, 6144, 5888, 24576, 10752, 4800, 4725])
 def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
     """A contiguous view 8 bytes into its storage, at mixed lengths on the
     radix, long-line (its row copies are 16-byte aligned: the wrapper
     clones; 10752 = 21 x 16 x 32, an odd R1; 4800 = 30 x 10 x 16, a mixed
-    R2) and split routes, on the chirp route (4864 = 19*256) and on the
+    R2) and split routes, on the chirp route (5888 = 23*256) and on the
     dense route (4725, odd: its copies take 8 bytes at a time):
     transformed all the same."""
     base = torch.from_numpy(cplx((2 * n + 1,), 18)).to(cuda)
@@ -535,8 +591,8 @@ def _fft_conv_on_the_long_route(cuda, s):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
-    """Every mixed long-line length (complex64 4608-15360, complex128
-    1152-7680, r in ``radix.EVERY_ROUTE_ODD``: 3 to 15, 21, 25, 27): one
+    """Every mixed long-line length (complex64 4352-15360, complex128
+    1088-7680, r in ``radix.EVERY_ROUTE_ODD``: 3 to 19, 21, 25, 27): one
     launch on "long" each,
     against the plain version (``longline.emulate``) and ``torch.fft`` at
     the kernel's tolerances, without an epilogue and with both (segments
@@ -545,12 +601,12 @@ def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in sorted(longline.FACTORS[dtype])
              if radix.odd_part(n) in radix.EVERY_ROUTE_ODD]
-    assert len(mixed) == (20 if dtype == torch.complex64 else 30)
+    assert len(mixed) == (24 if dtype == torch.complex64 else 36)
     for n in mixed:
         x = torch.from_numpy(cplx((37, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
                        / (2 * n)).to(dtype)
-        parts = next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
+        parts = next(r for r in (3, 5, 7, 11, 13, 17, 19) if n % r == 0)
         lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
         for t, p in ((None, None), (tw, parts)):
             tfm.reset_launch_counts()
@@ -616,7 +672,7 @@ def test_cuda_split_mixed_lengths_match_plain_version_and_torch_fft(
              if not radix.is_pow2(n)]
     for i, n in enumerate(mixed):
         inverse, use_tw = i % 2 == 1, i % 3 == 0
-        parts = (next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
+        parts = (next(r for r in (3, 5, 7, 11, 13, 17, 19) if n % r == 0)
                  if i % 2 else None)
         b = max(1, (1 << 24) // (n * dtype.itemsize))
         x = torch.from_numpy(cplx((b, n), i)).to(cuda, dtype)

@@ -6,8 +6,9 @@ maps, twiddle products and store order; it is held against ``np.fft`` at
 one length per family -- odd 13-smooth N (complex64 75, 4725), the even
 13-smooth N that no codelets of the radix or long-line route hold
 (complex64 2730, 3430, 4050, complex128 990), the spill lengths
-(complex64 208, complex128 22), N with a prime factor past 13 (544 =
-17*32) and a prime (521), and the 13-smooth lengths past the old
+(complex64 208, complex128 22), N with a prime factor past 13 that
+``dense.GENERIC_COST`` keeps (816 = 17*48) and such a prime (17), and the
+13-smooth lengths past the old
 one-block limit that left the chirp route (complex128 2420, 8448,
 complex64 16896) -- both directions, the twiddle and ``pack_parts``
 epilogues, and against the JAX package's Pallas kernel in interpret mode
@@ -27,17 +28,18 @@ import torch
 from repro.kernels import fft_matmul as jfm
 from repro_torch.kernels import chirp, dense, ops, radix
 from repro_torch.kernels import fft_matmul as tfm
-from torch_harness import assert_scaled_close, pallas_lines_c128
+from torch_harness import (assert_scaled_close, dense_keeps,
+                           pallas_lines_c128)
 
 TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
 NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 c64, c128 = torch.complex64, torch.complex128
 LENGTHS = [(c64, 75), (c64, 4725), (c64, 2730), (c64, 3430), (c64, 4050),
-           (c128, 990), (c64, 208), (c128, 22), (c64, 544), (c64, 521),
+           (c128, 990), (c64, 208), (c128, 22), (c64, 816), (c64, 17),
            (c128, 2420), (c128, 8448), (c64, 16896)]
 #: Where the Pallas kernel runs here in seconds: its dense DFT matrices
 #: grow with N1 and N2.
-PALLAS = {75, 208, 22, 544, 521, 990, 2730}
+PALLAS = {75, 208, 22, 816, 17, 990, 2730}
 
 
 def _variants(n):
@@ -127,8 +129,8 @@ def test_dense_route_matches_numpy_and_pallas(case, request):
 
 #: Lengths of every chain shape: N = 1, a prime, codelet stages only, 4s
 #: and a last 2, one and two generic stages, the longest lines.
-PLAN_LENGTHS = [1, 2, 9, 22, 75, 208, 289, 323, 504, 521, 544, 990, 2730,
-                4050, 4725, 4831, 8448, 16896, 23040, 28028, 28431]
+PLAN_LENGTHS = [1, 2, 9, 22, 75, 208, 289, 323, 504, 17, 816, 990, 2730,
+                4050, 4725, 4199, 8448, 16896, 23040, 28028, 28431]
 
 
 @pytest.mark.parametrize("n", PLAN_LENGTHS)
@@ -193,11 +195,12 @@ def test_dense_plan_chain_permutation_and_tables(n):
 def test_dense_route_takes_the_smooth_lines_that_fit_one_block(
         dtype, count, first, last):
     """Every N up to ``dense.DENSE_LIMIT`` that no other route takes stays
-    "dense", as before; past it the route takes exactly the 13-smooth N
-    that no other route takes and whose line and tables fit one block
-    (``dense.fits``), and the chirp route every other N up to its limit:
-    no N with a prime factor past 13 leaves the chirp, and none of the
-    radix, long-line and split lengths moves."""
+    "dense" while its generic stages cost no more than the chirp route
+    (``dense.GENERIC_COST``) and takes the chirp route past it; past the limit the route takes exactly
+    the 13-smooth N that no other route takes and whose line and tables
+    fit one block (``dense.fits``), and the chirp route every other N up
+    to its limit: no N with a prime factor past 13 leaves the chirp
+    there, and none of the radix, long-line and split lengths moves."""
     from repro_torch.kernels import longline, split
     limit = dense.DENSE_LIMIT[dtype]
     taken = []
@@ -209,7 +212,9 @@ def test_dense_route_takes_the_smooth_lines_that_fit_one_block(
         if other:
             assert path != "dense" and path != "chirp", n
         elif n <= limit:
-            assert path == "dense", n
+            want = ("dense" if dense_keeps(n, dense.GENERIC_COST[dtype],
+                                           dense.MOVE_MARGIN) else "chirp")
+            assert path == want, n
         elif radix.smooth(n) and dense.fits(n, dtype):
             assert path == "dense", n
             taken.append(n)

@@ -203,15 +203,18 @@ def test_launch_config_fits_shared_memory():
     assert (cfg.lines, cfg.buffers) == (32, 1) == (plan.lines, plan.buffers)
     assert cfg.smem_bytes == plan.smem_bytes == plan.buf_offset + \
         32 * 75 * 8 <= tfm.SMEM_MAX_BYTES // 2
-    prime = tfm.launch_config(521, 8)
-    assert prime.buffers == 2 and prime.lines == 4   # one generic stage
-    assert prime.smem_bytes <= radix.SMEM_TARGET_BYTES
+    generic = tfm.launch_config(816, 8)              # 816 = 17*48
+    assert generic.buffers == 2 and generic.lines == 4   # a generic stage
+    assert generic.smem_bytes <= radix.SMEM_TARGET_BYTES
     c128 = tfm.launch_config(990, 16)
     assert (c128.lines, c128.buffers) == (4, 1)
     assert c128.smem_bytes <= radix.SMEM_TARGET_BYTES
     for dtype, limit in dense.DENSE_LIMIT.items():
         item = dtype.itemsize
-        for n in (limit, limit - 4, 4831, 2417, 4725):
+        # the longest lines the route keeps up to its limit (the longer
+        # ones whose generic stages cost more are the chirp's)
+        near = [m for m in range(limit, 0, -1) if dense.takes(m, dtype)]
+        for n in near[:2] + [4725, 4199]:
             if n > limit:
                 continue
             one = tfm.launch_config(n, item)
@@ -309,7 +312,7 @@ def test_kernel_operands_are_resolved():
     (512, torch.complex64, "radix"), (4096, torch.complex64, "radix"),
     (8192, torch.complex64, "long"), (24, torch.complex64, "radix"),
     (33, torch.complex64, "dense"), (96, torch.complex64, "radix"),
-    (521, torch.complex64, "dense"), (1024, torch.complex128, "radix"),
+    (521, torch.complex64, "chirp"), (1024, torch.complex128, "radix"),
     (2, torch.complex128, "dense"), (4, torch.complex128, "radix"),
     (2048, torch.complex128, "long"), (4096, torch.complex128, "long"),
     (48, torch.complex128, "radix"), (16384, torch.complex64, "long"),
@@ -324,26 +327,32 @@ def test_kernel_operands_are_resolved():
     (600, torch.complex64, "radix"), (600, torch.complex128, "radix"),
     (3600, torch.complex64, "radix"), (3780, torch.complex64, "radix"),
     (900, torch.complex128, "radix"), (2730, torch.complex64, "dense"),
-    (1000, torch.complex128, "long"), (544, torch.complex64, "dense"),
+    (1000, torch.complex128, "long"), (544, torch.complex64, "radix"),
     (75, torch.complex64, "dense"), (4800, torch.complex64, "long"),
-    (4864, torch.complex64, "chirp"), (23040, torch.complex64, "dense"),
+    (4864, torch.complex64, "long"), (23040, torch.complex64, "dense"),
     (4050, torch.complex64, "dense"), (990, torch.complex128, "dense"),
     (4725, torch.complex64, "dense"), (33792, torch.complex64, "chirp"),
-    (16896, torch.complex64, "dense"), (8448, torch.complex128, "dense")])
+    (16896, torch.complex64, "dense"), (8448, torch.complex128, "dense"),
+    (2432, torch.complex64, "radix"), (608, torch.complex128, "radix"),
+    (2432, torch.complex128, "long"), (816, torch.complex64, "dense"),
+    (4831, torch.complex64, "chirp"), (19 << 19, torch.complex64, "split"),
+    (17 << 17, torch.complex128, "split")])
 def test_kernel_path_selection(n, dtype, path):
     """The path follows N and the dtype alone: N with a radix
     instantiation (powers of two, and mixed r*2^k such as 24, 96 and
     complex128 48) takes the radix kernel, longer power-of-two N whose
     line fits in a block's shared memory the long-line kernel, the
     power-of-two N beyond one block up to 2^24 (complex64) / 2^22
-    (complex128) the split route, every other N beyond one block up to
-    half those that the dense route does not take (4864 = 19*256: no
-    route past the old dense kernel's one block takes a factor of 19;
-    33792 = 33*2^10, 13-smooth but a line past one block) the chirp
-    route, every other N the dense one: every N up to the old dense
-    kernel's limit (complex64 4835, complex128 2419), and past it the
-    13-smooth N whose line fits one block (23040 = 45*512 and 16896 =
-    33*512, past the long-line route's 128 KB line; complex128 8448),
+    (complex128) the split route, every other N up to half those that
+    the dense route does not take (the primes 521 and 4831, whose generic
+    stage costs more than the chirp, ``dense.GENERIC_COST``; 33792 =
+    33*2^10, 13-smooth but a line past one block) the chirp route, every
+    other N the dense one: every N up to the old dense kernel's limit
+    (complex64 4835, complex128 2419) whose generic stages cost less
+    (816 = 17*48), and
+    past it the 13-smooth N whose line fits one block (23040 = 45*512 and
+    16896 = 33*512, past the long-line route's 128 KB line; complex128
+    8448),
     the mixed-radix kernel in shared memory since it replaced the dense
     matrices, which needed one block for W1, W2 and the line (the card
     refuses the route past its domain: 2^25 / 2^23).  The mixed lengths past the radix route (13312 =
@@ -357,7 +366,12 @@ def test_kernel_path_selection(n, dtype, path):
     with an odd part from 65 whose factors both fit a codelet (600 = 24 x
     25, 3600 = 60 x 60, 3780 = 60 x 63, complex128 900 = 30 x 30); those
     that no route takes (2730 = 42 x 65, 4050 = 2 x 2025, complex128
-    990 = 2 x 495), odd N (75, 4725) and 544 = 17*32 run dense."""
+    990 = 2 x 495) and odd N (75, 4725) run dense.  17*2^k and 19*2^k
+    take the radix route since the radix-17 and radix-19 codelets (544 =
+    17 x 32, 2432 = 38 x 64, complex128 608 = 19 x 32), the long-line
+    route past it (4864 = 19 x 16 x 16, complex128 2432 = 19 x 8 x 16)
+    and the split route to 2^24 / 2^22 (19*2^19, complex128 17*2^17, past
+    the chirp's limit)."""
     assert radix.kernel_path(n, dtype) == path
 
 
@@ -377,9 +391,9 @@ def test_radix_plan_factors_and_codelets():
                 assert all(w is None or 0 < w < plan.n2 // 2
                            for _, _, w in stage)
     assert [radix.bitrev(i, 3) for i in range(8)] == [0, 4, 2, 6, 1, 5, 3, 7]
-    for bad in (0, 1, 17, 34, 51):
-        with pytest.raises(ValueError,
-                           match="prime factors are 2, 3, 5, 7, 11 and 13"):
+    for bad in (0, 1, 23, 46, 69, 2 * 17 * 23):
+        with pytest.raises(ValueError, match="prime factors are 2, 3, 5, "
+                           "7, 11, 13, 17 and 19"):
             radix.radix_plan(bad)
 
 

@@ -1,8 +1,8 @@
 """The long-line route at the mixed lengths r*2^k, r in
-``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25, 27}
 (``kernels/longline.py``, ``csrc/fft_long.cuh``'s
-``long_mixed_kernel``): complex64 N of 4608 to 15360 and complex128 N of
-1152 to 7680, whose line fits one block; and the rule's lengths, whose
+``long_mixed_kernel``): complex64 N of 4352 to 15360 and complex128 N of
+1088 to 7680, whose line fits one block; and the rule's lengths, whose
 odd part (33 to 729) needs a second mixed factor R2 (complex64 3168 to
 16128, complex128 792 to 8064: ``longline.rule_factors``), at one length
 per family and dtype (c64 4800 = 30 x 10 x 16, 8448 = 24 x 11 x 32,
@@ -15,8 +15,8 @@ item by item) runs in torch in
 for CPU tensors); it is held against ``np.fft`` at every length (both
 directions, the twiddle and ``pack_parts`` epilogues) and against the JAX
 package's Pallas kernel in interpret mode on the same numpy inputs at one
-length per odd part r = 3, 5, 9, 15, 21, 25, 27 (an odd R1) and every
-7*2^k, 11*2^k and 13*2^k, per dtype, at the reference's tolerances
+length per odd part r = 3, 5, 9, 15, 17, 19, 21, 25, 27 (an odd R1) and
+every 7*2^k, 11*2^k and 13*2^k, per dtype, at the reference's tolerances
 (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
 complex128).  Then the plan's threads, sizes and tables, the routing of
 every mixed length past the radix route, and ``fft_conv`` at S = 2688,
@@ -35,7 +35,8 @@ from repro.kernels import fft_matmul as jfm
 from repro_torch.kernels import fft_matmul as tfm
 from repro_torch.core.transforms import factorize
 from repro_torch.kernels import dense, longline, ops, radix
-from torch_harness import assert_scaled_close, pallas_lines_c128
+from torch_harness import (assert_scaled_close, dense_keeps,
+                           pallas_lines_c128)
 
 TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
 NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
@@ -59,19 +60,19 @@ TWO_PARITY = [(torch.complex64, 4800), (torch.complex64, 8448),
 VARIANTS = [(3, False, False, None), (1, True, True, None),
             (2, False, False, "odd"), (2, True, True, 4)]
 CASES = [(dtype, n, b, inv, tw,
-          next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
+          next(r for r in (3, 5, 7, 11, 13, 17, 19) if n % r == 0)
           if parts == "odd" else parts)
          for dtype, n in MIXED + TWO_PARITY
          for b, inv, tw, parts in VARIANTS]
-#: One length per odd part r = 3, 5, 9, 15, 21, 25, 27 and every 7*2^k,
-#: 11*2^k and 13*2^k, per dtype, and the rule's parity lengths, held
-#: against the Pallas kernel too.
+#: One length per odd part r = 3, 5, 9, 15, 17, 19, 21, 25, 27 and every
+#: 7*2^k, 11*2^k and 13*2^k, per dtype, and the rule's parity lengths,
+#: held against the Pallas kernel too.
 PALLAS = {torch.complex64: {4608, 5120, 6144, 7680, 5632, 7168, 11264,
                             14336, 6656, 13312, 5376, 6400, 13824, 4800,
-                            8448, 3888},
+                            8448, 3888, 4352, 4864},
           torch.complex128: {1152, 1280, 3072, 7680, 1408, 1792, 2816,
                              3584, 5632, 7168, 1664, 3328, 6656, 1344,
-                             3200, 6912, 4224, 2400, 1056}}
+                             3200, 6912, 4224, 2400, 1056, 1088, 2432}}
 
 
 def _case_id(case):
@@ -206,14 +207,17 @@ def test_long_mixed_lengths_are_every_r_2k_that_fits():
     """The table holds every mixed N = r*2^k, r in
     ``radix.EVERY_ROUTE_ODD``, past the radix route (a factor of
     ``factorize`` past its codelets' 64 or 32 values) whose line is at
-    most 128 KB: complex64 4608 to 15360, complex128 1152 to 7680; 6144 is 24 x 16 x 16 on 256 threads (1 round of radix 24, 2 of
+    most 128 KB: complex64 4352 to 15360, complex128 1088 to 7680; 6144
+    is 24 x 16 x 16 on 256 threads (1 round of radix 24, 2 of
     radix 16), complex128 1152 18 x 8 x 8 on 128, 7168 28 x 16 x 16
     (complex64 and complex128), 11264 22 x 16 x 32, 6656 26 x 16 x 16
     (complex64 and complex128), complex128 1664 26 x 8 x 8; the odd
     products 21, 25 and 27 have an odd R1 (complex64 10752 21 x 16 x 32,
-    complex128 1344 21 x 8 x 8 and 6912 27 x 16 x 16)."""
-    for dtype, first, last, cap in ((torch.complex64, 4608, 15360, 64),
-                                    (torch.complex128, 1152, 7680, 32)):
+    complex128 1344 21 x 8 x 8 and 6912 27 x 16 x 16), and so do the
+    primes 17 and 19 (complex64 4352 17 x 16 x 16 and 9728 19 x 16 x 32,
+    complex128 1088 17 x 8 x 8 and 2432 19 x 8 x 16)."""
+    for dtype, first, last, cap in ((torch.complex64, 4352, 15360, 64),
+                                    (torch.complex128, 1088, 7680, 32)):
         want = sorted(r << k for r in radix.EVERY_ROUTE_ODD
                       for k in range(1, 14)
                       if max(factorize(r << k)) > cap
@@ -238,7 +242,11 @@ def test_long_mixed_lengths_are_every_r_2k_that_fits():
     assert (plan.r1, plan.r2, plan.r3) == (26, 8, 8)
     for n, dtype, factors in ((10752, torch.complex64, (21, 16, 32)),
                               (1344, torch.complex128, (21, 8, 8)),
-                              (6912, torch.complex128, (27, 16, 16))):
+                              (6912, torch.complex128, (27, 16, 16)),
+                              (4352, torch.complex64, (17, 16, 16)),
+                              (9728, torch.complex64, (19, 16, 32)),
+                              (1088, torch.complex128, (17, 8, 8)),
+                              (2432, torch.complex128, (19, 8, 16))):
         plan = longline.long_plan(n, dtype)
         assert (plan.r1, plan.r2, plan.r3) == factors
 
@@ -270,7 +278,7 @@ def _old_path(n: int, dtype: torch.dtype) -> str:
     (torch.complex64, 90, 3168, 16128), (torch.complex128, 135, 792, 8064)])
 def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
     """``longline.FACTORS`` is the table (the powers of two and the one
-    mixed factor lengths, 22 complex64 and 33 complex128, their factors
+    mixed factor lengths, 26 complex64 and 39 complex128, their factors
     as before: R1 the odd part times as many 2s as 32 allows, R2 <= R3
     powers of two at most a factor 2 apart) and the rule: every even
     13-smooth N past the radix route (less ``radix._SPILLS``) up to a
@@ -282,12 +290,14 @@ def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
     complex64 and 63 complex128 from "dense", 72 each from "chirp"), and
     every other length up to twice the line where it went before (or,
     13-smooth past the old dense limit, on the dense route since it
-    takes the lines that fit one block)."""
+    takes the lines that fit one block; or, up to that limit with generic
+    stages that cost more than the chirp, on the chirp route)."""
     table = longline._TABLE[dtype]
-    assert len(table) == (22 if dtype == torch.complex64 else 33)
+    assert len(table) == (26 if dtype == torch.complex64 else 39)
     for n, (r1, r2, r3) in longline.FACTORS[dtype].items():
         assert r1 * r2 * r3 == n and max(r1, r2, r3) <= 32
-        assert radix.smooth(r1) and radix.smooth(r2) and radix.is_pow2(r3)
+        assert radix.codelet_length(r1) and radix.smooth(r2) \
+            and radix.is_pow2(r3)
         assert n * dtype.itemsize <= 128 << 10
         if n in table and not radix.is_pow2(n):
             odd = radix.odd_part(n)
@@ -321,6 +331,12 @@ def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
                         longline.LongPlan(n, a, n // c3 // a, c3,
                                           dtype.itemsize)), (n, c3)
             assert _largest_r1(n // r3) == r1, n
+        elif path != old and (old, path) == ("dense", "chirp"):
+            # since the chirp took the lines whose generic stages cost
+            # more than it from the dense route
+            assert n <= dense.DENSE_LIMIT[dtype] and not dense_keeps(
+                n, dense.GENERIC_COST[dtype], dense.MOVE_MARGIN), (
+                    n, path, old)
         elif path != old:
             # since the dense route took the 13-smooth lines that fit one
             # block from the chirp
@@ -450,11 +466,13 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
     """``radix.kernel_path``: every complex64 r*2^k from 4608 to 16384 and
     every complex128 one from 1152 to 8192 is "long", every longer one up
     to the split route's limits (2^24, 2^22) "split"; none is "chirp" or
-    "dense" (7*2^k, 11*2^k, 13*2^k, 21*2^k, 25*2^k and 27*2^k included:
-    complex64 13*2^20 and complex128 13*2^18, past the chirp's limits,
-    run); a prime and 19*2^k past the dense route's old limit stay
-    "chirp", and so does 45*2^k past one block (45*2^10; 45*2^9, past
-    the 128 KB line but within one block, is "dense")."""
+    "dense" (7*2^k, 11*2^k, 13*2^k, 17*2^k, 19*2^k, 21*2^k, 25*2^k and
+    27*2^k included: complex64 13*2^20, 19*2^19 and complex128 13*2^18,
+    19*2^17, past the chirp's limits, run); a prime and 23*2^k past the
+    dense route's old limit stay "chirp", and so does 45*2^k past one
+    block (45*2^10; 45*2^9, past the 128 KB line but within one block,
+    is "dense"); 19*2^k, the chirp's before the radix-19 codelet, is
+    "long" (4864, complex128 2432)."""
     for dtype, (lo, hi, top) in {
             torch.complex64: (4608, 16384, 1 << 24),
             torch.complex128: (1152, 8192, 1 << 22)}.items():
@@ -467,11 +485,15 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
                 assert radix.kernel_path(n, dtype) == want, (n, dtype)
     assert radix.kernel_path(13 << 20, torch.complex64) == "split"
     assert radix.kernel_path(13 << 18, torch.complex128) == "split"
-    for n, dtype in ((4864, torch.complex64), (10007, torch.complex64),
-                     (46080, torch.complex64), (2432, torch.complex128),
+    for n, dtype in ((5888, torch.complex64), (10007, torch.complex64),
+                     (46080, torch.complex64), (2944, torch.complex128),
                      (3001, torch.complex128)):
         assert radix.kernel_path(n, dtype) == "chirp"
     assert radix.kernel_path(23040, torch.complex64) == "dense"
+    assert radix.kernel_path(4864, torch.complex64) == "long"
+    assert radix.kernel_path(2432, torch.complex128) == "long"
+    assert radix.kernel_path(19 << 19, torch.complex64) == "split"
+    assert radix.kernel_path(19 << 17, torch.complex128) == "split"
 
 
 def test_mixed_long_lines_along_any_axis_and_their_gradient():

@@ -1,14 +1,13 @@
 """The radix route's mixed lengths (``kernels/radix.py``,
-``csrc/fft_radix.cuh``): N = r*2^k, r in ``radix.RADIX_ODD`` (3, 5, 7,
-9, 11, 13, 15, the odd products 21 to 63 and, where both factors fit a
-codelet, the odd parts from 65), whose codelets are chains of radix-13,
-11, 7, 5, 3, 4 and 2
-butterflies on digit-reversed loads (radix 7, 11 and 13 in the
-symmetric-pair form); one length per odd product and dtype, and c64 672,
-1440 and 4032; for the odd parts from 65 one length per family (75:
-c64 150 = 10 x 15 and 600 = 24 x 25, 125: 1000, 225: 1800, 3600 = 60 x
-60 and c128 900 = 30 x 30, 169: c64 338 = 13 x 26, 65: c128 130) and
-c128 300.  The
+``csrc/fft_radix.cuh``): N = r*2^k, r in ``radix.RADIX_ODD`` (3, 5, 7, 9,
+11, 13, 15, 17, 19, the odd products 21 to 63 and, where both factors fit a
+codelet, the odd parts from 65), whose codelets are chains of radix-19, 17,
+13, 11, 7, 5, 3, 4 and 2 butterflies on digit-reversed loads (radix 7 to 19
+in the symmetric-pair form; ``test_torch_wide_fft.py`` holds 17*2^k and
+19*2^k); one length per odd product and dtype, and c64 672, 1440 and 4032;
+for the odd parts from 65 one length per family (75: c64 150 = 10 x 15 and
+600 = 24 x 25, 125: 1000, 225: 1800, 3600 = 60 x 60 and c128 900 = 30 x 30,
+169: c64 338 = 13 x 26, 65: c128 130) and c128 300.  The
 kernel's plan and index maps, run in torch by ``radix.emulate``, are held
 against ``np.fft`` and against the JAX package's Pallas kernel in interpret
 mode on the same numpy inputs: both directions, the twiddle epilogue,
@@ -38,7 +37,8 @@ from repro_torch.core import api
 from repro_torch.core.transforms import factorize
 from repro_torch.kernels import fft_matmul as tfm
 from repro_torch.kernels import chirp, dense, longline, radix, split
-from torch_harness import assert_scaled_close, pallas_lines_c128
+from torch_harness import (assert_scaled_close, dense_keeps,
+                           pallas_lines_c128)
 
 TOL = {torch.complex64: 5e-6, torch.complex128: 1e-12}
 NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
@@ -192,13 +192,15 @@ def test_mixed_strided_layout_matches_numpy(dtype, n, inverse):
     (52, (13, 4)), (104, (13, 4, 2)), (143, (13, 11)), (21, (7, 3)),
     (25, (5, 5)), (27, (3, 3, 3)), (33, (11, 3)), (35, (7, 5)),
     (39, (13, 3)), (45, (5, 3, 3)), (49, (7, 7)), (55, (11, 5)),
-    (63, (7, 3, 3)), (42, (7, 3, 2)), (54, (3, 3, 3, 2))])
+    (63, (7, 3, 3)), (42, (7, 3, 2)), (54, (3, 3, 3, 2)), (17, (17,)),
+    (19, (19,)), (34, (17, 2)), (38, (19, 2)), (68, (17, 4)),
+    (76, (19, 4)), (136, (17, 4, 2)), (323, (19, 17))])
 def test_mixed_codelet_chain_and_loads(length, chain):
-    """The radix chain (the 13s, the 11s, the 7s, the 5s, the 3s, then 4s
-    and a last 2; 2s for a
-    power of two), the load order (a permutation; bit reversal for a
-    power of two), and every stage touching each register once with its
-    twiddle inside the codelet's own table of ``length`` entries."""
+    """The radix chain (the 19s, the 17s, the 13s, the 11s, the 7s, the 5s,
+    the 3s, then 4s and a last 2; 2s for a power of two), the load order (a
+    permutation; bit reversal for a power of two), and every stage touching
+    each register once with its twiddle inside the codelet's own table of
+    ``length`` entries."""
     assert radix.radices(length) == chain
     slots = [radix.load_slot(i, length) for i in range(length)]
     assert sorted(slots) == list(range(length))
@@ -251,17 +253,18 @@ def test_mixed_13_codelets_of_416_and_3328(n, factors, chains):
 
 
 def test_mixed_sizes_tables_and_tiles():
-    """299 mixed complex64 lengths to 3780 and 140 complex128 to 960 (178
-    and 54 of them with an odd part from 65; complex128 22 and complex64
-    208 and 504 spill in ptxas and run dense), every codelet at most 64
+    """313 mixed complex64 lengths to 3780 and 150 complex128 to 960 (178
+    and 54 of them with an odd part from 65, 14 and 10 of them 17*2^k and
+    19*2^k; complex128 22 and complex64 208 and 504 spill in ptxas and
+    run dense), every codelet at most 64
     (complex64) or 32 (complex128) long, every odd part among the radix
     route's (``radix.RADIX_ODD``); each codelet
     has its own table (N2 + N1 entries); the tile's lines are a power of
     two; the split route's P stays a power of two (its pass A), and its Q
     is a power of two or a mixed length of the long-line route or of the
     codelets (its pass B: complex64 208 runs there, clean in ptxas)."""
-    for dtype, count, cap in ((torch.complex64, 299, 64),
-                              (torch.complex128, 140, 32)):
+    for dtype, count, cap in ((torch.complex64, 313, 64),
+                              (torch.complex128, 150, 32)):
         mixed = [n for n in radix.RADIX_SIZES[dtype]
                  if not radix.is_pow2(n)]
         assert len(mixed) == count
@@ -371,8 +374,8 @@ def test_cuda_dispatch_instantiates_the_python_tables():
     route there, with ``factorize``'s factors: ``radix.RADIX_SIZES`` on
     the plain radix kernel, ``split.COLUMN_SIZES`` and ``ROW_SIZES`` on
     its split passes, ``longline.FACTORS`` on the long-line kernels (the
-    odd R1 = 21, 25 and 27 too), per dtype; no length is left without an
-    instantiation or instantiated in vain."""
+    odd R1 = 17, 19, 21, 25 and 27 too), per dtype; no length is left
+    without an instantiation or instantiated in vain."""
     cases, long_cases = _dispatch_cases()
     for dtype in (torch.complex64, torch.complex128):
         for mode, sizes in (("plain", radix.RADIX_SIZES[dtype]),
@@ -385,6 +388,11 @@ def test_cuda_dispatch_instantiates_the_python_tables():
         assert long_cases[dtype] == longline.FACTORS[dtype]
     assert cases["plain", torch.complex64][4032] == (63, 64)
     assert long_cases[torch.complex64][10752] == (21, 16, 32)
+    assert cases["plain", torch.complex64][2432] == (38, 64)
+    assert cases["plain", torch.complex128][544] == (17, 32)
+    assert cases["B", torch.complex64][1216] == (32, 38)
+    assert long_cases[torch.complex64][9728] == (19, 16, 32)
+    assert long_cases[torch.complex128][4864] == (19, 16, 16)
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
@@ -435,17 +443,17 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_even_smooth_lengths_take_the_radix_route_when_both_factors_fit(
         dtype):
-    """Every even 13-smooth N to 4096 (complex64) / 1024 (complex128) is
-    on the radix route exactly when both factors fit a codelet and N is
-    not one of the spills; otherwise on the long-line route where three
-    codelets of at most 32 take it (``longline.rule_factors``: complex64
-    3168 to 4096, complex128 792 to 1024) and N is not a spill, and on
-    the dense kernel else; the radix lengths are those and nothing else,
-    their odd parts ``RADIX_ODD``."""
+    """Every even 13-smooth N, 17*2^k and 19*2^k to 4096 (complex64) / 1024
+    (complex128) is on the radix route exactly when both factors fit a
+    codelet and N is not one of the spills; otherwise on the long-line route
+    where three codelets of at most 32 take it (``longline.rule_factors``:
+    complex64 3168 to 4096, complex128 792 to 1024) and N is not a spill,
+    and on the dense kernel else; the radix lengths are those and nothing
+    else, their odd parts ``RADIX_ODD``."""
     cap = radix.CODELET_MAX[dtype]
     want = []
     for n in range(2, cap * cap + 1, 2):
-        if not radix.smooth(n):
+        if not radix.codelet_length(n):
             continue
         path = radix.kernel_path(n, dtype)
         if max(factorize(n)) <= cap and n not in radix._SPILLS[dtype]:
@@ -466,15 +474,23 @@ def test_even_smooth_lengths_take_the_radix_route_when_both_factors_fit(
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_odd_and_rough_lengths_stay_dense(dtype):
     """Odd N (75, 225, 1575, ...) and even N with a prime factor past 13
-    (544 = 17*32) stay on the dense kernel within the radix route's
-    range."""
+    that no codelet takes (816 = 17*48) stay on the dense kernel within
+    the radix route's range while their generic stages cost no more than
+    the chirp route (``dense.GENERIC_COST``), and take the chirp route
+    past it (the primes 521 and 1021); 17*2^k and 19*2^k take the radix route (544 = 17 x
+    32)."""
     cap = radix.CODELET_MAX[dtype]
-    for n in range(3, cap * cap + 1, 2):
-        assert radix.kernel_path(n, dtype) == "dense", n
-    for n in range(2, cap * cap + 1, 2):
-        if not radix.smooth(n):
-            assert radix.kernel_path(n, dtype) == "dense", n
-    assert radix.kernel_path(544, dtype) == "dense"
+    cost = dense.GENERIC_COST[dtype]
+    for n in range(3, cap * cap + 1):
+        if n % 2 == 0 and radix.codelet_length(n):
+            continue
+        want = ("dense" if dense_keeps(n, cost, dense.MOVE_MARGIN)
+                else "chirp")
+        assert radix.kernel_path(n, dtype) == want, n
+    assert radix.kernel_path(544, dtype) == "radix"
+    assert radix.kernel_path(816, dtype) == "dense"
+    assert radix.kernel_path(521, dtype) == "chirp"
+    assert radix.kernel_path(1021, dtype) == "chirp"
 
 
 @pytest.fixture

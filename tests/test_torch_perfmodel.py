@@ -202,7 +202,7 @@ def test_kernel_line_flops_follow_kernel_path(n, dtype):
             < tpm._line_flops(n, "matmul")
     else:
         # the dense route's mixed-radix chain: 5 n log2 over its 13-smooth
-        # part, 8 n p per generic stage (544 = 17*32: one), not
+        # part, 8 n p per generic stage (816 = 17*48: one), not
         # factorize's dense count
         rs = dense.chain(n)
         assert got == 5.0 * n * math.log2(math.prod(

@@ -1,10 +1,10 @@
 """The split route at the mixed lengths r*2^k, r in
-``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 21, 25, 27}, past the
-long-line route's (``kernels/split.py``): N = P*Q with P a power of two
-(pass A, the strided radix entry unchanged) and the odd part in Q (pass
-B: the radix route's ``kRadixSplitB`` at a mixed Q, or the mixed
-long-line kernel unscaled and pass C, ``split_transpose`` at a Q that is
-not a power of two).  The route's plain version, ``split.emulate`` (the
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25, 27},
+past the long-line route's (``kernels/split.py``): N = P*Q with P a power of
+two (pass A, the strided radix entry unchanged) and the odd part in Q (pass
+B: the radix route's ``kRadixSplitB`` at a mixed Q, or the mixed long-line
+kernel unscaled and pass C, ``split_transpose`` at a Q that is not a power
+of two).  The route's plain version, ``split.emulate`` (the
 wrapper runs it for CPU tensors), is held against ``np.fft`` and against
 the JAX package's Pallas kernel in interpret mode on the same numpy
 inputs (complex64 18432, 24576, 30720, 22528 = 11*2^11, 28672 = 7*2^12,
@@ -49,7 +49,7 @@ LENGTHS = [(torch.complex64, 9 << 11), (torch.complex64, 3 << 13),
            (torch.complex64, 27 << 10), (torch.complex128, 21 << 9),
            (torch.complex128, 25 << 9), (torch.complex128, 27 << 9)]
 CASES = [(dtype, n, b, inv, tw,
-          next(r for r in (3, 5, 7, 11, 13) if n % r == 0)
+          next(r for r in (3, 5, 7, 11, 13, 17, 19) if n % r == 0)
           if parts == "odd" else parts)
          for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
 MIXED = [(dtype, n) for dtype, table in split.FACTORS.items()
@@ -227,25 +227,28 @@ def test_split_mixed_lengths_are_every_r_2k_past_the_long_route():
 
 
 #: The split route's pass-B lengths on the radix kernel, per dtype, as
-#: the long-line route's second mixed factor found them.
+#: the long-line route's second mixed factor found them, with the 17*2^k
+#: and 19*2^k rows since the radix-17 and radix-19 codelets.
 ROW_SIZES = {
-    torch.complex64: (44, 72, 80, 84, 96, 100, 104, 108, 112, 120, 128, 144,
-                      160, 168, 176, 192, 200, 208, 216, 224, 240, 256, 336,
-                      384, 400, 416, 432, 448, 480, 512, 576, 640, 672, 704,
-                      800, 832, 864, 896, 960, 1024, 1152, 1280, 1344, 1408,
+    torch.complex64: (44, 68, 72, 76, 80, 84, 96, 100, 104, 108, 112, 120,
+                      128, 136, 144, 152, 160, 168, 176, 192, 200, 208, 216,
+                      224, 240, 256, 272, 304, 336, 384, 400, 416, 432, 448,
+                      480, 512, 544, 576, 608, 640, 672, 704, 800, 832, 864,
+                      896, 960, 1024, 1088, 1152, 1216, 1280, 1344, 1408,
                       1536, 1600, 1664, 1728, 1792, 1920, 2048),
-    torch.complex128: (144, 160, 168, 176, 192, 200, 208, 216, 224, 240, 256,
-                       336, 400, 416, 432, 448, 480, 512, 576, 640, 672, 704,
-                       768, 800, 832, 864, 896, 960, 1024)}
+    torch.complex128: (136, 144, 152, 160, 168, 176, 192, 200, 208, 216, 224,
+                       240, 256, 272, 304, 336, 400, 416, 432, 448, 480, 512,
+                       544, 576, 608, 640, 672, 704, 768, 800, 832, 864, 896,
+                       960, 1024)}
 
 
 @pytest.mark.parametrize("dtype,long_rows,lengths", [
-    (torch.complex64, 34, 110), (torch.complex128, 39, 99)])
+    (torch.complex64, 40, 130), (torch.complex128, 47, 117)])
 def test_split_plans_keep_their_row_routes(dtype, long_rows, lengths):
     """The long-line route's rule lengths (R2 mixed) are no split Q: every
     plan of ``split.FACTORS`` keeps its pass-B route, "long" exactly where
     Q is one of the long-line table's lengths (a power of two or one
-    mixed factor: 34 of complex64's 110 lengths, 39 of complex128's 99),
+    mixed factor: 40 of complex64's 130 lengths, 47 of complex128's 117),
     and ``ROW_SIZES``, which the dispatch test holds to the CUDA switch,
     keeps its lengths (complex64 208 among them: a spill, so no rule
     length)."""

@@ -27,6 +27,35 @@ import torch
 RANK_TIMEOUT_S = 300
 
 
+def rough_sum(n: int) -> int:
+    """The sum of the prime factors of ``n`` >= 1 past 13, each as often
+    as it divides ``n``, by trial division."""
+    total, p = 0, 2
+    while p * p <= n:
+        while n % p == 0:
+            total, n = total + (p if p > 13 else 0), n // p
+        p += 1
+    return total + (n if n > 13 else 0)
+
+
+def dense_keeps(n: int, cost: dict, margin: float) -> bool:
+    """The dense route's rule for an N up to its limit, restated from
+    ``cost`` (``dense.GENERIC_COST[dtype]``): the sum of N's prime factors
+    past 13 times the weight of N's parity plus that parity's base,
+    times N, against ``margin`` times the chirp's cost per element of M
+    times M, M the least power of two >= 2N - 1 (below the table's least
+    M, that M's cost)."""
+    s, m = rough_sum(n), 1
+    while m < 2 * n - 1:
+        m *= 2
+    if s == 0:
+        return True
+    base, weight = cost["odd"] if n % 2 == 1 else cost["even"]
+    per_m = cost["chirp"][m] if m in cost["chirp"] else cost["chirp"][
+        min(cost["chirp"])]
+    return (base + weight * s) * n <= margin * per_m * m
+
+
 def cplx(shape, seed: int, dtype=np.complex64) -> np.ndarray:
     r = np.random.default_rng(seed)
     return (r.standard_normal(shape) + 1j * r.standard_normal(shape)
