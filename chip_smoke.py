@@ -141,8 +141,8 @@ its result line):
     (262144, 384), (262144, 448), (262144, 416), (262144, 672), (262144,
     360) and (262144, 600) complex64, one length per odd part 3 to 63
     and dtype and, for the odd parts from 65, complex64 1000, 1800, 2400
-    and 3600 and complex128 300 and 900, and the longest 17*2^k and
-    19*2^k of each dtype, at 512 MB, each once through
+    and 3600 and complex128 300 and 900, and the longest 17*2^k, 19*2^k
+    and 23*2^k of each dtype, at 512 MB, each once through
     ``ops.fft1d`` (one radix launch), against its plain version and
     ``torch.fft``, timed beside ``torch.fft`` and the bound;
     ``[mixed_plan]``: ``plan_fft`` C2C at 384^3, 448^3, 416^3, 360^3 and
@@ -153,7 +153,8 @@ its result line):
     solve at 384^3 against the ``cufft`` backend's, 8 radix launches;
     ``[long_mixed]``: the long-line route at every mixed length of both
     dtypes (complex64 4352-15360, complex128 1088-7680; an odd R1 for
-    17*2^k, 19*2^k, 21*2^k, 25*2^k and 27*2^k), 512 MB each, once through
+    17*2^k, 19*2^k, 21*2^k, 23*2^k, 25*2^k and 27*2^k), 512 MB each, once
+    through
     ``ops.fft1d``
     (one "long" launch), against its plain version and ``torch.fft``,
     timed beside ``torch.fft`` and the bound, then 14 lengths with a
@@ -162,10 +163,10 @@ its result line):
     their time there;
     ``[split_mixed]``: the split route at mixed lengths (complex64 24576,
     49152, 98304, 3*2^21, 15*2^19 and the shortest and longest 7*2^k,
-    11*2^k, 13*2^k, 17*2^k, 19*2^k, 21*2^k, 25*2^k and 27*2^k; complex128
-    12288, 24576,
-    9*2^15 and likewise), 512 MB each,
-    likewise (one split call); ``[mixed_long_plan]``:
+    11*2^k, 13*2^k, 17*2^k, 19*2^k, 21*2^k, 23*2^k, 25*2^k and 27*2^k;
+    complex128 12288, 24576, 9*2^15 and likewise) and at lengths of its
+    rule (complex64 33792 = 256 x 132, 1982464 = 512 x 3872 and 33*2^18
+    = 1024 x 8448), 512 MB each, likewise (one split call); ``[mixed_long_plan]``:
     ``plan_fft`` C2C of (128, 128, 6144) complex64 on the kernel against
     ``fftn`` and the round trip, the 6144 axis on the long-line route, no
     dense or chirp launch, no copy, ms beside ``fftn`` and a ``cufft``
@@ -174,8 +175,8 @@ its result line):
     dense or chirp launch, 2 line copies forward and 1 inverse;
     ``[chirp]``: the chirp route (Bluestein over two transforms of M on
     the radix, long-line or split route) at lengths no other route takes,
-    complex64 5888, 10007, 33792, the prime 4831 and complex128 3001,
-    2944, 256 MB
+    complex64 7424, 10007, 29106, the prime 4831 and complex128 3001,
+    3712, 256 MB
     each, once through ``ops.fft1d`` (one chirp call, its launches on
     "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
     timed beside ``torch.fft`` and the bound, the glue's ms apart;
@@ -484,12 +485,20 @@ def kernel_cases():
                       (301, n, True, 4 if n % 4 == 0 else 2, True, dt, "")]
     cases.append((3, 8192, False, None, True, c64, "x"))
     cases.append((3, 4096, True, None, True, c128, "x"))
-    # the split route: every length of both dtypes, both directions, each
-    # epilogue, a line or two
+    # the split route: every length of the measured table of both dtypes,
+    # both directions, each epilogue, a line or two; of the rule's lengths
+    # (split.rule_factors) the shortest of each Q, so every pass-B
+    # instantiation and every long-line row runs once each way
     from repro_torch.kernels import split
     for dtype, sizes in split.FACTORS.items():
         dt = str(dtype).removeprefix("torch.")
+        rows = set()
         for i, n in enumerate(sorted(sizes)):
+            q = sizes[n][1]
+            if n not in split._TABLE[dtype]:
+                if q in rows:
+                    continue
+                rows.add(q)
             b = 2 if n <= 1 << 20 else 1
             cases += [(b, n, i % 2 == 1, None, True, dt, ""),
                       (b, n, i % 2 == 0, 4, False, dt, "")]
@@ -509,19 +518,20 @@ def kernel_cases():
     # the dense route: a length per family of both dtypes, both
     # directions, each epilogue, batches ragged against its tile
     cases += dense_cases()
-    # the chirp route: lengths of its three inner routes (23*2^k and the
-    # prime 4831 on the long-line route, a prime and 33*2^10 past the
-    # long-line route's line on the split route, the primes 101 and 1021
-    # that left the dense route for M on the radix and long-line routes),
-    # both dtypes, directions and epilogues
-    for b, n, inv, parts, tw, dt in ((2, 5888, False, None, True, c64),
-                                     (3, 5888, True, 2, False, c64),
+    # the chirp route: lengths of its three inner routes (29*2^k and the
+    # prime 4831 on the long-line route, a prime and 29106 = 2*14553, a
+    # 13-smooth line past one block that the split route's rule leaves,
+    # on the split route, the primes 101 and 1021 that left the dense
+    # route for M on the radix and long-line routes), both dtypes,
+    # directions and epilogues
+    for b, n, inv, parts, tw, dt in ((2, 7424, False, None, True, c64),
+                                     (3, 7424, True, 2, False, c64),
                                      (2, 4831, True, None, True, c64),
                                      (5, 101, False, None, True, c64),
                                      (1, 10007, True, None, True, c64),
-                                     (1, 33792, False, 4, True, c64),
+                                     (1, 29106, False, 2, True, c64),
                                      (2, 3001, False, None, True, c128),
-                                     (1, 2944, True, 23, False, c128),
+                                     (1, 3712, True, 29, False, c128),
                                      (3, 1021, False, None, True, c128)):
         cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
@@ -2466,9 +2476,12 @@ def phase_long_mixed(device, lengths_bytes: int = 512 << 20,
 #: 13*2^20 and c128 13*2^18 raised before the radix-13 codelet), and c64
 #: 13*2^12, whose pass B of 208 runs no radix-route length; then the
 #: shortest and the longest 21*2^k, 25*2^k and 27*2^k of each dtype
-#: (chirp before); then the shortest and the longest 17*2^k and 19*2^k
-#: of each dtype (chirp before; the longest raised, past the chirp's
-#: limit).
+#: (chirp before); then the shortest and the longest 17*2^k, 19*2^k and
+#: 23*2^k of each dtype (chirp before; the longest raised, past the
+#: chirp's limit); then lengths of the split route's rule
+#: (``split.rule_factors``): complex64 33792 = 256 x 132 on radix rows
+#: (chirp before), 1982464 = 512 x 3872 on long-line rows (chirp before)
+#: and 33*2^18 = 1024 x 8448 past the chirp's limit (raised before).
 SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
                        ("complex64", 98304), ("complex64", 3 << 21),
                        ("complex64", 15 << 19), ("complex128", 12288),
@@ -2489,7 +2502,11 @@ SPLIT_MIXED_LENGTHS = (("complex64", 24576), ("complex64", 49152),
                        ("complex64", 17 << 10), ("complex64", 17 << 19),
                        ("complex64", 19 << 10), ("complex64", 19 << 19),
                        ("complex128", 17 << 9), ("complex128", 17 << 17),
-                       ("complex128", 19 << 9), ("complex128", 19 << 17))
+                       ("complex128", 19 << 9), ("complex128", 19 << 17),
+                       ("complex64", 23 << 10), ("complex64", 23 << 19),
+                       ("complex128", 23 << 9), ("complex128", 23 << 17),
+                       ("complex64", 33792), ("complex64", 1982464),
+                       ("complex64", 33 << 18))
 
 
 def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
@@ -2527,7 +2544,9 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
 #: 45, 2400 = 48 x 50 and 3600 = 60 x 60, complex128 300 = 15 x 20 and
 #: 900 = 30 x 30; then the longest 17*2^k and 19*2^k of each dtype
 #: (chirp or dense before): complex64 2176 = 34 x 64, 2432 = 38 x 64,
-#: complex128 544 = 17 x 32, 608 = 19 x 32.
+#: complex128 544 = 17 x 32, 608 = 19 x 32; then the longest 23*2^k of
+#: each dtype (dense before, a generic 23-stage): complex64 2944 = 46 x
+#: 64, complex128 736 = 23 x 32.
 MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex64", 2304), ("complex64", 3840),
                  ("complex128", 768), ("complex128", 640),
@@ -2549,7 +2568,8 @@ MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex64", 2400), ("complex64", 3600),
                  ("complex128", 300), ("complex128", 900),
                  ("complex64", 2176), ("complex64", 2432),
-                 ("complex128", 544), ("complex128", 608))
+                 ("complex128", 544), ("complex128", 608),
+                 ("complex64", 2944), ("complex128", 736))
 
 
 def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
@@ -2698,15 +2718,16 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
     return out
 
 
-#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 23*2^k
-#: (a prime factor past 13 past the dense route's limit) whose M takes the
-#: long-line route, a prime and 33*2^10 (13-smooth, a line past one
-#: block), whose M takes the split route; complex128 likewise; and the
-#: prime complex64 4831, which left the dense route's generic stage.  The
-#: first is the ``fft_fourstep_chirp`` entry's timing.
-CHIRP_LENGTHS = (("complex64", 5888), ("complex64", 10007),
-                 ("complex64", 33792), ("complex128", 3001),
-                 ("complex128", 2944), ("complex64", 4831))
+#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 29*2^k
+#: (a prime factor past 23 past the dense route's limit) whose M takes the
+#: long-line route, a prime and 29106 = 2*14553 (13-smooth, a line past
+#: one block with one factor of 2, which the split route's rule leaves),
+#: whose M takes the split route; complex128 likewise; and the prime
+#: complex64 4831, which left the dense route's generic stage.  The first
+#: is the ``fft_fourstep_chirp`` entry's timing.
+CHIRP_LENGTHS = (("complex64", 7424), ("complex64", 10007),
+                 ("complex64", 29106), ("complex128", 3001),
+                 ("complex128", 3712), ("complex64", 4831))
 #: (dtype name, N, route) of ``[gaps]``, all on the dense route: the
 #: lengths it had with the widest gaps to ``torch.fft`` (the even
 #: 13-smooth complex64 2730 = 2*1365, 3430 = 2*1715 and 4050 = 2*2025,
@@ -3657,7 +3678,7 @@ def main(timer=time.perf_counter) -> int:
              "mixed_plan_360": mixed_plan45["forward_counts"]["radix"],
              "mixed_plan_600": mixed_plan75["forward_counts"]["radix"]}},
         # launches: [chirp]'s calls, one ops.fft1d call per length (no
-        # LM path runs the chirp route now); timed at lines of 5888
+        # LM path runs the chirp route now); timed at lines of 7424
         {"name": "fft_fourstep_chirp", "route": "cuda",
          "source": CHIRP_SOURCE, "path": "chirp",
          "sources": [CHIRP_SOURCE, LONG_SOURCE, RADIX_SOURCE],

@@ -8,6 +8,8 @@ lengths take which route, for the tree whose root is given.
     python3 scripts/route_times.py check ROOT OUT.json
     python3 scripts/route_times.py fit RUN.json [RUN.json ...] OUT.json
     python3 scripts/route_times.py sass OLD.so NEW.so OUT.json
+    python3 scripts/route_times.py split ROOT TAG OUT.json
+    python3 scripts/route_times.py splitcheck ROOT TAG OUT.json
 
 ``times`` runs the port of the tree at ROOT (its ``src`` first on the
 path; the kernel is built there at first use): ``fft_fourstep`` on
@@ -35,6 +37,17 @@ this checkout routes to the slower of the two.  Every swept length ran
 on the dense route before the rule; ``dense.MOVE_MARGIN`` keeps it there
 unless the fit puts the chirp clearly faster.
 
+``split`` times the lengths of :data:`SPLIT_SWEEP` (the split route's
+rule: 13-smooth lines past one block and 23*2^k, which the chirp held or
+which raised) at 256 MB of lines in the tree at ROOT: each on the route
+that tree's ``radix.kernel_path`` names ("raises" where it raises), then,
+where the tree has ``split.rule_factors``, every (P, Q) its build
+instantiates for N (P of ``split.COLUMN_SIZES``, Q a pass-B row of
+``split.ROW_SIZES`` or a long-line row that pass C takes), each plan
+forced, beside ``torch.fft.fft`` and the bound.  ``splitcheck`` does the
+same at :data:`SPLIT_CHECK`, lengths the sweep did not see.  Run them
+parent, change, change, parent.
+
 ``sass`` compares ``cuobjdump -sass`` of two builds function by
 function: only instruction and encoding lines (a module's header would
 otherwise count as its last function's), each line's address comment
@@ -56,27 +69,26 @@ import shutil
 import subprocess
 import sys
 
-#: (dtype name, lines, N): at 512 MB (262144, 544 = 17*32), which left
-#: the dense route's generic 17-stage for the radix route, and (262144,
-#: 816 = 3*17*16), which keeps one; at 256 MB of lines the 19*2^k lengths
-#: that left the chirp for the long-line route (complex64 4864, complex128
-#: 2432), the primes that left the dense route for the chirp (complex64
-#: 4831, complex128 2417), the dense route's lengths with the widest gaps
-#: to ``torch.fft`` (complex64 4725, 4050, 3430, 2730, complex128 990),
-#: its spill lengths (complex64 208, 504, complex128 22), and the
-#: 13-smooth lengths past its old one-block limit (complex64 16896, 23040,
-#: 5460, 28028, complex128 8448, 2420).
-SHAPES = (("complex64", 262144, 544), ("complex64", 262144, 816)) + tuple(
+#: (dtype name, lines, N): at 256 MB of lines the lengths that the
+#: radix-23 codelet moves (complex64 5888 = 23 x 16 x 16 and complex128
+#: 2944 = 23 x 8 x 16 off the chirp to the long-line route, complex64
+#: 2944 = 46 x 64 and complex128 736 = 23 x 32 off the dense route's
+#: generic 23-stage to the radix route, complex64 23*2^10 and complex128
+#: 23*2^9 off the chirp to the split route) and a 13-smooth line past one
+#: block that the split route's rule moves off the chirp (complex64 33792
+#: = 33*2^10); at 512 MB rule lengths that raised before (complex64
+#: 23*2^19 and 33*2^18, complex128 23*2^17); and lengths whose route
+#: stays (complex64 4864 long, 4725 dense, 2^24 split).
+SHAPES = tuple(
     (dt, (256 << 20) // (n * (8 if dt == "complex64" else 16)), n)
-    for dt, n in (("complex64", 4864), ("complex128", 2432),
-                  ("complex64", 4831), ("complex128", 2417),
-                  ("complex64", 4725), ("complex64", 4050),
-                  ("complex64", 3430), ("complex64", 2730),
-                  ("complex128", 990), ("complex64", 208),
-                  ("complex64", 504), ("complex128", 22),
-                  ("complex64", 16896), ("complex64", 23040),
-                  ("complex64", 5460), ("complex64", 28028),
-                  ("complex128", 8448), ("complex128", 2420)))
+    for dt, n in (("complex64", 5888), ("complex128", 2944),
+                  ("complex64", 2944), ("complex128", 736),
+                  ("complex64", 23 << 10), ("complex128", 23 << 9),
+                  ("complex64", 33792), ("complex64", 4864),
+                  ("complex64", 4725))) + tuple(
+    (dt, (512 << 20) // (n * (8 if dt == "complex64" else 16)), n)
+    for dt, n in (("complex64", 23 << 19), ("complex64", 33 << 18),
+                  ("complex128", 23 << 17), ("complex64", 1 << 24)))
 #: (dtype name, N) of ``generic``: lengths with a prime factor past 13,
 #: by the route the chirp's M takes (complex64: M up to 4096 on the radix
 #: route, 8192 and 16384 on the long-line route; complex128: up to 1024
@@ -109,6 +121,37 @@ GENERIC_CHECK = tuple(("complex64", n) for n in (
     3384, 4240, 4272, 4371)) + tuple(("complex128", n) for n in (
         59, 178, 314, 356, 581, 793, 1363, 1369, 1504, 1580, 1740, 2086,
         2117, 2241, 2286, 2379))
+#: (dtype name, N) of ``split``: the split route's rule lengths, from
+#: the families it takes: 23*2^k from the shortest to the longest
+#: (complex64 23*2^10 = 256 x 92 to 23*2^19 = 1024 x 11776, complex128
+#: 23*2^9 to 23*2^17), odd parts 33 to 231 with one (P, Q) or several,
+#: radix rows and long-line rows, Q with one factor of 2 (complex64
+#: 945*2^11 = 1024 x 1890, complex128 405*2^10 = 512 x 810: the largest
+#: inter-step twiddle tables, P*(2 + Q/2) entries), and past the chirp's
+#: limit (complex64 33*2^18 = 8650752); then 8 per dtype drawn at random
+#: (seeded) among the rule's lengths with two or more instantiated (P,
+#: Q), first run as a held-out check of the first rule (the least P on a
+#: radix row) and, with the lengths above, the readings that fixed
+#: ``split.ROW_SHORT``.
+SPLIT_SWEEP = tuple(("complex64", n) for n in (
+    23 << 10, 23 << 14, 23 << 17, 23 << 19, 33 << 10, 45 << 11, 75 << 12,
+    99 << 13, 105 << 14, 33 << 18, 35 << 12, 49 << 13, 117 << 12,
+    121 << 13, 945 << 11)) + tuple(("complex128", n) for n in (
+        23 << 9, 23 << 13, 23 << 17, 33 << 9, 45 << 12, 99 << 14, 35 << 11,
+        49 << 12, 121 << 11, 405 << 10)) + tuple(
+    ("complex64", n) for n in (
+        67584, 100352, 168960, 200704, 663552, 903168, 3833856,
+        6029312)) + tuple(("complex128", n) for n in (
+            35840, 42240, 64000, 75264, 76800, 79872, 146432, 1982464))
+#: (dtype name, N) of ``splitcheck``: rule lengths that ``SPLIT_SWEEP``
+#: leaves out, drawn at random (seeded) among those with two or more
+#: instantiated (P, Q): 12 complex64 ones where ``split.ROW_SHORT``
+#: decides (a radix candidate with Q past 1024 or P = 1024), 4
+#: complex128 ones.
+SPLIT_CHECK = tuple(("complex64", n) for n in (
+    153600, 270336, 315392, 351232, 430080, 495616, 602112, 718848,
+    1146880, 1228800, 1327104, 1605632)) + tuple(
+    ("complex128", n) for n in (37632, 138240, 286720, 450560))
 #: One face of the LLC4320 ocean grid (MITgcm/ECCO), complex64.
 GRID = (4320, 4320)
 SWEEP_BYTES = 64 << 20
@@ -172,15 +215,23 @@ def times(root: str, tag: str) -> dict:
         dtype = getattr(torch, dt)
         x = _lines(torch, dtype, b, n)
         tfm.reset_launch_counts()
-        y = tfm.fft_fourstep(x)
-        torch.cuda.synchronize()
         rec = {"dtype": dt, "shape": [b, n],
                "path": radix.kernel_path(n, dtype),
-               "launches": dict(tfm.fft_fourstep.path_launches),
-               "err_vs_torch_fft": scaled_err(y, torch.fft.fft(x)),
-               "ms": time_ms(lambda: tfm.fft_fourstep(x)),
                "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
                "bound_ms": bound_ms(b, n, x.element_size())}
+        try:
+            y = tfm.fft_fourstep(x)
+        except (ValueError, RuntimeError) as e:
+            # past a route's domain (the tree before the split rule)
+            rec.update(path="raises", raised=str(e), ms=None)
+            print(f"[{tag}] raises ({b}, {n}) {dt}: {e}", flush=True)
+            out["lines"].append(rec)
+            del x
+            continue
+        torch.cuda.synchronize()
+        rec.update(launches=dict(tfm.fft_fourstep.path_launches),
+                   err_vs_torch_fft=scaled_err(y, torch.fft.fft(x)),
+                   ms=time_ms(lambda: tfm.fft_fourstep(x)))
         del x, y
         torch.cuda.empty_cache()
         print(f"[{tag}] {rec['path']} ({b}, {n}) {dt}: {rec['ms']:.4f} ms, "
@@ -305,6 +356,69 @@ def generic(root: str, lengths=GENERIC_LENGTHS) -> dict:
               f"torch.fft {rec['torch_fft_ms']:.4f}, bound "
               f"{rec['bound_ms']:.4f}; vs torch.fft {rec['dense_err']:.2e}"
               f" / {rec['chirp_err']:.2e}", flush=True)
+        out["lengths"].append(rec)
+    return out
+
+
+def _split_candidates(split, n: int, dtype) -> list:
+    """Every (P, Q, row route) the build instantiates for N: P of
+    ``COLUMN_SIZES``, Q a radix row (``ROW_SIZES``) or a long-line row
+    that pass C takes (a multiple of 32)."""
+    from repro_torch.kernels import longline
+    out = []
+    for p in split.COLUMN_SIZES[dtype]:
+        q = n // p
+        if n % p:
+            continue
+        if q in split.ROW_SIZES[dtype]:
+            out.append((p, q, "radix"))
+        elif q in longline.FACTORS[dtype] and q % 32 == 0:
+            out.append((p, q, "long"))
+    return out
+
+
+def split_sweep(root: str, tag: str, lengths=SPLIT_SWEEP) -> dict:
+    torch = _port(root)
+    from repro_torch.kernels import fft_matmul as tfm
+    from repro_torch.kernels import radix, split
+    out = {"tag": tag, "root": os.path.abspath(root), "bytes": 256 << 20,
+           "lengths": []}
+    ruled = hasattr(split, "rule_factors")
+    for dt, n in lengths:
+        dtype = getattr(torch, dt)
+        b = max(1, (256 << 20) // (n * dtype.itemsize))
+        x = _lines(torch, dtype, b, n)
+        lib = torch.fft.fft(x)
+        rec = {"dtype": dt, "shape": [b, n],
+               "path": radix.kernel_path(n, dtype),
+               "plan": list(split.FACTORS[dtype].get(n, ())),
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+               "bound_ms": bound_ms(b, n, dtype.itemsize),
+               "candidates": []}
+        try:
+            rec["err"] = scaled_err(tfm.fft_fourstep(x), lib)
+            rec["ms"] = time_ms(lambda: tfm.fft_fourstep(x))
+        except (ValueError, RuntimeError) as e:
+            rec["path"], rec["ms"], rec["raised"] = "raises", None, str(e)
+        for p, q, row in (_split_candidates(split, n, dtype) if ruled
+                          else []):
+            plan = split.SplitPlan(n, p, q, row)
+
+            def run(plan=plan):
+                return tfm._launch_split(x, None, inverse=False,
+                                         pack_parts=None, plan=plan)
+            rec["candidates"].append({
+                "p": p, "q": q, "row_path": row,
+                "err": scaled_err(run(), lib), "ms": time_ms(run)})
+        del x, lib
+        torch.cuda.empty_cache()
+        cands = ", ".join(f"{c['p']} x {c['q']} {c['row_path']} "
+                          f"{c['ms']:.4f} ({c['err']:.1e})"
+                          for c in rec["candidates"])
+        ms = "raises" if rec["ms"] is None else f"{rec['ms']:.4f} ms"
+        print(f"[{tag}] split {dt} ({b}, {n}) {rec['path']} {rec['plan']}: "
+              f"{ms}, torch.fft {rec['torch_fft_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}; candidates: {cands}", flush=True)
         out["lengths"].append(rec)
     return out
 
@@ -438,6 +552,10 @@ def main(argv) -> int:
         result = generic(argv[2], GENERIC_CHECK)
     elif len(argv) >= 4 and argv[1] == "fit":
         result = fit(argv[2:-1])
+    elif len(argv) == 5 and argv[1] == "split":
+        result = split_sweep(argv[2], argv[3])
+    elif len(argv) == 5 and argv[1] == "splitcheck":
+        result = split_sweep(argv[2], argv[3], SPLIT_CHECK)
     elif len(argv) == 5 and argv[1] == "sass":
         result = sass(argv[2], argv[3])
     else:

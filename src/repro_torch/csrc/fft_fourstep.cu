@@ -2,31 +2,33 @@
 //
 // Five routes, chosen by the wrapper from N and the dtype alone
 // (kernels/radix.py::kernel_path): every even N whose only prime factors are
-// 2, 3, 5, 7, 11 and 13, and every 17*2^k and 19*2^k, whose two factors both
-// fit a codelet of 64 values (complex64) or 32 (complex128), so that the
-// codelets stay in registers -- the powers of two up to 4096 (complex64) or
-// 1024 (complex128) and the mixed N = r*2^k, r from 3 to 1701
-// (radix.RADIX_ODD) -- takes the radix route (fft_radix.cuh: two passes of
-// in-register codelets, contiguous or strided lines); the longer powers of
-// two and mixed N (odd part 3 to 15, 17, 19, 21, 25 or 27:
-// radix.EVERY_ROUTE_ODD; the other 13-smooth ones that three codelets hold)
-// whose line fits in one block's shared memory take the long-line route
-// (fft_long.cuh: three passes over a line loaded by TMA); the powers of two
-// and the mixed N of radix.EVERY_ROUTE_ODD beyond one block (complex64 to
-// 2^24, complex128 to 2^22) take the split route (kernels/split.py: N =
-// P*Q, P a power of two, pass A a strided radix launch on the P-long
-// columns with the inter-step twiddle, pass B a radix launch on the Q-long
-// rows stored transposed, or a long-line launch on them stored in place and
-// a transpose); every N up to complex64 4835 / complex128 2419 that those
-// routes do not take and whose largest prime factor is at most
-// dense.GENERIC_MAX, 53 (odd N, the even 13-smooth N no codelets hold,
-// the primes to 53 and N with such a prime factor past 13), and every
-// other 13-smooth N whose line fits one block
-// (complex64 to 28431, complex128 to 14196), takes the dense route
-// (fft_dense.cuh: a mixed-radix FFT over a run-time chain, the line in
-// shared memory; kernels/dense.py); any other N up to complex64 2^23 /
-// complex128 2^21 (a larger prime factor, a prime factor past 13 past
-// those limits, a 13-smooth line past one block) takes the chirp route
+// 2, 3, 5, 7, 11 and 13, and every 17*2^k, 19*2^k and 23*2^k, whose two
+// factors both fit a codelet of 64 values (complex64) or 32 (complex128),
+// so that the codelets stay in registers -- the powers of two up to 4096
+// (complex64) or 1024 (complex128) and the mixed N = r*2^k, r from 3 to
+// 1701 (radix.RADIX_ODD) -- takes the radix route (fft_radix.cuh: two
+// passes of in-register codelets, contiguous or strided lines); the longer
+// powers of two and mixed N (odd part 3 to 15, 17, 19, 21, 23, 25 or 27:
+// radix.EVERY_ROUTE_ODD; the other 13-smooth ones that three codelets
+// hold) whose line fits in one block's shared memory take the long-line
+// route (fft_long.cuh: three passes over a line loaded by TMA); beyond one
+// block (complex64 to 2^24, complex128 to 2^22) the powers of two and the
+// mixed N of radix.EVERY_ROUTE_ODD, and every other 13-smooth N or 23*2^k
+// whose N = P*Q a radix or long-line row holds (split.rule_factors), take
+// the split route (kernels/split.py: P a power of two, pass A a strided
+// radix launch on the P-long columns with the inter-step twiddle, pass B
+// a radix launch on the Q-long rows stored transposed, or a long-line
+// launch on them stored in place and a transpose); every N up to
+// complex64 4835 / complex128 2419 that those routes do not take and
+// whose generic stages (one per prime factor past 13) cost no more than
+// the chirp route (dense.GENERIC_COST: odd N, the even 13-smooth N no
+// codelets hold, N with cheap primes past 13), and every other 13-smooth
+// N whose line fits one block (complex64 to 28431, complex128 to 14196),
+// takes the dense route (fft_dense.cuh: a mixed-radix FFT over a run-time
+// chain, the line in shared memory; kernels/dense.py); any other N up to
+// complex64 2^23 / complex128 2^21 (dearer prime factors, a prime factor
+// past 13 that no codelet takes past those limits, a 13-smooth line past
+// one block that the split rule leaves) takes the chirp route
 // (kernels/chirp.py: Bluestein's convolution as two of these launches on
 // lines of M = 2^ceil(log2(2N - 1)), the chirps in their twiddle
 // epilogues).

@@ -1,7 +1,7 @@
 // The long-line route of the four-step kernel: lines that fit whole in one
 // block's shared memory but not in the radix route's two in-register passes
 // (complex64 N = 8192, 16384; complex128 N = 2048, 4096, 8192; the mixed
-// N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25, 27}, of
+// N = r*2^k, r in {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23, 25, 27}, of
 // complex64 4352 to 15360 and complex128 1088 to 7680; and the other even
 // 13-smooth N that three codelets hold), on Hopper.
 //
@@ -38,9 +38,9 @@
 //    (kernels/fft_matmul.py::_long_constants) and kept in shared memory.
 //    Threads of a warp read consecutive entries of TA and TC and one of TB.
 // Mixed lengths (long_mixed_kernel, below): one factor, R1 = r*2^a (odd
-// for r = 17, 19, 21, 25, 27), runs the radix route's mixed chain (codelet,
-// load_slot) on its own table of R1 entries; R2 and R3 are powers of two.
-// The line is copied in R1 rows
+// for r = 17, 19, 21, 23, 25, 27), runs the radix route's mixed chain
+// (codelet, load_slot) on its own table of R1 entries; R2 and R3 are powers
+// of two.  The line is copied in R1 rows
 // of N/R1 at a pitch of N/R1 plus 16 bytes (R1 bulk copies on one
 // mbarrier), and each pass transforms one item at a time and stores it
 // where it was read, (k1, m2, m3) then (k1, k2, m3), so no pass needs its
@@ -671,11 +671,13 @@ int long_part(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(14336, 28, 16, 32)
       REPRO_LONG_MIXED_CASE(6656, 26, 16, 16)
       REPRO_LONG_MIXED_CASE(13312, 26, 16, 32)
-      // R1 odd: 17*2^k, 19*2^k, 21*2^k, 25*2^k and 27*2^k
+      // R1 odd: 17*2^k, 19*2^k, 21*2^k, 25*2^k, 27*2^k and 23*2^k
       REPRO_LONG_MIXED_CASE(4352, 17, 16, 16)
       REPRO_LONG_MIXED_CASE(8704, 17, 16, 32)
       REPRO_LONG_MIXED_CASE(4864, 19, 16, 16)
       REPRO_LONG_MIXED_CASE(9728, 19, 16, 32)
+      REPRO_LONG_MIXED_CASE(5888, 23, 16, 16)
+      REPRO_LONG_MIXED_CASE(11776, 23, 16, 32)
       REPRO_LONG_MIXED_CASE(5376, 21, 16, 16)
       REPRO_LONG_MIXED_CASE(10752, 21, 16, 32)
       REPRO_LONG_MIXED_CASE(6400, 25, 16, 16)
@@ -811,13 +813,16 @@ int long_part(int n, const void* x, void* out, const void* consts,
       REPRO_LONG_MIXED_CASE(1728, 27, 8, 8)
       REPRO_LONG_MIXED_CASE(3456, 27, 8, 16)
       REPRO_LONG_MIXED_CASE(6912, 27, 16, 16)
-      // 17*2^k and 19*2^k (R1 odd)
+      // 17*2^k, 19*2^k and 23*2^k (R1 odd)
       REPRO_LONG_MIXED_CASE(1088, 17, 8, 8)
       REPRO_LONG_MIXED_CASE(2176, 17, 8, 16)
       REPRO_LONG_MIXED_CASE(4352, 17, 16, 16)
       REPRO_LONG_MIXED_CASE(1216, 19, 8, 8)
       REPRO_LONG_MIXED_CASE(2432, 19, 8, 16)
       REPRO_LONG_MIXED_CASE(4864, 19, 16, 16)
+      REPRO_LONG_MIXED_CASE(1472, 23, 8, 8)
+      REPRO_LONG_MIXED_CASE(2944, 23, 8, 16)
+      REPRO_LONG_MIXED_CASE(5888, 23, 16, 16)
       // R2 mixed too: the rule's lengths (longline.rule_factors)
       REPRO_LONG_MIXED_CASE(792, 11, 9, 8)
       REPRO_LONG_MIXED_CASE(880, 11, 5, 16)

@@ -1,8 +1,8 @@
 // The radix path of the four-step kernel: N = N1*N2 on Hopper, with
 // in-register sub-DFTs, for every even N whose only prime factors are 2, 3,
-// 5, 7, 11 and 13, and every 17*2^k and 19*2^k, whose factors both fit a
-// codelet of 64 values (complex64) or 32 (complex128): the powers of two
-// and the mixed lengths r*2^k, r from 3 to 1701
+// 5, 7, 11 and 13, and every 17*2^k, 19*2^k and 23*2^k, whose factors both
+// fit a codelet of 64 values (complex64) or 32 (complex128): the powers of
+// two and the mixed lengths r*2^k, r from 3 to 1701
 // (kernels/radix.py::RADIX_SIZES, RADIX_ODD).
 //
 // Replaces, for these N, the dense contractions of the TPU kernel
@@ -30,17 +30,18 @@
 //    (kernels/fft_matmul.py::_radix_constants) and kept in shared memory.
 //  * Mixed lengths (384 = 16*24): a codelet whose length is not a power of
 //    two is a mixed-radix decimation in time over a compile-time chain of
-//    radix-19, 17, 13, 11, 7, 5, 3, 4 and 2 butterflies (mixed_radix),
+//    radix-23, 19, 17, 13, 11, 7, 5, 3, 4 and 2 butterflies (mixed_radix),
 //    loaded in digit-reversed order (load_slot); the radix-3, 4, 5, 7, 11,
-//    13, 17 and 19 DFTs are constant rotations with the direction's sign
-//    (7 to 19 in the symmetric-pair form, dft_odd), and the inter-stage
+//    13, 17, 19 and 23 DFTs are constant rotations with the direction's
+//    sign (7 to 23 in the symmetric-pair form, dft_odd), and the inter-stage
 //    twiddles come from the codelet's own table of W_L^k, k < L (N1 need
 //    not divide N2, so each codelet has its table: N2 then N1 entries).
 //    The row index splits by a division by the constant N1 or N2 where a
 //    power of two is a shift, and the pack_parts segment (seg_arg, its
 //    length for a mixed N) by a division.  The power-of-two instantiations
 //    compile as before (the mixed code sits behind if constexpr).  The
-//    split route's pass A stays a power of two; its pass B takes mixed Q.
+//    split route's pass A stays a power of two; its pass B takes mixed Q
+//    (the measured table's and split.rule_factors' rows).
 //    The codelets, loads and stores unroll at compile time (static_for),
 //    so every index into the register arrays and the codelet table is a
 //    constant expression.
@@ -164,15 +165,17 @@ __host__ __device__ constexpr int exponent(int n, int p) {
 }
 
 // The radix of stage t (the first is t = 0) of a mixed codelet of length
-// L = 2^a 3^b 5^c 7^d 11^e 13^f 17^g 19^h: the 19s, the 17s, the 13s, the
-// 11s, the 7s, the 5s, the 3s, then the 4s and a last 2
+// L = 2^a 3^b 5^c 7^d 11^e 13^f 17^g 19^h 23^i: the 23s, the 19s, the
+// 17s, the 13s, the 11s, the 7s, the 5s, the 3s, then the 4s and a last 2
 // (kernels/radix.py::radices).
 __host__ __device__ constexpr int mixed_radix(int L, int t) {
-  const int c19 = exponent(L, 19), c17 = c19 + exponent(L, 17);
+  const int c23 = exponent(L, 23), c19 = c23 + exponent(L, 19);
+  const int c17 = c19 + exponent(L, 17);
   const int c13 = c17 + exponent(L, 13), c11 = c13 + exponent(L, 11);
   const int c7 = c11 + exponent(L, 7), c5 = c7 + exponent(L, 5);
   const int c3 = c5 + exponent(L, 3), c4 = c3 + exponent(L, 2) / 2;
-  return t < c19   ? 19
+  return t < c23   ? 23
+         : t < c19 ? 19
          : t < c17 ? 17
          : t < c13 ? 13
          : t < c11 ? 11
@@ -185,9 +188,9 @@ __host__ __device__ constexpr int mixed_radix(int L, int t) {
 
 __host__ __device__ constexpr int mixed_count(int L) {
   const int a = exponent(L, 2);
-  return exponent(L, 19) + exponent(L, 17) + exponent(L, 13) +
-         exponent(L, 11) + exponent(L, 7) + exponent(L, 5) + exponent(L, 3) +
-         a / 2 + a % 2;
+  return exponent(L, 23) + exponent(L, 19) + exponent(L, 17) +
+         exponent(L, 13) + exponent(L, 11) + exponent(L, 7) + exponent(L, 5) +
+         exponent(L, 3) + a / 2 + a % 2;
 }
 
 // The product of the radices of stages 0 .. t-1.
@@ -303,8 +306,8 @@ __device__ __forceinline__ void dft5(cpx<R>& a0, cpx<R>& a1, cpx<R>& a2,
   a3 = csub(e2, f2);
 }
 
-// cos(2*pi*m/P) and sin(2*pi*m/P) for P = 7, 11, 13, 17, 19 and any m,
-// from the literals of m = 1 .. (P-1)/2 by symmetry (kernels/radix.py::
+// cos(2*pi*m/P) and sin(2*pi*m/P) for P = 7, 11, 13, 17, 19, 23 and any
+// m, from the literals of m = 1 .. (P-1)/2 by symmetry (kernels/radix.py::
 // _ODD_COS and _ODD_SIN spell the same digits).  Called with constants
 // only, so they fold at compile time.
 __host__ __device__ constexpr double odd_cos(int p, int m) {
@@ -347,6 +350,20 @@ __host__ __device__ constexpr double odd_cos(int p, int m) {
            : m == 7 ? -0.67728157162574107476
            : m == 8 ? -0.87947375120648907139
                     : -0.98636130340272237360;
+  }
+  if (p == 23) {
+    return m == 0 ? 1.0
+           : m == 1 ? 0.96291728734779929502
+           : m == 2 ? 0.85441940454648855255
+           : m == 3 ? 0.68255314321865408287
+           : m == 4 ? 0.46006503773115212604
+           : m == 5 ? 0.20345601305263378988
+           : m == 6 ? -0.06824241336467097592
+           : m == 7 ? -0.33487961217098615196
+           : m == 8 ? -0.57668032211486714125
+           : m == 9 ? -0.77571129070441980704
+           : m == 10 ? -0.91721130150545301784
+                     : -0.99068594603633075234;
   }
   return m == 0 ? 1.0
          : m == 1 ? 0.84125353283118116886
@@ -398,6 +415,20 @@ __host__ __device__ constexpr double odd_sin(int p, int m) {
                  : m == 8 ? 0.47594739303707354443
                           : 0.16459459028073389414);
   }
+  if (p == 23) {
+    return sg * (m == 0 ? 0.0
+                 : m == 1 ? 0.26979677115702427125
+                 : m == 2 ? 0.51958395003543357813
+                 : m == 3 ? 0.73083596427812410165
+                 : m == 4 ? 0.88788521840237523498
+                 : m == 5 ? 0.97908408768232287563
+                 : m == 6 ? 0.99766876919053919845
+                 : m == 7 ? 0.94226092211882049562
+                 : m == 8 ? 0.81696989301044201697
+                 : m == 9 ? 0.63108794432605278937
+                 : m == 10 ? 0.39840108984624145800
+                           : 0.13616664909624659076);
+  }
   return sg * (m == 0 ? 0.0
                : m == 1 ? 0.54064081745559758211
                : m == 2 ? 0.90963199535451837141
@@ -406,11 +437,12 @@ __host__ __device__ constexpr double odd_sin(int p, int m) {
                         : 0.28173255684142969771);
 }
 
-// The P-point DFT (P = 7, 11, 13, 17, 19) of a with W_P = exp(s*2*pi*i/P),
-// in place, in the symmetric-pair form (kernels/radix.py::_dft_odd, the
-// same order of operations): b_j = a_j + a_(P-j), d_j = a_j - a_(P-j) for
-// j < P/2; out 0 = a_0 + sum b; outs k and P-k = e_k +- i*s*f_k with e_k =
-// a_0 + sum_j b_j cos(2*pi*j*k/P) and f_k = sum_j d_j sin(2*pi*j*k/P).
+// The P-point DFT (P = 7, 11, 13, 17, 19, 23) of a with W_P =
+// exp(s*2*pi*i/P), in place, in the symmetric-pair form
+// (kernels/radix.py::_dft_odd, the same order of operations): b_j = a_j
+// + a_(P-j), d_j = a_j - a_(P-j) for j < P/2; out 0 = a_0 + sum b; outs k
+// and P-k = e_k +- i*s*f_k with e_k = a_0 + sum_j b_j cos(2*pi*j*k/P) and
+// f_k = sum_j d_j sin(2*pi*j*k/P).
 template <int P, typename R>
 __device__ __forceinline__ void dft_odd(cpx<R> (&a)[P], R s) {
   constexpr int H = (P - 1) / 2;
@@ -482,10 +514,11 @@ __device__ __forceinline__ void mixed_stages(cpx<R> (&v)[L],
         dft5(v[i0], v[i0 + m], v[i0 + 2 * m], v[i0 + 3 * m], v[i0 + 4 * m],
              s);
       } else {
-        // radix 7, 11, 13, 17 or 19: the inputs (input 1 twiddled above)
-        // gathered into an array of constant indices, which stays in
-        // registers
-        static_assert(r == 7 || r == 11 || r == 13 || r == 17 || r == 19,
+        // radix 7, 11, 13, 17, 19 or 23: the inputs (input 1 twiddled
+        // above) gathered into an array of constant indices, which stays
+        // in registers
+        static_assert(r == 7 || r == 11 || r == 13 || r == 17 || r == 19 ||
+                          r == 23,
                       "the chain's radices");
         cpx<R> a[r];
         auto gather = [&](auto qq) {
@@ -1014,6 +1047,12 @@ int radix_part(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(152, 8, 19)
       REPRO_RADIX_CASE(304, 16, 19)
       REPRO_RADIX_CASE(608, 19, 32)
+      // 23*2^k
+      REPRO_RADIX_CASE(46, 2, 23)
+      REPRO_RADIX_CASE(92, 4, 23)
+      REPRO_RADIX_CASE(184, 8, 23)
+      REPRO_RADIX_CASE(368, 16, 23)
+      REPRO_RADIX_CASE(736, 23, 32)
       default:
         break;
     }
@@ -1194,6 +1233,9 @@ int radix_part(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(2176, 34, 64)
         REPRO_RADIX_CASE(1216, 32, 38)
         REPRO_RADIX_CASE(2432, 38, 64)
+        // 23*2^k past codelets of 32
+        REPRO_RADIX_CASE(1472, 32, 46)
+        REPRO_RADIX_CASE(2944, 46, 64)
         default:
           break;
       }
@@ -1272,6 +1314,69 @@ int radix_part(int n, const void* x, void* out, const void* consts,
       REPRO_RADIX_CASE(152, 8, 19)
       REPRO_RADIX_CASE(304, 16, 19)
       REPRO_RADIX_CASE(608, 19, 32)
+      // the rule's rows (kernels/split.py::rule_factors) and 23*2^k's
+      REPRO_RADIX_CASE(184, 8, 23)
+      REPRO_RADIX_CASE(234, 13, 18)
+      REPRO_RADIX_CASE(242, 11, 22)
+      REPRO_RADIX_CASE(250, 10, 25)
+      REPRO_RADIX_CASE(252, 14, 18)
+      REPRO_RADIX_CASE(260, 13, 20)
+      REPRO_RADIX_CASE(264, 12, 22)
+      REPRO_RADIX_CASE(270, 15, 18)
+      REPRO_RADIX_CASE(280, 14, 20)
+      REPRO_RADIX_CASE(286, 13, 22)
+      REPRO_RADIX_CASE(294, 14, 21)
+      REPRO_RADIX_CASE(300, 15, 20)
+      REPRO_RADIX_CASE(308, 14, 22)
+      REPRO_RADIX_CASE(312, 13, 24)
+      REPRO_RADIX_CASE(324, 18, 18)
+      REPRO_RADIX_CASE(330, 15, 22)
+      REPRO_RADIX_CASE(338, 13, 26)
+      REPRO_RADIX_CASE(350, 14, 25)
+      REPRO_RADIX_CASE(360, 18, 20)
+      REPRO_RADIX_CASE(364, 14, 26)
+      REPRO_RADIX_CASE(368, 16, 23)
+      REPRO_RADIX_CASE(378, 18, 21)
+      REPRO_RADIX_CASE(390, 15, 26)
+      REPRO_RADIX_CASE(392, 14, 28)
+      REPRO_RADIX_CASE(396, 18, 22)
+      REPRO_RADIX_CASE(420, 20, 21)
+      REPRO_RADIX_CASE(440, 20, 22)
+      REPRO_RADIX_CASE(450, 18, 25)
+      REPRO_RADIX_CASE(462, 21, 22)
+      REPRO_RADIX_CASE(468, 18, 26)
+      REPRO_RADIX_CASE(484, 22, 22)
+      REPRO_RADIX_CASE(486, 18, 27)
+      REPRO_RADIX_CASE(500, 20, 25)
+      REPRO_RADIX_CASE(520, 20, 26)
+      REPRO_RADIX_CASE(528, 22, 24)
+      REPRO_RADIX_CASE(540, 20, 27)
+      REPRO_RADIX_CASE(546, 21, 26)
+      REPRO_RADIX_CASE(550, 22, 25)
+      REPRO_RADIX_CASE(560, 20, 28)
+      REPRO_RADIX_CASE(572, 22, 26)
+      REPRO_RADIX_CASE(588, 21, 28)
+      REPRO_RADIX_CASE(594, 22, 27)
+      REPRO_RADIX_CASE(600, 24, 25)
+      REPRO_RADIX_CASE(616, 22, 28)
+      REPRO_RADIX_CASE(624, 24, 26)
+      REPRO_RADIX_CASE(630, 21, 30)
+      REPRO_RADIX_CASE(648, 24, 27)
+      REPRO_RADIX_CASE(650, 25, 26)
+      REPRO_RADIX_CASE(660, 22, 30)
+      REPRO_RADIX_CASE(676, 26, 26)
+      REPRO_RADIX_CASE(700, 25, 28)
+      REPRO_RADIX_CASE(702, 26, 27)
+      REPRO_RADIX_CASE(720, 24, 30)
+      REPRO_RADIX_CASE(728, 26, 28)
+      REPRO_RADIX_CASE(736, 23, 32)
+      REPRO_RADIX_CASE(750, 25, 30)
+      REPRO_RADIX_CASE(756, 27, 28)
+      REPRO_RADIX_CASE(780, 26, 30)
+      REPRO_RADIX_CASE(784, 28, 28)
+      REPRO_RADIX_CASE(810, 27, 30)
+      REPRO_RADIX_CASE(840, 28, 30)
+      REPRO_RADIX_CASE(900, 30, 30)
       default:
         break;
     }
@@ -1306,12 +1411,105 @@ int radix_part(int n, const void* x, void* out, const void* consts,
         REPRO_RADIX_CASE(1088, 32, 34)
         REPRO_RADIX_CASE(76, 4, 19)
         REPRO_RADIX_CASE(1216, 32, 38)
+        // the rule's rows past complex128's
+        REPRO_RADIX_CASE(92, 4, 23)
+        REPRO_RADIX_CASE(126, 9, 14)
+        REPRO_RADIX_CASE(130, 10, 13)
+        REPRO_RADIX_CASE(132, 11, 12)
+        REPRO_RADIX_CASE(140, 10, 14)
+        REPRO_RADIX_CASE(150, 10, 15)
+        REPRO_RADIX_CASE(154, 11, 14)
+        REPRO_RADIX_CASE(156, 12, 13)
+        REPRO_RADIX_CASE(162, 9, 18)
+        REPRO_RADIX_CASE(180, 12, 15)
+        REPRO_RADIX_CASE(182, 13, 14)
+        REPRO_RADIX_CASE(196, 14, 14)
+        REPRO_RADIX_CASE(198, 11, 18)
+        REPRO_RADIX_CASE(210, 14, 15)
+        REPRO_RADIX_CASE(220, 11, 20)
+        REPRO_RADIX_CASE(490, 14, 35)
+        REPRO_RADIX_CASE(686, 14, 49)
+        REPRO_RADIX_CASE(726, 22, 33)
+        REPRO_RADIX_CASE(770, 22, 35)
+        REPRO_RADIX_CASE(792, 24, 33)
+        REPRO_RADIX_CASE(858, 26, 33)
+        REPRO_RADIX_CASE(880, 22, 40)
+        REPRO_RADIX_CASE(882, 21, 42)
+        REPRO_RADIX_CASE(910, 26, 35)
+        REPRO_RADIX_CASE(924, 28, 33)
+        REPRO_RADIX_CASE(936, 26, 36)
+        REPRO_RADIX_CASE(968, 22, 44)
+        REPRO_RADIX_CASE(972, 27, 36)
+        REPRO_RADIX_CASE(980, 28, 35)
+        REPRO_RADIX_CASE(990, 30, 33)
+        REPRO_RADIX_CASE(1000, 25, 40)
+        REPRO_RADIX_CASE(1008, 28, 36)
+        REPRO_RADIX_CASE(1014, 26, 39)
+        REPRO_RADIX_CASE(1040, 26, 40)
+        REPRO_RADIX_CASE(1050, 30, 35)
+        REPRO_RADIX_CASE(1056, 32, 33)
+        REPRO_RADIX_CASE(1078, 22, 49)
+        REPRO_RADIX_CASE(1080, 30, 36)
+        REPRO_RADIX_CASE(1092, 28, 39)
+        REPRO_RADIX_CASE(1100, 25, 44)
+        REPRO_RADIX_CASE(1120, 32, 35)
+        REPRO_RADIX_CASE(1134, 27, 42)
+        REPRO_RADIX_CASE(1144, 26, 44)
+        REPRO_RADIX_CASE(1170, 30, 39)
+        REPRO_RADIX_CASE(1176, 28, 42)
+        REPRO_RADIX_CASE(1188, 33, 36)
+        REPRO_RADIX_CASE(1200, 30, 40)
+        REPRO_RADIX_CASE(1210, 22, 55)
+        REPRO_RADIX_CASE(1232, 28, 44)
+        REPRO_RADIX_CASE(1248, 32, 39)
+        REPRO_RADIX_CASE(1250, 25, 50)
+        REPRO_RADIX_CASE(1260, 35, 36)
+        REPRO_RADIX_CASE(1274, 26, 49)
+        REPRO_RADIX_CASE(1296, 36, 36)
+        REPRO_RADIX_CASE(1300, 26, 50)
+        REPRO_RADIX_CASE(1320, 33, 40)
+        REPRO_RADIX_CASE(1350, 30, 45)
+        REPRO_RADIX_CASE(1352, 26, 52)
+        REPRO_RADIX_CASE(1372, 28, 49)
+        REPRO_RADIX_CASE(1386, 33, 42)
+        REPRO_RADIX_CASE(1400, 35, 40)
+        REPRO_RADIX_CASE(1404, 36, 39)
+        REPRO_RADIX_CASE(1430, 26, 55)
+        REPRO_RADIX_CASE(1440, 36, 40)
+        REPRO_RADIX_CASE(1452, 33, 44)
+        REPRO_RADIX_CASE(1456, 28, 52)
+        REPRO_RADIX_CASE(1458, 27, 54)
+        REPRO_RADIX_CASE(1470, 35, 42)
+        REPRO_RADIX_CASE(1472, 32, 46)
+        REPRO_RADIX_CASE(1500, 30, 50)
+        REPRO_RADIX_CASE(1512, 36, 42)
+        REPRO_RADIX_CASE(1540, 35, 44)
+        REPRO_RADIX_CASE(1560, 39, 40)
+        REPRO_RADIX_CASE(1568, 32, 49)
+        REPRO_RADIX_CASE(1584, 36, 44)
+        REPRO_RADIX_CASE(1620, 36, 45)
+        REPRO_RADIX_CASE(1638, 39, 42)
+        REPRO_RADIX_CASE(1650, 33, 50)
+        REPRO_RADIX_CASE(1680, 40, 42)
+        REPRO_RADIX_CASE(1716, 39, 44)
+        REPRO_RADIX_CASE(1750, 35, 50)
+        REPRO_RADIX_CASE(1760, 40, 44)
+        REPRO_RADIX_CASE(1764, 42, 42)
+        REPRO_RADIX_CASE(1782, 33, 54)
+        REPRO_RADIX_CASE(1800, 40, 45)
+        REPRO_RADIX_CASE(1820, 35, 52)
+        REPRO_RADIX_CASE(1848, 42, 44)
+        REPRO_RADIX_CASE(1872, 39, 48)
+        REPRO_RADIX_CASE(1890, 42, 45)
         default:
           break;
       }
     } else {
       switch (n) {
         REPRO_RADIX_CASE(768, 24, 32)
+        // the rule's rows: complex128 only, as complex64 504 = 21x24
+        // spills (radix._SPILLS)
+        REPRO_RADIX_CASE(504, 21, 24)
         default:
           break;
       }

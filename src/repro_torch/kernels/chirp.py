@@ -3,22 +3,24 @@ other route takes, as Bluestein's convolution over the power-of-two
 routes.
 
 The radix, long-line and split routes take every N = r*2^k, r in
-``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25,
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23, 25,
 27}, to their limits; the other 13-smooth odd parts (33 to 63, and from
 65) run on the radix route where both factors of N fit a codelet
-(``radix.RADIX_ODD``) and on the long-line route up to its 128 KB line
-where three codelets of at most 32 take N (``longline.rule_factors``);
-the dense route takes every other N up to ``dense.DENSE_LIMIT``
-(complex64 4835, complex128 2419) whose generic stages, one per prime
-factor past 13, cost no more than this route would
-(``dense.GENERIC_COST``: their sum against M/N and M), and every other
-13-smooth N whose line fits one block (complex64 23040 = 45*512 and
-16896 = 33*512).  So the lengths left here have dearer prime factors
-(such as the primes 4831 and 10007, 3232 = 101*32, and 5888 = 23*256),
-or are 13-smooth with a line past one block
-(complex64 33792 = 33*2^10).  On the CPU the route runs :func:`emulate`;
-on the card two counted launches of the radix, long-line or split route
-with the PyTorch glue around them.
+(``radix.RADIX_ODD``), on the long-line route up to its 128 KB line
+where three codelets of at most 32 take N (``longline.rule_factors``)
+and on the split route past one block where a P of its pass A and a
+radix or long-line row Q hold N = P*Q (``split.rule_factors``); the
+dense route takes every other N up to ``dense.DENSE_LIMIT`` (complex64
+4835, complex128 2419) whose generic stages, one per prime factor past
+13, cost no more than this route would (``dense.GENERIC_COST``: their
+sum against M/N and M), and every other 13-smooth N whose line fits one
+block (complex64 23040 = 45*512 and 16896 = 33*512).  So the lengths
+left here have dearer prime factors (such as the primes 4831 and 10007,
+3232 = 101*32, and 7424 = 29*256), or are 13-smooth with a line past one
+block that the split rule leaves (odd, with one factor of 2 as complex64
+29106 = 2*14553, or with no Q that a row holds).  On the CPU the route
+runs :func:`emulate`; on the card two counted launches of the radix,
+long-line or split route with the PyTorch glue around them.
 
 For a length N that no other route takes (``takes``), the DFT with sign s
 (-1 forward, +1 inverse) is, with 2nk = n^2 + k^2 - (k - n)^2 and the
@@ -74,10 +76,11 @@ def max_length(dtype: torch.dtype) -> int:
 
 def takes(n: int, dtype: torch.dtype) -> bool:
     """Whether the chirp route takes lines of ``n`` (``radix.kernel_path``
-    asks after the radix, long-line and split routes): every N the dense
-    route does not take (``dense.takes``: generic stages dearer than this
-    route, past ``dense.DENSE_LIMIT`` a prime factor past 13 or a
-    13-smooth line past one block), up to :func:`max_length`."""
+    asks after the radix, long-line and split routes, the split route's
+    rule included): every N the dense route does not take
+    (``dense.takes``: generic stages dearer than this route, past
+    ``dense.DENSE_LIMIT`` a prime factor past 13 or a 13-smooth line past
+    one block), up to :func:`max_length`."""
     from .dense import DENSE_LIMIT, takes as dense_takes
     if dtype not in DENSE_LIMIT:
         return False

@@ -33,13 +33,13 @@ which honour those bits anyway.
 
 Five routes, chosen from N and the dtype alone (:func:`radix.kernel_path`):
 every even N whose only prime factors are 2, 3, 5, 7, 11 and 13, and
-every 17*2^k and 19*2^k, whose two factors both fit a codelet of
+every 17*2^k, 19*2^k and 23*2^k, whose two factors both fit a codelet of
 ``radix.CODELET_MAX`` values, so that the codelets stay in registers —
 power-of-two N (2 to 4096 for complex64, 4 to 1024 for complex128) and
 the mixed N = r*2^k, r in ``radix.RADIX_ODD`` (3 to 1701 for complex64, 3
 to 405 for complex128: ``radix.RADIX_SIZES``) — takes the radix path —
 two passes of in-register codelets (radix 2, or a chain of radix 2, 3,
-4, 5, 7, 11, 13, 17 and 19), ``csrc/fft_radix.cuh``, planned in
+4, 5, 7, 11, 13, 17, 19 and 23), ``csrc/fft_radix.cuh``, planned in
 ``kernels/radix.py``; the longer N whose line fits in one block's shared
 memory (powers of two 8192 and 16384 for complex64, 2048 to 8192 for
 complex128; the mixed lengths 4352 to 15360 and 1088 to 7680 whose odd
@@ -50,9 +50,11 @@ long-line path — three such passes over a line loaded by TMA,
 ``csrc/fft_long.cuh``, planned in ``kernels/longline.py``, whose
 ``emulate`` is this path's plain version; the powers of two and those
 mixed lengths beyond one block (to 2^24 for complex64, 2^22 for
-complex128) take the split route — N = P*Q, P a power of two, through
-HBM, a strided radix launch on the P-long columns with the inter-step
-twiddle in its store, then the Q-long rows: on the radix route, stored
+complex128), and every other 13-smooth N or 23*2^k there whose N = P*Q
+a radix or long-line row holds (``split.rule_factors``), take the split
+route — N = P*Q, P a power of two, through HBM, a strided radix launch
+on the P-long columns with the inter-step twiddle in its store, then the
+Q-long rows: on the radix route, stored
 transposed with the line's epilogues; on the long-line route, stored in
 place and moved by a transpose launch that carries the epilogues —
 planned in ``kernels/split.py``, whose ``emulate`` is that route's plain
@@ -67,7 +69,8 @@ DFT-matrix kernel it replaced, now a mixed-radix FFT over a chain chosen
 at run time, the lines in shared memory, ``csrc/fft_dense.cuh``, planned
 in ``kernels/dense.py``, whose ``emulate`` is that route's plain
 version; every other N (dearer prime factors, a prime factor past 13
-past that limit, or a 13-smooth line past one block) takes the chirp
+that no codelet takes past that limit, or a 13-smooth line past one
+block that the split route's rule leaves) takes the chirp
 route — Bluestein's convolution as two transforms of M =
 2^ceil(log2(2N - 1)) on the radix, long-line or split route with the
 chirps in their ``twiddle`` epilogues, planned in ``kernels/chirp.py``,
@@ -137,9 +140,11 @@ def launch_config(n: int, itemsize: int) -> LaunchConfig:
             f"no more than the chirp route and the 13-smooth N whose "
             f"line fits one block's {SMEM_MAX_BYTES} bytes of shared "
             f"memory for {itemsize}-byte complex elements; the split route "
-            f"takes the powers of two and the mixed lengths r*2^k, r in "
-            f"{radix.EVERY_ROUTE_ODD}, beyond one block up to "
-            f"{max(split.FACTORS.get(dtype, {0: None}))} and the chirp "
+            f"takes N = P*Q beyond one block up to "
+            f"{split.LIMIT.get(dtype)}: the powers of two and the mixed "
+            f"lengths r*2^k, r in {radix.EVERY_ROUTE_ODD}, and every other "
+            f"13-smooth N or r*2^k, r in {radix.WIDE_ODD}, whose Q a radix "
+            f"or long-line row holds (split.rule_factors), and the chirp "
             f"route every other N up to {chirp.max_length(dtype)}")
     plan = dense.dense_plan(n, dtype)
     return LaunchConfig(lines=plan.lines, buffers=plan.buffers,

@@ -4,8 +4,8 @@ layouts and their index maps, in Python.
 Lines too long for the radix route's two in-register passes still fit whole
 in one block's shared memory: the powers of two (complex64 N of 8192 and
 16384, complex128 N of 2048 to 8192), the mixed lengths r*2^k, r in
-``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25, 27},
-from past ``radix.RADIX_SIZES`` to the same 128 KB line (complex64 4352 to
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23, 25,
+27}, from past ``radix.RADIX_SIZES`` to the same 128 KB line (complex64 4352 to
 15360, complex128 1088 to 7680), and every other even 13-smooth N past the
 radix route up to that line that three codelets of at most 32 values take
 (:func:`rule_factors`: odd parts 33 to 729, complex64 3168 to 16128,
@@ -36,8 +36,8 @@ that pass 3 reads consecutive addresses, and pass 3 loads all of them
 before the buffer is released to the next line's copy.
 
 A mixed length has a mixed factor R1 = r*2^a, on the radix route's chain
-of radix-19, 17, 13, 11, 7, 5, 3, 4 and 2 codelets (``radix.radices``;
-R1 = 17 and 19 one butterfly each) on its own table of R1 entries, and
+of radix-23, 19, 17, 13, 11, 7, 5, 3, 4 and 2 codelets (``radix.radices``;
+R1 = 17, 19 and 23 one butterfly each) on its own table of R1 entries, and
 R3 a power of two (radix-2 codelets).  R2 is a
 power of two where the odd part fits R1 alone (r in
 ``radix.EVERY_ROUTE_ODD``: the radix-2 codelets' table then has
@@ -84,9 +84,9 @@ from . import radix
 #: complex128 values in registers (the radix route's 32x32 instantiation
 #: does), not 64.  A mixed length's mixed factor is R1, with as many 2s as
 #: 32 allows (28 for 7*2^k, 22 for 11*2^k, 26 for 13*2^k; none for 17*2^k,
-#: 19*2^k, 21*2^k, 25*2^k and 27*2^k, whose R1 is odd), so the power-of-two
-#: passes are as short as they can be.  :func:`rule_factors` splits the
-#: rest.
+#: 19*2^k, 21*2^k, 23*2^k, 25*2^k and 27*2^k, whose R1 is odd), so the
+#: power-of-two passes are as short as they can be.  :func:`rule_factors`
+#: splits the rest.
 _TABLE = {
     torch.complex64: {
         8192: (16, 16, 32), 16384: (16, 32, 32),
@@ -98,7 +98,7 @@ _TABLE = {
         5376: (21, 16, 16), 10752: (21, 16, 32), 6400: (25, 16, 16),
         12800: (25, 16, 32), 6912: (27, 16, 16), 13824: (27, 16, 32),
         4352: (17, 16, 16), 8704: (17, 16, 32), 4864: (19, 16, 16),
-        9728: (19, 16, 32)},
+        9728: (19, 16, 32), 5888: (23, 16, 16), 11776: (23, 16, 32)},
     torch.complex128: {
         2048: (8, 16, 16), 4096: (16, 16, 16), 8192: (16, 16, 32),
         1152: (18, 8, 8), 1280: (20, 8, 8), 1536: (24, 8, 8),
@@ -112,7 +112,8 @@ _TABLE = {
         1600: (25, 8, 8), 3200: (25, 8, 16), 6400: (25, 16, 16),
         1728: (27, 8, 8), 3456: (27, 8, 16), 6912: (27, 16, 16),
         1088: (17, 8, 8), 2176: (17, 8, 16), 4352: (17, 16, 16),
-        1216: (19, 8, 8), 2432: (19, 8, 16), 4864: (19, 16, 16)},
+        1216: (19, 8, 8), 2432: (19, 8, 16), 4864: (19, 16, 16),
+        1472: (23, 8, 8), 2944: (23, 8, 16), 5888: (23, 16, 16)},
 }
 #: The longest codelet of a long-line pass, in values.
 PASS_MAX = 32

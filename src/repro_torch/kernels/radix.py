@@ -2,9 +2,9 @@
 index maps, in Python.
 
 For N = N1*N2 (``transforms.factorize``) in :data:`RADIX_SIZES` (every even
-N whose only prime factors are 2, 3, 5, 7, 11 and 13, and every 17*2^k and
-19*2^k, whose two factors are both at most :data:`CODELET_MAX` long: the
-powers of two and the mixed lengths r*2^k, their odd parts r in
+N whose only prime factors are 2, 3, 5, 7, 11 and 13, and every 17*2^k,
+19*2^k and 23*2^k, whose two factors are both at most :data:`CODELET_MAX`
+long: the powers of two and the mixed lengths r*2^k, their odd parts r in
 :data:`RADIX_ODD`, 3 to 1701) the kernel (``csrc/fft_radix.cuh``) computes
 the four steps with in-register codelets instead of dense DFT-matrix
 products (on the CPU, :func:`emulate` runs the same index maps):
@@ -24,17 +24,17 @@ m/2) does the butterflies (b+j, b+j+h) for b a multiple of m and j < h,
 the lower input multiplied by W_m^j = w[j * N2/m], where w[k] = W_N2^k
 for k < N2/2 is the one table both codelets share (N1 divides N2).
 
-A codelet of any other length L = 2^a 3^b 5^c 7^d 11^e 13^f 17^g 19^h
+A codelet of any other length L = 2^a 3^b 5^c 7^d 11^e 13^f 17^g 19^h 23^i
 (N a mixed length) is the mixed-radix decimation in time over the chain
-:func:`radices` (the 19s, the 17s, the 13s, the 11s, the 7s, the 5s, the
-3s, then 4s and a last 2, first stage first): the input sits in
+:func:`radices` (the 23s, the 19s, the 17s, the 13s, the 11s, the 7s, the
+5s, the 3s, then 4s and a last 2, first stage first): the input sits in
 digit-reversed order (:func:`digit_rev`), and a stage of radix r after
 stages spanning m does, for every block b of m*r and j < m, the r-point
 DFT of v[b + j + q*m], q < r, input q first multiplied by W_(m*r)^(j*q) =
 w[j*q * L/(m*r)] from the codelet's own table of W_L^k, k < L (N1 need
 not divide N2: 384 = 16*24).  The r-point DFTs are the constant
-rotations of :func:`_dft_small` (radix 3, 4, 5, 7, 11, 13, 17 and 19
-with the direction's sign; no table; 7 to 19 in the symmetric-pair
+rotations of :func:`_dft_small` (radix 3, 4, 5, 7, 11, 13, 17, 19 and
+23 with the direction's sign; no table; 7 to 23 in the symmetric-pair
 form).
 For a mixed N both codelets have their own table
 (W_N1^k and W_N2^k), a power-of-two factor's codelet too.  The loops
@@ -91,13 +91,14 @@ STRIDED_LINES = 16
 #: (``longline.FACTORS``: r*2^a is its mixed factor R1 <= 32, R2 and R3
 #: powers of two) and the split route past it (``split.FACTORS``).  The
 #: long-line route takes other 13-smooth odd parts too (33 to 729, R2
-#: mixed: ``longline.rule_factors``), the split route none.
-EVERY_ROUTE_ODD = (3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25, 27)
+#: mixed: ``longline.rule_factors``), and so does the split route where
+#: its rule finds a P and a Q (``split.rule_factors``).
+EVERY_ROUTE_ODD = (3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23, 25, 27)
 #: The odd parts with a prime factor past 13 that the codelet routes take:
-#: the primes of the radix-17 and radix-19 butterflies alone, as N =
-#: 17*2^k and 19*2^k (:func:`codelet_length`).  Their odd products (51,
-#: 57, 85, ...) are not taken yet.
-WIDE_ODD = (17, 19)
+#: the primes of the radix-17, radix-19 and radix-23 butterflies alone, as
+#: N = 17*2^k, 19*2^k and 23*2^k (:func:`codelet_length`).  Their odd
+#: products (51, 57, 69, 85, ...) are not taken yet.
+WIDE_ODD = (17, 19, 23)
 #: The longest codelet per complex dtype, in values: a codelet of 64
 #: complex128 values would take 256 registers and spill, so complex128
 #: stops at 32 (and its 2048 and 4096 take the long-line route).
@@ -121,38 +122,39 @@ def odd_part(n: int) -> int:
 def codelet_length(n: int) -> bool:
     """Whether the codelet chain (:func:`radices`) takes a length ``n`` >=
     1: 13-smooth (:func:`smooth`, which the dense and long-line routes'
-    rules read), or r*2^k with r in :data:`WIDE_ODD`."""
+    rules read), or r*2^k with r in :data:`WIDE_ODD` (17, 19 and 23)."""
     return smooth(n) or odd_part(n) in WIDE_ODD
 
 
 #: Lengths the kernel instantiates, per complex dtype: every even N whose
-#: only prime factors are 2, 3, 5, 7, 11 and 13, and every 17*2^k and 19*2^k
-#: (:func:`codelet_length`), whose two factors (``factorize``) are both at
-#: most ``CODELET_MAX`` long, so both codelets stay in registers: complex64
-#: 2 to 4096 (12 powers of two and 313 mixed lengths, 4096 = 64 x 64, 3780 =
-#: 60 x 63, 600 = 24 x 25, 2432 = 38 x 64), complex128 4 to 1024 (9 and 150;
-#: 900 = 30 x 30, 608 = 19 x 32).  Of the even 13-smooth lengths whose
-#: factors do not both fit, those that three codelets of at most 32 take run
-#: the long-line kernel (``longline.rule_factors``: complex64 3168 to 4096,
-#: such as 3888 = 27 x 9 x 16 and 4000; complex128 792 to 1024, such as
-#: 1000); the rest (complex64 1690 = 26 x 65 to 4056, such as 2730 and 4050;
-#: complex128 490 = 14 x 35 to 1014, such as 990) and odd N run the dense
-#: kernel.  Four lengths whose kernels ptxas spills at a low register count
-#: stay on the dense path too: complex128 N = 2 (4 bytes at 64 registers)
-#: and N = 22 = 2x11 (4 bytes at 80), complex64 N = 208 = 13x16 (4 bytes and
-#: an 8-byte stack frame at 64) and N = 504 = 21x24 (4 bytes and an 8-byte
-#: stack frame at 80).
+#: only prime factors are 2, 3, 5, 7, 11 and 13, and every 17*2^k, 19*2^k
+#: and 23*2^k (:func:`codelet_length`), whose two factors (``factorize``)
+#: are both at most ``CODELET_MAX`` long, so both codelets stay in
+#: registers: complex64 2 to 4096 (12 powers of two and 320 mixed lengths,
+#: 4096 = 64 x 64, 3780 = 60 x 63, 600 = 24 x 25, 2944 = 46 x 64),
+#: complex128 4 to 1024 (9 and 155; 900 = 30 x 30, 736 = 23 x 32).  Of the
+#: even 13-smooth lengths whose factors do not both fit, those that three
+#: codelets of at most 32 take run the long-line kernel
+#: (``longline.rule_factors``: complex64 3168 to 4096, such as 3888 = 27 x
+#: 9 x 16 and 4000; complex128 792 to 1024, such as 1000); the rest
+#: (complex64 1690 = 26 x 65 to 4056, such as 2730 and 4050; complex128 490
+#: = 14 x 35 to 1014, such as 990) and odd N run the dense kernel.  Four
+#: lengths whose kernels ptxas spills at a low register count stay on the
+#: dense path too: complex128 N = 2 (4 bytes at 64 registers) and N = 22 =
+#: 2x11 (4 bytes at 80), complex64 N = 208 = 13x16 (4 bytes and an 8-byte
+#: stack frame at 64) and N = 504 = 21x24 (4 bytes and an 8-byte stack
+#: frame at 80).
 _SPILLS = {torch.complex64: (208, 504), torch.complex128: (2, 22)}
 RADIX_SIZES = {
     dtype: tuple(n for n in range(2, cap * cap + 1, 2)
                  if codelet_length(n) and max(factorize(n)) <= cap
                  and n not in _SPILLS[dtype])
     for dtype, cap in CODELET_MAX.items()}
-#: The odd parts the radix route takes, per complex dtype: 13-smooth, or 17
-#: or 19, in some even N whose two factors both fit one codelet (complex64 3
-#: to 1701, complex128 3 to 405).  Which r*2^k of them run there is
-#: :data:`RADIX_SIZES`' rule: 75*2 = 150 = 10 x 15 does, 75*64 = 4800 = 60 x
-#: 80 does not.
+#: The odd parts the radix route takes, per complex dtype: 13-smooth, or
+#: 17, 19 or 23, in some even N whose two factors both fit one codelet
+#: (complex64 3 to 1701, complex128 3 to 405).  Which r*2^k of them run
+#: there is :data:`RADIX_SIZES`' rule: 75*2 = 150 = 10 x 15 does, 75*64 =
+#: 4800 = 60 x 80 does not.
 RADIX_ODD = {dtype: frozenset(odd_part(n) for n in sizes if odd_part(n) > 1)
              for dtype, sizes in RADIX_SIZES.items()}
 
@@ -162,13 +164,16 @@ def kernel_path(n: int, dtype: torch.dtype) -> str:
     ``dtype``, "long" for the longer lines the long-line route takes
     (``longline.FACTORS``: powers of two and mixed lengths to a 128 KB
     line, with one mixed factor or two), "split" for the lines longer
-    than one block holds (``split.FACTORS``: two passes through HBM),
-    "chirp" for every other length the dense route does not take up to
-    the chirp route's limit (``chirp.takes``: Bluestein over the other
-    routes; ``dense.takes``: N up to ``dense.DENSE_LIMIT`` whose generic
-    stages cost no more than the chirp (``dense.GENERIC_COST``), and the
-    13-smooth N whose line fits one block), else "dense" (the mixed-radix
-    kernel over a run-time chain; past the chirp's limit it raises)."""
+    than one block holds (``split.FACTORS``: two passes through HBM, N =
+    P*Q with P a power of two; the measured table and, since the rule,
+    every 13-smooth N or r*2^k, r in :data:`WIDE_ODD`, whose Q a radix or
+    long-line row takes: ``split.rule_factors``), "chirp" for every other
+    length the dense route does not take up to the chirp route's limit
+    (``chirp.takes``: Bluestein over the other routes; ``dense.takes``: N
+    up to ``dense.DENSE_LIMIT`` whose generic stages cost no more than the
+    chirp (``dense.GENERIC_COST``), and the 13-smooth N whose line fits
+    one block), else "dense" (the mixed-radix kernel over a run-time
+    chain; past the chirp's limit it raises)."""
     if n in RADIX_SIZES.get(dtype, ()):
         return "radix"
     # deferred: longline, split and chirp import this module
@@ -196,15 +201,15 @@ def is_pow2(n: int) -> bool:
 
 
 #: The odd radices of the mixed codelets, in chain order.
-ODD_RADICES = (19, 17, 13, 11, 7, 5, 3)
+ODD_RADICES = (23, 19, 17, 13, 11, 7, 5, 3)
 
 
 def radices(length: int) -> Tuple[int, ...]:
     """The radix chain of a codelet of ``length``, first stage first: 2s
-    for a power of two (the radix-2 codelet); else the 19s, the 17s, the
-    13s, the 11s, the 7s, the 5s, the 3s, then the 4s and a last 2
+    for a power of two (the radix-2 codelet); else the 23s, the 19s, the
+    17s, the 13s, the 11s, the 7s, the 5s, the 3s, then the 4s and a last 2
     (``fft_radix.cuh``'s ``mixed_radix``).  Raises for a length below 2 or
-    with a prime factor other than 2, 3, 5, 7, 11, 13, 17 and 19."""
+    with a prime factor other than 2, 3, 5, 7, 11, 13, 17, 19 and 23."""
     if length >= 2 and is_pow2(length):
         return (2,) * (length.bit_length() - 1)
     rest, exps = length, {}
@@ -215,7 +220,8 @@ def radices(length: int) -> Tuple[int, ...]:
             exps[p] += 1
     if rest != 1 or length < 2:
         raise ValueError(f"the radix path takes N >= 2 whose only prime "
-                         f"factors are 2, 3, 5, 7, 11, 13, 17 and 19, got "
+                         f"factors are 2, 3, 5, 7, 11, 13, 17, 19 and 23, "
+                         f"got "
                          f"{length}")
     a = exps[2]
     return (sum(((p,) * exps[p] for p in ODD_RADICES), ())
@@ -297,7 +303,7 @@ def radix_plan(n: int) -> RadixPlan:
     the shared table for a power of two; for a mixed ``n`` each factor's
     codelet on its own table (radix-2 where that factor is a power of
     two).  Raises for N < 2 or a prime factor other than 2, 3, 5, 7, 11,
-    13, 17 and 19."""
+    13, 17, 19 and 23."""
     radices(n)
     n1, n2 = factorize(n)
     if is_pow2(n):
@@ -419,7 +425,7 @@ _S3 = 0.86602540378443864676
 _C51, _C52 = 0.30901699437494742410, -0.80901699437494742410
 _S51, _S52 = 0.95105651629515357212, 0.58778525229247312917
 #: cos(2*pi*j/P) and sin(2*pi*j/P), j = 1 .. (P-1)/2, of the radix-7, 11,
-#: 13, 17 and 19 DFTs (``fft_radix.cuh``'s ``odd_cos``/``odd_sin`` spell
+#: 13, 17, 19 and 23 DFTs (``fft_radix.cuh``'s ``odd_cos``/``odd_sin`` spell
 #: the same digits).
 _ODD_COS = {
     7: (0.62348980185873353053, -0.22252093395631440429,
@@ -438,7 +444,13 @@ _ODD_COS = {
          0.54694815812242687471, 0.24548548714079914892,
          -0.08257934547233232460, -0.40169542465296945752,
          -0.67728157162574107476, -0.87947375120648907139,
-         -0.98636130340272237360)}
+         -0.98636130340272237360),
+    23: (0.96291728734779929502, 0.85441940454648855255,
+         0.68255314321865408287, 0.46006503773115212604,
+         0.20345601305263378988, -0.06824241336467097592,
+         -0.33487961217098615196, -0.57668032211486714125,
+         -0.77571129070441980704, -0.91721130150545301784,
+         -0.99068594603633075234)}
 _ODD_SIN = {
     7: (0.78183148246802980871, 0.97492791218182360702,
         0.43388373911755812048),
@@ -456,7 +468,13 @@ _ODD_SIN = {
          0.83716647826252857481, 0.96940026593933041674,
          0.99658449300666984982, 0.91577332665505743992,
          0.73572391067313162477, 0.47594739303707354443,
-         0.16459459028073389414)}
+         0.16459459028073389414),
+    23: (0.26979677115702427125, 0.51958395003543357813,
+         0.73083596427812410165, 0.88788521840237523498,
+         0.97908408768232287563, 0.99766876919053919845,
+         0.94226092211882049562, 0.81696989301044201697,
+         0.63108794432605278937, 0.39840108984624145800,
+         0.13616664909624659076)}
 
 
 def _odd_cs(p: int, m: int) -> Tuple[float, float]:
@@ -469,7 +487,7 @@ def _odd_cs(p: int, m: int) -> Tuple[float, float]:
 
 
 def _dft_odd(a: list, sign: float) -> list:
-    """The P-point DFT (P = 7, 11, 13, 17, 19) in the symmetric-pair
+    """The P-point DFT (P = 7, 11, 13, 17, 19, 23) in the symmetric-pair
     form: b_j = a_j + a_(P-j), d_j = a_j - a_(P-j) for j < P/2; out 0 =
     a_0 + sum b; outs k and P-k = e_k +- i*s*f_k with e_k = a_0 + sum_j
     b_j cos(2*pi*j*k/P), f_k = sum_j d_j sin(2*pi*j*k/P), each sum in the
@@ -500,7 +518,7 @@ def _rot(a, sign: float):
 
 
 def _dft_small(a: list, sign: float) -> list:
-    """The r-point DFT (r = 2, 3, 4, 5, 7, 11, 13, 17, 19) of ``a`` with
+    """The r-point DFT (r = 2, 3, 4, 5, 7, 11, 13, 17, 19, 23) of ``a`` with
     W_r = exp(sign*2*pi*i/r), as the kernel's butterflies compute it."""
     r = len(a)
     if r in _ODD_COS:

@@ -1,13 +1,17 @@
 """The split route of the four-step kernel: lines longer than one block
 holds, as a two-level four-step through HBM.
 
-A line of N = P*Q (:data:`FACTORS`: the powers of two, complex64 N from
-32768 to 2^24 and complex128 from 16384 to 2^22, and the mixed lengths
-r*2^k, r in ``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19,
-21, 25, 27}, past the long-line route's up to the same limits; P a power
-of two, a mixed N's odd part in Q, so the odd codelets run in pass B) is
-viewed as (P, Q), x[p*Q + q], and transformed by the routes one block
-holds, in two launches (three with rows on the long-line route):
+A line of N = P*Q (:data:`FACTORS`: the measured table, :data:`_TABLE`,
+of the powers of two, complex64 N from 32768 to 2^24 and complex128 from
+16384 to 2^22, and the mixed lengths r*2^k, r in ``radix.EVERY_ROUTE_ODD``
+= {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23, 25, 27}, past the long-line
+route's up to the same limits; then a rule, :func:`rule_factors`, for
+every other N up to those limits that is 13-smooth or r*2^k, r in
+``radix.WIDE_ODD``, that no other route takes and whose Q a radix or
+long-line row holds, 23*2^k among them; P a power of two, a mixed N's odd
+part in Q, so the odd codelets run in pass B) is viewed as (P, Q),
+x[p*Q + q], and transformed by the routes one block holds, in two
+launches (three with rows on the long-line route):
 
 * pass A — the P-long DFT down every column q (stride Q): the radix
   route's strided entry on the ``(B, P, Q)`` block (outer = B, N = P,
@@ -15,20 +19,20 @@ holds, in two launches (three with rows on the long-line route):
   W_N^(kp*q) (``fft_radix.cuh``, ``kRadixSplitA``) and writes the
   same ``(B, P, Q)`` layout;
 * pass B — the Q-long DFT of every contiguous row (b, kp).  On the radix
-  route (Q up to 2048 complex64, 1024 complex128) it is stored transposed
-  at out[b, kp + P*kq], the line's output index, with the line's own
-  epilogues on that store: the output twiddle (N,), the inverse's 1/N
-  (once, for the whole line) and the ``pack_parts`` segment store.  A
-  tile holds L consecutive rows in the layout (k1, l, m2) with a row
-  pitch of Q2 + 1, and the row pass runs its threads along l, so a warp
-  stores L consecutive kp (``kRadixSplitB``).
-* On the long-line route (Q of ``longline.FACTORS``, a multiple of 32) a
-  block holds one row, so its stores cannot be staged so:
-  pass B stores the rows in place (``fft_long.cuh`` as it is, without the
-  scale), and pass C (``split_transpose``) moves 32 x 32 tiles of each
-  line's (P, Q) rows through shared memory to out[b, kp + P*kq] with the
-  line's epilogues.  Storing pass B straight to kp + P*kq took 2.5 times
-  as long at 2^24 (3.8 ms against 1.5; PERF.md).
+  route (Q up to 2048 complex64, 1024 complex128; the rule's to
+  :data:`ROW_MAX`) it is stored transposed at out[b, kp + P*kq], the line's
+  output index, with the line's own epilogues on that store: the output
+  twiddle (N,), the inverse's 1/N (once, for the whole line) and the
+  ``pack_parts`` segment store.  A tile holds L consecutive rows in the
+  layout (k1, l, m2) with a row pitch of Q2 + 1, and the row pass runs its
+  threads along l, so a warp stores L consecutive kp (``kRadixSplitB``).
+* On the long-line route (Q of ``longline.FACTORS``, a multiple of 32, with
+  one mixed factor or two) a block holds one row, so its stores cannot be
+  staged so: pass B stores the rows in place (``fft_long.cuh`` as it is,
+  without the scale), and pass C (``split_transpose``) moves 32 x 32 tiles of
+  each line's (P, Q) rows through shared memory to out[b, kp + P*kq] with the
+  line's epilogues.  Storing pass B straight to kp + P*kq took 2.5 times as
+  long at 2^24 (3.8 ms against 1.5; PERF.md).
 
 The inter-step twiddle would be an N-entry table (128 MB at N = 2^24 in
 complex64); it is TA[kp, ql] * TB[kp, qh] with q = qh*QL + ql, QL a power
@@ -38,9 +42,9 @@ read through L2.
 
 :func:`emulate` runs exactly these passes and index maps in torch, through
 ``radix.emulate`` and ``longline.emulate`` with the same modes and
-:func:`transpose_emulate`; it is the route's plain version (``fft_matmul.fft_fourstep_plain`` takes it for
-these N), and the CPU tests hold it against ``np.fft`` and the JAX
-package's kernel.
+:func:`transpose_emulate`; it is the route's plain version
+(``fft_matmul.fft_fourstep_plain`` takes it for these N), and the CPU
+tests hold it against ``np.fft`` and the JAX package's kernel.
 """
 from __future__ import annotations
 
@@ -144,17 +148,94 @@ _MIXED = {
         (64, 152), (128, 152), (256, 152), (256, 304), (256, 608),
         (64, 4864), (128, 4864), (256, 4864), (512, 4864)),
 }
-#: (P, Q) per length and complex dtype: both tables.
-FACTORS = {dtype: {**_POW2[dtype], **{p * q: (p, q) for p, q in pairs}}
-           for dtype, pairs in _MIXED.items()}
+#: (P, Q) per length and complex dtype: both measured tables.
+_TABLE = {dtype: {**_POW2[dtype], **{p * q: (p, q) for p, q in pairs}}
+          for dtype, pairs in _MIXED.items()}
 
 
-#: The pass lengths of the table above, each instantiated by the kernel
-#: (``fft_radix.cuh``'s ``radix_dispatch`` for ``kRadixSplitA`` and
-#: ``kRadixSplitB``): P, and Q on the radix route.  Q on the long-line
-#: route takes ``longline.FACTORS``'s lengths.
+#: Pass A's lengths, each instantiated by the kernel (``fft_radix.cuh``'s
+#: ``radix_dispatch`` for ``kRadixSplitA``): the P of every plan.
 COLUMN_SIZES = {torch.complex64: (256, 512, 1024),
                 torch.complex128: (64, 128, 256, 512)}
+#: The longest line per complex dtype: 2^24 complex64 and 2^22 complex128
+#: (128 MB and 64 MB), the powers of two's own limit.
+LIMIT = {dtype: max(_POW2[dtype]) for dtype in _POW2}
+#: The longest Q the rule puts on the radix route, per complex dtype: the
+#: measured table's longest radix rows (1920 = 40 x 48 complex64, 960 =
+#: 30 x 32 complex128).
+ROW_MAX = {torch.complex64: 1920, torch.complex128: 960}
+#: The longest Q the rule prefers on radix rows: an H100 sweep of every
+#: instantiated (P, Q) at 41 rule lengths (``scripts/route_times.py split``
+#: and ``splitcheck``; PERF.md §6) read Q past 1024 on P = 256 (tiles of 4
+#: to 8 rows, short stores) and P = 1024 (pass A's tile alone on its SM)
+#: 11-16% slower than P = 512 with Q half as long.
+ROW_SHORT = 1024
+#: The P of long-line rows the rule tries, in order, per complex dtype:
+#: the measured table's (512 before 1024 and 256 for complex64; the
+#: least first for complex128).
+LONG_P = {torch.complex64: (512, 1024, 256),
+          torch.complex128: (64, 128, 256, 512)}
+
+
+def _radix_rows(dtype: torch.dtype) -> frozenset:
+    """Q that the rule may put on the radix route: radix-route lengths up
+    to :data:`ROW_MAX`."""
+    return frozenset(q for q in radix.RADIX_SIZES[dtype]
+                     if q <= ROW_MAX[dtype])
+
+
+def _long_rows(dtype: torch.dtype) -> frozenset:
+    """Q that the rule may put on the long-line route: its lengths that
+    pass C's 32 x 32 tiles take (a multiple of 32)."""
+    return frozenset(q for q in longline.FACTORS[dtype] if q % 32 == 0)
+
+
+def rule_factors(n: int, dtype: torch.dtype) -> Optional[tuple]:
+    """(P, Q) with N = P*Q, P in :data:`COLUMN_SIZES`: on a radix row
+    (:func:`_radix_rows`, its tile's rows dividing P) the least P below
+    the largest whose Q is at most :data:`ROW_SHORT`, else the least P;
+    with no radix row, the first P of :data:`LONG_P` whose Q is a
+    long-line row (:func:`_long_rows`); None where there is none."""
+    rows, top = _radix_rows(dtype), max(COLUMN_SIZES[dtype])
+    fits = [(p, n // p) for p in COLUMN_SIZES[dtype]
+            if n % p == 0 and n // p in rows and p % radix.radix_tile(
+                n // p, dtype.itemsize, False, False).lines == 0]
+    if fits:
+        return min(fits, key=lambda pq: (pq[1] > ROW_SHORT or pq[0] == top,
+                                         pq[0]))
+    rows = _long_rows(dtype)
+    for p in LONG_P[dtype]:
+        if n % p == 0 and n // p in rows:
+            return p, n // p
+    return None
+
+
+def _rule(dtype: torch.dtype) -> dict:
+    """The rule's lengths: every N = P*Q up to :data:`LIMIT` that
+    :func:`rule_factors` splits and no other route takes (the radix and
+    long-line routes' lengths, :data:`_TABLE`'s, and the 13-smooth lines
+    of one block that ``dense.takes``), with their (P, Q).  Q's odd part
+    is N's, so N is 13-smooth or r*2^k with r in ``radix.WIDE_ODD``."""
+    from .dense import takes as dense_takes    # dense imports chirp
+    rows = _radix_rows(dtype) | _long_rows(dtype)
+    taken = (set(radix.RADIX_SIZES[dtype]) | set(longline.FACTORS[dtype])
+             | set(_TABLE[dtype]))
+    out = {}
+    for n in sorted({p * q for p in COLUMN_SIZES[dtype] for q in rows}):
+        if n > LIMIT[dtype] or n in taken or dense_takes(n, dtype):
+            continue
+        factors = rule_factors(n, dtype)
+        if factors is not None:
+            out[n] = factors
+    return out
+
+
+#: (P, Q) per length and complex dtype (``radix.kernel_path`` reads this
+#: table): :data:`_TABLE`, then the rule's (:func:`_rule`).
+FACTORS = {dtype: {**table, **_rule(dtype)} for dtype, table in _TABLE.items()}
+#: Pass B's lengths on the radix route, each instantiated by the kernel
+#: (``radix_dispatch`` for ``kRadixSplitB``).  Q on the long-line route
+#: takes ``longline.FACTORS``'s lengths.
 ROW_SIZES = {dtype: tuple(sorted({q for _, q in table.values()
                                   if q not in longline.FACTORS[dtype]}))
              for dtype, table in FACTORS.items()}
@@ -194,13 +275,15 @@ class SplitPlan:
 
 
 def split_plan(n: int, dtype: torch.dtype) -> SplitPlan:
-    """The plan of a length the split route takes, with the table's
-    (P, Q)."""
+    """The plan of a length the split route takes, with its (P, Q) from
+    :data:`FACTORS` (the measured table's, else the rule's)."""
     factors = FACTORS.get(dtype, {}).get(n)
     if factors is None:
         raise ValueError(
-            f"the split route takes N in "
-            f"{sorted(FACTORS.get(dtype, {}))} for {dtype}, got {n}")
+            f"the split route takes N in split.FACTORS "
+            f"({len(FACTORS.get(dtype, {}))} lengths up to "
+            f"{LIMIT.get(dtype)} for {dtype}: the measured table's and "
+            f"rule_factors'), got {n}")
     p, q = factors
     row_path = "long" if q in longline.FACTORS[dtype] else "radix"
     return SplitPlan(n, p, q, row_path)

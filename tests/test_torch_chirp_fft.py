@@ -4,22 +4,24 @@ convolution over two transforms of M = 2^ceil(log2(2N - 1)) on the
 radix, long-line or split route, the chirps in their ``twiddle``
 epilogues.  Its plain version, ``chirp.emulate`` (the wrapper runs it for
 CPU tensors), runs the same steps over the inner routes' plain versions;
-it is held against ``np.fft`` (complex64 N of 5888 = 23*256, M on the
-long-line route, the prime 10007 and 33792 = 33*2^10, M on the split
-route; complex128 N of 3001 and 2944 = 23*128; both directions, the
+it is held against ``np.fft`` (complex64 N of 7424 = 29*256, M on the
+long-line route, the prime 10007 and 29106 = 2*14553, M on the split
+route; complex128 N of 3001 and 3712 = 29*128; both directions, the
 twiddle and ``pack_parts`` epilogues) and against the JAX package's
 Pallas kernel in interpret mode on the same numpy inputs where the
-reference factors N (5888 and 2944), at the reference's tolerances
-(``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
-complex128); so are 4864 = 19*256 and complex128 2432 = 19*128, which
-the chirp held until the radix-19 codelet, on the long-line route now.
+reference factors N (7424, 29106 and 3712), at the reference's
+tolerances (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64,
+1e-12 in complex128); so are 4864 = 19*256, 5888 = 23*256 and
+complex128 2432 = 19*128 and 2944 = 23*128, which the chirp held until
+the radix-19 and radix-23 codelets, on the long-line route now, and
+33792 = 33*2^10, on the split route's rule now.
 Then the chirp tables' phase at large N, the routing by length, the line
 copies, the gradient, and ``fft_conv`` at S = 2432 (lines of 4864, the
 long-line route now, the chirp before) and S = 2880 (lines of 5760 = 30
 x 12 x 16, the long-line route since R2 may be mixed) forward and
 backward against the reference's mixer.  The mixed lengths r*2^k, r in
-``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25,
-27}, take the radix, long-line and split routes
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23,
+25, 27}, take the radix, long-line and split routes
 (``test_torch_long_mixed_fft.py``, ``test_torch_split_mixed_fft.py``,
 ``test_torch_wide_fft.py``), and the other 13-smooth odd parts the radix
 and long-line routes up to a 128 KB line and the dense route to one
@@ -27,7 +29,8 @@ block, so the chirp keeps the lengths whose generic stages cost the
 dense route more (``dense.GENERIC_COST``) and, past the dense route's
 old limit, any prime
 factor from 17 that no codelet takes, and the 13-smooth lengths whose
-line does not fit one block (33*2^10).
+line does not fit one block and that the split route's rule leaves
+(29106, with one factor of 2).
 The CUDA launches are tested in ``test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 import dataclasses
@@ -52,18 +55,24 @@ VARIANTS = [(2, False, False, None), (1, True, True, None),
 LENGTHS = [(torch.complex64, 4864), (torch.complex64, 10007),
            (torch.complex64, 33792), (torch.complex128, 3001),
            (torch.complex128, 2432), (torch.complex64, 5888),
-           (torch.complex128, 2944)]
-#: The lengths above that the chirp held until the radix-19 codelet moved
-#: them to the long-line route (19 x 16 x 16 and 19 x 8 x 16), where the
-#: wrapper's plain version is ``longline.emulate``; the rest stay here.
-ROUTE = {4864: "long", 2432: "long"}
+           (torch.complex128, 2944), (torch.complex64, 7424),
+           (torch.complex128, 3712), (torch.complex64, 29106)]
+#: The lengths above that the chirp held until the radix-19 and radix-23
+#: codelets moved them to the long-line route (19 x 16 x 16, 19 x 8 x 16,
+#: 23 x 16 x 16 and 23 x 8 x 16) or the split route's rule did (33792 =
+#: 256 x 132), where the wrapper's plain version is ``longline.emulate``
+#: or ``split.emulate``; the rest stay here: 7424 = 29*256 and complex128
+#: 3712 = 29*128 (M on the long-line route, as 5888 and 2944 had it) and
+#: 29106 (M = 65536 on the split route, as 33792 had it).
+ROUTE = {4864: "long", 2432: "long", 5888: "long", 2944: "long",
+         33792: "split"}
 CASES = [(dtype, n, b, inv, tw, parts if n % 2 == 0 else None)
          for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
 #: Where the reference's four-step factors N: at a prime N it is one
 #: dense DFT matrix, 10007 x 10007 (too large to run here), and at 3001
 #: its sums of 3001 terms differ from np.fft by about 1e-12 in complex128
 #: themselves, so the prime lengths are held to np.fft alone.
-PALLAS = {4864, 2432, 5888, 2944}
+PALLAS = {4864, 2432, 5888, 2944, 7424, 3712, 29106}
 
 
 def _case_id(case):
@@ -201,22 +210,27 @@ def test_chirp_filter_is_the_transformed_conjugate_chirp():
     (4864, torch.complex64, "long"), (23040, torch.complex64, "dense"),
     (5460, torch.complex64, "dense"), (2432, torch.complex128, "long"),
     (8448, torch.complex128, "dense"), (16896, torch.complex64, "dense"),
-    (33792, torch.complex64, "chirp"), (2421, torch.complex128, "chirp"),
+    (33792, torch.complex64, "split"), (2421, torch.complex128, "chirp"),
     (1 << 21, torch.complex128, "split"),
     ((1 << 21) + 1, torch.complex128, "dense"),
     (4096, torch.complex64, "radix"), (3840, torch.complex64, "radix"),
-    (4831, torch.complex64, "chirp"), (5888, torch.complex64, "chirp"),
-    (2944, torch.complex128, "chirp"), (521, torch.complex64, "chirp"),
-    (816, torch.complex64, "dense"), (19 << 19, torch.complex64, "split")])
+    (4831, torch.complex64, "chirp"), (5888, torch.complex64, "long"),
+    (2944, torch.complex128, "long"), (521, torch.complex64, "chirp"),
+    (816, torch.complex64, "dense"), (19 << 19, torch.complex64, "split"),
+    (7424, torch.complex64, "chirp"), (3712, torch.complex128, "chirp"),
+    (29106, torch.complex64, "chirp"), (33 << 18, torch.complex64, "split"),
+    (23 << 19, torch.complex64, "split"), (23 << 17, torch.complex128,
+                                            "split")])
 def test_chirp_routing_by_length(n, dtype, path):
     """The chirp route takes every length that no other route takes, up
     to half the split route's longest line: up to the dense route's old
     limit (complex64 4835, complex128 2419) generic stages that cost the
     dense route more (``dense.GENERIC_COST``: 4835 = 5*967, the primes
     521 and 4831); past it a prime factor from 17 that no codelet takes
-    (4836 = 4*3*13*31, 5888 = 23*256, 10007, complex128 2421 =
-    9*269, 2944 = 23*128) or a 13-smooth line past one block (33792 =
-    33*2^10).  The dense route keeps the lengths to that limit whose
+    (4836 = 4*3*13*31, 7424 = 29*256, 10007, complex128 2421 = 9*269,
+    3712 = 29*128) or a 13-smooth line past one block that the split
+    route's rule leaves (29106 = 2*14553: one factor of 2, no P).  The
+    dense route keeps the lengths to that limit whose
     generic stages cost it less (816 = 17*48, complex128 2419 = 41*59)
     and takes the
     13-smooth lengths past it whose line fits one block (complex128 2420
@@ -226,7 +240,11 @@ def test_chirp_routing_by_length(n, dtype, path):
     long-line route takes 45*2^k (5760 = 30 x 12 x 16, 11520) and 35*2^7
     = 4480 up to its line, 5000 = 25 x 25 x 8 too, and 19*2^k since the
     radix-19 codelet (4864 = 19 x 16 x 16, complex128 2432 = 19 x 8 x
-    16); the split route 19*2^19, past the chirp's old limit."""
+    16) and 23*2^k since the radix-23 codelet (5888 = 23 x 16 x 16,
+    complex128 2944 = 23 x 8 x 16); the split route 19*2^19, past the
+    chirp's old limit, 23*2^19 and complex128 23*2^17, which raised, and
+    by its rule (``split.rule_factors``) 33792 = 256 x 132, the chirp's
+    before, and 33*2^18 = 1024 x 8448, which raised."""
     assert radix.kernel_path(n, dtype) == path
     if path in ("chirp", "dense"):
         assert chirp.takes(n, dtype) == (path == "chirp")

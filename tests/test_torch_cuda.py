@@ -353,12 +353,12 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
-    (torch.complex64, 5888, 3, False, None, True),      # M on long-line
-    (torch.complex64, 5888, 2, True, 4, False),
+    (torch.complex64, 7424, 3, False, None, True),      # M on long-line
+    (torch.complex64, 7424, 2, True, 4, False),
     (torch.complex64, 10007, 2, True, None, True),      # prime, M split
-    (torch.complex64, 33792, 1, False, 2, True),        # past one block
+    (torch.complex64, 29106, 1, False, 2, True),        # past one block
     (torch.complex128, 3001, 2, False, None, True),
-    (torch.complex128, 2944, 1, True, 23, False),
+    (torch.complex128, 3712, 1, True, 29, False),
     (torch.complex64, 521, 5, False, None, True),       # M on radix
     (torch.complex64, 4831, 2, True, None, False),      # left the dense
     (torch.complex128, 101, 3, True, None, True)])
@@ -414,15 +414,23 @@ def split_rows_long(n, dtype) -> int:
     (torch.complex64, 17 << 10, "split"), (torch.complex64, 19 << 19,
                                            "split"),
     (torch.complex128, 19 << 9, "split"), (torch.complex128, 17 << 17,
-                                           "split")])
+                                           "split"),
+    (torch.complex64, 2944, "radix"), (torch.complex128, 736, "radix"),
+    (torch.complex64, 5888, "long"), (torch.complex64, 11776, "long"),
+    (torch.complex128, 1472, "long"), (torch.complex128, 2944, "long"),
+    (torch.complex128, 5888, "long"), (torch.complex64, 23 << 10, "split"),
+    (torch.complex64, 23 << 19, "split"), (torch.complex128, 23 << 9,
+                                           "split"),
+    (torch.complex128, 23 << 17, "split")])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cuda_wide_lengths_on_their_routes(cuda, dtype, n, route, inverse):
-    """17*2^k and 19*2^k on the route ``kernel_path`` names (the radix-17
-    and radix-19 codelets: radix, long-line with an odd R1, split with
-    the odd part in Q; the longest split ones lay past the chirp's
-    limit), one call's launches all on it, with the twiddle and a
-    ``pack_parts`` of N/17 or N/19, against the plain version at the
-    kernel's tolerances and ``torch.fft``."""
+    """17*2^k, 19*2^k and 23*2^k on the route ``kernel_path`` names (the
+    radix-17, radix-19 and radix-23 codelets: radix, long-line with an
+    odd R1, split with the odd part in Q, 23*2^k by the split route's
+    rule; the longest split ones lay past the chirp's limit), one call's
+    launches all on it, with the twiddle and a ``pack_parts`` of N/17,
+    N/19 or N/23, against the plain version at the kernel's tolerances
+    and ``torch.fft``."""
     assert radix.kernel_path(n, dtype) == route
     b = max(1, (1 << 24) // (n * dtype.itemsize))
     x = torch.from_numpy(cplx((b, n), 23)).to(cuda, dtype)
@@ -495,12 +503,14 @@ def test_cuda_dense_route_matches_plain_version_and_torch_fft(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [384, 6144, 5888, 24576, 10752, 4800, 4725])
+@pytest.mark.parametrize("n", [384, 6144, 7424, 24576, 10752, 4800, 4725,
+                               5888, 33792])
 def test_cuda_mixed_and_chirp_read_an_unaligned_view(cuda, n):
     """A contiguous view 8 bytes into its storage, at mixed lengths on the
     radix, long-line (its row copies are 16-byte aligned: the wrapper
-    clones; 10752 = 21 x 16 x 32, an odd R1; 4800 = 30 x 10 x 16, a mixed
-    R2) and split routes, on the chirp route (5888 = 23*256) and on the
+    clones; 10752 = 21 x 16 x 32 and 5888 = 23 x 16 x 16, an odd R1; 4800
+    = 30 x 10 x 16, a mixed R2) and split routes (33792 = 256 x 132, the
+    split route's rule), on the chirp route (7424 = 29*256) and on the
     dense route (4725, odd: its copies take 8 bytes at a time):
     transformed all the same."""
     base = torch.from_numpy(cplx((2 * n + 1,), 18)).to(cuda)
@@ -620,6 +630,49 @@ def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
             ref = lib if t is None else (lib * t).reshape(37, p, n // p)
             assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
             assert_scaled_close(got.cpu().numpy(), ref.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_split_rule_lengths_match_plain_version_and_torch_fft(
+        cuda, dtype, inverse):
+    """Every length of the split route's rule (``split.rule_factors``:
+    complex64 396, complex128 269, past the long-line route to 2^24 /
+    2^22): one split call of 2 launches (radix rows) or 3 (long-line rows
+    and the transpose), all on "split", against ``torch.fft`` at the
+    kernel's tolerances; the first length of each Q with both epilogues
+    (segments of N/2) against the plain version too."""
+    from repro_torch.kernels import split
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    rule = [n for n in sorted(split.FACTORS[dtype])
+            if n not in split._TABLE[dtype]]
+    assert len(rule) == (396 if dtype == torch.complex64 else 269)
+    seen = set()
+    for n in rule:
+        plan = split.split_plan(n, dtype)
+        b = max(1, (1 << 21) // n)
+        x = torch.from_numpy(cplx((b, n), n)).to(cuda, dtype)
+        tfm.reset_launch_counts()
+        got = tfm.fft_fourstep(x, inverse=inverse)
+        torch.cuda.synchronize()
+        counts = tfm.launch_counts()
+        want = 2 + (plan.row_path == "long")
+        assert counts["launches"] == counts["split"] == want, (n, counts)
+        assert counts["split_calls"] == 1
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+        assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
+        if plan.q in seen:
+            continue
+        seen.add(plan.q)
+        tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
+                       / (2 * n)).to(dtype)
+        got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=2)
+        want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=tw,
+                                      pack_parts=2)
+        assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+        assert_scaled_close(got.cpu().numpy(), (lib * tw).reshape(
+            b, 2, n // 2).cpu().numpy(), tol)
 
 
 @pytest.mark.cuda

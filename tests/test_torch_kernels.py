@@ -331,12 +331,17 @@ def test_kernel_operands_are_resolved():
     (75, torch.complex64, "dense"), (4800, torch.complex64, "long"),
     (4864, torch.complex64, "long"), (23040, torch.complex64, "dense"),
     (4050, torch.complex64, "dense"), (990, torch.complex128, "dense"),
-    (4725, torch.complex64, "dense"), (33792, torch.complex64, "chirp"),
+    (4725, torch.complex64, "dense"), (33792, torch.complex64, "split"),
     (16896, torch.complex64, "dense"), (8448, torch.complex128, "dense"),
     (2432, torch.complex64, "radix"), (608, torch.complex128, "radix"),
     (2432, torch.complex128, "long"), (816, torch.complex64, "dense"),
     (4831, torch.complex64, "chirp"), (19 << 19, torch.complex64, "split"),
-    (17 << 17, torch.complex128, "split")])
+    (17 << 17, torch.complex128, "split"), (2944, torch.complex64, "radix"),
+    (736, torch.complex128, "radix"), (5888, torch.complex64, "long"),
+    (2944, torch.complex128, "long"), (23 << 10, torch.complex64, "split"),
+    (23 << 19, torch.complex64, "split"), (33 << 18, torch.complex64, "split"),
+    (7424, torch.complex64, "chirp"), (3712, torch.complex128, "chirp"),
+    (29106, torch.complex64, "chirp")])
 def test_kernel_path_selection(n, dtype, path):
     """The path follows N and the dtype alone: N with a radix
     instantiation (powers of two, and mixed r*2^k such as 24, 96 and
@@ -345,8 +350,10 @@ def test_kernel_path_selection(n, dtype, path):
     power-of-two N beyond one block up to 2^24 (complex64) / 2^22
     (complex128) the split route, every other N up to half those that
     the dense route does not take (the primes 521 and 4831, whose generic
-    stage costs more than the chirp, ``dense.GENERIC_COST``; 33792 =
-    33*2^10, 13-smooth but a line past one block) the chirp route, every
+    stage costs more than the chirp, ``dense.GENERIC_COST``; 7424 =
+    29*2^8, complex128 3712 = 29*2^7; 29106 = 2*14553, 13-smooth, a line
+    past one block whose single factor of 2 no split P takes) the chirp
+    route, every
     other N the dense one: every N up to the old dense kernel's limit
     (complex64 4835, complex128 2419) whose generic stages cost less
     (816 = 17*48), and
@@ -371,7 +378,13 @@ def test_kernel_path_selection(n, dtype, path):
     17 x 32, 2432 = 38 x 64, complex128 608 = 19 x 32), the long-line
     route past it (4864 = 19 x 16 x 16, complex128 2432 = 19 x 8 x 16)
     and the split route to 2^24 / 2^22 (19*2^19, complex128 17*2^17, past
-    the chirp's limit)."""
+    the chirp's limit); so does 23*2^k since the radix-23 codelet (2944 =
+    46 x 64, complex128 736 = 23 x 32; 5888 = 23 x 16 x 16, complex128
+    2944 = 23 x 8 x 16; 23*2^10 = 256 x 92 to 23*2^19 = 1024 x 11776).
+    The split route's rule (``split.rule_factors``) takes the 13-smooth
+    lines past one block that a P and a radix or long-line row hold
+    (33792 = 33*2^10 = 256 x 132, the chirp's before; 33*2^18 = 1024 x
+    8448, past the chirp's limit, which raised)."""
     assert radix.kernel_path(n, dtype) == path
 
 
@@ -391,9 +404,9 @@ def test_radix_plan_factors_and_codelets():
                 assert all(w is None or 0 < w < plan.n2 // 2
                            for _, _, w in stage)
     assert [radix.bitrev(i, 3) for i in range(8)] == [0, 4, 2, 6, 1, 5, 3, 7]
-    for bad in (0, 1, 23, 46, 69, 2 * 17 * 23):
+    for bad in (0, 1, 29, 58, 87, 2 * 23 * 29):
         with pytest.raises(ValueError, match="prime factors are 2, 3, 5, "
-                           "7, 11, 13, 17 and 19"):
+                           "7, 11, 13, 17, 19 and 23"):
             radix.radix_plan(bad)
 
 

@@ -1,6 +1,6 @@
 """The long-line route at the mixed lengths r*2^k, r in
-``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25, 27}
-(``kernels/longline.py``, ``csrc/fft_long.cuh``'s
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23, 25,
+27} (``kernels/longline.py``, ``csrc/fft_long.cuh``'s
 ``long_mixed_kernel``): complex64 N of 4352 to 15360 and complex128 N of
 1088 to 7680, whose line fits one block; and the rule's lengths, whose
 odd part (33 to 729) needs a second mixed factor R2 (complex64 3168 to
@@ -15,7 +15,7 @@ item by item) runs in torch in
 for CPU tensors); it is held against ``np.fft`` at every length (both
 directions, the twiddle and ``pack_parts`` epilogues) and against the JAX
 package's Pallas kernel in interpret mode on the same numpy inputs at one
-length per odd part r = 3, 5, 9, 15, 17, 19, 21, 25, 27 (an odd R1) and
+length per odd part r = 3, 5, 9, 15, 17, 19, 21, 23, 25, 27 (an odd R1) and
 every 7*2^k, 11*2^k and 13*2^k, per dtype, at the reference's tolerances
 (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64, 1e-12 in
 complex128).  Then the plan's threads, sizes and tables, the routing of
@@ -60,19 +60,20 @@ TWO_PARITY = [(torch.complex64, 4800), (torch.complex64, 8448),
 VARIANTS = [(3, False, False, None), (1, True, True, None),
             (2, False, False, "odd"), (2, True, True, 4)]
 CASES = [(dtype, n, b, inv, tw,
-          next(r for r in (3, 5, 7, 11, 13, 17, 19) if n % r == 0)
+          next(r for r in (3, 5, 7, 11, 13, 17, 19, 23) if n % r == 0)
           if parts == "odd" else parts)
          for dtype, n in MIXED + TWO_PARITY
          for b, inv, tw, parts in VARIANTS]
-#: One length per odd part r = 3, 5, 9, 15, 17, 19, 21, 25, 27 and every
+#: One length per odd part r = 3, 5, 9, 15, 17, 19, 21, 23, 25, 27 and every
 #: 7*2^k, 11*2^k and 13*2^k, per dtype, and the rule's parity lengths,
 #: held against the Pallas kernel too.
 PALLAS = {torch.complex64: {4608, 5120, 6144, 7680, 5632, 7168, 11264,
                             14336, 6656, 13312, 5376, 6400, 13824, 4800,
-                            8448, 3888, 4352, 4864},
+                            8448, 3888, 4352, 4864, 5888},
           torch.complex128: {1152, 1280, 3072, 7680, 1408, 1792, 2816,
                              3584, 5632, 7168, 1664, 3328, 6656, 1344,
-                             3200, 6912, 4224, 2400, 1056, 1088, 2432}}
+                             3200, 6912, 4224, 2400, 1056, 1088, 2432,
+                             2944}}
 
 
 def _case_id(case):
@@ -278,7 +279,8 @@ def _old_path(n: int, dtype: torch.dtype) -> str:
     (torch.complex64, 90, 3168, 16128), (torch.complex128, 135, 792, 8064)])
 def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
     """``longline.FACTORS`` is the table (the powers of two and the one
-    mixed factor lengths, 26 complex64 and 39 complex128, their factors
+    mixed factor lengths, 28 complex64 and 42 complex128 with 23*2^k's,
+    their factors
     as before: R1 the odd part times as many 2s as 32 allows, R2 <= R3
     powers of two at most a factor 2 apart) and the rule: every even
     13-smooth N past the radix route (less ``radix._SPILLS``) up to a
@@ -293,7 +295,7 @@ def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
     takes the lines that fit one block; or, up to that limit with generic
     stages that cost more than the chirp, on the chirp route)."""
     table = longline._TABLE[dtype]
-    assert len(table) == (26 if dtype == torch.complex64 else 39)
+    assert len(table) == (28 if dtype == torch.complex64 else 42)
     for n, (r1, r2, r3) in longline.FACTORS[dtype].items():
         assert r1 * r2 * r3 == n and max(r1, r2, r3) <= 32
         assert radix.codelet_length(r1) and radix.smooth(r2) \
@@ -466,13 +468,15 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
     """``radix.kernel_path``: every complex64 r*2^k from 4608 to 16384 and
     every complex128 one from 1152 to 8192 is "long", every longer one up
     to the split route's limits (2^24, 2^22) "split"; none is "chirp" or
-    "dense" (7*2^k, 11*2^k, 13*2^k, 17*2^k, 19*2^k, 21*2^k, 25*2^k and
-    27*2^k included: complex64 13*2^20, 19*2^19 and complex128 13*2^18,
-    19*2^17, past the chirp's limits, run); a prime and 23*2^k past the
-    dense route's old limit stay "chirp", and so does 45*2^k past one
-    block (45*2^10; 45*2^9, past the 128 KB line but within one block,
-    is "dense"); 19*2^k, the chirp's before the radix-19 codelet, is
-    "long" (4864, complex128 2432)."""
+    "dense" (7*2^k, 11*2^k, 13*2^k, 17*2^k, 19*2^k, 21*2^k, 23*2^k,
+    25*2^k and 27*2^k included: complex64 13*2^20, 19*2^19, 23*2^19 and
+    complex128 13*2^18, 19*2^17, 23*2^17, past the chirp's limits, run);
+    a prime and 29*2^k past the dense route's old limit stay "chirp", and
+    so does a 13-smooth line past one block that no split P holds (29106
+    = 2*14553; 45*2^9, past the 128 KB line but within one block, is
+    "dense", and 45*2^10 = 256 x 180 "split" by the split route's rule);
+    19*2^k and 23*2^k, the chirp's before the radix-19 and radix-23
+    codelets, are "long" (4864, 5888, complex128 2432, 2944)."""
     for dtype, (lo, hi, top) in {
             torch.complex64: (4608, 16384, 1 << 24),
             torch.complex128: (1152, 8192, 1 << 22)}.items():
@@ -485,10 +489,13 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
                 assert radix.kernel_path(n, dtype) == want, (n, dtype)
     assert radix.kernel_path(13 << 20, torch.complex64) == "split"
     assert radix.kernel_path(13 << 18, torch.complex128) == "split"
-    for n, dtype in ((5888, torch.complex64), (10007, torch.complex64),
-                     (46080, torch.complex64), (2944, torch.complex128),
+    for n, dtype in ((7424, torch.complex64), (10007, torch.complex64),
+                     (29106, torch.complex64), (3712, torch.complex128),
                      (3001, torch.complex128)):
         assert radix.kernel_path(n, dtype) == "chirp"
+    assert radix.kernel_path(46080, torch.complex64) == "split"
+    assert radix.kernel_path(5888, torch.complex64) == "long"
+    assert radix.kernel_path(2944, torch.complex128) == "long"
     assert radix.kernel_path(23040, torch.complex64) == "dense"
     assert radix.kernel_path(4864, torch.complex64) == "long"
     assert radix.kernel_path(2432, torch.complex128) == "long"

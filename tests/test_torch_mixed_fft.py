@@ -253,18 +253,20 @@ def test_mixed_13_codelets_of_416_and_3328(n, factors, chains):
 
 
 def test_mixed_sizes_tables_and_tiles():
-    """313 mixed complex64 lengths to 3780 and 150 complex128 to 960 (178
+    """320 mixed complex64 lengths to 3780 and 155 complex128 to 960 (178
     and 54 of them with an odd part from 65, 14 and 10 of them 17*2^k and
-    19*2^k; complex128 22 and complex64 208 and 504 spill in ptxas and
-    run dense), every codelet at most 64
+    19*2^k, 7 and 5 of them 23*2^k; complex128 22 and complex64 208 and
+    504 spill in ptxas and run dense), every codelet at most 64
     (complex64) or 32 (complex128) long, every odd part among the radix
     route's (``radix.RADIX_ODD``); each codelet
     has its own table (N2 + N1 entries); the tile's lines are a power of
     two; the split route's P stays a power of two (its pass A), and its Q
     is a power of two or a mixed length of the long-line route or of the
-    codelets (its pass B: complex64 208 runs there, clean in ptxas)."""
-    for dtype, count, cap in ((torch.complex64, 313, 64),
-                              (torch.complex128, 150, 32)):
+    codelets (its pass B: complex64 208 runs there, clean in ptxas), whose
+    odd part the radix route takes (the split rule's rows:
+    ``split.rule_factors``)."""
+    for dtype, count, cap in ((torch.complex64, 320, 64),
+                              (torch.complex128, 155, 32)):
         mixed = [n for n in radix.RADIX_SIZES[dtype]
                  if not radix.is_pow2(n)]
         assert len(mixed) == count
@@ -291,7 +293,7 @@ def test_mixed_sizes_tables_and_tiles():
             assert radix.is_pow2(n)
         for n in split.ROW_SIZES[dtype]:
             odd = n >> ((n & -n).bit_length() - 1)
-            assert odd == 1 or odd in radix.EVERY_ROUTE_ODD
+            assert odd == 1 or odd in radix.RADIX_ODD[dtype]
             assert max(factorize(n)) <= caps[dtype]
             assert n in radix.RADIX_SIZES[dtype] or (dtype, n) == (
                 torch.complex64, 208)
@@ -374,7 +376,7 @@ def test_cuda_dispatch_instantiates_the_python_tables():
     route there, with ``factorize``'s factors: ``radix.RADIX_SIZES`` on
     the plain radix kernel, ``split.COLUMN_SIZES`` and ``ROW_SIZES`` on
     its split passes, ``longline.FACTORS`` on the long-line kernels (the
-    odd R1 = 17, 19, 21, 25 and 27 too), per dtype; no length is left
+    odd R1 = 17, 19, 21, 23, 25 and 27 too), per dtype; no length is left
     without an instantiation or instantiated in vain."""
     cases, long_cases = _dispatch_cases()
     for dtype in (torch.complex64, torch.complex128):
@@ -401,11 +403,12 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
     """r = 33 to 63 and 75 take the radix route within one codelet pair
     (75*2^k as 10 x 15 up to 2400 = 48 x 50 in complex64, 600 = 24 x 25 in
     complex128), the long-line route past it up to a 128 KB line (R1 and
-    R2 both mixed: ``longline.rule_factors``), and no split route (no
-    R1 of at most 32 holds them): their longer r*2^k run the dense route
-    while the line fits one block (``dense.fits``: 33*2^9 = 16896 in
-    complex64), then the chirp route up to its limit, and past it the
-    dense route again, which raises on the card."""
+    R2 both mixed: ``longline.rule_factors``): their longer r*2^k run the
+    dense route while the line fits one block (``dense.fits``: 33*2^9 =
+    16896 in complex64), then the split route where its rule finds a P
+    and a Q (``split.rule_factors``: 33*2^10 = 256 x 132), else the chirp
+    route up to its limit, and past it the dense route again, which
+    raises on the card."""
     cap = radix.CODELET_MAX[dtype]
     on_radix = []
     for k in range(1, 24):
@@ -415,7 +418,6 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
             assert r in radix.RADIX_ODD[dtype] and path == "radix"
             on_radix.append(n)
             continue
-        assert n not in split.FACTORS[dtype]
         if n in radix._SPILLS[dtype]:               # complex64 504: dense
             assert path == "dense" and n not in longline.FACTORS[dtype]
             continue
@@ -425,8 +427,12 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
                 n, dtype)
             continue
         assert n not in longline.FACTORS[dtype]
-        if n <= dense.DENSE_LIMIT[dtype] or dense.fits(n, dtype) \
-                or n > chirp.max_length(dtype):
+        if n <= dense.DENSE_LIMIT[dtype] or dense.fits(n, dtype):
+            assert path == "dense" and n not in split.FACTORS[dtype]
+        elif n <= split.LIMIT[dtype] and split.rule_factors(n, dtype):
+            assert path == "split", (n, path)
+            assert split.FACTORS[dtype][n] == split.rule_factors(n, dtype)
+        elif n > chirp.max_length(dtype):
             assert path == "dense", (n, path)
         else:
             assert path == "chirp", (n, path)

@@ -1,6 +1,6 @@
 """The split route at the mixed lengths r*2^k, r in
-``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 25, 27},
-past the long-line route's (``kernels/split.py``): N = P*Q with P a power of
+``radix.EVERY_ROUTE_ODD`` = {3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23, 25,
+27}, past the long-line route's (``kernels/split.py``): N = P*Q with P a power of
 two (pass A, the strided radix entry unchanged) and the odd part in Q (pass
 B: the radix route's ``kRadixSplitB`` at a mixed Q, or the mixed long-line
 kernel unscaled and pass C, ``split_transpose`` at a Q that is not a power
@@ -49,7 +49,7 @@ LENGTHS = [(torch.complex64, 9 << 11), (torch.complex64, 3 << 13),
            (torch.complex64, 27 << 10), (torch.complex128, 21 << 9),
            (torch.complex128, 25 << 9), (torch.complex128, 27 << 9)]
 CASES = [(dtype, n, b, inv, tw,
-          next(r for r in (3, 5, 7, 11, 13, 17, 19) if n % r == 0)
+          next(r for r in (3, 5, 7, 11, 13, 17, 19, 23) if n % r == 0)
           if parts == "odd" else parts)
          for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
 MIXED = [(dtype, n) for dtype, table in split.FACTORS.items()
@@ -181,7 +181,10 @@ def test_split_mixed_plan_sizes_fit_the_tiles(dtype, n):
     the radix route's lines tile (whose L rows divide P; an instantiated
     pass B) or the long-line route (a multiple of 32, for the transpose's
     tiles); QL a power of two dividing Q; the twiddle tables far below
-    N."""
+    N for the measured table's lengths.  The rule's Q (``split.
+    rule_factors``) may hold a single factor of 2, so QL = 2 and TB holds
+    P*Q/2 entries: at most P*(2 + Q/2), within 16 MB (1024 x 960 complex64
+    entries at most, read through the 50 MB L2)."""
     plan = split.split_plan(n, dtype)
     assert plan.p * plan.q == n and plan.p in split.COLUMN_SIZES[dtype]
     assert tfm.strided_supported(plan.p, dtype, False)
@@ -202,13 +205,18 @@ def test_split_mixed_plan_sizes_fit_the_tiles(dtype, n):
         assert plan.q in longline.FACTORS[dtype] and plan.q % 32 == 0
     assert radix.is_pow2(plan.ql) and plan.q % plan.ql == 0
     assert plan.ql * plan.qh == plan.q
-    assert plan.const_elems <= 2 * plan.p * 2 * math.isqrt(plan.q)
+    if n in split._TABLE[dtype]:
+        assert plan.const_elems <= 2 * plan.p * 2 * math.isqrt(plan.q)
+    else:
+        assert plan.const_elems <= plan.p * (2 + plan.q // 2)
+        assert plan.const_elems * dtype.itemsize <= 16 << 20
 
 
 def test_split_mixed_lengths_are_every_r_2k_past_the_long_route():
-    """The table holds every mixed N = r*2^k past the long-line route's
+    """The route holds every mixed N = r*2^k past the long-line route's
     lengths up to the split route's limits (2^24 complex64, 2^22
-    complex128), and the pass lengths it instantiates are its own."""
+    complex128; 23*2^k by the rule, the rest by the measured table), and
+    the pass lengths it instantiates are its own."""
     for dtype, top in ((torch.complex64, 1 << 24),
                        (torch.complex128, 1 << 22)):
         long_max = max(n for n in longline.FACTORS[dtype]
@@ -218,7 +226,11 @@ def test_split_mixed_lengths_are_every_r_2k_past_the_long_route():
                       if long_max < (r << k) <= top
                       and (r << k) not in longline.FACTORS[dtype])
         assert sorted(n for n in split.FACTORS[dtype]
-                      if not radix.is_pow2(n)) == want
+                      if radix.odd_part(n) in radix.EVERY_ROUTE_ODD) == want
+        assert all(split.FACTORS[dtype][n] == split.rule_factors(n, dtype)
+                   for n in want if n not in split._TABLE[dtype])
+        assert {radix.odd_part(n) for n in want
+                if n not in split._TABLE[dtype]} == {23}
         table = split.FACTORS[dtype].values()
         assert set(split.ROW_SIZES[dtype]) == {
             q for _, q in table if q not in longline.FACTORS[dtype]}
@@ -226,7 +238,7 @@ def test_split_mixed_lengths_are_every_r_2k_past_the_long_route():
     assert split.split_plan(12288, torch.complex128).q == 192
 
 
-#: The split route's pass-B lengths on the radix kernel, per dtype, as
+#: The measured table's pass-B lengths on the radix kernel, per dtype, as
 #: the long-line route's second mixed factor found them, with the 17*2^k
 #: and 19*2^k rows since the radix-17 and radix-19 codelets.
 ROW_SIZES = {
@@ -245,22 +257,30 @@ ROW_SIZES = {
 @pytest.mark.parametrize("dtype,long_rows,lengths", [
     (torch.complex64, 40, 130), (torch.complex128, 47, 117)])
 def test_split_plans_keep_their_row_routes(dtype, long_rows, lengths):
-    """The long-line route's rule lengths (R2 mixed) are no split Q: every
-    plan of ``split.FACTORS`` keeps its pass-B route, "long" exactly where
-    Q is one of the long-line table's lengths (a power of two or one
-    mixed factor: 40 of complex64's 130 lengths, 47 of complex128's 117),
-    and ``ROW_SIZES``, which the dispatch test holds to the CUDA switch,
-    keeps its lengths (complex64 208 among them: a spill, so no rule
-    length)."""
+    """The long-line route's rule lengths (R2 mixed) are no Q of the
+    measured table: every plan of ``split._TABLE`` keeps its pass-B
+    route, "long" exactly where Q is one of the long-line table's lengths
+    (a power of two or one mixed factor: 40 of complex64's 130 lengths,
+    47 of complex128's 117), and its radix rows keep their lengths
+    (complex64 208 among them: a spill, so no radix-route length);
+    ``ROW_SIZES``, which the dispatch test holds to the CUDA switch, is
+    those rows and the split rule's radix rows (``split.rule_factors``),
+    no other."""
     rule = set(longline.FACTORS[dtype]) - set(longline._TABLE[dtype])
-    plans = [split.split_plan(n, dtype) for n in split.FACTORS[dtype]]
+    plans = [split.split_plan(n, dtype) for n in split._TABLE[dtype]]
     assert len(plans) == lengths
     for plan in plans:
         assert plan.q not in rule
         assert plan.row_path == ("long" if plan.q in longline._TABLE[dtype]
                                  else "radix"), plan
     assert sum(plan.row_path == "long" for plan in plans) == long_rows
-    assert split.ROW_SIZES[dtype] == ROW_SIZES[dtype]
+    assert {plan.q for plan in plans
+            if plan.row_path == "radix"} == set(ROW_SIZES[dtype])
+    ruled = {split.split_plan(n, dtype) for n in split.FACTORS[dtype]
+             if n not in split._TABLE[dtype]}
+    assert split.ROW_SIZES[dtype] == tuple(sorted(
+        set(ROW_SIZES[dtype])
+        | {plan.q for plan in ruled if plan.row_path == "radix"}))
 
 
 @pytest.mark.parametrize("inverse", [False, True])

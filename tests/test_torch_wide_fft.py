@@ -1,11 +1,13 @@
-"""The radix-17 and radix-19 codelets and the lengths they take off the
-dense and chirp routes (``kernels/radix.py``, ``csrc/fft_radix.cuh``'s
-``dft_odd``): N = 17*2^k and 19*2^k on the radix route (complex64 34 to
-2176 = 34 x 64 and 38 to 2432 = 38 x 64, complex128 34 to 544 = 17 x 32
-and 38 to 608 = 19 x 32), on the long-line route with an odd R1 to a 128
-KB line (complex64 4352 to 9728, complex128 1088 to 4864) and on the
-split route past it (complex64 17*2^10 to 19*2^19, complex128 17*2^9 to
-19*2^17); and the dense route's ``GENERIC_COST``, past which an N up to
+"""The radix-17, radix-19 and radix-23 codelets and the lengths they take
+off the dense and chirp routes (``kernels/radix.py``,
+``csrc/fft_radix.cuh``'s ``dft_odd``): N = 17*2^k, 19*2^k and 23*2^k on
+the radix route (complex64 34 to 2176 = 34 x 64, 38 to 2432 = 38 x 64
+and 46 to 2944 = 46 x 64, complex128 34 to 544 = 17 x 32, 38 to 608 = 19
+x 32 and 46 to 736 = 23 x 32), on the long-line route with an odd R1 to
+a 128 KB line (complex64 4352 to 11776, complex128 1088 to 5888) and on
+the split route past it (complex64 17*2^10 to 23*2^19, complex128 17*2^9
+to 23*2^17; 23*2^k by the split route's rule, ``split.rule_factors``);
+and the dense route's ``GENERIC_COST``, past which an N up to
 ``DENSE_LIMIT`` whose generic stages cost more than the chirp goes to the
 chirp route (whose M may then take the radix route).  One length per route, odd part and dtype,
 and a chirp length each dtype that left the dense route, through the
@@ -39,17 +41,20 @@ NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 c64, c128 = torch.complex64, torch.complex128
 #: (dtype, N, route): the radix route's longest of each odd part and dtype
 #: and the 17-codelet beside a power of two (544 = 17 x 32), the long-line
-#: route's 19*2^k that the chirp held (complex64 4864 = 19 x 16 x 16,
-#: complex128 2432 = 19 x 8 x 16), the split route's shortest (complex64
-#: 17*2^10 = 256 x 68, complex128 19*2^9 = 64 x 152), and primes that left
-#: the dense route for the chirp, M on the radix route (complex64 521: M =
-#: 2048, complex128 101: M = 256).
+#: route's 19*2^k and 23*2^k that the chirp held (complex64 4864 = 19 x 16
+#: x 16 and 5888 = 23 x 16 x 16, complex128 2432 = 19 x 8 x 16 and 2944 =
+#: 23 x 8 x 16), the split route's shortest (complex64 17*2^10 = 256 x 68
+#: and 23*2^10 = 256 x 92, complex128 19*2^9 = 64 x 152), and primes that
+#: left the dense route for the chirp, M on the radix route (complex64
+#: 521: M = 2048, complex128 101: M = 256).
 LENGTHS = [(c64, 2432, "radix"), (c64, 544, "radix"), (c128, 608, "radix"),
            (c128, 544, "radix"), (c64, 4864, "long"), (c128, 2432, "long"),
            (c64, 17 << 10, "split"), (c128, 19 << 9, "split"),
-           (c64, 521, "chirp"), (c128, 101, "chirp")]
+           (c64, 521, "chirp"), (c128, 101, "chirp"),
+           (c64, 2944, "radix"), (c128, 736, "radix"), (c64, 5888, "long"),
+           (c128, 2944, "long"), (c64, 23 << 10, "split")]
 #: (batch, inverse, twiddle, pack_parts): both directions, each epilogue;
-#: segments of N/17 or N/19 (the odd part), and N/2.
+#: segments of N/17, N/19 or N/23 (the odd part), and N/2.
 VARIANTS = [(3, False, False, None), (2, True, True, None),
             (2, False, True, "odd"), (1, True, False, 2)]
 CASES = [(dtype, n, route, b, inv, tw,
@@ -154,10 +159,10 @@ def test_wide_lengths_match_numpy_and_pallas(case, request):
 
 
 @pytest.mark.parametrize("dtype,n", [(c64, 544), (c64, 152), (c128, 608),
-                                     (c128, 68)])
+                                     (c128, 68), (c64, 1472), (c128, 736)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_wide_strided_layout_matches_numpy(dtype, n, inverse):
-    """The strided ``(outer, N, inner)`` layout at 17*2^k and 19*2^k, a
+    """The strided ``(outer, N, inner)`` layout at 17*2^k, 19*2^k and 23*2^k, a
     ragged last group of inner indices, with the twiddle, through
     ``radix.emulate`` and the strided entry's plain version."""
     assert tfm.strided_supported(n, dtype, True)
@@ -190,7 +195,7 @@ def _source_literals(p: int) -> tuple:
     return tuple(out)
 
 
-@pytest.mark.parametrize("p", [17, 19])
+@pytest.mark.parametrize("p", [17, 19, 23])
 def test_wide_literals_match_numpy_and_the_cuda_source(p):
     """cos and sin of 2*pi*m/P, m = 1 .. (P-1)/2, as ``radix._ODD_COS`` and
     ``_ODD_SIN`` spell them: numpy's values to a float64 rounding, and the
@@ -211,7 +216,7 @@ def test_wide_literals_match_numpy_and_the_cuda_source(p):
         assert abs(s - np.sin(2 * np.pi * (k % p) / p)) < 1e-15
 
 
-@pytest.mark.parametrize("p", [17, 19])
+@pytest.mark.parametrize("p", [17, 19, 23])
 @pytest.mark.parametrize("sign", [-1.0, 1.0])
 def test_wide_butterfly_is_the_dft(p, sign):
     """``radix._dft_small``'s P-point DFT (the kernel's ``dft_odd``, the
@@ -226,27 +231,30 @@ def test_wide_butterfly_is_the_dft(p, sign):
 
 
 def test_wide_chains_and_the_smooth_predicate():
-    """The 19s and the 17s lead a chain (``radices``, the kernel's
-    ``mixed_radix``); ``codelet_length`` takes r*2^k for r in
-    ``WIDE_ODD`` = (17, 19), while ``smooth`` (the dense route's and the
-    long-line rule's) stays 13-smooth, so the dense chain keeps a prime
-    past 13 as a generic stage; a prime past 19 has no codelet."""
-    assert radix.ODD_RADICES[:2] == (19, 17)
+    """The 23s, the 19s and the 17s lead a chain (``radices``, the
+    kernel's ``mixed_radix``); ``codelet_length`` takes r*2^k for r in
+    ``WIDE_ODD`` = (17, 19, 23), while ``smooth`` (the dense route's and
+    the long-line rule's) stays 13-smooth, so the dense chain keeps a
+    prime past 13 as a generic stage; a prime past 23 has no codelet."""
+    assert radix.ODD_RADICES[:3] == (23, 19, 17)
     assert radix.radices(2432 // 64) == (19, 2)
+    assert radix.radices(2944 // 64) == (23, 2)
     assert radix.radices(323) == (19, 17)
+    assert radix.radices(23 * 19 * 2) == (23, 19, 2)
     assert radix.radices(17 * 13 * 4) == (17, 13, 4)
-    for n in (17, 34, 19, 152, 2432):
+    for n in (17, 34, 19, 152, 2432, 23, 46, 2944):
         assert radix.codelet_length(n) and not radix.smooth(n)
-    for n in (51, 57, 323, 23, 46):
+    for n in (51, 57, 323, 69, 29, 58):
         assert not radix.codelet_length(n)
     assert dense.chain(544) == (17, 4, 4, 2)
     assert dense.chain(816) == (17, 3, 4, 4)
-    with pytest.raises(ValueError, match="17 and 19"):
-        radix.radices(46)
+    assert dense.chain(2944) == (23, 4, 4, 4, 2)
+    with pytest.raises(ValueError, match="17, 19 and 23"):
+        radix.radices(58)
 
 
 @pytest.mark.parametrize("dtype", [c64, c128])
-@pytest.mark.parametrize("r", [17, 19])
+@pytest.mark.parametrize("r", [17, 19, 23])
 def test_wide_odd_parts_take_every_codelet_route(dtype, r):
     """Every r*2^k takes the radix route while both factors fit a codelet
     (``CODELET_MAX``), the long-line route (R1 = r, R2 and R3 powers of
