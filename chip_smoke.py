@@ -166,7 +166,15 @@ its result line):
     11*2^k, 13*2^k, 17*2^k, 19*2^k, 21*2^k, 23*2^k, 25*2^k and 27*2^k;
     complex128 12288, 24576, 9*2^15 and likewise) and at lengths of its
     rule (complex64 33792 = 256 x 132, 1982464 = 512 x 3872 and 33*2^18
-    = 1024 x 8448), 512 MB each, likewise (one split call); ``[mixed_long_plan]``:
+    = 1024 x 8448), 512 MB each, likewise (one split call);
+    ``[split_general]``: the split route's general plans (pass B on the
+    dense route's launch, pass C for any P and Q; pass A on the radix
+    route or the dense kernel's column form) at complex64 29106, 30976,
+    33075, 44100, 96000, 10^6, 13^6, complex128 14406 (256 MB) and
+    complex64 10^7, 3^15, complex128 2278125, 4084223 (512 MB; they raised
+    before), likewise (one split call of 3 launches), within 2e-4 of
+    ``torch.fft``, the inverse with both epilogues against the plain
+    version, and one gradient through ``LineTransform``; ``[mixed_long_plan]``:
     ``plan_fft`` C2C of (128, 128, 6144) complex64 on the kernel against
     ``fftn`` and the round trip, the 6144 axis on the long-line route, no
     dense or chirp launch, no copy, ms beside ``fftn`` and a ``cufft``
@@ -175,7 +183,7 @@ its result line):
     dense or chirp launch, 2 line copies forward and 1 inverse;
     ``[chirp]``: the chirp route (Bluestein over two transforms of M on
     the radix, long-line or split route) at lengths no other route takes,
-    complex64 7424, 10007, 29106, the prime 4831 and complex128 3001,
+    complex64 7424, 10007, 20011, the prime 4831 and complex128 3001,
     3712, 256 MB
     each, once through ``ops.fft1d`` (one chirp call, its launches on
     "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
@@ -345,7 +353,9 @@ def ptxas_report(log: str) -> list:
                            r"Li(\d+)E", name)
             lm = re.search(r"long_mixed_kernelI([fd])Li(\d+)ELi(\d+)E"
                            r"Li(\d+)E", name)
-            tr = re.search(r"split_transpose(_mixed)?_kernelI([fd])E", name)
+            tr = re.search(r"split_transpose(_mixed|_any)?_kernelI([fd])E",
+                           name)
+            ds = re.search(r"dense_column_kernelI([fd])E", name)
             if r:
                 dt = "complex64" if r.group(1) == "f" else "complex128"
                 name = (f"radix {dt} N1={r.group(2)} N2={r.group(3)}"
@@ -362,7 +372,11 @@ def ptxas_report(log: str) -> list:
                 name = ("split transpose "
                         + ("complex64" if tr.group(2) == "f"
                            else "complex128")
-                        + (" mixed" if tr.group(1) else ""))
+                        + (" " + tr.group(1)[1:] if tr.group(1) else ""))
+            elif ds:
+                name = ("dense columns "
+                        + ("complex64" if ds.group(1) == "f"
+                           else "complex128"))
             elif "dense_kernel" in name:
                 name = ("dense " + ("complex64" if "dense_kernelIfE" in name
                                     else "complex128"))
@@ -411,12 +425,13 @@ def phase_build(timer=time.perf_counter) -> dict:
         check(len(long_entries) == want, f"{len(long_entries)} long-line "
               f"instantiations in the ptxas report, expected {want} (5 "
               f"powers of two, the rest mixed lengths)")
-        check(len(split_entries) == 4, f"{len(split_entries)} split "
-              f"transpose instantiations in the ptxas report, expected 4 "
-              f"(a power-of-two and a mixed Q per dtype)")
-        check(len(dense_entries) == 2, f"{len(dense_entries)} dense "
-              f"instantiations in the ptxas report, expected 2 (one per "
-              f"dtype, for every length)")
+        check(len(split_entries) == 6, f"{len(split_entries)} split "
+              f"transpose instantiations in the ptxas report, expected 6 "
+              f"(a power-of-two, a mixed and any Q per dtype)")
+        check(len(dense_entries) == 4, f"{len(dense_entries)} dense "
+              f"instantiations in the ptxas report, expected 4 (per "
+              f"dtype, for every length: the dense route's, the split "
+              f"route's columns)")
     for e in radix_entries + long_entries + split_entries + dense_entries:
         check(e.get("spill_stores", 0) == 0 and e.get("stack", 0) == 0,
               f"{e['kernel']} spills or keeps a stack frame: {e}")
@@ -519,17 +534,24 @@ def kernel_cases():
     # directions, each epilogue, batches ragged against its tile
     cases += dense_cases()
     # the chirp route: lengths of its three inner routes (29*2^k and the
-    # prime 4831 on the long-line route, a prime and 29106 = 2*14553, a
-    # 13-smooth line past one block that the split route's rule leaves,
-    # on the split route, the primes 101 and 1021 that left the dense
-    # route for M on the radix and long-line routes), both dtypes,
-    # directions and epilogues
+    # prime 4831 on the long-line route, the primes 10007 and 20011 on the
+    # split route, the primes 101 and 1021 that left the dense route for M
+    # on the radix and long-line routes), both dtypes, directions and
+    # epilogues; then the split route's general plans (a dense pass A of
+    # odd and even P, a radix pass A with dense rows, a column tile of 4),
+    # segments of any length
     for b, n, inv, parts, tw, dt in ((2, 7424, False, None, True, c64),
                                      (3, 7424, True, 2, False, c64),
                                      (2, 4831, True, None, True, c64),
                                      (5, 101, False, None, True, c64),
                                      (1, 10007, True, None, True, c64),
-                                     (1, 29106, False, 2, True, c64),
+                                     (1, 20011, False, None, True, c64),
+                                     (3, 29106, False, 3, True, c64),
+                                     (2, 33075, True, 5, True, c64),
+                                     (2, 30976, True, 11, False, c64),
+                                     (2, 44100, False, 7, True, c64),
+                                     (2, 14406, True, 7, True, c128),
+                                     (1, 4084223, False, 11, False, c128),
                                      (2, 3001, False, None, True, c128),
                                      (1, 3712, True, 29, False, c128),
                                      (3, 1021, False, None, True, c128)):
@@ -1362,7 +1384,7 @@ def expected_counts(n: int, calls: int, dtype=None) -> dict:
                     strided=inner["strided"], chirp=inner["launches"],
                     chirp_calls=calls)
     elif path == "split":
-        long_rows = split.split_plan(n, dtype).row_path == "long"
+        long_rows = split.split_plan(n, dtype).row_path in ("long", "dense")
         want.update(launches=(2 + long_rows) * calls,
                     lines=(1 + long_rows) * calls, strided=calls,
                     split=(2 + long_rows) * calls, split_calls=calls)
@@ -2535,6 +2557,92 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
     return out
 
 
+#: (dtype name, N, MB of lines) of ``[split_general]``: the split route's
+#: general plans (``split.general_factors``: every other 13-smooth N past
+#: one block, pass B on the dense route's launch and pass C): complex64
+#: 29106 = 2*3^3*7^2*11 (one factor of 2), 30976 = 256 x 121 and 96000 =
+#: 256 x 375 (a radix pass A, Q on no radix or long-line row), the odd
+#: 33075, 44100 = one second of CD audio, 10^6, 13^6 = 4826809 (P = 2197,
+#: a column tile of 8), all on the chirp before; 10^7 = 2^7*5^7 and 3^15
+#: past the chirp's limit, which raised; complex128 14406 = 2*3*7^4,
+#: 2278125 = 3^6*5^5 (raised) and 4084223 = 11*13^5 (raised; P = 1859, a
+#: column tile of 4).
+SPLIT_GENERAL_LENGTHS = (
+    ("complex64", 29106, 256), ("complex64", 30976, 256),
+    ("complex64", 33075, 256), ("complex64", 44100, 256),
+    ("complex64", 96000, 256), ("complex64", 10 ** 6, 256),
+    ("complex64", 13 ** 6, 256), ("complex64", 10 ** 7, 512),
+    ("complex64", 3 ** 15, 512), ("complex128", 14406, 256),
+    ("complex128", 2278125, 512), ("complex128", 4084223, 512))
+
+
+def phase_split_general(device, lengths=SPLIT_GENERAL_LENGTHS,
+                        grad_shape=(4, 29106), iters: int = 10) -> dict:
+    """``[split_general]``: the split route's general plans (pass A on the
+    radix route or the dense kernel's column form, pass B on the dense
+    route's launch, pass C for any P and Q) at each of ``lengths``, each
+    reached once through ``ops.fft1d`` on the split route with the counts
+    set to 0 just before and read just after (``line_entry``: one split
+    call of 3 launches), against its plain version (``TOL``) and within
+    ``PATH_TOL`` of ``torch.fft``; the inverse with the twiddle and a
+    ``pack_parts`` segment of any length against the plain version;
+    CUDA-event ms beside ``torch.fft.fft`` and the bound; then one
+    gradient through ``kernels/ops.LineTransform`` at ``grad_shape``
+    against ``torch.fft``'s."""
+    import torch
+    from repro_torch.kernels import ops, split
+    from repro_torch.kernels.fft_matmul import (fft_fourstep,
+                                                fft_fourstep_plain)
+    cuda = device.type == "cuda"
+    out = {"lengths": []}
+    for i, (dt, n, mb) in enumerate(lengths):
+        dtype = getattr(torch, dt)
+        b = max(1, (mb << 20) // (n * dtype.itemsize))
+        x = randc((b, n), dtype, device, SEED + 150 + i)
+        rec = line_entry(x, "split_general", "split", iters, plain_iters=1,
+                         tol=PATH_TOL)
+        plan = split.split_plan(n, dtype)
+        rec.update(factors=[plan.p, plan.q], col_path=plan.col_path,
+                   row_path=plan.row_path)
+        k = torch.arange(n, dtype=torch.float64, device=device)
+        tw = torch.exp(-1j * math.pi * k / (2 * n)).to(dtype)
+        parts = next(f for f in (3, 5, 2, 7, 11, 13) if n % f == 0)
+        got = fft_fourstep(x, inverse=True, twiddle=tw, pack_parts=parts)
+        ref = fft_fourstep_plain(x, inverse=True, twiddle=tw,
+                                 pack_parts=parts)
+        rec["epilogues"] = {"parts": parts,
+                            "scaled_err": scaled_err(got, ref)}
+        del got, ref, x
+        check(rec["epilogues"]["scaled_err"] <= TOL[dt],
+              f"[split_general] ({b}, {n}) {dt}: the inverse with the "
+              f"twiddle and pack_parts={parts} vs plain "
+              f"{rec['epilogues']['scaled_err']:.3e} (bound {TOL[dt]})")
+        out["lengths"].append(rec)
+        if cuda:
+            torch.cuda.empty_cache()
+    # the gradient: the adjoint runs the same route
+    x = randc(grad_shape, torch.complex64, device, SEED + 170)
+    g = randc(grad_shape, torch.complex64, device, SEED + 171)
+    grads = []
+    for fn in (ops.fft1d, torch.fft.fft):
+        xx = x.clone().requires_grad_(True)
+        (fn(xx) * g).real.sum().backward()
+        grads.append(xx.grad)
+    out["grad_err"] = scaled_err(grads[0], grads[1])
+    check(out["grad_err"] <= PATH_TOL, f"[split_general] gradient at "
+          f"{grad_shape} vs torch.fft {out['grad_err']:.3e}")
+    if cuda:
+        print_lines("split_general", out["lengths"])
+        for r in out["lengths"]:
+            print(f"[split_general] {r['dtype']} {r['shape'][1]} as "
+                  f"{r['factors'][0]} x {r['factors'][1]} (pass A "
+                  f"{r['col_path']}, rows {r['row_path']}); inverse with "
+                  f"the epilogues vs plain {r['epilogues']['scaled_err']:.3e}")
+        print(f"[split_general] gradient at {grad_shape} vs torch.fft "
+              f"{out['grad_err']:.3e}")
+    return out
+
+
 #: (dtype name, N) of ``[mixed]``'s timings beside (262144, 384)
 #: complex64: one length per odd part r = 3, 5, 7, 9, 11, 13, 15 and per
 #: dtype (the longest 7*2^k, 11*2^k and 13*2^k of each dtype), then the
@@ -2720,13 +2828,12 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
 
 #: (dtype name, N) of ``[chirp]``: lengths no other route takes, 29*2^k
 #: (a prime factor past 23 past the dense route's limit) whose M takes the
-#: long-line route, a prime and 29106 = 2*14553 (13-smooth, a line past
-#: one block with one factor of 2, which the split route's rule leaves),
-#: whose M takes the split route; complex128 likewise; and the prime
+#: long-line route, the primes 10007 and 20011 (M = 65536), whose M takes
+#: the split route; complex128 likewise; and the prime
 #: complex64 4831, which left the dense route's generic stage.  The first
 #: is the ``fft_fourstep_chirp`` entry's timing.
 CHIRP_LENGTHS = (("complex64", 7424), ("complex64", 10007),
-                 ("complex64", 29106), ("complex128", 3001),
+                 ("complex64", 20011), ("complex128", 3001),
                  ("complex128", 3712), ("complex64", 4831))
 #: (dtype name, N, route) of ``[gaps]``, all on the dense route: the
 #: lengths it had with the widest gaps to ``torch.fft`` (the even
@@ -3518,6 +3625,8 @@ def main(timer=time.perf_counter) -> int:
     torch.cuda.empty_cache()
     report["split_mixed"] = split_mixed = phase_split_mixed(device)
     torch.cuda.empty_cache()
+    report["split_general"] = split_general = phase_split_general(device)
+    torch.cuda.empty_cache()
     report["mixed_long_plan"] = phase_mixed_long_plan(device)
     torch.cuda.empty_cache()
     # one face of the LLC4320 ocean grid: 4320 = 30 x 9 x 16 on both axes;
@@ -3716,6 +3825,22 @@ def main(timer=time.perf_counter) -> int:
          **_timing(split_mixed["lengths"][0]),
          "launches_by_path": {
              "lm_fftconv_12288": mixer_runs[12288]["float32"]["counts"]}},
+        # launches: [split_general]'s calls, one ops.fft1d call per length
+        # (3 launches each: pass A, the dense route's rows, pass C); timed
+        # at its 256 MB of lines of 29106 = 378 x 77
+        {"name": "fft_fourstep_split_general", "route": "cuda",
+         "source": DENSE_SOURCE, "path": "split",
+         "functions": ["dense_column_kernel", "dense_kernel",
+                       "split_transpose_any_kernel"],
+         "sources": [DENSE_SOURCE, LONG_SOURCE, KERNEL_SOURCE,
+                     SPLIT_SOURCE],
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": sum(r["counts"]["split"]
+                         for r in split_general["lengths"]),
+         **_timing(split_general["lengths"][0]),
+         "launches_by_path": {
+             f"split_general_{r['dtype']}_{r['shape'][1]}": r["launches"]
+             for r in split_general["lengths"]}},
     ]
     report["kernels"] = kernels
     report["seconds"] = timer() - t0

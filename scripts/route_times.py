@@ -10,6 +10,8 @@ lengths take which route, for the tree whose root is given.
     python3 scripts/route_times.py sass OLD.so NEW.so OUT.json
     python3 scripts/route_times.py split ROOT TAG OUT.json
     python3 scripts/route_times.py splitcheck ROOT TAG OUT.json
+    python3 scripts/route_times.py splitgen ROOT TAG OUT.json
+    python3 scripts/route_times.py splitgencheck ROOT TAG OUT.json
 
 ``times`` runs the port of the tree at ROOT (its ``src`` first on the
 path; the kernel is built there at first use): ``fft_fourstep`` on
@@ -48,6 +50,17 @@ forced, beside ``torch.fft.fft`` and the bound.  ``splitcheck`` does the
 same at :data:`SPLIT_CHECK`, lengths the sweep did not see.  Run them
 parent, change, change, parent.
 
+``splitgen`` times the lengths of :data:`SPLIT_GENERAL_SWEEP` (the
+split route's general plans, ``split.general_factors``: 13-smooth lines
+past one block that no other plan holds, which the chirp held or which
+raised) at 256 MB of lines in the tree at ROOT: each on the route that
+tree's ``radix.kernel_path`` names ("raises" where it raises), then, where
+the tree has ``split.general_candidates``, its candidate plans (every
+radix pass A and up to 14 dense ones spread over P), each forced, beside
+``torch.fft.fft`` and the bound.  ``splitgencheck`` does the same at
+:data:`SPLIT_GENERAL_CHECK`, lengths the sweep did not see.  Run them
+parent, change, change, parent.
+
 ``sass`` compares ``cuobjdump -sass`` of two builds function by
 function: only instruction and encoding lines (a module's header would
 otherwise count as its last function's), each line's address comment
@@ -69,26 +82,35 @@ import shutil
 import subprocess
 import sys
 
-#: (dtype name, lines, N): at 256 MB of lines the lengths that the
-#: radix-23 codelet moves (complex64 5888 = 23 x 16 x 16 and complex128
-#: 2944 = 23 x 8 x 16 off the chirp to the long-line route, complex64
-#: 2944 = 46 x 64 and complex128 736 = 23 x 32 off the dense route's
-#: generic 23-stage to the radix route, complex64 23*2^10 and complex128
-#: 23*2^9 off the chirp to the split route) and a 13-smooth line past one
-#: block that the split route's rule moves off the chirp (complex64 33792
-#: = 33*2^10); at 512 MB rule lengths that raised before (complex64
-#: 23*2^19 and 33*2^18, complex128 23*2^17); and lengths whose route
-#: stays (complex64 4864 long, 4725 dense, 2^24 split).
+#: (dtype name, lines, N): lengths that the split route's general plans
+#: (``split.general_factors``) move, at 256 MB of lines: off the chirp
+#: complex64 29106 = 2*3^3*7^2*11, 30976 = 256 x 121, the odd 33075,
+#: 44100, 96000 = 256 x 375, 10^6 and 13^6 = 4826809, complex128 14406 =
+#: 2*3*7^4; at 512 MB lengths that raised past the chirp's limit
+#: (complex64 10^7 and 3^15, complex128 2278125 = 3^6*5^5 and 4084223 =
+#: 11*13^5); and lengths whose route stays (complex64 4864 long, 4725
+#: dense, 33792 split by the rule, 2^24 split), with the rest of
+#: ``chip_smoke.py``'s ``[gaps]`` lengths on the dense route (complex64
+#: 2730, 3430, 4050, 16896, 23040, 3264 and 1616, complex128 990, 8448
+#: and 1824), whose kernel shares its stage code with the general plans'
+#: pass A.
 SHAPES = tuple(
     (dt, (256 << 20) // (n * (8 if dt == "complex64" else 16)), n)
-    for dt, n in (("complex64", 5888), ("complex128", 2944),
-                  ("complex64", 2944), ("complex128", 736),
-                  ("complex64", 23 << 10), ("complex128", 23 << 9),
-                  ("complex64", 33792), ("complex64", 4864),
-                  ("complex64", 4725))) + tuple(
+    for dt, n in (("complex64", 29106), ("complex64", 30976),
+                  ("complex64", 33075), ("complex64", 44100),
+                  ("complex64", 96000), ("complex64", 10 ** 6),
+                  ("complex64", 13 ** 6), ("complex128", 14406),
+                  ("complex64", 4864), ("complex64", 4725),
+                  ("complex64", 33792), ("complex64", 2730),
+                  ("complex64", 3430), ("complex64", 4050),
+                  ("complex64", 16896), ("complex64", 23040),
+                  ("complex64", 3264), ("complex64", 1616),
+                  ("complex128", 990), ("complex128", 8448),
+                  ("complex128", 1824))) + tuple(
     (dt, (512 << 20) // (n * (8 if dt == "complex64" else 16)), n)
-    for dt, n in (("complex64", 23 << 19), ("complex64", 33 << 18),
-                  ("complex128", 23 << 17), ("complex64", 1 << 24)))
+    for dt, n in (("complex64", 10 ** 7), ("complex64", 3 ** 15),
+                  ("complex128", 2278125), ("complex128", 4084223),
+                  ("complex64", 1 << 24)))
 #: (dtype name, N) of ``generic``: lengths with a prime factor past 13,
 #: by the route the chirp's M takes (complex64: M up to 4096 on the radix
 #: route, 8192 and 16384 on the long-line route; complex128: up to 1024
@@ -152,6 +174,27 @@ SPLIT_CHECK = tuple(("complex64", n) for n in (
     153600, 270336, 315392, 351232, 430080, 495616, 602112, 718848,
     1146880, 1228800, 1327104, 1605632)) + tuple(
     ("complex128", n) for n in (37632, 138240, 286720, 450560))
+#: (dtype name, N) of ``splitgen``: lengths of the split route's general
+#: plans (13-smooth lines past one block that no other plan holds), the
+#: ones ``SHAPES`` times, then two per band of log N drawn at random
+#: (seeded) among the general lengths, 8 bands complex64 and 6
+#: complex128.
+SPLIT_GENERAL_SWEEP = tuple(("complex64", n) for n in (
+    29106, 30976, 33075, 44100, 96000, 10 ** 6, 13 ** 6, 10 ** 7, 3 ** 15,
+    31185, 36288, 72171, 83200, 196830, 274560, 320166, 665500, 715000,
+    758912, 2395008, 3009825, 3638250, 4915625, 12057136,
+    13856832)) + tuple(("complex128", n) for n in (
+        14406, 2278125, 4084223, 24500, 28028, 36855, 68992, 117000,
+        211200, 246402, 440440, 898128, 1397760, 2141568, 2388204))
+#: (dtype name, N) of ``splitgencheck``: general lengths that
+#: ``SPLIT_GENERAL_SWEEP`` leaves out, drawn at random (seeded) once the
+#: sweep had fixed the rule (``split.GENERAL_P``, ``GENERAL_Q_MAX``): one
+#: per band of log N, 10 bands complex64 and 6 complex128, and one per
+#: dtype among the lengths with two radix pass A candidates.
+SPLIT_GENERAL_CHECK = tuple(("complex64", n) for n in (
+    31590, 56000, 109350, 331695, 449064, 819819, 1597200, 3071250,
+    4920750, 15360000, 681472)) + tuple(("complex128", n) for n in (
+        21125, 41184, 136125, 431244, 650650, 2283008, 194688))
 #: One face of the LLC4320 ocean grid (MITgcm/ECCO), complex64.
 GRID = (4320, 4320)
 SWEEP_BYTES = 64 << 20
@@ -423,6 +466,70 @@ def split_sweep(root: str, tag: str, lengths=SPLIT_SWEEP) -> dict:
     return out
 
 
+def _general_candidates(split, n: int, dtype, most: int = 14) -> list:
+    """The general plans' (P, Q, pass A's route) for N that ``splitgen``
+    forces: every radix pass A and up to ``most`` dense ones, evenly
+    spaced over the candidates in order of P."""
+    cands = split.general_candidates(n, dtype)
+    rad = [c for c in cands if c[2] == "radix"]
+    den = [c for c in cands if c[2] == "dense"]
+    if len(den) > most:
+        den = [den[round(i * (len(den) - 1) / (most - 1))]
+               for i in range(most)]
+    return rad + den
+
+
+def split_general(root: str, tag: str, lengths=SPLIT_GENERAL_SWEEP) -> dict:
+    torch = _port(root)
+    from repro_torch.kernels import dense
+    from repro_torch.kernels import fft_matmul as tfm
+    from repro_torch.kernels import radix, split
+    out = {"tag": tag, "root": os.path.abspath(root), "bytes": 256 << 20,
+           "lengths": []}
+    ruled = hasattr(split, "general_candidates")
+    for dt, n in lengths:
+        dtype = getattr(torch, dt)
+        b = max(1, (256 << 20) // (n * dtype.itemsize))
+        x = _lines(torch, dtype, b, n)
+        lib = torch.fft.fft(x)
+        rec = {"dtype": dt, "shape": [b, n],
+               "path": radix.kernel_path(n, dtype),
+               "plan": (list(split.general_factors(n, dtype) or ())
+                        if ruled else []),
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+               "bound_ms": bound_ms(b, n, dtype.itemsize),
+               "candidates": []}
+        try:
+            rec["err"] = scaled_err(tfm.fft_fourstep(x), lib)
+            rec["ms"] = time_ms(lambda: tfm.fft_fourstep(x))
+        except (ValueError, RuntimeError) as e:
+            rec["path"], rec["ms"], rec["raised"] = "raises", None, str(e)
+        for p, q, col in (_general_candidates(split, n, dtype) if ruled
+                          else []):
+            plan = split.SplitPlan(n, p, q, "dense", col)
+
+            def run(plan=plan):
+                return tfm._launch_split(x, None, inverse=False,
+                                         pack_parts=None, plan=plan)
+            lines = (dense.column_plan(p, dtype).lines if col == "dense"
+                     else None)
+            rec["candidates"].append({
+                "p": p, "q": q, "col_path": col, "col_lines": lines,
+                "err": scaled_err(run(), lib), "ms": time_ms(run)})
+        del x, lib
+        torch.cuda.empty_cache()
+        cands = ", ".join(f"{c['p']} x {c['q']} {c['col_path']} "
+                          f"{c['ms']:.4f} ({c['err']:.1e})"
+                          for c in rec["candidates"])
+        ms = "raises" if rec["ms"] is None else f"{rec['ms']:.4f} ms"
+        print(f"[{tag}] splitgen {dt} ({b}, {n}) {rec['path']} "
+              f"{rec['plan']}: {ms}, torch.fft {rec['torch_fft_ms']:.4f}, "
+              f"bound {rec['bound_ms']:.4f}; candidates: {cands}",
+              flush=True)
+        out["lengths"].append(rec)
+    return out
+
+
 def _line(recs: list):
     """Least squares of the dense route's ms = a + b*s over ``recs``."""
     k = len(recs)
@@ -556,6 +663,10 @@ def main(argv) -> int:
         result = split_sweep(argv[2], argv[3])
     elif len(argv) == 5 and argv[1] == "splitcheck":
         result = split_sweep(argv[2], argv[3], SPLIT_CHECK)
+    elif len(argv) == 5 and argv[1] == "splitgen":
+        result = split_general(argv[2], argv[3])
+    elif len(argv) == 5 and argv[1] == "splitgencheck":
+        result = split_general(argv[2], argv[3], SPLIT_GENERAL_CHECK)
     elif len(argv) == 5 and argv[1] == "sass":
         result = sass(argv[2], argv[3])
     else:

@@ -13,7 +13,11 @@
 // takes -- odd N, N with a prime factor past 13, the even 13-smooth N no
 // codelets of the radix or long-line route hold, the spill lengths -- and
 // the 13-smooth N past it whose line and tables fit one block (complex64
-// to 28431, complex128 to 14196).
+// to 28431, complex128 to 14196).  The split route's general plans
+// (kernels/split.py::general_factors: every other 13-smooth N past one
+// block) run pass B on it and pass A, where N has no power-of-two P for
+// the radix route, on its column form: dense_column_kernel, at the end of
+// this file.
 //
 // What it computes (kernels/dense.py, whose emulate is its plain
 // version): a block holds `lines` lines in shared memory and transforms
@@ -196,11 +200,13 @@ __device__ __forceinline__ void dense_dft(cpx<R> (&a)[P], R s,
   }
 }
 
-// A codelet stage of radix P and span s on `nl` lines of n in place:
-// butterfly i of line l is (g, j), g = its block of P*s values, j < s.
+// A codelet stage of radix P and span s on `nl` lines of n in place, line
+// l at buf + l*pitch: butterfly i of line l is (g, j), g = its block of
+// P*s values, j < s.
 template <int P, typename R>
 __device__ __forceinline__ void dense_stage(cpx<R>* __restrict__ buf, int n,
-                                            int nl, int s, int mul,
+                                            int pitch, int nl, int s,
+                                            int mul,
                                             const cpx<R>* __restrict__ ta,
                                             const cpx<R>* __restrict__ tb,
                                             int t_log2, R sgn) {
@@ -213,7 +219,7 @@ __device__ __forceinline__ void dense_stage(cpx<R>* __restrict__ buf, int n,
     const int b = i - l * nb;
     const int g = div_small(b, s, inv_s);
     const int j = b - g * s;
-    cpx<R>* v = buf + l * n + g * (P * s) + j;
+    cpx<R>* v = buf + l * pitch + g * (P * s) + j;
     cpx<R> a[P];
 #pragma unroll
     for (int q = 0; q < P; ++q) a[q] = v[q * s];
@@ -265,6 +271,60 @@ __device__ __forceinline__ void dense_generic(
   }
 }
 
+// The chain (ints: per stage radix, span, M and W_p offset) on `nl` lines
+// of n in shared memory, line l at cur + l*pitch, each stage ended by a
+// barrier.  With kGeneric (the dense route, lines n apart) a generic
+// stage writes into `other` and the two swap; without it (the split
+// route's pass A, whose P is 13-smooth) the chain holds codelets only.
+// Returns the buffer that holds the result.
+template <bool kGeneric, typename R>
+__device__ __forceinline__ cpx<R>* dense_chain(cpx<R>* cur, cpx<R>* other,
+                                               int n, int pitch, int nl,
+                                               int stages,
+                                               const cpx<R>* consts,
+                                               const int* ints, int t_log2,
+                                               int inverse) {
+  const R sgn = inverse ? R(1) : R(-1);
+  const cpx<R>* ta = consts;
+  const cpx<R>* tb = consts + (1 << t_log2);
+  for (int t = 0; t < stages; ++t) {
+    const int r = ints[4 * t], s = ints[4 * t + 1], mul = ints[4 * t + 2];
+    switch (r) {
+      case 2:
+        dense_stage<2>(cur, n, pitch, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 3:
+        dense_stage<3>(cur, n, pitch, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 4:
+        dense_stage<4>(cur, n, pitch, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 5:
+        dense_stage<5>(cur, n, pitch, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 7:
+        dense_stage<7>(cur, n, pitch, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 11:
+        dense_stage<11>(cur, n, pitch, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      case 13:
+        dense_stage<13>(cur, n, pitch, nl, s, mul, ta, tb, t_log2, sgn);
+        break;
+      default:
+        if constexpr (kGeneric) {
+          dense_generic(cur, other, n, nl, r, s, mul,
+                        consts + ints[4 * t + 3], ta, tb, t_log2);
+          cpx<R>* done = other;
+          other = cur;
+          cur = done;
+        }
+    }
+    __syncthreads();
+  }
+  return cur;
+}
+
 // Shared memory (kernels/dense.py::DensePlan), in this order: the
 // complex tables (TA, TB, the generic stages' W_p tables: n_consts
 // values), the ints (per stage radix, span, M and W_p offset; then PL of
@@ -304,43 +364,8 @@ dense_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   dense_copy_wait();
   __syncthreads();
 
-  const R sgn = inverse ? R(1) : R(-1);
-  const cpx<R>* ta = consts;
-  const cpx<R>* tb = consts + (1 << t_log2);
-  for (int t = 0; t < stages; ++t) {
-    const int r = ints[4 * t], s = ints[4 * t + 1], mul = ints[4 * t + 2];
-    switch (r) {
-      case 2:
-        dense_stage<2>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
-        break;
-      case 3:
-        dense_stage<3>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
-        break;
-      case 4:
-        dense_stage<4>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
-        break;
-      case 5:
-        dense_stage<5>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
-        break;
-      case 7:
-        dense_stage<7>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
-        break;
-      case 11:
-        dense_stage<11>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
-        break;
-      case 13:
-        dense_stage<13>(cur, n, nl, s, mul, ta, tb, t_log2, sgn);
-        break;
-      default: {
-        dense_generic(cur, other, n, nl, r, s, mul, consts + ints[4 * t + 3],
-                      ta, tb, t_log2);
-        cpx<R>* done = other;
-        other = cur;
-        cur = done;
-      }
-    }
-    __syncthreads();
-  }
+  cur = dense_chain<true>(cur, other, n, n, nl, stages, consts, ints, t_log2,
+                         inverse);
 
   // The store: output k of line l from PL[k mod lo] + PH[k div lo].
   const int* pl = ints + 4 * stages;
@@ -388,6 +413,112 @@ int dense_launch(const void* x, void* out, const void* consts,
       static_cast<const cpx<R>*>(consts), static_cast<const int*>(ints),
       static_cast<const cpx<R>*>(tw), batch, n, stages, lines, t_log2, lo,
       n_consts, n_ints, buf_off, inverse, seg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass A of the split route's general plans (kernels/split.py: a line of
+// N = P*Q held as (P, Q) rows, x[p*Q + q], P any 13-smooth length this
+// kernel takes, dense.column_plan): the P-long DFT of every column q of
+// the (B, P, Q) block.  A block holds `lines` (a power of two) consecutive
+// columns q0 + l of one line b, the tile's lines `pitch` apart (P, or
+// P + 1 for an even P, so that the loads and stores of consecutive l do
+// not share a bank); consecutive threads take consecutive l, so a warp
+// reads and writes runs of consecutive q.  The last tile of a line may
+// hold fewer than `lines` columns.  The store multiplies output kp of
+// column q by the inter-step twiddle W_N^(kp*q), e = kp*q < N, from two
+// tables in global memory read through L2: W_N^e = WA[e mod W] * WB[e div
+// W], W = 2^w_log2 >= sqrt(N), built in float64 on the host (an N-entry
+// table would be 128 MB at complex64 2^24), and writes the same (B, P, Q)
+// layout, unscaled.  Pass B runs the Q-long rows on dense_kernel, pass C
+// is split_transpose_any (fft_long.cuh).
+template <typename R>
+__global__ void __launch_bounds__(sizeof(R) == 4 ? kDenseWide64
+                                                 : kDenseWide128, 1)
+dense_column_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+                    const cpx<R>* __restrict__ gconsts,
+                    const int* __restrict__ gints,
+                    const cpx<R>* __restrict__ wtab, int n, int q,
+                    int stages, int lines, int pitch, int t_log2, int lo,
+                    int n_consts, int n_ints, int buf_off, int inverse,
+                    int w_log2) {
+  extern __shared__ __align__(16) unsigned char dense_smem[];
+  cpx<R>* consts = reinterpret_cast<cpx<R>*>(dense_smem);
+  int* ints = reinterpret_cast<int*>(
+      dense_smem +
+      ((n_consts * static_cast<int>(sizeof(cpx<R>)) + 15) & ~15));
+  cpx<R>* cur = reinterpret_cast<cpx<R>*>(dense_smem + buf_off);
+
+  // block = (line b, tile of `lines` columns); thread i holds (p, l) =
+  // (i / lines, i % lines)
+  const int lines_log2 = __ffs(lines) - 1;
+  const int tiles = (q + lines - 1) / lines;
+  const long long b = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - static_cast<int>(b) * tiles) * lines;
+  const int nl = q - q0 < lines ? q - q0 : lines;
+  const int work = n << lines_log2;
+  const long long line0 = b * n * static_cast<long long>(q) + q0;
+  const cpx<R>* xb = x + line0;
+  for (int i = threadIdx.x; i < work; i += blockDim.x) {
+    const int l = i & (lines - 1);
+    const int p = i >> lines_log2;
+    if (l < nl) dense_copy(cur + l * pitch + p, xb + p * q + l);
+  }
+  for (int i = threadIdx.x; i < n_consts; i += blockDim.x)
+    consts[i] = gconsts[i];
+  for (int i = threadIdx.x; i < n_ints; i += blockDim.x) ints[i] = gints[i];
+  dense_copy_wait();
+  __syncthreads();
+
+  cur = dense_chain<false>(cur, static_cast<cpx<R>*>(nullptr), n, pitch, nl,
+                           stages, consts, ints, t_log2, inverse);
+
+  // The store: output k of column l from PL[k mod lo] + PH[k div lo].
+  const int* pl = ints + 4 * stages;
+  const int* ph = pl + lo;
+  const float inv_lo = 1.0f / static_cast<float>(lo);
+  cpx<R>* ob = out + line0;
+  const int wmask = (1 << w_log2) - 1;
+  const cpx<R>* wb = wtab + (1 << w_log2);
+  for (int i = threadIdx.x; i < work; i += blockDim.x) {
+    const int l = i & (lines - 1);
+    const int k = i >> lines_log2;
+    if (l >= nl) continue;
+    const int kh = div_small(k, lo, inv_lo);
+    const cpx<R> v = cur[l * pitch + pl[k - kh * lo] + ph[kh]];
+    const int e = k * (q0 + l);  // kp*q < N <= 2^24
+    ob[k * q + l] = cmul(v, cmul(wtab[e & wmask], wb[e >> w_log2]));
+  }
+}
+
+// Launches pass A of a general plan (x and out (B, P, Q) blocks, batch =
+// B, n = P, q = Q) with `threads` on `stream`; returns the CUDA error code
+// (0 on success).  The layout's numbers come from
+// kernels/dense.py::column_plan.
+template <typename R>
+int dense_column_launch(const void* x, void* out, const void* consts,
+                        const void* ints, const void* wtab, long long batch,
+                        int n, int q, int stages, int lines, int pitch,
+                        int t_log2, int lo, int n_consts, int n_ints,
+                        int buf_off, int inverse, int w_log2, int threads,
+                        int smem_bytes, cudaStream_t stream) {
+  if (batch <= 0) return 0;
+  constexpr int kNarrow = sizeof(R) == 4 ? kDenseNarrow64 : kDenseNarrow128;
+  constexpr int kWide = sizeof(R) == 4 ? kDenseWide64 : kDenseWide128;
+  if ((threads != kNarrow && threads != kWide) || lines < 1 ||
+      (lines & (lines - 1)) || pitch < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_column_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = batch * ((q + lines - 1) / lines);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  dense_column_kernel<R><<<static_cast<unsigned>(blocks), threads,
+                           static_cast<size_t>(smem_bytes), stream>>>(
+      static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
+      static_cast<const cpx<R>*>(consts), static_cast<const int*>(ints),
+      static_cast<const cpx<R>*>(wtab), n, q, stages, lines, pitch, t_log2,
+      lo, n_consts, n_ints, buf_off, inverse, w_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

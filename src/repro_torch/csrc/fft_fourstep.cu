@@ -14,11 +14,13 @@
 // route (fft_long.cuh: three passes over a line loaded by TMA); beyond one
 // block (complex64 to 2^24, complex128 to 2^22) the powers of two and the
 // mixed N of radix.EVERY_ROUTE_ODD, and every other 13-smooth N or 23*2^k
-// whose N = P*Q a radix or long-line row holds (split.rule_factors), take
-// the split route (kernels/split.py: P a power of two, pass A a strided
-// radix launch on the P-long columns with the inter-step twiddle, pass B
-// a radix launch on the Q-long rows stored transposed, or a long-line
-// launch on them stored in place and a transpose); every N up to
+// whose N = P*Q a radix or long-line row holds (split.rule_factors), and
+// every other 13-smooth N (split.general_factors), take the split route
+// (kernels/split.py: pass A a strided radix launch on the P-long columns
+// with the inter-step twiddle, P a power of two, or the dense kernel's
+// column form; pass B a radix launch on the Q-long rows stored
+// transposed, or a long-line or dense launch on them in natural order and
+// a transpose); every N up to
 // complex64 4835 / complex128 2419 that those routes do not take and
 // whose generic stages (one per prime factor past 13) cost no more than
 // the chirp route (dense.GENERIC_COST: odd N, the even 13-smooth N no
@@ -27,8 +29,7 @@
 // takes the dense route (fft_dense.cuh: a mixed-radix FFT over a run-time
 // chain, the line in shared memory; kernels/dense.py); any other N up to
 // complex64 2^23 / complex128 2^21 (dearer prime factors, a prime factor
-// past 13 that no codelet takes past those limits, a 13-smooth line past
-// one block that the split rule leaves) takes the chirp route
+// past 13 that no codelet takes past those limits) takes the chirp route
 // (kernels/chirp.py: Bluestein's convolution as two of these launches on
 // lines of M = 2^ceil(log2(2N - 1)), the chirps in their twiddle
 // epilogues).
@@ -44,8 +45,9 @@
 // REPRO_PART = k, only the radix and long-line kernels of build part k
 // (repro_fft::build_part: the hash that spreads the lengths over the
 // parts), explicitly instantiated below; with REPRO_PART = -1, the dense
-// kernel (one per dtype), the split route's transposes and the C entry
-// points, which route each length to its part's radix_part or long_part.
+// kernels (per dtype: the dense route's and the split route's column
+// form), the split route's transposes and the C entry points, which
+// route each length to its part's radix_part or long_part.
 // Compiled with neither macro, it is the whole library in one unit.
 
 #include <cuda_runtime.h>
@@ -226,6 +228,61 @@ int repro_fft_split_c_c128(const void* z, void* out, const void* tw,
                            int inverse, void* stream) {
   return repro_fft::split_transpose<double>(
       z, out, tw, lines, p_log2, q, seg_arg, inverse,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Pass A of the split route's general plans (kernels/split.py: N = P*Q
+// past one block) where N has no power-of-two P for the radix route: the
+// dense kernel's column form (fft_dense.cuh, dense_column_kernel) on the
+// contiguous (B, P, Q) blocks `x` into `y`, batch = B, n = P, q = Q,
+// `lines` columns a block at line pitch `pitch`, `wtab` the inter-step
+// twiddle's tables (WA, 2^w_log2 entries, then WB).  `consts` and `ints`
+// are dense.constants of P; the layout's numbers and threads
+// dense.column_plan's.  Pass B of these plans is repro_fft_dense_* on the
+// B*P rows of Q.
+int repro_fft_split_a_dense_c64(const void* x, void* y, const void* consts,
+                                const void* ints, const void* wtab,
+                                long long batch, int n, int q, int stages,
+                                int lines, int pitch, int t_log2, int lo,
+                                int n_consts, int n_ints, int buf_off,
+                                int inverse, int w_log2, int threads,
+                                int smem_bytes, void* stream) {
+  return repro_fft::dense_column_launch<float>(
+      x, y, consts, ints, wtab, batch, n, q, stages, lines, pitch, t_log2,
+      lo, n_consts, n_ints, buf_off, inverse, w_log2, threads, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_split_a_dense_c128(const void* x, void* y, const void* consts,
+                                 const void* ints, const void* wtab,
+                                 long long batch, int n, int q, int stages,
+                                 int lines, int pitch, int t_log2, int lo,
+                                 int n_consts, int n_ints, int buf_off,
+                                 int inverse, int w_log2, int threads,
+                                 int smem_bytes, void* stream) {
+  return repro_fft::dense_column_launch<double>(
+      x, y, consts, ints, wtab, batch, n, q, stages, lines, pitch, t_log2,
+      lo, n_consts, n_ints, buf_off, inverse, w_log2, threads, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Pass C of the general plans, after pass B on the dense kernel (which
+// applied the inverse's 1/Q): `z` holds B lines of (P, Q) rows (any P and
+// Q), `out` (parts, B, P*Q/parts) with seg = P*Q/parts, `tw` the line's
+// output twiddle or null; `inverse` scales by 1/P.
+int repro_fft_split_c_any_c64(const void* z, void* out, const void* tw,
+                              long long lines, int p, int q, int seg,
+                              int inverse, void* stream) {
+  return repro_fft::split_transpose_any<float>(
+      z, out, tw, lines, p, q, seg, inverse,
+      static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_split_c_any_c128(const void* z, void* out, const void* tw,
+                               long long lines, int p, int q, int seg,
+                               int inverse, void* stream) {
+  return repro_fft::split_transpose_any<double>(
+      z, out, tw, lines, p, q, seg, inverse,
       static_cast<cudaStream_t>(stream));
 }
 

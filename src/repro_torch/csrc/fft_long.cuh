@@ -1086,4 +1086,64 @@ int split_transpose(const void* z, void* out, const void* tw,
   return (int)cudaGetLastError();
 }
 
+// Pass C for any P and Q (the split route's general plans, after pass B
+// on the dense kernel, kernels/split.py): as split_transpose_mixed_kernel,
+// with P by multiplication and every 32 x 32 tile bounds-checked on kp
+// and kq (neither need be a multiple of 32), the segment (seg =
+// P*Q/parts, any length) by div_small and the inverse's 1/P as `scale`,
+// worked out on the host (pass B, dense_kernel, applied the 1/Q).  Grid: (ceil(Q/32), ceil(P/32), up to
+// 65535 lines).
+template <typename R>
+__global__ void __launch_bounds__(kTransposeTile * kTransposeRows)
+split_transpose_any_kernel(const cpx<R>* __restrict__ z,
+                           cpx<R>* __restrict__ out,
+                           const cpx<R>* __restrict__ gtw, long long lines,
+                           int p, int q, int seg, R scale) {
+  constexpr int T = kTransposeTile;
+  __shared__ cpx<R> tile[T][T + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int kq0 = blockIdx.x * T, kp0 = blockIdx.y * T;
+  const long long n = (long long)q * p;
+  const float inv_seg = __fdividef(1.0f, (float)seg);
+  const bool load_q = kq0 + tx < q;   // this thread's kq of the loads
+  const bool store_p = kp0 + tx < p;  // and its kp of the stores
+  for (long long b = blockIdx.z; b < lines; b += gridDim.z) {
+    const cpx<R>* zb = z + b * n;
+    for (int j = ty; j < T; j += kTransposeRows)
+      if (load_q && kp0 + j < p)
+        tile[j][tx] = zb[(long long)(kp0 + j) * q + kq0 + tx];
+    __syncthreads();
+    for (int j = ty; j < T; j += kTransposeRows) {
+      if (store_p && kq0 + j < q) {
+        const int of = kp0 + tx + (kq0 + j) * p;
+        cpx<R> y = tile[tx][j];
+        if (gtw != nullptr) y = cmul(y, gtw[of]);
+        y.re *= scale;
+        y.im *= scale;
+        const int part = div_small(of, seg, inv_seg);
+        out[((long long)part * lines + b) * seg + (of - part * seg)] = y;
+      }
+    }
+    __syncthreads();  // the next line's loads overwrite the tile
+  }
+}
+
+// Pass C of a general plan: seg = P*Q/parts of any length.
+template <typename R>
+int split_transpose_any(const void* z, void* out, const void* tw,
+                        long long lines, int p, int q, int seg, int inverse,
+                        cudaStream_t stream) {
+  if (lines <= 0) return 0;
+  if (p < 1 || q < 1 || seg < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((q + 31) / 32), (unsigned)((p + 31) / 32),
+                  (unsigned)(lines < 65535 ? lines : 65535));
+  const dim3 block(kTransposeTile, kTransposeRows);
+  // 1/P rounded once, as the plain version's scale
+  const R scale = inverse ? (R)(1.0 / (double)p) : R(1);
+  split_transpose_any_kernel<R><<<grid, block, 0, stream>>>(
+      static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
+      static_cast<const cpx<R>*>(tw), lines, p, q, seg, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace repro_fft

@@ -8,17 +8,17 @@ The radix, long-line and split routes take every N = r*2^k, r in
 65) run on the radix route where both factors of N fit a codelet
 (``radix.RADIX_ODD``), on the long-line route up to its 128 KB line
 where three codelets of at most 32 take N (``longline.rule_factors``)
-and on the split route past one block where a P of its pass A and a
-radix or long-line row Q hold N = P*Q (``split.rule_factors``); the
-dense route takes every other N up to ``dense.DENSE_LIMIT`` (complex64
+and on the split route past one block (``split.rule_factors`` where a P
+of its pass A and a radix or long-line row Q hold N = P*Q, and
+``split.general_factors`` for every other 13-smooth N); the dense route
+takes every other N up to ``dense.DENSE_LIMIT`` (complex64
 4835, complex128 2419) whose generic stages, one per prime factor past
 13, cost no more than this route would (``dense.GENERIC_COST``: their
 sum against M/N and M), and every other 13-smooth N whose line fits one
 block (complex64 23040 = 45*512 and 16896 = 33*512).  So the lengths
-left here have dearer prime factors (such as the primes 4831 and 10007,
-3232 = 101*32, and 7424 = 29*256), or are 13-smooth with a line past one
-block that the split rule leaves (odd, with one factor of 2 as complex64
-29106 = 2*14553, or with no Q that a row holds).  On the CPU the route
+left here have a prime factor past 13 that no codelet takes (such as the
+primes 4831, 10007 and 20011, 3232 = 101*32, and 7424 = 29*256), and
+none is 13-smooth.  On the CPU the route
 runs :func:`emulate`; on the card two counted launches of the radix,
 long-line or split route with the PyTorch glue around them.
 
@@ -77,14 +77,17 @@ def max_length(dtype: torch.dtype) -> int:
 def takes(n: int, dtype: torch.dtype) -> bool:
     """Whether the chirp route takes lines of ``n`` (``radix.kernel_path``
     asks after the radix, long-line and split routes, the split route's
-    rule included): every N the dense route does not take
-    (``dense.takes``: generic stages dearer than this route, past
-    ``dense.DENSE_LIMIT`` a prime factor past 13 or a 13-smooth line past
-    one block), up to :func:`max_length`."""
+    rule and general plans included): every N the dense route does not
+    take (``dense.takes``: generic stages dearer than this route, past
+    ``dense.DENSE_LIMIT`` a prime factor past 13) and the split route's
+    general plans do not (``split.general_factors``: every 13-smooth line
+    past one block), up to :func:`max_length`."""
     from .dense import DENSE_LIMIT, takes as dense_takes
+    from .split import general_factors
     if dtype not in DENSE_LIMIT:
         return False
-    return n <= max_length(dtype) and not dense_takes(n, dtype)
+    return (n <= max_length(dtype) and not dense_takes(n, dtype)
+            and general_factors(n, dtype) is None)
 
 
 def constants(n: int, inverse: bool) -> Tuple[np.ndarray, ...]:

@@ -11,7 +11,10 @@ of those routes hold, and ``radix._SPILLS``), and every other 13-smooth
 N whose line and tables fit one block's shared memory (:func:`takes`:
 complex64 to 28431, complex128 to 14196).  The chirp route takes the N
 with dearer prime factors.  On the CPU it runs :func:`emulate`; on the
-card one launch of ``csrc/fft_dense.cuh``.
+card one launch of ``csrc/fft_dense.cuh``.  The split route's general
+plans (``split.general_factors``) run pass B on this route's launch and
+pass A, where N has no power-of-two P, on the same kernel's column form
+(:func:`column_plan`; :func:`emulate`'s ``columns=``).
 
 A block holds ``lines`` whole lines in shared memory and transforms them
 in place, by decimation in frequency, over the chain of
@@ -68,6 +71,11 @@ MAX_STAGES = 16
 #: Lines of at most this many elements share a block: the most lines (a
 #: power of two) whose elements stay within it.
 TILE_ELEMS = 4096
+#: Columns of one tile of the split route's pass A on this kernel
+#: (:func:`column_plan`), tried in order: 16 (a warp's loads and stores
+#: then run over 128 bytes of complex64, 256 of complex128), halved until
+#: the tile and its tables fit one block.
+COLUMN_LINES = (16, 8, 4)
 #: A generic stage sums its p terms in chunks of this many, each chunk's
 #: sum then added to the total (``fft_dense.cuh``'s ``kGenericChunk``):
 #: the error grows with p/16 + 16 additions, not p.
@@ -142,6 +150,11 @@ class DensePlan:
     lo_stages: int
     lines: int                  # lines per block
     itemsize: int
+    pitch: int = 0              # the tile's line pitch; 0: n
+
+    @property
+    def line_pitch(self) -> int:
+        return self.pitch or self.n
 
     @property
     def tb_len(self) -> int:
@@ -183,7 +196,8 @@ class DensePlan:
     @property
     def smem_bytes(self) -> int:
         return (self.buf_offset
-                + self.buffers * self.lines * self.n * self.itemsize)
+                + self.buffers * self.lines * self.line_pitch
+                * self.itemsize)
 
     @property
     def threads(self) -> int:
@@ -269,6 +283,26 @@ def dense_plan(n: int, dtype: torch.dtype) -> DensePlan:
     return plan
 
 
+@functools.lru_cache(maxsize=None)
+def column_plan(p: int, dtype: torch.dtype) -> Optional[DensePlan]:
+    """Pass A's layout on this kernel for the split route's general plans
+    (``split.general_factors``; ``fft_dense.cuh``'s
+    ``dense_column_kernel``):
+    the chain of P, a tile of :data:`COLUMN_LINES` consecutive columns of a
+    ``(B, P, Q)`` block (the first count whose tile and tables fit one
+    block), its lines P + 1 apart for an even P (P for an odd one) so that
+    consecutive columns do not share a bank; None where no count fits or
+    P is not 13-smooth."""
+    if p < 2 or not radix.smooth(p):
+        return None
+    for lines in COLUMN_LINES:
+        plan = dataclasses.replace(_layout(p, dtype.itemsize, lines),
+                                   pitch=p | 1)
+        if plan.smem_bytes <= radix.SMEM_MAX_BYTES:
+            return plan
+    return None
+
+
 def _w(n: int, e: np.ndarray, sign: float) -> np.ndarray:
     return np.exp(sign * 2j * np.pi * e.astype(np.float64) / n)
 
@@ -314,11 +348,45 @@ def constants(plan: DensePlan, inverse: bool
 
 def emulate(x: torch.Tensor, *, inverse: bool = False,
             twiddle: Optional[torch.Tensor] = None,
-            pack_parts: Optional[int] = None) -> torch.Tensor:
+            pack_parts: Optional[int] = None,
+            columns: Optional[Tuple[torch.Tensor, int]] = None
+            ) -> torch.Tensor:
     """The kernel's stages, index maps, twiddle products and store order
     in torch on contiguous ``(B, N)`` lines, every butterfly of a stage at
     once.  Returns what the kernel writes: ``(B, N)``, or the ``(p, B,
-    N/p)`` buffer with ``pack_parts``."""
+    N/p)`` buffer with ``pack_parts``.
+
+    The split route's pass A (``fft_dense.cuh``'s
+    ``dense_column_kernel``): ``columns=(tables, w_log2)`` takes ``x`` as
+    a contiguous ``(B, P, Q)`` block and transforms its P-long columns,
+    output kp of column q times W_N^(kp*q) = WA[e mod W] * WB[e div W], e
+    = kp*q, W = 2^w_log2, from ``tables`` (WA then WB), unscaled, in the
+    same layout."""
+    if columns is not None:
+        tables, w_log2 = columns
+        b, p, q = x.shape
+        y = _chain(x.transpose(1, 2).reshape(b * q, p), inverse)
+        e = (torch.arange(q, device=x.device)[:, None]
+             * torch.arange(p, device=x.device)[None, :])
+        w = tables[e & ((1 << w_log2) - 1)] * tables[(1 << w_log2)
+                                                      + (e >> w_log2)]
+        return (y.reshape(b, q, p) * w).transpose(1, 2).contiguous()
+    b, n = x.shape
+    cdt, dev = x.dtype, x.device
+    y = _chain(x, inverse)
+    if twiddle is not None:
+        y = y * twiddle.to(device=dev, dtype=cdt).reshape(-1)
+    if inverse:
+        y = y * (1.0 / n)
+    if pack_parts is None:
+        return y
+    return y.reshape(b, pack_parts, n // pack_parts).transpose(0, 1) \
+        .contiguous()
+
+
+def _chain(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The kernel's stages and store order on contiguous ``(B, N)`` lines,
+    without the epilogues: ``(B, N)`` in natural order."""
     b, n = x.shape
     plan = dense_plan(n, x.dtype)
     cdt, dev = x.dtype, x.device
@@ -355,12 +423,4 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     tabs_i = torch.from_numpy(ints.astype(np.int64)).to(dev)
     base = 4 * len(plan.radices)
     pl, ph = tabs_i[base:base + plan.lo], tabs_i[base + plan.lo:]
-    y = buf[:, pl[k % plan.lo] + ph[k // plan.lo]]
-    if twiddle is not None:
-        y = y * twiddle.to(device=dev, dtype=cdt).reshape(-1)
-    if inverse:
-        y = y * (1.0 / n)
-    if pack_parts is None:
-        return y
-    return y.reshape(b, pack_parts, n // pack_parts).transpose(0, 1) \
-        .contiguous()
+    return buf[:, pl[k % plan.lo] + ph[k // plan.lo]]

@@ -51,12 +51,15 @@ long-line path — three such passes over a line loaded by TMA,
 ``emulate`` is this path's plain version; the powers of two and those
 mixed lengths beyond one block (to 2^24 for complex64, 2^22 for
 complex128), and every other 13-smooth N or 23*2^k there whose N = P*Q
-a radix or long-line row holds (``split.rule_factors``), take the split
-route — N = P*Q, P a power of two, through HBM, a strided radix launch
-on the P-long columns with the inter-step twiddle in its store, then the
+a radix or long-line row holds (``split.rule_factors``), and every other
+13-smooth N past one block (``split.general_factors``), take the split
+route — N = P*Q through HBM, a strided radix launch on the P-long
+columns (P a power of two; for a general plan without one, the dense
+kernel's column form) with the inter-step twiddle in its store, then the
 Q-long rows: on the radix route, stored
-transposed with the line's epilogues; on the long-line route, stored in
-place and moved by a transpose launch that carries the epilogues —
+transposed with the line's epilogues; on the long-line route or the
+dense route's launch, stored in natural order and moved by a transpose
+launch that carries the epilogues —
 planned in ``kernels/split.py``, whose ``emulate`` is that route's plain
 version; every other N up to ``dense.DENSE_LIMIT`` (complex64 4835,
 complex128 2419) whose generic stages (one per prime factor past 13)
@@ -68,16 +71,15 @@ and every other 13-smooth N whose line fits one block (complex64 to
 DFT-matrix kernel it replaced, now a mixed-radix FFT over a chain chosen
 at run time, the lines in shared memory, ``csrc/fft_dense.cuh``, planned
 in ``kernels/dense.py``, whose ``emulate`` is that route's plain
-version; every other N (dearer prime factors, a prime factor past 13
-that no codelet takes past that limit, or a 13-smooth line past one
-block that the split route's rule leaves) takes the chirp
+version; every other N (dearer prime factors, or a prime factor past 13
+that no codelet takes past that limit) takes the chirp
 route — Bluestein's convolution as two transforms of M =
 2^ceil(log2(2N - 1)) on the radix, long-line or split route with the
 chirps in their ``twiddle`` epilogues, planned in ``kernels/chirp.py``,
 whose ``emulate`` is that route's plain version (N up to 2^23 for
-complex64, 2^21 for complex128); past that, N raises on the card
-(``launch_config``).  A failed build or launch raises; nothing falls
-back.
+complex64, 2^21 for complex128); past that, N with a prime factor past
+13 raises on the card (``launch_config``).  A failed build or launch
+raises; nothing falls back.
 
 :func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``
 block and transforms dim 1 on the radix path, writing the same layout:
@@ -90,7 +92,8 @@ to its variant's entry of ``fft_fourstep.variant_launches`` ("fourstep",
 (the five names :func:`radix.kernel_path` gives) and to its layout's
 entry of ``fft_fourstep.layout_launches`` ("lines", "strided"); nothing
 else touches them.  A split call is two launches (three with rows on the
-long-line route), each counted on "split" and the layout it runs (pass
+long-line route or the dense kernel), each counted on "split" and the
+layout it runs (pass
 A: "strided", "fourstep"; passes B and C: "lines"; the last carries the
 call's variant), and adds one to ``fft_fourstep.split_calls``.  A chirp
 call is two inner transforms (one launch each on the long-line route, a
@@ -135,17 +138,19 @@ def launch_config(n: int, itemsize: int) -> LaunchConfig:
     dtype = torch.complex64 if itemsize == 8 else torch.complex128
     if not dense.takes(n, dtype):
         raise ValueError(
-            f"fft_fourstep: N={n} is past the dense route, which takes N "
-            f"up to {dense.DENSE_LIMIT[dtype]} whose generic stages cost "
-            f"no more than the chirp route and the 13-smooth N whose "
-            f"line fits one block's {SMEM_MAX_BYTES} bytes of shared "
-            f"memory for {itemsize}-byte complex elements; the split route "
-            f"takes N = P*Q beyond one block up to "
-            f"{split.LIMIT.get(dtype)}: the powers of two and the mixed "
-            f"lengths r*2^k, r in {radix.EVERY_ROUTE_ODD}, and every other "
-            f"13-smooth N or r*2^k, r in {radix.WIDE_ODD}, whose Q a radix "
-            f"or long-line row holds (split.rule_factors), and the chirp "
-            f"route every other N up to {chirp.max_length(dtype)}")
+            f"fft_fourstep: N={n} is on no route for {itemsize}-byte "
+            f"complex elements: past the chirp route's "
+            f"{chirp.max_length(dtype)} only the split route runs, up to "
+            f"{split.LIMIT.get(dtype)}, so N with a prime factor past 13 "
+            f"that no codelet takes and any N past that raise.  The dense "
+            f"route takes N up to {dense.DENSE_LIMIT[dtype]} whose generic "
+            f"stages cost no more than the chirp route and the 13-smooth N "
+            f"whose line fits one block's {SMEM_MAX_BYTES} bytes of shared "
+            f"memory; the split route takes the powers of two and r*2^k, r "
+            f"in {radix.EVERY_ROUTE_ODD} (its table and split.rule_factors)"
+            f" and every other 13-smooth N past one block "
+            f"(split.general_factors); the chirp route every other N up to "
+            f"{chirp.max_length(dtype)}")
     plan = dense.dense_plan(n, dtype)
     return LaunchConfig(lines=plan.lines, buffers=plan.buffers,
                         smem_bytes=plan.smem_bytes)
@@ -231,10 +236,12 @@ def _long_constants(n: int, inverse: bool, dtype: torch.dtype,
 def _split_constants(plan: split.SplitPlan, inverse: bool,
                      dtype: torch.dtype, device: torch.device
                      ) -> torch.Tensor:
-    """Pass A's twiddle tables on ``device``: TA then TB
-    (``split.constants``, built in float64), one buffer, cached with the
-    other paths' constants."""
-    return _cached(("split", plan.n, plan.p, bool(inverse), dtype, device),
+    """Pass A's twiddle tables on ``device``: TA then TB, or on a dense
+    pass A WA then WB (``split.constants``, built in float64), one buffer,
+    cached with the other paths' constants under (P, Q, pass A's
+    route)."""
+    return _cached(("split", plan.n, plan.p, plan.q, plan.col_path,
+                    bool(inverse), dtype, device),
                    lambda: torch.from_numpy(split.constants(
                        plan, inverse)).to(device=device, dtype=dtype))
 
@@ -475,13 +482,14 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                   count_as: str = "split") -> torch.Tensor:
     """The split route on contiguous ``(B, N)`` lines, N = P*Q
     (``kernels/split.py``): pass A, the strided radix launch on the
-    ``(B, P, Q)`` block with the inter-step twiddle, into a scratch block;
+    ``(B, P, Q)`` block with the inter-step twiddle (or the dense kernel's
+    column form, for a general plan's dense pass A), into a scratch block;
     pass B, the Q-long rows: on the radix route stored transposed into the
-    output with the line's epilogues, on the long-line route stored in
-    place into a second scratch block that pass C transposes into the
-    output with the epilogues.  All on the current stream; each counted
-    on ``count_as`` ("split", or "chirp" inside the chirp route) and its
-    layout."""
+    output with the line's epilogues, on the long-line route or the dense
+    kernel stored in natural order into a second scratch block that pass C
+    transposes into the output with the epilogues.  All on the
+    current stream; each counted on ``count_as`` ("split", or "chirp"
+    inside the chirp route) and its layout."""
     from . import build
     lib = build.load("fft_fourstep")
     _declare(lib)
@@ -499,19 +507,33 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
         # pass A: (B, P, Q) -> (B, P, Q), the P-long columns
         y = torch.empty((b, plan.p, plan.q), dtype=cdt, device=dev)
         ctile = split.column_tile(plan, cdt)
-        pconsts = _radix_constants(plan.p, inverse, cdt, dev)
         tables = _split_constants(plan, inverse, cdt, dev)
-        for c in (pconsts, tables):
-            c.record_stream(current)
-        err = getattr(lib, f"repro_fft_split_a_{suffix}")(
-            x.data_ptr(), y.data_ptr(), pconsts.data_ptr(),
-            tables.data_ptr(), b, plan.p, plan.q, int(inverse),
-            ctile.lines.bit_length() - 1, plan.ql_log2, ctile.smem_bytes,
-            stream)
+        tables.record_stream(current)
+        if plan.col_path == "dense":
+            if x.data_ptr() % x.element_size():
+                x = x.clone()      # the copies read whole aligned elements
+            pconsts, pints = _dense_constants(plan.p, inverse, cdt, dev)
+            for c in (pconsts, pints):
+                c.record_stream(current)
+            err = getattr(lib, f"repro_fft_split_a_dense_{suffix}")(
+                x.data_ptr(), y.data_ptr(), pconsts.data_ptr(),
+                pints.data_ptr(), tables.data_ptr(), b, plan.p, plan.q,
+                len(ctile.radices), ctile.lines, ctile.line_pitch,
+                ctile.t_log2, ctile.lo, ctile.n_consts, ctile.n_ints,
+                ctile.buf_offset, int(inverse), plan.w_log2, ctile.threads,
+                ctile.smem_bytes, stream)
+        else:
+            pconsts = _radix_constants(plan.p, inverse, cdt, dev)
+            pconsts.record_stream(current)
+            err = getattr(lib, f"repro_fft_split_a_{suffix}")(
+                x.data_ptr(), y.data_ptr(), pconsts.data_ptr(),
+                tables.data_ptr(), b, plan.p, plan.q, int(inverse),
+                ctile.lines.bit_length() - 1, plan.ql_log2,
+                ctile.smem_bytes, stream)
         _raise_on(err, lib, "split pass A", x)
         _count(count_as, "strided", "fourstep")
         # pass B: the Q-long rows, stored transposed at kp + P*kq (radix)
-        # or in place (long-line, then pass C)
+        # or in natural order (long-line or dense, then pass C)
         rtile = split.row_tile(plan, cdt)
         seg_arg = _seg_arg(n, parts)
         twp = tw.data_ptr() if tw is not None else None
@@ -528,20 +550,40 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
             _count(count_as, "lines", variant,
                    split_call=count_as == "split")
             return out
-        qconsts = _long_constants(plan.q, inverse, cdt, dev)
-        qconsts.record_stream(current)
         z = torch.empty_like(y)
-        # the inverse's sign is in the constants; its 1/N waits for pass C
-        err = getattr(lib, f"repro_fft_long_{suffix}")(
-            y.data_ptr(), z.data_ptr(), qconsts.data_ptr(), None,
-            b * plan.p, plan.q, 0, _seg_arg(plan.q, 1), rtile.smem_bytes,
-            stream)
+        if plan.row_path == "dense":
+            # the dense route's own launch, the inverse's 1/Q included;
+            # pass C applies the 1/P
+            qconsts, qints = _dense_constants(plan.q, inverse, cdt, dev)
+            for c in (qconsts, qints):
+                c.record_stream(current)
+            err = getattr(lib, f"repro_fft_dense_{suffix}")(
+                y.data_ptr(), z.data_ptr(), qconsts.data_ptr(),
+                qints.data_ptr(), None, b * plan.p, plan.q,
+                len(rtile.radices), rtile.lines, rtile.t_log2, rtile.lo,
+                rtile.n_consts, rtile.n_ints, rtile.buf_offset,
+                int(inverse), plan.q, rtile.threads, rtile.smem_bytes,
+                stream)
+        else:
+            # the inverse's sign is in the constants; its 1/N waits for
+            # pass C
+            qconsts = _long_constants(plan.q, inverse, cdt, dev)
+            qconsts.record_stream(current)
+            err = getattr(lib, f"repro_fft_long_{suffix}")(
+                y.data_ptr(), z.data_ptr(), qconsts.data_ptr(), None,
+                b * plan.p, plan.q, 0, _seg_arg(plan.q, 1),
+                rtile.smem_bytes, stream)
         _raise_on(err, lib, "split pass B", x)
         _count(count_as, "lines", "fourstep")
         # pass C: (B, P, Q) rows to out[b, kp + P*kq], with the epilogues
-        err = getattr(lib, f"repro_fft_split_c_{suffix}")(
-            z.data_ptr(), buf.data_ptr(), twp, b, plan.p_log2, plan.q,
-            seg_arg, int(inverse), stream)
+        if plan.row_path == "dense":
+            err = getattr(lib, f"repro_fft_split_c_any_{suffix}")(
+                z.data_ptr(), buf.data_ptr(), twp, b, plan.p, plan.q,
+                n // parts, int(inverse), stream)
+        else:
+            err = getattr(lib, f"repro_fft_split_c_{suffix}")(
+                z.data_ptr(), buf.data_ptr(), twp, b, plan.p_log2, plan.q,
+                seg_arg, int(inverse), stream)
     _raise_on(err, lib, "split pass C", x)
     _count(count_as, "lines", variant, split_call=count_as == "split")
     return out
@@ -568,8 +610,14 @@ def _declare(lib) -> None:
                lib.repro_fft_split_b_radix_c128):
         fn.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p]
         fn.restype = i
-    for fn in (lib.repro_fft_split_c_c64, lib.repro_fft_split_c_c128):
+    for fn in (lib.repro_fft_split_c_c64, lib.repro_fft_split_c_c128,
+               lib.repro_fft_split_c_any_c64,
+               lib.repro_fft_split_c_any_c128):
         fn.argtypes = [p, p, p, ll, i, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.repro_fft_split_a_dense_c64,
+               lib.repro_fft_split_a_dense_c128):
+        fn.argtypes = [p, p, p, p, p, ll] + [i] * 14 + [p]
         fn.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -167,8 +167,10 @@ def kernel_path(n: int, dtype: torch.dtype) -> str:
     than one block holds (``split.FACTORS``: two passes through HBM, N =
     P*Q with P a power of two; the measured table and, since the rule,
     every 13-smooth N or r*2^k, r in :data:`WIDE_ODD`, whose Q a radix or
-    long-line row takes: ``split.rule_factors``), "chirp" for every other
-    length the dense route does not take up to the chirp route's limit
+    long-line row takes: ``split.rule_factors``; and every other 13-smooth
+    N past one block: ``split.general_factors``; ``split.takes``), "chirp"
+    for every other length the dense route does not take up to the chirp
+    route's limit
     (``chirp.takes``: Bluestein over the other routes; ``dense.takes``: N
     up to ``dense.DENSE_LIMIT`` whose generic stages cost no more than the
     chirp (``dense.GENERIC_COST``), and the 13-smooth N whose line fits
@@ -179,10 +181,10 @@ def kernel_path(n: int, dtype: torch.dtype) -> str:
     # deferred: longline, split and chirp import this module
     from .chirp import takes
     from .longline import FACTORS as LONG
-    from .split import FACTORS as SPLIT
+    from .split import takes as split_takes
     if n in LONG.get(dtype, {}):
         return "long"
-    if n in SPLIT.get(dtype, {}):
+    if split_takes(n, dtype):
         return "split"
     return "chirp" if takes(n, dtype) else "dense"
 

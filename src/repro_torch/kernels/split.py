@@ -9,9 +9,11 @@ route's up to the same limits; then a rule, :func:`rule_factors`, for
 every other N up to those limits that is 13-smooth or r*2^k, r in
 ``radix.WIDE_ODD``, that no other route takes and whose Q a radix or
 long-line row holds, 23*2^k among them; P a power of two, a mixed N's odd
-part in Q, so the odd codelets run in pass B) is viewed as (P, Q),
-x[p*Q + q], and transformed by the routes one block holds, in two
-launches (three with rows on the long-line route):
+part in Q, so the odd codelets run in pass B; then the general plans,
+:func:`general_factors`, for every other 13-smooth N past one block up to
+those limits) is viewed as (P, Q), x[p*Q + q], and transformed by the
+routes one block holds, in two launches (three with rows on the long-line
+route or the dense kernel):
 
 * pass A — the P-long DFT down every column q (stride Q): the radix
   route's strided entry on the ``(B, P, Q)`` block (outer = B, N = P,
@@ -33,6 +35,19 @@ launches (three with rows on the long-line route):
   each line's (P, Q) rows through shared memory to out[b, kp + P*kq] with the
   line's epilogues.  Storing pass B straight to kp + P*kq took 2.5 times as
   long at 2^24 (3.8 ms against 1.5; PERF.md).
+* The general plans (odd N, N with too few factors of 2 for a P of
+  :data:`COLUMN_SIZES`, Q on no radix or long-line row) put pass B on the
+  dense route's own launch (``fft_dense.cuh``'s ``dense_kernel``: rows of
+  any 13-smooth Q that fits one block, in natural order, the inverse's
+  1/Q included) and pass C on ``split_transpose_any`` (any P and Q,
+  bounds-checked 32 x 32 tiles, the epilogues, the inverse's 1/P); pass A
+  stays on the radix route where N has a P of :data:`COLUMN_SIZES` (its
+  tables within :data:`TABLE_MAX_BYTES`), else runs on the dense
+  kernel's column form (``dense_column_kernel``: a tile of 16, 8 or 4
+  consecutive columns of any 13-smooth P, its inter-step twiddle W_N^e =
+  WA[e mod W] * WB[e div W], W = 2^w_log2 >= sqrt(N)).
+  The dense kernel's chain is run-time data, so no length adds an
+  instantiation.
 
 The inter-step twiddle would be an N-entry table (128 MB at N = 2^24 in
 complex64); it is TA[kp, ql] * TB[kp, qh] with q = qh*QL + ql, QL a power
@@ -44,17 +59,20 @@ read through L2.
 ``radix.emulate`` and ``longline.emulate`` with the same modes and
 :func:`transpose_emulate`; it is the route's plain version
 (``fft_matmul.fft_fourstep_plain`` takes it for these N), and the CPU
-tests hold it against ``np.fft`` and the JAX package's kernel.
+tests hold it against ``np.fft`` and the JAX package's kernel
+(``dense.emulate`` and its ``columns=`` mode for the general plans).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
-from . import longline, radix
+from . import dense, longline, radix
 
 #: The powers of two's (P, Q) per complex dtype, picked by measurement on
 #: an H100 among every (P, Q) the kernel could run, at 512 MB of lines
@@ -231,7 +249,8 @@ def _rule(dtype: torch.dtype) -> dict:
 
 
 #: (P, Q) per length and complex dtype (``radix.kernel_path`` reads this
-#: table): :data:`_TABLE`, then the rule's (:func:`_rule`).
+#: table): :data:`_TABLE`, then the rule's (:func:`_rule`).  Every other
+#: 13-smooth N past one block takes :func:`general_factors`' plan.
 FACTORS = {dtype: {**table, **_rule(dtype)} for dtype, table in _TABLE.items()}
 #: Pass B's lengths on the radix route, each instantiated by the kernel
 #: (``radix_dispatch`` for ``kRadixSplitB``).  Q on the long-line route
@@ -241,12 +260,107 @@ ROW_SIZES = {dtype: tuple(sorted({q for _, q in table.values()
              for dtype, table in FACTORS.items()}
 
 
+#: The largest inter-step twiddle tables (P*(QL + QH) entries) that the
+#: general rule gives a radix pass A: at an odd Q (QL = 1) they hold N
+#: entries, so past this they would no longer sit in L2 beside the lines
+#: (:func:`rule_factors`' largest are 8 MB, and its sweep read them no
+#: slower).
+TABLE_MAX_BYTES = 8 << 20
+
+
+def _divisors(n: int) -> list:
+    """The divisors of a 13-smooth ``n``, ascending."""
+    out = [1]
+    for p in (2, 3, 5, 7, 11, 13):
+        k = 0
+        while n % p == 0:
+            n //= p
+            k += 1
+        out = [d * p ** e for d in out for e in range(k + 1)]
+    return sorted(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_fits(q: int, dtype: torch.dtype) -> bool:
+    """Whether the dense kernel takes rows of ``q`` (13-smooth, one row
+    and its tables in one block) for pass B of a general plan."""
+    return q >= 2 and radix.smooth(q) and dense.fits(q, dtype)
+
+
+def general_candidates(n: int, dtype: torch.dtype) -> list:
+    """Every (P, Q, column route) of a general plan for a 13-smooth N:
+    pass B on dense rows of Q (:func:`_row_fits`), pass A on the radix
+    route at a P of :data:`COLUMN_SIZES` (its inter-step tables within
+    :data:`TABLE_MAX_BYTES`) or on the dense kernel at any P whose column
+    tile fits (``dense.column_plan``); ascending P, radix before dense."""
+    out = []
+    for p in COLUMN_SIZES[dtype]:
+        if n % p == 0 and _row_fits(n // p, dtype):
+            plan = SplitPlan(n, p, n // p, "dense")
+            if plan.const_elems * dtype.itemsize <= TABLE_MAX_BYTES:
+                out.append((p, n // p, "radix"))
+    for p in _divisors(n):
+        if _row_fits(n // p, dtype) and dense.column_plan(p, dtype):
+            out.append((p, n // p, "dense"))
+    return out
+
+
+#: The general rule's P on the dense kernel's columns (the candidate
+#: nearest it, in ratio) and the longest Q it prefers on the dense
+#: kernel's rows, per complex dtype (complex128 half complex64's, the same
+#: bytes).  An H100 sweep of every candidate family forced on the same
+#: lines (``scripts/route_times.py splitgen``: 40 lengths, up to 14 dense
+#: and every radix pass A each; PERF.md §6) read the best dense P at 150 to
+#: 700 while Q stays at or below about 7500 (rows past it: 10-30% slower),
+#: small P far slower (P = 2: 8.4 ms against 0.79), and the radix pass A
+#: at its least P, where it ran, level with or ahead of every dense one.
+GENERAL_P = {torch.complex64: 400, torch.complex128: 200}
+GENERAL_Q_MAX = {torch.complex64: 7500, torch.complex128: 3750}
+
+
+@functools.lru_cache(maxsize=None)
+def general_factors(n: int, dtype: torch.dtype) -> Optional[tuple]:
+    """(P, Q, column route) of the general rule: every 13-smooth N up to
+    :data:`LIMIT` that no other route takes (the radix and long-line
+    routes' lengths, :data:`FACTORS`', and the lines of one block that
+    ``dense.takes``), on dense rows (pass B on the dense kernel, then pass
+    C).  Of the candidates (:func:`general_candidates`): a radix pass A
+    where there is one, at its least P whose Q is at most
+    :data:`GENERAL_Q_MAX`, else at its shortest Q; else the dense P whose
+    Q is at most that nearest :data:`GENERAL_P` in ratio (the less of two
+    as near), else the shortest Q.  None where N is not such a length or
+    has no plan."""
+    if (dtype not in LIMIT or n > LIMIT[dtype] or not radix.smooth(n)
+            or n in FACTORS[dtype] or n in longline.FACTORS[dtype]
+            or n in radix.RADIX_SIZES[dtype] or dense.takes(n, dtype)):
+        return None
+    cands = general_candidates(n, dtype)
+    if not cands:
+        return None
+    qmax, target = GENERAL_Q_MAX[dtype], GENERAL_P[dtype]
+    family = [c for c in cands if c[2] == "radix"] or cands
+    fits = [c for c in family if c[1] <= qmax]
+    if not fits:
+        return min(family, key=lambda c: c[1])
+    if family[0][2] == "radix":
+        return fits[0]
+    return min(fits, key=lambda c: (abs(math.log(c[0] / target)), c[0]))
+
+
+def takes(n: int, dtype: torch.dtype) -> bool:
+    """Whether the split route takes lines of ``n``: :data:`FACTORS`'
+    lengths and the general rule's (:func:`general_factors`)."""
+    return (n in FACTORS.get(dtype, {})
+            or general_factors(n, dtype) is not None)
+
+
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
     n: int
-    p: int              # pass A's length (columns, strided radix entry)
+    p: int              # pass A's length (columns)
     q: int              # pass B's length (rows)
-    row_path: str       # "radix" or "long": pass B's route
+    row_path: str       # "radix", "long" or "dense": pass B's route
+    col_path: str = "radix"     # "radix" or "dense": pass A's route
 
     @property
     def p_log2(self) -> int:
@@ -270,35 +384,55 @@ class SplitPlan:
 
     @property
     def const_elems(self) -> int:
-        """TA (P x QL) then TB (P x QH)."""
+        """TA (P x QL) then TB (P x QH); on a dense pass A, WA (2^w_log2)
+        then WB (N / 2^w_log2, rounded up)."""
+        if self.col_path == "dense":
+            return (1 << self.w_log2) + -(-self.n >> self.w_log2)
         return self.p * (self.ql + self.qh)
+
+    @property
+    def w_log2(self) -> int:
+        """log2 of W, WA's length on a dense pass A: W >= sqrt(N)."""
+        return ((self.n - 1).bit_length() + 1) // 2
 
 
 def split_plan(n: int, dtype: torch.dtype) -> SplitPlan:
     """The plan of a length the split route takes, with its (P, Q) from
-    :data:`FACTORS` (the measured table's, else the rule's)."""
+    :data:`FACTORS` (the measured table's, else the rule's), else the
+    general rule's (:func:`general_factors`)."""
     factors = FACTORS.get(dtype, {}).get(n)
-    if factors is None:
+    if factors is not None:
+        p, q = factors
+        row_path = "long" if q in longline.FACTORS[dtype] else "radix"
+        return SplitPlan(n, p, q, row_path)
+    general = general_factors(n, dtype)
+    if general is None:
         raise ValueError(
             f"the split route takes N in split.FACTORS "
             f"({len(FACTORS.get(dtype, {}))} lengths up to "
             f"{LIMIT.get(dtype)} for {dtype}: the measured table's and "
-            f"rule_factors'), got {n}")
-    p, q = factors
-    row_path = "long" if q in longline.FACTORS[dtype] else "radix"
-    return SplitPlan(n, p, q, row_path)
+            f"rule_factors') and every other 13-smooth N past one block "
+            f"up to that limit (general_factors), got {n}")
+    p, q, col_path = general
+    return SplitPlan(n, p, q, "dense", col_path)
 
 
-def column_tile(plan: SplitPlan, dtype: torch.dtype) -> radix.RadixTile:
-    """Pass A's tile: the strided radix tile of P (no staged twiddle)."""
+def column_tile(plan: SplitPlan, dtype: torch.dtype):
+    """Pass A's tile: the strided radix tile of P (no staged twiddle), or
+    the dense kernel's column tile (``dense.column_plan``)."""
+    if plan.col_path == "dense":
+        return dense.column_plan(plan.p, dtype)
     return radix.radix_tile(plan.p, dtype.itemsize, False, True)
 
 
 def row_tile(plan: SplitPlan, dtype: torch.dtype):
     """Pass B's tile: the radix route's tile of Q on lines (the output
-    twiddle is read from L2, not staged), or the long-line route's."""
+    twiddle is read from L2, not staged), the long-line route's, or the
+    dense kernel's (``dense.dense_plan``)."""
     if plan.row_path == "long":
         return longline.long_tile(plan.q, dtype)
+    if plan.row_path == "dense":
+        return dense.dense_plan(plan.q, dtype)
     return radix.radix_tile(plan.q, dtype.itemsize, False, False)
 
 
@@ -315,8 +449,16 @@ def _w(n: int, e: np.ndarray, sign: float) -> np.ndarray:
 def constants(plan: SplitPlan, inverse: bool) -> np.ndarray:
     """TA[kp, ql] = W_N^(kp*ql) and TB[kp, qh] = W_N^(kp*qh*QL), row-major,
     one complex128 array built in float64: TA*TB is the inter-step
-    twiddle W_N^(kp*q) of pass A."""
+    twiddle W_N^(kp*q) of pass A.  On a dense pass A, WA[i] = W_N^i, i <
+    W, then WB[i] = W_N^(i*W), W = 2^w_log2: W_N^e = WA[e mod W] *
+    WB[e div W]."""
     sign = 1.0 if inverse else -1.0
+    if plan.col_path == "dense":
+        w = 1 << plan.w_log2
+        return np.concatenate([
+            _w(plan.n, np.arange(w, dtype=np.float64), sign),
+            _w(plan.n, np.arange(-(-plan.n // w), dtype=np.float64) * w,
+               sign)])
     kp = np.arange(plan.p, dtype=np.float64)[:, None]
     ql = np.arange(plan.ql, dtype=np.float64)[None, :]
     qh = np.arange(plan.qh, dtype=np.float64)[None, :]
@@ -333,15 +475,31 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     contiguous ``(B, N)``.  Returns what the kernels write: ``(B, N)``, or
     the ``(p, B, N/p)`` buffer with ``pack_parts``."""
     b, n = x.shape
-    plan = split_plan(n, x.dtype)
+    return emulate_plan(x, split_plan(n, x.dtype), inverse=inverse,
+                        twiddle=twiddle, pack_parts=pack_parts)
+
+
+def emulate_plan(x: torch.Tensor, plan: SplitPlan, *, inverse: bool = False,
+                 twiddle: Optional[torch.Tensor] = None,
+                 pack_parts: Optional[int] = None) -> torch.Tensor:
+    """:func:`emulate` with the plan given (a forced (P, Q) too)."""
+    b = x.shape[0]
     tables = torch.from_numpy(constants(plan, inverse)).to(x.device, x.dtype)
-    y = radix.emulate(x.reshape(b, plan.p, plan.q), inverse=inverse,
-                      strided=True, split_twiddle=(tables, plan.ql_log2))
+    block = x.reshape(b, plan.p, plan.q)
+    if plan.col_path == "dense":
+        y = dense.emulate(block, inverse=inverse,
+                          columns=(tables, plan.w_log2))
+    else:
+        y = radix.emulate(block, inverse=inverse, strided=True,
+                          split_twiddle=(tables, plan.ql_log2))
     rows = y.reshape(b * plan.p, plan.q)
     if plan.row_path == "radix":
         return radix.emulate(rows, inverse=inverse, twiddle=twiddle,
                              pack_parts=pack_parts, rows_per_line=plan.p)
-    z = longline.emulate(rows, inverse=inverse, scaled=False)
+    if plan.row_path == "dense":
+        z = dense.emulate(rows, inverse=inverse)
+    else:
+        z = longline.emulate(rows, inverse=inverse, scaled=False)
     return transpose_emulate(z, plan, inverse=inverse, twiddle=twiddle,
                              pack_parts=pack_parts)
 
@@ -352,8 +510,8 @@ def transpose_emulate(z: torch.Tensor, plan: SplitPlan, *,
                       pack_parts: Optional[int] = None) -> torch.Tensor:
     """Pass C in torch: ``z`` holds B lines of (P, Q) rows z[b, kp, kq];
     out[b, kp + P*kq] = z[b, kp, kq] times ``twiddle[kp + P*kq]``, times
-    1/N when ``inverse``, stored as the kernel stores it: ``(B, N)`` or
-    the ``(p, B, N/p)`` buffer."""
+    the inverse's 1/N (after dense rows, which applied 1/Q: 1/P), stored
+    as the kernel stores it: ``(B, N)`` or the ``(p, B, N/p)`` buffer."""
     n, dev, cdt = plan.n, z.device, z.dtype
     b = z.numel() // n
     kp = torch.arange(plan.p, device=dev)[:, None]
@@ -362,7 +520,8 @@ def transpose_emulate(z: torch.Tensor, plan: SplitPlan, *,
     y = z.reshape(b, plan.p, plan.q)
     if twiddle is not None:
         y = y * twiddle.to(dev, cdt).reshape(-1)[of]
-    y = y * (1.0 / n if inverse else 1.0)
+    if inverse:
+        y = y * (1.0 / (plan.p if plan.row_path == "dense" else n))
     parts = pack_parts or 1
     seg = n // parts
     line = torch.arange(b, device=dev)[:, None, None]

@@ -5,8 +5,8 @@ radix, long-line or split route, the chirps in their ``twiddle``
 epilogues.  Its plain version, ``chirp.emulate`` (the wrapper runs it for
 CPU tensors), runs the same steps over the inner routes' plain versions;
 it is held against ``np.fft`` (complex64 N of 7424 = 29*256, M on the
-long-line route, the prime 10007 and 29106 = 2*14553, M on the split
-route; complex128 N of 3001 and 3712 = 29*128; both directions, the
+long-line route, the prime 10007, M on the split route; complex128 N
+of 3001 and 3712 = 29*128; both directions, the
 twiddle and ``pack_parts`` epilogues) and against the JAX package's
 Pallas kernel in interpret mode on the same numpy inputs where the
 reference factors N (7424, 29106 and 3712), at the reference's
@@ -14,7 +14,8 @@ tolerances (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64,
 1e-12 in complex128); so are 4864 = 19*256, 5888 = 23*256 and
 complex128 2432 = 19*128 and 2944 = 23*128, which the chirp held until
 the radix-19 and radix-23 codelets, on the long-line route now, and
-33792 = 33*2^10, on the split route's rule now.
+33792 = 33*2^10, on the split route's rule now, and 29106 =
+2*14553, on the split route's general plans now.
 Then the chirp tables' phase at large N, the routing by length, the line
 copies, the gradient, and ``fft_conv`` at S = 2432 (lines of 4864, the
 long-line route now, the chirp before) and S = 2880 (lines of 5760 = 30
@@ -28,9 +29,8 @@ and long-line routes up to a 128 KB line and the dense route to one
 block, so the chirp keeps the lengths whose generic stages cost the
 dense route more (``dense.GENERIC_COST``) and, past the dense route's
 old limit, any prime
-factor from 17 that no codelet takes, and the 13-smooth lengths whose
-line does not fit one block and that the split route's rule leaves
-(29106, with one factor of 2).
+factor from 17 that no codelet takes (since the split route's general
+plans no 13-smooth length).
 The CUDA launches are tested in ``test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 import dataclasses
@@ -60,12 +60,13 @@ LENGTHS = [(torch.complex64, 4864), (torch.complex64, 10007),
 #: The lengths above that the chirp held until the radix-19 and radix-23
 #: codelets moved them to the long-line route (19 x 16 x 16, 19 x 8 x 16,
 #: 23 x 16 x 16 and 23 x 8 x 16) or the split route's rule did (33792 =
-#: 256 x 132), where the wrapper's plain version is ``longline.emulate``
-#: or ``split.emulate``; the rest stay here: 7424 = 29*256 and complex128
-#: 3712 = 29*128 (M on the long-line route, as 5888 and 2944 had it) and
-#: 29106 (M = 65536 on the split route, as 33792 had it).
+#: 256 x 132) or its general plans did (29106 = 882 x 33), where the
+#: wrapper's plain version is ``longline.emulate`` or ``split.emulate``;
+#: the rest stay here: 7424 = 29*256 and complex128 3712 = 29*128 (M on
+#: the long-line route, as 5888 and 2944 had it) and the prime 10007 (M
+#: on the split route).
 ROUTE = {4864: "long", 2432: "long", 5888: "long", 2944: "long",
-         33792: "split"}
+         33792: "split", 29106: "split"}
 CASES = [(dtype, n, b, inv, tw, parts if n % 2 == 0 else None)
          for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
 #: Where the reference's four-step factors N: at a prime N it is one
@@ -218,7 +219,8 @@ def test_chirp_filter_is_the_transformed_conjugate_chirp():
     (2944, torch.complex128, "long"), (521, torch.complex64, "chirp"),
     (816, torch.complex64, "dense"), (19 << 19, torch.complex64, "split"),
     (7424, torch.complex64, "chirp"), (3712, torch.complex128, "chirp"),
-    (29106, torch.complex64, "chirp"), (33 << 18, torch.complex64, "split"),
+    (29106, torch.complex64, "split"), (20011, torch.complex64, "chirp"),
+    (8388617, torch.complex64, "dense"), (33 << 18, torch.complex64, "split"),
     (23 << 19, torch.complex64, "split"), (23 << 17, torch.complex128,
                                             "split")])
 def test_chirp_routing_by_length(n, dtype, path):
@@ -227,16 +229,17 @@ def test_chirp_routing_by_length(n, dtype, path):
     limit (complex64 4835, complex128 2419) generic stages that cost the
     dense route more (``dense.GENERIC_COST``: 4835 = 5*967, the primes
     521 and 4831); past it a prime factor from 17 that no codelet takes
-    (4836 = 4*3*13*31, 7424 = 29*256, 10007, complex128 2421 = 9*269,
-    3712 = 29*128) or a 13-smooth line past one block that the split
-    route's rule leaves (29106 = 2*14553: one factor of 2, no P).  The
-    dense route keeps the lengths to that limit whose
+    (4836 = 4*3*13*31, 7424 = 29*256, 10007, 20011, complex128 2421 =
+    9*269, 3712 = 29*128); since the split route's general plans no
+    13-smooth line past one block (29106 = 2*14553, one factor of 2, is
+    split).  The dense route keeps the lengths to that limit whose
     generic stages cost it less (816 = 17*48, complex128 2419 = 41*59)
     and takes the
     13-smooth lengths past it whose line fits one block (complex128 2420
     = 4*5*11^2 and 8448, complex64 5460 = 4*1365, 16896 = 33*512 and
     23040 = 45*512, past the long-line route's 128 KB line); beyond the
-    chirp's limit the dense route raises with a message naming it.  The
+    chirp's limit the dense route raises on a prime factor past 13 (the
+    prime 8388617, 2^23 + 1 = 3*2796203) with a message naming it.  The
     long-line route takes 45*2^k (5760 = 30 x 12 x 16, 11520) and 35*2^7
     = 4480 up to its line, 5000 = 25 x 25 x 8 too, and 19*2^k since the
     radix-19 codelet (4864 = 19 x 16 x 16, complex128 2432 = 19 x 8 x

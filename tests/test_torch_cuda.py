@@ -356,7 +356,7 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
     (torch.complex64, 7424, 3, False, None, True),      # M on long-line
     (torch.complex64, 7424, 2, True, 4, False),
     (torch.complex64, 10007, 2, True, None, True),      # prime, M split
-    (torch.complex64, 29106, 1, False, 2, True),        # past one block
+    (torch.complex64, 20011, 1, False, None, True),     # prime, M split
     (torch.complex128, 3001, 2, False, None, True),
     (torch.complex128, 3712, 1, True, 29, False),
     (torch.complex64, 521, 5, False, None, True),       # M on radix
@@ -673,6 +673,58 @@ def test_cuda_split_rule_lengths_match_plain_version_and_torch_fft(
         assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
         assert_scaled_close(got.cpu().numpy(), (lib * tw).reshape(
             b, 2, n // 2).cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,b", [
+    (torch.complex64, 33075, 3),        # odd: a dense pass A
+    (torch.complex64, 96000, 2),        # 256 x 375: a radix pass A
+    (torch.complex64, 3 ** 15, 1),      # past the chirp's limit
+    (torch.complex128, 4084223, 1)])    # past it, a column tile of 4
+def test_cuda_split_general_plans_match_plain_version_and_torch_fft(
+        cuda, dtype, n, b):
+    """The split route's general plans (``split.general_factors``): one
+    split call of 3 launches on "split" (pass A strided, the dense
+    kernel's rows and pass C on lines), both directions with both
+    epilogues (segments of N/r, r the least prime factor of N) against
+    the plain version (``split.emulate``) and ``torch.fft`` at the
+    kernel's tolerances; then the first candidate plan of each pass A
+    route (``split.general_candidates``) forced, against
+    ``split.emulate_plan``."""
+    from repro_torch.kernels import split
+    assert radix.kernel_path(n, dtype) == "split"
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    x = torch.from_numpy(cplx((b, n), n)).to(cuda, dtype)
+    tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
+                   / (2 * n)).to(dtype)
+    parts = next(r for r in (2, 3, 5, 7, 11, 13) if n % r == 0)
+    for inverse in (False, True):
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+        for t, p in ((None, None), (tw, parts)):
+            tfm.reset_launch_counts()
+            got = tfm.fft_fourstep(x, inverse=inverse, twiddle=t,
+                                   pack_parts=p)
+            torch.cuda.synchronize()
+            counts = tfm.launch_counts()
+            assert counts["launches"] == counts["split"] == 3, counts
+            assert counts["strided"] == 1 and counts["split_calls"] == 1
+            want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=t,
+                                          pack_parts=p)
+            ref = lib if t is None else (lib * t).reshape(b, p, n // p)
+            assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+            assert_scaled_close(got.cpu().numpy(), ref.cpu().numpy(), 2e-4)
+    for col in ("radix", "dense"):
+        cand = next((c for c in split.general_candidates(n, dtype)
+                     if c[2] == col), None)
+        if cand is None:
+            continue
+        plan = split.SplitPlan(n, cand[0], cand[1], "dense", col)
+        got = tfm._launch_split(x, tw, inverse=True, pack_parts=parts,
+                                plan=plan)
+        want = split.emulate_plan(x, plan, inverse=True, twiddle=tw,
+                                  pack_parts=parts)
+        assert_scaled_close(got.transpose(0, 1).cpu().numpy(),
+                            want.cpu().numpy(), tol)
 
 
 @pytest.mark.cuda

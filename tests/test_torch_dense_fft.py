@@ -198,9 +198,10 @@ def test_dense_route_takes_the_smooth_lines_that_fit_one_block(
     "dense" while its generic stages cost no more than the chirp route
     (``dense.GENERIC_COST``) and takes the chirp route past it; past the limit the route takes exactly
     the 13-smooth N that no other route takes and whose line and tables
-    fit one block (``dense.fits``), and the chirp route every other N up
-    to its limit: no N with a prime factor past 13 leaves the chirp
-    there, and none of the radix, long-line and split lengths moves."""
+    fit one block (``dense.fits``), the split route's general plans the
+    other 13-smooth N, and the chirp route every other N up to its limit:
+    no N with a prime factor past 13 leaves the chirp there, and none of
+    the radix, long-line and split lengths moves."""
     from repro_torch.kernels import longline, split
     limit = dense.DENSE_LIMIT[dtype]
     taken = []
@@ -218,6 +219,8 @@ def test_dense_route_takes_the_smooth_lines_that_fit_one_block(
         elif radix.smooth(n) and dense.fits(n, dtype):
             assert path == "dense", n
             taken.append(n)
+        elif radix.smooth(n):
+            assert path == "split" and not chirp.takes(n, dtype), n
         else:
             assert path == "chirp" and chirp.takes(n, dtype), n
     assert len(taken) == count and taken[0] == first and taken[-1] == last

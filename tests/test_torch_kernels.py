@@ -341,7 +341,7 @@ def test_kernel_operands_are_resolved():
     (2944, torch.complex128, "long"), (23 << 10, torch.complex64, "split"),
     (23 << 19, torch.complex64, "split"), (33 << 18, torch.complex64, "split"),
     (7424, torch.complex64, "chirp"), (3712, torch.complex128, "chirp"),
-    (29106, torch.complex64, "chirp")])
+    (29106, torch.complex64, "split"), (20011, torch.complex64, "chirp")])
 def test_kernel_path_selection(n, dtype, path):
     """The path follows N and the dtype alone: N with a radix
     instantiation (powers of two, and mixed r*2^k such as 24, 96 and
@@ -351,9 +351,9 @@ def test_kernel_path_selection(n, dtype, path):
     (complex128) the split route, every other N up to half those that
     the dense route does not take (the primes 521 and 4831, whose generic
     stage costs more than the chirp, ``dense.GENERIC_COST``; 7424 =
-    29*2^8, complex128 3712 = 29*2^7; 29106 = 2*14553, 13-smooth, a line
-    past one block whose single factor of 2 no split P takes) the chirp
-    route, every
+    29*2^8, complex128 3712 = 29*2^7, the prime 20011) the chirp route
+    (29106 = 2*14553, 13-smooth, a line past one block whose single
+    factor of 2 no radix P takes, the split route's general plans), every
     other N the dense one: every N up to the old dense kernel's limit
     (complex64 4835, complex128 2419) whose generic stages cost less
     (816 = 17*48), and

@@ -34,7 +34,7 @@ import torch
 from repro.kernels import fft_matmul as jfm
 from repro_torch.kernels import fft_matmul as tfm
 from repro_torch.core.transforms import factorize
-from repro_torch.kernels import dense, longline, ops, radix
+from repro_torch.kernels import dense, longline, ops, radix, split
 from torch_harness import (assert_scaled_close, dense_keeps,
                            pallas_lines_c128)
 
@@ -339,6 +339,11 @@ def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
             assert n <= dense.DENSE_LIMIT[dtype] and not dense_keeps(
                 n, dense.GENERIC_COST[dtype], dense.MOVE_MARGIN), (
                     n, path, old)
+        elif path != old and path == "split":
+            # since the split route's general plans took the other
+            # 13-smooth lines past one block from the chirp
+            assert old == "chirp" and radix.smooth(n) and \
+                split.general_factors(n, dtype), (n, path, old)
         elif path != old:
             # since the dense route took the 13-smooth lines that fit one
             # block from the chirp
@@ -471,10 +476,11 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
     "dense" (7*2^k, 11*2^k, 13*2^k, 17*2^k, 19*2^k, 21*2^k, 23*2^k,
     25*2^k and 27*2^k included: complex64 13*2^20, 19*2^19, 23*2^19 and
     complex128 13*2^18, 19*2^17, 23*2^17, past the chirp's limits, run);
-    a prime and 29*2^k past the dense route's old limit stay "chirp", and
-    so does a 13-smooth line past one block that no split P holds (29106
-    = 2*14553; 45*2^9, past the 128 KB line but within one block, is
-    "dense", and 45*2^10 = 256 x 180 "split" by the split route's rule);
+    a prime and 29*2^k past the dense route's old limit stay "chirp"; a
+    13-smooth line past one block that no radix P holds is "split" by
+    the general plans (29106 = 2*14553; 45*2^9, past the 128 KB line but
+    within one block, is "dense", and 45*2^10 = 256 x 180 "split" by the
+    split route's rule);
     19*2^k and 23*2^k, the chirp's before the radix-19 and radix-23
     codelets, are "long" (4864, 5888, complex128 2432, 2944)."""
     for dtype, (lo, hi, top) in {
@@ -490,9 +496,10 @@ def test_every_mixed_length_past_the_radix_route_goes_long_then_split():
     assert radix.kernel_path(13 << 20, torch.complex64) == "split"
     assert radix.kernel_path(13 << 18, torch.complex128) == "split"
     for n, dtype in ((7424, torch.complex64), (10007, torch.complex64),
-                     (29106, torch.complex64), (3712, torch.complex128),
+                     (20011, torch.complex64), (3712, torch.complex128),
                      (3001, torch.complex128)):
         assert radix.kernel_path(n, dtype) == "chirp"
+    assert radix.kernel_path(29106, torch.complex64) == "split"
     assert radix.kernel_path(46080, torch.complex64) == "split"
     assert radix.kernel_path(5888, torch.complex64) == "long"
     assert radix.kernel_path(2944, torch.complex128) == "long"

@@ -406,9 +406,9 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
     R2 both mixed: ``longline.rule_factors``): their longer r*2^k run the
     dense route while the line fits one block (``dense.fits``: 33*2^9 =
     16896 in complex64), then the split route where its rule finds a P
-    and a Q (``split.rule_factors``: 33*2^10 = 256 x 132), else the chirp
-    route up to its limit, and past it the dense route again, which
-    raises on the card."""
+    and a Q (``split.rule_factors``: 33*2^10 = 256 x 132), else its
+    general plans (``split.general_factors``) up to its limit, 2^24 /
+    2^22, past which the dense route raises on the card."""
     cap = radix.CODELET_MAX[dtype]
     on_radix = []
     for k in range(1, 24):
@@ -432,10 +432,12 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
         elif n <= split.LIMIT[dtype] and split.rule_factors(n, dtype):
             assert path == "split", (n, path)
             assert split.FACTORS[dtype][n] == split.rule_factors(n, dtype)
-        elif n > chirp.max_length(dtype):
-            assert path == "dense", (n, path)
+        elif n <= split.LIMIT[dtype]:
+            assert path == "split" and split.general_factors(n, dtype), (
+                n, path)
         else:
-            assert path == "chirp", (n, path)
+            assert path == "dense" and n > chirp.max_length(dtype), (
+                n, path)
     assert on_radix == [r << k for k in range(1, 24)
                         if max(factorize(r << k)) <= cap
                         and (r << k) not in radix._SPILLS[dtype]]

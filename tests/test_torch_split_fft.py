@@ -229,7 +229,7 @@ def test_split_plan_rejects_other_lengths_and_factors():
     factors and no others (the plan takes no factors of its own)."""
     for n, dtype in ((16384, torch.complex64), (1 << 25, torch.complex64),
                      (8192, torch.complex128), (1 << 23, torch.complex128),
-                     (29106, torch.complex64)):
+                     (20011, torch.complex64)):
         with pytest.raises(ValueError, match="split route takes N"):
             split.split_plan(n, dtype)
     for dtype, table in split.FACTORS.items():

@@ -237,11 +237,11 @@ def test_rule_leaves_the_other_routes_alone(dtype):
     to the longest line the dense route holds keeps the dense route where
     ``dense.takes`` holds it (and no radix, long-line or measured split
     length does);
-    the measured table keeps its plans; what the rule cannot hold stays on
-    the chirp up to its limit (odd N such as 98415 = 3^9*5, N with one
-    factor of 2 such as 29106 = 2*14553, Q that no row fits: 30976 = 256
-    x 121, complex128 62720 = 64 x 980, 980 = 28 x 35 past its codelets)
-    and raises past it (dense)."""
+    the measured table keeps its plans; what the rule cannot hold (odd N
+    such as 98415 = 3^9*5, N with one factor of 2 such as 29106 =
+    2*14553, Q that no row fits: 30976 = 256 x 121, complex128 62720 =
+    64 x 980, 980 = 28 x 35 past its codelets) takes the split route's general plans (``split.general_factors``);
+    past the split route's limit (3^15*2) N raises (dense)."""
     for n, pq in split._TABLE[dtype].items():
         assert split.FACTORS[dtype][n] == pq
     top = 28431 if dtype == c64 else 14196
@@ -254,8 +254,9 @@ def test_rule_leaves_the_other_routes_alone(dtype):
             assert n not in split.FACTORS[dtype]
     for n in (29106, 3 ** 9 * 5, 30976 if dtype == c64 else 62720):
         assert split.rule_factors(n, dtype) is None
-        assert radix.kernel_path(n, dtype) == "chirp", n
-    # past the chirp's limit, no (P, Q): the dense route raises
+        assert split.general_factors(n, dtype) is not None
+        assert radix.kernel_path(n, dtype) == "split", n
+    # past the split route's limit, no (P, Q): the dense route raises
     n = 3 ** 15 * 2
     assert n > chirp.max_length(dtype) and split.rule_factors(n, dtype) is None
     assert radix.kernel_path(n, dtype) == "dense"
