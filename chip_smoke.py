@@ -31,8 +31,8 @@ its result line):
    factor past 13 that ``dense.GENERIC_COST`` keeps and such primes, the
    13-smooth lengths past the old one-block limit; both dtypes,
    directions and epilogues, ragged batches, also against ``torch.fft``),
-   chirp lengths of its three inner routes (M on the radix route for the
-   primes that left the dense route), and
+   chirp lengths of both routes of its M (the dense route's kernel and a
+   split plan), and
    strided ``(outer, N, inner)`` blocks through ``fft_fourstep_strided``
    (inner of one tile, 512, ragged 1000, 262144; every mixed length whose
    strided tile fits one block, against ``torch.fft`` too);
@@ -172,7 +172,10 @@ its result line):
     route or the dense kernel's column form) at complex64 29106, 30976,
     33075, 44100, 96000, 10^6, 13^6, complex128 14406 (256 MB) and
     complex64 10^7, 3^15, complex128 2278125, 4084223 (512 MB; they raised
-    before), likewise (one split call of 3 launches), within 2e-4 of
+    before), and past the split route's old limit its nested plans (rows
+    on their own route) at complex64 3^16, 2^25 and complex128 2^23 (512
+    MB; they raised before), likewise (one split call of 3 launches, more
+    where a nested plan's rows run on the split route), within 2e-4 of
     ``torch.fft``, the inverse with both epilogues against the plain
     version, and one gradient through ``LineTransform``; ``[mixed_long_plan]``:
     ``plan_fft`` C2C of (128, 128, 6144) complex64 on the kernel against
@@ -181,19 +184,26 @@ its result line):
     plan; then likewise one face of the LLC4320 ocean grid, (4320, 4320)
     complex64 (4320 = 30 x 9 x 16): 2 long launches per direction, no
     dense or chirp launch, 2 line copies forward and 1 inverse;
-    ``[chirp]``: the chirp route (Bluestein over two transforms of M on
-    the radix, long-line or split route) at lengths no other route takes,
-    complex64 7424, 10007, 20011, the prime 4831 and complex128 3001,
-    3712, 256 MB
-    each, once through ``ops.fft1d`` (one chirp call, its launches on
-    "chirp"), against its plain version and within 2e-4 of ``torch.fft``,
-    timed beside ``torch.fft`` and the bound, the glue's ms apart;
+    ``[chirp]``: the chirp route (Bluestein over two transforms of M,
+    the cheapest 13-smooth length from 2N - 1, on the dense route's
+    kernel, the long-line route or a split plan, the input's chirp in the
+    first one's load and the first N kept by the second one's store) at
+    lengths no other route
+    takes, complex64 7424, 10007, 20011, the prime 4831 and complex128
+    3001, 3712, 256 MB each, and past the chirp's old limit complex64
+    8388617, 2^24 + 1 and complex128 2^21 + 1, 512 MB each, once through
+    ``ops.fft1d`` (one chirp call, its launches on "chirp", 2 where M is
+    on the dense route's kernel or the long-line route), against its
+    plain version and within
+    2e-4 of ``torch.fft``, the inverse with both epilogues (no line copy),
+    timed beside ``torch.fft`` and the bound;
     ``[gaps]``: likewise on the dense route at the lengths it had with
     the widest gaps (complex64 2730, 3430, 4050 and the odd 4725,
     complex128 990), the 13-smooth lengths it took from the chirp
     (complex64 16896, 23040, complex128 8448) and its generic stage
-    (complex64 3264 = 3*17*64, 1616 = 101*16, complex128 1824 = 3*19*32),
-    256 MB each, one dense launch each; then
+    (complex64 3264 = 3*17*64, complex128 1824 = 3*19*32), and complex64
+    1616 = 101*16, on the chirp since the refit, 256 MB each, one dense
+    launch each (two chirp launches at 1616); then
     ``[lm_fftconv]``: the FFT long-convolution mixer at jamba-v0.1-52b's
     width (8192 channels), B=1, S=2048, 3072, 3584, 4096, 8192, 12288,
     16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of ``"cufft"``
@@ -353,13 +363,21 @@ def ptxas_report(log: str) -> list:
                            r"Li(\d+)E", name)
             lm = re.search(r"long_mixed_kernelI([fd])Li(\d+)ELi(\d+)E"
                            r"Li(\d+)E", name)
-            tr = re.search(r"split_transpose(_mixed|_any)?_kernelI([fd])E",
-                           name)
-            ds = re.search(r"dense_column_kernelI([fd])E", name)
+            tr = re.search(r"split_transpose(_mixed|_any|_keep)?_kernelI"
+                           r"([fd])E", name)
+            ds = re.search(r"dense_column(_chirp)?_kernelI([fd])E", name)
+            dc = re.search(r"dense_chirp_kernelI([fd])E", name)
+            lc = re.search(r"long_chirp_kernelI([fd])Li(\d+)ELi(\d+)E"
+                           r"Li(\d+)ELi(\d+)ELi(\d)E", name)
             if r:
                 dt = "complex64" if r.group(1) == "f" else "complex128"
                 name = (f"radix {dt} N1={r.group(2)} N2={r.group(3)}"
                         f"{modes[r.group(4)]}")
+            elif lc:
+                dt = "complex64" if lc.group(1) == "f" else "complex128"
+                name = (f"chirp long {dt} {lc.group(2)}x{lc.group(3)}x"
+                        f"{lc.group(4)} ring {lc.group(5)} fold "
+                        f"{'in' if lc.group(6) == '1' else 'out'}")
             elif lg:
                 dt = "complex64" if lg.group(1) == "f" else "complex128"
                 name = (f"long {dt} {lg.group(2)}x{lg.group(3)}x"
@@ -375,7 +393,12 @@ def ptxas_report(log: str) -> list:
                         + (" " + tr.group(1)[1:] if tr.group(1) else ""))
             elif ds:
                 name = ("dense columns "
-                        + ("complex64" if ds.group(1) == "f"
+                        + ("complex64" if ds.group(2) == "f"
+                           else "complex128")
+                        + (" chirp" if ds.group(1) else ""))
+            elif dc:
+                name = ("dense chirp "
+                        + ("complex64" if dc.group(1) == "f"
                            else "complex128"))
             elif "dense_kernel" in name:
                 name = ("dense " + ("complex64" if "dense_kernelIfE" in name
@@ -412,6 +435,7 @@ def phase_build(timer=time.perf_counter) -> dict:
     long_entries = [e for e in report if e["kernel"].startswith("long")]
     split_entries = [e for e in report if e["kernel"].startswith("split")]
     dense_entries = [e for e in report if e["kernel"].startswith("dense")]
+    chirp_entries = [e for e in report if e["kernel"].startswith("chirp")]
     if lib.log:   # an earlier build reused from disk prints no report
         from repro_torch.kernels import longline, radix, split
         plain = sum(len(sizes) for sizes in radix.RADIX_SIZES.values())
@@ -425,14 +449,21 @@ def phase_build(timer=time.perf_counter) -> dict:
         check(len(long_entries) == want, f"{len(long_entries)} long-line "
               f"instantiations in the ptxas report, expected {want} (5 "
               f"powers of two, the rest mixed lengths)")
-        check(len(split_entries) == 6, f"{len(split_entries)} split "
-              f"transpose instantiations in the ptxas report, expected 6 "
-              f"(a power-of-two, a mixed and any Q per dtype)")
-        check(len(dense_entries) == 4, f"{len(dense_entries)} dense "
-              f"instantiations in the ptxas report, expected 4 (per "
+        check(len(split_entries) == 8, f"{len(split_entries)} split "
+              f"transpose instantiations in the ptxas report, expected 8 "
+              f"(a power-of-two, a mixed and any Q per dtype, and the "
+              f"chirp's pass C that keeps the first N)")
+        want = 2 * sum(len(sizes) for sizes in longline.FOLD_SIZES.values())
+        check(len(chirp_entries) == want, f"{len(chirp_entries)} long-line "
+              f"instantiations of the chirp's folded load and store, "
+              f"expected {want} (two per length of longline.FOLD_SIZES)")
+        check(len(dense_entries) == 8, f"{len(dense_entries)} dense "
+              f"instantiations in the ptxas report, expected 8 (per "
               f"dtype, for every length: the dense route's, the split "
-              f"route's columns)")
-    for e in radix_entries + long_entries + split_entries + dense_entries:
+              f"route's columns, and each with the chirp's folded load "
+              f"and store)")
+    for e in (radix_entries + long_entries + split_entries + dense_entries
+              + chirp_entries):
         check(e.get("spill_stores", 0) == 0 and e.get("stack", 0) == 0,
               f"{e['kernel']} spills or keeps a stack frame: {e}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -533,11 +564,10 @@ def kernel_cases():
     # the dense route: a length per family of both dtypes, both
     # directions, each epilogue, batches ragged against its tile
     cases += dense_cases()
-    # the chirp route: lengths of its three inner routes (29*2^k and the
-    # prime 4831 on the long-line route, the primes 10007 and 20011 on the
-    # split route, the primes 101 and 1021 that left the dense route for M
-    # on the radix and long-line routes), both dtypes, directions and
-    # epilogues; then the split route's general plans (a dense pass A of
+    # the chirp route: M on the dense route's kernel (29*2^k, the primes
+    # 4831, 10007 and 101, complex128 3001, 3712 and 1021) and on a split
+    # plan (the prime 20011), both dtypes, directions and epilogues; then
+    # the split route's general plans (a dense pass A of
     # odd and even P, a radix pass A with dense rows, a column tile of 4),
     # segments of any length
     for b, n, inv, parts, tw, dt in ((2, 7424, False, None, True, c64),
@@ -562,7 +592,8 @@ def kernel_cases():
 #: (dtype name, N) per family of the dense route: odd 13-smooth N, the
 #: even ones no codelets of the radix or long-line route hold, the spill
 #: lengths, N with a prime factor past 13 that ``dense.GENERIC_COST``
-#: keeps (one and two generic stages) and such primes, and the 13-smooth
+#: keeps (one and two generic stages, 3264 = 3*17*64) and such primes,
+#: and the 13-smooth
 #: lengths past the old one-block limit that left the chirp route (to the
 #: longest line of each dtype).
 DENSE_FAMILIES = (("complex64", 9), ("complex64", 75), ("complex64", 4725),
@@ -574,7 +605,7 @@ DENSE_FAMILIES = (("complex64", 9), ("complex64", 75), ("complex64", 4725),
                   ("complex128", 22), ("complex64", 816),
                   ("complex128", 578), ("complex64", 323),
                   ("complex64", 4199), ("complex64", 17),
-                  ("complex128", 19), ("complex64", 1616),
+                  ("complex128", 19), ("complex64", 3264),
                   ("complex64", 1), ("complex64", 5460),
                   ("complex64", 16896), ("complex64", 23040),
                   ("complex64", 28431), ("complex128", 2420),
@@ -1367,11 +1398,12 @@ def expected_counts(n: int, calls: int, dtype=None) -> dict:
     length ``n``: one launch each on the path ``radix.kernel_path``
     names, or on the split route one split call of two launches on
     "split" (pass A strided, pass B on lines) and a third on lines (pass
-    C, the transpose) where the rows run on the long-line route, or on
-    the chirp route one chirp call of two transforms of M (one launch each
-    on the long-line route, a split call's two or three on the split
-    route), all counted on "chirp"; nothing on any other path, no line
-    copy."""
+    C, the transpose) where the rows run on the long-line route or the
+    dense kernel, or, on a nested plan, pass A, the rows' own launches
+    and pass C; or on the chirp route one chirp call of two transforms
+    of M (one launch each on the dense or the long-line route, a nested
+    plan's launches on a split plan of M), all counted on "chirp"; nothing on
+    any other path, no line copy."""
     import torch
     from repro_torch.kernels import chirp, radix, split
     dtype = dtype or torch.complex64
@@ -1379,19 +1411,37 @@ def expected_counts(n: int, calls: int, dtype=None) -> dict:
     want = {p: 0 for p in KERNEL_PATHS}
     want.update(copies=0, split_calls=0, chirp_calls=0)
     if path == "chirp":
-        inner = expected_counts(chirp.chirp_length(n), 2 * calls, dtype)
-        want.update(launches=inner["launches"], lines=inner["lines"],
-                    strided=inner["strided"], chirp=inner["launches"],
+        cplan = chirp.chirp_plan(n, dtype)
+        if cplan.route in ("dense", "long"):
+            launches, lines, strided = 2, 2, 0
+        else:
+            launches, lines, strided = (2 * k for k in _any_plan_counts(
+                cplan.split, dtype))
+        want.update(launches=launches * calls, lines=lines * calls,
+                    strided=strided * calls, chirp=launches * calls,
                     chirp_calls=calls)
     elif path == "split":
-        long_rows = split.split_plan(n, dtype).row_path in ("long", "dense")
-        want.update(launches=(2 + long_rows) * calls,
-                    lines=(1 + long_rows) * calls, strided=calls,
-                    split=(2 + long_rows) * calls, split_calls=calls)
+        plan = split.split_plan(n, dtype)
+        if plan.row_path == "any":
+            launches, lines, strided = _any_plan_counts(plan, dtype)
+        else:
+            long_rows = plan.row_path in ("long", "dense")
+            launches, lines, strided = 2 + long_rows, 1 + long_rows, 1
+        want.update(launches=launches * calls, lines=lines * calls,
+                    strided=strided * calls, split=launches * calls,
+                    split_calls=calls)
     else:
         want.update(launches=calls, lines=calls, strided=0)
         want[path] = calls
     return want
+
+
+def _any_plan_counts(plan, dtype) -> tuple:
+    """(launches, on lines, strided) of one call of a split plan whose rows
+    run on their own route: pass A (strided), the rows' launches, pass C
+    (lines)."""
+    rows = expected_counts(plan.q, 1, dtype)
+    return (rows["launches"] + 2, rows["lines"] + 1, rows["strided"] + 1)
 
 
 def counts_match(counts: dict, want: dict) -> bool:
@@ -2566,24 +2616,32 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
 #: a column tile of 8), all on the chirp before; 10^7 = 2^7*5^7 and 3^15
 #: past the chirp's limit, which raised; complex128 14406 = 2*3*7^4,
 #: 2278125 = 3^6*5^5 (raised) and 4084223 = 11*13^5 (raised; P = 1859, a
-#: column tile of 4).
+#: column tile of 4); past the split route's old limit, the nested plans
+#: (``split.nested_factors``, which raised before): complex64 3^16 = 2187 x
+#: 19683 (dense rows), 2^25 = 512 x 65536 (a radix pass A, rows on the
+#: split route), complex128 2^23 = 256 x 32768.
 SPLIT_GENERAL_LENGTHS = (
     ("complex64", 29106, 256), ("complex64", 30976, 256),
     ("complex64", 33075, 256), ("complex64", 44100, 256),
     ("complex64", 96000, 256), ("complex64", 10 ** 6, 256),
     ("complex64", 13 ** 6, 256), ("complex64", 10 ** 7, 512),
     ("complex64", 3 ** 15, 512), ("complex128", 14406, 256),
-    ("complex128", 2278125, 512), ("complex128", 4084223, 512))
+    ("complex128", 2278125, 512), ("complex128", 4084223, 512),
+    ("complex64", 3 ** 16, 512), ("complex64", 1 << 25, 512),
+    ("complex128", 1 << 23, 512))
 
 
 def phase_split_general(device, lengths=SPLIT_GENERAL_LENGTHS,
                         grad_shape=(4, 29106), iters: int = 10) -> dict:
     """``[split_general]``: the split route's general plans (pass A on the
     radix route or the dense kernel's column form, pass B on the dense
-    route's launch, pass C for any P and Q) at each of ``lengths``, each
-    reached once through ``ops.fft1d`` on the split route with the counts
-    set to 0 just before and read just after (``line_entry``: one split
-    call of 3 launches), against its plain version (``TOL``) and within
+    route's launch, pass C for any P and Q) and, past its old limit, its
+    nested plans (the rows' own launch on their route: c64 3^16 = 2187 x
+    19683, 2^25 = 512 x 65536, c128 2^23 = 256 x 32768) at each of
+    ``lengths``, each reached once through ``ops.fft1d`` on the split
+    route with the counts set to 0 just before and read just after
+    (``line_entry``: one split call of 3 launches, more where the rows
+    run on the split route), against its plain version (``TOL``) and within
     ``PATH_TOL`` of ``torch.fft``; the inverse with the twiddle and a
     ``pack_parts`` segment of any length against the plain version;
     CUDA-event ms beside ``torch.fft.fft`` and the bound; then one
@@ -2603,7 +2661,8 @@ def phase_split_general(device, lengths=SPLIT_GENERAL_LENGTHS,
                          tol=PATH_TOL)
         plan = split.split_plan(n, dtype)
         rec.update(factors=[plan.p, plan.q], col_path=plan.col_path,
-                   row_path=plan.row_path)
+                   row_path=(plan.row_path if plan.row_path != "any" else
+                             "any: " + split.row_route(plan.q, dtype)))
         k = torch.arange(n, dtype=torch.float64, device=device)
         tw = torch.exp(-1j * math.pi * k / (2 * n)).to(dtype)
         parts = next(f for f in (3, 5, 2, 7, 11, 13) if n % f == 0)
@@ -2827,69 +2886,108 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
 
 
 #: (dtype name, N) of ``[chirp]``: lengths no other route takes, 29*2^k
-#: (a prime factor past 23 past the dense route's limit) whose M takes the
-#: long-line route, the primes 10007 and 20011 (M = 65536), whose M takes
-#: the split route; complex128 likewise; and the prime
-#: complex64 4831, which left the dense route's generic stage.  The first
-#: is the ``fft_fourstep_chirp`` entry's timing.
+#: (a prime factor past 23 past the dense route's limit) and the primes
+#: 10007 and 4831 (which left the dense route's generic stage), M on the
+#: dense route's kernel, the prime 20011, M on a split plan; complex128
+#: likewise.  The first is the ``fft_fourstep_chirp`` entry's timing.
 CHIRP_LENGTHS = (("complex64", 7424), ("complex64", 10007),
                  ("complex64", 20011), ("complex128", 3001),
                  ("complex128", 3712), ("complex64", 4831))
-#: (dtype name, N, route) of ``[gaps]``, all on the dense route: the
+#: (dtype name, N) of ``[chirp]`` at 512 MB of lines: lengths that raised
+#: past the chirp's old limit (half the split route's longest power of
+#: two), M on a split plan: the prime 8388617, 2^24 + 1 = 97*257*673,
+#: complex128 2^21 + 1 = 9*233017.
+CHIRP_PAST = (("complex64", 8388617), ("complex64", (1 << 24) + 1),
+              ("complex128", (1 << 21) + 1))
+#: (dtype name, N, route) of ``[gaps]``, on the dense route but one: the
 #: lengths it had with the widest gaps to ``torch.fft`` (the even
 #: 13-smooth complex64 2730 = 2*1365, 3430 = 2*1715 and 4050 = 2*2025,
 #: complex128 990 = 2*495, which no codelets of the radix or long-line
 #: route hold, and the odd complex64 4725), the 13-smooth lengths past
 #: its old one-block limit that it took from the chirp route (complex64
 #: 16896 = 33*2^9, 23040 = 45*2^9, complex128 8448 = 33*2^8), and a
-#: length with a generic stage (complex64 3264 = 3*17*64, 1616 = 101*16,
-#: whose chirp would run M = 4096 on the radix route, the dearest M of
-#: ``dense.GENERIC_COST``, complex128 1824 = 3*19*32).
+#: length with a generic stage (complex64 3264 = 3*17*64, complex128 1824
+#: = 3*19*32), and complex64 1616 = 101*16, which the refit of
+#: ``dense.GENERIC_COST`` moved to the chirp (M = 3380 on the dense
+#: route's kernel).
 GAP_LENGTHS = (("complex64", 2730, "dense"), ("complex64", 3430, "dense"),
                ("complex64", 4050, "dense"), ("complex128", 990, "dense"),
                ("complex64", 4725, "dense"), ("complex64", 16896, "dense"),
                ("complex64", 23040, "dense"), ("complex128", 8448, "dense"),
-               ("complex64", 3264, "dense"), ("complex64", 1616, "dense"),
+               ("complex64", 3264, "dense"), ("complex64", 1616, "chirp"),
                ("complex128", 1824, "dense"))
 
 
-def phase_chirp(device, lengths=CHIRP_LENGTHS,
-                lengths_bytes: int = 256 << 20, iters: int = 10) -> dict:
-    """``[chirp]``: the chirp route (Bluestein over two transforms of M =
-    2^ceil(log2(2N - 1)) on the radix, long-line or split route) at each of
-    ``lengths``, about 256 MB of lines, through ``ops.fft1d`` once (one
-    chirp call, its launches all on "chirp": ``expected_counts``), against
-    its plain version (``chirp.emulate``; ``TOL``) and within
-    ``PATH_TOL`` of ``torch.fft``; CUDA-event ms beside ``torch.fft.fft``
-    and the lines' bound, and the glue's ms apart (the premultiply and
-    pad, the trim)."""
+def phase_chirp(device, lengths=CHIRP_LENGTHS, past=CHIRP_PAST,
+                lengths_bytes: int = 256 << 20,
+                past_bytes: int = 512 << 20, iters: int = 10) -> dict:
+    """``[chirp]``: the chirp route (Bluestein over two transforms of M,
+    the cheapest 13-smooth length from 2N - 1, on the dense route's
+    kernel, the long-line route or a split plan, the input's chirp in the
+    first one's load and the first N kept by the second one's store) at
+    each of ``lengths``, about
+    256 MB of lines, and ``past``, 512 MB, through ``ops.fft1d`` once (one
+    chirp call, its launches all on "chirp", 2 on the dense route's
+    kernel or the long-line route: ``expected_counts``), against its
+    plain version
+    (``chirp.emulate``; ``TOL``) and within ``PATH_TOL`` of
+    ``torch.fft``; the inverse with the twiddle and ``pack_parts`` (no
+    line copy) against ``torch.fft``; CUDA-event ms beside
+    ``torch.fft.fft`` and the lines' bound; M, its route and, on a split
+    plan, (P, Q) and the rows' route."""
     import torch
-    from repro_torch.kernels import chirp
-    from repro_torch.kernels.fft_matmul import _chirp_constants
+    from repro_torch.kernels import chirp, radix
+    from repro_torch.kernels.fft_matmul import fft_fourstep
     cuda = device.type == "cuda"
     out = {"lengths": []}
-    for i, (dt, n) in enumerate(lengths):
+    cases = ([(dt, n, lengths_bytes) for dt, n in lengths]
+             + [(dt, n, past_bytes) for dt, n in past])
+    for i, (dt, n, nbytes) in enumerate(cases):
         dtype = getattr(torch, dt)
-        b = max(1, lengths_bytes // (n * dtype.itemsize))
+        b = max(1, nbytes // (n * dtype.itemsize))
         x = randc((b, n), dtype, device, SEED + 90 + i)
-        rec = line_entry(x, "chirp", "chirp", iters, plain_iters=2,
+        rec = line_entry(x, "chirp", "chirp", iters, plain_iters=1,
                          tol=PATH_TOL)
-        m = chirp.chirp_length(n)
-        rec["m"] = m
-        if cuda:
-            pre, _, _ = _chirp_constants(n, False, dtype, device)
-            padded = chirp.premultiply(x, pre, m)
-            rec["glue_ms"] = {
-                "premultiply": time_ms(
-                    lambda: chirp.premultiply(x, pre, m), iters),
-                "trim": time_ms(lambda: chirp.trim(padded, n, None), iters)}
-            del padded
+        plan = chirp.chirp_plan(n, dtype)
+        rec.update(m=plan.m, m_route=plan.route)
+        if plan.split is not None:
+            rec.update(factors=[plan.split.p, plan.split.q],
+                       rows_route=radix.kernel_path(plan.split.q, dtype))
+        k = torch.arange(n, dtype=torch.float64, device=device)
+        tw = torch.exp(-1j * math.pi * k / (2 * n)).to(dtype)
+        parts = next((f for f in (2, 3, 5, 7, 11, 13) if n % f == 0), 1)
+        reset_counts()
+        got = fft_fourstep(x, inverse=True, twiddle=tw, pack_parts=parts)
+        counts = path_counts()
+        want = torch.fft.ifft(x) * tw
+        rec["epilogues"] = {
+            "parts": parts, "copies": counts["copies"],
+            "launches": counts["chirp"],
+            "library_err": scaled_err(got, want.reshape(b, parts,
+                                                        n // parts))}
+        del got, want, x
+        check(rec["epilogues"]["library_err"] <= PATH_TOL
+              and counts["copies"] == 0
+              and (not cuda or counts["chirp"] == rec["launches"]),
+              f"[chirp] ({b}, {n}) {dt}: the inverse with the twiddle and "
+              f"pack_parts={parts}: vs torch.fft "
+              f"{rec['epilogues']['library_err']:.3e} (bound {PATH_TOL}), "
+              f"{counts['copies']} line copies, {counts['chirp']} launches")
         out["lengths"].append(rec)
-        del x
         if cuda:
             torch.cuda.empty_cache()
     if cuda:
         print_lines("chirp", out["lengths"])
+        for r in out["lengths"]:
+            rows = (f" = {r['factors'][0]} x {r['factors'][1]}, rows on "
+                    f"the {r['rows_route']} route" if "factors" in r
+                    else "")
+            print(f"[chirp] {r['dtype']} {r['shape'][1]}: M = {r['m']} on "
+                  f"the {r['m_route']} route{rows}; {r['launches']} "
+                  f"launches a call; inverse with the twiddle and "
+                  f"pack_parts={r['epilogues']['parts']} vs torch.fft "
+                  f"{r['epilogues']['library_err']:.3e}, "
+                  f"{r['epilogues']['copies']} line copies")
     return out
 
 
@@ -3789,8 +3887,11 @@ def main(timer=time.perf_counter) -> int:
         # launches: [chirp]'s calls, one ops.fft1d call per length (no
         # LM path runs the chirp route now); timed at lines of 7424
         {"name": "fft_fourstep_chirp", "route": "cuda",
-         "source": CHIRP_SOURCE, "path": "chirp",
-         "sources": [CHIRP_SOURCE, LONG_SOURCE, RADIX_SOURCE],
+         "source": DENSE_SOURCE, "path": "chirp",
+         "functions": ["dense_chirp_kernel", "dense_column_chirp_kernel",
+                       "split_transpose_keep_kernel"],
+         "sources": [DENSE_SOURCE, LONG_SOURCE, KERNEL_SOURCE,
+                     CHIRP_SOURCE, SPLIT_SOURCE],
          "replaces": "src/repro/kernels/fft_matmul.py:216",
          "launches": sum(r["counts"]["chirp"] for r in chirp_["lengths"]),
          "max_abs_err": chirp_["lengths"][0]["max_abs_err"],

@@ -12,6 +12,10 @@ lengths take which route, for the tree whose root is given.
     python3 scripts/route_times.py splitcheck ROOT TAG OUT.json
     python3 scripts/route_times.py splitgen ROOT TAG OUT.json
     python3 scripts/route_times.py splitgencheck ROOT TAG OUT.json
+    python3 scripts/route_times.py chirpm ROOT TAG OUT.json
+    python3 scripts/route_times.py chirpmcheck ROOT TAG OUT.json
+    python3 scripts/route_times.py nested ROOT TAG OUT.json
+    python3 scripts/route_times.py nestedcheck ROOT TAG OUT.json
 
 ``times`` runs the port of the tree at ROOT (its ``src`` first on the
 path; the kernel is built there at first use): ``fft_fourstep`` on
@@ -33,11 +37,12 @@ lines, both in the library of the tree at ROOT, at :data:`GENERIC_LENGTHS`
 forced for N alone (``radix.kernel_path`` answers it, ``dense.takes``
 admits N), and ``torch.fft.fft``; ``check`` does the same at
 :data:`GENERIC_CHECK`, lengths the fit did not see.  ``fit`` (no card
-needed) fits both routes' times over one or more ``generic`` runs: the
-constants of ``dense.takes``' rule (:func:`fit`), and the lengths that
-this checkout routes to the slower of the two.  Every swept length ran
-on the dense route before the rule; ``dense.MOVE_MARGIN`` keeps it there
-unless the fit puts the chirp clearly faster.
+needed) fits both routes' times over one or more ``generic`` and
+``chirpm`` runs: the constants of ``dense.takes``' rule and of the
+chirp's M (:func:`fit`), the lengths that this checkout routes to the
+slower of the two, and how far its M picks are from the fastest forced.
+``dense.MOVE_MARGIN`` keeps a length on the dense route unless the fit
+puts the chirp that much faster.
 
 ``split`` times the lengths of :data:`SPLIT_SWEEP` (the split route's
 rule: 13-smooth lines past one block and 23*2^k, which the chirp held or
@@ -60,6 +65,18 @@ radix pass A and up to 14 dense ones spread over P), each forced, beside
 ``torch.fft.fft`` and the bound.  ``splitgencheck`` does the same at
 :data:`SPLIT_GENERAL_CHECK`, lengths the sweep did not see.  Run them
 parent, change, change, parent.
+
+``chirpm`` times the chirp route at :data:`CHIRP_SWEEP` (256 MB of
+lines) with its M forced to several 13-smooth candidates from 2N - 1 to
+twice that (the least odd, even, multiple of 4, 16 and 64, the power of
+two, the tree's own; ``chirp.chirp_plan`` answers each for N alone),
+beside ``torch.fft.fft`` and the bound; ``fit`` reads it for
+``dense.GENERIC_COST``'s chirp costs.  ``chirpmcheck`` does the same at
+:data:`CHIRP_CHECK`, lengths the fit did not see.  ``nested`` times the
+nested plans (``split.nested_factors``, past the split route's old
+limit) at :data:`NESTED_SWEEP`, 512 MB of lines, the tree's plan and its
+candidates forced (``split.any_candidates``: every radix pass A, up to 10
+dense ones); ``nestedcheck`` at :data:`NESTED_CHECK`.
 
 ``sass`` compares ``cuobjdump -sass`` of two builds function by
 function: only instruction and encoding lines (a module's header would
@@ -93,7 +110,14 @@ import sys
 #: ``chip_smoke.py``'s ``[gaps]`` lengths on the dense route (complex64
 #: 2730, 3430, 4050, 16896, 23040, 3264 and 1616, complex128 990, 8448
 #: and 1824), whose kernel shares its stage code with the general plans'
-#: pass A.
+#: pass A; then the chirp's lengths (``chip_smoke.py``'s ``[chirp]``,
+#: whose M the M rule moved, and c64 816, a generic stage that
+#: ``dense.takes`` weighs against the chirp; c64 2279 = 43*53, complex128
+#: 1616 and 808, which the refit moved from the dense route to the chirp,
+#: and c64 244 = 4*61, from the chirp to the dense route) and, at 512 MB,
+#: the lengths
+#: that raised past the old limits (the chirp's c64 8388617, 2^24 + 1,
+#: c128 2^21 + 1; the nested plans' c64 3^16, 2^25, c128 2^23).
 SHAPES = tuple(
     (dt, (256 << 20) // (n * (8 if dt == "complex64" else 16)), n)
     for dt, n in (("complex64", 29106), ("complex64", 30976),
@@ -106,11 +130,19 @@ SHAPES = tuple(
                   ("complex64", 16896), ("complex64", 23040),
                   ("complex64", 3264), ("complex64", 1616),
                   ("complex128", 990), ("complex128", 8448),
-                  ("complex128", 1824))) + tuple(
+                  ("complex128", 1824), ("complex64", 816),
+                  ("complex64", 7424), ("complex64", 10007),
+                  ("complex64", 20011), ("complex64", 4831),
+                  ("complex128", 3001), ("complex128", 3712),
+                  ("complex64", 2279), ("complex64", 244),
+                  ("complex128", 1616), ("complex128", 808))) + tuple(
     (dt, (512 << 20) // (n * (8 if dt == "complex64" else 16)), n)
     for dt, n in (("complex64", 10 ** 7), ("complex64", 3 ** 15),
                   ("complex128", 2278125), ("complex128", 4084223),
-                  ("complex64", 1 << 24)))
+                  ("complex64", 1 << 24), ("complex64", 8388617),
+                  ("complex64", (1 << 24) + 1), ("complex128", (1 << 21) + 1),
+                  ("complex64", 3 ** 16), ("complex64", 1 << 25),
+                  ("complex128", 1 << 23)))
 #: (dtype name, N) of ``generic``: lengths with a prime factor past 13,
 #: by the route the chirp's M takes (complex64: M up to 4096 on the radix
 #: route, 8192 and 16384 on the long-line route; complex128: up to 1024
@@ -195,6 +227,35 @@ SPLIT_GENERAL_CHECK = tuple(("complex64", n) for n in (
     31590, 56000, 109350, 331695, 449064, 819819, 1597200, 3071250,
     4920750, 15360000, 681472)) + tuple(("complex128", n) for n in (
         21125, 41184, 136125, 431244, 650650, 2283008, 194688))
+#: (dtype name, N) of ``chirpm``: chirp lengths whose M takes the dense
+#: route's kernel (complex64 to 14215, complex128 to 7098) and a split
+#: plan past it, both dtypes, from short lines to the old limit: primes
+#: and 29*2^k, 101*2^k.
+CHIRP_SWEEP = tuple(("complex64", n) for n in (
+    101, 257, 521, 1009, 2039, 3232, 4831, 7424, 10007, 14009, 14503,
+    20011, 40009, 100003, 1000003)) + tuple(("complex128", n) for n in (
+        101, 521, 1201, 3001, 3712, 5003, 7001, 8009, 20011, 100003))
+#: (dtype name, N) of ``chirpmcheck``: chirp lengths ``CHIRP_SWEEP``
+#: leaves out, drawn at random (seeded) once the fit had fixed the costs.
+CHIRP_CHECK = tuple(("complex64", n) for n in (
+    613, 2903, 6553, 12011, 17393, 65537)) + tuple(
+        ("complex128", n) for n in (409, 2417, 4099, 9973))
+#: (dtype name, N) of ``nested``: lengths past the split route's old limit
+#: (2^24 complex64, 2^22 complex128), 13-smooth and with a prime factor
+#: past 13, whose rows fit one block or run on the split route one level
+#: down; at 512 MB of lines (one line where a line is longer).
+NESTED_SWEEP = tuple(("complex64", n) for n in (
+    1 << 25, 3 ** 16, 5 ** 11, 10 ** 8, 17 << 21, 1 << 28)) + tuple(
+        ("complex128", n) for n in (1 << 23, 3 ** 15, 5 ** 10, 1 << 25))
+#: (dtype name, N) of ``nestedcheck``: lengths ``NESTED_SWEEP`` leaves out;
+#: the first eight's readings also fixed ``split.NESTED_ONE_P``, the last
+#: three are held out from it.
+NESTED_CHECK = tuple(("complex64", n) for n in (
+    6 ** 10, 7 ** 9, 19 << 22)) + tuple(
+        ("complex128", n) for n in (3 ** 14 * 2, 13 ** 6 * 2)) + tuple(
+    ("complex64", n) for n in (2 ** 5 * 3 ** 12, 5 ** 6 * 7 ** 4)) + (
+        ("complex128", 2 ** 5 * 3 ** 11), ("complex64", 4 * 3 ** 14),
+        ("complex64", 2 * 3 ** 9 * 5 ** 4), ("complex128", 11 * 3 ** 12))
 #: One face of the LLC4320 ocean grid (MITgcm/ECCO), complex64.
 GRID = (4320, 4320)
 SWEEP_BYTES = 64 << 20
@@ -371,11 +432,12 @@ def generic(root: str, lengths=GENERIC_LENGTHS) -> dict:
         b = (256 << 20) // (n * dtype.itemsize)
         x = _lines(torch, dtype, b, n)
         lib = torch.fft.fft(x)
-        m = chirp.chirp_length(n)
+        cplan = chirp.chirp_plan(n, dtype)
+        m = cplan.m
         chain = dense.chain(n)
         rec = {"dtype": dt, "shape": [b, n], "chain": list(chain),
                "s": sum(p for p in chain if p > 13), "m": m,
-               "m_path": routed(m, dtype), "path": routed(n, dtype)}
+               "m_path": cplan.route, "path": routed(n, dtype)}
         try:
             for path in ("dense", "chirp"):
                 # the route forced for N alone
@@ -530,6 +592,134 @@ def split_general(root: str, tag: str, lengths=SPLIT_GENERAL_SWEEP) -> dict:
     return out
 
 
+def _m_candidates(chirp, radix, n: int, dtype) -> list:
+    """The M that ``chirpm`` forces for N: of the 13-smooth M from 2N - 1
+    to twice that, the least odd one, the least even one, the least
+    multiple of 4, 16 and 64, the power of two, and the tree's own (the
+    three least with a route, past one block's line)."""
+    lo = 2 * n - 1
+    smooth = [m for m in range(lo, 2 * lo + 1) if radix.smooth(m)] \
+        if lo < 1 << 16 else [m for m in chirp._smooth_lengths()
+                              if lo <= m <= 2 * lo]
+    picks = {chirp.chirp_plan(n, dtype).m}
+    for test in (lambda m: m % 2, lambda m: m % 2 == 0,
+                 lambda m: m % 4 == 0, lambda m: m % 16 == 0,
+                 lambda m: m % 64 == 0, radix.is_pow2):
+        first = next((m for m in smooth if test(m)), None)
+        if first is not None:
+            picks.add(first)
+    picks.update([m for m in smooth
+                  if chirp.inner_plan(n, m, dtype) is not None][:3])
+    return sorted(m for m in picks
+                  if chirp.inner_plan(n, m, dtype) is not None)
+
+
+def chirp_m(root: str, tag: str, lengths=CHIRP_SWEEP) -> dict:
+    """The chirp route at each of ``lengths``, 256 MB of lines, with its M
+    forced to each of :func:`_m_candidates` (``chirp.chirp_plan``
+    answers that M's plan and ``radix.kernel_path`` the chirp for N
+    alone), beside ``torch.fft.fft`` and the bound."""
+    torch = _port(root)
+    from repro_torch.kernels import chirp, radix
+    from repro_torch.kernels import fft_matmul as tfm
+    planned, routed = chirp.chirp_plan, radix.kernel_path
+    out = {"tag": tag, "root": os.path.abspath(root), "bytes": 256 << 20,
+           "lengths": []}
+    for dt, n in lengths:
+        dtype = getattr(torch, dt)
+        b = max(1, (256 << 20) // (n * dtype.itemsize))
+        x = _lines(torch, dtype, b, n)
+        lib = torch.fft.fft(x)
+        rec = {"dtype": dt, "shape": [b, n], "m": planned(n, dtype).m,
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+               "bound_ms": bound_ms(b, n, dtype.itemsize),
+               "candidates": []}
+        for m in _m_candidates(chirp, radix, n, dtype):
+            plan = chirp.inner_plan(n, m, dtype)
+            chirp.chirp_plan = (lambda k, d, plan=plan:
+                                plan if k == n else planned(k, d))
+            radix.kernel_path = (lambda k, d: "chirp" if k == n
+                                 else routed(k, d))
+            try:
+                e = scaled_err(tfm.fft_fourstep(x), lib)
+                ms = time_ms(lambda: tfm.fft_fourstep(x))
+            finally:
+                chirp.chirp_plan, radix.kernel_path = planned, routed
+            sp = plan.split
+            rec["candidates"].append({
+                "m": m, "route": plan.route,
+                "factors": [sp.p, sp.q] if sp is not None else None,
+                "err": e, "ms": ms})
+        del x, lib
+        torch.cuda.empty_cache()
+        cands = ", ".join(f"{c['m']} {c['route']} {c['ms']:.4f} "
+                          f"({c['err']:.1e})" for c in rec["candidates"])
+        print(f"[{tag}] chirpm {dt} ({b}, {n}) M={rec['m']}: torch.fft "
+              f"{rec['torch_fft_ms']:.4f}, bound {rec['bound_ms']:.4f}; "
+              f"candidates: {cands}", flush=True)
+        out["lengths"].append(rec)
+    return out
+
+
+def _nested_candidates(split, n: int, dtype, most: int = 10) -> list:
+    """The nested plans' (P, Q, pass A's route) for N that ``nested``
+    forces: every radix pass A and up to ``most`` dense ones, evenly
+    spaced over the candidates in order of P, and the tree's own."""
+    cands = split.any_candidates(n, dtype)
+    rad = [c for c in cands if c[2] == "radix"]
+    den = [c for c in cands if c[2] == "dense"]
+    if len(den) > most:
+        den = [den[round(i * (len(den) - 1) / (most - 1))]
+               for i in range(most)]
+    own = split.nested_factors(n, dtype)
+    return rad + den + ([own] if own not in rad + den else [])
+
+
+def nested(root: str, tag: str, lengths=NESTED_SWEEP) -> dict:
+    """The nested plans at each of ``lengths``, 512 MB of lines (one line
+    past it): the tree's route, then each of :func:`_nested_candidates`
+    forced, beside ``torch.fft.fft`` and the bound."""
+    torch = _port(root)
+    from repro_torch.kernels import fft_matmul as tfm
+    from repro_torch.kernels import radix, split
+    out = {"tag": tag, "root": os.path.abspath(root), "bytes": 512 << 20,
+           "lengths": []}
+    for dt, n in lengths:
+        dtype = getattr(torch, dt)
+        b = max(1, (512 << 20) // (n * dtype.itemsize))
+        x = _lines(torch, dtype, b, n)
+        lib = torch.fft.fft(x)
+        rec = {"dtype": dt, "shape": [b, n],
+               "path": radix.kernel_path(n, dtype),
+               "plan": list(split.nested_factors(n, dtype) or ()),
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+               "bound_ms": bound_ms(b, n, dtype.itemsize),
+               "candidates": []}
+        rec["err"] = scaled_err(tfm.fft_fourstep(x), lib)
+        rec["ms"] = time_ms(lambda: tfm.fft_fourstep(x))
+        for p, q, col in _nested_candidates(split, n, dtype):
+            plan = split.SplitPlan(n, p, q, "any", col)
+
+            def run(plan=plan):
+                return tfm._launch_split(x, None, inverse=False,
+                                         pack_parts=None, plan=plan)
+            rec["candidates"].append({
+                "p": p, "q": q, "col_path": col,
+                "row_path": split.row_route(q, dtype),
+                "err": scaled_err(run(), lib), "ms": time_ms(run)})
+        del x, lib
+        torch.cuda.empty_cache()
+        cands = ", ".join(f"{c['p']} x {c['q']} {c['col_path']}/"
+                          f"{c['row_path']} {c['ms']:.4f} ({c['err']:.1e})"
+                          for c in rec["candidates"])
+        print(f"[{tag}] nested {dt} ({b}, {n}) {rec['path']} "
+              f"{rec['plan']}: {rec['ms']:.4f} ms, torch.fft "
+              f"{rec['torch_fft_ms']:.4f}, bound {rec['bound_ms']:.4f}; "
+              f"candidates: {cands}", flush=True)
+        out["lengths"].append(rec)
+    return out
+
+
 def _line(recs: list):
     """Least squares of the dense route's ms = a + b*s over ``recs``."""
     k = len(recs)
@@ -542,29 +732,46 @@ def _line(recs: list):
 
 
 def fit(paths) -> dict:
-    """The constants of ``dense.takes``' rule from ``generic`` runs (their
-    OUT.json files): per dtype and length the mean of the runs and their
-    spread; per dtype, least squares of the dense route's ms = a + b*s
-    over the even N whose generic primes sum to at most 300 and apart
-    over the odd N, and per M the chirp's ms = c*M/N; in units of the
-    even N's b, ``dense.GENERIC_COST``'s (base, weight) per parity and
-    chirp cost per M.  Then the lengths that this checkout's
-    ``radix.kernel_path`` sends to the slower of the two: to the chirp
-    (every length swept left the dense route for it) or kept dense."""
+    """The constants of ``dense.takes``' rule and of the chirp's M from
+    ``generic`` and ``chirpm`` runs (their OUT.json files): per dtype and
+    length the mean of the ``generic`` runs and their spread; per dtype,
+    least squares of the dense route's ms = a + b*s over the even N whose
+    generic primes sum to at most 300 and apart over the odd N, and the
+    chirp's ms per element of M (ms * N / M) over both kinds of run: the
+    mean on the long-line route and on a split plan, and on the dense
+    route's kernel least squares of a base per tile (lines sharing a
+    block or one a block), a weight per stage of M's chain and one per
+    share of a block's shared memory a line fills; in units of the even
+    N's b, ``dense.GENERIC_COST``'s (base, weight) per parity and its
+    chirp costs.  Then the lengths that this
+    checkout's ``radix.kernel_path`` sends to the slower of the two
+    routes, and, per ``chirpm`` length, how far the M this checkout's
+    ``chirp.chirp_plan`` picks is from the fastest forced."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), os.pardir, "src"))
     import torch
-    from repro_torch.kernels import radix
-    rows = {}
+    from repro_torch.kernels import chirp, radix
+    import numpy as np
+    from repro_torch.kernels import dense
+    rows, samples, forced = {}, [], []
     for path in paths:
         with open(path) as f:
             for r in json.load(f)["lengths"]:
-                e = rows.setdefault((r["dtype"], r["shape"][1]), dict(
-                    s=r["s"], m=r["m"], dense=[], chirp=[]))
+                n = r["shape"][1]
+                if "candidates" in r:               # chirpm
+                    forced.append(r)
+                    samples.extend((r["dtype"], c["route"], c["m"] / n,
+                                    c["ms"]) for c in r["candidates"])
+                    continue
+                e = rows.setdefault((r["dtype"], n), dict(
+                    s=r["s"], m=r["m"], m_path=r.get("m_path"), dense=[],
+                    chirp=[]))
                 e["dense"].append(r["dense_ms"])
                 e["chirp"].append(r["chirp_ms"])
+                samples.append((r["dtype"], r.get("m_path"), r["m"] / n,
+                                r["chirp_ms"]))
     out = {"runs": list(paths), "lengths": [], "constants": {},
-           "moved_slower": [], "kept_slower": []}
+           "moved_slower": [], "kept_slower": [], "m_picks": []}
     for (dt, n), e in rows.items():
         for key in ("dense", "chirp"):
             v = e[key]
@@ -578,20 +785,53 @@ def fit(paths) -> dict:
         a, b = _line(even)
         odd = [r for r in mine if r["n"] % 2 and r["s"] <= 300]
         a_odd, b_odd = _line(odd)
+        # the chirp's ms per element of M (ms * N / M): a constant on the
+        # long-line route and on a split plan; on the dense route's kernel
+        # a base per tile (lines sharing a block, or one line a block)
+        # plus a weight per stage of M's chain and one per share of the
+        # SM's shared memory that a line of M fills
         cost = {}
-        for m in sorted({r["m"] for r in mine}):
-            xy = [(m / r["n"], r["chirp_ms"]) for r in mine if r["m"] == m]
-            cost[m] = sum(x * y for x, y in xy) / sum(x * x for x, _ in xy)
+        for k in ("long", "split"):
+            ys = [y / x for d, c, x, y in samples if d == dt and c == k]
+            if ys:
+                cost[k] = sum(ys) / len(ys)
+        cdt = getattr(torch, dt)
+        mat, vec = [], []
+        for r in forced + [dict(e, dtype=dd, n=nn)
+                           for (dd, nn), e in rows.items()]:
+            if r["dtype"] != dt:
+                continue
+            n = r["shape"][1] if "shape" in r else r["n"]
+            pts = ([(c["m"], c["ms"]) for c in r["candidates"]
+                    if c["route"] == "dense"] if "candidates" in r else
+                   [(r["m"], r["chirp_ms"])] if r.get("m_path", "dense")
+                   == "dense" and "chirp_ms" in r else [])
+            for m, ms in pts:
+                share = dense.dense_plan(m, cdt).lines > 1
+                mat.append([float(share), float(not share),
+                            float(len(dense.chain(m))),
+                            m * cdt.itemsize / radix.SMEM_MAX_BYTES])
+                vec.append(ms * n / m)
+        if mat:
+            coef = np.linalg.lstsq(np.array(mat), np.array(vec),
+                                   rcond=None)[0]
+            (cost["share"], cost["line"], cost["stage"],
+             cost["fill"]) = (float(c) for c in coef)
+            err = np.array(mat) @ coef / np.array(vec) - 1
+            out["constants"].setdefault(dt, {})
+            print(f"[fit] {dt}: the chirp's dense M, {len(vec)} points: "
+                  f"error {err.min():+.3f} to {err.max():+.3f}, rms "
+                  f"{float(np.sqrt((err ** 2).mean())):.3f}")
         out["constants"][dt] = {
             "a_ms": a, "b_ms": b, "a_odd_ms": a_odd, "b_odd_ms": b_odd,
             "even": [a / b, 1.0], "odd": [a_odd / b, b_odd / b],
-            "chirp": {m: c / b for m, c in cost.items()}}
+            "chirp": {k: c / b for k, c in cost.items()}}
         print(f"[fit] {dt}: dense ms = {a:.4f} + {b:.5f}*s (even N), "
               f"{a_odd:.4f} + {b_odd:.5f}*s (odd N); in units of "
               f"{b:.5f} ms: even base {a / b:.2f}, odd base "
               f"{a_odd / b:.2f} and weight {b_odd / b:.3f}; chirp cost "
-              f"per M " + ", ".join(f"{m} {c / b:.2f}"
-                                   for m, c in cost.items()))
+              f"per element of M " + ", ".join(f"{k} {c / b:.2f}"
+                                                for k, c in cost.items()))
     for r in sorted(out["lengths"], key=lambda r: (r["dtype"], r["n"])):
         best = min(r["dense_ms"], r["chirp_ms"])
         print(f"[fit] {r['dtype']} {r['n']} s={r['s']} M={r['m']}: dense "
@@ -602,6 +842,16 @@ def fit(paths) -> dict:
             key = "moved_slower" if r["path"] == "chirp" else "kept_slower"
             out[key].append([r["dtype"], r["n"],
                              r[f"{r['path']}_ms"] / best - 1])
+    for r in forced:
+        n, dtype = r["shape"][1], getattr(torch, r["dtype"])
+        pick = chirp.chirp_plan(n, dtype).m
+        best = min(r["candidates"], key=lambda c: c["ms"])
+        mine = next((c for c in r["candidates"] if c["m"] == pick), None)
+        off = None if mine is None else mine["ms"] / best["ms"] - 1
+        out["m_picks"].append([r["dtype"], n, pick, best["m"], off])
+        print(f"[fit] chirp {r['dtype']} {n}: picks M={pick}, fastest "
+              f"forced M={best['m']} {best['route']} {best['ms']:.4f} ms; "
+              f"the pick {'not forced' if off is None else f'{off:+.1%}'}")
     print(f"[fit] moved to the chirp and slower there (by how much): "
           f"{out['moved_slower']}")
     print(f"[fit] kept on the dense route though the chirp was faster: "
@@ -667,6 +917,14 @@ def main(argv) -> int:
         result = split_general(argv[2], argv[3])
     elif len(argv) == 5 and argv[1] == "splitgencheck":
         result = split_general(argv[2], argv[3], SPLIT_GENERAL_CHECK)
+    elif len(argv) == 5 and argv[1] == "chirpm":
+        result = chirp_m(argv[2], argv[3])
+    elif len(argv) == 5 and argv[1] == "chirpmcheck":
+        result = chirp_m(argv[2], argv[3], CHIRP_CHECK)
+    elif len(argv) == 5 and argv[1] == "nested":
+        result = nested(argv[2], argv[3])
+    elif len(argv) == 5 and argv[1] == "nestedcheck":
+        result = nested(argv[2], argv[3], NESTED_CHECK)
     elif len(argv) == 5 and argv[1] == "sass":
         result = sass(argv[2], argv[3])
     else:

@@ -201,7 +201,7 @@ def _line_flops(n: int, backend: str, dtype: torch.dtype = torch.complex64
     lengths) and long-line paths; on its split route the same plus the
     inter-step twiddle between its two passes, one complex multiply (6
     FLOPs) per element; on its chirp route two transforms of M =
-    ``chirp.chirp_length(n)`` on their own route, their two twiddle
+    ``chirp.chirp_length(n, dtype)`` on M's route, their two twiddle
     epilogues and the input's chirp (6 FLOPs per element each); on its
     dense route (a mixed-radix chain, ``kernels.dense.chain``) 5 n log2 m
     over the chain's 13-smooth part m, plus 8 n p for each generic stage
@@ -215,7 +215,7 @@ def _line_flops(n: int, backend: str, dtype: torch.dtype = torch.complex64
         if path == "split":
             return 5.0 * n * math.log2(n) + 6.0 * n
         if path == "chirp":
-            m = chirp_length(n)
+            m = chirp_length(n, dtype)
             return 2.0 * _line_flops(m, "kernel", dtype) + 6.0 * (2 * m + n)
         if path == "dense":
             from ..kernels.dense import chain

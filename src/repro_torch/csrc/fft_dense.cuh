@@ -113,6 +113,25 @@ __device__ __forceinline__ void dense_copy(cpx<R>* dst, const cpx<R>* src) {
   }
 }
 
+// dense_copy of `src` where `valid`, else zeros (cp.async's src-size 0:
+// nothing is read); `src` must be a valid address either way.
+template <typename R>
+__device__ __forceinline__ void dense_copy_zfill(cpx<R>* dst,
+                                                 const cpx<R>* src,
+                                                 bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? static_cast<int>(sizeof(cpx<R>)) : 0;
+  if constexpr (sizeof(cpx<R>) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  }
+}
+
 __device__ __forceinline__ void dense_copy_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -330,17 +349,23 @@ __device__ __forceinline__ cpx<R>* dense_chain(cpx<R>* cur, cpx<R>* other,
 // values), the ints (per stage radix, span, M and W_p offset; then PL of
 // `lo` entries and PH), each part padded to 16 bytes; from byte buf_off
 // the tile of `lines` lines of n, and a second one where a generic stage
-// writes.  `out` is (parts, batch, n/parts) with seg = n/parts.  One
-// kernel per dtype, bound for its wide block (kDenseWide*).
-template <typename R>
-__global__ void __launch_bounds__(sizeof(R) == 4 ? kDenseWide64
-                                                 : kDenseWide128, 1)
-dense_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
-             const cpx<R>* __restrict__ gconsts,
-             const int* __restrict__ gints, const cpx<R>* __restrict__ tw,
-             long long batch, int n, int stages, int lines, int t_log2,
-             int lo, int n_consts, int n_ints, int buf_off, int inverse,
-             int seg) {
+// writes.  `out` is (parts, batch, n/parts) with seg = n/parts.
+//
+// With kFold (the chirp route's two transforms, kernels/chirp.py), the
+// line of n = M is a logical one: the load reads x's lines at pitch n_in
+// (the first n_in values, cp.async's zero fill past them) and multiplies
+// them by `pre` (n_in values, the input chirp) where it is given; the
+// store keeps outputs k < n_out only, `out` (parts, batch, n_out/parts)
+// with seg = n_out/parts.  Without it n_in = n_out = n and `pre` is
+// unused, so dense_kernel keeps its SASS.
+template <bool kFold, typename R>
+__device__ __forceinline__ void dense_body(
+    const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+    const cpx<R>* __restrict__ gconsts, const int* __restrict__ gints,
+    const cpx<R>* __restrict__ tw, const cpx<R>* __restrict__ pre,
+    long long batch, int n, int n_in, int n_out, int stages, int lines,
+    int t_log2, int lo, int n_consts, int n_ints, int buf_off, int inverse,
+    int seg) {
   extern __shared__ __align__(16) unsigned char dense_smem[];
   cpx<R>* consts = reinterpret_cast<cpx<R>*>(dense_smem);
   int* ints = reinterpret_cast<int*>(
@@ -354,29 +379,56 @@ dense_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   const int nl = left < lines ? static_cast<int>(left) : lines;
   const int work = nl * n;
 
-  // The tile, contiguous in global and in shared memory.
-  const cpx<R>* xb = x + line0 * n;
-  for (int i = threadIdx.x; i < work; i += blockDim.x)
-    dense_copy(cur + i, xb + i);
+  if constexpr (kFold) {
+    // Lines n_in apart in global memory, zeros past n_in.
+    const float inv_n = 1.0f / static_cast<float>(n);
+    for (int i = threadIdx.x; i < work; i += blockDim.x) {
+      const int l = div_small(i, n, inv_n);
+      const int m = i - l * n;
+      dense_copy_zfill(cur + i, x + (line0 + l) * n_in + (m < n_in ? m : 0),
+                       m < n_in);
+    }
+  } else {
+    // The tile, contiguous in global and in shared memory.
+    const cpx<R>* xb = x + line0 * n;
+    for (int i = threadIdx.x; i < work; i += blockDim.x)
+      dense_copy(cur + i, xb + i);
+  }
   for (int i = threadIdx.x; i < n_consts; i += blockDim.x)
     consts[i] = gconsts[i];
   for (int i = threadIdx.x; i < n_ints; i += blockDim.x) ints[i] = gints[i];
   dense_copy_wait();
   __syncthreads();
+  if constexpr (kFold) {
+    if (pre != nullptr) {
+      // the input chirp, read through L2 (every block reads the same n_in)
+      const float inv_n = 1.0f / static_cast<float>(n);
+#pragma unroll 4
+      for (int i = threadIdx.x; i < work; i += blockDim.x) {
+        const int l = div_small(i, n, inv_n);
+        const int m = i - l * n;
+        if (m < n_in) cur[i] = cmul(cur[i], pre[m]);
+      }
+      __syncthreads();
+    }
+  }
 
   cur = dense_chain<true>(cur, other, n, n, nl, stages, consts, ints, t_log2,
                          inverse);
 
-  // The store: output k of line l from PL[k mod lo] + PH[k div lo].
+  // The store: output k of line l from PL[k mod lo] + PH[k div lo]; with
+  // kFold the outputs k < n_out.
   const int* pl = ints + 4 * stages;
   const int* ph = pl + lo;
   const R scale = inverse ? R(1) / R(n) : R(1);
-  const float inv_n = 1.0f / static_cast<float>(n);
+  const int nk = kFold ? n_out : n;
+  const float inv_n = 1.0f / static_cast<float>(nk);
   const float inv_lo = 1.0f / static_cast<float>(lo);
   const float inv_seg = 1.0f / static_cast<float>(seg);
-  for (int i = threadIdx.x; i < work; i += blockDim.x) {
-    const int l = div_small(i, n, inv_n);
-    const int k = i - l * n;
+  for (int i = threadIdx.x; i < (kFold ? nl * n_out : work);
+       i += blockDim.x) {
+    const int l = div_small(i, nk, inv_n);
+    const int k = i - l * nk;
     const int kh = div_small(k, lo, inv_lo);
     cpx<R> v = cur[l * n + pl[k - kh * lo] + ph[kh]];
     if (tw != nullptr) v = cmul(v, tw[k]);
@@ -386,6 +438,42 @@ dense_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
     out[(static_cast<long long>(part) * batch + line0 + l) * seg + k -
         part * seg] = v;
   }
+}
+
+// One kernel per dtype, bound for its wide block (kDenseWide*).
+template <typename R>
+__global__ void __launch_bounds__(sizeof(R) == 4 ? kDenseWide64
+                                                 : kDenseWide128, 1)
+dense_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+             const cpx<R>* __restrict__ gconsts,
+             const int* __restrict__ gints, const cpx<R>* __restrict__ tw,
+             long long batch, int n, int stages, int lines, int t_log2,
+             int lo, int n_consts, int n_ints, int buf_off, int inverse,
+             int seg) {
+  dense_body<false>(x, out, gconsts, gints, tw,
+                    static_cast<const cpx<R>*>(nullptr), batch, n, n, n,
+                    stages, lines, t_log2, lo, n_consts, n_ints, buf_off,
+                    inverse, seg);
+}
+
+// The chirp route's transforms of M = n on this kernel (dense_body's
+// kFold): the first reads the N-long input lines (n_in = N, `pre` the
+// input chirp, n_out = M), the second keeps the first N outputs (n_in =
+// M, no `pre`, n_out = N, the pack_parts segment of N).
+template <typename R>
+__global__ void __launch_bounds__(sizeof(R) == 4 ? kDenseWide64
+                                                 : kDenseWide128, 1)
+dense_chirp_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+                   const cpx<R>* __restrict__ gconsts,
+                   const int* __restrict__ gints,
+                   const cpx<R>* __restrict__ tw,
+                   const cpx<R>* __restrict__ pre, long long batch, int n,
+                   int n_in, int n_out, int stages, int lines, int t_log2,
+                   int lo, int n_consts, int n_ints, int buf_off,
+                   int inverse, int seg) {
+  dense_body<true>(x, out, gconsts, gints, tw, pre, batch, n, n_in, n_out,
+                   stages, lines, t_log2, lo, n_consts, n_ints, buf_off,
+                   inverse, seg);
 }
 
 // Launches the dtype's kernel with `threads` (kDenseNarrow* or
@@ -407,12 +495,47 @@ int dense_launch(const void* x, void* out, const void* consts,
       smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (batch + lines - 1) / lines;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   dense_kernel<R><<<static_cast<unsigned>(blocks), threads,
                     static_cast<size_t>(smem_bytes), stream>>>(
       static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
       static_cast<const cpx<R>*>(consts), static_cast<const int*>(ints),
       static_cast<const cpx<R>*>(tw), batch, n, stages, lines, t_log2, lo,
       n_consts, n_ints, buf_off, inverse, seg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches dense_chirp_kernel: as dense_launch, the line n = M, the
+// input lines n_in apart and times `pre` (null: not multiplied), the
+// outputs k < n_out kept, `out` (parts, batch, n_out/parts) with seg =
+// n_out/parts.
+template <typename R>
+int dense_chirp_launch(const void* x, void* out, const void* consts,
+                       const void* ints, const void* tw, const void* pre,
+                       long long batch, int n, int n_in, int n_out,
+                       int stages, int lines, int t_log2, int lo,
+                       int n_consts, int n_ints, int buf_off, int inverse,
+                       int seg, int threads, int smem_bytes,
+                       cudaStream_t stream) {
+  if (batch <= 0) return 0;
+  constexpr int kNarrow = sizeof(R) == 4 ? kDenseNarrow64 : kDenseNarrow128;
+  constexpr int kWide = sizeof(R) == 4 ? kDenseWide64 : kDenseWide128;
+  if ((threads != kNarrow && threads != kWide) || n_in < 1 || n_in > n ||
+      n_out < 1 || n_out > n || seg < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_chirp_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (batch + lines - 1) / lines;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  dense_chirp_kernel<R><<<static_cast<unsigned>(blocks), threads,
+                          static_cast<size_t>(smem_bytes), stream>>>(
+      static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
+      static_cast<const cpx<R>*>(consts), static_cast<const int*>(ints),
+      static_cast<const cpx<R>*>(tw), static_cast<const cpx<R>*>(pre), batch,
+      n, n_in, n_out, stages, lines, t_log2, lo, n_consts, n_ints, buf_off,
+      inverse, seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,16 +554,19 @@ int dense_launch(const void* x, void* out, const void* consts,
 // table would be 128 MB at complex64 2^24), and writes the same (B, P, Q)
 // layout, unscaled.  Pass B runs the Q-long rows on dense_kernel, pass C
 // is split_transpose_any (fft_long.cuh).
-template <typename R>
-__global__ void __launch_bounds__(sizeof(R) == 4 ? kDenseWide64
-                                                 : kDenseWide128, 1)
-dense_column_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
-                    const cpx<R>* __restrict__ gconsts,
-                    const int* __restrict__ gints,
-                    const cpx<R>* __restrict__ wtab, int n, int q,
-                    int stages, int lines, int pitch, int t_log2, int lo,
-                    int n_consts, int n_ints, int buf_off, int inverse,
-                    int w_log2) {
+//
+// With kFold (the chirp route's first transform on a split plan of M =
+// P*Q, kernels/chirp.py) the block is a logical one: line b of x holds
+// n_in values at pitch n_in, index e = p*Q + q reads x[b*n_in + e] for e
+// < n_in (times `pre`[e], the input chirp) and zero past it.  Without it
+// dense_column_kernel keeps its SASS.
+template <bool kFold, typename R>
+__device__ __forceinline__ void dense_column_body(
+    const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+    const cpx<R>* __restrict__ gconsts, const int* __restrict__ gints,
+    const cpx<R>* __restrict__ wtab, const cpx<R>* __restrict__ pre, int n,
+    int q, int n_in, int stages, int lines, int pitch, int t_log2, int lo,
+    int n_consts, int n_ints, int buf_off, int inverse, int w_log2) {
   extern __shared__ __align__(16) unsigned char dense_smem[];
   cpx<R>* consts = reinterpret_cast<cpx<R>*>(dense_smem);
   int* ints = reinterpret_cast<int*>(
@@ -457,17 +583,43 @@ dense_column_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   const int nl = q - q0 < lines ? q - q0 : lines;
   const int work = n << lines_log2;
   const long long line0 = b * n * static_cast<long long>(q) + q0;
-  const cpx<R>* xb = x + line0;
-  for (int i = threadIdx.x; i < work; i += blockDim.x) {
-    const int l = i & (lines - 1);
-    const int p = i >> lines_log2;
-    if (l < nl) dense_copy(cur + l * pitch + p, xb + p * q + l);
+  if constexpr (kFold) {
+    const cpx<R>* xb = x + b * n_in;
+    for (int i = threadIdx.x; i < work; i += blockDim.x) {
+      const int l = i & (lines - 1);
+      const int p = i >> lines_log2;
+      const int e = p * q + q0 + l;  // < P*Q = M < 2^31
+      if (l < nl)
+        dense_copy_zfill(cur + l * pitch + p, xb + (e < n_in ? e : 0),
+                         e < n_in);
+    }
+  } else {
+    const cpx<R>* xb = x + line0;
+    for (int i = threadIdx.x; i < work; i += blockDim.x) {
+      const int l = i & (lines - 1);
+      const int p = i >> lines_log2;
+      if (l < nl) dense_copy(cur + l * pitch + p, xb + p * q + l);
+    }
   }
   for (int i = threadIdx.x; i < n_consts; i += blockDim.x)
     consts[i] = gconsts[i];
   for (int i = threadIdx.x; i < n_ints; i += blockDim.x) ints[i] = gints[i];
   dense_copy_wait();
   __syncthreads();
+  if constexpr (kFold) {
+    if (pre != nullptr) {
+      // the input chirp, read through L2
+#pragma unroll 4
+      for (int i = threadIdx.x; i < work; i += blockDim.x) {
+        const int l = i & (lines - 1);
+        const int p = i >> lines_log2;
+        const int e = p * q + q0 + l;
+        if (l < nl && e < n_in)
+          cur[l * pitch + p] = cmul(cur[l * pitch + p], pre[e]);
+      }
+      __syncthreads();
+    }
+  }
 
   cur = dense_chain<false>(cur, static_cast<cpx<R>*>(nullptr), n, pitch, nl,
                            stages, consts, ints, t_log2, inverse);
@@ -485,9 +637,95 @@ dense_column_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
     if (l >= nl) continue;
     const int kh = div_small(k, lo, inv_lo);
     const cpx<R> v = cur[l * pitch + pl[k - kh * lo] + ph[kh]];
-    const int e = k * (q0 + l);  // kp*q < N <= 2^24
+    const int e = k * (q0 + l);  // kp*q < N < 2^31
     ob[k * q + l] = cmul(v, cmul(wtab[e & wmask], wb[e >> w_log2]));
   }
+}
+
+template <typename R>
+__global__ void __launch_bounds__(sizeof(R) == 4 ? kDenseWide64
+                                                 : kDenseWide128, 1)
+dense_column_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+                    const cpx<R>* __restrict__ gconsts,
+                    const int* __restrict__ gints,
+                    const cpx<R>* __restrict__ wtab, int n, int q,
+                    int stages, int lines, int pitch, int t_log2, int lo,
+                    int n_consts, int n_ints, int buf_off, int inverse,
+                    int w_log2) {
+  dense_column_body<false>(x, out, gconsts, gints, wtab,
+                           static_cast<const cpx<R>*>(nullptr), n, q, 0,
+                           stages, lines, pitch, t_log2, lo, n_consts,
+                           n_ints, buf_off, inverse, w_log2);
+}
+
+// dense_column_body's kFold: pass A of the chirp's first transform.
+template <typename R>
+__global__ void __launch_bounds__(sizeof(R) == 4 ? kDenseWide64
+                                                 : kDenseWide128, 1)
+dense_column_chirp_kernel(const cpx<R>* __restrict__ x,
+                          cpx<R>* __restrict__ out,
+                          const cpx<R>* __restrict__ gconsts,
+                          const int* __restrict__ gints,
+                          const cpx<R>* __restrict__ wtab,
+                          const cpx<R>* __restrict__ pre, int n, int q,
+                          int n_in, int stages, int lines, int pitch,
+                          int t_log2, int lo, int n_consts, int n_ints,
+                          int buf_off, int inverse, int w_log2) {
+  dense_column_body<true>(x, out, gconsts, gints, wtab, pre, n, q, n_in,
+                          stages, lines, pitch, t_log2, lo, n_consts, n_ints,
+                          buf_off, inverse, w_log2);
+}
+
+// Launches pass A of a general plan (x and out (B, P, Q) blocks, batch =
+// B, n = P, q = Q) with `threads` on `stream`; returns the CUDA error code
+// (0 on success).  The layout's numbers come from
+// kernels/dense.py::column_plan.
+template <bool kFold, typename R>
+int dense_column_launch_as(const void* x, void* out, const void* consts,
+                           const void* ints, const void* wtab,
+                           const void* pre, long long batch, int n, int q,
+                           int n_in, int stages, int lines, int pitch,
+                           int t_log2, int lo, int n_consts, int n_ints,
+                           int buf_off, int inverse, int w_log2, int threads,
+                           int smem_bytes, cudaStream_t stream) {
+  if (batch <= 0) return 0;
+  constexpr int kNarrow = sizeof(R) == 4 ? kDenseNarrow64 : kDenseNarrow128;
+  constexpr int kWide = sizeof(R) == 4 ? kDenseWide64 : kDenseWide128;
+  if ((threads != kNarrow && threads != kWide) || lines < 1 ||
+      (lines & (lines - 1)) || pitch < n ||
+      (kFold && (n_in < 1 || static_cast<long long>(n_in) >
+                                 static_cast<long long>(n) * q)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if constexpr (kFold) {
+    err = cudaFuncSetAttribute(dense_column_chirp_kernel<R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+  } else {
+    err = cudaFuncSetAttribute(dense_column_kernel<R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = batch * ((q + lines - 1) / lines);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kFold) {
+    dense_column_chirp_kernel<R><<<static_cast<unsigned>(blocks), threads,
+                                   static_cast<size_t>(smem_bytes), stream>>>(
+        static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
+        static_cast<const cpx<R>*>(consts), static_cast<const int*>(ints),
+        static_cast<const cpx<R>*>(wtab), static_cast<const cpx<R>*>(pre), n,
+        q, n_in, stages, lines, pitch, t_log2, lo, n_consts, n_ints, buf_off,
+        inverse, w_log2);
+  } else {
+    dense_column_kernel<R><<<static_cast<unsigned>(blocks), threads,
+                             static_cast<size_t>(smem_bytes), stream>>>(
+        static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
+        static_cast<const cpx<R>*>(consts), static_cast<const int*>(ints),
+        static_cast<const cpx<R>*>(wtab), n, q, stages, lines, pitch, t_log2,
+        lo, n_consts, n_ints, buf_off, inverse, w_log2);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches pass A of a general plan (x and out (B, P, Q) blocks, batch =
@@ -501,25 +739,28 @@ int dense_column_launch(const void* x, void* out, const void* consts,
                         int t_log2, int lo, int n_consts, int n_ints,
                         int buf_off, int inverse, int w_log2, int threads,
                         int smem_bytes, cudaStream_t stream) {
-  if (batch <= 0) return 0;
-  constexpr int kNarrow = sizeof(R) == 4 ? kDenseNarrow64 : kDenseNarrow128;
-  constexpr int kWide = sizeof(R) == 4 ? kDenseWide64 : kDenseWide128;
-  if ((threads != kNarrow && threads != kWide) || lines < 1 ||
-      (lines & (lines - 1)) || pitch < n)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      dense_column_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = batch * ((q + lines - 1) / lines);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  dense_column_kernel<R><<<static_cast<unsigned>(blocks), threads,
-                           static_cast<size_t>(smem_bytes), stream>>>(
-      static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
-      static_cast<const cpx<R>*>(consts), static_cast<const int*>(ints),
-      static_cast<const cpx<R>*>(wtab), n, q, stages, lines, pitch, t_log2,
-      lo, n_consts, n_ints, buf_off, inverse, w_log2);
-  return static_cast<int>(cudaGetLastError());
+  return dense_column_launch_as<false, R>(
+      x, out, consts, ints, wtab, nullptr, batch, n, q, 0, stages, lines,
+      pitch, t_log2, lo, n_consts, n_ints, buf_off, inverse, w_log2, threads,
+      smem_bytes, stream);
+}
+
+// The chirp's pass A (dense_column_chirp_kernel): `x` holds B lines of
+// n_in values, read as the first n_in of (B, P, Q) blocks of M = P*Q,
+// times `pre`, zeros past n_in; `out` the (B, P, Q) blocks.
+template <typename R>
+int dense_column_chirp_launch(const void* x, void* out, const void* consts,
+                              const void* ints, const void* wtab,
+                              const void* pre, long long batch, int n, int q,
+                              int n_in, int stages, int lines, int pitch,
+                              int t_log2, int lo, int n_consts, int n_ints,
+                              int buf_off, int inverse, int w_log2,
+                              int threads, int smem_bytes,
+                              cudaStream_t stream) {
+  return dense_column_launch_as<true, R>(
+      x, out, consts, ints, wtab, pre, batch, n, q, n_in, stages, lines,
+      pitch, t_log2, lo, n_consts, n_ints, buf_off, inverse, w_log2, threads,
+      smem_bytes, stream);
 }
 
 }  // namespace repro_fft

@@ -27,12 +27,17 @@
 // codelets hold, N with cheap primes past 13), and every other 13-smooth
 // N whose line fits one block (complex64 to 28431, complex128 to 14196),
 // takes the dense route (fft_dense.cuh: a mixed-radix FFT over a run-time
-// chain, the line in shared memory; kernels/dense.py); any other N up to
-// complex64 2^23 / complex128 2^21 (dearer prime factors, a prime factor
-// past 13 that no codelet takes past those limits) takes the chirp route
-// (kernels/chirp.py: Bluestein's convolution as two of these launches on
-// lines of M = 2^ceil(log2(2N - 1)), the chirps in their twiddle
-// epilogues).
+// chain, the line in shared memory; kernels/dense.py); past the split
+// route's limits, up to 2^30, every N with a 13-smooth P on a column pass
+// and rows on another route takes its nested plans (the rows' own
+// launch); any other N up to 2^30 (dearer prime factors, a prime factor
+// past 13 that no codelet or nested plan takes) takes the chirp route
+// (kernels/chirp.py: Bluestein's convolution as two transforms of the
+// cheapest 13-smooth M from 2N - 1, the first one's load reading the
+// input times the chirp, the second one's store keeping the first N: the
+// dense route's, the long-line route's and the split route's pass A and
+// pass C kernels each have that form, the *_chirp_* and *_keep_* entry
+// points below).
 //
 // Replaces the TPU kernel src/repro/kernels/fft_matmul.py::_fft_kernel (the
 // pl.pallas_call in fft1d_planes), with its two fused epilogues: the
@@ -76,8 +81,15 @@ REPRO_RADIX_PART(float, kRadixSplitB)
 REPRO_RADIX_PART(double, kRadixSplitB)
 REPRO_LONG_PART(float)
 REPRO_LONG_PART(double)
+#define REPRO_LONG_CHIRP_PART(R)                                           \
+  template int repro_fft::long_chirp_part<R, REPRO_PART>(                  \
+      int, int, const void*, void*, const void*, const void*, const void*, \
+      long long, int, int, int, int, int, int, cudaStream_t);
+REPRO_LONG_CHIRP_PART(float)
+REPRO_LONG_CHIRP_PART(double)
 #undef REPRO_RADIX_PART
 #undef REPRO_LONG_PART
+#undef REPRO_LONG_CHIRP_PART
 
 #else
 
@@ -284,6 +296,113 @@ int repro_fft_split_c_any_c128(const void* z, void* out, const void* tw,
   return repro_fft::split_transpose_any<double>(
       z, out, tw, lines, p, q, seg, inverse,
       static_cast<cudaStream_t>(stream));
+}
+
+// The chirp route's two transforms (kernels/chirp.py) where M takes the
+// dense route: repro_fft_dense_* on lines of n = M whose input lines are
+// n_in apart (the first n_in values, zeros past them), times `pre` (the
+// input chirp, n_in values; null: not multiplied), and whose outputs k <
+// n_out are stored, `out` (parts, B, n_out/parts) with seg =
+// n_out/parts.
+int repro_fft_dense_chirp_c64(const void* x, void* out, const void* consts,
+                              const void* ints, const void* tw,
+                              const void* pre, long long batch, int n,
+                              int n_in, int n_out, int stages, int lines,
+                              int t_log2, int lo, int n_consts, int n_ints,
+                              int buf_off, int inverse, int seg, int threads,
+                              int smem_bytes, void* stream) {
+  return repro_fft::dense_chirp_launch<float>(
+      x, out, consts, ints, tw, pre, batch, n, n_in, n_out, stages, lines,
+      t_log2, lo, n_consts, n_ints, buf_off, inverse, seg, threads,
+      smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_dense_chirp_c128(const void* x, void* out, const void* consts,
+                               const void* ints, const void* tw,
+                               const void* pre, long long batch, int n,
+                               int n_in, int n_out, int stages, int lines,
+                               int t_log2, int lo, int n_consts, int n_ints,
+                               int buf_off, int inverse, int seg,
+                               int threads, int smem_bytes, void* stream) {
+  return repro_fft::dense_chirp_launch<double>(
+      x, out, consts, ints, tw, pre, batch, n, n_in, n_out, stages, lines,
+      t_log2, lo, n_consts, n_ints, buf_off, inverse, seg, threads,
+      smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The chirp route's transforms where M is a power of two on the long-line
+// route (kernels/longline.py::FOLD_SIZES): fold 1, the first, reads `x`'s
+// lines at pitch n_in in pass 1 times `pre`, zeros past n_in, and stores
+// the M-long lines (seg_log2 = log2(M)); fold 2, the second, reads M-long
+// lines and stores the outputs k < n_out, `out` (parts, B, n_out/parts)
+// with fold_seg = n_out/parts.  `consts` and `smem_bytes` as
+// repro_fft_long_*.
+int repro_fft_long_chirp_c64(const void* x, void* out, const void* consts,
+                             const void* tw, const void* pre,
+                             long long batch, int n, int fold, int inverse,
+                             int seg_log2, int n_in, int n_out, int fold_seg,
+                             int smem_bytes, void* stream) {
+  return repro_fft::long_chirp_dispatch<float>(
+      n, fold, x, out, consts, tw, pre, batch, inverse, seg_log2, n_in,
+      n_out, fold_seg, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_long_chirp_c128(const void* x, void* out, const void* consts,
+                              const void* tw, const void* pre,
+                              long long batch, int n, int fold, int inverse,
+                              int seg_log2, int n_in, int n_out,
+                              int fold_seg, int smem_bytes, void* stream) {
+  return repro_fft::long_chirp_dispatch<double>(
+      n, fold, x, out, consts, tw, pre, batch, inverse, seg_log2, n_in,
+      n_out, fold_seg, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The chirp route's first transform where M = P*Q takes a split plan:
+// pass A as repro_fft_split_a_dense_*, `x` B lines of n_in values read as
+// the first n_in of each (P, Q) block, times `pre`, zeros past n_in.
+int repro_fft_split_a_dense_chirp_c64(
+    const void* x, void* y, const void* consts, const void* ints,
+    const void* wtab, const void* pre, long long batch, int n, int q,
+    int n_in, int stages, int lines, int pitch, int t_log2, int lo,
+    int n_consts, int n_ints, int buf_off, int inverse, int w_log2,
+    int threads, int smem_bytes, void* stream) {
+  return repro_fft::dense_column_chirp_launch<float>(
+      x, y, consts, ints, wtab, pre, batch, n, q, n_in, stages, lines, pitch,
+      t_log2, lo, n_consts, n_ints, buf_off, inverse, w_log2, threads,
+      smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_split_a_dense_chirp_c128(
+    const void* x, void* y, const void* consts, const void* ints,
+    const void* wtab, const void* pre, long long batch, int n, int q,
+    int n_in, int stages, int lines, int pitch, int t_log2, int lo,
+    int n_consts, int n_ints, int buf_off, int inverse, int w_log2,
+    int threads, int smem_bytes, void* stream) {
+  return repro_fft::dense_column_chirp_launch<double>(
+      x, y, consts, ints, wtab, pre, batch, n, q, n_in, stages, lines, pitch,
+      t_log2, lo, n_consts, n_ints, buf_off, inverse, w_log2, threads,
+      smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The chirp route's second transform on a split plan: pass C as
+// repro_fft_split_c_any_*, only the outputs of < n_keep = N stored, `out`
+// (parts, B, N/parts) with seg = N/parts, `tw` N values.
+int repro_fft_split_c_keep_c64(const void* z, void* out, const void* tw,
+                               long long lines, int p, int q, int n_keep,
+                               int seg, int inverse, void* stream) {
+  if (n_keep < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return repro_fft::split_transpose_any<float>(
+      z, out, tw, lines, p, q, seg, inverse,
+      static_cast<cudaStream_t>(stream), n_keep);
+}
+
+int repro_fft_split_c_keep_c128(const void* z, void* out, const void* tw,
+                                long long lines, int p, int q, int n_keep,
+                                int seg, int inverse, void* stream) {
+  if (n_keep < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return repro_fft::split_transpose_any<double>(
+      z, out, tw, lines, p, q, seg, inverse,
+      static_cast<cudaStream_t>(stream), n_keep);
 }
 
 const char* repro_cuda_error_string(int code) {

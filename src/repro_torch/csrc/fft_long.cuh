@@ -155,17 +155,27 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// The chirp route's folded load and store (kernels/chirp.py) on this
+// kernel: kFoldIn, the first transform, copies x's line at pitch n_in
+// into the line buffer by plain loads (no bulk copy: an odd N's lines do
+// not start on 16 bytes), times `pre` (the input chirp, n_in values),
+// zeros past n_in, and pass 1 reads it there (reading global memory in
+// pass 1 itself spilled at complex64 16x32x32); kFoldOut, the second,
+// stages pass 3's outputs in the buffer and stores only the outputs o <
+// n_out, `out` (parts, batch, n_out/parts) with seg = n_out/parts of any
+// length and `gtw` n_out values, before the next line's bulk copy.
+constexpr int kFoldNone = 0, kFoldIn = 1, kFoldOut = 2;
+
 // `out` is (parts, batch, N/parts) with seg_log2 = log2(N/parts); `gtw`
 // (the output twiddle, N values) may be null.  The grid is persistent:
-// block b takes lines b, b + gridDim.x, ...
-template <typename R, int R1, int R2, int R3, int DEPTH>
-__global__ void __launch_bounds__(
-    LongShape<R1, R2, R3>::THREADS,
-    (long_min_blocks<R, R1, R2, R3, DEPTH>()))
-long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
-            const cpx<R>* __restrict__ consts,
-            const cpx<R>* __restrict__ gtw, long long batch, int inverse,
-            int seg_log2) {
+// block b takes lines b, b + gridDim.x, ...  FOLD (kFoldNone for
+// long_kernel, whose SASS it keeps) as above.
+template <typename R, int R1, int R2, int R3, int DEPTH, int FOLD>
+__device__ __forceinline__ void long_body(
+    const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+    const cpx<R>* __restrict__ consts, const cpx<R>* __restrict__ gtw,
+    long long batch, int inverse, int seg_log2,
+    const cpx<R>* __restrict__ pre, int n_in, int n_out, int fold_seg) {
   using S = LongShape<R1, R2, R3>;
   constexpr int N = S::N, RM = S::RM, T = S::THREADS, Q = S::Q;
   constexpr int PITCH = S::PITCH, M1 = N / R1;
@@ -186,7 +196,7 @@ long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   }
   __syncthreads();
   const long long stride = gridDim.x;
-  if (tid == 0) {
+  if (FOLD != kFoldIn && tid == 0) {
     for (int d = 0; d < DEPTH; ++d) {
       const long long line = blockIdx.x + d * stride;
       if (line < batch)
@@ -198,12 +208,29 @@ long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   constexpr R kInvN = R(1) / R(N);
   const R scale = inverse ? kInvN : R(1);
   const int seg = 1 << seg_log2;
+  const float inv_fold_seg =
+      FOLD == kFoldOut ? 1.0f / static_cast<float>(fold_seg) : 0.0f;
 
   int slot = 0;
   unsigned parity = 0;
   for (long long line = blockIdx.x; line < batch; line += stride) {
     cpx<R>* const s = bufs + slot * S::LINE;
-    mbar_wait(&bars[slot], parity);
+    if constexpr (FOLD == kFoldIn) {
+      // the line from global memory at pitch n_in, times the chirp,
+      // zeros past n_in (pass 1 then runs as it does on a bulk copy)
+      const cpx<R>* const xl = x + line * n_in;
+#pragma unroll 8
+      for (int e = tid; e < N; e += T) {
+        cpx<R> y;
+        y.re = R(0);
+        y.im = R(0);
+        if (e < n_in) y = cmul(xl[e], pre[e]);
+        s[e] = y;
+      }
+      __syncthreads();
+    } else {
+      mbar_wait(&bars[slot], parity);
+    }
 
     // Pass 1: item mb = m2*R3 + m3 reads x[m1*M1 + mb], writes in place.
     auto pass1 = [&](auto it) {
@@ -283,7 +310,7 @@ long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
     // bulk copy (async proxy) that overwrites it.
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    if (tid == 0) {
+    if (FOLD == kFoldNone && tid == 0) {
       const long long next = line + DEPTH * stride;
       if (next < batch) bulk_load(s, x + next * N, kLineBytes, &bars[slot]);
     }
@@ -295,6 +322,10 @@ long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
         constexpr int k3 = decltype(j)::value;
         const int o = ka + Q * k3;
         cpx<R> y = v[i][k3];
+        if constexpr (FOLD == kFoldOut) {
+          s[o] = y;  // staged in natural order, stored below
+          return;
+        }
         if (gtw != nullptr) y = cmul(y, gtw[o]);
         y.re *= scale;
         y.im *= scale;
@@ -316,11 +347,66 @@ long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
       static_for<0, R3>(store);
     };
     static_for<0, I3>(store_item);
+    if constexpr (FOLD == kFoldOut) {
+      // The outputs o < n_out from the buffer, with the epilogues, in
+      // segments of any length (a store per output from registers,
+      // with its segment's arithmetic, spilled at complex64 16x32x32).
+      __syncthreads();
+      cpx<R>* const ol = out + line * fold_seg;
+      const long long plane = batch * fold_seg;
+      for (int o = tid; o < n_out; o += T) {
+        cpx<R> y = s[o];
+        if (gtw != nullptr) y = cmul(y, gtw[o]);
+        y.re *= scale;
+        y.im *= scale;
+        // o / fold_seg in fp32, exact for o < 2^22 (the radix route's
+        // plain store)
+        const int part = __float2int_rz(((float)o + 0.5f) * inv_fold_seg);
+        ol[part * plane + o - part * fold_seg] = y;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (tid == 0) {
+        const long long next = line + DEPTH * stride;
+        if (next < batch)
+          bulk_load(s, x + next * N, kLineBytes, &bars[slot]);
+      }
+    }
     if (++slot == DEPTH) {
       slot = 0;
       parity ^= 1;
     }
   }
+}
+
+template <typename R, int R1, int R2, int R3, int DEPTH>
+__global__ void __launch_bounds__(
+    LongShape<R1, R2, R3>::THREADS,
+    (long_min_blocks<R, R1, R2, R3, DEPTH>()))
+long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+            const cpx<R>* __restrict__ consts,
+            const cpx<R>* __restrict__ gtw, long long batch, int inverse,
+            int seg_log2) {
+  long_body<R, R1, R2, R3, DEPTH, kFoldNone>(
+      x, out, consts, gtw, batch, inverse, seg_log2,
+      static_cast<const cpx<R>*>(nullptr), 0, 0, 1);
+}
+
+// The chirp route's transforms of a power-of-two M on this route: FOLD
+// kFoldIn (the first) or kFoldOut (the second).
+template <typename R, int R1, int R2, int R3, int DEPTH, int FOLD>
+__global__ void __launch_bounds__(
+    LongShape<R1, R2, R3>::THREADS,
+    (long_min_blocks<R, R1, R2, R3, DEPTH>()))
+long_chirp_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+                  const cpx<R>* __restrict__ consts,
+                  const cpx<R>* __restrict__ gtw,
+                  const cpx<R>* __restrict__ pre, long long batch,
+                  int inverse, int seg_log2, int n_in, int n_out,
+                  int fold_seg) {
+  long_body<R, R1, R2, R3, DEPTH, FOLD>(x, out, consts, gtw, batch, inverse,
+                                        seg_log2, pre, n_in, n_out,
+                                        fold_seg);
 }
 
 // Launches a long-line kernel (long_kernel or long_mixed_kernel, whose
@@ -969,6 +1055,112 @@ int long_part(int n, const void* x, void* out, const void* consts,
 }
 #endif
 
+// The chirp route's transforms on the power-of-two lengths of this route
+// (kernels/longline.py::FOLD_SIZES), fold = kFoldIn or kFoldOut, in build
+// part build_part(n, kLongChirpMode, c64); cudaErrorInvalidValue for any
+// other N or fold.
+constexpr int kLongChirpMode = 4;
+
+template <typename R, int PART>
+int long_chirp_part(int n, int fold, const void* x, void* out,
+                    const void* consts, const void* tw, const void* pre,
+                    long long batch, int inverse, int seg_log2, int n_in,
+                    int n_out, int fold_seg, int smem_bytes,
+                    cudaStream_t stream);
+
+#if !defined(REPRO_PART) || REPRO_PART >= 0
+template <typename R, typename Kernel>
+int long_chirp_launch(Kernel kernel, int threads, size_t layout_bytes,
+                      const void* x, void* out, const void* consts,
+                      const void* tw, const void* pre, long long batch,
+                      int inverse, int seg_log2, int n_in, int n_out,
+                      int fold_seg, int smem_bytes, cudaStream_t stream) {
+  if ((size_t)smem_bytes != layout_bytes) return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      (size_t)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (grid > batch) grid = batch;
+  kernel<<<(unsigned)grid, threads, (size_t)smem_bytes, stream>>>(
+      static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),
+      static_cast<const cpx<R>*>(consts), static_cast<const cpx<R>*>(tw),
+      static_cast<const cpx<R>*>(pre), batch, inverse, seg_log2, n_in, n_out,
+      fold_seg);
+  return (int)cudaGetLastError();
+}
+
+template <typename R, int PART>
+int long_chirp_part(int n, int fold, const void* x, void* out,
+                    const void* consts, const void* tw, const void* pre,
+                    long long batch, int inverse, int seg_log2, int n_in,
+                    int n_out, int fold_seg, int smem_bytes,
+                    cudaStream_t stream) {
+  constexpr bool c64 = sizeof(R) == sizeof(float);
+#define REPRO_LONG_CHIRP_CASE(NN, A, B, C)                                 \
+  case NN:                                                                 \
+    if constexpr (build_part(NN, kLongChirpMode, c64) == PART) {           \
+      constexpr int D = long_depth<R, A, B, C>();                          \
+      if (fold == kFoldIn)                                                 \
+        return long_chirp_launch<R>(                                       \
+            long_chirp_kernel<R, A, B, C, D, kFoldIn>,                     \
+            LongShape<A, B, C>::THREADS, long_smem_bytes<R, A, B, C, D>(), \
+            x, out, consts, tw, pre, batch, inverse, seg_log2, n_in, n_out,\
+            fold_seg, smem_bytes, stream);                                 \
+      if (fold == kFoldOut)                                                \
+        return long_chirp_launch<R>(                                       \
+            long_chirp_kernel<R, A, B, C, D, kFoldOut>,                    \
+            LongShape<A, B, C>::THREADS, long_smem_bytes<R, A, B, C, D>(), \
+            x, out, consts, tw, pre, batch, inverse, seg_log2, n_in, n_out,\
+            fold_seg, smem_bytes, stream);                                 \
+    }                                                                      \
+    break;
+  // kernels/longline.py::FOLD_SIZES lists the same lengths.
+  if constexpr (c64) {
+    switch (n) {
+      REPRO_LONG_CHIRP_CASE(8192, 16, 16, 32)
+      REPRO_LONG_CHIRP_CASE(16384, 16, 32, 32)
+    }
+  } else {
+    switch (n) {
+      REPRO_LONG_CHIRP_CASE(2048, 8, 16, 16)
+      REPRO_LONG_CHIRP_CASE(4096, 16, 16, 16)
+      REPRO_LONG_CHIRP_CASE(8192, 16, 16, 32)
+    }
+  }
+#undef REPRO_LONG_CHIRP_CASE
+  return (int)cudaErrorInvalidValue;
+}
+#endif
+
+// Lines of n on the chirp route's long-line kernels: long_chirp_part of
+// n's build part.
+template <typename R, int P = 0>
+int long_chirp_dispatch(int n, int fold, const void* x, void* out,
+                        const void* consts, const void* tw, const void* pre,
+                        long long batch, int inverse, int seg_log2, int n_in,
+                        int n_out, int fold_seg, int smem_bytes,
+                        cudaStream_t stream) {
+  if constexpr (P + 1 < kBuildParts) {
+    if (build_part(n, kLongChirpMode, sizeof(R) == sizeof(float)) != P)
+      return long_chirp_dispatch<R, P + 1>(
+          n, fold, x, out, consts, tw, pre, batch, inverse, seg_log2, n_in,
+          n_out, fold_seg, smem_bytes, stream);
+  }
+  return long_chirp_part<R, P>(n, fold, x, out, consts, tw, pre, batch,
+                               inverse, seg_log2, n_in, n_out, fold_seg,
+                               smem_bytes, stream);
+}
+
 // Lines of n on the long-line kernels: long_part of n's build part.
 template <typename R, int P = 0>
 int long_dispatch(int n, const void* x, void* out, const void* consts,
@@ -1091,14 +1283,18 @@ int split_transpose(const void* z, void* out, const void* tw,
 // with P by multiplication and every 32 x 32 tile bounds-checked on kp
 // and kq (neither need be a multiple of 32), the segment (seg =
 // P*Q/parts, any length) by div_small and the inverse's 1/P as `scale`,
-// worked out on the host (pass B, dense_kernel, applied the 1/Q).  Grid: (ceil(Q/32), ceil(P/32), up to
-// 65535 lines).
-template <typename R>
-__global__ void __launch_bounds__(kTransposeTile * kTransposeRows)
-split_transpose_any_kernel(const cpx<R>* __restrict__ z,
-                           cpx<R>* __restrict__ out,
-                           const cpx<R>* __restrict__ gtw, long long lines,
-                           int p, int q, int seg, R scale) {
+// worked out on the host (pass B, the rows' own launch, applied the
+// 1/Q).  Grid: (ceil(Q/32), ceil(P/32), up to 65535 lines).
+//
+// With kKeep (the chirp route's second transform on a split plan of M =
+// P*Q, kernels/chirp.py) only the outputs of < n_keep (= N) are stored,
+// `out` (parts, lines, N/parts) with seg = N/parts and `gtw` N values;
+// without it split_transpose_any_kernel keeps its SASS.
+template <bool kKeep, typename R>
+__device__ __forceinline__ void split_transpose_any_body(
+    const cpx<R>* __restrict__ z, cpx<R>* __restrict__ out,
+    const cpx<R>* __restrict__ gtw, long long lines, int p, int q, int seg,
+    R scale, int n_keep) {
   constexpr int T = kTransposeTile;
   __shared__ cpx<R> tile[T][T + 1];
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -1116,6 +1312,7 @@ split_transpose_any_kernel(const cpx<R>* __restrict__ z,
     for (int j = ty; j < T; j += kTransposeRows) {
       if (store_p && kq0 + j < q) {
         const int of = kp0 + tx + (kq0 + j) * p;
+        if (kKeep && of >= n_keep) continue;
         cpx<R> y = tile[tx][j];
         if (gtw != nullptr) y = cmul(y, gtw[of]);
         y.re *= scale;
@@ -1128,21 +1325,50 @@ split_transpose_any_kernel(const cpx<R>* __restrict__ z,
   }
 }
 
-// Pass C of a general plan: seg = P*Q/parts of any length.
+template <typename R>
+__global__ void __launch_bounds__(kTransposeTile * kTransposeRows)
+split_transpose_any_kernel(const cpx<R>* __restrict__ z,
+                           cpx<R>* __restrict__ out,
+                           const cpx<R>* __restrict__ gtw, long long lines,
+                           int p, int q, int seg, R scale) {
+  split_transpose_any_body<false>(z, out, gtw, lines, p, q, seg, scale, 0);
+}
+
+template <typename R>
+__global__ void __launch_bounds__(kTransposeTile * kTransposeRows)
+split_transpose_keep_kernel(const cpx<R>* __restrict__ z,
+                            cpx<R>* __restrict__ out,
+                            const cpx<R>* __restrict__ gtw, long long lines,
+                            int p, int q, int seg, R scale, int n_keep) {
+  split_transpose_any_body<true>(z, out, gtw, lines, p, q, seg, scale,
+                                 n_keep);
+}
+
+// Pass C of a general plan: seg = P*Q/parts of any length; with n_keep <
+// P*Q (the chirp's second transform) only the outputs of < n_keep, seg =
+// n_keep/parts.
 template <typename R>
 int split_transpose_any(const void* z, void* out, const void* tw,
                         long long lines, int p, int q, int seg, int inverse,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int n_keep = 0) {
   if (lines <= 0) return 0;
-  if (p < 1 || q < 1 || seg < 1) return (int)cudaErrorInvalidValue;
+  if (p < 1 || q < 1 || seg < 1 || (p + 31) / 32 > 65535 || n_keep < 0 ||
+      (long long)n_keep > (long long)p * q)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((q + 31) / 32), (unsigned)((p + 31) / 32),
                   (unsigned)(lines < 65535 ? lines : 65535));
   const dim3 block(kTransposeTile, kTransposeRows);
   // 1/P rounded once, as the plain version's scale
   const R scale = inverse ? (R)(1.0 / (double)p) : R(1);
-  split_transpose_any_kernel<R><<<grid, block, 0, stream>>>(
-      static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
-      static_cast<const cpx<R>*>(tw), lines, p, q, seg, scale);
+  if (n_keep > 0) {
+    split_transpose_keep_kernel<R><<<grid, block, 0, stream>>>(
+        static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
+        static_cast<const cpx<R>*>(tw), lines, p, q, seg, scale, n_keep);
+  } else {
+    split_transpose_any_kernel<R><<<grid, block, 0, stream>>>(
+        static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
+        static_cast<const cpx<R>*>(tw), lines, p, q, seg, scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from . import radix
-from .chirp import chirp_length
+from . import chirp
 
 #: Threads of one block, per complex element size: (narrow, wide), the
 #: wide count for a tile whose shared memory leaves no room for a second
@@ -92,26 +92,35 @@ DENSE_LIMIT = {torch.complex64: 4835, torch.complex128: 2419}
 #: even N (a generic stage of p sums p terms for each output): the dense
 #: route's (base, weight) per parity of N, its time per element being
 #: base + weight * generic_sum (complex128's generic stages ran slower in
-#: odd N), and the chirp route's time per element of its M-long
-#: lines, per M ("chirp"; M below the least entry costs as that entry).
-#: Fit on an H100 to both routes forced on the same lines
-#: (``scripts/route_times.py generic``, then ``fit``; PERF.md has the
-#: readings).
+#: odd N), and the chirp route's time per element of its M-long lines
+#: ("chirp", ``chirp.route_cost``): its two transforms on the dense
+#: route's kernel, a base per tile (lines of M sharing a block, "share",
+#: or one line a block, "line") plus a weight per stage of M's chain and
+#: one per share of a block's shared memory that a line of M fills
+#: ("fill"), on the long-line route at its powers of two, or on a split
+#: plan of M.
+#: ``chirp.chirp_plan`` takes the M whose cost is least.  Fit on an H100
+#: to both routes forced on the same lines (``scripts/route_times.py
+#: generic``) and to the chirp forced at candidate M (``chirpm``), then
+#: ``fit``; PERF.md has the readings.
 GENERIC_COST = {
-    torch.complex64: {"even": (19, 1), "odd": (14, 1), "chirp": {
-        128: 31, 256: 28, 512: 28, 1024: 26, 2048: 32, 4096: 62, 8192: 29,
-        16384: 27}},
-    torch.complex128: {"even": (31, 1), "odd": (1.5, 1.75), "chirp": {
-        128: 47, 256: 43, 512: 45, 1024: 54, 2048: 42, 4096: 42,
-        8192: 44}},
+    torch.complex64: {"even": (19.00, 1), "odd": (15.03, 1.025),
+                      "chirp": {"share": 20.29, "line": 18.97,
+                                "stage": 3.35, "fill": 25.82,
+                                "long": 20.55, "split": 74.05}},
+    torch.complex128: {"even": (30.62, 1), "odd": (1.07, 1.747),
+                       "chirp": {"share": 14.68, "line": 18.41,
+                                 "stage": 7.57, "fill": 45.14,
+                                 "long": 28.38, "split": 109.67}},
 }
 #: The chirp route takes an N up to :data:`DENSE_LIMIT` only where
 #: :data:`GENERIC_COST` puts it this factor cheaper than the dense route:
-#: the fit's worst error over the swept lengths (``route_times.py fit``)
-#: was a dense route 20% cheaper than predicted against the chirp
-#: (complex128 122), so within it no length leaves the dense route for a
-#: slower one.
-MOVE_MARGIN = 1.25
+#: over the swept lengths (``route_times.py fit`` over ``generic`` and
+#: ``chirpm``) the factor whose worst loss either way is least: 3 lengths
+#: left the dense route for a chirp at most 7.4% slower and 6 stayed on a
+#: dense route at most 11.3% slower (at 1.0: 11.8% and 4.3%; at 1.15: none
+#: and 25.7%).
+MOVE_MARGIN = 1.1
 
 
 def chain(n: int) -> Tuple[int, ...]:
@@ -250,17 +259,18 @@ def takes(n: int, dtype: torch.dtype) -> bool:
     The costs per line, in :data:`GENERIC_COST`'s units: N times the
     dense route's base plus its weight times :func:`generic_sum`, against
     :data:`MOVE_MARGIN` times M times the chirp route's cost per element
-    of M (M = ``chirp.chirp_length(n)``)."""
+    of M (``chirp.chirp_plan``'s M and ``chirp.route_cost``)."""
     if dtype not in DENSE_LIMIT:
         return False
     if 1 <= n <= DENSE_LIMIT[dtype]:
         s = generic_sum(n)
         if s == 0:
             return True
-        cost, m = GENERIC_COST[dtype], chirp_length(n)
-        base, weight = cost["odd" if n % 2 else "even"]
-        return (base + weight * s) * n <= MOVE_MARGIN * cost["chirp"][
-            max(m, min(cost["chirp"]))] * m
+        plan = chirp.chirp_plan(n, dtype)
+        base, weight = GENERIC_COST[dtype]["odd" if n % 2 else "even"]
+        return plan is None or (base + weight * s) * n <= (
+            MOVE_MARGIN * chirp.route_cost(plan.m, plan.route, dtype)
+            * plan.m)
     return radix.smooth(n) and fits(n, dtype)
 
 
@@ -293,7 +303,8 @@ def column_plan(p: int, dtype: torch.dtype) -> Optional[DensePlan]:
     block), its lines P + 1 apart for an even P (P for an odd one) so that
     consecutive columns do not share a bank; None where no count fits or
     P is not 13-smooth."""
-    if p < 2 or not radix.smooth(p):
+    if (p < 2 or not radix.smooth(p)
+            or p * COLUMN_LINES[-1] * dtype.itemsize > radix.SMEM_MAX_BYTES):
         return None
     for lines in COLUMN_LINES:
         plan = dataclasses.replace(_layout(p, dtype.itemsize, lines),

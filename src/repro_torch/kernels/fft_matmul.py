@@ -71,15 +71,20 @@ and every other 13-smooth N whose line fits one block (complex64 to
 DFT-matrix kernel it replaced, now a mixed-radix FFT over a chain chosen
 at run time, the lines in shared memory, ``csrc/fft_dense.cuh``, planned
 in ``kernels/dense.py``, whose ``emulate`` is that route's plain
-version; every other N (dearer prime factors, or a prime factor past 13
-that no codelet takes past that limit) takes the chirp
-route — Bluestein's convolution as two transforms of M =
-2^ceil(log2(2N - 1)) on the radix, long-line or split route with the
-chirps in their ``twiddle`` epilogues, planned in ``kernels/chirp.py``,
-whose ``emulate`` is that route's plain version (N up to 2^23 for
-complex64, 2^21 for complex128); past that, N with a prime factor past
-13 raises on the card (``launch_config``).  A failed build or launch
-raises; nothing falls back.
+version; past the split route's limit every N with a 13-smooth P on a
+column pass and rows on another route takes its nested plans (the rows'
+own launch, ``split.nested_factors``); every other N (dearer prime
+factors, or a prime factor past 13 that no codelet or nested plan
+takes) takes the chirp route — Bluestein's convolution as two
+transforms of M, the cheapest 13-smooth length from 2N - 1, on the
+dense route's kernel, the long-line route's powers of two or a split
+plan, the first one's load reading the input times the chirp and the
+second one's store keeping the first N, the filter and the output chirp
+in their ``twiddle`` epilogues, planned in ``kernels/chirp.py``, whose
+``emulate`` is that route's plain version (N up to 2^30, M within the
+kernels' 32-bit line index); past that N raises on the card
+(``launch_config``).  A failed build or launch raises; nothing falls
+back.
 
 :func:`fft_fourstep_strided` takes a contiguous ``(outer, N, inner)``
 block and transforms dim 1 on the radix path, writing the same layout:
@@ -95,10 +100,12 @@ else touches them.  A split call is two launches (three with rows on the
 long-line route or the dense kernel), each counted on "split" and the
 layout it runs (pass
 A: "strided", "fourstep"; passes B and C: "lines"; the last carries the
-call's variant), and adds one to ``fft_fourstep.split_calls``.  A chirp
-call is two inner transforms (one launch each on the long-line route, a
-split call's two or three on the split route), every launch counted on
-"chirp" and its layout, and adds one to ``fft_fourstep.chirp_calls``.
+call's variant), and adds one to ``fft_fourstep.split_calls`` (a nested
+plan's rows count on "split" with no call of their own).  A chirp call
+is two inner transforms (one launch each on the dense or the long-line
+route, a split plan's pass A, rows and pass C on the split route), every
+launch counted on "chirp" and its layout, and adds one to
+``fft_fourstep.chirp_calls``.
 """
 from __future__ import annotations
 
@@ -139,18 +146,21 @@ def launch_config(n: int, itemsize: int) -> LaunchConfig:
     if not dense.takes(n, dtype):
         raise ValueError(
             f"fft_fourstep: N={n} is on no route for {itemsize}-byte "
-            f"complex elements: past the chirp route's "
-            f"{chirp.max_length(dtype)} only the split route runs, up to "
-            f"{split.LIMIT.get(dtype)}, so N with a prime factor past 13 "
-            f"that no codelet takes and any N past that raise.  The dense "
-            f"route takes N up to {dense.DENSE_LIMIT[dtype]} whose generic "
-            f"stages cost no more than the chirp route and the 13-smooth N "
-            f"whose line fits one block's {SMEM_MAX_BYTES} bytes of shared "
-            f"memory; the split route takes the powers of two and r*2^k, r "
-            f"in {radix.EVERY_ROUTE_ODD} (its table and split.rule_factors)"
-            f" and every other 13-smooth N past one block "
-            f"(split.general_factors); the chirp route every other N up to "
-            f"{chirp.max_length(dtype)}")
+            f"complex elements: the kernels index a line with 32-bit ints "
+            f"(split.LINE_MAX = {split.LINE_MAX}), so the routes take N up "
+            f"to {split.MAX_LENGTH} (split.MAX_LENGTH) but for the N past "
+            f"{chirp.max_chirp_length()} with no 13-smooth plan, whose "
+            f"chirp's M (at least 2N - 1) would pass that line index.  The "
+            f"dense route takes N up to {dense.DENSE_LIMIT[dtype]} whose "
+            f"generic stages cost no more than the chirp route and the "
+            f"13-smooth N whose line fits one block's {SMEM_MAX_BYTES} "
+            f"bytes of shared memory; the split route the powers of two "
+            f"and r*2^k, r in {radix.EVERY_ROUTE_ODD} (its table and "
+            f"split.rule_factors), every other 13-smooth N past one block "
+            f"up to {split.LIMIT.get(dtype)} (split.general_factors) and "
+            f"past that every N with a 13-smooth P on a column pass and "
+            f"rows on another route (split.nested_factors); the chirp "
+            f"route every other N whose M has a route (chirp.chirp_plan)")
     plan = dense.dense_plan(n, dtype)
     return LaunchConfig(lines=plan.lines, buffers=plan.buffers,
                         smem_bytes=plan.smem_bytes)
@@ -368,13 +378,16 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
             count_as: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel on ``(B, N)`` lines, or with ``strided`` on a
     contiguous ``(outer, N, inner)`` block, and count the launch on its
-    path, or on ``count_as`` (the chirp route's inner transforms)."""
+    path, or on ``count_as`` (the rows of a nested split plan, the chirp
+    route's inner transforms: their caller's path, and no call of their
+    own)."""
     n = x.shape[1]
     path = radix.kernel_path(n, x.dtype)
     if path == "split":
         return _launch_split(x, tw, inverse=inverse, pack_parts=pack_parts,
                              plan=split.split_plan(n, x.dtype),
-                             count_as=count_as or "split")
+                             count_as=count_as or "split",
+                             call=count_as is None)
     if path == "chirp":
         return _launch_chirp(x, tw, inverse=inverse, pack_parts=pack_parts)
     from . import build
@@ -436,69 +449,170 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
     return out
 
 
-def _chirp_constants(n: int, inverse: bool, dtype: torch.dtype,
+def _chirp_constants(n: int, m: int, inverse: bool, dtype: torch.dtype,
                      device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """The chirp route's input chirp, transformed filter and output chirp
-    on ``device`` (``chirp.constants``, built in float64), cached with the
-    other paths' constants."""
+    """The chirp route's input chirp (N,), transformed filter (M,) and
+    output chirp (N,) on ``device`` (``chirp.constants``, built in
+    float64), cached with the other paths' constants under (N, M)."""
     def build():
         return tuple(torch.from_numpy(t).to(device=device, dtype=dtype)
-                     for t in chirp.constants(n, inverse))
-    return _cached(("chirp", n, bool(inverse), dtype, device), build)
+                     for t in chirp.constants(n, inverse, m))
+    return _cached(("chirp", n, m, bool(inverse), dtype, device), build)
+
+
+def _launch_dense_chirp(x: torch.Tensor, out: torch.Tensor, m: int,
+                        tw: Optional[torch.Tensor],
+                        pre: Optional[torch.Tensor], n_out: int, seg: int,
+                        *, inverse: bool) -> None:
+    """One of the chirp route's transforms on the dense route's kernel
+    (``repro_fft_dense_chirp_*``): lines of M read from ``x``'s rows at
+    their pitch (zeros past it), times ``pre`` where given; the outputs k
+    < ``n_out`` stored into ``out``, segment ``seg``; counted on
+    "chirp"."""
+    from . import build
+    lib = build.load("fft_fourstep")
+    _declare(lib)
+    b, n_in = x.shape
+    cdt, dev = x.dtype, x.device
+    plan = dense.dense_plan(m, cdt)
+    with torch.cuda.device(dev):
+        current = torch.cuda.current_stream(dev)
+        consts, ints = _dense_constants(m, inverse, cdt, dev)
+        for c in (consts, ints):
+            c.record_stream(current)
+        if x.data_ptr() % x.element_size():
+            x = x.clone()          # the copies read whole aligned elements
+        fn = getattr(lib, "repro_fft_dense_chirp_"
+                     + ("c64" if cdt == torch.complex64 else "c128"))
+        err = fn(x.data_ptr(), out.data_ptr(), consts.data_ptr(),
+                 ints.data_ptr(), tw.data_ptr() if tw is not None else None,
+                 pre.data_ptr() if pre is not None else None, b, m, n_in,
+                 n_out, len(plan.radices), plan.lines, plan.t_log2, plan.lo,
+                 plan.n_consts, plan.n_ints, plan.buf_offset, int(inverse),
+                 seg, plan.threads, plan.smem_bytes, current.cuda_stream)
+    _raise_on(err, lib, "chirp", x)
+    _count("chirp", "lines", _variant(tw, None))
+
+
+def _launch_long_chirp(x: torch.Tensor, out: torch.Tensor, m: int,
+                       tw: Optional[torch.Tensor],
+                       pre: Optional[torch.Tensor], n_out: int, seg: int,
+                       *, inverse: bool) -> None:
+    """One of the chirp route's transforms of a power-of-two M on the
+    long-line route (``repro_fft_long_chirp_*``): with ``pre`` the first
+    (pass 1 reads ``x``'s rows at their pitch times ``pre``, zeros past
+    it; every output of M stored), else the second (lines of M in; the
+    outputs k < ``n_out`` stored into ``out``, segment ``seg``); counted
+    on "chirp"."""
+    from . import build
+    lib = build.load("fft_fourstep")
+    _declare(lib)
+    b, n_in = x.shape
+    cdt, dev = x.dtype, x.device
+    with torch.cuda.device(dev):
+        current = torch.cuda.current_stream(dev)
+        consts = _long_constants(m, inverse, cdt, dev)
+        consts.record_stream(current)
+        fold = 1 if pre is not None else 2
+        if fold == 2 and x.data_ptr() % 16:
+            x = x.clone()          # the bulk copy reads 16-byte aligned lines
+        fn = getattr(lib, "repro_fft_long_chirp_"
+                     + ("c64" if cdt == torch.complex64 else "c128"))
+        err = fn(x.data_ptr(), out.data_ptr(), consts.data_ptr(),
+                 tw.data_ptr() if tw is not None else None,
+                 pre.data_ptr() if pre is not None else None, b, m, fold,
+                 int(inverse), m.bit_length() - 1, n_in, n_out, seg,
+                 longline.long_tile(m, cdt).smem_bytes, current.cuda_stream)
+    _raise_on(err, lib, "chirp", x)
+    _count("chirp", "lines", _variant(tw, None))
 
 
 def _launch_chirp(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                   inverse: bool, pack_parts: Optional[int]) -> torch.Tensor:
     """The chirp route on contiguous ``(B, N)`` lines
-    (``kernels/chirp.py``): the premultiplied, padded ``(B, M)`` lines
-    through the kernel's forward transform with the transformed filter as
-    its twiddle, then its inverse with the output chirp (and ``tw``) as
-    its twiddle, then the first N of each line.  Both transforms launch on
-    the current stream and count every launch on the "chirp" path; the
-    call adds one to ``fft_fourstep.chirp_calls``."""
+    (``kernels/chirp.py``): the forward transform of M, its load reading
+    the N-long lines times the input chirp (zeros past N), the transformed
+    filter as its twiddle; then the inverse of M with the output chirp
+    (and ``tw``) as its twiddle, its store keeping the first N of each
+    line in the ``pack_parts`` segments.  M on the dense route's kernel or
+    the long-line route (two launches) or a split plan (pass A's load and
+    pass C's store folded); all on the current stream, every launch
+    counted on "chirp";
+    the call adds one to ``fft_fourstep.chirp_calls``."""
     b, n = x.shape
+    buf, out = _out_buffers(x, pack_parts)
     if x.numel() == 0:
-        return _out_buffers(x, pack_parts)[1]
-    m = chirp.chirp_length(n)
-    pre, filt, post = _chirp_constants(n, inverse, x.dtype, x.device)
+        return out
+    cplan = chirp.chirp_plan(n, x.dtype)
+    if cplan is None:
+        launch_config(n, x.element_size())      # raises with the domain
+    m, parts = cplan.m, pack_parts or 1
+    pre, filt, post = _chirp_constants(n, m, inverse, x.dtype, x.device)
     with torch.cuda.device(x.device):
         current = torch.cuda.current_stream(x.device)
         for c in (pre, filt, post):
             # cached: the allocator must not reuse them while this reads
             c.record_stream(current)
-        a = _launch(chirp.premultiply(x, pre, m), filt, inverse=False,
-                    count_as="chirp")
-        y = _launch(a, chirp.post_twiddle(post, tw), inverse=True,
-                    count_as="chirp")
-        out = chirp.trim(y, n, pack_parts)
+        out_tw = chirp.post_twiddle(post, tw)
+        if cplan.route in ("dense", "long"):
+            one = (_launch_dense_chirp if cplan.route == "dense"
+                   else _launch_long_chirp)
+            a = torch.empty((b, m), dtype=x.dtype, device=x.device)
+            one(x, a, m, filt, pre, m, m, inverse=False)
+            one(a, buf, m, out_tw, None, n, n // parts, inverse=True)
+        else:
+            a = _launch_split(x, filt, inverse=False, pack_parts=None,
+                              plan=cplan.split, count_as="chirp",
+                              call=False, pre=pre)
+            _launch_split(a, out_tw, inverse=True, pack_parts=pack_parts,
+                          plan=cplan.split, count_as="chirp", call=False,
+                          keep=n, into=buf)
     with _COUNT_LOCK:
         fft_fourstep.chirp_calls += 1
-    return out if pack_parts is None else out.transpose(0, 1)
+    return out
 
 
 def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                   inverse: bool, pack_parts: Optional[int],
-                  plan: split.SplitPlan,
-                  count_as: str = "split") -> torch.Tensor:
+                  plan: split.SplitPlan, count_as: str = "split",
+                  call: bool = True, pre: Optional[torch.Tensor] = None,
+                  keep: Optional[int] = None,
+                  into: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The split route on contiguous ``(B, N)`` lines, N = P*Q
     (``kernels/split.py``): pass A, the strided radix launch on the
     ``(B, P, Q)`` block with the inter-step twiddle (or the dense kernel's
-    column form, for a general plan's dense pass A), into a scratch block;
-    pass B, the Q-long rows: on the radix route stored transposed into the
-    output with the line's epilogues, on the long-line route or the dense
-    kernel stored in natural order into a second scratch block that pass C
-    transposes into the output with the epilogues.  All on the
+    column form, for a general or nested plan's dense pass A), into a
+    scratch block; pass B, the Q-long rows: on the radix route stored
+    transposed into the output with the line's epilogues, on the long-line
+    route or the dense kernel (or, for a nested plan, the rows' own launch
+    on any route) stored in natural order into a second scratch block that
+    pass C transposes into the output with the epilogues.  All on the
     current stream; each counted on ``count_as`` ("split", or "chirp"
-    inside the chirp route) and its layout."""
+    inside the chirp route) and its layout, and with ``call`` the call on
+    ``split_calls``.
+
+    The chirp route's folded load and store (a plan with dense pass A and
+    pass C): with ``pre`` ``x`` is ``(B, n_in)``, read as the first n_in
+    of each (P, Q) block times ``pre``, zeros past them; with ``keep`` pass
+    C stores only the outputs of index < ``keep`` (the ``pack_parts``
+    segments of ``keep``) into ``into``, the ``(p, B, keep/p)`` buffer."""
     from . import build
     lib = build.load("fft_fourstep")
     _declare(lib)
-    b, n = x.shape
-    buf, out = _out_buffers(x, pack_parts)
+    b = x.shape[0]
+    n = plan.n
+    if into is not None:
+        buf = out = into
+    elif pre is not None:
+        buf = torch.empty((1, b, n), dtype=x.dtype, device=x.device)
+        out = buf[0]
+    else:
+        buf, out = _out_buffers(x, pack_parts)
     if x.numel() == 0:
         return out
     c64 = x.dtype == torch.complex64
     suffix = "c64" if c64 else "c128"
+    kept = n if keep is None else keep
     parts = pack_parts if pack_parts is not None else 1
     dev, cdt = x.device, x.dtype
     with torch.cuda.device(dev):
@@ -515,13 +629,19 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
             pconsts, pints = _dense_constants(plan.p, inverse, cdt, dev)
             for c in (pconsts, pints):
                 c.record_stream(current)
-            err = getattr(lib, f"repro_fft_split_a_dense_{suffix}")(
-                x.data_ptr(), y.data_ptr(), pconsts.data_ptr(),
-                pints.data_ptr(), tables.data_ptr(), b, plan.p, plan.q,
-                len(ctile.radices), ctile.lines, ctile.line_pitch,
-                ctile.t_log2, ctile.lo, ctile.n_consts, ctile.n_ints,
-                ctile.buf_offset, int(inverse), plan.w_log2, ctile.threads,
-                ctile.smem_bytes, stream)
+            head = (x.data_ptr(), y.data_ptr(), pconsts.data_ptr(),
+                    pints.data_ptr(), tables.data_ptr())
+            tail = (len(ctile.radices), ctile.lines, ctile.line_pitch,
+                    ctile.t_log2, ctile.lo, ctile.n_consts, ctile.n_ints,
+                    ctile.buf_offset, int(inverse), plan.w_log2,
+                    ctile.threads, ctile.smem_bytes, stream)
+            if pre is not None:
+                err = getattr(lib, f"repro_fft_split_a_dense_chirp_{suffix}")(
+                    *head, pre.data_ptr(), b, plan.p, plan.q, x.shape[1],
+                    *tail)
+            else:
+                err = getattr(lib, f"repro_fft_split_a_dense_{suffix}")(
+                    *head, b, plan.p, plan.q, *tail)
         else:
             pconsts = _radix_constants(plan.p, inverse, cdt, dev)
             pconsts.record_stream(current)
@@ -533,12 +653,12 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
         _raise_on(err, lib, "split pass A", x)
         _count(count_as, "strided", "fourstep")
         # pass B: the Q-long rows, stored transposed at kp + P*kq (radix)
-        # or in natural order (long-line or dense, then pass C)
-        rtile = split.row_tile(plan, cdt)
+        # or in natural order (long-line, dense or any, then pass C)
         seg_arg = _seg_arg(n, parts)
         twp = tw.data_ptr() if tw is not None else None
         variant = _variant(tw, pack_parts)
         if plan.row_path == "radix":
+            rtile = split.row_tile(plan, cdt)
             qconsts = _radix_constants(plan.q, inverse, cdt, dev)
             qconsts.record_stream(current)
             err = getattr(lib, f"repro_fft_split_b_radix_{suffix}")(
@@ -547,10 +667,16 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                 rtile.lines.bit_length() - 1, plan.p_log2,
                 rtile.smem_bytes, stream)
             _raise_on(err, lib, "split pass B", x)
-            _count(count_as, "lines", variant,
-                   split_call=count_as == "split")
+            _count(count_as, "lines", variant, split_call=call)
             return out
-        z = torch.empty_like(y)
+        if plan.row_path == "any":
+            # the rows' own launch on their route, the inverse's 1/Q
+            # included; pass C applies the 1/P
+            z = _launch(y.view(b * plan.p, plan.q), None, inverse=inverse,
+                        count_as=count_as)
+        else:
+            z = torch.empty_like(y)
+            rtile = split.row_tile(plan, cdt)
         if plan.row_path == "dense":
             # the dense route's own launch, the inverse's 1/Q included;
             # pass C applies the 1/P
@@ -564,7 +690,7 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                 rtile.n_consts, rtile.n_ints, rtile.buf_offset,
                 int(inverse), plan.q, rtile.threads, rtile.smem_bytes,
                 stream)
-        else:
+        elif plan.row_path == "long":
             # the inverse's sign is in the constants; its 1/N waits for
             # pass C
             qconsts = _long_constants(plan.q, inverse, cdt, dev)
@@ -573,10 +699,15 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                 y.data_ptr(), z.data_ptr(), qconsts.data_ptr(), None,
                 b * plan.p, plan.q, 0, _seg_arg(plan.q, 1),
                 rtile.smem_bytes, stream)
-        _raise_on(err, lib, "split pass B", x)
-        _count(count_as, "lines", "fourstep")
+        if plan.row_path != "any":
+            _raise_on(err, lib, "split pass B", x)
+            _count(count_as, "lines", "fourstep")
         # pass C: (B, P, Q) rows to out[b, kp + P*kq], with the epilogues
-        if plan.row_path == "dense":
+        if keep is not None:
+            err = getattr(lib, f"repro_fft_split_c_keep_{suffix}")(
+                z.data_ptr(), buf.data_ptr(), twp, b, plan.p, plan.q, kept,
+                kept // parts, int(inverse), stream)
+        elif plan.row_path in ("dense", "any"):
             err = getattr(lib, f"repro_fft_split_c_any_{suffix}")(
                 z.data_ptr(), buf.data_ptr(), twp, b, plan.p, plan.q,
                 n // parts, int(inverse), stream)
@@ -585,7 +716,7 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                 z.data_ptr(), buf.data_ptr(), twp, b, plan.p_log2, plan.q,
                 seg_arg, int(inverse), stream)
     _raise_on(err, lib, "split pass C", x)
-    _count(count_as, "lines", variant, split_call=count_as == "split")
+    _count(count_as, "lines", variant, split_call=call)
     return out
 
 
@@ -619,6 +750,19 @@ def _declare(lib) -> None:
                lib.repro_fft_split_a_dense_c128):
         fn.argtypes = [p, p, p, p, p, ll] + [i] * 14 + [p]
         fn.restype = i
+    for fn in (lib.repro_fft_dense_chirp_c64, lib.repro_fft_dense_chirp_c128):
+        fn.argtypes = [p, p, p, p, p, p, ll] + [i] * 14 + [p]
+        fn.restype = i
+    for fn in (lib.repro_fft_split_a_dense_chirp_c64,
+               lib.repro_fft_split_a_dense_chirp_c128):
+        fn.argtypes = [p, p, p, p, p, p, ll] + [i] * 15 + [p]
+        fn.restype = i
+    for fn in (lib.repro_fft_long_chirp_c64, lib.repro_fft_long_chirp_c128):
+        fn.argtypes = [p, p, p, p, p, ll] + [i] * 8 + [p]
+        fn.restype = i
+    for fn in (lib.repro_fft_split_c_keep_c64, lib.repro_fft_split_c_keep_c128):
+        fn.argtypes = [p, p, p, ll, i, i, i, i, i, p]
+        fn.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     lib._repro_declared = True
@@ -636,11 +780,6 @@ def fft_fourstep(x: torch.Tensor, *, inverse: bool = False,
     returns an empty result without a launch.
     """
     _check(x, twiddle, pack_parts)
-    if pack_parts is not None and \
-            radix.kernel_path(x.shape[1], x.dtype) == "chirp":
-        # the chirp route packs its trimmed lines with a copy
-        from . import ops               # it imports this module
-        ops.count_copy()
     if x.device.type == "cuda":
         return _launch(*_resolved(x, twiddle), inverse=inverse,
                        pack_parts=pack_parts)

@@ -245,6 +245,15 @@ def long_tile(n: int, dtype: torch.dtype) -> LongTile:
     return LongTile(plan.depth, smem_bytes(plan, dtype.itemsize, plan.depth))
 
 
+#: The lengths whose kernels the chirp route's folded load and store
+#: also instantiate (``fft_long.cuh``'s ``long_chirp_kernel``: pass 1
+#: reads the N-long input lines from global memory times the chirp,
+#: zeros past N; pass 3 keeps the first N): the powers of two, per
+#: complex dtype (``kernels/chirp.py`` picks M among them).
+FOLD_SIZES = {torch.complex64: (8192, 16384),
+              torch.complex128: (2048, 4096, 8192)}
+
+
 def _pass3_fits(plan: LongPlan) -> bool:
     """Whether ptxas keeps a plan with a mixed R2 in registers: pass 3's
     radix-2 codelet of 32 values spills there (H100 build, ``nvcc -Xptxas

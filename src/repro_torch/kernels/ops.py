@@ -20,9 +20,9 @@ strided axis, ``inner`` narrower than a tile, a non-dense view) moves
 ``axis`` last and copies the lines contiguous first, and each such copy
 adds one to ``copies["lines"]``: a split length (lines longer than one
 block, two launches through HBM) or a chirp length (two transforms of
-padded lines) on a strided axis is copied so, as a long-line length is.
-A chirp length with ``pack_parts`` adds one more: the route packs its
-trimmed lines with a copy (``fft_matmul.fft_fourstep``).
+lines of M) on a strided axis is copied so, as a long-line length is.
+The chirp route's second transform stores the ``pack_parts`` segments
+itself, so a chirp length with ``pack_parts`` adds none.
 The output dtype follows the input: complex64 for single precision,
 complex128 for float64/complex128.
 

@@ -347,11 +347,121 @@ def general_factors(n: int, dtype: torch.dtype) -> Optional[tuple]:
     return min(fits, key=lambda c: (abs(math.log(c[0] / target)), c[0]))
 
 
+#: The longest line any route takes, per complex dtype: a line's offsets
+#: in the kernels are 32-bit ints, and the chirp route's M, at least 2N -
+#: 1, stays within :data:`LINE_MAX`.
+MAX_LENGTH = 1 << 30
+#: The longest line the kernels index (their line offsets are ``int``).
+LINE_MAX = (1 << 31) - 1
+#: The nested plans' P (``nested_factors``): the candidate nearest it, in
+#: ratio, with a radix pass A, or where no candidate's rows fit one block
+#: (rows on the split route one level down).  An H100 sweep of the
+#: candidates forced on the same lines (``scripts/route_times.py nested``,
+#: 10 lengths; PERF.md §6) read a radix pass A ahead of every dense one
+#: where it ran (c64 2^25 256 x 131072 1.70 ms against 2048 x 16384
+#: 1.86), and rows of one block ahead of rows on the split route.
+NESTED_P = {torch.complex64: 400, torch.complex128: 200}
+#: The nested plans' P where the rows fit one block and no radix pass A
+#: runs: the candidate nearest it in ratio.  The sweep and its held-out
+#: lengths read a longer column and shorter rows faster up to about it
+#: (c64 2*3^12*16 2916 x 5832 1.60 ms against 864 x 19683 2.38; c128
+#: 2*3^14 2187 x 4374 2.22 against 729 x 13122 2.43) and a longer column
+#: past it slower (c64 3^16 6561 x 6561 2.21 against 2187 x 19683 1.96;
+#: 10^8 6400 x 15625 5.03 against 4000 x 25000 4.08).
+NESTED_ONE_P = {torch.complex64: 2500, torch.complex128: 1500}
+
+
+def smooth_divisors(n: int) -> list:
+    """The divisors of ``n``'s 13-smooth part, ascending."""
+    m = n
+    for p in (2, 3, 5, 7, 11, 13):
+        while m % p == 0:
+            m //= p
+    return _divisors(n // m)
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def row_route(q: int, dtype: torch.dtype) -> Optional[str]:
+    """The route of rows of ``q`` up to :data:`LIMIT`, as
+    ``radix.kernel_path`` names it, but None where that is the chirp (a
+    nested plan's rows never are): worked out from the routes' tables and
+    ``dense.takes`` alone, so that a plan asks it of many Q cheaply."""
+    if q in radix.RADIX_SIZES[dtype]:
+        return "radix"
+    if q in longline.FACTORS[dtype]:
+        return "long"
+    if q in FACTORS[dtype]:
+        return "split"
+    if radix.smooth(q):
+        # the general plans take every 13-smooth N past one block
+        return "dense" if dense.takes(q, dtype) else "split"
+    return "dense" if dense.takes(q, dtype) else None
+
+
+def any_candidates(n: int, dtype: torch.dtype, *, limit: int = None,
+                   dense_only: bool = False) -> list:
+    """Every (P, Q, pass A's route) of a plan whose rows run on any route:
+    P a 13-smooth divisor of N on a column pass (the radix route at a P of
+    :data:`COLUMN_SIZES` whose inter-step tables fit
+    :data:`TABLE_MAX_BYTES`, unless ``dense_only``; the dense kernel's
+    column form where ``dense.column_plan`` fits), Q = N/P up to ``limit``
+    (:data:`LIMIT`) on a route other than the chirp (:func:`row_route`);
+    ascending P, radix before dense."""
+    lim = LIMIT[dtype] if limit is None else limit
+    out = []
+    for p in smooth_divisors(n):
+        q = n // p
+        if p < 2 or q < 2 or q > lim:
+            continue
+        cols = []
+        if not dense_only and p in COLUMN_SIZES[dtype]:
+            plan = SplitPlan(n, p, q, "any")
+            if plan.const_elems * dtype.itemsize <= TABLE_MAX_BYTES:
+                cols.append("radix")
+        if dense.column_plan(p, dtype):
+            cols.append("dense")
+        if cols and row_route(q, dtype) is not None:
+            out.extend((p, q, col) for col in cols)
+    return out
+
+
+def any_factors(n: int, dtype: torch.dtype, *, limit: int = None,
+                dense_only: bool = False,
+                one_p: Optional[int] = None) -> Optional[tuple]:
+    """(P, Q, pass A's route) of a plan with rows on any route
+    (:func:`any_candidates`): of the candidates with a radix pass A, else
+    of those whose rows fit one block (their route is not the split
+    route), else of all, the P nearest :data:`NESTED_P` in ratio (the
+    less of two as near), or ``one_p`` among rows of one block.  None
+    where there is none."""
+    cands = any_candidates(n, dtype, limit=limit, dense_only=dense_only)
+    radix_a = [c for c in cands if c[2] == "radix"]
+    one = [c for c in cands if row_route(c[1], dtype) != "split"]
+    family = radix_a or one or cands
+    if not family:
+        return None
+    target = one_p if one_p and not radix_a and one else NESTED_P[dtype]
+    return min(family, key=lambda c: (abs(math.log(c[0] / target)), c[0]))
+
+
+@functools.lru_cache(maxsize=None)
+def nested_factors(n: int, dtype: torch.dtype) -> Optional[tuple]:
+    """(P, Q, pass A's route) of the nested plans: every N past
+    :data:`LIMIT` up to :data:`MAX_LENGTH` with a plan of
+    :func:`any_factors` (rows of Q on any route but the chirp, one level
+    of nesting where Q runs on the split route itself).  None elsewhere."""
+    if dtype not in LIMIT or not LIMIT[dtype] < n <= MAX_LENGTH:
+        return None
+    return any_factors(n, dtype, one_p=NESTED_ONE_P[dtype])
+
+
 def takes(n: int, dtype: torch.dtype) -> bool:
     """Whether the split route takes lines of ``n``: :data:`FACTORS`'
-    lengths and the general rule's (:func:`general_factors`)."""
+    lengths, the general rule's (:func:`general_factors`) and past
+    :data:`LIMIT` the nested plans' (:func:`nested_factors`)."""
     return (n in FACTORS.get(dtype, {})
-            or general_factors(n, dtype) is not None)
+            or general_factors(n, dtype) is not None
+            or nested_factors(n, dtype) is not None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,7 +469,8 @@ class SplitPlan:
     n: int
     p: int              # pass A's length (columns)
     q: int              # pass B's length (rows)
-    row_path: str       # "radix", "long" or "dense": pass B's route
+    row_path: str       # "radix", "long", "dense" or "any": pass B's
+    #                     route ("any": the rows' own launch, any route)
     col_path: str = "radix"     # "radix" or "dense": pass A's route
 
     @property
@@ -399,22 +510,29 @@ class SplitPlan:
 def split_plan(n: int, dtype: torch.dtype) -> SplitPlan:
     """The plan of a length the split route takes, with its (P, Q) from
     :data:`FACTORS` (the measured table's, else the rule's), else the
-    general rule's (:func:`general_factors`)."""
+    general rule's (:func:`general_factors`), else the nested plans'
+    (:func:`nested_factors`)."""
     factors = FACTORS.get(dtype, {}).get(n)
     if factors is not None:
         p, q = factors
         row_path = "long" if q in longline.FACTORS[dtype] else "radix"
         return SplitPlan(n, p, q, row_path)
     general = general_factors(n, dtype)
-    if general is None:
+    if general is not None:
+        p, q, col_path = general
+        return SplitPlan(n, p, q, "dense", col_path)
+    nested = nested_factors(n, dtype)
+    if nested is None:
         raise ValueError(
             f"the split route takes N in split.FACTORS "
             f"({len(FACTORS.get(dtype, {}))} lengths up to "
             f"{LIMIT.get(dtype)} for {dtype}: the measured table's and "
-            f"rule_factors') and every other 13-smooth N past one block "
-            f"up to that limit (general_factors), got {n}")
-    p, q, col_path = general
-    return SplitPlan(n, p, q, "dense", col_path)
+            f"rule_factors'), every other 13-smooth N past one block up "
+            f"to that limit (general_factors) and past it every N up to "
+            f"{MAX_LENGTH} with a 13-smooth P on a column pass and rows "
+            f"on a route other than the chirp (nested_factors), got {n}")
+    p, q, col_path = nested
+    return SplitPlan(n, p, q, "any", col_path)
 
 
 def column_tile(plan: SplitPlan, dtype: torch.dtype):
@@ -481,11 +599,26 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
 
 def emulate_plan(x: torch.Tensor, plan: SplitPlan, *, inverse: bool = False,
                  twiddle: Optional[torch.Tensor] = None,
-                 pack_parts: Optional[int] = None) -> torch.Tensor:
-    """:func:`emulate` with the plan given (a forced (P, Q) too)."""
+                 pack_parts: Optional[int] = None,
+                 pre: Optional[torch.Tensor] = None,
+                 keep: Optional[int] = None) -> torch.Tensor:
+    """:func:`emulate` with the plan given (a forced (P, Q) too).
+
+    The chirp route's folded load and store (``kernels/chirp.py``):
+    with ``pre`` (n_in values, dense pass A only) ``x`` is ``(B, n_in)``
+    and pass A reads index e < n_in of each (P, Q) block as x[b, e] *
+    pre[e], zero past it; with ``keep`` pass C stores only the outputs of
+    index < ``keep``, ``(B, keep)`` or the ``(p, B, keep/p)`` buffer, and
+    ``twiddle`` holds ``keep`` values."""
     b = x.shape[0]
     tables = torch.from_numpy(constants(plan, inverse)).to(x.device, x.dtype)
-    block = x.reshape(b, plan.p, plan.q)
+    if pre is not None:
+        block = torch.zeros((b, plan.n), dtype=x.dtype, device=x.device)
+        n_in = x.shape[1]
+        block[:, :n_in] = x * pre.to(x.device, x.dtype)
+        block = block.reshape(b, plan.p, plan.q)
+    else:
+        block = x.reshape(b, plan.p, plan.q)
     if plan.col_path == "dense":
         y = dense.emulate(block, inverse=inverse,
                           columns=(tables, plan.w_log2))
@@ -498,35 +631,46 @@ def emulate_plan(x: torch.Tensor, plan: SplitPlan, *, inverse: bool = False,
                              pack_parts=pack_parts, rows_per_line=plan.p)
     if plan.row_path == "dense":
         z = dense.emulate(rows, inverse=inverse)
+    elif plan.row_path == "any":
+        # the rows' own route, its 1/Q included
+        from .fft_matmul import fft_fourstep_plain    # it imports this
+        z = fft_fourstep_plain(rows.contiguous(), inverse=inverse)
     else:
         z = longline.emulate(rows, inverse=inverse, scaled=False)
     return transpose_emulate(z, plan, inverse=inverse, twiddle=twiddle,
-                             pack_parts=pack_parts)
+                             pack_parts=pack_parts, keep=keep)
 
 
 def transpose_emulate(z: torch.Tensor, plan: SplitPlan, *,
                       inverse: bool = False,
                       twiddle: Optional[torch.Tensor] = None,
-                      pack_parts: Optional[int] = None) -> torch.Tensor:
+                      pack_parts: Optional[int] = None,
+                      keep: Optional[int] = None) -> torch.Tensor:
     """Pass C in torch: ``z`` holds B lines of (P, Q) rows z[b, kp, kq];
     out[b, kp + P*kq] = z[b, kp, kq] times ``twiddle[kp + P*kq]``, times
-    the inverse's 1/N (after dense rows, which applied 1/Q: 1/P), stored
-    as the kernel stores it: ``(B, N)`` or the ``(p, B, N/p)`` buffer."""
+    the inverse's 1/N (after rows that applied 1/Q, dense or any: 1/P),
+    stored as the kernel stores it: ``(B, N)`` or the ``(p, B, N/p)``
+    buffer; with ``keep`` only the outputs of index < ``keep``, ``(B,
+    keep)`` or ``(p, B, keep/p)``."""
     n, dev, cdt = plan.n, z.device, z.dtype
     b = z.numel() // n
     kp = torch.arange(plan.p, device=dev)[:, None]
     kq = torch.arange(plan.q, device=dev)[None, :]
     of = kp + plan.p * kq                               # (P, Q)
     y = z.reshape(b, plan.p, plan.q)
+    kept = n if keep is None else keep
+    mask = of < kept
+    of, y = of[mask], y[:, mask]                        # (K,), (B, K)
     if twiddle is not None:
         y = y * twiddle.to(dev, cdt).reshape(-1)[of]
     if inverse:
-        y = y * (1.0 / (plan.p if plan.row_path == "dense" else n))
+        y = y * (1.0 / (plan.p if plan.row_path in ("dense", "any")
+                        else n))
     parts = pack_parts or 1
-    seg = n // parts
-    line = torch.arange(b, device=dev)[:, None, None]
-    out = torch.empty(b * n, dtype=cdt, device=dev)
+    seg = kept // parts
+    line = torch.arange(b, device=dev)[:, None]
+    out = torch.empty(b * kept, dtype=cdt, device=dev)
     out[((of // seg) * b + line) * seg + of % seg] = y
     if pack_parts is None:
-        return out.reshape(b, n)
+        return out.reshape(b, kept)
     return out.reshape(parts, b, seg)

@@ -1,15 +1,20 @@
 """The chirp route of the four-step kernel (``kernels/chirp.py``): every
 line length that no other route takes, as Bluestein's
-convolution over two transforms of M = 2^ceil(log2(2N - 1)) on the
-radix, long-line or split route, the chirps in their ``twiddle``
-epilogues.  Its plain version, ``chirp.emulate`` (the wrapper runs it for
-CPU tensors), runs the same steps over the inner routes' plain versions;
-it is held against ``np.fft`` (complex64 N of 7424 = 29*256, M on the
-long-line route, the prime 10007, M on the split route; complex128 N
-of 3001 and 3712 = 29*128; both directions, the
-twiddle and ``pack_parts`` epilogues) and against the JAX package's
+convolution over two transforms of M, the cheapest 13-smooth length at
+or above 2N - 1 (``chirp.chirp_plan``), on the dense route's kernel or a
+split plan, the input read at pitch N times the chirp (zeros past N) by
+the first transform's load, the filter and the output chirp in the
+``twiddle`` epilogues, the first N kept by the second transform's store
+in the ``pack_parts`` segments.  Its plain version, ``chirp.emulate``
+(the wrapper runs it for CPU tensors), runs the same steps and index
+maps over the inner routes' plain versions; it is held against
+``np.fft`` (complex64 N of 101 and 4831, primes, 7424 = 29*256 and the
+prime 10007, M on the dense route's kernel; complex128 N of 3001 and
+3712 = 29*128; both directions, the twiddle and ``pack_parts``
+epilogues; a forced split plan of M) and against the JAX package's
 Pallas kernel in interpret mode on the same numpy inputs where the
-reference factors N (7424, 29106 and 3712), at the reference's
+reference factors N or its dense DFT matrix is small (101, 4831, 7424,
+29106 and 3712), at the reference's
 tolerances (``tests/test_kernels.py:27``: 5e-6 max-scaled in complex64,
 1e-12 in complex128); so are 4864 = 19*256, 5888 = 23*256 and
 complex128 2432 = 19*128 and 2944 = 23*128, which the chirp held until
@@ -42,7 +47,7 @@ import pytest
 import torch
 
 from repro.kernels import fft_matmul as jfm
-from repro_torch.kernels import chirp, ops, radix, split
+from repro_torch.kernels import chirp, dense, longline, ops, radix, split
 from repro_torch.kernels import fft_matmul as tfm
 from torch_harness import assert_scaled_close, pallas_lines_c128
 
@@ -52,7 +57,8 @@ NP = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 #: each epilogue (pack_parts where 2 divides N).
 VARIANTS = [(2, False, False, None), (1, True, True, None),
             (2, False, True, 2), (1, True, False, 2)]
-LENGTHS = [(torch.complex64, 4864), (torch.complex64, 10007),
+LENGTHS = [(torch.complex64, 101), (torch.complex64, 4831),
+           (torch.complex64, 4864), (torch.complex64, 10007),
            (torch.complex64, 33792), (torch.complex128, 3001),
            (torch.complex128, 2432), (torch.complex64, 5888),
            (torch.complex128, 2944), (torch.complex64, 7424),
@@ -62,18 +68,17 @@ LENGTHS = [(torch.complex64, 4864), (torch.complex64, 10007),
 #: 23 x 16 x 16 and 23 x 8 x 16) or the split route's rule did (33792 =
 #: 256 x 132) or its general plans did (29106 = 882 x 33), where the
 #: wrapper's plain version is ``longline.emulate`` or ``split.emulate``;
-#: the rest stay here: 7424 = 29*256 and complex128 3712 = 29*128 (M on
-#: the long-line route, as 5888 and 2944 had it) and the prime 10007 (M
-#: on the split route).
+#: the rest stay here: 101, 4831, 7424 = 29*256, 10007 and complex128
+#: 3001 and 3712 = 29*128, M on the dense route's kernel.
 ROUTE = {4864: "long", 2432: "long", 5888: "long", 2944: "long",
          33792: "split", 29106: "split"}
 CASES = [(dtype, n, b, inv, tw, parts if n % 2 == 0 else None)
          for dtype, n in LENGTHS for b, inv, tw, parts in VARIANTS]
-#: Where the reference's four-step factors N: at a prime N it is one
-#: dense DFT matrix, 10007 x 10007 (too large to run here), and at 3001
-#: its sums of 3001 terms differ from np.fft by about 1e-12 in complex128
-#: themselves, so the prime lengths are held to np.fft alone.
-PALLAS = {4864, 2432, 5888, 2944, 7424, 3712, 29106}
+#: Where the reference's four-step factors N, or its one dense DFT
+#: matrix at a prime N is small (101, 4831): 10007 x 10007 is too large
+#: to run here, and at complex128 3001 its sums of 3001 terms differ from
+#: np.fft by about 1e-12 themselves, so those are held to np.fft alone.
+PALLAS = {101, 4831, 4864, 2432, 5888, 2944, 7424, 3712, 29106}
 
 
 def _case_id(case):
@@ -129,8 +134,8 @@ def _pallas_c64(case, x, t):
 def test_chirp_route_matches_numpy_and_pallas(case, request):
     """The route's plain version, through the wrapper on CPU tensors,
     against np.fft and (where it runs) the Pallas kernel on the same
-    inputs; no launch is counted on the CPU, a pack is one line copy (on
-    the chirp route; none on the long-line route that 19*2^k took)."""
+    inputs; no launch is counted on the CPU and no line copied (the
+    chirp's second transform stores the ``pack_parts`` segments)."""
     dtype, n, b, inv, tw, parts = case
     route = ROUTE.get(n, "chirp")
     assert radix.kernel_path(n, dtype) == route
@@ -142,7 +147,7 @@ def test_chirp_route_matches_numpy_and_pallas(case, request):
                            pack_parts=parts)
     counts = tfm.launch_counts()
     assert counts["launches"] == 0 and counts["chirp_calls"] == 0
-    assert ops.copies["lines"] == (parts is not None and route == "chirp")
+    assert ops.copies["lines"] == 0
     assert got.dtype == dtype
     want_shape = (b, n) if parts is None else (b, parts, n // parts)
     assert tuple(got.shape) == want_shape
@@ -166,12 +171,13 @@ def test_chirp_tables_keep_the_phase_at_large_n(n):
     """The chirp's phase pi*k^2/N is reduced mod 2N in integers before it
     meets a float: the float64 table matches the exact phase at every k,
     and so does its complex64 cast, where a phase taken from k^2 in
-    float32 is off by whole radians.  The filter is even (b[m] =
-    b[M - m]) and the output chirp is zero past N."""
-    pre, filt, post = chirp.constants(n, inverse=False)
+    float32 is off by whole radians.  M is 13-smooth, from 2N - 1 to
+    twice that; the output chirp is the input's (N values: the second
+    transform keeps the first N)."""
     m = chirp.chirp_length(n)
-    assert m == 1 << (2 * n - 2).bit_length() and m >= 2 * n - 1
-    assert pre.shape == (n,) and filt.shape == (m,) and post.shape == (m,)
+    assert 2 * n - 1 <= m <= 2 * (2 * n - 1) and radix.smooth(m)
+    pre, filt, post = chirp.constants(n, False, m)
+    assert pre.shape == (n,) and filt.shape == (m,) and post.shape == (n,)
     k = np.array([0, 1, 2, n // 3, n // 2, n - 2, n - 1], dtype=np.int64)
     exact = np.array([complex(np.exp(-1j * np.pi * float(int(j) * int(j)
                                                        % (2 * n)) / n))
@@ -182,17 +188,17 @@ def test_chirp_tables_keep_the_phase_at_large_n(n):
                    / np.float32(n)).astype(np.complex64)
     assert np.abs(naive - exact).max() > 1e-2
     assert np.allclose(np.abs(pre), 1.0, atol=1e-12)
-    assert np.all(post[n:] == 0) and np.allclose(post[:n], pre)
-    inv_pre, _, inv_post = chirp.constants(n, inverse=True)
+    assert np.allclose(post, pre)
+    inv_pre, _, inv_post = chirp.constants(n, True, m)
     assert np.allclose(inv_pre, np.conj(pre), atol=1e-12)
-    assert np.allclose(inv_post[:n], np.conj(pre) / n, atol=1e-12)
+    assert np.allclose(inv_post, np.conj(pre) / n, atol=1e-12)
 
 
 def test_chirp_filter_is_the_transformed_conjugate_chirp():
     n = 5000
-    pre, filt, _ = chirp.constants(n, inverse=True)
-    b = np.fft.ifft(filt)
     m = chirp.chirp_length(n)
+    pre, filt, _ = chirp.constants(n, True, m)
+    b = np.fft.ifft(filt)
     assert_scaled_close(b[:n], np.conj(pre), 1e-12)
     assert_scaled_close(b[m - n + 1:], np.conj(pre[1:])[::-1], 1e-12)
     assert np.abs(b[n:m - n + 1]).max() < 1e-12
@@ -205,27 +211,29 @@ def test_chirp_filter_is_the_transformed_conjugate_chirp():
     (11520, torch.complex64, "long"), ((1 << 23) - 1, torch.complex64,
                                         "chirp"),
     (1 << 23, torch.complex64, "split"),
-    ((1 << 23) + 1, torch.complex64, "dense"),
-    (2419, torch.complex128, "dense"), (2420, torch.complex128, "dense"),
+    ((1 << 23) + 1, torch.complex64, "chirp"),
+    (2419, torch.complex128, "chirp"), (2420, torch.complex128, "dense"),
     (3001, torch.complex128, "chirp"), (5760, torch.complex128, "long"),
     (4864, torch.complex64, "long"), (23040, torch.complex64, "dense"),
     (5460, torch.complex64, "dense"), (2432, torch.complex128, "long"),
     (8448, torch.complex128, "dense"), (16896, torch.complex64, "dense"),
     (33792, torch.complex64, "split"), (2421, torch.complex128, "chirp"),
     (1 << 21, torch.complex128, "split"),
-    ((1 << 21) + 1, torch.complex128, "dense"),
+    ((1 << 21) + 1, torch.complex128, "chirp"),
     (4096, torch.complex64, "radix"), (3840, torch.complex64, "radix"),
     (4831, torch.complex64, "chirp"), (5888, torch.complex64, "long"),
     (2944, torch.complex128, "long"), (521, torch.complex64, "chirp"),
     (816, torch.complex64, "dense"), (19 << 19, torch.complex64, "split"),
     (7424, torch.complex64, "chirp"), (3712, torch.complex128, "chirp"),
     (29106, torch.complex64, "split"), (20011, torch.complex64, "chirp"),
-    (8388617, torch.complex64, "dense"), (33 << 18, torch.complex64, "split"),
+    (8388617, torch.complex64, "chirp"), (33 << 18, torch.complex64, "split"),
     (23 << 19, torch.complex64, "split"), (23 << 17, torch.complex128,
-                                            "split")])
+                                            "split"),
+    ((1 << 30) + 1, torch.complex64, "dense"),
+    ((1 << 30) + 1, torch.complex128, "dense")])
 def test_chirp_routing_by_length(n, dtype, path):
     """The chirp route takes every length that no other route takes, up
-    to half the split route's longest line: up to the dense route's old
+    to ``split.MAX_LENGTH`` = 2^30: up to the dense route's old
     limit (complex64 4835, complex128 2419) generic stages that cost the
     dense route more (``dense.GENERIC_COST``: 4835 = 5*967, the primes
     521 and 4831); past it a prime factor from 17 that no codelet takes
@@ -233,13 +241,17 @@ def test_chirp_routing_by_length(n, dtype, path):
     9*269, 3712 = 29*128); since the split route's general plans no
     13-smooth line past one block (29106 = 2*14553, one factor of 2, is
     split).  The dense route keeps the lengths to that limit whose
-    generic stages cost it less (816 = 17*48, complex128 2419 = 41*59)
-    and takes the
+    generic stages cost it less (816 = 17*48; complex128 2419 = 41*59 left
+    it when the chirp's glue went into its kernels) and takes the
     13-smooth lengths past it whose line fits one block (complex128 2420
     = 4*5*11^2 and 8448, complex64 5460 = 4*1365, 16896 = 33*512 and
-    23040 = 45*512, past the long-line route's 128 KB line); beyond the
-    chirp's limit the dense route raises on a prime factor past 13 (the
-    prime 8388617, 2^23 + 1 = 3*2796203) with a message naming it.  The
+    23040 = 45*512, past the long-line route's 128 KB line); the chirp
+    also takes what raised past its old limit, half the split route's
+    longest power of two (the prime 8388617, 2^23 + 1 = 3*2796203,
+    complex128 2^21 + 1 = 9*233017), its M 13-smooth from 2N - 1 to twice
+    that on the dense route's kernel or a split plan; past 2^30 the
+    dense route raises, its message naming the kernels' 32-bit line
+    index.  The
     long-line route takes 45*2^k (5760 = 30 x 12 x 16, 11520) and 35*2^7
     = 4480 up to its line, 5000 = 25 x 25 x 8 too, and 19*2^k since the
     radix-19 codelet (4864 = 19 x 16 x 16, complex128 2432 = 19 x 8 x
@@ -252,12 +264,14 @@ def test_chirp_routing_by_length(n, dtype, path):
     if path in ("chirp", "dense"):
         assert chirp.takes(n, dtype) == (path == "chirp")
     if path == "chirp":
-        assert chirp.chirp_length(n) <= max(split.FACTORS[dtype])
-        assert radix.kernel_path(chirp.chirp_length(n), dtype) in (
-            "radix", "long", "split")
+        plan = chirp.chirp_plan(n, dtype)
+        assert 2 * n - 1 <= plan.m <= 2 * (2 * n - 1)
+        assert radix.smooth(plan.m) and plan.m <= split.LINE_MAX
+        assert plan.route == (
+            "long" if plan.m in longline.FOLD_SIZES[dtype]
+            else "dense" if dense.fits(plan.m, dtype) else "split")
     if path == "dense" and n > 1 << 20:
-        with pytest.raises(ValueError, match=f"chirp route every other N "
-                           f"up to {chirp.max_length(dtype)}"):
+        with pytest.raises(ValueError, match="32-bit ints"):
             tfm.launch_config(n, dtype.itemsize)
 
 

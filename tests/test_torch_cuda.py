@@ -353,27 +353,28 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
-    (torch.complex64, 7424, 3, False, None, True),      # M on long-line
+    (torch.complex64, 7424, 3, False, None, True),      # M dense
     (torch.complex64, 7424, 2, True, 4, False),
-    (torch.complex64, 10007, 2, True, None, True),      # prime, M split
+    (torch.complex64, 10007, 2, True, None, True),      # prime, M dense
     (torch.complex64, 20011, 1, False, None, True),     # prime, M split
+    (torch.complex64, 29 << 10, 2, True, 4, True),    # M split, packed
     (torch.complex128, 3001, 2, False, None, True),
     (torch.complex128, 3712, 1, True, 29, False),
-    (torch.complex64, 521, 5, False, None, True),       # M on radix
-    (torch.complex64, 4831, 2, True, None, False),      # left the dense
-    (torch.complex128, 101, 3, True, None, True)])
+    (torch.complex128, 8009, 1, True, None, True),      # M split
+    (torch.complex64, 4831, 2, True, None, False)])     # left the dense
 def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
         cuda, dtype, n, b, inverse, parts, use_tw):
-    """The chirp route (one chirp call; its two inner transforms' launches
-    all on the "chirp" path, M on the radix, long-line or split route)
+    """The chirp route (one chirp call; its two transforms' launches all
+    on the "chirp" path, M on the dense or long-line route, one launch each,
+    or a split plan, the folded load in pass A and store in pass C)
     against its plain version (``chirp.emulate``) at the kernel's
-    tolerances and ``torch.fft`` within 2e-4, with both epilogues; the
-    primes whose generic stage costs the dense route more
-    (``dense.GENERIC_COST``: 521, 4831, complex128 101), which left it
-    too."""
+    tolerances and ``torch.fft`` within 2e-4, with both epilogues (the
+    ``pack_parts`` segments stored by the second transform, no line
+    copy); the prime 4831, whose generic stage costs the dense route
+    more (``dense.GENERIC_COST``), left it too."""
     from repro_torch.kernels import chirp
     assert radix.kernel_path(n, dtype) == "chirp"
-    m = chirp.chirp_length(n)
+    plan = chirp.chirp_plan(n, dtype)
     x = torch.from_numpy(cplx((b, n), 17)).to(cuda, dtype)
     tw = (torch.exp(-1j * math.pi * torch.arange(n, device=cuda) / (2 * n))
           .to(dtype) if use_tw else None)
@@ -386,23 +387,71 @@ def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
         lib = lib.reshape(b, parts, n // parts)
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     tfm.reset_launch_counts()
+    ops.copies["lines"] = 0
     got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
     torch.cuda.synchronize()
     counts = tfm.launch_counts()
-    inner = 1 if radix.kernel_path(m, dtype) in ("radix", "long") else \
-        2 + (split_rows_long(m, dtype))
+    inner = 1 if plan.route in ("dense", "long") else 2 + transform_launches(
+        plan.split.q, dtype)
     assert counts["chirp_calls"] == 1 and counts["split_calls"] == 0
     assert counts["launches"] == counts["chirp"] == 2 * inner, counts
     assert tfm.fft_fourstep.path_launches["dense"] == 0
+    assert ops.copies["lines"] == 0
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
     assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), 2e-4)
     if parts is not None:
         assert got.transpose(0, 1).is_contiguous()
 
 
-def split_rows_long(n, dtype) -> int:
+def transform_launches(n, dtype) -> int:
+    """Launches of one transform of contiguous lines of ``n``: one, or a
+    split call's two or three, or a nested plan's pass A, its rows' and
+    pass C."""
     from repro_torch.kernels import split
-    return int(split.split_plan(n, dtype).row_path == "long")
+    if radix.kernel_path(n, dtype) != "split":
+        return 1
+    plan = split.split_plan(n, dtype)
+    if plan.row_path == "any":
+        return 2 + transform_launches(plan.q, dtype)
+    return 2 + int(plan.row_path in ("long", "dense"))
+
+
+@pytest.mark.cuda
+def test_cuda_nested_line_of_2_to_the_28(cuda):
+    """A nested plan on complex64 (4, 2^28): 2^33 bytes a buffer, so a
+    32-bit byte offset would fail there (pass A on the radix route at P =
+    512, the rows of 2^19 on the split route one level down, pass C); 16
+    sampled bins of each line against a float64 direct sum on the card,
+    within 2e-4 of the samples' largest."""
+    from repro_torch.kernels import split
+    b, n = 4, 1 << 28
+    assert radix.kernel_path(n, torch.complex64) == "split"
+    assert split.split_plan(n, torch.complex64).row_path == "any"
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    x = torch.randn((b, n), dtype=torch.complex64, device=cuda,
+                    generator=gen)
+    tfm.reset_launch_counts()
+    y = tfm.fft_fourstep(x)
+    torch.cuda.synchronize()
+    counts = tfm.launch_counts()
+    assert counts["split_calls"] == 1
+    assert counts["launches"] == counts["split"] == transform_launches(
+        n, torch.complex64)
+    ks = [0, 1, n // 2, n - 1] + [int(k) for k in torch.randint(
+        0, n, (12,), generator=torch.Generator().manual_seed(2))]
+    idx = torch.arange(n, device=cuda, dtype=torch.int64)
+    for line in range(b):
+        xl = x[line].to(torch.complex128)
+        got, ref = [], []
+        for k in ks:
+            phase = ((idx * k) % n).to(torch.float64) * (-2 * math.pi / n)
+            ref.append(complex((xl * torch.polar(torch.ones_like(phase),
+                                                 phase)).sum()))
+            got.append(complex(y[line, k]))
+            del phase
+        err = np.abs(np.array(got) - np.array(ref)).max()
+        assert err <= 2e-4 * np.abs(np.array(ref)).max(), (line, err)
+        del xl
 
 
 @pytest.mark.cuda
@@ -602,7 +651,7 @@ def _fft_conv_on_the_long_route(cuda, s):
 def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
     """Every mixed long-line length (complex64 4352-15360, complex128
-    1088-7680, r in ``radix.EVERY_ROUTE_ODD``: 3 to 19, 21, 25, 27): one
+    1088-7680, r in ``radix.EVERY_ROUTE_ODD``: 3 to 19, 21, 23, 25, 27): one
     launch on "long" each,
     against the plain version (``longline.emulate``) and ``torch.fft`` at
     the kernel's tolerances, without an epilogue and with both (segments
@@ -611,12 +660,12 @@ def test_cuda_long_mixed_lengths_match_plain_version_and_torch_fft(
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in sorted(longline.FACTORS[dtype])
              if radix.odd_part(n) in radix.EVERY_ROUTE_ODD]
-    assert len(mixed) == (24 if dtype == torch.complex64 else 36)
+    assert len(mixed) == (26 if dtype == torch.complex64 else 39)
     for n in mixed:
         x = torch.from_numpy(cplx((37, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
                        / (2 * n)).to(dtype)
-        parts = next(r for r in (3, 5, 7, 11, 13, 17, 19) if n % r == 0)
+        parts = next(r for r in (3, 5, 7, 11, 13, 17, 19, 23) if n % r == 0)
         lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
         for t, p in ((None, None), (tw, parts)):
             tfm.reset_launch_counts()
@@ -777,7 +826,7 @@ def test_cuda_split_mixed_lengths_match_plain_version_and_torch_fft(
              if not radix.is_pow2(n)]
     for i, n in enumerate(mixed):
         inverse, use_tw = i % 2 == 1, i % 3 == 0
-        parts = (next(r for r in (3, 5, 7, 11, 13, 17, 19) if n % r == 0)
+        parts = (next(r for r in (3, 5, 7, 11, 13, 17, 19, 23) if n % r == 0)
                  if i % 2 else None)
         b = max(1, (1 << 24) // (n * dtype.itemsize))
         x = torch.from_numpy(cplx((b, n), i)).to(cuda, dtype)

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from repro.kernels import fft_matmul as jfm
-from repro_torch.kernels import chirp, dense, ops, radix
+from repro_torch.kernels import chirp, dense, longline, ops, radix
 from repro_torch.kernels import fft_matmul as tfm
 from torch_harness import (assert_scaled_close, dense_keeps,
                            pallas_lines_c128)
@@ -214,7 +214,9 @@ def test_dense_route_takes_the_smooth_lines_that_fit_one_block(
             assert path != "dense" and path != "chirp", n
         elif n <= limit:
             want = ("dense" if dense_keeps(n, dense.GENERIC_COST[dtype],
-                                           dense.MOVE_MARGIN) else "chirp")
+                                           dense.MOVE_MARGIN,
+                                           longline.FOLD_SIZES[dtype], dtype.itemsize)
+                    else "chirp")
             assert path == want, n
         elif radix.smooth(n) and dense.fits(n, dtype):
             assert path == "dense", n

@@ -318,8 +318,9 @@ def test_kernel_operands_are_resolved():
     (48, torch.complex128, "radix"), (16384, torch.complex64, "long"),
     (8192, torch.complex128, "long"), (32768, torch.complex64, "split"),
     (16384, torch.complex128, "split"), (1 << 24, torch.complex64, "split"),
-    (1 << 22, torch.complex128, "split"), (1 << 25, torch.complex64, "dense"),
-    (1 << 23, torch.complex128, "dense"), (11520, torch.complex64, "long"),
+    (1 << 22, torch.complex128, "split"), (1 << 25, torch.complex64, "split"),
+    (1 << 23, torch.complex128, "split"), (11520, torch.complex64, "long"),
+    ((1 << 30) + 1, torch.complex64, "dense"),
     (13312, torch.complex64, "long"), (208, torch.complex128, "radix"),
     (208, torch.complex64, "dense"), (10752, torch.complex64, "long"),
     (672, torch.complex64, "radix"), (4032, torch.complex64, "radix"),
@@ -362,7 +363,8 @@ def test_kernel_path_selection(n, dtype, path):
     8448),
     the mixed-radix kernel in shared memory since it replaced the dense
     matrices, which needed one block for W1, W2 and the line (the card
-    refuses the route past its domain: 2^25 / 2^23).  The mixed lengths past the radix route (13312 =
+    refuses the route past its domain: 2^30 + 1; 2^25 / 2^23, which it
+    refused before, take the split route's nested plans).  The mixed lengths past the radix route (13312 =
     13*1024 and 10752 = 21*512 are long lines, 21*1024 a split one):
     test_torch_long_mixed_fft.py and test_torch_split_mixed_fft.py; so
     are the other even 13-smooth lengths up to a 128 KB line that three

@@ -264,15 +264,16 @@ def _old_path(n: int, dtype: torch.dtype) -> str:
     """``radix.kernel_path`` before the rule: the table's lengths alone on
     the long-line route, and the chirp route past the dense route's old
     limit (``dense.DENSE_LIMIT``), as it then was."""
-    from repro_torch.kernels import chirp, split
+    from repro_torch.kernels import split
     if n in radix.RADIX_SIZES[dtype]:
         return "radix"
     if n in longline._TABLE[dtype]:
         return "long"
     if n in split.FACTORS[dtype]:
         return "split"
-    return ("chirp" if dense.DENSE_LIMIT[dtype] < n <= chirp.max_length(
-        dtype) else "dense")
+    # the chirp's limit then: half the split route's longest power of two
+    return ("chirp" if dense.DENSE_LIMIT[dtype] < n <= split.LIMIT[dtype]
+            // 2 else "dense")
 
 
 @pytest.mark.parametrize("dtype,count,first,last", [
@@ -337,7 +338,8 @@ def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
             # since the chirp took the lines whose generic stages cost
             # more than it from the dense route
             assert n <= dense.DENSE_LIMIT[dtype] and not dense_keeps(
-                n, dense.GENERIC_COST[dtype], dense.MOVE_MARGIN), (
+                n, dense.GENERIC_COST[dtype], dense.MOVE_MARGIN,
+                longline.FOLD_SIZES[dtype], dtype.itemsize), (
                     n, path, old)
         elif path != old and path == "split":
             # since the split route's general plans took the other

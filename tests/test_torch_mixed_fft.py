@@ -408,7 +408,8 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
     16896 in complex64), then the split route where its rule finds a P
     and a Q (``split.rule_factors``: 33*2^10 = 256 x 132), else its
     general plans (``split.general_factors``) up to its limit, 2^24 /
-    2^22, past which the dense route raises on the card."""
+    2^22, and past it its nested plans (``split.nested_factors``), which
+    raised on the card before."""
     cap = radix.CODELET_MAX[dtype]
     on_radix = []
     for k in range(1, 24):
@@ -436,7 +437,7 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
             assert path == "split" and split.general_factors(n, dtype), (
                 n, path)
         else:
-            assert path == "dense" and n > chirp.max_length(dtype), (
+            assert path == "split" and split.nested_factors(n, dtype), (
                 n, path)
     assert on_radix == [r << k for k in range(1, 24)
                         if max(factorize(r << k)) <= cap
@@ -492,7 +493,8 @@ def test_odd_and_rough_lengths_stay_dense(dtype):
     for n in range(3, cap * cap + 1):
         if n % 2 == 0 and radix.codelet_length(n):
             continue
-        want = ("dense" if dense_keeps(n, cost, dense.MOVE_MARGIN)
+        want = ("dense" if dense_keeps(n, cost, dense.MOVE_MARGIN,
+                                          longline.FOLD_SIZES[dtype], dtype.itemsize)
                 else "chirp")
         assert radix.kernel_path(n, dtype) == want, n
     assert radix.kernel_path(544, dtype) == "radix"

@@ -195,7 +195,7 @@ def test_kernel_line_flops_follow_kernel_path(n, dtype):
     elif kernel_path(n, dtype) == "chirp":
         # two transforms of M on their route, their twiddles and the
         # input's chirp
-        m = chirp_length(n)
+        m = chirp_length(n, dtype)
         assert got == 2.0 * tpm._line_flops(m, "kernel", dtype) \
             + 6.0 * (2 * m + n)
         assert tpm._line_flops(n, "cufft") < got \

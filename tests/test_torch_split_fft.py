@@ -226,9 +226,11 @@ def test_split_constants_are_the_inter_step_twiddle(inverse):
 
 def test_split_plan_rejects_other_lengths_and_factors():
     """A length off the table is refused; a length on it gets the table's
-    factors and no others (the plan takes no factors of its own)."""
-    for n, dtype in ((16384, torch.complex64), (1 << 25, torch.complex64),
-                     (8192, torch.complex128), (1 << 23, torch.complex128),
+    factors and no others (the plan takes no factors of its own); past
+    the table's limit, 2^25 / 2^23 take nested plans, and past 2^30 the
+    route refuses every length."""
+    for n, dtype in ((16384, torch.complex64), ((1 << 30) * 2, torch.complex64),
+                     (8192, torch.complex128), ((1 << 30) * 2, torch.complex128),
                      (20011, torch.complex64)):
         with pytest.raises(ValueError, match="split route takes N"):
             split.split_plan(n, dtype)

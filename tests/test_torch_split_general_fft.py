@@ -47,8 +47,10 @@ CASES = [(dtype, n, plan, inv, tw,
           if parts == "odd" else parts)
          for dtype, n, plan in LENGTHS for inv, tw, parts in VARIANTS]
 #: The general rule's lengths per dtype: (all, past the chirp route's
-#: limit, which raised before).
+#: limit before its M could take any route length, which raised before).
 COUNTS = {c64: (7974, 1673), c128: (5216, 1187)}
+#: That limit: half the split route's longest power of two.
+CHIRP_LIMIT_BEFORE = {c64: 1 << 23, c128: 1 << 21}
 
 
 def _case_id(case):
@@ -170,7 +172,7 @@ def test_every_smooth_line_past_one_block_has_a_general_plan(dtype):
             continue
         p, q, col = split.general_factors(n, dtype)
         general += 1
-        past += n > chirp.max_length(dtype)
+        past += n > CHIRP_LIMIT_BEFORE[dtype]
         assert p * q == n and not chirp.takes(n, dtype)
         assert radix.kernel_path(n, dtype) == "split"
         plan = split.split_plan(n, dtype)
@@ -195,9 +197,10 @@ def test_the_routes_keep_their_lengths(dtype):
     (``longline.FACTORS``) and the split route's table and rule
     (``split.FACTORS``) keep their route and (P, Q), with pass A on the
     radix route and pass B on the row route they had; the general rule
-    takes none of them; past the chirp's limit only N with a prime
-    factor past 13 raise (``launch_config`` says so), such as the primes
-    complex64 8388617 and complex128 2097169."""
+    takes none of them; the primes past the chirp's old limit, complex64
+    8388617 and complex128 2097169, which raised, take the chirp (M on a
+    split plan), and only N past the kernels' 32-bit line index raise
+    (``launch_config`` says so)."""
     for n in radix.RADIX_SIZES[dtype]:
         assert radix.kernel_path(n, dtype) == "radix"
     for n in longline.FACTORS[dtype]:
@@ -212,7 +215,10 @@ def test_the_routes_keep_their_lengths(dtype):
               *split.FACTORS[dtype]):
         assert split.general_factors(n, dtype) is None
     prime = 8388617 if dtype == c64 else 2097169
-    assert prime > chirp.max_length(dtype)
-    assert radix.kernel_path(prime, dtype) == "dense"
-    with pytest.raises(ValueError, match="a prime factor past 13"):
-        tfm.launch_config(prime, dtype.itemsize)
+    assert prime > CHIRP_LIMIT_BEFORE[dtype]
+    assert radix.kernel_path(prime, dtype) == "chirp"
+    assert chirp.chirp_plan(prime, dtype).route == "split"
+    past = split.MAX_LENGTH + 1
+    assert radix.kernel_path(past, dtype) == "dense"
+    with pytest.raises(ValueError, match="32-bit ints"):
+        tfm.launch_config(past, dtype.itemsize)

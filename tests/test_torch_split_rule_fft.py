@@ -170,7 +170,7 @@ def test_rule_plans_fit_the_tiles_and_the_instantiated_sizes(dtype):
         assert radix.is_pow2(plan.ql) and plan.ql * plan.qh == q
         assert plan.const_elems * dtype.itemsize <= 16 << 20
         assert radix.kernel_path(n, dtype) == "split"
-        past += n > chirp.max_length(dtype)
+        past += n > split.LIMIT[dtype] // 2     # the chirp's old limit
     assert (len(rule), long_rows, past) == COUNTS[dtype]
 
 
@@ -240,8 +240,10 @@ def test_rule_leaves_the_other_routes_alone(dtype):
     the measured table keeps its plans; what the rule cannot hold (odd N
     such as 98415 = 3^9*5, N with one factor of 2 such as 29106 =
     2*14553, Q that no row fits: 30976 = 256 x 121, complex128 62720 =
-    64 x 980, 980 = 28 x 35 past its codelets) takes the split route's general plans (``split.general_factors``);
-    past the split route's limit (3^15*2) N raises (dense)."""
+    64 x 980, 980 = 28 x 35 past its codelets) takes the split route's
+    general plans (``split.general_factors``); past the split route's
+    limit (3^15*2), which raised, its nested plans
+    (``split.nested_factors``)."""
     for n, pq in split._TABLE[dtype].items():
         assert split.FACTORS[dtype][n] == pq
     top = 28431 if dtype == c64 else 14196
@@ -256,18 +258,19 @@ def test_rule_leaves_the_other_routes_alone(dtype):
         assert split.rule_factors(n, dtype) is None
         assert split.general_factors(n, dtype) is not None
         assert radix.kernel_path(n, dtype) == "split", n
-    # past the split route's limit, no (P, Q): the dense route raises
+    # past the split route's limit, no (P, Q) of the rule: a nested plan
     n = 3 ** 15 * 2
-    assert n > chirp.max_length(dtype) and split.rule_factors(n, dtype) is None
-    assert radix.kernel_path(n, dtype) == "dense"
-    with pytest.raises(ValueError, match="split route takes"):
-        tfm.launch_config(n, dtype.itemsize)
+    assert n > split.LIMIT[dtype] and split.rule_factors(n, dtype) is None
+    assert radix.kernel_path(n, dtype) == "split"
+    p, q, _ = split.nested_factors(n, dtype)
+    assert p * q == n and q <= split.LIMIT[dtype]
+    assert split.split_plan(n, dtype).row_path == "any"
 
 
 def test_rule_message_names_the_split_rule():
     """Past every route's domain the dense route's message names the
     split route's measured table and rule, and the chirp's limit."""
     with pytest.raises(ValueError, match="rule_factors") as err:
-        tfm.launch_config(3 ** 15 * 2, 8)
-    assert str(chirp.max_length(c64)) in str(err.value)
+        tfm.launch_config(split.MAX_LENGTH + 1, 8)
+    assert str(chirp.max_chirp_length()) in str(err.value)
     assert split.LIMIT == {c64: 1 << 24, c128: 1 << 22}

@@ -279,7 +279,7 @@ def test_wide_odd_parts_take_every_codelet_route(dtype, r):
         assert n * dtype.itemsize <= longline.LINE_MAX_BYTES
     assert len(routes["long"]) == (2 if dtype == c64 else 3)
     assert set(routes) == {"radix", "long", "split"}
-    assert routes["split"][-1] > chirp.max_length(dtype)
+    assert routes["split"][-1] > split.LIMIT[dtype] // 2   # the old chirp
     for n in routes["split"]:
         plan = split.split_plan(n, dtype)
         assert radix.is_pow2(plan.p) and radix.odd_part(plan.q) == r
@@ -290,14 +290,16 @@ def test_wide_odd_parts_take_every_codelet_route(dtype, r):
 
 
 #: (dtype, N, route) from the H100 sweep of both routes forced on the
-#: same lines (``scripts/route_times.py generic``; PERF.md §6): the chirp
-#: where it read at least 1.29x faster, dense where the dense route read
-#: faster, and dense where the chirp read faster by less than
-#: ``dense.MOVE_MARGIN`` covers (c64 4081 10%, 1028 16%, c128 1616 27%).
-SWEPT = [(c64, 1616, "dense"), (c64, 3232, "chirp"), (c64, 4831, "chirp"),
-         (c64, 1086, "dense"), (c64, 848, "dense"), (c64, 53, "dense"),
-         (c64, 4081, "dense"), (c64, 1028, "dense"), (c128, 2417, "chirp"),
-         (c128, 1888, "dense"), (c128, 123, "dense"), (c128, 1616, "dense")]
+#: same lines (``scripts/route_times.py generic``, refit since the chirp's
+#: folded load and store; PERF.md §6): the chirp where it read faster
+#: than ``dense.MOVE_MARGIN`` covers (c64 1616 = 101*16, 1086, 1028, 53,
+#: 4081, c128 1616, 1888, which the refit moved off the dense route),
+#: dense where the dense route read faster (c128 123) or the chirp by less
+#: than the margin (c64 848, 10%).
+SWEPT = [(c64, 1616, "chirp"), (c64, 3232, "chirp"), (c64, 4831, "chirp"),
+         (c64, 1086, "chirp"), (c64, 848, "dense"), (c64, 53, "chirp"),
+         (c64, 4081, "chirp"), (c64, 1028, "chirp"), (c128, 2417, "chirp"),
+         (c128, 1888, "chirp"), (c128, 123, "dense"), (c128, 1616, "chirp")]
 
 
 @pytest.mark.parametrize("dtype", [c64, c128])
@@ -307,22 +309,23 @@ def test_dense_route_keeps_generic_stages_cheaper_than_the_chirp(dtype):
     (``torch_harness.dense_keeps`` restates ``GENERIC_COST``'s rule: the
     sum of N's primes past 13 against the chirp's cost per element of M
     times M/N and ``MOVE_MARGIN``), and the chirp route takes the rest,
-    its M on the radix
-    route for the short ones (complex64 N to 2048: M to 4096); the
-    chirp's inner transforms never reach the dense route; and the swept
-    lengths take the route ``SWEPT`` names."""
+    its M (13-smooth, at most twice 2N - 1) on the long-line route's
+    powers of two or the dense route's kernel, whose line fits one block;
+    and the swept lengths take the route
+    ``SWEPT`` names."""
     limit, cost = dense.DENSE_LIMIT[dtype], dense.GENERIC_COST[dtype]
     inner = set()
     for n in range(1, limit + 1):
         path = radix.kernel_path(n, dtype)
         if path in ("radix", "long", "split"):
             continue
-        keep = dense_keeps(n, cost, dense.MOVE_MARGIN)
+        keep = dense_keeps(n, cost, dense.MOVE_MARGIN,
+                           longline.FOLD_SIZES[dtype], dtype.itemsize)
         assert path == ("dense" if keep else "chirp"), (n, path)
         assert dense.takes(n, dtype) == (path == "dense")
         if path == "chirp":
-            inner.add(radix.kernel_path(chirp.chirp_length(n), dtype))
-    assert "dense" not in inner and "radix" in inner
+            inner.add(chirp.chirp_plan(n, dtype).route)
+    assert inner <= {"dense", "long"}
     for dt, n, route in SWEPT:
         if dt == dtype:
             assert radix.kernel_path(n, dtype) == route, n

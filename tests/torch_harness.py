@@ -38,22 +38,53 @@ def rough_sum(n: int) -> int:
     return total + (n if n > 13 else 0)
 
 
-def dense_keeps(n: int, cost: dict, margin: float) -> bool:
+def dense_keeps(n: int, cost: dict, margin: float,
+                fold_sizes: tuple = (), itemsize: int = 8) -> bool:
     """The dense route's rule for an N up to its limit, restated from
     ``cost`` (``dense.GENERIC_COST[dtype]``): the sum of N's prime factors
     past 13 times the weight of N's parity plus that parity's base,
-    times N, against ``margin`` times the chirp's cost per element of M
-    times M, M the least power of two >= 2N - 1 (below the table's least
-    M, that M's cost)."""
-    s, m = rough_sum(n), 1
-    while m < 2 * n - 1:
-        m *= 2
+    times N, against ``margin`` times the chirp's cost: the least over
+    the 13-smooth M from 2N - 1 to twice that of M times the chirp's cost
+    per element, on the long-line route at ``fold_sizes``
+    (``longline.FOLD_SIZES[dtype]``), else on the dense route's kernel
+    (M's line fits one block there): a base for lines sharing a block (M
+    up to 2048) or one a block, plus a weight per stage of M's chain (a
+    stage per odd prime factor, a 4 or a 2 per two factors of 2) and one
+    per share of a block's 232448 bytes that a line of ``itemsize``-byte
+    elements fills."""
+    s = rough_sum(n)
     if s == 0:
         return True
     base, weight = cost["odd"] if n % 2 == 1 else cost["even"]
-    per_m = cost["chirp"][m] if m in cost["chirp"] else cost["chirp"][
-        min(cost["chirp"])]
-    return (base + weight * s) * n <= margin * per_m * m
+    per_m = cost["chirp"]
+    chirp = float("inf")
+    for m in range(2 * n - 1, 4 * n - 1):
+        if m in fold_sizes:
+            chirp = min(chirp, m * per_m["long"])
+        elif is_smooth(m):
+            twos = (m & -m).bit_length() - 1
+            stages = sum(1 for _ in _odd_factors(m)) + (twos + 1) // 2
+            tile = per_m["share"] if m <= 2048 else per_m["line"]
+            chirp = min(chirp, m * (tile + per_m["stage"] * stages
+                                    + per_m["fill"] * m * itemsize / 232448))
+    return (base + weight * s) * n <= margin * chirp
+
+
+def _odd_factors(m: int):
+    """The odd prime factors of a 13-smooth ``m``, each as often as it
+    divides ``m``."""
+    for p in (3, 5, 7, 11, 13):
+        while m % p == 0:
+            m //= p
+            yield p
+
+
+def is_smooth(m: int) -> bool:
+    """Whether ``m`` >= 1 has no prime factor past 13."""
+    for p in (2, 3, 5, 7, 11, 13):
+        while m % p == 0:
+            m //= p
+    return m == 1
 
 
 def cplx(shape, seed: int, dtype=np.complex64) -> np.ndarray:
