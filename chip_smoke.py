@@ -190,7 +190,8 @@ its result line):
     first one's load and the first N kept by the second one's store) at
     lengths no other route
     takes, complex64 7424, 10007, 20011, the prime 4831 and complex128
-    3001, 3712, 256 MB each, and past the chirp's old limit complex64
+    3001, 3712 and 4099 (M on the long-line, dense or split route, each
+    checked), 256 MB each, and past the chirp's old limit complex64
     8388617, 2^24 + 1 and complex128 2^21 + 1, 512 MB each, once through
     ``ops.fft1d`` (one chirp call, its launches on "chirp", 2 where M is
     on the dense route's kernel or the long-line route), against its
@@ -288,6 +289,11 @@ RADIX_SOURCE = "src/repro_torch/csrc/fft_radix.cuh"
 LONG_SOURCE = "src/repro_torch/csrc/fft_long.cuh"
 SPLIT_SOURCE = "src/repro_torch/kernels/split.py"
 CHIRP_SOURCE = "src/repro_torch/kernels/chirp.py"
+#: The source of the kernel that runs the chirp's transforms, by M's route
+#: (``chirp.chirp_plan``): on a split plan pass A, the dense kernel's
+#: columns.
+CHIRP_ROUTE_SOURCE = {"dense": DENSE_SOURCE, "long": LONG_SOURCE,
+                      "split": DENSE_SOURCE}
 #: The routes of B1, as ``radix.kernel_path`` names them and
 #: ``fft_fourstep.path_launches`` counts their launches.
 KERNEL_PATHS = ("radix", "dense", "long", "split", "chirp")
@@ -475,6 +481,29 @@ def phase_build(timer=time.perf_counter) -> dict:
             "ptxas": report}
 
 
+#: (b, N, inverse, pack_parts, twiddle, dtype name, M's route) of the
+#: chirp route in ``kernel_cases``: M (``chirp.chirp_plan``) on each route
+#: in both dtypes, both directions and epilogues.  The dense route's
+#: kernel: the primes c64 101 (M = 208), 521 (1183) and 10007 (20449),
+#: c128 101 (208) and 4099 (8281); the long-line route's powers of two:
+#: c64 7424 = 29*2^8 and 4831 (16384), c128 3001 and 3712 (8192) and 1021
+#: (2048); a split plan: c64 20011 (40040 = 385 x 104), c128 8009 (16038
+#: = 198 x 81).  ``phase_kernel_vs_plain`` checks each route.
+CHIRP_CASES = ((2, 7424, False, None, True, "complex64", "long"),
+               (3, 7424, True, 2, False, "complex64", "long"),
+               (2, 4831, True, None, True, "complex64", "long"),
+               (5, 101, False, None, True, "complex64", "dense"),
+               (5, 521, False, None, True, "complex64", "dense"),
+               (1, 10007, True, None, True, "complex64", "dense"),
+               (1, 20011, False, None, True, "complex64", "split"),
+               (2, 3001, False, None, True, "complex128", "long"),
+               (1, 3712, True, 29, False, "complex128", "long"),
+               (3, 1021, False, None, True, "complex128", "long"),
+               (3, 101, True, None, True, "complex128", "dense"),
+               (2, 4099, True, None, True, "complex128", "dense"),
+               (1, 8009, False, None, True, "complex128", "split"))
+
+
 def kernel_cases():
     """(b, n, inverse, pack_parts, twiddle, dtype name, conj) over
     test_kernels.py; ``conj`` names the operand passed as a lazily
@@ -564,27 +593,16 @@ def kernel_cases():
     # the dense route: a length per family of both dtypes, both
     # directions, each epilogue, batches ragged against its tile
     cases += dense_cases()
-    # the chirp route: M on the dense route's kernel (29*2^k, the primes
-    # 4831, 10007 and 101, complex128 3001, 3712 and 1021) and on a split
-    # plan (the prime 20011), both dtypes, directions and epilogues; then
-    # the split route's general plans (a dense pass A of
-    # odd and even P, a radix pass A with dense rows, a column tile of 4),
-    # segments of any length
-    for b, n, inv, parts, tw, dt in ((2, 7424, False, None, True, c64),
-                                     (3, 7424, True, 2, False, c64),
-                                     (2, 4831, True, None, True, c64),
-                                     (5, 101, False, None, True, c64),
-                                     (1, 10007, True, None, True, c64),
-                                     (1, 20011, False, None, True, c64),
-                                     (3, 29106, False, 3, True, c64),
+    # the chirp route (``CHIRP_CASES``), then the split route's general
+    # plans (a dense pass A of odd and even P, a radix pass A with dense
+    # rows, a column tile of 4), segments of any length
+    cases += [case[:6] + ("",) for case in CHIRP_CASES]
+    for b, n, inv, parts, tw, dt in ((3, 29106, False, 3, True, c64),
                                      (2, 33075, True, 5, True, c64),
                                      (2, 30976, True, 11, False, c64),
                                      (2, 44100, False, 7, True, c64),
                                      (2, 14406, True, 7, True, c128),
-                                     (1, 4084223, False, 11, False, c128),
-                                     (2, 3001, False, None, True, c128),
-                                     (1, 3712, True, 29, False, c128),
-                                     (3, 1021, False, None, True, c128)):
+                                     (1, 4084223, False, 11, False, c128)):
         cases.append((b, n, inv, parts, tw, dt, ""))
     return cases
 
@@ -743,6 +761,12 @@ def phase_kernel_vs_plain(device) -> dict:
               f"{(outer, n, inner)}, inverse={inv}, twiddle={tw}, {dt}, "
               f"conj={conj!r}): scaled error {err:.3e} > {TOL[dt]}")
         del x, got, ref
+    from repro_torch.kernels import chirp
+    for b, n, inv, parts, tw, dt, route in CHIRP_CASES:
+        dtype = getattr(torch, dt)
+        got = (kernel_path(n, dtype), chirp.chirp_plan(n, dtype).route)
+        check(got == ("chirp", route), f"[kernel] {dt} {n}: route and M's "
+              f"route {got}, expected ('chirp', {route!r})")
     n_cases = len(kernel_cases()) + len(strided_cases())
     print(f"[kernel] {n_cases} cases match the plain version: worst scaled "
           f"error {worst['complex64']:.3e} (complex64, bound "
@@ -2885,20 +2909,24 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
     return out
 
 
-#: (dtype name, N) of ``[chirp]``: lengths no other route takes, 29*2^k
-#: (a prime factor past 23 past the dense route's limit) and the primes
-#: 10007 and 4831 (which left the dense route's generic stage), M on the
-#: dense route's kernel, the prime 20011, M on a split plan; complex128
-#: likewise.  The first is the ``fft_fourstep_chirp`` entry's timing.
-CHIRP_LENGTHS = (("complex64", 7424), ("complex64", 10007),
-                 ("complex64", 20011), ("complex128", 3001),
-                 ("complex128", 3712), ("complex64", 4831))
-#: (dtype name, N) of ``[chirp]`` at 512 MB of lines: lengths that raised
-#: past the chirp's old limit (half the split route's longest power of
-#: two), M on a split plan: the prime 8388617, 2^24 + 1 = 97*257*673,
-#: complex128 2^21 + 1 = 9*233017.
-CHIRP_PAST = (("complex64", 8388617), ("complex64", (1 << 24) + 1),
-              ("complex128", (1 << 21) + 1))
+#: (dtype name, N, M's route) of ``[chirp]``: lengths no other route
+#: takes, 29*2^k (a prime factor past 23 past the dense route's limit)
+#: and the prime 4831 (which left the dense route's generic stage), M =
+#: 16384 or, complex128, 8192 on the long-line route; the primes c64
+#: 10007 (M = 20449) and c128 4099 (8281) on the dense route's kernel;
+#: the prime 20011, M = 40040 on a split plan.  The first is the
+#: ``fft_fourstep_chirp`` entry's timing.
+CHIRP_LENGTHS = (("complex64", 7424, "long"), ("complex64", 10007, "dense"),
+                 ("complex64", 20011, "split"), ("complex128", 3001, "long"),
+                 ("complex128", 3712, "long"), ("complex64", 4831, "long"),
+                 ("complex128", 4099, "dense"))
+#: (dtype name, N, M's route) of ``[chirp]`` at 512 MB of lines: lengths
+#: that raised past the chirp's old limit (half the split route's longest
+#: power of two), M on a split plan: the prime 8388617, 2^24 + 1 =
+#: 97*257*673, complex128 2^21 + 1 = 9*233017.
+CHIRP_PAST = (("complex64", 8388617, "split"),
+              ("complex64", (1 << 24) + 1, "split"),
+              ("complex128", (1 << 21) + 1, "split"))
 #: (dtype name, N, route) of ``[gaps]``, on the dense route but one: the
 #: lengths it had with the widest gaps to ``torch.fft`` (the even
 #: 13-smooth complex64 2730 = 2*1365, 3430 = 2*1715 and 4050 = 2*2025,
@@ -2933,22 +2961,25 @@ def phase_chirp(device, lengths=CHIRP_LENGTHS, past=CHIRP_PAST,
     (``chirp.emulate``; ``TOL``) and within ``PATH_TOL`` of
     ``torch.fft``; the inverse with the twiddle and ``pack_parts`` (no
     line copy) against ``torch.fft``; CUDA-event ms beside
-    ``torch.fft.fft`` and the lines' bound; M, its route and, on a split
-    plan, (P, Q) and the rows' route."""
+    ``torch.fft.fft`` and the lines' bound; M, its route (the one
+    ``lengths`` or ``past`` names) and, on a split plan, (P, Q) and the
+    rows' route."""
     import torch
     from repro_torch.kernels import chirp, radix
     from repro_torch.kernels.fft_matmul import fft_fourstep
     cuda = device.type == "cuda"
     out = {"lengths": []}
-    cases = ([(dt, n, lengths_bytes) for dt, n in lengths]
-             + [(dt, n, past_bytes) for dt, n in past])
-    for i, (dt, n, nbytes) in enumerate(cases):
+    cases = ([(dt, n, route, lengths_bytes) for dt, n, route in lengths]
+             + [(dt, n, route, past_bytes) for dt, n, route in past])
+    for i, (dt, n, route, nbytes) in enumerate(cases):
         dtype = getattr(torch, dt)
+        plan = chirp.chirp_plan(n, dtype)
+        check(plan.route == route, f"[chirp] {dt} {n}: M = {plan.m} on the "
+              f"{plan.route} route, expected the {route} route")
         b = max(1, nbytes // (n * dtype.itemsize))
         x = randc((b, n), dtype, device, SEED + 90 + i)
         rec = line_entry(x, "chirp", "chirp", iters, plain_iters=1,
                          tol=PATH_TOL)
-        plan = chirp.chirp_plan(n, dtype)
         rec.update(m=plan.m, m_route=plan.route)
         if plan.split is not None:
             rec.update(factors=[plan.split.p, plan.split.q],
@@ -3885,10 +3916,13 @@ def main(timer=time.perf_counter) -> int:
              "mixed_plan_360": mixed_plan45["forward_counts"]["radix"],
              "mixed_plan_600": mixed_plan75["forward_counts"]["radix"]}},
         # launches: [chirp]'s calls, one ops.fft1d call per length (no
-        # LM path runs the chirp route now); timed at lines of 7424
+        # LM path runs the chirp route now); timed at lines of 7424, the
+        # source the kernel of its M's route
         {"name": "fft_fourstep_chirp", "route": "cuda",
-         "source": DENSE_SOURCE, "path": "chirp",
-         "functions": ["dense_chirp_kernel", "dense_column_chirp_kernel",
+         "source": CHIRP_ROUTE_SOURCE[chirp_["lengths"][0]["m_route"]],
+         "path": "chirp",
+         "functions": ["dense_chirp_kernel", "long_chirp_kernel",
+                       "dense_column_chirp_kernel",
                        "split_transpose_keep_kernel"],
          "sources": [DENSE_SOURCE, LONG_SOURCE, KERNEL_SOURCE,
                      CHIRP_SOURCE, SPLIT_SOURCE],

@@ -3,6 +3,7 @@
 lengths take which route, for the tree whose root is given.
 
     python3 scripts/route_times.py times ROOT TAG OUT.json
+    python3 scripts/route_times.py timescheck ROOT TAG OUT.json
     python3 scripts/route_times.py sweep ROOT OUT.json
     python3 scripts/route_times.py generic ROOT OUT.json
     python3 scripts/route_times.py check ROOT OUT.json
@@ -24,6 +25,8 @@ contiguous lines at :data:`SHAPES`, each on the route that tree's
 a C2C ``plan_fft`` of :data:`GRID` on the kernel backend (launches per
 route and layout, line copies) beside ``fftn`` and a ``cufft`` plan.
 Compare two trees within one call: parent, change, change, parent.
+``timescheck`` does the same, without the plan, at :data:`CHECK_SHAPES`:
+the lengths of ``check``, each on its tree's own route, and c64 30976.
 
 ``sweep`` times every radix-route length of the tree at ROOT whose odd
 part is 65 or more, both dtypes, at 64 MB of lines: the radix kernel,
@@ -175,6 +178,14 @@ GENERIC_CHECK = tuple(("complex64", n) for n in (
     3384, 4240, 4272, 4371)) + tuple(("complex128", n) for n in (
         59, 178, 314, 356, 581, 793, 1363, 1369, 1504, 1580, 1740, 2086,
         2117, 2241, 2286, 2379))
+#: (dtype name, lines, N) of ``timescheck``: c64 30976 = 256 x 121 (a
+#: general split plan, which kept its route; one change run read it 51%
+#: slower than the others), then the lengths of ``check``, at 256 MB of
+#: lines, most of which ``dense.MOVE_MARGIN`` moves from the dense route
+#: to the chirp.
+CHECK_SHAPES = tuple(
+    (dt, (256 << 20) // (n * (8 if dt == "complex64" else 16)), n)
+    for dt, n in (("complex64", 30976),) + GENERIC_CHECK)
 #: (dtype name, N) of ``split``: the split route's rule lengths, from
 #: the families it takes: 23*2^k from the shortest to the longest
 #: (complex64 23*2^10 = 256 x 92 to 23*2^19 = 1024 x 11776, complex128
@@ -309,13 +320,13 @@ def _lines(torch, dtype, b: int, n: int):
     return torch.randn((b, n), dtype=dtype, device="cuda", generator=gen)
 
 
-def times(root: str, tag: str) -> dict:
+def times(root: str, tag: str, shapes=SHAPES, plan: bool = True) -> dict:
     torch = _port(root)
     from repro_torch import make_mesh, plan_fft
     from repro_torch.kernels import fft_matmul as tfm
     from repro_torch.kernels import ops, radix
     out = {"tag": tag, "root": os.path.abspath(root), "lines": []}
-    for dt, b, n in SHAPES:
+    for dt, b, n in shapes:
         dtype = getattr(torch, dt)
         x = _lines(torch, dtype, b, n)
         tfm.reset_launch_counts()
@@ -344,6 +355,8 @@ def times(root: str, tag: str) -> dict:
               f"{rec['err_vs_torch_fft']:.2e}; launches {rec['launches']}",
               flush=True)
         out["lines"].append(rec)
+    if not plan:
+        return out
     mesh = make_mesh((1, 1), ("data", "model"))
     plan = plan_fft(mesh, GRID, backend="kernel")
     cplan = plan_fft(mesh, GRID, backend="cufft")
@@ -901,6 +914,8 @@ def sass(old: str, new: str) -> dict:
 def main(argv) -> int:
     if len(argv) == 5 and argv[1] == "times":
         result = times(argv[2], argv[3])
+    elif len(argv) == 5 and argv[1] == "timescheck":
+        result = times(argv[2], argv[3], CHECK_SHAPES, plan=False)
     elif len(argv) == 4 and argv[1] == "sweep":
         result = sweep(argv[2])
     elif len(argv) == 4 and argv[1] == "generic":

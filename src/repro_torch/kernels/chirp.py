@@ -130,7 +130,7 @@ def inner_plan(n: int, m: int, dtype: torch.dtype) -> Optional[ChirpPlan]:
     return ChirpPlan(n, m, "split", split.SplitPlan(m, p, q, "any", col))
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=1 << 16)
 def chirp_plan(n: int, dtype: torch.dtype) -> Optional[ChirpPlan]:
     """M and its route for lines of ``n``: of the 13-smooth M from 2N - 1
     up to the next power of two (which always has a route), the one whose

@@ -119,7 +119,11 @@ GENERIC_COST = {
 #: ``chirpm``) the factor whose worst loss either way is least: 3 lengths
 #: left the dense route for a chirp at most 7.4% slower and 6 stayed on a
 #: dense route at most 11.3% slower (at 1.0: 11.8% and 4.3%; at 1.15: none
-#: and 25.7%).
+#: and 25.7%).  No factor puts all 32 held-out lengths (``check``) on
+#: their faster route (c64 4240 wants one below 0.907, c64 423 one above
+#: 1.018).  At 1.1 c128 1504 keeps its dense route, 14.9% slower than a
+#: chirp; 1.0, which moves it, also moves c128 1984, 235 and 536 to
+#: chirps 6.5-11.8% slower than their dense route.
 MOVE_MARGIN = 1.1
 
 

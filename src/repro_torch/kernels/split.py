@@ -425,34 +425,47 @@ def any_candidates(n: int, dtype: torch.dtype, *, limit: int = None,
     return out
 
 
-def any_factors(n: int, dtype: torch.dtype, *, limit: int = None,
-                dense_only: bool = False,
-                one_p: Optional[int] = None) -> Optional[tuple]:
-    """(P, Q, pass A's route) of a plan with rows on any route
-    (:func:`any_candidates`): of the candidates with a radix pass A, else
-    of those whose rows fit one block (their route is not the split
-    route), else of all, the P nearest :data:`NESTED_P` in ratio (the
-    less of two as near), or ``one_p`` among rows of one block.  None
-    where there is none."""
-    cands = any_candidates(n, dtype, limit=limit, dense_only=dense_only)
-    radix_a = [c for c in cands if c[2] == "radix"]
-    one = [c for c in cands if row_route(c[1], dtype) != "split"]
-    family = radix_a or one or cands
-    if not family:
-        return None
-    target = one_p if one_p and not radix_a and one else NESTED_P[dtype]
+def _family(cands: list, dtype: torch.dtype) -> list:
+    """The candidates a plan with rows on any route picks among: those
+    with a radix pass A, else those whose rows fit one block (their route
+    is not the split route), else all."""
+    return ([c for c in cands if c[2] == "radix"]
+            or [c for c in cands if row_route(c[1], dtype) != "split"]
+            or cands)
+
+
+def _nearest(family: list, target: int) -> tuple:
+    """The candidate whose P is nearest ``target`` in ratio, the less of
+    two as near."""
     return min(family, key=lambda c: (abs(math.log(c[0] / target)), c[0]))
 
 
-@functools.lru_cache(maxsize=None)
+def any_factors(n: int, dtype: torch.dtype, *, limit: int = None,
+                dense_only: bool = False) -> Optional[tuple]:
+    """(P, Q, pass A's route) of a plan with rows on any route
+    (:func:`any_candidates`): of :func:`_family`, the P nearest
+    :data:`NESTED_P`.  None where there is none."""
+    family = _family(any_candidates(n, dtype, limit=limit,
+                                    dense_only=dense_only), dtype)
+    return _nearest(family, NESTED_P[dtype]) if family else None
+
+
+@functools.lru_cache(maxsize=1 << 16)
 def nested_factors(n: int, dtype: torch.dtype) -> Optional[tuple]:
     """(P, Q, pass A's route) of the nested plans: every N past
     :data:`LIMIT` up to :data:`MAX_LENGTH` with a plan of
-    :func:`any_factors` (rows of Q on any route but the chirp, one level
-    of nesting where Q runs on the split route itself).  None elsewhere."""
+    :func:`any_candidates` (rows of Q on any route but the chirp, one
+    level of nesting where Q runs on the split route itself): of
+    :func:`_family`, the P nearest :data:`NESTED_ONE_P` where the family
+    is rows of one block with a dense pass A, else nearest
+    :data:`NESTED_P`.  None elsewhere."""
     if dtype not in LIMIT or not LIMIT[dtype] < n <= MAX_LENGTH:
         return None
-    return any_factors(n, dtype, one_p=NESTED_ONE_P[dtype])
+    family = _family(any_candidates(n, dtype), dtype)
+    if not family:
+        return None
+    one = family[0][2] != "radix" and row_route(family[0][1], dtype) != "split"
+    return _nearest(family, (NESTED_ONE_P if one else NESTED_P)[dtype])
 
 
 def takes(n: int, dtype: torch.dtype) -> bool:

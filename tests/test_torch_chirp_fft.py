@@ -8,9 +8,10 @@ the first transform's load, the filter and the output chirp in the
 in the ``pack_parts`` segments.  Its plain version, ``chirp.emulate``
 (the wrapper runs it for CPU tensors), runs the same steps and index
 maps over the inner routes' plain versions; it is held against
-``np.fft`` (complex64 N of 101 and 4831, primes, 7424 = 29*256 and the
-prime 10007, M on the dense route's kernel; complex128 N of 3001 and
-3712 = 29*128; both directions, the twiddle and ``pack_parts``
+``np.fft`` (complex64 N of 101 and 10007, primes, M on the dense route's
+kernel, and 4831, a prime, and 7424 = 29*256, M on the long-line route;
+complex128 N of 3001 and 3712 = 29*128, M on the long-line route; both
+directions, the twiddle and ``pack_parts``
 epilogues; a forced split plan of M) and against the JAX package's
 Pallas kernel in interpret mode on the same numpy inputs where the
 reference factors N or its dense DFT matrix is small (101, 4831, 7424,
@@ -68,8 +69,9 @@ LENGTHS = [(torch.complex64, 101), (torch.complex64, 4831),
 #: 23 x 16 x 16 and 23 x 8 x 16) or the split route's rule did (33792 =
 #: 256 x 132) or its general plans did (29106 = 882 x 33), where the
 #: wrapper's plain version is ``longline.emulate`` or ``split.emulate``;
-#: the rest stay here: 101, 4831, 7424 = 29*256, 10007 and complex128
-#: 3001 and 3712 = 29*128, M on the dense route's kernel.
+#: the rest stay here: 101 and 10007, M on the dense route's kernel, and
+#: 4831, 7424 = 29*256 and complex128 3001 and 3712 = 29*128, M on the
+#: long-line route.
 ROUTE = {4864: "long", 2432: "long", 5888: "long", 2944: "long",
          33792: "split", 29106: "split"}
 CASES = [(dtype, n, b, inv, tw, parts if n % 2 == 0 else None)

@@ -352,29 +352,34 @@ def test_cuda_strided_mixed_axis(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw", [
-    (torch.complex64, 7424, 3, False, None, True),      # M dense
-    (torch.complex64, 7424, 2, True, 4, False),
-    (torch.complex64, 10007, 2, True, None, True),      # prime, M dense
-    (torch.complex64, 20011, 1, False, None, True),     # prime, M split
-    (torch.complex64, 29 << 10, 2, True, 4, True),    # M split, packed
-    (torch.complex128, 3001, 2, False, None, True),
-    (torch.complex128, 3712, 1, True, 29, False),
-    (torch.complex128, 8009, 1, True, None, True),      # M split
-    (torch.complex64, 4831, 2, True, None, False)])     # left the dense
+@pytest.mark.parametrize("dtype,n,b,inverse,parts,use_tw,route", [
+    (torch.complex64, 7424, 3, False, None, True, "long"),     # M 16384
+    (torch.complex64, 7424, 2, True, 4, False, "long"),
+    (torch.complex64, 10007, 2, True, None, True, "dense"),    # M 20449
+    (torch.complex64, 20011, 1, False, None, True, "split"),   # M 40040
+    (torch.complex64, 29 << 10, 2, True, 4, True, "split"),    # M 59400
+    (torch.complex128, 3001, 2, False, None, True, "long"),    # M 8192
+    (torch.complex128, 3712, 1, True, 29, False, "long"),
+    (torch.complex128, 8009, 1, True, None, True, "split"),    # M 16038
+    (torch.complex128, 4099, 2, True, None, True, "dense"),    # M 8281
+    (torch.complex64, 521, 5, False, None, True, "dense"),     # M 1183
+    (torch.complex128, 101, 3, True, None, True, "dense"),     # M 208
+    (torch.complex64, 4831, 2, True, None, False, "long")])    # left dense
 def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
-        cuda, dtype, n, b, inverse, parts, use_tw):
+        cuda, dtype, n, b, inverse, parts, use_tw, route):
     """The chirp route (one chirp call; its two transforms' launches all
     on the "chirp" path, M on the dense or long-line route, one launch each,
-    or a split plan, the folded load in pass A and store in pass C)
+    or a split plan, the folded load in pass A and store in pass C; M's
+    route is the one ``route`` names, so that each runs in both dtypes)
     against its plain version (``chirp.emulate``) at the kernel's
     tolerances and ``torch.fft`` within 2e-4, with both epilogues (the
     ``pack_parts`` segments stored by the second transform, no line
-    copy); the prime 4831, whose generic stage costs the dense route
-    more (``dense.GENERIC_COST``), left it too."""
+    copy); the primes 521, 4831 and complex128 101, whose generic stage
+    costs the dense route more (``dense.GENERIC_COST``), left it too."""
     from repro_torch.kernels import chirp
     assert radix.kernel_path(n, dtype) == "chirp"
     plan = chirp.chirp_plan(n, dtype)
+    assert plan.route == route, (n, plan)
     x = torch.from_numpy(cplx((b, n), 17)).to(cuda, dtype)
     tw = (torch.exp(-1j * math.pi * torch.arange(n, device=cuda) / (2 * n))
           .to(dtype) if use_tw else None)
