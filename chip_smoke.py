@@ -11,9 +11,10 @@ its result line):
 1. build the CUDA kernel from ``src/repro_torch/csrc`` (its translation
    units compiled at once, ``kernels/build.py``) and print the build
    time, ``ptxas``'s registers, spills and stack frame per kernel
-   instantiation (a radix, long-line or dense instantiation, the split
-   route's passes included, that spills or keeps a stack frame fails the
-   run)
+   instantiation (a radix, long-line, wide or dense instantiation, the
+   split route's passes included, that spills or keeps a stack frame
+   fails the run; one wide instantiation per length of
+   ``longline.WIDE``)
    and the card's ``nvidia-smi`` name and power limit;
 2. hold the four-step kernel against its plain PyTorch version on the card
    over the shapes of ``tests/test_kernels.py`` (both directions, prime N,
@@ -26,7 +27,9 @@ its result line):
    both dtypes (r*2^k, r in ``radix.RADIX_ODD``, 3 to 1701, 17 and 19
    included, where both factors fit a codelet: both directions, both
    epilogues, a ``pack_parts`` segment that is not a power of two, also
-   against ``torch.fft``), the dense route's families (odd 13-smooth
+   against ``torch.fft``; the wide lines among them, and the powers of
+   two 2048 and 4096 (complex64) and 512 and 1024 (complex128), on the
+   long route's wide kernel, batches ragged against its tile), the dense route's families (odd 13-smooth
    N, the even ones no codelets hold, the spill lengths, N with a prime
    factor past 13 that ``dense.GENERIC_COST`` keeps and such primes, the
    13-smooth lengths past the old one-block limit; both dtypes,
@@ -143,8 +146,11 @@ its result line):
     and dtype and, for the odd parts from 65, complex64 1000, 1800, 2400
     and 3600 and complex128 300 and 900, and the longest 17*2^k, 19*2^k
     and 23*2^k of each dtype, at 512 MB, each once through
-    ``ops.fft1d`` (one radix launch), against its plain version and
-    ``torch.fft``, timed beside ``torch.fft`` and the bound;
+    ``ops.fft1d`` (one launch: on the radix route, or on the long route's
+    wide kernel for the wide lines of ``longline.WIDE``, such as
+    complex64 2944 and 3600 and complex128 864 and 900), against its
+    plain version and ``torch.fft``, timed beside ``torch.fft`` and the
+    bound;
     ``[mixed_plan]``: ``plan_fft`` C2C at 384^3, 448^3, 416^3, 360^3 and
     600^3 complex64 on
     the kernel, 3 radix launches per direction (2 strided), 0 dense, 0
@@ -209,7 +215,8 @@ its result line):
     width (8192 channels), B=1, S=2048, 3072, 3584, 4096, 8192, 12288,
     16384 and 32768: ``fft_backend="kernel"`` within 1e-4 of ``"cufft"``
     in float32 with the launches of 3 transforms of lines of 2S per call
-    on their path (radix, long, long, long, long, split, split, split: a
+    on their path (long, long, long, long, long, split, split, split, the
+    first on the wide kernel: a
     split transform
     is 2 launches, one strided), none on another path (no chirp call), and
     no line copy; the
@@ -219,7 +226,8 @@ its result line):
     3072, 4096 and 16384 in float32 on ``fft_backend="kernel"`` (the line
     transforms' autograd Function) against ``"cufft"``: every gradient
     within 1e-4, the launches of 6 transforms of lines of 2S on their
-    path (radix, long, long, split) and no line copy, CUDA-event ms on both
+    path (long: the wide kernel, long, long, split) and no line copy,
+    CUDA-event ms on both
     backends beside the 6 transforms' bound;
 19. ``[train]``: the LM train step at qwen3-8b's full width with the
     depth cut to 8 of 36 layers (float32 masters and AdamW moments,
@@ -239,11 +247,12 @@ its result line):
     full width cut to 2 layers, each bitwise equal to the same run with
     ``mesh=None``; then ``fft_conv`` at 8192 channels, S=2048, float32,
     forward and backward through the mesh path (``rules`` of that mesh)
-    on the kernel: exactly 6 radix launches on lines and no line copy,
+    on the kernel: exactly 6 launches on lines on the wide kernel's
+    route (lines of 4096) and no line copy,
     every gradient within 1e-4 of ``cufft``'s;
 22. a ``kernels`` JSON line (one entry per kernel variant, with the path
     it ran and, for B1 and B4, the launches on the segments, executor,
-    analysis, serve, lm, lm_fftconv, train_fftconv and lm_sharded paths;
+    analysis, serve and lm paths;
     the serve counts are the first lifetime's traffic drains; the
     long-line entry's launches are the mixer's at S=4096, the dense
     entry's its ``[long]`` call at (262144, 816), the split entry's the
@@ -251,8 +260,10 @@ its result line):
     S=16384, with S=32768's and ``[train_fftconv]``'s at S=16384 beside
     them, the mixed entry's the 384^3 plan's forward, the chirp entry's
     ``[chirp]``'s calls, the long_mixed entry's the mixer's at S=3072 and
-    the split_mixed entry's the mixer's at S=12288), then the result
-    line.
+    the split_mixed entry's the mixer's at S=12288, the wide entry's the
+    mixer's at S=2048, with ``[train_fftconv]``'s and ``[lm_sharded]``'s
+    at S=2048 and ``[mixed]``'s wide lines beside them; every entry
+    launched on its main path), then the result line.
 
 Measurements also go to ``chiprun_out/chip_smoke.json``.  Exits non-zero
 when CUDA is not available.
@@ -287,6 +298,7 @@ KERNEL_SOURCE = "src/repro_torch/csrc/fft_fourstep.cu"
 DENSE_SOURCE = "src/repro_torch/csrc/fft_dense.cuh"
 RADIX_SOURCE = "src/repro_torch/csrc/fft_radix.cuh"
 LONG_SOURCE = "src/repro_torch/csrc/fft_long.cuh"
+WIDE_SOURCE = "src/repro_torch/csrc/fft_wide.cuh"
 SPLIT_SOURCE = "src/repro_torch/kernels/split.py"
 CHIRP_SOURCE = "src/repro_torch/kernels/chirp.py"
 #: The source of the kernel that runs the chirp's transforms, by M's route
@@ -375,10 +387,16 @@ def ptxas_report(log: str) -> list:
             dc = re.search(r"dense_chirp_kernelI([fd])E", name)
             lc = re.search(r"long_chirp_kernelI([fd])Li(\d+)ELi(\d+)E"
                            r"Li(\d+)ELi(\d+)ELi(\d)E", name)
+            wd = re.search(r"wide_kernelI([fd])((?:Li\d+E){5})", name)
             if r:
                 dt = "complex64" if r.group(1) == "f" else "complex128"
                 name = (f"radix {dt} N1={r.group(2)} N2={r.group(3)}"
                         f"{modes[r.group(4)]}")
+            elif wd:
+                dt = "complex64" if wd.group(1) == "f" else "complex128"
+                r1, r2, r3, lt, blocks = re.findall(r"Li(\d+)E",
+                                                    wd.group(2))
+                name = f"wide {dt} {r1}x{r2}x{r3} tile {lt} blocks {blocks}"
             elif lc:
                 dt = "complex64" if lc.group(1) == "f" else "complex128"
                 name = (f"chirp long {dt} {lc.group(2)}x{lc.group(3)}x"
@@ -442,6 +460,7 @@ def phase_build(timer=time.perf_counter) -> dict:
     split_entries = [e for e in report if e["kernel"].startswith("split")]
     dense_entries = [e for e in report if e["kernel"].startswith("dense")]
     chirp_entries = [e for e in report if e["kernel"].startswith("chirp")]
+    wide_entries = [e for e in report if e["kernel"].startswith("wide")]
     if lib.log:   # an earlier build reused from disk prints no report
         from repro_torch.kernels import longline, radix, split
         plain = sum(len(sizes) for sizes in radix.RADIX_SIZES.values())
@@ -463,13 +482,17 @@ def phase_build(timer=time.perf_counter) -> dict:
         check(len(chirp_entries) == want, f"{len(chirp_entries)} long-line "
               f"instantiations of the chirp's folded load and store, "
               f"expected {want} (two per length of longline.FOLD_SIZES)")
+        want = sum(len(plans) for plans in longline.WIDE.values())
+        check(len(wide_entries) == want, f"{len(wide_entries)} wide "
+              f"instantiations in the ptxas report, expected {want} (one "
+              f"per length of longline.WIDE)")
         check(len(dense_entries) == 8, f"{len(dense_entries)} dense "
               f"instantiations in the ptxas report, expected 8 (per "
               f"dtype, for every length: the dense route's, the split "
               f"route's columns, and each with the chirp's folded load "
               f"and store)")
     for e in (radix_entries + long_entries + split_entries + dense_entries
-              + chirp_entries):
+              + chirp_entries + wide_entries):
         check(e.get("spill_stores", 0) == 0 and e.get("stack", 0) == 0,
               f"{e['kernel']} spills or keeps a stack frame: {e}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -508,6 +531,7 @@ def kernel_cases():
     """(b, n, inverse, pack_parts, twiddle, dtype name, conj) over
     test_kernels.py; ``conj`` names the operand passed as a lazily
     conjugated view ("x" or "twiddle"), or is empty."""
+    import torch
     c64, c128 = "complex64", "complex128"
     cases = []
     for b, n in [(1, 16), (4, 64), (8, 128), (3, 96), (130, 512), (2, 33),
@@ -590,6 +614,17 @@ def kernel_cases():
             cases += [(37, n, False, None, False, dt, ""),
                       (5, n, True, 3 if n % 3 == 0 else 2, True, dt, "")]
     cases.append((37, 384, True, None, True, c64, "x"))
+    # the wide kernel's ring: more than twice the tiles of the largest
+    # grid (132 SMs), so every block wraps its ring of two tiles with the
+    # inverse, the twiddle and pack_parts, and a ragged last tile where LT
+    # > 1 (complex64 1000 and 2944 mixed, 4096 radix-2 codelets, complex128
+    # 864 and 384)
+    for dt, n in ((c64, 1000), (c64, 2944), (c64, 4096), (c128, 864),
+                  (c128, 384)):
+        plan = longline.long_plan(n, getattr(torch, dt))
+        per_sm = min(16, 233472 // (plan.smem_bytes + 1024))
+        cases.append((3 * per_sm * 132 * plan.lt + 1, n, True,
+                      3 if n % 3 == 0 else 2, True, dt, ""))
     # the dense route: a length per family of both dtypes, both
     # directions, each epilogue, batches ragged against its tile
     cases += dense_cases()
@@ -1940,10 +1975,14 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
     the traffic drains' own (``serve_fft``'s ``traffic_launches``, not
     the tune and warm-up before them): every routed batch of a 2-D grid
     is 2 launches of the plain four-step variant, one on lines and one
-    strided, all radix, no line copy.  One more lifetime runs the service
+    strided, the strided one radix and the one on lines radix or, where
+    the bucket grid's last axis is a wide line (2048 in (1024, 2048);
+    ``traffic_batches_by_grid`` counts the batches of each grid), the long
+    route's wide kernel; no line copy.  One more lifetime runs the service
     with ``verify="strict"``: its ``verify_warnings`` must stay empty and
     its launch counts exact."""
     import torch
+    from repro_torch.kernels import longline
     from repro_torch.launch.serve_fft import serve_fft
     cuda = device.type == "cuda"
     ndim = len(primary)
@@ -1971,16 +2010,21 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
                                          "kernel_loads": 0},
               f"[serve] window {w}: {drv}")
         got, nb = drv["traffic_launches"], drv["traffic_batches"]
+        by_grid = drv["traffic_batches_by_grid"]
         if cuda:
+            # the batches whose bucket grid's last axis (the one on lines)
+            # is a wide line run it on the wide kernel
+            wide = sum(k for g, k in by_grid.items() if int(
+                g.split("x")[-1]) in longline.WIDE[torch.complex64])
             want = {"launches": ndim * nb, "fourstep": ndim * nb,
-                    "pack": 0, "twiddle": 0, "radix": ndim * nb,
-                    "dense": 0, "long": 0, "split": 0, "split_calls": 0,
-                    "chirp": 0, "chirp_calls": 0,
+                    "pack": 0, "twiddle": 0, "radix": ndim * nb - wide,
+                    "dense": 0, "long": wide, "split": 0, "split_calls": 0,
+                    "chirp": 0, "chirp_calls": 0, "aligned_copies": 0,
                     "lines": nb, "strided": (ndim - 1) * nb,
                     "copies": 0}
-            check(nb > 0 and got == want,
+            check(nb > 0 and sum(by_grid.values()) == nb and got == want,
                   f"[serve] window {w}: traffic launches {got} for {nb} "
-                  f"routed batches, expected {want}")
+                  f"routed batches {by_grid}, expected {want}")
         check(snap["verify_warnings"] == {},
               f"[serve] window {w} (verify={verify!r}): verify_warnings "
               f"{snap['verify_warnings']}")
@@ -2283,7 +2327,8 @@ def phase_lm_fftconv(device, b: int = 1,
     with the counts of 3 transforms of lines of 2S per call (the counts
     set to 0 just before the call and read just after;
     ``expected_counts``): 3 launches on the path ``radix.kernel_path``
-    names (radix at S=2048, long at S=3072 and 3584 (lines of 6144 and
+    names (long at S=2048: lines of 4096 on the wide kernel; long at S=3072
+    and 3584 (lines of 6144 and
     7168, mixed lengths of r = 3 and 7), 4096 and 8192), on lines; at S=12288 (lines of 24576 = 256 x 96), 16384
     and 32768 (``prefill_32k``'s S) 3 split calls of 2 launches each on
     the split path (pass A strided, pass B on lines); none on another path
@@ -2737,7 +2782,8 @@ def phase_split_general(device, lengths=SPLIT_GENERAL_LENGTHS,
 #: (chirp or dense before): complex64 2176 = 34 x 64, 2432 = 38 x 64,
 #: complex128 544 = 17 x 32, 608 = 19 x 32; then the longest 23*2^k of
 #: each dtype (dense before, a generic 23-stage): complex64 2944 = 46 x
-#: 64, complex128 736 = 23 x 32.
+#: 64, complex128 736 = 23 x 32.  The wide lines among them
+#: (``longline.WIDE``) run on the long route's wide kernel.
 MIXED_LENGTHS = (("complex64", 1536), ("complex64", 640),
                  ("complex64", 2304), ("complex64", 3840),
                  ("complex128", 768), ("complex128", 640),
@@ -2793,11 +2839,14 @@ def phase_mixed(device, shape=(262144, 384), shape7=(262144, 448),
            "main75": line_entry(randc(shape75, torch.complex64, device,
                                       SEED + 65), "mixed", "radix", iters),
            "lengths": []}
+    from repro_torch.kernels import longline
     for i, (dt, n) in enumerate(lengths):
         dtype = getattr(torch, dt)
         b = lengths_bytes // (n * dtype.itemsize)
+        # the wide lines take the long route's wide kernel
+        route = "long" if n in longline.WIDE[dtype] else "radix"
         out["lengths"].append(line_entry(
-            randc((b, n), dtype, device, SEED + 71 + i), "mixed", "radix",
+            randc((b, n), dtype, device, SEED + 71 + i), "mixed", route,
             iters))
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3287,7 +3336,8 @@ def phase_train_fftconv(device, b: int = 1, s: int = 2048,
     the input) within 1e-4 max-scaled; exactly 6 launches on lines per
     forward and backward (3 + the 3 adjoints, the counts set to 0 just
     before and read just after), all on the path ``radix.kernel_path``
-    names for lines of 2S (radix at S=2048, long at S=4096), and no line
+    names for lines of 2S (long at S=2048 on the wide kernel and at
+    S=4096), and no line
     copy (``expected_counts``: at S=16384 6 split calls of 2 launches
     each); CUDA-event ms of forward and backward on both backends beside
     the bound of its 6 transforms (bytes over HBM bandwidth, as
@@ -3585,8 +3635,9 @@ def phase_lm_sharded(device, arch: str = LM_ARCH, layers: int = 2,
     to the run with ``mesh=None`` (every collective is skipped on an axis
     of one rank); then ``fft_conv`` at jamba-v0.1-52b's mixer width
     forward and backward with the mesh's rules on the kernel against
-    ``cufft``: 6 radix launches on lines (the counts set to 0 just before
-    and read just after), no line copy, gradients within 1e-4.  The
+    ``cufft``: 6 launches on lines (the counts set to 0 just before and
+    read just after) on the route of lines of 2 * ``s_fft`` (4096: the
+    long route's wide kernel), no line copy, gradients within 1e-4.  The
     drivers build the cut config through their ``get_config`` and
     ``smoke_config``, set to it for the phase's runs."""
     import dataclasses
@@ -3672,9 +3723,11 @@ def phase_lm_sharded(device, arch: str = LM_ARCH, layers: int = 2,
           f"[lm_sharded] fft_conv kernel vs cufft gradients {errs} (bound "
           f"{GRAD_TOL})")
     if cuda:
-        check(counts["launches"] == 6 and counts["radix"] == 6
+        from repro_torch.kernels import radix
+        path = radix.kernel_path(2 * s_fft, torch.complex64)
+        check(counts["launches"] == 6 and counts[path] == 6
               and counts["lines"] == 6 and counts["copies"] == 0,
-              f"[lm_sharded] fft_conv counts {counts}, expected 6 radix "
+              f"[lm_sharded] fft_conv counts {counts}, expected 6 {path} "
               f"launches on lines and no copy")
         print(f"[lm_sharded] {cfg.name} at {layers} of {full.n_layers} "
               f"layers on a (1, 1) NCCL mesh: serve tokens and 2 train "
@@ -3696,96 +3749,142 @@ def main(timer=time.perf_counter) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     t0 = timer()
+    laps, last = {}, [t0]
+
+    def lap(name):
+        # seconds of each phase since the one before
+        now = timer()
+        laps[name], last[0] = now - last[0], now
     report = {"build": phase_build()}
+    lap("build")
     report["kernel_vs_plain"] = phase_kernel_vs_plain(device)
+    lap("kernel_vs_plain")
     report["main"] = main_run = phase_main_path(device)
+    lap("main")
     torch.cuda.empty_cache()
     report["pack"] = pack = phase_pack(device)
+    lap("pack")
     torch.cuda.empty_cache()
     report["poisson"] = poisson = phase_poisson(device)
+    lap("poisson")
     torch.cuda.empty_cache()
     report["twiddle"] = tw = phase_twiddle_timing(device)
+    lap("twiddle")
     torch.cuda.empty_cache()
     report["r2c"] = phase_r2c(device)
+    lap("r2c")
     torch.cuda.empty_cache()
     report["chunked"] = phase_chunked(device)
+    lap("chunked")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         from repro_torch.core.plan import TuningCache
         cache = TuningCache(os.path.join(tmp, "tuning.json"))
         report["calibrate"] = phase_calibrate(device, cache)
+        lap("calibrate")
         report["tune"] = phase_tune(device, cache, poisson)
+        lap("tune")
     torch.cuda.empty_cache()
     report["segments"] = segs = phase_segments(device)
+    lap("segments")
     torch.cuda.empty_cache()
     report["executor"] = execu = phase_executor(device)
+    lap("executor")
     torch.cuda.empty_cache()
     report["analysis"] = analysis = phase_analysis(device)
+    lap("analysis")
     torch.cuda.empty_cache()
     report["serve"] = serve = phase_serve(device)
+    lap("serve")
     torch.cuda.empty_cache()
     report["lm"] = lm = phase_lm(device, timer=timer)
+    lap("lm")
     torch.cuda.empty_cache()
     report["lm_archs"] = phase_lm_archs(device)
+    lap("lm_archs")
     torch.cuda.empty_cache()
     report["long"] = long_ = phase_long(device)
+    lap("long")
     torch.cuda.empty_cache()
     report["split"] = split_ = phase_split(device)
+    lap("split")
     torch.cuda.empty_cache()
     report["split_plan"] = phase_split_plan(device)
+    lap("split_plan")
     torch.cuda.empty_cache()
     report["mixed"] = mixed = phase_mixed(device)
+    lap("mixed")
     torch.cuda.empty_cache()
     report["mixed_plan"] = mixed_plan = phase_mixed_plan(device)
+    lap("mixed_plan")
     torch.cuda.empty_cache()
     report["mixed_plan_448"] = mixed_plan7 = phase_mixed_plan(
         device, grid=(448, 448, 448), poisson=False)
+    lap("mixed_plan_448")
     torch.cuda.empty_cache()
     report["mixed_plan_416"] = mixed_plan13 = phase_mixed_plan(
         device, grid=(416, 416, 416), poisson=False)
+    lap("mixed_plan_416")
     torch.cuda.empty_cache()
     report["mixed_plan_360"] = mixed_plan45 = phase_mixed_plan(
         device, grid=(360, 360, 360), poisson=False)
+    lap("mixed_plan_360")
     torch.cuda.empty_cache()
     report["mixed_plan_600"] = mixed_plan75 = phase_mixed_plan(
         device, grid=(600, 600, 600), poisson=False)
+    lap("mixed_plan_600")
     torch.cuda.empty_cache()
     report["long_mixed"] = long_mixed = phase_long_mixed(device)
+    lap("long_mixed")
     torch.cuda.empty_cache()
     report["split_mixed"] = split_mixed = phase_split_mixed(device)
+    lap("split_mixed")
     torch.cuda.empty_cache()
     report["split_general"] = split_general = phase_split_general(device)
+    lap("split_general")
     torch.cuda.empty_cache()
     report["mixed_long_plan"] = phase_mixed_long_plan(device)
+    lap("mixed_long_plan")
     torch.cuda.empty_cache()
     # one face of the LLC4320 ocean grid: 4320 = 30 x 9 x 16 on both axes;
     # the forward copies the strided axis's lines and then the last
     # axis's, which the first stage left as a strided view
     report["mixed_long_plan_4320"] = face = phase_mixed_long_plan(
         device, grid=(4320, 4320), long_launches=2, copies=(2, 1))
+    lap("mixed_long_plan_4320")
     torch.cuda.empty_cache()
     report["chirp"] = chirp_ = phase_chirp(device)
+    lap("chirp")
     torch.cuda.empty_cache()
     report["gaps"] = gaps = phase_gaps(device)
+    lap("gaps")
     torch.cuda.empty_cache()
     report["lm_fftconv"] = fftconv = phase_lm_fftconv(device)
+    lap("lm_fftconv")
     torch.cuda.empty_cache()
     report["train_fftconv"] = train_fftconv = phase_train_fftconv(device)
+    lap("train_fftconv")
     torch.cuda.empty_cache()
     report["train_fftconv_3072"] = train_mixed = phase_train_fftconv(
         device, s=3072, iters=3)
+    lap("train_fftconv_3072")
     torch.cuda.empty_cache()
     report["train_fftconv_4096"] = train_long = phase_train_fftconv(
         device, s=4096)
+    lap("train_fftconv_4096")
     torch.cuda.empty_cache()
     report["train_fftconv_16384"] = train_split = phase_train_fftconv(
         device, s=16384, iters=3)
+    lap("train_fftconv_16384")
     torch.cuda.empty_cache()
     report["train"] = phase_train(device, timer=timer)
+    lap("train")
     torch.cuda.empty_cache()
     report["train_ckpt"] = phase_train_ckpt(device)
+    lap("train_ckpt")
     torch.cuda.empty_cache()
     report["lm_sharded"] = lm_sharded = phase_lm_sharded(device)
+    lap("lm_sharded")
     torch.cuda.empty_cache()
 
     mixer_runs = {r["s"]: r for r in fftconv["runs"]}
@@ -3799,14 +3898,15 @@ def main(timer=time.perf_counter) -> int:
                                     "library_ms")}
 
     def by_path(layout):
+        # the FFT mixer at S=2048 (lines of 4096) runs the wide kernel:
+        # its launches are that kernel's entry's
         return {"segments": segs["forward"][layout] + segs["inverse"][layout],
                 "executor": execu["counts"][layout],
                 "analysis": analysis["counts"][layout],
                 "serve": serve["counts"][layout],
-                "lm": lm["counts"][layout],
-                "lm_fftconv": fftconv["runs"][0]["float32"]["counts"][layout],
-                "train_fftconv": train_fftconv["counts"][layout],
-                "lm_sharded": lm_sharded["counts"][layout]}
+                "lm": lm["counts"][layout]}
+    wide_2944 = next(r for r in mixed["lengths"]
+                     if r["shape"][1] == 2944 and r["dtype"] == "complex64")
     kernels = [
         {"name": "fft_fourstep", "route": "cuda", "source": RADIX_SOURCE,
          "path": "radix",
@@ -3950,6 +4050,23 @@ def main(timer=time.perf_counter) -> int:
              "lm_fftconv_3584": mixer_runs[3584]["float32"]["counts"],
              "train_fftconv_3072": train_mixed["counts"],
              "mixed_long_plan_4320": face["forward_counts"]["long"]}},
+        # launches: the mixer at S=2048 (lines of 4096), its main path (3
+        # launches on the long route's wide kernel); timed at [mixed]'s 512
+        # MB of lines of 2944 = 32 x 23 x 4
+        {"name": "fft_fourstep_wide", "route": "cuda", "source": WIDE_SOURCE,
+         "path": "long", "functions": ["wide_kernel"],
+         "sources": [WIDE_SOURCE, KERNEL_SOURCE,
+                     "src/repro_torch/kernels/longline.py"],
+         "timed": {"dtype": "complex64", "shape": wide_2944["shape"]},
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": mixer_runs[2048]["float32"]["counts"]["long"],
+         **_timing(wide_2944),
+         "launches_by_path": {
+             "lm_fftconv_2048": mixer_runs[2048]["float32"]["counts"],
+             "train_fftconv_2048": train_fftconv["counts"],
+             "lm_sharded": lm_sharded["counts"],
+             **{f"mixed_{r['dtype']}_{r['shape'][1]}": r["launches"]
+                for r in mixed["lengths"] if r["path"] == "long"}}},
         # launches: the mixer at S=12288, its main path (3 split calls of
         # 2 launches); timed at [split_mixed]'s 512 MB of lines of 24576
         {"name": "fft_fourstep_split_mixed", "route": "cuda",
@@ -3977,13 +4094,19 @@ def main(timer=time.perf_counter) -> int:
              f"split_general_{r['dtype']}_{r['shape'][1]}": r["launches"]
              for r in split_general["lengths"]}},
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: launched no time on its "
+              f"main path")
     report["kernels"] = kernels
     report["seconds"] = timer() - t0
+    report["phase_seconds"] = laps
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print("[twiddle] the DCT-II stage's kernel at (262144, 512): "
           + json.dumps(tw))
+    print("[phases] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in laps.items()))
     print(f"[done] {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,11 @@ lengths take which route, for the tree whose root is given.
     python3 scripts/route_times.py chirpmcheck ROOT TAG OUT.json
     python3 scripts/route_times.py nested ROOT TAG OUT.json
     python3 scripts/route_times.py nestedcheck ROOT TAG OUT.json
+    python3 scripts/route_times.py wide ROOT TAG OUT.json
+    python3 scripts/route_times.py wideall ROOT TAG OUT.json
+    python3 scripts/route_times.py widesplits ROOT TAG OUT.json
+    python3 scripts/route_times.py widepicks ROOT TAG OUT.json
+    python3 scripts/route_times.py widecheck ROOT TAG OUT.json
 
 ``times`` runs the port of the tree at ROOT (its ``src`` first on the
 path; the kernel is built there at first use): ``fft_fourstep`` on
@@ -81,6 +86,24 @@ limit) at :data:`NESTED_SWEEP`, 512 MB of lines, the tree's plan and its
 candidates forced (``split.any_candidates``: every radix pass A, up to 10
 dense ones); ``nestedcheck`` at :data:`NESTED_CHECK`.
 
+``wide`` forces, on the same lines at 512 MB, ``radix_kernel`` and the
+wide kernel's plans (``fft_wide.cuh``; the rule's pick of
+``longline.wide_candidates`` and up to four others: another split, one
+line a tile, the most lines) at :data:`WIDE_SWEEP`, from a probe library
+it builds itself under ROOT's ``build/wide_probe/`` (those
+instantiations alone, :data:`PROBE_PARTS` units at once; ptxas's
+registers and spills per plan), each plan also held against
+``longline.emulate`` on a ragged batch with the epilogues; ``wideall``
+does the same at every wide line of ROOT's ``longline.WIDE`` and
+``widesplits`` at :data:`WIDE_SPLITS` and every complex128 wide line,
+with every split in both orders (:func:`_split_plans`), and
+``widepicks`` at every wide line with the rule's pick alone; each reads
+``radix_kernel`` and the plans again in the reverse order (``ms_again``,
+``radix_ms_again``).  ``widecheck``
+runs ``times`` at :data:`WIDE_CHECK` (held out) and :data:`WIDE_KEPT`
+(routes that stay), then the strided entry and the 384^3 and 600^3
+plans; run it parent, change, change, parent.
+
 ``sass`` compares ``cuobjdump -sass`` of two builds function by
 function: only instruction and encoding lines (a module's header would
 otherwise count as its last function's), each line's address comment
@@ -101,6 +124,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 #: (dtype name, lines, N): lengths that the split route's general plans
 #: (``split.general_factors``) move, at 256 MB of lines: off the chirp
@@ -267,6 +291,38 @@ NESTED_CHECK = tuple(("complex64", n) for n in (
     ("complex64", n) for n in (2 ** 5 * 3 ** 12, 5 ** 6 * 7 ** 4)) + (
         ("complex128", 2 ** 5 * 3 ** 11), ("complex64", 4 * 3 ** 14),
         ("complex64", 2 * 3 ** 9 * 5 ** 4), ("complex128", 11 * 3 ** 12))
+#: (dtype name, N) of ``wide``: the radix route's wide lines
+#: (``longline.WIDE``: a factor past 32 values, complex64, or 16,
+#: complex128), at 512 MB of lines: the gaps to ``torch.fft`` that
+#: ``radix_kernel`` left widest (complex64 2944, 3200, 3600, 3840, 4032,
+#: 1800, 2400; complex128 864, 900, 736), the powers of two (complex64
+#: 2048, 4096, complex128 512, 1024), complex64 1000, and lengths spread
+#: from the low end of the candidates (complex64 792, complex128 68) up.
+WIDE_SWEEP = tuple(("complex64", n) for n in (
+    2944, 3200, 3600, 3840, 4032, 1800, 2400, 2048, 4096, 1000, 792, 880,
+    882, 936, 1088, 1200, 1350, 1458, 1536, 2000, 2176, 2500, 2700, 3000,
+    3456, 3528)) + tuple(("complex128", n) for n in (
+        864, 900, 736, 512, 1024, 68, 92, 162, 200, 250, 320, 400, 600,
+        768))
+#: (dtype name, N) of ``widecheck``: wide lines ``WIDE_SWEEP`` leaves out,
+#: spread over the moved range (11 complex64, 5 complex128), then lengths
+#: whose route stays: the radix route's c64 960 and 1024 and c128 200 and
+#: 320 (short of ``longline.WIDE_LINE_MIN_BYTES``), the long route's c64
+#: 4800, the dense route's c64 2730, split plans whose rows are wide lines
+#: (c64 225792 = 256 x 882, 552960 = 512 x 1080, c128 67584 = 128 x 528).
+WIDE_CHECK = tuple(("complex64", n) for n in (
+    968, 1152, 1296, 1600, 1920, 2304, 2592, 2880, 3072, 3240,
+    3584)) + tuple(("complex128", n) for n in (448, 480, 640, 800, 960))
+WIDE_KEPT = tuple(("complex64", n) for n in (
+    960, 1024, 4800, 2730, 225792, 552960)) + tuple(
+        ("complex128", n) for n in (200, 320, 67584))
+#: (dtype name, shape, axis) of ``widecheck``'s strided entry: B4's
+#: (512, 512, 512) along dim 1, and a wide line along a strided axis
+#: (the radix kernel keeps it).
+WIDE_STRIDED = (("complex64", (512, 512, 512), 1),
+                ("complex64", (16, 1000, 4096), 1))
+#: ``[mixed_plan]``'s C2C grids.
+WIDE_GRIDS = ((384, 384, 384), (600, 600, 600))
 #: One face of the LLC4320 ocean grid (MITgcm/ECCO), complex64.
 GRID = (4320, 4320)
 SWEEP_BYTES = 64 << 20
@@ -733,6 +789,352 @@ def nested(root: str, tag: str, lengths=NESTED_SWEEP) -> dict:
     return out
 
 
+#: Build parts of ``wide``'s probe library, compiled at once.
+PROBE_PARTS = 8
+
+
+def _wide_plans(longline, n: int, dtype) -> list:
+    """The wide plans of N that ``wide`` forces: the rule's pick
+    (``longline.wide_candidates``' first), the best of another split, the
+    pick's split with one line a tile and with the most lines, each
+    once.  (The first sweep also forced 256 threads a block, the rule's
+    pick then, before ``longline.WIDE_THREADS`` became 128: PERF.md §6.)"""
+    cands = longline.wide_candidates(n, dtype)
+    if not cands:
+        return []
+    best = cands[0]
+    split = (best.r1, best.r2, best.r3)
+    picks = [best,
+             next((c for c in cands if (c.r1, c.r2, c.r3) != split), None),
+             next((c for c in cands if (c.r1, c.r2, c.r3) == split
+                   and c.lt == 1), None),
+             max((c for c in cands if (c.r1, c.r2, c.r3) == split),
+                 key=lambda c: c.lt)]
+    out = []
+    for c in picks:
+        if c is not None and c not in out:
+            out.append(c)
+    return out
+
+
+def _probe_build(root: str, radix_ns: list, plans: list,
+                 timer=time.perf_counter):
+    """A library of ``radix_launch`` for each (dtype, N) of ``radix_ns``
+    and ``wide_launch`` for each wide plan of ``plans``, from the sources
+    of the tree at ROOT (``fft_wide.cuh``), in :data:`PROBE_PARTS` units
+    compiled at once; entry ``repro_probe_K(id, ...)`` of part K = id %
+    PROBE_PARTS.  Returns (ctypes library, seconds, ptxas registers and
+    spill bytes per wide plan)."""
+    import ctypes
+    from repro_torch.core.transforms import factorize
+    from repro_torch.kernels import build
+    csrc = os.path.join(os.path.abspath(root), "src", "repro_torch", "csrc")
+    out_dir = os.path.join(os.path.abspath(root), "build", "wide_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    cases = [[] for _ in range(PROBE_PARTS)]
+    ids = len(radix_ns) + len(plans)
+    for i in range(ids):
+        if i < len(radix_ns):
+            dt, n = radix_ns[i]
+            r = "float" if dt == "complex64" else "double"
+            n1, n2 = factorize(n)
+            call = (f"repro_fft::radix_launch<{r}, {n1}, {n2}, "
+                    f"repro_fft::kRadixPlain>(x, out, consts, tw, batch, 1, "
+                    f"inverse, seg, lines_log2, 0, 0, smem_bytes, stream)")
+        else:
+            p = plans[i - len(radix_ns)]
+            r = "float" if p.itemsize == 8 else "double"
+            call = (f"repro_fft::wide_launch<{r}, {p.r1}, {p.r2}, {p.r3}, "
+                    f"{p.lt}, {p.min_blocks}>(x, out, consts, tw, batch, "
+                    f"inverse, seg, smem_bytes, stream)")
+        cases[i % PROBE_PARTS].append(f"    case {i}: return {call};")
+    procs, objs = [], []
+    t0 = timer()
+    for k in range(PROBE_PARTS):
+        src = os.path.join(out_dir, f"probe{k}.cu")
+        with open(src, "w") as f:
+            f.write('#include "fft_wide.cuh"\nextern "C" int repro_probe_'
+                    f'{k}(int id, const void* x, void* out, const void* '
+                    'consts, const void* tw, long long batch, int inverse, '
+                    'int seg, int lines_log2, int smem_bytes, void* s) {\n'
+                    '  cudaStream_t stream = static_cast<cudaStream_t>(s);\n'
+                    '  switch (id) {\n' + "\n".join(cases[k])
+                    + '\n  }\n  return (int)cudaErrorInvalidValue;\n}\n')
+        obj = src[:-3] + ".o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [build.nvcc_path(), *build.ARCH_FLAGS, "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", csrc, "-c",
+             "-o", obj, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    log = "".join(proc.communicate()[0] for proc in procs)
+    if any(proc.returncode for proc in procs):
+        sys.exit(f"route_times: the probe did not build:\n{log[-20000:]}")
+    lib_path = os.path.join(out_dir, "libprobe.so")
+    subprocess.run([build.nvcc_path(), *build.ARCH_FLAGS, "-shared", "-o",
+                    lib_path, *objs], check=True)
+    seconds = timer() - t0
+    lib = ctypes.CDLL(lib_path)
+    v, i_, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for k in range(PROBE_PARTS):
+        fn = getattr(lib, f"repro_probe_{k}")
+        fn.argtypes = [i_, v, v, v, v, ll, i_, i_, i_, i_, v]
+        fn.restype = i_
+    regs = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if "wide_kernel" in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"wide_kernelI([fd])((?:Li\d+E){5})", cur)
+        key = (m.group(1),) + tuple(int(a) for a in re.findall(
+            r"Li(\d+)E", m.group(2))) if m else cur
+        rec = regs.setdefault(key, {})
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rec["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            rec["stack"] = int(m.group(1))
+    return lib, seconds, regs
+
+
+def _wide_all(root: str) -> tuple:
+    """(dtype name, N) of every wide line of the tree at ROOT
+    (``longline.WIDE``)."""
+    sys.path.insert(0, os.path.join(os.path.abspath(root), "src"))
+    from repro_torch.kernels import longline
+    return tuple((str(dtype).removeprefix("torch."), n)
+                 for dtype, plans in longline.WIDE.items()
+                 for n in sorted(plans))
+
+
+def _settle(torch, what: str, seconds: float = 30.0,
+            timer=time.monotonic) -> None:
+    """Wait for the card to finish what was launched, but end the process
+    if it takes longer than ``seconds`` (a kernel that never ends: its
+    context goes with the process)."""
+    done = torch.cuda.Event()
+    done.record()
+    deadline = timer() + seconds
+    while not done.query():
+        if timer() > deadline:
+            print(f"route_times: {what} did not finish in {seconds} s",
+                  flush=True)
+            os._exit(3)
+        time.sleep(0.01)
+
+
+def _split_plans(longline, n: int, dtype) -> list:
+    """For ``widesplits``: every split of N in both orders (R1 below R2
+    too, which ``longline.wide_candidates`` leaves out), R3 a power of two
+    to ``WIDE_R3_MAX``, rows of ``WIDE_ROW_MIN_BYTES``, each at the tile
+    the rule's key ranks first for it."""
+    from repro_torch.kernels import radix
+    size, out = dtype.itemsize, []
+    for r3 in (16, 8, 4, 2):
+        if r3 > longline.WIDE_R3_MAX or n % r3:
+            continue
+        for r1 in range(2, longline.PASS_MAX + 1):
+            r2 = n // r3 // r1
+            if (n // r3) % r1 or not 2 <= r2 <= longline.PASS_MAX \
+                    or not (radix.codelet_length(r1)
+                            and radix.codelet_length(r2)) \
+                    or r2 * r3 * size < longline.WIDE_ROW_MIN_BYTES:
+                continue
+            want = 65536 // (longline.WIDE_THREADS
+                             * longline._WIDE_REGS[size])
+            tiles = []
+            for lt in range(1, longline.WIDE_LT_MAX + 1):
+                p = longline.WidePlan(n, r1, r2, r3, lt, size)
+                if lt > 1 and (p.min_blocks < want or p.smem_bytes
+                               > radix.SMEM_MAX_BYTES):
+                    break
+                tiles.append(p)
+            out.append(min(tiles, key=longline._wide_key))
+    return out
+
+
+#: (dtype name, N) of ``widesplits``: every complex128 wide line, and the
+#: complex64 ones whose picks spilled or trailed in ``wideall`` (PERF.md
+#: §6), with a few others.
+WIDE_SPLITS = tuple(("complex64", n) for n in (
+    1056, 1120, 1260, 1320, 1400, 1500, 1620, 2160, 2400, 2520, 2880,
+    3000, 1092, 2944, 4032, 3600))
+
+
+def wide(root: str, tag: str, lengths=WIDE_SWEEP, picker=None) -> dict:
+    """``radix_kernel`` and the wide kernel's plans (:func:`_wide_plans`)
+    forced on the same lines at 512 MB, from one probe build of the tree
+    at ROOT, beside ``torch.fft.fft`` and the bound; each plan also
+    checked against ``longline.emulate`` of that plan on a ragged batch,
+    inverse, with the output twiddle and ``pack_parts``."""
+    torch = _port(root)
+    from repro_torch.kernels import fft_matmul as tfm
+    from repro_torch.kernels import longline, radix
+    todo = []
+    for dt, n in lengths:
+        dtype = getattr(torch, dt)
+        todo.append((dt, n, (picker or _wide_plans)(longline, n, dtype)))
+    radix_ns = [(dt, n) for dt, n, _ in todo]
+    plans = [p for _, _, ps in todo for p in ps]
+    lib, seconds, regs = _probe_build(root, radix_ns, plans)
+    print(f"[{tag}] probe: {len(radix_ns)} radix and {len(plans)} wide "
+          f"instantiations in {seconds:.2f} s", flush=True)
+    out = {"tag": tag, "root": os.path.abspath(root), "bytes": 512 << 20,
+           "probe_seconds": seconds, "lengths": []}
+    pid = 0
+
+    def call(i, *args):
+        err = getattr(lib, f"repro_probe_{i % PROBE_PARTS}")(i, *args)
+        if err:
+            raise RuntimeError(f"probe {i}: CUDA error {err}")
+
+    def wide_runner(i, p, x, inverse=False, tw=None, parts=1):
+        b, n = x.shape
+        consts = torch.from_numpy(longline.constants(
+            n, x.dtype, inverse, p)).to("cuda", x.dtype)
+        buf = torch.empty((parts, b, n // parts), dtype=x.dtype,
+                          device="cuda")
+
+        def run():
+            call(i, x.data_ptr(), buf.data_ptr(), consts.data_ptr(),
+                 None if tw is None else tw.data_ptr(), b, int(inverse),
+                 n // parts, 0, p.smem_bytes,
+                 torch.cuda.current_stream().cuda_stream)
+            return buf
+        return run
+
+    for k, (dt, n, ps) in enumerate(todo):
+        dtype = getattr(torch, dt)
+        b = (512 << 20) // (n * dtype.itemsize)
+        x = _lines(torch, dtype, b, n)
+        ref = torch.fft.fft(x)
+        tile = radix.radix_tile(n, dtype.itemsize, False, False)
+        rconsts = tfm._radix_constants(n, False, dtype, x.device)
+        rout = torch.empty_like(x)
+
+        def run_radix(k=k):
+            call(k, x.data_ptr(), rout.data_ptr(), rconsts.data_ptr(),
+                 None, b, 0, tfm._seg_arg(n, 1), tile.lines.bit_length() - 1,
+                 tile.smem_bytes, torch.cuda.current_stream().cuda_stream)
+        run_radix()
+        _settle(torch, f"radix {dt} {n}")
+        rec = {"dtype": dt, "shape": [b, n],
+               "path": radix.kernel_path(n, dtype),
+               "radix_err": scaled_err(rout, ref),
+               "radix_ms": time_ms(run_radix),
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+               "bound_ms": bound_ms(b, n, dtype.itemsize), "plans": []}
+        gen = torch.Generator(device="cuda").manual_seed(n + 1)
+        runs = []
+        for p in ps:
+            i = len(radix_ns) + pid
+            pid += 1
+            key = ("f" if p.itemsize == 8 else "d", p.r1, p.r2, p.r3, p.lt,
+                   p.min_blocks)
+            run = wide_runner(i, p, x)
+            y = run()[0]
+            _settle(torch, f"wide plan {p}")
+            # a ragged batch, inverse, twiddle and pack_parts
+            small = x[:2 * p.lt + 1]
+            tw = torch.randn(n, dtype=dtype, device="cuda", generator=gen)
+            parts = 4 if n % 4 == 0 else 1
+            got = wide_runner(i, p, small, True, tw, parts)()
+            want = longline.emulate(small, inverse=True, twiddle=tw,
+                                    pack_parts=parts, plan=p)
+            if parts == 1:
+                want = want.reshape(got.shape)
+            prec = {"r": [p.r1, p.r2, p.r3], "lt": p.lt,
+                    "threads": p.threads, "min_blocks": p.min_blocks,
+                    "fill": p.fill, "smem_bytes": p.smem_bytes,
+                    "ptxas": regs.get(key, {}),
+                    "err": scaled_err(y, ref),
+                    "plain_err": scaled_err(got, want),
+                    "ms": time_ms(run)}
+            rec["plans"].append(prec)
+            runs.append(run)
+            del y
+        # the second readings in the reverse order: radix, plans, plans
+        # reversed, radix
+        for prec, run in zip(rec["plans"][::-1], runs[::-1]):
+            prec["ms_again"] = time_ms(run)
+        rec["radix_ms_again"] = time_ms(run_radix)
+        del x, ref, rout, runs
+        torch.cuda.empty_cache()
+        cands = ", ".join(
+            f"{c['r']} lt{c['lt']} t{c['threads']} b{c['min_blocks']} "
+            f"{c['ms']:.4f} / {c['ms_again']:.4f} ({c['err']:.1e}/{c['plain_err']:.1e} "
+            f"r{c['ptxas'].get('registers')} s{c['ptxas'].get('spill_bytes')})"
+            for c in rec["plans"])
+        print(f"[{tag}] wide {dt} ({b}, {n}): radix {rec['radix_ms']:.4f} / "
+              f"{rec['radix_ms_again']:.4f} ms, torch.fft {rec['torch_fft_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}; plans: {cands}", flush=True)
+        out["lengths"].append(rec)
+    return out
+
+
+def wide_check(root: str, tag: str) -> dict:
+    """``times`` at :data:`WIDE_CHECK` and :data:`WIDE_KEPT` (512 MB of
+    lines, each on the tree's own route), then the strided entry at
+    :data:`WIDE_STRIDED` and the C2C plans of :data:`WIDE_GRIDS` on the
+    kernel backend (launches per route, line copies), beside ``fftn``."""
+    shapes = tuple((dt, (512 << 20) // (n * (8 if dt == "complex64"
+                                              else 16)), n)
+                   for dt, n in WIDE_CHECK + WIDE_KEPT)
+    out = times(root, tag, shapes, plan=False)
+    import torch
+    from repro_torch import make_mesh, plan_fft
+    from repro_torch.kernels import fft_matmul as tfm
+    from repro_torch.kernels import ops
+    out["strided"], out["plans"] = [], []
+    for dt, shape, axis in WIDE_STRIDED:
+        x = torch.randn(shape, dtype=getattr(torch, dt), device="cuda")
+        block = x.movedim(axis, 1).contiguous()
+        y = tfm.fft_fourstep_strided(block)
+        rec = {"dtype": dt, "shape": list(shape), "axis": axis,
+               "err_vs_torch_fft": scaled_err(
+                   y, torch.fft.fft(block, dim=1)),
+               "ms": time_ms(lambda: tfm.fft_fourstep_strided(block)),
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(block, dim=1)),
+               "bound_ms": bound_ms(x.numel() // shape[axis], shape[axis],
+                                    x.element_size())}
+        print(f"[{tag}] strided {dt} {shape}: {rec['ms']:.4f} ms, "
+              f"torch.fft {rec['torch_fft_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}; vs torch.fft "
+              f"{rec['err_vs_torch_fft']:.2e}", flush=True)
+        out["strided"].append(rec)
+        del x, block, y
+    mesh = make_mesh((1, 1), ("data", "model"))
+    for grid in WIDE_GRIDS:
+        plan = plan_fft(mesh, grid, backend="kernel")
+        x = torch.randn(grid, dtype=torch.complex64, device="cuda")
+        tfm.reset_launch_counts()
+        ops.copies["lines"] = 0
+        y = plan.forward(x)
+        torch.cuda.synchronize()
+        rec = {"grid": list(grid),
+               "launches": dict(tfm.fft_fourstep.path_launches),
+               "copies": ops.copies["lines"],
+               "err_vs_fftn": scaled_err(y, torch.fft.fftn(x)),
+               "fwd_ms": time_ms(lambda: plan.forward(x), 5),
+               "fftn_ms": time_ms(lambda: torch.fft.fftn(x), 5)}
+        print(f"[{tag}] plan {grid}: forward {rec['fwd_ms']:.4f} ms, fftn "
+              f"{rec['fftn_ms']:.4f}; vs fftn {rec['err_vs_fftn']:.2e}; "
+              f"launches {rec['launches']}, line copies {rec['copies']}",
+              flush=True)
+        out["plans"].append(rec)
+        del x, y
+    return out
+
+
 def _line(recs: list):
     """Least squares of the dense route's ms = a + b*s over ``recs``."""
     k = len(recs)
@@ -940,6 +1342,19 @@ def main(argv) -> int:
         result = nested(argv[2], argv[3])
     elif len(argv) == 5 and argv[1] == "nestedcheck":
         result = nested(argv[2], argv[3], NESTED_CHECK)
+    elif len(argv) == 5 and argv[1] == "wide":
+        result = wide(argv[2], argv[3])
+    elif len(argv) == 5 and argv[1] == "wideall":
+        result = wide(argv[2], argv[3], _wide_all(argv[2]))
+    elif len(argv) == 5 and argv[1] == "widepicks":
+        result = wide(argv[2], argv[3], _wide_all(argv[2]),
+                      lambda ll, n, dt: ll.wide_candidates(n, dt)[:1])
+    elif len(argv) == 5 and argv[1] == "widesplits":
+        result = wide(argv[2], argv[3], WIDE_SPLITS + tuple(
+            e for e in _wide_all(argv[2]) if e[0] == "complex128"),
+            _split_plans)
+    elif len(argv) == 5 and argv[1] == "widecheck":
+        result = wide_check(argv[2], argv[3])
     elif len(argv) == 5 and argv[1] == "sass":
         result = sass(argv[2], argv[3])
     else:

@@ -7,7 +7,11 @@
 // so that the codelets stay in registers -- the powers of two up to 4096
 // (complex64) or 1024 (complex128) and the mixed N = r*2^k, r from 3 to
 // 1701 (radix.RADIX_ODD) -- takes the radix route (fft_radix.cuh: two
-// passes of in-register codelets, contiguous or strided lines); the longer
+// passes of in-register codelets, contiguous or strided lines), but for
+// the wide lines among them (a factor past 32 values, complex64, or 16,
+// complex128: longline.WIDE), whose contiguous lines take the long route's
+// tile kernel (fft_wide.cuh: LT lines a block by TMA, three passes of
+// codelets of at most 32 values, repro_fft_wide_* below); the longer
 // powers of two and mixed N (odd part 3 to 15, 17, 19, 21, 23, 25 or 27:
 // radix.EVERY_ROUTE_ODD; the other 13-smooth ones that three codelets
 // hold) whose line fits in one block's shared memory take the long-line
@@ -62,6 +66,7 @@
 #include "fft_radix.cuh"
 // last: the other routes' functions keep their SASS
 #include "fft_dense.cuh"
+#include "fft_wide.cuh"
 
 #if defined(REPRO_PART) && REPRO_PART >= 0
 
@@ -87,9 +92,16 @@ REPRO_LONG_PART(double)
       long long, int, int, int, int, int, int, cudaStream_t);
 REPRO_LONG_CHIRP_PART(float)
 REPRO_LONG_CHIRP_PART(double)
+#define REPRO_WIDE_PART(R)                                                 \
+  template int repro_fft::wide_part<R, REPRO_PART>(                        \
+      int, const void*, void*, const void*, const void*, long long, int,   \
+      int, int, cudaStream_t);
+REPRO_WIDE_PART(float)
+REPRO_WIDE_PART(double)
 #undef REPRO_RADIX_PART
 #undef REPRO_LONG_PART
 #undef REPRO_LONG_CHIRP_PART
+#undef REPRO_WIDE_PART
 
 #else
 
@@ -171,6 +183,26 @@ int repro_fft_long_c128(const void* x, void* out, const void* consts,
   return repro_fft::long_dispatch<double>(
       n, x, out, consts, tw, batch, inverse, seg_arg, smem_bytes,
       static_cast<cudaStream_t>(stream));
+}
+
+// The long route's wide lines (fft_wide.cuh) for the N that
+// kernels/longline.py::WIDE lists: as repro_fft_long_*, with `consts`
+// longline.constants of the wide plan, seg = N/parts, and `smem_bytes`
+// the plan's (longline.WidePlan.smem_bytes).
+int repro_fft_wide_c64(const void* x, void* out, const void* consts,
+                       const void* tw, long long batch, int n, int inverse,
+                       int seg, int smem_bytes, void* stream) {
+  return repro_fft::wide_dispatch<float>(n, x, out, consts, tw, batch,
+                                         inverse, seg, smem_bytes,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_wide_c128(const void* x, void* out, const void* consts,
+                        const void* tw, long long batch, int n, int inverse,
+                        int seg, int smem_bytes, void* stream) {
+  return repro_fft::wide_dispatch<double>(n, x, out, consts, tw, batch,
+                                          inverse, seg, smem_bytes,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // The split route (kernels/split.py), a line of N = P*Q as (P, Q).

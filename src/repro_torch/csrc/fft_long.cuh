@@ -441,30 +441,33 @@ int long_launch(Kernel kernel, int threads, size_t layout_bytes,
   return (int)cudaGetLastError();
 }
 
-// A mixed length's plan (kernels/longline.py::LongPlan): R1 = r*2^a the
-// mixed factor, R3 a power of two, R2 a power of two or (MIXED2) mixed
-// too, on the mixed chain with a table of its own after R1's.
+// A three-pass plan of codelets (kernels/longline.py::LongPlan of a mixed
+// length, or WidePlan): N = R1*R2*R3, R3 a power of two, R1 and R2 each a
+// power of two or (MIXED1, MIXED2) the radix route's mixed chain on a table
+// of its own (R1's first, then R2's).  A mixed long line has R1 = r*2^a
+// mixed; the wide lines (fft_wide.cuh) take either.
 template <typename R, int R1, int R2, int R3>
 struct LongMixedShape {
   static constexpr int N = R1 * R2 * R3;
   static constexpr int M1 = R2 * R3;          // a row: pass-1 items
-  static constexpr bool MIXED2 = !is_pow2(R2);
-  // the radix-2 codelets' table
-  static constexpr int RP = MIXED2 ? R3 : cmax(R2, R3);
+  static constexpr bool MIXED1 = !is_pow2(R1), MIXED2 = !is_pow2(R2);
+  // the radix-2 codelets' table: the largest power-of-two factor
+  static constexpr int RP =
+      cmax(MIXED1 ? 2 : R1, cmax(MIXED2 ? 2 : R2, R3));
   static constexpr int PITCH = M1 + 16 / (int)sizeof(cpx<R>);
   static constexpr int LINE = R1 * PITCH;
-  static constexpr int CONSTS =
-      R1 * R3 + R1 * R2 + R2 * R3 + RP / 2 + R1 + (MIXED2 ? R2 : 0);
-  static_assert(is_pow2(R3) && R3 >= 2 && !is_pow2(R1),
-                "R1 is mixed, R3 a power of two");
+  static constexpr int CONSTS = R1 * R3 + R1 * R2 + R2 * R3 + RP / 2 +
+                                (MIXED1 ? R1 : 0) + (MIXED2 ? R2 : 0);
+  static_assert(is_pow2(R3) && R3 >= 2, "R3 a power of two");
 };
 
-// Shared memory of one block: the ring's line buffers, the constants, one
-// mbarrier per buffer (kernels/longline.py::smem_bytes).
-template <typename R, int R1, int R2, int R3, int DEPTH>
+// Shared memory of one block: the ring's DEPTH buffers of LT lines, the
+// constants, one mbarrier per buffer (kernels/longline.py::smem_bytes,
+// WidePlan.smem_bytes).
+template <typename R, int R1, int R2, int R3, int DEPTH, int LT = 1>
 __host__ __device__ constexpr size_t long_mixed_smem_bytes() {
   using S = LongMixedShape<R, R1, R2, R3>;
-  return (size_t)(DEPTH * S::LINE + S::CONSTS) * sizeof(cpx<R>) +
+  return (size_t)(DEPTH * LT * S::LINE + S::CONSTS) * sizeof(cpx<R>) +
          DEPTH * sizeof(uint64_t);
 }
 
@@ -544,35 +547,71 @@ __device__ __forceinline__ void bulk_load_rows(cpx<R>* dst,
   }
 }
 
-// The mixed lengths' kernel: one line per block at a time, a ring of
-// DEPTH line buffers (long_mixed_depth), the grid persistent.  `out` is
-// (parts, batch, seg) with seg = N/parts; the sign of the mixed codelets'
-// rotations is read from their table (W_R1^1), so that the split route's
-// pass B, launched with inverse = 0 to leave out the 1/N, keeps it (a
-// mixed R2's table has the same sign).
-template <typename R, int R1, int R2, int R3>
-__global__ void __launch_bounds__(
-    (long_mixed_threads<R, R1, R2, R3>()),
-    (long_mixed_min_blocks<R, R1, R2, R3>()))
-long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
-                  const cpx<R>* __restrict__ consts,
-                  const cpx<R>* __restrict__ gtw, long long batch,
-                  int inverse, int seg) {
+// The rows of a buffer of `lines` consecutive lines, by the TMA unit,
+// completing on `bar`: LANES = 1, thread 0 copies one line
+// (bulk_load_rows); LANES = 32, warp 0 shares a tile's rows after lane 0
+// arms the barrier with their bytes.
+template <typename R, int R1, int M1, int PITCH, int LANES>
+__device__ __forceinline__ void load_tile(cpx<R>* dst, const cpx<R>* src,
+                                          int lines, uint64_t* bar,
+                                          int lane) {
+  if constexpr (LANES == 1) {
+    bulk_load_rows<R, R1, M1, PITCH>(dst, src, bar);
+  } else {
+    constexpr unsigned kRowBytes = M1 * sizeof(cpx<R>);
+    constexpr int LINE = R1 * PITCH;
+    if (lane == 0)
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_addr(bar)),
+          "r"((unsigned)lines * R1 * kRowBytes)
+          : "memory");
+    __syncwarp();
+    for (int r = lane; r < lines * R1; r += LANES) {
+      const int l = r / R1, m1 = r - l * R1;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst + l * LINE +
+                                                    m1 * PITCH)),
+          "l"(src + l * (R1 * M1) + m1 * M1), "r"(kRowBytes),
+          "r"(smem_addr(bar))
+          : "memory");
+    }
+  }
+}
+
+// The body of long_mixed_kernel and wide_kernel (fft_wide.cuh): T threads,
+// tiles of LT consecutive lines (the last may hold fewer) in a ring of
+// DEPTH buffers, each copied by LANES threads (load_tile), the grid
+// persistent (block b takes tiles b, b + gridDim.x, ...).  Three passes of
+// codelets, each walking its LT*N/R_i items in rounds of the block and
+// storing each item where it was read; pass 3's items are consecutive
+// outputs kA of a line, stored with the epilogue.  `out` is (parts,
+// batch, seg) with seg = N/parts; the sign of the mixed codelets'
+// rotations is read from their table (W_R1^1 or W_R2^1), so that the
+// split route's pass B, launched with inverse = 0 to leave out the 1/N,
+// keeps it.
+template <typename R, int R1, int R2, int R3, int LT, int T, int DEPTH,
+          int LANES>
+__device__ __forceinline__ void mixed_tiles(
+    const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+    const cpx<R>* __restrict__ consts, const cpx<R>* __restrict__ gtw,
+    long long batch, int inverse, int seg) {
   using S = LongMixedShape<R, R1, R2, R3>;
-  constexpr int N = S::N, M1 = S::M1, RP = S::RP;
-  constexpr int T = long_mixed_threads<R, R1, R2, R3>();
-  constexpr int DEPTH = long_mixed_depth<R, R1, R2, R3>();
-  constexpr int PITCH = S::PITCH, Q = R1 * R2;
+  constexpr int N = S::N, M1 = S::M1, RP = S::RP, PITCH = S::PITCH;
+  constexpr int LINE = S::LINE, TILE = LT * LINE, Q = R1 * R2;
+  static_assert(LANES == 32 || LT == 1, "one thread copies one line");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   cpx<R>* const bufs = reinterpret_cast<cpx<R>*>(smem_raw);
-  cpx<R>* const ta = bufs + DEPTH * S::LINE;
+  cpx<R>* const ta = bufs + DEPTH * TILE;
   const cpx<R>* const tb = ta + R1 * R3;
   const cpx<R>* const tc = tb + R1 * R2;
   const cpx<R>* const w = tc + R2 * R3;   // W_RP^j, j < RP/2
-  const cpx<R>* const wm = w + RP / 2;    // W_R1^j, j < R1
-  const cpx<R>* const wm2 = wm + R1;      // W_R2^j, j < R2 (MIXED2)
+  const cpx<R>* const wm = w + RP / 2;    // W_R1^j, j < R1 (MIXED1)
+  const cpx<R>* const wm2 = wm + (S::MIXED1 ? R1 : 0);  // W_R2 (MIXED2)
   uint64_t* const bars = reinterpret_cast<uint64_t*>(ta + S::CONSTS);
   const int tid = threadIdx.x;
+  const long long tiles = (batch + LT - 1) / LT;
 
   for (int i = tid; i < S::CONSTS; i += T) ta[i] = consts[i];
   if (tid == 0) {
@@ -581,15 +620,25 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   }
   __syncthreads();
   const long long stride = gridDim.x;
-  if (tid == 0) {
+  // Lines of tile t: LT, or what is left of the batch.
+  auto tile_lines = [&](long long t) {
+    if constexpr (LT == 1) return 1;
+    const long long left = batch - t * LT;
+    return left < LT ? (int)left : LT;
+  };
+  if (LANES == 1 ? tid == 0 : tid < LANES) {
     for (int d = 0; d < DEPTH; ++d) {
-      const long long line = blockIdx.x + d * stride;
-      if (line < batch)
-        bulk_load_rows<R, R1, M1, PITCH>(bufs + d * S::LINE, x + line * N,
-                                         &bars[d]);
+      const long long t = blockIdx.x + d * stride;
+      if (t < tiles)
+        load_tile<R, R1, M1, PITCH, LANES>(bufs + d * TILE, x + t * LT * N,
+                                           tile_lines(t), &bars[d], tid);
     }
   }
-  const R sgn = wm[1].im > R(0) ? R(1) : R(-1);
+  R sgn = R(1);
+  if constexpr (S::MIXED1)
+    sgn = wm[1].im > R(0) ? R(1) : R(-1);
+  else if constexpr (S::MIXED2)
+    sgn = wm2[1].im > R(0) ? R(1) : R(-1);
   constexpr R kInvN = R(1) / R(N);
   const R scale = inverse ? kInvN : R(1);
   // o / seg in fp32, exact for o < N < 2^20 (fft_radix.cuh's plain store)
@@ -597,54 +646,56 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
 
   int slot = 0;
   unsigned parity = 0;
-  for (long long line = blockIdx.x; line < batch; line += stride) {
-    cpx<R>* const s = bufs + slot * S::LINE;
+  for (long long t = blockIdx.x; t < tiles; t += stride) {
+    cpx<R>* const s = bufs + slot * TILE;
+    const int lines = tile_lines(t);
     mbar_wait(&bars[slot], parity);
 
-    // Pass 1: item mb = m2*R3 + m3 reads (m1, mb), writes (k1, mb).
+    // Pass 1: item (l, mb), mb = m2*R3 + m3, reads (l, m1, mb), writes
+    // (l, k1, mb).
 #pragma unroll 1
-    for (int mb = tid; mb < M1; mb += T) {
+    for (int it = tid; it < lines * M1; it += T) {
+      const int l = LT == 1 ? 0 : it / M1, mb = it - l * M1;
       const int m2 = mb / R3, m3 = mb % R3;
+      cpx<R>* const row = s + l * LINE + mb;
       cpx<R> v[R1];
       auto load = [&](auto j) {
         constexpr int m1 = decltype(j)::value;
-        v[load_slot(R1, m1)] = s[m1 * PITCH + mb];
+        v[load_slot(R1, m1)] = row[m1 * PITCH];
       };
       static_for<0, R1>(load);
-      codelet<R1, R1, R>(v, wm, sgn);
+      if constexpr (S::MIXED1)
+        codelet<R1, R1, R>(v, wm, sgn);
+      else
+        codelet<R1, RP, R>(v, w, sgn);
       auto store = [&](auto j) {
         constexpr int k1 = decltype(j)::value;
         cpx<R> y = v[k1];
         if constexpr (k1 != 0)
           y = cmul(y, cmul(ta[k1 * R3 + m3], tb[k1 * R2 + m2]));
-        s[k1 * PITCH + mb] = y;
+        row[k1 * PITCH] = y;
       };
       static_for<0, R1>(store);
     }
     __syncthreads();
 
-    // Pass 2: item (k1, m3) reads (k1, m2, m3), writes (k1, k2, m3); a
-    // mixed R2 runs its chain as pass 1 does R1's.
+    // Pass 2: item (l, k1, m3) reads (l, k1, m2, m3), writes (l, k1, k2,
+    // m3).
 #pragma unroll 1
-    for (int item = tid; item < R1 * R3; item += T) {
+    for (int it = tid; it < lines * (R1 * R3); it += T) {
+      const int l = LT == 1 ? 0 : it / (R1 * R3), item = it - l * R1 * R3;
       const int k1 = item / R3, m3 = item % R3;
-      cpx<R>* const col = s + k1 * PITCH + m3;
+      cpx<R>* const col = s + l * LINE + k1 * PITCH + m3;
       cpx<R> v[R2];
-      if constexpr (S::MIXED2) {
-        auto load = [&](auto j) {
-          constexpr int m2 = decltype(j)::value;
-          v[load_slot(R2, m2)] = col[m2 * R3];
-        };
-        static_for<0, R2>(load);
+      auto load = [&](auto j) {
+        constexpr int m2 = decltype(j)::value;
+        v[load_slot(R2, m2)] = col[m2 * R3];
+      };
+      static_for<0, R2>(load);
+      if constexpr (S::MIXED2)
         codelet<R2, R2, R>(v, wm2, sgn);
-      } else {
-        auto load = [&](auto j) {
-          constexpr int m2 = decltype(j)::value;
-          v[bitrev(m2, ilog2(R2))] = col[m2 * R3];
-        };
-        static_for<0, R2>(load);
-        fft_stages<R2, RP, 2, R>(v, w);
-      }
+      else
+        codelet<R2, RP, R>(v, w, sgn);
       auto store = [&](auto j) {
         constexpr int k2 = decltype(j)::value;
         cpx<R> y = v[k2];
@@ -655,12 +706,13 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
     }
     __syncthreads();
 
-    // Pass 3: item kA = k1 + R1*k2 reads (k1, k2, m3) and stores
-    // out[kA + Q*k3] with the epilogue.
+    // Pass 3: item (l, kA), kA = k1 + R1*k2, reads (l, k1, k2, m3) and
+    // stores out[kA + Q*k3] of line t*LT + l with the epilogue.
 #pragma unroll 1
-    for (int ka = tid; ka < Q; ka += T) {
+    for (int it = tid; it < lines * Q; it += T) {
+      const int l = LT == 1 ? 0 : it / Q, ka = it - l * Q;
       const int k2 = ka / R1, k1 = ka - k2 * R1;
-      const cpx<R>* const run = s + k1 * PITCH + k2 * R3;
+      const cpx<R>* const run = s + l * LINE + k1 * PITCH + k2 * R3;
       cpx<R> v[R3];
       auto load = [&](auto j) {
         constexpr int m3 = 2 * decltype(j)::value;
@@ -669,6 +721,7 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
       };
       static_for<0, R3 / 2>(load);
       fft_stages<R3, RP, 2, R>(v, w);
+      const long long line = t * LT + l;
       auto store = [&](auto j) {
         constexpr int k3 = decltype(j)::value;
         const int o = ka + Q * k3;
@@ -682,14 +735,16 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
       static_for<0, R3>(store);
     }
     // The buffer's generic-proxy reads and writes are ordered before the
-    // bulk copy (async proxy) that overwrites it with the line DEPTH
+    // bulk copies (async proxy) that overwrite it with the tile DEPTH
     // strides on.
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    if (tid == 0) {
-      const long long next = line + DEPTH * stride;
-      if (next < batch)
-        bulk_load_rows<R, R1, M1, PITCH>(s, x + next * N, &bars[slot]);
+    if (LANES == 1 ? tid == 0 : tid < LANES) {
+      const long long next = t + DEPTH * stride;
+      if (next < tiles)
+        load_tile<R, R1, M1, PITCH, LANES>(s, x + next * LT * N,
+                                           tile_lines(next), &bars[slot],
+                                           tid);
     }
     if (++slot == DEPTH) {
       slot = 0;
@@ -698,6 +753,21 @@ long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
   }
 }
 
+// The mixed lengths' kernel: one line per block at a time, a ring of
+// DEPTH line buffers (long_mixed_depth), the grid persistent.
+template <typename R, int R1, int R2, int R3>
+__global__ void __launch_bounds__(
+    (long_mixed_threads<R, R1, R2, R3>()),
+    (long_mixed_min_blocks<R, R1, R2, R3>()))
+long_mixed_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+                  const cpx<R>* __restrict__ consts,
+                  const cpx<R>* __restrict__ gtw, long long batch,
+                  int inverse, int seg) {
+  static_assert(!is_pow2(R1), "R1 is mixed");
+  mixed_tiles<R, R1, R2, R3, 1, long_mixed_threads<R, R1, R2, R3>(),
+              long_mixed_depth<R, R1, R2, R3>(), 1>(x, out, consts, gtw,
+                                                    batch, inverse, seg);
+}
 // The ring holds two line buffers where they fit in a block's 227 KB
 // (complex64 8192, complex128 2048 and 4096), else one
 // (kernels/longline.py::long_tile works out the same depth).

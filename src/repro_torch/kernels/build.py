@@ -2,8 +2,9 @@
 
 ``csrc/fft_fourstep.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers).  It instantiates every length
-the routes take, one kernel each (1114: 813 radix, 295 long-line, 4
-transposes, 2 dense), which one ``nvcc`` run would compile in many
+the routes take, one kernel each (1299: 813 radix, 295 long-line, 165
+wide, the chirp's 16 and the split's and dense route's 10), which one
+``nvcc`` run would compile in many
 minutes (376 of them took 227-319 s on an H100 machine, PERF.md).  So
 the build splits them over
 :data:`PARTS` translation units of the same source (``-DREPRO_PART=k``:

@@ -40,7 +40,11 @@ the mixed N = r*2^k, r in ``radix.RADIX_ODD`` (3 to 1701 for complex64, 3
 to 405 for complex128: ``radix.RADIX_SIZES``) — takes the radix path —
 two passes of in-register codelets (radix 2, or a chain of radix 2, 3,
 4, 5, 7, 11, 13, 17, 19 and 23), ``csrc/fft_radix.cuh``, planned in
-``kernels/radix.py``; the longer N whose line fits in one block's shared
+``kernels/radix.py`` — but for its wide lines (a factor past 32 values in
+complex64, 16 in complex128: ``longline.WIDE``), whose contiguous lines
+take the long-line path's tile kernel (``csrc/fft_wide.cuh``: tiles of
+LT lines by TMA, three passes of codelets of at most 32 values; the
+radix kernel keeps their strided layout); the longer N whose line fits in one block's shared
 memory (powers of two 8192 and 16384 for complex64, 2048 to 8192 for
 complex128; the mixed lengths 4352 to 15360 and 1088 to 7680 whose odd
 part is in ``radix.EVERY_ROUTE_ODD``, and the other even 13-smooth N
@@ -105,7 +109,9 @@ plan's rows count on "split" with no call of their own).  A chirp call
 is two inner transforms (one launch each on the dense or the long-line
 route, a split plan's pass A, rows and pass C on the split route), every
 launch counted on "chirp" and its layout, and adds one to
-``fft_fourstep.chirp_calls``.
+``fft_fourstep.chirp_calls``.  A long-path line that does not start on
+16 bytes (the bulk copies' alignment) is cloned first and adds one to
+``fft_fourstep.aligned_copies``.
 """
 from __future__ import annotations
 
@@ -382,7 +388,7 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
     route's inner transforms: their caller's path, and no call of their
     own)."""
     n = x.shape[1]
-    path = radix.kernel_path(n, x.dtype)
+    path = "radix" if strided else radix.kernel_path(n, x.dtype)
     if path == "split":
         return _launch_split(x, tw, inverse=inverse, pack_parts=pack_parts,
                              plan=split.split_plan(n, x.dtype),
@@ -425,9 +431,14 @@ def _launch(x: torch.Tensor, tw: Optional[torch.Tensor], *, inverse: bool,
             consts.record_stream(current)
             if x.data_ptr() % 16:
                 x = x.clone()      # the bulk copy reads 16-byte aligned lines
-            fn = lib.repro_fft_long_c64 if c64 else lib.repro_fft_long_c128
+                with _COUNT_LOCK:
+                    fft_fourstep.aligned_copies += 1
+            wide = n in longline.WIDE[x.dtype]
+            fn = getattr(lib, ("repro_fft_wide_" if wide else
+                               "repro_fft_long_") + ("c64" if c64 else "c128"))
             err = fn(x.data_ptr(), buf.data_ptr(), consts.data_ptr(), twp,
-                     x.shape[0], n, int(inverse), _seg_arg(n, parts),
+                     x.shape[0], n, int(inverse),
+                     n // parts if wide else _seg_arg(n, parts),
                      tile.smem_bytes, stream)
         else:
             launch_config(n, x.element_size())    # raises past the domain
@@ -731,7 +742,8 @@ def _declare(lib) -> None:
     for fn in (lib.repro_fft_radix_c64, lib.repro_fft_radix_c128):
         fn.argtypes = [p, p, p, p, ll, ll, i, i, i, i, i, i, p]
         fn.restype = i
-    for fn in (lib.repro_fft_long_c64, lib.repro_fft_long_c128):
+    for fn in (lib.repro_fft_long_c64, lib.repro_fft_long_c128,
+               lib.repro_fft_wide_c64, lib.repro_fft_wide_c128):
         fn.argtypes = [p, p, p, p, ll, i, i, i, i, p]
         fn.restype = i
     for fn in (lib.repro_fft_split_a_c64, lib.repro_fft_split_a_c128):
@@ -792,9 +804,10 @@ def fft_fourstep(x: torch.Tensor, *, inverse: bool = False,
 
 def strided_supported(n: int, dtype: torch.dtype, twiddle: bool) -> bool:
     """Whether :func:`fft_fourstep_strided` takes lines of length ``n``:
-    the radix path, with a strided tile inside one block's shared
-    memory."""
-    return (dtype in DTYPES and radix.kernel_path(n, dtype) == "radix"
+    the radix kernel's lengths (``radix.RADIX_SIZES``, the wide lines that
+    contiguous lines take to the long route too), with a strided tile
+    inside one block's shared memory."""
+    return (dtype in DTYPES and n in radix.RADIX_SIZES.get(dtype, ())
             and radix.radix_tile(n, dtype.itemsize, twiddle, True)
             is not None)
 
@@ -855,20 +868,24 @@ fft_fourstep.path_launches = {"radix": 0, "dense": 0, "long": 0,
 fft_fourstep.layout_launches = {"lines": 0, "strided": 0}
 fft_fourstep.split_calls = 0
 fft_fourstep.chirp_calls = 0
+fft_fourstep.aligned_copies = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """One consistent snapshot of the launch counters, flat: ``launches``
     and one entry per variant, path and layout, ``split_calls`` (the
-    split route's calls, two or three launches each) and ``chirp_calls``
-    (the chirp route's, two inner transforms each)."""
+    split route's calls, two or three launches each), ``chirp_calls``
+    (the chirp route's, two inner transforms each) and ``aligned_copies``
+    (long-route lines cloned because they did not start on 16 bytes, as
+    the bulk copies need)."""
     with _COUNT_LOCK:
         return {"launches": fft_fourstep.launches,
                 **fft_fourstep.variant_launches,
                 **fft_fourstep.path_launches,
                 **fft_fourstep.layout_launches,
                 "split_calls": fft_fourstep.split_calls,
-                "chirp_calls": fft_fourstep.chirp_calls}
+                "chirp_calls": fft_fourstep.chirp_calls,
+                "aligned_copies": fft_fourstep.aligned_copies}
 
 
 def reset_launch_counts() -> None:
@@ -876,6 +893,7 @@ def reset_launch_counts() -> None:
         fft_fourstep.launches = 0
         fft_fourstep.split_calls = 0
         fft_fourstep.chirp_calls = 0
+        fft_fourstep.aligned_copies = 0
         for counts in (fft_fourstep.variant_launches,
                        fft_fourstep.path_launches,
                        fft_fourstep.layout_launches):

@@ -10,7 +10,12 @@ in one block's shared memory: the powers of two (complex64 N of 8192 and
 radix route up to that line that three codelets of at most 32 values take
 (:func:`rule_factors`: odd parts 33 to 729, complex64 3168 to 16128,
 complex128 792 to 8064).  On the CPU the route runs :func:`emulate`; on the
-card one launch of ``fft_long.cuh``.  The kernel (``csrc/fft_long.cuh``)
+card one launch of ``fft_long.cuh``.  It also takes, on contiguous lines,
+the radix route's wide lines (:data:`WIDE`: a factor past 32 values in
+complex64, 16 in complex128), on ``fft_wide.cuh``'s tile kernel: a
+:class:`WidePlan` of LT lines a block in rows at a padded pitch, the
+mixed kernel's three in-place passes, :func:`wide_candidates` choosing
+the split and the tile; :func:`emulate` runs that tile loop too.  The kernel (``csrc/fft_long.cuh``)
 holds one line there and transforms it in three passes over N = R1*R2*R3,
 each an in-register codelet of length at most 32 (:data:`FACTORS`).  With
 the input index m = m1*(R2*R3) + m2*R3 + m3 and the output index k = k1 +
@@ -75,6 +80,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.transforms import factorize
 from . import radix
 
 #: The powers of two and the lengths with one mixed factor (R2 and R3 powers
@@ -214,12 +220,18 @@ class LongPlan:
                 + (r1 if self.mixed else 0) + (r2 if self.mixed_r2 else 0))
 
 
-def long_plan(n: int, dtype: torch.dtype) -> LongPlan:
-    """The three factors of a line length the long route takes."""
+def long_plan(n: int, dtype: torch.dtype):
+    """The plan of a line length the long route takes: a
+    :class:`LongPlan` of :data:`FACTORS`, or a :class:`WidePlan` of
+    :data:`WIDE`."""
+    wide = WIDE.get(dtype, {}).get(n)
+    if wide is not None:
+        return WidePlan(n, *wide, dtype.itemsize)
     factors = FACTORS.get(dtype, {}).get(n)
     if factors is None:
         raise ValueError(f"the long route takes N in "
-                         f"{sorted(FACTORS.get(dtype, {}))} for {dtype}, "
+                         f"{sorted(FACTORS.get(dtype, {}))} and "
+                         f"{sorted(WIDE.get(dtype, {}))} for {dtype}, "
                          f"got {n}")
     return LongPlan(n, *factors, dtype.itemsize)
 
@@ -240,8 +252,11 @@ def smem_bytes(plan: LongPlan, itemsize: int, depth: int) -> int:
 def long_tile(n: int, dtype: torch.dtype) -> LongTile:
     """The ring depth and the shared memory of one block: two line buffers
     where they fit (the next line loads while this one is transformed),
-    else one (:attr:`LongPlan.depth`)."""
+    else one (:attr:`LongPlan.depth`); a wide length's ring of two tiles
+    (:attr:`WidePlan.smem_bytes`)."""
     plan = long_plan(n, dtype)
+    if isinstance(plan, WidePlan):
+        return LongTile(2, plan.smem_bytes)
     return LongTile(plan.depth, smem_bytes(plan, dtype.itemsize, plan.depth))
 
 
@@ -310,18 +325,230 @@ FACTORS = {dtype: {**table, **_rule(dtype)}
            for dtype, table in _TABLE.items()}
 
 
+#: The radix route's lengths whose larger factor (``transforms.factorize``)
+#: passes this many values, per complex dtype, are the wide lines: a
+#: thread of ``radix_kernel`` holds that codelet in registers, 191-255 of
+#: them, so one block fills an SM.
+WIDE_FROM = {torch.complex64: 32, torch.complex128: 16}
+#: The wide kernel's longest pass-3 codelet: a radix-2 pass of 32 values
+#: spills at 128 registers a thread (:func:`_pass3_fits`).
+WIDE_R3_MAX = 16
+#: Registers a thread the wide kernel's launch bound aims at, per complex
+#: element size: complex64 keeps a 32-value codelet in 128, complex128 in
+#: up to 255 (``long_mixed_min_blocks``).
+_WIDE_REGS = {8: 128, 16: 255}
+_SM_REGISTERS = 65536
+#: Threads of a wide block: 128, four blocks an SM (complex64) or two
+#: (complex128).  The sweep (PERF.md §6) read 256 a block 0-15% slower
+#: at complex64 and 3-40% slower at complex128 at most lengths: fewer,
+#: larger blocks wait longer at each pass's barrier.
+WIDE_THREADS = 128
+#: The shortest row a bulk copy brings, in bytes (N/R1 elements), and the
+#: shortest line a plan moves: below them the copies of a tile are many
+#: and short, and the sweep read the wide kernel behind ``radix_kernel``
+#: (complex128 68 to 320: 2-200% slower).
+WIDE_ROW_MIN_BYTES = 320
+WIDE_LINE_MIN_BYTES = 6144
+#: Mixed first codelets the rule never takes: ptxas spilled 20 plans of
+#: them at the register cap (PERF.md §6: 28 and 30 x 18-27 x 2-4 at
+#: complex64's 128 registers a thread; 26 x 2-6 x 4-16, 28 x 2-16 x 2-16
+#: and 30 x 5-13 x 2-4 at complex128's 255), pass 1 holding their values
+#: beside its two twiddles; the same codelet in pass 2 (R2) spilled nowhere.
+WIDE_R1_SPILLS = (26, 28, 30)
+#: The longest first codelet the rule prefers, per complex element size:
+#: complex128's codelets of 21 to 27 values in pass 1 read 2-12% slower
+#: than a shorter R1 where N has one (c128 420: 21 x 5 x 4 0.4269 ms,
+#: 15 x 14 x 2 0.3843 on an H100, PERF.md §6).
+WIDE_R1_SOFT = {8: 32, 16: 20}
+#: The most lines a tile holds.
+WIDE_LT_MAX = 16
+#: Wide lines whose pick read less than 1% faster than ``radix_kernel``
+#: on the same lines (``route_times.py widepicks``, two readings each,
+#: 512 MB on an H100, PERF.md §6): they keep the radix route.  Both
+#: kernels run these lines at 1.22-1.28x the HBM bound; no plan or
+#: factor feature the sweep saw sets them apart from lines that gain
+#: (complex128 672 = 24 x 28 +2.8%, 700 = 25 x 28 -14.4%).
+WIDE_RADIX_KEEPS = {torch.complex64: (1056, 1080, 1088),
+                    torch.complex128: (512, 576, 624, 660, 672, 768)}
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """A wide line's plan on ``fft_wide.cuh``'s ``wide_kernel``: N =
+    R1*R2*R3 (R3 a power of two, R1 and R2 either), a tile of ``lt``
+    lines, :data:`WIDE_THREADS` threads a block.  Each line of the tile
+    sits in R1 rows of N/R1 at a pitch padded by 16 bytes, as a mixed long
+    line's does; the names :func:`constants` reads mean what they mean on
+    a :class:`LongPlan`."""
+    n: int
+    r1: int
+    r2: int
+    r3: int
+    lt: int
+    itemsize: int
+
+    @property
+    def threads(self) -> int:
+        return WIDE_THREADS
+
+    @property
+    def mixed(self) -> bool:
+        """R1 runs the mixed chain on its own table."""
+        return not radix.is_pow2(self.r1)
+
+    @property
+    def mixed_r2(self) -> bool:
+        """R2 runs the mixed chain on its own table."""
+        return not radix.is_pow2(self.r2)
+
+    @property
+    def table(self) -> int:
+        """The radix-2 codelets' table: the largest power-of-two factor."""
+        return max(r for r in (self.r1, self.r2, self.r3)
+                   if radix.is_pow2(r))
+
+    @property
+    def pitch(self) -> int:
+        return self.r2 * self.r3 + _ROW_PAD_BYTES // self.itemsize
+
+    @property
+    def line_elems(self) -> int:
+        return self.r1 * self.pitch
+
+    @property
+    def const_elems(self) -> int:
+        r1, r2, r3 = self.r1, self.r2, self.r3
+        return (r1 * r3 + r1 * r2 + r2 * r3 + self.table // 2
+                + (r1 if self.mixed else 0) + (r2 if self.mixed_r2 else 0))
+
+    @property
+    def smem_bytes(self) -> int:
+        """The ring's two tiles, the constants, two mbarriers
+        (``wide_smem_bytes``)."""
+        return ((2 * self.lt * self.line_elems + self.const_elems)
+                * self.itemsize + 2 * _BARRIER_BYTES)
+
+    @property
+    def min_blocks(self) -> int:
+        """The launch bound's blocks an SM: as many as registers allow at
+        :data:`_WIDE_REGS` a thread and shared memory holds, at least 1."""
+        by_regs = _SM_REGISTERS // (self.threads * _WIDE_REGS[self.itemsize])
+        by_smem = _SMEM_PER_SM // (self.smem_bytes + _SMEM_RESERVED)
+        return max(1, min(by_regs, by_smem))
+
+    @property
+    def items(self) -> tuple:
+        """The items of a tile's three passes."""
+        return (self.lt * self.r2 * self.r3, self.lt * self.r1 * self.r3,
+                self.lt * self.r1 * self.r2)
+
+    @property
+    def fill(self) -> float:
+        """The least share of the block that a pass's last round keeps
+        busy."""
+        return min((i - 1) % self.threads + 1 for i in self.items) \
+            / self.threads
+
+
+def _wide_splits(n: int):
+    """Every (R1, R2, R3) of a wide line: R3 a power of two from 2 to
+    :data:`WIDE_R3_MAX`, R1 >= R2 codelet lengths (``radix.
+    codelet_length``) from 2 to :data:`PASS_MAX` (R1 and R2 swapped fill
+    the block alike: pass 1 has N/R1 items, pass 2 N/R2)."""
+    for r3 in (16, 8, 4, 2):
+        if r3 > WIDE_R3_MAX or n % r3:
+            continue
+        rest = n // r3
+        for r1 in range(PASS_MAX, 1, -1):
+            r2 = rest // r1
+            if rest % r1 == 0 and 2 <= r2 <= r1 \
+                    and radix.codelet_length(r1) \
+                    and radix.codelet_length(r2):
+                yield r1, r2, r3
+
+
+def _wide_key(plan: WidePlan) -> tuple:
+    """The rule's order of plans, best first: an R1 within
+    :data:`WIDE_R1_SOFT`; the largest share of the block's thread rounds
+    that do work, each pass weighed by its codelet's
+    length (a round of pass i costs about R_i loads, stores and
+    butterflies a thread: 3*LT*N over the sum of rounds_i * threads *
+    R_i); then the fullest last round (:attr:`WidePlan.fill`), the fewest
+    lines, the largest R3, and the smallest R1 (the shorter codelets: at
+    complex128 400, 10 x 10 x 4 read 0.3885 ms where 20 x 5 x 4 read
+    0.4313 on an H100, PERF.md §6)."""
+    t, lt = plan.threads, plan.lt
+    items = plan.items
+    rounds = (-(-items[0] // t) * plan.r1 + -(-items[1] // t) * plan.r2
+              + -(-items[2] // t) * plan.r3)
+    return (plan.r1 > WIDE_R1_SOFT[plan.itemsize],
+            -round(3 * lt * plan.n / (t * rounds), 9), -plan.fill, lt,
+            -plan.r3, plan.r1)
+
+
+def wide_candidates(n: int, dtype: torch.dtype) -> list:
+    """Every wide plan of ``n`` at :data:`WIDE_THREADS` a block, best first by
+    :func:`_wide_key`: each split of :func:`_wide_splits` whose rows hold
+    :data:`WIDE_ROW_MIN_BYTES` and whose R1 is not one of
+    :data:`WIDE_R1_SPILLS`, each tile from one line up to the most
+    with which an SM still holds the blocks its registers allow (and one
+    block's 227 KB); none for a line shorter than
+    :data:`WIDE_LINE_MIN_BYTES`."""
+    size = dtype.itemsize
+    if n * size < WIDE_LINE_MIN_BYTES:
+        return []
+    want = _SM_REGISTERS // (WIDE_THREADS * _WIDE_REGS[size])
+    out = []
+    for r1, r2, r3 in _wide_splits(n):
+        if r2 * r3 * size < WIDE_ROW_MIN_BYTES or r1 in WIDE_R1_SPILLS:
+            continue
+        for lt in range(1, WIDE_LT_MAX + 1):
+            plan = WidePlan(n, r1, r2, r3, lt, size)
+            if lt > 1 and (plan.min_blocks < want
+                           or plan.smem_bytes > radix.SMEM_MAX_BYTES):
+                break
+            out.append((_wide_key(plan), plan))
+    return [plan for _, plan in sorted(out, key=lambda e: e[0])]
+
+
+def _wide(dtype: torch.dtype) -> dict:
+    """The wide lines: every length of ``radix.RADIX_SIZES`` whose larger
+    factor passes :data:`WIDE_FROM` that has a plan
+    (:func:`wide_candidates`) and that :data:`WIDE_RADIX_KEEPS` leaves
+    to the radix route, with (R1, R2, R3, LT) of the best."""
+    out = {}
+    for n in radix.RADIX_SIZES[dtype]:
+        if max(factorize(n)) <= WIDE_FROM[dtype] \
+                or n in WIDE_RADIX_KEEPS[dtype]:
+            continue
+        cands = wide_candidates(n, dtype)
+        if cands:
+            p = cands[0]
+            out[n] = (p.r1, p.r2, p.r3, p.lt)
+    return out
+
+
+#: The wide lines the long route takes from the radix route and their
+#: (R1, R2, R3, LT), per complex dtype (``radix.kernel_path``
+#: reads this table; the radix kernel keeps their strided layout and the
+#: split route's rows of them).
+WIDE = {dtype: _wide(dtype) for dtype in _TABLE}
+
+
 def _w(n: int, e: np.ndarray, sign: float) -> np.ndarray:
     return np.exp(sign * 2j * np.pi * e / n)
 
 
-def constants(n: int, dtype: torch.dtype, inverse: bool) -> np.ndarray:
+def constants(n: int, dtype: torch.dtype, inverse: bool,
+              plan=None) -> np.ndarray:
     """TA, TB, TC and the codelet tables, row-major, one complex128 array
     built in float64: TA[k1, m3] = W_N^(k1*m3), TB[k1, m2] =
     W_N^(k1*m2*R3), TC[k2, m3] = W_(R2*R3)^(k2*m3), W[j] = W_table^j
     (j < table/2, :attr:`LongPlan.table`), then for a mixed N the mixed
     codelet's own W_R1^j, j < R1, and where R2 is mixed too its own
-    W_R2^j, j < R2."""
-    p = long_plan(n, dtype)
+    W_R2^j, j < R2 (a wide plan: W_R1 where R1 is mixed, W_R2 where R2
+    is).  ``plan`` forces a plan of N in place of :func:`long_plan`'s."""
+    p = plan or long_plan(n, dtype)
     sign = 1.0 if inverse else -1.0
     k1 = np.arange(p.r1, dtype=np.float64)[:, None]
     k2 = np.arange(p.r2, dtype=np.float64)[:, None]
@@ -379,27 +606,32 @@ def _epilogue(v: list, plan: LongPlan, b: int, ka: torch.Tensor, *,
 def emulate(x: torch.Tensor, *, inverse: bool = False,
             twiddle: Optional[torch.Tensor] = None,
             pack_parts: Optional[int] = None,
-            scaled: bool = True) -> torch.Tensor:
+            scaled: bool = True,
+            plan: Optional[WidePlan] = None) -> torch.Tensor:
     """Run the long kernel's three passes and index maps in torch, every
-    line at once: ``x`` is contiguous ``(B, N)``.  Returns what the kernel
-    writes: ``(B, N)``, or the ``(p, B, N/p)`` buffer with
-    ``pack_parts``.  ``scaled=False`` leaves out the inverse's 1/N, as the
-    split route's pass B launches it (``kernels/split.py``)."""
+    line (a wide length: every tile) at once: ``x`` is contiguous ``(B,
+    N)``.  Returns what the kernel writes: ``(B, N)``, or the ``(p, B,
+    N/p)`` buffer with ``pack_parts``.  ``scaled=False`` leaves out the
+    inverse's 1/N, as the split route's pass B launches it
+    (``kernels/split.py``); ``plan`` forces a wide plan of N (one of
+    :func:`wide_candidates`) in place of :func:`long_plan`'s."""
     b, n = x.shape
     cdt, dev = x.dtype, x.device
-    p = long_plan(n, cdt)
+    p = plan or long_plan(n, cdt)
     r1, r2, r3 = p.r1, p.r2, p.r3
     m1_stride, q = n // r1, r1 * r2
-    consts = torch.from_numpy(constants(n, cdt, inverse)).to(dev, cdt)
+    consts = torch.from_numpy(constants(n, cdt, inverse, p)).to(dev, cdt)
     sizes = [r1 * r3, r1 * r2, r2 * r3, p.table // 2]
     ta, tb, tc, w, *wm = torch.split(
         consts, sizes + ([r1] if p.mixed else [])
         + ([r2] if p.mixed_r2 else []))
     epilogue = dict(inverse=inverse, twiddle=twiddle, pack_parts=pack_parts,
                     scaled=scaled)
-    if p.mixed:
-        return _emulate_mixed(x, p, ta, tb, tc, w, wm,
-                              1.0 if inverse else -1.0, epilogue)
+    if p.mixed or isinstance(p, WidePlan):
+        return _emulate_rows(x, p, ta, tb, tc, w,
+                             wm[0] if p.mixed else None,
+                             wm[-1] if p.mixed_r2 else None,
+                             1.0 if inverse else -1.0, epilogue)
     # the line buffer, as the bulk copy leaves it: x in natural order
     s = torch.zeros((b, p.line_elems), dtype=cdt, device=dev)
     s[:, :n] = x
@@ -427,42 +659,58 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
     return _epilogue(v, p, b, ka, **epilogue)
 
 
-def _emulate_mixed(x: torch.Tensor, p: LongPlan, ta, tb, tc, w, wm: list,
-                   sign: float, epilogue: dict) -> torch.Tensor:
-    """The mixed kernel's passes: the line in R1 rows of N/R1 at the
-    padded pitch, every pass in place, item by item.  ``wm`` holds the
-    mixed codelets' tables: W_R1, then W_R2 where R2 is mixed."""
+def _emulate_rows(x: torch.Tensor, p, ta, tb, tc, w, wm1, wm2,
+                  sign: float, epilogue: dict) -> torch.Tensor:
+    """The mixed long kernel's passes (one line a block) and the wide
+    kernel's (a tile of ``p.lt`` lines): each line in R1 rows of N/R1 at
+    the padded pitch, every pass in place, item (line of the tile, item)
+    by item.  ``wm1`` and ``wm2`` are the mixed codelets' own tables, W_R1
+    and W_R2 (None for a power of two).  The last tile's lines past B are
+    zeros here and their outputs are dropped (the kernel copies and walks
+    only the lines it holds)."""
     b, n = x.shape
-    r1, r2, r3, pitch = p.r1, p.r2, p.r3, p.pitch
-    m1n, dev = r2 * r3, x.device
-    # the line buffer, as the R1 row copies leave it
-    s = torch.zeros((b, p.line_elems), dtype=x.dtype, device=dev)
-    rows = torch.arange(r1, device=dev)[:, None] * pitch \
-        + torch.arange(m1n, device=dev)[None, :]
-    s[:, rows.reshape(-1)] = x
+    r1, r2, r3, pitch, line = p.r1, p.r2, p.r3, p.pitch, p.line_elems
+    lt = getattr(p, "lt", 1)
+    m1n, q, dev = r2 * r3, r1 * r2, x.device
+    tiles = -(-b // lt)
+    xt = torch.zeros((tiles * lt, n), dtype=x.dtype, device=dev)
+    xt[:b] = x
+    # the tile buffer, as the row copies leave it
+    s = torch.zeros((tiles, lt * line), dtype=x.dtype, device=dev)
+    rows = (torch.arange(lt, device=dev)[:, None, None] * line
+            + torch.arange(r1, device=dev)[None, :, None] * pitch
+            + torch.arange(m1n, device=dev)[None, None, :])
+    s[:, rows.reshape(-1)] = xt.reshape(tiles, lt * n)
 
-    # pass 1: item mb = m2*R3 + m3 reads (m1, mb), writes (k1, mb)
-    mb = torch.arange(m1n, device=dev)
+    # pass 1: item (l, mb), mb = m2*R3 + m3, reads (l, m1, mb), writes
+    # (l, k1, mb)
+    it = torch.arange(lt * m1n, device=dev)
+    mb = it % m1n
+    at = (it // m1n) * line + mb
     m2, m3 = mb // r3, mb % r3
-    v = _codelet([s[:, m1 * pitch + mb] for m1 in range(r1)], r1, p, w,
-                 wm[0], sign)
+    v = _codelet([s[:, at + m1 * pitch] for m1 in range(r1)], r1, p, w,
+                 wm1, sign)
     for k1 in range(r1):
         y = v[k1] if k1 == 0 else v[k1] * (ta[k1 * r3 + m3] * tb[k1 * r2 + m2])
-        s[:, k1 * pitch + mb] = y
+        s[:, at + k1 * pitch] = y
 
-    # pass 2: item (k1, m3) reads (k1, m2, m3), writes (k1, k2, m3); a
-    # mixed R2 loads digit-reversed and runs its chain on W_R2
-    item = torch.arange(r1 * r3, device=dev)
+    # pass 2: item (l, k1, m3) reads (l, k1, m2, m3), writes (l, k1, k2,
+    # m3); a mixed R2 loads digit-reversed and runs its chain on W_R2
+    it = torch.arange(lt * r1 * r3, device=dev)
+    item = it % (r1 * r3)
     k1, m3 = item // r3, item % r3
-    v = _codelet([s[:, k1 * pitch + m2 * r3 + m3] for m2 in range(r2)], r2,
-                 p, w, wm[-1], sign)
+    col = (it // (r1 * r3)) * line + k1 * pitch + m3
+    v = _codelet([s[:, col + m2 * r3] for m2 in range(r2)], r2, p, w, wm2,
+                 sign)
     for k2 in range(r2):
         y = v[k2] if k2 == 0 else v[k2] * tc[k2 * r3 + m3]
-        s[:, k1 * pitch + k2 * r3 + m3] = y
+        s[:, col + k2 * r3] = y
 
-    # pass 3: item kA = k1 + R1*k2 reads (k1, k2, m3)
-    ka = torch.arange(r1 * r2, device=dev)
+    # pass 3: item (l, kA), kA = k1 + R1*k2, reads (l, k1, k2, m3)
+    it = torch.arange(lt * q, device=dev)
+    ka = it % q
     k2, k1 = ka // r1, ka % r1
-    v = _codelet([s[:, k1 * pitch + k2 * r3 + m3] for m3 in range(r3)], r3,
-                 p, w)
-    return _epilogue(v, p, b, ka, **epilogue)
+    run = (it // q) * line + k1 * pitch + k2 * r3
+    v = _codelet([s[:, run + m3] for m3 in range(r3)], r3, p, w)
+    v = [vk.reshape(tiles * lt, q)[:b] for vk in v]
+    return _epilogue(v, p, b, torch.arange(q, device=dev), **epilogue)

@@ -175,10 +175,15 @@ def kernel_path(n: int, dtype: torch.dtype) -> str:
     up to ``dense.DENSE_LIMIT`` whose generic stages cost no more than the
     chirp (``dense.GENERIC_COST``), and the 13-smooth N whose line fits
     one block), else "dense" (the mixed-radix kernel over a run-time
-    chain; past the chirp's limit it raises)."""
-    if n in RADIX_SIZES.get(dtype, ()):
-        return "radix"
+    chain; past the chirp's limit it raises).  The wide lines of
+    :data:`RADIX_SIZES` (``longline.WIDE``: a factor past 32 values,
+    complex64, or 16, complex128) are "long": their contiguous lines take
+    the long route's wide kernel, while the radix kernel keeps their
+    strided layout and the split route's rows of them."""
     # deferred: longline, split and chirp import this module
+    from .longline import WIDE
+    if n in RADIX_SIZES.get(dtype, ()):
+        return "long" if n in WIDE.get(dtype, {}) else "radix"
     from .chirp import takes
     from .longline import FACTORS as LONG
     from .split import takes as split_takes

@@ -165,7 +165,7 @@ def serve_fft(*, requests: int = 24, round_size: int = 8, lose: int = 1,
     # Kernel launches and routed batches of the traffic drains alone (the
     # tune and warm-up above launch too).
     traffic = dict.fromkeys(kernel_counts(), 0)
-    batches = 0
+    batches, by_grid = 0, {}
     # Where the traffic loop's wall time goes (host clock; drain() and the
     # checks end in a synchronization).
     seconds = {"submit": 0.0, "drain": 0.0, "check": 0.0}
@@ -193,6 +193,7 @@ def serve_fft(*, requests: int = 24, round_size: int = 8, lose: int = 1,
         before = (GLOBAL_PLAN_CACHE.stats()["misses"],
                   build.counts["loads"])
         counts, dispatched = kernel_counts(), svc.metrics.batches_dispatched
+        grids_before = dict(svc.metrics.batches_by_grid)
         seconds["submit"] += timer() - tic
         tic = timer()
         results = svc.drain()
@@ -201,6 +202,9 @@ def serve_fft(*, requests: int = 24, round_size: int = 8, lose: int = 1,
         for k, n in kernel_counts().items():
             traffic[k] += n - counts[k]
         batches += svc.metrics.batches_dispatched - dispatched
+        for g, n in svc.metrics.batches_by_grid.items():
+            if n > grids_before.get(g, 0):
+                by_grid[g] = by_grid.get(g, 0) + n - grids_before.get(g, 0)
         if first_drain is None:
             first_drain = {
                 "plan_builds": GLOBAL_PLAN_CACHE.stats()["misses"]
@@ -279,6 +283,7 @@ def serve_fft(*, requests: int = 24, round_size: int = 8, lose: int = 1,
         "loop_rps": (served / (seconds["submit"] + seconds["drain"])
                      if seconds["submit"] + seconds["drain"] > 0 else 0.0),
         "traffic_launches": traffic, "traffic_batches": batches,
+        "traffic_batches_by_grid": by_grid,
     }
     if json_path and rank == 0:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)

@@ -45,6 +45,8 @@ class ServingMetrics:
         self.plan_misses = 0
         self.padded_requests = 0
         self.batches_dispatched = 0
+        # Routed batches by bucket grid, keyed "1024x2048".
+        self.batches_by_grid: Dict[str, int] = {}
         self.retunes_enqueued = 0
         self.retunes_completed = 0
         # Fault / degradation counters.
@@ -81,9 +83,15 @@ class ServingMetrics:
         with self._lock:
             self.padded_requests += n
 
-    def record_batch(self, n: int = 1) -> None:
+    def record_batch(self, n: int = 1, grids=()) -> None:
+        """``n`` routed batches; ``grids`` their bucket grids, where
+        known."""
         with self._lock:
             self.batches_dispatched += n
+            for g in grids:
+                key = "x".join(map(str, g))
+                self.batches_by_grid[key] = \
+                    self.batches_by_grid.get(key, 0) + 1
 
     def record_retune(self, *, completed: bool = False) -> None:
         with self._lock:

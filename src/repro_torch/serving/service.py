@@ -153,7 +153,8 @@ class FFTService:
             return {}
         pending, self._pending = self._pending, []
         routed = self.router.route(pending)
-        self.metrics.record_batch(len(routed))
+        self.metrics.record_batch(len(routed),
+                                  [rb.bucket_grid for rb in routed])
         for rb in routed:
             self.executor.submit(rb.plan, rb.x, tag=rb.tag)
         outs = [gather(y, rb.plan.out_struct.spec, self.mesh)

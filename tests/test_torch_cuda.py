@@ -49,7 +49,7 @@ def cuda():
 @pytest.mark.parametrize("shape,dtype,parts,use_tw", [
     ((130, 512), torch.complex64, None, False),
     ((5, 1024), torch.complex64, 4, True),
-    ((7, 53), torch.complex64, None, False),       # dense: a prime
+    ((7, 53), torch.complex64, None, False),       # a prime: the chirp
     ((300, 64), torch.complex64, 8, False),         # ragged last tile
     ((5, 48), torch.complex128, 2, True),
     ((67, 4096), torch.complex64, None, True),      # radix, N1 = N2 = 64
@@ -69,9 +69,11 @@ def test_cuda_kernel_matches_plain_version(cuda, shape, dtype, parts,
     want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=tw,
                                   pack_parts=parts)
     torch.cuda.synchronize()
-    assert tfm.fft_fourstep.launches == 1
     path = radix.kernel_path(n, dtype)
-    assert tfm.fft_fourstep.path_launches[path] == 1
+    # the chirp (the prime 53's route) is two transforms of M
+    launches = 2 if path == "chirp" else 1
+    assert tfm.fft_fourstep.launches == launches
+    assert tfm.fft_fourstep.path_launches[path] == launches
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
     # torch.fft with the epilogue: a yardstick independent of the plain
@@ -167,6 +169,71 @@ def test_cuda_long_kernel_matches_plain_version_and_torch_fft(
     assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
     if parts is not None:
         assert got.transpose(0, 1).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.complex64, 2944),
+                                     (torch.complex64, 1000),
+                                     (torch.complex128, 864)])
+def test_cuda_wide_kernel_against_torch_fft_and_its_gradient(cuda, dtype, n):
+    """The long route's wide kernel (``fft_wide.cuh``: tiles of LT lines)
+    at a wide line: one launch on "long" a call, on a batch whose last
+    tile is ragged (complex64 1000, complex128 864: tiles of 3 and 2
+    lines) and whose tiles outnumber twice the blocks, forward and
+    inverse with the twiddle and ``pack_parts``, against its plain
+    version (``longline.emulate``) and ``torch.fft``; a view off 16 bytes
+    cloned once (``aligned_copies``); then the gradient of a real loss
+    through ``LineTransform`` (the transform and its adjoint, 2 launches)
+    against ``torch.fft``'s."""
+    from repro_torch.kernels import longline
+    plan = longline.long_plan(n, dtype)
+    assert isinstance(plan, longline.WidePlan)
+    # More than twice the tiles of the largest grid, so that every block
+    # wraps the ring of two (its mbarriers' parity flips) in both
+    # directions; a ragged last tile where LT > 1.
+    per_sm = min(16, 233472 // (plan.smem_bytes + 1024))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    b = 3 * per_sm * sms * plan.lt + 1
+    x = torch.from_numpy(cplx((b, n), 31)).to(cuda, dtype)
+    tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
+                   / (2 * n)).to(dtype)
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    for inverse, t, parts in ((False, None, None), (True, tw, 4)):
+        tfm.reset_launch_counts()
+        got = tfm.fft_fourstep(x, inverse=inverse, twiddle=t,
+                               pack_parts=parts)
+        torch.cuda.synchronize()
+        counts = tfm.launch_counts()
+        assert counts["launches"] == counts["long"] == 1, counts
+        assert counts["aligned_copies"] == 0
+        want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=t,
+                                      pack_parts=parts)
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+        if t is not None:
+            lib = (lib * t).reshape(b, parts, n // parts)
+        assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+        assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
+    if dtype == torch.complex64:      # a complex128 view starts on 16
+        view = x.reshape(-1)[1:1 + 3 * n].view(3, n)
+        assert view.data_ptr() % 16
+        tfm.reset_launch_counts()
+        got = tfm.fft_fourstep(view)
+        torch.cuda.synchronize()
+        assert tfm.launch_counts()["aligned_copies"] == 1
+        assert_scaled_close(got.cpu().numpy(),
+                            torch.fft.fft(view).cpu().numpy(), tol)
+    w = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (b, n))).to(cuda, torch.float64 if dtype == torch.complex128
+                    else torch.float32)
+    xg = x.clone().requires_grad_(True)
+    tfm.reset_launch_counts()
+    (ops.fft1d(xg).real * w).sum().backward()
+    torch.cuda.synchronize()
+    assert tfm.launch_counts()["long"] == 2
+    yg = x.clone().requires_grad_(True)
+    (torch.fft.fft(yg).real * w).sum().backward()
+    assert_scaled_close(xg.grad.cpu().numpy(), yg.grad.cpu().numpy(),
+                        10 * tol)
 
 
 @pytest.mark.cuda
@@ -298,14 +365,15 @@ def test_cuda_mixed_radix_lengths_match_plain_version_and_torch_fft(
     """Every mixed radix length (N = r*2^k, r in ``radix.RADIX_ODD``: 3
     to 19, the odd products 21 to 63 and the odd parts from 65 whose N
     has both factors within a codelet, 600 = 24 x 25 to 3780 = 60 x 63;
-    17*2^k and 19*2^k to 2176 = 34 x 64 and 2432 = 38 x 64):
-    one radix launch each, against
+    17*2^k and 19*2^k to 2176 = 34 x 64 and 2432 = 38 x 64, 23*2^k to
+    2944 = 46 x 64): one launch each, on the radix route or, for the wide
+    lines (``longline.WIDE``), the long route's wide kernel, against
     the plain version and ``torch.fft`` at the
     kernel's tolerances, without an epilogue and with both (a pack_parts
     segment that is not a power of two where 3 divides N)."""
     tol = 5e-6 if dtype == torch.complex64 else 1e-12
     mixed = [n for n in radix.RADIX_SIZES[dtype] if not radix.is_pow2(n)]
-    assert len(mixed) == (313 if dtype == torch.complex64 else 150)
+    assert len(mixed) == (320 if dtype == torch.complex64 else 155)
     for n in mixed:
         x = torch.from_numpy(cplx((21, n), n)).to(cuda, dtype)
         tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
@@ -317,7 +385,9 @@ def test_cuda_mixed_radix_lengths_match_plain_version_and_torch_fft(
             got = tfm.fft_fourstep(x, inverse=inverse, twiddle=t,
                                    pack_parts=p)
             torch.cuda.synchronize()
-            assert tfm.fft_fourstep.path_launches["radix"] == 1, n
+            # the wide lines take the long route's wide kernel
+            assert tfm.fft_fourstep.path_launches[
+                radix.kernel_path(n, dtype)] == 1, n
             assert tfm.fft_fourstep.launches == 1, n
             want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=t,
                                           pack_parts=p)
@@ -484,7 +554,12 @@ def test_cuda_wide_lengths_on_their_routes(cuda, dtype, n, route, inverse):
     rule; the longest split ones lay past the chirp's limit), one call's
     launches all on it, with the twiddle and a ``pack_parts`` of N/17,
     N/19 or N/23, against the plain version at the kernel's tolerances
-    and ``torch.fft``."""
+    and ``torch.fft``; the radix route's wide lines (``longline.WIDE``)
+    take the long route's wide kernel on contiguous lines and keep the
+    radix kernel's strided entry."""
+    from repro_torch.kernels import longline
+    if n in longline.WIDE[dtype]:
+        route = "long"
     assert radix.kernel_path(n, dtype) == route
     b = max(1, (1 << 24) // (n * dtype.itemsize))
     x = torch.from_numpy(cplx((b, n), 23)).to(cuda, dtype)
@@ -1589,6 +1664,7 @@ def test_fft_conv_sharded_on_four_cards(cuda, tmp_path):
         "channels_per_card": recs[0]["channels_per_card"]})
     for r in recs:
         assert r["channels_per_card"] == 2048
-        assert r["counts"] == {"launches": 6, "radix": 6, "lines": 6,
+        # lines of 4096: the long route's wide kernel
+        assert r["counts"] == {"launches": 6, "long": 6, "lines": 6,
                                "copies": 0}, r["counts"]
         assert all(e < 1e-4 for e in r["grad_errs"].values()), r

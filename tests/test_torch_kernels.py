@@ -386,7 +386,13 @@ def test_kernel_path_selection(n, dtype, path):
     The split route's rule (``split.rule_factors``) takes the 13-smooth
     lines past one block that a P and a radix or long-line row hold
     (33792 = 33*2^10 = 256 x 132, the chirp's before; 33*2^18 = 1024 x
-    8448, past the chirp's limit, which raised)."""
+    8448, past the chirp's limit, which raised).  The radix route's wide
+    lines (``longline.WIDE``: 4096, 4032, 3600, 2944, complex128 1024,
+    900, 736, 608, 600, 544) take the long route's wide kernel on
+    contiguous lines: ``path`` names the route of their table."""
+    from repro_torch.kernels import longline
+    if path == "radix" and n in longline.WIDE.get(dtype, {}):
+        path = "long"
     assert radix.kernel_path(n, dtype) == path
 
 
@@ -591,7 +597,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     src = build.csrc_dir()
     names = [p.name for p in build.sources("fft_fourstep")]
     assert names == ["fft_fourstep.cu", "fft_common.cuh", "fft_long.cuh",
-                     "fft_radix.cuh", "fft_dense.cuh"]
+                     "fft_radix.cuh", "fft_dense.cuh", "fft_wide.cuh"]
     for name in names:
         (tmp_path / name).write_bytes((src / name).read_bytes())
     monkeypatch.setattr(build, "csrc_dir", lambda: tmp_path)

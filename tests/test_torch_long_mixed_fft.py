@@ -334,6 +334,9 @@ def test_long_rule_factors_every_length_it_takes(dtype, count, first, last):
                         longline.LongPlan(n, a, n // c3 // a, c3,
                                           dtype.itemsize)), (n, c3)
             assert _largest_r1(n // r3) == r1, n
+        elif path != old and (old, path) == ("radix", "long"):
+            # since the wide kernel took the radix route's wide lines
+            assert n in longline.WIDE[dtype], (n, path, old)
         elif path != old and (old, path) == ("dense", "chirp"):
             # since the chirp took the lines whose generic stages cost
             # more than it from the dense route

@@ -124,7 +124,11 @@ def test_mixed_radix_plan_matches_numpy_and_pallas(case, request):
     kernel on the same inputs; the buffer it returns is what the kernel
     writes, ``(p, B, N/p)`` with ``pack_parts``."""
     dtype, n, b, inv, tw, parts = case
-    assert radix.kernel_path(n, dtype) == "radix"
+    # the radix kernel's length (its strided layout and split rows); the
+    # wide lines' contiguous lines take the long route's wide kernel
+    assert n in radix.RADIX_SIZES[dtype]
+    assert radix.kernel_path(n, dtype) == (
+        "long" if n in longline.WIDE[dtype] else "radix")
     x, t = _inputs(case)
     got = radix.emulate(torch.from_numpy(x), inverse=inv,
                         twiddle=None if t is None else torch.from_numpy(t),
@@ -249,6 +253,8 @@ def test_mixed_13_codelets_of_416_and_3328(n, factors, chains):
     for dtype in (torch.complex64, torch.complex128):
         want = "radix" if max(factors) <= (64 if dtype == torch.complex64
                                            else 32) else "long"
+        if n in longline.WIDE[dtype]:        # the wide kernel's line
+            want = "long"
         assert radix.kernel_path(n, dtype) == want
 
 
@@ -288,7 +294,7 @@ def test_mixed_sizes_tables_and_tiles():
             assert radix.is_pow2(p)
             assert radix.is_pow2(q) == radix.is_pow2(n)
             assert (q in split.ROW_SIZES[dtype]) != (
-                radix.kernel_path(q, dtype) == "long")
+                q in longline.FACTORS[dtype])
         for n in split.COLUMN_SIZES[dtype]:
             assert radix.is_pow2(n)
         for n in split.ROW_SIZES[dtype]:
@@ -323,9 +329,12 @@ def test_odd_product_codelets(n, factors, chains):
     assert (plan.n1, plan.n2) == factors == factorize(n)
     assert tuple(radix.radices(f) for f in factors) == chains
     assert radix.table_elems(n) == sum(factors)
-    assert radix.kernel_path(n, torch.complex64) == "radix"
-    assert (radix.kernel_path(n, torch.complex128) == "radix") == (
-        max(factors) <= 32)
+    for dtype in (torch.complex64, torch.complex128):
+        if n in radix.RADIX_SIZES[dtype]:
+            assert radix.kernel_path(n, dtype) == (
+                "long" if n in longline.WIDE[dtype] else "radix")
+    assert n in radix.RADIX_SIZES[torch.complex64]
+    assert (n in radix.RADIX_SIZES[torch.complex128]) == (max(factors) <= 32)
 
 
 def _dispatch_cases():
@@ -416,7 +425,8 @@ def test_odd_parts_past_the_codelets_run_dense_then_chirp(dtype, r):
         n = r << k
         path = radix.kernel_path(n, dtype)
         if n in radix.RADIX_SIZES[dtype]:
-            assert r in radix.RADIX_ODD[dtype] and path == "radix"
+            assert r in radix.RADIX_ODD[dtype] and path == (
+                "long" if n in longline.WIDE[dtype] else "radix")
             on_radix.append(n)
             continue
         if n in radix._SPILLS[dtype]:               # complex64 504: dense
@@ -466,7 +476,8 @@ def test_even_smooth_lengths_take_the_radix_route_when_both_factors_fit(
             continue
         path = radix.kernel_path(n, dtype)
         if max(factorize(n)) <= cap and n not in radix._SPILLS[dtype]:
-            assert path == "radix", (n, path)
+            assert path == ("long" if n in longline.WIDE[dtype]
+                            else "radix"), (n, path)
             want.append(n)
         elif longline.rule_factors(n, dtype) is not None \
                 and n not in radix._SPILLS[dtype]:
@@ -497,7 +508,8 @@ def test_odd_and_rough_lengths_stay_dense(dtype):
                                           longline.FOLD_SIZES[dtype], dtype.itemsize)
                 else "chirp")
         assert radix.kernel_path(n, dtype) == want, n
-    assert radix.kernel_path(544, dtype) == "radix"
+    assert radix.kernel_path(544, dtype) == (
+        "long" if 544 in longline.WIDE[dtype] else "radix")
     assert radix.kernel_path(816, dtype) == "dense"
     assert radix.kernel_path(521, dtype) == "chirp"
     assert radix.kernel_path(1021, dtype) == "chirp"

@@ -349,6 +349,10 @@ def test_serve_fft_driver_on_one_cpu_rank(tmp_path, capsys):
     # the CPU (the kernel's plain version runs)
     assert drv["traffic_batches"] == \
         snap["plan_cache"]["batches_dispatched"] > 0
+    # and the same batches by bucket grid
+    assert sum(drv["traffic_batches_by_grid"].values()) == \
+        drv["traffic_batches"]
+    assert all(len(g.split("x")) == 2 for g in drv["traffic_batches_by_grid"])
     assert set(drv["traffic_launches"].values()) == {0}
     assert drv["drain_rps"] > drv["loop_rps"] > drv["rps"] > 0
     # the kernel-pinned seed is stored under a key of its own

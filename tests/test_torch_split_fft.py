@@ -190,7 +190,7 @@ def test_split_plan_sizes_fit_the_tiles(dtype, n):
     assert rtile.smem_bytes <= radix.SMEM_MAX_BYTES
     if plan.row_path == "radix":
         assert plan.q in split.ROW_SIZES[dtype]
-        assert radix.kernel_path(plan.q, dtype) == "radix"
+        assert plan.q in radix.RADIX_SIZES[dtype]   # radix_kernel's row
         assert plan.p % rtile.lines == 0
     else:
         assert radix.kernel_path(plan.q, dtype) == "long"

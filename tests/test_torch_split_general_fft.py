@@ -201,8 +201,9 @@ def test_the_routes_keep_their_lengths(dtype):
     8388617 and complex128 2097169, which raised, take the chirp (M on a
     split plan), and only N past the kernels' 32-bit line index raise
     (``launch_config`` says so)."""
-    for n in radix.RADIX_SIZES[dtype]:
-        assert radix.kernel_path(n, dtype) == "radix"
+    for n in radix.RADIX_SIZES[dtype]:      # the wide lines: the long route
+        assert radix.kernel_path(n, dtype) == (
+            "long" if n in longline.WIDE[dtype] else "radix")
     for n in longline.FACTORS[dtype]:
         assert radix.kernel_path(n, dtype) == "long"
     for n, (p, q) in split.FACTORS[dtype].items():

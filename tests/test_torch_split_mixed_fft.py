@@ -197,7 +197,7 @@ def test_split_mixed_plan_sizes_fit_the_tiles(dtype, n):
         # a codelet length; complex64 208 runs only as pass B (clean in
         # ptxas, where its plain kernel spills)
         assert plan.q in split.ROW_SIZES[dtype]
-        assert radix.kernel_path(plan.q, dtype) == "radix" or (
+        assert plan.q in radix.RADIX_SIZES[dtype] or (
             dtype, plan.q) == (torch.complex64, 208)
         assert plan.p % rtile.lines == 0
     else:

@@ -1239,8 +1239,10 @@ def fft_conv_cards_body(rank: int, out_dir: str, b: int, s: int) -> None:
     ops.copies["lines"] = 0
     y, got = fwd_bwd(local, rules, "kernel")
     torch.cuda.synchronize(dev)
+    from repro_torch.kernels.radix import kernel_path
+    path = kernel_path(2 * s, torch.complex64)   # lines of 2S
     counts = {"launches": fft_fourstep.launches,
-              "radix": fft_fourstep.path_launches["radix"],
+              path: fft_fourstep.path_launches[path],
               "lines": fft_fourstep.layout_launches["lines"],
               "copies": ops.copies["lines"]}
     specs = dict(local.named_parameters())
