@@ -366,8 +366,10 @@ def ptxas_report(log: str) -> list:
     frame bytes, from ``nvcc -Xptxas -v``; radix instantiations named by
     dtype, (N1, N2) and mode (the split route's passes: "split A", "split
     B"), long-line ones by dtype, R1xR2xR3 and ring depth (a mixed
-    length's: "mixed"), the split route's pass C ("split transpose", and
-    "mixed" for a mixed Q) by dtype, the dense route's by dtype."""
+    length's: "mixed"), the split route's pass C ("split transpose any",
+    "split transpose keep") by dtype, its pass B with pass C folded in
+    ("fold dense" by dtype and "keep", "fold long" by
+    dtype and R1xR2xR3), the dense route's by dtype."""
     import re
     modes = {"0": "", "1": " split A", "2": " split B"}
     entries, cur = [], None
@@ -383,6 +385,10 @@ def ptxas_report(log: str) -> list:
                            r"Li(\d+)E", name)
             tr = re.search(r"split_transpose(_mixed|_any|_keep)?_kernelI"
                            r"([fd])E", name)
+            fd = re.search(r"split_fold_dense_kernelILb([01])E([fd])E",
+                           name)
+            fl = re.search(r"split_fold_(long|mixed)_kernelI([fd])"
+                           r"Li(\d+)ELi(\d+)ELi(\d+)E", name)
             ds = re.search(r"dense_column(_chirp)?_kernelI([fd])E", name)
             dc = re.search(r"dense_chirp_kernelI([fd])E", name)
             lc = re.search(r"long_chirp_kernelI([fd])Li(\d+)ELi(\d+)E"
@@ -392,6 +398,15 @@ def ptxas_report(log: str) -> list:
                 dt = "complex64" if r.group(1) == "f" else "complex128"
                 name = (f"radix {dt} N1={r.group(2)} N2={r.group(3)}"
                         f"{modes[r.group(4)]}")
+            elif fd:
+                dt = "complex64" if fd.group(2) == "f" else "complex128"
+                name = (f"fold dense {dt}"
+                        + (" keep" if fd.group(1) == "1" else ""))
+            elif fl:
+                dt = "complex64" if fl.group(2) == "f" else "complex128"
+                name = (f"fold long {dt} {fl.group(3)}x{fl.group(4)}x"
+                        f"{fl.group(5)}"
+                        + (" mixed" if fl.group(1) == "mixed" else ""))
             elif wd:
                 dt = "complex64" if wd.group(1) == "f" else "complex128"
                 r1, r2, r3, lt, blocks = re.findall(r"Li(\d+)E",
@@ -461,6 +476,7 @@ def phase_build(timer=time.perf_counter) -> dict:
     dense_entries = [e for e in report if e["kernel"].startswith("dense")]
     chirp_entries = [e for e in report if e["kernel"].startswith("chirp")]
     wide_entries = [e for e in report if e["kernel"].startswith("wide")]
+    fold_entries = [e for e in report if e["kernel"].startswith("fold")]
     if lib.log:   # an earlier build reused from disk prints no report
         from repro_torch.kernels import longline, radix, split
         plain = sum(len(sizes) for sizes in radix.RADIX_SIZES.values())
@@ -474,10 +490,16 @@ def phase_build(timer=time.perf_counter) -> dict:
         check(len(long_entries) == want, f"{len(long_entries)} long-line "
               f"instantiations in the ptxas report, expected {want} (5 "
               f"powers of two, the rest mixed lengths)")
-        check(len(split_entries) == 8, f"{len(split_entries)} split "
-              f"transpose instantiations in the ptxas report, expected 8 "
-              f"(a power-of-two, a mixed and any Q per dtype, and the "
-              f"chirp's pass C that keeps the first N)")
+        check(len(split_entries) == 4, f"{len(split_entries)} split "
+              f"transpose instantiations in the ptxas report, expected 4 "
+              f"(per dtype: pass C of any P and Q, and the chirp's that "
+              f"keeps the first N)")
+        want = 4 + sum(len(qs) for qs in split.FOLD_LONG_ROWS.values())
+        check(len(fold_entries) == want, f"{len(fold_entries)} "
+              f"instantiations of pass B with pass C folded in, expected "
+              f"{want} (per dtype the dense rows' with and without the "
+              f"chirp's keep, and one per long row of "
+              f"split.FOLD_LONG_ROWS)")
         want = 2 * sum(len(sizes) for sizes in longline.FOLD_SIZES.values())
         check(len(chirp_entries) == want, f"{len(chirp_entries)} long-line "
               f"instantiations of the chirp's folded load and store, "
@@ -492,7 +514,7 @@ def phase_build(timer=time.perf_counter) -> dict:
               f"route's columns, and each with the chirp's folded load "
               f"and store)")
     for e in (radix_entries + long_entries + split_entries + dense_entries
-              + chirp_entries + wide_entries):
+              + chirp_entries + wide_entries + fold_entries):
         check(e.get("spill_stores", 0) == 0 and e.get("stack", 0) == 0,
               f"{e['kernel']} spills or keeps a stack frame: {e}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -501,7 +523,7 @@ def phase_build(timer=time.perf_counter) -> dict:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     return {"build_s": seconds, "nvcc_s": lib.seconds, "card": card,
-            "ptxas": report}
+            "ptxas": report, "fold_functions": len(fold_entries)}
 
 
 #: (b, N, inverse, pack_parts, twiddle, dtype name, M's route) of the
@@ -1448,6 +1470,8 @@ def path_counts() -> dict:
             "strided": fft_fourstep.layout_launches["strided"],
             **{p: fft_fourstep.path_launches[p] for p in KERNEL_PATHS},
             "split_calls": fft_fourstep.split_calls,
+            "fold_dense": fft_fourstep.fold_launches["dense"],
+            "fold_long": fft_fourstep.fold_launches["long"],
             "chirp_calls": fft_fourstep.chirp_calls,
             "copies": ops.copies["lines"]}
 
@@ -1456,13 +1480,13 @@ def expected_counts(n: int, calls: int, dtype=None) -> dict:
     """``path_counts()`` after ``calls`` transforms of contiguous lines of
     length ``n``: one launch each on the path ``radix.kernel_path``
     names, or on the split route one split call of two launches on
-    "split" (pass A strided, pass B on lines) and a third on lines (pass
-    C, the transpose) where the rows run on the long-line route or the
-    dense kernel, or, on a nested plan, pass A, the rows' own launches
-    and pass C; or on the chirp route one chirp call of two transforms
-    of M (one launch each on the dense or the long-line route, a nested
-    plan's launches on a split plan of M), all counted on "chirp"; nothing on
-    any other path, no line copy."""
+    "split" (pass A strided, pass B on lines: on radix rows, or on the
+    long-line or dense route's stages with pass C folded in, counted on
+    "fold_long" or "fold_dense" too), or, on a nested plan whose rows
+    take another route, pass A, the rows' own launches and pass C; or on
+    the chirp route one chirp call of two transforms of M (one launch
+    each on the dense or the long-line route, a split plan's launches),
+    all counted on "chirp"; nothing on any other path, no line copy."""
     import torch
     from repro_torch.kernels import chirp, radix, split
     dtype = dtype or torch.complex64
@@ -1472,35 +1496,44 @@ def expected_counts(n: int, calls: int, dtype=None) -> dict:
     if path == "chirp":
         cplan = chirp.chirp_plan(n, dtype)
         if cplan.route in ("dense", "long"):
-            launches, lines, strided = 2, 2, 0
+            launches, lines, strided, folds = 2, 2, 0, {}
         else:
-            launches, lines, strided = (2 * k for k in _any_plan_counts(
-                cplan.split, dtype))
+            launches, lines, strided, folds = _any_plan_counts(cplan.split,
+                                                               dtype)
+            launches, lines, strided = 2 * launches, 2 * lines, 2 * strided
+            folds = {k: 2 * v for k, v in folds.items()}
         want.update(launches=launches * calls, lines=lines * calls,
                     strided=strided * calls, chirp=launches * calls,
                     chirp_calls=calls)
     elif path == "split":
-        plan = split.split_plan(n, dtype)
-        if plan.row_path == "any":
-            launches, lines, strided = _any_plan_counts(plan, dtype)
-        else:
-            long_rows = plan.row_path in ("long", "dense")
-            launches, lines, strided = 2 + long_rows, 1 + long_rows, 1
+        launches, lines, strided, folds = _any_plan_counts(
+            split.split_plan(n, dtype), dtype)
         want.update(launches=launches * calls, lines=lines * calls,
                     strided=strided * calls, split=launches * calls,
                     split_calls=calls)
     else:
         want.update(launches=calls, lines=calls, strided=0)
         want[path] = calls
+        folds = {}
+    want.update(fold_dense=folds.get("dense", 0) * calls,
+                fold_long=folds.get("long", 0) * calls)
     return want
 
 
 def _any_plan_counts(plan, dtype) -> tuple:
-    """(launches, on lines, strided) of one call of a split plan whose rows
-    run on their own route: pass A (strided), the rows' launches, pass C
-    (lines)."""
+    """(launches, on lines, strided, {folded kernel: launches}) of one
+    call of a split plan: pass A (strided) and pass B (lines; on the
+    long-line or dense route's stages with pass C folded in), or where a
+    plan's rows keep pass C (a nested plan's rows on another route, dense
+    rows too long for the folded kernel), pass A, the rows' launches and
+    pass C (lines)."""
+    from repro_torch.kernels import split
+    layout = split.fold_layout(plan, dtype)
+    if plan.row_path == "radix" or layout is not None:
+        return 2, 1, 1, ({layout.rows: 1} if layout is not None else {})
     rows = expected_counts(plan.q, 1, dtype)
-    return (rows["launches"] + 2, rows["lines"] + 1, rows["strided"] + 1)
+    return (rows["launches"] + 2, rows["lines"] + 1, rows["strided"] + 1,
+            {k: rows["fold_" + k] for k in ("dense", "long")})
 
 
 def counts_match(counts: dict, want: dict) -> bool:
@@ -2019,6 +2052,7 @@ def phase_serve(device, requests: int = 48, round_size: int = 16,
             want = {"launches": ndim * nb, "fourstep": ndim * nb,
                     "pack": 0, "twiddle": 0, "radix": ndim * nb - wide,
                     "dense": 0, "long": wide, "split": 0, "split_calls": 0,
+                    "fold_dense": 0, "fold_long": 0,
                     "chirp": 0, "chirp_calls": 0, "aligned_copies": 0,
                     "lines": nb, "strided": (ndim - 1) * nb,
                     "copies": 0}
@@ -2490,6 +2524,100 @@ def line_entry(x, phase: str, route: str, iters: int = 10,
     return rec
 
 
+#: (dtype name, N) whose folded pass B ``fold_entry`` times alone: the
+#: dense rows with a ragged P on each dtype (complex64 3^15 = 2187 x 6561,
+#: C = 8; complex128 2278125 = 1875 x 1215, 2 rows a block, C = 1), c64
+#: 10^7 = 1600 x 6250
+#: (the kernels line's dense record), the long rows c64 2^24 (its long
+#: record) and c128 2^22.
+FOLD_TIMED = {("complex64", 3 ** 15), ("complex128", 2278125),
+              ("complex64", 10 ** 7), ("complex64", 1 << 24),
+              ("complex128", 1 << 22)}
+
+
+def fold_entry(x, phase: str, iters: int = 10) -> dict:
+    """The split route's pass B with pass C folded in (``split.fold_layout``:
+    ``split_fold_dense_kernel`` or ``split_fold_long_kernel`` /
+    ``split_fold_mixed_kernel``) alone on ``x``'s lines taken as pass A's
+    output, through its wrapper (``fft_matmul._launch_fold``, which counts
+    nothing) against its plain version on the same inputs (the rows'
+    stages and ``split.fold_emulate``, ``TOL``); the cluster's groups
+    against the SMs (a batch past one wave of clusters), whether P is
+    ragged on them; CUDA-event ms of the kernel and of its plain version
+    beside the bound (one read and one write of the lines)."""
+    import torch
+    from repro_torch.kernels import build, dense, longline, split
+    from repro_torch.kernels import fft_matmul as tfm
+    b, n = x.shape
+    dt = str(x.dtype).removeprefix("torch.")
+    plan = split.split_plan(n, x.dtype)
+    layout = split.fold_layout(plan, x.dtype)
+    check(layout is not None, f"[{phase}] ({b}, {n}) {dt}: no folded pass "
+          f"B for {plan}")
+    p, q = plan.p, plan.q
+    y = torch.empty(b * n + 2, dtype=x.dtype, device=x.device)[:b * n]
+    y = y.view(b, p, q)
+    y.copy_(x.view(b, p, q))
+    out = torch.empty((1, b, n), dtype=x.dtype, device=x.device)
+    lib = build.load()
+    tfm._declare(lib)
+    current = torch.cuda.current_stream(x.device)
+
+    def run():
+        err = tfm._launch_fold(lib, y, out, None, plan, layout,
+                               inverse=False, seg=n, keep=None,
+                               stream=current.cuda_stream, current=current)
+        check(err == 0, f"[{phase}] ({b}, {n}) {dt}: the folded pass B "
+              f"failed to launch: CUDA error {err}")
+
+    def plain():
+        rows = y.reshape(b * p, q)
+        if layout.rows == "dense":
+            staged, pos = dense.staged(rows, False)
+        else:
+            pos = split.fold_positions(q, x.dtype)
+            staged = torch.zeros((b * p, int(pos.max()) + 1),
+                                 dtype=x.dtype, device=x.device)
+            staged[:, pos.to(x.device)] = longline.emulate(rows,
+                                                           scaled=False)
+        return split.fold_emulate(staged.reshape(b, p, -1), pos, plan,
+                                  layout)
+    run()
+    torch.cuda.synchronize(x.device)
+    want = plain()
+    groups = b * -(-p // layout.group)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rec = {"rows": layout.rows, "cluster": layout.cluster,
+           "lines": layout.lines, "depth": layout.depth,
+           "groups": groups, "sms": sms,
+           "ragged": p % layout.group != 0,
+           "max_abs_err": float((out[0] - want).abs().max()),
+           "scaled_err": scaled_err(out[0], want)}
+    del want
+    check(rec["scaled_err"] <= TOL[dt], f"[{phase}] ({b}, {n}) {dt}: the "
+          f"folded pass B vs its plain version {rec['scaled_err']:.3e} "
+          f"(bound {TOL[dt]})")
+    rec["bound_ms"], rec["bound_by"] = fft_bound_ms(b, n, x.element_size())
+    rec["ms"] = time_ms(run, iters)
+    rec["plain_ms"] = time_ms(plain, 2, 1)
+    rec["library_ms"] = None
+    del y, out
+    return rec
+
+
+def print_folds(phase: str, recs) -> None:
+    for r in recs:
+        f = r.get("fold")
+        if f is None:
+            continue
+        print(f"[{phase}] fold {f['rows']} {tuple(r['shape'])} "
+              f"{r['dtype']}: pass B alone {f['ms']:.4f} ms (plain "
+              f"{f['plain_ms']:.4f}, bound {f['bound_ms']:.4f}); cluster "
+              f"{f['cluster']} x {f['lines']} rows, ring {f['depth']}, "
+              f"{f['groups']} groups on {f['sms']} SMs, ragged "
+              f"{f['ragged']}; vs plain {f['scaled_err']:.3e}")
+
+
 def print_lines(phase: str, recs) -> None:
     for r in recs:
         print(f"[{phase}] {r['path']} {tuple(r['shape'])} {r['dtype']}: "
@@ -2668,6 +2796,9 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
                          "split_mixed", "split", iters)
         plan = split.split_plan(n, dtype)
         rec.update(factors=[plan.p, plan.q], row_path=plan.row_path)
+        if device.type == "cuda":
+            check(rec["counts"]["split"] == 2, f"[split_mixed] {dt} {n}: "
+                  f"{rec['counts']}, expected 2 launches")
         out["lengths"].append(rec)
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -2685,10 +2816,13 @@ def phase_split_mixed(device, lengths=SPLIT_MIXED_LENGTHS,
 #: a column tile of 8), all on the chirp before; 10^7 = 2^7*5^7 and 3^15
 #: past the chirp's limit, which raised; complex128 14406 = 2*3*7^4,
 #: 2278125 = 3^6*5^5 (raised) and 4084223 = 11*13^5 (raised; P = 1859, a
-#: column tile of 4); past the split route's old limit, the nested plans
+#: column tile of 4; since the folded rows P = 1875 x 1215 and 2197 x 1859,
+#: two rows a block), 1397760 = 256 x 5460 (a radix pass A, dense rows on
+#: clusters of 2); past the split route's old limit, the nested plans
 #: (``split.nested_factors``, which raised before): complex64 3^16 = 2187 x
-#: 19683 (dense rows), 2^25 = 512 x 65536 (a radix pass A, rows on the
-#: split route), complex128 2^23 = 256 x 32768.
+#: 19683 (dense rows too long for the folded kernel: pass C kept), 2^25 =
+#: 512 x 65536 (a radix pass A, rows on the split route), complex128 2^23
+#: = 256 x 32768.
 SPLIT_GENERAL_LENGTHS = (
     ("complex64", 29106, 256), ("complex64", 30976, 256),
     ("complex64", 33075, 256), ("complex64", 44100, 256),
@@ -2696,7 +2830,7 @@ SPLIT_GENERAL_LENGTHS = (
     ("complex64", 13 ** 6, 256), ("complex64", 10 ** 7, 512),
     ("complex64", 3 ** 15, 512), ("complex128", 14406, 256),
     ("complex128", 2278125, 512), ("complex128", 4084223, 512),
-    ("complex64", 3 ** 16, 512), ("complex64", 1 << 25, 512),
+    ("complex128", 1397760, 256), ("complex64", 3 ** 16, 512), ("complex64", 1 << 25, 512),
     ("complex128", 1 << 23, 512))
 
 
@@ -2704,13 +2838,15 @@ def phase_split_general(device, lengths=SPLIT_GENERAL_LENGTHS,
                         grad_shape=(4, 29106), iters: int = 10) -> dict:
     """``[split_general]``: the split route's general plans (pass A on the
     radix route or the dense kernel's column form, pass B on the dense
-    route's launch, pass C for any P and Q) and, past its old limit, its
-    nested plans (the rows' own launch on their route: c64 3^16 = 2187 x
-    19683, 2^25 = 512 x 65536, c128 2^23 = 256 x 32768) at each of
-    ``lengths``, each reached once through ``ops.fft1d`` on the split
-    route with the counts set to 0 just before and read just after
-    (``line_entry``: one split call of 3 launches, more where the rows
-    run on the split route), against its plain version (``TOL``) and within
+    route's stages with pass C folded in, ``split_fold_dense_kernel``) and,
+    past its old limit, its nested plans (the rows' own launch on their
+    route and pass C: c64 3^16 = 2187 x 19683, 2^25 = 512 x 65536, c128
+    2^23 = 256 x 32768) at each of ``lengths``, each reached once through
+    ``ops.fft1d`` on the split route with the counts set to 0 just before
+    and read just after (``line_entry``: one split call of 2 launches, the
+    second on the folded rows, where ``split.fold_layout`` folds; else 3,
+    more where the rows run on the split route), against its plain
+    version (``TOL``) and within
     ``PATH_TOL`` of ``torch.fft``; the inverse with the twiddle and a
     ``pack_parts`` segment of any length against the plain version;
     CUDA-event ms beside ``torch.fft.fft`` and the bound; then one
@@ -2729,6 +2865,13 @@ def phase_split_general(device, lengths=SPLIT_GENERAL_LENGTHS,
         rec = line_entry(x, "split_general", "split", iters, plain_iters=1,
                          tol=PATH_TOL)
         plan = split.split_plan(n, dtype)
+        if cuda and split.fold_layout(plan, dtype) is not None:
+            c = rec["counts"]
+            check(c["split"] == 2 and c["fold_dense"] == 1,
+                  f"[split_general] ({b}, {n}) {dt}: {c}, expected 2 "
+                  f"launches, the second the folded dense rows")
+            if (dt, n) in FOLD_TIMED:
+                rec["fold"] = fold_entry(x, "split_general", iters)
         rec.update(factors=[plan.p, plan.q], col_path=plan.col_path,
                    row_path=(plan.row_path if plan.row_path != "any" else
                              "any: " + split.row_route(plan.q, dtype)))
@@ -2760,7 +2903,15 @@ def phase_split_general(device, lengths=SPLIT_GENERAL_LENGTHS,
     check(out["grad_err"] <= PATH_TOL, f"[split_general] gradient at "
           f"{grad_shape} vs torch.fft {out['grad_err']:.3e}")
     if cuda:
+        folds = [r for r in out["lengths"] if "fold" in r]
+        for dt in {r["dtype"] for r in folds}:
+            mine = [r["fold"] for r in folds if r["dtype"] == dt]
+            check(any(f["ragged"] for f in mine)
+                  and any(f["groups"] > f["sms"] for f in mine),
+                  f"[split_general] {dt}: no folded pass B with a ragged P "
+                  f"or a batch past one wave of clusters: {mine}")
         print_lines("split_general", out["lengths"])
+        print_folds("split_general", out["lengths"])
         for r in out["lengths"]:
             print(f"[split_general] {r['dtype']} {r['shape'][1]} as "
                   f"{r['factors'][0]} x {r['factors'][1]} (pass A "
@@ -2963,12 +3114,18 @@ def phase_mixed_plan(device, grid=(384, 384, 384), iters: int = 5,
 #: and the prime 4831 (which left the dense route's generic stage), M =
 #: 16384 or, complex128, 8192 on the long-line route; the primes c64
 #: 10007 (M = 20449) and c128 4099 (8281) on the dense route's kernel;
-#: the prime 20011, M = 40040 on a split plan.  The first is the
-#: ``fft_fourstep_chirp`` entry's timing.
+#: the prime 20011, M = 40040 on a split plan (rows of 104 on the radix
+#: route, pass C kept); the primes c64 744833 (M = 1490580 = 390 x 3822)
+#: and c128 210209 (M = 420420 = 196 x 2145) on a split plan whose dense
+#: rows fold pass C in (clusters of 8 and 2, the second transform's
+#: store keeping the first N).  The first is the ``fft_fourstep_chirp``
+#: entry's timing.
 CHIRP_LENGTHS = (("complex64", 7424, "long"), ("complex64", 10007, "dense"),
                  ("complex64", 20011, "split"), ("complex128", 3001, "long"),
                  ("complex128", 3712, "long"), ("complex64", 4831, "long"),
-                 ("complex128", 4099, "dense"))
+                 ("complex128", 4099, "dense"),
+                 ("complex64", 744833, "split"),
+                 ("complex128", 210209, "split"))
 #: (dtype name, N, M's route) of ``[chirp]`` at 512 MB of lines: lengths
 #: that raised past the chirp's old limit (half the split route's longest
 #: power of two), M on a split plan: the prime 8388617, 2^24 + 1 =
@@ -3014,7 +3171,7 @@ def phase_chirp(device, lengths=CHIRP_LENGTHS, past=CHIRP_PAST,
     ``lengths`` or ``past`` names) and, on a split plan, (P, Q) and the
     rows' route."""
     import torch
-    from repro_torch.kernels import chirp, radix
+    from repro_torch.kernels import chirp, radix, split
     from repro_torch.kernels.fft_matmul import fft_fourstep
     cuda = device.type == "cuda"
     out = {"lengths": []}
@@ -3033,6 +3190,11 @@ def phase_chirp(device, lengths=CHIRP_LENGTHS, past=CHIRP_PAST,
         if plan.split is not None:
             rec.update(factors=[plan.split.p, plan.split.q],
                        rows_route=radix.kernel_path(plan.split.q, dtype))
+            if cuda and split.fold_layout(plan.split, dtype) is not None:
+                check(rec["counts"]["chirp"] == 4
+                      and rec["counts"]["fold_dense"] == 2,
+                      f"[chirp] ({b}, {n}) {dt}: {rec['counts']}, expected "
+                      f"4 launches, two on the folded dense rows")
         k = torch.arange(n, dtype=torch.float64, device=device)
         tw = torch.exp(-1j * math.pi * k / (2 * n)).to(dtype)
         parts = next((f for f in (2, 3, 5, 7, 11, 13) if n % f == 0), 1)
@@ -3178,6 +3340,11 @@ def phase_split(device, lengths=SPLIT_LENGTHS,
         rec["bound_ms"], rec["bound_by"] = fft_bound_ms(b, n,
                                                         dtype.itemsize)
         if cuda:
+            check(rec["forward"]["counts"]["split"] == 2,
+                  f"[split] ({b}, {n}) {dt}: {rec['forward']['counts']}, "
+                  f"expected 2 launches")
+            if (dt, n) in FOLD_TIMED:
+                rec["fold"] = fold_entry(x, "split", iters)
             rec["ms"] = time_ms(lambda: fft_fourstep(x), iters)
             rec["library_ms"] = time_ms(lambda: torch.fft.fft(x), iters)
             rec["plain_ms"] = time_ms(lambda: fft_fourstep_plain(x), 3, 1)
@@ -3201,6 +3368,8 @@ def phase_split(device, lengths=SPLIT_LENGTHS,
                   f"{r['inverse']['library_err']:.3e}, twiddle "
                   f"{r['twiddle']['library_err']:.3e}, pack "
                   f"{r['pack']['library_err']:.3e}")
+        print_folds("split", [dict(r, dtype=r["dtype"]) for r in
+                              out["lengths"]])
     return out
 
 
@@ -3907,6 +4076,16 @@ def main(timer=time.perf_counter) -> int:
                 "lm": lm["counts"][layout]}
     wide_2944 = next(r for r in mixed["lengths"]
                      if r["shape"][1] == 2944 and r["dtype"] == "complex64")
+    fold_dense_rec = next(r for r in split_general["lengths"]
+                          if r["shape"][1] == 10 ** 7)
+    fold_long_rec = next(r for r in split_["lengths"]
+                         if r["shape"][1] == 1 << 24)
+
+    def _fold_timing(rec):
+        # the folded pass B alone (fold_entry), not the split call
+        return {k: rec["fold"][k] for k in (
+            "max_abs_err", "scaled_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
     kernels = [
         {"name": "fft_fourstep", "route": "cuda", "source": RADIX_SOURCE,
          "path": "radix",
@@ -4023,6 +4202,7 @@ def main(timer=time.perf_counter) -> int:
          "path": "chirp",
          "functions": ["dense_chirp_kernel", "long_chirp_kernel",
                        "dense_column_chirp_kernel",
+                       "split_fold_dense_kernel",
                        "split_transpose_keep_kernel"],
          "sources": [DENSE_SOURCE, LONG_SOURCE, KERNEL_SOURCE,
                      CHIRP_SOURCE, SPLIT_SOURCE],
@@ -4078,11 +4258,12 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              "lm_fftconv_12288": mixer_runs[12288]["float32"]["counts"]}},
         # launches: [split_general]'s calls, one ops.fft1d call per length
-        # (3 launches each: pass A, the dense route's rows, pass C); timed
-        # at its 256 MB of lines of 29106 = 378 x 77
+        # (2 launches each: pass A, the dense rows with pass C folded in;
+        # a nested plan's rows on the split route, pass C); timed at its
+        # 256 MB of lines of 29106 = 378 x 77
         {"name": "fft_fourstep_split_general", "route": "cuda",
          "source": DENSE_SOURCE, "path": "split",
-         "functions": ["dense_column_kernel", "dense_kernel",
+         "functions": ["dense_column_kernel", "split_fold_dense_kernel",
                        "split_transpose_any_kernel"],
          "sources": [DENSE_SOURCE, LONG_SOURCE, KERNEL_SOURCE,
                      SPLIT_SOURCE],
@@ -4093,6 +4274,50 @@ def main(timer=time.perf_counter) -> int:
          "launches_by_path": {
              f"split_general_{r['dtype']}_{r['shape'][1]}": r["launches"]
              for r in split_general["lengths"]}},
+        # launches: the split route's pass B on dense rows with pass C
+        # folded in, on [split_general]'s and [chirp]'s calls (one
+        # ops.fft1d call per length); timed alone at [split_general]'s 512
+        # MB of lines of 10^7 = 1600 x 6250 complex64
+        {"name": "split_fold_dense", "route": "cuda",
+         "source": DENSE_SOURCE, "path": "split",
+         "functions": ["split_fold_dense_kernel"],
+         "sources": [DENSE_SOURCE, LONG_SOURCE, KERNEL_SOURCE,
+                     SPLIT_SOURCE],
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": sum(r["counts"]["fold_dense"]
+                         for phase in (split_general, chirp_)
+                         for r in phase["lengths"]),
+         "timed": {"dtype": fold_dense_rec["dtype"],
+                   "shape": fold_dense_rec["shape"]},
+         **_fold_timing(fold_dense_rec),
+         "launches_by_path": {
+             f"{phase}_{r['dtype']}_{r['shape'][1]}": r["counts"][
+                 "fold_dense"]
+             for phase, runs in (("split_general", split_general),
+                                 ("chirp", chirp_))
+             for r in runs["lengths"] if r["counts"]["fold_dense"]}},
+        # launches: the split route's pass B on long-line rows with pass C
+        # folded in, on [split]'s and [split_mixed]'s calls; timed alone at
+        # [split]'s 512 MB of lines of 2^24 = 1024 x 16384 complex64
+        {"name": "split_fold_long", "route": "cuda", "source": LONG_SOURCE,
+         "path": "split",
+         "functions": ["split_fold_long_kernel", "split_fold_mixed_kernel"],
+         "sources": [LONG_SOURCE, KERNEL_SOURCE, SPLIT_SOURCE],
+         "replaces": "src/repro/kernels/fft_matmul.py:216",
+         "launches": sum(r[k]["counts"]["fold_long"]
+                         for r in split_["lengths"]
+                         for k in ("forward", "inverse"))
+                     + sum(r["counts"]["fold_long"]
+                           for r in split_mixed["lengths"]),
+         "timed": {"dtype": fold_long_rec["dtype"],
+                   "shape": fold_long_rec["shape"]},
+         **_fold_timing(fold_long_rec),
+         "launches_by_path": {
+             **{f"split_{r['dtype']}_{r['shape'][1]}": r["forward"][
+                 "counts"]["fold_long"] for r in split_["lengths"]},
+             **{f"split_mixed_{r['dtype']}_{r['shape'][1]}": r["counts"][
+                 "fold_long"] for r in split_mixed["lengths"]
+                if r["counts"]["fold_long"]}}},
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: launched no time on its "

@@ -22,6 +22,9 @@ lengths take which route, for the tree whose root is given.
     python3 scripts/route_times.py widesplits ROOT TAG OUT.json
     python3 scripts/route_times.py widepicks ROOT TAG OUT.json
     python3 scripts/route_times.py widecheck ROOT TAG OUT.json
+    python3 scripts/route_times.py splitpasses ROOT TAG OUT.json
+    python3 scripts/route_times.py splitfold ROOT TAG OUT.json
+    python3 scripts/route_times.py generalrules ROOT TAG OUT.json
 
 ``times`` runs the port of the tree at ROOT (its ``src`` first on the
 path; the kernel is built there at first use): ``fft_fourstep`` on
@@ -103,6 +106,34 @@ with every split in both orders (:func:`_split_plans`), and
 runs ``times`` at :data:`WIDE_CHECK` (held out) and :data:`WIDE_KEPT`
 (routes that stay), then the strided entry and the 384^3 and 600^3
 plans; run it parent, change, change, parent.
+
+``splitpasses`` times the split route's passes apart at
+:data:`SPLIT_PASSES` (the general, nested and long-row plans, 256 or 512
+MB of lines), each on the route and plan of the tree at ROOT: the whole
+call with CUDA events beside ``torch.fft.fft`` and the bound, then 10
+calls under ``torch.profiler``, each kernel's device time a call summed by
+pass: pass A (the radix kernel's ``kRadixSplitA``, ``dense_column_kernel``),
+the row pass (the dense, long-line or radix rows, or the folded
+``split_fold_*`` kernels), pass C (``split_transpose_*``), with the
+launches of one call.  Run it parent, change, change, parent.
+
+``splitfold`` forces the folded pass B's layout (``split.FoldLayout``:
+the cluster's blocks C; on dense rows where C = 1 the ring's depth) at
+:data:`SPLIT_PASSES`' lengths whose rows take it, each split call against
+``torch.fft``, beside the tree's own layout; the sweep that fixed
+``split.FOLD_RUN_BYTES`` and ``FOLD_DEPTH``.
+
+``generalrules`` times, at 256 MB of lines, the general plans of
+:data:`SPLIT_GENERAL_SWEEP` and :data:`SPLIT_GENERAL_CHECK` each on the
+route and plan of the tree at ROOT, then :data:`RULES_SHAPES` (512 MB:
+routes whose code a change to the split route's rows may move: the wide
+lines whose kernels share ``mixed_tiles``, a nested plan and chirps over
+split plans of M) likewise; where the tree folds pass C into dense rows
+(``split.fold_layout``), also the general rule's pick under each
+(``GENERAL_P``, ``GENERAL_Q_MAX``) of :data:`GENERAL_RULES`, each distinct
+plan forced, beside ``torch.fft.fft`` and the bound.  Run it parent,
+change, change, parent; pick the constants on the sweep's lengths and
+read them on the check's.
 
 ``sass`` compares ``cuobjdump -sass`` of two builds function by
 function: only instruction and encoding lines (a module's header would
@@ -262,6 +293,25 @@ SPLIT_GENERAL_CHECK = tuple(("complex64", n) for n in (
     31590, 56000, 109350, 331695, 449064, 819819, 1597200, 3071250,
     4920750, 15360000, 681472)) + tuple(("complex128", n) for n in (
         21125, 41184, 136125, 431244, 650650, 2283008, 194688))
+#: (dtype name, N, MB of lines) of ``splitpasses``: the split route's
+#: plans that ran three HBM passes before their pass C was folded into
+#: pass B, at ``[split_general]``'s and ``[split]``'s sizes: the general
+#: plans (complex64 10^7 = 1600 x 6250, 3^15 = 2187 x 6561, 10^6, 30976 =
+#: 256 x 121, 13^6; complex128 2278125 = 625 x 3645), the long-line rows
+#: (complex128 2^22 = 512 x 8192, complex64 2^24 = 1024 x 16384, the mixed
+#: complex128 25*2^17 = 512 x 6400, 27*2^17, 23*2^17; complex64 21*2^19 =
+#: 1024 x 10752, and at 256 MB the rule's 3833856 = 512 x 7488 and 6029312
+#: = 512 x 11776, the mixed rows of R3 = 16 and 32), the nested plans
+#: (complex64 3^16 = 2187 x 19683 on dense rows, complex128 2^23 on rows
+#: of the split route).
+SPLIT_PASSES = (("complex64", 10 ** 7, 512), ("complex64", 3 ** 15, 512),
+                ("complex64", 10 ** 6, 256), ("complex64", 30976, 256),
+                ("complex64", 13 ** 6, 256), ("complex128", 2278125, 512),
+                ("complex128", 1 << 22, 512), ("complex64", 1 << 24, 512),
+                ("complex128", 25 << 17, 512), ("complex128", 27 << 17, 512),
+                ("complex128", 23 << 17, 512), ("complex64", 21 << 19, 512),
+                ("complex64", 3833856, 256), ("complex64", 6029312, 256),
+                ("complex64", 3 ** 16, 512), ("complex128", 1 << 23, 512))
 #: (dtype name, N) of ``chirpm``: chirp lengths whose M takes the dense
 #: route's kernel (complex64 to 14215, complex128 to 7098) and a split
 #: plan past it, both dtypes, from short lines to the old limit: primes
@@ -537,7 +587,8 @@ def generic(root: str, lengths=GENERIC_LENGTHS) -> dict:
 def _split_candidates(split, n: int, dtype) -> list:
     """Every (P, Q, row route) the build instantiates for N: P of
     ``COLUMN_SIZES``, Q a radix row (``ROW_SIZES``) or a long-line row
-    that pass C takes (a multiple of 32)."""
+    of a multiple of 32 (of ``split.FOLD_LONG_ROWS`` where the tree folds
+    pass C into its long rows, which instantiates those alone)."""
     from repro_torch.kernels import longline
     out = []
     for p in split.COLUMN_SIZES[dtype]:
@@ -546,7 +597,8 @@ def _split_candidates(split, n: int, dtype) -> list:
             continue
         if q in split.ROW_SIZES[dtype]:
             out.append((p, q, "radix"))
-        elif q in longline.FACTORS[dtype] and q % 32 == 0:
+        elif q in getattr(split, "FOLD_LONG_ROWS", longline.FACTORS)[
+                dtype] and q % 32 == 0:
             out.append((p, q, "long"))
     return out
 
@@ -1274,6 +1326,234 @@ def fit(paths) -> dict:
     return out
 
 
+def _split_pass(name: str) -> str:
+    """The split route's pass a kernel (by its name in the profiler,
+    demangled or not) belongs to: "A", "rows" or "C"."""
+    if "transpose" in name:
+        return "C"
+    radix_mode = re.search(r"radix_kernel(?:<[^,]+, \d+, \d+, |I[fd]Li\d+E"
+                           r"Li\d+ELi)(\d)", name)
+    if "dense_column" in name or (radix_mode and radix_mode.group(1) == "1"):
+        return "A"
+    return "rows"
+
+
+def split_passes(root: str, tag: str, lengths=SPLIT_PASSES,
+                 iters: int = 10) -> dict:
+    torch = _port(root)
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import fft_matmul as tfm
+    from repro_torch.kernels import radix, split
+    out = {"tag": tag, "root": os.path.abspath(root), "lengths": []}
+    for dt, n, mb in lengths:
+        dtype = getattr(torch, dt)
+        b = max(1, (mb << 20) // (n * dtype.itemsize))
+        x = _lines(torch, dtype, b, n)
+        plan = split.split_plan(n, dtype)
+        tfm.reset_launch_counts()
+        lib = torch.fft.fft(x)
+        rec = {"dtype": dt, "shape": [b, n],
+               "path": radix.kernel_path(n, dtype),
+               "plan": [plan.p, plan.q, plan.row_path, plan.col_path],
+               "err_vs_torch_fft": scaled_err(tfm.fft_fourstep(x), lib),
+               "launches": dict(tfm.fft_fourstep.path_launches),
+               "ms": time_ms(lambda: tfm.fft_fourstep(x)),
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+               "bound_ms": bound_ms(b, n, dtype.itemsize)}
+        del lib
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                tfm.fft_fourstep(x)
+            torch.cuda.synchronize()
+        passes, kernels = {"A": 0.0, "rows": 0.0, "C": 0.0}, []
+        for a in prof.key_averages():
+            us = getattr(a, "self_device_time_total",
+                         getattr(a, "self_cuda_time_total", 0.0))
+            if us <= 0 or not str(a.device_type).endswith("CUDA"):
+                continue
+            which = _split_pass(a.key)
+            passes[which] += us * 1e-3 / iters
+            kernels.append({"name": a.key[:100], "pass": which,
+                            "calls": a.count / iters,
+                            "ms": us * 1e-3 / iters})
+        rec.update(pass_ms=passes, kernels=kernels)
+        del x
+        torch.cuda.empty_cache()
+        print(f"[{tag}] splitpasses {dt} ({b}, {n}) as {plan.p} x {plan.q} "
+              f"(rows {plan.row_path}, pass A {plan.col_path}): "
+              f"{rec['ms']:.4f} ms; pass A {passes['A']:.4f}, rows "
+              f"{passes['rows']:.4f}, pass C {passes['C']:.4f}; torch.fft "
+              f"{rec['torch_fft_ms']:.4f}, bound {rec['bound_ms']:.4f}; vs "
+              f"torch.fft {rec['err_vs_torch_fft']:.2e}; launches "
+              f"{rec['launches']['split']}", flush=True)
+        out["lengths"].append(rec)
+    return out
+
+
+def _fold_layouts(split, dense, plan, dtype) -> list:
+    """The folded pass B's layouts ``splitfold`` forces for ``plan``: the
+    tree's own first, then C of 1 to 8 blocks (a divisor of P on long
+    rows); on dense rows C = 1 with one or two slots, C > 1 pushed into
+    the tiles (one slot)."""
+    import dataclasses
+    own = split.fold_layout(plan, dtype)
+    if own is None:
+        return []
+    out = [own]
+    for c in (1, 2, 4, 8):
+        if own.rows == "long":
+            if plan.p % c == 0 and c != own.cluster:
+                out.append(dataclasses.replace(own, cluster=c))
+            continue
+        for depth in ((1, 2) if c == 1 else (1,)):
+            lay = split.dense_fold(plan, dtype, c, depth)
+            if lay is not None and lay not in out:
+                out.append(lay)
+    return out
+
+
+def split_fold(root: str, tag: str, lengths=SPLIT_PASSES) -> dict:
+    torch = _port(root)
+    from repro_torch.kernels import dense
+    from repro_torch.kernels import fft_matmul as tfm
+    from repro_torch.kernels import split
+    out = {"tag": tag, "root": os.path.abspath(root), "lengths": []}
+    for dt, n, mb in lengths:
+        dtype = getattr(torch, dt)
+        plan = split.split_plan(n, dtype)
+        layouts = _fold_layouts(split, dense, plan, dtype)
+        if not layouts:
+            continue
+        b = max(1, (mb << 20) // (n * dtype.itemsize))
+        x = _lines(torch, dtype, b, n)
+        lib = torch.fft.fft(x)
+        rec = {"dtype": dt, "shape": [b, n], "plan": [plan.p, plan.q],
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+               "bound_ms": bound_ms(b, n, dtype.itemsize), "layouts": []}
+        for lay in layouts:
+            def run(lay=lay):
+                return tfm._launch_split(x, None, inverse=False,
+                                         pack_parts=None, plan=plan,
+                                         fold=lay)
+            rec["layouts"].append({
+                "cluster": lay.cluster, "lines": lay.lines,
+                "depth": lay.depth, "threads": lay.threads,
+                "tile_pitch": lay.tile_pitch, "smem_bytes": lay.smem_bytes,
+                "err": scaled_err(run(), lib), "ms": time_ms(run)})
+        del x, lib
+        torch.cuda.empty_cache()
+        print(f"[{tag}] splitfold {dt} ({b}, {n}) as {plan.p} x {plan.q}: "
+              f"torch.fft {rec['torch_fft_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}; " + ", ".join(
+                  f"C{r['cluster']} L{r['lines']} d{r['depth']} "
+                  f"{'push' if r['tile_pitch'] else 'own'} "
+                  f"t{r['threads']} {r['ms']:.4f} ({r['err']:.1e})"
+                  for r in rec["layouts"]), flush=True)
+        out["lengths"].append(rec)
+    return out
+
+
+#: (dtype name, N, MB of lines) that ``generalrules`` times on each
+#: tree's own route after the general lengths: the wide lines c64 2400 =
+#: 25x24x4 and 2000 = 25x20x4 (``wide_kernel``, whose SASS moved when
+#: ``mixed_tiles`` gained the split's store), the nested c64 3^16 = 2187 x
+#: 19683 (dense rows too long for the folded kernel's slot and tile) and
+#: chirps over split plans of M with such rows (c64 8388617, c128 2^21 +
+#: 1).
+RULES_SHAPES = (("complex64", 2400, 512), ("complex64", 2000, 512),
+                ("complex64", 3 ** 16, 512), ("complex64", 8388617, 512),
+                ("complex128", (1 << 21) + 1, 512))
+#: (GENERAL_P, GENERAL_Q_MAX, dense when no radix pass A fits) per
+#: complex64 rule that ``generalrules`` forces; complex128 halves P and
+#: the longest Q (the same bytes).  The first is the rule before the
+#: folded rows (complex64's since); shorter rows keep two or three folded
+#: blocks an SM (complex128's since: 200, 1750).
+GENERAL_RULES = ((400, 7500, False), (400, 5500, False),
+                 (400, 4500, False), (400, 3500, False),
+                 (400, 2500, False), (400, 4500, True),
+                 (400, 3500, True), (1000, 4500, True))
+
+
+def _rule_pick(split, n: int, dtype, target: int, qmax: int,
+               dense_next: bool) -> tuple:
+    """``split.general_factors``' pick under other constants: a radix pass
+    A at its least P whose Q is at most ``qmax`` (with ``dense_next``,
+    only where one is; else the dense family as if N had none), else at
+    its shortest Q; else the dense P whose Q is at most that nearest
+    ``target`` in ratio, else the shortest Q."""
+    cands = split.general_candidates(n, dtype)
+    rad = [c for c in cands if c[2] == "radix"]
+    if rad and (not dense_next or any(c[1] <= qmax for c in rad)):
+        fits = [c for c in rad if c[1] <= qmax]
+        return fits[0] if fits else min(rad, key=lambda c: c[1])
+    family = [c for c in cands if c[2] == "dense"] or rad
+    fits = [c for c in family if c[1] <= qmax]
+    if not fits:
+        return min(family, key=lambda c: c[1])
+    return min(fits, key=lambda c: (abs(math.log(c[0] / target)), c[0]))
+
+
+def general_rules(root: str, tag: str) -> dict:
+    torch = _port(root)
+    from repro_torch.kernels import fft_matmul as tfm
+    from repro_torch.kernels import radix, split
+    out = {"tag": tag, "root": os.path.abspath(root), "lengths": []}
+    folded = hasattr(split, "fold_layout")
+    cases = ([(dt, n, 256, True) for dt, n in SPLIT_GENERAL_SWEEP
+              + SPLIT_GENERAL_CHECK]
+             + [(dt, n, mb, False) for dt, n, mb in RULES_SHAPES])
+    for dt, n, mb, general in cases:
+        dtype = getattr(torch, dt)
+        b = max(1, (mb << 20) // (n * dtype.itemsize))
+        x = _lines(torch, dtype, b, n)
+        lib = torch.fft.fft(x)
+        tfm.reset_launch_counts()
+        rec = {"dtype": dt, "shape": [b, n], "general": general,
+               "held_out": (dt, n) in SPLIT_GENERAL_CHECK,
+               "path": radix.kernel_path(n, dtype),
+               "err_vs_torch_fft": scaled_err(tfm.fft_fourstep(x), lib),
+               "launches": tfm.launch_counts()["launches"],
+               "ms": time_ms(lambda: tfm.fft_fourstep(x)),
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+               "bound_ms": bound_ms(b, n, dtype.itemsize), "rules": []}
+        if rec["path"] == "split":
+            plan = split.split_plan(n, dtype)
+            rec["plan"] = [plan.p, plan.q, plan.row_path, plan.col_path]
+        timed = {}
+        for target, qmax, dense_next in (GENERAL_RULES if general and folded
+                                         else ()):
+            scale = 1 if dtype == torch.complex64 else 2
+            p, q, col = _rule_pick(split, n, dtype, target // scale,
+                                   qmax // scale, dense_next)
+            if (p, q, col) not in timed:
+                plan = split.SplitPlan(n, p, q, "dense", col)
+                if split.fold_layout(plan, dtype) is None:
+                    plan = split.SplitPlan(n, p, q, "any", col)
+
+                def run(plan=plan):
+                    return tfm._launch_split(x, None, inverse=False,
+                                             pack_parts=None, plan=plan)
+                timed[p, q, col] = {"err": scaled_err(run(), lib),
+                                    "ms": time_ms(run),
+                                    "row_path": plan.row_path}
+            rec["rules"].append({"p_target": target, "q_max": qmax,
+                                 "dense_next": dense_next,
+                                 "plan": [p, q, col], **timed[p, q, col]})
+        del x, lib
+        torch.cuda.empty_cache()
+        rules = ", ".join(f"{r['plan'][0]} x {r['plan'][1]} {r['ms']:.4f}"
+                          for r in rec["rules"])
+        print(f"[{tag}] generalrules {dt} ({b}, {n}) {rec['path']} "
+              f"{rec.get('plan', '')}: {rec['ms']:.4f} ms "
+              f"({rec['err_vs_torch_fft']:.1e}, {rec['launches']} "
+              f"launches), torch.fft {rec['torch_fft_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}" + (f"; rules: {rules}" if rules
+                                          else ""), flush=True)
+        out["lengths"].append(rec)
+    return out
+
+
 def _cuobjdump() -> str:
     cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
@@ -1355,6 +1635,12 @@ def main(argv) -> int:
             _split_plans)
     elif len(argv) == 5 and argv[1] == "widecheck":
         result = wide_check(argv[2], argv[3])
+    elif len(argv) == 5 and argv[1] == "splitpasses":
+        result = split_passes(argv[2], argv[3])
+    elif len(argv) == 5 and argv[1] == "splitfold":
+        result = split_fold(argv[2], argv[3])
+    elif len(argv) == 5 and argv[1] == "generalrules":
+        result = general_rules(argv[2], argv[3])
     elif len(argv) == 5 and argv[1] == "sass":
         result = sass(argv[2], argv[3])
     else:

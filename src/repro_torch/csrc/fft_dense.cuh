@@ -15,9 +15,10 @@
 // the 13-smooth N past it whose line and tables fit one block (complex64
 // to 28431, complex128 to 14196).  The split route's general plans
 // (kernels/split.py::general_factors: every other 13-smooth N past one
-// block) run pass B on it and pass A, where N has no power-of-two P for
-// the radix route, on its column form: dense_column_kernel, at the end of
-// this file.
+// block) run pass A, where N has no power-of-two P for the radix route, on
+// its column form (dense_column_kernel) and pass B on its stages with the
+// line's transposed store folded in (split_fold_dense_kernel), at the end
+// of this file.
 //
 // What it computes (kernels/dense.py, whose emulate is its plain
 // version): a block holds `lines` lines in shared memory and transforms
@@ -78,6 +79,7 @@
 #include <cuda_runtime.h>
 
 #include "fft_common.cuh"
+#include "fft_long.cuh"
 #include "fft_radix.cuh"
 
 namespace repro_fft {
@@ -552,8 +554,8 @@ int dense_chirp_launch(const void* x, void* out, const void* consts,
 // tables in global memory read through L2: W_N^e = WA[e mod W] * WB[e div
 // W], W = 2^w_log2 >= sqrt(N), built in float64 on the host (an N-entry
 // table would be 128 MB at complex64 2^24), and writes the same (B, P, Q)
-// layout, unscaled.  Pass B runs the Q-long rows on dense_kernel, pass C
-// is split_transpose_any (fft_long.cuh).
+// layout, unscaled.  Pass B runs the Q-long rows on
+// split_fold_dense_kernel (below).
 //
 // With kFold (the chirp route's first transform on a split plan of M =
 // P*Q, kernels/chirp.py) the block is a logical one: line b of x holds
@@ -761,6 +763,215 @@ int dense_column_chirp_launch(const void* x, void* out, const void* consts,
       x, out, consts, ints, wtab, pre, batch, n, q, n_in, stages, lines,
       pitch, t_log2, lo, n_consts, n_ints, buf_off, inverse, w_log2, threads,
       smem_bytes, stream);
+}
+
+// Pass B of the split route on dense rows with pass C folded in
+// (kernels/split.py::fold_layout; fold_emulate is its plain version): the
+// general plans' rows, and a nested plan's or a chirp's M whose rows take
+// the dense route, Q 13-smooth (dense_chain's codelets alone).  `y` holds
+// B lines of (P, Q) rows y[b, kp, kq] (pass A's output, 16 bytes of room
+// past its end), `out` (parts, B, seg), `gtw` the line's output twiddle or
+// null; `scale` the inverse's 1/(P*Q); with kKeep only the outputs of <
+// n_keep (the chirp's second transform: seg = n_keep/parts, `gtw` n_keep
+// values).
+//
+// Replaces, for these rows, dense_kernel (rows in natural order) and pass
+// C (split_transpose_any_kernel, split_transpose_keep_kernel: a read and a
+// write of the lines more).  What bounds it: HBM, one read and one write
+// of the rows.  The design: a cluster of C blocks takes a group of G = C*L
+// consecutive rows of one line b (L = 2^rows_log2 rows a block, the dense
+// plan's lines of Q; C = 1 where L already makes runs of 64 bytes), a
+// group never spans two lines, and the grid is persistent over the
+// groups.  A block's rows arrive by one bulk copy (TMA) on an mbarrier
+// into a ring of `depth` slots of slot_elems values: a complex64 row may
+// start 8 bytes off 16, so the copy starts at the 16 bytes below and the
+// rows sit 8 bytes into the slot.  The stages run in place (dense_chain)
+// and leave the rows in the chain's order (output k at PL[k mod lo] +
+// PH[k div lo]).  Then (split_fold_store) each block stores its share S =
+// ceil(Q/C) of kq of all the group's rows:
+//  * C = 1: from its own slot;
+//  * C > 1: after a cluster barrier (every block's tile free again) each
+//    block pushes its rows, read in natural order from its slot, into the
+//    owners' tiles (G rows of tile_pitch, an odd pitch >= S), a warp's
+//    consecutive kq in one owner as consecutive remote stores; its slot is
+//    then free for the group `depth` strides on, whose copy overlaps the
+//    rest; after a second barrier each block stores from its own tile.
+// Rows too long for a slot and a tile in one block keep pass C
+// (split.fold_layout is None there): blocks that read their share from
+// the other blocks' slots, whose outputs sit in the chain's digit-reversed
+// order, read 7-11% slower than the three passes (NVIDIA H100 80GB HBM3,
+// 700.00 W; PERF.md section 6).
+// The rows past P of a line's last group (a ragged P) are not copied
+// (their slot's phase completes on a plain arrival) nor transformed nor
+// stored.  Bound for the wide block, as dense_kernel (at three narrow
+// blocks an SM ptxas spilled the complex64 kernels at 80 registers).
+template <bool kKeep, typename R>
+__global__ void __launch_bounds__(sizeof(R) == 4 ? kDenseWide64
+                                                 : kDenseWide128, 1)
+split_fold_dense_kernel(const cpx<R>* __restrict__ y,
+                        cpx<R>* __restrict__ out,
+                        const cpx<R>* __restrict__ gconsts,
+                        const int* __restrict__ gints,
+                        const cpx<R>* __restrict__ gtw, long long lines,
+                        int p, int q, int stages, int rows_log2, int t_log2,
+                        int lo, int n_consts, int n_ints, int buf_off,
+                        int slot_elems, int depth, int tile_pitch,
+                        int inverse, int seg, int n_keep, R scale) {
+  extern __shared__ __align__(16) unsigned char dense_smem[];
+  cpx<R>* consts = reinterpret_cast<cpx<R>*>(dense_smem);
+  int* ints = reinterpret_cast<int*>(
+      dense_smem +
+      ((n_consts * static_cast<int>(sizeof(cpx<R>)) + 15) & ~15));
+  cpx<R>* const slots = reinterpret_cast<cpx<R>*>(dense_smem + buf_off);
+  const int tid = threadIdx.x;
+  const unsigned csize = cluster_nctarank(), rank = cluster_ctarank();
+  const int nl_max = 1 << rows_log2;
+  const int g_log2 = rows_log2 + __ffs(csize) - 1;
+  const int gsz = 1 << g_log2;
+  cpx<R>* const tile = slots + depth * slot_elems;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(
+      tile + (tile_pitch > 0 ? gsz * tile_pitch : 0));
+  // groups < B*P rows < 2^31 (the launcher checks)
+  const int per_line = (p + gsz - 1) / gsz;
+  const int groups = (int)lines * per_line;
+  const int first = blockIdx.x / csize, stride = gridDim.x / csize;
+  const int share = fold_share(q, csize);
+  const int kq0 = (int)rank * share < q ? (int)rank * share : q;
+  const int kq1 = kq0 + share < q ? kq0 + share : q;
+  // a complex64 row starting at element e of `y` sits (e & 1) values into
+  // its slot
+  auto head = [&](long long row) -> int {
+    return sizeof(cpx<R>) == 8 ? (int)((row * q) & 1) : 0;
+  };
+  // One thread: group g's rows of this block into `slot`.
+  auto load = [&](int g, int slot) {
+    const int b = g / per_line;
+    const int kp = (g - b * per_line) * gsz + (int)rank * nl_max;
+    const int nl = p - kp < nl_max ? p - kp : nl_max;
+    if (nl <= 0) {
+      mbar_arrive(&bars[slot]);
+      return;
+    }
+    const char* src = reinterpret_cast<const char*>(
+        y + ((long long)b * p + kp) * (long long)q);
+    const char* from = reinterpret_cast<const char*>(
+        reinterpret_cast<unsigned long long>(src) & ~15ull);
+    const unsigned bytes = (unsigned)(
+        ((src - from) + (long long)nl * q * (long long)sizeof(cpx<R>) + 15) &
+        ~15ll);
+    bulk_load(slots + slot * slot_elems, from, bytes, &bars[slot]);
+  };
+
+  for (int i = tid; i < n_consts; i += blockDim.x) consts[i] = gconsts[i];
+  for (int i = tid; i < n_ints; i += blockDim.x) ints[i] = gints[i];
+  if (tid == 0) {
+    for (int d = 0; d < depth; ++d) mbar_init(&bars[d], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int d = 0; d < depth; ++d)
+      if (first + d * stride < groups) load(first + d * stride, d);
+  }
+  __syncthreads();
+  const int* pl = ints + 4 * stages;
+  const int* ph = pl + lo;
+  const float inv_lo = 1.0f / static_cast<float>(lo);
+  const float inv_q = 1.0f / static_cast<float>(q);
+  const float inv_share = 1.0f / static_cast<float>(share);
+  const float inv_seg = 1.0f / static_cast<float>(seg);
+
+  int slot = 0;
+  unsigned parity = 0;
+  for (int g = first; g < groups; g += stride) {
+    const int b = g / per_line;
+    const int kp0 = (g - b * per_line) * gsz;
+    const int kp = kp0 + (int)rank * nl_max;
+    const int nl = p - kp < nl_max ? p - kp : nl_max;
+    const int nj = p - kp0 < gsz ? p - kp0 : gsz;
+    cpx<R>* const base = slots + slot * slot_elems;
+    cpx<R>* const rows = base + head((long long)b * p + kp);
+    mbar_wait(&bars[slot], parity);
+    if (nl > 0)
+      dense_chain<false>(rows, static_cast<cpx<R>*>(nullptr), q, q, nl,
+                         stages, consts, ints, t_log2, inverse);
+    const bool refill = g + depth * stride < groups;
+    if (csize == 1) {
+      split_fold_store<kKeep, 1>(
+          [&](int j, int kq) {
+            const int kh = div_small(kq, lo, inv_lo);
+            return rows[j * q + pl[kq - kh * lo] + ph[kh]];
+          },
+          [&](int t) { return kq0 + t; }, kq1 - kq0, out, gtw, lines, b, p,
+          kp0, g_log2, nj, seg, inv_seg, scale, n_keep);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (tid == 0 && refill) load(g + depth * stride, slot);
+    } else {
+      cluster_sync_all();  // every block's tile is free again
+      for (int i = tid; i < nl * q; i += blockDim.x) {
+        const int l = div_small(i, q, inv_q), kq = i - l * q;
+        const int kh = div_small(kq, lo, inv_lo);
+        const int o = div_small(kq, share, inv_share);
+        *cluster_map(tile + ((int)rank * nl_max + l) * tile_pitch + kq -
+                         o * share,
+                     o) = rows[l * q + pl[kq - kh * lo] + ph[kh]];
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // the slot is read: the next copy may land in it
+      if (tid == 0 && refill) load(g + depth * stride, slot);
+      cluster_sync_all();  // every block's rows are in the tiles
+      split_fold_store<kKeep, 1>(
+          [&](int j, int kq) { return tile[j * tile_pitch + kq - kq0]; },
+          [&](int t) { return kq0 + t; }, kq1 - kq0, out, gtw, lines, b, p,
+          kp0, g_log2, nj, seg, inv_seg, scale, n_keep);
+    }
+    if (++slot == depth) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+}
+
+// Launches split_fold_dense_kernel (kKeep where n_keep > 0) on clusters of
+// `cluster` blocks of `threads` (kDenseNarrow* or kDenseWide*), a ring of
+// `depth` (1 or 2) slots of slot_elems values and, where cluster > 1, the
+// tile the rows are pushed into, rows tile_pitch apart; the layout's
+// numbers come from kernels/split.py::fold_layout (the chain's from
+// dense.dense_plan of Q).
+// Returns the CUDA error code (0 on success).
+template <typename R>
+int split_fold_dense_launch(const void* y, void* out, const void* consts,
+                            const void* ints, const void* tw,
+                            long long lines, int p, int q, int stages,
+                            int rows_log2, int t_log2, int lo, int n_consts,
+                            int n_ints, int buf_off, int slot_elems,
+                            int depth, int tile_pitch, int inverse, int seg,
+                            int n_keep, int cluster, int threads,
+                            int smem_bytes, cudaStream_t stream) {
+  constexpr int kNarrow = sizeof(R) == 4 ? kDenseNarrow64 : kDenseNarrow128;
+  constexpr int kWide = sizeof(R) == 4 ? kDenseWide64 : kDenseWide128;
+  if ((threads != kNarrow && threads != kWide) || depth < 1 || depth > 2 ||
+      p < 1 || q < 2 || seg < 1 || rows_log2 < 0 || rows_log2 > 11 ||
+      n_keep < 0 || (long long)n_keep > (long long)p * q ||
+      (long long)slot_elems * (long long)sizeof(cpx<R>) <
+          ((long long)q << rows_log2) * (long long)sizeof(cpx<R>) + 16 ||
+      (cluster > 1) != (tile_pitch > 0) ||
+      (cluster > 1 && (depth != 1 || tile_pitch < (q + cluster - 1) / cluster)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 1/(P*Q) rounded once, as the plain version's scale
+  const R scale = inverse ? (R)(1.0 / ((double)p * (double)q)) : R(1);
+  const long long gsz = (long long)cluster << rows_log2;
+  const long long groups = lines * ((p + gsz - 1) / gsz);
+  if (groups > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto args = [&](auto kernel) {
+    return cluster_launch(
+        kernel, threads, smem_bytes, cluster, groups, stream,
+        static_cast<const cpx<R>*>(y), static_cast<cpx<R>*>(out),
+        static_cast<const cpx<R>*>(consts), static_cast<const int*>(ints),
+        static_cast<const cpx<R>*>(tw), lines, p, q, stages, rows_log2,
+        t_log2, lo, n_consts, n_ints, buf_off, slot_elems, depth, tile_pitch,
+        inverse, seg, n_keep, scale);
+  };
+  return n_keep > 0 ? args(split_fold_dense_kernel<true, R>)
+                    : args(split_fold_dense_kernel<false, R>);
 }
 
 }  // namespace repro_fft

@@ -22,9 +22,10 @@
 // every other 13-smooth N (split.general_factors), take the split route
 // (kernels/split.py: pass A a strided radix launch on the P-long columns
 // with the inter-step twiddle, P a power of two, or the dense kernel's
-// column form; pass B a radix launch on the Q-long rows stored
-// transposed, or a long-line or dense launch on them in natural order and
-// a transpose); every N up to
+// column form; pass B on the Q-long rows stored transposed: a radix
+// launch, or the long-line or dense stages with a thread-block cluster's
+// store; a nested plan's rows on another route, in natural order, and a
+// transpose); every N up to
 // complex64 4835 / complex128 2419 that those routes do not take and
 // whose generic stages (one per prime factor past 13) cost no more than
 // the chirp route (dense.GENERIC_COST: odd N, the even 13-smooth N no
@@ -40,8 +41,8 @@
 // cheapest 13-smooth M from 2N - 1, the first one's load reading the
 // input times the chirp, the second one's store keeping the first N: the
 // dense route's, the long-line route's and the split route's pass A and
-// pass C kernels each have that form, the *_chirp_* and *_keep_* entry
-// points below).
+// row pass (or pass C) kernels each have that form, the *_chirp_* and
+// *_keep_* entry points below).
 //
 // Replaces the TPU kernel src/repro/kernels/fft_matmul.py::_fft_kernel (the
 // pl.pallas_call in fft1d_planes), with its two fused epilogues: the
@@ -98,10 +99,17 @@ REPRO_LONG_CHIRP_PART(double)
       int, int, cudaStream_t);
 REPRO_WIDE_PART(float)
 REPRO_WIDE_PART(double)
+#define REPRO_SPLIT_FOLD_PART(R)                                           \
+  template int repro_fft::split_fold_part<R, REPRO_PART>(                  \
+      int, const void*, void*, const void*, const void*, long long, int,   \
+      int, int, int, int, cudaStream_t);
+REPRO_SPLIT_FOLD_PART(float)
+REPRO_SPLIT_FOLD_PART(double)
 #undef REPRO_RADIX_PART
 #undef REPRO_LONG_PART
 #undef REPRO_LONG_CHIRP_PART
 #undef REPRO_WIDE_PART
+#undef REPRO_SPLIT_FOLD_PART
 
 #else
 
@@ -253,25 +261,62 @@ int repro_fft_split_b_radix_c128(const void* y, void* out, const void* consts,
       p_log2, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
-// Pass C, after pass B on the long-line route (repro_fft_long_* with
-// inverse = 0 and no twiddle stores the rows in place): `z` holds B lines
-// of (P, Q) rows (Q a multiple of 32), `out` (parts, B, P*Q/parts) with
-// seg_arg = log2(P*Q/parts) for a power-of-two Q, P*Q/parts for a mixed Q,
-// `tw` the line's output twiddle (P*Q values) or null; `inverse` scales by
-// 1/(P*Q).
-int repro_fft_split_c_c64(const void* z, void* out, const void* tw,
-                          long long lines, int p_log2, int q, int seg_arg,
-                          int inverse, void* stream) {
-  return repro_fft::split_transpose<float>(
-      z, out, tw, lines, p_log2, q, seg_arg, inverse,
+// Pass B on the long-line route with pass C folded in (fft_long.cuh's
+// split_fold_long_kernel / split_fold_mixed_kernel): `y` holds rows = B*P
+// rows of Q (Q of kernels/split.py::FOLD_LONG_ROWS, P = 2^p_log2), `out`
+// (parts, B, P*Q/parts) with seg = P*Q/parts, `tw` the line's output
+// twiddle (P*Q values) or null; `inverse` scales by 1/(P*Q).  `consts` and
+// `smem_bytes` as repro_fft_long_* of Q; `cluster` blocks a cluster (a
+// power of two up to 8 that divides P).
+int repro_fft_split_b_long_c64(const void* y, void* out, const void* consts,
+                               const void* tw, long long rows, int q,
+                               int inverse, int p_log2, int seg, int cluster,
+                               int smem_bytes, void* stream) {
+  return repro_fft::split_fold_dispatch<float>(
+      q, y, out, consts, tw, rows, inverse, p_log2, seg, cluster, smem_bytes,
       static_cast<cudaStream_t>(stream));
 }
 
-int repro_fft_split_c_c128(const void* z, void* out, const void* tw,
-                           long long lines, int p_log2, int q, int seg_arg,
-                           int inverse, void* stream) {
-  return repro_fft::split_transpose<double>(
-      z, out, tw, lines, p_log2, q, seg_arg, inverse,
+int repro_fft_split_b_long_c128(const void* y, void* out, const void* consts,
+                                const void* tw, long long rows, int q,
+                                int inverse, int p_log2, int seg,
+                                int cluster, int smem_bytes, void* stream) {
+  return repro_fft::split_fold_dispatch<double>(
+      q, y, out, consts, tw, rows, inverse, p_log2, seg, cluster, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Pass B on dense rows with pass C folded in (fft_dense.cuh's
+// split_fold_dense_kernel): `y` holds B lines of (P, Q) rows, 16 bytes of
+// room past its end; `out` (parts, B, seg); `tw` the line's output twiddle
+// or null; `inverse` scales by 1/(P*Q); n_keep > 0 stores only the outputs
+// of < n_keep (seg = n_keep/parts, `tw` n_keep values); tile_pitch > 0
+// pushes the rows into the cluster's tiles.  `consts` and `ints` are
+// dense.constants of Q; the layout's numbers kernels/split.py::
+// fold_layout's.
+int repro_fft_split_b_dense_c64(
+    const void* y, void* out, const void* consts, const void* ints,
+    const void* tw, long long lines, int p, int q, int stages,
+    int rows_log2, int t_log2, int lo, int n_consts, int n_ints, int buf_off,
+    int slot_elems, int depth, int tile_pitch, int inverse, int seg,
+    int n_keep, int cluster, int threads, int smem_bytes, void* stream) {
+  return repro_fft::split_fold_dense_launch<float>(
+      y, out, consts, ints, tw, lines, p, q, stages, rows_log2, t_log2, lo,
+      n_consts, n_ints, buf_off, slot_elems, depth, tile_pitch, inverse, seg,
+      n_keep, cluster, threads, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+int repro_fft_split_b_dense_c128(
+    const void* y, void* out, const void* consts, const void* ints,
+    const void* tw, long long lines, int p, int q, int stages,
+    int rows_log2, int t_log2, int lo, int n_consts, int n_ints, int buf_off,
+    int slot_elems, int depth, int tile_pitch, int inverse, int seg,
+    int n_keep, int cluster, int threads, int smem_bytes, void* stream) {
+  return repro_fft::split_fold_dense_launch<double>(
+      y, out, consts, ints, tw, lines, p, q, stages, rows_log2, t_log2, lo,
+      n_consts, n_ints, buf_off, slot_elems, depth, tile_pitch, inverse, seg,
+      n_keep, cluster, threads, smem_bytes,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -282,8 +327,7 @@ int repro_fft_split_c_c128(const void* z, void* out, const void* tw,
 // `lines` columns a block at line pitch `pitch`, `wtab` the inter-step
 // twiddle's tables (WA, 2^w_log2 entries, then WB).  `consts` and `ints`
 // are dense.constants of P; the layout's numbers and threads
-// dense.column_plan's.  Pass B of these plans is repro_fft_dense_* on the
-// B*P rows of Q.
+// dense.column_plan's.  Pass B of these plans is repro_fft_split_b_dense_*.
 int repro_fft_split_a_dense_c64(const void* x, void* y, const void* consts,
                                 const void* ints, const void* wtab,
                                 long long batch, int n, int q, int stages,
@@ -310,10 +354,13 @@ int repro_fft_split_a_dense_c128(const void* x, void* y, const void* consts,
       static_cast<cudaStream_t>(stream));
 }
 
-// Pass C of the general plans, after pass B on the dense kernel (which
-// applied the inverse's 1/Q): `z` holds B lines of (P, Q) rows (any P and
-// Q), `out` (parts, B, P*Q/parts) with seg = P*Q/parts, `tw` the line's
-// output twiddle or null; `inverse` scales by 1/P.
+// Pass C of the plans whose rows run their own launch in natural order
+// (kernels/split.py::fold_layout is None: a nested plan's rows on the
+// radix, long-line or split route, dense rows too long for the folded
+// kernel's slot and tile; they applied the inverse's 1/Q): `z` holds B
+// lines of (P, Q) rows (any P and Q), `out` (parts, B, P*Q/parts) with
+// seg = P*Q/parts, `tw` the line's output twiddle or null; `inverse`
+// scales by 1/P.
 int repro_fft_split_c_any_c64(const void* z, void* out, const void* tw,
                               long long lines, int p, int q, int seg,
                               int inverse, void* stream) {
@@ -416,8 +463,8 @@ int repro_fft_split_a_dense_chirp_c128(
       smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
-// The chirp route's second transform on a split plan: pass C as
-// repro_fft_split_c_any_*, only the outputs of < n_keep = N stored, `out`
+// The chirp route's second transform on a split plan whose rows keep pass
+// C: pass C as repro_fft_split_c_any_*, only the outputs of < n_keep = N stored, `out`
 // (parts, B, N/parts) with seg = N/parts, `tw` N values.
 int repro_fft_split_c_keep_c64(const void* z, void* out, const void* tw,
                                long long lines, int p, int q, int n_keep,

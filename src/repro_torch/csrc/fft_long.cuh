@@ -55,14 +55,17 @@
 // (longline.emulate is the kernel's plain version).
 //
 // The split route (kernels/split.py) runs its long rows (a Q of this
-// route) through these kernels as they are (pass B: stored in place, no
-// epilogue, no scale), then split_transpose below (pass C, any Q that is a
-// multiple of 32) moves each line's (P, Q) rows to its output order with
-// the line's epilogues.  A block holds one row here, so its stores cannot
-// be staged for a warp to write consecutive kp as the radix route's pass
-// B does: stored straight to kp + P*kq, 8 bytes P elements apart, they
-// made a split of 2^24 complex64 take 3.8 ms, the rows in place and the
-// transpose 1.5 (PERF.md).
+// route) through the same bodies with the line's transposed store folded
+// in (split_fold_long_kernel, split_fold_mixed_kernel, below: the kFoldSplit
+// mode).  A block holds one row here, so its stores alone cannot be staged
+// for a warp to write consecutive kp as the radix route's pass B does:
+// stored straight to kp + P*kq, 8 bytes P elements apart, they made a
+// split of 2^24 complex64 take 3.8 ms, against 1.5 for the rows in place
+// and a transpose pass (PERF.md).  A thread-block cluster of C blocks on
+// neighbouring SMs transforms C consecutive rows kp, one a block, keeps
+// each in its shared memory, and each block then reads its share of kq
+// from all C rows through distributed shared memory and stores runs of C
+// consecutive outputs (split_fold_store): two HBM passes, not three.
 #pragma once
 
 #include <cstdint>
@@ -155,6 +158,112 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// The cluster's rank of this block, the cluster's blocks, and a barrier
+// of every thread of every block of the cluster (release, then acquire:
+// each block's shared-memory writes before it are seen by the others'
+// reads after it).  A launch without a cluster is a cluster of one block.
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_nctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The address of *p (this block's shared memory) in the shared memory of
+// the cluster's block `rank`, as a generic address.
+template <typename T>
+__device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+  unsigned long long a;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(a)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<T*>(a);
+}
+
+// An arrival on `bar` with no bytes to wait for: completes the phase of a
+// ring slot that a group's masked rows leave without a copy.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Items of split_fold_store a thread has in flight at once.
+constexpr int kFoldItems = 4;
+
+// A cluster block's share of kq of Q in split_fold_store: [rank*S,
+// (rank+1)*S) within Q, S = ceil(Q/C) (kernels/split.py::fold_emulate).
+__device__ __forceinline__ int fold_share(int q, int csize) {
+  return (q + csize - 1) / csize;
+}
+
+// The split route's pass B with pass C folded in (kernels/split.py::
+// fold_layout, fold_emulate): a group of G = 2^g_log2 consecutive rows kp0
+// + j, j < G, of line b, spread over the cluster's blocks, each block's
+// rows transformed in its shared memory; the first nj of them are rows of
+// the line (a ragged P leaves the last group short).  After a cluster
+// barrier, block `rank` stores its share of kq, `count` of them, the t-th
+// kq_of(t) (by default [rank*S, (rank+1)*S) within Q, S = ceil(Q/C):
+// fold_share), of every row of the group, `at(j, kq)` reading output kq
+// of row j wherever the cluster keeps it: consecutive threads take
+// consecutive j, so a warp writes runs of G consecutive outputs of = kp0 +
+// j + P*kq, each with pass C's
+// epilogues in its order: the output twiddle gtw[of], `scale` (the
+// inverse's 1/(P*Q)), the pack_parts segment of length `seg` (`out` is
+// (parts, lines, seg)); with kKeep (the chirp route's second transform)
+// only the outputs of < n_keep.
+//
+// U items a thread at once (kFoldItems where the reads come from another
+// block's shared memory: all are issued before any is used; 1 where they
+// are local).
+template <bool kKeep, int U = kFoldItems, typename R, typename At,
+          typename KqOf>
+__device__ __forceinline__ void split_fold_store(
+    At at, KqOf kq_of, int count, cpx<R>* __restrict__ out,
+    const cpx<R>* __restrict__ gtw, long long lines, long long b, int p,
+    int kp0, int g_log2, int nj, int seg, float inv_seg, R scale,
+    int n_keep) {
+  const int gmask = (1 << g_log2) - 1;
+  const int items = count << g_log2;
+  const int step = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < items; i0 += U * step) {
+    cpx<R> y[U];
+    int of[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * step;
+      const int j = i & gmask;
+      const int kq = kq_of(i >> g_log2);
+      of[u] = kp0 + j + kq * p;  // < P*Q < 2^31
+      ok[u] = i < items && j < nj && (!kKeep || of[u] < n_keep);
+      if (ok[u]) y[u] = at(j, kq);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      cpx<R> v = y[u];
+      if (gtw != nullptr) v = cmul(v, gtw[of[u]]);
+      v.re *= scale;
+      v.im *= scale;
+      const int part = div_small(of[u], seg, inv_seg);
+      out[((long long)part * lines + b) * seg + (of[u] - part * seg)] = v;
+    }
+  }
+}
+
 // The chirp route's folded load and store (kernels/chirp.py) on this
 // kernel: kFoldIn, the first transform, copies x's line at pitch n_in
 // into the line buffer by plain loads (no bulk copy: an odd N's lines do
@@ -164,18 +273,26 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // stages pass 3's outputs in the buffer and stores only the outputs o <
 // n_out, `out` (parts, batch, n_out/parts) with seg = n_out/parts of any
 // length and `gtw` n_out values, before the next line's bulk copy.
-constexpr int kFoldNone = 0, kFoldIn = 1, kFoldOut = 2;
+// kFoldSplit, the split route's long rows (split_fold_long_kernel), stages
+// pass 3's outputs in the buffer in natural order, then stores the
+// cluster's group of rows transposed (split_fold_store) and copies the
+// block's next row in after a second cluster barrier.
+constexpr int kFoldNone = 0, kFoldIn = 1, kFoldOut = 2, kFoldSplit = 3;
 
 // `out` is (parts, batch, N/parts) with seg_log2 = log2(N/parts); `gtw`
 // (the output twiddle, N values) may be null.  The grid is persistent:
 // block b takes lines b, b + gridDim.x, ...  FOLD (kFoldNone for
-// long_kernel, whose SASS it keeps) as above.
+// long_kernel, whose SASS it keeps) as above; with kFoldSplit `x` holds
+// batch = B*P rows of the split route's lines (P = 2^p_log2, a multiple of
+// the cluster's size, which divides gridDim.x: a cluster's blocks take
+// consecutive rows), `out` is (parts, B, fold_seg).
 template <typename R, int R1, int R2, int R3, int DEPTH, int FOLD>
 __device__ __forceinline__ void long_body(
     const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
     const cpx<R>* __restrict__ consts, const cpx<R>* __restrict__ gtw,
     long long batch, int inverse, int seg_log2,
-    const cpx<R>* __restrict__ pre, int n_in, int n_out, int fold_seg) {
+    const cpx<R>* __restrict__ pre, int n_in, int n_out, int fold_seg,
+    int p_log2 = 0) {
   using S = LongShape<R1, R2, R3>;
   constexpr int N = S::N, RM = S::RM, T = S::THREADS, Q = S::Q;
   constexpr int PITCH = S::PITCH, M1 = N / R1;
@@ -208,8 +325,9 @@ __device__ __forceinline__ void long_body(
   constexpr R kInvN = R(1) / R(N);
   const R scale = inverse ? kInvN : R(1);
   const int seg = 1 << seg_log2;
-  const float inv_fold_seg =
-      FOLD == kFoldOut ? 1.0f / static_cast<float>(fold_seg) : 0.0f;
+  const float inv_fold_seg = FOLD == kFoldOut || FOLD == kFoldSplit
+                                 ? 1.0f / static_cast<float>(fold_seg)
+                                 : 0.0f;
 
   int slot = 0;
   unsigned parity = 0;
@@ -322,7 +440,7 @@ __device__ __forceinline__ void long_body(
         constexpr int k3 = decltype(j)::value;
         const int o = ka + Q * k3;
         cpx<R> y = v[i][k3];
-        if constexpr (FOLD == kFoldOut) {
+        if constexpr (FOLD == kFoldOut || FOLD == kFoldSplit) {
           s[o] = y;  // staged in natural order, stored below
           return;
         }
@@ -366,6 +484,28 @@ __device__ __forceinline__ void long_body(
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
+      if (tid == 0) {
+        const long long next = line + DEPTH * stride;
+        if (next < batch)
+          bulk_load(s, x + next * N, kLineBytes, &bars[slot]);
+      }
+    }
+    if constexpr (FOLD == kFoldSplit) {
+      // The cluster's rows row0 + j, j < C, of line b, kp0 = row0 mod P:
+      // this block stores its share of kq of all of them.
+      cluster_sync_all();
+      const unsigned rank = cluster_ctarank(), csize = cluster_nctarank();
+      const long long row0 = line - rank;
+      const R split_scale = inverse ? kInvN * pow2_neg<R>(p_log2) : R(1);
+      const int share = fold_share(N, csize);
+      split_fold_store<false>(
+          [&](int j, int kq) { return *cluster_map(s + kq, j); },
+          [&](int t) { return (int)rank * share + t; }, share, out, gtw,
+          batch >> p_log2, row0 >> p_log2, 1 << p_log2,
+          (int)(row0 & ((1 << p_log2) - 1)), __ffs(csize) - 1, csize,
+          fold_seg, inv_fold_seg, split_scale, 0);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      cluster_sync_all();  // every block has read the rows it stores
       if (tid == 0) {
         const long long next = line + DEPTH * stride;
         if (next < batch)
@@ -590,13 +730,18 @@ __device__ __forceinline__ void load_tile(cpx<R>* dst, const cpx<R>* src,
 // batch, seg) with seg = N/parts; the sign of the mixed codelets'
 // rotations is read from their table (W_R1^1 or W_R2^1), so that the
 // split route's pass B, launched with inverse = 0 to leave out the 1/N,
-// keeps it.
+// keeps it.  With kSplit (split_fold_mixed_kernel: one line a tile) `x`
+// holds batch = B*P rows of the split route's lines, P = 2^p_log2, and
+// pass 3 leaves each item's outputs where it read its inputs (output o =
+// kA + Q*k3 at (k1, k2, k3)); the cluster's group of rows is then stored
+// transposed (split_fold_store), `out` (parts, B, seg), as long_body's
+// kFoldSplit.
 template <typename R, int R1, int R2, int R3, int LT, int T, int DEPTH,
-          int LANES>
+          int LANES, bool kSplit = false>
 __device__ __forceinline__ void mixed_tiles(
     const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
     const cpx<R>* __restrict__ consts, const cpx<R>* __restrict__ gtw,
-    long long batch, int inverse, int seg) {
+    long long batch, int inverse, int seg, int p_log2 = 0) {
   using S = LongMixedShape<R, R1, R2, R3>;
   constexpr int N = S::N, M1 = S::M1, RP = S::RP, PITCH = S::PITCH;
   constexpr int LINE = S::LINE, TILE = LT * LINE, Q = R1 * R2;
@@ -721,6 +866,15 @@ __device__ __forceinline__ void mixed_tiles(
       };
       static_for<0, R3 / 2>(load);
       fft_stages<R3, RP, 2, R>(v, w);
+      if constexpr (kSplit) {
+        cpx<R>* const stage = s + l * LINE + k1 * PITCH + k2 * R3;
+        auto keep = [&](auto j) {
+          constexpr int k3 = decltype(j)::value;
+          stage[k3] = v[k3];
+        };
+        static_for<0, R3>(keep);
+        continue;
+      }
       const long long line = t * LT + l;
       auto store = [&](auto j) {
         constexpr int k3 = decltype(j)::value;
@@ -733,6 +887,33 @@ __device__ __forceinline__ void mixed_tiles(
         out[((long long)part * batch + line) * seg + (o - part * seg)] = y;
       };
       static_for<0, R3>(store);
+    }
+    if constexpr (kSplit) {
+      // The cluster's rows row0 + j, j < C, of line b (as long_body's
+      // kFoldSplit); output kq of a row at (k1, k2, k3) of its buffer.
+      cluster_sync_all();
+      const unsigned rank = cluster_ctarank(), csize = cluster_nctarank();
+      const long long row0 = t - rank;
+      const R split_scale = inverse ? kInvN * pow2_neg<R>(p_log2) : R(1);
+      // Block `rank` stores k3 in [rank*K3, (rank+1)*K3), K3 = R3/C, of
+      // every kA, k3 fastest: consecutive kq of its share then sit in
+      // consecutive words of the other blocks' buffers.
+      const int k3_log2 = ilog2(R3) - (__ffs(csize) - 1);
+      split_fold_store<false>(
+          [&](int j, int kq) {
+            const int k3 = kq / Q, ka = kq - k3 * Q;
+            const int k2 = ka / R1, k1 = ka - k2 * R1;
+            return *cluster_map(s + k1 * PITCH + k2 * R3 + k3, j);
+          },
+          [&](int t) {
+            return (t >> k3_log2) +
+                   Q * (((int)rank << k3_log2) + (t & ((1 << k3_log2) - 1)));
+          },
+          N / csize, out, gtw, batch >> p_log2, row0 >> p_log2, 1 << p_log2,
+          (int)(row0 & ((1 << p_log2) - 1)), __ffs(csize) - 1, csize, seg,
+          inv_seg, split_scale, 0);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      cluster_sync_all();  // every block has read the rows it stores
     }
     // The buffer's generic-proxy reads and writes are ordered before the
     // bulk copies (async proxy) that overwrite it with the tile DEPTH
@@ -1245,116 +1426,329 @@ int long_dispatch(int n, const void* x, void* out, const void* consts,
                          smem_bytes, stream);
 }
 
-// The split route's pass C for a power-of-two Q: z holds B lines of (P, Q)
-// rows z[b, kp, kq] (pass B's output, in place); out[b, kp + P*kq] =
-// z[b, kp, kq], times the output twiddle tw[kp + P*kq] (P*Q values, or
-// null), times 1/(P*Q) when `inverse`, stored as (parts, B, P*Q/parts)
-// with seg_log2 = log2(P*Q/parts).  A block moves one 32 x 32 tile through
-// shared memory (row pitch 33): it reads 32 consecutive kq of a row and
-// writes 32 consecutive kp of the output.  Grid: (Q/32, P/32, up to 65535
-// lines).
-constexpr int kTransposeTile = 32;
-constexpr int kTransposeRows = 8;
-
-template <typename R>
-__global__ void __launch_bounds__(kTransposeTile * kTransposeRows)
-split_transpose_kernel(const cpx<R>* __restrict__ z,
-                       cpx<R>* __restrict__ out,
-                       const cpx<R>* __restrict__ gtw, long long lines,
-                       int p_log2, int q_log2, int seg_log2, int inverse) {
-  constexpr int T = kTransposeTile;
-  __shared__ cpx<R> tile[T][T + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int kq0 = blockIdx.x * T, kp0 = blockIdx.y * T;
-  const R scale = inverse ? pow2_neg<R>(p_log2 + q_log2) : R(1);
-  // segment part of line b lies at base + of + part * skip
-  const long long skip = (lines - 1) << seg_log2;
-  for (long long b = blockIdx.z; b < lines; b += gridDim.z) {
-    const cpx<R>* zb = z + (b << (p_log2 + q_log2));
-    for (int j = ty; j < T; j += kTransposeRows)
-      tile[j][tx] = zb[((long long)(kp0 + j) << q_log2) + kq0 + tx];
-    __syncthreads();
-    const long long base = b << seg_log2;
-    for (int j = ty; j < T; j += kTransposeRows) {
-      const int of = kp0 + tx + ((kq0 + j) << p_log2);
-      cpx<R> y = tile[tx][j];
-      if (gtw != nullptr) y = cmul(y, gtw[of]);
-      y.re *= scale;
-      y.im *= scale;
-      out[base + of + (long long)(of >> seg_log2) * skip] = y;
-    }
-    __syncthreads();  // the next line's loads overwrite the tile
-  }
+// The split route's pass B on long rows with pass C folded in (kernels/
+// split.py::fold_layout; fold_emulate is its plain version): `x` holds
+// rows = B*P rows of Q = R1*R2*R3 (pass A's (B, P, Q) blocks, P = 2^p_log2),
+// `out` (parts, B, P*Q/parts) with seg = P*Q/parts, `gtw` the line's
+// output twiddle (P*Q values) or null; `inverse` scales by 1/(P*Q).  A
+// cluster of C blocks (C divides P) runs C consecutive rows, one a block,
+// on long_kernel's body (a power-of-two Q) or long_mixed_kernel's (a mixed
+// Q), each kept in its block's shared memory, then stores them transposed
+// in runs of C outputs (split_fold_store).  What bounds it: HBM, one read
+// and one write of the rows (pass C read and wrote them once more); the
+// cluster's distributed shared memory carries the transposition.
+template <typename R, int R1, int R2, int R3, int DEPTH>
+__global__ void __launch_bounds__(
+    LongShape<R1, R2, R3>::THREADS,
+    (long_min_blocks<R, R1, R2, R3, DEPTH>()))
+split_fold_long_kernel(const cpx<R>* __restrict__ x, cpx<R>* __restrict__ out,
+                       const cpx<R>* __restrict__ consts,
+                       const cpx<R>* __restrict__ gtw, long long rows,
+                       int inverse, int p_log2, int seg) {
+  long_body<R, R1, R2, R3, DEPTH, kFoldSplit>(
+      x, out, consts, gtw, rows, inverse, 0,
+      static_cast<const cpx<R>*>(nullptr), 0, 0, seg, p_log2);
 }
 
-// Pass C for a mixed Q (long-line rows of longline.FACTORS' mixed lengths,
-// each a multiple of 32): as split_transpose_kernel, with Q's row stride
-// and the segment (seg = P*Q/parts, any length) by multiplication, and
-// the inverse's 1/(P*Q) as `scale`, which the launcher works out on the
-// host.
-template <typename R>
-__global__ void __launch_bounds__(kTransposeTile * kTransposeRows)
-split_transpose_mixed_kernel(const cpx<R>* __restrict__ z,
-                             cpx<R>* __restrict__ out,
-                             const cpx<R>* __restrict__ gtw, long long lines,
-                             int p_log2, int q, int seg, R scale) {
-  constexpr int T = kTransposeTile;
-  __shared__ cpx<R> tile[T][T + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int kq0 = blockIdx.x * T, kp0 = blockIdx.y * T;
-  const long long n = (long long)q << p_log2;
-  const float inv_seg = __fdividef(1.0f, (float)seg);
-  for (long long b = blockIdx.z; b < lines; b += gridDim.z) {
-    const cpx<R>* zb = z + b * n;
-    for (int j = ty; j < T; j += kTransposeRows)
-      tile[j][tx] = zb[(long long)(kp0 + j) * q + kq0 + tx];
-    __syncthreads();
-    for (int j = ty; j < T; j += kTransposeRows) {
-      const int of = kp0 + tx + ((kq0 + j) << p_log2);
-      cpx<R> y = tile[tx][j];
-      if (gtw != nullptr) y = cmul(y, gtw[of]);
-      y.re *= scale;
-      y.im *= scale;
-      const int part = div_small(of, seg, inv_seg);
-      out[((long long)part * lines + b) * seg + (of - part * seg)] = y;
-    }
-    __syncthreads();  // the next line's loads overwrite the tile
-  }
+template <typename R, int R1, int R2, int R3>
+__global__ void __launch_bounds__(
+    (long_mixed_threads<R, R1, R2, R3>()),
+    (long_mixed_min_blocks<R, R1, R2, R3>()))
+split_fold_mixed_kernel(const cpx<R>* __restrict__ x,
+                        cpx<R>* __restrict__ out,
+                        const cpx<R>* __restrict__ consts,
+                        const cpx<R>* __restrict__ gtw, long long rows,
+                        int inverse, int p_log2, int seg) {
+  static_assert(!is_pow2(R1), "R1 is mixed");
+  mixed_tiles<R, R1, R2, R3, 1, long_mixed_threads<R, R1, R2, R3>(),
+              long_mixed_depth<R, R1, R2, R3>(), 1, true>(
+      x, out, consts, gtw, rows, inverse, seg, p_log2);
 }
 
-// seg_arg: log2(P*Q/parts) for a power-of-two Q, P*Q/parts for a mixed Q.
-template <typename R>
-int split_transpose(const void* z, void* out, const void* tw,
-                    long long lines, int p_log2, int q, int seg_arg,
-                    int inverse, cudaStream_t stream) {
-  if (lines <= 0) return 0;
-  if (p_log2 < 5 || q < 32 || q % 32) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(q / 32), 1u << (p_log2 - 5),
-                  (unsigned)(lines < 65535 ? lines : 65535));
-  const dim3 block(kTransposeTile, kTransposeRows);
-  if (is_pow2(q)) {
-    split_transpose_kernel<R><<<grid, block, 0, stream>>>(
-        static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
-        static_cast<const cpx<R>*>(tw), lines, p_log2, ilog2(q), seg_arg,
-        inverse);
-  } else {
-    // 1/(P*Q) rounded once, as the plain version's scale
-    const R scale = inverse ? (R)(1.0 / ((double)q * (double)(1LL << p_log2)))
-                            : R(1);
-    split_transpose_mixed_kernel<R><<<grid, block, 0, stream>>>(
-        static_cast<const cpx<R>*>(z), static_cast<cpx<R>*>(out),
-        static_cast<const cpx<R>*>(tw), lines, p_log2, q, seg_arg, scale);
-  }
+// Launches `kernel` with clusters of `cluster` blocks (a power of two up
+// to 8, the portable size) of `threads` threads and `smem_bytes` of
+// dynamic shared memory, on a persistent grid: as many clusters as the
+// card holds at once (cudaOccupancyMaxActiveClusters), at most `groups`.
+// A cluster the card cannot hold is an error, not a smaller launch.
+template <typename... Params, typename... Args>
+int cluster_launch(void (*kernel)(Params...), int threads, int smem_bytes,
+                   int cluster, long long groups, cudaStream_t stream,
+                   Args... args) {
+  if (cluster < 1 || cluster > 8 || (cluster & (cluster - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (groups <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  if (clusters > groups) clusters = (int)groups;
+  cfg.gridDim = dim3((unsigned)(clusters * cluster), 1, 1);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Pass C for any P and Q (the split route's general plans, after pass B
-// on the dense kernel, kernels/split.py): as split_transpose_mixed_kernel,
-// with P by multiplication and every 32 x 32 tile bounds-checked on kp
-// and kq (neither need be a multiple of 32), the segment (seg =
-// P*Q/parts, any length) by div_small and the inverse's 1/P as `scale`,
-// worked out on the host (pass B, the rows' own launch, applied the
-// 1/Q).  Grid: (ceil(Q/32), ceil(P/32), up to 65535 lines).
+// The split route's long rows with the folded store, in build part
+// build_part(q, kSplitFoldMode, c64); cudaErrorInvalidValue for any other
+// Q.  `smem_bytes` must equal the long kernel's layout of Q.
+constexpr int kSplitFoldMode = 6;
+
+template <typename R, int PART>
+int split_fold_part(int q, const void* x, void* out, const void* consts,
+                    const void* tw, long long rows, int inverse, int p_log2,
+                    int seg, int cluster, int smem_bytes,
+                    cudaStream_t stream);
+
+#if !defined(REPRO_PART) || REPRO_PART >= 0
+template <typename R, int PART>
+int split_fold_part(int q, const void* x, void* out, const void* consts,
+                    const void* tw, long long rows, int inverse, int p_log2,
+                    int seg, int cluster, int smem_bytes,
+                    cudaStream_t stream) {
+  constexpr bool c64 = sizeof(R) == sizeof(float);
+  if (p_log2 < 0 || p_log2 > 20 || cluster > (1 << p_log2) ||
+      rows % cluster)
+    return (int)cudaErrorInvalidValue;
+#define REPRO_SPLIT_FOLD_ARGS                                              \
+  static_cast<const cpx<R>*>(x), static_cast<cpx<R>*>(out),               \
+      static_cast<const cpx<R>*>(consts), static_cast<const cpx<R>*>(tw),  \
+      rows, inverse, p_log2, seg
+#define REPRO_SPLIT_FOLD_CASE(NN, A, B, C)                                 \
+  case NN:                                                                 \
+    if constexpr (build_part(NN, kSplitFoldMode, c64) == PART) {           \
+      constexpr int D = long_depth<R, A, B, C>();                          \
+      if ((size_t)smem_bytes != long_smem_bytes<R, A, B, C, D>())          \
+        return (int)cudaErrorInvalidValue;                                 \
+      return cluster_launch(split_fold_long_kernel<R, A, B, C, D>,         \
+                            LongShape<A, B, C>::THREADS, smem_bytes,       \
+                            cluster, rows / cluster, stream,               \
+                            REPRO_SPLIT_FOLD_ARGS);                        \
+    }                                                                      \
+    break;
+#define REPRO_SPLIT_FOLD_MIXED_CASE(NN, A, B, C)                           \
+  case NN:                                                                 \
+    if constexpr (build_part(NN, kSplitFoldMode, c64) == PART) {           \
+      if ((size_t)smem_bytes !=                                            \
+          long_mixed_smem_bytes<R, A, B, C,                                \
+                                long_mixed_depth<R, A, B, C>()>())         \
+        return (int)cudaErrorInvalidValue;                                 \
+      return cluster_launch(split_fold_mixed_kernel<R, A, B, C>,           \
+                            long_mixed_threads<R, A, B, C>(), smem_bytes,  \
+                            cluster, rows / cluster, stream,               \
+                            REPRO_SPLIT_FOLD_ARGS);                        \
+    }                                                                      \
+    break;
+  // kernels/split.py::FOLD_LONG_ROWS lists the same Q, longline.FACTORS
+  // their factors.
+  if constexpr (c64) {
+    switch (q) {
+      REPRO_SPLIT_FOLD_MIXED_CASE(3872, 22, 11, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4000, 25, 10, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4160, 26, 10, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4224, 24, 11, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4320, 30, 9, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4352, 17, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4480, 28, 10, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4576, 26, 11, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4608, 18, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4704, 21, 14, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4800, 30, 10, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4864, 19, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4928, 28, 11, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4992, 26, 12, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5120, 20, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5184, 27, 12, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5280, 30, 11, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5376, 21, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5408, 26, 13, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5600, 25, 14, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5632, 22, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5760, 30, 12, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5824, 28, 13, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5888, 23, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6048, 27, 14, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6144, 24, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6240, 30, 13, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6272, 28, 14, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6336, 22, 18, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6400, 25, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6656, 26, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6720, 30, 7, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6912, 27, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7040, 22, 10, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7168, 28, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7200, 25, 9, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7392, 21, 11, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7488, 26, 9, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7680, 30, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7744, 22, 11, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7776, 27, 9, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8000, 25, 10, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8064, 28, 9, 32)
+      REPRO_SPLIT_FOLD_CASE(8192, 16, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8320, 26, 10, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8448, 24, 11, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8640, 30, 9, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8704, 17, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8736, 21, 13, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8800, 25, 11, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8960, 28, 10, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(9152, 26, 11, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(9216, 18, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(9408, 21, 14, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(9504, 27, 11, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(9600, 30, 10, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(9728, 19, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(9856, 28, 11, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(9984, 26, 12, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(10080, 21, 15, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(10240, 20, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(10368, 27, 12, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(10400, 25, 13, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(10560, 30, 11, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(10752, 21, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(10816, 26, 13, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(11200, 25, 14, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(11232, 27, 13, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(11264, 22, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(11520, 30, 12, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(11648, 28, 13, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(11776, 23, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(12000, 25, 15, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(12096, 27, 14, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(12288, 24, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(12480, 30, 13, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(12544, 28, 14, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(12672, 22, 18, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(12800, 25, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(12960, 27, 15, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(13312, 26, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(13440, 30, 14, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(13824, 27, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(14080, 22, 20, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(14112, 21, 21, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(14336, 28, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(14400, 30, 15, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(14784, 22, 21, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(14976, 26, 18, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(15360, 30, 16, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(15488, 22, 22, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(15552, 27, 18, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(16000, 25, 20, 32)
+      REPRO_SPLIT_FOLD_MIXED_CASE(16128, 28, 18, 32)
+      REPRO_SPLIT_FOLD_CASE(16384, 16, 32, 32)
+      default:
+        break;
+    }
+  } else {
+    switch (q) {
+      REPRO_SPLIT_FOLD_MIXED_CASE(1920, 30, 8, 8)
+      REPRO_SPLIT_FOLD_MIXED_CASE(2304, 18, 8, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(2688, 21, 8, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(3200, 25, 8, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(3456, 27, 8, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(3584, 28, 8, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(3840, 30, 8, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4160, 26, 10, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4224, 24, 11, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4320, 30, 9, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4352, 17, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4480, 28, 10, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4576, 26, 11, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4608, 18, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4704, 21, 14, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4800, 30, 10, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4864, 19, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4928, 28, 11, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(4992, 26, 12, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5120, 20, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5184, 27, 12, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5280, 30, 11, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5376, 21, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5408, 26, 13, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5600, 25, 14, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5632, 22, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5760, 30, 12, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5824, 28, 13, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(5888, 23, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6048, 27, 14, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6144, 24, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6240, 30, 13, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6272, 28, 14, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6336, 22, 18, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6400, 25, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6656, 26, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6720, 30, 14, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(6912, 27, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7040, 22, 20, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7168, 28, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7200, 30, 15, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7392, 22, 21, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7488, 26, 18, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7680, 30, 16, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7744, 22, 22, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(7776, 27, 18, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8000, 25, 20, 16)
+      REPRO_SPLIT_FOLD_MIXED_CASE(8064, 28, 18, 16)
+      REPRO_SPLIT_FOLD_CASE(8192, 16, 16, 32)
+      default:
+        break;
+    }
+  }
+#undef REPRO_SPLIT_FOLD_ARGS
+#undef REPRO_SPLIT_FOLD_CASE
+#undef REPRO_SPLIT_FOLD_MIXED_CASE
+  return (int)cudaErrorInvalidValue;
+}
+#endif
+
+// Rows of q on the split route's folded long rows: split_fold_part of q's
+// build part.
+template <typename R, int P = 0>
+int split_fold_dispatch(int q, const void* x, void* out, const void* consts,
+                        const void* tw, long long rows, int inverse,
+                        int p_log2, int seg, int cluster, int smem_bytes,
+                        cudaStream_t stream) {
+  if constexpr (P + 1 < kBuildParts) {
+    if (build_part(q, kSplitFoldMode, sizeof(R) == sizeof(float)) != P)
+      return split_fold_dispatch<R, P + 1>(q, x, out, consts, tw, rows,
+                                           inverse, p_log2, seg, cluster,
+                                           smem_bytes, stream);
+  }
+  return split_fold_part<R, P>(q, x, out, consts, tw, rows, inverse, p_log2,
+                               seg, cluster, smem_bytes, stream);
+}
+
+constexpr int kTransposeTile = 32;
+constexpr int kTransposeRows = 8;
+
+// Pass C for any P and Q (the split route's plans whose rows run their own
+// launch in natural order, kernels/split.py::fold_layout is None: a nested
+// plan's or a chirp's M whose rows take the radix, long-line or split
+// route, and dense rows too long for the folded kernel's slot and tile): z
+// holds B lines of (P, Q) rows z[b, kp, kq]; out[b, kp + P*kq] = z[b, kp,
+// kq] times the output twiddle tw[kp + P*kq] (P*Q values, or null), times
+// `scale`, the inverse's 1/P worked out on the host (the rows' launch
+// applied the 1/Q), stored as (parts, B, seg), seg = P*Q/parts of any
+// length (div_small).  A block moves one 32 x 32 tile through shared
+// memory (row pitch 33), bounds-checked on kp and kq: it reads 32
+// consecutive kq of a row and writes 32 consecutive kp of the output.
+// Grid: (ceil(Q/32), ceil(P/32), up to 65535 lines).
 //
 // With kKeep (the chirp route's second transform on a split plan of M =
 // P*Q, kernels/chirp.py) only the outputs of < n_keep (= N) are stored,

@@ -402,6 +402,16 @@ def emulate(x: torch.Tensor, *, inverse: bool = False,
 def _chain(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The kernel's stages and store order on contiguous ``(B, N)`` lines,
     without the epilogues: ``(B, N)`` in natural order."""
+    buf, pos = staged(x, inverse)
+    return buf[:, pos]
+
+
+def staged(x: torch.Tensor, inverse: bool
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's stages on contiguous ``(B, N)`` lines, in place, as
+    they leave the lines in shared memory: ``(B, N)`` in the chain's
+    order, and where output k of a line sits, PL[k mod lo] + PH[k div
+    lo] (``(N,)``, int64)."""
     b, n = x.shape
     plan = dense_plan(n, x.dtype)
     cdt, dev = x.dtype, x.device
@@ -438,4 +448,4 @@ def _chain(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     tabs_i = torch.from_numpy(ints.astype(np.int64)).to(dev)
     base = 4 * len(plan.radices)
     pl, ph = tabs_i[base:base + plan.lo], tabs_i[base + plan.lo:]
-    return buf[:, pl[k % plan.lo] + ph[k // plan.lo]]
+    return buf, pl[k % plan.lo] + ph[k // plan.lo]

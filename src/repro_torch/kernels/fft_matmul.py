@@ -60,10 +60,11 @@ a radix or long-line row holds (``split.rule_factors``), and every other
 route — N = P*Q through HBM, a strided radix launch on the P-long
 columns (P a power of two; for a general plan without one, the dense
 kernel's column form) with the inter-step twiddle in its store, then the
-Q-long rows: on the radix route, stored
-transposed with the line's epilogues; on the long-line route or the
-dense route's launch, stored in natural order and moved by a transpose
-launch that carries the epilogues —
+Q-long rows stored transposed with the line's epilogues: on the radix
+route, or on the long-line or dense route's stages through a
+thread-block cluster (a nested plan's rows on another route: stored in
+natural order and moved by a transpose launch that carries the
+epilogues) —
 planned in ``kernels/split.py``, whose ``emulate`` is that route's plain
 version; every other N up to ``dense.DENSE_LIMIT`` (complex64 4835,
 complex128 2419) whose generic stages (one per prime factor past 13)
@@ -100,14 +101,15 @@ to its variant's entry of ``fft_fourstep.variant_launches`` ("fourstep",
 "pack", "twiddle"), to its route's entry of ``fft_fourstep.path_launches``
 (the five names :func:`radix.kernel_path` gives) and to its layout's
 entry of ``fft_fourstep.layout_launches`` ("lines", "strided"); nothing
-else touches them.  A split call is two launches (three with rows on the
-long-line route or the dense kernel), each counted on "split" and the
-layout it runs (pass
-A: "strided", "fourstep"; passes B and C: "lines"; the last carries the
-call's variant), and adds one to ``fft_fourstep.split_calls`` (a nested
-plan's rows count on "split" with no call of their own).  A chirp call
+else touches them.  A split call is two launches (pass A, the rows' own
+launches and pass C where a plan's rows keep pass C), each counted on "split" and the layout it runs
+(pass A: "strided", "fourstep"; passes B and C: "lines"; the last carries
+the call's variant), and adds one to ``fft_fourstep.split_calls`` (a
+nested plan's rows count on "split" with no call of their own); a pass B
+with pass C folded in adds one to ``fft_fourstep.fold_launches``'
+"dense" or "long".  A chirp call
 is two inner transforms (one launch each on the dense or the long-line
-route, a split plan's pass A, rows and pass C on the split route), every
+route, a split plan's two launches, or pass A, the rows' and pass C), every
 launch counted on "chirp" and its layout, and adds one to
 ``fft_fourstep.chirp_calls``.  A long-path line that does not start on
 16 bytes (the bulk copies' alignment) is cloned first and adds one to
@@ -354,8 +356,8 @@ def _raise_on(err: int, lib, path: str, x: torch.Tensor) -> None:
                            f"{err} ({msg})")
 
 
-def _count(path: str, layout: str, variant: str, split_call: bool = False
-           ) -> None:
+def _count(path: str, layout: str, variant: str, split_call: bool = False,
+           fold: Optional[str] = None) -> None:
     # The executor's pool mode launches from several threads.
     with _COUNT_LOCK:
         fft_fourstep.launches += 1
@@ -363,6 +365,8 @@ def _count(path: str, layout: str, variant: str, split_call: bool = False
         fft_fourstep.path_launches[path] += 1
         fft_fourstep.layout_launches[layout] += 1
         fft_fourstep.split_calls += int(split_call)
+        if fold is not None:
+            fft_fourstep.fold_launches[fold] += 1
 
 
 def _seg_arg(n: int, parts: int) -> int:
@@ -588,25 +592,31 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                   plan: split.SplitPlan, count_as: str = "split",
                   call: bool = True, pre: Optional[torch.Tensor] = None,
                   keep: Optional[int] = None,
-                  into: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  into: Optional[torch.Tensor] = None,
+                  fold: Optional[split.FoldLayout] = None) -> torch.Tensor:
     """The split route on contiguous ``(B, N)`` lines, N = P*Q
     (``kernels/split.py``): pass A, the strided radix launch on the
     ``(B, P, Q)`` block with the inter-step twiddle (or the dense kernel's
     column form, for a general or nested plan's dense pass A), into a
-    scratch block; pass B, the Q-long rows: on the radix route stored
-    transposed into the output with the line's epilogues, on the long-line
-    route or the dense kernel (or, for a nested plan, the rows' own launch
-    on any route) stored in natural order into a second scratch block that
-    pass C transposes into the output with the epilogues.  All on the
-    current stream; each counted on ``count_as`` ("split", or "chirp"
-    inside the chirp route) and its layout, and with ``call`` the call on
-    ``split_calls``.
+    scratch block; pass B, the Q-long rows: on the radix route, and on the
+    long-line route's or the dense route's stages through a thread-block
+    cluster (``split.fold_layout``, :func:`_launch_fold`; counted on
+    ``fold_launches`` too), stored transposed into the output with the
+    line's epilogues; for a plan whose rows keep pass C (row path "any":
+    a nested plan's rows on another route, rows too long for the folded
+    kernel's slot and tile), the rows' own launch in natural order into a
+    second scratch block that pass C transposes into the output with the
+    epilogues.  All on the current stream; each
+    counted on ``count_as`` ("split", or "chirp" inside the chirp route)
+    and its layout, and with ``call`` the call on ``split_calls``.
 
-    The chirp route's folded load and store (a plan with dense pass A and
-    pass C): with ``pre`` ``x`` is ``(B, n_in)``, read as the first n_in
-    of each (P, Q) block times ``pre``, zeros past them; with ``keep`` pass
-    C stores only the outputs of index < ``keep`` (the ``pack_parts``
-    segments of ``keep``) into ``into``, the ``(p, B, keep/p)`` buffer."""
+    The chirp route's folded load and store (a plan with dense pass A):
+    with ``pre`` ``x`` is ``(B, n_in)``, read as the first n_in of each
+    (P, Q) block times ``pre``, zeros past them; with ``keep`` the last
+    store (pass B's on dense rows, else pass C's) keeps only the outputs of
+    index < ``keep`` (the ``pack_parts`` segments of ``keep``) into
+    ``into``, the ``(p, B, keep/p)`` buffer.  ``fold`` forces the folded
+    pass B's layout (a sweep's; by default ``split.fold_layout``'s)."""
     from . import build
     lib = build.load("fft_fourstep")
     _declare(lib)
@@ -626,11 +636,15 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
     kept = n if keep is None else keep
     parts = pack_parts if pack_parts is not None else 1
     dev, cdt = x.device, x.dtype
+    fold = fold or split.fold_layout(plan, cdt)
     with torch.cuda.device(dev):
         current = torch.cuda.current_stream(dev)
         stream = current.cuda_stream
-        # pass A: (B, P, Q) -> (B, P, Q), the P-long columns
-        y = torch.empty((b, plan.p, plan.q), dtype=cdt, device=dev)
+        # pass A: (B, P, Q) -> (B, P, Q), the P-long columns; 16 bytes of
+        # room past the block, which the folded dense rows' bulk copy may
+        # read into from a complex64 row that ends 8 bytes off 16
+        y = torch.empty(b * n + 16 // x.element_size(), dtype=cdt,
+                        device=dev)[:b * n].view(b, plan.p, plan.q)
         ctile = split.column_tile(plan, cdt)
         tables = _split_constants(plan, inverse, cdt, dev)
         tables.record_stream(current)
@@ -663,8 +677,9 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
                 ctile.smem_bytes, stream)
         _raise_on(err, lib, "split pass A", x)
         _count(count_as, "strided", "fourstep")
-        # pass B: the Q-long rows, stored transposed at kp + P*kq (radix)
-        # or in natural order (long-line, dense or any, then pass C)
+        # pass B: the Q-long rows, stored transposed at kp + P*kq (radix
+        # rows, or long-line and dense rows through a cluster) or in
+        # natural order (rows that keep pass C)
         seg_arg = _seg_arg(n, parts)
         twp = tw.data_ptr() if tw is not None else None
         variant = _variant(tw, pack_parts)
@@ -680,55 +695,64 @@ def _launch_split(x: torch.Tensor, tw: Optional[torch.Tensor], *,
             _raise_on(err, lib, "split pass B", x)
             _count(count_as, "lines", variant, split_call=call)
             return out
-        if plan.row_path == "any":
-            # the rows' own launch on their route, the inverse's 1/Q
-            # included; pass C applies the 1/P
-            z = _launch(y.view(b * plan.p, plan.q), None, inverse=inverse,
-                        count_as=count_as)
-        else:
-            z = torch.empty_like(y)
-            rtile = split.row_tile(plan, cdt)
-        if plan.row_path == "dense":
-            # the dense route's own launch, the inverse's 1/Q included;
-            # pass C applies the 1/P
-            qconsts, qints = _dense_constants(plan.q, inverse, cdt, dev)
-            for c in (qconsts, qints):
-                c.record_stream(current)
-            err = getattr(lib, f"repro_fft_dense_{suffix}")(
-                y.data_ptr(), z.data_ptr(), qconsts.data_ptr(),
-                qints.data_ptr(), None, b * plan.p, plan.q,
-                len(rtile.radices), rtile.lines, rtile.t_log2, rtile.lo,
-                rtile.n_consts, rtile.n_ints, rtile.buf_offset,
-                int(inverse), plan.q, rtile.threads, rtile.smem_bytes,
-                stream)
-        elif plan.row_path == "long":
-            # the inverse's sign is in the constants; its 1/N waits for
-            # pass C
-            qconsts = _long_constants(plan.q, inverse, cdt, dev)
-            qconsts.record_stream(current)
-            err = getattr(lib, f"repro_fft_long_{suffix}")(
-                y.data_ptr(), z.data_ptr(), qconsts.data_ptr(), None,
-                b * plan.p, plan.q, 0, _seg_arg(plan.q, 1),
-                rtile.smem_bytes, stream)
-        if plan.row_path != "any":
+        if fold is not None:
+            # pass B with pass C folded in: a cluster's rows stored
+            # transposed with the epilogues
+            err = _launch_fold(lib, y, buf, twp, plan, fold,
+                               inverse=inverse, seg=kept // parts,
+                               keep=keep, stream=stream, current=current)
             _raise_on(err, lib, "split pass B", x)
-            _count(count_as, "lines", "fourstep")
+            _count(count_as, "lines", variant, split_call=call,
+                   fold=fold.rows)
+            return out
+        # the rows that keep pass C ("any"): their own launch on their
+        # route, the inverse's 1/Q included; pass C applies the 1/P
+        z = _launch(y.view(b * plan.p, plan.q), None, inverse=inverse,
+                    count_as=count_as)
         # pass C: (B, P, Q) rows to out[b, kp + P*kq], with the epilogues
         if keep is not None:
             err = getattr(lib, f"repro_fft_split_c_keep_{suffix}")(
                 z.data_ptr(), buf.data_ptr(), twp, b, plan.p, plan.q, kept,
                 kept // parts, int(inverse), stream)
-        elif plan.row_path in ("dense", "any"):
+        else:
             err = getattr(lib, f"repro_fft_split_c_any_{suffix}")(
                 z.data_ptr(), buf.data_ptr(), twp, b, plan.p, plan.q,
                 n // parts, int(inverse), stream)
-        else:
-            err = getattr(lib, f"repro_fft_split_c_{suffix}")(
-                z.data_ptr(), buf.data_ptr(), twp, b, plan.p_log2, plan.q,
-                seg_arg, int(inverse), stream)
     _raise_on(err, lib, "split pass C", x)
     _count(count_as, "lines", variant, split_call=call)
     return out
+
+
+def _launch_fold(lib, y: torch.Tensor, buf: torch.Tensor,
+                 twp: Optional[int], plan: split.SplitPlan,
+                 fold: split.FoldLayout, *, inverse: bool, seg: int,
+                 keep: Optional[int], stream: int, current) -> int:
+    """Pass B of ``plan`` with pass C folded in (``split.fold_layout``):
+    the rows of ``y``, pass A's ``(B, P, Q)`` blocks, through a cluster
+    of ``fold.cluster`` blocks into ``buf`` with the epilogues, segment
+    ``seg``; on the dense route's stages (``repro_fft_split_b_dense_*``,
+    the outputs of < ``keep`` where given) or the long-line route's
+    (``repro_fft_split_b_long_*``).  Returns the CUDA error code."""
+    b, p, q = y.shape
+    cdt, dev = y.dtype, y.device
+    suffix = "c64" if cdt == torch.complex64 else "c128"
+    if fold.rows == "long":
+        consts = _long_constants(q, inverse, cdt, dev)
+        consts.record_stream(current)
+        return getattr(lib, f"repro_fft_split_b_long_{suffix}")(
+            y.data_ptr(), buf.data_ptr(), consts.data_ptr(), twp, b * p, q,
+            int(inverse), plan.p_log2, seg, fold.cluster, fold.smem_bytes,
+            stream)
+    rows = dense.dense_plan(q, cdt)
+    consts, ints = _dense_constants(q, inverse, cdt, dev)
+    for c in (consts, ints):
+        c.record_stream(current)
+    return getattr(lib, f"repro_fft_split_b_dense_{suffix}")(
+        y.data_ptr(), buf.data_ptr(), consts.data_ptr(), ints.data_ptr(),
+        twp, b, p, q, len(rows.radices), fold.lines.bit_length() - 1,
+        rows.t_log2, rows.lo, rows.n_consts, rows.n_ints, rows.buf_offset,
+        fold.slot_elems, fold.depth, fold.tile_pitch, int(inverse), seg,
+        keep or 0, fold.cluster, fold.threads, fold.smem_bytes, stream)
 
 
 def _declare(lib) -> None:
@@ -753,10 +777,17 @@ def _declare(lib) -> None:
                lib.repro_fft_split_b_radix_c128):
         fn.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p]
         fn.restype = i
-    for fn in (lib.repro_fft_split_c_c64, lib.repro_fft_split_c_c128,
-               lib.repro_fft_split_c_any_c64,
+    for fn in (lib.repro_fft_split_c_any_c64,
                lib.repro_fft_split_c_any_c128):
         fn.argtypes = [p, p, p, ll, i, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.repro_fft_split_b_long_c64,
+               lib.repro_fft_split_b_long_c128):
+        fn.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.repro_fft_split_b_dense_c64,
+               lib.repro_fft_split_b_dense_c128):
+        fn.argtypes = [p, p, p, p, p, ll] + [i] * 18 + [p]
         fn.restype = i
     for fn in (lib.repro_fft_split_a_dense_c64,
                lib.repro_fft_split_a_dense_c128):
@@ -867,6 +898,7 @@ fft_fourstep.path_launches = {"radix": 0, "dense": 0, "long": 0,
                               "split": 0, "chirp": 0}
 fft_fourstep.layout_launches = {"lines": 0, "strided": 0}
 fft_fourstep.split_calls = 0
+fft_fourstep.fold_launches = {"dense": 0, "long": 0}
 fft_fourstep.chirp_calls = 0
 fft_fourstep.aligned_copies = 0
 
@@ -874,16 +906,20 @@ fft_fourstep.aligned_copies = 0
 def launch_counts() -> Dict[str, int]:
     """One consistent snapshot of the launch counters, flat: ``launches``
     and one entry per variant, path and layout, ``split_calls`` (the
-    split route's calls, two or three launches each), ``chirp_calls``
-    (the chirp route's, two inner transforms each) and ``aligned_copies``
-    (long-route lines cloned because they did not start on 16 bytes, as
-    the bulk copies need)."""
+    split route's calls, two launches each, three where a nested plan's
+    rows keep pass C), ``fold_dense`` and ``fold_long`` (the split route's
+    pass B with pass C folded in, on dense or long-line rows, on any
+    path), ``chirp_calls`` (the chirp route's, two inner transforms each)
+    and ``aligned_copies`` (long-route lines cloned because they did not
+    start on 16 bytes, as the bulk copies need)."""
     with _COUNT_LOCK:
         return {"launches": fft_fourstep.launches,
                 **fft_fourstep.variant_launches,
                 **fft_fourstep.path_launches,
                 **fft_fourstep.layout_launches,
                 "split_calls": fft_fourstep.split_calls,
+                "fold_dense": fft_fourstep.fold_launches["dense"],
+                "fold_long": fft_fourstep.fold_launches["long"],
                 "chirp_calls": fft_fourstep.chirp_calls,
                 "aligned_copies": fft_fourstep.aligned_copies}
 
@@ -896,6 +932,7 @@ def reset_launch_counts() -> None:
         fft_fourstep.aligned_copies = 0
         for counts in (fft_fourstep.variant_launches,
                        fft_fourstep.path_launches,
-                       fft_fourstep.layout_launches):
+                       fft_fourstep.layout_launches,
+                       fft_fourstep.fold_launches):
             for k in counts:
                 counts[k] = 0

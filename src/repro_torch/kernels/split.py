@@ -12,8 +12,8 @@ long-line row holds, 23*2^k among them; P a power of two, a mixed N's odd
 part in Q, so the odd codelets run in pass B; then the general plans,
 :func:`general_factors`, for every other 13-smooth N past one block up to
 those limits) is viewed as (P, Q), x[p*Q + q], and transformed by the
-routes one block holds, in two launches (three with rows on the long-line
-route or the dense kernel):
+routes one block holds, in two launches (more where a nested plan's rows
+run their own launch on another route):
 
 * pass A — the P-long DFT down every column q (stride Q): the radix
   route's strided entry on the ``(B, P, Q)`` block (outer = B, N = P,
@@ -28,26 +28,41 @@ route or the dense kernel):
   ``pack_parts`` segment store.  A tile holds L consecutive rows in the
   layout (k1, l, m2) with a row pitch of Q2 + 1, and the row pass runs its
   threads along l, so a warp stores L consecutive kp (``kRadixSplitB``).
-* On the long-line route (Q of ``longline.FACTORS``, a multiple of 32, with
-  one mixed factor or two) a block holds one row, so its stores cannot be
-  staged so: pass B stores the rows in place (``fft_long.cuh`` as it is,
-  without the scale), and pass C (``split_transpose``) moves 32 x 32 tiles of
-  each line's (P, Q) rows through shared memory to out[b, kp + P*kq] with the
-  line's epilogues.  Storing pass B straight to kp + P*kq took 2.5 times as
-  long at 2^24 (3.8 ms against 1.5; PERF.md).
+* On the long-line route (Q of ``longline.FACTORS``, one mixed factor or
+  two) and on the dense route's stages (the general plans, below; a
+  nested plan's or a chirp's M whose rows take the dense route) a block
+  holds one row or a few, so its stores alone cannot make runs of
+  consecutive kp: stored straight to kp + P*kq from one-row blocks they
+  took 2.5 times as long at 2^24 (3.8 ms against 1.5; PERF.md), which is
+  why a third launch, pass C, transposed the rows once more through HBM.
+  Pass B now stores them transposed itself, through a thread-block
+  cluster (:func:`fold_layout`): C blocks on neighbouring SMs transform C
+  consecutive rows kp (L rows a block where the dense plan holds several,
+  C = 1 where L rows already make runs of :data:`FOLD_RUN_BYTES`), keep
+  them in shared memory, and after a cluster barrier each block reads its
+  share of kq of all of them through distributed shared memory and stores
+  runs of C*L consecutive outputs with the line's epilogues
+  (``fft_long.cuh``'s ``split_fold_store``: ``split_fold_long_kernel`` and
+  ``split_fold_mixed_kernel`` on the long-line route's bodies,
+  ``fft_dense.cuh``'s ``split_fold_dense_kernel`` on the dense route's
+  stages; :func:`fold_emulate` is their plain version).  Two launches.
 * The general plans (odd N, N with too few factors of 2 for a P of
   :data:`COLUMN_SIZES`, Q on no radix or long-line row) put pass B on the
-  dense route's own launch (``fft_dense.cuh``'s ``dense_kernel``: rows of
-  any 13-smooth Q that fits one block, in natural order, the inverse's
-  1/Q included) and pass C on ``split_transpose_any`` (any P and Q,
-  bounds-checked 32 x 32 tiles, the epilogues, the inverse's 1/P); pass A
-  stays on the radix route where N has a P of :data:`COLUMN_SIZES` (its
-  tables within :data:`TABLE_MAX_BYTES`), else runs on the dense
-  kernel's column form (``dense_column_kernel``: a tile of 16, 8 or 4
-  consecutive columns of any 13-smooth P, its inter-step twiddle W_N^e =
-  WA[e mod W] * WB[e div W], W = 2^w_log2 >= sqrt(N)).
+  dense route's stages (rows of any 13-smooth Q that fits one block);
+  pass A stays on the radix route where N has a P of
+  :data:`COLUMN_SIZES` (its tables within :data:`TABLE_MAX_BYTES`), else
+  runs on the dense kernel's column form (``dense_column_kernel``: a tile
+  of 16, 8 or 4 consecutive columns of any 13-smooth P, its inter-step
+  twiddle W_N^e = WA[e mod W] * WB[e div W], W = 2^w_log2 >= sqrt(N)).
   The dense kernel's chain is run-time data, so no length adds an
   instantiation.
+* Rows that the folded kernels do not take keep pass C (row path "any":
+  their own launch in natural order, then ``split_transpose_any``: any P
+  and Q, bounds-checked 32 x 32 tiles, the epilogues, the inverse's 1/P):
+  a nested plan's rows on another route (the radix, long-line or split
+  route), and dense rows too long for a slot and the cluster's tile in
+  one block (a general plan's Q past about 14000 complex64 and 7000
+  complex128, a nested plan's or a chirp's M past them).
 
 The inter-step twiddle would be an N-entry table (128 MB at N = 2^24 in
 complex64); it is TA[kp, ql] * TB[kp, qh] with q = qh*QL + ql, QL a power
@@ -56,8 +71,9 @@ entries built in float64 (:func:`constants`, one rounding per entry) and
 read through L2.
 
 :func:`emulate` runs exactly these passes and index maps in torch, through
-``radix.emulate`` and ``longline.emulate`` with the same modes and
-:func:`transpose_emulate`; it is the route's plain version
+``radix.emulate``, ``longline.emulate`` and ``dense``'s stages with the
+same modes, :func:`fold_emulate` and :func:`transpose_emulate`; it is the
+route's plain version
 (``fft_matmul.fft_fourstep_plain`` takes it for these N), and the CPU
 tests hold it against ``np.fft`` and the JAX package's kernel
 (``dense.emulate`` and its ``columns=`` mode for the general plans).
@@ -307,15 +323,20 @@ def general_candidates(n: int, dtype: torch.dtype) -> list:
 
 #: The general rule's P on the dense kernel's columns (the candidate
 #: nearest it, in ratio) and the longest Q it prefers on the dense
-#: kernel's rows, per complex dtype (complex128 half complex64's, the same
-#: bytes).  An H100 sweep of every candidate family forced on the same
-#: lines (``scripts/route_times.py splitgen``: 40 lengths, up to 14 dense
-#: and every radix pass A each; PERF.md §6) read the best dense P at 150 to
-#: 700 while Q stays at or below about 7500 (rows past it: 10-30% slower),
-#: small P far slower (P = 2: 8.4 ms against 0.79), and the radix pass A
-#: at its least P, where it ran, level with or ahead of every dense one.
+#: kernel's rows, per complex dtype.  An H100 sweep of every candidate
+#: family forced on the same lines (``scripts/route_times.py splitgen``:
+#: 40 lengths, up to 14 dense and every radix pass A each; PERF.md §6)
+#: read the best dense P at 150 to 700 (complex128 half complex64's)
+#: while Q stays at or below about 7500 complex64 (rows past it: 10-30%
+#: slower), small P far slower (P = 2: 8.4 ms against 0.79), and the
+#: radix pass A at its least P, where it ran, level with or ahead of every
+#: dense one.  With pass C folded into the rows (``split_fold_dense_kernel``)
+#: the rule's pick under eight (P, longest Q) pairs, forced on the sweep's
+#: lengths (``generalrules``), read complex128 rows of at most 1750 ahead
+#: (geometric mean 0.881 of the three passes' time against 0.928 at 3750;
+#: the held-out lengths 0.901 against 0.938) and complex64 best at 7500.
 GENERAL_P = {torch.complex64: 400, torch.complex128: 200}
-GENERAL_Q_MAX = {torch.complex64: 7500, torch.complex128: 3750}
+GENERAL_Q_MAX = {torch.complex64: 7500, torch.complex128: 1750}
 
 
 @functools.lru_cache(maxsize=None)
@@ -483,7 +504,9 @@ class SplitPlan:
     p: int              # pass A's length (columns)
     q: int              # pass B's length (rows)
     row_path: str       # "radix", "long", "dense" or "any": pass B's
-    #                     route ("any": the rows' own launch, any route)
+    #                     route ("dense": the dense stages with pass C
+    #                     folded in; "any": the rows' own launch, any
+    #                     route, then pass C)
     col_path: str = "radix"     # "radix" or "dense": pass A's route
 
     @property
@@ -532,8 +555,13 @@ def split_plan(n: int, dtype: torch.dtype) -> SplitPlan:
         return SplitPlan(n, p, q, row_path)
     general = general_factors(n, dtype)
     if general is not None:
+        # dense rows with pass C folded in, or, where a row and its tile do
+        # not fit one block, the rows' own launch and pass C
         p, q, col_path = general
-        return SplitPlan(n, p, q, "dense", col_path)
+        plan = SplitPlan(n, p, q, "dense", col_path)
+        if fold_layout(plan, dtype) is None:
+            plan = SplitPlan(n, p, q, "any", col_path)
+        return plan
     nested = nested_factors(n, dtype)
     if nested is None:
         raise ValueError(
@@ -548,6 +576,124 @@ def split_plan(n: int, dtype: torch.dtype) -> SplitPlan:
     return SplitPlan(n, p, q, "any", col_path)
 
 
+#: The bytes of one run of pass B's transposed store that a cluster's
+#: group of rows makes (C*L rows of one line, C*L consecutive outputs),
+#: per kind of row and complex dtype: on long-line rows, one a block, C =
+#: 8 complex64 (64 bytes) and 2 complex128 (32 bytes), which an H100 sweep
+#: of C forced on the same lines read fastest (``scripts/route_times.py
+#: splitfold``: complex128 2^22 and 23, 25, 27*2^17 at C = 2 1-10% ahead
+#: of C = 4, complex64 2^24 at C = 8 3% ahead of C = 4); on dense rows C*L
+#: rows of 64 and 32 bytes (complex64 C = 8 ahead of 4 over four lengths,
+#: complex128 2278125 at C = 2 5% ahead of 4; PERF.md §6).
+FOLD_RUN_BYTES = {"long": {torch.complex64: 64, torch.complex128: 32},
+                  "dense": {torch.complex64: 64, torch.complex128: 32}}
+#: The ring of pass B's folded kernel on dense rows where a block stores
+#: its own rows (C = 1): two slots where they fit one block's shared
+#: memory, so that a group's rows land while the one before is stored;
+#: else one.  Where C > 1 the block's one slot is free again once its
+#: rows are pushed into the tiles.
+FOLD_DEPTH = 2
+#: The Q of long-line rows that the split route's plans run
+#: (``fft_long.cuh``'s ``split_fold_part`` instantiates each).
+FOLD_LONG_ROWS = {dtype: tuple(sorted({q for _, q in table.values()
+                                       if q in longline.FACTORS[dtype]}))
+                  for dtype, table in FACTORS.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldLayout:
+    rows: str           # "dense" (split_fold_dense_kernel) or "long"
+    cluster: int        # C: blocks of a cluster, one group of rows
+    lines: int          # L: consecutive rows a block holds
+    depth: int          # slots of the ring
+    slot_elems: int     # values of one slot (dense rows)
+    smem_bytes: int
+    threads: int        # the block's threads (dense rows; the long
+    #                     kernels' are their own)
+    tile_pitch: int = 0  # dense rows, C > 1: the row pitch of the owners'
+    #                      tiles they are pushed into (odd, at least the
+    #                      share)
+
+    @property
+    def group(self) -> int:
+        """Consecutive rows kp of one line that a cluster stores at once."""
+        return self.cluster * self.lines
+
+
+def _dense_rows(plan: SplitPlan, dtype: torch.dtype) -> bool:
+    """Whether pass B runs on the dense route's stages: a general plan's
+    rows, or those of a nested plan or a chirp's M that take the dense
+    route."""
+    return plan.row_path == "dense" or (
+        plan.row_path == "any" and row_route(plan.q, dtype) == "dense")
+
+
+@functools.lru_cache(maxsize=1 << 12)
+def fold_layout(plan: SplitPlan, dtype: torch.dtype) -> Optional[FoldLayout]:
+    """Pass B with pass C folded in, where the plan's rows take it: on
+    long-line rows (``fft_long.cuh``'s ``split_fold_long_kernel``,
+    ``split_fold_mixed_kernel``: a cluster of C rows, one a block, the
+    long kernel's own layout, C = :data:`FOLD_RUN_BYTES` / itemsize, which
+    divides P) and on the dense route's stages at a 13-smooth Q
+    (``fft_dense.cuh``'s ``split_fold_dense_kernel``: L = the dense plan's
+    lines of Q a block, C = the run's rows over L, at least 1; the tables
+    of ``dense.DensePlan``, then the ring's slots of L rows and 16 bytes
+    each: where C = 1 :data:`FOLD_DEPTH` slots, or 1 where two do not
+    fit; where C > 1 one slot and the tile of G rows at an odd pitch of
+    at least ceil(Q/C) that the cluster's blocks push their rows into; an
+    mbarrier per slot).  None where the rows keep pass C: radix rows
+    (their own pass B stores transposed), a nested plan's rows on another
+    route, dense rows with a generic stage or whose slot (and tile) do
+    not fit one block."""
+    if plan.row_path == "long":
+        tile = longline.long_tile(plan.q, dtype)
+        run = FOLD_RUN_BYTES["long"][dtype] // dtype.itemsize
+        return FoldLayout("long", min(run, plan.p), 1, tile.depth, 0,
+                          tile.smem_bytes, 0)
+    if not _dense_rows(plan, dtype):
+        return None
+    rows = dense.dense_plan(plan.q, dtype)
+    if rows.generic:
+        return None
+    run = FOLD_RUN_BYTES["dense"][dtype] // dtype.itemsize
+    cluster = max(1, run // rows.lines)
+    for depth in ((1,) if cluster > 1 else (FOLD_DEPTH, 1)):
+        layout = dense_fold(plan, dtype, cluster, depth)
+        if layout is not None:
+            return layout
+    return None
+
+
+def dense_fold(plan: SplitPlan, dtype: torch.dtype, cluster: int,
+               depth: int) -> Optional[FoldLayout]:
+    """The folded pass B's layout on dense rows of ``plan`` for clusters of
+    ``cluster`` blocks and a ring of ``depth`` slots, with, where cluster >
+    1, the tile the rows are pushed into (:func:`fold_layout` picks among
+    them); the block's threads the dense route's narrow count, the wide
+    one where one block has the SM alone (an H100 sweep read the narrow
+    count ahead wherever two blocks share an SM, PERF.md §6).  None where
+    it does not fit one block's shared memory."""
+    rows = dense.dense_plan(plan.q, dtype)
+    size = dtype.itemsize
+    slot = -(-(rows.lines * plan.q * size + 16) // 16) * 16
+    pitch = -(-plan.q // cluster) | 1 if cluster > 1 else 0
+    smem = (rows.buf_offset + depth * slot
+            + cluster * rows.lines * pitch * size + 16)
+    if smem > radix.SMEM_MAX_BYTES:
+        return None
+    narrow, wide = dense.THREADS[size]
+    return FoldLayout("dense", cluster, rows.lines, depth, slot // size, smem,
+                      wide if smem > radix.SMEM_TARGET_BYTES else narrow,
+                      pitch)
+
+
+def call_launches(plan: SplitPlan, dtype: torch.dtype) -> int:
+    """Launches of one call of ``plan`` but a nested plan's rows' own:
+    pass A and pass B (radix rows, or rows with pass C folded in), or
+    pass A, the rows' launch and pass C."""
+    return 2 if plan.row_path == "radix" or fold_layout(plan, dtype) else 3
+
+
 def column_tile(plan: SplitPlan, dtype: torch.dtype):
     """Pass A's tile: the strided radix tile of P (no staged twiddle), or
     the dense kernel's column tile (``dense.column_plan``)."""
@@ -558,12 +704,9 @@ def column_tile(plan: SplitPlan, dtype: torch.dtype):
 
 def row_tile(plan: SplitPlan, dtype: torch.dtype):
     """Pass B's tile: the radix route's tile of Q on lines (the output
-    twiddle is read from L2, not staged), the long-line route's, or the
-    dense kernel's (``dense.dense_plan``)."""
+    twiddle is read from L2, not staged) or the long-line route's."""
     if plan.row_path == "long":
         return longline.long_tile(plan.q, dtype)
-    if plan.row_path == "dense":
-        return dense.dense_plan(plan.q, dtype)
     return radix.radix_tile(plan.q, dtype.itemsize, False, False)
 
 
@@ -642,16 +785,106 @@ def emulate_plan(x: torch.Tensor, plan: SplitPlan, *, inverse: bool = False,
     if plan.row_path == "radix":
         return radix.emulate(rows, inverse=inverse, twiddle=twiddle,
                              pack_parts=pack_parts, rows_per_line=plan.p)
-    if plan.row_path == "dense":
-        z = dense.emulate(rows, inverse=inverse)
-    elif plan.row_path == "any":
-        # the rows' own route, its 1/Q included
-        from .fft_matmul import fft_fourstep_plain    # it imports this
-        z = fft_fourstep_plain(rows.contiguous(), inverse=inverse)
-    else:
-        z = longline.emulate(rows, inverse=inverse, scaled=False)
+    layout = fold_layout(plan, x.dtype)
+    if layout is not None:
+        if layout.rows == "dense":
+            staged, pos = dense.staged(rows, inverse)
+        else:
+            pos = fold_positions(plan.q, x.dtype)
+            staged = torch.zeros((b * plan.p, int(pos.max()) + 1),
+                                 dtype=x.dtype, device=x.device)
+            staged[:, pos.to(x.device)] = longline.emulate(
+                rows, inverse=inverse, scaled=False)
+        return fold_emulate(staged.reshape(b, plan.p, -1), pos, plan,
+                            layout, inverse=inverse, twiddle=twiddle,
+                            pack_parts=pack_parts, keep=keep)
+    # rows that keep pass C ("any"): the rows' own route, its 1/Q included
+    from .fft_matmul import fft_fourstep_plain    # it imports this
+    z = fft_fourstep_plain(rows.contiguous(), inverse=inverse)
     return transpose_emulate(z, plan, inverse=inverse, twiddle=twiddle,
                              pack_parts=pack_parts, keep=keep)
+
+
+def fold_positions(q: int, dtype: torch.dtype) -> torch.Tensor:
+    """Where the long-line kernels' pass 3 leaves output kq of a row of
+    ``q`` in its line buffer (:func:`fold_emulate`'s ``pos``): in natural
+    order on a power-of-two Q (``long_body``), at (k1, k2, k3) on a mixed
+    one (``mixed_tiles``: kq = kA + R1*R2*k3, kA = k1 + R1*k2, each item's
+    outputs where it read its inputs, R1 rows at a pitch of R2*R3 plus 16
+    bytes)."""
+    kq = torch.arange(q)
+    if radix.is_pow2(q):
+        return kq
+    r1, r2, r3 = longline.FACTORS[dtype][q]
+    pitch = r2 * r3 + 16 // dtype.itemsize
+    k3, ka = kq // (r1 * r2), kq % (r1 * r2)
+    return (ka % r1) * pitch + (ka // r1) * r3 + k3
+
+
+def fold_shares(plan: SplitPlan, layout: FoldLayout,
+                dtype: torch.dtype) -> list:
+    """The kq each block of a cluster stores (``split_fold_store``), per
+    rank, in the order its threads take them: on mixed long-line rows the
+    k3 in [rank*K3, (rank+1)*K3), K3 = R3/C, of every kA = k1 + R1*k2, k3
+    fastest (kq = kA + R1*R2*k3: consecutive words of ``mixed_tiles``'
+    buffer, :func:`fold_positions`); else [rank*S, (rank+1)*S) within Q,
+    S = ceil(Q/C)."""
+    q, c = plan.q, layout.cluster
+    if layout.rows == "long" and not radix.is_pow2(q):
+        r1, r2, r3 = longline.FACTORS[dtype][q]
+        k3s = r3 // c
+        t = torch.arange(q // c)
+        return [t // k3s + r1 * r2 * (rank * k3s + t % k3s)
+                for rank in range(c)]
+    share = -(-q // c)
+    return [torch.arange(min(q, rank * share), min(q, (rank + 1) * share))
+            for rank in range(c)]
+
+
+def fold_emulate(staged: torch.Tensor, pos: torch.Tensor, plan: SplitPlan,
+                 layout: FoldLayout, *, inverse: bool = False,
+                 twiddle: Optional[torch.Tensor] = None,
+                 pack_parts: Optional[int] = None,
+                 keep: Optional[int] = None) -> torch.Tensor:
+    """Pass B's store with pass C folded in, by the cluster's own map
+    (``split_fold_store``): ``staged`` holds B lines of P rows as the
+    kernel leaves them in shared memory, output kq of row kp at
+    staged[b, kp, pos[kq]] (unscaled).  Line b's rows go in groups of G =
+    C*L (``layout.group``) consecutive kp0 + j, a group never spanning two
+    lines, the last group's rows past P masked; block ``rank`` of a
+    cluster stores its share of kq (:func:`fold_shares`) of every row of
+    the group at of = kp0 + j + P*kq, times ``twiddle[of]``, times the
+    inverse's 1/(P*Q), into the ``pack_parts`` segment of of; with
+    ``keep`` only of < ``keep``.  Returns what the kernel writes: ``(B,
+    N)`` (or ``(B, keep)``), or the ``(p, B, N/p)`` buffer with
+    ``pack_parts``."""
+    b, dev, cdt = staged.shape[0], staged.device, staged.dtype
+    p, g = plan.p, layout.group
+    kept = plan.n if keep is None else keep
+    parts = pack_parts or 1
+    seg = kept // parts
+    out = torch.empty(parts * b * seg, dtype=cdt, device=dev)
+    kp = (torch.arange(-(-p // g), device=dev)[:, None] * g
+          + torch.arange(g, device=dev)[None, :])        # (groups, G)
+    valid = kp < p
+    line = torch.arange(b, device=dev)[:, None]
+    tw = None if twiddle is None else twiddle.to(dev, cdt).reshape(-1)
+    pos = pos.to(dev)
+    for kq in fold_shares(plan, layout, cdt):
+        kq = kq.to(dev)
+        of = kp[..., None] + p * kq                       # (groups, G, K)
+        mask = valid[..., None] & (of < kept)
+        src = kp.clamp(max=p - 1)[..., None] * staged.shape[2] + pos[kq]
+        of, src = of[mask], src[mask]
+        y = staged.reshape(b, -1)[:, src]                 # (B, M)
+        if tw is not None:
+            y = y * tw[of]
+        if inverse:
+            y = y * (1.0 / plan.n)
+        out[((of // seg) * b + line) * seg + of % seg] = y
+    if pack_parts is None:
+        return out.reshape(b, kept)
+    return out.reshape(parts, b, seg)
 
 
 def transpose_emulate(z: torch.Tensor, plan: SplitPlan, *,
@@ -661,7 +894,8 @@ def transpose_emulate(z: torch.Tensor, plan: SplitPlan, *,
                       keep: Optional[int] = None) -> torch.Tensor:
     """Pass C in torch: ``z`` holds B lines of (P, Q) rows z[b, kp, kq];
     out[b, kp + P*kq] = z[b, kp, kq] times ``twiddle[kp + P*kq]``, times
-    the inverse's 1/N (after rows that applied 1/Q, dense or any: 1/P),
+    the inverse's 1/N (1/P after rows that applied their 1/Q: all but
+    long-line rows, which apply none),
     stored as the kernel stores it: ``(B, N)`` or the ``(p, B, N/p)``
     buffer; with ``keep`` only the outputs of index < ``keep``, ``(B,
     keep)`` or ``(p, B, keep/p)``."""
@@ -677,8 +911,7 @@ def transpose_emulate(z: torch.Tensor, plan: SplitPlan, *,
     if twiddle is not None:
         y = y * twiddle.to(dev, cdt).reshape(-1)[of]
     if inverse:
-        y = y * (1.0 / (plan.p if plan.row_path in ("dense", "any")
-                        else n))
+        y = y * (1.0 / (n if plan.row_path == "long" else plan.p))
     parts = pack_parts or 1
     seg = kept // parts
     line = torch.arange(b, device=dev)[:, None]

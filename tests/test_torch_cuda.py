@@ -260,9 +260,9 @@ def test_cuda_long_kernel_reads_an_unaligned_view(cuda):
     (2, True, 4, True)])
 def test_cuda_split_kernel_matches_plain_version_and_torch_fft(
         cuda, dtype, n, b, inverse, parts, use_tw):
-    """The split route (one split call, every launch on the "split" path:
-    pass A strided, pass B on lines, and with rows on the long-line route
-    pass C, the transpose, on lines) against its plain version
+    """The split route (one split call of two launches, both on the "split"
+    path: pass A strided, pass B on lines, on the long-line route through a
+    cluster with pass C folded in) against its plain version
     (``split.emulate``)
     and ``torch.fft``, at the kernel's tolerances, with both epilogues;
     rows on the radix route (2^16, complex128 2^14) and on the long-line
@@ -287,11 +287,11 @@ def test_cuda_split_kernel_matches_plain_version_and_torch_fft(
     counts = tfm.launch_counts()
     long_rows = plan.row_path == "long"
     assert counts["split_calls"] == 1
-    assert counts["launches"] == 2 + long_rows
-    assert counts["strided"] == 1 and counts["lines"] == 1 + long_rows
+    assert counts["launches"] == 2
+    assert counts["strided"] == 1 and counts["lines"] == 1
+    assert counts["fold_long"] == long_rows and counts["fold_dense"] == 0
     assert tfm.fft_fourstep.path_launches == {
-        "radix": 0, "dense": 0, "long": 0, "split": 2 + long_rows,
-        "chirp": 0}
+        "radix": 0, "dense": 0, "long": 0, "split": 2, "chirp": 0}
     assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
     assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
     if parts is not None:
@@ -466,8 +466,8 @@ def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
     got = tfm.fft_fourstep(x, inverse=inverse, twiddle=tw, pack_parts=parts)
     torch.cuda.synchronize()
     counts = tfm.launch_counts()
-    inner = 1 if plan.route in ("dense", "long") else 2 + transform_launches(
-        plan.split.q, dtype)
+    inner = 1 if plan.route in ("dense", "long") else any_launches(
+        plan.split, dtype)
     assert counts["chirp_calls"] == 1 and counts["split_calls"] == 0
     assert counts["launches"] == counts["chirp"] == 2 * inner, counts
     assert tfm.fft_fourstep.path_launches["dense"] == 0
@@ -480,15 +480,22 @@ def test_cuda_chirp_route_matches_plain_version_and_torch_fft(
 
 def transform_launches(n, dtype) -> int:
     """Launches of one transform of contiguous lines of ``n``: one, or a
-    split call's two or three, or a nested plan's pass A, its rows' and
-    pass C."""
+    split call's two, or a nested plan's pass A, its rows' and pass C
+    where its rows keep pass C."""
     from repro_torch.kernels import split
     if radix.kernel_path(n, dtype) != "split":
         return 1
-    plan = split.split_plan(n, dtype)
-    if plan.row_path == "any":
+    return any_launches(split.split_plan(n, dtype), dtype)
+
+
+def any_launches(plan, dtype) -> int:
+    """Launches of one call of a split plan: two (pass A and pass B, pass
+    C folded in where the rows take the dense or long-line route's
+    stages), or pass A, the rows' own launches and pass C."""
+    from repro_torch.kernels import split
+    if plan.row_path == "any" and split.fold_layout(plan, dtype) is None:
         return 2 + transform_launches(plan.q, dtype)
-    return 2 + int(plan.row_path in ("long", "dense"))
+    return split.call_launches(plan, dtype)
 
 
 @pytest.mark.cuda
@@ -768,8 +775,8 @@ def test_cuda_split_rule_lengths_match_plain_version_and_torch_fft(
         cuda, dtype, inverse):
     """Every length of the split route's rule (``split.rule_factors``:
     complex64 396, complex128 269, past the long-line route to 2^24 /
-    2^22): one split call of 2 launches (radix rows) or 3 (long-line rows
-    and the transpose), all on "split", against ``torch.fft`` at the
+    2^22): one split call of 2 launches (radix rows, or long-line rows
+    with pass C folded in), all on "split", against ``torch.fft`` at the
     kernel's tolerances; the first length of each Q with both epilogues
     (segments of N/2) against the plain version too."""
     from repro_torch.kernels import split
@@ -786,8 +793,8 @@ def test_cuda_split_rule_lengths_match_plain_version_and_torch_fft(
         got = tfm.fft_fourstep(x, inverse=inverse)
         torch.cuda.synchronize()
         counts = tfm.launch_counts()
-        want = 2 + (plan.row_path == "long")
-        assert counts["launches"] == counts["split"] == want, (n, counts)
+        assert counts["launches"] == counts["split"] == 2, (n, counts)
+        assert counts["fold_long"] == (plan.row_path == "long"), n
         assert counts["split_calls"] == 1
         lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
         assert_scaled_close(got.cpu().numpy(), lib.cpu().numpy(), tol)
@@ -813,8 +820,8 @@ def test_cuda_split_rule_lengths_match_plain_version_and_torch_fft(
 def test_cuda_split_general_plans_match_plain_version_and_torch_fft(
         cuda, dtype, n, b):
     """The split route's general plans (``split.general_factors``): one
-    split call of 3 launches on "split" (pass A strided, the dense
-    kernel's rows and pass C on lines), both directions with both
+    split call of 2 launches on "split" (pass A strided, the dense rows
+    with pass C folded in on lines), both directions with both
     epilogues (segments of N/r, r the least prime factor of N) against
     the plain version (``split.emulate``) and ``torch.fft`` at the
     kernel's tolerances; then the first candidate plan of each pass A
@@ -835,8 +842,9 @@ def test_cuda_split_general_plans_match_plain_version_and_torch_fft(
                                    pack_parts=p)
             torch.cuda.synchronize()
             counts = tfm.launch_counts()
-            assert counts["launches"] == counts["split"] == 3, counts
+            assert counts["launches"] == counts["split"] == 2, counts
             assert counts["strided"] == 1 and counts["split_calls"] == 1
+            assert counts["fold_dense"] == 1, counts
             want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=t,
                                           pack_parts=p)
             ref = lib if t is None else (lib * t).reshape(b, p, n // p)
@@ -854,6 +862,65 @@ def test_cuda_split_general_plans_match_plain_version_and_torch_fft(
                                   pack_parts=parts)
         assert_scaled_close(got.transpose(0, 1).cpu().numpy(),
                             want.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,b,rows,cluster,ragged", [
+    (torch.complex64, 3 ** 15, 1, "dense", 8, True),    # 2187 x 6561
+    (torch.complex128, 2278125, 1, "dense", 1, True),   # 1875 x 1215
+    (torch.complex128, 1397760, 1, "dense", 2, False),  # 256 x 5460
+    (torch.complex64, 1 << 23, 2, "long", 8, False),    # 512 x 16384
+    (torch.complex128, 25 << 17, 2, "long", 2, False)])  # 512 x 6400
+def test_cuda_split_fold_kernels_match_torch_fft_and_their_gradient(
+        cuda, dtype, n, b, rows, cluster, ragged):
+    """The split route's pass B with pass C folded in
+    (``split.fold_layout``: ``split_fold_dense_kernel`` on dense rows,
+    ``split_fold_long_kernel`` / ``split_fold_mixed_kernel`` on long-line
+    rows, a cluster's rows stored transposed; the dense rows with a
+    ragged P on a cluster and in one block, a complex128 cluster, a mixed
+    long row):
+    one split call of 2
+    launches, the second on the folded kernel, both directions with both
+    epilogues against the plain version (``split.emulate``) at the
+    kernel's tolerances and ``torch.fft`` within 2e-4; then the gradient
+    through ``ops.LineTransform`` (the adjoint, the same route) against
+    ``torch.fft``'s within 2e-4."""
+    from repro_torch.kernels import split
+    plan = split.split_plan(n, dtype)
+    layout = split.fold_layout(plan, dtype)
+    assert layout is not None and layout.rows == rows, (plan, layout)
+    assert layout.cluster == cluster, (plan, layout)
+    assert (plan.p % layout.group != 0) == ragged, (plan, layout)
+    tol = 5e-6 if dtype == torch.complex64 else 1e-12
+    x = torch.from_numpy(cplx((b, n), n)).to(cuda, dtype)
+    tw = torch.exp(-1j * math.pi * torch.arange(n, device=cuda)
+                   / (2 * n)).to(dtype)
+    parts = next(r for r in (2, 3, 5) if n % r == 0)
+    for inverse in (False, True):
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)
+        for t, p in ((None, None), (tw, parts)):
+            tfm.reset_launch_counts()
+            got = tfm.fft_fourstep(x, inverse=inverse, twiddle=t,
+                                   pack_parts=p)
+            torch.cuda.synchronize()
+            counts = tfm.launch_counts()
+            assert counts["launches"] == counts["split"] == 2, counts
+            assert counts["fold_" + rows] == 1, counts
+            want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=t,
+                                          pack_parts=p)
+            ref = lib if t is None else (lib * t).reshape(b, p, n // p)
+            assert_scaled_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+            assert_scaled_close(got.cpu().numpy(), ref.cpu().numpy(), 2e-4)
+            del got, want, ref
+        del lib
+    g = torch.from_numpy(cplx((b, n), n + 1)).to(cuda, dtype)
+    grads = []
+    for fn in (ops.fft1d, torch.fft.fft):
+        xx = x.clone().requires_grad_(True)
+        (fn(xx) * g).real.sum().backward()
+        grads.append(xx.grad)
+    assert_scaled_close(grads[0].cpu().numpy(), grads[1].cpu().numpy(),
+                        2e-4)
 
 
 @pytest.mark.cuda
@@ -895,8 +962,8 @@ def test_cuda_long_rule_lengths_match_plain_version_and_torch_fft(
 def test_cuda_split_mixed_lengths_match_plain_version_and_torch_fft(
         cuda, dtype):
     """Every mixed split length (rows on the radix route at a mixed Q, or
-    on the mixed long-line kernel with the transpose at a mixed Q): one
-    split call each, two or three launches on "split", against the plain
+    on the mixed long-line kernel's body with pass C folded in): one split
+    call each, two launches on "split", against the plain
     version (``split.emulate``) and ``torch.fft`` at the kernel's
     tolerances, both directions by turns, with the twiddle and a segment
     of N/r (r the least odd prime of N) by turns."""
@@ -919,7 +986,8 @@ def test_cuda_split_mixed_lengths_match_plain_version_and_torch_fft(
         counts = tfm.launch_counts()
         long_rows = split.split_plan(n, dtype).row_path == "long"
         assert counts["split_calls"] == 1, n
-        assert counts["launches"] == counts["split"] == 2 + long_rows, n
+        assert counts["launches"] == counts["split"] == 2, n
+        assert counts["fold_long"] == long_rows, n
         want = tfm.fft_fourstep_plain(x, inverse=inverse, twiddle=tw,
                                       pack_parts=parts)
         lib = (torch.fft.ifft if inverse else torch.fft.fft)(x)

@@ -127,9 +127,10 @@ def test_split_plan_matches_numpy_and_pallas(case, request):
                                                   (True, True, 4)])
 def test_split_rows_on_either_route_match_numpy(dtype, n, inverse, use_tw,
                                                 parts):
-    """Pass B on the long-line route (``longline.emulate``, then pass C's
-    transposed store) at the table's lengths whose rows take it, one line,
-    against np.fft with the epilogues."""
+    """Pass B on the long-line route (``longline.emulate`` with the
+    cluster's transposed store, ``split.fold_emulate``) at the table's
+    lengths whose rows take it, one line, against np.fft with the
+    epilogues."""
     plan = split.split_plan(n, dtype)
     assert plan.row_path == "long"
     r = np.random.default_rng(n % 1000 + int(inverse))

@@ -1,12 +1,12 @@
 """The split route's general plans (``kernels/split.py``:
 ``general_factors``): every 13-smooth N past one block up to 2^24
 (complex64) / 2^22 (complex128) that no other route takes, as N = P*Q with
-pass B on the dense route's launch on the rows of Q (``fft_dense.cuh``'s
-``dense_kernel``, the inverse's 1/Q included), pass A on the radix route
-at a P of ``split.COLUMN_SIZES`` or on the dense kernel's column form of
-any P (``dense_column_kernel``, the inter-step twiddle from two tables),
-and pass C for any P and Q (``split_transpose_any``) with the line's
-epilogues and the inverse's 1/P.
+pass A on the radix route at a P of ``split.COLUMN_SIZES`` or on the dense
+kernel's column form of any P (``dense_column_kernel``, the inter-step
+twiddle from two tables), and pass B on the dense route's stages on the
+rows of Q, stored transposed through a thread-block cluster with the
+line's epilogues and the inverse's 1/N (``split_fold_dense_kernel``;
+``tests/test_torch_split_fold_fft.py`` holds its cluster map).
 General lengths and forced small plans through the route's plain version
 (``split.emulate``, which the wrapper runs on CPU tensors) against
 ``np.fft`` and the JAX package's Pallas kernel in interpret mode on the
@@ -161,7 +161,8 @@ def test_every_smooth_line_past_one_block_has_a_general_plan(dtype):
     radix tile of a P of ``COLUMN_SIZES`` with its inter-step tables
     within ``split.TABLE_MAX_BYTES``, or the dense kernel's column tile
     of 16, 8 or 4 columns, its lines an odd pitch apart), pass B's row
-    of Q and its tables in one block, 3 launches on the card; none is
+    of Q and its tables in one block, 2 launches on the card (3 where a
+    row and the cluster's tile do not fit one block); none is
     left to the chirp, and no 13-smooth length raises."""
     taken = (set(radix.RADIX_SIZES[dtype]) | set(longline.FACTORS[dtype])
              | set(split.FACTORS[dtype]))
@@ -187,7 +188,8 @@ def test_every_smooth_line_past_one_block_has_a_general_plan(dtype):
             assert tile.lines in dense.COLUMN_LINES
             assert tile.line_pitch % 2 == 1 and tile.line_pitch - p <= 1
             assert tile.smem_bytes <= radix.SMEM_MAX_BYTES
-        assert split.row_tile(plan, dtype).smem_bytes <= radix.SMEM_MAX_BYTES
+        rows = split.fold_layout(plan, dtype) or dense.dense_plan(q, dtype)
+        assert rows.smem_bytes <= radix.SMEM_MAX_BYTES
     assert (general, past) == COUNTS[dtype]
 
 

@@ -3,8 +3,9 @@
 27}, past the long-line route's (``kernels/split.py``): N = P*Q with P a power of
 two (pass A, the strided radix entry unchanged) and the odd part in Q (pass
 B: the radix route's ``kRadixSplitB`` at a mixed Q, or the mixed long-line
-kernel unscaled and pass C, ``split_transpose`` at a Q that is not a power
-of two).  The route's plain version, ``split.emulate`` (the
+kernel's body with the line's transposed store folded in through a
+cluster, ``split_fold_mixed_kernel``, at a Q that is not a power of
+two).  The route's plain version, ``split.emulate`` (the
 wrapper runs it for CPU tensors), is held against ``np.fft`` and against
 the JAX package's Pallas kernel in interpret mode on the same numpy
 inputs (complex64 18432, 24576, 30720, 22528 = 11*2^11, 28672 = 7*2^12,
@@ -149,9 +150,10 @@ def test_split_mixed_plan_matches_numpy_and_pallas(case, request):
 @pytest.mark.parametrize("inverse,use_tw,parts", [(False, False, None),
                                                   (True, True, 3)])
 def test_split_mixed_long_rows_match_numpy(dtype, n, inverse, use_tw, parts):
-    """Pass B on the mixed long-line kernel (``longline.emulate``
-    unscaled), then pass C's transposed store at a Q that is not a power
-    of two, one line, against np.fft with the epilogues."""
+    """Pass B on the mixed long-line kernel's body (``longline.emulate``
+    unscaled) with its transposed store folded in (``split.fold_emulate``)
+    at a Q that is not a power of two, one line, against np.fft with the
+    epilogues."""
     plan = split.split_plan(n, dtype)
     assert plan.row_path == "long" and not radix.is_pow2(plan.q)
     if n % (parts or 1):
@@ -179,8 +181,8 @@ def test_split_mixed_plan_sizes_fit_the_tiles(dtype, n):
     """Every mixed length of the table: P a power of two on the strided
     radix tile (an instantiated pass A); Q = N/P carries the odd part, on
     the radix route's lines tile (whose L rows divide P; an instantiated
-    pass B) or the long-line route (a multiple of 32, for the transpose's
-    tiles); QL a power of two dividing Q; the twiddle tables far below
+    pass B) or the long-line route (a multiple of 32, as the table
+    has it); QL a power of two dividing Q; the twiddle tables far below
     N for the measured table's lengths.  The rule's Q (``split.
     rule_factors``) may hold a single factor of 2, so QL = 2 and TB holds
     P*Q/2 entries: at most P*(2 + Q/2), within 16 MB (1024 x 960 complex64
@@ -303,8 +305,10 @@ def test_split_mixed_constants_are_the_inter_step_twiddle(inverse):
 
 
 def test_split_mixed_transpose_stores_each_row_at_kp_plus_p_kq():
-    """Pass C at a mixed Q: z[b, kp, kq] lands at out[b, kp + P*kq], times
-    the twiddle and 1/N, in segments of N/parts (here N/3)."""
+    """Pass C's plain version at a mixed Q (``split.transpose_emulate``,
+    which the plans whose rows keep pass C run): z[b, kp, kq] lands at
+    out[b, kp + P*kq], times the twiddle and 1/N, in segments of N/parts
+    (here N/3)."""
     dtype = torch.complex128
     plan = split.split_plan(3 << 18, dtype)          # 128 x 6144
     r = np.random.default_rng(9)

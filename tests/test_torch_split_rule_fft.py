@@ -4,8 +4,8 @@ every r*2^k, r in ``radix.WIDE_ODD``, up to 2^24 (complex64) / 2^22
 (complex128) that no other route takes, with N = P*Q, P a pass-A length
 (``split.COLUMN_SIZES``) and Q a radix row up to ``split.ROW_MAX`` (the
 least P below the largest whose Q is at most ``split.ROW_SHORT``, else
-the least P) or else a long-line row that pass C takes (a multiple of
-32, P in ``split.LONG_P``'s order).  Rule lengths on both kinds of row through
+the least P) or else a long-line row (a multiple of 32, P in
+``split.LONG_P``'s order).  Rule lengths on both kinds of row through
 the route's plain version (``split.emulate``, which the wrapper runs on
 CPU tensors) against ``np.fft`` and the JAX package's Pallas kernel in
 interpret mode on the same numpy inputs (complex64 33792 = 256 x 132 and
@@ -144,7 +144,7 @@ def test_rule_plans_fit_the_tiles_and_the_instantiated_sizes(dtype):
     length on the strided radix tile; Q a radix row (an instantiated pass
     B of ``ROW_SIZES``, a radix-route length up to ``ROW_MAX``, whose
     tile's L rows divide P) or a long-line row (a length of
-    ``longline.FACTORS``, a multiple of 32 for pass C's tiles); both
+    ``longline.FACTORS``, a multiple of 32); both
     tiles within one block's shared memory; QL a power of two dividing Q;
     the inter-step tables within 16 MB; N on the split route.  The counts
     of rule lengths, long-line rows and lengths past the chirp's limit
